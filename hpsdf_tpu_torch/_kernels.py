@@ -1,0 +1,111 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+
+At first use every ``csrc/*.cu`` is compiled by nvcc for Hopper
+(``sm_90a``) into one shared library with a plain C interface, which is
+loaded with ctypes. The library goes to ``build/hpsdf_tpu_torch/`` at the
+repository root, under a name keyed by a hash of the sources and flags, so
+a changed source rebuilds and an unchanged one is reused. Nothing is
+fetched: the sources are the package's own.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
+                         "hpsdf_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I64, _I32, _F64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_double)
+# C signatures of the entry points (see the .cu sources)
+_SIGNATURES = {
+    "hpsdf_closest_tri": (_P, _I64, _I64, _P, _I64, _P, _P, _P),
+    "hpsdf_query": (_P, _P, _P, _P, _I32, _P, _P, _I32, _I32, _P, _I64,
+                    _F64, _F64, _F64, _F64, _F64, _F64, _I32, _P, _P, _P),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "",
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+        "/usr/local/cuda/bin): the CUDA toolkit is needed to build the "
+        "hpsdf_tpu_torch kernels for CUDA tensors")
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        with open(src, "rb") as fh:
+            h.update(os.path.basename(src).encode() + b"\0" + fh.read())
+    return os.path.join(BUILD_DIR, f"libhpsdf_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # build to a private name, then rename: a concurrent loader never sees a
+    # half-written library
+    tmp = f"{path}.tmp{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+            f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, path)
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, compiled on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not os.path.exists(path):
+                _build(path)
+            lib = ctypes.CDLL(path)
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
+            lib.hpsdf_error_string.argtypes = [ctypes.c_int]
+            lib.hpsdf_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.hpsdf_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} "
+                           f"({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,176 @@
+"""Batched octree queries.
+
+The counterpart of ``hpsdf_tpu/query.py``:
+
+  * ``query``               <- Octree::Query (Source/HP/Octree.cpp:662-702)
+  * ``query_with_gradient`` <- Octree::QueryWithGradient (:749-789), with
+    exact analytic gradients.
+
+For tensors on a CUDA device both go through kernel K1 (``csrc/query.cu``,
+wrapper ``query_kernel``), which runs the descent, the Legendre evaluation
+and the masking per point in one launch. For tensors on the CPU they run
+the plain torch version (``descend`` + ``basis.eval_basis``), which is also
+what the kernel is held against.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _kernels, basis, consts
+from .tree import Octree
+
+# Value returned for points outside the root AABB
+# (reference returns std::numeric_limits<f64>::max(), Octree.cpp:668-671).
+OUTSIDE_VALUE = float(np.finfo(np.float64).max)
+
+
+def _to_unit(tree: Octree, pts: torch.Tensor) -> torch.Tensor:
+    """World -> internal unit-cube coords (reference: Octree.cpp:665)."""
+    centre = torch.as_tensor(tree.config.root_centre, dtype=pts.dtype,
+                             device=pts.device)
+    inv = torch.as_tensor(1.0 / tree.config.root_sizes, dtype=pts.dtype,
+                          device=pts.device)
+    return (pts - centre) * inv
+
+
+def descend(tree: Octree, unit_pts: torch.Tensor) -> torch.Tensor:
+    """Leaf index (B,) i32 containing each unit-cube point (B, 3): depth_used
+    rounds of child = child_idx[cur] + (x>=cx) + 2(y>=cy) + 4(z>=cz), with
+    leaves carried unchanged."""
+    cur = torch.zeros(unit_pts.shape[:-1], dtype=torch.long,
+                      device=unit_pts.device)
+    child_idx = tree.child_idx.long()
+    for _ in range(tree.depth_used):
+        child0 = child_idx[cur]
+        cc = tree.centre[cur]
+        oct_ = ((unit_pts[..., 0] >= cc[..., 0]).long()
+                + ((unit_pts[..., 1] >= cc[..., 1]).long() << 1)
+                + ((unit_pts[..., 2] >= cc[..., 2]).long() << 2))
+        cur = torch.where(child0 < 0, cur, child0 + oct_)
+    return cur.int()
+
+
+def _leaf_frame(tree: Octree, pts: torch.Tensor):
+    """Inside-root mask, then each point's leaf: its coefficient row, the
+    point in the leaf's [-1, 1]^3 frame, the leaf depth and 2**(depth+1)."""
+    unit = _to_unit(tree, pts)
+    inside = torch.all(unit.abs() <= 0.5, dim=-1)
+    clamped = unit.clamp(-0.5, 0.5)
+    leaf = descend(tree, clamped).long()
+    depth = tree.depth[leaf]
+    scale = torch.exp2((depth + 1).to(pts.dtype))
+    local = (clamped - tree.centre[leaf]) * scale[..., None]
+    return inside, tree.coeffs[leaf], local, depth, scale
+
+
+def query_plain(tree: Octree, pts: torch.Tensor,
+                outside_value_max: bool = True) -> torch.Tensor:
+    """``query`` by the plain torch version of K1, whatever the device."""
+    inside, coeffs, local, depth, _ = _leaf_frame(tree, pts)
+    val = basis.eval_basis(coeffs, local, depth, tree.deg_used)
+    return torch.where(inside, val, OUTSIDE_VALUE) if outside_value_max \
+        else val
+
+
+def query_with_gradient_plain(tree: Octree, pts: torch.Tensor):
+    """``query_with_gradient`` by the plain torch version of K1, whatever
+    the device."""
+    inside, coeffs, local, depth, scale = _leaf_frame(tree, pts)
+    val, g_local = basis.eval_basis_grad(coeffs, local, depth, tree.deg_used)
+    # chain rule: local = (unit - centre) * 2**(depth+1); unit = (w - c)/sizes
+    inv_sizes = torch.as_tensor(1.0 / tree.config.root_sizes,
+                                dtype=pts.dtype, device=pts.device)
+    g_world = g_local * scale[..., None] * inv_sizes
+    norm = torch.linalg.norm(g_world, dim=-1, keepdim=True)
+    unit_grad = g_world / torch.clamp(norm, min=1e-30)
+    return torch.where(inside, val, OUTSIDE_VALUE), unit_grad
+
+
+def query_kernel(tree: Octree, pts: torch.Tensor, with_grad: bool,
+                 outside_value_max: bool = True):
+    """Launch K1 on CUDA tensors: values (B,) f64, and with ``with_grad``
+    also unit world gradients (B, 3) f64. Raises on anything else."""
+    if pts.device.type != "cuda" or tree.device != pts.device:
+        raise ValueError("query_kernel needs the tree and the points on one "
+                         f"CUDA device (tree {tree.device}, pts {pts.device})")
+    if pts.dtype != torch.float64 or pts.dim() != 2 or pts.shape[1] != 3:
+        raise ValueError(f"pts must be f64 (B, 3), got {pts.dtype} "
+                         f"{tuple(pts.shape)}")
+    C = consts.coeff_count(tree.deg_used)
+    for name, t, dt in (("child_idx", tree.child_idx, torch.int32),
+                        ("centre", tree.centre, torch.float64),
+                        ("depth", tree.depth, torch.int32),
+                        ("coeffs", tree.coeffs, torch.float64)):
+        if t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"tree.{name} must be contiguous {dt}")
+    if tree.coeffs.shape[1] != C or tree.centre.shape[1] != 3:
+        raise ValueError("tree arrays do not match deg_used")
+    pts = pts.contiguous()
+    B = pts.shape[0]
+    val = torch.empty(B, dtype=torch.float64, device=pts.device)
+    grad = (torch.empty((B, 3), dtype=torch.float64, device=pts.device)
+            if with_grad else None)
+    if B == 0:
+        return (val, grad) if with_grad else val
+    lib = _kernels.load()
+    # row-major copies: coeff_norms is built column-major by numpy
+    norms = torch.as_tensor(
+        np.ascontiguousarray(basis.coeff_norms(tree.deg_used)),
+        device=pts.device)
+    bidx = torch.as_tensor(
+        np.ascontiguousarray(basis.basis_indices(tree.deg_used)),
+        device=pts.device)
+    rc = tree.config.root_centre
+    inv = 1.0 / tree.config.root_sizes
+    _kernels.check(lib, lib.hpsdf_query(
+        tree.child_idx.data_ptr(), tree.centre.data_ptr(),
+        tree.depth.data_ptr(), tree.coeffs.data_ptr(), C,
+        norms.data_ptr(), bidx.data_ptr(), tree.deg_used, tree.depth_used,
+        pts.data_ptr(), B, float(rc[0]), float(rc[1]), float(rc[2]),
+        float(inv[0]), float(inv[1]), float(inv[2]),
+        int(outside_value_max), val.data_ptr(),
+        grad.data_ptr() if with_grad else None,
+        _kernels.stream_of(pts)), "query")
+    query_kernel.launches += 1
+    return (val, grad) if with_grad else val
+
+
+query_kernel.launches = 0
+
+
+def query(tree: Octree, pts: torch.Tensor, outside_value_max: bool = True):
+    """Approximated signed distance at world points ``pts`` (B, 3) -> (B,).
+
+    Negative inside the surface. Points outside the root AABB return the f64
+    max sentinel unless ``outside_value_max`` is False, in which case they
+    return the clamped-boundary evaluation.
+    """
+    if pts.device.type == "cpu":
+        return query_plain(tree, pts, outside_value_max)
+    return query_kernel(tree, pts, False, outside_value_max)
+
+
+def query_with_gradient(tree: Octree, pts: torch.Tensor):
+    """Value and unit world-space gradient at ``pts`` (B, 3).
+    Returns (val (B,), unit_grad (B, 3))."""
+    if pts.device.type == "cpu":
+        return query_with_gradient_plain(tree, pts)
+    return query_kernel(tree, pts, True)
+
+
+def query_grid(tree: Octree, resolution: int, axis_min=None, axis_max=None):
+    """Query a uniform resolution^3 grid over the root AABB (the reference's
+    grid benchmark, Source/Tests/HPBenchmarks.cpp:118-166)."""
+    lo, hi = tree.root_aabb
+    if axis_min is not None:
+        lo = axis_min
+    if axis_max is not None:
+        hi = axis_max
+    axes = [torch.linspace(float(lo[a]), float(hi[a]), resolution,
+                           dtype=torch.float64, device=tree.device)
+            for a in range(3)]
+    g = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+    return query(tree, g.reshape(-1, 3)).reshape(resolution, resolution,
+                                                 resolution)
