@@ -3,17 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/ and drives its main path once at
-full width: icosphere(0.3, 5) (20,480 triangles) -> half-edges and
-pseudo-normals -> packed rows on the card -> mesh F (kernel P1) -> an
-hp-adaptive f64 fit at the headline config of bench.py (target 1e-7,
-depth 5, degree 6) -> query / query_with_gradient on 2^20 points (kernel
-K1) -> save / load. Each kernel is also held against its plain torch
-version on the card and timed beside it.
+Builds the port's CUDA kernels from csrc/ and drives its main paths once
+at full width, the flow of examples/end_to_end.py:
+
+  * the slice: icosphere(0.3, 5) (20,480 triangles) -> half-edges and
+    pseudo-normals -> packed rows on the card -> mesh F (kernel P1, the
+    sign's row gather G) -> an hp-adaptive f64 fit at the headline config
+    of bench.py (target 1e-7, depth 5, degree 6) -> query /
+    query_with_gradient on 2^20 points (kernel K1) -> save / load;
+  * the render path on that tree: the CSG carve intersect_sdf(tree,
+    -box(0.18)), whose F reads the tree through the packed layout (G for
+    the grid, K2 for the values) -> render_image at 512^2 (the march K3,
+    normals K5) -> output_function_slice at 512 (K1) -> save / load.
+
+Each kernel is also held against its plain torch version on the card and
+timed beside it, K2/K5 and K3 on the slice tree and on the
+reference-default tree (bench.py:289-298: sphere r=0.5 at (0.25, 0, 0),
+target 1e-10, exponential weighting 3, degree 12 / depth 10 caps), and
+both trees are traced at 1024^2 rays. K3 and K5 are held against their
+plain versions once more on the carved tree and the 512^2 rays that
+render_image traced.
 
 Phases, one line each: device, build, P1 vs plain, the slice, K1 vs plain,
-times; then one JSON line with the kernels, the card's name and power limit
-as nvidia-smi prints them, and the final JSON line
+times, G vs plain, the reference-default fit, K2/K5 vs plain, K3 vs plain,
+the render path; then one JSON line with the kernels, the card's name and
+power limit as nvidia-smi prints them, and the final JSON line
 {"ok": true, "device": {...}}. Any failed check raises and the exit code is
 non-zero. Without a CUDA device it exits 1 and prints no result.
 """
@@ -34,6 +48,17 @@ K1_VAL_ATOL, K1_GRAD_ATOL = 1e-12, 1e-10
 FIT_ATOL = 0.01                     # query vs |p| - 0.3 on the slice
 P1_SIZES = (65536, 1, 7, 1_000_003)
 N_QUERY = 1 << 20
+G_TABLE = (4681, 32)                # experiments/gather_probe.py:54-56
+N_GATHER = 1 << 20
+K2_ATOL = 1e-5                      # values, on v / max(1, |v|)
+NORMAL_DOT = 1.0 - 1e-5             # K5 normal . plain normal
+HIT_AGREE = 0.995                   # K3 hit masks equal on this share
+T_ATOL = 5e-4                       # K3 t on common hits
+SPHERE_T_ATOL = 0.01                # hit radius vs the analytic sphere
+CSG_TOL = 0.05                      # carved tree vs the analytic carve
+RAYS_SIDE = 1024                    # bench.py:53
+T_MAX = 5.0                         # bench.py:56
+CARVE_HALF = 0.18                   # examples/end_to_end.py:65-72
 
 
 def check(ok, msg):
@@ -103,11 +128,30 @@ def phase_p1(rows, sizes, seed=0):
     return worst
 
 
+def counters():
+    """The launch counter of every kernel wrapper, by kernel name."""
+    from hpsdf_tpu_torch.accel import packed_eval_kernel, row_gather
+    from hpsdf_tpu_torch.mesh import closest_tri_tiles
+    from hpsdf_tpu_torch.query import query_kernel
+    from hpsdf_tpu_torch.render import march_kernel
+    return {"closest_tri": closest_tri_tiles, "query": query_kernel,
+            "row_gather": row_gather, "packed_eval": packed_eval_kernel,
+            "march": march_kernel}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
 def phase_slice(mesh, bvh, cfg, n_query, out_path, seed=1):
     """The main path once; returns (tree, launches)."""
     import hpsdf_tpu_torch as T
-    from hpsdf_tpu_torch.mesh import closest_tri_tiles, mesh_sdf
-    from hpsdf_tpu_torch.query import query_kernel
+    from hpsdf_tpu_torch.mesh import mesh_sdf
 
     dev = bvh.tri_rows.device
     F = mesh_sdf(mesh, bvh)                       # method "auto"
@@ -121,8 +165,7 @@ def phase_slice(mesh, bvh, cfg, n_query, out_path, seed=1):
     rng = np.random.default_rng(seed)
     pts = torch.as_tensor(rng.uniform(-0.4, 0.4, (n_query, 3)), device=dev)
 
-    closest_tri_tiles.launches = 0
-    query_kernel.launches = 0
+    reset_counts()
     sync()
     t0 = time.perf_counter()
     tree = T.build_octree(cfg, F_counted, device=dev)
@@ -136,11 +179,11 @@ def phase_slice(mesh, bvh, cfg, n_query, out_path, seed=1):
     sync()
     T.save(tree, out_path)
     back = T.load(out_path, device=dev)
-    launches = {"closest_tri": closest_tri_tiles.launches,
-                "query": query_kernel.launches}
+    launches = read_counts()
 
     check(launches["closest_tri"] > 0, "P1 never launched on the main path")
     check(launches["query"] > 0, "K1 never launched on the main path")
+    check(launches["row_gather"] > 0, "G never launched on the mesh path")
     check(vals.shape == (n_query,) and bool(torch.isfinite(vals).all()),
           "query values finite")
     vg_err = float((vals - vg).abs().max())
@@ -237,6 +280,292 @@ def phase_times(rows, tree, n, seed=3):
     return t
 
 
+def phase_g(tri_rows, seed=4):
+    """G against its plain version, bit for bit, at the probe's table and at
+    the mesh's triangle rows, with 2^20 indices of which some fall outside
+    the table. Returns ({shape: (ms, plain_ms)}, max |kernel - plain|)."""
+    from hpsdf_tpu_torch.accel import row_gather, row_gather_plain
+
+    rng = np.random.default_rng(seed)
+    dev = tri_rows.device
+    probe = torch.as_tensor(rng.standard_normal(G_TABLE).astype(np.float32),
+                            device=dev)
+    out, err = {}, 0.0
+    for tab in (probe, tri_rows):
+        n = tab.shape[0]
+        idx = torch.as_tensor(
+            rng.integers(-64, n + 64, N_GATHER).astype(np.int32), device=dev)
+        g_k = row_gather(tab, idx)
+        g_p = row_gather_plain(tab, idx)
+        oob = (idx < 0) | (idx >= n)
+        shape = f"{n}x{tab.shape[1]}"
+        check(bool(torch.equal(g_k, g_p)), f"G vs plain at {shape}")
+        err = max(err, float((g_k - g_p).abs().max()))
+        check(bool(oob.any()) and not bool(g_k[oob].any()),
+              f"G zeros out of range at {shape}")
+        out[shape] = (time_ms(lambda: row_gather(tab, idx), 20),
+                      time_ms(lambda: row_gather_plain(tab, idx), 20))
+        print(f"[g] table {shape}, {N_GATHER} indices ({int(oob.sum())} out "
+              f"of range): bit-exact, kernel {out[shape][0]:.4f} ms, plain "
+              f"{out[shape][1]:.4f} ms", flush=True)
+    return out, err
+
+
+def phase_refdefault(dev):
+    """The reference-default tree: the one on-card tree with 64-lane rows,
+    a descent below the grid and the LOD march phase."""
+    import hpsdf_tpu_torch as T
+
+    centre = torch.tensor([0.25, 0.0, 0.0], dtype=torch.float64, device=dev)
+
+    def sphere(p):
+        return torch.linalg.norm(p - centre.to(p.dtype), dim=-1) - 0.5
+
+    cfg = T.Config(target_error=1e-10, continuity=False,
+                   nearness_weighting=T.NearnessWeighting.EXPONENTIAL,
+                   nearness_strength=3.0, max_degree=12, max_depth=10,
+                   node_capacity=600000, fit_dtype="compensated")
+    sync()
+    t0 = time.perf_counter()
+    tree = T.build_octree(cfg, sphere, device=dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    pt = T.pack_tree(tree)
+    print(f"[refdefault] nodes {tree.n_nodes}, deg_used {tree.deg_used}, "
+          f"depth_used {tree.depth_used}, rows {pt.width} lanes, grid depth "
+          f"{pt.grid_depth}, extra rounds {pt.extra_rounds}, build "
+          f"{build_s:.3f} s", flush=True)
+    return tree, pt, (centre.cpu().numpy(), 0.5)
+
+
+def phase_k2(pt, name, sphere, seed=5):
+    """K2 and K5 against their plain versions at 2^20 points straddling the
+    root. Normals are compared away from the sphere's centre, where the
+    field's gradient vanishes and a normal is not defined. Returns (max
+    value error, min normal dot, times)."""
+    from hpsdf_tpu_torch.accel import (F32_MAX, normals_plain,
+                                       packed_eval_kernel, query_packed_plain,
+                                       values_at_plain)
+
+    rng = np.random.default_rng(seed)
+    c = np.asarray(pt.root_centre)
+    half = 0.5 * np.asarray(pt.root_sizes)
+    pts = torch.as_tensor(rng.uniform(c - 1.1 * half, c + 1.1 * half,
+                                      (N_QUERY, 3)).astype(np.float32),
+                          device=pt.device)
+    v_k = packed_eval_kernel(pt, pts, False, outside_max=True)
+    v_p = query_packed_plain(pt, pts)
+    outside = v_p == F32_MAX
+    check(bool(outside.any()) and not bool(outside.all()),
+          f"K2 points straddle the root ({name})")
+    check(bool(torch.equal(v_k == F32_MAX, outside)),
+          f"K2 sentinel positions ({name})")
+
+    def scaled_err(a, b):
+        return float(((a - b) / torch.clamp(b.abs(), min=1.0)).abs().max())
+
+    v_err = scaled_err(v_k[~outside], v_p[~outside])
+    c_err = scaled_err(packed_eval_kernel(pt, pts, False),
+                       values_at_plain(pt, pts))
+    check(max(v_err, c_err) <= K2_ATOL,
+          f"K2 vs plain ({name}): {v_err:.3e}, clamped {c_err:.3e}")
+    n_k = packed_eval_kernel(pt, pts, True)
+    n_p = normals_plain(pt, pts)
+    away = torch.linalg.norm(
+        pts.double() - torch.as_tensor(sphere[0], device=pts.device),
+        dim=-1) > 0.05
+    dots = (n_k * n_p).sum(-1)[away]
+    dot_min = float(dots.min())
+    check(dot_min >= NORMAL_DOT, f"K5 normal dot ({name}): {dot_min}")
+    check(bool(torch.isfinite(n_k).all()), f"K5 normals finite ({name})")
+    t = {"k2": time_ms(lambda: packed_eval_kernel(pt, pts, False, True), 20),
+         "k2_plain": time_ms(lambda: query_packed_plain(pt, pts), 5),
+         "k5": time_ms(lambda: packed_eval_kernel(pt, pts, True), 20),
+         "k5_plain": time_ms(lambda: normals_plain(pt, pts), 5)}
+    print(f"[k2] {name}: {N_QUERY} pts ({int(outside.sum())} outside): "
+          f"max|v - plain|/max(1,|v|) {v_err:.3e}, clamped {c_err:.3e}; "
+          f"normals min dot {dot_min:.8f} over {int(away.sum())} pts | "
+          f"K2 {t['k2']:.4f} ms, plain {t['k2_plain']:.4f} ms | K5 "
+          f"{t['k5']:.4f} ms, plain {t['k5_plain']:.4f} ms", flush=True)
+    return max(v_err, c_err), dot_min, t
+
+
+def phase_k3(pt, name, sphere, lod_expected):
+    """K3 against the plain march at 1024^2 rays from (0, 0, -1.8), T_MAX 5
+    (bench.py's protocol), and at every 4th of those rays with omega 1 and
+    with a step cap. Hits must also lie on the analytic sphere. Returns
+    (max t error on common hits, times, kk, hit fraction)."""
+    from hpsdf_tpu_torch.render import (HIT_EPS, MAX_STEPS, _lo_of,
+                                        _march_block, camera_rays,
+                                        march_kernel)
+
+    o, d = camera_rays((0.0, 0.0, -1.8), (0.0, 0.0, 0.0), width=RAYS_SIDE,
+                       height=RAYS_SIDE, device=pt.device)
+    lo = _lo_of(pt)
+    check((lo is not None) == lod_expected, f"LOD tables ({name})")
+    args = (pt, o, d, T_MAX, HIT_EPS, MAX_STEPS)
+    t_k, h_k, kk_k = march_kernel(*args, lo=lo)
+    sync()
+    t0 = time.perf_counter()
+    t_p, h_p, kk_p = _march_block(*args, lo=lo)
+    sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    agree = float((h_k == h_p).float().mean())
+    both = h_k & h_p
+    check(agree >= HIT_AGREE, f"K3 hit agreement ({name}): {agree}")
+    check(bool(both.any()), f"K3 hits ({name})")
+    t_err = float((t_k[both] - t_p[both]).abs().max())
+    check(t_err <= T_ATOL, f"K3 t on common hits ({name}): {t_err}")
+    kk = [int(x) for x in kk_k.cpu()]
+    check(kk == [int(x) for x in kk_p],
+          f"K3 rounds kk ({name}): kernel {kk}, plain {kk_p.tolist()}")
+    if lod_expected:
+        check(kk[0] > 0, f"K3 LOD phase ran ({name}): kk {kk}")
+    p = (o + t_k[:, None] * d)[h_k].double()
+    c = torch.as_tensor(sphere[0], device=p.device)
+    r_err = float((torch.linalg.norm(p - c, dim=-1) - sphere[1]).abs().max())
+    check(r_err <= SPHERE_T_ATOL, f"K3 hits on the sphere ({name}): {r_err}")
+    # the kernel's other branches, at 256^2: no over-relaxation, and a step
+    # cap (which also turns relaxation off)
+    o4, d4 = o.reshape(RAYS_SIDE, RAYS_SIDE, 3)[::4, ::4].reshape(-1, 3), \
+        d.reshape(RAYS_SIDE, RAYS_SIDE, 3)[::4, ::4].reshape(-1, 3)
+    for kw in (dict(omega=1.0), dict(step_cap=0.02)):
+        a4 = (pt, o4, d4, T_MAX, HIT_EPS, MAX_STEPS)
+        tv_k, hv_k, _ = march_kernel(*a4, lo=lo, **kw)
+        tv_p, hv_p, _ = _march_block(*a4, lo=lo, **kw)
+        bv = hv_k & hv_p
+        check(float((hv_k == hv_p).float().mean()) >= HIT_AGREE
+              and bool(bv.any())
+              and float((tv_k[bv] - tv_p[bv]).abs().max()) <= T_ATOL,
+              f"K3 vs plain with {kw} ({name})")
+        t_err = max(t_err, float((tv_k[bv] - tv_p[bv]).abs().max()))
+    ms = time_ms(lambda: march_kernel(*args, lo=lo), 5)
+    frac = float(h_k.float().mean())
+    mrays = o.shape[0] / (ms * 1e-3) / 1e6
+    print(f"[k3] {name}: {RAYS_SIDE}^2 rays, hit fraction {frac:.4f}, hit "
+          f"masks agree {agree:.6f}, max|t - plain| on common hits (with "
+          f"the omega 1 and step-cap runs) "
+          f"{t_err:.3e}, max|r_hit - R| {r_err:.3e}, kk kernel {kk} plain "
+          f"{[int(x) for x in kk_p]} | K3 {ms:.3f} ms ({mrays:.2f} Mrays/s),"
+          f" plain {plain_ms:.1f} ms (one run)", flush=True)
+    return t_err, {"k3": ms, "k3_plain": plain_ms, "mrays": mrays}, kk, frac
+
+
+def phase_render(tree, out_dir):
+    """The render path of examples/end_to_end.py once, on the card: carve,
+    render, slice, save/load. Then K3 and K5 are held against their plain
+    versions on the carved tree and the render's own rays. Returns
+    (launches, times, hit fraction, K3 max t error on common hits, K5 min
+    normal dot)."""
+    import hpsdf_tpu_torch as T
+    from hpsdf_tpu_torch.accel import normals_plain, packed_eval_kernel
+    from hpsdf_tpu_torch.render import (HIT_EPS, MAX_STEPS, _lo_of,
+                                        _march_block, march_kernel)
+    from hpsdf_tpu_torch.viz import write_bmp
+
+    def box(p):
+        q = p.abs() - CARVE_HALF
+        return (torch.linalg.norm(torch.clamp(q, min=0.0), dim=-1)
+                + torch.clamp(q.amax(dim=-1), max=0.0))
+
+    def carve(p):
+        return torch.maximum(torch.linalg.norm(p, dim=-1) - 0.3, -box(p))
+
+    dev = tree.device
+    view = dict(eye=(0.5, 0.4, -1.6), look_at=(0.0, 0.0, 0.0), width=512,
+                height=512)
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    carved = T.intersect_sdf(tree, lambda p: -box(p))
+    sync()
+    carve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    img, depth, hit = T.render_image(carved, t_max=T_MAX, **view)
+    sync()
+    render_s = time.perf_counter() - t0
+    write_bmp(os.path.join(out_dir, "chip_smoke_render.bmp"),
+              (img.clamp(0.0, 1.0) * 255).to(torch.uint8).cpu().numpy())
+    T.output_function_slice(carved, os.path.join(out_dir,
+                                                 "chip_smoke_slice.bmp"),
+                            z=0.0, resolution=512)
+    path = os.path.join(out_dir, "chip_smoke_carved.npz")
+    T.save(carved, path)
+    back = T.load(path, device=dev)
+    sync()
+    launches = read_counts()
+
+    for k in ("row_gather", "packed_eval", "march", "query"):
+        check(launches[k] > 0, f"{k} never launched on the render path")
+    for k in ("child_idx", "centre", "depth", "degree", "coeffs"):
+        check(bool(torch.equal(getattr(back, k), getattr(carved, k))),
+              f"carved save/load {k} bit-exact")
+    check(img.shape == (512, 512, 3) and bool(torch.isfinite(img).all()),
+          "render image finite")
+    frac = float(hit.float().mean())
+    check(0.02 < frac < 0.9, f"render hit fraction {frac}")
+    pts = torch.as_tensor(np.random.default_rng(6).uniform(
+        -0.45, 0.45, (N_QUERY, 3)), device=dev)
+    csg_err = float((T.query(carved, pts) - carve(pts)).abs().max())
+    check(csg_err < CSG_TOL, f"carved tree vs analytic carve: {csg_err}")
+    o, dirs = T.camera_rays(view["eye"], view["look_at"],
+                            width=view["width"], height=view["height"],
+                            device=dev)
+    h_r = hit.reshape(-1)
+    ph = (o + depth.reshape(-1)[:, None] * dirs)[h_r]
+    # the carve's edges are fit to the CSG tolerance, its faces far better
+    surf = carve(ph.double()).abs()
+    surf_err, surf_q99 = float(surf.max()), float(torch.quantile(surf, 0.99))
+    check(surf_err < CSG_TOL and surf_q99 < SPHERE_T_ATOL,
+          f"render hits on the analytic carve: max {surf_err}, 99% "
+          f"{surf_q99}")
+
+    # K3 and K5 on the tree and rays render_image gave them, against the
+    # plain march and normals (these launches come after the counts)
+    pt = T.pack_tree(carved)
+    lo = _lo_of(pt)
+    args = (pt, o, dirs, T_MAX, HIT_EPS, MAX_STEPS)
+    t_k, h_k, kk_k = march_kernel(*args, lo=lo)
+    t_p, h_p, kk_p = _march_block(*args, lo=lo)
+    check(bool(torch.equal(h_k, h_r))
+          and bool(torch.equal(t_k[h_k], depth.reshape(-1)[h_r])),
+          "render_image's hits and depth are K3's")
+    agree = float((h_k == h_p).float().mean())
+    both = h_k & h_p
+    check(agree >= HIT_AGREE and bool(both.any()),
+          f"K3 hit agreement on the carved tree: {agree}")
+    t_err = float((t_k[both] - t_p[both]).abs().max())
+    check(t_err <= T_ATOL, f"K3 t on common hits, carved tree: {t_err}")
+    kk = [int(x) for x in kk_k.cpu()]
+    check(kk == [int(x) for x in kk_p],
+          f"K3 rounds kk, carved tree: kernel {kk}, plain {kk_p.tolist()}")
+    p = o[both] + t_k[both, None] * dirs[both]
+    n_k = packed_eval_kernel(pt, p, True)
+    n_p = normals_plain(pt, p)
+    dot_min = float((n_k * n_p).sum(-1).min())
+    check(dot_min >= NORMAL_DOT, f"K5 normal dot on the carved tree: "
+          f"{dot_min}")
+    # the image is headlight shading of K5's normals at render's hits
+    shade = 0.15 + 0.85 * torch.clamp(
+        -(packed_eval_kernel(pt, ph, True) * dirs[h_r]).sum(-1), min=0.0)
+    shade_err = float((img.reshape(-1, 3)[h_r] - shade[:, None]).abs().max())
+    check(shade_err <= 1e-6, f"render shading vs K5 normals: {shade_err}")
+    print(f"[render] carve {carved.n_nodes} nodes in {carve_s:.3f} s "
+          f"(deg_used {pt.deg_used}, rows {pt.width} lanes, grid depth "
+          f"{pt.grid_depth}, extra rounds {pt.extra_rounds}, LOD "
+          f"{'on' if lo is not None else 'off'}), render 512^2 in "
+          f"{render_s:.3f} s (first call), hit fraction {frac:.4f}, "
+          f"max|query - carve| {csg_err:.3e}, |carve(hit)| max "
+          f"{surf_err:.3e} 99% {surf_q99:.3e}; K3 vs plain on these rays: "
+          f"hit masks agree {agree:.6f}, max|t - plain| on common hits "
+          f"{t_err:.3e}, kk kernel {kk} plain {kk_p.tolist()}; K5 normals "
+          f"min dot {dot_min:.8f} over {int(both.sum())} hits; images and "
+          f"tree under {os.path.relpath(out_dir)}, save/load bit-exact, "
+          f"launches {launches}", flush=True)
+    return (launches, {"carve_s": carve_s, "render_s": render_s}, frac,
+            t_err, dot_min)
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -294,20 +623,75 @@ def main():
           f"{t['k1_plain']:.3f} ms | K1 query_with_gradient: kernel "
           f"{t['k1g']:.3f} ms, plain {t['k1g_plain']:.3f} ms", flush=True)
 
+    # --- 7. G against its plain version ------------------------------------
+    tg, g_err = phase_g(bvh.tri_rows)
+
+    # --- 8. K2/K5 and K3 on the slice and reference-default trees ----------
+    from hpsdf_tpu_torch import pack_tree
+    pt_s = pack_tree(tree)
+    print(f"[packed] slice tree: rows {pt_s.width} lanes, grid depth "
+          f"{pt_s.grid_depth}, extra rounds {pt_s.extra_rounds}", flush=True)
+    _, pt_r, sphere_r = phase_refdefault(dev)
+    sphere_s = (np.zeros(3), 0.3)
+    k2_err, k5_dot, tk2 = phase_k2(pt_s, "slice", sphere_s)
+    k2r_err, k5r_dot, tk2r = phase_k2(pt_r, "refdefault", sphere_r)
+    k3_err, tk3, _, _ = phase_k3(pt_s, "slice", sphere_s, lod_expected=False)
+    k3r_err, tk3r, kkr, _ = phase_k3(pt_r, "refdefault", sphere_r,
+                                     lod_expected=True)
+
+    # --- 9. the render path ------------------------------------------------
+    launches_r, tr, frac, k3c_err, k5c_dot = phase_render(
+        tree, _kernels.BUILD_DIR)
+
+    total = {k: launches[k] + launches_r[k] for k in launches}
+    g_probe = tg[f"{G_TABLE[0]}x{G_TABLE[1]}"]
     kernels = [
         {"name": "closest_tri", "route": "cuda",
          "source": "hpsdf_tpu_torch/csrc/closest_tri.cu",
          "replaces": "hpsdf_tpu/mesh/pallas_sdf.py:187",
-         "launches": launches["closest_tri"], "max_abs_err": p1_err,
+         "launches": total["closest_tri"], "max_abs_err": p1_err,
          "ms": t["p1"], "plain_ms": t["p1_plain"]},
         {"name": "query", "route": "cuda",
          "source": "hpsdf_tpu_torch/csrc/query.cu",
          "replaces": "hpsdf_tpu/query.py:70",
-         "launches": launches["query"], "max_abs_err": k1_err,
+         "launches": total["query"], "max_abs_err": k1_err,
          "ms": t["k1"], "plain_ms": t["k1_plain"],
          "grad_max_abs_err": k1g_err, "grad_ms": t["k1g"],
          "grad_plain_ms": t["k1g_plain"]},
+        {"name": "row_gather", "route": "cuda",
+         "source": "hpsdf_tpu_torch/csrc/row_gather.cu",
+         "replaces": "experiments/gather_probe.py:84,109,138",
+         "launches": total["row_gather"], "max_abs_err": g_err,
+         "ms": g_probe[0], "plain_ms": g_probe[1],
+         "tri_rows_ms": tg[f"{bvh.tri_rows.shape[0]}x"
+                           f"{bvh.tri_rows.shape[1]}"][0],
+         "tri_rows_plain_ms": tg[f"{bvh.tri_rows.shape[0]}x"
+                                 f"{bvh.tri_rows.shape[1]}"][1]},
+        {"name": "packed_eval", "route": "cuda",
+         "source": "hpsdf_tpu_torch/csrc/packed_eval.cu",
+         "replaces": "hpsdf_tpu/accel.py:329",
+         "launches": total["packed_eval"],
+         "max_abs_err": max(k2_err, k2r_err),
+         "ms": tk2["k2"], "plain_ms": tk2["k2_plain"],
+         "normals_min_dot": min(k5_dot, k5r_dot, k5c_dot),
+         "normals_ms": tk2["k5"], "normals_plain_ms": tk2["k5_plain"],
+         "refdefault_ms": tk2r["k2"], "refdefault_plain_ms": tk2r["k2_plain"],
+         "refdefault_normals_ms": tk2r["k5"],
+         "refdefault_normals_plain_ms": tk2r["k5_plain"]},
+        {"name": "march", "route": "cuda",
+         "source": "hpsdf_tpu_torch/csrc/march.cu",
+         "replaces": "hpsdf_tpu/render.py:649",
+         "launches": total["march"],
+         "max_abs_err": max(k3_err, k3r_err, k3c_err),
+         "ms": tk3["k3"], "plain_ms": tk3["k3_plain"],
+         "mrays_s": tk3["mrays"], "refdefault_ms": tk3r["k3"],
+         "refdefault_plain_ms": tk3r["k3_plain"],
+         "refdefault_mrays_s": tk3r["mrays"], "refdefault_kk": kkr},
     ]
+    print(f"[e2e] {smi} | carve {tr['carve_s']:.3f} s, render 512^2 "
+          f"{tr['render_s']:.3f} s, hit fraction {frac:.4f} | 1024^2 march: "
+          f"slice {tk3['mrays']:.2f} Mrays/s, refdefault "
+          f"{tk3r['mrays']:.2f} Mrays/s | launches {total}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

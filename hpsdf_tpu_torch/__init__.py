@@ -1,7 +1,8 @@
 """hpsdf_tpu_torch -- the PyTorch/CUDA port of hpsdf_tpu.
 
-hp-adaptive Legendre-octree fitting of a batched SDF, and queries with
-analytic gradients, on torch tensors. Module names follow ``hpsdf_tpu``,
+hp-adaptive Legendre-octree fitting of a batched SDF, queries with
+analytic gradients, CSG rebuilds, the packed read layout, sphere tracing
+and field slices, on torch tensors. Module names follow ``hpsdf_tpu``,
 which stays the reference the port is tested against; this package imports
 neither it nor jax. Tensors on a CUDA device go through hand-written CUDA
 kernels (``csrc/``, built by nvcc on first use); tensors on the CPU take
@@ -12,10 +13,18 @@ The mesh -> SDF path lives in ``hpsdf_tpu_torch.mesh``.
 
 from .config import Config, NearnessWeighting
 from .tree import Octree, save, load, from_numpy, to_numpy
-from .api import build_octree, query, query_with_gradient, query_grid
+from .api import (build_octree, query, query_with_gradient, query_grid,
+                  as_sdf, union_sdf, subtract_sdf, intersect_sdf)
+from .accel import pack_tree
+from .viz import output_function_slice, function_slice
+from .render import (trace, camera_rays, intersect_aabb,
+                     render as render_image)
 
 __all__ = [
     "Config", "NearnessWeighting", "Octree", "save", "load", "from_numpy",
     "to_numpy", "build_octree", "query", "query_with_gradient", "query_grid",
+    "as_sdf", "union_sdf", "subtract_sdf", "intersect_sdf", "pack_tree",
+    "trace", "render_image", "camera_rays", "intersect_aabb", "render",
+    "output_function_slice", "function_slice",
 ]
 __version__ = "0.1.0"

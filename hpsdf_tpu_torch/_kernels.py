@@ -1,11 +1,13 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
 At first use every ``csrc/*.cu`` is compiled by nvcc for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with ctypes. The library goes to ``build/hpsdf_tpu_torch/`` at the
-repository root, under a name keyed by a hash of the sources and flags, so
-a changed source rebuilds and an unchanged one is reused. Nothing is
-fetched: the sources are the package's own.
+(``sm_90a``), one nvcc process per source, all started together, and the
+objects are linked into one shared library with a plain C interface, which
+is loaded with ctypes. The library goes to ``build/hpsdf_tpu_torch/`` at
+the repository root, under a name keyed by a hash of the sources, the
+headers they share (``csrc/*.cuh``) and the flags, so a changed file
+rebuilds and an unchanged one is reused. Nothing is fetched: the sources
+are the package's own.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an exception.
@@ -28,15 +30,22 @@ _CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "hpsdf_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I64, _I32, _F64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                        ctypes.c_double)
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_F32, _F64 = ctypes.c_float, ctypes.c_double
 # C signatures of the entry points (see the .cu sources)
 _SIGNATURES = {
     "hpsdf_closest_tri": (_P, _I64, _I64, _P, _I64, _P, _P, _P),
     "hpsdf_query": (_P, _P, _P, _P, _I32, _P, _P, _I32, _I32, _P, _I64,
                     _F64, _F64, _F64, _F64, _F64, _F64, _I32, _P, _P, _P),
+    "hpsdf_row_gather": (_P, _I64, _I64, _I64, _P, _I64, _P, _P),
+    "hpsdf_packed_eval": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
+                          _F32, _F32, _F32, _F32, _F32, _F32,
+                          _F32, _F32, _F32, _I32, _I32, _P, _P),
+    "hpsdf_march": (_P, _P, _I32, _I32, _P, _P, _I32, _I32, _I32, _P, _P,
+                    _I64, *(_F32,) * 12, _F32, _F32, _I32, _F32, _I32, _F32,
+                    _I32, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -59,9 +68,13 @@ def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
 
 
+def headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         with open(src, "rb") as fh:
             h.update(os.path.basename(src).encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"libhpsdf_kernels_{h.hexdigest()[:16]}.so")
@@ -72,12 +85,29 @@ def _build(path: str) -> None:
     # build to a private name, then rename: a concurrent loader never sees a
     # half-written library
     tmp = f"{path}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
+    jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(sources(), objs)]
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in jobs]
+        outs = [p.communicate() for p in procs]      # waits for every one
+        for cmd, p, (out, err) in zip(jobs, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                                   f"{' '.join(cmd)}\n{out}\n{err}")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({res.returncode}): {' '.join(cmd)}\n"
+                f"{res.stdout}\n{res.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, path)
 
 

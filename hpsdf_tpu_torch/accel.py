@@ -1,0 +1,455 @@
+"""Packed read layout: one f32 row per node plus a dense grid of leaf rows.
+
+The counterpart of ``hpsdf_tpu/accel.py``, with the same lane layout, so
+the packed tables of a tree equal ``hpsdf_tpu.accel.pack_tree``'s bit for
+bit:
+
+    lane 0      : child_idx + 1 bitcast i32 -> f32 (0.0 for leaves; read
+                  it back with ``.view(torch.int32)``)
+    lane 1      : scale = 2**(depth+1)
+    lanes 2..4  : cell centre (internal unit-cube coords)
+    lanes 8..   : coefficients with the (depth, basis) normalizers folded in
+
+and ``grid[cell]`` the row of the unique node at depth <= grid_depth that
+covers each depth-``grid_depth`` cell. Locating a point is one grid row
+read plus ``extra_rounds`` masked descents.
+
+Three kernels serve this layout on CUDA tensors:
+
+  * G  ``row_gather`` (``csrc/row_gather.cu``): ``out[b] = table[idx[b]]``,
+    zeros out of range. It replaces the three Pallas row gathers of
+    ``experiments/gather_probe.py`` (G1-G3) and derives the grid, the
+    repacked tables and the mesh sign's triangle rows.
+  * K2 ``packed_eval_kernel`` (``csrc/packed_eval.cu``): locate + Legendre
+    eval per point, for ``values_at`` / ``query_packed``.
+  * K5, the same source with the gradient: unit normals for ``normals``.
+
+Tensors on the CPU take the plain torch versions in this module. The TPU
+layout's one-hot meta matmul and zero-padded whole-row contraction
+(``hpsdf_tpu/accel.py:27-33``) exist for XLA's gather fusion and are not carried
+over: lanes are read by slicing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import _kernels, basis, consts
+from .tree import Octree
+
+# Dense grid depth cap and row-table byte budget (hpsdf_tpu accel.py:60-68)
+GRID_DEPTH_CAP = 5
+GRID_BYTE_BUDGET = 20 << 20
+COEFF_LANE = 8
+
+# Low-degree (LOD) rows for the far-field march phase: meta lanes, the
+# deg<=2 coefficient lanes, and a bound on the truncated rest
+LO_W = 32
+LO_COEFFS = 10                       # coeff_count(2)
+LO_ERR_LANE = COEFF_LANE + LO_COEFFS
+
+F32_MAX = float(np.finfo(np.float32).max)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedTree:
+    rows: torch.Tensor        # f32[Np, W] packed node rows
+    grid: torch.Tensor        # f32[G**3, W] packed row per depth-Dg cell
+    deg_used: int
+    grid_depth: int
+    extra_rounds: int
+    root_centre: tuple
+    root_sizes: tuple
+
+    @property
+    def width(self) -> int:
+        return self.rows.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.rows.device
+
+
+@dataclasses.dataclass(frozen=True)
+class PackSupport:
+    """What re-derives a PackedTree from new coefficients on the device
+    (topology fixed, coefficient lanes new)."""
+    meta_rows: torch.Tensor   # f32[Np, COEFF_LANE] lanes 0..7 of the rows
+    fold: torch.Tensor        # f32[Np, cw] per-(depth, basis) normalizers
+    grid_src: torch.Tensor    # i32[G**3] node index backing each grid cell
+
+
+# --------------------------------------------------------------------------
+# Host packing (numpy, copied from hpsdf_tpu accel.py:88-137)
+# --------------------------------------------------------------------------
+
+def _row_width(cw: int) -> int:
+    return -(-(COEFF_LANE + cw) // 8) * 8
+
+
+def _pack_rows(tree: Octree) -> np.ndarray:
+    child_idx = tree.child_idx.cpu().numpy()
+    depth_np = tree.depth.cpu().numpy()
+    coeffs = tree.coeffs.cpu().numpy()
+    n, cw = coeffs.shape
+    rows = np.zeros((n, _row_width(cw)), np.float32)
+    child = np.asarray(child_idx, np.int32) + 1    # 0 = leaf, finite
+    rows[:, 0] = child.view(np.float32)
+    depth = np.asarray(depth_np, np.float64)
+    rows[:, 1] = np.exp2(depth + 1.0).astype(np.float32)
+    rows[:, 2:5] = tree.centre.cpu().numpy().astype(np.float32)
+    # fold the per-(depth, basis) normalizers into the coefficients
+    norms = basis.coeff_norms(tree.deg_used)          # (D+1, cw)
+    dep_i = np.asarray(depth_np, np.int64)
+    rows[:, COEFF_LANE:COEFF_LANE + cw] = (
+        np.asarray(coeffs, np.float64) * norms[dep_i]).astype(np.float32)
+    return rows
+
+
+def _grid_sources(tree: Octree, gd: int) -> np.ndarray:
+    """Node index of the unique depth<=gd node covering each grid cell
+    (host-side vectorized descent over all cells at once)."""
+    g = 1 << gd
+    ax = (np.arange(g, dtype=np.float64) + 0.5) / g - 0.5   # cell centres
+    px, py, pz = np.meshgrid(ax, ax, ax, indexing="ij")
+    pts = np.stack([px, py, pz], axis=-1).reshape(-1, 3)
+
+    child = tree.child_idx.cpu().numpy().astype(np.int64)
+    centre = tree.centre.cpu().numpy().astype(np.float64)
+    cur = np.zeros(pts.shape[0], np.int64)
+    for _ in range(gd):
+        c0 = child[cur]
+        live = c0 >= 0
+        cc = centre[cur]
+        oct_ = ((pts[:, 0] >= cc[:, 0]).astype(np.int64)
+                + ((pts[:, 1] >= cc[:, 1]).astype(np.int64) << 1)
+                + ((pts[:, 2] >= cc[:, 2]).astype(np.int64) << 2))
+        cur = np.where(live, c0 + oct_, cur)
+    return cur
+
+
+def _default_grid_depth(tree: Octree) -> int:
+    """Deepest grid within GRID_DEPTH_CAP whose row table fits the byte
+    budget (wider rows at deg >= 9 pull the cap down one level)."""
+    W = _row_width(tree.coeffs.shape[1])
+    gd = min(tree.depth_used, GRID_DEPTH_CAP)
+    while gd > 0 and (8 ** gd) * W * 4 > GRID_BYTE_BUDGET:
+        gd -= 1
+    return gd
+
+
+def _grid_src(tree: Octree, grid_depth: int) -> torch.Tensor:
+    return torch.as_tensor(_grid_sources(tree, grid_depth), dtype=torch.int32,
+                           device=tree.device)
+
+
+def pack_tree(tree: Octree, grid_depth: int | None = None) -> PackedTree:
+    """The packed read layout of a fitted Octree, on the tree's device. The
+    grid is gathered there from the rows (kernel G on CUDA)."""
+    if grid_depth is None:
+        grid_depth = _default_grid_depth(tree)
+    rows = torch.as_tensor(_pack_rows(tree), device=tree.device)
+    return PackedTree(
+        rows=rows, grid=row_gather(rows, _grid_src(tree, grid_depth)),
+        deg_used=tree.deg_used, grid_depth=grid_depth,
+        extra_rounds=max(0, tree.depth_used - grid_depth),
+        root_centre=tuple(np.asarray(tree.config.root_centre, np.float64)),
+        root_sizes=tuple(np.asarray(tree.config.root_sizes, np.float64)))
+
+
+def pack_support(tree: Octree, grid_depth: int | None = None) -> PackSupport:
+    if grid_depth is None:
+        grid_depth = _default_grid_depth(tree)
+    rows = _pack_rows(tree)
+    norms = basis.coeff_norms(tree.deg_used)
+    dep_i = tree.depth.cpu().numpy().astype(np.int64)
+    dev = tree.device
+    return PackSupport(
+        meta_rows=torch.as_tensor(rows[:, :COEFF_LANE], device=dev),
+        fold=torch.as_tensor(norms[dep_i].astype(np.float32), device=dev),
+        grid_src=_grid_src(tree, grid_depth))
+
+
+def repack(packed: PackedTree, support: PackSupport,
+           coeffs: torch.Tensor) -> PackedTree:
+    """(rows, grid) for new coefficients (Np, cw), on the device."""
+    return repack_folded(packed, support,
+                         (coeffs * support.fold).to(torch.float32))
+
+
+def repack_folded(packed: PackedTree, support: PackSupport,
+                  folded: torch.Tensor) -> PackedTree:
+    """Like :func:`repack`, from the normalizer-premultiplied coefficient
+    lanes."""
+    folded = folded.to(torch.float32)
+    pad = packed.width - COEFF_LANE - folded.shape[1]
+    parts = [support.meta_rows, folded]
+    if pad:
+        parts.append(folded.new_zeros((folded.shape[0], pad)))
+    rows = torch.cat(parts, dim=1)
+    return dataclasses.replace(packed, rows=rows,
+                               grid=row_gather(rows, support.grid_src))
+
+
+def lo_pack(rows: torch.Tensor) -> torch.Tensor:
+    """(N, 32) low-degree rows from (N, W) packed rows: meta lanes, the
+    deg<=2 folded coefficient lanes, and lane 18 = 1.001 * sum|c_m, deg>2|,
+    a bound on |full - lo| anywhere in the leaf (hpsdf_tpu accel.py:282)."""
+    c = rows[:, COEFF_LANE:]
+    err = torch.sum(torch.abs(c[:, LO_COEFFS:]), dim=1,
+                    keepdim=True) * np.float32(1.001)
+    pad = rows.new_zeros((rows.shape[0], LO_W - LO_ERR_LANE - 1))
+    return torch.cat([rows[:, :COEFF_LANE], c[:, :LO_COEFFS], err, pad],
+                     dim=1)
+
+
+# --------------------------------------------------------------------------
+# Kernel G: row gather
+# --------------------------------------------------------------------------
+
+def _check_gather(table: torch.Tensor, idx: torch.Tensor) -> None:
+    if table.dtype != torch.float32 or table.dim() != 2:
+        raise ValueError(f"table must be f32 (N, W), got {table.dtype} "
+                         f"{tuple(table.shape)}")
+    if idx.dim() != 1 or idx.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"idx must be int32/int64 (B,), got {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+    if table.device != idx.device:
+        raise ValueError(f"table on {table.device}, idx on {idx.device}")
+
+
+def row_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """G by index_select, whatever the device: rows of ``table`` at ``idx``,
+    zeros where idx is outside [0, N) (G2's ``fill_value=0.0``)."""
+    _check_gather(table, idx)
+    idx = idx.long()
+    ok = (idx >= 0) & (idx < table.shape[0])
+    out = table.index_select(0, torch.where(ok, idx, 0))
+    return torch.where(ok[:, None], out, 0.0)
+
+
+def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row gather ``out[b, :] = table[idx[b], :]`` (B, W) f32, zeros for
+    out-of-range indices: kernel G on CUDA tensors, the plain version on
+    CPU tensors. W must be a multiple of 4 (G moves 16-byte quarters of a
+    row), as every table of the packed and mesh layouts is."""
+    _check_gather(table, idx)
+    N, W = table.shape
+    if W % 4:
+        raise ValueError(f"row_gather: width {W} is not a multiple of 4")
+    if idx.device.type == "cpu":
+        return row_gather_plain(table, idx)
+    if idx.device.type != "cuda":
+        raise ValueError(f"row_gather: unsupported device {idx.device}")
+    if table.stride(1) != 1 or table.stride(0) % 4 \
+            or table.data_ptr() % 16:
+        raise ValueError("row_gather: table lanes must be contiguous, with "
+                         "rows 16-byte aligned")
+    if N >= 2 ** 31 or table.stride(0) >= 2 ** 31:
+        raise ValueError("row_gather: table too large for 32-bit indices")
+    idx = idx.to(torch.int32).contiguous() if idx.dtype == torch.int64 \
+        else idx.contiguous()
+    B = idx.shape[0]
+    out = torch.empty((B, W), dtype=torch.float32, device=idx.device)
+    if B == 0 or W == 0:
+        return out
+    lib = _kernels.load()
+    _kernels.check(lib, lib.hpsdf_row_gather(
+        table.data_ptr(), N, W, table.stride(0), idx.data_ptr(), B,
+        out.data_ptr(), _kernels.stream_of(idx)), "row_gather")
+    row_gather.launches += 1
+    return out
+
+
+row_gather.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Device reads: plain torch versions of K2 / K5
+# --------------------------------------------------------------------------
+
+def _root_f32(pt: PackedTree, like: torch.Tensor):
+    """(centre, 1/sizes) as the reads' dtype: 1/sizes is taken in f64 and
+    then rounded, as hpsdf_tpu's to_unit does."""
+    centre = torch.tensor(pt.root_centre, dtype=like.dtype, device=like.device)
+    inv = torch.tensor(1.0 / np.asarray(pt.root_sizes), dtype=like.dtype,
+                       device=like.device)
+    return centre, inv
+
+
+def to_unit(pt: PackedTree, pts: torch.Tensor) -> torch.Tensor:
+    centre, inv = _root_f32(pt, pts)
+    return (pts - centre) * inv
+
+
+def _row_child(row: torch.Tensor) -> torch.Tensor:
+    # lane 0 stores child_idx + 1 (module docstring); < 0 means leaf
+    return row[..., 0].view(torch.int32) - 1
+
+
+def locate_in(grid: torch.Tensor, rows: torch.Tensor, grid_depth: int,
+              extra_rounds: int, unit: torch.Tensor) -> torch.Tensor:
+    """Packed row (B, W) of the leaf containing each unit-cube point, read
+    from explicit (grid, rows) tables: one grid row, then ``extra_rounds``
+    masked descents. The cell index truncates as ``astype(int32)`` does;
+    callers clip ``unit`` into the root first, so truncation is floor."""
+    g = 1 << grid_depth
+    cell = ((unit + 0.5) * g).to(torch.int32).clamp(0, g - 1).long()
+    flat = (cell[..., 0] * g + cell[..., 1]) * g + cell[..., 2]
+    row = grid[flat]
+    for _ in range(extra_rounds):
+        child = _row_child(row)
+        is_leaf = child < 0
+        cc = row[..., 2:5]
+        oct_ = ((unit[..., 0] >= cc[..., 0]).int()
+                + ((unit[..., 1] >= cc[..., 1]).int() << 1)
+                + ((unit[..., 2] >= cc[..., 2]).int() << 2))
+        nxt = torch.where(is_leaf, 0, child + oct_).long()
+        row = torch.where(is_leaf[..., None], row, rows[nxt])
+    return row
+
+
+def locate(pt: PackedTree, unit: torch.Tensor) -> torch.Tensor:
+    return locate_in(pt.grid, pt.rows, pt.grid_depth, pt.extra_rounds, unit)
+
+
+def _products(local: torch.Tensor, degree: int, with_grad: bool = False):
+    """Basis products L_i(x) L_j(y) L_k(z) over basis_indices(degree),
+    (B, C), and with ``with_grad`` their three partial derivatives."""
+    idx = torch.as_tensor(basis.basis_indices(degree), dtype=torch.long,
+                          device=local.device)
+    if not with_grad:
+        L = basis.legendre_all(local, degree)
+        return L[..., 0, idx[:, 0]] * L[..., 1, idx[:, 1]] * L[..., 2, idx[:, 2]]
+    L, dL = basis.legendre_all_with_derivative(local, degree)
+    Lx, Ly, Lz = (L[..., a, idx[:, a]] for a in range(3))
+    dLx, dLy, dLz = (dL[..., a, idx[:, a]] for a in range(3))
+    return dLx * Ly * Lz, Lx * dLy * Lz, Lx * Ly * dLz
+
+
+def eval_local(row: torch.Tensor, local: torch.Tensor,
+               degree: int) -> torch.Tensor:
+    """The bare Legendre product sum of packed rows over their first
+    coeff_count(degree) folded coefficient lanes, at points ``local`` of
+    each leaf's [-1, 1]^3 frame."""
+    prod = _products(local, degree)
+    cw = prod.shape[-1]
+    return torch.sum(row[..., COEFF_LANE:COEFF_LANE + cw] * prod, dim=-1)
+
+
+def eval_row(pt: PackedTree, row: torch.Tensor,
+             unit: torch.Tensor) -> torch.Tensor:
+    """Evaluate packed leaf rows at unit-cube points."""
+    return eval_local(row, (unit - row[..., 2:5]) * row[..., 1:2],
+                      pt.deg_used)
+
+
+def values_at_plain(pt: PackedTree, pts: torch.Tensor) -> torch.Tensor:
+    unit = to_unit(pt, pts).clamp(-0.5, 0.5)
+    return eval_row(pt, locate(pt, unit), unit)
+
+
+def query_packed_plain(pt: PackedTree, pts: torch.Tensor) -> torch.Tensor:
+    unit = to_unit(pt, pts)
+    inside = torch.all(unit.abs() <= 0.5, dim=-1)
+    clamped = unit.clamp(-0.5, 0.5)
+    v = eval_row(pt, locate(pt, clamped), clamped)
+    return torch.where(inside, v, F32_MAX)
+
+
+def normals_plain(pt: PackedTree, p: torch.Tensor) -> torch.Tensor:
+    """Unit normals: the normalised position gradient of the packed eval
+    (hpsdf_tpu render._normals_at), chained through local = (unit -
+    centre) * scale and unit = (p - c) / sizes."""
+    unit = to_unit(pt, p).clamp(-0.5, 0.5)
+    row = locate(pt, unit)
+    local = (unit - row[..., 2:5]) * row[..., 1:2]
+    parts = _products(local, pt.deg_used, with_grad=True)
+    cw = parts[0].shape[-1]
+    coef = row[..., COEFF_LANE:COEFF_LANE + cw]
+    g = torch.stack([torch.sum(coef * d, dim=-1) for d in parts], dim=-1)
+    sizes = torch.tensor(pt.root_sizes, dtype=torch.float32, device=p.device)
+    g = g * row[..., 1:2] / sizes
+    return g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True),
+                           min=1e-12)
+
+
+# --------------------------------------------------------------------------
+# Kernels K2 / K5
+# --------------------------------------------------------------------------
+
+def _check_packed(pt: PackedTree, pts: torch.Tensor) -> None:
+    if pts.dtype != torch.float32 or pts.dim() != 2 or pts.shape[1] != 3:
+        raise ValueError(f"pts must be f32 (B, 3), got {pts.dtype} "
+                         f"{tuple(pts.shape)}")
+    if pt.rows.device != pts.device or pt.grid.device != pts.device:
+        raise ValueError(f"packed tables on {pt.rows.device}, pts on "
+                         f"{pts.device}")
+    for name, t in (("rows", pt.rows), ("grid", pt.grid)):
+        if t.dtype != torch.float32 or t.dim() != 2 \
+                or t.shape[1] != pt.width or not t.is_contiguous():
+            raise ValueError(f"packed {name} must be contiguous f32 "
+                             f"(N, {pt.width})")
+    if pt.width < COEFF_LANE + consts.coeff_count(pt.deg_used) \
+            or pt.grid.shape[0] != 8 ** pt.grid_depth:
+        raise ValueError("packed tables do not match deg_used / grid_depth")
+
+
+def packed_eval_kernel(pt: PackedTree, pts: torch.Tensor, with_grad: bool,
+                       outside_max: bool = False) -> torch.Tensor:
+    """Launch K2 on CUDA tensors: f32 values (B,) at world points, clamped
+    into the root, or the f32-max sentinel outside it with
+    ``outside_max``; with ``with_grad`` (K5), unit normals (B, 3) instead.
+    Raises on anything else."""
+    _check_packed(pt, pts)
+    if pts.device.type != "cuda":
+        raise ValueError(f"packed_eval_kernel needs CUDA tensors, got "
+                         f"{pts.device}")
+    pts = pts.contiguous()
+    B = pts.shape[0]
+    out = torch.empty((B, 3) if with_grad else (B,), dtype=torch.float32,
+                      device=pts.device)
+    if B == 0:
+        return out
+    lib = _kernels.load()
+    rc = np.asarray(pt.root_centre, np.float32)
+    inv = (1.0 / np.asarray(pt.root_sizes)).astype(np.float32)
+    sz = np.asarray(pt.root_sizes, np.float32)
+    _kernels.check(lib, lib.hpsdf_packed_eval(
+        pt.grid.data_ptr(), pt.rows.data_ptr(), pt.width, pt.deg_used,
+        pt.grid_depth, pt.extra_rounds, pts.data_ptr(), B,
+        *map(float, rc), *map(float, inv), *map(float, sz),
+        int(outside_max), int(with_grad), out.data_ptr(),
+        _kernels.stream_of(pts)), "packed_eval")
+    packed_eval_kernel.launches += 1
+    return out
+
+
+packed_eval_kernel.launches = 0
+
+
+def values_at(pt: PackedTree, pts: torch.Tensor) -> torch.Tensor:
+    """f32 SDF values at world points (B, 3) f32, boundary-clamped."""
+    if pts.device.type == "cpu":
+        return values_at_plain(pt, pts)
+    return packed_eval_kernel(pt, pts, with_grad=False)
+
+
+def query_packed(pt: PackedTree, pts: torch.Tensor) -> torch.Tensor:
+    """Batched f32 query on the packed layout; points outside the root
+    return f32 max, as the reference returns f64 max
+    (Source/HP/Octree.cpp:662-702)."""
+    if pts.device.type == "cpu":
+        return query_packed_plain(pt, pts)
+    return packed_eval_kernel(pt, pts, with_grad=False, outside_max=True)
+
+
+def normals(pt: PackedTree, p: torch.Tensor) -> torch.Tensor:
+    """Unit surface normals (B, 3) at world points: K5 on CUDA tensors,
+    ``normals_plain`` on CPU tensors."""
+    if p.device.type == "cpu":
+        return normals_plain(pt, p)
+    return packed_eval_kernel(pt, p, with_grad=True)

@@ -1,0 +1,161 @@
+// Device helpers shared by K2/K5 (packed_eval.cu) and K3 (march.cu): reading
+// the packed row layout of hpsdf_tpu_torch/accel.py and evaluating the
+// Legendre product sum over a row's folded coefficient lanes, in f32.
+//
+// Row lanes: 0 = child_idx + 1 bitcast i32 -> f32 (0 for leaves), 1 = scale
+// 2^(depth+1), 2..4 = cell centre in unit-cube coords, 8.. = coefficients
+// with the (depth, basis) normalizers folded in, in basis_indices order (by
+// total degree p, then i, then j; k = p - i - j).
+//
+// Constants follow hpsdf_tpu's f32 arithmetic: a Python float constant is
+// rounded once to f32, so the recurrence factors are computed in double and
+// then rounded.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hpsdf {
+
+constexpr int kCoeffLane = 8;
+
+__device__ __forceinline__ int row_child(const float* row) {
+  return __float_as_int(__ldg(row)) - 1;
+}
+
+__device__ __forceinline__ float clamp_half(float x) {
+  return fminf(fmaxf(x, -0.5f), 0.5f);
+}
+
+// Row of the leaf containing the unit-cube point u (clamped into the root):
+// the grid row of u's depth-gd cell, then up to `extra` descents, stopping at
+// a leaf (accel.locate_in). The cell index truncates, as astype(int32) does;
+// u + 0.5 >= 0, so that is floor.
+__device__ __forceinline__ const float* locate_row(
+    const float* __restrict__ grid, const float* __restrict__ rows, int W,
+    int gd, int extra, const float u[3]) {
+  const int g = 1 << gd;
+  int c[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const int ci = (int)((u[a] + 0.5f) * (float)g);
+    c[a] = ci < 0 ? 0 : (ci > g - 1 ? g - 1 : ci);
+  }
+  const float* row = grid + (((int64_t)c[0] * g + c[1]) * g + c[2]) * W;
+  for (int r = 0; r < extra; ++r) {
+    const int child = row_child(row);
+    if (child < 0) break;
+    const int oct = (u[0] >= __ldg(row + 2)) | ((u[1] >= __ldg(row + 3)) << 1) |
+                    ((u[2] >= __ldg(row + 4)) << 2);
+    row = rows + (int64_t)(child + oct) * W;
+  }
+  return row;
+}
+
+// L_0..L_DEG at x by the three-term recurrence (basis.legendre_all).
+template <int DEG>
+__device__ __forceinline__ void legendre(float x, float (&L)[DEG + 1]) {
+  L[0] = 1.0f;
+  if constexpr (DEG >= 1) L[1] = x;
+#pragma unroll
+  for (int p = 2; p <= DEG; ++p)
+    L[p] = (float)((2.0 * p - 1.0) / p) * x * L[p - 1] -
+           (float)((p - 1.0) / p) * L[p - 2];
+}
+
+// L'_0..L'_DEG by L'_p = L'_{p-2} + (2p-1) L_{p-1}.
+template <int DEG>
+__device__ __forceinline__ void legendre_deriv(const float (&L)[DEG + 1],
+                                               float (&dL)[DEG + 1]) {
+  dL[0] = 0.0f;
+  if constexpr (DEG >= 1) dL[1] = 1.0f;
+#pragma unroll
+  for (int p = 2; p <= DEG; ++p)
+    dL[p] = dL[p - 2] + (float)(2 * p - 1) * L[p - 1];
+}
+
+// sum_m coef[m] * Lx[i_m] * Ly[j_m] * Lz[k_m] over the basis of degree DEG.
+template <int DEG>
+__device__ __forceinline__ float poly_sum(const float* __restrict__ coef,
+                                          const float (&Lx)[DEG + 1],
+                                          const float (&Ly)[DEG + 1],
+                                          const float (&Lz)[DEG + 1]) {
+  float v = 0.0f;
+  int m = 0;
+#pragma unroll
+  for (int p = 0; p <= DEG; ++p)
+#pragma unroll
+    for (int i = 0; i <= p; ++i)
+#pragma unroll
+      for (int j = 0; j <= p - i; ++j, ++m)
+        v += __ldg(coef + m) * (Lx[i] * Ly[j] * Lz[p - i - j]);
+  return v;
+}
+
+// Value of a packed row at the point `local` of its leaf's [-1, 1]^3 frame.
+template <int DEG>
+__device__ __forceinline__ float eval_local(const float* __restrict__ row,
+                                            const float local[3]) {
+  float Lx[DEG + 1], Ly[DEG + 1], Lz[DEG + 1];
+  legendre<DEG>(local[0], Lx);
+  legendre<DEG>(local[1], Ly);
+  legendre<DEG>(local[2], Lz);
+  return poly_sum<DEG>(row + kCoeffLane, Lx, Ly, Lz);
+}
+
+// The local-frame gradient of the same sum.
+template <int DEG>
+__device__ __forceinline__ void eval_local_grad(const float* __restrict__ row,
+                                                const float local[3],
+                                                float g[3]) {
+  float Lx[DEG + 1], Ly[DEG + 1], Lz[DEG + 1];
+  float dLx[DEG + 1], dLy[DEG + 1], dLz[DEG + 1];
+  legendre<DEG>(local[0], Lx);
+  legendre<DEG>(local[1], Ly);
+  legendre<DEG>(local[2], Lz);
+  legendre_deriv<DEG>(Lx, dLx);
+  legendre_deriv<DEG>(Ly, dLy);
+  legendre_deriv<DEG>(Lz, dLz);
+  const float* coef = row + kCoeffLane;
+  float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+  int m = 0;
+#pragma unroll
+  for (int p = 0; p <= DEG; ++p)
+#pragma unroll
+    for (int i = 0; i <= p; ++i)
+#pragma unroll
+      for (int j = 0; j <= p - i; ++j, ++m) {
+        const int k = p - i - j;
+        const float c = __ldg(coef + m);
+        gx += c * (dLx[i] * Ly[j] * Lz[k]);
+        gy += c * (Lx[i] * dLy[j] * Lz[k]);
+        gz += c * (Lx[i] * Ly[j] * dLz[k]);
+      }
+  g[0] = gx;
+  g[1] = gy;
+  g[2] = gz;
+}
+
+}  // namespace hpsdf
+
+// Expands to a switch over the basis degree 0..12 (BASIS_MAX_DEGREE) that
+// runs LAUNCH(D) with D a compile-time constant; other degrees return
+// cudaErrorInvalidValue from the enclosing function.
+#define HPSDF_DISPATCH_DEG(deg, LAUNCH) \
+  switch (deg) {                        \
+    case 0: LAUNCH(0); break;           \
+    case 1: LAUNCH(1); break;           \
+    case 2: LAUNCH(2); break;           \
+    case 3: LAUNCH(3); break;           \
+    case 4: LAUNCH(4); break;           \
+    case 5: LAUNCH(5); break;           \
+    case 6: LAUNCH(6); break;           \
+    case 7: LAUNCH(7); break;           \
+    case 8: LAUNCH(8); break;           \
+    case 9: LAUNCH(9); break;           \
+    case 10: LAUNCH(10); break;         \
+    case 11: LAUNCH(11); break;         \
+    case 12: LAUNCH(12); break;         \
+    default: return (int)cudaErrorInvalidValue; \
+  }

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..accel import row_gather
 from . import bvh as _bvh
 from . import tri as _tri
 from .bvh import BVH, build_bvh
@@ -59,8 +60,9 @@ def _signed(rows, p):
 
 
 def _signed_from_best(tri_rows, best_idx, p):
-    """Final sign + distance evaluation on the best triangle only."""
-    return _signed(tri_rows[best_idx.long()], p)
+    """Final sign + distance evaluation on the best triangle only; its row
+    is fetched by the row gather (kernel G on CUDA tensors)."""
+    return _signed(row_gather(tri_rows, best_idx), p)
 
 
 def signed_distance_brute(tri_rows, pts, chunk: int = 128) -> torch.Tensor:

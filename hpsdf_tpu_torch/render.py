@@ -1,0 +1,379 @@
+"""Batched sphere tracing and shading.
+
+The counterpart of ``hpsdf_tpu/render.py`` (reference ``Octree::QueryRay``,
+Source/HP/Octree.cpp:705-746, and ``Ray::IntersectAABB``,
+Source/HP/Ray.cpp:17-65):
+
+  * ``intersect_aabb`` -- the slab test, vectorized.
+  * ``trace``          -- the march of ``_march_block``: the reference's step
+    ``t += 0.95 v + 1e-4`` and hit test ``v < 1e-4``, inner steps per leaf
+    relocation, Keinert over-relaxation with rollback (``OMEGA``), the step
+    cap and, for wide high-degree rows, a far-field phase on 32-lane LOD
+    rows. On CUDA tensors it is kernel K3 (``csrc/march.cu``, wrapper
+    ``march_kernel``), one thread per ray; on CPU tensors the plain
+    ``_march_block``, a masked lockstep loop over the batch.
+  * ``render``         -- pinhole rays, the march, normals (kernel K5 via
+    ``accel.normals``) and headlight shading.
+
+Not carried over: the TPU schedule around the march (chunking, ray sort,
+compaction, lockstep caps), since per-ray results do not depend on it; the
+cone prepass (kernel K4, queued with its boundary fix); and the implicit
+VJP of ``t`` (queued with inverse rendering), so ``t`` carries no gradient.
+The whole path runs in f32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import _kernels, accel
+from .accel import PackedTree, pack_tree
+from .tree import Octree
+
+# March constants (reference: Source/HP/Octree.cpp:725-743; hpsdf_tpu
+# render.py:53-77 for the inner-step choices measured there).
+MAX_STEPS = 200          # per-ray step cap
+HIT_EPS = 1e-4           # |v| < eps  => surface
+STEP_SCALE = 0.95        # 5% SDF-error safety
+MIN_STEP = 1e-4          # minimum advance
+INNER_STEPS = 1          # steps per relocation, shallow 32-lane trees
+INNER_STEPS_DEEP = 3     # and deep or high-degree trees
+INNER_STEPS_LO = 3       # in the far-field LOD phase
+LEAF_TOL = 1.0 + 1e-5    # |local| bound counting as "still in this leaf"
+
+# Over-relaxation factor (Keinert et al., "Enhanced Sphere Tracing"); 1.0
+# disables it. LOD -> full hand-off threshold, in hit_eps units.
+OMEGA = 1.3
+LOD_HANDOFF = 8.0
+
+
+class TraceResult(NamedTuple):
+    t: torch.Tensor        # (B,) ray parameter at hit (or last march position)
+    hit: torch.Tensor      # (B,) bool
+    steps: int             # outer relocation rounds, both phases
+
+
+def intersect_aabb(origins: torch.Tensor, dirs: torch.Tensor,
+                   aabb_min, aabb_max):
+    """Batched slab-method ray/AABB intersection. Returns (t_near, t_far,
+    hits); for rays starting inside the box t_near <= 0 <= t_far."""
+    inv = 1.0 / dirs                       # inf on zero components is fine
+    bmin = torch.as_tensor(aabb_min, dtype=origins.dtype,
+                           device=origins.device)
+    bmax = torch.as_tensor(aabb_max, dtype=origins.dtype,
+                           device=origins.device)
+    lo = (bmin - origins) * inv
+    hi = (bmax - origins) * inv
+    t_near = torch.amax(torch.minimum(lo, hi), dim=-1)
+    t_far = torch.amin(torch.maximum(lo, hi), dim=-1)
+    return t_near, t_far, t_far >= torch.clamp(t_near, min=0.0)
+
+
+def _root_box(pt: PackedTree):
+    """(rc, half) of the root as f32 numpy, rounded as hpsdf_tpu rounds
+    them; the box is rc -/+ half in f32."""
+    rc = np.asarray(pt.root_centre, np.float32)
+    half = np.float32(0.5) * np.asarray(pt.root_sizes, np.float32)
+    return rc, half
+
+
+def _lo_of(pt: PackedTree):
+    """(lo_grid, lo_rows) LOD tables for the far-field phase, or None when
+    the tree is low-degree already."""
+    if pt.deg_used <= 2 or pt.width <= accel.LO_W:
+        return None
+    return accel.lo_pack(pt.grid), accel.lo_pack(pt.rows)
+
+
+def _inner_steps_for(pt: PackedTree) -> int:
+    """Steps per relocation in the full-row phase (hpsdf_tpu
+    render.py:167-173)."""
+    if pt.width <= accel.LO_W and pt.extra_rounds == 0:
+        return INNER_STEPS
+    return INNER_STEPS_DEEP
+
+
+def _eval_lo(row, local):
+    """Deg<=2 eval on a 32-lane LOD row: (v_lo, err) with v_lo - err <= f
+    <= v_lo + err anywhere in the leaf."""
+    return accel.eval_local(row, local, 2), row[..., accel.LO_ERR_LANE]
+
+
+# --------------------------------------------------------------------------
+# The march: plain torch version of K3
+# --------------------------------------------------------------------------
+
+def _march_block(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
+                 max_steps: int = MAX_STEPS, step_cap=None,
+                 omega: float = OMEGA, lo=None):
+    """The two-phase march over a ray batch (B, 3) f32 as masked lockstep
+    loops (hpsdf_tpu render._march_block without its resume state).
+    Returns (t (B,), hit (B,), kk (2,) int): kk = [LOD-phase, full-phase]
+    relocation rounds, kk[0] = 0 without ``lo``."""
+    dev = origins.device
+    f32 = torch.float32
+    relax_on = omega > 1.0 and step_cap is None
+    inner_steps = _inner_steps_for(pt)
+    rc, half = _root_box(pt)
+    t_max = torch.tensor(t_max, dtype=f32, device=dev)
+    t_near, t_far, hits_box = intersect_aabb(origins, dirs, rc - half,
+                                             rc + half)
+    t_end = torch.minimum(t_far, t_max)
+    t = torch.clamp(t_near, min=0.0)
+    active = hits_box & (t <= t_end)
+    hit = torch.zeros_like(active)
+    uo = accel.to_unit(pt, origins)
+    udir = dirs * accel._root_f32(pt, dirs)[1]
+    omega32 = np.float32(omega)
+    slack = np.float32(1.001)
+    cap = None if step_cap is None else np.float32(step_cap)
+
+    def unit_at(t):
+        return torch.clamp(uo + t[..., None] * udir, -0.5, 0.5)
+
+    def outer_loop(active, body):
+        k = 0
+        while k < max_steps and bool(active.any()):
+            active = body(active)
+            k += 1
+        return active, k
+
+    zeros = torch.zeros(t.shape, dtype=f32, device=dev)
+    s = dict(t=t, nsteps=torch.zeros(t.shape, dtype=torch.int32, device=dev),
+             relax=torch.full_like(active, relax_on), adv_p=zeros, v_p=zeros)
+
+    def step(active, lane, v, over, stop):
+        """One step of the lanes in their leaf that do not stop here (a hit
+        or a hand-off): the (relaxed, rolled back or capped) advance, the
+        relaxation update, and the escape test on the unrelaxed step.
+        Returns the lanes still marching."""
+        t = s["t"]
+        stepping = lane & ~stop
+        safe_adv = STEP_SCALE * v + MIN_STEP
+        adv = safe_adv
+        if relax_on:
+            adv = torch.where(s["relax"], omega32 * adv, adv)
+            # a relaxed step never carries a lane past the exit plane
+            adv = torch.where(t + adv > t_end, safe_adv, adv)
+            adv = torch.where(over, -s["adv_p"] + STEP_SCALE * s["v_p"]
+                              + MIN_STEP, adv)
+            s["relax"] = s["relax"] & ~over
+        if cap is not None:
+            adv = torch.clamp(adv, max=cap)
+        escaped = stepping & ~over & (t + safe_adv > t_end)
+        s["t"] = torch.where(stepping, t + adv, t)
+        s["nsteps"] = s["nsteps"] + stepping.int()
+        if relax_on:
+            s["adv_p"] = torch.where(stepping, torch.where(over, 0.0, adv),
+                                     s["adv_p"])
+            s["v_p"] = torch.where(stepping, v, s["v_p"])
+        return active & ~stop & ~escaped & (s["nsteps"] < max_steps)
+
+    def leaf_frame(row):
+        local = (unit_at(s["t"]) - row[..., 2:5]) * row[..., 1:2]
+        return local, torch.all(local.abs() <= LEAF_TOL, dim=-1)
+
+    k_lo = 0
+    if lo is not None:
+        lo_grid, lo_rows = lo
+        handoff = np.float32(LOD_HANDOFF) * np.float32(hit_eps)
+        need_full = torch.zeros_like(active)
+
+        def outer1(active):
+            nonlocal need_full
+            row = accel.locate_in(lo_grid, lo_rows, pt.grid_depth,
+                                  pt.extra_rounds, unit_at(s["t"]))
+            for _ in range(INNER_STEPS_LO):
+                local, in_leaf = leaf_frame(row)
+                v_lo, err = _eval_lo(row, local)
+                v = v_lo - err                  # lower bound on the field
+                lane = active & in_leaf
+                over = torch.zeros_like(lane)
+                if relax_on:
+                    # overlap radii must lower-bound |f|: relu(|v_lo| - err)
+                    rad = torch.relu(v_lo.abs() - err)
+                    over = (lane & s["relax"] & (s["adv_p"] > 0.0)
+                            & (s["v_p"] + rad < s["adv_p"] * slack))
+                hand = lane & ~over & (v < handoff)
+                need_full = need_full | hand
+                active = step(active, lane, v, over, hand)
+            return active
+
+        active, k_lo = outer_loop(active, outer1)
+        # hand-offs and rays still marching at the round cap go on with
+        # fresh relaxation state
+        active = active | need_full
+        s.update(relax=torch.full_like(active, relax_on), adv_p=zeros,
+                 v_p=zeros)
+
+    def outer2(active):
+        nonlocal hit
+        row = accel.locate(pt, unit_at(s["t"]))
+        for _ in range(inner_steps):
+            local, in_leaf = leaf_frame(row)
+            v = accel.eval_local(row, local, pt.deg_used)
+            lane = active & in_leaf
+            over = torch.zeros_like(lane)
+            if relax_on:
+                # Keinert overlap test on the pending relaxed step
+                over = (lane & s["relax"] & (s["adv_p"] > 0.0)
+                        & (s["v_p"].abs() + v.abs() < s["adv_p"] * slack))
+            now_hit = lane & ~over & (v < hit_eps)
+            hit = hit | now_hit
+            active = step(active, lane, v, over, now_hit)
+        return active
+
+    _, k_full = outer_loop(active, outer2)
+    return s["t"], hit, torch.tensor([k_lo, k_full], dtype=torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Kernel K3
+# --------------------------------------------------------------------------
+
+def march_kernel(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
+                 max_steps: int = MAX_STEPS, step_cap=None,
+                 omega: float = OMEGA, lo=None):
+    """Launch K3 on CUDA tensors: what ``_march_block`` computes, one thread
+    per ray. Returns (t (B,) f32, hit (B,) bool, kk (2,) int32 on the
+    device). Raises on anything else."""
+    dev = origins.device
+    if dev.type != "cuda":
+        raise ValueError(f"march_kernel needs CUDA tensors, got {dev}")
+    if dirs.dtype != torch.float32 or dirs.shape != origins.shape \
+            or dirs.device != dev:
+        raise ValueError(f"dirs must be f32 {tuple(origins.shape)} on {dev}, "
+                         f"got {dirs.dtype} {tuple(dirs.shape)} on "
+                         f"{dirs.device}")
+    accel._check_packed(pt, origins)
+    if lo is not None:
+        for tab, like in zip(lo, (pt.grid, pt.rows)):
+            if tab.dtype != torch.float32 or not tab.is_contiguous() \
+                    or tab.shape != (like.shape[0], accel.LO_W) \
+                    or tab.device != dev:
+                raise ValueError("LOD tables must be contiguous f32 "
+                                 f"(N, {accel.LO_W}) beside the packed "
+                                 f"ones, on {dev}")
+    origins, dirs = origins.contiguous(), dirs.contiguous()
+    B = origins.shape[0]
+    t = torch.empty(B, dtype=torch.float32, device=dev)
+    hit = torch.empty(B, dtype=torch.bool, device=dev)
+    kk = torch.zeros(2, dtype=torch.int32, device=dev)
+    if B == 0:
+        return t, hit, kk
+    lib = _kernels.load()
+    rc, half = _root_box(pt)
+    inv = (1.0 / np.asarray(pt.root_sizes)).astype(np.float32)
+    box = [*(rc - half), *(rc + half), *rc, *inv]
+    relax_on = omega > 1.0 and step_cap is None
+    _kernels.check(lib, lib.hpsdf_march(
+        pt.grid.data_ptr(), pt.rows.data_ptr(), pt.width, pt.deg_used,
+        None if lo is None else lo[0].data_ptr(),
+        None if lo is None else lo[1].data_ptr(),
+        pt.grid_depth, pt.extra_rounds, _inner_steps_for(pt),
+        origins.data_ptr(), dirs.data_ptr(), B, *map(float, box),
+        float(np.float32(t_max)), float(np.float32(hit_eps)), int(max_steps),
+        float(np.float32(0.0 if step_cap is None else step_cap)),
+        int(step_cap is not None), float(np.float32(omega)), int(relax_on),
+        t.data_ptr(), hit.data_ptr(), kk.data_ptr(),
+        _kernels.stream_of(origins)), "march")
+    march_kernel.launches += 1
+    return t, hit, kk
+
+
+march_kernel.launches = 0
+
+
+def _march(pt: PackedTree, origins, dirs, t_max, hit_eps, max_steps,
+           step_cap=None):
+    fn = _march_block if origins.device.type == "cpu" else march_kernel
+    return fn(pt, origins, dirs, t_max, hit_eps, max_steps, step_cap,
+              lo=_lo_of(pt))
+
+
+def trace(tree: Octree, origins, dirs, t_max: float = 10.0,
+          hit_eps: float = HIT_EPS, max_steps: int = MAX_STEPS,
+          packed: PackedTree | None = None, step_cap: float | None = None,
+          sort_rays: bool | None = None,
+          cone_tiles: tuple | None = None) -> TraceResult:
+    """Sphere-trace a ray batch (B, 3) world-space origins and unit
+    directions, on the tree's device. Returns TraceResult(t, hit, steps).
+
+    ``sort_rays`` is accepted and changes nothing: per-ray results are the
+    same under every schedule. The cone prepass (``cone_tiles``, kernel
+    K4) is not ported yet. ``t`` carries no gradient yet.
+    """
+    if cone_tiles is not None:
+        raise NotImplementedError(
+            "cone_tiles: the cone prepass (kernel K4) is not ported to "
+            "hpsdf_tpu_torch yet (ROADMAP.md, queue 2 'K4')")
+    del sort_rays
+    if packed is None:
+        packed = pack_tree(tree)
+    dev = packed.device
+    o = torch.as_tensor(origins, dtype=torch.float32, device=dev)
+    d = torch.as_tensor(dirs, dtype=torch.float32, device=dev)
+    t, hit, kk = _march(packed, o, d, t_max, hit_eps, max_steps, step_cap)
+    return TraceResult(t, hit, int(kk.sum()))
+
+
+# --------------------------------------------------------------------------
+# Camera + shading
+# --------------------------------------------------------------------------
+
+def camera_rays(eye, look_at, up=(0.0, 1.0, 0.0), fov_deg: float = 40.0,
+                width: int = 256, height: int = 256, device="cpu"):
+    """Pinhole camera ray grid in f32. Returns (origins (H*W, 3), dirs
+    (H*W, 3))."""
+    f32 = torch.float32
+    eye = torch.as_tensor(eye, dtype=f32, device=device)
+    fwd = torch.as_tensor(look_at, dtype=f32, device=device) - eye
+    fwd = fwd / torch.linalg.norm(fwd)
+    right = torch.linalg.cross(fwd, torch.as_tensor(up, dtype=f32,
+                                                    device=device))
+    right = right / torch.linalg.norm(right)
+    cam_up = torch.linalg.cross(right, fwd)
+    tan = np.float32(math.tan(np.float32(np.deg2rad(np.float32(fov_deg)))
+                              * np.float32(0.5)))
+    xs = (torch.arange(width, dtype=f32, device=device) + 0.5) / width \
+        * 2.0 - 1.0
+    ys = 1.0 - (torch.arange(height, dtype=f32, device=device) + 0.5) \
+        / height * 2.0
+    aspect = width / height
+    px, py = torch.meshgrid(xs * tan * aspect, ys * tan, indexing="xy")
+    d = px[..., None] * right + py[..., None] * cam_up + fwd
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    origins = eye.expand(d.shape).reshape(-1, 3)
+    return origins, d.reshape(-1, 3)
+
+
+# unit surface normals at world points (K5 on CUDA tensors)
+_normals_at = accel.normals
+
+
+def render(tree: Octree, eye, look_at, up=(0.0, 1.0, 0.0),
+           fov_deg: float = 40.0, width: int = 256, height: int = 256,
+           t_max: float = 10.0, max_steps: int = MAX_STEPS,
+           packed: PackedTree | None = None):
+    """Render the octree SDF by sphere tracing with headlight shading, on
+    the tree's device. Returns (image (H, W, 3) f32 in [0, 1], depth (H, W)
+    with inf on misses, hit (H, W) bool). Traces without the cone prepass
+    (K4, not ported yet)."""
+    if packed is None:
+        packed = pack_tree(tree)
+    origins, dirs = camera_rays(eye, look_at, up, fov_deg, width, height,
+                                device=packed.device)
+    t, hit, _ = _march(packed, origins, dirs, t_max, HIT_EPS, max_steps)
+    p = origins + t[..., None] * dirs
+    normals = _normals_at(packed, p)
+    lam = torch.clamp(-torch.sum(normals * dirs, dim=-1), min=0.0)
+    shade = torch.where(hit, 0.15 + 0.85 * lam, 0.0)
+    img = torch.stack([shade, shade, shade], dim=-1)
+    depth = torch.where(hit, t, torch.inf)
+    return (img.reshape(height, width, 3), depth.reshape(height, width),
+            hit.reshape(height, width))
+

@@ -20,6 +20,8 @@ import torch
 import hpsdf_tpu as hp
 import hpsdf_tpu_torch as T
 
+from .test_torch_query import few_torch_threads  # noqa: F401
+
 _CONFIGS = {
     # test_build_query.py sphere_tree
     "nearness_weighted": (hp.Config(

@@ -14,6 +14,7 @@ from hpsdf_tpu.mesh import pallas_sdf
 from hpsdf_tpu_torch import mesh as TM
 from hpsdf_tpu_torch.mesh import gen, tiles_sdf
 
+from .test_torch_query import few_torch_threads  # noqa: F401
 from .util import cube_mesh, uniform_pts
 
 

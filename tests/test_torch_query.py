@@ -34,6 +34,17 @@ _TREES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_torch_threads():
+    """The port's tests use small tensors, and the suite runs them in
+    several worker processes at once: two intra-op threads per process run
+    them faster than one per core, which oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_config(cfg):
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     kw["nearness_weighting"] = T.NearnessWeighting(cfg.nearness_weighting.value)

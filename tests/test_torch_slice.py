@@ -23,6 +23,7 @@ import hpsdf_tpu_torch as T
 from hpsdf_tpu_torch import mesh as TM
 from hpsdf_tpu_torch.mesh import gen
 
+from .test_torch_query import few_torch_threads  # noqa: F401
 from .util import uniform_pts
 
 
