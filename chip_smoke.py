@@ -24,10 +24,20 @@ both trees are traced at 1024^2 rays. K3 and K5 are held against their
 plain versions once more on the carved tree and the 512^2 rays that
 render_image traced.
 
-Phases, one line each: device, build, P1 vs plain, the slice, K1 vs plain,
-times, G vs plain, the reference-default fit, K2/K5 vs plain, K3 vs plain,
-the render path; then one JSON line with the kernels, the card's name and
-power limit as nvidia-smi prints them, and the final JSON line
+P1 is also held against its plain version on the main path's own points
+(the largest F batch of the slice fit) and timed there with and without its
+tile cull; wherever P1 is checked, its culled scan must equal its dense
+scan bit for bit, on the fit's whole batch too. Every kernel's time stands
+beside its bound on this card: the operations (P1, f32, on the pairs its
+blocks scanned, with the dense pairs beside) or the bytes (each input read
+once, each output written once) over the H100's published peak; G's also
+beside torch.index_select on in-range indices, which the port never calls.
+
+Phases, one line each: device, build, P1 vs plain, the slice, P1 at the fit
+batch, K1 vs plain, times, G vs plain, the reference-default fit, K2/K5 vs
+plain, K3 vs plain, the render path; then one JSON line with the kernels,
+the card's name and power limit as nvidia-smi prints them, and the final
+JSON line
 {"ok": true, "device": {...}}. Any failed check raises and the exit code is
 non-zero. Without a CUDA device it exits 1 and prints no result.
 """
@@ -47,6 +57,11 @@ SIGNED_ATOL = 1e-6                  # signed distance from either index
 K1_VAL_ATOL, K1_GRAD_ATOL = 1e-12, 1e-10
 FIT_ATOL = 0.01                     # query vs |p| - 0.3 on the slice
 P1_SIZES = (65536, 1, 7, 1_000_003)
+N_FIT_CHECK = 65536                 # P1 vs plain on the fit's own points
+# roofline of one H100 SXM (NVIDIA's data sheet, at 700 W): f32 outside the
+# tensor cores and HBM3
+F32_PEAK, HBM_RATE = 67e12, 3.35e12
+P1_OPS_PER_PAIR = 50                # f32 operations (csrc/closest_tri.cu)
 N_QUERY = 1 << 20
 G_TABLE = (4681, 32)                # experiments/gather_probe.py:54-56
 N_GATHER = 1 << 20
@@ -84,48 +99,126 @@ def time_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def phase_p1(rows, sizes, seed=0):
-    """P1 against its plain version on the card. Returns max |d2 diff|."""
+def check_cull(rows, table, pts, d2_k, idx_k, label):
+    """P1's tile cull is exact: the dense scan (the same kernel, cull off)
+    gives the culled result bit for bit."""
+    from hpsdf_tpu_torch.mesh import tiles_sdf as ts
+
+    d2_d, idx_d = ts._launch(rows, pts, table, cull=False)
+    check(bool(torch.equal(d2_k, d2_d)) and bool(torch.equal(idx_k, idx_d)),
+          f"P1 culled vs dense scan at {label}: {int((d2_k != d2_d).sum())} "
+          f"d2 and {int((idx_k != idx_d).sum())} indices differ")
+
+
+def check_p1(rows, table, pts, label):
+    """P1 against its plain version on the same points: d2 within
+    TRI_ATOL + TRI_RTOL d2, a differing index only where it reaches the
+    plain best d2, signed distances within SIGNED_ATOL; and the culled scan
+    equal to the dense one. Returns max |d2 diff|."""
     from hpsdf_tpu_torch.mesh import (closest_tri_tiles,
                                       closest_tri_tiles_plain)
     from hpsdf_tpu_torch.mesh.sdf import _signed_from_best
     from hpsdf_tpu_torch.mesh.tiles_sdf import _closest_d2
 
+    n = pts.shape[0]
+    d2_k, idx_k = closest_tri_tiles(rows, pts, table)
+    check_cull(rows, table, pts, d2_k, idx_k, label)
+    d2_p, idx_p = closest_tri_tiles_plain(rows, pts)
+    check(d2_k.shape == (n,) and idx_k.dtype == torch.int32,
+          f"P1 output shape/dtype at {label}")
+    check(bool(torch.isfinite(d2_k).all()), f"P1 d2 finite at {label}")
+    err = (d2_k - d2_p).abs()
+    check(bool((err <= TRI_ATOL + TRI_RTOL * d2_p.abs()).all()),
+          f"P1 d2 vs plain at {label}: max {float(err.max()):.3e}")
+    # where the index differs, the kernel's triangle must reach the plain
+    # best d2: the two are tied within tolerance, so the plain scan's best
+    # and second best differ by no more than that
+    diff = torch.nonzero(idx_k != idx_p).flatten()
+    if diff.numel():
+        p = pts[diff]
+        t = rows[idx_k[diff].long(), :9].T
+        d2_own = _closest_d2(p[:, 0], p[:, 1], p[:, 2], *t)
+        gap = (d2_own - d2_p[diff]).abs()
+        check(bool((gap <= TRI_ATOL + TRI_RTOL * d2_p[diff]).all()),
+              f"P1 index at {label}: {diff.numel()} differ, worst d2 gap "
+              f"{float(gap.max()):.3e}")
+    s_k = _signed_from_best(rows, idx_k, pts)
+    s_p = _signed_from_best(rows, idx_p, pts)
+    s_err = float((s_k - s_p).abs().max())
+    check(s_err <= SIGNED_ATOL, f"P1 signed distance at {label}: {s_err}")
+    print(f"[p1] {label}: max|d2 - plain| {float(err.max()):.3e}, "
+          f"{diff.numel()} tied indices differ, max|signed - plain| "
+          f"{s_err:.3e}, culled = dense bit for bit", flush=True)
+    return float(err.max())
+
+
+def phase_p1(rows, table, sizes, seed=0):
+    """P1 against its plain version on uniform points. Returns max |d2
+    diff|."""
     rng = np.random.default_rng(seed)
     worst = 0.0
     for n in sizes:
         pts = torch.as_tensor(
             rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32),
             device=rows.device)
-        d2_k, idx_k = closest_tri_tiles(rows, pts)
-        d2_p, idx_p = closest_tri_tiles_plain(rows, pts)
-        check(d2_k.shape == (n,) and idx_k.dtype == torch.int32,
-              f"P1 output shape/dtype at n={n}")
-        check(bool(torch.isfinite(d2_k).all()), f"P1 d2 finite at n={n}")
-        err = (d2_k - d2_p).abs()
-        check(bool((err <= TRI_ATOL + TRI_RTOL * d2_p.abs()).all()),
-              f"P1 d2 vs plain at n={n}: max {float(err.max()):.3e}")
-        worst = max(worst, float(err.max()))
-        # where the index differs, the kernel's triangle must reach the
-        # plain best d2: the two are tied within tolerance, so the plain
-        # scan's best and second best differ by no more than that
-        diff = torch.nonzero(idx_k != idx_p).flatten()
-        if diff.numel():
-            p = pts[diff]
-            t = rows[idx_k[diff].long(), :9].T
-            d2_own = _closest_d2(p[:, 0], p[:, 1], p[:, 2], *t)
-            gap = (d2_own - d2_p[diff]).abs()
-            check(bool((gap <= TRI_ATOL + TRI_RTOL * d2_p[diff]).all()),
-                  f"P1 index at n={n}: {diff.numel()} differ, worst d2 gap "
-                  f"{float(gap.max()):.3e}")
-        s_k = _signed_from_best(rows, idx_k, pts)
-        s_p = _signed_from_best(rows, idx_p, pts)
-        s_err = float((s_k - s_p).abs().max())
-        check(s_err <= SIGNED_ATOL, f"P1 signed distance at n={n}: {s_err}")
-        print(f"[p1] n={n}: max|d2 - plain| {float(err.max()):.3e}, "
-              f"{diff.numel()} tied indices differ, max|signed - plain| "
-              f"{s_err:.3e}", flush=True)
+        worst = max(worst, check_p1(rows, table, pts, f"n={n}"))
     return worst
+
+
+def p1_bounds(table, n_pts):
+    """P1's bounds after a launch on n_pts points, at P1_OPS_PER_PAIR f32
+    operations a pair over the f32 peak: (the pairs the launch's blocks
+    scanned in their full pass, each block's live points times the rows of
+    the tiles it visited, from the kernel's per-block counts; the dense
+    pairs, every point against every real row), in ms, and the share of
+    non-empty tiles the cull skipped."""
+    from hpsdf_tpu_torch.mesh import closest_tri_tiles
+    from hpsdf_tpu_torch.mesh.tiles_sdf import BLOCK_PTS
+
+    visits = closest_tri_tiles.visits.double().cpu()
+    live = torch.full((visits.shape[0],), float(BLOCK_PTS),
+                      dtype=torch.float64)
+    live[-1] = n_pts - BLOCK_PTS * (visits.shape[0] - 1)
+    pairs = float((live * visits[:, 1]).sum())
+    dense = n_pts * int(table.n_rows.sum())
+    full = int((table.n_rows > 0).sum())
+    skipped = 1.0 - float(visits[:, 0].sum()) / (visits.shape[0] * full)
+    scale = P1_OPS_PER_PAIR / F32_PEAK * 1e3
+    return pairs * scale, dense * scale, skipped
+
+
+def bytes_ms(*tensors, extra=0):
+    """The byte bound: each tensor read or written once, at the HBM rate."""
+    n = extra + sum(t.numel() * t.element_size() for t in tensors)
+    return n / HBM_RATE * 1e3
+
+
+def phase_p1_fit(rows, table, fit_pts):
+    """P1 at the main path's own points, the largest F batch of the slice
+    fit: against its plain version on its first N_FIT_CHECK points, the
+    culled scan against the dense one bit for bit on the whole batch, then
+    timed on the whole batch with and without the tile cull; the cull's
+    share of skipped tiles and the bound on the pairs it scanned from the
+    kernel's per-block counts."""
+    from hpsdf_tpu_torch.mesh import closest_tri_tiles
+    from hpsdf_tpu_torch.mesh import tiles_sdf as ts
+
+    pts = fit_pts.to(torch.float32)
+    count = closest_tri_tiles.launches
+    err = check_p1(rows, table, pts[:N_FIT_CHECK],
+                   f"fit batch (first {N_FIT_CHECK} of {pts.shape[0]})")
+    d2, idx = closest_tri_tiles(rows, pts, table)
+    bound, dense, skipped = p1_bounds(table, pts.shape[0])
+    check_cull(rows, table, pts, d2, idx,
+               f"the whole fit batch ({pts.shape[0]} points)")
+    t = {"fit_ms": time_ms(lambda: closest_tri_tiles(rows, pts, table), 5),
+         "fit_dense_ms": time_ms(lambda: ts._launch(rows, pts, table,
+                                                    cull=False), 3),
+         "fit_bound_ms": bound, "fit_dense_bound_ms": dense,
+         "fit_points": pts.shape[0], "fit_max_abs_err": err,
+         "skipped_tile_share": skipped}
+    closest_tri_tiles.launches = count       # not main-path launches
+    return t
 
 
 def counters():
@@ -149,18 +242,27 @@ def read_counts():
 
 
 def phase_slice(mesh, bvh, cfg, n_query, out_path, seed=1):
-    """The main path once; returns (tree, launches)."""
+    """The main path once; returns (tree, launches, the largest F batch's
+    points)."""
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch.mesh import mesh_sdf
 
     dev = bvh.tri_rows.device
     F = mesh_sdf(mesh, bvh)                       # method "auto"
     check(F.method == "tiles", f"mesh_sdf auto picked {F.method}")
-    samples = [0]
+    samples, f_s = [0], [0.0]
+    largest = [torch.empty((0, 3))]
 
     def F_counted(pts):
         samples[0] += pts.shape[0]
-        return F(pts)
+        if pts.shape[0] > largest[0].shape[0]:
+            largest[0] = pts
+        sync()
+        t0 = time.perf_counter()
+        out = F(pts)
+        sync()
+        f_s[0] += time.perf_counter() - t0
+        return out
 
     rng = np.random.default_rng(seed)
     pts = torch.as_tensor(rng.uniform(-0.4, 0.4, (n_query, 3)), device=dev)
@@ -207,12 +309,13 @@ def phase_slice(mesh, bvh, cfg, n_query, out_path, seed=1):
           "save/load metadata")
     print(f"[slice] nodes {tree.n_nodes}, leaves {tree.num_leaves()}, "
           f"deg_used {tree.deg_used}, depth_used {tree.depth_used}, "
-          f"F samples {samples[0]}, build {build_s:.3f} s, query "
+          f"F samples {samples[0]}, build {build_s:.3f} s (F {f_s[0]:.3f} "
+          f"s of it, synchronised), query "
           f"{n_query / query_s / 1e6:.2f} Mq/s (first call), "
           f"max|query - (|p| - 0.3)| {fit_err:.3e}, gradient . radial 1% "
           f"quantile {dot_q01:.6f}, save/load bit-exact, launches "
           f"{launches}", flush=True)
-    return tree, launches
+    return tree, launches, largest[0]
 
 
 def phase_k1(tree, n, seed=2):
@@ -250,7 +353,7 @@ def phase_k1(tree, n, seed=2):
     return max(v_err, c_err, gv_err), g_err
 
 
-def phase_times(rows, tree, n, seed=3):
+def phase_times(rows, table, tree, n, seed=3):
     """Each kernel beside its plain version at the main path's shapes."""
     from hpsdf_tpu_torch.build import BLOCK_PTS
     from hpsdf_tpu_torch.mesh import (closest_tri_tiles,
@@ -268,13 +371,23 @@ def phase_times(rows, tree, n, seed=3):
     t = {
         "p1_plain": time_ms(lambda: closest_tri_tiles_plain(rows, fpts), 1,
                             warmup=0),
-        "p1": time_ms(lambda: closest_tri_tiles(rows, fpts), 5),
+        "p1": time_ms(lambda: closest_tri_tiles(rows, fpts, table), 5),
+    }
+    t["p1_bound"], t["p1_dense_bound"], t["p1_skipped"] = p1_bounds(
+        table, fpts.shape[0])
+    t.update({
         "k1_plain": time_ms(lambda: query_plain(tree, qpts), 5),
         "k1": time_ms(lambda: query_kernel(tree, qpts, False), 20),
         "k1g_plain": time_ms(lambda: query_with_gradient_plain(tree, qpts),
                              5),
         "k1g": time_ms(lambda: query_kernel(tree, qpts, True), 20),
-    }
+    })
+    # K1 reads the tree's arrays and the points once, writes the values
+    # (and the gradients)
+    arrays = [getattr(tree, k) for k in ("child_idx", "centre", "depth",
+                                         "degree", "coeffs")]
+    t["k1_bound"] = bytes_ms(*arrays, qpts, extra=8 * n)
+    t["k1g_bound"] = bytes_ms(*arrays, qpts, extra=32 * n)
     # timing launches are not main-path launches
     closest_tri_tiles.launches, query_kernel.launches = counts
     return t
@@ -283,7 +396,10 @@ def phase_times(rows, tree, n, seed=3):
 def phase_g(tri_rows, seed=4):
     """G against its plain version, bit for bit, at the probe's table and at
     the mesh's triangle rows, with 2^20 indices of which some fall outside
-    the table. Returns ({shape: (ms, plain_ms)}, max |kernel - plain|)."""
+    the table. Each shape is also timed on in-range indices beside
+    torch.index_select on the same indices (the library yardstick, never
+    called by the port). Returns ({shape: dict of times and the byte bound},
+    max |kernel - plain|)."""
     from hpsdf_tpu_torch.accel import row_gather, row_gather_plain
 
     rng = np.random.default_rng(seed)
@@ -303,11 +419,24 @@ def phase_g(tri_rows, seed=4):
         err = max(err, float((g_k - g_p).abs().max()))
         check(bool(oob.any()) and not bool(g_k[oob].any()),
               f"G zeros out of range at {shape}")
-        out[shape] = (time_ms(lambda: row_gather(tab, idx), 20),
-                      time_ms(lambda: row_gather_plain(tab, idx), 20))
+        inr = torch.as_tensor(rng.integers(0, n, N_GATHER).astype(np.int32),
+                              device=dev)
+        check(bool(torch.equal(row_gather(tab, inr),
+                               torch.index_select(tab, 0, inr))),
+              f"G vs index_select at {shape}")
+        t = out[shape] = {
+            "ms": time_ms(lambda: row_gather(tab, idx), 20),
+            "plain_ms": time_ms(lambda: row_gather_plain(tab, idx), 20),
+            "inrange_ms": time_ms(lambda: row_gather(tab, inr), 20),
+            "library_ms": time_ms(lambda: torch.index_select(tab, 0, inr),
+                                  20),
+            "bound_ms": bytes_ms(tab, idx, extra=4 * N_GATHER * tab.shape[1])}
         print(f"[g] table {shape}, {N_GATHER} indices ({int(oob.sum())} out "
-              f"of range): bit-exact, kernel {out[shape][0]:.4f} ms, plain "
-              f"{out[shape][1]:.4f} ms", flush=True)
+              f"of range): bit-exact, kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms | in range: kernel "
+              f"{t['inrange_ms']:.4f} ms, torch.index_select "
+              f"{t['library_ms']:.4f} ms | byte bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_ms'] / t['ms']:.1%} of it)", flush=True)
     return out, err
 
 
@@ -381,7 +510,11 @@ def phase_k2(pt, name, sphere, seed=5):
     t = {"k2": time_ms(lambda: packed_eval_kernel(pt, pts, False, True), 20),
          "k2_plain": time_ms(lambda: query_packed_plain(pt, pts), 5),
          "k5": time_ms(lambda: packed_eval_kernel(pt, pts, True), 20),
-         "k5_plain": time_ms(lambda: normals_plain(pt, pts), 5)}
+         "k5_plain": time_ms(lambda: normals_plain(pt, pts), 5),
+         # the packed rows, the grid and the points read once, the values
+         # (normals) written once
+         "k2_bound": bytes_ms(pt.rows, pt.grid, pts, extra=4 * N_QUERY),
+         "k5_bound": bytes_ms(pt.rows, pt.grid, pts, extra=12 * N_QUERY)}
     print(f"[k2] {name}: {N_QUERY} pts ({int(outside.sum())} outside): "
           f"max|v - plain|/max(1,|v|) {v_err:.3e}, clamped {c_err:.3e}; "
           f"normals min dot {dot_min:.8f} over {int(away.sum())} pts | "
@@ -440,6 +573,10 @@ def phase_k3(pt, name, sphere, lod_expected):
               f"K3 vs plain with {kw} ({name})")
         t_err = max(t_err, float((tv_k[bv] - tv_p[bv]).abs().max()))
     ms = time_ms(lambda: march_kernel(*args, lo=lo), 5)
+    # the packed rows, the grid, the LOD tables and the rays read once, t and
+    # hit written once
+    bound = bytes_ms(pt.rows, pt.grid, o, d, *(lo or ()),
+                     extra=5 * o.shape[0])
     frac = float(h_k.float().mean())
     mrays = o.shape[0] / (ms * 1e-3) / 1e6
     print(f"[k3] {name}: {RAYS_SIDE}^2 rays, hit fraction {frac:.4f}, hit "
@@ -448,7 +585,8 @@ def phase_k3(pt, name, sphere, lod_expected):
           f"{t_err:.3e}, max|r_hit - R| {r_err:.3e}, kk kernel {kk} plain "
           f"{[int(x) for x in kk_p]} | K3 {ms:.3f} ms ({mrays:.2f} Mrays/s),"
           f" plain {plain_ms:.1f} ms (one run)", flush=True)
-    return t_err, {"k3": ms, "k3_plain": plain_ms, "mrays": mrays}, kk, frac
+    return (t_err, {"k3": ms, "k3_plain": plain_ms, "mrays": mrays,
+                    "k3_bound": bound}, kk, frac)
 
 
 def phase_render(tree, out_dir):
@@ -602,26 +740,44 @@ def main():
     bvh = build_bvh(mesh, device=dev)
     print(f"[mesh] {mesh.n_faces} triangles, {bvh.n_leaves} packed rows",
           flush=True)
-    p1_err = phase_p1(bvh.tri_rows, P1_SIZES)
+    from hpsdf_tpu_torch.mesh.tiles_sdf import tile_table
+    table = tile_table(bvh.tri_rows)
+    p1_err = phase_p1(bvh.tri_rows, table, P1_SIZES)
 
     # --- 4. the slice ------------------------------------------------------
     cfg = Config(target_error=1e-7, max_depth=5, max_degree=6,
                  continuity=False, fit_dtype="compensated")
     os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
-    tree, launches = phase_slice(
+    tree, launches, fit_pts = phase_slice(
         mesh, bvh, cfg, N_QUERY,
         os.path.join(_kernels.BUILD_DIR, "chip_smoke_tree.npz"))
+    tf = phase_p1_fit(bvh.tri_rows, table, fit_pts)
+    p1_err = max(p1_err, tf["fit_max_abs_err"])
 
     # --- 5. K1 against its plain version -----------------------------------
     k1_err, k1g_err = phase_k1(tree, N_QUERY)
 
     # --- 6. times ----------------------------------------------------------
-    t = phase_times(bvh.tri_rows, tree, N_QUERY)
+    t = phase_times(bvh.tri_rows, table, tree, N_QUERY)
     print(f"[times] {smi} | P1 closest_tri at ({bvh.n_leaves} rows x "
-          f"2^20 pts): kernel {t['p1']:.3f} ms, plain {t['p1_plain']:.3f} ms"
-          f" | K1 query at 2^20 pts: kernel {t['k1']:.3f} ms, plain "
-          f"{t['k1_plain']:.3f} ms | K1 query_with_gradient: kernel "
-          f"{t['k1g']:.3f} ms, plain {t['k1g_plain']:.3f} ms", flush=True)
+          f"2^20 uniform pts): kernel {t['p1']:.3f} ms, plain "
+          f"{t['p1_plain']:.3f} ms, bound on the scanned pairs "
+          f"{t['p1_bound']:.3f} ms ({t['p1_bound'] / t['p1']:.1%} of it; "
+          f"tiles skipped {t['p1_skipped']:.4f}), dense bound "
+          f"{t['p1_dense_bound']:.3f} ms "
+          f"({t['p1_dense_bound'] / t['p1']:.1%}) | P1 at the fit batch "
+          f"({tf['fit_points']} pts): kernel {tf['fit_ms']:.3f} ms, bound on "
+          f"the scanned pairs {tf['fit_bound_ms']:.3f} ms "
+          f"({tf['fit_bound_ms'] / tf['fit_ms']:.1%} of it; tiles skipped "
+          f"{tf['skipped_tile_share']:.4f}); without the cull "
+          f"{tf['fit_dense_ms']:.3f} ms, dense bound "
+          f"{tf['fit_dense_bound_ms']:.3f} ms "
+          f"({tf['fit_dense_bound_ms'] / tf['fit_dense_ms']:.1%} of it) | "
+          f"K1 query "
+          f"at 2^20 pts: kernel {t['k1']:.3f} ms, plain {t['k1_plain']:.3f} "
+          f"ms, byte bound {t['k1_bound']:.4f} ms | K1 query_with_gradient: "
+          f"kernel {t['k1g']:.3f} ms, plain {t['k1g_plain']:.3f} ms, byte "
+          f"bound {t['k1g_bound']:.4f} ms", flush=True)
 
     # --- 7. G against its plain version ------------------------------------
     tg, g_err = phase_g(bvh.tri_rows)
@@ -645,47 +801,61 @@ def main():
 
     total = {k: launches[k] + launches_r[k] for k in launches}
     g_probe = tg[f"{G_TABLE[0]}x{G_TABLE[1]}"]
+    g_rows = tg[f"{bvh.tri_rows.shape[0]}x{bvh.tri_rows.shape[1]}"]
     kernels = [
         {"name": "closest_tri", "route": "cuda",
          "source": "hpsdf_tpu_torch/csrc/closest_tri.cu",
          "replaces": "hpsdf_tpu/mesh/pallas_sdf.py:187",
          "launches": total["closest_tri"], "max_abs_err": p1_err,
-         "ms": t["p1"], "plain_ms": t["p1_plain"]},
+         "ms": t["p1"], "plain_ms": t["p1_plain"],
+         "bound_ms": t["p1_bound"], "bound_by": "operations",
+         "library_ms": None, "dense_bound_ms": t["p1_dense_bound"],
+         "skipped_tile_share_uniform": t["p1_skipped"], **tf},
         {"name": "query", "route": "cuda",
          "source": "hpsdf_tpu_torch/csrc/query.cu",
          "replaces": "hpsdf_tpu/query.py:70",
          "launches": total["query"], "max_abs_err": k1_err,
          "ms": t["k1"], "plain_ms": t["k1_plain"],
+         "bound_ms": t["k1_bound"], "bound_by": "bytes", "library_ms": None,
          "grad_max_abs_err": k1g_err, "grad_ms": t["k1g"],
-         "grad_plain_ms": t["k1g_plain"]},
+         "grad_plain_ms": t["k1g_plain"], "grad_bound_ms": t["k1g_bound"]},
         {"name": "row_gather", "route": "cuda",
          "source": "hpsdf_tpu_torch/csrc/row_gather.cu",
          "replaces": "experiments/gather_probe.py:84,109,138",
          "launches": total["row_gather"], "max_abs_err": g_err,
-         "ms": g_probe[0], "plain_ms": g_probe[1],
-         "tri_rows_ms": tg[f"{bvh.tri_rows.shape[0]}x"
-                           f"{bvh.tri_rows.shape[1]}"][0],
-         "tri_rows_plain_ms": tg[f"{bvh.tri_rows.shape[0]}x"
-                                 f"{bvh.tri_rows.shape[1]}"][1]},
+         "ms": g_probe["ms"], "plain_ms": g_probe["plain_ms"],
+         "bound_ms": g_probe["bound_ms"], "bound_by": "bytes",
+         "library_ms": g_probe["library_ms"],
+         "inrange_ms": g_probe["inrange_ms"],
+         "tri_rows_ms": g_rows["ms"], "tri_rows_plain_ms": g_rows["plain_ms"],
+         "tri_rows_bound_ms": g_rows["bound_ms"],
+         "tri_rows_library_ms": g_rows["library_ms"],
+         "tri_rows_inrange_ms": g_rows["inrange_ms"]},
         {"name": "packed_eval", "route": "cuda",
          "source": "hpsdf_tpu_torch/csrc/packed_eval.cu",
          "replaces": "hpsdf_tpu/accel.py:329",
          "launches": total["packed_eval"],
          "max_abs_err": max(k2_err, k2r_err),
          "ms": tk2["k2"], "plain_ms": tk2["k2_plain"],
+         "bound_ms": tk2["k2_bound"], "bound_by": "bytes", "library_ms": None,
          "normals_min_dot": min(k5_dot, k5r_dot, k5c_dot),
          "normals_ms": tk2["k5"], "normals_plain_ms": tk2["k5_plain"],
+         "normals_bound_ms": tk2["k5_bound"],
          "refdefault_ms": tk2r["k2"], "refdefault_plain_ms": tk2r["k2_plain"],
+         "refdefault_bound_ms": tk2r["k2_bound"],
          "refdefault_normals_ms": tk2r["k5"],
-         "refdefault_normals_plain_ms": tk2r["k5_plain"]},
+         "refdefault_normals_plain_ms": tk2r["k5_plain"],
+         "refdefault_normals_bound_ms": tk2r["k5_bound"]},
         {"name": "march", "route": "cuda",
          "source": "hpsdf_tpu_torch/csrc/march.cu",
          "replaces": "hpsdf_tpu/render.py:649",
          "launches": total["march"],
          "max_abs_err": max(k3_err, k3r_err, k3c_err),
          "ms": tk3["k3"], "plain_ms": tk3["k3_plain"],
+         "bound_ms": tk3["k3_bound"], "bound_by": "bytes", "library_ms": None,
          "mrays_s": tk3["mrays"], "refdefault_ms": tk3r["k3"],
          "refdefault_plain_ms": tk3r["k3_plain"],
+         "refdefault_bound_ms": tk3r["k3_bound"],
          "refdefault_mrays_s": tk3r["mrays"], "refdefault_kk": kkr},
     ]
     print(f"[e2e] {smi} | carve {tr['carve_s']:.3f} s, render 512^2 "

@@ -36,7 +36,8 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _F32, _F64 = ctypes.c_float, ctypes.c_double
 # C signatures of the entry points (see the .cu sources)
 _SIGNATURES = {
-    "hpsdf_closest_tri": (_P, _I64, _I64, _P, _I64, _P, _P, _P),
+    "hpsdf_stage_rows": (_P, _I64, _I64, _P, _P),
+    "hpsdf_closest_tri": (_P, _P, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P),
     "hpsdf_query": (_P, _P, _P, _P, _I32, _P, _P, _I32, _I32, _P, _I64,
                     _F64, _F64, _F64, _F64, _F64, _F64, _I32, _P, _P, _P),
     "hpsdf_row_gather": (_P, _I64, _I64, _I64, _P, _I64, _P, _P),

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from . import accel
+from . import _device, accel
 from . import build as _build
 from . import query as _query
 from .build import SDFFn
@@ -13,9 +13,11 @@ from .config import Config
 from .tree import Octree
 
 
-def build_octree(config: Config, F: SDFFn, *, device="cpu") -> Octree:
+def build_octree(config: Config, F: SDFFn, *,
+                 device=_device.DEFAULT) -> Octree:
     """Approximate the batched SDF callable ``F`` (world pts (K,3) -> (K,),
-    torch tensors on ``device``) with an hp-adaptive octree on ``device``.
+    torch tensors on ``device``) with an hp-adaptive octree on ``device``,
+    the CUDA device unless the caller passes another.
 
     Equivalent of Octree::Create (Source/HP/Octree.cpp:312-352). The
     continuity post-process is not ported yet (ROADMAP.md, queue 1): a

@@ -23,7 +23,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from . import basis, consts
+from . import _device, basis, consts
 from .config import Config, NearnessWeighting
 from .tree import Octree, pack
 
@@ -191,10 +191,11 @@ def _child_centres(centre: np.ndarray, depth: np.ndarray) -> np.ndarray:
     return (centre[:, None, :] + q[:, None, None] * sgn[None]).reshape(-1, 3)
 
 
-def build(config: Config, F: SDFFn, *, device="cpu") -> Octree:
+def build(config: Config, F: SDFFn, *, device=_device.DEFAULT) -> Octree:
     """Approximate ``F`` with an hp-adaptive Legendre octree on ``device``
     (Octree::Create, Source/HP/Octree.cpp:312-352). ``F`` maps world points
     (K, 3) on ``device`` to (K,) values there."""
+    device = _device.resolve(device)
     config.validate()
     t0 = time.monotonic()
 

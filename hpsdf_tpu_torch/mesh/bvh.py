@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import _device
 from .core import TriMesh
 
 BIG = 1e30
@@ -85,9 +86,10 @@ def kd_order(cent: np.ndarray, T2: int) -> np.ndarray:
     return order
 
 
-def build_bvh(mesh: TriMesh, device="cpu") -> BVH:
+def build_bvh(mesh: TriMesh, device=_device.DEFAULT) -> BVH:
     """Median-split (kd) triangle ordering + level-by-level AABB unions over
     a perfect heap (replaces BVH::Create, BVH.cpp:217-260), on ``device``."""
+    device = _device.resolve(device)
     T = mesh.n_faces
     cent = mesh.vertices[mesh.faces].mean(axis=1)
     T2 = 1 << max(0, (T - 1).bit_length())

@@ -20,12 +20,13 @@ from __future__ import annotations
 
 import torch
 
+from .. import _device
 from ..accel import row_gather
 from . import bvh as _bvh
 from . import tri as _tri
 from .bvh import BVH, build_bvh
 from .core import TriMesh
-from .tiles_sdf import closest_tri_tiles
+from .tiles_sdf import closest_tri_tiles, tile_table
 
 # tiles -> hybrid crossover of mesh_sdf(method="auto"), as in hpsdf_tpu
 AUTO_TILES_MAX = 65536
@@ -87,25 +88,28 @@ def signed_distance_brute(tri_rows, pts, chunk: int = 128) -> torch.Tensor:
     return _signed(best_row, p)
 
 
-def signed_distance_tiles(tri_rows, pts) -> torch.Tensor:
+def signed_distance_tiles(tri_rows, pts, table=None) -> torch.Tensor:
     """Exact signed distances: the closest triangle by kernel P1, then the
-    sign on it. pts (B, 3) -> (B,) f32."""
+    sign on it. ``table``: ``tiles_sdf.tile_table(tri_rows)``, made by P1's
+    wrapper when not given. pts (B, 3) -> (B,) f32."""
     p = pts.to(torch.float32)
-    _, best_idx = closest_tri_tiles(tri_rows, p)
+    _, best_idx = closest_tri_tiles(tri_rows, p, table)
     return _signed_from_best(tri_rows, best_idx, p)
 
 
-def mesh_sdf(mesh: TriMesh, bvh: BVH | None = None, method: str = "auto"):
+def mesh_sdf(mesh: TriMesh, bvh: BVH | None = None, method: str = "auto",
+             device=_device.DEFAULT):
     """Wrap a mesh as a batched SDF callable F: (K, 3) -> (K,) for
     build_octree (MeshingUnitTests.cpp:110-138 + HPUnitTests.cpp:60-61).
 
     ``method``: "tiles" (exact dense scan, kernel P1 on CUDA tensors) or
     "auto" (tiles up to AUTO_TILES_MAX triangles). F casts the points to f32
     and returns the caller's dtype. The mesh's rows live on the BVH's
-    device (``build_bvh(mesh, device)``); F takes points there.
+    device; without a ``bvh``, one is built on ``device``. F takes points
+    there.
     """
     if bvh is None:
-        bvh = build_bvh(mesh)
+        bvh = build_bvh(mesh, device)
     if method == "auto":
         if bvh.n_leaves > AUTO_TILES_MAX:
             raise NotImplementedError(
@@ -120,9 +124,10 @@ def mesh_sdf(mesh: TriMesh, bvh: BVH | None = None, method: str = "auto"):
     if method != "tiles":
         raise ValueError(f"unknown mesh_sdf method {method!r}")
     tri_rows = bvh.tri_rows
+    table = tile_table(tri_rows)        # once for every call of F
 
     def F_tiles(pts):
-        return signed_distance_tiles(tri_rows, pts).to(pts.dtype)
+        return signed_distance_tiles(tri_rows, pts, table).to(pts.dtype)
 
     F_tiles.method = "tiles"
     return F_tiles

@@ -30,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import _kernels, accel
+from . import _device, _kernels, accel
 from .accel import PackedTree, pack_tree
 from .tree import Octree
 
@@ -326,9 +326,11 @@ def trace(tree: Octree, origins, dirs, t_max: float = 10.0,
 # --------------------------------------------------------------------------
 
 def camera_rays(eye, look_at, up=(0.0, 1.0, 0.0), fov_deg: float = 40.0,
-                width: int = 256, height: int = 256, device="cpu"):
-    """Pinhole camera ray grid in f32. Returns (origins (H*W, 3), dirs
-    (H*W, 3))."""
+                width: int = 256, height: int = 256,
+                device=_device.DEFAULT):
+    """Pinhole camera ray grid in f32 on ``device``. Returns (origins
+    (H*W, 3), dirs (H*W, 3))."""
+    device = _device.resolve(device)
     f32 = torch.float32
     eye = torch.as_tensor(eye, dtype=f32, device=device)
     fwd = torch.as_tensor(look_at, dtype=f32, device=device) - eye

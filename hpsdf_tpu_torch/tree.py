@@ -23,7 +23,7 @@ import json
 import numpy as np
 import torch
 
-from . import consts
+from . import _device, consts
 from .config import Config, NearnessWeighting
 
 
@@ -66,9 +66,10 @@ class Octree:
 
 
 def from_numpy(arrays: dict, n_nodes: int, deg_used: int, depth_used: int,
-               config: Config, device="cpu") -> Octree:
+               config: Config, device=_device.DEFAULT) -> Octree:
     """Octree from numpy arrays keyed child_idx/centre/depth/degree/coeffs
     (e.g. ``np.asarray`` of an ``hpsdf_tpu`` tree's fields)."""
+    device = _device.resolve(device)
     t = {k: torch.tensor(np.asarray(arrays[k]), dtype=_DTYPES[k],
                          device=device)                      # copies
          for k in _ARRAYS}
@@ -83,13 +84,15 @@ def to_numpy(tree: Octree) -> dict:
 
 def pack(child_idx: np.ndarray, centre: np.ndarray, depth: np.ndarray,
          degree: np.ndarray, coeffs: np.ndarray, n_nodes: int,
-         config: Config, device="cpu", pad_to: int = 8) -> Octree:
+         config: Config, device=_device.DEFAULT,
+         pad_to: int = 8) -> Octree:
     """Pack host build arrays into an Octree on ``device``.
 
     Trims the coefficient width to the maximum degree actually used and pads
     the node dimension to a multiple of ``pad_to`` (dummy rows are leaves
     with zero coeffs), as ``hpsdf_tpu.tree.pack`` does.
     """
+    device = _device.resolve(device)
     n = int(n_nodes)
     deg_used = int(max(0, degree[:n].max(initial=0)))
     depth_used = int(depth[:n].max(initial=0))
@@ -136,8 +139,9 @@ def save(tree: Octree, path: str) -> None:
         **to_numpy(tree))
 
 
-def load(path: str, device="cpu") -> Octree:
+def load(path: str, device=_device.DEFAULT) -> Octree:
     """Read a tree saved by either package onto ``device``."""
+    device = _device.resolve(device)
     with np.load(path) as z:
         meta = json.loads(bytes(z["meta"]).decode())
         if meta["version"] != SERIAL_VERSION:

@@ -44,7 +44,7 @@ def carry(jt, cfg):
     """The port's copy of an hpsdf_tpu tree."""
     return T.from_numpy({k: np.asarray(getattr(jt, k)) for k in _ARRAYS},
                         jt.n_nodes, jt.deg_used, jt.depth_used,
-                        port_config(cfg))
+                        port_config(cfg), device="cpu")
 
 
 @pytest.fixture(scope="module", params=sorted(_TREES))
@@ -197,7 +197,8 @@ def test_kernel_wrappers_refuse_cpu(wrapper):
 
     tree = T.build_octree(T.Config(target_error=1e-3, continuity=False,
                                    max_depth=4, max_degree=2),
-                          lambda p: torch.linalg.norm(p, dim=-1) - 0.3)
+                          lambda p: torch.linalg.norm(p, dim=-1) - 0.3,
+                          device="cpu")
     pt = TA.pack_tree(tree)
     pts = torch.zeros((4, 3), dtype=torch.float32)
     with pytest.raises(ValueError, match="CUDA|unsupported device"):

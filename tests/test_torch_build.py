@@ -55,7 +55,7 @@ def _builds(name, offset):
     ct = torch.as_tensor(c)
     tt = T.build_octree(
         port_config(cfg),
-        lambda p: torch.linalg.norm(p - ct, dim=-1) - radius)
+        lambda p: torch.linalg.norm(p - ct, dim=-1) - radius, device="cpu")
     return jt, tt
 
 

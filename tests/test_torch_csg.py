@@ -74,11 +74,13 @@ def test_csg_rebuild(op):
     pts = uniform_pts(50_000, seed=11)
     a = _analytic(pts)
     if op == "union":
-        base = T.build_octree(cfg, t_sphere((-0.15, 0.0, 0.0), 0.2))
+        base = T.build_octree(cfg, t_sphere((-0.15, 0.0, 0.0), 0.2),
+                              device="cpu")
         tree = T.union_sdf(base, t_box((0.15, 0.0, 0.0), (0.15,) * 3))
         want = np.minimum(a["s_left"], a["b_right"])
     else:
-        base = T.build_octree(cfg, t_sphere((0.0, 0.0, 0.0), 0.25))
+        base = T.build_octree(cfg, t_sphere((0.0, 0.0, 0.0), 0.25),
+                              device="cpu")
         box = t_box((0.0, 0.0, 0.0), (0.2,) * 3)
         if op == "intersect":
             tree = T.intersect_sdf(base, box)

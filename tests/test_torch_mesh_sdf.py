@@ -78,7 +78,7 @@ def test_port_mesh_and_rows_match(meshes):
         np.testing.assert_allclose(getattr(tm, k), getattr(jm, k), rtol=0,
                                    atol=1e-12, err_msg=k)
     np.testing.assert_array_equal(tm.twin, jm.twin)
-    tb = TM.build_bvh(tm)
+    tb = TM.build_bvh(tm, device="cpu")
     assert tb.tri_rows.shape == rows.shape and tb.tri_rows.dtype == \
         torch.float32
     pts = uniform_pts(300, seed=12)
@@ -95,7 +95,7 @@ def test_port_mesh_and_rows_match(meshes):
 
 def test_mesh_sdf_auto_takes_tiles_and_keeps_dtype():
     v, f = gen.icosphere(0.3, 2)
-    F = TM.mesh_sdf(TM.build_mesh(v, f))
+    F = TM.mesh_sdf(TM.build_mesh(v, f), device="cpu")
     assert F.method == "tiles"
     pts = torch.as_tensor(uniform_pts(200, seed=14))
     vals = F(pts)
@@ -104,4 +104,4 @@ def test_mesh_sdf_auto_takes_tiles_and_keeps_dtype():
     np.testing.assert_allclose(vals.numpy(), r - 0.3, atol=0.02)
     for method in ("hybrid", "bvh"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.mesh_sdf(TM.build_mesh(v, f), method=method)
+            TM.mesh_sdf(TM.build_mesh(v, f), method=method, device="cpu")

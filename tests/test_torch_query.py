@@ -57,7 +57,7 @@ def trees(request):
     jt = hp.build_octree(cfg, sphere_sdf(**sph))
     tt = T.from_numpy({k: np.asarray(getattr(jt, k)) for k in _ARRAYS},
                       jt.n_nodes, jt.deg_used, jt.depth_used,
-                      port_config(cfg))
+                      port_config(cfg), device="cpu")
     return jt, tt
 
 

@@ -37,8 +37,8 @@ def test_slice_mesh_to_query():
         hp.Config(**kw),
         lambda p: JM.signed_distance_brute(rows, p).astype(p.dtype))
 
-    F = TM.mesh_sdf(TM.build_mesh(v, f), method="tiles")
-    tt = T.build_octree(T.Config(**kw), F)
+    F = TM.mesh_sdf(TM.build_mesh(v, f), method="tiles", device="cpu")
+    tt = T.build_octree(T.Config(**kw), F, device="cpu")
 
     assert tt.n_nodes == jt.n_nodes
     n = jt.n_nodes

@@ -42,7 +42,7 @@ def _assert_same(jtree, arrays, meta):
 def test_save_jax_load_torch(tmp_path, jax_tree):
     p = str(tmp_path / "jax.npz")
     hp.save(jax_tree, p)
-    t = T.load(p)
+    t = T.load(p, device="cpu")
     _assert_same(jax_tree, T.to_numpy(t), (t.n_nodes, t.deg_used,
                                             t.depth_used))
     assert t.config == port_config(jax_tree.config)
@@ -51,7 +51,8 @@ def test_save_jax_load_torch(tmp_path, jax_tree):
 def test_save_torch_load_jax(tmp_path, jax_tree):
     arrays = {k: np.asarray(getattr(jax_tree, k)) for k in _ARRAYS}
     t = T.from_numpy(arrays, jax_tree.n_nodes, jax_tree.deg_used,
-                     jax_tree.depth_used, port_config(jax_tree.config))
+                     jax_tree.depth_used, port_config(jax_tree.config),
+                     device="cpu")
     p_t, p_j = str(tmp_path / "torch.npz"), str(tmp_path / "jax.npz")
     T.save(t, p_t)
     hp.save(jax_tree, p_j)
@@ -70,7 +71,8 @@ def test_save_torch_load_jax(tmp_path, jax_tree):
 def test_from_numpy_to_numpy_roundtrip(jax_tree):
     arrays = {k: np.asarray(getattr(jax_tree, k)) for k in _ARRAYS}
     t = T.from_numpy(arrays, jax_tree.n_nodes, jax_tree.deg_used,
-                     jax_tree.depth_used, port_config(jax_tree.config))
+                     jax_tree.depth_used, port_config(jax_tree.config),
+                     device="cpu")
     assert t.num_leaves() == jax_tree.num_leaves()
     assert t.total_coeffs() == jax_tree.total_coeffs()
     _assert_same(jax_tree, T.to_numpy(t), (t.n_nodes, t.deg_used,
