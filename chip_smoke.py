@@ -58,9 +58,9 @@ K1_VAL_ATOL, K1_GRAD_ATOL = 1e-12, 1e-10
 FIT_ATOL = 0.01                     # query vs |p| - 0.3 on the slice
 P1_SIZES = (65536, 1, 7, 1_000_003)
 N_FIT_CHECK = 65536                 # P1 vs plain on the fit's own points
-# roofline of one H100 SXM (NVIDIA's data sheet, at 700 W): f32 outside the
-# tensor cores and HBM3
-F32_PEAK, HBM_RATE = 67e12, 3.35e12
+# roofline of one H100 SXM (NVIDIA's data sheet, at 700 W): f32 and f64
+# outside the tensor cores, and HBM3
+F32_PEAK, F64_PEAK, HBM_RATE = 67e12, 34e12, 3.35e12
 P1_OPS_PER_PAIR = 50                # f32 operations (csrc/closest_tri.cu)
 N_QUERY = 1 << 20
 G_TABLE = (4681, 32)                # experiments/gather_probe.py:54-56
@@ -94,6 +94,26 @@ def time_ms(fn, reps, warmup=1):
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean device time of fn() over reps calls captured in one CUDA graph
+    and replayed between CUDA events: the kernels' own time, without the
+    host's cost of a call through the wrapper (tens of microseconds, more
+    than a kernel of a few)."""
+    fn()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
     end.record()
     sync()
     return start.elapsed_time(end) / reps
@@ -222,23 +242,27 @@ def phase_p1_fit(rows, table, fit_pts):
 
 
 def counters():
-    """The launch counter of every kernel wrapper, by kernel name."""
+    """Every launch counter, by name: (kernel wrapper, attribute). K2/K5's
+    wrapper counts all its launches and, apart, those of K5."""
     from hpsdf_tpu_torch.accel import packed_eval_kernel, row_gather
     from hpsdf_tpu_torch.mesh import closest_tri_tiles
     from hpsdf_tpu_torch.query import query_kernel
     from hpsdf_tpu_torch.render import march_kernel
-    return {"closest_tri": closest_tri_tiles, "query": query_kernel,
-            "row_gather": row_gather, "packed_eval": packed_eval_kernel,
-            "march": march_kernel}
+    return {"closest_tri": (closest_tri_tiles, "launches"),
+            "query": (query_kernel, "launches"),
+            "row_gather": (row_gather, "launches"),
+            "packed_eval": (packed_eval_kernel, "launches"),
+            "packed_eval_normals": (packed_eval_kernel, "grad_launches"),
+            "march": (march_kernel, "launches")}
 
 
 def reset_counts():
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in counters().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
 
 
 def phase_slice(mesh, bvh, cfg, n_query, out_path, seed=1):
@@ -377,20 +401,42 @@ def phase_times(rows, table, tree, n, seed=3):
         table, fpts.shape[0])
     t.update({
         "k1_plain": time_ms(lambda: query_plain(tree, qpts), 5),
-        "k1": time_ms(lambda: query_kernel(tree, qpts, False), 20),
+        "k1": graph_ms(lambda: query_kernel(tree, qpts, False), 20),
         "k1g_plain": time_ms(lambda: query_with_gradient_plain(tree, qpts),
                              5),
-        "k1g": time_ms(lambda: query_kernel(tree, qpts, True), 20),
+        "k1g": graph_ms(lambda: query_kernel(tree, qpts, True), 20),
     })
     # K1 reads the tree's arrays and the points once, writes the values
-    # (and the gradients)
+    # (and the gradients); its f64 operations over the f64 peak beside that
     arrays = [getattr(tree, k) for k in ("child_idx", "centre", "depth",
                                          "degree", "coeffs")]
-    t["k1_bound"] = bytes_ms(*arrays, qpts, extra=8 * n)
-    t["k1g_bound"] = bytes_ms(*arrays, qpts, extra=32 * n)
+    for key, grad, out in (("k1", False, 8), ("k1g", True, 32)):
+        by_bytes = bytes_ms(*arrays, qpts, extra=out * n)
+        by_ops = n * k1_ops(tree.deg_used, tree.depth_used, grad) \
+            / F64_PEAK * 1e3
+        t[f"{key}_bytes_bound"], t[f"{key}_ops_bound"] = by_bytes, by_ops
+        t[f"{key}_bound"] = max(by_bytes, by_ops)
+        t[f"{key}_bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
     # timing launches are not main-path launches
     closest_tri_tiles.launches, query_kernel.launches = counts
     return t
+
+
+def k1_ops(deg, depth_used, grad):
+    """f64 operations a point of K1 (csrc/query.cu), an FMA counted as two:
+    C terms of one multiply and one FMA, the T = (deg+1)(deg+2)/2 pair
+    products N_i(x) N_j(y), three Legendre recurrences and the folding of
+    the axis norms, the frame, and three compares a descent round; with the
+    gradient, eight more operations a term, two more pair products, the
+    derivative recurrences and their folding, and the chain rule with the
+    normalisation."""
+    C = (deg + 1) * (deg + 2) * (deg + 3) // 6
+    T = (deg + 1) * (deg + 2) // 2
+    ops = 3 * C + T + 12 * max(deg - 1, 0) + 4 * (deg + 1) + 12 \
+        + 3 * depth_used
+    if grad:
+        ops += 8 * C + 2 * T + 9 * max(deg - 1, 0) + 3 * (deg + 1) + 20
+    return ops
 
 
 def phase_g(tri_rows, seed=4):
@@ -467,6 +513,11 @@ def phase_refdefault(dev):
     return tree, pt, (centre.cpu().numpy(), 0.5)
 
 
+def scaled_err(a, b):
+    """max |a - b| / max(1, |b|): K2's error measure."""
+    return float(((a - b) / torch.clamp(b.abs(), min=1.0)).abs().max())
+
+
 def phase_k2(pt, name, sphere, seed=5):
     """K2 and K5 against their plain versions at 2^20 points straddling the
     root. Normals are compared away from the sphere's centre, where the
@@ -490,9 +541,6 @@ def phase_k2(pt, name, sphere, seed=5):
     check(bool(torch.equal(v_k == F32_MAX, outside)),
           f"K2 sentinel positions ({name})")
 
-    def scaled_err(a, b):
-        return float(((a - b) / torch.clamp(b.abs(), min=1.0)).abs().max())
-
     v_err = scaled_err(v_k[~outside], v_p[~outside])
     c_err = scaled_err(packed_eval_kernel(pt, pts, False),
                        values_at_plain(pt, pts))
@@ -507,9 +555,9 @@ def phase_k2(pt, name, sphere, seed=5):
     dot_min = float(dots.min())
     check(dot_min >= NORMAL_DOT, f"K5 normal dot ({name}): {dot_min}")
     check(bool(torch.isfinite(n_k).all()), f"K5 normals finite ({name})")
-    t = {"k2": time_ms(lambda: packed_eval_kernel(pt, pts, False, True), 20),
+    t = {"k2": graph_ms(lambda: packed_eval_kernel(pt, pts, False, True), 20),
          "k2_plain": time_ms(lambda: query_packed_plain(pt, pts), 5),
-         "k5": time_ms(lambda: packed_eval_kernel(pt, pts, True), 20),
+         "k5": graph_ms(lambda: packed_eval_kernel(pt, pts, True), 20),
          "k5_plain": time_ms(lambda: normals_plain(pt, pts), 5),
          # the packed rows, the grid and the points read once, the values
          # (normals) written once
@@ -594,7 +642,8 @@ def phase_render(tree, out_dir):
     render, slice, save/load. Then K3 and K5 are held against their plain
     versions on the carved tree and the render's own rays. Returns
     (launches, times, hit fraction, K3 max t error on common hits, K5 min
-    normal dot)."""
+    normal dot, the carve's largest F batch as as_sdf's packed F reads it,
+    the carved tree's packed tables, the render's hit points)."""
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch.accel import normals_plain, packed_eval_kernel
     from hpsdf_tpu_torch.render import (HIT_EPS, MAX_STEPS, _lo_of,
@@ -612,10 +661,18 @@ def phase_render(tree, out_dir):
     dev = tree.device
     view = dict(eye=(0.5, 0.4, -1.6), look_at=(0.0, 0.0, 0.0), width=512,
                 height=512)
+    largest = [torch.empty((0, 3))]
+
+    def minus_box(p):
+        # the carve's F sees the same points as as_sdf's packed F
+        if p.shape[0] > largest[0].shape[0]:
+            largest[0] = p
+        return -box(p)
+
     reset_counts()
     sync()
     t0 = time.perf_counter()
-    carved = T.intersect_sdf(tree, lambda p: -box(p))
+    carved = T.intersect_sdf(tree, minus_box)
     sync()
     carve_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -633,8 +690,11 @@ def phase_render(tree, out_dir):
     sync()
     launches = read_counts()
 
-    for k in ("row_gather", "packed_eval", "march", "query"):
+    for k in ("row_gather", "packed_eval", "packed_eval_normals", "march",
+              "query"):
         check(launches[k] > 0, f"{k} never launched on the render path")
+    check(launches["packed_eval"] > launches["packed_eval_normals"],
+          "K2 (values) never launched on the render path")
     for k in ("child_idx", "centre", "depth", "degree", "coeffs"):
         check(bool(torch.equal(getattr(back, k), getattr(carved, k))),
               f"carved save/load {k} bit-exact")
@@ -701,7 +761,192 @@ def phase_render(tree, out_dir):
           f"tree under {os.path.relpath(out_dir)}, save/load bit-exact, "
           f"launches {launches}", flush=True)
     return (launches, {"carve_s": carve_s, "render_s": render_s}, frac,
-            t_err, dot_min)
+            t_err, dot_min, largest[0].to(torch.float32), pt, ph)
+
+
+def phase_k2_main(pt_s, carve_pts, pt_c, ph):
+    """K2 and K5 where the main path runs them: K2 on the carve's largest F
+    batch with the slice tree's packed tables (the points come cell by
+    cell, so a warp's lanes mostly read one row), K5 on the render's hit
+    points with the carved tree's (pixel order). Each against its plain
+    version, timed beside its byte bound. Returns (max value error, min
+    normal dot, times)."""
+    from hpsdf_tpu_torch.accel import (normals_plain, packed_eval_kernel,
+                                       values_at_plain)
+
+    v_err = scaled_err(packed_eval_kernel(pt_s, carve_pts, False),
+                       values_at_plain(pt_s, carve_pts))
+    check(v_err <= K2_ATOL, f"K2 vs plain at the carve batch: {v_err:.3e}")
+    n_k = packed_eval_kernel(pt_c, ph, True)
+    dot_min = float((n_k * normals_plain(pt_c, ph)).sum(-1).min())
+    check(dot_min >= NORMAL_DOT, f"K5 normal dot at the render's hits: "
+          f"{dot_min}")
+    n_c, n_h = carve_pts.shape[0], ph.shape[0]
+    t = {"carve_points": n_c,
+         "carve_ms": graph_ms(lambda: packed_eval_kernel(pt_s, carve_pts,
+                                                         False), 20),
+         "carve_plain_ms": time_ms(lambda: values_at_plain(pt_s, carve_pts),
+                                   5),
+         "carve_bound_ms": bytes_ms(pt_s.rows, pt_s.grid, carve_pts,
+                                    extra=4 * n_c),
+         "hits": n_h,
+         "hits_normals_ms": graph_ms(lambda: packed_eval_kernel(pt_c, ph,
+                                                                True), 20),
+         "hits_normals_plain_ms": time_ms(lambda: normals_plain(pt_c, ph),
+                                          5),
+         "hits_normals_bound_ms": bytes_ms(pt_c.rows, pt_c.grid, ph,
+                                           extra=12 * n_h)}
+    print(f"[k2-main] K2 at the carve's largest F batch ({n_c} pts, slice "
+          f"tree): max|v - plain|/max(1,|v|) {v_err:.3e}, kernel "
+          f"{t['carve_ms']:.4f} ms, plain {t['carve_plain_ms']:.4f} ms, byte "
+          f"bound {t['carve_bound_ms']:.4f} ms | K5 at the render's {n_h} "
+          f"hits (carved tree): min dot {dot_min:.8f}, kernel "
+          f"{t['hits_normals_ms']:.4f} ms, plain "
+          f"{t['hits_normals_plain_ms']:.4f} ms, byte bound "
+          f"{t['hits_normals_bound_ms']:.4f} ms", flush=True)
+    return v_err, dot_min, t
+
+
+SYNTH_ROOT = ((-0.25, -0.25, -0.25), (1.75, 1.75, 1.75))
+N_SYNTH = 4096
+
+
+def synthetic_tree(degree, seed):
+    """A depth-2 octree over SYNTH_ROOT as the arrays of ``tree.pack``: the
+    root, its eight children, and the eight children of each odd-numbered
+    child, in the build's node order; every leaf of basis degree
+    ``degree``, with seeded normal coefficients scaled by 2^-p at total
+    degree p and divided by coeff_norms, so that the folded coefficients
+    (the packed lanes) are N(0, 4^-p). Returns (child_idx, centre, depth,
+    degree, coeffs, n_nodes)."""
+    from hpsdf_tpu_torch import basis, consts
+
+    child, centre, depth = [1], [(0.0, 0.0, 0.0)], [0]
+    for parent, d in ((0, 0), *((k, 1) for k in range(2, 9, 2))):
+        if parent:
+            child[parent] = len(child)
+        q = 2.0 ** -(d + 2)
+        for o in range(8):
+            centre.append(tuple(centre[parent][a] + (q if o >> a & 1 else -q)
+                                for a in range(3)))
+            child.append(-1)
+            depth.append(d + 1)
+    child = np.asarray(child, np.int32)
+    depth = np.asarray(depth, np.int32)
+    leaf = child < 0
+    C = consts.coeff_count(degree)
+    p = basis.basis_indices(degree).sum(axis=1)
+    coeffs = np.random.default_rng(seed).standard_normal((len(child), C))
+    coeffs *= 0.5 ** p / basis.coeff_norms(degree)[depth]
+    coeffs[~leaf] = 0.0
+    return (child, np.asarray(centre, np.float64), depth,
+            np.where(leaf, degree, -1).astype(np.int32), coeffs, len(child))
+
+
+def phase_degrees(dev, seed=7):
+    """K2, K5 and K1 (values and gradient) against their plain versions at
+    every basis degree 0..12, on synthetic_tree with one descent below a
+    depth-1 grid (rows of 16 to 464 lanes: K2/K5 stage the rows above 64
+    lanes in chunks, K1 those above 32 coefficients), at N_SYNTH points
+    straddling the root. Returns (max K2 error, min K5 dot, max K1 value
+    error, max K1 gradient error)."""
+    import hpsdf_tpu_torch as T
+    from hpsdf_tpu_torch import tree as TT
+    from hpsdf_tpu_torch.accel import (F32_MAX, normals_plain,
+                                       packed_eval_kernel, query_packed_plain,
+                                       values_at_plain)
+    from hpsdf_tpu_torch.query import (OUTSIDE_VALUE, query_kernel,
+                                       query_plain,
+                                       query_with_gradient_plain)
+
+    cfg = T.Config(continuity=False, root_min=SYNTH_ROOT[0],
+                   root_max=SYNTH_ROOT[1])
+    lo, hi = np.asarray(SYNTH_ROOT[0]), np.asarray(SYNTH_ROOT[1])
+    pad = 0.1 * (hi - lo)
+    rng = np.random.default_rng(seed)
+    k2_err = k1_err = k1g_err = 0.0
+    k5_dot = 1.0
+    for deg in range(13):
+        tree = TT.pack(*synthetic_tree(deg, seed + deg), cfg, device=dev)
+        pt = T.pack_tree(tree, grid_depth=1)
+        check(pt.extra_rounds == 1, f"one descent below the grid at {deg}")
+        p64 = torch.as_tensor(rng.uniform(lo - pad, hi + pad, (N_SYNTH, 3)),
+                              device=dev)
+        p32 = p64.to(torch.float32)
+        v_k = packed_eval_kernel(pt, p32, False, outside_max=True)
+        v_p = query_packed_plain(pt, p32)
+        out = v_p == F32_MAX
+        check(bool(out.any()) and not bool(out.all())
+              and bool(torch.equal(v_k == F32_MAX, out)),
+              f"K2 sentinel positions at degree {deg}")
+        e = max(scaled_err(v_k[~out], v_p[~out]),
+                scaled_err(packed_eval_kernel(pt, p32, False),
+                           values_at_plain(pt, p32)))
+        check(e <= K2_ATOL, f"K2 vs plain at degree {deg}: {e:.3e}")
+        k2_err = max(k2_err, e)
+        n_k, n_p = packed_eval_kernel(pt, p32, True), normals_plain(pt, p32)
+        if deg == 0:     # a constant: no gradient, zero normals both ways
+            check(not bool(n_k.any()) and not bool(n_p.any()),
+                  "K5 normals of a constant")
+        else:
+            dot = float((n_k * n_p).sum(-1).min())
+            check(dot >= NORMAL_DOT, f"K5 normal dot at degree {deg}: {dot}")
+            k5_dot = min(k5_dot, dot)
+        q_k, q_p = query_kernel(tree, p64, False), query_plain(tree, p64)
+        check(bool(torch.equal(q_k == OUTSIDE_VALUE, q_p == OUTSIDE_VALUE)),
+              f"K1 sentinel positions at degree {deg}")
+        gv_k, g_k = query_kernel(tree, p64, True)
+        gv_p, g_p = query_with_gradient_plain(tree, p64)
+        e = max(float((q_k - q_p).abs().max()),
+                float((query_kernel(tree, p64, False, False)
+                       - query_plain(tree, p64, False)).abs().max()),
+                float((gv_k - gv_p).abs().max()))
+        eg = float((g_k - g_p).abs().max())
+        check(e <= K1_VAL_ATOL and eg <= K1_GRAD_ATOL,
+              f"K1 vs plain at degree {deg}: values {e:.3e}, unit gradients "
+              f"{eg:.3e}")
+        k1_err, k1g_err = max(k1_err, e), max(k1g_err, eg)
+    print(f"[degrees] 0..12, {N_SYNTH} pts each on a depth-2 tree (rows "
+          f"{T.pack_tree(tree).width} lanes at 12): K2 max|v - plain|/"
+          f"max(1,|v|) {k2_err:.3e}, K5 min dot {k5_dot:.8f}, K1 max|value "
+          f"- plain| {k1_err:.3e}, max|unit grad - plain| {k1g_err:.3e}",
+          flush=True)
+    return k2_err, k5_dot, k1_err, k1g_err
+
+
+def ptxas_check():
+    """Registers, stack and spills of K1's and K2/K5's instantiations, as
+    ptxas reported them when the library was built. K1 at degrees 3 and 5
+    (the main path's) must have no stack frame and no spills. Returns
+    {kernel: {"deg/values|grad": [registers, stack, spill stores, spill
+    loads]}}."""
+    import re
+    from hpsdf_tpu_torch import _kernels
+
+    text = _kernels.ptxas_report()
+    found = {}
+    within = r"(?:(?!Compiling entry).)*?"      # inside one entry's report
+    for m in re.finditer(
+            r"Compiling entry function '(\S+)'" + within
+            + r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads" + within + r"Used (\d+) registers",
+            text, flags=re.S):
+        k = re.search(r"(query_kernel|packed_eval_kernel)ILi(\d+)ELb([01])E",
+                      m.group(1))
+        if k:
+            found.setdefault(k.group(1), {})[
+                f"{k.group(2)}/{'grad' if k.group(3) == '1' else 'values'}"] \
+                = [int(m.group(5)), int(m.group(2)), int(m.group(3)),
+                   int(m.group(4))]
+    k1 = found.get("query_kernel", {})
+    for key in ("3/values", "3/grad", "5/values", "5/grad"):
+        check(key in k1, f"ptxas report for K1 {key}")
+        check(k1[key][1:] == [0, 0, 0],
+              f"K1 {key}: stack {k1[key][1]} B, spills {k1[key][2:]}")
+    print(f"[ptxas] registers / stack / spill stores / spill loads (bytes): "
+          f"K1 {k1} | K2/K5 {found.get('packed_eval_kernel', {})}",
+          flush=True)
+    return found
 
 
 def nvidia_smi():
@@ -733,6 +978,7 @@ def main():
     print(f"[build] {len(_kernels.sources())} sources -> "
           f"{os.path.relpath(_kernels.library_path())} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    ptxas = ptxas_check()
 
     # --- 3. P1 against its plain version -----------------------------------
     v, f = gen.icosphere(0.3, 5)
@@ -774,10 +1020,14 @@ def main():
           f"{tf['fit_dense_bound_ms']:.3f} ms "
           f"({tf['fit_dense_bound_ms'] / tf['fit_dense_ms']:.1%} of it) | "
           f"K1 query "
-          f"at 2^20 pts: kernel {t['k1']:.3f} ms, plain {t['k1_plain']:.3f} "
-          f"ms, byte bound {t['k1_bound']:.4f} ms | K1 query_with_gradient: "
-          f"kernel {t['k1g']:.3f} ms, plain {t['k1g_plain']:.3f} ms, byte "
-          f"bound {t['k1g_bound']:.4f} ms", flush=True)
+          f"at 2^20 pts: kernel {t['k1']:.4f} ms, plain {t['k1_plain']:.3f} "
+          f"ms, bound {t['k1_bound']:.4f} ms ({t['k1_bound_by']}; bytes "
+          f"{t['k1_bytes_bound']:.4f}, f64 operations "
+          f"{t['k1_ops_bound']:.4f}) | K1 query_with_gradient: "
+          f"kernel {t['k1g']:.4f} ms, plain {t['k1g_plain']:.3f} ms, bound "
+          f"{t['k1g_bound']:.4f} ms ({t['k1g_bound_by']}; bytes "
+          f"{t['k1g_bytes_bound']:.4f}, f64 operations "
+          f"{t['k1g_ops_bound']:.4f})", flush=True)
 
     # --- 7. G against its plain version ------------------------------------
     tg, g_err = phase_g(bvh.tri_rows)
@@ -796,8 +1046,12 @@ def main():
                                      lod_expected=True)
 
     # --- 9. the render path ------------------------------------------------
-    launches_r, tr, frac, k3c_err, k5c_dot = phase_render(
-        tree, _kernels.BUILD_DIR)
+    launches_r, tr, frac, k3c_err, k5c_dot, carve_pts, pt_c, ph = \
+        phase_render(tree, _kernels.BUILD_DIR)
+    k2m_err, k5m_dot, tk2m = phase_k2_main(pt_s, carve_pts, pt_c, ph)
+
+    # --- 10. K2/K5 and K1 at every degree ----------------------------------
+    k2d_err, k5d_dot, k1d_err, k1gd_err = phase_degrees(dev)
 
     total = {k: launches[k] + launches_r[k] for k in launches}
     g_probe = tg[f"{G_TABLE[0]}x{G_TABLE[1]}"]
@@ -814,11 +1068,17 @@ def main():
         {"name": "query", "route": "cuda",
          "source": "hpsdf_tpu_torch/csrc/query.cu",
          "replaces": "hpsdf_tpu/query.py:70",
-         "launches": total["query"], "max_abs_err": k1_err,
+         "launches": total["query"], "max_abs_err": max(k1_err, k1d_err),
          "ms": t["k1"], "plain_ms": t["k1_plain"],
-         "bound_ms": t["k1_bound"], "bound_by": "bytes", "library_ms": None,
-         "grad_max_abs_err": k1g_err, "grad_ms": t["k1g"],
-         "grad_plain_ms": t["k1g_plain"], "grad_bound_ms": t["k1g_bound"]},
+         "bound_ms": t["k1_bound"], "bound_by": t["k1_bound_by"],
+         "library_ms": None, "bytes_bound_ms": t["k1_bytes_bound"],
+         "ops_bound_ms": t["k1_ops_bound"],
+         "grad_max_abs_err": max(k1g_err, k1gd_err), "grad_ms": t["k1g"],
+         "grad_plain_ms": t["k1g_plain"], "grad_bound_ms": t["k1g_bound"],
+         "grad_bound_by": t["k1g_bound_by"],
+         "grad_bytes_bound_ms": t["k1g_bytes_bound"],
+         "grad_ops_bound_ms": t["k1g_ops_bound"],
+         "ptxas": ptxas.get("query_kernel", {})},
         {"name": "row_gather", "route": "cuda",
          "source": "hpsdf_tpu_torch/csrc/row_gather.cu",
          "replaces": "experiments/gather_probe.py:84,109,138",
@@ -835,17 +1095,21 @@ def main():
          "source": "hpsdf_tpu_torch/csrc/packed_eval.cu",
          "replaces": "hpsdf_tpu/accel.py:329",
          "launches": total["packed_eval"],
-         "max_abs_err": max(k2_err, k2r_err),
+         "values_launches": total["packed_eval"]
+         - total["packed_eval_normals"],
+         "normals_launches": total["packed_eval_normals"],
+         "max_abs_err": max(k2_err, k2r_err, k2m_err, k2d_err),
          "ms": tk2["k2"], "plain_ms": tk2["k2_plain"],
          "bound_ms": tk2["k2_bound"], "bound_by": "bytes", "library_ms": None,
-         "normals_min_dot": min(k5_dot, k5r_dot, k5c_dot),
+         "normals_min_dot": min(k5_dot, k5r_dot, k5c_dot, k5m_dot, k5d_dot),
          "normals_ms": tk2["k5"], "normals_plain_ms": tk2["k5_plain"],
          "normals_bound_ms": tk2["k5_bound"],
          "refdefault_ms": tk2r["k2"], "refdefault_plain_ms": tk2r["k2_plain"],
          "refdefault_bound_ms": tk2r["k2_bound"],
          "refdefault_normals_ms": tk2r["k5"],
          "refdefault_normals_plain_ms": tk2r["k5_plain"],
-         "refdefault_normals_bound_ms": tk2r["k5_bound"]},
+         "refdefault_normals_bound_ms": tk2r["k5_bound"], **tk2m,
+         "ptxas": ptxas.get("packed_eval_kernel", {})},
         {"name": "march", "route": "cuda",
          "source": "hpsdf_tpu_torch/csrc/march.cu",
          "replaces": "hpsdf_tpu/render.py:649",

@@ -7,7 +7,8 @@ is loaded with ctypes. The library goes to ``build/hpsdf_tpu_torch/`` at
 the repository root, under a name keyed by a hash of the sources, the
 headers they share (``csrc/*.cuh``) and the flags, so a changed file
 rebuilds and an unchanged one is reused. Nothing is fetched: the sources
-are the package's own.
+are the package's own. What ptxas reports of each kernel (registers,
+stack frame, spills) is kept beside the library (``ptxas_report``).
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an exception.
@@ -30,7 +31,7 @@ _CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "hpsdf_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _F32, _F64 = ctypes.c_float, ctypes.c_double
@@ -38,8 +39,17 @@ _F32, _F64 = ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "hpsdf_stage_rows": (_P, _I64, _I64, _P, _P),
     "hpsdf_closest_tri": (_P, _P, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P),
-    "hpsdf_query": (_P, _P, _P, _P, _I32, _P, _P, _I32, _I32, _P, _I64,
+    "hpsdf_query": (_P, _P, _P, _P, _I32, _I32, _P, _I64,
                     _F64, _F64, _F64, _F64, _F64, _F64, _I32, _P, _P, _P),
+    "hpsdf_query_old": (_P, _P, _P, _P, _I32, _P, _P, _I32, _I32, _P, _I64,
+                        _F64, _F64, _F64, _F64, _F64, _F64, _I32, _P, _P,
+                        _P),
+    "hpsdf_query_form": (_P, _P, _P, _P, _I32, _I32, _P, _I64,
+                         _F64, _F64, _F64, _F64, _F64, _F64, _I32, _I32, _I32,
+                         _P, _P, _P),
+    "hpsdf_packed_eval_form": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
+                               _F32, _F32, _F32, _F32, _F32, _F32,
+                               _F32, _F32, _F32, _I32, _I32, _I32, _P, _P),
     "hpsdf_row_gather": (_P, _I64, _I64, _I64, _P, _I64, _P, _P),
     "hpsdf_packed_eval": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
                           _F32, _F32, _F32, _F32, _F32, _F32,
@@ -99,6 +109,8 @@ def _build(path: str) -> None:
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({p.returncode}): "
                                    f"{' '.join(cmd)}\n{out}\n{err}")
+        with open(f"{tmp}.ptxas.txt", "w") as fh:
+            fh.writelines(out + err for out, err in outs)
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
@@ -109,7 +121,14 @@ def _build(path: str) -> None:
         for obj in objs:
             if os.path.exists(obj):
                 os.remove(obj)
+    os.replace(f"{tmp}.ptxas.txt", f"{path}.ptxas.txt")
     os.replace(tmp, path)
+
+
+def ptxas_report() -> str:
+    """ptxas's report of the built library's kernels (``-Xptxas -v``)."""
+    with open(f"{library_path()}.ptxas.txt") as fh:
+        return fh.read()
 
 
 def load() -> ctypes.CDLL:

@@ -21,7 +21,10 @@ Three kernels serve this layout on CUDA tensors:
     ``experiments/gather_probe.py`` (G1-G3) and derives the grid, the
     repacked tables and the mesh sign's triangle rows.
   * K2 ``packed_eval_kernel`` (``csrc/packed_eval.cu``): locate + Legendre
-    eval per point, for ``values_at`` / ``query_packed``.
+    eval per point, for ``values_at`` / ``query_packed``. Each warp stages
+    the rows its points read into shared memory with 16-byte copies, so the
+    tables' rows must be 16-byte aligned (W a multiple of 4, as
+    ``_row_width`` makes it).
   * K5, the same source with the gradient: unit normals for ``normals``.
 
 Tensors on the CPU take the plain torch versions in this module. The TPU
@@ -396,6 +399,9 @@ def _check_packed(pt: PackedTree, pts: torch.Tensor) -> None:
     if pt.width < COEFF_LANE + consts.coeff_count(pt.deg_used) \
             or pt.grid.shape[0] != 8 ** pt.grid_depth:
         raise ValueError("packed tables do not match deg_used / grid_depth")
+    if pt.width % 4 or pt.rows.data_ptr() % 16 or pt.grid.data_ptr() % 16:
+        raise ValueError("packed rows must be 16-byte aligned (width a "
+                         "multiple of 4, tables 16-byte aligned)")
 
 
 def packed_eval_kernel(pt: PackedTree, pts: torch.Tensor, with_grad: bool,
@@ -403,7 +409,8 @@ def packed_eval_kernel(pt: PackedTree, pts: torch.Tensor, with_grad: bool,
     """Launch K2 on CUDA tensors: f32 values (B,) at world points, clamped
     into the root, or the f32-max sentinel outside it with
     ``outside_max``; with ``with_grad`` (K5), unit normals (B, 3) instead.
-    Raises on anything else."""
+    Raises on anything else. ``launches`` counts every launch,
+    ``grad_launches`` those of K5."""
     _check_packed(pt, pts)
     if pts.device.type != "cuda":
         raise ValueError(f"packed_eval_kernel needs CUDA tensors, got "
@@ -425,10 +432,12 @@ def packed_eval_kernel(pt: PackedTree, pts: torch.Tensor, with_grad: bool,
         int(outside_max), int(with_grad), out.data_ptr(),
         _kernels.stream_of(pts)), "packed_eval")
     packed_eval_kernel.launches += 1
+    packed_eval_kernel.grad_launches += int(with_grad)
     return out
 
 
 packed_eval_kernel.launches = 0
+packed_eval_kernel.grad_launches = 0
 
 
 def values_at(pt: PackedTree, pts: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,8 @@
 // Device helpers shared by K2/K5 (packed_eval.cu) and K3 (march.cu): reading
 // the packed row layout of hpsdf_tpu_torch/accel.py and evaluating the
-// Legendre product sum over a row's folded coefficient lanes, in f32.
+// Legendre product sum over a row's folded coefficient lanes, in f32. K1
+// (query.cu) takes the recurrences (in f64), the term order and the degree
+// dispatch from here too.
 //
 // Row lanes: 0 = child_idx + 1 bitcast i32 -> f32 (0 for leaves), 1 = scale
 // 2^(depth+1), 2..4 = cell centre in unit-cube coords, 8.. = coefficients
@@ -32,9 +34,8 @@ __device__ __forceinline__ float clamp_half(float x) {
 // the grid row of u's depth-gd cell, then up to `extra` descents, stopping at
 // a leaf (accel.locate_in). The cell index truncates, as astype(int32) does;
 // u + 0.5 >= 0, so that is floor.
-__device__ __forceinline__ const float* locate_row(
-    const float* __restrict__ grid, const float* __restrict__ rows, int W,
-    int gd, int extra, const float u[3]) {
+__device__ __forceinline__ const float* grid_row(
+    const float* __restrict__ grid, int W, int gd, const float u[3]) {
   const int g = 1 << gd;
   int c[3];
 #pragma unroll
@@ -42,7 +43,13 @@ __device__ __forceinline__ const float* locate_row(
     const int ci = (int)((u[a] + 0.5f) * (float)g);
     c[a] = ci < 0 ? 0 : (ci > g - 1 ? g - 1 : ci);
   }
-  const float* row = grid + (((int64_t)c[0] * g + c[1]) * g + c[2]) * W;
+  return grid + (((int64_t)c[0] * g + c[1]) * g + c[2]) * W;
+}
+
+__device__ __forceinline__ const float* locate_row(
+    const float* __restrict__ grid, const float* __restrict__ rows, int W,
+    int gd, int extra, const float u[3]) {
+  const float* row = grid_row(grid, W, gd, u);
   for (int r = 0; r < extra; ++r) {
     const int child = row_child(row);
     if (child < 0) break;
@@ -53,26 +60,56 @@ __device__ __forceinline__ const float* locate_row(
   return row;
 }
 
-// L_0..L_DEG at x by the three-term recurrence (basis.legendre_all).
-template <int DEG>
-__device__ __forceinline__ void legendre(float x, float (&L)[DEG + 1]) {
-  L[0] = 1.0f;
+// The same row, its descents reading lanes 0-4 as one float4 and one scalar
+// (rows 16-byte aligned).
+__device__ __forceinline__ const float* locate_row4(
+    const float* __restrict__ grid, const float* __restrict__ rows, int W,
+    int gd, int extra, const float u[3]) {
+  const float* row = grid_row(grid, W, gd, u);
+  for (int r = 0; r < extra; ++r) {
+    const float4 m = __ldg(reinterpret_cast<const float4*>(row));
+    const int child = __float_as_int(m.x) - 1;
+    if (child < 0) break;
+    const int oct = (u[0] >= m.z) | ((u[1] >= m.w) << 1) |
+                    ((u[2] >= __ldg(row + 4)) << 2);
+    row = rows + (int64_t)(child + oct) * W;
+  }
+  return row;
+}
+
+// L_0..L_DEG at x by the three-term recurrence (basis.legendre_all), the
+// factors computed in double and rounded once to T.
+template <int DEG, class T>
+__device__ __forceinline__ void legendre(T x, T (&L)[DEG + 1]) {
+  L[0] = T(1);
   if constexpr (DEG >= 1) L[1] = x;
 #pragma unroll
   for (int p = 2; p <= DEG; ++p)
-    L[p] = (float)((2.0 * p - 1.0) / p) * x * L[p - 1] -
-           (float)((p - 1.0) / p) * L[p - 2];
+    L[p] = (T)((2.0 * p - 1.0) / p) * x * L[p - 1] -
+           (T)((p - 1.0) / p) * L[p - 2];
 }
 
 // L'_0..L'_DEG by L'_p = L'_{p-2} + (2p-1) L_{p-1}.
-template <int DEG>
-__device__ __forceinline__ void legendre_deriv(const float (&L)[DEG + 1],
-                                               float (&dL)[DEG + 1]) {
-  dL[0] = 0.0f;
-  if constexpr (DEG >= 1) dL[1] = 1.0f;
+template <int DEG, class T>
+__device__ __forceinline__ void legendre_deriv(const T (&L)[DEG + 1],
+                                               T (&dL)[DEG + 1]) {
+  dL[0] = T(0);
+  if constexpr (DEG >= 1) dL[1] = T(1);
 #pragma unroll
-  for (int p = 2; p <= DEG; ++p)
-    dL[p] = dL[p - 2] + (float)(2 * p - 1) * L[p - 1];
+  for (int p = 2; p <= DEG; ++p) dL[p] = dL[p - 2] + (T)(2 * p - 1) * L[p - 1];
+}
+
+// f(m, i, j, k) for each basis term m of degree DEG, in basis_indices order
+// (by total degree p, then i, then j; k = p - i - j).
+template <int DEG, class F>
+__device__ __forceinline__ void for_each_term(F&& f) {
+  int m = 0;
+#pragma unroll
+  for (int p = 0; p <= DEG; ++p)
+#pragma unroll
+    for (int i = 0; i <= p; ++i)
+#pragma unroll
+      for (int j = 0; j <= p - i; ++j, ++m) f(m, i, j, p - i - j);
 }
 
 // sum_m coef[m] * Lx[i_m] * Ly[j_m] * Lz[k_m] over the basis of degree DEG.

@@ -10,44 +10,262 @@
 //   * depth_used rounds of cur = child_idx[cur] + (x>=cx) + 2(y>=cy) + 4(z>=cz),
 //     stopping at a leaf (the plain version carries the leaf unchanged);
 //   * the local frame (u - centre) * 2^(depth+1);
-//   * the three-term Legendre recurrence per axis up to deg_used, and with
-//     WITH_GRAD the derivative recurrence L'_p = L'_{p-2} + (2p-1) L_{p-1};
-//   * sum_m c_m * Lx[i_m] * Ly[j_m] * Lz[k_m] * coeff_norms[depth, m] over the
-//     basis_indices triples (i_m, j_m, k_m), both tables passed as device
-//     arrays;
+//   * the three-term Legendre recurrence per axis up to the degree, a
+//     template parameter, and with WITH_GRAD the derivative recurrence
+//     L'_p = L'_{p-2} + (2p-1) L_{p-1};
+//   * sum_m c_m * Lx[i_m] * Ly[j_m] * Lz[k_m] * coeff_norms[depth, m] over
+//     the basis_indices triples, with the norm folded into the axes:
+//     coeff_norms[d, m] = nt[i_m] nt[j_m] nt[k_m], nt[p] = sqrt((2p+1) 2^d),
+//     each nt[p] equal bit for bit to basis.norm_table's;
 //   * the f64-max sentinel outside the root AABB and, with WITH_GRAD, the
 //     world-space chain rule and normalisation (query.py:103-109).
 //
-// Bound. A point reads depth_used child/centre entries (dependent gathers)
-// and one coefficient row of C f64 values (C = 56 at degree 5); the
-// arithmetic is about 4*C f64 operations (16*C with the gradient). Rows of
-// neighbouring points are mostly the same leaf, so the gathers hit in L2
-// and the kernel is bound by f64 throughput and gather latency, not by
-// device memory.
+// Bound. The tree's arrays stay in the 50 MB L2 and the f64 arithmetic is
+// about 3*C operations a point (12*C with the gradient), so the L1's
+// wavefronts bound the kernel: a load whose 32 lanes aim at 32 nodes costs
+// up to 32. The design cuts the load instructions a point issues: the degree
+// is a template parameter, so the recurrences and the (i, j, k) triples are
+// registers and constants, with no index or norm loads; a centre is one
+// 16-byte and one 8-byte load; and the warp stages its leaves' coefficient
+// rows into shared memory with 8-byte cp.async copies, neighbouring lanes on
+// neighbouring coefficients (warp_stage.cuh), each thread reading its row
+// back from a slot whose stride is an odd number of doubles. Rows wider
+// than 32 coefficients are staged 32 at a time and the sum is split there.
+// What is left is the descent: depth_used dependent rounds of a child load
+// and a centre (three scattered loads a round), which keep their f64
+// decisions u >= centre, since a grid lookup rounds differently at the faces.
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "packed_rows.cuh"
+#include "warp_stage.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 32;        // coefficients staged per round
 constexpr int kMaxDeg = 12;       // BASIS_MAX_DEGREE
 
-template <bool WITH_GRAD>
+template <int DEG>
+struct Shape {
+  static constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
+  static constexpr int kChunks = (kC + kChunk - 1) / kChunk;
+  static constexpr int kTile = kC < kChunk ? kC : kChunk;
+  // odd: the 16 lanes of an 8-byte read phase hit 16 different bank pairs
+  static constexpr int kStride = kTile | 1;
+};
+
+// Node n's centre: its 24-byte record as one 16-byte and one 8-byte load,
+// whichever half is 16-byte aligned (the array's base is).
+__device__ __forceinline__ void load_centre(const double* __restrict__ centre,
+                                            int n, double c[3]) {
+  const double* p = centre + 3 * (int64_t)n;
+  const bool even = (n & 1) == 0;
+  const double2 v =
+      __ldg(reinterpret_cast<const double2*>(p + (even ? 0 : 1)));
+  const double s = __ldg(p + (even ? 2 : 0));
+  c[0] = even ? v.x : s;
+  c[1] = even ? v.y : v.x;
+  c[2] = even ? s : v.y;
+}
+
+// nt[p] = sqrt((2p+1) 2^d) for p = 0..DEG, bit for bit the host table's:
+// sqrt(x 4^k) = sqrt(x) 2^k exactly, so for d = 2k it is sqrt(2p+1) 2^k and
+// for d = 2k+1 sqrt(4p+2) 2^k.
+template <int DEG>
+__device__ __forceinline__ void axis_norms(int d, double (&nt)[DEG + 1]) {
+  const double kEven[kMaxDeg + 1] = {
+      1.0, 1.7320508075688772, 2.23606797749979, 2.6457513110645907, 3.0,
+      3.3166247903554, 3.605551275463989, 3.872983346207417,
+      4.123105625617661, 4.358898943540674, 4.58257569495584,
+      4.795831523312719, 5.0};
+  const double kOdd[kMaxDeg + 1] = {
+      1.4142135623730951, 2.449489742783178, 3.1622776601683795,
+      3.7416573867739413, 4.242640687119285, 4.69041575982343,
+      5.0990195135927845, 5.477225575051661, 5.830951894845301,
+      6.164414002968976, 6.48074069840786, 6.782329983125268,
+      7.0710678118654755};
+  const double two_k = __longlong_as_double((long long)(1023 + (d >> 1)) << 52);
+#pragma unroll
+  for (int p = 0; p <= DEG; ++p)
+    nt[p] = ((d & 1) ? kOdd[p] : kEven[p]) * two_k;
+}
+
+template <int DEG, bool WITH_GRAD>
+struct Leaf {
+  double N[3][DEG + 1];     // L_p(x_a) * nt[p]
+  double dN[3][DEG + 1];    // L'_p(x_a) * nt[p]
+  double v, g[3];
+};
+
+// Adds the terms m in [lo, hi) to lf, coef(m) their coefficients.
+template <int DEG, bool WITH_GRAD, class Coef>
+__device__ __forceinline__ void add_terms(Coef coef, int lo, int hi,
+                                          Leaf<DEG, WITH_GRAD>& lf) {
+  hpsdf::for_each_term<DEG>([&](int m, int i, int j, int k) {
+    if (m < lo || m >= hi) return;
+    const double cm = coef(m);
+    const double(&N)[3][DEG + 1] = lf.N;
+    const double xy = N[0][i] * N[1][j];
+    lf.v += cm * (xy * N[2][k]);
+    if constexpr (WITH_GRAD) {
+      const double(&dN)[3][DEG + 1] = lf.dN;
+      lf.g[0] += cm * (dN[0][i] * N[1][j] * N[2][k]);
+      lf.g[1] += cm * (N[0][i] * dN[1][j] * N[2][k]);
+      lf.g[2] += cm * (xy * dN[2][k]);
+    }
+  });
+}
+
+// The product sum over the row (one per lane; with `staged`, the warp's
+// rows staged in the tile, chunk 0's copy started by the caller), kChunk
+// coefficients at a time: unrolled up to two chunks, which the degrees up
+// to 5 take, in a loop above.
+template <int DEG, bool WITH_GRAD>
+__device__ __forceinline__ void sum_row(double* tile,
+                                        const double* const* slot_row,
+                                        hpsdf::WarpSlots ws, bool staged,
+                                        const double* row,
+                                        Leaf<DEG, WITH_GRAD>& lf) {
+  using S = Shape<DEG>;
+  if constexpr (S::kChunks <= 2) {
+    if (staged) {
+#pragma unroll
+      for (int ch = 0; ch < S::kChunks; ++ch) {
+        const int m0 = ch * kChunk;
+        if (ch > 0) {
+          __syncwarp();                       // the warp is done with ch - 1
+          hpsdf::stage_rows<S::kStride>(tile, slot_row, ws.n, m0,
+                                        S::kC - m0);
+        }
+        hpsdf::stage_wait();
+        const double* cs = tile + ws.slot * S::kStride - m0;
+        add_terms([&](int m) { return cs[m]; }, m0, min(m0 + kChunk, S::kC),
+                  lf);
+      }
+    } else {
+      add_terms([&](int m) { return __ldg(row + m); }, 0, S::kC, lf);
+    }
+  } else {
+#pragma unroll 1
+    for (int ch = 0; ch < S::kChunks; ++ch) {
+      const int m0 = ch * kChunk;
+      const double* cs = row;                 // cs[m]: term m's coefficient
+      if (staged) {
+        if (ch > 0) {
+          __syncwarp();
+          hpsdf::stage_rows<S::kStride>(tile, slot_row, ws.n, m0,
+                                        min(kChunk, S::kC - m0));
+        }
+        hpsdf::stage_wait();
+        cs = tile + ws.slot * S::kStride - m0;
+      }
+      add_terms([&](int m) { return cs[m]; }, m0, m0 + kChunk, lf);
+    }
+  }
+}
+
+template <int DEG, bool WITH_GRAD>
 __global__ void __launch_bounds__(kThreads)
 query_kernel(const int32_t* __restrict__ child_idx,
              const double* __restrict__ centre,
              const int32_t* __restrict__ depth,
-             const double* __restrict__ coeffs, int C,
-             const double* __restrict__ norms,       // (TREE_MAX_DEPTH+1, C)
-             const int32_t* __restrict__ bidx,       // (C, 3)
-             int deg, int depth_used,
+             const double* __restrict__ coeffs, int depth_used,
              const double* __restrict__ pts, int64_t B,
              double rc0, double rc1, double rc2,
              double inv0, double inv1, double inv2, int outside_max,
-             double* __restrict__ val, double* __restrict__ grad) {
+             int stage_min, double* __restrict__ val,
+             double* __restrict__ grad) {
+  using S = Shape<DEG>;
+  __shared__ double tiles[kWarps][32 * S::kStride];
+  __shared__ const double* slot_rows[kWarps][32];
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t ip = i < B ? i : B - 1;     // spare lanes repeat the last point
+  const double rc[3] = {rc0, rc1, rc2};
+  const double inv[3] = {inv0, inv1, inv2};
+  double u[3];
+  bool inside = true;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const double w = (pts[3 * ip + a] - rc[a]) * inv[a];
+    inside = inside && fabs(w) <= 0.5;
+    u[a] = w < -0.5 ? -0.5 : (w > 0.5 ? 0.5 : w);
+  }
+
+  int cur = 0;
+  for (int r = 0; r < depth_used; ++r) {
+    const int c0 = __ldg(child_idx + cur);
+    if (c0 < 0) break;
+    double cc[3];
+    load_centre(centre, cur, cc);
+    cur = c0 + (u[0] >= cc[0]) + ((u[1] >= cc[1]) << 1) +
+          ((u[2] >= cc[2]) << 2);
+  }
+
+  const double* row = coeffs + (int64_t)cur * S::kC;
+  const int warp = threadIdx.x >> 5;
+  const hpsdf::WarpSlots ws = hpsdf::warp_slots(row, slot_rows[warp]);
+  const bool staged = ws.n > stage_min;
+  if (staged)
+    hpsdf::stage_rows<S::kStride>(tiles[warp], slot_rows[warp], ws.n, 0,
+                                  S::kTile);
+  // the leaf frame and the recurrences while the rows arrive
+  const int d = __ldg(depth + cur);
+  double cc[3];
+  load_centre(centre, cur, cc);
+  const double scale = ldexp(1.0, d + 1);
+  double nt[DEG + 1];
+  axis_norms<DEG>(d, nt);
+  Leaf<DEG, WITH_GRAD> lf{};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    double L[DEG + 1];
+    hpsdf::legendre<DEG>((u[a] - cc[a]) * scale, L);
+#pragma unroll
+    for (int p = 0; p <= DEG; ++p) lf.N[a][p] = L[p] * nt[p];
+    if constexpr (WITH_GRAD) {
+      double dL[DEG + 1];
+      hpsdf::legendre_deriv<DEG>(L, dL);
+#pragma unroll
+      for (int p = 0; p <= DEG; ++p) lf.dN[a][p] = dL[p] * nt[p];
+    }
+  }
+  sum_row<DEG, WITH_GRAD>(tiles[warp], slot_rows[warp], ws, staged, row, lf);
+  if (i >= B) return;
+  val[i] = (outside_max && !inside) ? DBL_MAX : lf.v;
+
+  if constexpr (WITH_GRAD) {
+    // local = (unit - centre) * 2^(depth+1), unit = (world - c) / sizes
+    const double g0 = lf.g[0] * scale * inv0;
+    const double g1 = lf.g[1] * scale * inv1;
+    const double g2 = lf.g[2] * scale * inv2;
+    const double nrm = sqrt(g0 * g0 + g1 * g1 + g2 * g2);
+    const double den = nrm > 1e-30 ? nrm : 1e-30;
+    grad[3 * i] = g0 / den;
+    grad[3 * i + 1] = g1 / den;
+    grad[3 * i + 2] = g2 / den;
+  }
+}
+
+// The form before this design (timing only): runtime degree, index and
+// norm tables read from device memory.
+template <bool WITH_GRAD>
+__global__ void __launch_bounds__(kThreads)
+query_old(const int32_t* __restrict__ child_idx,
+          const double* __restrict__ centre,
+          const int32_t* __restrict__ depth,
+          const double* __restrict__ coeffs, int C,
+          const double* __restrict__ norms,
+          const int32_t* __restrict__ bidx,
+          int deg, int depth_used,
+          const double* __restrict__ pts, int64_t B,
+          double rc0, double rc1, double rc2,
+          double inv0, double inv1, double inv2, int outside_max,
+          double* __restrict__ val, double* __restrict__ grad) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   const double rc[3] = {rc0, rc1, rc2};
@@ -59,7 +277,6 @@ query_kernel(const int32_t* __restrict__ child_idx,
     inside = inside && fabs(w) <= 0.5;
     u[a] = w < -0.5 ? -0.5 : (w > 0.5 ? 0.5 : w);
   }
-
   int cur = 0;
   for (int r = 0; r < depth_used; ++r) {
     const int c0 = child_idx[cur];
@@ -68,7 +285,6 @@ query_kernel(const int32_t* __restrict__ child_idx,
     cur = c0 + (u[0] >= cc[0]) + ((u[1] >= cc[1]) << 1) +
           ((u[2] >= cc[2]) << 2);
   }
-
   const int d = depth[cur];
   const double scale = ldexp(1.0, d + 1);
   double L[3][kMaxDeg + 1];
@@ -87,7 +303,6 @@ query_kernel(const int32_t* __restrict__ child_idx,
         dL[a][p] = dL[a][p - 2] + (2.0 * p - 1.0) * L[a][p - 1];
     }
   }
-
   const double* co = coeffs + (int64_t)cur * C;
   const double* nr = norms + (int64_t)d * C;
   double v = 0.0, gx = 0.0, gy = 0.0, gz = 0.0;
@@ -105,9 +320,7 @@ query_kernel(const int32_t* __restrict__ child_idx,
     }
   }
   val[i] = (outside_max && !inside) ? DBL_MAX : v;
-
   if constexpr (WITH_GRAD) {
-    // local = (unit - centre) * 2^(depth+1), unit = (world - c) / sizes
     const double g0 = gx * scale * inv0;
     const double g1 = gy * scale * inv1;
     const double g2 = gz * scale * inv2;
@@ -121,23 +334,71 @@ query_kernel(const int32_t* __restrict__ child_idx,
 
 }  // namespace
 
-// grad == nullptr selects the value-only instantiation.
-extern "C" int hpsdf_query(const int32_t* child_idx, const double* centre,
-                           const int32_t* depth, const double* coeffs, int C,
-                           const double* norms, const int32_t* bidx, int deg,
-                           int depth_used, const double* pts, int64_t B,
-                           double rc0, double rc1, double rc2, double inv0,
-                           double inv1, double inv2, int outside_max,
-                           double* val, double* grad, void* stream) {
+// Timing only: the old form, with its tables.
+extern "C" int hpsdf_query_old(const int32_t* child_idx, const double* centre,
+                               const int32_t* depth, const double* coeffs,
+                               int C, const double* norms, const int32_t* bidx,
+                               int deg, int depth_used, const double* pts,
+                               int64_t B, double rc0, double rc1, double rc2,
+                               double inv0, double inv1, double inv2,
+                               int outside_max, double* val, double* grad,
+                               void* stream) {
   const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
   if (grad != nullptr)
-    query_kernel<true><<<blocks, kThreads, 0, s>>>(
+    query_old<true><<<blocks, kThreads, 0, s>>>(
         child_idx, centre, depth, coeffs, C, norms, bidx, deg, depth_used,
         pts, B, rc0, rc1, rc2, inv0, inv1, inv2, outside_max, val, grad);
   else
-    query_kernel<false><<<blocks, kThreads, 0, s>>>(
+    query_old<false><<<blocks, kThreads, 0, s>>>(
         child_idx, centre, depth, coeffs, C, norms, bidx, deg, depth_used,
         pts, B, rc0, rc1, rc2, inv0, inv1, inv2, outside_max, val, grad);
   return (int)cudaGetLastError();
+}
+
+// Timing only: the warp stages its rows when it holds more than stage_min
+// distinct ones (32: never); carveout: the shared memory share preferred
+// (cudaFuncAttributePreferredSharedMemoryCarveout, -1 the default).
+// grad == nullptr selects the value-only instantiation.
+extern "C" int hpsdf_query_form(const int32_t* child_idx,
+                                const double* centre, const int32_t* depth,
+                                const double* coeffs, int deg, int depth_used,
+                                const double* pts, int64_t B, double rc0,
+                                double rc1, double rc2, double inv0,
+                                double inv1, double inv2, int outside_max,
+                                int stage_min, int carveout, double* val,
+                                double* grad, void* stream) {
+  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+#define HPSDF_ARGS                                                          \
+  child_idx, centre, depth, coeffs, depth_used, pts, B, rc0, rc1, rc2, inv0, \
+      inv1, inv2, outside_max, stage_min, val, grad
+#define HPSDF_LAUNCH(D)                                                      \
+  if (grad != nullptr) {                                                     \
+    cudaFuncSetAttribute(query_kernel<D, true>,                              \
+                         cudaFuncAttributePreferredSharedMemoryCarveout,     \
+                         carveout);                                          \
+    query_kernel<D, true><<<blocks, kThreads, 0, s>>>(HPSDF_ARGS);           \
+  } else {                                                                   \
+    cudaFuncSetAttribute(query_kernel<D, false>,                             \
+                         cudaFuncAttributePreferredSharedMemoryCarveout,     \
+                         carveout);                                          \
+    query_kernel<D, false><<<blocks, kThreads, 0, s>>>(HPSDF_ARGS);          \
+  }
+  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
+#undef HPSDF_LAUNCH
+#undef HPSDF_ARGS
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hpsdf_query(const int32_t* child_idx, const double* centre,
+                           const int32_t* depth, const double* coeffs,
+                           int deg, int depth_used, const double* pts,
+                           int64_t B, double rc0, double rc1, double rc2,
+                           double inv0, double inv1, double inv2,
+                           int outside_max, double* val, double* grad,
+                           void* stream) {
+  return hpsdf_query_form(child_idx, centre, depth, coeffs, deg, depth_used,
+                          pts, B, rc0, rc1, rc2, inv0, inv1, inv2,
+                          outside_max, 8, 75, val, grad, stream);
 }

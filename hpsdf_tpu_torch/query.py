@@ -107,6 +107,9 @@ def query_kernel(tree: Octree, pts: torch.Tensor, with_grad: bool,
             raise ValueError(f"tree.{name} must be contiguous {dt}")
     if tree.coeffs.shape[1] != C or tree.centre.shape[1] != 3:
         raise ValueError("tree arrays do not match deg_used")
+    if tree.centre.data_ptr() % 16:
+        # the kernel reads each 24-byte centre as one 16- and one 8-byte load
+        raise ValueError("tree.centre must be 16-byte aligned")
     pts = pts.contiguous()
     B = pts.shape[0]
     val = torch.empty(B, dtype=torch.float64, device=pts.device)
@@ -115,20 +118,13 @@ def query_kernel(tree: Octree, pts: torch.Tensor, with_grad: bool,
     if B == 0:
         return (val, grad) if with_grad else val
     lib = _kernels.load()
-    # row-major copies: coeff_norms is built column-major by numpy
-    norms = torch.as_tensor(
-        np.ascontiguousarray(basis.coeff_norms(tree.deg_used)),
-        device=pts.device)
-    bidx = torch.as_tensor(
-        np.ascontiguousarray(basis.basis_indices(tree.deg_used)),
-        device=pts.device)
     rc = tree.config.root_centre
     inv = 1.0 / tree.config.root_sizes
     _kernels.check(lib, lib.hpsdf_query(
         tree.child_idx.data_ptr(), tree.centre.data_ptr(),
-        tree.depth.data_ptr(), tree.coeffs.data_ptr(), C,
-        norms.data_ptr(), bidx.data_ptr(), tree.deg_used, tree.depth_used,
-        pts.data_ptr(), B, float(rc[0]), float(rc[1]), float(rc[2]),
+        tree.depth.data_ptr(), tree.coeffs.data_ptr(), tree.deg_used,
+        tree.depth_used, pts.data_ptr(), B,
+        float(rc[0]), float(rc[1]), float(rc[2]),
         float(inv[0]), float(inv[1]), float(inv[2]),
         int(outside_value_max), val.data_ptr(),
         grad.data_ptr() if with_grad else None,
