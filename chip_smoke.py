@@ -22,22 +22,32 @@ reference-default tree (bench.py:289-298: sphere r=0.5 at (0.25, 0, 0),
 target 1e-10, exponential weighting 3, degree 12 / depth 10 caps), and
 both trees are traced at 1024^2 rays. K3 and K5 are held against their
 plain versions once more on the carved tree and the 512^2 rays that
-render_image traced.
+render_image traced. K2 is also timed where the main path runs it, on the
+carve's largest F batch (the points as_sdf's packed F reads), and K5 on
+the render's hit points; K2/K5 and K1 are held against their plain versions
+at every basis degree 0..12 on synthetic depth-2 trees (rows of 16 to 464
+lanes).
 
 P1 is also held against its plain version on the main path's own points
 (the largest F batch of the slice fit) and timed there with and without its
 tile cull; wherever P1 is checked, its culled scan must equal its dense
 scan bit for bit, on the fit's whole batch too. Every kernel's time stands
 beside its bound on this card: the operations (P1, f32, on the pairs its
-blocks scanned, with the dense pairs beside) or the bytes (each input read
-once, each output written once) over the H100's published peak; G's also
-beside torch.index_select on in-range indices, which the port never calls.
+blocks scanned, with the dense pairs beside; K1, f64, beside its bytes) or
+the bytes (each input read once, each output written once) over the H100's
+published peak; G's also beside torch.index_select on in-range indices,
+which the port never calls. K1 and K2/K5 run for microseconds, less than a
+call through their wrappers costs the host, so they are timed in CUDA
+graphs; the others by CUDA events around repeated calls. The build's ptxas
+report gives K1's and K2/K5's registers, stack and spills; K1's degree-3
+and degree-5 instantiations must have no stack frame and no spills.
 
-Phases, one line each: device, build, P1 vs plain, the slice, P1 at the fit
-batch, K1 vs plain, times, G vs plain, the reference-default fit, K2/K5 vs
-plain, K3 vs plain, the render path; then one JSON line with the kernels,
-the card's name and power limit as nvidia-smi prints them, and the final
-JSON line
+Phases, one line each: device, build, ptxas, P1 vs plain, the slice, P1 at
+the fit batch, K1 vs plain, times, G vs plain, the reference-default fit,
+K2/K5 vs plain, K3 vs plain, the render path, K2/K5 at the main path's
+shapes, the degrees; then one JSON line with the kernels (K2/K5's launches
+also split into values and normals), the card's name and power limit as
+nvidia-smi prints them, and the final JSON line
 {"ok": true, "device": {...}}. Any failed check raises and the exit code is
 non-zero. Without a CUDA device it exits 1 and prints no result.
 """
@@ -301,6 +311,11 @@ def phase_slice(mesh, bvh, cfg, n_query, out_path, seed=1):
     vals = T.query(tree, pts)
     sync()
     query_s = time.perf_counter() - t0
+    # the first call also loads K1's module; the second is the steady rate
+    t0 = time.perf_counter()
+    T.query(tree, pts)
+    sync()
+    warm_s = time.perf_counter() - t0
     vg, grads = T.query_with_gradient(tree, pts)
     sync()
     T.save(tree, out_path)
@@ -336,6 +351,7 @@ def phase_slice(mesh, bvh, cfg, n_query, out_path, seed=1):
           f"F samples {samples[0]}, build {build_s:.3f} s (F {f_s[0]:.3f} "
           f"s of it, synchronised), query "
           f"{n_query / query_s / 1e6:.2f} Mq/s (first call), "
+          f"{n_query / warm_s / 1e6:.2f} Mq/s (second), "
           f"max|query - (|p| - 0.3)| {fit_err:.3e}, gradient . radial 1% "
           f"quantile {dot_q01:.6f}, save/load bit-exact, launches "
           f"{launches}", flush=True)

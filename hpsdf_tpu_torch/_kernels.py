@@ -41,15 +41,6 @@ _SIGNATURES = {
     "hpsdf_closest_tri": (_P, _P, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P),
     "hpsdf_query": (_P, _P, _P, _P, _I32, _I32, _P, _I64,
                     _F64, _F64, _F64, _F64, _F64, _F64, _I32, _P, _P, _P),
-    "hpsdf_query_old": (_P, _P, _P, _P, _I32, _P, _P, _I32, _I32, _P, _I64,
-                        _F64, _F64, _F64, _F64, _F64, _F64, _I32, _P, _P,
-                        _P),
-    "hpsdf_query_form": (_P, _P, _P, _P, _I32, _I32, _P, _I64,
-                         _F64, _F64, _F64, _F64, _F64, _F64, _I32, _I32, _I32,
-                         _P, _P, _P),
-    "hpsdf_packed_eval_form": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
-                               _F32, _F32, _F32, _F32, _F32, _F32,
-                               _F32, _F32, _F32, _I32, _I32, _I32, _P, _P),
     "hpsdf_row_gather": (_P, _I64, _I64, _I64, _P, _I64, _P, _P),
     "hpsdf_packed_eval": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
                           _F32, _F32, _F32, _F32, _F32, _F32,

@@ -21,10 +21,9 @@ Three kernels serve this layout on CUDA tensors:
     ``experiments/gather_probe.py`` (G1-G3) and derives the grid, the
     repacked tables and the mesh sign's triangle rows.
   * K2 ``packed_eval_kernel`` (``csrc/packed_eval.cu``): locate + Legendre
-    eval per point, for ``values_at`` / ``query_packed``. Each warp stages
-    the rows its points read into shared memory with 16-byte copies, so the
-    tables' rows must be 16-byte aligned (W a multiple of 4, as
-    ``_row_width`` makes it).
+    eval per point, for ``values_at`` / ``query_packed``. A thread reads its
+    row in 16-byte loads, so the tables' rows must be 16-byte aligned (W a
+    multiple of 4, as ``_row_width`` makes it).
   * K5, the same source with the gradient: unit normals for ``normals``.
 
 Tensors on the CPU take the plain torch versions in this module. The TPU

@@ -15,18 +15,19 @@
 //     normalised with a 1e-12 floor.
 //
 // Bound. The tables are a few MB and stay in the 50 MB L2, and the
-// arithmetic is ~4*C f32 operations a point (~16*C with the gradient), so
-// neither device memory nor the FP32 pipes bound the kernel: the L1's
-// wavefronts do. A load instruction whose 32 lanes aim at 32 rows costs up
-// to 32 of them, and reading a row one 4-byte load a lane costs 5 + C such
-// instructions (24 a point on a 32-lane degree-3 row). So the warp stages
-// its rows (warp_stage.cuh): each thread finds its row, the warp copies its
-// distinct rows into shared memory with 16-byte cp.async, eight lanes on one
-// 128-byte row segment, and each thread reads its row back as float4s from
-// a slot whose stride is an odd number of float4s (no bank conflicts). Rows
-// wider than 64 lanes are staged 64 lanes at a time and the sum is split
-// there. A run of lanes on one row (the carve's cell-major batches) copies
-// the row once and reads it by broadcast.
+// arithmetic is ~4*C f32 operations a point (~16*C with the gradient). At
+// scattered points the 32 lanes of a warp read 32 rows, and each load
+// instruction then costs up to 32 L1 wavefronts: reading a row one 4-byte
+// load a lane (5 + C loads, 24 on a degree-3 row) made that the bound. So a
+// thread reads its row in 16-byte loads: lanes 0-4 (the descent's and the
+// leaf frame's) as one float4 and one scalar, the coefficients as float4s
+// into registers (C/4 loads, 5 on a degree-3 row). What bounds the kernel
+// then is the rows' bytes from L2 to the SMs, one row a point. Staging a
+// warp's rows in shared memory with coalesced copies moves the same bytes:
+// it gains ~10% at scattered points, but its warp-wide row count delays
+// every warp, and the carve's batches, whose warps mostly read one row,
+// run slower for it than this form (PERF.md). Rows wider than 64
+// coefficient lanes (degree >= 6) are read one 4-byte load a term.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -34,184 +35,22 @@
 #include <stdint.h>
 
 #include "packed_rows.cuh"
-#include "warp_stage.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunkQuads = 16;     // coefficient float4s staged per round
-constexpr int kCoeffQuad = hpsdf::kCoeffLane / 4;
-
-template <int DEG>
-struct Shape {
-  static constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
-  // float4s of a row's coefficient lanes
-  static constexpr int kQuads = (kC + 3) / 4;
-  static constexpr int kChunks = (kQuads + kChunkQuads - 1) / kChunkQuads;
-  static constexpr int kTile = kQuads < kChunkQuads ? kQuads : kChunkQuads;
-  // odd: the 8 lanes of a float4 read phase hit 8 different bank groups
-  static constexpr int kStride = kTile | 1;
-};
+constexpr int kMaxQuads = 16;       // coefficient float4s held in registers
 
 template <int DEG, bool WITH_GRAD>
-struct Point {
-  float u[3];
-  float scale;
-  float L[3][DEG + 1], dL[3][DEG + 1];
-  float v, g[3];
-};
-
-// The leaf frame (row lanes 1-4) and the recurrences at the point.
-template <int DEG, bool WITH_GRAD>
-__device__ __forceinline__ void leaf_frame(float4 meta, float cz,
-                                           Point<DEG, WITH_GRAD>& pt) {
-  const float centre[3] = {meta.z, meta.w, cz};
-  pt.scale = meta.y;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    hpsdf::legendre<DEG>((pt.u[a] - centre[a]) * pt.scale, pt.L[a]);
-    if constexpr (WITH_GRAD) hpsdf::legendre_deriv<DEG>(pt.L[a], pt.dL[a]);
-  }
-}
-
-// Adds the terms m in [lo, hi) to pt, coef(m) their folded coefficients.
-template <int DEG, bool WITH_GRAD, class Coef>
-__device__ __forceinline__ void add_terms(Coef coef, int lo, int hi,
-                                          Point<DEG, WITH_GRAD>& pt) {
-  hpsdf::for_each_term<DEG>([&](int m, int i, int j, int k) {
-    if (m < lo || m >= hi) return;
-    const float cm = coef(m);
-    const float(&L)[3][DEG + 1] = pt.L;
-    if constexpr (WITH_GRAD) {
-      const float(&dL)[3][DEG + 1] = pt.dL;
-      pt.g[0] += cm * (dL[0][i] * L[1][j] * L[2][k]);
-      pt.g[1] += cm * (L[0][i] * dL[1][j] * L[2][k]);
-      pt.g[2] += cm * (L[0][i] * L[1][j] * dL[2][k]);
-    } else {
-      pt.v += cm * (L[0][i] * L[1][j] * L[2][k]);
-    }
-  });
-}
-
-// The product sum over the row's coefficient float4s `coef` (one row per
-// lane; with `staged`, the warp's rows staged in the tile). Up to
-// kChunkQuads float4s are read into registers at once; a wider row is
-// staged kChunkQuads at a time.
-template <int DEG, bool WITH_GRAD>
-__device__ __forceinline__ void sum_row(float4* tile,
-                                        const float4* const* slot_row,
-                                        hpsdf::WarpSlots ws, bool staged,
-                                        const float4* coef,
-                                        Point<DEG, WITH_GRAD>& pt) {
-  using S = Shape<DEG>;
-  if constexpr (S::kChunks == 1) {
-    float c[4 * S::kQuads];
-    const float4* src = coef;
-    if (staged) {
-      hpsdf::stage_rows<S::kStride>(tile, slot_row, ws.n, 0, S::kQuads);
-      hpsdf::stage_wait();
-      src = tile + ws.slot * S::kStride;
-    }
-#pragma unroll
-    for (int q = 0; q < S::kQuads; ++q) {
-      const float4 f = staged ? src[q] : __ldg(src + q);
-      c[4 * q] = f.x, c[4 * q + 1] = f.y, c[4 * q + 2] = f.z,
-      c[4 * q + 3] = f.w;
-    }
-    add_terms([&](int m) { return c[m]; }, 0, S::kC, pt);
-  } else {
-#pragma unroll 1
-    for (int ch = 0; ch < S::kChunks; ++ch) {
-      const int q0 = ch * kChunkQuads;
-      // f[m]: term m's coefficient, for the terms of this chunk
-      const float* f = reinterpret_cast<const float*>(coef);
-      if (staged) {
-        if (ch > 0) __syncwarp();             // the warp is done with ch - 1
-        hpsdf::stage_rows<S::kStride>(tile, slot_row, ws.n, q0,
-                                      min(kChunkQuads, S::kQuads - q0));
-        hpsdf::stage_wait();
-        f = reinterpret_cast<const float*>(tile + ws.slot * S::kStride) -
-            4 * q0;
-      }
-      add_terms([&](int m) { return f[m]; }, 4 * q0,
-                4 * (q0 + kChunkQuads), pt);
-    }
-  }
-}
-
-// V (timing only): bit 0 = points read evict-first; bit 1 = the decision
-// on a 32-bit run count before the slots; 4 = never staged, no count.
-template <int DEG, bool WITH_GRAD, int V>
 __global__ void __launch_bounds__(kThreads)
 packed_eval_kernel(const float* __restrict__ grid,
                    const float* __restrict__ rows, int W, int gd, int extra,
                    const float* __restrict__ pts, int64_t B, float rc0,
                    float rc1, float rc2, float inv0, float inv1, float inv2,
                    float sz0, float sz1, float sz2, int outside_max,
-                   int stage_min, float* __restrict__ out) {
-  using S = Shape<DEG>;
-  __shared__ float4 tiles[kWarps][32 * S::kStride];
-  __shared__ const float4* slot_rows[kWarps][32];
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  const int64_t ip = i < B ? i : B - 1;     // spare lanes repeat the last point
-  const float rc[3] = {rc0, rc1, rc2};
-  const float inv[3] = {inv0, inv1, inv2};
-  Point<DEG, WITH_GRAD> pt{};
-  bool inside = true;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float p = (V & 1) ? __ldcs(pts + 3 * ip + a) : pts[3 * ip + a];
-    const float w = (p - rc[a]) * inv[a];
-    inside = inside && fabsf(w) <= 0.5f;
-    pt.u[a] = hpsdf::clamp_half(w);
-  }
-  const float* row = hpsdf::locate_row4(grid, rows, W, gd, extra, pt.u);
-  // the leaf frame is the lane's own, read while the warp counts its rows
-  const float4 meta = __ldg(reinterpret_cast<const float4*>(row));
-  const float cz = __ldg(row + 4);
-  const float4* coef = reinterpret_cast<const float4*>(row) + kCoeffQuad;
-  const int warp = threadIdx.x >> 5;
-  hpsdf::WarpSlots ws{0, 0};
-  bool staged = false;
-  if constexpr (V == 4) {
-  } else if constexpr ((V & 2) != 0) {
-    staged = hpsdf::warp_runs((unsigned)reinterpret_cast<uintptr_t>(coef)) >
-             stage_min;
-    if (staged) ws = hpsdf::warp_slots(coef, slot_rows[warp]);
-  } else {
-    ws = hpsdf::warp_slots(coef, slot_rows[warp]);
-    staged = ws.n > stage_min;
-  }
-  leaf_frame(meta, cz, pt);
-  sum_row<DEG, WITH_GRAD>(tiles[warp], slot_rows[warp], ws, staged, coef,
-                          pt);
-  if (i >= B) return;
-  if constexpr (WITH_GRAD) {
-    // local = (unit - centre) * scale, unit = (p - c) / sizes
-    const float sz[3] = {sz0, sz1, sz2};
-    float g[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) g[a] = pt.g[a] * pt.scale / sz[a];
-    const float nrm = sqrtf(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]);
-    const float den = fmaxf(nrm, 1e-12f);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) out[3 * i + a] = g[a] / den;
-  } else {
-    out[i] = (outside_max && !inside) ? FLT_MAX : pt.v;
-  }
-}
-
-// The form before staging: every lane reads its own row, one 4-byte load a
-// lane (timing only).
-template <int DEG, bool WITH_GRAD>
-__global__ void __launch_bounds__(kThreads)
-packed_eval_old(const float* __restrict__ grid,
-                const float* __restrict__ rows, int W, int gd, int extra,
-                const float* __restrict__ pts, int64_t B, float rc0,
-                float rc1, float rc2, float inv0, float inv1, float inv2,
-                float sz0, float sz1, float sz2, int outside_max,
-                float* __restrict__ out) {
+                   float* __restrict__ out) {
+  constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
+  constexpr int kQuads = (kC + 3) / 4;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   const float rc[3] = {rc0, rc1, rc2};
@@ -224,14 +63,46 @@ packed_eval_old(const float* __restrict__ grid,
     inside = inside && fabsf(w) <= 0.5f;
     u[a] = hpsdf::clamp_half(w);
   }
-  const float* row = hpsdf::locate_row(grid, rows, W, gd, extra, u);
-  const float scale = __ldg(row + 1);
-  float local[3];
+  const float* row = hpsdf::locate_row4(grid, rows, W, gd, extra, u);
+  const float4 meta = __ldg(reinterpret_cast<const float4*>(row));
+  const float centre[3] = {meta.z, meta.w, __ldg(row + 4)};
+  const float scale = meta.y;
+  const float* coef = row + hpsdf::kCoeffLane;
+
+  float L[3][DEG + 1], dL[3][DEG + 1];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) local[a] = (u[a] - __ldg(row + 2 + a)) * scale;
+  for (int a = 0; a < 3; ++a) {
+    hpsdf::legendre<DEG>((u[a] - centre[a]) * scale, L[a]);
+    if constexpr (WITH_GRAD) hpsdf::legendre_deriv<DEG>(L[a], dL[a]);
+  }
+  float v = 0.0f, g[3] = {0.0f, 0.0f, 0.0f};
+  auto add_terms = [&](auto coef_of) {
+    hpsdf::for_each_term<DEG>([&](int m, int ix, int iy, int iz) {
+      const float cm = coef_of(m);
+      if constexpr (WITH_GRAD) {
+        g[0] += cm * (dL[0][ix] * L[1][iy] * L[2][iz]);
+        g[1] += cm * (L[0][ix] * dL[1][iy] * L[2][iz]);
+        g[2] += cm * (L[0][ix] * L[1][iy] * dL[2][iz]);
+      } else {
+        v += cm * (L[0][ix] * L[1][iy] * L[2][iz]);
+      }
+    });
+  };
+  if constexpr (kQuads <= kMaxQuads) {
+    float c[4 * kQuads];
+#pragma unroll
+    for (int q = 0; q < kQuads; ++q) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(coef) + q);
+      c[4 * q] = f.x, c[4 * q + 1] = f.y, c[4 * q + 2] = f.z,
+      c[4 * q + 3] = f.w;
+    }
+    add_terms([&](int m) { return c[m]; });
+  } else {
+    add_terms([&](int m) { return __ldg(coef + m); });
+  }
+
   if constexpr (WITH_GRAD) {
-    float g[3];
-    hpsdf::eval_local_grad<DEG>(row, local, g);
+    // local = (unit - centre) * scale, unit = (p - c) / sizes
     const float sz[3] = {sz0, sz1, sz2};
 #pragma unroll
     for (int a = 0; a < 3; ++a) g[a] = g[a] * scale / sz[a];
@@ -240,56 +111,31 @@ packed_eval_old(const float* __restrict__ grid,
 #pragma unroll
     for (int a = 0; a < 3; ++a) out[3 * i + a] = g[a] / den;
   } else {
-    const float v = hpsdf::eval_local<DEG>(row, local);
     out[i] = (outside_max && !inside) ? FLT_MAX : v;
   }
 }
 
 }  // namespace
 
-// form (timing only): < 0 = the old form; else V = form / 100, and the
-// warp stages its rows when it holds more than form % 100 (32: never).
-// with_grad = 0: values (B,); 1: unit normals (B, 3).
-extern "C" int hpsdf_packed_eval_form(
-    const float* grid, const float* rows, int W, int deg, int gd, int extra,
-    const float* pts, int64_t B, float rc0, float rc1, float rc2, float inv0,
-    float inv1, float inv2, float sz0, float sz1, float sz2, int outside_max,
-    int with_grad, int form, float* out, void* stream) {
-  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
-  cudaStream_t s = (cudaStream_t)stream;
-#define HPSDF_ARGS                                                         \
-  grid, rows, W, gd, extra, pts, B, rc0, rc1, rc2, inv0, inv1, inv2, sz0,  \
-      sz1, sz2, outside_max
-#define HPSDF_V(D, G, V)                                                    \
-  packed_eval_kernel<D, G, V><<<blocks, kThreads, 0, s>>>(HPSDF_ARGS,       \
-                                                          form % 100, out)
-#define HPSDF_G(D, V)                                                       \
-  if (with_grad) HPSDF_V(D, true, V); else HPSDF_V(D, false, V)
-#define HPSDF_LAUNCH(D)                                                     \
-  if (form < 0 && with_grad)                                                \
-    packed_eval_old<D, true><<<blocks, kThreads, 0, s>>>(HPSDF_ARGS, out);  \
-  else if (form < 0)                                                        \
-    packed_eval_old<D, false><<<blocks, kThreads, 0, s>>>(HPSDF_ARGS, out); \
-  else if (form / 100 == 1) { HPSDF_G(D, 1); }                              \
-  else if (form / 100 == 2) { HPSDF_G(D, 2); }                              \
-  else if (form / 100 == 3) { HPSDF_G(D, 3); }                              \
-  else if (form / 100 == 4) { HPSDF_G(D, 4); }                              \
-  else { HPSDF_G(D, 0); }
-  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
-#undef HPSDF_LAUNCH
-#undef HPSDF_G
-#undef HPSDF_V
-#undef HPSDF_ARGS
-  return (int)cudaGetLastError();
-}
-
+// with_grad = 0: values (B,); 1: unit normals (B, 3). Rows 16-byte aligned.
 extern "C" int hpsdf_packed_eval(const float* grid, const float* rows, int W,
                                  int deg, int gd, int extra, const float* pts,
                                  int64_t B, float rc0, float rc1, float rc2,
                                  float inv0, float inv1, float inv2, float sz0,
                                  float sz1, float sz2, int outside_max,
                                  int with_grad, float* out, void* stream) {
-  return hpsdf_packed_eval_form(grid, rows, W, deg, gd, extra, pts, B, rc0,
-                                rc1, rc2, inv0, inv1, inv2, sz0, sz1, sz2,
-                                outside_max, with_grad, 8, out, stream);
+  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+#define HPSDF_LAUNCH(D)                                                      \
+  if (with_grad)                                                             \
+    packed_eval_kernel<D, true><<<blocks, kThreads, 0, s>>>(                 \
+        grid, rows, W, gd, extra, pts, B, rc0, rc1, rc2, inv0, inv1, inv2,   \
+        sz0, sz1, sz2, outside_max, out);                                    \
+  else                                                                       \
+    packed_eval_kernel<D, false><<<blocks, kThreads, 0, s>>>(                \
+        grid, rows, W, gd, extra, pts, B, rc0, rc1, rc2, inv0, inv1, inv2,   \
+        sz0, sz1, sz2, outside_max, out)
+  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
+#undef HPSDF_LAUNCH
+  return (int)cudaGetLastError();
 }

@@ -119,14 +119,9 @@ __device__ __forceinline__ float poly_sum(const float* __restrict__ coef,
                                           const float (&Ly)[DEG + 1],
                                           const float (&Lz)[DEG + 1]) {
   float v = 0.0f;
-  int m = 0;
-#pragma unroll
-  for (int p = 0; p <= DEG; ++p)
-#pragma unroll
-    for (int i = 0; i <= p; ++i)
-#pragma unroll
-      for (int j = 0; j <= p - i; ++j, ++m)
-        v += __ldg(coef + m) * (Lx[i] * Ly[j] * Lz[p - i - j]);
+  for_each_term<DEG>([&](int m, int i, int j, int k) {
+    v += __ldg(coef + m) * (Lx[i] * Ly[j] * Lz[k]);
+  });
   return v;
 }
 
@@ -139,39 +134,6 @@ __device__ __forceinline__ float eval_local(const float* __restrict__ row,
   legendre<DEG>(local[1], Ly);
   legendre<DEG>(local[2], Lz);
   return poly_sum<DEG>(row + kCoeffLane, Lx, Ly, Lz);
-}
-
-// The local-frame gradient of the same sum.
-template <int DEG>
-__device__ __forceinline__ void eval_local_grad(const float* __restrict__ row,
-                                                const float local[3],
-                                                float g[3]) {
-  float Lx[DEG + 1], Ly[DEG + 1], Lz[DEG + 1];
-  float dLx[DEG + 1], dLy[DEG + 1], dLz[DEG + 1];
-  legendre<DEG>(local[0], Lx);
-  legendre<DEG>(local[1], Ly);
-  legendre<DEG>(local[2], Lz);
-  legendre_deriv<DEG>(Lx, dLx);
-  legendre_deriv<DEG>(Ly, dLy);
-  legendre_deriv<DEG>(Lz, dLz);
-  const float* coef = row + kCoeffLane;
-  float gx = 0.0f, gy = 0.0f, gz = 0.0f;
-  int m = 0;
-#pragma unroll
-  for (int p = 0; p <= DEG; ++p)
-#pragma unroll
-    for (int i = 0; i <= p; ++i)
-#pragma unroll
-      for (int j = 0; j <= p - i; ++j, ++m) {
-        const int k = p - i - j;
-        const float c = __ldg(coef + m);
-        gx += c * (dLx[i] * Ly[j] * Lz[k]);
-        gy += c * (Lx[i] * dLy[j] * Lz[k]);
-        gz += c * (Lx[i] * Ly[j] * dLz[k]);
-      }
-  g[0] = gx;
-  g[1] = gy;
-  g[2] = gz;
 }
 
 }  // namespace hpsdf

@@ -21,19 +21,23 @@
 //     world-space chain rule and normalisation (query.py:103-109).
 //
 // Bound. The tree's arrays stay in the 50 MB L2 and the f64 arithmetic is
-// about 3*C operations a point (12*C with the gradient), so the L1's
-// wavefronts bound the kernel: a load whose 32 lanes aim at 32 nodes costs
-// up to 32. The design cuts the load instructions a point issues: the degree
+// about 3*C operations a point (11*C more with the gradient), below both
+// the f64 peak and device memory: the loads bound the kernel. At scattered
+// points a warp's 32 lanes read 32 nodes, so each load instruction costs up
+// to 32 L1 wavefronts, and the bytes of a leaf's row come from L2 once a
+// point. The design cuts the load instructions a point issues: the degree
 // is a template parameter, so the recurrences and the (i, j, k) triples are
 // registers and constants, with no index or norm loads; a centre is one
-// 16-byte and one 8-byte load; and the warp stages its leaves' coefficient
-// rows into shared memory with 8-byte cp.async copies, neighbouring lanes on
-// neighbouring coefficients (warp_stage.cuh), each thread reading its row
-// back from a slot whose stride is an odd number of doubles. Rows wider
-// than 32 coefficients are staged 32 at a time and the sum is split there.
-// What is left is the descent: depth_used dependent rounds of a child load
-// and a centre (three scattered loads a round), which keep their f64
-// decisions u >= centre, since a grid lookup rounds differently at the faces.
+// 16-byte and one 8-byte load; and a warp that reads more than kStageMin
+// rows stages them into shared memory with 8-byte cp.async copies,
+// neighbouring lanes on neighbouring coefficients, each thread reading its
+// row back from a slot whose stride is an odd number of doubles (no bank
+// conflicts). Rows wider than 32 coefficients are staged 32 at a time and
+// the sum is split there. The L1 the tile leaves matters, so the launch
+// prefers kCarveout percent of shared memory. What is left is the descent:
+// depth_used dependent rounds of a child load and a centre (three scattered
+// loads a round), which keep their f64 decisions u >= centre, since a grid
+// lookup rounds differently at the faces.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -41,7 +45,6 @@
 #include <stdint.h>
 
 #include "packed_rows.cuh"
-#include "warp_stage.cuh"
 
 namespace {
 
@@ -49,6 +52,66 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32;        // coefficients staged per round
 constexpr int kMaxDeg = 12;       // BASIS_MAX_DEGREE
+// A warp stages its rows when it reads more than kStageMin distinct ones;
+// with fewer (points in runs, as a slice's raster gives) each lane reads
+// its own row, and the loads are mostly broadcasts.
+constexpr int kStageMin = 8;
+// Percent of the SM's shared memory preferred over L1: 75 keeps the blocks
+// the tile allows and leaves more L1 to the descent's nodes than the
+// default (PERF.md).
+constexpr int kCarveout = 75;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// --- warp-cooperative row staging -----------------------------------------
+//
+// Lanes that read the same row as the lane before them share its slot, so a
+// run of them copies the row once and reads it by broadcast.
+
+struct WarpSlots {
+  int slot;   // this lane's slot: the rank of its run among the warp's runs
+  int n;      // slots in use
+};
+
+// Assigns the warp's slots and writes each slot's row to slot_row[slot].
+// Every lane of the warp must call it.
+__device__ __forceinline__ WarpSlots warp_slots(const double* row,
+                                                const double** slot_row) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long key = reinterpret_cast<unsigned long long>(row);
+  const unsigned long long prev = __shfl_up_sync(kFullMask, key, 1);
+  const bool lead = lane == 0 || prev != key;
+  const unsigned leaders = __ballot_sync(kFullMask, lead);
+  WarpSlots s;
+  s.slot = __popc(leaders & (kFullMask >> (31 - lane))) - 1;
+  s.n = __popc(leaders);
+  if (lead) slot_row[s.slot] = row;
+  __syncwarp();
+  return s;
+}
+
+// Starts copying coefficients [e0, e0 + ne) of each slot's row into
+// tile[slot * STRIDE + e - e0], one 8-byte cp.async a coefficient,
+// neighbouring lanes on neighbouring coefficients; stage_wait() ends it.
+template <int STRIDE>
+__device__ __forceinline__ void stage_rows(double* tile,
+                                           const double* const* slot_row,
+                                           int n_slots, int e0, int ne) {
+  for (int k = threadIdx.x & 31; k < n_slots * ne; k += 32) {
+    const int s = k / ne, e = k - s * ne;
+    const unsigned dst =
+        (unsigned)__cvta_generic_to_shared(tile + s * STRIDE + e);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+                 "l"(slot_row[s] + e0 + e));
+  }
+}
+
+// Waits for this lane's copies, then for the warp's.
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+}
+
+// --- the query ----------------------------------------------------------
 
 template <int DEG>
 struct Shape {
@@ -128,7 +191,7 @@ __device__ __forceinline__ void add_terms(Coef coef, int lo, int hi,
 template <int DEG, bool WITH_GRAD>
 __device__ __forceinline__ void sum_row(double* tile,
                                         const double* const* slot_row,
-                                        hpsdf::WarpSlots ws, bool staged,
+                                        WarpSlots ws, bool staged,
                                         const double* row,
                                         Leaf<DEG, WITH_GRAD>& lf) {
   using S = Shape<DEG>;
@@ -139,10 +202,9 @@ __device__ __forceinline__ void sum_row(double* tile,
         const int m0 = ch * kChunk;
         if (ch > 0) {
           __syncwarp();                       // the warp is done with ch - 1
-          hpsdf::stage_rows<S::kStride>(tile, slot_row, ws.n, m0,
-                                        S::kC - m0);
+          stage_rows<S::kStride>(tile, slot_row, ws.n, m0, S::kC - m0);
         }
-        hpsdf::stage_wait();
+        stage_wait();
         const double* cs = tile + ws.slot * S::kStride - m0;
         add_terms([&](int m) { return cs[m]; }, m0, min(m0 + kChunk, S::kC),
                   lf);
@@ -158,10 +220,10 @@ __device__ __forceinline__ void sum_row(double* tile,
       if (staged) {
         if (ch > 0) {
           __syncwarp();
-          hpsdf::stage_rows<S::kStride>(tile, slot_row, ws.n, m0,
-                                        min(kChunk, S::kC - m0));
+          stage_rows<S::kStride>(tile, slot_row, ws.n, m0,
+                                 min(kChunk, S::kC - m0));
         }
-        hpsdf::stage_wait();
+        stage_wait();
         cs = tile + ws.slot * S::kStride - m0;
       }
       add_terms([&](int m) { return cs[m]; }, m0, m0 + kChunk, lf);
@@ -178,8 +240,7 @@ query_kernel(const int32_t* __restrict__ child_idx,
              const double* __restrict__ pts, int64_t B,
              double rc0, double rc1, double rc2,
              double inv0, double inv1, double inv2, int outside_max,
-             int stage_min, double* __restrict__ val,
-             double* __restrict__ grad) {
+             double* __restrict__ val, double* __restrict__ grad) {
   using S = Shape<DEG>;
   __shared__ double tiles[kWarps][32 * S::kStride];
   __shared__ const double* slot_rows[kWarps][32];
@@ -208,11 +269,10 @@ query_kernel(const int32_t* __restrict__ child_idx,
 
   const double* row = coeffs + (int64_t)cur * S::kC;
   const int warp = threadIdx.x >> 5;
-  const hpsdf::WarpSlots ws = hpsdf::warp_slots(row, slot_rows[warp]);
-  const bool staged = ws.n > stage_min;
+  const WarpSlots ws = warp_slots(row, slot_rows[warp]);
+  const bool staged = ws.n > kStageMin;
   if (staged)
-    hpsdf::stage_rows<S::kStride>(tiles[warp], slot_rows[warp], ws.n, 0,
-                                  S::kTile);
+    stage_rows<S::kStride>(tiles[warp], slot_rows[warp], ws.n, 0, S::kTile);
   // the leaf frame and the recurrences while the rows arrive
   const int d = __ldg(depth + cur);
   double cc[3];
@@ -251,146 +311,9 @@ query_kernel(const int32_t* __restrict__ child_idx,
   }
 }
 
-// The form before this design (timing only): runtime degree, index and
-// norm tables read from device memory.
-template <bool WITH_GRAD>
-__global__ void __launch_bounds__(kThreads)
-query_old(const int32_t* __restrict__ child_idx,
-          const double* __restrict__ centre,
-          const int32_t* __restrict__ depth,
-          const double* __restrict__ coeffs, int C,
-          const double* __restrict__ norms,
-          const int32_t* __restrict__ bidx,
-          int deg, int depth_used,
-          const double* __restrict__ pts, int64_t B,
-          double rc0, double rc1, double rc2,
-          double inv0, double inv1, double inv2, int outside_max,
-          double* __restrict__ val, double* __restrict__ grad) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const double rc[3] = {rc0, rc1, rc2};
-  const double inv[3] = {inv0, inv1, inv2};
-  double u[3];
-  bool inside = true;
-  for (int a = 0; a < 3; ++a) {
-    const double w = (pts[3 * i + a] - rc[a]) * inv[a];
-    inside = inside && fabs(w) <= 0.5;
-    u[a] = w < -0.5 ? -0.5 : (w > 0.5 ? 0.5 : w);
-  }
-  int cur = 0;
-  for (int r = 0; r < depth_used; ++r) {
-    const int c0 = child_idx[cur];
-    if (c0 < 0) break;
-    const double* cc = centre + 3 * (int64_t)cur;
-    cur = c0 + (u[0] >= cc[0]) + ((u[1] >= cc[1]) << 1) +
-          ((u[2] >= cc[2]) << 2);
-  }
-  const int d = depth[cur];
-  const double scale = ldexp(1.0, d + 1);
-  double L[3][kMaxDeg + 1];
-  double dL[3][kMaxDeg + 1];
-  for (int a = 0; a < 3; ++a) {
-    const double x = (u[a] - centre[3 * (int64_t)cur + a]) * scale;
-    L[a][0] = 1.0;
-    if (deg >= 1) L[a][1] = x;
-    for (int p = 2; p <= deg; ++p)
-      L[a][p] = ((2.0 * p - 1.0) / p) * x * L[a][p - 1] -
-                ((p - 1.0) / p) * L[a][p - 2];
-    if constexpr (WITH_GRAD) {
-      dL[a][0] = 0.0;
-      if (deg >= 1) dL[a][1] = 1.0;
-      for (int p = 2; p <= deg; ++p)
-        dL[a][p] = dL[a][p - 2] + (2.0 * p - 1.0) * L[a][p - 1];
-    }
-  }
-  const double* co = coeffs + (int64_t)cur * C;
-  const double* nr = norms + (int64_t)d * C;
-  double v = 0.0, gx = 0.0, gy = 0.0, gz = 0.0;
-  for (int m = 0; m < C; ++m) {
-    const int ix = bidx[3 * m], iy = bidx[3 * m + 1], iz = bidx[3 * m + 2];
-    const double lx = L[0][ix], ly = L[1][iy], lz = L[2][iz];
-    if constexpr (WITH_GRAD) {
-      const double cn = co[m] * nr[m];
-      v += cn * lx * ly * lz;
-      gx += cn * dL[0][ix] * ly * lz;
-      gy += cn * lx * dL[1][iy] * lz;
-      gz += cn * lx * ly * dL[2][iz];
-    } else {
-      v += co[m] * lx * ly * lz * nr[m];
-    }
-  }
-  val[i] = (outside_max && !inside) ? DBL_MAX : v;
-  if constexpr (WITH_GRAD) {
-    const double g0 = gx * scale * inv0;
-    const double g1 = gy * scale * inv1;
-    const double g2 = gz * scale * inv2;
-    const double nrm = sqrt(g0 * g0 + g1 * g1 + g2 * g2);
-    const double den = nrm > 1e-30 ? nrm : 1e-30;
-    grad[3 * i] = g0 / den;
-    grad[3 * i + 1] = g1 / den;
-    grad[3 * i + 2] = g2 / den;
-  }
-}
-
 }  // namespace
 
-// Timing only: the old form, with its tables.
-extern "C" int hpsdf_query_old(const int32_t* child_idx, const double* centre,
-                               const int32_t* depth, const double* coeffs,
-                               int C, const double* norms, const int32_t* bidx,
-                               int deg, int depth_used, const double* pts,
-                               int64_t B, double rc0, double rc1, double rc2,
-                               double inv0, double inv1, double inv2,
-                               int outside_max, double* val, double* grad,
-                               void* stream) {
-  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (grad != nullptr)
-    query_old<true><<<blocks, kThreads, 0, s>>>(
-        child_idx, centre, depth, coeffs, C, norms, bidx, deg, depth_used,
-        pts, B, rc0, rc1, rc2, inv0, inv1, inv2, outside_max, val, grad);
-  else
-    query_old<false><<<blocks, kThreads, 0, s>>>(
-        child_idx, centre, depth, coeffs, C, norms, bidx, deg, depth_used,
-        pts, B, rc0, rc1, rc2, inv0, inv1, inv2, outside_max, val, grad);
-  return (int)cudaGetLastError();
-}
-
-// Timing only: the warp stages its rows when it holds more than stage_min
-// distinct ones (32: never); carveout: the shared memory share preferred
-// (cudaFuncAttributePreferredSharedMemoryCarveout, -1 the default).
 // grad == nullptr selects the value-only instantiation.
-extern "C" int hpsdf_query_form(const int32_t* child_idx,
-                                const double* centre, const int32_t* depth,
-                                const double* coeffs, int deg, int depth_used,
-                                const double* pts, int64_t B, double rc0,
-                                double rc1, double rc2, double inv0,
-                                double inv1, double inv2, int outside_max,
-                                int stage_min, int carveout, double* val,
-                                double* grad, void* stream) {
-  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
-  cudaStream_t s = (cudaStream_t)stream;
-#define HPSDF_ARGS                                                          \
-  child_idx, centre, depth, coeffs, depth_used, pts, B, rc0, rc1, rc2, inv0, \
-      inv1, inv2, outside_max, stage_min, val, grad
-#define HPSDF_LAUNCH(D)                                                      \
-  if (grad != nullptr) {                                                     \
-    cudaFuncSetAttribute(query_kernel<D, true>,                              \
-                         cudaFuncAttributePreferredSharedMemoryCarveout,     \
-                         carveout);                                          \
-    query_kernel<D, true><<<blocks, kThreads, 0, s>>>(HPSDF_ARGS);           \
-  } else {                                                                   \
-    cudaFuncSetAttribute(query_kernel<D, false>,                             \
-                         cudaFuncAttributePreferredSharedMemoryCarveout,     \
-                         carveout);                                          \
-    query_kernel<D, false><<<blocks, kThreads, 0, s>>>(HPSDF_ARGS);          \
-  }
-  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
-#undef HPSDF_LAUNCH
-#undef HPSDF_ARGS
-  return (int)cudaGetLastError();
-}
-
 extern "C" int hpsdf_query(const int32_t* child_idx, const double* centre,
                            const int32_t* depth, const double* coeffs,
                            int deg, int depth_used, const double* pts,
@@ -398,7 +321,25 @@ extern "C" int hpsdf_query(const int32_t* child_idx, const double* centre,
                            double inv0, double inv1, double inv2,
                            int outside_max, double* val, double* grad,
                            void* stream) {
-  return hpsdf_query_form(child_idx, centre, depth, coeffs, deg, depth_used,
-                          pts, B, rc0, rc1, rc2, inv0, inv1, inv2,
-                          outside_max, 8, 75, val, grad, stream);
+  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+#define HPSDF_ARGS                                                          \
+  child_idx, centre, depth, coeffs, depth_used, pts, B, rc0, rc1, rc2, inv0, \
+      inv1, inv2, outside_max, val, grad
+#define HPSDF_LAUNCH(D)                                                      \
+  if (grad != nullptr) {                                                     \
+    cudaFuncSetAttribute(query_kernel<D, true>,                              \
+                         cudaFuncAttributePreferredSharedMemoryCarveout,     \
+                         kCarveout);                                         \
+    query_kernel<D, true><<<blocks, kThreads, 0, s>>>(HPSDF_ARGS);           \
+  } else {                                                                   \
+    cudaFuncSetAttribute(query_kernel<D, false>,                             \
+                         cudaFuncAttributePreferredSharedMemoryCarveout,     \
+                         kCarveout);                                         \
+    query_kernel<D, false><<<blocks, kThreads, 0, s>>>(HPSDF_ARGS);          \
+  }
+  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
+#undef HPSDF_LAUNCH
+#undef HPSDF_ARGS
+  return (int)cudaGetLastError();
 }

@@ -10,6 +10,7 @@ non-negative terms. Reads are f32 in both packages and agree to 1e-6 on
 v / max(1, |v|), with the outside sentinel at the same positions.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -187,6 +188,21 @@ def test_kernel_sources_and_build_key(tmp_path, monkeypatch):
     hdr.write_text("// changed\n")
     monkeypatch.setattr(_kernels, "headers", lambda: [str(hdr)])
     assert _kernels.library_path() != key
+
+
+def test_packed_eval_refuses_unaligned_rows():
+    """K2 reads rows in 16-byte loads: the wrapper refuses tables whose rows
+    are not 16-byte aligned before it looks at the device."""
+    tree = T.build_octree(T.Config(target_error=1e-3, continuity=False,
+                                   max_depth=4, max_degree=2),
+                          lambda p: torch.linalg.norm(p, dim=-1) - 0.3,
+                          device="cpu")
+    pt = TA.pack_tree(tree)
+    shifted = torch.zeros(pt.rows.numel() + 1)[1:].view(pt.rows.shape)
+    pts = torch.zeros((4, 3), dtype=torch.float32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TA.packed_eval_kernel(dataclasses.replace(pt, rows=shifted), pts,
+                              with_grad=False)
 
 
 @pytest.mark.parametrize("wrapper", ["packed_eval", "march", "row_gather"])

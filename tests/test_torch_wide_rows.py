@@ -23,7 +23,7 @@ from hpsdf_tpu import tree as JT
 import hpsdf_tpu_torch as T
 from hpsdf_tpu_torch import accel as TA
 
-from chip_smoke import SYNTH_ROOT, synthetic_tree
+import chip_smoke
 
 from .test_torch_query import few_torch_threads, port_config  # noqa: F401
 
@@ -37,9 +37,9 @@ _ARRAYS = ("child_idx", "centre", "depth", "degree", "coeffs")
 @pytest.fixture(scope="module", params=DEGREES, ids=lambda d: f"deg{d}")
 def trees(request):
     deg = request.param
-    cfg = hp.Config(continuity=False, root_min=SYNTH_ROOT[0],
-                    root_max=SYNTH_ROOT[1])
-    jt = JT.pack(*synthetic_tree(deg, seed=deg), cfg)
+    cfg = hp.Config(continuity=False, root_min=chip_smoke.SYNTH_ROOT[0],
+                    root_max=chip_smoke.SYNTH_ROOT[1])
+    jt = JT.pack(*chip_smoke.synthetic_tree(deg, seed=deg), cfg)
     tt = T.from_numpy({k: np.asarray(getattr(jt, k)) for k in _ARRAYS},
                       jt.n_nodes, jt.deg_used, jt.depth_used,
                       port_config(cfg), device="cpu")
@@ -102,3 +102,36 @@ def test_wide_rows(trees, read):
                                    atol=K1_ATOL)
         np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=0,
                                    atol=K1_ATOL)
+
+
+def _ptxas_entry(kernel, deg, grad, stack=0, regs=56):
+    name = (f"_ZN40_GLOBAL__N__1f67f1e9_8_query_cu_1d77935312{kernel}ILi"
+            f"{deg}ELb{int(grad)}EEEvPKiPKdS2_S4_iS4_lddddddiPdS5_")
+    return (f"ptxas info    : Compiling entry function '{name}' for "
+            f"'sm_90a'\nptxas info    : Function properties for {name}\n"
+            f"    {stack} bytes stack frame, {stack} bytes spill stores, "
+            f"{stack} bytes spill loads\nptxas info    : Used {regs} "
+            f"registers, used 0 barriers, 22528 bytes smem\n")
+
+
+@pytest.mark.parametrize("spill", [False, True], ids=["clean", "spills"])
+def test_ptxas_check(monkeypatch, spill):
+    """chip_smoke.ptxas_check reads K1's and K2/K5's instantiations from
+    ptxas's report (the lines -Xptxas -v prints) and fails when K1 at
+    degree 3 or 5 has a stack frame or spills."""
+    from hpsdf_tpu_torch import _kernels
+
+    report = "".join(
+        _ptxas_entry("query_kernel", d, g, stack=8 if spill and d == 5 else 0)
+        for d in (3, 5, 12) for g in (False, True))
+    report += _ptxas_entry("packed_eval_kernel", 3, False, regs=32)
+    monkeypatch.setattr(_kernels, "ptxas_report", lambda: report)
+    if spill:
+        with pytest.raises(RuntimeError, match="K1 5/values"):
+            chip_smoke.ptxas_check()
+        return
+    found = chip_smoke.ptxas_check()
+    assert found["query_kernel"]["3/grad"] == [56, 0, 0, 0]
+    assert set(found["query_kernel"]) == {f"{d}/{k}" for d in (3, 5, 12)
+                                          for k in ("values", "grad")}
+    assert found["packed_eval_kernel"] == {"3/values": [32, 0, 0, 0]}
