@@ -587,6 +587,109 @@ def phase_k2(pt, name, sphere, seed=5):
     return max(v_err, c_err), dot_min, t
 
 
+def march_reference(pt, origins, dirs, t_max, hit_eps, max_steps,
+                    step_cap=None, omega=None, lo=None):
+    """K3 as it was before its redesign (csrc/check/march_reference.cu, a
+    library of its own, on no path of the package), called as march_kernel
+    is. Returns (t, hit, kk)."""
+    from hpsdf_tpu_torch import _kernels
+    from hpsdf_tpu_torch.render import OMEGA, _inner_steps_for, _root_box
+
+    omega = OMEGA if omega is None else omega
+    dev = origins.device
+    origins, dirs = origins.contiguous(), dirs.contiguous()
+    B = origins.shape[0]
+    t = torch.empty(B, dtype=torch.float32, device=dev)
+    hit = torch.empty(B, dtype=torch.bool, device=dev)
+    kk = torch.zeros(2, dtype=torch.int32, device=dev)
+    rc, half = _root_box(pt)
+    inv = (1.0 / np.asarray(pt.root_sizes)).astype(np.float32)
+    box = [*(rc - half), *(rc + half), *rc, *inv]
+    relax_on = omega > 1.0 and step_cap is None
+    rc_ = _kernels.load_check().hpsdf_march_reference(
+        pt.grid.data_ptr(), pt.rows.data_ptr(), pt.width, pt.deg_used,
+        None if lo is None else lo[0].data_ptr(),
+        None if lo is None else lo[1].data_ptr(),
+        pt.grid_depth, pt.extra_rounds, _inner_steps_for(pt),
+        origins.data_ptr(), dirs.data_ptr(), B, *map(float, box),
+        float(np.float32(t_max)), float(np.float32(hit_eps)), int(max_steps),
+        float(np.float32(0.0 if step_cap is None else step_cap)),
+        int(step_cap is not None), float(np.float32(omega)), int(relax_on),
+        t.data_ptr(), hit.data_ptr(), kk.data_ptr(),
+        _kernels.stream_of(origins))
+    _kernels.check(_kernels.load(), rc_, "march_reference")
+    return t, hit, kk
+
+
+def check_k3_exact(args, kw, label, **form):
+    """The shipped K3 against the kernel it replaced, on the same inputs:
+    t, hit and kk bit for bit. Returns the shipped kernel's (t, hit, kk)."""
+    from hpsdf_tpu_torch.render import march_kernel
+
+    got = march_kernel(*args, **kw, **form)
+    want = march_reference(*args, **kw)
+    sync()
+    for g, w, what in zip(got, want, ("t", "hit", "kk")):
+        check(bool(torch.equal(g, w)),
+              f"K3 vs the kernel it replaced, {what} at {label}: "
+              f"{int((g != w).sum())} of {g.numel()} differ")
+    return got
+
+
+def k3_ops(deg, lo=False):
+    """f32 operations a step of K3 (csrc/march.cu), an FMA counted as two:
+    the ray's point and its leaf frame with the in-leaf test (24), three
+    Legendre recurrences (12 (deg - 1)), C terms of one multiply and one
+    FMA over the T = (deg+1)(deg+2)/2 pair products L_i(x) L_j(y), and the
+    step logic (18: the safe and relaxed advance, the overlap, hit and
+    escape tests, the rollback); an LOD step is a degree-2 step with the
+    error bound taken off (2 more)."""
+    if lo:
+        return k3_ops(2) + 2
+    C = (deg + 1) * (deg + 2) * (deg + 3) // 6
+    T = (deg + 1) * (deg + 2) // 2
+    return 24 + 12 * max(deg - 1, 0) + 3 * C + T + 18
+
+
+def simt_efficiency(work, width, tile):
+    """Sum of the rays' work over 32 x the sum of each warp's largest, with
+    a warp on a `tile` = (tw, th) block of pixels of an image `width` wide
+    (tw th = 32; (32, 1) is index order)."""
+    tw, th = tile
+    w = work.reshape(-1, th, width // tw, tw).permute(0, 2, 1, 3)
+    w = w.reshape(-1, 32).double()
+    return float(w.sum() / (32.0 * w.max(dim=1).values.sum()))
+
+
+def k3_stats(stats, width, deg):
+    """What the rays of a march did, from K3's per-ray counts (render.STATS):
+    steps, relocations that found the row the ray held, the SIMT efficiency
+    of 32x1 strips and 8x4 tiles, and the f32 operations of these steps."""
+    st = stats.long()
+    steps = st[:, 0] + st[:, 1]
+    relocs = st[:, 2] + st[:, 3]
+    edges = [0, 1, 5, 9, 17, 33, 65, 129, 1 << 30]
+    hist = [int(((steps >= lo) & (steps < hi)).sum())
+            for lo, hi in zip(edges[:-1], edges[1:])]
+    out = {
+        "steps": int(steps.sum()), "steps_lo": int(st[:, 0].sum()),
+        "steps_full": int(st[:, 1].sum()),
+        "steps_mean": float(steps.double().mean()),
+        "steps_max": int(steps.max()),
+        "steps_hist_0_1_5_9_17_33_65_129": hist,
+        "relocations": int(relocs.sum()),
+        "kept_share": float((st[:, 4] + st[:, 5]).sum()) / float(relocs.sum()),
+        "longest_ray": int(torch.argmax(relocs)),
+        "longest_rounds": int(relocs.max()),
+        "ops": int(st[:, 0].sum()) * k3_ops(deg, lo=True)
+        + int(st[:, 1].sum()) * k3_ops(deg),
+    }
+    for key, work in (("steps", steps), ("rounds", relocs)):
+        out[f"simt_strips_by_{key}"] = simt_efficiency(work, width, (32, 1))
+        out[f"simt_tiles_by_{key}"] = simt_efficiency(work, width, (8, 4))
+    return out
+
+
 def phase_k3(pt, name, sphere, lod_expected):
     """K3 against the plain march at 1024^2 rays from (0, 0, -1.8), T_MAX 5
     (bench.py's protocol), and at every 4th of those rays with omega 1 and

@@ -45,13 +45,21 @@ _SIGNATURES = {
     "hpsdf_packed_eval": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
                           _F32, _F32, _F32, _F32, _F32, _F32,
                           _F32, _F32, _F32, _I32, _I32, _P, _P),
-    "hpsdf_march": (_P, _P, _I32, _I32, _P, _P, _I32, _I32, _I32, _P, _P,
-                    _I64, *(_F32,) * 12, _F32, _F32, _I32, _F32, _I32, _F32,
-                    _I32, _P, _P, _P, _P),
+    "hpsdf_march": (_P, _P, _I32, _I32, _P, _P, _I32, _I32, _I32, _P, _I64,
+                    _P, _I64, _P, _F32, _F32, _I32, _F32, _I32, _F32, _I32,
+                    _P, _P, _P, _P, _I32, _I32, _I32, _P, _P),
+}
+# and of the reference kernels under csrc/check/, which only checks load
+_CHECK_SIGNATURES = {
+    "hpsdf_march_reference": (_P, _P, _I32, _I32, _P, _P, _I32, _I32, _I32,
+                              _P, _P, _I64, *(_F32,) * 12, _F32, _F32, _I32,
+                              _F32, _I32, _F32, _I32, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_check_lock = threading.Lock()
+_check_lib: ctypes.CDLL | None = None
 
 
 def _nvcc() -> str:
@@ -66,31 +74,32 @@ def _nvcc() -> str:
         "hpsdf_tpu_torch kernels for CUDA tensors")
 
 
-def sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+def sources(sub: str = "") -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, sub, "*.cu")))
 
 
 def headers() -> list[str]:
     return sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
 
 
-def library_path() -> str:
+def library_path(sub: str = "") -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources() + headers():
+    for src in sources(sub) + headers():
         with open(src, "rb") as fh:
             h.update(os.path.basename(src).encode() + b"\0" + fh.read())
-    return os.path.join(BUILD_DIR, f"libhpsdf_kernels_{h.hexdigest()[:16]}.so")
+    return os.path.join(
+        BUILD_DIR, f"libhpsdf_{sub or 'kernels'}_{h.hexdigest()[:16]}.so")
 
 
-def _build(path: str) -> None:
+def _build(path: str, sub: str = "") -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     # build to a private name, then rename: a concurrent loader never sees a
     # half-written library
     tmp = f"{path}.tmp{os.getpid()}"
     nvcc = _nvcc()
-    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources(sub)]
     jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
-            for src, obj in zip(sources(), objs)]
+            for src, obj in zip(sources(sub), objs)]
     try:
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.PIPE, text=True)
@@ -122,23 +131,39 @@ def ptxas_report() -> str:
         return fh.read()
 
 
+def _load(sub: str, signatures: dict) -> ctypes.CDLL:
+    path = library_path(sub)
+    if not os.path.exists(path):
+        _build(path, sub)
+    lib = ctypes.CDLL(path)
+    for name, args in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, compiled on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            path = library_path()
-            if not os.path.exists(path):
-                _build(path)
-            lib = ctypes.CDLL(path)
-            for name, args in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(args)
-                fn.restype = ctypes.c_int
+            lib = _load("", _SIGNATURES)
             lib.hpsdf_error_string.argtypes = [ctypes.c_int]
             lib.hpsdf_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def load_check() -> ctypes.CDLL:
+    """The reference kernels of ``csrc/check/``, a library of its own that
+    no path of the package loads: earlier forms kept so that a check can
+    hold the shipped kernel to them bit for bit."""
+    global _check_lib
+    with _check_lock:
+        if _check_lib is None:
+            _check_lib = _load("check", _CHECK_SIGNATURES)
+        return _check_lib
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -1,15 +1,13 @@
-// K3: the sphere-tracing march, one thread per ray, both phases in one
-// launch, in f32.
+// K3: the sphere-tracing march, both phases in one launch, in f32.
 //
 // Replaces what XLA fused for hpsdf_tpu/render.py _march_block (:649-919)
 // without its resume machinery (init / outer_cap / return_state, which serve
 // only the compacted lockstep schedule). The plain torch version is
 // _march_block in hpsdf_tpu_torch/render.py, a masked lockstep loop over the
-// whole batch; this kernel gives each ray its own loop, which yields the same
-// per-ray result: a lockstep lane that is frozen (active but out of its leaf)
-// changes nothing until the next relocation, so a thread that ends the
-// relocation round early and relocates at once computes what the lane does.
-// Per ray:
+// whole batch; here each ray runs its own loop, which yields the same per-ray
+// result: a lockstep lane that is frozen (active but out of its leaf) changes
+// nothing until the next relocation, so a ray that ends the relocation round
+// early and relocates at once computes what the lane does. Per ray:
 //   * the slab test against the root AABB, t from max(t_near, 0), and the
 //     exit plane t_end = min(t_far, t_max);
 //   * the unit-space ray uo + t * udir, clamped (render.py:743-746);
@@ -25,15 +23,21 @@
 //   * kk = [max phase-1 rounds, max phase-2 rounds] over the batch, which is
 //     the single lockstep block's round counts.
 //
-// Bound. Each relocation reads a grid row plus `extra` rows, and each step
-// reads the row's C coefficients (10 + err in phase 1). The row tables are a
-// few MB (4,809 x 64 x 4 B = 1.2 MB for the reference-default tree) and stay
-// in the 50 MB L2, so the march is bound by dependent-load latency and by
-// divergence between the rays of a warp, not by device memory. The design
-// carries each ray's row pointer and leaf frame (scale, centre) in registers,
-// not the row itself (at degree 12 a row is 464 lanes), reads coefficients
-// through the read-only cache, and keeps the Legendre recurrences in
-// registers by making the degree a template parameter.
+// Bound. The row tables are a few MB and stay in the 50 MB L2, so device
+// memory is not what bounds the march. Its work is its rays' steps: a chain
+// of dependent operations a step (locate -> row -> value -> next t), a few
+// hundred f32 operations each, and a ray's chain is serial. What the design
+// does about it:
+//   * a row reaches the registers in 16-byte loads (the leaf frame as one
+//     float4 and one scalar, the coefficients as float4s), and stays there
+//     while the ray stays in the leaf: the locate runs at every relocation
+//     with the same arithmetic, only the reload is skipped when it returns
+//     the row already held. Rows wider than kMaxHeld coefficient lanes
+//     (degree >= 6) keep the frame and read a coefficient a term;
+//   * FORMS (development state): 0 = one thread a ray in index order; 1 = one
+//     thread a ray, a warp mapped to an 8x4 pixel tile of an image `width`
+//     wide; 2 = persistent warps that draw rays from a global counter and
+//     refill their finished lanes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,9 +48,13 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMaxHeld = 64;        // coefficient lanes kept in registers
 constexpr int kLoW = 32;            // accel.LO_W
-constexpr int kLoErrLane = 18;      // accel.LO_ERR_LANE
+constexpr int kLoHeld = 12;         // LOD lanes 8..19: 10 coefficients, err
+constexpr int kLoErr = 10;          // accel.LO_ERR_LANE - COEFF_LANE
 constexpr int kInnerStepsLo = 3;    // render.INNER_STEPS_LO
+constexpr int kChunk = 128;         // rays a persistent warp draws at once
+constexpr int kStats = 6;           // per-ray counts (render.STATS)
 constexpr float kStepScale = 0.95f;
 constexpr float kMinStep = 1e-4f;
 constexpr float kLeafTol = 1.00001f;
@@ -58,27 +66,91 @@ struct Ray {
   float t, t_end;
 };
 
-struct Leaf {
-  const float* row;
-  float scale, c[3];
+struct Stepper {
+  float omega, step_cap, hit_eps;
+  int max_steps;
+  bool relax_on, use_cap;
 };
 
-__device__ __forceinline__ Leaf relocate(const Ray& r, const float* grid,
-                                         const float* rows, int W, int gd,
-                                         int extra) {
-  float u[3];
+// What every ray of a launch shares.
+struct Scene {
+  const float* grid;
+  const float* rows;
+  const float* lo_grid;             // nullptr: no LOD phase
+  const float* lo_rows;
+  int W, gd, extra, inner_steps;
+  float bmin[3], bmax[3], rc[3], inv[3];
+  float t_max;
+  Stepper s;
+  bool keep;                        // rows stay held across relocations
+};
+
+struct Rays {
+  const float* origins;
+  int64_t origin_stride;            // 3, or 0 for one shared origin
+  const float* dirs;
+  int64_t B;
+  float* t_out;
+  uint8_t* hit_out;
+  int* stats;                       // nullptr: off; else (B, kStats) counts
+};
+
+// Relaxation state of one ray: whether it still over-relaxes, and the
+// pending relaxed step (its advance, 0 for none, and the value before it).
+struct Relax {
+  bool on;
+  float adv_p, v_p;
+};
+
+// The row a ray holds: its pointer, the leaf frame and, for rows of at most
+// kMaxHeld coefficient lanes, the coefficients.
+template <int DEG>
+struct Held {
+  static constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
+  static constexpr int kQuads = (kC + 3) / 4;
+  static constexpr bool kInRegs = 4 * kQuads <= kMaxHeld;
+  static constexpr int kN =
+      kInRegs && 4 * kQuads > kLoHeld ? 4 * kQuads : kLoHeld;
+  const float* row;
+  float scale, c[3];
+  float coef[kN];
+};
+
+template <int QUADS, int N>
+__device__ __forceinline__ void load_quads(const float* __restrict__ row,
+                                           float (&coef)[N]) {
+  const float4* src = reinterpret_cast<const float4*>(row + hpsdf::kCoeffLane);
 #pragma unroll
-  for (int a = 0; a < 3; ++a) u[a] = hpsdf::clamp_half(r.uo[a] + r.t * r.ud[a]);
-  Leaf f;
-  f.row = hpsdf::locate_row(grid, rows, W, gd, extra, u);
-  f.scale = __ldg(f.row + 1);
-#pragma unroll
-  for (int a = 0; a < 3; ++a) f.c[a] = __ldg(f.row + 2 + a);
-  return f;
+  for (int q = 0; q < QUADS; ++q) {
+    const float4 f = __ldg(src + q);
+    coef[4 * q] = f.x, coef[4 * q + 1] = f.y, coef[4 * q + 2] = f.z,
+             coef[4 * q + 3] = f.w;
+  }
 }
 
-// The ray's point in the leaf's [-1, 1]^3 frame; false once it left the leaf.
-__device__ __forceinline__ bool leaf_local(const Ray& r, const Leaf& f,
+// Hold `row`: a reload only when it is not the row held (`keep` off: always;
+// timing only). LO: an LOD row. Returns whether it was the row held.
+template <int DEG, bool LO>
+__device__ __forceinline__ bool hold(Held<DEG>& h, const float* row,
+                                     bool keep) {
+  if (row == h.row && keep) return true;
+  const bool same = row == h.row;
+  const float4 m = __ldg(reinterpret_cast<const float4*>(row));
+  h.row = row;
+  h.scale = m.y;
+  h.c[0] = m.z, h.c[1] = m.w, h.c[2] = __ldg(row + 4);
+  if constexpr (LO) {
+    load_quads<kLoHeld / 4>(row, h.coef);
+  } else if constexpr (Held<DEG>::kInRegs) {
+    load_quads<Held<DEG>::kQuads>(row, h.coef);
+  }
+  return same;
+}
+
+// The ray's point in the held leaf's [-1, 1]^3 frame; false once it left
+// the leaf.
+template <int DEG>
+__device__ __forceinline__ bool leaf_local(const Ray& r, const Held<DEG>& f,
                                            float local[3]) {
   bool in_leaf = true;
 #pragma unroll
@@ -90,18 +162,28 @@ __device__ __forceinline__ bool leaf_local(const Ray& r, const Leaf& f,
   return in_leaf;
 }
 
-struct Stepper {
-  float omega, step_cap, hit_eps;
-  int max_steps;
-  bool relax_on, use_cap;
-};
-
-// Relaxation state of one ray: whether it still over-relaxes, and the
-// pending relaxed step (its advance, 0 for none, and the value before it).
-struct Relax {
-  bool on;
-  float adv_p, v_p;
-};
+// Value of the held row at `local`: sum_m coef[m] Lx[i_m] Ly[j_m] Lz[k_m] in
+// basis order. EDEG is the degree evaluated (2 on an LOD row).
+template <int EDEG, bool IN_REGS, int DEG>
+__device__ __forceinline__ float eval_held(const Held<DEG>& h,
+                                           const float local[3]) {
+  float Lx[EDEG + 1], Ly[EDEG + 1], Lz[EDEG + 1];
+  hpsdf::legendre<EDEG>(local[0], Lx);
+  hpsdf::legendre<EDEG>(local[1], Ly);
+  hpsdf::legendre<EDEG>(local[2], Lz);
+  float v = 0.0f;
+  if constexpr (IN_REGS) {
+    hpsdf::for_each_term<EDEG>([&](int m, int i, int j, int k) {
+      v += h.coef[m] * (Lx[i] * Ly[j] * Lz[k]);
+    });
+  } else {
+    const float* coef = h.row + hpsdf::kCoeffLane;
+    hpsdf::for_each_term<EDEG>([&](int m, int i, int j, int k) {
+      v += __ldg(coef + m) * (Lx[i] * Ly[j] * Lz[k]);
+    });
+  }
+  return v;
+}
 
 // One step of a ray that is in its leaf and neither hit nor handed off:
 // advance by the (possibly relaxed, rolled back or capped) step. Returns
@@ -131,96 +213,134 @@ __device__ __forceinline__ bool take_step(Ray& r, Relax& x, int& nsteps,
   return !escaped && nsteps < s.max_steps;
 }
 
+// One ray's march state.
 template <int DEG>
-__global__ void __launch_bounds__(kThreads)
-march_kernel(const float* __restrict__ grid, const float* __restrict__ rows,
-             int W, const float* __restrict__ lo_grid,
-             const float* __restrict__ lo_rows, int gd, int extra,
-             int inner_steps, const float* __restrict__ origins,
-             const float* __restrict__ dirs, int64_t B, float bmin0,
-             float bmin1, float bmin2, float bmax0, float bmax1, float bmax2,
-             float rc0, float rc1, float rc2, float inv0, float inv1,
-             float inv2, float t_max, Stepper s, float* __restrict__ t_out,
-             uint8_t* __restrict__ hit_out, int* __restrict__ kk) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int k_lo = 0, k_full = 0;
-  if (i < B) {
-    const float bmin[3] = {bmin0, bmin1, bmin2};
-    const float bmax[3] = {bmax0, bmax1, bmax2};
-    const float rc[3] = {rc0, rc1, rc2};
-    const float inv[3] = {inv0, inv1, inv2};
-    Ray r;
+struct Lane {
+  Ray r;
+  Relax x;
+  Held<DEG> h;
+  int64_t i;                        // the ray's index
+  int nsteps, k_lo, k_full, kept;   // kept: relocations that found h.row
+  bool active, hit, need_full;
+
+  __device__ __forceinline__ void start(const Scene& sc, const Rays& ry,
+                                        int64_t ray) {
+    i = ray;
     float t_near = -INFINITY, t_far = INFINITY;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      const float o = origins[3 * i + a], d = dirs[3 * i + a];
+      const float o = ry.origins[ry.origin_stride * i + a];
+      const float d = ry.dirs[3 * i + a];
       const float id = 1.0f / d;
-      const float lo = (bmin[a] - o) * id, hi = (bmax[a] - o) * id;
+      const float lo = (sc.bmin[a] - o) * id, hi = (sc.bmax[a] - o) * id;
       t_near = fmaxf(t_near, fminf(lo, hi));
       t_far = fminf(t_far, fmaxf(lo, hi));
-      r.uo[a] = (o - rc[a]) * inv[a];
-      r.ud[a] = d * inv[a];
+      r.uo[a] = (o - sc.rc[a]) * sc.inv[a];
+      r.ud[a] = d * sc.inv[a];
     }
     const bool hits_box = t_far >= fmaxf(t_near, 0.0f);
-    r.t_end = fminf(t_far, t_max);
+    r.t_end = fminf(t_far, sc.t_max);
     r.t = fmaxf(t_near, 0.0f);
-    bool active = hits_box && r.t <= r.t_end;
-    bool hit = false;
-    int nsteps = 0;
-    float local[3];
-
-    if (lo_grid != nullptr) {
-      // phase 1: far field on the LOD rows
-      const float handoff = kLodHandoff * s.hit_eps;
-      Relax x{s.relax_on, 0.0f, 0.0f};
-      bool need_full = false;
-      while (active && k_lo < s.max_steps) {
-        const Leaf f = relocate(r, lo_grid, lo_rows, kLoW, gd, extra);
-        const float err = __ldg(f.row + kLoErrLane);
-        for (int st = 0; st < kInnerStepsLo && active; ++st) {
-          if (!leaf_local(r, f, local)) break;        // frozen until relocated
-          const float v_lo = hpsdf::eval_local<2>(f.row, local);
-          const float v = v_lo - err;                 // lower bound on f
-          // overlap radii must lower-bound |f|: relu(|v_lo| - err)
-          const bool over = s.relax_on && x.on && x.adv_p > 0.0f &&
-                            (x.v_p + fmaxf(fabsf(v_lo) - err, 0.0f) <
-                             x.adv_p * kOverlapSlack);
-          if (!over && v < handoff) {
-            need_full = true;
-            active = false;
-            break;
-          }
-          active = take_step(r, x, nsteps, v, over, s);
-        }
-        ++k_lo;
-      }
-      // rays still marching at the round cap go on in phase 2 as well
-      active = active || need_full;
-    }
-
-    // phase 2: full rows, fresh relaxation state
-    Relax x{s.relax_on, 0.0f, 0.0f};
-    while (active && k_full < s.max_steps) {
-      const Leaf f = relocate(r, grid, rows, W, gd, extra);
-      for (int st = 0; st < inner_steps && active; ++st) {
-        if (!leaf_local(r, f, local)) break;
-        const float v = hpsdf::eval_local<DEG>(f.row, local);
-        // Keinert overlap test on the pending relaxed step
-        const bool over = s.relax_on && x.on && x.adv_p > 0.0f &&
-                          (fabsf(x.v_p) + fabsf(v) < x.adv_p * kOverlapSlack);
-        if (!over && v < s.hit_eps) {
-          hit = true;
-          active = false;
-          break;
-        }
-        active = take_step(r, x, nsteps, v, over, s);
-      }
-      ++k_full;
-    }
-    t_out[i] = r.t;
-    hit_out[i] = hit;
+    active = hits_box && r.t <= r.t_end;
+    hit = need_full = false;
+    nsteps = k_lo = k_full = kept = 0;
+    x = Relax{sc.s.relax_on, 0.0f, 0.0f};
+    h.row = nullptr;
   }
-  // kk: max over the batch, one atomic per warp
+
+  template <bool LO>
+  __device__ __forceinline__ void relocate(const Scene& sc) {
+    float u[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      u[a] = hpsdf::clamp_half(r.uo[a] + r.t * r.ud[a]);
+    const float* row =
+        LO ? hpsdf::locate_row4(sc.lo_grid, sc.lo_rows, kLoW, sc.gd,
+                                sc.extra, u)
+           : hpsdf::locate_row4(sc.grid, sc.rows, sc.W, sc.gd, sc.extra, u);
+    kept += hold<DEG, LO>(h, row, sc.keep);
+  }
+
+  __device__ __forceinline__ bool in_lo(const Scene& sc) const {
+    return active && k_lo < sc.s.max_steps;
+  }
+  __device__ __forceinline__ bool in_full(const Scene& sc) const {
+    return active && k_full < sc.s.max_steps;
+  }
+
+  // phase 1, one relocation round: far field on the LOD rows
+  __device__ __forceinline__ void round_lo(const Scene& sc) {
+    const Stepper& s = sc.s;
+    const float handoff = kLodHandoff * s.hit_eps;
+    relocate<true>(sc);
+    const float err = h.coef[kLoErr];
+    float local[3];
+    for (int st = 0; st < kInnerStepsLo && active; ++st) {
+      if (!leaf_local(r, h, local)) break;          // frozen until relocated
+      const float v_lo = eval_held<2, true>(h, local);
+      const float v = v_lo - err;                   // lower bound on f
+      // overlap radii must lower-bound |f|: relu(|v_lo| - err)
+      const bool over = s.relax_on && x.on && x.adv_p > 0.0f &&
+                        (x.v_p + fmaxf(fabsf(v_lo) - err, 0.0f) <
+                         x.adv_p * kOverlapSlack);
+      if (!over && v < handoff) {
+        need_full = true;
+        active = false;
+        break;
+      }
+      active = take_step(r, x, nsteps, v, over, s);
+    }
+    ++k_lo;
+  }
+
+  // phase 1 -> phase 2: rays still marching at the round cap go on as well,
+  // with fresh relaxation state; the LOD row is no full row
+  __device__ __forceinline__ void to_full(const Scene& sc, const Rays& ry) {
+    if (ry.stats != nullptr) {
+      int* st = ry.stats + kStats * i;
+      st[0] = nsteps, st[2] = k_lo, st[4] = kept;
+    }
+    active = active || need_full;
+    x = Relax{sc.s.relax_on, 0.0f, 0.0f};
+    h.row = nullptr;
+  }
+
+  // phase 2, one relocation round on the full rows
+  __device__ __forceinline__ void round_full(const Scene& sc) {
+    const Stepper& s = sc.s;
+    relocate<false>(sc);
+    float local[3];
+    for (int st = 0; st < sc.inner_steps && active; ++st) {
+      if (!leaf_local(r, h, local)) break;
+      const float v = eval_held<DEG, Held<DEG>::kInRegs>(h, local);
+      // Keinert overlap test on the pending relaxed step
+      const bool over = s.relax_on && x.on && x.adv_p > 0.0f &&
+                        (fabsf(x.v_p) + fabsf(v) < x.adv_p * kOverlapSlack);
+      if (!over && v < s.hit_eps) {
+        hit = true;
+        active = false;
+        break;
+      }
+      active = take_step(r, x, nsteps, v, over, s);
+    }
+    ++k_full;
+  }
+
+  // write the ray's result; per-ray counts: steps, relocations and kept
+  // relocations of phase 1 (written by to_full) and of phase 2
+  __device__ __forceinline__ void retire(const Scene& sc, const Rays& ry) {
+    ry.t_out[i] = r.t;
+    ry.hit_out[i] = hit;
+    if (ry.stats != nullptr) {
+      int* st = ry.stats + kStats * i;
+      if (sc.lo_grid == nullptr) st[0] = st[2] = st[4] = 0;
+      st[1] = nsteps - st[0], st[3] = k_full, st[5] = kept - st[4];
+    }
+  }
+};
+
+// kk: max over the batch, one atomic per warp
+__device__ __forceinline__ void reduce_kk(int* kk, int k_lo, int k_full) {
   k_lo = __reduce_max_sync(0xffffffffu, k_lo);
   k_full = __reduce_max_sync(0xffffffffu, k_full);
   if ((threadIdx.x & 31) == 0) {
@@ -229,29 +349,148 @@ march_kernel(const float* __restrict__ grid, const float* __restrict__ rows,
   }
 }
 
+// Thread index -> ray index with a warp on an 8x4 pixel tile of an image
+// `width` wide (width % 8 == 0 and B % (4 width) == 0).
+__device__ __forceinline__ int64_t tile_ray(int64_t i, int width) {
+  const int64_t tile = i >> 5;
+  const int within = (int)(i & 31);
+  const int tiles_x = width >> 3;
+  const int64_t ty = tile / tiles_x, tx = tile - ty * tiles_x;
+  return (ty * 4 + (within >> 3)) * width + tx * 8 + (within & 7);
+}
+
+// Forms 0 and 1: one thread a ray.
+template <int DEG>
+__global__ void __launch_bounds__(kThreads)
+march_kernel(Scene sc, Rays ry, int width, int* __restrict__ kk) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  int k_lo = 0, k_full = 0;
+  if (i < ry.B) {
+    if (width) i = tile_ray(i, width);
+    Lane<DEG> L;
+    L.start(sc, ry, i);
+    if (sc.lo_grid != nullptr) {
+      while (L.in_lo(sc)) L.round_lo(sc);
+      L.to_full(sc, ry);
+    }
+    while (L.in_full(sc)) L.round_full(sc);
+    L.retire(sc, ry);
+    k_lo = L.k_lo, k_full = L.k_full;
+  }
+  reduce_kk(kk, k_lo, k_full);
+}
+
+// Form 2: persistent warps. A warp draws kChunk rays at a time from the
+// global counter and, when fewer than `refill_below` of its lanes hold a
+// ray, gives its idle lanes the chunk's next rays.
+enum Phase { kIdle = 0, kLo = 1, kFull = 2 };
+
+template <int DEG>
+__global__ void __launch_bounds__(kThreads)
+march_persistent(Scene sc, Rays ry, int refill_below,
+                 unsigned long long* __restrict__ counter,
+                 int* __restrict__ kk) {
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned below = (1u << lane) - 1u;
+  Lane<DEG> L;
+  int phase = kIdle;
+  int k_lo = 0, k_full = 0;
+  int64_t next = 0, end = 0;        // the warp's chunk, [next, end)
+  bool exhausted = false;
+  for (;;) {
+    if (phase == kLo && !L.in_lo(sc)) {
+      L.to_full(sc, ry);
+      phase = kFull;
+    }
+    if (phase == kFull && !L.in_full(sc)) {
+      L.retire(sc, ry);
+      k_lo = max(k_lo, L.k_lo), k_full = max(k_full, L.k_full);
+      phase = kIdle;
+    }
+    unsigned live = __ballot_sync(0xffffffffu, phase != kIdle);
+    if (!exhausted && __popc(live) < refill_below) {
+      if (next >= end) {
+        unsigned long long base = 0;
+        if (lane == 0) base = atomicAdd(counter, (unsigned long long)kChunk);
+        next = (int64_t)__shfl_sync(0xffffffffu, base, 0);
+        end = next + kChunk < ry.B ? next + kChunk : ry.B;
+        exhausted = next >= ry.B;
+      }
+      const int64_t mine = next + __popc(~live & below);
+      if (phase == kIdle && mine < end) {
+        L.start(sc, ry, mine);
+        phase = sc.lo_grid != nullptr ? kLo : kFull;
+      }
+      next += __popc(~live);
+      live = __ballot_sync(0xffffffffu, phase != kIdle);
+    }
+    if (live == 0u) {
+      if (exhausted) break;
+      continue;
+    }
+    if (phase == kLo && L.in_lo(sc)) {
+      L.round_lo(sc);
+    } else if (phase == kFull && L.in_full(sc)) {
+      L.round_full(sc);
+    }
+  }
+  reduce_kk(kk, k_lo, k_full);
+}
+
+template <int DEG>
+int persistent_blocks() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, march_persistent<DEG>, kThreads, 0);
+    blocks = sms * per_sm;
+  }
+  return blocks;
+}
+
 }  // namespace
 
-// lo_grid == nullptr: no LOD phase. kk (2 ints) must be zeroed by the caller.
+// lo_grid == nullptr: no LOD phase. origin_stride: 3, or 0 for one origin
+// shared by every ray. kk (2 ints) and counter must be zeroed by the caller.
+// stats: nullptr, or (B, 6) ints. form: 0, 1 (needs width) or 2 (needs
+// refill_below in 1..32); form + 4: rows reloaded at every relocation.
 extern "C" int hpsdf_march(const float* grid, const float* rows, int W,
                            int deg, const float* lo_grid, const float* lo_rows,
                            int gd, int extra, int inner_steps,
-                           const float* origins, const float* dirs, int64_t B,
-                           float bmin0, float bmin1, float bmin2, float bmax0,
-                           float bmax1, float bmax2, float rc0, float rc1,
-                           float rc2, float inv0, float inv1, float inv2,
+                           const float* origins, int64_t origin_stride,
+                           const float* dirs, int64_t B, const float* box,
                            float t_max, float hit_eps, int max_steps,
                            float step_cap, int use_cap, float omega,
                            int relax_on, float* t, uint8_t* hit, int* kk,
-                           void* stream) {
-  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+                           int* stats, int form, int width, int refill_below,
+                           unsigned long long* counter, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const Stepper s{omega, step_cap, hit_eps, max_steps, relax_on != 0,
-                  use_cap != 0};
+  Scene sc;
+  sc.grid = grid, sc.rows = rows, sc.lo_grid = lo_grid, sc.lo_rows = lo_rows;
+  sc.W = W, sc.gd = gd, sc.extra = extra, sc.inner_steps = inner_steps;
+  for (int a = 0; a < 3; ++a) {
+    sc.bmin[a] = box[a], sc.bmax[a] = box[3 + a];
+    sc.rc[a] = box[6 + a], sc.inv[a] = box[9 + a];
+  }
+  sc.t_max = t_max;
+  sc.s = Stepper{omega, step_cap, hit_eps, max_steps, relax_on != 0,
+                 use_cap != 0};
+  sc.keep = !(form & 4);
+  form &= 3;
+  const Rays ry{origins, origin_stride, dirs, B, t, hit, stats};
+  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+  if (form == 1 && (width <= 0 || width % 8 || B % (4 * (int64_t)width)))
+    return (int)cudaErrorInvalidValue;
 #define HPSDF_LAUNCH(D)                                                     \
-  march_kernel<D><<<blocks, kThreads, 0, st>>>(                             \
-      grid, rows, W, lo_grid, lo_rows, gd, extra, inner_steps, origins,     \
-      dirs, B, bmin0, bmin1, bmin2, bmax0, bmax1, bmax2, rc0, rc1, rc2, inv0, \
-      inv1, inv2, t_max, s, t, hit, kk)
+  if (form == 2)                                                            \
+    march_persistent<D><<<persistent_blocks<D>(), kThreads, 0, st>>>(       \
+        sc, ry, refill_below, counter, kk);                                 \
+  else                                                                      \
+    march_kernel<D><<<blocks, kThreads, 0, st>>>(sc, ry,                    \
+                                                 form == 1 ? width : 0, kk)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
   return (int)cudaGetLastError();

@@ -22,10 +22,6 @@ namespace hpsdf {
 
 constexpr int kCoeffLane = 8;
 
-__device__ __forceinline__ int row_child(const float* row) {
-  return __float_as_int(__ldg(row)) - 1;
-}
-
 __device__ __forceinline__ float clamp_half(float x) {
   return fminf(fmaxf(x, -0.5f), 0.5f);
 }
@@ -46,21 +42,7 @@ __device__ __forceinline__ const float* grid_row(
   return grid + (((int64_t)c[0] * g + c[1]) * g + c[2]) * W;
 }
 
-__device__ __forceinline__ const float* locate_row(
-    const float* __restrict__ grid, const float* __restrict__ rows, int W,
-    int gd, int extra, const float u[3]) {
-  const float* row = grid_row(grid, W, gd, u);
-  for (int r = 0; r < extra; ++r) {
-    const int child = row_child(row);
-    if (child < 0) break;
-    const int oct = (u[0] >= __ldg(row + 2)) | ((u[1] >= __ldg(row + 3)) << 1) |
-                    ((u[2] >= __ldg(row + 4)) << 2);
-    row = rows + (int64_t)(child + oct) * W;
-  }
-  return row;
-}
-
-// The same row, its descents reading lanes 0-4 as one float4 and one scalar
+// The leaf's row: the descents read lanes 0-4 as one float4 and one scalar
 // (rows 16-byte aligned).
 __device__ __forceinline__ const float* locate_row4(
     const float* __restrict__ grid, const float* __restrict__ rows, int W,
@@ -110,30 +92,6 @@ __device__ __forceinline__ void for_each_term(F&& f) {
     for (int i = 0; i <= p; ++i)
 #pragma unroll
       for (int j = 0; j <= p - i; ++j, ++m) f(m, i, j, p - i - j);
-}
-
-// sum_m coef[m] * Lx[i_m] * Ly[j_m] * Lz[k_m] over the basis of degree DEG.
-template <int DEG>
-__device__ __forceinline__ float poly_sum(const float* __restrict__ coef,
-                                          const float (&Lx)[DEG + 1],
-                                          const float (&Ly)[DEG + 1],
-                                          const float (&Lz)[DEG + 1]) {
-  float v = 0.0f;
-  for_each_term<DEG>([&](int m, int i, int j, int k) {
-    v += __ldg(coef + m) * (Lx[i] * Ly[j] * Lz[k]);
-  });
-  return v;
-}
-
-// Value of a packed row at the point `local` of its leaf's [-1, 1]^3 frame.
-template <int DEG>
-__device__ __forceinline__ float eval_local(const float* __restrict__ row,
-                                            const float local[3]) {
-  float Lx[DEG + 1], Ly[DEG + 1], Lz[DEG + 1];
-  legendre<DEG>(local[0], Lx);
-  legendre<DEG>(local[1], Ly);
-  legendre<DEG>(local[2], Lz);
-  return poly_sum<DEG>(row + kCoeffLane, Lx, Ly, Lz);
 }
 
 }  // namespace hpsdf

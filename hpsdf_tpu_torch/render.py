@@ -50,6 +50,14 @@ LEAF_TOL = 1.0 + 1e-5    # |local| bound counting as "still in this leaf"
 OMEGA = 1.3
 LOD_HANDOFF = 8.0
 
+# Per-ray counts a march can report (``with_stats``), LOD phase and full
+# phase apart: steps taken, relocations, and relocations that found the row
+# the ray already held. The plain version tells rows apart by their leaf
+# frame, the kernel by their address, so a shallow leaf's copies in the grid
+# count as kept only in the plain version.
+STATS = ("steps_lo", "steps_full", "relocations_lo", "relocations_full",
+         "kept_lo", "kept_full")
+
 
 class TraceResult(NamedTuple):
     t: torch.Tensor        # (B,) ray parameter at hit (or last march position)
@@ -109,11 +117,12 @@ def _eval_lo(row, local):
 
 def _march_block(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
                  max_steps: int = MAX_STEPS, step_cap=None,
-                 omega: float = OMEGA, lo=None):
+                 omega: float = OMEGA, lo=None, with_stats: bool = False):
     """The two-phase march over a ray batch (B, 3) f32 as masked lockstep
     loops (hpsdf_tpu render._march_block without its resume state).
     Returns (t (B,), hit (B,), kk (2,) int): kk = [LOD-phase, full-phase]
-    relocation rounds, kk[0] = 0 without ``lo``."""
+    relocation rounds, kk[0] = 0 without ``lo``; ``with_stats`` appends the
+    (B, 6) int32 per-ray counts of ``STATS``."""
     dev = origins.device
     f32 = torch.float32
     relax_on = omega > 1.0 and step_cap is None
@@ -177,6 +186,21 @@ def _march_block(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
         local = (unit_at(s["t"]) - row[..., 2:5]) * row[..., 1:2]
         return local, torch.all(local.abs() <= LEAF_TOL, dim=-1)
 
+    stats = torch.zeros((t.shape[0], len(STATS)), dtype=torch.int32,
+                        device=dev)
+    held = [None]            # the leaf frame of each ray's last relocation
+
+    def count_relocation(active, row, phase):
+        """A relocation of the active rays, which found ``row``."""
+        if not with_stats:
+            return
+        meta = row[..., :5]
+        if held[0] is None:
+            held[0] = torch.full_like(meta, torch.nan)
+        stats[:, 2 + phase] += active.int()
+        stats[:, 4 + phase] += (active & (meta == held[0]).all(-1)).int()
+        held[0] = torch.where(active[..., None], meta, held[0])
+
     k_lo = 0
     if lo is not None:
         lo_grid, lo_rows = lo
@@ -187,6 +211,7 @@ def _march_block(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
             nonlocal need_full
             row = accel.locate_in(lo_grid, lo_rows, pt.grid_depth,
                                   pt.extra_rounds, unit_at(s["t"]))
+            count_relocation(active, row, 0)
             for _ in range(INNER_STEPS_LO):
                 local, in_leaf = leaf_frame(row)
                 v_lo, err = _eval_lo(row, local)
@@ -209,10 +234,13 @@ def _march_block(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
         active = active | need_full
         s.update(relax=torch.full_like(active, relax_on), adv_p=zeros,
                  v_p=zeros)
+        stats[:, 0] = s["nsteps"]
+        held[0] = None
 
     def outer2(active):
         nonlocal hit
         row = accel.locate(pt, unit_at(s["t"]))
+        count_relocation(active, row, 1)
         for _ in range(inner_steps):
             local, in_leaf = leaf_frame(row)
             v = accel.eval_local(row, local, pt.deg_used)
@@ -228,7 +256,11 @@ def _march_block(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
         return active
 
     _, k_full = outer_loop(active, outer2)
-    return s["t"], hit, torch.tensor([k_lo, k_full], dtype=torch.int32)
+    kk = torch.tensor([k_lo, k_full], dtype=torch.int32)
+    if not with_stats:
+        return s["t"], hit, kk
+    stats[:, 1] = s["nsteps"] - stats[:, 0]
+    return s["t"], hit, kk, stats
 
 
 # --------------------------------------------------------------------------
@@ -237,10 +269,14 @@ def _march_block(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
 
 def march_kernel(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
                  max_steps: int = MAX_STEPS, step_cap=None,
-                 omega: float = OMEGA, lo=None):
-    """Launch K3 on CUDA tensors: what ``_march_block`` computes, one thread
-    per ray. Returns (t (B,) f32, hit (B,) bool, kk (2,) int32 on the
-    device). Raises on anything else."""
+                 omega: float = OMEGA, lo=None, with_stats: bool = False,
+                 form: int = 0, width: int = 0, refill_below: int = 24):
+    """Launch K3 on CUDA tensors: what ``_march_block`` computes, each ray
+    its own loop. Returns (t (B,) f32, hit (B,) bool, kk (2,) int32 on the
+    device) and, ``with_stats``, the (B, 6) int32 per-ray counts of
+    ``STATS``. ``origins`` is (B, 3) contiguous, or one origin expanded to
+    (B, 3) (stride 0 over the rays), which the kernel reads in place. Raises
+    on anything else."""
     dev = origins.device
     if dev.type != "cuda":
         raise ValueError(f"march_kernel needs CUDA tensors, got {dev}")
@@ -254,35 +290,45 @@ def march_kernel(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
         for tab, like in zip(lo, (pt.grid, pt.rows)):
             if tab.dtype != torch.float32 or not tab.is_contiguous() \
                     or tab.shape != (like.shape[0], accel.LO_W) \
-                    or tab.device != dev:
-                raise ValueError("LOD tables must be contiguous f32 "
-                                 f"(N, {accel.LO_W}) beside the packed "
-                                 f"ones, on {dev}")
-    origins, dirs = origins.contiguous(), dirs.contiguous()
+                    or tab.device != dev or tab.data_ptr() % 16:
+                raise ValueError("LOD tables must be contiguous 16-byte "
+                                 f"aligned f32 (N, {accel.LO_W}) beside the "
+                                 f"packed ones, on {dev}")
     B = origins.shape[0]
+    shared_origin = B > 1 and origins.stride() == (0, 1)
+    if not shared_origin:
+        origins = origins.contiguous()
+    dirs = dirs.contiguous()
     t = torch.empty(B, dtype=torch.float32, device=dev)
     hit = torch.empty(B, dtype=torch.bool, device=dev)
-    kk = torch.zeros(2, dtype=torch.int32, device=dev)
+    # kk and, behind it, the 64-bit ray counter of the persistent warps
+    zeros = torch.zeros(4, dtype=torch.int32, device=dev)
+    kk = zeros[:2]
+    stats = torch.empty((B, len(STATS)), dtype=torch.int32, device=dev) \
+        if with_stats else None
     if B == 0:
-        return t, hit, kk
+        return (t, hit, kk, stats) if with_stats else (t, hit, kk)
     lib = _kernels.load()
     rc, half = _root_box(pt)
     inv = (1.0 / np.asarray(pt.root_sizes)).astype(np.float32)
-    box = [*(rc - half), *(rc + half), *rc, *inv]
+    box = np.concatenate([rc - half, rc + half, rc, inv]).astype(np.float32)
     relax_on = omega > 1.0 and step_cap is None
     _kernels.check(lib, lib.hpsdf_march(
         pt.grid.data_ptr(), pt.rows.data_ptr(), pt.width, pt.deg_used,
         None if lo is None else lo[0].data_ptr(),
         None if lo is None else lo[1].data_ptr(),
         pt.grid_depth, pt.extra_rounds, _inner_steps_for(pt),
-        origins.data_ptr(), dirs.data_ptr(), B, *map(float, box),
-        float(np.float32(t_max)), float(np.float32(hit_eps)), int(max_steps),
+        origins.data_ptr(), 0 if shared_origin else 3, dirs.data_ptr(), B,
+        box.ctypes.data, float(np.float32(t_max)),
+        float(np.float32(hit_eps)), int(max_steps),
         float(np.float32(0.0 if step_cap is None else step_cap)),
         int(step_cap is not None), float(np.float32(omega)), int(relax_on),
         t.data_ptr(), hit.data_ptr(), kk.data_ptr(),
+        None if stats is None else stats.data_ptr(), int(form), int(width),
+        int(refill_below), zeros[2:].data_ptr(),
         _kernels.stream_of(origins)), "march")
     march_kernel.launches += 1
-    return t, hit, kk
+    return (t, hit, kk, stats) if with_stats else (t, hit, kk)
 
 
 march_kernel.launches = 0
