@@ -47,7 +47,7 @@ _SIGNATURES = {
                           _F32, _F32, _F32, _I32, _I32, _P, _P),
     "hpsdf_march": (_P, _P, _I32, _I32, _P, _P, _I32, _I32, _I32, _P, _I64,
                     _P, _I64, _P, _F32, _F32, _I32, _F32, _I32, _F32, _I32,
-                    _P, _P, _P, _P, _I32, _I32, _I32, _P, _P),
+                    _P, _P, _P, _P, _I32, _I32, _P),
 }
 # and of the reference kernels under csrc/check/, which only checks load
 _CHECK_SIGNATURES = {
@@ -125,9 +125,9 @@ def _build(path: str, sub: str = "") -> None:
     os.replace(tmp, path)
 
 
-def ptxas_report() -> str:
+def ptxas_report(sub: str = "") -> str:
     """ptxas's report of the built library's kernels (``-Xptxas -v``)."""
-    with open(f"{library_path()}.ptxas.txt") as fh:
+    with open(f"{library_path(sub)}.ptxas.txt") as fh:
         return fh.read()
 
 

@@ -35,6 +35,7 @@ over: lanes are read by slicing.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -73,6 +74,16 @@ class PackedTree:
     @property
     def device(self) -> torch.device:
         return self.rows.device
+
+    @functools.cached_property
+    def lo(self):
+        """(lo_grid, lo_rows), the LOD tables of the march's far-field
+        phase, or None when the rows are low-degree already. Made at first
+        use and kept with the tables they come from (``dataclasses.replace``
+        starts afresh)."""
+        if self.deg_used <= 2 or self.width <= LO_W:
+            return None
+        return lo_pack(self.grid), lo_pack(self.rows)
 
 
 @dataclasses.dataclass(frozen=True)

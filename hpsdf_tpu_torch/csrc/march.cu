@@ -34,10 +34,11 @@
 //     with the same arithmetic, only the reload is skipped when it returns
 //     the row already held. Rows wider than kMaxHeld coefficient lanes
 //     (degree >= 6) keep the frame and read a coefficient a term;
-//   * FORMS (development state): 0 = one thread a ray in index order; 1 = one
-//     thread a ray, a warp mapped to an 8x4 pixel tile of an image `width`
-//     wide; 2 = persistent warps that draw rays from a global counter and
-//     refill their finished lanes.
+//   * FORMS (development state): form = tile + 2 stream + 4 blocks, where
+//     tile maps a warp to an 8x4 pixel tile of an image `width` wide, stream
+//     keeps only the leaf frame and reads the coefficients at every step,
+//     and blocks in {0, 1, 2} asks for 1, 8 or 12 resident blocks an SM
+//     (255, 64 or 40 registers a thread); degrees 3 and 5 only when not 0.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,7 +54,6 @@ constexpr int kLoW = 32;            // accel.LO_W
 constexpr int kLoHeld = 12;         // LOD lanes 8..19: 10 coefficients, err
 constexpr int kLoErr = 10;          // accel.LO_ERR_LANE - COEFF_LANE
 constexpr int kInnerStepsLo = 3;    // render.INNER_STEPS_LO
-constexpr int kChunk = 128;         // rays a persistent warp draws at once
 constexpr int kStats = 6;           // per-ray counts (render.STATS)
 constexpr float kStepScale = 0.95f;
 constexpr float kMinStep = 1e-4f;
@@ -82,7 +82,6 @@ struct Scene {
   float bmin[3], bmax[3], rc[3], inv[3];
   float t_max;
   Stepper s;
-  bool keep;                        // rows stay held across relocations
 };
 
 struct Rays {
@@ -104,11 +103,12 @@ struct Relax {
 
 // The row a ray holds: its pointer, the leaf frame and, for rows of at most
 // kMaxHeld coefficient lanes, the coefficients.
-template <int DEG>
+template <int DEG, bool HOLD>
 struct Held {
   static constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
   static constexpr int kQuads = (kC + 3) / 4;
-  static constexpr bool kInRegs = 4 * kQuads <= kMaxHeld;
+  static constexpr bool kFits = 4 * kQuads <= kMaxHeld;
+  static constexpr bool kInRegs = HOLD && kFits;
   static constexpr int kN =
       kInRegs && 4 * kQuads > kLoHeld ? 4 * kQuads : kLoHeld;
   const float* row;
@@ -128,29 +128,28 @@ __device__ __forceinline__ void load_quads(const float* __restrict__ row,
   }
 }
 
-// Hold `row`: a reload only when it is not the row held (`keep` off: always;
-// timing only). LO: an LOD row. Returns whether it was the row held.
-template <int DEG, bool LO>
-__device__ __forceinline__ bool hold(Held<DEG>& h, const float* row,
-                                     bool keep) {
-  if (row == h.row && keep) return true;
-  const bool same = row == h.row;
+// Hold `row`: a reload only when it is not the row held. LO: an LOD row.
+// Returns whether it was the row held.
+template <bool LO, int DEG, bool HOLD>
+__device__ __forceinline__ bool hold(Held<DEG, HOLD>& h, const float* row) {
+  if (row == h.row) return true;
   const float4 m = __ldg(reinterpret_cast<const float4*>(row));
   h.row = row;
   h.scale = m.y;
   h.c[0] = m.z, h.c[1] = m.w, h.c[2] = __ldg(row + 4);
   if constexpr (LO) {
     load_quads<kLoHeld / 4>(row, h.coef);
-  } else if constexpr (Held<DEG>::kInRegs) {
-    load_quads<Held<DEG>::kQuads>(row, h.coef);
+  } else if constexpr (Held<DEG, HOLD>::kInRegs) {
+    load_quads<Held<DEG, HOLD>::kQuads>(row, h.coef);
   }
-  return same;
+  return false;
 }
 
 // The ray's point in the held leaf's [-1, 1]^3 frame; false once it left
 // the leaf.
-template <int DEG>
-__device__ __forceinline__ bool leaf_local(const Ray& r, const Held<DEG>& f,
+template <int DEG, bool HOLD>
+__device__ __forceinline__ bool leaf_local(const Ray& r,
+                                           const Held<DEG, HOLD>& f,
                                            float local[3]) {
   bool in_leaf = true;
 #pragma unroll
@@ -164,8 +163,8 @@ __device__ __forceinline__ bool leaf_local(const Ray& r, const Held<DEG>& f,
 
 // Value of the held row at `local`: sum_m coef[m] Lx[i_m] Ly[j_m] Lz[k_m] in
 // basis order. EDEG is the degree evaluated (2 on an LOD row).
-template <int EDEG, bool IN_REGS, int DEG>
-__device__ __forceinline__ float eval_held(const Held<DEG>& h,
+template <int EDEG, bool IN_REGS, int DEG, bool HOLD>
+__device__ __forceinline__ float eval_held(const Held<DEG, HOLD>& h,
                                            const float local[3]) {
   float Lx[EDEG + 1], Ly[EDEG + 1], Lz[EDEG + 1];
   hpsdf::legendre<EDEG>(local[0], Lx);
@@ -175,6 +174,12 @@ __device__ __forceinline__ float eval_held(const Held<DEG>& h,
   if constexpr (IN_REGS) {
     hpsdf::for_each_term<EDEG>([&](int m, int i, int j, int k) {
       v += h.coef[m] * (Lx[i] * Ly[j] * Lz[k]);
+    });
+  } else if constexpr (Held<DEG, HOLD>::kFits) {
+    float c[4 * Held<DEG, HOLD>::kQuads];
+    load_quads<Held<DEG, HOLD>::kQuads>(h.row, c);
+    hpsdf::for_each_term<EDEG>([&](int m, int i, int j, int k) {
+      v += c[m] * (Lx[i] * Ly[j] * Lz[k]);
     });
   } else {
     const float* coef = h.row + hpsdf::kCoeffLane;
@@ -214,11 +219,11 @@ __device__ __forceinline__ bool take_step(Ray& r, Relax& x, int& nsteps,
 }
 
 // One ray's march state.
-template <int DEG>
+template <int DEG, bool HOLD>
 struct Lane {
   Ray r;
   Relax x;
-  Held<DEG> h;
+  Held<DEG, HOLD> h;
   int64_t i;                        // the ray's index
   int nsteps, k_lo, k_full, kept;   // kept: relocations that found h.row
   bool active, hit, need_full;
@@ -258,7 +263,7 @@ struct Lane {
         LO ? hpsdf::locate_row4(sc.lo_grid, sc.lo_rows, kLoW, sc.gd,
                                 sc.extra, u)
            : hpsdf::locate_row4(sc.grid, sc.rows, sc.W, sc.gd, sc.extra, u);
-    kept += hold<DEG, LO>(h, row, sc.keep);
+    kept += hold<LO>(h, row);
   }
 
   __device__ __forceinline__ bool in_lo(const Scene& sc) const {
@@ -312,7 +317,7 @@ struct Lane {
     float local[3];
     for (int st = 0; st < sc.inner_steps && active; ++st) {
       if (!leaf_local(r, h, local)) break;
-      const float v = eval_held<DEG, Held<DEG>::kInRegs>(h, local);
+      const float v = eval_held<DEG, Held<DEG, HOLD>::kInRegs>(h, local);
       // Keinert overlap test on the pending relaxed step
       const bool over = s.relax_on && x.on && x.adv_p > 0.0f &&
                         (fabsf(x.v_p) + fabsf(v) < x.adv_p * kOverlapSlack);
@@ -359,15 +364,14 @@ __device__ __forceinline__ int64_t tile_ray(int64_t i, int width) {
   return (ty * 4 + (within >> 3)) * width + tx * 8 + (within & 7);
 }
 
-// Forms 0 and 1: one thread a ray.
-template <int DEG>
-__global__ void __launch_bounds__(kThreads)
+template <int DEG, bool HOLD, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
 march_kernel(Scene sc, Rays ry, int width, int* __restrict__ kk) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   int k_lo = 0, k_full = 0;
   if (i < ry.B) {
     if (width) i = tile_ray(i, width);
-    Lane<DEG> L;
+    Lane<DEG, HOLD> L;
     L.start(sc, ry, i);
     if (sc.lo_grid != nullptr) {
       while (L.in_lo(sc)) L.round_lo(sc);
@@ -380,83 +384,32 @@ march_kernel(Scene sc, Rays ry, int width, int* __restrict__ kk) {
   reduce_kk(kk, k_lo, k_full);
 }
 
-// Form 2: persistent warps. A warp draws kChunk rays at a time from the
-// global counter and, when fewer than `refill_below` of its lanes hold a
-// ray, gives its idle lanes the chunk's next rays.
-enum Phase { kIdle = 0, kLo = 1, kFull = 2 };
-
 template <int DEG>
-__global__ void __launch_bounds__(kThreads)
-march_persistent(Scene sc, Rays ry, int refill_below,
-                 unsigned long long* __restrict__ counter,
-                 int* __restrict__ kk) {
-  const unsigned lane = threadIdx.x & 31u;
-  const unsigned below = (1u << lane) - 1u;
-  Lane<DEG> L;
-  int phase = kIdle;
-  int k_lo = 0, k_full = 0;
-  int64_t next = 0, end = 0;        // the warp's chunk, [next, end)
-  bool exhausted = false;
-  for (;;) {
-    if (phase == kLo && !L.in_lo(sc)) {
-      L.to_full(sc, ry);
-      phase = kFull;
-    }
-    if (phase == kFull && !L.in_full(sc)) {
-      L.retire(sc, ry);
-      k_lo = max(k_lo, L.k_lo), k_full = max(k_full, L.k_full);
-      phase = kIdle;
-    }
-    unsigned live = __ballot_sync(0xffffffffu, phase != kIdle);
-    if (!exhausted && __popc(live) < refill_below) {
-      if (next >= end) {
-        unsigned long long base = 0;
-        if (lane == 0) base = atomicAdd(counter, (unsigned long long)kChunk);
-        next = (int64_t)__shfl_sync(0xffffffffu, base, 0);
-        end = next + kChunk < ry.B ? next + kChunk : ry.B;
-        exhausted = next >= ry.B;
-      }
-      const int64_t mine = next + __popc(~live & below);
-      if (phase == kIdle && mine < end) {
-        L.start(sc, ry, mine);
-        phase = sc.lo_grid != nullptr ? kLo : kFull;
-      }
-      next += __popc(~live);
-      live = __ballot_sync(0xffffffffu, phase != kIdle);
-    }
-    if (live == 0u) {
-      if (exhausted) break;
-      continue;
-    }
-    if (phase == kLo && L.in_lo(sc)) {
-      L.round_lo(sc);
-    } else if (phase == kFull && L.in_full(sc)) {
-      L.round_full(sc);
-    }
+int launch_variant(int variant, unsigned blocks, cudaStream_t st,
+                   const Scene& sc, const Rays& ry, int width, int* kk) {
+#define HPSDF_VARIANT(V, HOLD, MINB)                                          \
+  case V:                                                                     \
+    march_kernel<DEG, HOLD, MINB><<<blocks, kThreads, 0, st>>>(sc, ry, width, \
+                                                               kk);           \
+    break;
+  switch (variant) {
+    HPSDF_VARIANT(1, false, 1)
+    HPSDF_VARIANT(2, true, 8)
+    HPSDF_VARIANT(3, false, 8)
+    HPSDF_VARIANT(4, true, 12)
+    HPSDF_VARIANT(5, false, 12)
+    default: return (int)cudaErrorInvalidValue;
   }
-  reduce_kk(kk, k_lo, k_full);
-}
-
-template <int DEG>
-int persistent_blocks() {
-  static int blocks = 0;
-  if (blocks == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, march_persistent<DEG>, kThreads, 0);
-    blocks = sms * per_sm;
-  }
-  return blocks;
+#undef HPSDF_VARIANT
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // lo_grid == nullptr: no LOD phase. origin_stride: 3, or 0 for one origin
-// shared by every ray. kk (2 ints) and counter must be zeroed by the caller.
-// stats: nullptr, or (B, 6) ints. form: 0, 1 (needs width) or 2 (needs
-// refill_below in 1..32); form + 4: rows reloaded at every relocation.
+// shared by every ray. kk (2 ints) must be zeroed by the caller. stats:
+// nullptr, or (B, 6) ints. form: see the head of this file; width: the
+// image's, for a tile form.
 extern "C" int hpsdf_march(const float* grid, const float* rows, int W,
                            int deg, const float* lo_grid, const float* lo_rows,
                            int gd, int extra, int inner_steps,
@@ -465,8 +418,7 @@ extern "C" int hpsdf_march(const float* grid, const float* rows, int W,
                            float t_max, float hit_eps, int max_steps,
                            float step_cap, int use_cap, float omega,
                            int relax_on, float* t, uint8_t* hit, int* kk,
-                           int* stats, int form, int width, int refill_below,
-                           unsigned long long* counter, void* stream) {
+                           int* stats, int form, int width, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Scene sc;
   sc.grid = grid, sc.rows = rows, sc.lo_grid = lo_grid, sc.lo_rows = lo_rows;
@@ -478,19 +430,19 @@ extern "C" int hpsdf_march(const float* grid, const float* rows, int W,
   sc.t_max = t_max;
   sc.s = Stepper{omega, step_cap, hit_eps, max_steps, relax_on != 0,
                  use_cap != 0};
-  sc.keep = !(form & 4);
-  form &= 3;
   const Rays ry{origins, origin_stride, dirs, B, t, hit, stats};
   const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
-  if (form == 1 && (width <= 0 || width % 8 || B % (4 * (int64_t)width)))
+  if (!(form & 1)) width = 0;
+  if (width && (width < 0 || width % 8 || B % (4 * (int64_t)width)))
     return (int)cudaErrorInvalidValue;
-#define HPSDF_LAUNCH(D)                                                     \
-  if (form == 2)                                                            \
-    march_persistent<D><<<persistent_blocks<D>(), kThreads, 0, st>>>(       \
-        sc, ry, refill_below, counter, kk);                                 \
-  else                                                                      \
-    march_kernel<D><<<blocks, kThreads, 0, st>>>(sc, ry,                    \
-                                                 form == 1 ? width : 0, kk)
+  const int variant = form >> 1;    // stream + 2 blocks
+  if (variant) {
+    if (deg == 3) return launch_variant<3>(variant, blocks, st, sc, ry, width, kk);
+    if (deg == 5) return launch_variant<5>(variant, blocks, st, sc, ry, width, kk);
+    return (int)cudaErrorInvalidValue;
+  }
+#define HPSDF_LAUNCH(D) \
+  march_kernel<D, true, 1><<<blocks, kThreads, 0, st>>>(sc, ry, width, kk)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
   return (int)cudaGetLastError();

@@ -92,9 +92,7 @@ def _root_box(pt: PackedTree):
 def _lo_of(pt: PackedTree):
     """(lo_grid, lo_rows) LOD tables for the far-field phase, or None when
     the tree is low-degree already."""
-    if pt.deg_used <= 2 or pt.width <= accel.LO_W:
-        return None
-    return accel.lo_pack(pt.grid), accel.lo_pack(pt.rows)
+    return pt.lo
 
 
 def _inner_steps_for(pt: PackedTree) -> int:
@@ -270,7 +268,7 @@ def _march_block(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
 def march_kernel(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
                  max_steps: int = MAX_STEPS, step_cap=None,
                  omega: float = OMEGA, lo=None, with_stats: bool = False,
-                 form: int = 0, width: int = 0, refill_below: int = 24):
+                 form: int = 0, width: int = 0):
     """Launch K3 on CUDA tensors: what ``_march_block`` computes, each ray
     its own loop. Returns (t (B,) f32, hit (B,) bool, kk (2,) int32 on the
     device) and, ``with_stats``, the (B, 6) int32 per-ray counts of
@@ -301,9 +299,7 @@ def march_kernel(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
     dirs = dirs.contiguous()
     t = torch.empty(B, dtype=torch.float32, device=dev)
     hit = torch.empty(B, dtype=torch.bool, device=dev)
-    # kk and, behind it, the 64-bit ray counter of the persistent warps
-    zeros = torch.zeros(4, dtype=torch.int32, device=dev)
-    kk = zeros[:2]
+    kk = torch.zeros(2, dtype=torch.int32, device=dev)
     stats = torch.empty((B, len(STATS)), dtype=torch.int32, device=dev) \
         if with_stats else None
     if B == 0:
@@ -325,7 +321,6 @@ def march_kernel(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
         int(step_cap is not None), float(np.float32(omega)), int(relax_on),
         t.data_ptr(), hit.data_ptr(), kk.data_ptr(),
         None if stats is None else stats.data_ptr(), int(form), int(width),
-        int(refill_below), zeros[2:].data_ptr(),
         _kernels.stream_of(origins)), "march")
     march_kernel.launches += 1
     return (t, hit, kk, stats) if with_stats else (t, hit, kk)

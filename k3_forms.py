@@ -12,10 +12,10 @@ the first two, the render path's 512^2 on the carved one):
     relocations that found the row held, SIMT efficiency of 32x1 strips and
     8x4 tiles;
   * holds every form of K3 to the reference kernel bit for bit (t, hit, kk);
-  * times the forms in turns in CUDA graphs, two turns: the reference, one
-    thread a ray with rows reloaded at every relocation, the same with rows
-    kept, with a warp on an 8x4 pixel tile, and persistent warps at several
-    refill thresholds;
+  * times the forms in turns in CUDA graphs, two turns: the reference, and
+    one thread a ray with the row held in registers or only its frame (the
+    coefficients read at every step), in index order or with a warp on an
+    8x4 pixel tile, compiled for 1, 8 or 12 resident blocks an SM;
   * times a one-ray launch of the longest ray (the serial floor);
   * times, on the host, what trace and render do around the kernel: the LOD
     tables' rebuild, the copy of the expanded origins, render_image.
@@ -35,15 +35,10 @@ import torch
 
 import chip_smoke as cs
 
-FORMS = [("reference", None),
-         ("thread/reload", dict(form=4)),
-         ("thread/kept", dict(form=0)),
-         ("tile8x4/kept", dict(form=1)),
-         ("persistent<8", dict(form=2, refill_below=8)),
-         ("persistent<16", dict(form=2, refill_below=16)),
-         ("persistent<24", dict(form=2, refill_below=24)),
-         ("persistent<32", dict(form=2, refill_below=32)),
-         ("persistent/reload<24", dict(form=6, refill_below=24))]
+FORMS = [("reference", None)] + [
+    (f"{'tile8x4' if tile else 'strip'}/{'stream' if stream else 'held'}/"
+     f"{(1, 8, 12)[blocks]} blocks", dict(form=tile + 2 * stream + 4 * blocks))
+    for blocks in (0, 1, 2) for stream in (0, 1) for tile in (0, 1)]
 REPS = 10
 
 
@@ -62,13 +57,22 @@ def ptxas_k3():
     found = {}
     within = r"(?:(?!Compiling entry).)*?"
     for m in re.finditer(
+            r"Compiling entry function '\S+march_kernelILi(\d+)E\S+'" + within
+            + r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads" + within + r"Used (\d+) registers",
+            _kernels.ptxas_report("check"), flags=re.S):
+        found.setdefault("reference", {})[int(m.group(1))] = [
+            int(m.group(5)), int(m.group(2)), int(m.group(3)),
+            int(m.group(4))]
+    for m in re.finditer(
             r"Compiling entry function '(\S+)'" + within
             + r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
             r"(\d+) bytes spill loads" + within + r"Used (\d+) registers",
             _kernels.ptxas_report(), flags=re.S):
-        k = re.search(r"(march_kernel|march_persistent)ILi(\d+)E", m.group(1))
+        k = re.search(r"march_kernelILi(\d+)ELb([01])ELi(\d+)E", m.group(1))
         if k:
-            found.setdefault(k.group(1), {})[int(k.group(2))] = [
+            key = f"{'held' if k.group(2) == '1' else 'stream'}/{k.group(3)}"
+            found.setdefault(key, {})[int(k.group(1))] = [
                 int(m.group(5)), int(m.group(2)), int(m.group(3)),
                 int(m.group(4))]
     return found
@@ -172,8 +176,8 @@ def main():
         # the serial floor: the longest ray alone, beside a ray that misses
         j = res["stats"]["longest_ray"]
         far = torch.tensor([[0.0, 1.0, 0.0]], device=dev)
-        for label, form in (("thread/kept", dict(form=0)),
-                            ("persistent<24", dict(form=2, refill_below=24))):
+        for label, form in (("held/1 blocks", dict(form=0)),
+                            ("stream/8 blocks", dict(form=6))):
             one = cs.graph_ms(lambda: march_kernel(
                 pt, o[j:j + 1].contiguous(), d[j:j + 1].contiguous(),
                 cs.T_MAX, HIT_EPS, MAX_STEPS, **kw, **form), REPS)
