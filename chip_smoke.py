@@ -661,6 +661,9 @@ def simt_efficiency(work, width, tile):
     return float(w.sum() / (32.0 * w.max(dim=1).values.sum()))
 
 
+STEP_EDGES = (0, 1, 5, 9, 17, 33, 65, 129)    # lower edges of steps_hist
+
+
 def k3_stats(stats, width, deg):
     """What the rays of a march did, from K3's per-ray counts (render.STATS):
     steps, relocations that found the row the ray held, the SIMT efficiency
@@ -668,15 +671,14 @@ def k3_stats(stats, width, deg):
     st = stats.long()
     steps = st[:, 0] + st[:, 1]
     relocs = st[:, 2] + st[:, 3]
-    edges = [0, 1, 5, 9, 17, 33, 65, 129, 1 << 30]
     hist = [int(((steps >= lo) & (steps < hi)).sum())
-            for lo, hi in zip(edges[:-1], edges[1:])]
+            for lo, hi in zip(STEP_EDGES, STEP_EDGES[1:] + (1 << 30,))]
     out = {
         "steps": int(steps.sum()), "steps_lo": int(st[:, 0].sum()),
         "steps_full": int(st[:, 1].sum()),
         "steps_mean": float(steps.double().mean()),
         "steps_max": int(steps.max()),
-        "steps_hist_0_1_5_9_17_33_65_129": hist,
+        "steps_hist": hist,
         "relocations": int(relocs.sum()),
         "kept_share": float((st[:, 4] + st[:, 5]).sum()) / float(relocs.sum()),
         "longest_ray": int(torch.argmax(relocs)),

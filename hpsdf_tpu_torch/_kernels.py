@@ -47,7 +47,7 @@ _SIGNATURES = {
                           _F32, _F32, _F32, _I32, _I32, _P, _P),
     "hpsdf_march": (_P, _P, _I32, _I32, _P, _P, _I32, _I32, _I32, _P, _I64,
                     _P, _I64, _P, _F32, _F32, _I32, _F32, _I32, _F32, _I32,
-                    _P, _P, _P, _P, _I32, _I32, _P),
+                    _P, _P, _P, _P, _I32, _P),
 }
 # and of the reference kernels under csrc/check/, which only checks load
 _CHECK_SIGNATURES = {

@@ -34,11 +34,15 @@
 //     with the same arithmetic, only the reload is skipped when it returns
 //     the row already held. Rows wider than kMaxHeld coefficient lanes
 //     (degree >= 6) keep the frame and read a coefficient a term;
-//   * FORMS (development state): form = tile + 2 stream + 4 blocks, where
-//     tile maps a warp to an 8x4 pixel tile of an image `width` wide, stream
-//     keeps only the leaf frame and reads the coefficients at every step,
-//     and blocks in {0, 1, 2} asks for 1, 8 or 12 resident blocks an SM
-//     (255, 64 or 40 registers a thread); degrees 3 and 5 only when not 0.
+//   * a warp's time is its longest ray's, so when the rays are an image's
+//     pixels in raster order and the caller says how wide it is, a warp
+//     takes an 8x4 pixel tile and not a 32x1 strip: neighbours in both
+//     directions march alike.
+// What was timed and lost (PERF.md): persistent warps that refill finished
+// lanes from a global counter (their retire and refill tests lengthen every
+// round's chain, and rays average 5 steps), holding only the leaf frame and
+// reading coefficients at every step, and register caps for more resident
+// warps (the march is bound by instruction issue, not by waiting).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -103,12 +107,11 @@ struct Relax {
 
 // The row a ray holds: its pointer, the leaf frame and, for rows of at most
 // kMaxHeld coefficient lanes, the coefficients.
-template <int DEG, bool HOLD>
+template <int DEG>
 struct Held {
   static constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
   static constexpr int kQuads = (kC + 3) / 4;
-  static constexpr bool kFits = 4 * kQuads <= kMaxHeld;
-  static constexpr bool kInRegs = HOLD && kFits;
+  static constexpr bool kInRegs = 4 * kQuads <= kMaxHeld;
   static constexpr int kN =
       kInRegs && 4 * kQuads > kLoHeld ? 4 * kQuads : kLoHeld;
   const float* row;
@@ -130,8 +133,8 @@ __device__ __forceinline__ void load_quads(const float* __restrict__ row,
 
 // Hold `row`: a reload only when it is not the row held. LO: an LOD row.
 // Returns whether it was the row held.
-template <bool LO, int DEG, bool HOLD>
-__device__ __forceinline__ bool hold(Held<DEG, HOLD>& h, const float* row) {
+template <bool LO, int DEG>
+__device__ __forceinline__ bool hold(Held<DEG>& h, const float* row) {
   if (row == h.row) return true;
   const float4 m = __ldg(reinterpret_cast<const float4*>(row));
   h.row = row;
@@ -139,17 +142,16 @@ __device__ __forceinline__ bool hold(Held<DEG, HOLD>& h, const float* row) {
   h.c[0] = m.z, h.c[1] = m.w, h.c[2] = __ldg(row + 4);
   if constexpr (LO) {
     load_quads<kLoHeld / 4>(row, h.coef);
-  } else if constexpr (Held<DEG, HOLD>::kInRegs) {
-    load_quads<Held<DEG, HOLD>::kQuads>(row, h.coef);
+  } else if constexpr (Held<DEG>::kInRegs) {
+    load_quads<Held<DEG>::kQuads>(row, h.coef);
   }
   return false;
 }
 
 // The ray's point in the held leaf's [-1, 1]^3 frame; false once it left
 // the leaf.
-template <int DEG, bool HOLD>
-__device__ __forceinline__ bool leaf_local(const Ray& r,
-                                           const Held<DEG, HOLD>& f,
+template <int DEG>
+__device__ __forceinline__ bool leaf_local(const Ray& r, const Held<DEG>& f,
                                            float local[3]) {
   bool in_leaf = true;
 #pragma unroll
@@ -163,8 +165,8 @@ __device__ __forceinline__ bool leaf_local(const Ray& r,
 
 // Value of the held row at `local`: sum_m coef[m] Lx[i_m] Ly[j_m] Lz[k_m] in
 // basis order. EDEG is the degree evaluated (2 on an LOD row).
-template <int EDEG, bool IN_REGS, int DEG, bool HOLD>
-__device__ __forceinline__ float eval_held(const Held<DEG, HOLD>& h,
+template <int EDEG, bool IN_REGS, int DEG>
+__device__ __forceinline__ float eval_held(const Held<DEG>& h,
                                            const float local[3]) {
   float Lx[EDEG + 1], Ly[EDEG + 1], Lz[EDEG + 1];
   hpsdf::legendre<EDEG>(local[0], Lx);
@@ -174,12 +176,6 @@ __device__ __forceinline__ float eval_held(const Held<DEG, HOLD>& h,
   if constexpr (IN_REGS) {
     hpsdf::for_each_term<EDEG>([&](int m, int i, int j, int k) {
       v += h.coef[m] * (Lx[i] * Ly[j] * Lz[k]);
-    });
-  } else if constexpr (Held<DEG, HOLD>::kFits) {
-    float c[4 * Held<DEG, HOLD>::kQuads];
-    load_quads<Held<DEG, HOLD>::kQuads>(h.row, c);
-    hpsdf::for_each_term<EDEG>([&](int m, int i, int j, int k) {
-      v += c[m] * (Lx[i] * Ly[j] * Lz[k]);
     });
   } else {
     const float* coef = h.row + hpsdf::kCoeffLane;
@@ -219,11 +215,11 @@ __device__ __forceinline__ bool take_step(Ray& r, Relax& x, int& nsteps,
 }
 
 // One ray's march state.
-template <int DEG, bool HOLD>
+template <int DEG>
 struct Lane {
   Ray r;
   Relax x;
-  Held<DEG, HOLD> h;
+  Held<DEG> h;
   int64_t i;                        // the ray's index
   int nsteps, k_lo, k_full, kept;   // kept: relocations that found h.row
   bool active, hit, need_full;
@@ -317,7 +313,7 @@ struct Lane {
     float local[3];
     for (int st = 0; st < sc.inner_steps && active; ++st) {
       if (!leaf_local(r, h, local)) break;
-      const float v = eval_held<DEG, Held<DEG, HOLD>::kInRegs>(h, local);
+      const float v = eval_held<DEG, Held<DEG>::kInRegs>(h, local);
       // Keinert overlap test on the pending relaxed step
       const bool over = s.relax_on && x.on && x.adv_p > 0.0f &&
                         (fabsf(x.v_p) + fabsf(v) < x.adv_p * kOverlapSlack);
@@ -364,14 +360,14 @@ __device__ __forceinline__ int64_t tile_ray(int64_t i, int width) {
   return (ty * 4 + (within >> 3)) * width + tx * 8 + (within & 7);
 }
 
-template <int DEG, bool HOLD, int MINB>
-__global__ void __launch_bounds__(kThreads, MINB)
+template <int DEG>
+__global__ void __launch_bounds__(kThreads)
 march_kernel(Scene sc, Rays ry, int width, int* __restrict__ kk) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   int k_lo = 0, k_full = 0;
   if (i < ry.B) {
     if (width) i = tile_ray(i, width);
-    Lane<DEG, HOLD> L;
+    Lane<DEG> L;
     L.start(sc, ry, i);
     if (sc.lo_grid != nullptr) {
       while (L.in_lo(sc)) L.round_lo(sc);
@@ -384,32 +380,12 @@ march_kernel(Scene sc, Rays ry, int width, int* __restrict__ kk) {
   reduce_kk(kk, k_lo, k_full);
 }
 
-template <int DEG>
-int launch_variant(int variant, unsigned blocks, cudaStream_t st,
-                   const Scene& sc, const Rays& ry, int width, int* kk) {
-#define HPSDF_VARIANT(V, HOLD, MINB)                                          \
-  case V:                                                                     \
-    march_kernel<DEG, HOLD, MINB><<<blocks, kThreads, 0, st>>>(sc, ry, width, \
-                                                               kk);           \
-    break;
-  switch (variant) {
-    HPSDF_VARIANT(1, false, 1)
-    HPSDF_VARIANT(2, true, 8)
-    HPSDF_VARIANT(3, false, 8)
-    HPSDF_VARIANT(4, true, 12)
-    HPSDF_VARIANT(5, false, 12)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef HPSDF_VARIANT
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // lo_grid == nullptr: no LOD phase. origin_stride: 3, or 0 for one origin
 // shared by every ray. kk (2 ints) must be zeroed by the caller. stats:
-// nullptr, or (B, 6) ints. form: see the head of this file; width: the
-// image's, for a tile form.
+// nullptr, or (B, 6) ints. width: 0, or the width of the image whose pixels
+// the rays are in raster order (width % 8 == 0, B % (4 width) == 0).
 extern "C" int hpsdf_march(const float* grid, const float* rows, int W,
                            int deg, const float* lo_grid, const float* lo_rows,
                            int gd, int extra, int inner_steps,
@@ -418,7 +394,7 @@ extern "C" int hpsdf_march(const float* grid, const float* rows, int W,
                            float t_max, float hit_eps, int max_steps,
                            float step_cap, int use_cap, float omega,
                            int relax_on, float* t, uint8_t* hit, int* kk,
-                           int* stats, int form, int width, void* stream) {
+                           int* stats, int width, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Scene sc;
   sc.grid = grid, sc.rows = rows, sc.lo_grid = lo_grid, sc.lo_rows = lo_rows;
@@ -432,17 +408,10 @@ extern "C" int hpsdf_march(const float* grid, const float* rows, int W,
                  use_cap != 0};
   const Rays ry{origins, origin_stride, dirs, B, t, hit, stats};
   const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
-  if (!(form & 1)) width = 0;
   if (width && (width < 0 || width % 8 || B % (4 * (int64_t)width)))
     return (int)cudaErrorInvalidValue;
-  const int variant = form >> 1;    // stream + 2 blocks
-  if (variant) {
-    if (deg == 3) return launch_variant<3>(variant, blocks, st, sc, ry, width, kk);
-    if (deg == 5) return launch_variant<5>(variant, blocks, st, sc, ry, width, kk);
-    return (int)cudaErrorInvalidValue;
-  }
 #define HPSDF_LAUNCH(D) \
-  march_kernel<D, true, 1><<<blocks, kThreads, 0, st>>>(sc, ry, width, kk)
+  march_kernel<D><<<blocks, kThreads, 0, st>>>(sc, ry, width, kk)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
   return (int)cudaGetLastError();

@@ -265,16 +265,28 @@ def _march_block(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
 # Kernel K3
 # --------------------------------------------------------------------------
 
+def _tile_width(width: int, n_rays: int) -> int:
+    """The image width K3 tiles its warps by: ``width`` when the rays fill
+    whole 8x4 pixel tiles of an image that wide, else 0 (index order)."""
+    if width > 0 and width % 8 == 0 and n_rays % (4 * width) == 0:
+        return int(width)
+    return 0
+
+
+
 def march_kernel(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
                  max_steps: int = MAX_STEPS, step_cap=None,
                  omega: float = OMEGA, lo=None, with_stats: bool = False,
-                 form: int = 0, width: int = 0):
-    """Launch K3 on CUDA tensors: what ``_march_block`` computes, each ray
-    its own loop. Returns (t (B,) f32, hit (B,) bool, kk (2,) int32 on the
+                 width: int = 0):
+    """Launch K3 on CUDA tensors: what ``_march_block`` computes, one thread
+    per ray. Returns (t (B,) f32, hit (B,) bool, kk (2,) int32 on the
     device) and, ``with_stats``, the (B, 6) int32 per-ray counts of
     ``STATS``. ``origins`` is (B, 3) contiguous, or one origin expanded to
-    (B, 3) (stride 0 over the rays), which the kernel reads in place. Raises
-    on anything else."""
+    (B, 3) (stride 0 over the rays), which the kernel reads in place.
+    ``width`` says that the rays are the pixels of an image that wide in
+    raster order: a warp then marches an 8x4 pixel tile and not a 32x1
+    strip, where the image's size allows (``_tile_width``); no result
+    depends on it. Raises on anything but CUDA tensors."""
     dev = origins.device
     if dev.type != "cuda":
         raise ValueError(f"march_kernel needs CUDA tensors, got {dev}")
@@ -320,7 +332,7 @@ def march_kernel(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
         float(np.float32(0.0 if step_cap is None else step_cap)),
         int(step_cap is not None), float(np.float32(omega)), int(relax_on),
         t.data_ptr(), hit.data_ptr(), kk.data_ptr(),
-        None if stats is None else stats.data_ptr(), int(form), int(width),
+        None if stats is None else stats.data_ptr(), _tile_width(width, B),
         _kernels.stream_of(origins)), "march")
     march_kernel.launches += 1
     return (t, hit, kk, stats) if with_stats else (t, hit, kk)
@@ -330,10 +342,12 @@ march_kernel.launches = 0
 
 
 def _march(pt: PackedTree, origins, dirs, t_max, hit_eps, max_steps,
-           step_cap=None):
-    fn = _march_block if origins.device.type == "cpu" else march_kernel
-    return fn(pt, origins, dirs, t_max, hit_eps, max_steps, step_cap,
-              lo=_lo_of(pt))
+           step_cap=None, width: int = 0):
+    if origins.device.type == "cpu":
+        return _march_block(pt, origins, dirs, t_max, hit_eps, max_steps,
+                            step_cap, lo=_lo_of(pt))
+    return march_kernel(pt, origins, dirs, t_max, hit_eps, max_steps,
+                        step_cap, lo=_lo_of(pt), width=width)
 
 
 def trace(tree: Octree, origins, dirs, t_max: float = 10.0,
@@ -410,7 +424,8 @@ def render(tree: Octree, eye, look_at, up=(0.0, 1.0, 0.0),
         packed = pack_tree(tree)
     origins, dirs = camera_rays(eye, look_at, up, fov_deg, width, height,
                                 device=packed.device)
-    t, hit, _ = _march(packed, origins, dirs, t_max, HIT_EPS, max_steps)
+    t, hit, _ = _march(packed, origins, dirs, t_max, HIT_EPS, max_steps,
+                       width=width)
     p = origins + t[..., None] * dirs
     normals = _normals_at(packed, p)
     lam = torch.clamp(-torch.sum(normals * dirs, dim=-1), min=0.0)

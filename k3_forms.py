@@ -12,10 +12,15 @@ the first two, the render path's 512^2 on the carved one):
     relocations that found the row held, SIMT efficiency of 32x1 strips and
     8x4 tiles;
   * holds every form of K3 to the reference kernel bit for bit (t, hit, kk);
-  * times the forms in turns in CUDA graphs, two turns: the reference, and
-    one thread a ray with the row held in registers or only its frame (the
-    coefficients read at every step), in index order or with a warp on an
-    8x4 pixel tile, compiled for 1, 8 or 12 resident blocks an SM;
+  * times in turns in CUDA graphs, two turns: the reference, and the
+    kernel in index order (a warp on a 32x1 strip) and with a warp on an
+    8x4 pixel tile;
+  * times the kernel in index order on the same rays with their blocks of
+    128 reordered: the blocks with the longest rays first, last, and at
+    random, and with the rays sorted by their rounds, longest first (what
+    the order of launch and the evenness of warps are worth);
+  * writes the SASS of the degree-3 kernel and of the reference's, with
+    their instruction counts;
   * times a one-ray launch of the longest ray (the serial floor);
   * times, on the host, what trace and render do around the kernel: the LOD
     tables' rebuild, the copy of the expanded origins, render_image.
@@ -26,6 +31,7 @@ Writes chiprun_out/k3_forms.json and prints one line a measurement.
 import json
 import os
 import re
+import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -35,10 +41,8 @@ import torch
 
 import chip_smoke as cs
 
-FORMS = [("reference", None)] + [
-    (f"{'tile8x4' if tile else 'strip'}/{'stream' if stream else 'held'}/"
-     f"{(1, 8, 12)[blocks]} blocks", dict(form=tile + 2 * stream + 4 * blocks))
-    for blocks in (0, 1, 2) for stream in (0, 1) for tile in (0, 1)]
+FORMS = [("reference", None), ("strips", dict(width=0)),
+         ("tiles 8x4", None)]          # the tiles' width is the image's
 REPS = 10
 
 
@@ -69,10 +73,9 @@ def ptxas_k3():
             + r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
             r"(\d+) bytes spill loads" + within + r"Used (\d+) registers",
             _kernels.ptxas_report(), flags=re.S):
-        k = re.search(r"march_kernelILi(\d+)ELb([01])ELi(\d+)E", m.group(1))
+        k = re.search(r"march_kernelILi(\d+)E", m.group(1))
         if k:
-            key = f"{'held' if k.group(2) == '1' else 'stream'}/{k.group(3)}"
-            found.setdefault(key, {})[int(k.group(1))] = [
+            found.setdefault("march_kernel", {})[int(k.group(1))] = [
                 int(m.group(5)), int(m.group(2)), int(m.group(3)),
                 int(m.group(4))]
     return found
@@ -142,14 +145,14 @@ def main():
               f"{pt.extra_rounds}, LOD {lo is not None}, kk {res['kk']}: "
               + json.dumps(res["stats"]), flush=True)
         for label, form in FORMS[1:]:
-            form = dict(form, width=width)
+            form = form or dict(width=width)
             cs.check_k3_exact(args, kw, f"{name} {label}", **form)
             for extra in (dict(omega=1.0), dict(step_cap=0.02)):
                 a4 = (pt, o[::4].contiguous(), d[::4].contiguous(), cs.T_MAX,
                       HIT_EPS, MAX_STEPS)
                 cs.check_k3_exact(a4, dict(kw, **extra),
                                   f"{name} {label} {extra}",
-                                  **dict(form, width=width // 4))
+                                  width=form["width"] // 4)
         # the shared origin read in place gives the same result
         got = march_kernel(pt, o, d, cs.T_MAX, HIT_EPS, MAX_STEPS, **kw)
         cs.check(o.stride(0) == 0 and all(
@@ -159,25 +162,46 @@ def main():
               flush=True)
         for turn in range(2):
             for label, form in FORMS:
-                if form is None:
+                if label == "reference":
                     fn = lambda: cs.march_reference(*args, **kw)
                 else:
                     fn = lambda: march_kernel(*args, **kw,
-                                              **dict(form, width=width))
+                                              **(form or dict(width=width)))
                 res["times_ms"].setdefault(label, []).append(
                     cs.graph_ms(fn, REPS))
         print(f"[times] {name}: " + json.dumps(res["times_ms"]), flush=True)
+        # the same rays, their blocks of 128 or the rays themselves reordered
+        rounds = (stats[:, 2] + stats[:, 3]).long()
+        by_block = rounds.reshape(-1, 128).max(dim=1).values
+        gen_ = torch.Generator(device="cpu").manual_seed(0)
+        orders = {
+            "blocks, longest first": torch.argsort(by_block, descending=True),
+            "blocks, longest last": torch.argsort(by_block),
+            "blocks, random": torch.randperm(by_block.numel(),
+                                             generator=gen_).to(dev)}
+        res["order_ms"] = {}
+        for label, order in orders.items():
+            dp = d.reshape(-1, 128, 3)[order].reshape(-1, 3).contiguous()
+            res["order_ms"][label] = [cs.graph_ms(lambda: march_kernel(
+                pt, o, dp, cs.T_MAX, HIT_EPS, MAX_STEPS, **kw), REPS)
+                for _ in range(2)]
+        dp = d[torch.argsort(rounds, descending=True)].contiguous()
+        res["order_ms"]["rays sorted, longest first"] = [
+            cs.graph_ms(lambda: march_kernel(
+                pt, o, dp, cs.T_MAX, HIT_EPS, MAX_STEPS, **kw), REPS)
+            for _ in range(2)]
+        print(f"[order] {name}: " + json.dumps(res["order_ms"]), flush=True)
         # by events around the wrapper, as chip_smoke.py timed K3 before
         res["events_ms"] = {
             "reference": cs.time_ms(lambda: cs.march_reference(
                 pt, o, d, cs.T_MAX, HIT_EPS, MAX_STEPS, **kw), 5),
-            "thread/kept, expanded origin": cs.time_ms(lambda: march_kernel(
+            "strips, expanded origin": cs.time_ms(lambda: march_kernel(
                 pt, o, d, cs.T_MAX, HIT_EPS, MAX_STEPS, **kw), 5)}
+        print(f"[events] {name}: " + json.dumps(res["events_ms"]), flush=True)
         # the serial floor: the longest ray alone, beside a ray that misses
         j = res["stats"]["longest_ray"]
         far = torch.tensor([[0.0, 1.0, 0.0]], device=dev)
-        for label, form in (("held/1 blocks", dict(form=0)),
-                            ("stream/8 blocks", dict(form=6))):
+        for label, form in (("strips", dict(width=0)),):
             one = cs.graph_ms(lambda: march_kernel(
                 pt, o[j:j + 1].contiguous(), d[j:j + 1].contiguous(),
                 cs.T_MAX, HIT_EPS, MAX_STEPS, **kw, **form), REPS)
@@ -205,6 +229,21 @@ def main():
         {n: out["cases"][n]["host_ms"]["render_512"]
          for n in ("refdefault", "carved")}), flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
+    out["sass_instructions"] = {}
+    for sub, fn_name in (("", "march_kernelILi3E"),
+                         ("check", "march_kernelILi3E")):
+        text = subprocess.run(
+            [os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump"),
+             "-sass", _kernels.library_path(sub)],
+            capture_output=True, text=True).stdout
+        body = [f for f in text.split("Function : ")[1:] if fn_name in f]
+        out["sass_instructions"][sub or "kernels"] = [
+            len(re.findall(r"/\*[0-9a-f]{4}\*/", f)) for f in body]
+        with open(f"chiprun_out/k3_sass_{sub or 'kernels'}_deg3.txt",
+                  "w") as fh:
+            fh.write("Function : ".join([""] + body))
+    print("[sass] degree-3 instructions: "
+          + json.dumps(out["sass_instructions"]), flush=True)
     with open("chiprun_out/k3_forms.json", "w") as fh:
         json.dump(out, fh, indent=1)
     return 0
