@@ -24,9 +24,18 @@ both trees are traced at 1024^2 rays. K3 and K5 are held against their
 plain versions once more on the carved tree and the 512^2 rays that
 render_image traced. K2 is also timed where the main path runs it, on the
 carve's largest F batch (the points as_sdf's packed F reads), and K5 on
-the render's hit points; K2/K5 and K1 are held against their plain versions
-at every basis degree 0..12 on synthetic depth-2 trees (rows of 16 to 464
-lanes).
+the render's hit points; K2/K5, K1 and K3 are held against their plain
+versions at every basis degree 0..12 on synthetic depth-2 trees (rows of 16
+to 464 lanes).
+
+K3 is also held, bit for bit (t, hit, kk), against the kernel it replaced
+(csrc/check/march_reference.cu, built here into a library of its own, on no
+path of the package), wherever it is checked: a ray's march is a function
+of that ray alone, so a redesign may change the schedule and how a row
+reaches the registers, and no result. From K3's per-ray counts [k3] prints
+what the rays did (steps, relocations that found the row already held, the
+SIMT efficiency of 32x1 strips and 8x4 tiles), the bound on that work, and
+the serial floor: the longest ray marched alone.
 
 P1 is also held against its plain version on the main path's own points
 (the largest F batch of the slice fit) and timed there with and without its
@@ -35,17 +44,20 @@ scan bit for bit, on the fit's whole batch too. Every kernel's time stands
 beside its bound on this card: the operations (P1, f32, on the pairs its
 blocks scanned, with the dense pairs beside; K1, f64, beside its bytes) or
 the bytes (each input read once, each output written once) over the H100's
-published peak; G's also beside torch.index_select on in-range indices,
-which the port never calls. K1 and K2/K5 run for microseconds, less than a
-call through their wrappers costs the host, so they are timed in CUDA
-graphs; the others by CUDA events around repeated calls. The build's ptxas
-report gives K1's and K2/K5's registers, stack and spills; K1's degree-3
-and degree-5 instantiations must have no stack frame and no spills.
+published peak (K3: the larger of its bytes and the f32 operations of the
+steps its rays took); G's also beside torch.index_select on in-range
+indices, which the port never calls. K1, K2/K5 and K3 run for less than a
+call through their wrappers costs the host, or not much more, so they are
+timed in CUDA graphs; the others by CUDA events around repeated calls. The
+build's ptxas report gives K1's, K2/K5's and K3's registers, stack and
+spills; K1's and K3's degree-3 and degree-5 instantiations must have no
+stack frame and no spills.
 
 Phases, one line each: device, build, ptxas, P1 vs plain, the slice, P1 at
 the fit batch, K1 vs plain, times, G vs plain, the reference-default fit,
-K2/K5 vs plain, K3 vs plain, the render path, K2/K5 at the main path's
-shapes, the degrees; then one JSON line with the kernels (K2/K5's launches
+K2/K5 vs plain, K3 vs plain (three lines a tree: checks and rays, times
+and bound, serial floor), the render path, K2/K5 at the main path's shapes,
+the degrees; then one JSON line with the kernels (K2/K5's launches
 also split into values and normals), the card's name and power limit as
 nvidia-smi prints them, and the final JSON line
 {"ok": true, "device": {...}}. Any failed check raises and the exit code is
@@ -58,6 +70,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -621,12 +634,13 @@ def march_reference(pt, origins, dirs, t_max, hit_eps, max_steps,
     return t, hit, kk
 
 
-def check_k3_exact(args, kw, label, **form):
-    """The shipped K3 against the kernel it replaced, on the same inputs:
-    t, hit and kk bit for bit. Returns the shipped kernel's (t, hit, kk)."""
+def check_k3_exact(args, kw, label, width=0):
+    """K3 against the kernel it replaced, on the same inputs: t, hit and kk
+    bit for bit. ``width``: the image's, as render gives it to K3 (0: index
+    order). Returns K3's (t, hit, kk)."""
     from hpsdf_tpu_torch.render import march_kernel
 
-    got = march_kernel(*args, **kw, **form)
+    got = march_kernel(*args, **kw, width=width)
     want = march_reference(*args, **kw)
     sync()
     for g, w, what in zip(got, want, ("t", "hit", "kk")):
@@ -692,24 +706,32 @@ def k3_stats(stats, width, deg):
     return out
 
 
-def phase_k3(pt, name, sphere, lod_expected):
-    """K3 against the plain march at 1024^2 rays from (0, 0, -1.8), T_MAX 5
-    (bench.py's protocol), and at every 4th of those rays with omega 1 and
-    with a step cap. Hits must also lie on the analytic sphere. Returns
-    (max t error on common hits, times, kk, hit fraction)."""
-    from hpsdf_tpu_torch.render import (HIT_EPS, MAX_STEPS, _lo_of,
-                                        _march_block, camera_rays,
-                                        march_kernel)
+def phase_k3(pt, name, sphere, lod_expected, smi):
+    """K3 at 1024^2 rays from (0, 0, -1.8), T_MAX 5 (bench.py's protocol),
+    and at every 4th of those rays with omega 1 and with a step cap:
+    against the plain march (hits must also lie on the analytic sphere) and,
+    bit for bit, against the kernel it replaced, with a warp on an 8x4 tile
+    (as render gives it) and in index order. Then what the rays did, from
+    the kernel's per-ray counts; the kernel and the one it replaced timed in
+    turns in CUDA graphs; the bound on these rays' work; and the serial
+    floor, the longest ray alone. Returns (max t error on common hits,
+    times and counts, kk, hit fraction)."""
+    from hpsdf_tpu_torch.render import (HIT_EPS, MAX_STEPS, _march_block,
+                                        camera_rays, march_kernel)
 
-    o, d = camera_rays((0.0, 0.0, -1.8), (0.0, 0.0, 0.0), width=RAYS_SIDE,
-                       height=RAYS_SIDE, device=pt.device)
-    lo = _lo_of(pt)
+    side = RAYS_SIDE
+    o, d = camera_rays((0.0, 0.0, -1.8), (0.0, 0.0, 0.0), width=side,
+                       height=side, device=pt.device)
+    lo = pt.lo
     check((lo is not None) == lod_expected, f"LOD tables ({name})")
     args = (pt, o, d, T_MAX, HIT_EPS, MAX_STEPS)
-    t_k, h_k, kk_k = march_kernel(*args, lo=lo)
+    t_k, h_k, kk_k = check_k3_exact(args, dict(lo=lo), f"{name}, 8x4 tiles",
+                                    width=side)
+    check_k3_exact(args, dict(lo=lo), f"{name}, index order")
+    *_, stats = march_kernel(*args, lo=lo, with_stats=True, width=side)
     sync()
     t0 = time.perf_counter()
-    t_p, h_p, kk_p = _march_block(*args, lo=lo)
+    t_p, h_p, kk_p, stats_p = _march_block(*args, lo=lo, with_stats=True)
     sync()
     plain_ms = (time.perf_counter() - t0) * 1e3
     agree = float((h_k == h_p).float().mean())
@@ -727,13 +749,21 @@ def phase_k3(pt, name, sphere, lod_expected):
     c = torch.as_tensor(sphere[0], device=p.device)
     r_err = float((torch.linalg.norm(p - c, dim=-1) - sphere[1]).abs().max())
     check(r_err <= SPHERE_T_ATOL, f"K3 hits on the sphere ({name}): {r_err}")
+    # the rays' counts: the kernel's against the plain march's (steps and
+    # relocations; the two tell kept rows apart differently)
+    st = k3_stats(stats, side, pt.deg_used)
+    same = float((stats[:, :4] == stats_p[:, :4]).all(dim=1).float().mean())
+    check(same >= HIT_AGREE, f"K3 per-ray counts vs plain ({name}): {same}")
+    check([int(stats[:, 2].max()), int(stats[:, 3].max())] == kk,
+          f"K3 per-ray relocations against kk ({name})")
     # the kernel's other branches, at 256^2: no over-relaxation, and a step
     # cap (which also turns relaxation off)
-    o4, d4 = o.reshape(RAYS_SIDE, RAYS_SIDE, 3)[::4, ::4].reshape(-1, 3), \
-        d.reshape(RAYS_SIDE, RAYS_SIDE, 3)[::4, ::4].reshape(-1, 3)
+    o4, d4 = o.reshape(side, side, 3)[::4, ::4].reshape(-1, 3), \
+        d.reshape(side, side, 3)[::4, ::4].reshape(-1, 3)
     for kw in (dict(omega=1.0), dict(step_cap=0.02)):
         a4 = (pt, o4, d4, T_MAX, HIT_EPS, MAX_STEPS)
-        tv_k, hv_k, _ = march_kernel(*a4, lo=lo, **kw)
+        tv_k, hv_k, _ = check_k3_exact(a4, dict(lo=lo, **kw),
+                                       f"{name} with {kw}", width=side // 4)
         tv_p, hv_p, _ = _march_block(*a4, lo=lo, **kw)
         bv = hv_k & hv_p
         check(float((hv_k == hv_p).float().mean()) >= HIT_AGREE
@@ -741,21 +771,72 @@ def phase_k3(pt, name, sphere, lod_expected):
               and float((tv_k[bv] - tv_p[bv]).abs().max()) <= T_ATOL,
               f"K3 vs plain with {kw} ({name})")
         t_err = max(t_err, float((tv_k[bv] - tv_p[bv]).abs().max()))
-    ms = time_ms(lambda: march_kernel(*args, lo=lo), 5)
-    # the packed rows, the grid, the LOD tables and the rays read once, t and
-    # hit written once
-    bound = bytes_ms(pt.rows, pt.grid, o, d, *(lo or ()),
-                     extra=5 * o.shape[0])
+    # times, in turns in CUDA graphs: the kernel it replaced (on origins
+    # copied beforehand), K3 as render calls it, K3 in index order
+    oc = o.contiguous()
+    forms = {"reference": lambda: march_reference(pt, oc, d, *args[3:],
+                                                  lo=lo),
+             "tiles": lambda: march_kernel(*args, lo=lo, width=side),
+             "strips": lambda: march_kernel(*args, lo=lo)}
+    ms = {k: [] for k in forms}
+    for _ in range(2):
+        for k, fn in forms.items():
+            ms[k].append(graph_ms(fn, 10))
+    ms = {k: min(v) for k, v in ms.items()}
+    # the bound: the packed rows, the grid, the LOD tables, the origin and
+    # the directions read once, t and hit written once; and these rays'
+    # steps as f32 operations
+    n = o.shape[0]
+    by_bytes = bytes_ms(pt.rows, pt.grid, d, *(lo or ()), extra=12 + 5 * n)
+    by_ops = st["ops"] / F32_PEAK * 1e3
+    # the serial floor: the longest ray alone, beside a ray that misses the
+    # root (a launch and the fill of kk)
+    j = st["longest_ray"]
+    away = torch.tensor([[0.0, 1.0, 0.0]], device=pt.device)
+    one, miss = (min(graph_ms(lambda: march_kernel(
+        pt, o[j:j + 1], dj, *args[3:], lo=lo), 10) for _ in range(2))
+        for dj in (d[j:j + 1], away))
     frac = float(h_k.float().mean())
-    mrays = o.shape[0] / (ms * 1e-3) / 1e6
-    print(f"[k3] {name}: {RAYS_SIDE}^2 rays, hit fraction {frac:.4f}, hit "
+    out = {"k3": ms["tiles"], "k3_strips": ms["strips"],
+           "k3_reference": ms["reference"], "k3_plain": plain_ms,
+           "mrays": n / (ms["tiles"] * 1e-3) / 1e6,
+           "k3_bound": max(by_bytes, by_ops),
+           "k3_bound_by": "bytes" if by_bytes >= by_ops else "operations",
+           "k3_bytes_bound": by_bytes, "k3_ops_bound": by_ops,
+           "k3_one_ray": one, "k3_miss": miss,
+           "k3_serial_floor": one - miss, "stats": st}
+    print(f"[k3] {name}: {side}^2 rays, hit fraction {frac:.4f}, hit "
           f"masks agree {agree:.6f}, max|t - plain| on common hits (with "
           f"the omega 1 and step-cap runs) "
           f"{t_err:.3e}, max|r_hit - R| {r_err:.3e}, kk kernel {kk} plain "
-          f"{[int(x) for x in kk_p]} | K3 {ms:.3f} ms ({mrays:.2f} Mrays/s),"
-          f" plain {plain_ms:.1f} ms (one run)", flush=True)
-    return (t_err, {"k3": ms, "k3_plain": plain_ms, "mrays": mrays,
-                    "k3_bound": bound}, kk, frac)
+          f"{[int(x) for x in kk_p]}, per-ray counts equal the plain "
+          f"march's on {same:.6f} of rays; t, hit and kk equal the kernel "
+          f"it replaced bit for bit (tiles, index order, omega 1, step cap) "
+          f"| steps {st['steps']} ({st['steps_lo']} LOD), mean "
+          f"{st['steps_mean']:.3f}, max {st['steps_max']}, rays by steps "
+          f"from {list(STEP_EDGES)}: {st['steps_hist']}; relocations "
+          f"{st['relocations']}, {st['kept_share']:.4f} found the row held; "
+          f"SIMT efficiency by steps, 32x1 strips "
+          f"{st['simt_strips_by_steps']:.4f}, 8x4 tiles "
+          f"{st['simt_tiles_by_steps']:.4f} (by rounds "
+          f"{st['simt_strips_by_rounds']:.4f}, "
+          f"{st['simt_tiles_by_rounds']:.4f})", flush=True)
+    print(f"[k3] {name}: {smi} | in CUDA graphs (best of 2 turns): the "
+          f"kernel it replaced {ms['reference']:.4f} ms, K3 "
+          f"{ms['tiles']:.4f} ms ({out['mrays']:.2f} Mrays/s; a warp on an "
+          f"8x4 tile), {ms['strips']:.4f} ms in index order; plain "
+          f"{plain_ms:.1f} ms (one run) | bound {out['k3_bound']:.5f} ms "
+          f"({out['k3_bound_by']}: {st['ops']} f32 operations, "
+          f"{k3_ops(pt.deg_used)} a step and {k3_ops(2, lo=True)} an LOD "
+          f"step; bytes {by_bytes:.5f} ms), "
+          f"{out['k3_bound'] / ms['tiles']:.1%} of it", flush=True)
+    print(f"[k3] {name}: serial floor, not the bound: the longest ray "
+          f"({st['longest_rounds']} rounds) alone {one:.4f} ms, a ray that "
+          f"misses the root {miss:.4f} ms, so "
+          f"{(one - miss) / st['longest_rounds'] * 1e3:.3f} us a round and "
+          f"{one - miss:.4f} ms, {(one - miss) / ms['tiles']:.1%} of K3's "
+          f"time", flush=True)
+    return t_err, out, kk, frac
 
 
 def phase_render(tree, out_dir):
@@ -767,8 +848,7 @@ def phase_render(tree, out_dir):
     the carved tree's packed tables, the render's hit points)."""
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch.accel import normals_plain, packed_eval_kernel
-    from hpsdf_tpu_torch.render import (HIT_EPS, MAX_STEPS, _lo_of,
-                                        _march_block, march_kernel)
+    from hpsdf_tpu_torch.render import HIT_EPS, MAX_STEPS, _march_block
     from hpsdf_tpu_torch.viz import write_bmp
 
     def box(p):
@@ -842,9 +922,11 @@ def phase_render(tree, out_dir):
     # K3 and K5 on the tree and rays render_image gave them, against the
     # plain march and normals (these launches come after the counts)
     pt = T.pack_tree(carved)
-    lo = _lo_of(pt)
+    lo = pt.lo
     args = (pt, o, dirs, T_MAX, HIT_EPS, MAX_STEPS)
-    t_k, h_k, kk_k = march_kernel(*args, lo=lo)
+    t_k, h_k, kk_k = check_k3_exact(args, dict(lo=lo), "the render's rays",
+                                    width=view["width"])
+    check_k3_exact(args, dict(lo=lo), "the render's rays, index order")
     t_p, h_p, kk_p = _march_block(*args, lo=lo)
     check(bool(torch.equal(h_k, h_r))
           and bool(torch.equal(t_k[h_k], depth.reshape(-1)[h_r])),
@@ -877,7 +959,8 @@ def phase_render(tree, out_dir):
           f"max|query - carve| {csg_err:.3e}, |carve(hit)| max "
           f"{surf_err:.3e} 99% {surf_q99:.3e}; K3 vs plain on these rays: "
           f"hit masks agree {agree:.6f}, max|t - plain| on common hits "
-          f"{t_err:.3e}, kk kernel {kk} plain {kk_p.tolist()}; K5 normals "
+          f"{t_err:.3e}, kk kernel {kk} plain {kk_p.tolist()}, equal to the "
+          f"kernel it replaced bit for bit; K5 normals "
           f"min dot {dot_min:.8f} over {int(both.sum())} hits; images and "
           f"tree under {os.path.relpath(out_dir)}, save/load bit-exact, "
           f"launches {launches}", flush=True)
@@ -930,6 +1013,8 @@ def phase_k2_main(pt_s, carve_pts, pt_c, ph):
 
 SYNTH_ROOT = ((-0.25, -0.25, -0.25), (1.75, 1.75, 1.75))
 N_SYNTH = 4096
+SYNTH_T_MAX = 8.0                   # rays from 2.75 in front of the root
+SYNTH_T_ATOL = 0.05                 # K3 t on common hits, synthetic fields
 
 
 def synthetic_tree(degree, seed):
@@ -967,10 +1052,13 @@ def synthetic_tree(degree, seed):
 def phase_degrees(dev, seed=7):
     """K2, K5 and K1 (values and gradient) against their plain versions at
     every basis degree 0..12, on synthetic_tree with one descent below a
-    depth-1 grid (rows of 16 to 464 lanes: K2/K5 stage the rows above 64
-    lanes in chunks, K1 those above 32 coefficients), at N_SYNTH points
-    straddling the root. Returns (max K2 error, min K5 dot, max K1 value
-    error, max K1 gradient error)."""
+    depth-1 grid (rows of 16 to 464 lanes: K2/K5 read the rows above 64
+    lanes a term at a time, K1 stages those above 32 coefficients), at
+    N_SYNTH points straddling the root; and K3 on N_SYNTH rays through each
+    tree (its LOD phase from degree 4, its wide rows from degree 6), against
+    the plain march and, bit for bit, against the kernel it replaced.
+    Returns (max K2 error, min K5 dot, max K1 value error, max K1 gradient
+    error, max K3 t error on common hits)."""
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch import tree as TT
     from hpsdf_tpu_torch.accel import (F32_MAX, normals_plain,
@@ -979,7 +1067,14 @@ def phase_degrees(dev, seed=7):
     from hpsdf_tpu_torch.query import (OUTSIDE_VALUE, query_kernel,
                                        query_plain,
                                        query_with_gradient_plain)
+    from hpsdf_tpu_torch.render import (HIT_EPS, MAX_STEPS, _march_block,
+                                        camera_rays)
 
+    side = int(N_SYNTH ** 0.5)
+    mid = tuple(0.5 * (a + b) for a, b in zip(*SYNTH_ROOT))
+    o, d = camera_rays((mid[0], mid[1], SYNTH_ROOT[0][2] - 2.75), mid,
+                       width=side, height=side, device=dev)
+    k3_err, k3_hits = 0.0, 0
     cfg = T.Config(continuity=False, root_min=SYNTH_ROOT[0],
                    root_max=SYNTH_ROOT[1])
     lo, hi = np.asarray(SYNTH_ROOT[0]), np.asarray(SYNTH_ROOT[1])
@@ -1027,20 +1122,46 @@ def phase_degrees(dev, seed=7):
               f"K1 vs plain at degree {deg}: values {e:.3e}, unit gradients "
               f"{eg:.3e}")
         k1_err, k1g_err = max(k1_err, e), max(k1g_err, eg)
+        lo_t = pt.lo
+        check((lo_t is not None) == (deg > 3), f"LOD tables at degree {deg}")
+        args = (pt, o, d, SYNTH_T_MAX, HIT_EPS, MAX_STEPS)
+        t_k, h_k, kk_k = check_k3_exact(args, dict(lo=lo_t),
+                                        f"degree {deg}", width=side)
+        check_k3_exact(args, dict(lo=lo_t), f"degree {deg}, index order")
+        t_p, h_p, kk_p = _march_block(*args, lo=lo_t)
+        both = h_k & h_p
+        agree = float((h_k == h_p).float().mean())
+        # a random polynomial is no distance field: where a ray crosses its
+        # zero at a shallow slope, the 1e-4 hit test spreads t widely, so t
+        # is held to T_ATOL on all but 0.5% of common hits and to
+        # SYNTH_T_ATOL on all
+        te = (t_k[both] - t_p[both]).abs()
+        e = float(te.max()) if bool(both.any()) else 0.0
+        near = float((te <= T_ATOL).float().mean()) if bool(both.any()) \
+            else 1.0
+        check(agree >= HIT_AGREE and near >= HIT_AGREE and e <= SYNTH_T_ATOL
+              and kk_k.tolist() == kk_p.tolist(),
+              f"K3 vs plain at degree {deg}: hit masks agree {agree}, t "
+              f"within {T_ATOL} on {near}, max {e:.3e}, kk {kk_k.tolist()} "
+              f"plain {kk_p.tolist()}")
+        k3_err, k3_hits = max(k3_err, e), k3_hits + int(both.sum())
+    check(k3_hits > 0, "K3 hits on the synthetic trees")
     print(f"[degrees] 0..12, {N_SYNTH} pts each on a depth-2 tree (rows "
           f"{T.pack_tree(tree).width} lanes at 12): K2 max|v - plain|/"
           f"max(1,|v|) {k2_err:.3e}, K5 min dot {k5_dot:.8f}, K1 max|value "
-          f"- plain| {k1_err:.3e}, max|unit grad - plain| {k1g_err:.3e}",
-          flush=True)
-    return k2_err, k5_dot, k1_err, k1g_err
+          f"- plain| {k1_err:.3e}, max|unit grad - plain| {k1g_err:.3e}; K3 "
+          f"on {side}^2 rays through each: max|t - plain| on {k3_hits} "
+          f"common hits {k3_err:.3e}, t, hit and kk equal the kernel it "
+          f"replaced bit for bit", flush=True)
+    return k2_err, k5_dot, k1_err, k1g_err, k3_err
 
 
 def ptxas_check():
-    """Registers, stack and spills of K1's and K2/K5's instantiations, as
-    ptxas reported them when the library was built. K1 at degrees 3 and 5
-    (the main path's) must have no stack frame and no spills. Returns
-    {kernel: {"deg/values|grad": [registers, stack, spill stores, spill
-    loads]}}."""
+    """Registers, stack and spills of K1's, K2/K5's and K3's instantiations,
+    as ptxas reported them when the library was built. K1 and K3 at degrees
+    3 and 5 (the main paths') must have no stack frame and no spills.
+    Returns {kernel: {"deg/values|grad" (K3: "deg"): [registers, stack,
+    spill stores, spill loads]}}."""
     import re
     from hpsdf_tpu_torch import _kernels
 
@@ -1052,21 +1173,27 @@ def ptxas_check():
             + r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
             r"(\d+) bytes spill loads" + within + r"Used (\d+) registers",
             text, flags=re.S):
-        k = re.search(r"(query_kernel|packed_eval_kernel)ILi(\d+)ELb([01])E",
-                      m.group(1))
+        k = re.search(r"(query_kernel|packed_eval_kernel|march_kernel)"
+                      r"ILi(\d+)E(?:Lb([01])E)?", m.group(1))
         if k:
-            found.setdefault(k.group(1), {})[
-                f"{k.group(2)}/{'grad' if k.group(3) == '1' else 'values'}"] \
-                = [int(m.group(5)), int(m.group(2)), int(m.group(3)),
-                   int(m.group(4))]
-    k1 = found.get("query_kernel", {})
-    for key in ("3/values", "3/grad", "5/values", "5/grad"):
-        check(key in k1, f"ptxas report for K1 {key}")
-        check(k1[key][1:] == [0, 0, 0],
-              f"K1 {key}: stack {k1[key][1]} B, spills {k1[key][2:]}")
+            key = k.group(2) if k.group(3) is None else \
+                f"{k.group(2)}/{'grad' if k.group(3) == '1' else 'values'}"
+            found.setdefault(k.group(1), {})[key] = [
+                int(m.group(5)), int(m.group(2)), int(m.group(3)),
+                int(m.group(4))]
+    for name, kernel, keys in (
+            ("K1", "query_kernel", ("3/values", "3/grad", "5/values",
+                                    "5/grad")),
+            ("K3", "march_kernel", ("3", "5"))):
+        got = found.get(kernel, {})
+        for key in keys:
+            check(key in got, f"ptxas report for {name} {key}")
+            check(got[key][1:] == [0, 0, 0], f"{name} {key}: stack "
+                  f"{got[key][1]} B, spills {got[key][2:]}")
     print(f"[ptxas] registers / stack / spill stores / spill loads (bytes): "
-          f"K1 {k1} | K2/K5 {found.get('packed_eval_kernel', {})}",
-          flush=True)
+          f"K1 {found['query_kernel']} | K2/K5 "
+          f"{found.get('packed_eval_kernel', {})} | K3 "
+          f"{found['march_kernel']}", flush=True)
     return found
 
 
@@ -1095,9 +1222,14 @@ def main():
 
     # --- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    _kernels.load()
+    with ThreadPoolExecutor(2) as pool:       # both libraries together
+        for job in [pool.submit(_kernels.load),
+                    pool.submit(_kernels.load_check)]:
+            job.result()
     print(f"[build] {len(_kernels.sources())} sources -> "
-          f"{os.path.relpath(_kernels.library_path())} in "
+          f"{os.path.relpath(_kernels.library_path())}, and the reference "
+          f"kernel of the K3 check -> "
+          f"{os.path.relpath(_kernels.library_path('check'))}, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     ptxas = ptxas_check()
 
@@ -1162,9 +1294,8 @@ def main():
     sphere_s = (np.zeros(3), 0.3)
     k2_err, k5_dot, tk2 = phase_k2(pt_s, "slice", sphere_s)
     k2r_err, k5r_dot, tk2r = phase_k2(pt_r, "refdefault", sphere_r)
-    k3_err, tk3, _, _ = phase_k3(pt_s, "slice", sphere_s, lod_expected=False)
-    k3r_err, tk3r, kkr, _ = phase_k3(pt_r, "refdefault", sphere_r,
-                                     lod_expected=True)
+    k3_err, tk3, _, _ = phase_k3(pt_s, "slice", sphere_s, False, smi)
+    k3r_err, tk3r, kkr, _ = phase_k3(pt_r, "refdefault", sphere_r, True, smi)
 
     # --- 9. the render path ------------------------------------------------
     launches_r, tr, frac, k3c_err, k5c_dot, carve_pts, pt_c, ph = \
@@ -1172,7 +1303,7 @@ def main():
     k2m_err, k5m_dot, tk2m = phase_k2_main(pt_s, carve_pts, pt_c, ph)
 
     # --- 10. K2/K5 and K1 at every degree ----------------------------------
-    k2d_err, k5d_dot, k1d_err, k1gd_err = phase_degrees(dev)
+    k2d_err, k5d_dot, k1d_err, k1gd_err, k3d_err = phase_degrees(dev)
 
     total = {k: launches[k] + launches_r[k] for k in launches}
     g_probe = tg[f"{G_TABLE[0]}x{G_TABLE[1]}"]
@@ -1235,13 +1366,25 @@ def main():
          "source": "hpsdf_tpu_torch/csrc/march.cu",
          "replaces": "hpsdf_tpu/render.py:649",
          "launches": total["march"],
-         "max_abs_err": max(k3_err, k3r_err, k3c_err),
+         "max_abs_err": max(k3_err, k3r_err, k3c_err, k3d_err),
          "ms": tk3["k3"], "plain_ms": tk3["k3_plain"],
-         "bound_ms": tk3["k3_bound"], "bound_by": "bytes", "library_ms": None,
-         "mrays_s": tk3["mrays"], "refdefault_ms": tk3r["k3"],
+         "bound_ms": tk3["k3_bound"], "bound_by": tk3["k3_bound_by"],
+         "library_ms": None, "mrays_s": tk3["mrays"],
+         **{f"{pre}{k}": v for pre, t3 in (("", tk3), ("refdefault_", tk3r))
+            for k, v in (("bytes_bound_ms", t3["k3_bytes_bound"]),
+                         ("ops_bound_ms", t3["k3_ops_bound"]),
+                         ("index_order_ms", t3["k3_strips"]),
+                         ("replaced_kernel_ms", t3["k3_reference"]),
+                         ("one_ray_ms", t3["k3_one_ray"]),
+                         ("miss_ray_ms", t3["k3_miss"]),
+                         ("serial_floor_ms", t3["k3_serial_floor"]),
+                         ("rays", t3["stats"]))},
+         "refdefault_ms": tk3r["k3"],
          "refdefault_plain_ms": tk3r["k3_plain"],
          "refdefault_bound_ms": tk3r["k3_bound"],
-         "refdefault_mrays_s": tk3r["mrays"], "refdefault_kk": kkr},
+         "refdefault_bound_by": tk3r["k3_bound_by"],
+         "refdefault_mrays_s": tk3r["mrays"], "refdefault_kk": kkr,
+         "ptxas": ptxas.get("march_kernel", {})},
     ]
     print(f"[e2e] {smi} | carve {tr['carve_s']:.3f} s, render 512^2 "
           f"{tr['render_s']:.3f} s, hit fraction {frac:.4f} | 1024^2 march: "

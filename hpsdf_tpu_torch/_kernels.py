@@ -9,6 +9,10 @@ headers they share (``csrc/*.cuh``) and the flags, so a changed file
 rebuilds and an unchanged one is reused. Nothing is fetched: the sources
 are the package's own. What ptxas reports of each kernel (registers,
 stack frame, spills) is kept beside the library (``ptxas_report``).
+``csrc/check/`` holds reference kernels that no path of the package runs
+(an earlier form of a kernel, kept so that a check can hold the shipped one
+to it bit for bit); ``load_check`` builds them the same way into a library
+of their own.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an exception.

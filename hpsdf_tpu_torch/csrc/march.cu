@@ -24,10 +24,14 @@
 //     the single lockstep block's round counts.
 //
 // Bound. The row tables are a few MB and stay in the 50 MB L2, so device
-// memory is not what bounds the march. Its work is its rays' steps: a chain
-// of dependent operations a step (locate -> row -> value -> next t), a few
-// hundred f32 operations each, and a ray's chain is serial. What the design
-// does about it:
+// memory is not what bounds the march. Its work is its rays' steps, each a
+// chain of dependent f32 operations (locate -> frame -> recurrences -> the
+// serial product sum -> step logic; about 240 instructions and, for a ray
+// alone on the card, 0.3 us a round), and a ray's chain is serial. Rays are
+// short (about 5 steps on average at 1024^2) but a few graze the surface
+// for up to max_steps steps, so a launch is bound by instruction issue and
+// then by its last long rays, which run while other warps share their
+// schedulers. What the design does about it:
 //   * a row reaches the registers in 16-byte loads (the leaf frame as one
 //     float4 and one scalar, the coefficients as float4s), and stays there
 //     while the ray stays in the leaf: the locate runs at every relocation
@@ -37,12 +41,15 @@
 //   * a warp's time is its longest ray's, so when the rays are an image's
 //     pixels in raster order and the caller says how wide it is, a warp
 //     takes an 8x4 pixel tile and not a 32x1 strip: neighbours in both
-//     directions march alike.
+//     directions march alike, and fewer warps hold a long ray.
 // What was timed and lost (PERF.md): persistent warps that refill finished
 // lanes from a global counter (their retire and refill tests lengthen every
-// round's chain, and rays average 5 steps), holding only the leaf frame and
-// reading coefficients at every step, and register caps for more resident
-// warps (the march is bound by instruction issue, not by waiting).
+// round's chain, and with 5 steps a ray there is little idle time to win
+// back), holding only the leaf frame and reading the coefficients at every
+// step, and register caps for more resident warps (the march does not wait
+// on latency that more warps would hide). Every result is bit for bit that
+// of the form this one replaced (check/march_reference.cu): the schedule
+// and the way a row reaches the registers change, the arithmetic does not.
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -89,12 +89,6 @@ def _root_box(pt: PackedTree):
     return rc, half
 
 
-def _lo_of(pt: PackedTree):
-    """(lo_grid, lo_rows) LOD tables for the far-field phase, or None when
-    the tree is low-degree already."""
-    return pt.lo
-
-
 def _inner_steps_for(pt: PackedTree) -> int:
     """Steps per relocation in the full-row phase (hpsdf_tpu
     render.py:167-173)."""
@@ -273,7 +267,6 @@ def _tile_width(width: int, n_rays: int) -> int:
     return 0
 
 
-
 def march_kernel(pt: PackedTree, origins, dirs, t_max, hit_eps=HIT_EPS,
                  max_steps: int = MAX_STEPS, step_cap=None,
                  omega: float = OMEGA, lo=None, with_stats: bool = False,
@@ -345,9 +338,9 @@ def _march(pt: PackedTree, origins, dirs, t_max, hit_eps, max_steps,
            step_cap=None, width: int = 0):
     if origins.device.type == "cpu":
         return _march_block(pt, origins, dirs, t_max, hit_eps, max_steps,
-                            step_cap, lo=_lo_of(pt))
+                            step_cap, lo=pt.lo)
     return march_kernel(pt, origins, dirs, t_max, hit_eps, max_steps,
-                        step_cap, lo=_lo_of(pt), width=width)
+                        step_cap, lo=pt.lo, width=width)
 
 
 def trace(tree: Octree, origins, dirs, t_max: float = 10.0,

@@ -44,7 +44,7 @@ def _case(trees, case):
         case, {})
     lod = case == "lod"
     return (jp, tp, JR._lo_of(jp) if lod else None,
-            TR._lo_of(tp) if lod else None, kw)
+            tp.lo if lod else None, kw)
 
 
 @pytest.fixture(scope="module")
@@ -193,11 +193,33 @@ def test_k3_stats_summary(marched):
 def test_lod_tables_stay_with_the_packed_tree(trees):
     _, _, _, shallow = trees["shallow"]
     _, _, _, lod = trees["lod"]
-    assert shallow.lo is None and TR._lo_of(shallow) is None
-    lo = TR._lo_of(lod)
-    assert lo is TR._lo_of(lod) and lo is lod.lo        # made once
+    assert shallow.lo is None
+    lo = lod.lo
+    assert lo is lod.lo                                 # made once
     for got, tab in zip(lo, (lod.grid, lod.rows)):
         assert torch.equal(got, TA.lo_pack(tab))
     # new tables start afresh
     again = dataclasses.replace(lod, rows=lod.rows.clone())
     assert again.lo is not lo and torch.equal(again.lo[1], lo[1])
+
+
+def test_reference_kernel_is_on_no_path():
+    """The kernel K3 replaced is built into a library of its own, which no
+    module of the package loads: only chip_smoke.py does, to hold K3 to it."""
+    import glob
+    import os
+
+    from hpsdf_tpu_torch import _kernels
+
+    main = {os.path.basename(p) for p in _kernels.sources()}
+    check = {os.path.basename(p) for p in _kernels.sources("check")}
+    assert "march.cu" in main and check == {"march_reference.cu"}
+    assert not main & check
+    assert _kernels.library_path("check") != _kernels.library_path()
+    pkg = os.path.dirname(_kernels.__file__)
+    users = [p for p in glob.glob(os.path.join(pkg, "**", "*.py"),
+                                  recursive=True)
+             if "load_check" in open(p).read()]
+    assert users == [_kernels.__file__]
+    with open(os.path.join(pkg, "csrc", "check", "march_reference.cu")) as fh:
+        assert 'extern "C" int hpsdf_march_reference(' in fh.read()

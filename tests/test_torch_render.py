@@ -96,7 +96,7 @@ def test_march_block(trees, case):
         kw = dict(step_cap=0.02)
     o, d = _rays()
     j_lo = JR._lo_of(jp) if case == "lod" else None
-    t_lo = TR._lo_of(tp) if case == "lod" else None
+    t_lo = tp.lo if case == "lod" else None
     assert (j_lo is None) == (t_lo is None)
     tj, hj, kj = JR._march_block(jp, jnp.asarray(o), jnp.asarray(d),
                                  jnp.float32(5.0), 1e-4, 200, lo=j_lo, **kw)

@@ -105,8 +105,11 @@ def test_wide_rows(trees, read):
 
 
 def _ptxas_entry(kernel, deg, grad, stack=0, regs=56):
+    """ptxas's lines for one instantiation; ``grad`` None: a kernel whose
+    only template argument is the degree (K3)."""
+    flag = "" if grad is None else f"Lb{int(grad)}E"
     name = (f"_ZN40_GLOBAL__N__1f67f1e9_8_query_cu_1d77935312{kernel}ILi"
-            f"{deg}ELb{int(grad)}EEEvPKiPKdS2_S4_iS4_lddddddiPdS5_")
+            f"{deg}E{flag}EEvPKiPKdS2_S4_iS4_lddddddiPdS5_")
     return (f"ptxas info    : Compiling entry function '{name}' for "
             f"'sm_90a'\nptxas info    : Function properties for {name}\n"
             f"    {stack} bytes stack frame, {stack} bytes spill stores, "
@@ -114,20 +117,27 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56):
             f"registers, used 0 barriers, 22528 bytes smem\n")
 
 
-@pytest.mark.parametrize("spill", [False, True], ids=["clean", "spills"])
+@pytest.mark.parametrize("spill", [None, "K1", "K3"],
+                         ids=["clean", "spills", "march_spills"])
 def test_ptxas_check(monkeypatch, spill):
-    """chip_smoke.ptxas_check reads K1's and K2/K5's instantiations from
-    ptxas's report (the lines -Xptxas -v prints) and fails when K1 at
-    degree 3 or 5 has a stack frame or spills."""
+    """chip_smoke.ptxas_check reads K1's, K2/K5's and K3's instantiations
+    from ptxas's report (the lines -Xptxas -v prints) and fails when K1 or
+    K3 at degree 3 or 5 has a stack frame or spills."""
     from hpsdf_tpu_torch import _kernels
 
     report = "".join(
-        _ptxas_entry("query_kernel", d, g, stack=8 if spill and d == 5 else 0)
+        _ptxas_entry("query_kernel", d, g,
+                     stack=8 if spill == "K1" and d == 5 else 0)
         for d in (3, 5, 12) for g in (False, True))
     report += _ptxas_entry("packed_eval_kernel", 3, False, regs=32)
+    report += "".join(
+        _ptxas_entry("march_kernel", d, None, regs=80,
+                     stack=16 if spill == "K3" and d == 5 else 0)
+        for d in (3, 5, 12))
     monkeypatch.setattr(_kernels, "ptxas_report", lambda: report)
     if spill:
-        with pytest.raises(RuntimeError, match="K1 5/values"):
+        with pytest.raises(RuntimeError, match={"K1": "K1 5/values",
+                                                "K3": "K3 5: stack 16"}[spill]):
             chip_smoke.ptxas_check()
         return
     found = chip_smoke.ptxas_check()
@@ -135,3 +145,5 @@ def test_ptxas_check(monkeypatch, spill):
     assert set(found["query_kernel"]) == {f"{d}/{k}" for d in (3, 5, 12)
                                           for k in ("values", "grad")}
     assert found["packed_eval_kernel"] == {"3/values": [32, 0, 0, 0]}
+    assert found["march_kernel"] == {str(d): [80, 0, 0, 0]
+                                     for d in (3, 5, 12)}
