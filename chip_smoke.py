@@ -67,6 +67,7 @@ non-zero. Without a CUDA device it exits 1 and prints no result.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -97,6 +98,35 @@ CSG_TOL = 0.05                      # carved tree vs the analytic carve
 RAYS_SIDE = 1024                    # bench.py:53
 T_MAX = 5.0                         # bench.py:56
 CARVE_HALF = 0.18                   # examples/end_to_end.py:65-72
+K4_T0_ATOL, K4_T0_AGREE = 1e-4, 0.999   # K4's t0 vs plain, share of rays
+# K4 + K3 against the plain march without a cone: no start may pass a hit
+# of the plain march (the cone's guarantee). Beyond that, a start moves a
+# ray's samples: a ray that grazes the surface can then be hit or missed,
+# and on a field that is not quite metric (a carve's fit near its edges) a
+# ray can stop on another crossing; such rays may be this share of all
+K4_CHANGED_SHARE = 1e-4
+K4_OPS_PER_RAY = 30                 # f32 operations a ray of K4's reduction
+BOUNDARY_RADIUS = 0.499             # ADVICE.md's sphere touching the root
+BOUNDARY_EYE = (0.6, 0.0, -1.5)     # a view where the reference drops hits
+# the backward kernels against autograd of the plain versions: atomics add
+# in another order than the plain sums, so errors are relative to the
+# largest entry (a row sums up to thousands of f32 terms)
+GRAD_RTOL32, GRAD_RTOL64 = 1e-4, 1e-10
+INV_SIZE = (1920, 1080)             # bench.py:734-767: 1080p rays
+INV_STEPS = 5
+INV_SMALL = 128                     # the kernels-against-plain run's side
+INV_LOSS_RTOL = 1e-3
+
+
+PHASE_SECONDS = {}
+
+
+def phase(name, fn, *args):
+    """fn(*args), its seconds kept under ``name`` for the [seconds] line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 3)
+    return out
 
 
 def check(ok, msg):
@@ -266,17 +296,24 @@ def phase_p1_fit(rows, table, fit_pts):
 
 def counters():
     """Every launch counter, by name: (kernel wrapper, attribute). K2/K5's
-    wrapper counts all its launches and, apart, those of K5."""
-    from hpsdf_tpu_torch.accel import packed_eval_kernel, row_gather
+    wrapper counts all its launches and, apart, those of K5's normals and
+    of its raw gradient."""
+    from hpsdf_tpu_torch.accel import (packed_eval_kernel, packed_grad_kernel,
+                                       row_gather, row_scatter)
     from hpsdf_tpu_torch.mesh import closest_tri_tiles
-    from hpsdf_tpu_torch.query import query_kernel
-    from hpsdf_tpu_torch.render import march_kernel
+    from hpsdf_tpu_torch.query import coeff_scatter_kernel, query_kernel
+    from hpsdf_tpu_torch.render import cone_kernel, march_kernel
     return {"closest_tri": (closest_tri_tiles, "launches"),
             "query": (query_kernel, "launches"),
             "row_gather": (row_gather, "launches"),
             "packed_eval": (packed_eval_kernel, "launches"),
             "packed_eval_normals": (packed_eval_kernel, "grad_launches"),
-            "march": (march_kernel, "launches")}
+            "packed_eval_raw": (packed_eval_kernel, "raw_launches"),
+            "march": (march_kernel, "launches"),
+            "cone": (cone_kernel, "launches"),
+            "row_scatter": (row_scatter, "launches"),
+            "packed_grad": (packed_grad_kernel, "launches"),
+            "coeff_scatter": (coeff_scatter_kernel, "launches")}
 
 
 def reset_counts():
@@ -848,7 +885,9 @@ def phase_render(tree, out_dir):
     the carved tree's packed tables, the render's hit points)."""
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch.accel import normals_plain, packed_eval_kernel
-    from hpsdf_tpu_torch.render import HIT_EPS, MAX_STEPS, _march_block
+    from hpsdf_tpu_torch.render import (CONE_TILE, HIT_EPS, MAX_STEPS,
+                                        _march_block, cone_kernel,
+                                        march_kernel)
     from hpsdf_tpu_torch.viz import write_bmp
 
     def box(p):
@@ -928,9 +967,29 @@ def phase_render(tree, out_dir):
                                     width=view["width"])
     check_k3_exact(args, dict(lo=lo), "the render's rays, index order")
     t_p, h_p, kk_p = _march_block(*args, lo=lo)
-    check(bool(torch.equal(h_k, h_r))
-          and bool(torch.equal(t_k[h_k], depth.reshape(-1)[h_r])),
-          "render_image's hits and depth are K3's")
+    # render runs the cone prepass (K4) once on a tree without LOD tables,
+    # and K3 from its starts
+    check(launches["cone"] == (0 if lo is not None else 1),
+          f"K4 launches on the render path: {launches['cone']}")
+    t0 = None if lo is not None else cone_kernel(
+        pt, o, dirs, T_MAX, HIT_EPS, (view["height"], view["width"],
+                                      CONE_TILE))
+    t_c, h_c, _ = march_kernel(*args, lo=lo, width=view["width"], t0=t0)
+    check(bool(torch.equal(h_c, h_r))
+          and bool(torch.equal(t_c[h_c], depth.reshape(-1)[h_r])),
+          "render_image's hits and depth are K4's and K3's")
+    cone = "no cone (LOD tables)"
+    if t0 is not None:
+        # the carve's fit is no metric field (it holds the CSG tolerance, and
+        # its hits are held to the analytic carve above), and its flat faces
+        # meet many rays at a glancing angle, where t within the hit band
+        # spans far more than T_ATOL: the render path's own standard for K3
+        # against the plain march bounds the rays a start changes
+        c_drop, c_add, c_moved, c_err = cone_vs_plain(
+            t0, t_c, h_c, t_p, h_p, "the carved tree", share=1.0 - HIT_AGREE)
+        cone = (f"K4 + K3 vs the plain march without a cone: {c_drop} hits "
+                f"dropped, {c_add} added, {c_moved} common hits farther than "
+                f"{T_ATOL}, max|t - plain| on the others {c_err:.3e}")
     agree = float((h_k == h_p).float().mean())
     both = h_k & h_p
     check(agree >= HIT_AGREE and bool(both.any()),
@@ -960,7 +1019,8 @@ def phase_render(tree, out_dir):
           f"{surf_err:.3e} 99% {surf_q99:.3e}; K3 vs plain on these rays: "
           f"hit masks agree {agree:.6f}, max|t - plain| on common hits "
           f"{t_err:.3e}, kk kernel {kk} plain {kk_p.tolist()}, equal to the "
-          f"kernel it replaced bit for bit; K5 normals "
+          f"kernel it replaced bit for bit; render's own march: {cone}; "
+          f"K5 normals "
           f"min dot {dot_min:.8f} over {int(both.sum())} hits; images and "
           f"tree under {os.path.relpath(out_dir)}, save/load bit-exact, "
           f"launches {launches}", flush=True)
@@ -1009,6 +1069,479 @@ def phase_k2_main(pt_s, carve_pts, pt_c, ph):
           f"{t['hits_normals_plain_ms']:.4f} ms, byte bound "
           f"{t['hits_normals_bound_ms']:.4f} ms", flush=True)
     return v_err, dot_min, t
+
+
+def cone_ops(n_rays, n_tiles, deg):
+    """An upper bound on K4's f32 operations: K4_OPS_PER_RAY a ray for the
+    tile's spread and intervals, and CONE_CAP steps a tile of k3_ops's
+    arithmetic; the bytes bound K4 either way."""
+    from hpsdf_tpu_torch.render import CONE_CAP
+    return n_rays * K4_OPS_PER_RAY + n_tiles * CONE_CAP * k3_ops(deg)
+
+
+def cone_vs_plain(t0, t_c, h_c, t_p, h_p, label, share=K4_CHANGED_SHARE):
+    """K4 + K3 (starts t0; t_c, h_c) against the plain march without a cone
+    (t_p, h_p): no start past a plain hit, and the rays whose hit differs
+    or whose t on a common hit differs by more than T_ATOL at most
+    ``share`` of the rays. Returns (hits dropped, hits added, rays that
+    stopped elsewhere, max |t - plain| on the other common hits)."""
+    past = int((h_p & (t0 > t_p)).sum())
+    dropped, added = int((h_p & ~h_c).sum()), int((h_c & ~h_p).sum())
+    both = h_c & h_p
+    dt = (t_c - t_p).abs()
+    moved = both & (dt > T_ATOL)
+    t_err = float(dt[both & ~moved].max())
+    changed = dropped + added + int(moved.sum())
+    check(past == 0 and changed <= share * h_p.numel(),
+          f"K4 + K3 vs the plain march without a cone ({label}): {past} "
+          f"starts past a hit, {dropped} hits dropped, {added} added, "
+          f"{int(moved.sum())} stopped elsewhere (max|t - plain| "
+          f"{float(dt[both].max())})")
+    return dropped, added, int(moved.sum()), t_err
+
+
+def phase_k4(pt, name, smi):
+    """K4 then K3 at 1024^2 rays from (0, 0, -1.8), T_MAX 5 (bench.py's
+    protocol), on the tree's LOD rows where it has them: K4's starts
+    against its plain version (K4_T0_ATOL on K4_T0_AGREE of the rays, the
+    escaped tiles the same), K4 + K3 against the plain march without a
+    cone (no start past a hit of the plain march, the rays whose hit or t
+    the start changed at most K4_CHANGED_SHARE of them); then K4 in a CUDA
+    graph and K3 with and without its starts, in turns. Returns times and
+    errors."""
+    from hpsdf_tpu_torch.render import (CONE_TILE, HIT_EPS, MAX_STEPS,
+                                        _march_block, camera_rays,
+                                        cone_kernel, cone_start_plain,
+                                        march_kernel)
+
+    side = RAYS_SIDE
+    o, d = camera_rays((0.0, 0.0, -1.8), (0.0, 0.0, 0.0), width=side,
+                       height=side, device=pt.device)
+    lo = pt.lo
+    tiles = (side, side, CONE_TILE)
+    args = (pt, o, d, T_MAX, HIT_EPS, MAX_STEPS)
+    t0 = cone_kernel(pt, o, d, T_MAX, HIT_EPS, tiles, lo=lo)
+    sync()
+    t1 = time.perf_counter()
+    t0_p = cone_start_plain(pt, o, d, T_MAX, HIT_EPS, tiles, lo=lo)
+    sync()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    escape = float(np.float32(T_MAX) + np.float32(1.0))
+    d_t0 = (t0 - t0_p).abs()
+    t0_agree = float((d_t0 <= K4_T0_ATOL).float().mean())
+    check(bool(torch.equal(t0 == escape, t0_p == escape))
+          and t0_agree >= K4_T0_AGREE,
+          f"K4 vs plain ({name}): {t0_agree} of rays within {K4_T0_ATOL}")
+    t_c, h_c, _ = march_kernel(*args, lo=lo, width=side, t0=t0)
+    t_p, h_p, _ = _march_block(*args, lo=lo)
+    dropped, added, moved, t_err = cone_vs_plain(t0, t_c, h_c, t_p, h_p,
+                                                 name)
+    forms = {"k4": lambda: cone_kernel(pt, o, d, T_MAX, HIT_EPS, tiles,
+                                       lo=lo),
+             "k3_t0": lambda: march_kernel(*args, lo=lo, width=side, t0=t0),
+             "k3": lambda: march_kernel(*args, lo=lo, width=side)}
+    ms = {k: [] for k in forms}
+    for _ in range(2):
+        for k, fn in forms.items():
+            ms[k].append(graph_ms(fn, 10))
+    ms = {k: min(v) for k, v in ms.items()}
+    n, n_tiles = o.shape[0], (side // CONE_TILE) ** 2
+    by_bytes = bytes_ms(pt.rows, pt.grid, d, *(lo or ()), extra=12 + 4 * n)
+    by_ops = cone_ops(n, n_tiles, pt.deg_used) / F32_PEAK * 1e3
+    esc = float((t0 == escape).float().mean())
+    out = {"k4": ms["k4"], "k4_plain": plain_ms, "k3_t0": ms["k3_t0"],
+           "k3": ms["k3"], "k4_bound": max(by_bytes, by_ops),
+           "k4_bound_by": "bytes" if by_bytes >= by_ops else "operations",
+           "k4_bytes_bound": by_bytes, "k4_ops_bound": by_ops,
+           "t0_max_abs_err": float(d_t0.max()), "t0_agree": t0_agree,
+           "escaped_share": esc, "t_err": t_err, "hits_dropped": dropped,
+           "hits_added": added, "hits_moved": moved,
+           "cone_pays": ms["k4"] + ms["k3_t0"] < ms["k3"]}
+    print(f"[k4] {name}: {side}^2 rays ({n_tiles} tiles, LOD "
+          f"{'on' if lo is not None else 'off'}): t0 vs plain max "
+          f"{out['t0_max_abs_err']:.3e}, {t0_agree:.6f} of rays within "
+          f"{K4_T0_ATOL}, escaped share {esc:.4f}; K4 + K3 vs the plain march "
+          f"without a cone: no start past a plain hit, {dropped} hits "
+          f"dropped and {added} added of {n} rays, {moved} common hits "
+          f"farther than {T_ATOL}, max|t - plain| on the others "
+          f"{t_err:.3e} | {smi} | "
+          f"in CUDA graphs (best of 2 turns): K4 {ms['k4']:.4f} ms (plain "
+          f"{plain_ms:.1f} ms, one run; bound {out['k4_bound']:.5f} ms, "
+          f"{out['k4_bound_by']}), K3 from its starts {ms['k3_t0']:.4f} ms, "
+          f"K3 alone {ms['k3']:.4f} ms: the cone "
+          f"{'pays' if out['cone_pays'] else 'does not pay'} "
+          f"({ms['k4'] + ms['k3_t0']:.4f} against {ms['k3']:.4f} ms)",
+          flush=True)
+    return out
+
+
+def phase_boundary(cfg, dev):
+    """ADVICE.md's boundary view: a sphere of radius 0.499 touching the
+    root's faces, fit with the slice's config, at 1024^2 rays from an
+    oblique eye. K4 + K3 must drop no hit of the plain march without a
+    cone. Returns (hits, hits the cone changed, max t error on common
+    hits)."""
+    import hpsdf_tpu_torch as T
+    from hpsdf_tpu_torch.render import (CONE_TILE, HIT_EPS, MAX_STEPS,
+                                        _march_block, camera_rays,
+                                        cone_kernel, march_kernel)
+
+    tree = T.build_octree(cfg, lambda p: torch.linalg.norm(p, dim=-1)
+                          - BOUNDARY_RADIUS, device=dev)
+    pt = T.pack_tree(tree)
+    side = RAYS_SIDE
+    o, d = camera_rays(BOUNDARY_EYE, (0.0, 0.0, 0.0), width=side,
+                       height=side, device=dev)
+    args = (pt, o, d, T_MAX, HIT_EPS, MAX_STEPS)
+    t0 = cone_kernel(pt, o, d, T_MAX, HIT_EPS, (side, side, CONE_TILE),
+                     lo=pt.lo)
+    t_c, h_c, _ = march_kernel(*args, lo=pt.lo, width=side, t0=t0)
+    t_p, h_p, _ = _march_block(*args, lo=pt.lo)
+    dropped, added, moved, t_err = cone_vs_plain(t0, t_c, h_c, t_p, h_p,
+                                                 "the boundary view")
+    check(dropped == 0 and bool(h_p.any()),
+          f"K4 + K3 dropped {dropped} hits on the boundary view")
+    print(f"[k4] boundary view (sphere r = {BOUNDARY_RADIUS}, eye "
+          f"{BOUNDARY_EYE}, {side}^2 rays, {tree.n_nodes} nodes): plain "
+          f"march {int(h_p.sum())} hits, K4 + K3 dropped {dropped}, added "
+          f"{added}, {moved} common hits farther than {T_ATOL}, max|t - "
+          f"plain| on the others {t_err:.3e}", flush=True)
+    return int(h_p.sum()), dropped + added + moved, t_err
+
+
+def inverse_setup(cfg, dev, sizes):
+    """bench.py:734-767's protocol on the card: the target tree (sphere
+    r = 0.3) and the initial one (r = 0.27), fit with the slice's config;
+    for each (width, height) of ``sizes``, the rays from (0, 0, -1.8) at
+    (0, 0, 0) and the target depths traced on the target tree, T_MAX 5."""
+    import hpsdf_tpu_torch as T
+
+    target, init = (T.build_octree(cfg, lambda p, r=r: torch.linalg.norm(
+        p, dim=-1) - r, device=dev) for r in (0.3, 0.27))
+    out = []
+    for width, height in sizes:
+        o, d = T.camera_rays((0.0, 0.0, -1.8), (0.0, 0.0, 0.0), width=width,
+                             height=height, device=dev)
+        t_star, hit_star = T.inverse.render_targets(target, o, d,
+                                                    t_max=T_MAX)
+        out.append(dict(target=target, init=init, o=o.contiguous(), d=d,
+                        t_star=t_star, hit_star=hit_star))
+    return out
+
+
+def depth_rmse(tree, s):
+    """bench.py:758-762: the depth RMSE against the targets on the rays
+    both traces hit (a capped trace: the optimised field is no metric
+    SDF), and the share of rays both hit."""
+    import hpsdf_tpu_torch as T
+
+    res = T.trace(tree, s["o"], s["d"], t_max=T_MAX, step_cap=0.02)
+    m = res.hit & s["hit_star"]
+    dt = (res.t - s["t_star"])[m].double()
+    return float(torch.sqrt(torch.mean(dt ** 2))), float(m.float().mean())
+
+
+def band_points(s, rays):
+    """The band points (surface, inside, outside) of the inverse rays
+    ``rays`` (a slice), as fit_to_depth reads them."""
+    from hpsdf_tpu_torch.inverse import BAND
+
+    o, d, tt = s["o"][rays], s["d"][rays], s["t_star"][rays]
+    return torch.cat([o + (tt + off)[:, None] * d
+                      for off in (0.0, BAND, -BAND)])
+
+
+def rel_err(a, b):
+    """max |a - b| relative to max |b|; 0 where both are zero (a slice-tree
+    point reads no row below the grid, so its d_rows is zero)."""
+    scale = b.abs().max().clamp(min=torch.finfo(b.dtype).tiny)
+    return float((a - b).abs().max() / scale)
+
+
+def phase_grad(pt_s, tree_s, s, smi, seed=11):
+    """The backward kernels against autograd of their plain versions on the
+    card, at 2^20 points and at the main path's shapes (one inverse chunk's
+    band points and rays on the initial tree, the repack's grid): K7 both
+    forms, G's backward, K8's f64 query form and f32 trace form. Each
+    timed in CUDA graphs, aggregated and naive (one atomic a lane), beside
+    its plain version, its bound and, for G's backward, index_add_.
+    Returns {kernel: {shape: dict}}."""
+    from hpsdf_tpu_torch import accel as A
+    from hpsdf_tpu_torch import render as R
+    from hpsdf_tpu_torch.inverse import STEP_CAP
+    from hpsdf_tpu_torch.query import coeff_scatter_kernel, query_vjp_plain
+
+    rng = np.random.default_rng(seed)
+    dev = pt_s.device
+    chunk = 1 << 16
+    # the inverse chunk across the image's middle rows: the first chunks
+    # hold its top rows, whose rays all miss the sphere
+    mid = s["o"].shape[0] // 2 // chunk * chunk
+    rays = slice(mid, mid + chunk)
+    pt_i = A.pack_tree(s["init"])
+    band = band_points(s, rays)
+    c = np.asarray(pt_s.root_centre)
+    half = 0.5 * np.asarray(pt_s.root_sizes)
+    uni = torch.as_tensor(rng.uniform(c - 1.05 * half, c + 1.05 * half,
+                                      (N_QUERY, 3)).astype(np.float32),
+                          device=dev)
+
+    def rand(*shape, dt=torch.float32):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dt,
+                               device=dev)
+
+    def timed(kernel, naive, plain, library=None):
+        t = {"ms": graph_ms(kernel, 10), "naive_ms": graph_ms(naive, 10),
+             "plain_ms": time_ms(plain, 3)}
+        t["library_ms"] = None if library is None else time_ms(library, 10)
+        return t
+
+    out = {"packed_grad": {}, "row_scatter": {}, "coeff_scatter": {}}
+    # K5's raw gradient (values_at's VJP to the points, the eikonal term)
+    raw_err = rel_err(A.packed_eval_kernel(pt_i, band, A.RAW_GRAD),
+                      A.point_gradient_plain(pt_i, band))
+    check(raw_err <= GRAD_RTOL32, f"K5's raw gradient vs plain at the "
+          f"inverse chunk's band points: {raw_err:.3e}")
+    out["raw"] = {
+        "rel_err": raw_err, "points": band.shape[0],
+        "ms": graph_ms(lambda: A.packed_eval_kernel(pt_i, band, A.RAW_GRAD),
+                       20),
+        "plain_ms": time_ms(lambda: A.point_gradient_plain(pt_i, band), 5),
+        "bound_ms": bytes_ms(pt_i.rows, pt_i.grid, band, band)}
+    print(f"[grad] K5's raw gradient at the inverse chunk's "
+          f"{band.shape[0]} band points: max|kernel - plain| / max|plain| "
+          f"{raw_err:.3e}, kernel {out['raw']['ms']:.4f} ms, plain "
+          f"{out['raw']['plain_ms']:.3f} ms, byte bound "
+          f"{out['raw']['bound_ms']:.5f} ms", flush=True)
+    # K7: values_at's VJP (form 0) and the point gradient's (form 1)
+    for label, pt, pts in (("2^20 uniform, slice tree", pt_s, uni),
+                           ("inverse chunk band points", pt_i, band)):
+        n = pts.shape[0]
+        for form, cot, plain in ((0, rand(n), A.values_at_vjp_plain),
+                                 (1, rand(n, 3), A.point_gradient_vjp_plain)):
+            got = A.packed_grad_kernel(pt, pts, cot, form)
+            want = plain(pt, pts, cot)
+            err = max(rel_err(g, w) for g, w in zip(got, want))
+            check(err <= GRAD_RTOL32, f"K7 form {form} vs autograd of the "
+                  f"plain version at {label}: {err:.3e}")
+            nv = A.packed_grad_kernel(pt, pts, cot, form, aggregate=False)
+            check(max(rel_err(g, w) for g, w in zip(nv, want))
+                  <= GRAD_RTOL32, f"K7 form {form} naive at {label}")
+            t = timed(lambda: A.packed_grad_kernel(pt, pts, cot, form),
+                      lambda: A.packed_grad_kernel(pt, pts, cot, form,
+                                                   aggregate=False),
+                      lambda: plain(pt, pts, cot))
+            C = (pt.deg_used + 1) * (pt.deg_used + 2) * (pt.deg_used + 3) \
+                // 6
+            by_bytes = bytes_ms(pt.rows, pt.grid, pts, cot, pt.rows, pt.grid)
+            by_ops = n * k7_ops(pt.deg_used, form) / F32_PEAK * 1e3
+            t.update(rel_err=err, max_abs_err=max(
+                float((g - w).abs().max()) for g, w in zip(got, want)),
+                bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                atomics_ms=n * C * 4 / HBM_RATE * 1e3, points=n)
+            out["packed_grad"][f"form {form}, {label}"] = t
+    # G's backward: 2^20 indices into the probe's table, and the repack's
+    # grid into the initial tree's rows
+    sup = A.pack_support(s["init"])
+    n_rows = G_TABLE[0]
+    for label, idx, n_tab, width in (
+            ("2^20 indices into 4681 x 32", torch.as_tensor(
+                rng.integers(-64, n_rows + 64, N_GATHER).astype(np.int32),
+                device=dev), n_rows, G_TABLE[1]),
+            ("the repack's grid", sup.grid_src, pt_i.rows.shape[0],
+             pt_i.width)):
+        d_out = rand(idx.shape[0], width)
+        got = A.row_scatter(d_out, idx, n_tab)
+        want = A.row_scatter_plain(d_out, idx, n_tab)
+        err = rel_err(got, want)
+        check(err <= GRAD_RTOL32, f"G's backward vs index_add_ at {label}: "
+              f"{err:.3e}")
+        ok = (idx >= 0) & (idx < n_tab)
+        idx_in, d_in = idx[ok].long(), d_out[ok]
+        t = timed(lambda: A.row_scatter(d_out, idx, n_tab),
+                  lambda: A.row_scatter(d_out, idx, n_tab, aggregate=False),
+                  lambda: A.row_scatter_plain(d_out, idx, n_tab),
+                  lambda: torch.zeros((n_tab, width), device=dev)
+                  .index_add_(0, idx_in, d_in))
+        t.update(rel_err=err, max_abs_err=float((got - want).abs().max()),
+                 bound_ms=bytes_ms(d_out, idx, got), bound_by="bytes",
+                 rows=idx.shape[0])
+        out["row_scatter"][label] = t
+    # K8: the f64 query VJP, and the f32 trace VJP on marched rays
+    tree_i = s["init"]
+    o, d = s["o"][rays], s["d"][rays]
+    t_c, h_c, _ = R._march(A.pack_tree(tree_i), o, d, T_MAX, R.HIT_EPS,
+                           R.MAX_STEPS, STEP_CAP)
+    tree32 = R._tree_f32(tree_i)
+    for label, tree, pts in (("2^20 uniform, slice tree", tree_s,
+                              uni.double()),
+                             ("inverse chunk band points", tree_i,
+                              band.double())):
+        n = pts.shape[0]
+        w = rand(n, dt=torch.float64)
+        got = coeff_scatter_kernel(tree, w, pts=pts, outside_value_max=True)
+        want = query_vjp_plain(tree, pts, w)
+        err = rel_err(got, want)
+        check(err <= GRAD_RTOL64, f"K8 (f64 query) vs autograd of the plain "
+              f"version at {label}: {err:.3e}")
+        t = timed(lambda: coeff_scatter_kernel(tree, w, pts=pts,
+                                               outside_value_max=True),
+                  lambda: coeff_scatter_kernel(tree, w, pts=pts,
+                                               outside_value_max=True,
+                                               aggregate=False),
+                  lambda: query_vjp_plain(tree, pts, w))
+        arrays = [tree.child_idx, tree.centre, tree.depth, tree.coeffs]
+        by_bytes = bytes_ms(*arrays, pts, w, got)
+        by_ops = n * k1_ops(tree.deg_used, tree.depth_used, False) \
+            / F64_PEAK * 1e3
+        t.update(rel_err=err, max_abs_err=float((got - want).abs().max()),
+                 bound_ms=max(by_bytes, by_ops),
+                 bound_by="bytes" if by_bytes >= by_ops else "operations",
+                 points=n)
+        out["coeff_scatter"][f"f64 query, {label}"] = t
+    dt_ = rand(chunk)
+    rays = (o, d, t_c, h_c)
+    got = coeff_scatter_kernel(tree32, dt_, rays=rays)
+    want = R.trace_vjp_plain(tree32, o, d, t_c, h_c, dt_)
+    err = rel_err(got, want)
+    check(err <= GRAD_RTOL32 and bool(h_c.any()),
+          f"K8 (f32 trace) vs the plain VJP at an inverse chunk: {err:.3e}")
+    t = timed(lambda: coeff_scatter_kernel(tree32, dt_, rays=rays),
+              lambda: coeff_scatter_kernel(tree32, dt_, rays=rays,
+                                           aggregate=False),
+              lambda: R.trace_vjp_plain(tree32, o, d, t_c, h_c, dt_))
+    arrays = [tree32.child_idx, tree32.centre, tree32.depth, tree32.coeffs]
+    by_bytes = bytes_ms(*arrays, o, d, t_c, h_c, dt_, got)
+    by_ops = int(h_c.sum()) * k1_ops(tree32.deg_used, tree32.depth_used,
+                                     True) / F32_PEAK * 1e3
+    t.update(rel_err=err, max_abs_err=float((got - want).abs().max()),
+             bound_ms=max(by_bytes, by_ops),
+             bound_by="bytes" if by_bytes >= by_ops else "operations",
+             points=chunk, hits=int(h_c.sum()))
+    out["coeff_scatter"]["f32 trace, inverse chunk rays"] = t
+    for kernel, shapes in out.items():
+        for label, t in shapes.items() if kernel != "raw" else ():
+            print(f"[grad] {kernel} at {label}: max|kernel - plain| / "
+                  f"max|plain| {t['rel_err']:.3e} | {smi} | kernel "
+                  f"{t['ms']:.4f} ms in a CUDA graph (naive, one atomic a "
+                  f"lane: {t['naive_ms']:.4f} ms), plain {t['plain_ms']:.3f} "
+                  f"ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']})"
+                  + ("" if t["library_ms"] is None else
+                     f", index_add_ {t['library_ms']:.4f} ms")
+                  + ("" if "atomics_ms" not in t else
+                     f", the atomics' bytes {t['atomics_ms']:.5f} ms"),
+                  flush=True)
+    return out
+
+
+def k7_ops(deg, form):
+    """f32 operations a point of K7 (csrc/packed_grad.cu), an FMA counted
+    as two: the frame (9), three Legendre recurrences (12 (deg - 1)) and,
+    form 1, their derivatives (6 (deg - 1)) and the chain factors (6);
+    a term: form 0, three multiplies; form 1, three products of three and
+    the weighted sum (15)."""
+    C = (deg + 1) * (deg + 2) * (deg + 3) // 6
+    if form == 0:
+        return 9 + 12 * max(deg - 1, 0) + 3 * C
+    return 15 + 18 * max(deg - 1, 0) + 15 * C
+
+
+def device_busy_ms(fn):
+    """fn() under torch.profiler: the device time of its kernels in ms, and
+    the eight longest by name (ms, launches); None where the trace holds no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    ev = [e for e in prof.key_averages() if dev_us(e) > 0]
+    if not ev:
+        return None, []
+    top = sorted(ev, key=lambda e: -dev_us(e))[:8]
+    return (round(sum(dev_us(e) for e in ev) / 1e3, 3),
+            [(e.key[:60], round(dev_us(e) / 1e3, 3), e.count) for e in top])
+
+
+def phase_inverse(s, s_small, smi):
+    """fit_to_depth at bench.py's 1080p protocol for INV_STEPS steps on the
+    card: the depth RMSE and hit overlap before and after, the warm
+    seconds a step (after a one-step run), the losses finite and every
+    kernel of the path launched; then the INV_SMALL^2 protocol with the
+    kernels against the same run with the plain versions on CUDA tensors
+    (the wrappers swapped for their plain versions, so that no kernel
+    launches): losses within INV_LOSS_RTOL a step. Returns (launches, the
+    numbers)."""
+    from unittest import mock
+    from hpsdf_tpu_torch import accel as A
+    from hpsdf_tpu_torch import render as R
+    from hpsdf_tpu_torch.inverse import fit_to_depth
+
+    def fit(st, n):
+        return fit_to_depth(st["init"], st["o"], st["d"], st["t_star"],
+                            st["hit_star"], n_steps=n, t_max=T_MAX)
+
+    rmse0, hit0 = depth_rmse(s["init"], s)
+    fit(s, 1)                                   # warm: allocator, streams
+    reset_counts()
+    sync()
+    t1 = time.perf_counter()
+    res = fit(s, INV_STEPS)
+    losses = res.losses.cpu()
+    sync()
+    step_s = (time.perf_counter() - t1) / INV_STEPS
+    launches = read_counts()
+    check(bool(torch.isfinite(losses).all()), f"1080p losses {losses}")
+    for k in ("march", "packed_eval", "packed_eval_raw", "packed_grad",
+              "row_gather", "row_scatter", "coeff_scatter"):
+        check(launches[k] > 0, f"{k} never launched by fit_to_depth")
+    rmse1, hit1 = depth_rmse(res.tree, s)
+    busy_ms, top = device_busy_ms(lambda: fit(s, 1))
+
+    def plain_march(pt, o, d, t_max, hit_eps, max_steps, step_cap=None,
+                    **kw):
+        return R._march_block(pt, o, d, t_max, hit_eps, max_steps, step_cap,
+                              lo=pt.lo)
+
+    small = fit(s_small, INV_STEPS).losses.cpu()
+    reset_counts()
+    with mock.patch.object(A, "values_at", A.values_at_plain), \
+            mock.patch.object(A, "_point_gradient", A.point_gradient_plain), \
+            mock.patch.object(A, "row_gather", A.row_gather_plain), \
+            mock.patch.object(R, "_march", plain_march), \
+            mock.patch.object(R, "trace_vjp", R.trace_vjp_plain):
+        plain = fit(s_small, INV_STEPS).losses.cpu()
+    plain_launches = sum(read_counts().values())
+    check(plain_launches == 0, f"the plain run launched {plain_launches} "
+          "kernels")
+    rel = float(((small - plain) / plain).abs().max())
+    check(rel <= INV_LOSS_RTOL, f"{INV_SMALL}^2 losses, kernels {small} vs "
+          f"plain {plain}: {rel:.3e}")
+    out = {"rays": s["o"].shape[0], "steps": INV_STEPS, "step_s": step_s,
+           "losses": losses.tolist(), "rmse_before": rmse0,
+           "rmse_after": rmse1, "hit_overlap_before": hit0,
+           "hit_overlap_after": hit1, "small_losses": small.tolist(),
+           "small_plain_losses": plain.tolist(), "small_rel_err": rel,
+           "profiled_step_device_ms": busy_ms, "profiled_step_top": top}
+    print(f"[inverse] {INV_SIZE[0]}x{INV_SIZE[1]} rays, sphere r = 0.27 "
+          f"towards 0.3 ({s['init'].n_nodes} nodes): {INV_STEPS} steps, "
+          f"losses {[f'{v:.6g}' for v in out['losses']]} | {smi} | warm "
+          f"{step_s:.4f} s a step; a one-step run under torch.profiler: "
+          f"device busy {busy_ms} ms, by kernel {top} | depth RMSE "
+          f"{rmse0:.6f} -> {rmse1:.6f}, "
+          f"hit overlap {hit0:.6f} -> {hit1:.6f} | launches {launches} | "
+          f"{INV_SMALL}^2: losses with the kernels "
+          f"{[f'{v:.6g}' for v in out['small_losses']]}, plain versions on "
+          f"CUDA tensors {[f'{v:.6g}' for v in out['small_plain_losses']]}, "
+          f"max relative difference {rel:.3e}", flush=True)
+    return launches, out
 
 
 SYNTH_ROOT = ((-0.25, -0.25, -0.25), (1.75, 1.75, 1.75))
@@ -1156,13 +1689,33 @@ def phase_degrees(dev, seed=7):
     return k2_err, k5_dot, k1_err, k1g_err, k3_err
 
 
+PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
+                 "cone_kernel", "packed_grad_kernel", "coeff_scatter_kernel",
+                 "row_scatter_kernel")
+
+
+def _ptxas_key(kernel, args):
+    """The report's key for one instantiation, from its template arguments
+    (ints, bools and the value type, in order)."""
+    if kernel == "row_scatter_kernel":
+        return "aggregated" if args[0] else "naive"
+    if kernel == "coeff_scatter_kernel":
+        return f"{args[1]}/{'f32 trace' if args[2] else 'f64 query'}"
+    if kernel == "query_kernel":
+        return f"{args[0]}/{'grad' if args[1] else 'values'}"
+    if kernel == "packed_eval_kernel":
+        return f"{args[0]}/{('values', 'normals', 'raw')[args[1]]}"
+    if kernel == "packed_grad_kernel":
+        return f"{args[0]}/form{args[1]}"
+    return str(args[0])                   # march_kernel, cone_kernel: degree
+
+
 def ptxas_check():
-    """Registers, stack and spills of K1's, K2/K5's and K3's instantiations,
-    as ptxas reported them when the library was built. K1 and K3 at degrees
-    3 and 5 (the main paths') must have no stack frame and no spills.
-    Returns {kernel: {"deg/values|grad" (K3: "deg"): [registers, stack,
-    spill stores, spill loads]}}."""
-    import re
+    """Registers, stack and spills of every kernel's instantiations, as
+    ptxas reported them when the library was built. K1, K3, K4, K5's raw
+    gradient, K7 and K8 at degrees 3 and 5 (the main paths') and both forms
+    of G's backward must have no stack frame and no spills. Returns
+    {kernel: {key: [registers, stack, spill stores, spill loads]}}."""
     from hpsdf_tpu_torch import _kernels
 
     text = _kernels.ptxas_report()
@@ -1173,27 +1726,33 @@ def ptxas_check():
             + r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
             r"(\d+) bytes spill loads" + within + r"Used (\d+) registers",
             text, flags=re.S):
-        k = re.search(r"(query_kernel|packed_eval_kernel|march_kernel)"
-                      r"ILi(\d+)E(?:Lb([01])E)?", m.group(1))
+        k = re.search(r"(" + "|".join(PTXAS_KERNELS)
+                      + r")I((?:L[a-z]\d+E|[a-z])+)E", m.group(1))
         if k:
-            key = k.group(2) if k.group(3) is None else \
-                f"{k.group(2)}/{'grad' if k.group(3) == '1' else 'values'}"
-            found.setdefault(k.group(1), {})[key] = [
-                int(m.group(5)), int(m.group(2)), int(m.group(3)),
-                int(m.group(4))]
+            args = [int(v) if v else t for v, t in
+                    re.findall(r"L[a-z](\d+)E|([a-z])", k.group(2))]
+            found.setdefault(k.group(1), {})[_ptxas_key(k.group(1), args)] \
+                = [int(m.group(5)), int(m.group(2)), int(m.group(3)),
+                   int(m.group(4))]
     for name, kernel, keys in (
             ("K1", "query_kernel", ("3/values", "3/grad", "5/values",
                                     "5/grad")),
-            ("K3", "march_kernel", ("3", "5"))):
+            ("K3", "march_kernel", ("3", "5")),
+            ("K4", "cone_kernel", ("3", "5")),
+            ("K5 raw", "packed_eval_kernel", ("3/raw", "5/raw")),
+            ("K7", "packed_grad_kernel", ("3/form0", "3/form1", "5/form0",
+                                          "5/form1")),
+            ("K8", "coeff_scatter_kernel", ("3/f64 query", "3/f32 trace",
+                                            "5/f64 query", "5/f32 trace")),
+            ("G backward", "row_scatter_kernel", ("aggregated", "naive"))):
         got = found.get(kernel, {})
         for key in keys:
             check(key in got, f"ptxas report for {name} {key}")
             check(got[key][1:] == [0, 0, 0], f"{name} {key}: stack "
                   f"{got[key][1]} B, spills {got[key][2:]}")
     print(f"[ptxas] registers / stack / spill stores / spill loads (bytes): "
-          f"K1 {found['query_kernel']} | K2/K5 "
-          f"{found.get('packed_eval_kernel', {})} | K3 "
-          f"{found['march_kernel']}", flush=True)
+          + " | ".join(f"{k} {found.get(k, {})}" for k in PTXAS_KERNELS),
+          flush=True)
     return found
 
 
@@ -1226,11 +1785,15 @@ def main():
         for job in [pool.submit(_kernels.load),
                     pool.submit(_kernels.load_check)]:
             job.result()
+    nvcc_s = dict(re.findall(r"nvcc seconds (\S+): ([\d.]+)",
+                             _kernels.ptxas_report()))
     print(f"[build] {len(_kernels.sources())} sources -> "
           f"{os.path.relpath(_kernels.library_path())}, and the reference "
           f"kernel of the K3 check -> "
           f"{os.path.relpath(_kernels.library_path('check'))}, in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"{time.perf_counter() - t0:.2f} s; nvcc seconds a source "
+          f"{nvcc_s}", flush=True)
+    PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 3)
     ptxas = ptxas_check()
 
     # --- 3. P1 against its plain version -----------------------------------
@@ -1241,23 +1804,23 @@ def main():
           flush=True)
     from hpsdf_tpu_torch.mesh.tiles_sdf import tile_table
     table = tile_table(bvh.tri_rows)
-    p1_err = phase_p1(bvh.tri_rows, table, P1_SIZES)
+    p1_err = phase("p1", phase_p1, bvh.tri_rows, table, P1_SIZES)
 
     # --- 4. the slice ------------------------------------------------------
     cfg = Config(target_error=1e-7, max_depth=5, max_degree=6,
                  continuity=False, fit_dtype="compensated")
     os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
-    tree, launches, fit_pts = phase_slice(
-        mesh, bvh, cfg, N_QUERY,
+    tree, launches, fit_pts = phase(
+        "slice", phase_slice, mesh, bvh, cfg, N_QUERY,
         os.path.join(_kernels.BUILD_DIR, "chip_smoke_tree.npz"))
-    tf = phase_p1_fit(bvh.tri_rows, table, fit_pts)
+    tf = phase("p1 fit batch", phase_p1_fit, bvh.tri_rows, table, fit_pts)
     p1_err = max(p1_err, tf["fit_max_abs_err"])
 
     # --- 5. K1 against its plain version -----------------------------------
-    k1_err, k1g_err = phase_k1(tree, N_QUERY)
+    k1_err, k1g_err = phase("k1", phase_k1, tree, N_QUERY)
 
     # --- 6. times ----------------------------------------------------------
-    t = phase_times(bvh.tri_rows, table, tree, N_QUERY)
+    t = phase("times", phase_times, bvh.tri_rows, table, tree, N_QUERY)
     print(f"[times] {smi} | P1 closest_tri at ({bvh.n_leaves} rows x "
           f"2^20 uniform pts): kernel {t['p1']:.3f} ms, plain "
           f"{t['p1_plain']:.3f} ms, bound on the scanned pairs "
@@ -1283,29 +1846,48 @@ def main():
           f"{t['k1g_ops_bound']:.4f})", flush=True)
 
     # --- 7. G against its plain version ------------------------------------
-    tg, g_err = phase_g(bvh.tri_rows)
+    tg, g_err = phase("g", phase_g, bvh.tri_rows)
 
     # --- 8. K2/K5 and K3 on the slice and reference-default trees ----------
     from hpsdf_tpu_torch import pack_tree
     pt_s = pack_tree(tree)
     print(f"[packed] slice tree: rows {pt_s.width} lanes, grid depth "
           f"{pt_s.grid_depth}, extra rounds {pt_s.extra_rounds}", flush=True)
-    _, pt_r, sphere_r = phase_refdefault(dev)
+    _, pt_r, sphere_r = phase("refdefault", phase_refdefault, dev)
     sphere_s = (np.zeros(3), 0.3)
-    k2_err, k5_dot, tk2 = phase_k2(pt_s, "slice", sphere_s)
-    k2r_err, k5r_dot, tk2r = phase_k2(pt_r, "refdefault", sphere_r)
-    k3_err, tk3, _, _ = phase_k3(pt_s, "slice", sphere_s, False, smi)
-    k3r_err, tk3r, kkr, _ = phase_k3(pt_r, "refdefault", sphere_r, True, smi)
+    k2_err, k5_dot, tk2 = phase("k2 slice", phase_k2, pt_s, "slice",
+                                sphere_s)
+    k2r_err, k5r_dot, tk2r = phase("k2 refdefault", phase_k2, pt_r,
+                                   "refdefault", sphere_r)
+    k3_err, tk3, _, _ = phase(
+        "k3 slice", phase_k3, pt_s, "slice", sphere_s, False, smi)
+    k3r_err, tk3r, kkr, _ = phase(
+        "k3 refdefault", phase_k3, pt_r, "refdefault", sphere_r, True, smi)
+
+    # --- 8b. K4 then K3 on both trees, and the boundary view --------------
+    tk4 = phase("k4 slice", phase_k4, pt_s, "slice", smi)
+    tk4r = phase("k4 refdefault", phase_k4, pt_r, "refdefault", smi)
+    bnd_hits, bnd_changed, bnd_err = phase("k4 boundary", phase_boundary,
+                                           cfg, dev)
 
     # --- 9. the render path ------------------------------------------------
-    launches_r, tr, frac, k3c_err, k5c_dot, carve_pts, pt_c, ph = \
-        phase_render(tree, _kernels.BUILD_DIR)
-    k2m_err, k5m_dot, tk2m = phase_k2_main(pt_s, carve_pts, pt_c, ph)
+    launches_r, tr, frac, k3c_err, k5c_dot, carve_pts, pt_c, ph = phase(
+        "render", phase_render, tree, _kernels.BUILD_DIR)
+    k2m_err, k5m_dot, tk2m = phase("k2-main", phase_k2_main, pt_s,
+                                   carve_pts, pt_c, ph)
 
     # --- 10. K2/K5 and K1 at every degree ----------------------------------
-    k2d_err, k5d_dot, k1d_err, k1gd_err, k3d_err = phase_degrees(dev)
+    k2d_err, k5d_dot, k1d_err, k1gd_err, k3d_err = phase(
+        "degrees", phase_degrees, dev)
 
-    total = {k: launches[k] + launches_r[k] for k in launches}
+    # --- 11. the backward kernels, then inverse rendering ------------------
+    s_inv, s_small = phase("inverse setup", inverse_setup, cfg, dev,
+                           (INV_SIZE, (INV_SMALL, INV_SMALL)))
+    tgrad = phase("grad", phase_grad, pt_s, tree, s_inv, smi)
+    launches_i, ti = phase("inverse", phase_inverse, s_inv, s_small, smi)
+
+    total = {k: launches[k] + launches_r[k] + launches_i[k]
+             for k in launches}
     g_probe = tg[f"{G_TABLE[0]}x{G_TABLE[1]}"]
     g_rows = tg[f"{bvh.tri_rows.shape[0]}x{bvh.tri_rows.shape[1]}"]
     kernels = [
@@ -1348,8 +1930,10 @@ def main():
          "replaces": "hpsdf_tpu/accel.py:329",
          "launches": total["packed_eval"],
          "values_launches": total["packed_eval"]
-         - total["packed_eval_normals"],
+         - total["packed_eval_normals"] - total["packed_eval_raw"],
          "normals_launches": total["packed_eval_normals"],
+         "raw_gradient_launches": total["packed_eval_raw"],
+         "raw_gradient": tgrad["raw"],
          "max_abs_err": max(k2_err, k2r_err, k2m_err, k2d_err),
          "ms": tk2["k2"], "plain_ms": tk2["k2_plain"],
          "bound_ms": tk2["k2_bound"], "bound_by": "bytes", "library_ms": None,
@@ -1384,13 +1968,50 @@ def main():
          "refdefault_bound_ms": tk3r["k3_bound"],
          "refdefault_bound_by": tk3r["k3_bound_by"],
          "refdefault_mrays_s": tk3r["mrays"], "refdefault_kk": kkr,
+         "with_t0_ms": tk4["k3_t0"], "refdefault_with_t0_ms": tk4r["k3_t0"],
          "ptxas": ptxas.get("march_kernel", {})},
+        {"name": "cone", "route": "cuda",
+         "source": "hpsdf_tpu_torch/csrc/cone.cu",
+         "replaces": "hpsdf_tpu/render.py:260",
+         "launches": total["cone"],
+         "max_abs_err": max(tk4["t0_max_abs_err"], tk4r["t0_max_abs_err"]),
+         "ms": tk4["k4"], "plain_ms": tk4["k4_plain"],
+         "bound_ms": tk4["k4_bound"], "bound_by": tk4["k4_bound_by"],
+         "library_ms": None,
+         **{f"{pre}{k}": t4[k] for pre, t4 in (("", tk4),
+                                               ("refdefault_", tk4r))
+            for k in ("k3_t0", "k3", "t0_agree", "escaped_share", "t_err",
+                      "cone_pays")},
+         "refdefault_ms": tk4r["k4"], "refdefault_plain_ms": tk4r["k4_plain"],
+         "refdefault_bound_ms": tk4r["k4_bound"],
+         "boundary_view": {"hits": bnd_hits, "changed": bnd_changed,
+                           "max_t_err": bnd_err},
+         "ptxas": ptxas.get("cone_kernel", {})},
+        *({"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": total[name],
+           "max_abs_err": max(t["max_abs_err"] for t in tgrad[name].values()),
+           **{k: tgrad[name][main][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")},
+           "main_shape": main, "shapes": tgrad[name],
+           "ptxas": ptxas.get(f"{name}_kernel", {})}
+          for name, source, replaces, main in (
+              ("packed_grad", "hpsdf_tpu_torch/csrc/packed_grad.cu",
+               "hpsdf_tpu/inverse.py:234",
+               "form 0, inverse chunk band points"),
+              ("row_scatter", "hpsdf_tpu_torch/csrc/row_gather.cu",
+               "experiments/gather_probe.py:109", "the repack's grid"),
+              ("coeff_scatter", "hpsdf_tpu_torch/csrc/coeff_scatter.cu",
+               "hpsdf_tpu/render.py:983",
+               "f32 trace, inverse chunk rays"))),
     ]
     print(f"[e2e] {smi} | carve {tr['carve_s']:.3f} s, render 512^2 "
           f"{tr['render_s']:.3f} s, hit fraction {frac:.4f} | 1024^2 march: "
           f"slice {tk3['mrays']:.2f} Mrays/s, refdefault "
-          f"{tk3r['mrays']:.2f} Mrays/s | launches {total}", flush=True)
-    print(json.dumps({"kernels": kernels}))
+          f"{tk3r['mrays']:.2f} Mrays/s | inverse 1080p "
+          f"{ti['step_s']:.4f} s a step, depth RMSE {ti['rmse_before']:.6f} "
+          f"-> {ti['rmse_after']:.6f} | launches {total}", flush=True)
+    print(f"[seconds] {PHASE_SECONDS}", flush=True)
+    print(json.dumps({"kernels": kernels, "inverse": ti}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -191,10 +191,26 @@ def _child_centres(centre: np.ndarray, depth: np.ndarray) -> np.ndarray:
     return (centre[:, None, :] + q[:, None, None] * sgn[None]).reshape(-1, 3)
 
 
-def build(config: Config, F: SDFFn, *, device=_device.DEFAULT) -> Octree:
+def build(config: Config, F: SDFFn, *, continuity_fn=None,
+          progress: Callable[[str], None] | None = None, fit_mesh=None,
+          device=_device.DEFAULT) -> Octree:
     """Approximate ``F`` with an hp-adaptive Legendre octree on ``device``
     (Octree::Create, Source/HP/Octree.cpp:312-352). ``F`` maps world points
-    (K, 3) on ``device`` to (K,) values there."""
+    (K, 3) on ``device`` to (K,) values there.
+
+    ``progress`` receives every log line, whether or not
+    ``config.enable_logging`` prints it (hpsdf_tpu build.py:859-863).
+    ``continuity_fn`` (the continuity post-process) and ``fit_mesh`` (a
+    sharded fit) are not ported yet (ROADMAP.md, queue 1) and raise
+    NotImplementedError when given."""
+    if continuity_fn is not None:
+        raise NotImplementedError(
+            "build(continuity_fn=...): the continuity solve is not ported to "
+            "hpsdf_tpu_torch yet (ROADMAP.md, queue 1 'Continuity')")
+    if fit_mesh is not None:
+        raise NotImplementedError(
+            "build(fit_mesh=...): sharded fits are not ported to "
+            "hpsdf_tpu_torch yet (ROADMAP.md, queue 1 'Sharding')")
     device = _device.resolve(device)
     config.validate()
     t0 = time.monotonic()
@@ -216,6 +232,8 @@ def build(config: Config, F: SDFFn, *, device=_device.DEFAULT) -> Octree:
     def log(msg):
         if config.enable_logging:
             print(f"[hpsdf build +{time.monotonic() - t0:7.2f}s] {msg}")
+        if progress is not None:
+            progress(msg)
 
     # -- root + uniform coarse refinement (Octree.cpp:112-191, 792-801) ----
     st.add_root()

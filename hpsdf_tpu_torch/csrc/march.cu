@@ -8,8 +8,10 @@
 // result: a lockstep lane that is frozen (active but out of its leaf) changes
 // nothing until the next relocation, so a ray that ends the relocation round
 // early and relocates at once computes what the lane does. Per ray:
-//   * the slab test against the root AABB, t from max(t_near, 0), and the
-//     exit plane t_end = min(t_far, t_max);
+//   * the slab test against the root AABB, t from max(t_near, 0) or, given a
+//     start t0 (the cone prepass K4, cone.cu), from max(t_near, 0, t0[ray]),
+//     and the exit plane t_end = min(t_far, t_max); a ray whose t0 lies past
+//     t_end (its cone escaped) does not march;
 //   * the unit-space ray uo + t * udir, clamped (render.py:743-746);
 //   * with LOD tables (lo_grid != nullptr), phase 1 on the 32-lane deg<=2
 //     rows: conservative steps 0.95 (v_lo - err) + 1e-4, hand-off to phase 2
@@ -103,6 +105,7 @@ struct Rays {
   float* t_out;
   uint8_t* hit_out;
   int* stats;                       // nullptr: off; else (B, kStats) counts
+  const float* t0;                  // nullptr, or a start per ray (B,)
 };
 
 // Relaxation state of one ray: whether it still over-relaxes, and the
@@ -249,6 +252,7 @@ struct Lane {
     const bool hits_box = t_far >= fmaxf(t_near, 0.0f);
     r.t_end = fminf(t_far, sc.t_max);
     r.t = fmaxf(t_near, 0.0f);
+    if (ry.t0 != nullptr) r.t = fmaxf(r.t, ry.t0[i]);
     active = hits_box && r.t <= r.t_end;
     hit = need_full = false;
     nsteps = k_lo = k_full = kept = 0;
@@ -391,8 +395,9 @@ march_kernel(Scene sc, Rays ry, int width, int* __restrict__ kk) {
 
 // lo_grid == nullptr: no LOD phase. origin_stride: 3, or 0 for one origin
 // shared by every ray. kk (2 ints) must be zeroed by the caller. stats:
-// nullptr, or (B, 6) ints. width: 0, or the width of the image whose pixels
-// the rays are in raster order (width % 8 == 0, B % (4 width) == 0).
+// nullptr, or (B, 6) ints. t0: nullptr, or a start per ray (B floats).
+// width: 0, or the width of the image whose pixels the rays are in raster
+// order (width % 8 == 0, B % (4 width) == 0).
 extern "C" int hpsdf_march(const float* grid, const float* rows, int W,
                            int deg, const float* lo_grid, const float* lo_rows,
                            int gd, int extra, int inner_steps,
@@ -401,7 +406,8 @@ extern "C" int hpsdf_march(const float* grid, const float* rows, int W,
                            float t_max, float hit_eps, int max_steps,
                            float step_cap, int use_cap, float omega,
                            int relax_on, float* t, uint8_t* hit, int* kk,
-                           int* stats, int width, void* stream) {
+                           int* stats, const float* t0, int width,
+                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Scene sc;
   sc.grid = grid, sc.rows = rows, sc.lo_grid = lo_grid, sc.lo_rows = lo_rows;
@@ -413,7 +419,7 @@ extern "C" int hpsdf_march(const float* grid, const float* rows, int W,
   sc.t_max = t_max;
   sc.s = Stepper{omega, step_cap, hit_eps, max_steps, relax_on != 0,
                  use_cap != 0};
-  const Rays ry{origins, origin_stride, dirs, B, t, hit, stats};
+  const Rays ry{origins, origin_stride, dirs, B, t, hit, stats, t0};
   const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
   if (width && (width < 0 || width % 8 || B % (4 * (int64_t)width)))
     return (int)cudaErrorInvalidValue;

@@ -1,5 +1,5 @@
-// K2 / K5: packed locate + eval, one thread per point, in f32; with WITH_GRAD
-// the unit normal instead of the value.
+// K2 / K5: packed locate + eval, one thread per point, in f32; K5 gives the
+// unit normal instead of the value, or the raw world-space gradient.
 //
 // Replaces what XLA fused for hpsdf_tpu/accel.py values_at / query_packed
 // (to_unit, locate_in, eval_row; accel.py:226-337) and, with the gradient,
@@ -12,7 +12,12 @@
 //     degree a template parameter so the recurrences stay in registers;
 //   * values: the f32-max sentinel outside the root with `outside_max`;
 //     normals: the local gradient chained through scale / root_sizes and
-//     normalised with a 1e-12 floor.
+//     normalised with a 1e-12 floor;
+//   * the raw gradient (K5's third form, for the backward of values_at and
+//     the eikonal term of inverse rendering, hpsdf_tpu/inverse.py:233-240):
+//     the local gradient chained through scale / root_sizes, as autodiff
+//     of values_at chains it, and zero on each axis on which the point was
+//     clamped into the root (the derivative of the clamp).
 //
 // Bound. The tables are a few MB and stay in the 50 MB L2, and the
 // arithmetic is ~4*C f32 operations a point (~16*C with the gradient). At
@@ -40,8 +45,10 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxQuads = 16;       // coefficient float4s held in registers
+// what a launch computes (the wrapper's `mode`)
+constexpr int kValues = 0, kNormals = 1, kRawGrad = 2;
 
-template <int DEG, bool WITH_GRAD>
+template <int DEG, int MODE>
 __global__ void __launch_bounds__(kThreads)
 packed_eval_kernel(const float* __restrict__ grid,
                    const float* __restrict__ rows, int W, int gd, int extra,
@@ -51,18 +58,20 @@ packed_eval_kernel(const float* __restrict__ grid,
                    float* __restrict__ out) {
   constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
   constexpr int kQuads = (kC + 3) / 4;
+  constexpr bool WITH_GRAD = MODE != kValues;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   const float rc[3] = {rc0, rc1, rc2};
   const float inv[3] = {inv0, inv1, inv2};
   float u[3];
-  bool inside = true;
+  bool in_axis[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float w = (pts[3 * i + a] - rc[a]) * inv[a];
-    inside = inside && fabsf(w) <= 0.5f;
+    in_axis[a] = fabsf(w) <= 0.5f;
     u[a] = hpsdf::clamp_half(w);
   }
+  const bool inside = in_axis[0] && in_axis[1] && in_axis[2];
   const float* row = hpsdf::locate_row4(grid, rows, W, gd, extra, u);
   const float4 meta = __ldg(reinterpret_cast<const float4*>(row));
   const float centre[3] = {meta.z, meta.w, __ldg(row + 4)};
@@ -101,7 +110,12 @@ packed_eval_kernel(const float* __restrict__ grid,
     add_terms([&](int m) { return __ldg(coef + m); });
   }
 
-  if constexpr (WITH_GRAD) {
+  if constexpr (MODE == kRawGrad) {
+    // local = (unit - centre) * scale, unit = clamp((p - c) * (1 / sizes))
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      out[3 * i + a] = in_axis[a] ? g[a] * scale * inv[a] : 0.0f;
+  } else if constexpr (MODE == kNormals) {
     // local = (unit - centre) * scale, unit = (p - c) / sizes
     const float sz[3] = {sz0, sz1, sz2};
 #pragma unroll
@@ -117,25 +131,30 @@ packed_eval_kernel(const float* __restrict__ grid,
 
 }  // namespace
 
-// with_grad = 0: values (B,); 1: unit normals (B, 3). Rows 16-byte aligned.
+// mode 0: values (B,); 1: unit normals (B, 3); 2: raw gradients (B, 3).
+// Rows 16-byte aligned.
 extern "C" int hpsdf_packed_eval(const float* grid, const float* rows, int W,
                                  int deg, int gd, int extra, const float* pts,
                                  int64_t B, float rc0, float rc1, float rc2,
                                  float inv0, float inv1, float inv2, float sz0,
                                  float sz1, float sz2, int outside_max,
-                                 int with_grad, float* out, void* stream) {
+                                 int mode, float* out, void* stream) {
   const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
-#define HPSDF_LAUNCH(D)                                                      \
-  if (with_grad)                                                             \
-    packed_eval_kernel<D, true><<<blocks, kThreads, 0, s>>>(                 \
-        grid, rows, W, gd, extra, pts, B, rc0, rc1, rc2, inv0, inv1, inv2,   \
-        sz0, sz1, sz2, outside_max, out);                                    \
-  else                                                                       \
-    packed_eval_kernel<D, false><<<blocks, kThreads, 0, s>>>(                \
-        grid, rows, W, gd, extra, pts, B, rc0, rc1, rc2, inv0, inv1, inv2,   \
-        sz0, sz1, sz2, outside_max, out)
+  if (mode < kValues || mode > kRawGrad) return (int)cudaErrorInvalidValue;
+#define HPSDF_MODE(D, M)                                                     \
+  packed_eval_kernel<D, M><<<blocks, kThreads, 0, s>>>(                      \
+      grid, rows, W, gd, extra, pts, B, rc0, rc1, rc2, inv0, inv1, inv2, sz0, \
+      sz1, sz2, outside_max, out)
+#define HPSDF_LAUNCH(D)                     \
+  if (mode == kNormals)                     \
+    HPSDF_MODE(D, kNormals);                \
+  else if (mode == kRawGrad)                \
+    HPSDF_MODE(D, kRawGrad);                \
+  else                                      \
+    HPSDF_MODE(D, kValues)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
+#undef HPSDF_MODE
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,79 @@
+"""The port's public signatures against the reference's: ``mesh_sdf``'s
+positional order, ``build`` and ``build_octree`` with ``progress`` (and the
+options not ported yet, which raise), the CSG rebuilds forwarding their
+keywords, and the package's exports."""
+
+import inspect
+import types
+
+import jax.numpy as jnp
+import pytest
+import torch
+
+import hpsdf_tpu as hp
+from hpsdf_tpu.mesh import sdf as JS
+import hpsdf_tpu_torch as T
+from hpsdf_tpu_torch import build as TB
+from hpsdf_tpu_torch import mesh as TM
+from hpsdf_tpu_torch.mesh import gen
+
+from .test_torch_query import few_torch_threads  # noqa: F401
+
+_CFG = dict(target_error=1e-3, continuity=False, max_depth=4, max_degree=2)
+
+
+def _sphere(p):
+    return torch.linalg.norm(p, dim=-1) - 0.3
+
+
+def test_mesh_sdf_positional_order():
+    want = list(inspect.signature(JS.mesh_sdf).parameters)
+    params = inspect.signature(TM.mesh_sdf).parameters
+    assert list(params)[:len(want)] == want
+    assert params["device"].kind is inspect.Parameter.KEYWORD_ONLY
+    mesh = TM.build_mesh(*gen.icosphere(0.3, 1))
+    F = TM.mesh_sdf(mesh, None, 0, "tiles", device="cpu")
+    assert F.method == "tiles"
+    with pytest.raises(NotImplementedError, match="bvh"):
+        TM.mesh_sdf(mesh, None, None, "bvh", device="cpu")
+
+
+def test_build_progress():
+    cfg = T.Config(**_CFG)
+    lines = []
+    tree = T.build_octree(cfg, _sphere, device="cpu", progress=lines.append)
+    assert tree.n_nodes > 1
+    want = []
+    hp.build_octree(hp.Config(**_CFG),
+                    lambda p: jnp.linalg.norm(p, axis=-1) - 0.3,
+                    progress=want.append)
+    # the same log lines, up to their numbers
+    assert [w.split(":")[0] for w in want] == [g.split(":")[0] for g in lines]
+    assert lines[0].startswith("coarse fit") and lines[-1].startswith(
+        "packed")
+
+
+@pytest.mark.parametrize("option", ["continuity_fn", "fit_mesh"])
+def test_build_refuses_unported(option):
+    with pytest.raises(NotImplementedError, match=option):
+        TB.build(T.Config(**_CFG), _sphere, device="cpu",
+                 **{option: object()})
+
+
+@pytest.mark.parametrize("op", ["union_sdf", "subtract_sdf", "intersect_sdf"])
+def test_csg_forwards_keywords(op):
+    tree = T.build_octree(T.Config(**_CFG), _sphere, device="cpu")
+    lines = []
+    out = getattr(T, op)(tree, lambda p: p[:, 0] - 0.1,
+                         progress=lines.append)
+    assert out.device == tree.device and lines
+    with pytest.raises(NotImplementedError, match="fit_mesh"):
+        getattr(T, op)(tree, lambda p: p[:, 0], fit_mesh=object())
+
+
+def test_exports():
+    assert set(hp.__all__) - {"df64"} <= set(T.__all__)
+    assert isinstance(T.render, types.ModuleType)
+    assert isinstance(T.inverse, types.ModuleType)
+    assert T.render.render is T.render_image
+    assert T.inverse.fit_to_depth.__module__ == "hpsdf_tpu_torch.inverse"

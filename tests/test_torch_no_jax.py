@@ -1,5 +1,6 @@
-"""hpsdf_tpu_torch stands alone: importing it, its mesh package and its
-kernel bindings loads neither jax nor hpsdf_tpu."""
+"""hpsdf_tpu_torch stands alone: importing it, its mesh package, its
+kernel bindings, the sphere tracer and inverse rendering loads neither jax
+nor hpsdf_tpu."""
 
 import os
 import subprocess
@@ -12,6 +13,7 @@ def test_import_leaves_out_jax_and_hpsdf_tpu():
     code = (
         "import sys\n"
         "import hpsdf_tpu_torch, hpsdf_tpu_torch.mesh, hpsdf_tpu_torch._kernels\n"
+        "import hpsdf_tpu_torch.inverse, hpsdf_tpu_torch.render\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'hpsdf_tpu'))\n"
         "print(bad)\n"

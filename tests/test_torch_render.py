@@ -120,8 +120,14 @@ def test_trace(trees):
     rt = TR.trace(tt, o, d, t_max=5.0, packed=tp, sort_rays=True)
     _agree(rt.hit.numpy(), np.asarray(rj.hit), rt.t.numpy(),
            np.asarray(rj.t))
-    with pytest.raises(NotImplementedError, match="K4"):
-        TR.trace(tt, o, d, cone_tiles=(40, 40, 8))
+    # with the cone prepass (K4's plain version) before the march: the
+    # hits of hpsdf_tpu's cone trace, and the depths of its march without a
+    # cone (the cone moves only where the fine march starts)
+    rjc = JR.trace(jt, o, d, t_max=5.0, cone_tiles=(40, 40, 8))
+    rtc = TR.trace(tt, o, d, t_max=5.0, packed=tp, cone_tiles=(40, 40, 8))
+    np.testing.assert_array_equal(rtc.hit.numpy(), np.asarray(rjc.hit))
+    _agree(rtc.hit.numpy(), np.asarray(rj.hit), rtc.t.numpy(),
+           np.asarray(rj.t))
 
 
 @pytest.mark.parametrize("name", sorted(_TREES))

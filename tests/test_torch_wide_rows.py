@@ -104,12 +104,14 @@ def test_wide_rows(trees, read):
                                    atol=K1_ATOL)
 
 
-def _ptxas_entry(kernel, deg, grad, stack=0, regs=56):
+def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None):
     """ptxas's lines for one instantiation; ``grad`` None: a kernel whose
-    only template argument is the degree (K3)."""
+    only template argument is the degree (K3). ``args``: the mangled
+    template arguments, in place of the degree and ``grad``."""
     flag = "" if grad is None else f"Lb{int(grad)}E"
-    name = (f"_ZN40_GLOBAL__N__1f67f1e9_8_query_cu_1d77935312{kernel}ILi"
-            f"{deg}E{flag}EEvPKiPKdS2_S4_iS4_lddddddiPdS5_")
+    args = f"Li{deg}E{flag}" if args is None else args
+    name = (f"_ZN40_GLOBAL__N__1f67f1e9_8_query_cu_1d77935312{kernel}I"
+            f"{args}EEvPKiPKdS2_S4_iS4_lddddddiPdS5_")
     return (f"ptxas info    : Compiling entry function '{name}' for "
             f"'sm_90a'\nptxas info    : Function properties for {name}\n"
             f"    {stack} bytes stack frame, {stack} bytes spill stores, "
@@ -117,12 +119,14 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56):
             f"registers, used 0 barriers, 22528 bytes smem\n")
 
 
-@pytest.mark.parametrize("spill", [None, "K1", "K3"],
-                         ids=["clean", "spills", "march_spills"])
+@pytest.mark.parametrize("spill", [None, "K1", "K3", "K7"],
+                         ids=["clean", "spills", "march_spills",
+                              "backward_spills"])
 def test_ptxas_check(monkeypatch, spill):
-    """chip_smoke.ptxas_check reads K1's, K2/K5's and K3's instantiations
-    from ptxas's report (the lines -Xptxas -v prints) and fails when K1 or
-    K3 at degree 3 or 5 has a stack frame or spills."""
+    """chip_smoke.ptxas_check reads the kernels' instantiations from
+    ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
+    K5's raw gradient, K7 or K8 at degree 3 or 5, or G's backward, has a
+    stack frame or spills."""
     from hpsdf_tpu_torch import _kernels
 
     report = "".join(
@@ -134,16 +138,35 @@ def test_ptxas_check(monkeypatch, spill):
         _ptxas_entry("march_kernel", d, None, regs=80,
                      stack=16 if spill == "K3" and d == 5 else 0)
         for d in (3, 5, 12))
+    for d in (3, 5):
+        report += _ptxas_entry("cone_kernel", d, None, regs=40)
+        report += _ptxas_entry("packed_eval_kernel", d, None,
+                               args=f"Li{d}ELi2E")
+        report += "".join(
+            _ptxas_entry("packed_grad_kernel", d, None,
+                         stack=24 if spill == "K7" and f else 0,
+                         args=f"Li{d}ELi{f}E") for f in (0, 1))
+        report += _ptxas_entry("coeff_scatter_kernel", d, None,
+                               args=f"dLi{d}ELb0E")
+        report += _ptxas_entry("coeff_scatter_kernel", d, None,
+                               args=f"fLi{d}ELb1E")
+    report += "".join(_ptxas_entry("row_scatter_kernel", 0, None,
+                                   args=f"Lb{a}E") for a in (0, 1))
     monkeypatch.setattr(_kernels, "ptxas_report", lambda: report)
     if spill:
-        with pytest.raises(RuntimeError, match={"K1": "K1 5/values",
-                                                "K3": "K3 5: stack 16"}[spill]):
+        with pytest.raises(RuntimeError, match={
+                "K1": "K1 5/values", "K3": "K3 5: stack 16",
+                "K7": "K7 3/form1: stack 24"}[spill]):
             chip_smoke.ptxas_check()
         return
     found = chip_smoke.ptxas_check()
     assert found["query_kernel"]["3/grad"] == [56, 0, 0, 0]
     assert set(found["query_kernel"]) == {f"{d}/{k}" for d in (3, 5, 12)
                                           for k in ("values", "grad")}
-    assert found["packed_eval_kernel"] == {"3/values": [32, 0, 0, 0]}
+    assert found["packed_eval_kernel"]["3/values"] == [32, 0, 0, 0]
+    assert set(found["packed_eval_kernel"]) == {"3/values", "3/raw", "5/raw"}
+    assert set(found["coeff_scatter_kernel"]) == {
+        f"{d}/{k}" for d in (3, 5) for k in ("f64 query", "f32 trace")}
+    assert set(found["row_scatter_kernel"]) == {"aggregated", "naive"}
     assert found["march_kernel"] == {str(d): [80, 0, 0, 0]
                                      for d in (3, 5, 12)}
