@@ -8,8 +8,7 @@ the repository root, under a name keyed by a hash of the sources, the
 headers they share (``csrc/*.cuh``) and the flags, so a changed file
 rebuilds and an unchanged one is reused. Nothing is fetched: the sources
 are the package's own. What ptxas reports of each kernel (registers,
-stack frame, spills) is kept beside the library (``ptxas_report``), after
-one line a source with the seconds its nvcc took.
+stack frame, spills) is kept beside the library (``ptxas_report``).
 ``csrc/check/`` holds reference kernels that no path of the package runs
 (an earlier form of a kernel, kept so that a check can hold the shipped one
 to it bit for bit); ``load_check`` builds them the same way into a library
@@ -28,8 +27,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -57,13 +54,13 @@ _SIGNATURES = {
                     _P, _P, _P, _P, _P, _I32, _P),
     "hpsdf_cone": (_P, _P, _I32, _I32, _P, _P, _I32, _I32, _P, _I64, _P,
                    _I32, _I32, _I32, _P, _F32, _F32, _I32, _P, _P),
-    "hpsdf_row_scatter": (_P, _I64, _P, _I64, _I64, _P, _I32, _P),
+    "hpsdf_row_scatter": (_P, _I64, _P, _I64, _I64, _P, _P),
     "hpsdf_packed_grad": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
                           _F32, _F32, _F32, _F32, _F32, _F32,
-                          _P, _I32, _I32, _P, _P, _P),
+                          _P, _I32, _P, _P, _P),
     "hpsdf_coeff_scatter": (_P, _P, _P, _P, _I32, _I32, _P, _P, _P, _P, _P,
                             _I64, _F64, _F64, _F64, _F64, _F64, _F64,
-                            _P, _I32, _I32, _I32, _P, _P),
+                            _P, _I32, _I32, _P, _P),
 }
 # and of the reference kernels under csrc/check/, which only checks load
 _CHECK_SIGNATURES = {
@@ -116,27 +113,17 @@ def _build(path: str, sub: str = "") -> None:
     objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources(sub)]
     jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
             for src, obj in zip(sources(sub), objs)]
-    t0 = time.monotonic()
     try:
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.PIPE, text=True)
                  for cmd in jobs]
-
-        def finish(p):
-            out = p.communicate()
-            return (*out, time.monotonic() - t0)
-
-        with ThreadPoolExecutor(len(procs)) as pool:  # waits for every one
-            outs = list(pool.map(finish, procs))
-        for cmd, p, (out, err, _) in zip(jobs, procs, outs):
+        outs = [p.communicate() for p in procs]      # waits for every one
+        for cmd, p, (out, err) in zip(jobs, procs, outs):
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({p.returncode}): "
                                    f"{' '.join(cmd)}\n{out}\n{err}")
         with open(f"{tmp}.ptxas.txt", "w") as fh:
-            fh.writelines(f"nvcc seconds {os.path.basename(src)}: {sec:.1f}"
-                          f"\n" for src, (_, _, sec) in zip(sources(sub),
-                                                             outs))
-            fh.writelines(out + err for out, err, _ in outs)
+            fh.writelines(out + err for out, err in outs)
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:

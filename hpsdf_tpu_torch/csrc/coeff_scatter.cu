@@ -23,8 +23,7 @@
 // trace's dfdt), the recurrences, and C atomic adds. The points of a traced
 // image or an inverse-rendering chunk land in few leaves, so the lanes of a
 // warp that share a leaf sum their terms in registers first (scatter.cuh) and
-// one lane a group adds; `aggregate` 0 keeps one atomic per lane and term, so
-// that the two can be timed.
+// one lane a group adds.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,7 +52,7 @@ coeff_scatter_kernel(const int32_t* __restrict__ child_idx,
                      const T* __restrict__ pts, TraceIn tr, int64_t B,
                      T rc0, T rc1, T rc2, T inv0, T inv1, T inv2,
                      const T* __restrict__ cot, int outside_zero,
-                     bool aggregate, T* __restrict__ d_coeffs) {
+                     T* __restrict__ d_coeffs) {
   constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t ip = i < B ? i : B - 1;     // spare lanes repeat the last point
@@ -127,9 +126,7 @@ coeff_scatter_kernel(const int32_t* __restrict__ child_idx,
     w = valid ? cot[ip] : T(0);
   }
 
-  hpsdf::PeerSum peers;
-  if (aggregate)
-    peers = hpsdf::PeerSum(valid ? (unsigned long long)cur : ~0ull);
+  const hpsdf::PeerSum peers(valid ? (unsigned long long)cur : ~0ull);
   const bool write = valid && peers.leader;
   T* dst = d_coeffs + (int64_t)cur * kC;
   hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
@@ -153,25 +150,24 @@ extern "C" int hpsdf_coeff_scatter(const int32_t* child_idx,
                                    const uint8_t* hit, int64_t B, double rc0,
                                    double rc1, double rc2, double inv0,
                                    double inv1, double inv2, const void* cot,
-                                   int outside_zero, int dtype, int aggregate,
+                                   int outside_zero, int dtype,
                                    void* d_coeffs, void* stream) {
   if (B <= 0 || (dtype != 4 && dtype != 8)) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
   const TraceIn tr{origins, dirs, t, hit};
-  const bool agg = aggregate != 0;
 #define HPSDF_LAUNCH(D)                                                      \
   if (dtype == 8)                                                            \
     coeff_scatter_kernel<double, D, false><<<blocks, kThreads, 0, s>>>(      \
         child_idx, (const double*)centre, depth, (const double*)coeffs,      \
         depth_used, (const double*)pts, tr, B, rc0, rc1, rc2, inv0, inv1,    \
-        inv2, (const double*)cot, outside_zero, agg, (double*)d_coeffs);     \
+        inv2, (const double*)cot, outside_zero, (double*)d_coeffs);          \
   else                                                                       \
     coeff_scatter_kernel<float, D, true><<<blocks, kThreads, 0, s>>>(        \
         child_idx, (const float*)centre, depth, (const float*)coeffs,        \
         depth_used, nullptr, tr, B, (float)rc0, (float)rc1, (float)rc2,      \
         (float)inv0, (float)inv1, (float)inv2, (const float*)cot,            \
-        outside_zero, agg, (float*)d_coeffs)
+        outside_zero, (float*)d_coeffs)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
   return (int)cudaGetLastError();

@@ -24,8 +24,6 @@
 // crowd into the few hundred leaves near the surface, so one atomic per lane
 // and term serialises on those rows; the lanes of a warp that share a row sum
 // their terms in registers first (scatter.cuh) and one lane a group adds.
-// `aggregate` 0 keeps the naive form, one atomic per lane and term, so that
-// the two can be timed.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,7 +42,7 @@ packed_grad_kernel(const float* __restrict__ grid,
                    const float* __restrict__ rows, int W, int gd, int extra,
                    const float* __restrict__ pts, int64_t B, float rc0,
                    float rc1, float rc2, float inv0, float inv1, float inv2,
-                   const float* __restrict__ cot, bool aggregate,
+                   const float* __restrict__ cot,
                    float* __restrict__ d_grid, float* __restrict__ d_rows) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = i < B;
@@ -92,9 +90,7 @@ packed_grad_kernel(const float* __restrict__ grid,
       ua[a] = valid && in_axis[a] ? cot[3 * i + a] * (scale * inv[a]) : 0.0f;
   }
 
-  hpsdf::PeerSum peers;
-  if (aggregate)
-    peers = hpsdf::PeerSum(valid ? (unsigned long long)dst : ~0ull);
+  const hpsdf::PeerSum peers(valid ? (unsigned long long)dst : ~0ull);
   const bool write = valid && peers.leader;
   hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
     float x;
@@ -118,15 +114,14 @@ extern "C" int hpsdf_packed_grad(const float* grid, const float* rows, int W,
                                  int deg, int gd, int extra, const float* pts,
                                  int64_t B, float rc0, float rc1, float rc2,
                                  float inv0, float inv1, float inv2,
-                                 const float* cot, int form, int aggregate,
-                                 float* d_grid, float* d_rows, void* stream) {
+                                 const float* cot, int form, float* d_grid, float* d_rows, void* stream) {
   const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
   if ((form != 0 && form != 1) || B <= 0) return (int)cudaErrorInvalidValue;
 #define HPSDF_FORM(D, F)                                                     \
   packed_grad_kernel<D, F><<<blocks, kThreads, 0, s>>>(                      \
       grid, rows, W, gd, extra, pts, B, rc0, rc1, rc2, inv0, inv1, inv2, cot, \
-      aggregate != 0, d_grid, d_rows)
+      d_grid, d_rows)
 #define HPSDF_LAUNCH(D) \
   if (form == 0)        \
     HPSDF_FORM(D, 0);   \

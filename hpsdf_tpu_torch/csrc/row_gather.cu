@@ -27,16 +27,13 @@
 // packed rows in repack_folded, where a shallow leaf copied into many grid
 // cells receives many rows. Bound: the B*W*4 bytes of d_out read once and
 // d_table's bytes written once; what can serialise is the atomics on a row
-// shared by many indices. A thread takes one index and walks its row a
-// float4 at a time; the lanes of a warp with the same index sum their float4s
-// in registers first (scatter.cuh), so a shared row costs one atomic per lane
-// group and lane, not one per index. With `aggregate` 0 each thread adds its
-// own row (the naive form, kept to time what the aggregation is worth).
+// shared by many indices. A thread takes one index and adds its row a float4
+// at a time, one atomic a lane. Summing a warp's lanes of one row in
+// registers first (scatter.cuh, as K7 and K8 do) was timed and lost here, at
+// the repack's grid and at 2^20 random indices alike (PERF.md, Findings).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "scatter.cuh"
 
 namespace {
 
@@ -62,35 +59,20 @@ row_gather_kernel(const float* __restrict__ table, int64_t N, int64_t W,
   }
 }
 
-template <bool AGG>
 __global__ void __launch_bounds__(kThreads)
 row_scatter_kernel(const float* __restrict__ d_out, int64_t W,
                    const int32_t* __restrict__ idx, int64_t B, int64_t N,
                    float* __restrict__ d_table) {
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = b < B ? __ldg(idx + b) : -1;
-  const bool valid = r >= 0 && r < N;
+  if (b >= B) return;
+  const int r = __ldg(idx + b);
+  if (r < 0 || r >= N) return;
   const float4* src = reinterpret_cast<const float4*>(d_out + b * W);
   float* dst = d_table + (int64_t)r * W;
-  if constexpr (AGG) {
-    // every lane of the warp replays the schedule, valid or not
-    const hpsdf::PeerSum peers(valid ? (unsigned long long)r : ~0ull);
-    const bool write = valid && peers.leader;
-    for (int64_t q = 0; q < W / 4; ++q) {
-      float4 v = valid ? __ldg(src + q) : make_float4(0.f, 0.f, 0.f, 0.f);
-      v.x = peers.sum(v.x), v.y = peers.sum(v.y);
-      v.z = peers.sum(v.z), v.w = peers.sum(v.w);
-      if (write) {
-        atomicAdd(dst + 4 * q, v.x), atomicAdd(dst + 4 * q + 1, v.y);
-        atomicAdd(dst + 4 * q + 2, v.z), atomicAdd(dst + 4 * q + 3, v.w);
-      }
-    }
-  } else if (valid) {
-    for (int64_t q = 0; q < W / 4; ++q) {
-      const float4 v = __ldg(src + q);
-      atomicAdd(dst + 4 * q, v.x), atomicAdd(dst + 4 * q + 1, v.y);
-      atomicAdd(dst + 4 * q + 2, v.z), atomicAdd(dst + 4 * q + 3, v.w);
-    }
+  for (int64_t q = 0; q < W / 4; ++q) {
+    const float4 v = __ldg(src + q);
+    atomicAdd(dst + 4 * q, v.x), atomicAdd(dst + 4 * q + 1, v.y);
+    atomicAdd(dst + 4 * q + 2, v.z), atomicAdd(dst + 4 * q + 3, v.w);
   }
 }
 
@@ -100,17 +82,12 @@ row_scatter_kernel(const float* __restrict__ d_out, int64_t W,
 // 16-byte aligned, W a multiple of 4.
 extern "C" int hpsdf_row_scatter(const float* d_out, int64_t W,
                                  const int32_t* idx, int64_t B, int64_t N,
-                                 float* d_table, int aggregate, void* stream) {
+                                 float* d_table, void* stream) {
   if (W % 4 != 0 || (uintptr_t)d_out % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (aggregate)
-    row_scatter_kernel<true><<<blocks, kThreads, 0, s>>>(d_out, W, idx, B, N,
-                                                         d_table);
-  else
-    row_scatter_kernel<false><<<blocks, kThreads, 0, s>>>(d_out, W, idx, B,
-                                                          N, d_table);
+  row_scatter_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      d_out, W, idx, B, N, d_table);
   return (int)cudaGetLastError();
 }
 

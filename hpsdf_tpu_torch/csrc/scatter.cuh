@@ -1,17 +1,17 @@
-// Warp-aggregated scatter-add, shared by the backward kernels: G's backward
-// (row_gather.cu), K7 (packed_grad.cu) and K8 (coeff_scatter.cu).
+// Warp-aggregated scatter-add, shared by the backward kernels K7
+// (packed_grad.cu) and K8 (coeff_scatter.cu).
 //
 // Each of those adds, per point, a few to a few hundred values into one row
 // of a table with atomics. Where many points of a warp land in the same row
 // (the points of an inverse-rendering chunk crowd into the few hundred leaves
-// near the surface; a shallow leaf fills many grid cells), one atomic per lane
-// serialises on that row. So the lanes that share a destination (their
-// "peers", __match_any_sync on its key) first sum their values in registers,
-// and only the lowest lane of each group issues the atomic. The sum follows
-// E. Westphal's reduce_peers: in round r each lane adds the partial sum of the
-// next peer still in play, and the peers of odd rank drop out, so a group of n
-// lanes needs ceil(log2 n) rounds of one shuffle. The schedule depends only on
-// the keys, so it is computed once per point and replayed for every value.
+// near the surface), one atomic per lane serialises on that row. So the
+// lanes that share a destination (their "peers", __match_any_sync on its
+// key) first sum their values in registers, and only the lowest lane of each
+// group issues the atomic. The sum follows E. Westphal's reduce_peers: in
+// round r each lane adds the partial sum of the next peer still in play, and
+// the peers of odd rank drop out, so a group of n lanes needs ceil(log2 n)
+// rounds of one shuffle. The schedule depends only on the keys, so it is
+// computed once per point and replayed for every value.
 
 #pragma once
 
@@ -32,9 +32,6 @@ struct PeerSum {
   bool take[5];     // whether round r adds what it read
   int rounds;       // warp-uniform
   bool leader;
-
-  // no peers: each lane its own group (the naive, one atomic a lane form)
-  __device__ __forceinline__ PeerSum() : rounds(0), leader(true) {}
 
   __device__ __forceinline__ explicit PeerSum(unsigned long long key) {
     const int lane = threadIdx.x & 31;

@@ -149,8 +149,8 @@ query_kernel.launches = 0
 
 
 def coeff_scatter_kernel(tree: Octree, cot: torch.Tensor, *, pts=None,
-                         rays=None, outside_value_max: bool = False,
-                         aggregate: bool = True) -> torch.Tensor:
+                         rays=None,
+                         outside_value_max: bool = False) -> torch.Tensor:
     """Launch K8 on CUDA tensors: gradients (N, C) to ``tree.coeffs``.
 
     Query form (``pts`` (B, 3) f64, an f64 tree): the VJP of ``query``
@@ -158,9 +158,8 @@ def coeff_scatter_kernel(tree: Octree, cot: torch.Tensor, *, pts=None,
     ``outside_value_max`` (the sentinel is a constant). Trace form (``rays``
     = (origins, dirs, t, hit), f32 (B, 3), (B, 3), (B,), bool (B,); a tree
     with f32 ``centre`` and ``coeffs``): the trace's implicit VJP with
-    ``cot`` = dt (B,) (``render.trace_vjp_plain``). ``aggregate`` False
-    takes the naive form (one atomic a lane and term), kept for timing.
-    Raises on anything else."""
+    ``cot`` = dt (B,) (``render.trace_vjp_plain``). Raises on anything
+    else."""
     trace_form = rays is not None
     if (pts is None) != trace_form:
         raise ValueError("coeff_scatter_kernel takes pts or rays")
@@ -212,7 +211,7 @@ def coeff_scatter_kernel(tree: Octree, cot: torch.Tensor, *, pts=None,
         tree.depth.data_ptr(), tree.coeffs.detach().data_ptr(),
         tree.deg_used, tree.depth_used, *ptrs, B, *map(float, rc),
         *map(float, inv), cot.data_ptr(), int(outside_value_max),
-        dt.itemsize, int(aggregate), out.data_ptr(),
+        dt.itemsize, out.data_ptr(),
         _kernels.stream_of(ref)), "coeff_scatter")
     coeff_scatter_kernel.launches += 1
     return out

@@ -202,7 +202,7 @@ def test_packed_eval_refuses_unaligned_rows():
     pts = torch.zeros((4, 3), dtype=torch.float32)
     with pytest.raises(ValueError, match="16-byte aligned"):
         TA.packed_eval_kernel(dataclasses.replace(pt, rows=shifted), pts,
-                              with_grad=False)
+                              mode=TA.VALUES)
 
 
 @pytest.mark.parametrize("wrapper", ["packed_eval", "march", "row_gather"])
@@ -219,7 +219,7 @@ def test_kernel_wrappers_refuse_cpu(wrapper):
     pts = torch.zeros((4, 3), dtype=torch.float32)
     with pytest.raises(ValueError, match="CUDA|unsupported device"):
         if wrapper == "packed_eval":
-            TA.packed_eval_kernel(pt, pts, with_grad=False)
+            TA.packed_eval_kernel(pt, pts, mode=TA.VALUES)
         elif wrapper == "march":
             TR.march_kernel(pt, pts, pts, 5.0)
         else:       # dispatches CPU to the plain version, nothing else
