@@ -53,11 +53,21 @@ build's ptxas report gives K1's, K2/K5's and K3's registers, stack and
 spills; K1's and K3's degree-3 and degree-5 instantiations must have no
 stack frame and no spills.
 
+The backward kernels ([grad]) are held to autograd of their plain versions
+at 2^20 points and at the inverse path's own shapes (one chunk's band
+points, the 7n points of its values_at call, its rays, the repack's grid);
+K7 and G's backward also to the kernels they replaced (csrc/check/, timed
+in the same run), with the operations a call puts on the card. [inverse]
+runs bench.py's 1080p fit_to_depth, profiles a step with and without the
+replaced backward kernels, and holds the kernels' 128^2 losses to the plain
+versions'.
+
 Phases, one line each: device, build, ptxas, P1 vs plain, the slice, P1 at
 the fit batch, K1 vs plain, times, G vs plain, the reference-default fit,
 K2/K5 vs plain, K3 vs plain (three lines a tree: checks and rays, times
-and bound, serial floor), the render path, K2/K5 at the main path's shapes,
-the degrees; then one JSON line with the kernels (K2/K5's launches
+and bound, serial floor), K4, the render path, K2/K5 at the main path's
+shapes, the degrees, the backward kernels, inverse rendering, each phase's
+seconds; then one JSON line with the kernels (K2/K5's launches
 also split into values and normals), the card's name and power limit as
 nvidia-smi prints them, and the final JSON line
 {"ok": true, "device": {...}}. Any failed check raises and the exit code is
@@ -116,6 +126,9 @@ BOUNDARY_EYE = (0.6, 0.0, -1.5)     # a view where the reference drops hits
 # in another order than the plain sums, so errors are relative to the
 # largest entry (a row sums up to thousands of f32 terms)
 GRAD_RTOL32, GRAD_RTOL64 = 1e-4, 1e-10
+# the operations a call of K7 and of G's backward may put on the card (the
+# kernels they replaced: a launch and two zero-fills, a launch and one)
+K7_LAUNCHES, G_BWD_LAUNCHES = 3, 2
 INV_SIZE = (1920, 1080)             # bench.py:734-767: 1080p rays
 INV_STEPS = 5
 INV_SMALL = 128                     # the kernels-against-plain run's side
@@ -301,7 +314,8 @@ def phase_p1_fit(rows, table, fit_pts):
 def counters():
     """Every launch counter, by name: (kernel wrapper, attribute). K2/K5's
     wrapper counts all its launches and, apart, those of K5's normals and
-    of its raw gradient."""
+    of its raw gradient; G's backward's all its launches and, apart, those
+    of its CSR form."""
     from hpsdf_tpu_torch.accel import (packed_eval_kernel, packed_grad_kernel,
                                        row_gather, row_scatter)
     from hpsdf_tpu_torch.mesh import closest_tri_tiles
@@ -316,6 +330,7 @@ def counters():
             "march": (march_kernel, "launches"),
             "cone": (cone_kernel, "launches"),
             "row_scatter": (row_scatter, "launches"),
+            "row_scatter_csr": (row_scatter, "csr_launches"),
             "packed_grad": (packed_grad_kernel, "launches"),
             "coeff_scatter": (coeff_scatter_kernel, "launches")}
 
@@ -1333,10 +1348,15 @@ def rel_err(a, b):
 def phase_grad(pt_s, tree_s, s, smi, seed=11):
     """The backward kernels against autograd of their plain versions on the
     card, at 2^20 points and at the main path's shapes (one inverse chunk's
-    band points and rays on the initial tree, the repack's grid): K7 both
-    forms, G's backward, K8's f64 query form and f32 trace form. Each
-    timed in a CUDA graph beside its plain version, its bound and, for G's
-    backward, index_add_.
+    band points, the 7n points of its values_at call and its rays on the
+    initial tree, the repack's grid): K7 both forms, G's backward (its CSR
+    form at the grid, its grouping form at 2^20 random indices and at the
+    grid), K8's f64 query form and f32 trace form. K7 and G's backward are
+    also held to the kernels they replaced (csrc/check/), within the same
+    tolerance, and the CSR form's two launches must agree bit for bit. Each
+    timed in a CUDA graph beside its plain version, its bound, the kernel it
+    replaced and, for G's backward, index_add_, with the operations a call
+    puts on the card (at most K7_LAUNCHES / G_BWD_LAUNCHES).
     Returns {kernel: {shape: dict}}."""
     from hpsdf_tpu_torch import accel as A
     from hpsdf_tpu_torch import render as R
@@ -1378,61 +1398,129 @@ def phase_grad(pt_s, tree_s, s, smi, seed=11):
         "ms": graph_ms(lambda: A.packed_eval_kernel(pt_i, band, A.RAW_GRAD),
                        20),
         "plain_ms": time_ms(lambda: A.point_gradient_plain(pt_i, band), 5),
-        "bound_ms": bytes_ms(pt_i.rows, pt_i.grid, band, band)}
+        "bound_ms": bytes_ms(band, band,
+                             extra=packed_read_bytes(pt_i, band, True))}
     print(f"[grad] K5's raw gradient at the inverse chunk's "
           f"{band.shape[0]} band points: max|kernel - plain| / max|plain| "
           f"{raw_err:.3e}, kernel {out['raw']['ms']:.4f} ms, plain "
           f"{out['raw']['plain_ms']:.3f} ms, byte bound "
           f"{out['raw']['bound_ms']:.5f} ms", flush=True)
-    # K7: values_at's VJP (form 0) and the point gradient's (form 1)
-    for label, pt, pts in (("2^20 uniform, slice tree", pt_s, uni),
-                           ("inverse chunk band points", pt_i, band)):
+    # K7: values_at's VJP (form 0) and the point gradient's (form 1), at
+    # 2^20 points, at an inverse chunk's band points (both forms) and at
+    # the 7n points of its values_at call (form 0)
+    free = inverse_points(s, rays)
+    crowd = {}
+    for label, pt, pts, forms in (
+            ("2^20 uniform, slice tree", pt_s, uni, (0, 1)),
+            ("inverse chunk band points", pt_i, band, (0, 1)),
+            ("inverse chunk 7n points", pt_i, free, (0,))):
         n = pts.shape[0]
-        for form, cot, plain in ((0, rand(n), A.values_at_vjp_plain),
-                                 (1, rand(n, 3), A.point_gradient_vjp_plain)):
+        per_row = torch.bincount(rows_read(pt, pts))
+        crowd[label] = (int((per_row > 0).sum()), int(per_row.max()))
+        for form in forms:
+            cot = rand(n) if form == 0 else rand(n, 3)
+            plain = (A.values_at_vjp_plain, A.point_gradient_vjp_plain)[form]
             got = A.packed_grad_kernel(pt, pts, cot, form)
             want = plain(pt, pts, cot)
+            ref = packed_grad_reference(pt, pts, cot, form)
             err = max(rel_err(g, w) for g, w in zip(got, want))
+            ref_err = max(rel_err(g, r) for g, r in zip(got, ref))
             check(err <= GRAD_RTOL32, f"K7 form {form} vs autograd of the "
                   f"plain version at {label}: {err:.3e}")
+            check(ref_err <= GRAD_RTOL32, f"K7 form {form} vs the kernel it "
+                  f"replaced at {label}: {ref_err:.3e}")
             t = timed(lambda: A.packed_grad_kernel(pt, pts, cot, form),
                       lambda: plain(pt, pts, cot))
             C = (pt.deg_used + 1) * (pt.deg_used + 2) * (pt.deg_used + 3) \
                 // 6
-            by_bytes = bytes_ms(pt.rows, pt.grid, pts, cot, pt.rows, pt.grid)
+            # the points and cotangents read, both tables written, and the
+            # meta lanes of the rows the points' walks visit
+            by_bytes = bytes_ms(pts, cot, pt.rows, pt.grid,
+                                extra=packed_read_bytes(pt, pts))
             by_ops = n * k7_ops(pt.deg_used, form) / F32_PEAK * 1e3
-            t.update(rel_err=err, max_abs_err=max(
+            t.update(rel_err=err, ref_rel_err=ref_err, max_abs_err=max(
                 float((g - w).abs().max()) for g, w in zip(got, want)),
                 bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations",
-                atomics_ms=n * C * 4 / HBM_RATE * 1e3, points=n)
+                replaced_kernel_ms=graph_ms(
+                    lambda: packed_grad_reference(pt, pts, cot, form), 10),
+                launches_a_call=device_ops(
+                    lambda: A.packed_grad_kernel(pt, pts, cot, form)),
+                replaced_launches_a_call=device_ops(
+                    lambda: packed_grad_reference(pt, pts, cot, form)),
+                points=n, terms=C, rows_read=crowd[label][0],
+                largest_row_points=crowd[label][1])
+            check(1 <= t["launches_a_call"] <= K7_LAUNCHES,
+                  f"K7 puts {t['launches_a_call']} operations on the card a "
+                  f"call (at most {K7_LAUNCHES})")
             out["packed_grad"][f"form {form}, {label}"] = t
-    # G's backward: 2^20 indices into the probe's table, and the repack's
-    # grid into the initial tree's rows
+    # G's backward: 2^20 indices into the probe's table (the grouping
+    # form), and the repack's grid into the initial tree's rows (the CSR
+    # form, as repack_folded calls it, and the grouping form beside it)
     sup = A.pack_support(s["init"])
     n_rows = G_TABLE[0]
-    for label, idx, n_tab, width in (
-            ("2^20 indices into 4681 x 32", torch.as_tensor(
-                rng.integers(-64, n_rows + 64, N_GATHER).astype(np.int32),
-                device=dev), n_rows, G_TABLE[1]),
+    probe = torch.as_tensor(
+        rng.integers(-64, n_rows + 64, N_GATHER).astype(np.int32), device=dev)
+    for label, idx, n_tab, width, csr in (
+            ("2^20 indices into 4681 x 32", probe, n_rows, G_TABLE[1], None),
             ("the repack's grid", sup.grid_src, pt_i.rows.shape[0],
-             pt_i.width)):
+             pt_i.width, sup.grid_csr),
+            ("the repack's grid, grouping form", sup.grid_src,
+             pt_i.rows.shape[0], pt_i.width, None)):
         d_out = rand(idx.shape[0], width)
-        got = A.row_scatter(d_out, idx, n_tab)
+        got = A.row_scatter(d_out, idx, n_tab, csr)
         want = A.row_scatter_plain(d_out, idx, n_tab)
-        err = rel_err(got, want)
+        ref = row_scatter_reference(d_out, idx, n_tab)
+        err, ref_err = rel_err(got, want), rel_err(got, ref)
         check(err <= GRAD_RTOL32, f"G's backward vs index_add_ at {label}: "
               f"{err:.3e}")
+        check(ref_err <= GRAD_RTOL32, f"G's backward vs the kernel it "
+              f"replaced at {label}: {ref_err:.3e}")
+        if csr is not None:             # one fixed order of adds a row
+            again = A.row_scatter(d_out, idx, n_tab, csr)
+            check(torch.equal(got, again), f"G's backward (CSR form) at "
+                  f"{label}: two launches differ")
         ok = (idx >= 0) & (idx < n_tab)
         idx_in, d_in = idx[ok].long(), d_out[ok]
-        t = timed(lambda: A.row_scatter(d_out, idx, n_tab),
+        t = timed(lambda: A.row_scatter(d_out, idx, n_tab, csr),
                   lambda: A.row_scatter_plain(d_out, idx, n_tab),
                   lambda: torch.zeros((n_tab, width), device=dev)
                   .index_add_(0, idx_in, d_in))
-        t.update(rel_err=err, max_abs_err=float((got - want).abs().max()),
-                 bound_ms=bytes_ms(d_out, idx, got), bound_by="bytes",
-                 rows=idx.shape[0])
+        # the rows of in-range indices read, the indices (or the CSR) read,
+        # the table written
+        t.update(rel_err=err, ref_rel_err=ref_err,
+                 max_abs_err=float((got - want).abs().max()),
+                 bound_ms=bytes_ms(d_in, *(csr or (idx,)), got),
+                 bound_by="bytes",
+                 replaced_kernel_ms=graph_ms(
+                     lambda: row_scatter_reference(d_out, idx, n_tab), 10),
+                 launches_a_call=device_ops(
+                     lambda: A.row_scatter(d_out, idx, n_tab, csr)),
+                 replaced_launches_a_call=device_ops(
+                     lambda: row_scatter_reference(d_out, idx, n_tab)),
+                 deterministic=csr is not None, rows=idx.shape[0])
+        check(1 <= t["launches_a_call"] <= G_BWD_LAUNCHES,
+              f"G's backward puts {t['launches_a_call']} operations on the "
+              f"card a call (at most {G_BWD_LAUNCHES})")
         out["row_scatter"][label] = t
+    # what a call costs with next to nothing to add (32 points or indices),
+    # beside the kernel it replaced, both in CUDA graphs; and how the
+    # points crowd
+    p32, w32 = band[:32], band[:32, 0].contiguous()
+    i32, d32 = probe[:32], rand(32, G_TABLE[1])
+    out["fixed_cost"] = {
+        "packed_grad": (
+            graph_ms(lambda: A.packed_grad_kernel(pt_i, p32, w32, 0), 20),
+            graph_ms(lambda: packed_grad_reference(pt_i, p32, w32, 0), 20)),
+        "row_scatter": (
+            graph_ms(lambda: A.row_scatter(d32, i32, n_rows), 20),
+            graph_ms(lambda: row_scatter_reference(d32, i32, n_rows), 20))}
+    print(f"[grad] at 32 points or indices, a launch's fixed cost | {smi} | "
+          + ", ".join(f"{k} {a:.4f} ms in a CUDA graph, the kernel it "
+                      f"replaced {b:.4f} ms" for k, (a, b) in
+                      out["fixed_cost"].items())
+          + " | rows the points read, the most points a row: " + ", ".join(
+              f"{k} {r} / {m}" for k, (r, m) in crowd.items()), flush=True)
     # K8: the f64 query VJP, and the f32 trace VJP on marched rays
     tree_i = s["init"]
     o, d = s["o"][rays], s["d"][rays]
@@ -1481,17 +1569,146 @@ def phase_grad(pt_s, tree_s, s, smi, seed=11):
              points=chunk, hits=int(h_c.sum()))
     out["coeff_scatter"]["f32 trace, inverse chunk rays"] = t
     for kernel, shapes in out.items():
-        for label, t in shapes.items() if kernel != "raw" else ():
+        for label, t in (shapes.items() if kernel not in ("raw",
+                                                            "fixed_cost")
+                         else ()):
             print(f"[grad] {kernel} at {label}: max|kernel - plain| / "
-                  f"max|plain| {t['rel_err']:.3e} | {smi} | kernel "
-                  f"{t['ms']:.4f} ms in a CUDA graph, plain "
-                  f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']})"
+                  f"max|plain| {t['rel_err']:.3e}"
+                  + ("" if "ref_rel_err" not in t else
+                     f", against the kernel it replaced "
+                     f"{t['ref_rel_err']:.3e}")
+                  + (" (two launches bit-equal)" if t.get("deterministic")
+                     else "")
+                  + f" | {smi} | kernel {t['ms']:.4f} ms in a CUDA graph"
+                  + ("" if "replaced_kernel_ms" not in t else
+                     f", the kernel it replaced {t['replaced_kernel_ms']:.4f}"
+                     f" ms")
+                  + f", plain {t['plain_ms']:.3f} ms, bound "
+                  f"{t['bound_ms']:.5f} ms ({t['bound_by']}, "
+                  f"{t['bound_ms'] / t['ms']:.1%} of it)"
                   + ("" if t["library_ms"] is None else
                      f", index_add_ {t['library_ms']:.4f} ms")
-                  + ("" if "atomics_ms" not in t else
-                     f", the atomics' bytes {t['atomics_ms']:.5f} ms"),
+                  + ("" if "launches_a_call" not in t else
+                     f" | operations on the card a call: "
+                     f"{t['launches_a_call']}, the kernel it replaced "
+                     f"{t['replaced_launches_a_call']}"),
                   flush=True)
     return out
+
+
+def row_walk(pt, pts):
+    """The rows each point's packed read visits (locate_in's walk), one
+    tensor a round: its grid cell, then 8^grid_depth + the node row of each
+    descent (a point on a leaf keeps its row). The last is the row it
+    reads."""
+    from hpsdf_tpu_torch import accel as A
+
+    unit = A.to_unit(pt, pts).clamp(-0.5, 0.5)
+    g = 1 << pt.grid_depth
+    cell = ((unit + 0.5) * g).to(torch.int32).clamp(0, g - 1).long()
+    keys = [(cell[:, 0] * g + cell[:, 1]) * g + cell[:, 2]]
+    row = pt.grid[keys[0]]
+    for _ in range(pt.extra_rounds):
+        child = A._row_child(row).long()
+        cc = row[:, 2:5]
+        oct_ = ((unit[:, 0] >= cc[:, 0]).long()
+                + ((unit[:, 1] >= cc[:, 1]).long() << 1)
+                + ((unit[:, 2] >= cc[:, 2]).long() << 2))
+        leaf = child < 0
+        keys.append(torch.where(leaf, keys[-1], g ** 3 + child + oct_))
+        row = torch.where(leaf[:, None], row,
+                          pt.rows[torch.where(leaf, 0, child + oct_)])
+    return keys
+
+
+def rows_read(pt, pts):
+    """The row each point's packed read takes: its grid cell, or
+    8^grid_depth + the node row of its last descent."""
+    return row_walk(pt, pts)[-1]
+
+
+def packed_read_bytes(pt, pts, whole=False):
+    """The table bytes a packed read of pts must move: one 32-byte sector
+    (the meta lanes 0-4) of each row its walk visits, or, ``whole``, the
+    whole row it reads (its coefficients too) and a sector of each row it
+    only passes through."""
+    walk = row_walk(pt, pts)
+    visited = torch.unique(torch.cat(walk)).numel()
+    if not whole:
+        return 32 * visited
+    read = torch.unique(walk[-1]).numel()
+    return 32 * (visited - read) + 4 * pt.width * read
+
+
+def inverse_points(s, rays):
+    """The 7n points of an inverse chunk's one values_at call
+    (inverse._Terms): the band points, then the free-space points at
+    FRACS of each target depth."""
+    from hpsdf_tpu_torch.inverse import FRACS
+
+    o, d, tt = s["o"][rays], s["d"][rays], s["t_star"][rays]
+    fracs = torch.tensor(FRACS, dtype=torch.float32, device=o.device)
+    free = o[None] + (fracs[:, None, None] * tt[None, :, None]) * d[None]
+    return torch.cat([band_points(s, rays), free.reshape(-1, 3)])
+
+
+def packed_grad_reference(pt, pts, cot, form):
+    """K7 as it was before its redesign (csrc/check/packed_grad_reference.cu,
+    a library of its own, on no path of the package), called as its wrapper
+    called it: both tables zeroed, then one launch. Returns (d_rows,
+    d_grid)."""
+    from hpsdf_tpu_torch import _kernels
+
+    pts, cot = pts.contiguous(), cot.contiguous()
+    d_rows, d_grid = torch.zeros_like(pt.rows), torch.zeros_like(pt.grid)
+    rc = np.asarray(pt.root_centre, np.float32)
+    inv = (1.0 / np.asarray(pt.root_sizes)).astype(np.float32)
+    rc_ = _kernels.load_check().hpsdf_packed_grad_reference(
+        pt.grid.data_ptr(), pt.rows.data_ptr(), pt.width, pt.deg_used,
+        pt.grid_depth, pt.extra_rounds, pts.data_ptr(), pts.shape[0],
+        *map(float, rc), *map(float, inv), cot.data_ptr(), int(form),
+        d_grid.data_ptr(), d_rows.data_ptr(), _kernels.stream_of(pts))
+    _kernels.check(_kernels.load(), rc_, "packed_grad_reference")
+    return d_rows, d_grid
+
+
+def row_scatter_reference(d_out, idx, n):
+    """G's backward as it was before its redesign
+    (csrc/check/row_scatter_reference.cu), called as its wrapper called
+    it: the table zeroed, then one launch."""
+    from hpsdf_tpu_torch import _kernels
+
+    idx = idx.to(torch.int32).contiguous()
+    out = torch.zeros((n, d_out.shape[1]), dtype=torch.float32,
+                      device=d_out.device)
+    if idx.shape[0] == 0:
+        return out
+    rc_ = _kernels.load_check().hpsdf_row_scatter_reference(
+        d_out.data_ptr(), d_out.shape[1], idx.data_ptr(), idx.shape[0], n,
+        out.data_ptr(), _kernels.stream_of(d_out))
+    _kernels.check(_kernels.load(), rc_, "row_scatter_reference")
+    return out
+
+
+def device_ops(fn, tries=3):
+    """The operations (kernels, memsets, copies) one call of fn() puts on
+    the card, counted by torch.profiler: what the host launches a call. A
+    trace that holds no device operation at all is taken again, up to
+    ``tries`` times (0 if none holds one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        n = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        if n:
+            return n
+    return 0
 
 
 def k7_ops(deg, form):
@@ -1506,10 +1723,10 @@ def k7_ops(deg, form):
     return 15 + 18 * max(deg - 1, 0) + 15 * C
 
 
-def device_busy_ms(fn):
-    """fn() under torch.profiler: the device time of its kernels in ms, and
-    the eight longest by name (ms, launches); None where the trace holds no
-    device time."""
+def device_busy_ms(fn, keep=()):
+    """fn() under torch.profiler: the device time of its kernels in ms, the
+    eight longest by name (ms, launches), and those whose names hold one of
+    ``keep``; None where the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1523,10 +1740,15 @@ def device_busy_ms(fn):
 
     ev = [e for e in prof.key_averages() if dev_us(e) > 0]
     if not ev:
-        return None, []
+        return None, [], []
+
+    def entry(e):
+        return e.key[:60], round(dev_us(e) / 1e3, 3), e.count
+
     top = sorted(ev, key=lambda e: -dev_us(e))[:8]
     return (round(sum(dev_us(e) for e in ev) / 1e3, 3),
-            [(e.key[:60], round(dev_us(e) / 1e3, 3), e.count) for e in top])
+            [entry(e) for e in top],
+            [entry(e) for e in ev if any(k in e.key for k in keep)])
 
 
 def phase_inverse(s, s_small, smi):
@@ -1536,8 +1758,10 @@ def phase_inverse(s, s_small, smi):
     kernel of the path launched; then the INV_SMALL^2 protocol with the
     kernels against the same run with the plain versions on CUDA tensors
     (the wrappers swapped for their plain versions, so that no kernel
-    launches): losses within INV_LOSS_RTOL a step. Returns (launches, the
-    numbers)."""
+    launches): losses within INV_LOSS_RTOL a step. One step runs under
+    torch.profiler, and once more with K7 and G's backward swapped for the
+    kernels they replaced, to set their device time in a step beside the
+    earlier forms'. Returns (launches, the numbers)."""
     from unittest import mock
     from hpsdf_tpu_torch import accel as A
     from hpsdf_tpu_torch import render as R
@@ -1559,10 +1783,19 @@ def phase_inverse(s, s_small, smi):
     launches = read_counts()
     check(bool(torch.isfinite(losses).all()), f"1080p losses {losses}")
     for k in ("march", "packed_eval", "packed_eval_raw", "packed_grad",
-              "row_gather", "row_scatter", "coeff_scatter"):
+              "row_gather", "row_scatter", "row_scatter_csr",
+              "coeff_scatter"):
         check(launches[k] > 0, f"{k} never launched by fit_to_depth")
     rmse1, hit1 = depth_rmse(res.tree, s)
-    busy_ms, top = device_busy_ms(lambda: fit(s, 1))
+    # one profiled step, then one with the kernels K7 and G's backward
+    # replaced, called as their wrappers called them
+    scatter = ("packed_grad", "row_scatter", "Memset")
+    busy_ms, top, mine = device_busy_ms(lambda: fit(s, 1), scatter)
+    with mock.patch.object(A, "packed_grad_kernel", packed_grad_reference), \
+            mock.patch.object(A, "row_scatter",
+                              lambda d_out, idx, n, csr=None:
+                              row_scatter_reference(d_out, idx, n)):
+        busy_ref, _, replaced = device_busy_ms(lambda: fit(s, 1), scatter)
 
     def plain_march(pt, o, d, t_max, hit_eps, max_steps, step_cap=None,
                     **kw):
@@ -1573,7 +1806,9 @@ def phase_inverse(s, s_small, smi):
     reset_counts()
     with mock.patch.object(A, "values_at", A.values_at_plain), \
             mock.patch.object(A, "_point_gradient", A.point_gradient_plain), \
-            mock.patch.object(A, "row_gather", A.row_gather_plain), \
+            mock.patch.object(A, "row_gather",
+                              lambda table, idx, csr=None:
+                              A.row_gather_plain(table, idx)), \
             mock.patch.object(R, "_march", plain_march), \
             mock.patch.object(R, "trace_vjp", R.trace_vjp_plain):
         plain = fit(s_small, INV_STEPS).losses.cpu()
@@ -1588,12 +1823,17 @@ def phase_inverse(s, s_small, smi):
            "rmse_after": rmse1, "hit_overlap_before": hit0,
            "hit_overlap_after": hit1, "small_losses": small.tolist(),
            "small_plain_losses": plain.tolist(), "small_rel_err": rel,
-           "profiled_step_device_ms": busy_ms, "profiled_step_top": top}
+           "profiled_step_device_ms": busy_ms, "profiled_step_top": top,
+           "profiled_step_backward": mine,
+           "replaced_profiled_step_device_ms": busy_ref,
+           "replaced_profiled_step_backward": replaced}
     print(f"[inverse] {INV_SIZE[0]}x{INV_SIZE[1]} rays, sphere r = 0.27 "
           f"towards 0.3 ({s['init'].n_nodes} nodes): {INV_STEPS} steps, "
           f"losses {[f'{v:.6g}' for v in out['losses']]} | {smi} | warm "
           f"{step_s:.4f} s a step; a one-step run under torch.profiler: "
-          f"device busy {busy_ms} ms, by kernel {top} | depth RMSE "
+          f"device busy {busy_ms} ms, by kernel {top}; K7, G's backward and "
+          f"zero-fills {mine}; with the kernels they replaced: device busy "
+          f"{busy_ref} ms, {replaced} | depth RMSE "
           f"{rmse0:.6f} -> {rmse1:.6f}, "
           f"hit overlap {hit0:.6f} -> {hit1:.6f} | launches {launches} | "
           f"{INV_SMALL}^2: losses with the kernels "
@@ -1642,20 +1882,24 @@ def synthetic_tree(degree, seed):
 
 
 def phase_degrees(dev, seed=7):
-    """K2, K5 and K1 (values and gradient) against their plain versions at
-    every basis degree 0..12, on synthetic_tree with one descent below a
-    depth-1 grid (rows of 16 to 464 lanes: K2/K5 read the rows above 64
-    lanes a term at a time, K1 stages those above 32 coefficients), at
-    N_SYNTH points straddling the root; and K3 on N_SYNTH rays through each
-    tree (its LOD phase from degree 4, its wide rows from degree 6), against
-    the plain march and, bit for bit, against the kernel it replaced.
-    Returns (max K2 error, min K5 dot, max K1 value error, max K1 gradient
-    error, max K3 t error on common hits)."""
+    """K2, K5, K1 (values and gradient) and K7 (both forms, relative to the
+    largest entry) against their plain versions at every basis degree
+    0..12, on synthetic_tree with one descent below a depth-1 grid (rows of
+    16 to 464 lanes: K2/K5 read the rows above 64 lanes a term at a time,
+    K1 stages those above 32 coefficients), at N_SYNTH points straddling
+    the root; and K3 on N_SYNTH rays through each tree (its LOD phase from
+    degree 4, its wide rows from degree 6), against the plain march and,
+    bit for bit, against the kernel it replaced. Returns (max K2 error, min
+    K5 dot, max K1 value error, max K1 gradient error, max K3 t error on
+    common hits, max K7 error)."""
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch import tree as TT
     from hpsdf_tpu_torch.accel import (F32_MAX, NORMALS, VALUES,
                                        normals_plain, packed_eval_kernel,
-                                       query_packed_plain, values_at_plain)
+                                       packed_grad_kernel,
+                                       point_gradient_vjp_plain,
+                                       query_packed_plain, values_at_plain,
+                                       values_at_vjp_plain)
     from hpsdf_tpu_torch.query import (OUTSIDE_VALUE, query_kernel,
                                        query_plain,
                                        query_with_gradient_plain)
@@ -1672,7 +1916,8 @@ def phase_degrees(dev, seed=7):
     lo, hi = np.asarray(SYNTH_ROOT[0]), np.asarray(SYNTH_ROOT[1])
     pad = 0.1 * (hi - lo)
     rng = np.random.default_rng(seed)
-    k2_err = k1_err = k1g_err = 0.0
+    rng7 = np.random.default_rng(seed + 100)         # K7's cotangents
+    k2_err = k1_err = k1g_err = k7_err = 0.0
     k5_dot = 1.0
     for deg in range(13):
         tree = TT.pack(*synthetic_tree(deg, seed + deg), cfg, device=dev)
@@ -1714,6 +1959,16 @@ def phase_degrees(dev, seed=7):
               f"K1 vs plain at degree {deg}: values {e:.3e}, unit gradients "
               f"{eg:.3e}")
         k1_err, k1g_err = max(k1_err, e), max(k1g_err, eg)
+        for form, plain in ((0, values_at_vjp_plain),
+                            (1, point_gradient_vjp_plain)):
+            cot = torch.as_tensor(rng7.standard_normal(
+                (N_SYNTH,) if form == 0 else (N_SYNTH, 3)).astype(
+                    np.float32), device=dev)
+            e = max(rel_err(g, w) for g, w in zip(
+                packed_grad_kernel(pt, p32, cot, form), plain(pt, p32, cot)))
+            check(e <= GRAD_RTOL32, f"K7 form {form} vs autograd of the "
+                  f"plain version at degree {deg}: {e:.3e}")
+            k7_err = max(k7_err, e)
         lo_t = pt.lo
         check((lo_t is not None) == (deg > 3), f"LOD tables at degree {deg}")
         args = (pt, o, d, SYNTH_T_MAX, HIT_EPS, MAX_STEPS)
@@ -1741,22 +1996,23 @@ def phase_degrees(dev, seed=7):
     print(f"[degrees] 0..12, {N_SYNTH} pts each on a depth-2 tree (rows "
           f"{T.pack_tree(tree).width} lanes at 12): K2 max|v - plain|/"
           f"max(1,|v|) {k2_err:.3e}, K5 min dot {k5_dot:.8f}, K1 max|value "
-          f"- plain| {k1_err:.3e}, max|unit grad - plain| {k1g_err:.3e}; K3 "
+          f"- plain| {k1_err:.3e}, max|unit grad - plain| {k1g_err:.3e}; K7 "
+          f"both forms max|kernel - plain| / max|plain| {k7_err:.3e}; K3 "
           f"on {side}^2 rays through each: max|t - plain| on {k3_hits} "
           f"common hits {k3_err:.3e}, t, hit and kk equal the kernel it "
           f"replaced bit for bit", flush=True)
-    return k2_err, k5_dot, k1_err, k1g_err, k3_err
+    return k2_err, k5_dot, k1_err, k1g_err, k3_err, k7_err
 
 
 PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
                  "cone_kernel", "packed_grad_kernel", "coeff_scatter_kernel",
-                 "row_scatter_kernel")
+                 "row_scatter_kernel", "row_scatter_csr_kernel")
 
 
 def _ptxas_key(kernel, args):
     """The report's key for one instantiation, from its template arguments
     (ints, bools and the value type, in order)."""
-    if not args:                          # row_scatter_kernel: one form
+    if not args:                          # row_scatter(_csr)_kernel
         return "-"
     if kernel == "coeff_scatter_kernel":
         return f"{args[1]}/{'f32 trace' if args[2] else 'f64 query'}"
@@ -1772,8 +2028,8 @@ def _ptxas_key(kernel, args):
 def ptxas_check():
     """Registers, stack and spills of every kernel's instantiations, as
     ptxas reported them when the library was built. K1, K3, K4, K5's raw
-    gradient, K7 and K8 at degrees 3 and 5 (the main paths') and G's
-    backward must have no stack frame and no spills. Returns
+    gradient, K7 and K8 at degrees 3 and 5 (the main paths') and both
+    forms of G's backward must have no stack frame and no spills. Returns
     {kernel: {key: [registers, stack, spill stores, spill loads]}}."""
     from hpsdf_tpu_torch import _kernels
 
@@ -1803,7 +2059,8 @@ def ptxas_check():
                                           "5/form1")),
             ("K8", "coeff_scatter_kernel", ("3/f64 query", "3/f32 trace",
                                             "5/f64 query", "5/f32 trace")),
-            ("G backward", "row_scatter_kernel", ("-",))):
+            ("G backward", "row_scatter_kernel", ("-",)),
+            ("G backward CSR", "row_scatter_csr_kernel", ("-",))):
         got = found.get(kernel, {})
         for key in keys:
             check(key in got, f"ptxas report for {name} {key}")
@@ -1846,7 +2103,7 @@ def main():
             job.result()
     print(f"[build] {len(_kernels.sources())} sources -> "
           f"{os.path.relpath(_kernels.library_path())}, and the reference "
-          f"kernel of the K3 check -> "
+          f"kernels of the K3, K7 and G's backward checks -> "
           f"{os.path.relpath(_kernels.library_path('check'))}, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 3)
@@ -1932,7 +2189,7 @@ def main():
                                    carve_pts, pt_c, ph)
 
     # --- 10. K2/K5 and K1 at every degree ----------------------------------
-    k2d_err, k5d_dot, k1d_err, k1gd_err, k3d_err = phase(
+    k2d_err, k5d_dot, k1d_err, k1gd_err, k3d_err, k7d_err = phase(
         "degrees", phase_degrees, dev)
 
     # --- 11. the backward kernels, then inverse rendering ------------------
@@ -2047,11 +2304,16 @@ def main():
            **{k: tgrad[name][main][k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
            "main_shape": main, "shapes": tgrad[name],
-           "ptxas": ptxas.get(f"{name}_kernel", {})}
+           **({"degrees_rel_err": k7d_err} if name == "packed_grad" else {}),
+           **({} if name not in tgrad["fixed_cost"] else dict(zip(
+               ("fixed_cost_ms", "replaced_fixed_cost_ms"),
+               tgrad["fixed_cost"][name]))),
+           "ptxas": {k: v for k, v in ptxas.items()
+                     if k.startswith(f"{name}_")}}
           for name, source, replaces, main in (
               ("packed_grad", "hpsdf_tpu_torch/csrc/packed_grad.cu",
                "hpsdf_tpu/inverse.py:234",
-               "form 0, inverse chunk band points"),
+               "form 0, inverse chunk 7n points"),
               ("row_scatter", "hpsdf_tpu_torch/csrc/row_gather.cu",
                "experiments/gather_probe.py:109", "the repack's grid"),
               ("coeff_scatter", "hpsdf_tpu_torch/csrc/coeff_scatter.cu",

@@ -10,9 +10,9 @@ rebuilds and an unchanged one is reused. Nothing is fetched: the sources
 are the package's own. What ptxas reports of each kernel (registers,
 stack frame, spills) is kept beside the library (``ptxas_report``).
 ``csrc/check/`` holds reference kernels that no path of the package runs
-(an earlier form of a kernel, kept so that a check can hold the shipped one
-to it bit for bit); ``load_check`` builds them the same way into a library
-of their own.
+(earlier forms of kernels, kept so that a check can hold the shipped ones
+to them, bit for bit where both add in the same order, and time both);
+``load_check`` builds them the same way into a library of their own.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an exception.
@@ -54,19 +54,29 @@ _SIGNATURES = {
                     _P, _P, _P, _P, _P, _I32, _P),
     "hpsdf_cone": (_P, _P, _I32, _I32, _P, _P, _I32, _I32, _P, _I64, _P,
                    _I32, _I32, _I32, _P, _F32, _F32, _I32, _P, _P),
-    "hpsdf_row_scatter": (_P, _I64, _P, _I64, _I64, _P, _P),
-    "hpsdf_packed_grad": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
+    "hpsdf_row_scatter": (_P, _I64, _P, _I64, _I64, _P, _I64, _P, _P),
+    "hpsdf_row_scatter_csr": (_P, _I64, _P, _P, _I64, _P, _P),
+    "hpsdf_packed_grad": (_P, _P, _I32, _I32, _I32, _I32, _I32, _P, _I64,
                           _F32, _F32, _F32, _F32, _F32, _F32,
-                          _P, _I32, _P, _P, _P),
+                          _P, _I32, _P, _I64, _P, _P, _P),
     "hpsdf_coeff_scatter": (_P, _P, _P, _P, _I32, _I32, _P, _P, _P, _P, _P,
                             _I64, _F64, _F64, _F64, _F64, _F64, _F64,
                             _P, _I32, _I32, _P, _P),
+}
+# entry points that return a size in bytes (int64_t), not an error code
+_SIZE_SIGNATURES = {
+    "hpsdf_row_scatter_scratch": (_I64, _I64),
+    "hpsdf_packed_grad_scratch": (_I64, _I32, _I32, _I32),
 }
 # and of the reference kernels under csrc/check/, which only checks load
 _CHECK_SIGNATURES = {
     "hpsdf_march_reference": (_P, _P, _I32, _I32, _P, _P, _I32, _I32, _I32,
                               _P, _P, _I64, *(_F32,) * 12, _F32, _F32, _I32,
                               _F32, _I32, _F32, _I32, _P, _P, _P, _P),
+    "hpsdf_packed_grad_reference": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
+                                    _F32, _F32, _F32, _F32, _F32, _F32,
+                                    _P, _I32, _P, _P, _P),
+    "hpsdf_row_scatter_reference": (_P, _I64, _P, _I64, _I64, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -152,7 +162,7 @@ def _load(sub: str, signatures: dict) -> ctypes.CDLL:
     for name, args in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = list(args)
-        fn.restype = ctypes.c_int
+        fn.restype = _I64 if name in _SIZE_SIGNATURES else ctypes.c_int
     return lib
 
 
@@ -161,7 +171,7 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = _load("", _SIGNATURES)
+            lib = _load("", {**_SIGNATURES, **_SIZE_SIGNATURES})
             lib.hpsdf_error_string.argtypes = [ctypes.c_int]
             lib.hpsdf_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -171,7 +181,7 @@ def load() -> ctypes.CDLL:
 def load_check() -> ctypes.CDLL:
     """The reference kernels of ``csrc/check/``, a library of its own that
     no path of the package loads: earlier forms kept so that a check can
-    hold the shipped kernel to them bit for bit."""
+    hold the shipped kernels to them."""
     global _check_lib
     with _check_lock:
         if _check_lib is None:

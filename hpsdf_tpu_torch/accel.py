@@ -32,12 +32,20 @@ and two backward kernels make the reads differentiable on CUDA tensors:
 
   * G's backward ``row_scatter`` (``csrc/row_gather.cu``):
     ``d_table[idx[b]] += d_out[b]``, the VJP of ``row_gather``, so that
-    ``repack_folded`` carries gradients from the grid to the rows;
+    ``repack_folded`` carries gradients from the grid to the rows. Each
+    table row is summed once from its sources: with their inverse given
+    (``gather_csr``; ``PackSupport`` keeps the grid's) in one plain launch,
+    else grouped by row inside one cooperative launch;
   * K7 ``packed_grad_kernel`` (``csrc/packed_grad.cu``): the VJP of
     ``values_at`` (form 0) and of ``_point_gradient`` (form 1) with respect
     to the rows and the grid, into the coefficient lanes of the row each
-    point read. The meta lanes (0-7) are the tree's topology and take no
+    point read, the points grouped by that row inside one cooperative
+    launch. The meta lanes (0-7) are the tree's topology and take no
     gradient, in the plain versions too.
+
+The backward kernels write or clear every row of their outputs
+themselves, so the wrappers allocate them with ``torch.empty``: one launch
+a call, no zero-fill.
 
 Tensors on the CPU take the plain torch versions in this module, and
 autograd differentiates them. On CUDA tensors ``values_at``,
@@ -111,6 +119,14 @@ class PackSupport:
     meta_rows: torch.Tensor   # f32[Np, COEFF_LANE] lanes 0..7 of the rows
     fold: torch.Tensor        # f32[Np, cw] per-(depth, basis) normalizers
     grid_src: torch.Tensor    # i32[G**3] node index backing each grid cell
+    # grid_src's inverse (gather_csr), for G's backward: the grid cells of
+    # node r are grid_cells[grid_offsets[r]:grid_offsets[r + 1]], ascending
+    grid_offsets: torch.Tensor    # i32[Np + 1]
+    grid_cells: torch.Tensor      # i32[G**3]
+
+    @property
+    def grid_csr(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.grid_offsets, self.grid_cells
 
 
 # --------------------------------------------------------------------------
@@ -177,6 +193,20 @@ def _grid_src(tree: Octree, grid_depth: int) -> torch.Tensor:
                            device=tree.device)
 
 
+def gather_csr(idx, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The inverse of a row gather's indices ``idx`` (B,) into a table of
+    ``n`` rows, as CSR on the host: (offsets i32 (n + 1,), order i32) with
+    ``order[offsets[r]:offsets[r + 1]]`` the positions b, ascending, at
+    which ``idx[b] == r``. Out-of-range indices are left out, as the
+    gather reads zeros there."""
+    idx = np.asarray(idx, np.int64).reshape(-1)
+    pos = np.flatnonzero((idx >= 0) & (idx < n))
+    order = pos[np.argsort(idx[pos], kind="stable")]
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(idx[pos], minlength=n), out=offsets[1:])
+    return offsets.astype(np.int32), order.astype(np.int32)
+
+
 def pack_tree(tree: Octree, grid_depth: int | None = None) -> PackedTree:
     """The packed read layout of a fitted Octree, on the tree's device. The
     grid is gathered there from the rows (kernel G on CUDA)."""
@@ -198,10 +228,14 @@ def pack_support(tree: Octree, grid_depth: int | None = None) -> PackSupport:
     norms = basis.coeff_norms(tree.deg_used)
     dep_i = tree.depth.cpu().numpy().astype(np.int64)
     dev = tree.device
+    src = _grid_sources(tree, grid_depth)
+    offsets, cells = gather_csr(src, rows.shape[0])
     return PackSupport(
         meta_rows=torch.as_tensor(rows[:, :COEFF_LANE], device=dev),
         fold=torch.as_tensor(norms[dep_i].astype(np.float32), device=dev),
-        grid_src=_grid_src(tree, grid_depth))
+        grid_src=torch.as_tensor(src, dtype=torch.int32, device=dev),
+        grid_offsets=torch.as_tensor(offsets, device=dev),
+        grid_cells=torch.as_tensor(cells, device=dev))
 
 
 def repack(packed: PackedTree, support: PackSupport,
@@ -215,15 +249,16 @@ def repack_folded(packed: PackedTree, support: PackSupport,
                   folded: torch.Tensor) -> PackedTree:
     """Like :func:`repack`, from the normalizer-premultiplied coefficient
     lanes. Differentiable with respect to ``folded``: through the
-    concatenation, and through the grid's gather (G's backward on CUDA)."""
+    concatenation, and through the grid's gather (G's backward on CUDA, from
+    the support's inverse of the grid sources)."""
     folded = folded.to(torch.float32)
     pad = packed.width - COEFF_LANE - folded.shape[1]
     parts = [support.meta_rows, folded]
     if pad:
         parts.append(folded.new_zeros((folded.shape[0], pad)))
     rows = torch.cat(parts, dim=1)
-    return dataclasses.replace(packed, rows=rows,
-                               grid=row_gather(rows, support.grid_src))
+    return dataclasses.replace(packed, rows=rows, grid=row_gather(
+        rows, support.grid_src, csr=support.grid_csr))
 
 
 def lo_pack(rows: torch.Tensor) -> torch.Tensor:
@@ -267,29 +302,34 @@ class _RowGather(torch.autograd.Function):
     """G with G's backward (row_scatter) as its VJP."""
 
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(ctx, table, idx, csr):
         ctx.save_for_backward(idx)
-        ctx.n = table.shape[0]
+        ctx.n, ctx.csr = table.shape[0], csr
         return _row_gather(table, idx)
 
     @staticmethod
     def backward(ctx, d_out):
         (idx,) = ctx.saved_tensors
-        return row_scatter(d_out.contiguous(), idx, ctx.n), None
+        return row_scatter(d_out.contiguous(), idx, ctx.n, ctx.csr), None, \
+            None
 
 
-def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def row_gather(table: torch.Tensor, idx: torch.Tensor,
+               csr: tuple[torch.Tensor, torch.Tensor] | None = None
+               ) -> torch.Tensor:
     """Row gather ``out[b, :] = table[idx[b], :]`` (B, W) f32, zeros for
     out-of-range indices: kernel G on CUDA tensors, the plain version on
     CPU tensors. W must be a multiple of 4 (G moves 16-byte quarters of a
     row), as every table of the packed and mesh layouts is. Differentiable
-    with respect to ``table``: its VJP is ``row_scatter``."""
+    with respect to ``table``: its VJP is ``row_scatter``, given ``csr``,
+    the inverse of ``idx`` (``gather_csr``, as tensors on idx's device),
+    where the caller keeps one."""
     _check_gather(table, idx)
     if table.shape[1] % 4:
         raise ValueError(f"row_gather: width {table.shape[1]} is not a "
                          "multiple of 4")
     if wants_grad(table):
-        return _RowGather.apply(table, idx)
+        return _RowGather.apply(table, idx, csr)
     return _row_gather(table, idx)
 
 
@@ -332,17 +372,49 @@ def row_scatter_plain(d_out: torch.Tensor, idx: torch.Tensor,
     return out.index_add_(0, idx[ok], d_out[ok])
 
 
-def row_scatter(d_out: torch.Tensor, idx: torch.Tensor,
-                n: int) -> torch.Tensor:
-    """The VJP of ``row_gather`` into a table of ``n`` rows: G's backward
-    (``csrc/row_gather.cu``) on CUDA tensors, ``row_scatter_plain`` on CPU
-    tensors."""
+def row_scatter_csr_plain(d_out: torch.Tensor, offsets: torch.Tensor,
+                          order: torch.Tensor) -> torch.Tensor:
+    """G's backward from the inverse of the indices (``gather_csr``),
+    whatever the device: row r of the (len(offsets) - 1, W) result is the
+    sum of ``d_out[order[offsets[r]:offsets[r + 1]]]``, added in that
+    order."""
+    n = offsets.shape[0] - 1
+    counts = (offsets[1:] - offsets[:-1]).long()
+    rows = torch.repeat_interleave(
+        torch.arange(n, device=d_out.device), counts)
+    out = d_out.new_zeros((n, d_out.shape[1]))
+    return out.index_add_(0, rows, d_out[order.long()])
+
+
+def _check_scatter(d_out: torch.Tensor, idx: torch.Tensor, n: int,
+                   csr) -> None:
     if d_out.dtype != torch.float32 or d_out.dim() != 2 \
             or d_out.shape[0] != idx.shape[0] or d_out.device != idx.device:
         raise ValueError(f"row_scatter: d_out must be f32 ({idx.shape[0]}, "
                          f"W) on {idx.device}, got {d_out.dtype} "
                          f"{tuple(d_out.shape)} on {d_out.device}")
+    if csr is not None:
+        offsets, order = csr
+        if offsets.shape != (n + 1,) or order.dim() != 1 \
+                or offsets.dtype != torch.int32 or order.dtype != torch.int32 \
+                or offsets.device != d_out.device \
+                or order.device != d_out.device:
+            raise ValueError(f"row_scatter: csr must be i32 offsets "
+                             f"({n + 1},) and order on {d_out.device}")
+
+
+def row_scatter(d_out: torch.Tensor, idx: torch.Tensor, n: int,
+                csr: tuple[torch.Tensor, torch.Tensor] | None = None
+                ) -> torch.Tensor:
+    """The VJP of ``row_gather`` into a table of ``n`` rows: G's backward
+    (``csrc/row_gather.cu``) on CUDA tensors, given ``csr`` (the inverse of
+    ``idx``, ``gather_csr``) its CSR form, else its grouping form;
+    ``row_scatter_csr_plain`` or ``row_scatter_plain`` on CPU tensors.
+    ``launches`` counts both forms, ``csr_launches`` the CSR form's."""
+    _check_scatter(d_out, idx, n, csr)
     if d_out.device.type == "cpu":
+        if csr is not None:
+            return row_scatter_csr_plain(d_out, *csr)
         return row_scatter_plain(d_out, idx, n)
     if d_out.device.type != "cuda":
         raise ValueError(f"row_scatter: unsupported device {d_out.device}")
@@ -351,19 +423,34 @@ def row_scatter(d_out: torch.Tensor, idx: torch.Tensor,
     if W % 4 or d_out.data_ptr() % 16:
         raise ValueError("row_scatter: rows must be a multiple of 4 lanes, "
                          "16-byte aligned")
-    idx = idx.to(torch.int32).contiguous()
-    out = torch.zeros((n, W), dtype=torch.float32, device=d_out.device)
-    if B == 0 or W == 0:
+    if n >= 2 ** 31 - 1:
+        raise ValueError("row_scatter: too large for 32-bit indices")
+    out = torch.empty((n, W), dtype=torch.float32, device=d_out.device)
+    if n == 0 or W == 0:
         return out
     lib = _kernels.load()
-    _kernels.check(lib, lib.hpsdf_row_scatter(
-        d_out.data_ptr(), W, idx.data_ptr(), B, n, out.data_ptr(),
-        _kernels.stream_of(d_out)), "row_scatter")
+    stream = _kernels.stream_of(d_out)
+    if csr is not None:
+        offsets, order = (t.contiguous() for t in csr)
+        _kernels.check(lib, lib.hpsdf_row_scatter_csr(
+            d_out.data_ptr(), W, offsets.data_ptr(), order.data_ptr(), n,
+            out.data_ptr(), stream), "row_scatter")
+        row_scatter.csr_launches += 1
+    else:
+        idx = idx.to(torch.int32).contiguous()
+        size = lib.hpsdf_row_scatter_scratch(B, n)
+        if size < 0:
+            raise ValueError("row_scatter: too large for 32-bit indices")
+        scratch = torch.empty(size, dtype=torch.uint8, device=d_out.device)
+        _kernels.check(lib, lib.hpsdf_row_scatter(
+            d_out.data_ptr(), W, idx.data_ptr(), B, n, scratch.data_ptr(),
+            size, out.data_ptr(), stream), "row_scatter")
     row_scatter.launches += 1
     return out
 
 
 row_scatter.launches = 0
+row_scatter.csr_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -599,7 +686,8 @@ def packed_grad_kernel(pt: PackedTree, pts: torch.Tensor, cot: torch.Tensor,
     """Launch K7 on CUDA tensors: (d_rows, d_grid), the VJP of
     ``values_at`` (form 0, weights ``cot`` (B,)) or of ``_point_gradient``
     (form 1, cotangents ``cot`` (B, 3)) with respect to the packed tables,
-    in their coefficient lanes. Raises on anything else."""
+    in their coefficient lanes, zeros in the others. One launch a call.
+    Raises on anything else."""
     _check_packed(pt, pts)
     if pts.device.type != "cuda":
         raise ValueError(f"packed_grad_kernel needs CUDA tensors, got "
@@ -611,20 +699,23 @@ def packed_grad_kernel(pt: PackedTree, pts: torch.Tensor, cot: torch.Tensor,
         raise ValueError(f"packed_grad_kernel: form {form} takes f32 "
                          f"cotangents {shape}, got {cot.dtype} "
                          f"{tuple(cot.shape)}")
+    lib = _kernels.load()
+    n_rows = pt.rows.shape[0]
+    size = lib.hpsdf_packed_grad_scratch(B, pt.grid_depth, n_rows, form)
+    if size < 0:
+        raise ValueError("packed_grad_kernel: too large for 32-bit indices")
     pts = pts.detach().contiguous()
     cot = cot.detach().contiguous()
-    d_rows = torch.zeros_like(pt.rows, memory_format=torch.contiguous_format)
-    d_grid = torch.zeros_like(pt.grid, memory_format=torch.contiguous_format)
-    if B == 0:
-        return d_rows, d_grid
-    lib = _kernels.load()
+    d_rows = torch.empty_like(pt.rows, memory_format=torch.contiguous_format)
+    d_grid = torch.empty_like(pt.grid, memory_format=torch.contiguous_format)
+    scratch = torch.empty(size, dtype=torch.uint8, device=pts.device)
     rc = np.asarray(pt.root_centre, np.float32)
     inv = (1.0 / np.asarray(pt.root_sizes)).astype(np.float32)
     _kernels.check(lib, lib.hpsdf_packed_grad(
         pt.grid.data_ptr(), pt.rows.data_ptr(), pt.width, pt.deg_used,
-        pt.grid_depth, pt.extra_rounds, pts.data_ptr(), B,
+        pt.grid_depth, pt.extra_rounds, n_rows, pts.data_ptr(), B,
         *map(float, rc), *map(float, inv), cot.data_ptr(), int(form),
-        d_grid.data_ptr(), d_rows.data_ptr(),
+        scratch.data_ptr(), size, d_grid.data_ptr(), d_rows.data_ptr(),
         _kernels.stream_of(pts)), "packed_grad")
     packed_grad_kernel.launches += 1
     return d_rows, d_grid

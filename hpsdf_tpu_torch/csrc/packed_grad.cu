@@ -1,134 +1,398 @@
-// K7: the backward of the packed reads with respect to the packed tables, one
-// thread per point, in f32.
+// K7: the backward of the packed reads with respect to the packed tables,
+// in f32.
 //
 // Replaces what autodiff gave the reference for the rows of hpsdf_tpu's
 // packed reads in inverse rendering (hpsdf_tpu/inverse.py:221-240, through
 // accel.values_at on repacked rows). The plain torch versions are
 // values_at_vjp_plain and point_gradient_vjp_plain in hpsdf_tpu_torch/accel.py
-// (autograd of values_at_plain and point_gradient_plain). Per point the
-// thread locates its row as K2 does (packed_rows.cuh: the grid row, then up to
-// `extra` descents), remembering which table the row came from, and adds into
-// that table's gradient (d_grid for a grid row, d_rows after a descent) at the
-// row's coefficient lanes:
+// (autograd of values_at_plain and point_gradient_plain). Each point reads
+// one row, found as K2 finds it (packed_rows.cuh: the grid row, then up to
+// `extra` descents), either a grid row or a node row, and its gradient goes
+// to that row's coefficient lanes in d_grid or d_rows:
 //   * form 0, the VJP of values_at with weights w (B,):
 //       d[8 + m] += w * P_m(local),  P_m = L_i(x) L_j(y) L_k(z);
 //   * form 1, the VJP of the raw point gradient (K5's third form) with
 //     cotangents u (B, 3):
 //       d[8 + m] += sum_a u_a * scale * (1 / size_a) * dP_m/dlocal_a,
 //     the axes on which the point was clamped into the root left out.
-// The meta lanes 0-7 get nothing: inverse rendering rebuilds them from
+// The meta lanes 0-7 get zero: inverse rendering rebuilds them from
 // PackSupport.meta_rows, a constant.
 //
-// Bound. Per point: one row read (as K2), the Legendre recurrences and C
-// products, and C atomic adds. The points of an inverse-rendering chunk
-// crowd into the few hundred leaves near the surface, so one atomic per lane
-// and term serialises on those rows; the lanes of a warp that share a row sum
-// their terms in registers first (scatter.cuh) and one lane a group adds.
+// Bound. Per point: one row read (as K2), its tables and C products; the
+// tables' gradients written once. Adding each term with a float atomic (the
+// earlier form, kept as csrc/check/packed_grad_reference.cu) costs C
+// atomics a point where points scatter, serialises on the few hundred
+// surface leaves where an inverse-rendering chunk's points crowd, and needs
+// both tables zeroed by extra launches. So the points are grouped by
+// destination row before adding (group.cuh), in one cooperative launch:
+// each point's row is located once and its key kept, the keys counted and
+// scanned, and each point's record (its unit-cube coordinates and
+// cotangent) written at its place in row order, while both tables are
+// cleared. Then each warp takes kSeg consecutive places of that order (a
+// chunk) and reads their records in order: its lanes compute the Legendre
+// tables of the chunk's points at once into shared memory, each lane sums
+// its row lanes (l, l + 32, ...) over the points from the tables, with no
+// shuffles, and at each change of row the warp stores the row's sums where
+// all its points lie in the chunk. A row whose points run past the chunk
+// (a leaf that thousands of an inverse chunk's points read) gets one float
+// atomic a lane from each of its chunks instead. So every warp sums the
+// same number of points however they crowd, and the rows are cleared
+// inside the launch. The order within a row follows the sort's atomics, so
+// the last bits of a sum can change between launches.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "group.cuh"
 #include "packed_rows.cuh"
-#include "scatter.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kGroupPerSM = 6;        // blocks a multiprocessor
+// the places of the row order a warp sums at a time (a chunk)
+constexpr int kSeg = 64;
+
+template <int DEG, int FORM>
+struct Terms {
+  static constexpr int N = DEG + 1;                   // a Legendre table
+  static constexpr int C = N * (N + 1) * (N + 2) / 6;
+  // a point's tables in shared memory: L_x (times w in form 0), L_y, L_z
+  // and, form 1, u_a (scale / size_a) dL_a for each axis; one more float so
+  // that the points' strides are odd (stores without bank conflicts)
+  static constexpr int S = (FORM == 0 ? 3 : 6) * N + 1;
+  // the row lanes a lane may sum into: lane + 32 k
+  static constexpr int OUT = (hpsdf::kCoeffLane + C + 31) / 32;
+  // the points whose tables a lane computes at once (two where the block's
+  // tables fit in 40 KB), and a warp's batch
+  static constexpr int PPL = kWarps * 64 * S * 4 <= 40960 ? 2 : 1;
+  static constexpr int BATCH = 32 * PPL;
+  // float4s of a point's record, its unit-cube coordinates u and its
+  // cotangent: (u, w), or (u, c_0) and (c_1, c_2, 0, 0), the cotangent c_a
+  // zeroed on each axis on which the point lay outside the root
+  static constexpr int REC = FORM == 0 ? 1 : 2;
+};
+
+// Basis term m's (i, j, k) in for_each_term's order (by total degree, then
+// i, then j), packed as i | j << 8 | k << 16.
+__device__ __forceinline__ int term_ijk(int m) {
+  for (int p = 0;; ++p) {
+    const int n = (p + 1) * (p + 2) / 2;
+    if (m < n) {
+      for (int i = 0;; ++i) {
+        if (m <= p - i) return i | (m << 8) | ((p - i - m) << 16);
+        m -= p - i + 1;
+      }
+    }
+    m -= n;
+  }
+}
+
+struct Inputs {
+  const float* grid;
+  const float* rows;
+  int W, gd, extra, G3;
+  const float* pts;
+  const float* cot;
+  float rc[3], inv[3];
+
+  // the point's unit-cube coordinates, clamped into the root, and the axes
+  // on which it lay inside
+  __device__ __forceinline__ void unit(int64_t b, float u[3],
+                                       bool in_axis[3]) const {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float w = (pts[3 * b + a] - rc[a]) * inv[a];
+      in_axis[a] = fabsf(w) <= 0.5f;
+      u[a] = hpsdf::clamp_half(w);
+    }
+  }
+
+  // the row the point reads (locate_row4): key < G3 the grid row key,
+  // else node row key - G3
+  __device__ __forceinline__ int key(int64_t b) const {
+    float u[3];
+    bool in_axis[3];
+    unit(b, u, in_axis);
+    int k = hpsdf::grid_cell(gd, u);
+    const float* row = grid + (int64_t)k * W;
+    for (int r = 0; r < extra; ++r) {
+      const float4 m = __ldg(reinterpret_cast<const float4*>(row));
+      const int child = __float_as_int(m.x) - 1;
+      if (child < 0) break;
+      const int oct = (u[0] >= m.z) | ((u[1] >= m.w) << 1) |
+                      ((u[2] >= __ldg(row + 4)) << 2);
+      k = G3 + child + oct;
+      row = rows + (int64_t)(child + oct) * W;
+    }
+    return k;
+  }
+
+  __device__ __forceinline__ const float* row(int64_t k) const {
+    return k < G3 ? grid + k * W : rows + (k - G3) * W;
+  }
+
+  // point b's record (Terms::REC float4s at r)
+  template <int FORM>
+  __device__ __forceinline__ void record(int64_t b, float4* r) const {
+    float u[3];
+    bool in_axis[3];
+    unit(b, u, in_axis);
+    if constexpr (FORM == 0) {
+      r[0] = make_float4(u[0], u[1], u[2], cot[b]);
+    } else {
+      float c[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) c[a] = in_axis[a] ? cot[3 * b + a] : 0.0f;
+      r[0] = make_float4(u[0], u[1], u[2], c[0]);
+      r[1] = make_float4(c[1], c[2], 0.0f, 0.0f);
+    }
+  }
+
+  // a point's tables (Terms::S floats at t) from its record, in the frame
+  // of the row k it reads
+  template <int DEG, int FORM>
+  __device__ __forceinline__ void tables(const float4* r, int64_t k,
+                                         float* t) const {
+    constexpr int N = DEG + 1;
+    const float* rw = row(k);
+    const float4 meta = __ldg(reinterpret_cast<const float4*>(rw));
+    const float centre[3] = {meta.z, meta.w, __ldg(rw + 4)};
+    const float scale = meta.y;
+    const float4 r0 = __ldcg(r);
+    const float u[3] = {r0.x, r0.y, r0.z};
+    float L[3][N];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      hpsdf::legendre<DEG>((u[a] - centre[a]) * scale, L[a]);
+    if constexpr (FORM == 0) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        t[i] = r0.w * L[0][i];
+        t[N + i] = L[1][i];
+        t[2 * N + i] = L[2][i];
+      }
+    } else {
+      const float4 r1 = __ldcg(r + 1);
+      const float c[3] = {r0.w, r1.x, r1.y};
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        float dL[N];
+        hpsdf::legendre_deriv<DEG>(L[a], dL);
+        const float ua = c[a] * (scale * inv[a]);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          t[a * N + i] = L[a][i];
+          t[(3 + a) * N + i] = ua * dL[i];
+        }
+      }
+    }
+  }
+};
+
+// The sums one lane keeps for a row: row lane lane + 32 k, its term's
+// offsets into a point's tables, and whether it is a coefficient lane.
+template <int DEG, int FORM>
+struct LaneTerms {
+  using T = Terms<DEG, FORM>;
+  int o[3][T::OUT];
+  bool coeff[T::OUT];
+
+  __device__ __forceinline__ LaneTerms() {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int k = 0; k < T::OUT; ++k) {
+      const int m = lane + 32 * k - hpsdf::kCoeffLane;
+      coeff[k] = m >= 0 && m < T::C;
+      const int ijk = coeff[k] ? term_ijk(m) : 0;
+      o[0][k] = ijk & 255;
+      o[1][k] = T::N + ((ijk >> 8) & 255);
+      o[2][k] = 2 * T::N + (ijk >> 16);
+    }
+  }
+
+  // acc += the terms of the point whose tables are at t
+  __device__ __forceinline__ void add(const float* t,
+                                      float (&acc)[T::OUT]) const {
+    constexpr int N = T::N;
+#pragma unroll
+    for (int k = 0; k < T::OUT; ++k) {
+      const float lx = t[o[0][k]], ly = t[o[1][k]], lz = t[o[2][k]];
+      if constexpr (FORM == 0) {
+        acc[k] += lx * ly * lz;
+      } else {
+        acc[k] += t[o[0][k] + 3 * N] * ly * lz + lx * t[o[1][k] + 3 * N] * lz +
+                  lx * ly * t[o[2][k] + 3 * N];
+      }
+    }
+  }
+
+  // A row's sums over its points in a chunk, then acc zeroed: stored in
+  // the row's coefficient lanes where those are all its points, else added
+  // there (the row was cleared).
+  __device__ __forceinline__ void emit(float* dst, bool whole,
+                                       float (&acc)[T::OUT]) const {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int k = 0; k < T::OUT; ++k) {
+      if (coeff[k]) {
+        if (whole)
+          dst[lane + 32 * k] = acc[k];
+        else
+          atomicAdd(dst + lane + 32 * k, acc[k]);
+      }
+      acc[k] = 0.0f;
+    }
+  }
+};
 
 template <int DEG, int FORM>
 __global__ void __launch_bounds__(kThreads)
 packed_grad_kernel(const float* __restrict__ grid,
                    const float* __restrict__ rows, int W, int gd, int extra,
-                   const float* __restrict__ pts, int64_t B, float rc0,
-                   float rc1, float rc2, float inv0, float inv1, float inv2,
-                   const float* __restrict__ cot,
-                   float* __restrict__ d_grid, float* __restrict__ d_rows) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = i < B;
-  const int64_t ip = valid ? i : B - 1;     // spare lanes repeat the last point
-  const float rc[3] = {rc0, rc1, rc2};
-  const float inv[3] = {inv0, inv1, inv2};
-  float u[3];
-  bool in_axis[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float w = (pts[3 * ip + a] - rc[a]) * inv[a];
-    in_axis[a] = fabsf(w) <= 0.5f;
-    u[a] = hpsdf::clamp_half(w);
-  }
-  // locate_row4, keeping the table the row comes from
-  const float* row = hpsdf::grid_row(grid, W, gd, u);
-  bool from_grid = true;
-  for (int r = 0; r < extra; ++r) {
-    const float4 m = __ldg(reinterpret_cast<const float4*>(row));
-    const int child = __float_as_int(m.x) - 1;
-    if (child < 0) break;
-    const int oct = (u[0] >= m.z) | ((u[1] >= m.w) << 1) |
-                    ((u[2] >= __ldg(row + 4)) << 2);
-    row = rows + (int64_t)(child + oct) * W;
-    from_grid = false;
-  }
-  float* dst = from_grid ? d_grid + (row - grid) : d_rows + (row - rows);
-  dst += hpsdf::kCoeffLane;
-  const float4 meta = __ldg(reinterpret_cast<const float4*>(row));
-  const float centre[3] = {meta.z, meta.w, __ldg(row + 4)};
-  const float scale = meta.y;
+                   int Np, const float* __restrict__ pts, int64_t B,
+                   float rc0, float rc1, float rc2, float inv0, float inv1,
+                   float inv2, const float* __restrict__ cot, int cs,
+                   void* __restrict__ scratch, float* __restrict__ d_grid,
+                   float* __restrict__ d_rows) {
+  using T = Terms<DEG, FORM>;
+  __shared__ float s_tab[kWarps][T::BATCH * T::S];
+  const int lane = threadIdx.x & 31;
+  const Inputs in{grid, rows, W, gd, extra, 1 << (3 * gd), pts, cot,
+                  {rc0, rc1, rc2}, {inv0, inv1, inv2}};
+  const int K = in.G3 + Np;
+  // scratch (scratch_bytes): the records, the keys, the row order, the
+  // grouping's counters
+  float4* recs = static_cast<float4*>(scratch);
+  int32_t* keys = reinterpret_cast<int32_t*>(recs + B * T::REC);
+  int32_t* sorted = keys + B;
+  int32_t* cnt = sorted + B;
+  auto clear = [&](int64_t i, int64_t n) {
+    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int64_t q = i; q < (int64_t)in.G3 * W / 4; q += n)
+      reinterpret_cast<float4*>(d_grid)[q] = z;
+    for (int64_t q = i; q < (int64_t)Np * W / 4; q += n)
+      reinterpret_cast<float4*>(d_rows)[q] = z;
+  };
+  auto place = [&](int64_t b, int pos, int k) {
+    sorted[pos] = k;
+    in.record<FORM>(b, recs + (int64_t)pos * T::REC);
+  };
+  hpsdf::group_by_key<kThreads>(
+      B, K, [&](int64_t b) { return in.key(b); }, keys, cnt, cs,
+      cnt + (int64_t)cs * K, clear, place);
 
-  float L[3][DEG + 1], dL[3][DEG + 1];
+  // 4. a warp a chunk of kSeg places of the row order: each row's sums
+  // there, stored where all the row's points lie in the chunk (the keys
+  // just before and after it are another row's), else added
+  const LaneTerms<DEG, FORM> lt;
+  float* tab = s_tab[threadIdx.x >> 5];
+  auto dst = [&](int k) {
+    return (k < in.G3 ? d_grid + (int64_t)k * W
+                      : d_rows + (int64_t)(k - in.G3) * W);
+  };
+  const int warp_id = (int)(((int64_t)blockIdx.x * kThreads + threadIdx.x)
+                            >> 5);
+  const int n_warps = (int)(((int64_t)gridDim.x * kThreads) >> 5);
+  const int n_chunks = (int)((B + kSeg - 1) / kSeg);
+  for (int c = warp_id; c < n_chunks; c += n_warps) {
+    const int j0 = c * kSeg, j1 = (int)min(B, (int64_t)j0 + kSeg);
+    const int before = j0 > 0 ? __ldcg(sorted + j0 - 1) : -1;
+    const int after = j1 < B ? __ldcg(sorted + j1) : -1;
+    int cur = -1;
+    bool whole = true;                 // cur began in this chunk
+    float acc[T::OUT] = {};
+    for (int jb = j0; jb < j1; jb += T::BATCH) {        // warp-uniform
+      int key[T::PPL];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    hpsdf::legendre<DEG>((u[a] - centre[a]) * scale, L[a]);
-    if constexpr (FORM == 1) hpsdf::legendre_deriv<DEG>(L[a], dL[a]);
-  }
-  float w = 0.0f, ua[3] = {0.0f, 0.0f, 0.0f};
-  if constexpr (FORM == 0) {
-    w = valid ? cot[i] : 0.0f;
-  } else {
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-      ua[a] = valid && in_axis[a] ? cot[3 * i + a] * (scale * inv[a]) : 0.0f;
-  }
-
-  const hpsdf::PeerSum peers(valid ? (unsigned long long)dst : ~0ull);
-  const bool write = valid && peers.leader;
-  hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
-    float x;
-    if constexpr (FORM == 0) {
-      x = w * (L[0][ix] * L[1][iy] * L[2][iz]);
-    } else {
-      x = ua[0] * (dL[0][ix] * L[1][iy] * L[2][iz]) +
-          ua[1] * (L[0][ix] * dL[1][iy] * L[2][iz]) +
-          ua[2] * (L[0][ix] * L[1][iy] * dL[2][iz]);
+      for (int q = 0; q < T::PPL; ++q) {
+        const int j = jb + 32 * q + lane;
+        key[q] = j < j1 ? __ldcg(sorted + j) : -1;
+        if (j < j1)
+          in.tables<DEG, FORM>(recs + (int64_t)j * T::REC, key[q],
+                               tab + (32 * q + lane) * T::S);
+      }
+      __syncwarp();
+      const int nb = min(T::BATCH, j1 - jb);
+      for (int n = 0; n < nb; ++n) {
+        int kq = key[0];
+        if constexpr (T::PPL == 2) kq = n < 32 ? key[0] : key[1];
+        const int kn = __shfl_sync(0xffffffffu, kq, n & 31);
+        if (kn != cur) {
+          if (cur >= 0) lt.emit(dst(cur), whole, acc);
+          whole = cur >= 0 || kn != before;
+          cur = kn;
+        }
+        lt.add(tab + n * T::S, acc);
+      }
+      __syncwarp();
     }
-    x = peers.sum(x);
-    if (write) atomicAdd(dst + m, x);
-  });
+    lt.emit(dst(cur), whole && cur != after, acc);
+  }
+}
+
+template <int DEG, int FORM>
+cudaError_t launch(void** args, cudaStream_t s) {
+  static int grid_cache = 0;
+  const int blocks = hpsdf::group_grid(packed_grad_kernel<DEG, FORM>,
+                                       kThreads, kGroupPerSM, &grid_cache);
+  if (blocks <= 0) return cudaErrorInvalidConfiguration;
+  return cudaLaunchCooperativeKernel((const void*)packed_grad_kernel<DEG, FORM>,
+                                     dim3(blocks), dim3(kThreads), args, 0, s);
+}
+
+// The bytes of scratch a launch takes for B points into K rows: each
+// point's record (Terms::REC float4s), its key and its place in the row
+// order, then the grouping's counters; -1 where 32-bit indices do not
+// reach.
+int64_t scratch_bytes(int64_t B, int gd, int64_t Np, int form) {
+  if ((form != 0 && form != 1) || B < 0 || 2 * B >= INT32_MAX || Np < 0 ||
+      gd < 0 || gd > 10)
+    return -1;
+  const int64_t counts = hpsdf::group_ints((int64_t{1} << (3 * gd)) + Np);
+  return counts < 0 ? -1 : 16 * (form + 1) * B + 4 * (2 * B + counts);
 }
 
 }  // namespace
 
-// form 0: cot = w (B,); form 1: cot = u (B, 3). d_grid and d_rows (the
-// tables' shapes) must be zeroed by the caller. Rows 16-byte aligned.
+extern "C" int64_t hpsdf_packed_grad_scratch(int64_t B, int gd, int Np,
+                                             int form) {
+  return scratch_bytes(B, gd, Np, form);
+}
+
+// form 0: cot = w (B,); form 1: cot = u (B, 3). Np: the node rows;
+// scratch: hpsdf_packed_grad_scratch bytes, 16-byte aligned. Writes every
+// row of d_grid and d_rows (the tables' shapes), zeros outside the
+// coefficient lanes. Rows 16-byte aligned. One cooperative launch.
 extern "C" int hpsdf_packed_grad(const float* grid, const float* rows, int W,
-                                 int deg, int gd, int extra, const float* pts,
-                                 int64_t B, float rc0, float rc1, float rc2,
-                                 float inv0, float inv1, float inv2,
-                                 const float* cot, int form, float* d_grid, float* d_rows, void* stream) {
-  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+                                 int deg, int gd, int extra, int Np,
+                                 const float* pts, int64_t B, float rc0,
+                                 float rc1, float rc2, float inv0, float inv1,
+                                 float inv2, const float* cot, int form,
+                                 void* scratch, int64_t scratch_size,
+                                 float* d_grid, float* d_rows, void* stream) {
+  const int64_t need = scratch_bytes(B, gd, Np, form);
+  if (need < 0 || scratch_size < need || W % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)scratch % 16 != 0 || (uintptr_t)d_grid % 16 != 0 ||
+      (uintptr_t)d_rows % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  int cs = hpsdf::counter_stride((int64_t{1} << (3 * gd)) + Np);
+  void* args[] = {&grid, &rows, &W,    &gd,      &extra,  &Np,
+                  &pts,  &B,    &rc0,  &rc1,     &rc2,    &inv0,
+                  &inv1, &inv2, &cot,  &cs,      &scratch, &d_grid,
+                  &d_rows};
   cudaStream_t s = (cudaStream_t)stream;
-  if ((form != 0 && form != 1) || B <= 0) return (int)cudaErrorInvalidValue;
-#define HPSDF_FORM(D, F)                                                     \
-  packed_grad_kernel<D, F><<<blocks, kThreads, 0, s>>>(                      \
-      grid, rows, W, gd, extra, pts, B, rc0, rc1, rc2, inv0, inv1, inv2, cot, \
-      d_grid, d_rows)
+  cudaError_t e = cudaSuccess;
 #define HPSDF_LAUNCH(D) \
-  if (form == 0)        \
-    HPSDF_FORM(D, 0);   \
-  else                  \
-    HPSDF_FORM(D, 1)
+  e = form == 0 ? launch<D, 0>(args, s) : launch<D, 1>(args, s)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
-#undef HPSDF_FORM
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
   return (int)cudaGetLastError();
 }

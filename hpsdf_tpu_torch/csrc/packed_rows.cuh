@@ -26,12 +26,11 @@ __device__ __forceinline__ float clamp_half(float x) {
   return fminf(fmaxf(x, -0.5f), 0.5f);
 }
 
-// Row of the leaf containing the unit-cube point u (clamped into the root):
-// the grid row of u's depth-gd cell, then up to `extra` descents, stopping at
-// a leaf (accel.locate_in). The cell index truncates, as astype(int32) does;
-// u + 0.5 >= 0, so that is floor.
-__device__ __forceinline__ const float* grid_row(
-    const float* __restrict__ grid, int W, int gd, const float u[3]) {
+// The depth-gd grid cell of the unit-cube point u (clamped into the root),
+// and its row; then the row of the leaf containing u: the grid row, then up
+// to `extra` descents, stopping at a leaf (accel.locate_in). The cell index
+// truncates, as astype(int32) does; u + 0.5 >= 0, so that is floor.
+__device__ __forceinline__ int grid_cell(int gd, const float u[3]) {
   const int g = 1 << gd;
   int c[3];
 #pragma unroll
@@ -39,7 +38,12 @@ __device__ __forceinline__ const float* grid_row(
     const int ci = (int)((u[a] + 0.5f) * (float)g);
     c[a] = ci < 0 ? 0 : (ci > g - 1 ? g - 1 : ci);
   }
-  return grid + (((int64_t)c[0] * g + c[1]) * g + c[2]) * W;
+  return (c[0] * g + c[1]) * g + c[2];
+}
+
+__device__ __forceinline__ const float* grid_row(
+    const float* __restrict__ grid, int W, int gd, const float u[3]) {
+  return grid + (int64_t)grid_cell(gd, u) * W;
 }
 
 // The leaf's row: the descents read lanes 0-4 as one float4 and one scalar

@@ -260,7 +260,7 @@ def test_trace_vjp_matches_fd(sphere):
 
 
 @pytest.mark.parametrize("kernel", ["packed_grad", "coeff_scatter",
-                                    "row_scatter"])
+                                    "row_scatter", "row_scatter_csr"])
 def test_backward_kernels_refuse_cpu(trees, kernel):
     """The backward kernels' wrappers launch on CUDA tensors or raise; only
     the dispatchers (row_scatter, trace_vjp) take the plain versions, and
@@ -273,7 +273,14 @@ def test_backward_kernels_refuse_cpu(trees, kernel):
         elif kernel == "coeff_scatter":
             coeff_scatter_kernel(tt, torch.zeros(8, dtype=torch.float64),
                                  pts=torch.as_tensor(pts[:8]))
-        else:
+        elif kernel == "row_scatter":
             TA.row_scatter(torch.zeros((4, 8), device="meta"),
                            torch.zeros(4, dtype=torch.int32, device="meta"),
                            3)
+        else:
+            TA.row_scatter(torch.zeros((4, 8), device="meta"),
+                           torch.zeros(4, dtype=torch.int32, device="meta"),
+                           3, (torch.zeros(4, dtype=torch.int32,
+                                           device="meta"),
+                               torch.zeros(4, dtype=torch.int32,
+                                           device="meta")))

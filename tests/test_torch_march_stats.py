@@ -204,8 +204,9 @@ def test_lod_tables_stay_with_the_packed_tree(trees):
 
 
 def test_reference_kernel_is_on_no_path():
-    """The kernel K3 replaced is built into a library of its own, which no
-    module of the package loads: only chip_smoke.py does, to hold K3 to it."""
+    """The kernels K3, K7 and G's backward replaced are built into a library
+    of their own, which no module of the package loads: only chip_smoke.py
+    does, to hold the shipped kernels to them."""
     import glob
     import os
 
@@ -213,7 +214,9 @@ def test_reference_kernel_is_on_no_path():
 
     main = {os.path.basename(p) for p in _kernels.sources()}
     check = {os.path.basename(p) for p in _kernels.sources("check")}
-    assert "march.cu" in main and check == {"march_reference.cu"}
+    assert "march.cu" in main and check == {
+        "march_reference.cu", "packed_grad_reference.cu",
+        "row_scatter_reference.cu"}
     assert not main & check
     assert _kernels.library_path("check") != _kernels.library_path()
     pkg = os.path.dirname(_kernels.__file__)

@@ -120,14 +120,14 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None):
             f"registers, used 0 barriers, 22528 bytes smem\n")
 
 
-@pytest.mark.parametrize("spill", [None, "K1", "K3", "K7"],
+@pytest.mark.parametrize("spill", [None, "K1", "K3", "K7", "G CSR"],
                          ids=["clean", "spills", "march_spills",
-                              "backward_spills"])
+                              "backward_spills", "csr_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
-    K5's raw gradient, K7 or K8 at degree 3 or 5, or G's backward, has a
-    stack frame or spills."""
+    K5's raw gradient, K7 or K8 at degree 3 or 5, or either form of G's
+    backward, has a stack frame or spills."""
     from hpsdf_tpu_torch import _kernels
 
     report = "".join(
@@ -152,11 +152,14 @@ def test_ptxas_check(monkeypatch, spill):
         report += _ptxas_entry("coeff_scatter_kernel", d, None,
                                args=f"fLi{d}ELb1E")
     report += _ptxas_entry("row_scatter_kernel", 0, None, args="")
+    report += _ptxas_entry("row_scatter_csr_kernel", 0, None, args="",
+                           stack=8 if spill == "G CSR" else 0)
     monkeypatch.setattr(_kernels, "ptxas_report", lambda: report)
     if spill:
         with pytest.raises(RuntimeError, match={
                 "K1": "K1 5/values", "K3": "K3 5: stack 16",
-                "K7": "K7 3/form1: stack 24"}[spill]):
+                "K7": "K7 3/form1: stack 24",
+                "G CSR": "G backward CSR -: stack 8"}[spill]):
             chip_smoke.ptxas_check()
         return
     found = chip_smoke.ptxas_check()
@@ -168,5 +171,6 @@ def test_ptxas_check(monkeypatch, spill):
     assert set(found["coeff_scatter_kernel"]) == {
         f"{d}/{k}" for d in (3, 5) for k in ("f64 query", "f32 trace")}
     assert set(found["row_scatter_kernel"]) == {"-"}
+    assert set(found["row_scatter_csr_kernel"]) == {"-"}
     assert found["march_kernel"] == {str(d): [80, 0, 0, 0]
                                      for d in (3, 5, 12)}
