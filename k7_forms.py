@@ -8,14 +8,12 @@ points in the inverse tree's root (forms 0 and 1). Each form is held to
 autograd of the plain version and to the shipped kernel within
 chip_smoke.GRAD_RTOL32, its operations on the card a call counted, and it
 is timed in CUDA graphs in two rounds, the second in the reverse order.
-Prints one line a shape and form, and one JSON line, also written to
-``chiprun_out/k7_forms.json``.
+Prints one line a shape and form, then all of it as one JSON line.
 
     python3 k7_forms.py        # one card
 """
 
 import json
-import os
 import sys
 import time
 
@@ -127,9 +125,6 @@ def main():
                   + "; ".join(f"{k}: {v['ms'][0]:.4f} / {v['ms'][1]:.4f} ms"
                               f", {v['ops']} ops, err {v['rel_err']:.2e}"
                               for k, v in row.items()), flush=True)
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "k7_forms.json"), "w") as fh:
-        json.dump(out, fh, indent=1)
     print(json.dumps(out))
     return 0
 
