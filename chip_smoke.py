@@ -129,6 +129,12 @@ GRAD_RTOL32, GRAD_RTOL64 = 1e-4, 1e-10
 # the operations a call of K7 and of G's backward may put on the card (the
 # kernels they replaced: a launch and two zero-fills, a launch and one)
 K7_LAUNCHES, G_BWD_LAUNCHES = 3, 2
+# and of K8: the output's memset and the launch
+K8_LAUNCHES = 2
+# the largest condition number of a ray's dfdt at which the trace's VJP is
+# held to its plain version on the synthetic trees (trace_well_posed): an
+# f32 weight then differs by ~1e-5 at most between orders of summation
+TRACE_COND_MAX = 100.0
 INV_SIZE = (1920, 1080)             # bench.py:734-767: 1080p rays
 INV_STEPS = 5
 INV_SMALL = 128                     # the kernels-against-plain run's side
@@ -313,9 +319,9 @@ def phase_p1_fit(rows, table, fit_pts):
 
 def counters():
     """Every launch counter, by name: (kernel wrapper, attribute). K2/K5's
-    wrapper counts all its launches and, apart, those of K5's normals and
-    of its raw gradient; G's backward's all its launches and, apart, those
-    of its CSR form."""
+    wrapper counts all its launches and, apart, those of K5's normals, of
+    its raw gradient and of the fused mode; G's backward's all its launches
+    and, apart, those of its CSR form."""
     from hpsdf_tpu_torch.accel import (packed_eval_kernel, packed_grad_kernel,
                                        row_gather, row_scatter)
     from hpsdf_tpu_torch.mesh import closest_tri_tiles
@@ -327,6 +333,7 @@ def counters():
             "packed_eval": (packed_eval_kernel, "launches"),
             "packed_eval_normals": (packed_eval_kernel, "grad_launches"),
             "packed_eval_raw": (packed_eval_kernel, "raw_launches"),
+            "packed_eval_fused": (packed_eval_kernel, "fused_launches"),
             "march": (march_kernel, "launches"),
             "cone": (cone_kernel, "launches"),
             "row_scatter": (row_scatter, "launches"),
@@ -608,7 +615,8 @@ def phase_k2(pt, name, sphere, seed=5):
     root. Normals are compared away from the sphere's centre, where the
     field's gradient vanishes and a normal is not defined. Returns (max
     value error, min normal dot, times)."""
-    from hpsdf_tpu_torch.accel import (F32_MAX, NORMALS, VALUES,
+    from hpsdf_tpu_torch.accel import (F32_MAX, NORMALS, RAW_GRAD, VALUES,
+                                       VALUES_AND_GRAD,
                                        normals_plain, packed_eval_kernel,
                                        query_packed_plain, values_at_plain)
 
@@ -1348,19 +1356,22 @@ def rel_err(a, b):
 def phase_grad(pt_s, tree_s, s, smi, seed=11):
     """The backward kernels against autograd of their plain versions on the
     card, at 2^20 points and at the main path's shapes (one inverse chunk's
-    band points, the 7n points of its values_at call and its rays on the
-    initial tree, the repack's grid): K7 both forms, G's backward (its CSR
-    form at the grid, its grouping form at 2^20 random indices and at the
-    grid), K8's f64 query form and f32 trace form. K7 and G's backward are
-    also held to the kernels they replaced (csrc/check/), within the same
-    tolerance, and the CSR form's two launches must agree bit for bit. Each
-    timed in a CUDA graph beside its plain version, its bound, the kernel it
-    replaced and, for G's backward, index_add_, with the operations a call
-    puts on the card (at most K7_LAUNCHES / G_BWD_LAUNCHES).
-    Returns {kernel: {shape: dict}}."""
+    band points, the 7n points of its read and its rays on the initial
+    tree, the repack's grid): K7 both forms, G's backward (its CSR form at
+    the grid, its grouping form at 2^20 random indices and at the grid),
+    K8's f64 query form and f32 trace form (the middle chunk with a random
+    dt, then every chunk of a 1080p step with the step's dt, timed one by
+    one and summed). K7, G's backward and K8 are also held to the kernels
+    they replaced (csrc/check/), within the same tolerance, and the CSR
+    form's two launches must agree bit for bit. Each timed in a CUDA graph
+    beside its plain version, its bound, the kernel it replaced and, for
+    G's backward, index_add_, with the operations a call puts on the card
+    (at most K7_LAUNCHES / G_BWD_LAUNCHES / K8_LAUNCHES). Then K2 and K5's
+    raw gradient in one launch (the fused mode) at the 7n points, bit-equal
+    to modes 0 and 2, timed beside both. Returns {kernel: {shape: dict}},
+    with "raw", "fixed_cost", "k8_step" and "fused" apart."""
     from hpsdf_tpu_torch import accel as A
     from hpsdf_tpu_torch import render as R
-    from hpsdf_tpu_torch.inverse import STEP_CAP
     from hpsdf_tpu_torch.query import coeff_scatter_kernel, query_vjp_plain
 
     rng = np.random.default_rng(seed)
@@ -1521,57 +1532,142 @@ def phase_grad(pt_s, tree_s, s, smi, seed=11):
                       out["fixed_cost"].items())
           + " | rows the points read, the most points a row: " + ", ".join(
               f"{k} {r} / {m}" for k, (r, m) in crowd.items()), flush=True)
-    # K8: the f64 query VJP, and the f32 trace VJP on marched rays
+    # K8: the f64 query VJP, and the f32 trace VJP on marched rays; each
+    # held to autograd of its plain version and to the kernel it replaced
     tree_i = s["init"]
-    o, d = s["o"][rays], s["d"][rays]
-    t_c, h_c, _ = R._march(A.pack_tree(tree_i), o, d, T_MAX, R.HIT_EPS,
-                           R.MAX_STEPS, STEP_CAP)
     tree32 = R._tree_f32(tree_i)
+
+    def k8_entry(tree, w, label, pts=None, rays=None, ops=True):
+        """K8 at one shape: checked, timed beside the kernel it replaced
+        and bounded by what its live points need; with ``ops``, the
+        operations a call puts on the card counted."""
+        kw = (dict(pts=pts, outside_value_max=True) if rays is None
+              else dict(rays=rays))
+        got = coeff_scatter_kernel(tree, w, **kw)
+        if rays is None:
+            want = query_vjp_plain(tree, pts, w)
+            plain = (lambda: query_vjp_plain(tree, pts, w))
+            ref = coeff_scatter_reference(tree, w, **kw)
+        else:
+            want = R.trace_vjp_plain(tree, *rays, w)
+            plain = (lambda: R.trace_vjp_plain(tree, *rays, w))
+            ref = coeff_scatter_reference(tree, w, **kw)
+        tol = GRAD_RTOL32 if rays is not None else GRAD_RTOL64
+        err, ref_err = rel_err(got, want), rel_err(got, ref)
+        check(err <= tol, f"K8 vs autograd of the plain version at {label}: "
+              f"{err:.3e}")
+        check(ref_err <= tol, f"K8 vs the kernel it replaced at {label}: "
+              f"{ref_err:.3e}")
+        by_bytes, live = k8_bytes(tree, w, **kw)
+        by_ms = bytes_ms(extra=by_bytes)
+        by_ops = live * k1_ops(tree.deg_used, tree.depth_used,
+                               rays is not None) \
+            / (F32_PEAK if rays is not None else F64_PEAK) * 1e3
+        t = timed(lambda: coeff_scatter_kernel(tree, w, **kw), plain)
+        t.update(rel_err=err, ref_rel_err=ref_err,
+                 max_abs_err=float((got - want).abs().max()),
+                 bound_ms=max(by_ms, by_ops),
+                 bound_by="bytes" if by_ms >= by_ops else "operations",
+                 replaced_kernel_ms=graph_ms(
+                     lambda: coeff_scatter_reference(tree, w, **kw), 10),
+                 points=w.shape[0], live=live)
+        if ops:
+            t.update(launches_a_call=device_ops(
+                lambda: coeff_scatter_kernel(tree, w, **kw)),
+                replaced_launches_a_call=device_ops(
+                    lambda: coeff_scatter_reference(tree, w, **kw)))
+            check(t["launches_a_call"] <= K8_LAUNCHES, f"K8 puts "
+                  f"{t['launches_a_call']} operations on the card a call "
+                  f"(at most {K8_LAUNCHES})")
+        return t
+
     for label, tree, pts in (("2^20 uniform, slice tree", tree_s,
                               uni.double()),
                              ("inverse chunk band points", tree_i,
                               band.double())):
-        n = pts.shape[0]
-        w = rand(n, dt=torch.float64)
-        got = coeff_scatter_kernel(tree, w, pts=pts, outside_value_max=True)
-        want = query_vjp_plain(tree, pts, w)
-        err = rel_err(got, want)
-        check(err <= GRAD_RTOL64, f"K8 (f64 query) vs autograd of the plain "
-              f"version at {label}: {err:.3e}")
-        t = timed(lambda: coeff_scatter_kernel(tree, w, pts=pts,
-                                               outside_value_max=True),
-                  lambda: query_vjp_plain(tree, pts, w))
-        arrays = [tree.child_idx, tree.centre, tree.depth, tree.coeffs]
-        by_bytes = bytes_ms(*arrays, pts, w, got)
-        by_ops = n * k1_ops(tree.deg_used, tree.depth_used, False) \
-            / F64_PEAK * 1e3
-        t.update(rel_err=err, max_abs_err=float((got - want).abs().max()),
-                 bound_ms=max(by_bytes, by_ops),
-                 bound_by="bytes" if by_bytes >= by_ops else "operations",
-                 points=n)
-        out["coeff_scatter"][f"f64 query, {label}"] = t
-    dt_ = rand(chunk)
-    rays = (o, d, t_c, h_c)
-    got = coeff_scatter_kernel(tree32, dt_, rays=rays)
-    want = R.trace_vjp_plain(tree32, o, d, t_c, h_c, dt_)
-    err = rel_err(got, want)
-    check(err <= GRAD_RTOL32 and bool(h_c.any()),
-          f"K8 (f32 trace) vs the plain VJP at an inverse chunk: {err:.3e}")
-    t = timed(lambda: coeff_scatter_kernel(tree32, dt_, rays=rays),
-              lambda: R.trace_vjp_plain(tree32, o, d, t_c, h_c, dt_))
-    arrays = [tree32.child_idx, tree32.centre, tree32.depth, tree32.coeffs]
-    by_bytes = bytes_ms(*arrays, o, d, t_c, h_c, dt_, got)
-    by_ops = int(h_c.sum()) * k1_ops(tree32.deg_used, tree32.depth_used,
-                                     True) / F32_PEAK * 1e3
-    t.update(rel_err=err, max_abs_err=float((got - want).abs().max()),
-             bound_ms=max(by_bytes, by_ops),
-             bound_by="bytes" if by_bytes >= by_ops else "operations",
-             points=chunk, hits=int(h_c.sum()))
-    out["coeff_scatter"]["f32 trace, inverse chunk rays"] = t
+        out["coeff_scatter"][f"f64 query, {label}"] = k8_entry(
+            tree, rand(pts.shape[0], dt=torch.float64), label, pts=pts)
+    # the inverse step's own rays: every chunk marched on the initial tree,
+    # with the depth term's cotangent dt (zero where either trace missed);
+    # the middle chunk also with a random dt on every ray
+    chunks = inverse_chunks(s, chunk)
+    o, d = s["o"][rays], s["d"][rays]
+    t_c, h_c = chunks[mid // chunk]["t"], chunks[mid // chunk]["hit"]
+    check(bool(h_c.any()), "hits in the middle inverse chunk")
+    out["coeff_scatter"]["f32 trace, inverse chunk rays"] = k8_entry(
+        tree32, rand(chunk), "an inverse chunk, random dt",
+        rays=(o, d, t_c, h_c))
+    step = []
+    for k, c in enumerate(chunks):
+        step.append(k8_entry(tree32, c["dt"], f"inverse chunk {k}, the "
+                             f"step's dt", rays=c["rays"],
+                             ops=k == mid // chunk))
+        step[-1]["hits"] = int(c["hit"].sum())
+    out["coeff_scatter"]["f32 trace, inverse chunk rays, the step's dt"] = \
+        step[mid // chunk]
+    out["k8_step"] = {
+        key: sum(t[key] for t in step) for key in
+        ("ms", "replaced_kernel_ms", "bound_ms", "plain_ms", "live", "hits")}
+    out["k8_step"].update(
+        chunks=len(step), live_by_chunk=[t["live"] for t in step],
+        ms_by_chunk=[t["ms"] for t in step],
+        replaced_ms_by_chunk=[t["replaced_kernel_ms"] for t in step],
+        max_rel_err=max(t["rel_err"] for t in step),
+        max_ref_rel_err=max(t["ref_rel_err"] for t in step))
+    ks = out["k8_step"]
+    print(f"[grad] K8 (f32 trace) over the {ks['chunks']} chunks of one "
+          f"1080p step on the initial tree, the step's dt | {smi} | "
+          f"{ks['live']} live rays of {ks['hits']} hits (by chunk "
+          f"{ks['live_by_chunk']}) | kernel {ks['ms']:.4f} ms summed in "
+          f"CUDA graphs, the kernel it replaced {ks['replaced_kernel_ms']:.4f}"
+          f" ms, bound {ks['bound_ms']:.5f} ms | by chunk "
+          f"{[round(x, 4) for x in ks['ms_by_chunk']]}, replaced "
+          f"{[round(x, 4) for x in ks['replaced_ms_by_chunk']]} | "
+          f"max|kernel - plain| / max|plain| {ks['max_rel_err']:.3e}, "
+          f"against the kernel it replaced {ks['max_ref_rel_err']:.3e}",
+          flush=True)
+    # K2 and K5's raw gradient in one launch (the fused mode), at the 7n
+    # points of an inverse chunk's read, on the initial and slice trees:
+    # values bit-equal to K2's, gradients to K5's raw form
+    n_band = band.shape[0]
+    for label, pt in (("slice", pt_s), ("initial", pt_i)):
+        v_f, g_f = A.packed_eval_kernel(pt, free, A.VALUES_AND_GRAD,
+                                        n_grad=n_band)
+        v_0 = A.packed_eval_kernel(pt, free, A.VALUES)
+        g_2 = A.packed_eval_kernel(pt, band, A.RAW_GRAD)
+        check(torch.equal(v_f, v_0) and torch.equal(g_f, g_2),
+              f"the fused mode vs modes 0 and 2 at the 7n points, {label} "
+              f"tree: {int((v_f != v_0).sum())} values and "
+              f"{int((g_f != g_2).sum())} gradient entries differ")
+    v_p, g_p = A.values_and_gradient_at_plain(pt_i, free, n_band)
+    fused_err = max(scaled_err(v_f, v_p), rel_err(g_f, g_p))
+    check(fused_err <= GRAD_RTOL32, f"the fused mode vs plain at the 7n "
+          f"points: {fused_err:.3e}")
+    out["fused"] = {
+        "points": free.shape[0], "grad_points": n_band,
+        "max_err": fused_err, "bit_equal_to_modes_0_and_2": True,
+        "ms": graph_ms(lambda: A.packed_eval_kernel(
+            pt_i, free, A.VALUES_AND_GRAD, n_grad=n_band), 20),
+        "values_ms": graph_ms(lambda: A.packed_eval_kernel(
+            pt_i, free, A.VALUES), 20),
+        "raw_ms": graph_ms(lambda: A.packed_eval_kernel(
+            pt_i, band, A.RAW_GRAD), 20),
+        "plain_ms": time_ms(lambda: A.values_and_gradient_at_plain(
+            pt_i, free, n_band), 5),
+        "bound_ms": bytes_ms(free, v_f, g_f, extra=packed_read_bytes(
+            pt_i, free, True))}
+    f_ = out["fused"]
+    print(f"[grad] K2 + K5's raw gradient fused at the inverse chunk's "
+          f"{f_['points']} points (gradients at the first {n_band}): values "
+          f"and gradients bit-equal to modes 0 and 2 on the initial and "
+          f"slice trees, against plain {fused_err:.3e} | {smi} | fused "
+          f"{f_['ms']:.4f} ms in a CUDA graph, K2 alone {f_['values_ms']:.4f}"
+          f" ms, K5's raw gradient alone {f_['raw_ms']:.4f} ms, plain "
+          f"{f_['plain_ms']:.3f} ms, byte bound {f_['bound_ms']:.5f} ms",
+          flush=True)
     for kernel, shapes in out.items():
-        for label, t in (shapes.items() if kernel not in ("raw",
-                                                            "fixed_cost")
-                         else ()):
+        for label, t in (shapes.items() if kernel not in (
+                "raw", "fixed_cost", "k8_step", "fused") else ()):
             print(f"[grad] {kernel} at {label}: max|kernel - plain| / "
                   f"max|plain| {t['rel_err']:.3e}"
                   + ("" if "ref_rel_err" not in t else
@@ -1638,6 +1734,173 @@ def packed_read_bytes(pt, pts, whole=False):
         return 32 * visited
     read = torch.unique(walk[-1]).numel()
     return 32 * (visited - read) + 4 * pt.width * read
+
+
+def node_walk(tree, unit):
+    """The nodes each unit-cube point's descent on the generic tree visits
+    (query.descend), one tensor a round: the root, then the node after each
+    round (a point on a leaf keeps it). The last is its leaf."""
+    cur = torch.zeros(unit.shape[0], dtype=torch.long, device=unit.device)
+    walk = [cur]
+    child_idx = tree.child_idx.long()
+    for _ in range(tree.depth_used):
+        child0 = child_idx[cur]
+        cc = tree.centre[cur]
+        oct_ = ((unit[:, 0] >= cc[:, 0]).long()
+                + ((unit[:, 1] >= cc[:, 1]).long() << 1)
+                + ((unit[:, 2] >= cc[:, 2]).long() << 2))
+        cur = torch.where(child0 < 0, cur, child0 + oct_)
+        walk.append(cur)
+    return walk
+
+
+def coeff_scatter_bytes(tree, unit, live, read_all, read_live, coeff_rows):
+    """The bytes a K8 call must move: ``read_all`` bytes of every point to
+    tell whether it is live (hit and dt; cot, and the point under the
+    sentinel), ``read_live`` more of each live one (its ray or point), a
+    32-byte sector of each node row the live points' descents visit, each
+    of their leaves' coefficient rows read whole where ``coeff_rows`` (the
+    trace form's dfdt), and the (N, C) output written whole."""
+    walk = node_walk(tree, unit[live])
+    visited = torch.unique(torch.cat(walk)).numel()
+    leaves = torch.unique(walk[-1]).numel() if coeff_rows else 0
+    c = tree.coeffs
+    return (unit.shape[0] * read_all + int(live.sum()) * read_live
+            + 32 * visited + leaves * c.shape[1] * c.element_size()
+            + c.numel() * c.element_size())
+
+
+def k8_bytes(tree, w, pts=None, rays=None, outside_value_max=False):
+    """(coeff_scatter_bytes, the live points) of one K8 call: the query
+    form on f64 ``pts`` with cotangents ``w``, or the trace form on ``rays``
+    = (origins, dirs, t, hit) with dt ``w``."""
+    from hpsdf_tpu_torch.query import _to_unit
+
+    if rays is None:
+        unit = _to_unit(tree, pts)
+        live = w != 0
+        if outside_value_max:
+            live &= torch.all(unit.abs() <= 0.5, dim=-1)
+        sentinel = 24 if outside_value_max else 0
+        nbytes = coeff_scatter_bytes(tree, unit.clamp(-0.5, 0.5), live,
+                                     w.element_size() + sentinel,
+                                     24 - sentinel, False)
+    else:
+        o, d, t, hit = rays
+        unit = _to_unit(tree, o + t[:, None] * d).clamp(-0.5, 0.5)
+        live = hit & (w != 0)
+        nbytes = coeff_scatter_bytes(tree, unit, live, 1 + 4, 12 + 12 + 4,
+                                     True)
+    return nbytes, int(live.sum())
+
+
+def k8_call(fn, tree, cot, *, pts=None, rays=None, outside_value_max=False,
+            out=None):
+    """One launch of a K8 entry point ``fn`` that takes hpsdf_coeff_scatter's
+    arguments (the reference's, or a development form's), made as
+    query.coeff_scatter_kernel makes them, adding into ``out`` or, as the
+    wrapper does, into a zeroed (N, C)."""
+    from hpsdf_tpu_torch import _kernels
+
+    trace_form = rays is not None
+    dt = torch.float32 if trace_form else torch.float64
+    keep = [x.detach().contiguous() for x in (rays if trace_form
+                                              else (pts,))]
+    cot = cot.detach().contiguous()
+    if out is None:
+        out = torch.zeros(tree.coeffs.shape, dtype=dt, device=cot.device)
+    rc = np.asarray(tree.config.root_centre, np.float64)
+    inv = 1.0 / np.asarray(tree.config.root_sizes, np.float64)
+    if trace_form:
+        rc, inv = rc.astype(np.float32), inv.astype(np.float32)
+        ptrs = (None, *(x.data_ptr() for x in keep))
+    else:
+        ptrs = (keep[0].data_ptr(), None, None, None, None)
+    _kernels.check(_kernels.load(), fn(
+        tree.child_idx.data_ptr(), tree.centre.data_ptr(),
+        tree.depth.data_ptr(), tree.coeffs.detach().data_ptr(),
+        tree.deg_used, tree.depth_used, *ptrs, cot.shape[0],
+        *map(float, rc), *map(float, inv), cot.data_ptr(),
+        int(outside_value_max), dt.itemsize, out.data_ptr(),
+        _kernels.stream_of(cot)), "coeff_scatter")
+    return out
+
+
+def coeff_scatter_reference(tree, cot, **kw):
+    """K8 as it was before its redesign
+    (csrc/check/coeff_scatter_reference.cu), called as its wrapper called
+    it: the output zeroed, then one launch."""
+    from hpsdf_tpu_torch import _kernels
+
+    return k8_call(_kernels.load_check().hpsdf_coeff_scatter_reference,
+                   tree, cot, **kw)
+
+
+def _dfdt_terms(tree, p, dirs):
+    """The terms of dfdt = grad f(p) . d in f64 on the f64 tree, (B, 3C):
+    a coefficient times a basis product's derivative along the ray (zero
+    on an axis clamped into the root)."""
+    from hpsdf_tpu_torch import basis
+    from hpsdf_tpu_torch.query import _leaf_frame, _to_unit
+
+    in_axis = _to_unit(tree, p).abs() <= 0.5
+    _, coeffs, local, depth, scale = _leaf_frame(tree, p)
+    idx, norms = basis._tables(tree.deg_used, coeffs)
+    L, dL = basis.legendre_all_with_derivative(local, tree.deg_used)
+    Ls = [L[..., a, idx[:, a]] for a in range(3)]
+    dLs = [dL[..., a, idx[:, a]] for a in range(3)]
+    cn = coeffs * norms[depth.long()]
+    inv = 1.0 / np.asarray(tree.config.root_sizes, np.float64)
+    return torch.cat([
+        cn * dLs[a] * Ls[(a + 1) % 3] * Ls[(a + 2) % 3]
+        * torch.where(in_axis[:, a], scale * inv[a] * dirs[:, a].double(),
+                      0.0)[:, None] for a in range(3)], dim=-1)
+
+
+def trace_well_posed(tree, origins, dirs, t):
+    """The rays whose trace VJP weight w = -dt / dfdt any two faithful f32
+    computations agree on, in f64 on the f64 tree: dfdt's condition number
+    (the sum of its terms' magnitudes over |dfdt|) at most TRACE_COND_MAX;
+    dfdt the same within 1e-5 whether p = o + t d is rounded once (as a
+    fused multiply-add gives it) or twice (a product, then a sum); and
+    |dfdt| away from the 1e-6 floor of the weight's divisor. On a random
+    polynomial a ray can fail each: dfdt cancels, or it changes fast across
+    the ulp by which the two points differ."""
+    p2 = (origins + t[:, None] * dirs).double()
+    p1 = (origins.double() + t.double()[:, None] * dirs.double()) \
+        .to(torch.float32).double()
+    terms = _dfdt_terms(tree, p2, dirs)
+    dfdt, mag = terms.sum(-1), terms.abs().sum(-1)
+    dfdt1 = _dfdt_terms(tree, p1, dirs).sum(-1)
+    scale = dfdt.abs().clamp(min=torch.finfo(torch.float64).tiny)
+    return ((mag <= TRACE_COND_MAX * dfdt.abs())
+            & ((dfdt1 - dfdt).abs() <= 1e-5 * scale)
+            & ~((dfdt.abs() > 0.5e-6) & (dfdt.abs() < 2e-6)))
+
+
+def inverse_chunks(s, chunk, depth_weight=0.1):
+    """The inverse step's ray chunks (inverse._padded_chunks), marched on
+    the initial tree as fit_to_depth's first step marches them, each with
+    its rays (origins, dirs, t, hit) and the depth term's cotangent dt =
+    depth_weight * 2 m (t - target t) / dn, m = hit & target hit, dn the
+    count of m over all chunks: zero where either trace missed."""
+    from hpsdf_tpu_torch import accel as A
+    from hpsdf_tpu_torch import render as R
+    from hpsdf_tpu_torch.inverse import STEP_CAP, _padded_chunks
+
+    pk = A.pack_tree(s["init"])
+    out = []
+    for o, d, tt, th in _padded_chunks(s["o"], s["d"], s["t_star"],
+                                       s["hit_star"], chunk):
+        t, hit, _ = R._march(pk, o, d, T_MAX, R.HIT_EPS, R.MAX_STEPS,
+                             STEP_CAP)
+        out.append(dict(rays=(o, d, t, hit), t=t, hit=hit, tt=tt,
+                        m=(hit & th).to(torch.float32)))
+    dn = torch.clamp(sum(c["m"].sum() for c in out), min=1.0)
+    for c in out:
+        c["dt"] = (np.float32(depth_weight) * 2.0 * c["m"]
+                   * (c["t"] - c["tt"]) / dn).contiguous()
+    return out
 
 
 def inverse_points(s, rays):
@@ -1759,9 +2022,10 @@ def phase_inverse(s, s_small, smi):
     kernels against the same run with the plain versions on CUDA tensors
     (the wrappers swapped for their plain versions, so that no kernel
     launches): losses within INV_LOSS_RTOL a step. One step runs under
-    torch.profiler, and once more with K7 and G's backward swapped for the
-    kernels they replaced, to set their device time in a step beside the
-    earlier forms'. Returns (launches, the numbers)."""
+    torch.profiler, and once more with K7, G's backward and K8 swapped for
+    the kernels they replaced and the fused read split into K2 and K5's raw
+    gradient again, to set their device time in a step beside the earlier
+    forms'. Returns (launches, the numbers)."""
     from unittest import mock
     from hpsdf_tpu_torch import accel as A
     from hpsdf_tpu_torch import render as R
@@ -1782,20 +2046,31 @@ def phase_inverse(s, s_small, smi):
     step_s = (time.perf_counter() - t1) / INV_STEPS
     launches = read_counts()
     check(bool(torch.isfinite(losses).all()), f"1080p losses {losses}")
-    for k in ("march", "packed_eval", "packed_eval_raw", "packed_grad",
+    for k in ("march", "packed_eval", "packed_eval_fused", "packed_grad",
               "row_gather", "row_scatter", "row_scatter_csr",
               "coeff_scatter"):
         check(launches[k] > 0, f"{k} never launched by fit_to_depth")
+    check(launches["packed_eval_raw"] == 0, f"fit_to_depth launched K5's "
+          f"raw gradient on its own {launches['packed_eval_raw']} times")
     rmse1, hit1 = depth_rmse(res.tree, s)
-    # one profiled step, then one with the kernels K7 and G's backward
-    # replaced, called as their wrappers called them
-    scatter = ("packed_grad", "row_scatter", "Memset")
-    busy_ms, top, mine = device_busy_ms(lambda: fit(s, 1), scatter)
+    # one profiled step, then one with K7, G's backward and K8 replaced by
+    # the kernels they replaced, called as their wrappers called them, and
+    # the values and raw gradients read in two launches again
+    mine = ("packed_grad", "row_scatter", "coeff_scatter", "packed_eval",
+            "Memset")
+    busy_ms, top, mine_ms = device_busy_ms(lambda: fit(s, 1), mine)
     with mock.patch.object(A, "packed_grad_kernel", packed_grad_reference), \
             mock.patch.object(A, "row_scatter",
                               lambda d_out, idx, n, csr=None:
-                              row_scatter_reference(d_out, idx, n)):
-        busy_ref, _, replaced = device_busy_ms(lambda: fit(s, 1), scatter)
+                              row_scatter_reference(d_out, idx, n)), \
+            mock.patch.object(R, "coeff_scatter_kernel",
+                              lambda tree, cot, rays:
+                              coeff_scatter_reference(tree, cot, rays=rays)), \
+            mock.patch.object(A, "values_and_gradient_at",
+                              lambda pt, pts, n: (A.values_at(pt, pts),
+                                                  A._point_gradient(
+                                                      pt, pts[:n]))):
+        busy_ref, _, replaced = device_busy_ms(lambda: fit(s, 1), mine)
 
     def plain_march(pt, o, d, t_max, hit_eps, max_steps, step_cap=None,
                     **kw):
@@ -1804,8 +2079,8 @@ def phase_inverse(s, s_small, smi):
 
     small = fit(s_small, INV_STEPS).losses.cpu()
     reset_counts()
-    with mock.patch.object(A, "values_at", A.values_at_plain), \
-            mock.patch.object(A, "_point_gradient", A.point_gradient_plain), \
+    with mock.patch.object(A, "values_and_gradient_at",
+                           A.values_and_gradient_at_plain), \
             mock.patch.object(A, "row_gather",
                               lambda table, idx, csr=None:
                               A.row_gather_plain(table, idx)), \
@@ -1824,16 +2099,17 @@ def phase_inverse(s, s_small, smi):
            "hit_overlap_after": hit1, "small_losses": small.tolist(),
            "small_plain_losses": plain.tolist(), "small_rel_err": rel,
            "profiled_step_device_ms": busy_ms, "profiled_step_top": top,
-           "profiled_step_backward": mine,
+           "profiled_step_backward": mine_ms,
            "replaced_profiled_step_device_ms": busy_ref,
            "replaced_profiled_step_backward": replaced}
     print(f"[inverse] {INV_SIZE[0]}x{INV_SIZE[1]} rays, sphere r = 0.27 "
           f"towards 0.3 ({s['init'].n_nodes} nodes): {INV_STEPS} steps, "
           f"losses {[f'{v:.6g}' for v in out['losses']]} | {smi} | warm "
           f"{step_s:.4f} s a step; a one-step run under torch.profiler: "
-          f"device busy {busy_ms} ms, by kernel {top}; K7, G's backward and "
-          f"zero-fills {mine}; with the kernels they replaced: device busy "
-          f"{busy_ref} ms, {replaced} | depth RMSE "
+          f"device busy {busy_ms} ms, by kernel {top}; K7, G's backward, "
+          f"K8, K2/K5 and zero-fills {mine_ms}; with the kernels they "
+          f"replaced (K2 and K5's raw gradient in two launches): device busy"
+          f" {busy_ref} ms, {replaced} | depth RMSE "
           f"{rmse0:.6f} -> {rmse1:.6f}, "
           f"hit overlap {hit0:.6f} -> {hit1:.6f} | launches {launches} | "
           f"{INV_SMALL}^2: losses with the kernels "
@@ -1889,22 +2165,29 @@ def phase_degrees(dev, seed=7):
     K1 stages those above 32 coefficients), at N_SYNTH points straddling
     the root; and K3 on N_SYNTH rays through each tree (its LOD phase from
     degree 4, its wide rows from degree 6), against the plain march and,
-    bit for bit, against the kernel it replaced. Returns (max K2 error, min
-    K5 dot, max K1 value error, max K1 gradient error, max K3 t error on
-    common hits, max K7 error)."""
+    bit for bit, against the kernel it replaced; K8's query form at the
+    points and its trace form on K3's rays against autograd of the plain
+    versions (the trace on its well-posed rays, trace_well_posed) and
+    the kernel it replaced, and the fused mode against modes 0 and 2 bit
+    for bit. Returns (max K2 error, min K5 dot, max K1 value
+    error, max K1 gradient error, max K3 t error on common hits, max K7
+    error, max K8 error)."""
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch import tree as TT
-    from hpsdf_tpu_torch.accel import (F32_MAX, NORMALS, VALUES,
+    from hpsdf_tpu_torch.accel import (F32_MAX, NORMALS, RAW_GRAD, VALUES,
+                                       VALUES_AND_GRAD,
                                        normals_plain, packed_eval_kernel,
                                        packed_grad_kernel,
                                        point_gradient_vjp_plain,
                                        query_packed_plain, values_at_plain,
                                        values_at_vjp_plain)
-    from hpsdf_tpu_torch.query import (OUTSIDE_VALUE, query_kernel,
-                                       query_plain,
+    from hpsdf_tpu_torch.query import (OUTSIDE_VALUE, coeff_scatter_kernel,
+                                       query_kernel, query_plain,
+                                       query_vjp_plain,
                                        query_with_gradient_plain)
     from hpsdf_tpu_torch.render import (HIT_EPS, MAX_STEPS, _march_block,
-                                        camera_rays)
+                                        _tree_f32, camera_rays,
+                                        trace_vjp_plain)
 
     side = int(N_SYNTH ** 0.5)
     mid = tuple(0.5 * (a + b) for a, b in zip(*SYNTH_ROOT))
@@ -1917,7 +2200,8 @@ def phase_degrees(dev, seed=7):
     pad = 0.1 * (hi - lo)
     rng = np.random.default_rng(seed)
     rng7 = np.random.default_rng(seed + 100)         # K7's cotangents
-    k2_err = k1_err = k1g_err = k7_err = 0.0
+    k2_err = k1_err = k1g_err = k7_err = k8_err = 0.0
+    k8_well = 1.0
     k5_dot = 1.0
     for deg in range(13):
         tree = TT.pack(*synthetic_tree(deg, seed + deg), cfg, device=dev)
@@ -1992,6 +2276,44 @@ def phase_degrees(dev, seed=7):
               f"within {T_ATOL} on {near}, max {e:.3e}, kk {kk_k.tolist()} "
               f"plain {kk_p.tolist()}")
         k3_err, k3_hits = max(k3_err, e), k3_hits + int(both.sum())
+        # K8, both forms (the trace form on K3's rays), against autograd of
+        # the plain versions and the kernel it replaced; the fused mode
+        # against modes 0 and 2
+        w64 = torch.as_tensor(rng7.standard_normal(N_SYNTH), device=dev)
+        kw = dict(pts=p64, outside_value_max=True)
+        got = coeff_scatter_kernel(tree, w64, **kw)
+        e = max(rel_err(got, query_vjp_plain(tree, p64, w64)),
+                rel_err(got, coeff_scatter_reference(tree, w64, **kw)))
+        check(e <= GRAD_RTOL64, f"K8 (f64 query) vs autograd of the plain "
+              f"version and the kernel it replaced at degree {deg}: {e:.3e}")
+        # the trace form against the kernel it replaced on every ray, and
+        # against the plain version on the well-posed rays
+        # (trace_well_posed; the others take dt = 0 there): on the rest two
+        # faithful f32 computations part, and the plain version differs
+        # from both kernels alike
+        tree32 = _tree_f32(tree)
+        rays = (o, d, t_k, h_k)
+        dt = torch.as_tensor(rng7.standard_normal(o.shape[0]).astype(
+            np.float32), device=dev)
+        well = trace_well_posed(tree, *rays[:3])
+        dt_w = torch.where(well, dt, 0.0)
+        check(bool((well & h_k).any()), f"well-posed hits at degree "
+              f"{deg}")
+        e32 = max(rel_err(coeff_scatter_kernel(tree32, dt, rays=rays),
+                          coeff_scatter_reference(tree32, dt, rays=rays)),
+                  rel_err(coeff_scatter_kernel(tree32, dt_w, rays=rays),
+                          trace_vjp_plain(tree32, *rays, dt_w)))
+        check(e32 <= GRAD_RTOL32, f"K8 (f32 trace) vs the kernel it replaced"
+              f" and autograd of the plain version at degree {deg}: "
+              f"{e32:.3e}")
+        k8_err = max(k8_err, e, e32)
+        k8_well = min(k8_well, float((well & h_k).sum() / h_k.sum()))
+        v_f, g_f = packed_eval_kernel(pt, p32, VALUES_AND_GRAD,
+                                      n_grad=N_SYNTH // 2)
+        check(torch.equal(v_f, packed_eval_kernel(pt, p32, VALUES))
+              and torch.equal(g_f, packed_eval_kernel(
+                  pt, p32[:N_SYNTH // 2], RAW_GRAD)),
+              f"the fused mode vs modes 0 and 2 at degree {deg}")
     check(k3_hits > 0, "K3 hits on the synthetic trees")
     print(f"[degrees] 0..12, {N_SYNTH} pts each on a depth-2 tree (rows "
           f"{T.pack_tree(tree).width} lanes at 12): K2 max|v - plain|/"
@@ -2000,8 +2322,13 @@ def phase_degrees(dev, seed=7):
           f"both forms max|kernel - plain| / max|plain| {k7_err:.3e}; K3 "
           f"on {side}^2 rays through each: max|t - plain| on {k3_hits} "
           f"common hits {k3_err:.3e}, t, hit and kk equal the kernel it "
-          f"replaced bit for bit", flush=True)
-    return k2_err, k5_dot, k1_err, k1g_err, k3_err, k7_err
+          f"replaced bit for bit; K8 both forms (the trace on K3's rays) "
+          f"max|kernel - plain or replaced| / max|plain or replaced| "
+          f"{k8_err:.3e} (the trace against plain on its well-posed hits, "
+          f"at least {k8_well:.3f} of them); the fused mode bit-equal to "
+          f"modes 0 and 2",
+          flush=True)
+    return k2_err, k5_dot, k1_err, k1g_err, k3_err, k7_err, k8_err
 
 
 PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
@@ -2019,7 +2346,7 @@ def _ptxas_key(kernel, args):
     if kernel == "query_kernel":
         return f"{args[0]}/{'grad' if args[1] else 'values'}"
     if kernel == "packed_eval_kernel":
-        return f"{args[0]}/{('values', 'normals', 'raw')[args[1]]}"
+        return f"{args[0]}/{('values', 'normals', 'raw', 'fused')[args[1]]}"
     if kernel == "packed_grad_kernel":
         return f"{args[0]}/form{args[1]}"
     return str(args[0])                   # march_kernel, cone_kernel: degree
@@ -2028,8 +2355,9 @@ def _ptxas_key(kernel, args):
 def ptxas_check():
     """Registers, stack and spills of every kernel's instantiations, as
     ptxas reported them when the library was built. K1, K3, K4, K5's raw
-    gradient, K7 and K8 at degrees 3 and 5 (the main paths') and both
-    forms of G's backward must have no stack frame and no spills. Returns
+    gradient (alone and fused with K2), K7 and K8 at degrees 3 and 5 (the
+    main paths') and both forms of G's backward must have no stack frame and
+    no spills. Returns
     {kernel: {key: [registers, stack, spill stores, spill loads]}}."""
     from hpsdf_tpu_torch import _kernels
 
@@ -2054,7 +2382,8 @@ def ptxas_check():
                                     "5/grad")),
             ("K3", "march_kernel", ("3", "5")),
             ("K4", "cone_kernel", ("3", "5")),
-            ("K5 raw", "packed_eval_kernel", ("3/raw", "5/raw")),
+            ("K5 raw", "packed_eval_kernel", ("3/raw", "5/raw", "3/fused",
+                                               "5/fused")),
             ("K7", "packed_grad_kernel", ("3/form0", "3/form1", "5/form0",
                                           "5/form1")),
             ("K8", "coeff_scatter_kernel", ("3/f64 query", "3/f32 trace",
@@ -2103,7 +2432,7 @@ def main():
             job.result()
     print(f"[build] {len(_kernels.sources())} sources -> "
           f"{os.path.relpath(_kernels.library_path())}, and the reference "
-          f"kernels of the K3, K7 and G's backward checks -> "
+          f"kernels of the K3, K7, G's backward and K8 checks -> "
           f"{os.path.relpath(_kernels.library_path('check'))}, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 3)
@@ -2189,7 +2518,7 @@ def main():
                                    carve_pts, pt_c, ph)
 
     # --- 10. K2/K5 and K1 at every degree ----------------------------------
-    k2d_err, k5d_dot, k1d_err, k1gd_err, k3d_err, k7d_err = phase(
+    k2d_err, k5d_dot, k1d_err, k1gd_err, k3d_err, k7d_err, k8d_err = phase(
         "degrees", phase_degrees, dev)
 
     # --- 11. the backward kernels, then inverse rendering ------------------
@@ -2242,10 +2571,12 @@ def main():
          "replaces": "hpsdf_tpu/accel.py:329",
          "launches": total["packed_eval"],
          "values_launches": total["packed_eval"]
-         - total["packed_eval_normals"] - total["packed_eval_raw"],
+         - total["packed_eval_normals"] - total["packed_eval_raw"]
+         - total["packed_eval_fused"],
          "normals_launches": total["packed_eval_normals"],
          "raw_gradient_launches": total["packed_eval_raw"],
-         "raw_gradient": tgrad["raw"],
+         "fused_launches": total["packed_eval_fused"],
+         "raw_gradient": tgrad["raw"], "fused": tgrad["fused"],
          "max_abs_err": max(k2_err, k2r_err, k2m_err, k2d_err),
          "ms": tk2["k2"], "plain_ms": tk2["k2_plain"],
          "bound_ms": tk2["k2_bound"], "bound_by": "bytes", "library_ms": None,
@@ -2302,9 +2633,12 @@ def main():
            "replaces": replaces, "launches": total[name],
            "max_abs_err": max(t["max_abs_err"] for t in tgrad[name].values()),
            **{k: tgrad[name][main][k] for k in ("ms", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms")},
+                                                "bound_by", "library_ms",
+                                                "replaced_kernel_ms")},
            "main_shape": main, "shapes": tgrad[name],
            **({"degrees_rel_err": k7d_err} if name == "packed_grad" else {}),
+           **({"degrees_rel_err": k8d_err, "step": tgrad["k8_step"]}
+              if name == "coeff_scatter" else {}),
            **({} if name not in tgrad["fixed_cost"] else dict(zip(
                ("fixed_cost_ms", "replaced_fixed_cost_ms"),
                tgrad["fixed_cost"][name]))),

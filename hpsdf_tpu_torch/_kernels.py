@@ -48,7 +48,7 @@ _SIGNATURES = {
     "hpsdf_row_gather": (_P, _I64, _I64, _I64, _P, _I64, _P, _P),
     "hpsdf_packed_eval": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
                           _F32, _F32, _F32, _F32, _F32, _F32,
-                          _F32, _F32, _F32, _I32, _I32, _P, _P),
+                          _F32, _F32, _F32, _I32, _I32, _P, _P, _I64, _P),
     "hpsdf_march": (_P, _P, _I32, _I32, _P, _P, _I32, _I32, _I32, _P, _I64,
                     _P, _I64, _P, _F32, _F32, _I32, _F32, _I32, _F32, _I32,
                     _P, _P, _P, _P, _P, _I32, _P),
@@ -77,6 +77,7 @@ _CHECK_SIGNATURES = {
                                     _F32, _F32, _F32, _F32, _F32, _F32,
                                     _P, _I32, _P, _P, _P),
     "hpsdf_row_scatter_reference": (_P, _I64, _P, _I64, _I64, _P, _P),
+    "hpsdf_coeff_scatter_reference": _SIGNATURES["hpsdf_coeff_scatter"],
 }
 
 _lock = threading.Lock()

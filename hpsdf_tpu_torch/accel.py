@@ -636,30 +636,40 @@ def _check_packed(pt: PackedTree, pts: torch.Tensor) -> None:
 
 
 # what a K2/K5 launch computes (packed_eval_kernel's ``mode``)
-VALUES, NORMALS, RAW_GRAD = 0, 1, 2
+VALUES, NORMALS, RAW_GRAD, VALUES_AND_GRAD = 0, 1, 2, 3
 
 
 def packed_eval_kernel(pt: PackedTree, pts: torch.Tensor, mode: int,
-                       outside_max: bool = False) -> torch.Tensor:
+                       outside_max: bool = False, n_grad: int = 0):
     """Launch K2 or K5 on CUDA tensors. ``mode`` VALUES: f32 values (B,)
     at world points, clamped into the root, or the f32-max sentinel outside
     it with ``outside_max``; NORMALS: unit normals (B, 3); RAW_GRAD: the raw
-    world-space gradient (B, 3) of the values, as ``point_gradient_plain``.
-    Raises on anything else.
+    world-space gradient (B, 3) of the values, as ``point_gradient_plain``;
+    VALUES_AND_GRAD, the fused mode: (values (B,), the raw gradients of the
+    first ``n_grad`` points (n_grad, 3)), bit-equal to those of VALUES and
+    RAW_GRAD, in one launch. Raises on anything else.
     ``launches`` counts every launch, ``grad_launches`` those of K5's
-    normals and ``raw_launches`` those of its raw-gradient form."""
+    normals, ``raw_launches`` those of its raw-gradient form and
+    ``fused_launches`` those of the fused mode."""
     _check_packed(pt, pts)
     if pts.device.type != "cuda":
         raise ValueError(f"packed_eval_kernel needs CUDA tensors, got "
                          f"{pts.device}")
-    if type(mode) is not int or mode not in (VALUES, NORMALS, RAW_GRAD):
+    if type(mode) is not int or mode not in (VALUES, NORMALS, RAW_GRAD,
+                                             VALUES_AND_GRAD):
         raise ValueError(f"packed_eval_kernel: unknown mode {mode}")
-    pts = pts.detach().contiguous()
+    fused = mode == VALUES_AND_GRAD
     B = pts.shape[0]
-    out = torch.empty((B,) if mode == VALUES else (B, 3),
+    if fused and not 0 <= n_grad <= B:
+        raise ValueError(f"packed_eval_kernel: n_grad {n_grad} outside "
+                         f"[0, {B}]")
+    pts = pts.detach().contiguous()
+    out = torch.empty((B,) if mode in (VALUES, VALUES_AND_GRAD) else (B, 3),
                       dtype=torch.float32, device=pts.device)
+    grad = torch.empty((n_grad, 3), dtype=torch.float32,
+                       device=pts.device) if fused else None
     if B == 0:
-        return out
+        return (out, grad) if fused else out
     lib = _kernels.load()
     rc = np.asarray(pt.root_centre, np.float32)
     inv = (1.0 / np.asarray(pt.root_sizes)).astype(np.float32)
@@ -669,16 +679,19 @@ def packed_eval_kernel(pt: PackedTree, pts: torch.Tensor, mode: int,
         pt.grid_depth, pt.extra_rounds, pts.data_ptr(), B,
         *map(float, rc), *map(float, inv), *map(float, sz),
         int(outside_max), mode, out.data_ptr(),
+        grad.data_ptr() if fused else None, n_grad if fused else 0,
         _kernels.stream_of(pts)), "packed_eval")
     packed_eval_kernel.launches += 1
     packed_eval_kernel.grad_launches += int(mode == NORMALS)
     packed_eval_kernel.raw_launches += int(mode == RAW_GRAD)
-    return out
+    packed_eval_kernel.fused_launches += int(fused)
+    return (out, grad) if fused else out
 
 
 packed_eval_kernel.launches = 0
 packed_eval_kernel.grad_launches = 0
 packed_eval_kernel.raw_launches = 0
+packed_eval_kernel.fused_launches = 0
 
 
 def packed_grad_kernel(pt: PackedTree, pts: torch.Tensor, cot: torch.Tensor,
@@ -760,6 +773,51 @@ class _PointGradient(torch.autograd.Function):
         (pts,) = ctx.saved_tensors
         d_rows, d_grid = packed_grad_kernel(ctx.pt, pts, u.contiguous(), 1)
         return d_rows, d_grid, None, None
+
+
+class _ValuesAndGradient(torch.autograd.Function):
+    """K2 and K5's raw gradient in one launch (the fused mode), with K7's
+    two forms as its VJP with respect to the tables."""
+
+    @staticmethod
+    def forward(ctx, rows, grid, pts, pt, n_grad):
+        ctx.save_for_backward(pts)
+        ctx.pt, ctx.n_grad = pt, n_grad
+        return packed_eval_kernel(pt, pts, VALUES_AND_GRAD, n_grad=n_grad)
+
+    @staticmethod
+    def backward(ctx, w, u):
+        (pts,) = ctx.saved_tensors
+        d_rows, d_grid = packed_grad_kernel(ctx.pt, pts, w.contiguous(), 0)
+        if ctx.n_grad:
+            g_rows, g_grid = packed_grad_kernel(ctx.pt, pts[:ctx.n_grad],
+                                                u.contiguous(), 1)
+            d_rows, d_grid = d_rows + g_rows, d_grid + g_grid
+        return d_rows, d_grid, None, None, None
+
+
+def values_and_gradient_at_plain(pt: PackedTree, pts: torch.Tensor,
+                                 n_grad: int):
+    """``values_and_gradient_at`` by the plain versions, whatever the
+    device."""
+    return values_at_plain(pt, pts), point_gradient_plain(pt, pts[:n_grad])
+
+
+def values_and_gradient_at(pt: PackedTree, pts: torch.Tensor, n_grad: int):
+    """(``values_at(pt, pts)``, ``_point_gradient(pt, pts[:n_grad])``) in
+    one read: the fused mode of K2/K5 on CUDA tensors (one launch),
+    ``values_and_gradient_at_plain`` on CPU tensors. Differentiable with
+    respect to ``pt.rows`` and ``pt.grid`` (K7's forms 0 and 1 on CUDA
+    tensors), not the points."""
+    if not 0 <= n_grad <= pts.shape[0]:
+        raise ValueError(f"values_and_gradient_at: n_grad {n_grad} outside "
+                         f"[0, {pts.shape[0]}]")
+    if pts.device.type == "cpu":
+        return values_and_gradient_at_plain(pt, pts, n_grad)
+    refuse_grad("values_and_gradient_at with respect to the points", pts)
+    if wants_grad(pt.rows, pt.grid):
+        return _ValuesAndGradient.apply(pt.rows, pt.grid, pts, pt, n_grad)
+    return packed_eval_kernel(pt, pts, VALUES_AND_GRAD, n_grad=n_grad)
 
 
 def values_at(pt: PackedTree, pts: torch.Tensor) -> torch.Tensor:

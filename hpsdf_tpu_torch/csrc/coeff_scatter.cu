@@ -1,16 +1,16 @@
-// K8: gradients to the coefficients of the generic tree, one thread per point,
-// in f64 (the VJP of K1's query) or f32 (the trace's implicit VJP).
+// K8: gradients to the coefficients of the generic tree, in f64 (the VJP of
+// K1's query) or f32 (the trace's implicit VJP).
 //
 // Replaces what autodiff gave the reference for the coefficients: the VJP of
 // hpsdf_tpu/query.py query (:70-88; parallel.loss_fn, parallel.py:179-188)
 // and the backward of the differentiable trace (render.py _trace_bwd,
 // :964-998, through _values_at :120-130). The plain torch versions are
 // query_vjp_plain in hpsdf_tpu_torch/query.py (autograd of query_plain) and
-// trace_vjp_plain in hpsdf_tpu_torch/render.py. Per point the thread runs K1's
-// arithmetic (world -> unit cube, the clamp, depth_used rounds of the descent,
-// the local frame, the Legendre recurrences with the norms sqrt((2p+1) 2^d)
-// folded into the axes) and then adds w * norm_m * L_i(x) L_j(y) L_k(z) into
-// d_coeffs[leaf, m] for every basis term m. Its weight w:
+// trace_vjp_plain in hpsdf_tpu_torch/render.py. Per point the kernel runs
+// K1's arithmetic (world -> unit cube, the clamp, depth_used rounds of the
+// descent, the local frame, the Legendre recurrences with the norms
+// sqrt((2p+1) 2^d) folded into the axes) and then adds w * norm_m * L_i(x)
+// L_j(y) L_k(z) into d_coeffs[leaf, m] for every basis term m. Its weight w:
 //   * query form: the cotangent of the point's value; zero outside the root
 //     when the query returns the f64-max sentinel there (a constant);
 //   * trace form (f32, fused): for a ray that hit at t, with cotangent dt,
@@ -19,11 +19,40 @@
 //     elsewhere (a negative small dfdt too, as the reference), and
 //     w = -dt / safe; nothing for a ray that missed.
 //
-// Bound. One descent and one coefficient row read a point (C more for the
-// trace's dfdt), the recurrences, and C atomic adds. The points of a traced
-// image or an inverse-rendering chunk land in few leaves, so the lanes of a
-// warp that share a leaf sum their terms in registers first (scatter.cuh) and
-// one lane a group adds.
+// Design. An inverse chunk's rays are mostly dead: a ray that missed, or
+// whose cotangent is zero (dt is zero wherever the target missed), adds
+// nothing, and at the reference's camera about half of a step's chunks hit
+// nothing at all. The live rays crowd into the hundred-odd leaves near the
+// surface, so neighbouring warps add into the same rows. So a block of 256
+// rays (points)
+//   (a) first decides from the cheap inputs which of them carry a weight
+//       (trace: hit and dt != 0; query: cot != 0 and, under the sentinel,
+//       inside the root); a block without one stops there. It queues the
+//       live indices in shared memory in ray order, and its first
+//       ceil(live / 32) warps take them, 32 to a warp; the others stop;
+//   (b) the live lanes of a warp that share a leaf sum their terms in
+//       registers (scatter.cuh, over those lanes only), and each group's
+//       leader adds the sums into the block's table of leaves in shared
+//       memory (kSlots rows of C, claimed by atomicCAS on the leaf index,
+//       kProbes slots tried from its hash). When the block ends, each
+//       claimed row goes to global memory once: float4 atomics where C % 4
+//       == 0 in f32 (20 at degree 3, 56 at 5), scalar atomics elsewhere. A
+//       leader whose leaf finds no slot adds to global memory itself;
+//   (c) the trace form reads the leaf's coefficient row in 16-byte loads
+//       where C % 4 == 0 (rows 16-byte aligned), a scalar load a term
+//       elsewhere.
+// Skipping a zero weight is exact: the kernel it replaced added +-0 there.
+// The (N, C) output is cleared by the caller (a memset) before the launch.
+// The FORM bits switch (a), (b) and (c) apart, and (b)'s flush to the bulk
+// shared -> global reduce-add, for k8_forms.py, which times the forms that
+// did not ship (csrc/dev/k8_forms.cu); the library launches kTraceForm and
+// kQueryForm.
+//
+// Bound. Per live point one descent (depth_used dependent loads), one
+// coefficient row (trace), the recurrences and C adds; the rows the adds
+// reach are written once. A chunk's live rays are a few thousand, so a
+// launch is short: one descent's latency, the table's two barriers and the
+// flush.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -34,7 +63,35 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;       // rays (points) a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kTableBytes = 16384;  // the block's table of leaves
+constexpr int kProbes = 8;          // slots a leader tries
+constexpr int kMaxQuads = 16;       // coefficient float4s held in registers
+
+// what a form does (the FORM bits)
+constexpr int kCompact = 1;         // (a): queue the live lanes, 32 a warp
+constexpr int kTable = 2;           // (b): add into the block's table first
+constexpr int kVecLoads = 4;        // (c): the row in float4s (f32 trace)
+constexpr int kBulkFlush = 8;       // the table to global by
+                                    // cp.reduce.async.bulk (f32, C % 4 == 0)
+constexpr int kStage = 16;          // every lane loads its ray with hit and
+                                    // dt; the live ones pass it on in shared
+                                    // memory (trace form, with kCompact)
+// the kernel's phases apart, for timing only (the result is wrong)
+constexpr int kLiveOnly = 32;       // stop once the live rays are queued
+constexpr int kPlainStores = 64;    // leaders store their sums, no atomics
+constexpr int kNoScatter = 128;     // stop once each ray has its weight
+constexpr int kTranspose = 256;     // the warp's rays staged in shared
+                                    // memory; lane j sums term j over them
+constexpr int kTraceForm = kCompact | kTable | kVecLoads;
+constexpr int kQueryForm = kCompact | kTable;
+
+template <class T>
+__host__ __device__ constexpr int table_slots(int C) {
+  const int s = kTableBytes / (C * (int)sizeof(T));
+  return s < 4 ? 4 : (s > 64 ? 64 : s);
+}
 
 struct TraceIn {
   const float* origins;   // (B, 3)
@@ -43,105 +100,377 @@ struct TraceIn {
   const uint8_t* hit;     // (B,)
 };
 
-template <class T, int DEG, bool TRACE>
-__global__ void __launch_bounds__(kThreads)
-coeff_scatter_kernel(const int32_t* __restrict__ child_idx,
-                     const T* __restrict__ centre,
-                     const int32_t* __restrict__ depth,
-                     const T* __restrict__ coeffs, int depth_used,
-                     const T* __restrict__ pts, TraceIn tr, int64_t B,
-                     T rc0, T rc1, T rc2, T inv0, T inv1, T inv2,
-                     const T* __restrict__ cot, int outside_zero,
-                     T* __restrict__ d_coeffs) {
-  constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t ip = i < B ? i : B - 1;     // spare lanes repeat the last point
-  bool valid = i < B;
-  const T rc[3] = {rc0, rc1, rc2};
-  const T inv[3] = {inv0, inv1, inv2};
-  T p[3], u[3];
-  bool in_axis[3];
-  if constexpr (TRACE) {
-    valid = valid && tr.hit[ip] != 0;
-    const float t = tr.t[ip];
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-      p[a] = tr.origins[3 * ip + a] + t * tr.dirs[3 * ip + a];
-  } else {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) p[a] = pts[3 * ip + a];
-  }
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const T w = (p[a] - rc[a]) * inv[a];
-    in_axis[a] = fabs(w) <= T(0.5);
-    u[a] = w < T(-0.5) ? T(-0.5) : (w > T(0.5) ? T(0.5) : w);
-  }
-  if (!TRACE && outside_zero)
-    valid = valid && in_axis[0] && in_axis[1] && in_axis[2];
+template <class T>
+struct Args {
+  const int32_t* child_idx;
+  const T* centre;
+  const int32_t* depth;
+  const T* coeffs;
+  int depth_used;
+  const T* pts;           // query form
+  TraceIn tr;             // trace form
+  int64_t B;
+  T rc[3], inv[3];
+  const T* cot;
+  int outside_zero;
+  T* d_coeffs;
+};
 
-  int cur = 0;
-  for (int r = 0; r < depth_used; ++r) {
-    const int c0 = __ldg(child_idx + cur);
-    if (c0 < 0) break;
-    const T* cc = centre + 3 * (int64_t)cur;
-    cur = c0 + (u[0] >= __ldg(cc)) + ((u[1] >= __ldg(cc + 1)) << 1) +
-          ((u[2] >= __ldg(cc + 2)) << 2);
+// The slot of `leaf` in the block's table: the one that holds it, or an
+// empty one that it claims; -1 when the slots tried hold other leaves.
+template <int SLOTS>
+__device__ __forceinline__ int claim_slot(int* keys, int leaf) {
+  int s = leaf % SLOTS;
+#pragma unroll 1
+  for (int p = 0; p < kProbes && p < SLOTS; ++p) {
+    int k = *reinterpret_cast<volatile int*>(keys + s);
+    if (k < 0) {
+      k = atomicCAS(keys + s, -1, leaf);
+      if (k < 0) return s;
+    }
+    if (k == leaf) return s;
+    s = s + 1 == SLOTS ? 0 : s + 1;
   }
-  const int d = __ldg(depth + cur);
-  const T scale = (T)ldexp(1.0, d + 1);
-  const T* cc = centre + 3 * (int64_t)cur;
-  // N[a][p] = L_p(x_a) nt[p], nt[p] = sqrt((2p+1) 2^d); dN likewise
-  T N[3][DEG + 1], dN[3][DEG + 1];
+  return -1;
+}
+
+// The indices (i, j, k) of basis term m < C of degree DEG, in
+// for_each_term's order (by total degree p, then i, then j).
+template <int DEG>
+__device__ __forceinline__ void term_indices(int m, int& i, int& j, int& k) {
+  int p = 0;
+#pragma unroll 1
+  while (p < DEG && m >= (p + 1) * (p + 2) / 2) {
+    m -= (p + 1) * (p + 2) / 2;
+    ++p;
+  }
+  i = 0;
+#pragma unroll 1
+  while (i < p && m >= p - i + 1) {
+    m -= p - i + 1;
+    ++i;
+  }
+  j = m;
+  k = p - i - j;
+}
+
+template <class T, int DEG, bool TRACE, int FORM>
+__global__ void __launch_bounds__(kThreads)
+coeff_scatter_kernel(const Args<T> a) {
+  constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
+  constexpr bool kCompacts = (FORM & kCompact) != 0;
+  constexpr bool kTabled = (FORM & kTable) != 0;
+  constexpr int kSlots = kTabled ? table_slots<T>(kC) : 1;
+  constexpr bool kQuadRows = sizeof(T) == 4 && kC % 4 == 0;
+  static_assert(!(FORM & kBulkFlush) || (kTabled && kQuadRows),
+                "the bulk flush moves f32 rows of whole float4s");
+  __shared__ int live_in_warp[kWarps];
+  __shared__ int queue[kThreads];
+  __shared__ int keys[kSlots];
+  __shared__ __align__(16) T table[kTabled ? kSlots * kC : 1];
+  constexpr bool kStages = TRACE && (FORM & kStage) && kCompacts;
+  __shared__ float staged[kStages ? 7 * kThreads : 1];   // o, d, t
+  constexpr bool kTransposes = (FORM & kTranspose) != 0;
+  constexpr int kNS = 3 * (DEG + 1);
+  __shared__ T tN[kTransposes ? kThreads * kNS : 1];     // a ray's N
+  __shared__ T tW[kTransposes ? kThreads : 1];           // its weight
+  __shared__ int tLeaf[kTransposes ? kThreads : 1];      // its leaf, or -1
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t base = (int64_t)blockIdx.x * kThreads;
+
+  // (a) which rays carry a weight, from the cheap inputs
+  bool live = false;
+  float ray[7];
+  if (base + tid < a.B) {
+    const int64_t i = base + tid;
+    if constexpr (kStages) {
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    T L[DEG + 1], dL[DEG + 1];
-    hpsdf::legendre<DEG>((u[a] - __ldg(cc + a)) * scale, L);
-    if constexpr (TRACE) hpsdf::legendre_deriv<DEG>(L, dL);
+      for (int k = 0; k < 3; ++k) {
+        ray[k] = __ldg(a.tr.origins + 3 * i + k);
+        ray[3 + k] = __ldg(a.tr.dirs + 3 * i + k);
+      }
+      ray[6] = __ldg(a.tr.t + i);
+    }
+    if constexpr (TRACE) {
+      live = __ldg(a.tr.hit + i) != 0 && __ldg(a.cot + i) != T(0);
+    } else {
+      live = __ldg(a.cot + i) != T(0);
+      if (a.outside_zero) {
 #pragma unroll
-    for (int q = 0; q <= DEG; ++q) {
-      const T nt = (T)sqrt((2.0 * q + 1.0) * ldexp(1.0, d));
-      N[a][q] = L[q] * nt;
-      if constexpr (TRACE) dN[a][q] = dL[q] * nt;
+        for (int k = 0; k < 3; ++k)
+          live = live &&
+                 fabs((__ldg(a.pts + 3 * i + k) - a.rc[k]) * a.inv[k]) <=
+                     T(0.5);
+      }
+    }
+  }
+  const unsigned live_lanes = __ballot_sync(hpsdf::kFullWarp, live);
+  int me = live ? tid : -1;         // the ray this lane computes, or -1
+  unsigned lanes = live_lanes;      // the lanes of the warp that compute one
+  int n_live = 0;
+  if constexpr (kCompacts) {
+    if (lane == 0) live_in_warp[warp] = __popc(live_lanes);
+    __syncthreads();
+    int before = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = live_in_warp[w];
+      before += w < warp ? c : 0;
+      n_live += c;
+    }
+    if (n_live == 0) return;        // the whole block: nothing to add
+    const int slot = before + __popc(live_lanes & ((1u << lane) - 1u));
+    if (live) queue[slot] = tid;
+    if constexpr (kStages) {
+      if (live) {
+#pragma unroll
+        for (int k = 0; k < 7; ++k) staged[7 * slot + k] = ray[k];
+      }
+    }
+    lanes = __ballot_sync(hpsdf::kFullWarp, tid < n_live);
+  } else if constexpr (kTabled) {
+    if (!__syncthreads_or(live)) return;
+  } else {
+    if (live_lanes == 0u) return;
+  }
+  if constexpr (kTabled) {
+    for (int k = tid; k < kSlots; k += kThreads) keys[k] = -1;
+    for (int k = tid; k < kSlots * kC; k += kThreads) table[k] = T(0);
+  }
+  if constexpr (kCompacts || kTabled) __syncthreads();
+  if constexpr (kCompacts) me = tid < n_live ? queue[tid] : -1;
+  if constexpr ((FORM & kLiveOnly) != 0) return;
+
+  if (me >= 0) {
+    const int64_t ip = base + me;
+    T p[3], u[3];
+    bool in_axis[3];
+    float dir[3];
+    if constexpr (kStages) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        dir[k] = staged[7 * tid + 3 + k];
+        p[k] = staged[7 * tid + k] + staged[7 * tid + 6] * dir[k];
+      }
+    } else if constexpr (TRACE) {
+      const float t = __ldg(a.tr.t + ip);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        dir[k] = __ldg(a.tr.dirs + 3 * ip + k);
+        p[k] = __ldg(a.tr.origins + 3 * ip + k) + t * dir[k];
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) p[k] = __ldg(a.pts + 3 * ip + k);
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const T w = (p[k] - a.rc[k]) * a.inv[k];
+      in_axis[k] = fabs(w) <= T(0.5);
+      u[k] = w < T(-0.5) ? T(-0.5) : (w > T(0.5) ? T(0.5) : w);
+    }
+
+    int cur = 0;
+    for (int r = 0; r < a.depth_used; ++r) {
+      const int c0 = __ldg(a.child_idx + cur);
+      if (c0 < 0) break;
+      const T* cc = a.centre + 3 * (int64_t)cur;
+      cur = c0 + (u[0] >= __ldg(cc)) + ((u[1] >= __ldg(cc + 1)) << 1) +
+            ((u[2] >= __ldg(cc + 2)) << 2);
+    }
+    const int d = __ldg(a.depth + cur);
+    const T scale = (T)ldexp(1.0, d + 1);
+    const T* cc = a.centre + 3 * (int64_t)cur;
+    // N[k][q] = L_q(x_k) nt[q], nt[q] = sqrt((2q+1) 2^d); dN likewise
+    T N[3][DEG + 1], dN[3][DEG + 1];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      T L[DEG + 1], dL[DEG + 1];
+      hpsdf::legendre<DEG>((u[k] - __ldg(cc + k)) * scale, L);
+      if constexpr (TRACE) hpsdf::legendre_deriv<DEG>(L, dL);
+#pragma unroll
+      for (int q = 0; q <= DEG; ++q) {
+        const T nt = (T)sqrt((2.0 * q + 1.0) * ldexp(1.0, d));
+        N[k][q] = L[q] * nt;
+        if constexpr (TRACE) dN[k][q] = dL[q] * nt;
+      }
+    }
+
+    T w;
+    if constexpr (TRACE) {
+      const T* c = a.coeffs + (int64_t)cur * kC;
+      T g[3] = {T(0), T(0), T(0)};
+      auto add_grad = [&](auto coef_of) {
+        hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
+          const T cm = coef_of(m);
+          g[0] += cm * (dN[0][ix] * N[1][iy] * N[2][iz]);
+          g[1] += cm * (N[0][ix] * dN[1][iy] * N[2][iz]);
+          g[2] += cm * (N[0][ix] * N[1][iy] * dN[2][iz]);
+        });
+      };
+      if constexpr ((FORM & kVecLoads) && kQuadRows &&
+                    kC / 4 <= kMaxQuads && DEG <= hpsdf::kUnrolledDeg) {
+        T cv[kC];
+#pragma unroll
+        for (int q = 0; q < kC / 4; ++q) {
+          const float4 f = __ldg(reinterpret_cast<const float4*>(c) + q);
+          cv[4 * q] = f.x, cv[4 * q + 1] = f.y, cv[4 * q + 2] = f.z,
+          cv[4 * q + 3] = f.w;
+        }
+        add_grad([&](int m) { return cv[m]; });
+      } else {
+        add_grad([&](int m) { return __ldg(c + m); });
+      }
+      T dfdt = T(0);
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        if (in_axis[k])
+          dfdt += g[k] * scale * a.inv[k] * dir[k];
+      const T safe = fabs(dfdt) > T(1e-6) ? dfdt : T(1e-6);
+      w = -__ldg(a.cot + ip) / safe;
+    } else {
+      w = __ldg(a.cot + ip);
+    }
+    if constexpr ((FORM & kNoScatter) != 0) {
+      a.d_coeffs[(int64_t)cur * kC] = w * N[0][DEG] * N[1][DEG] * N[2][DEG];
+      return;
+    }
+    if constexpr (kTransposes) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int q = 0; q <= DEG; ++q) tN[tid * kNS + k * (DEG + 1) + q] =
+            N[k][q];
+      tW[tid] = w;
+      tLeaf[tid] = cur;
+    } else {
+
+    // (b) the leaf's peers summed, then into the block's table or global
+    const hpsdf::PeerSum peers((unsigned long long)cur, lanes);
+    int slot = -1;
+    if constexpr (kTabled)
+      if (peers.leader) slot = claim_slot<kSlots>(keys, cur);
+    T* gdst = a.d_coeffs + (int64_t)cur * kC;
+    T* sdst = table + (slot < 0 ? 0 : slot) * kC;
+    hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
+      T x = w * (N[0][ix] * N[1][iy] * N[2][iz]);
+      x = peers.sum(x);
+      if (peers.leader) {
+        if constexpr ((FORM & kPlainStores) != 0)
+          gdst[m] = x;
+        else if (kTabled && slot >= 0)
+          atomicAdd(sdst + m, x);
+        else
+          atomicAdd(gdst + m, x);
+      }
+    });
+    }
+  }
+  if constexpr (kTransposes) {
+    // lane j sums term j (then j + 32, ...) over the warp's rays, a run of
+    // rays on one leaf at a time, and adds each run's sum: a run's adds
+    // are one coalesced row
+    if (lanes != 0u) {
+      if (me < 0) tLeaf[tid] = -1;
+      __syncwarp();
+      const int n = 32 - __clz(lanes);
+      const int w0 = warp * 32;
+#pragma unroll 1
+      for (int m = lane; m < ((kC + 31) & ~31); m += 32) {
+        int ix = 0, iy = 0, iz = 0;
+        if (m < kC) term_indices<DEG>(m, ix, iy, iz);
+        T acc = T(0);
+        int leaf = -1;
+#pragma unroll 1
+        for (int r = 0; r < n; ++r) {
+          const int lr = tLeaf[w0 + r];
+          if (lr != leaf) {
+            if (leaf >= 0 && m < kC)
+              atomicAdd(a.d_coeffs + (int64_t)leaf * kC + m, acc);
+            acc = T(0);
+            leaf = lr;
+          }
+          if (lr < 0) continue;
+          const T* row = tN + (w0 + r) * kNS;
+          acc += tW[w0 + r] *
+                 (row[ix] * row[DEG + 1 + iy] * row[2 * (DEG + 1) + iz]);
+        }
+        if (leaf >= 0 && m < kC)
+          atomicAdd(a.d_coeffs + (int64_t)leaf * kC + m, acc);
+      }
     }
   }
 
-  T w = T(0);
-  if constexpr (TRACE) {
-    const T* c = coeffs + (int64_t)cur * kC;
-    T g[3] = {T(0), T(0), T(0)};
-    hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
-      const T cm = __ldg(c + m);
-      g[0] += cm * (dN[0][ix] * N[1][iy] * N[2][iz]);
-      g[1] += cm * (N[0][ix] * dN[1][iy] * N[2][iz]);
-      g[2] += cm * (N[0][ix] * N[1][iy] * dN[2][iz]);
-    });
-    T dfdt = T(0);
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-      if (in_axis[a]) dfdt += g[a] * scale * inv[a] * tr.dirs[3 * ip + a];
-    const T safe = fabs(dfdt) > T(1e-6) ? dfdt : T(1e-6);
-    w = valid ? -cot[ip] / safe : T(0);
-  } else {
-    w = valid ? cot[ip] : T(0);
+  if constexpr (kTabled) {
+    // each claimed row to global memory once
+    if constexpr ((FORM & kBulkFlush) != 0) {
+      // the shared atomics made visible to the bulk copy's async proxy
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+      for (int s = tid; s < kSlots; s += kThreads) {
+        const int key = keys[s];
+        if (key < 0) continue;
+        const unsigned src =
+            (unsigned)__cvta_generic_to_shared(table + s * kC);
+        asm volatile(
+            "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+            "[%0], [%1], %2;" ::"l"((unsigned long long)(a.d_coeffs +
+                                                       (int64_t)key * kC)),
+            "r"(src), "r"(kC * 4)
+            : "memory");
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    } else if constexpr (kQuadRows) {
+      __syncthreads();
+      constexpr int kQ = kC / 4;
+      for (int k = tid; k < kSlots * kQ; k += kThreads) {
+        const int s = k / kQ;
+        const int key = keys[s];
+        if (key >= 0)
+          atomicAdd(reinterpret_cast<float4*>(a.d_coeffs +
+                                              (int64_t)key * kC) + (k - s * kQ),
+                    reinterpret_cast<const float4*>(table)[k]);
+      }
+    } else {
+      __syncthreads();
+      for (int k = tid; k < kSlots * kC; k += kThreads) {
+        const int s = k / kC;
+        const int key = keys[s];
+        if (key >= 0) atomicAdd(a.d_coeffs + (int64_t)key * kC + (k - s * kC),
+                                table[k]);
+      }
+    }
   }
+}
 
-  const hpsdf::PeerSum peers(valid ? (unsigned long long)cur : ~0ull);
-  const bool write = valid && peers.leader;
-  T* dst = d_coeffs + (int64_t)cur * kC;
-  hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
-    T x = w * (N[0][ix] * N[1][iy] * N[2][iz]);
-    x = peers.sum(x);
-    if (write) atomicAdd(dst + m, x);
-  });
+template <class T>
+Args<T> make_args(const int32_t* child_idx, const void* centre,
+                  const int32_t* depth, const void* coeffs, int depth_used,
+                  const void* pts, const float* origins, const float* dirs,
+                  const float* t, const uint8_t* hit, int64_t B, double rc0,
+                  double rc1, double rc2, double inv0, double inv1,
+                  double inv2, const void* cot, int outside_zero,
+                  void* d_coeffs) {
+  return Args<T>{child_idx, (const T*)centre, depth, (const T*)coeffs,
+                 depth_used, (const T*)pts, TraceIn{origins, dirs, t, hit},
+                 B, {(T)rc0, (T)rc1, (T)rc2}, {(T)inv0, (T)inv1, (T)inv2},
+                 (const T*)cot, outside_zero, (T*)d_coeffs};
+}
+
+template <class T, int DEG, bool TRACE, int FORM>
+void launch(const Args<T>& a, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((a.B + kThreads - 1) / kThreads);
+  coeff_scatter_kernel<T, DEG, TRACE, FORM><<<blocks, kThreads, 0, s>>>(a);
 }
 
 }  // namespace
 
 // dtype 8: the query form in f64 (pts, cot, the tree's centre and coeffs
 // f64); dtype 4: the trace form in f32 (origins, dirs, t, hit, cot = dt; the
-// tree's centre and coeffs f32). d_coeffs (N, C) must be zeroed by the
-// caller.
+// tree's centre and coeffs f32, coeffs 16-byte aligned). d_coeffs (N, C)
+// must be zeroed by the caller and 16-byte aligned.
 extern "C" int hpsdf_coeff_scatter(const int32_t* child_idx,
                                    const void* centre, const int32_t* depth,
                                    const void* coeffs, int deg, int depth_used,
@@ -153,22 +482,18 @@ extern "C" int hpsdf_coeff_scatter(const int32_t* child_idx,
                                    int outside_zero, int dtype,
                                    void* d_coeffs, void* stream) {
   if (B <= 0 || (dtype != 4 && dtype != 8)) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
-  const TraceIn tr{origins, dirs, t, hit};
+#define HPSDF_ARGS(T)                                                        \
+  make_args<T>(child_idx, centre, depth, coeffs, depth_used, pts, origins,   \
+               dirs, t, hit, B, rc0, rc1, rc2, inv0, inv1, inv2, cot,        \
+               outside_zero, d_coeffs)
 #define HPSDF_LAUNCH(D)                                                      \
   if (dtype == 8)                                                            \
-    coeff_scatter_kernel<double, D, false><<<blocks, kThreads, 0, s>>>(      \
-        child_idx, (const double*)centre, depth, (const double*)coeffs,      \
-        depth_used, (const double*)pts, tr, B, rc0, rc1, rc2, inv0, inv1,    \
-        inv2, (const double*)cot, outside_zero, (double*)d_coeffs);          \
+    launch<double, D, false, kQueryForm>(HPSDF_ARGS(double), s);             \
   else                                                                       \
-    coeff_scatter_kernel<float, D, true><<<blocks, kThreads, 0, s>>>(        \
-        child_idx, (const float*)centre, depth, (const float*)coeffs,        \
-        depth_used, nullptr, tr, B, (float)rc0, (float)rc1, (float)rc2,      \
-        (float)inv0, (float)inv1, (float)inv2, (const float*)cot,            \
-        outside_zero, (float*)d_coeffs)
+    launch<float, D, true, kTraceForm>(HPSDF_ARGS(float), s)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
+#undef HPSDF_ARGS
   return (int)cudaGetLastError();
 }

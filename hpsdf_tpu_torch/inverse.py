@@ -7,9 +7,9 @@ coefficients through the trace's implicit-function VJP (``render.trace_vjp``:
 kernel K8 on CUDA tensors), while field terms read the packed tables
 re-derived from the current coefficients every step (``accel.repack`` /
 ``repack_folded``, whose grid gather carries gradients back through G's
-backward) with ``accel.values_at`` (K2, backward K7) and the eikonal term
-with ``accel._point_gradient`` (K5's raw gradient, backward K7's second
-form). Adam is ``torch.optim.Adam`` with optax's defaults.
+backward) with ``accel.values_and_gradient_at``: the values (K2) and the
+eikonal term's raw gradients (K5) in one launch a chunk, backward K7's two
+forms. Adam is ``torch.optim.Adam`` with optax's defaults.
 
 Memory stays chunk-sized: a step first marches every ray chunk without a
 graph (the march's VJP needs only its ``t`` and ``hit``), which fixes the
@@ -199,16 +199,17 @@ class _Terms:
         free = o[None] + (self.fracs[:, None, None] * tt[None, :, None]) \
             * d[None]
         band_pts = torch.cat([surf, in_p, out_p])
-        # one read of every point of the chunk
-        f = accel.values_at(pk, torch.cat([band_pts, free.reshape(-1, 3)]))
+        # one read of every point of the chunk, with the band points'
+        # spatial gradients for the eikonal term
+        f, g = accel.values_and_gradient_at(
+            pk, torch.cat([band_pts, free.reshape(-1, 3)]), 3 * n)
         fsurf, f_in, f_out = f[:n], f[n:2 * n], f[2 * n:3 * n]
         f_free = f[3 * n:].reshape(len(FRACS), n)
         field = (fsurf ** 2 + torch.relu(f_in + half) ** 2
                  + torch.relu(half - f_out) ** 2)
         free_sum = torch.sum(surf_m[None] * torch.relu(half - f_free) ** 2)
-        # eikonal: the points' spatial gradients, whose eps inside the sqrt
-        # keeps a zero gradient's norm differentiable
-        g = accel._point_gradient(pk, band_pts)
+        # eikonal: the eps inside the sqrt keeps a zero gradient's norm
+        # differentiable
         gnorm = torch.sqrt(torch.sum(g * g, dim=-1) + 1e-12)
         eik = torch.sum(surf_m.repeat(3) * (gnorm - 1.0) ** 2)
         return (self.sw * (torch.sum(surf_m * field) + free_sum / len(FRACS))

@@ -158,8 +158,9 @@ def coeff_scatter_kernel(tree: Octree, cot: torch.Tensor, *, pts=None,
     ``outside_value_max`` (the sentinel is a constant). Trace form (``rays``
     = (origins, dirs, t, hit), f32 (B, 3), (B, 3), (B,), bool (B,); a tree
     with f32 ``centre`` and ``coeffs``): the trace's implicit VJP with
-    ``cot`` = dt (B,) (``render.trace_vjp_plain``). Raises on anything
-    else."""
+    ``cot`` = dt (B,) (``render.trace_vjp_plain``). A call is two
+    operations on the card: the output's memset and the launch. Raises on
+    anything else."""
     trace_form = rays is not None
     if (pts is None) != trace_form:
         raise ValueError("coeff_scatter_kernel takes pts or rays")
@@ -178,6 +179,9 @@ def coeff_scatter_kernel(tree: Octree, cot: torch.Tensor, *, pts=None,
             raise ValueError(f"tree.{name} must be contiguous {want}")
     if tree.coeffs.shape[1] != consts.coeff_count(tree.deg_used):
         raise ValueError("tree arrays do not match deg_used")
+    if trace_form and tree.coeffs.data_ptr() % 16:
+        # the trace form reads a leaf's coefficients in 16-byte loads
+        raise ValueError("tree.coeffs must be 16-byte aligned")
     if cot.shape != (B,) or cot.dtype != dt or cot.device != ref.device:
         raise ValueError(f"cot must be {dt} ({B},) on {ref.device}")
     if trace_form:

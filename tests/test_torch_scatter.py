@@ -253,10 +253,12 @@ def test_ctypes_signatures_match_the_sources():
     C sources' (ctypes passes what it is told: a wrong one corrupts the
     launch without an error)."""
     import k7_forms
+    import k8_forms
 
     c = _c_signatures()
     bound = {**_kernels._SIGNATURES, **_kernels._SIZE_SIGNATURES,
-             **_kernels._CHECK_SIGNATURES, **k7_forms.SIGNATURES}
+             **_kernels._CHECK_SIGNATURES, **k7_forms.SIGNATURES,
+             **k8_forms.SIGNATURES}
     assert set(bound) <= set(c)
     for name, args in bound.items():
         ret, params = c[name]
@@ -267,8 +269,8 @@ def test_ctypes_signatures_match_the_sources():
 
 def test_inverse_points_are_values_at_points(monkeypatch):
     """chip_smoke.inverse_points gives the 7n points that an inverse
-    chunk's terms read with values_at, in their order, and its band_points
-    the first 3n, which _point_gradient reads."""
+    chunk's terms read with values_and_gradient_at, in their order, and
+    its band_points the first 3n, whose raw gradients it reads."""
     from hpsdf_tpu_torch import inverse
 
     tree = _sphere(T.Config(target_error=1e-3, max_depth=4, max_degree=2,
@@ -279,16 +281,12 @@ def test_inverse_points_are_values_at_points(monkeypatch):
     s = {"o": o, "d": d, "t_star": t_star}
     seen = {}
 
-    def values_at(pk, pts):
+    def fused(pk, pts, n_grad):
         seen["values_at"] = pts.detach().clone()
-        return TA.values_at_plain(pk, pts)
+        seen["grad"] = pts[:n_grad].detach().clone()
+        return TA.values_and_gradient_at_plain(pk, pts, n_grad)
 
-    def point_gradient(pk, pts):
-        seen["grad"] = pts.detach().clone()
-        return TA.point_gradient_plain(pk, pts)
-
-    monkeypatch.setattr(TA, "values_at", values_at)
-    monkeypatch.setattr(TA, "_point_gradient", point_gradient)
+    monkeypatch.setattr(TA, "values_and_gradient_at", fused)
     terms = inverse._Terms(1.0, 0.1, torch.tensor(1.0), "cpu")
     terms(TA.pack_tree(tree), o, d, t_star, hit)
     rays = slice(0, o.shape[0])
@@ -300,17 +298,30 @@ def test_inverse_points_are_values_at_points(monkeypatch):
 
 
 def test_backward_reference_kernels_are_checks_only():
-    """The earlier forms of K7 and G's backward live only under csrc/check/
-    with entry points of their own; the shipped kernels group by row
-    (group.cuh) instead of summing a warp's lanes before per-point atomics
-    (scatter.cuh, which K8 keeps), and G's backward adds with no atomic."""
+    """The earlier forms of K7, G's backward and K8 live only under
+    csrc/check/ with entry points of their own, bound only for the checks;
+    the shipped K7 and G's backward group by row (group.cuh) instead of
+    summing a warp's lanes before per-point atomics (scatter.cuh, which K8
+    keeps), G's backward adds with no atomic, and the shipped K8 adds
+    through its block's table of leaves, which its earlier form has not."""
     pkg = os.path.dirname(_kernels.__file__)
     for name, entry in (("packed_grad_reference.cu",
                          "hpsdf_packed_grad_reference"),
                         ("row_scatter_reference.cu",
-                         "hpsdf_row_scatter_reference")):
+                         "hpsdf_row_scatter_reference"),
+                        ("coeff_scatter_reference.cu",
+                         "hpsdf_coeff_scatter_reference")):
         with open(os.path.join(pkg, "csrc", "check", name)) as fh:
-            assert f'extern "C" int {entry}(' in fh.read()
+            text = fh.read()
+        assert f'extern "C" int {entry}(' in text
+        assert entry in _kernels._CHECK_SIGNATURES
+        assert entry not in _kernels._SIGNATURES
+        if name == "coeff_scatter_reference.cu":
+            assert "atomicCAS" not in text and '"../scatter.cuh"' in text
+    for mod in os.listdir(pkg):
+        if mod.endswith(".py") and mod != "_kernels.py":
+            with open(os.path.join(pkg, mod)) as fh:
+                assert "load_check" not in fh.read(), mod
     texts = {}
     for name in ("packed_grad.cu", "row_gather.cu", "coeff_scatter.cu"):
         with open(os.path.join(pkg, "csrc", name)) as fh:
@@ -320,6 +331,7 @@ def test_backward_reference_kernels_are_checks_only():
         assert '"scatter.cuh"' not in texts[name]
     assert "atomicAdd" not in texts["row_gather.cu"]
     assert '"scatter.cuh"' in texts["coeff_scatter.cu"]
+    assert "atomicCAS" in texts["coeff_scatter.cu"]
 
 
 def test_rows_read_is_locate():

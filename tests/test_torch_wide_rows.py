@@ -120,14 +120,15 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None):
             f"registers, used 0 barriers, 22528 bytes smem\n")
 
 
-@pytest.mark.parametrize("spill", [None, "K1", "K3", "K7", "G CSR"],
+@pytest.mark.parametrize("spill", [None, "K1", "K3", "K7", "G CSR", "K5F"],
                          ids=["clean", "spills", "march_spills",
-                              "backward_spills", "csr_spills"])
+                              "backward_spills", "csr_spills",
+                              "fused_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
-    K5's raw gradient, K7 or K8 at degree 3 or 5, or either form of G's
-    backward, has a stack frame or spills."""
+    K5's raw gradient (alone or fused with K2), K7 or K8 at degree 3 or 5,
+    or either form of G's backward, has a stack frame or spills."""
     from hpsdf_tpu_torch import _kernels
 
     report = "".join(
@@ -143,14 +144,17 @@ def test_ptxas_check(monkeypatch, spill):
         report += _ptxas_entry("cone_kernel", d, None, regs=40)
         report += _ptxas_entry("packed_eval_kernel", d, None,
                                args=f"Li{d}ELi2E")
+        report += _ptxas_entry("packed_eval_kernel", d, None,
+                               args=f"Li{d}ELi3E",
+                               stack=16 if spill == "K5F" and d == 3 else 0)
         report += "".join(
             _ptxas_entry("packed_grad_kernel", d, None,
                          stack=24 if spill == "K7" and f else 0,
                          args=f"Li{d}ELi{f}E") for f in (0, 1))
         report += _ptxas_entry("coeff_scatter_kernel", d, None,
-                               args=f"dLi{d}ELb0E")
+                               args=f"dLi{d}ELb0ELi3E")
         report += _ptxas_entry("coeff_scatter_kernel", d, None,
-                               args=f"fLi{d}ELb1E")
+                               args=f"fLi{d}ELb1ELi7E")
     report += _ptxas_entry("row_scatter_kernel", 0, None, args="")
     report += _ptxas_entry("row_scatter_csr_kernel", 0, None, args="",
                            stack=8 if spill == "G CSR" else 0)
@@ -159,7 +163,8 @@ def test_ptxas_check(monkeypatch, spill):
         with pytest.raises(RuntimeError, match={
                 "K1": "K1 5/values", "K3": "K3 5: stack 16",
                 "K7": "K7 3/form1: stack 24",
-                "G CSR": "G backward CSR -: stack 8"}[spill]):
+                "G CSR": "G backward CSR -: stack 8",
+                "K5F": "K5 raw 3/fused: stack 16"}[spill]):
             chip_smoke.ptxas_check()
         return
     found = chip_smoke.ptxas_check()
@@ -167,7 +172,8 @@ def test_ptxas_check(monkeypatch, spill):
     assert set(found["query_kernel"]) == {f"{d}/{k}" for d in (3, 5, 12)
                                           for k in ("values", "grad")}
     assert found["packed_eval_kernel"]["3/values"] == [32, 0, 0, 0]
-    assert set(found["packed_eval_kernel"]) == {"3/values", "3/raw", "5/raw"}
+    assert set(found["packed_eval_kernel"]) == {
+        "3/values", "3/raw", "5/raw", "3/fused", "5/fused"}
     assert set(found["coeff_scatter_kernel"]) == {
         f"{d}/{k}" for d in (3, 5) for k in ("f64 query", "f32 trace")}
     assert set(found["row_scatter_kernel"]) == {"-"}
