@@ -22,37 +22,36 @@
 // Design. An inverse chunk's rays are mostly dead: a ray that missed, or
 // whose cotangent is zero (dt is zero wherever the target missed), adds
 // nothing, and at the reference's camera about half of a step's chunks hit
-// nothing at all. The live rays crowd into the hundred-odd leaves near the
-// surface, so neighbouring warps add into the same rows. So a block of 256
-// rays (points)
-//   (a) first decides from the cheap inputs which of them carry a weight
-//       (trace: hit and dt != 0; query: cot != 0 and, under the sentinel,
-//       inside the root); a block without one stops there. It queues the
-//       live indices in shared memory in ray order, and its first
-//       ceil(live / 32) warps take them, 32 to a warp; the others stop;
-//   (b) the live lanes of a warp that share a leaf sum their terms in
-//       registers (scatter.cuh, over those lanes only), and each group's
-//       leader adds the sums into the block's table of leaves in shared
-//       memory (kSlots rows of C, claimed by atomicCAS on the leaf index,
-//       kProbes slots tried from its hash). When the block ends, each
-//       claimed row goes to global memory once: float4 atomics where C % 4
-//       == 0 in f32 (20 at degree 3, 56 at 5), scalar atomics elsewhere. A
-//       leader whose leaf finds no slot adds to global memory itself;
-//   (c) the trace form reads the leaf's coefficient row in 16-byte loads
-//       where C % 4 == 0 (rows 16-byte aligned), a scalar load a term
-//       elsewhere.
+// nothing at all. The live rays crowd into the few dozen leaves near the
+// surface, and neighbouring rays share one. So a warp of 32 rays (points)
+//   * first decides from the cheap inputs which of them carry a weight
+//     (trace: hit and dt != 0; query: cot != 0 and, under the sentinel,
+//     inside the root), and stops when none does; only the live lanes run
+//     the descent, the recurrences and (trace) the dfdt sum;
+//   * then scatters transposed: each live lane puts its leaf, its weight
+//     and its 3 (DEG+1) axis factors N in shared memory, and lane j sums
+//     term j (then j + 32, ...) over the warp's live rays in lane order,
+//     one run of rays on a leaf at a time, adding each run's sum with one
+//     atomic. A run's C adds are then one coalesced row from 32 lanes, where
+//     the kernel it replaced summed each term over a leaf's lanes by
+//     shuffles and had one lane add the C sums one by one;
+//   * in the trace form reads the leaf's coefficient row in 16-byte loads
+//     where C % 4 == 0 (rows 16-byte aligned), a scalar load a term
+//     elsewhere.
 // Skipping a zero weight is exact: the kernel it replaced added +-0 there.
 // The (N, C) output is cleared by the caller (a memset) before the launch.
-// The FORM bits switch (a), (b) and (c) apart, and (b)'s flush to the bulk
-// shared -> global reduce-add, for k8_forms.py, which times the forms that
-// did not ship (csrc/dev/k8_forms.cu); the library launches kTraceForm and
-// kQueryForm.
+// The FORM bits take the 16-byte loads and the kernel's phases apart for
+// k8_forms.py (csrc/dev/k8_forms.cu), which times them; the library
+// launches kTraceForm and kQueryForm. Forms measured and dropped (a
+// block-level queue of the live rays, a shared-memory table of the
+// block's leaves flushed by float4 atomics or the bulk reduce-add, the
+// rays staged in shared memory) are in PERF.md.
 //
 // Bound. Per live point one descent (depth_used dependent loads), one
-// coefficient row (trace), the recurrences and C adds; the rows the adds
-// reach are written once. A chunk's live rays are a few thousand, so a
-// launch is short: one descent's latency, the table's two barriers and the
-// flush.
+// coefficient row (trace), the recurrences and C adds. A chunk's live
+// rays are a few thousand and its launch is short: what costs is the
+// launch and the memset, then one ray's chain of dependent loads and
+// arithmetic (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,35 +62,18 @@
 
 namespace {
 
-constexpr int kThreads = 256;       // rays (points) a block
-constexpr int kWarps = kThreads / 32;
-constexpr int kTableBytes = 16384;  // the block's table of leaves
-constexpr int kProbes = 8;          // slots a leader tries
+constexpr int kThreads = 128;
 constexpr int kMaxQuads = 16;       // coefficient float4s held in registers
 
 // what a form does (the FORM bits)
-constexpr int kCompact = 1;         // (a): queue the live lanes, 32 a warp
-constexpr int kTable = 2;           // (b): add into the block's table first
-constexpr int kVecLoads = 4;        // (c): the row in float4s (f32 trace)
-constexpr int kBulkFlush = 8;       // the table to global by
-                                    // cp.reduce.async.bulk (f32, C % 4 == 0)
-constexpr int kStage = 16;          // every lane loads its ray with hit and
-                                    // dt; the live ones pass it on in shared
-                                    // memory (trace form, with kCompact)
+constexpr int kVecLoads = 1;        // the row in float4s (f32 trace)
 // the kernel's phases apart, for timing only (the result is wrong)
-constexpr int kLiveOnly = 32;       // stop once the live rays are queued
-constexpr int kPlainStores = 64;    // leaders store their sums, no atomics
-constexpr int kNoScatter = 128;     // stop once each ray has its weight
-constexpr int kTranspose = 256;     // the warp's rays staged in shared
-                                    // memory; lane j sums term j over them
-constexpr int kTraceForm = kCompact | kTable | kVecLoads;
-constexpr int kQueryForm = kCompact | kTable;
-
-template <class T>
-__host__ __device__ constexpr int table_slots(int C) {
-  const int s = kTableBytes / (C * (int)sizeof(T));
-  return s < 4 ? 4 : (s > 64 ? 64 : s);
-}
+constexpr int kLiveOnly = 2;        // stop once the live rays are known
+constexpr int kNoScatter = 4;       // stop once each ray has its weight
+constexpr int kUnrolledRuns = 8;    // the scatter's loop over the warp's
+                                    // 32 lanes unrolled
+constexpr int kTraceForm = kVecLoads;
+constexpr int kQueryForm = 0;
 
 struct TraceIn {
   const float* origins;   // (B, 3)
@@ -115,24 +97,6 @@ struct Args {
   int outside_zero;
   T* d_coeffs;
 };
-
-// The slot of `leaf` in the block's table: the one that holds it, or an
-// empty one that it claims; -1 when the slots tried hold other leaves.
-template <int SLOTS>
-__device__ __forceinline__ int claim_slot(int* keys, int leaf) {
-  int s = leaf % SLOTS;
-#pragma unroll 1
-  for (int p = 0; p < kProbes && p < SLOTS; ++p) {
-    int k = *reinterpret_cast<volatile int*>(keys + s);
-    if (k < 0) {
-      k = atomicCAS(keys + s, -1, leaf);
-      if (k < 0) return s;
-    }
-    if (k == leaf) return s;
-    s = s + 1 == SLOTS ? 0 : s + 1;
-  }
-  return -1;
-}
 
 // The indices (i, j, k) of basis term m < C of degree DEG, in
 // for_each_term's order (by total degree p, then i, then j).
@@ -158,40 +122,16 @@ template <class T, int DEG, bool TRACE, int FORM>
 __global__ void __launch_bounds__(kThreads)
 coeff_scatter_kernel(const Args<T> a) {
   constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
-  constexpr bool kCompacts = (FORM & kCompact) != 0;
-  constexpr bool kTabled = (FORM & kTable) != 0;
-  constexpr int kSlots = kTabled ? table_slots<T>(kC) : 1;
-  constexpr bool kQuadRows = sizeof(T) == 4 && kC % 4 == 0;
-  static_assert(!(FORM & kBulkFlush) || (kTabled && kQuadRows),
-                "the bulk flush moves f32 rows of whole float4s");
-  __shared__ int live_in_warp[kWarps];
-  __shared__ int queue[kThreads];
-  __shared__ int keys[kSlots];
-  __shared__ __align__(16) T table[kTabled ? kSlots * kC : 1];
-  constexpr bool kStages = TRACE && (FORM & kStage) && kCompacts;
-  __shared__ float staged[kStages ? 7 * kThreads : 1];   // o, d, t
-  constexpr bool kTransposes = (FORM & kTranspose) != 0;
   constexpr int kNS = 3 * (DEG + 1);
-  __shared__ T tN[kTransposes ? kThreads * kNS : 1];     // a ray's N
-  __shared__ T tW[kTransposes ? kThreads : 1];           // its weight
-  __shared__ int tLeaf[kTransposes ? kThreads : 1];      // its leaf, or -1
+  __shared__ T sN[kThreads * kNS];  // a live lane's N[axis][q]
+  __shared__ T sW[kThreads];        // its weight
+  __shared__ int sLeaf[kThreads];   // its leaf
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int64_t i = (int64_t)blockIdx.x * kThreads + tid;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t base = (int64_t)blockIdx.x * kThreads;
-
-  // (a) which rays carry a weight, from the cheap inputs
+  // which rays carry a weight, from the cheap inputs
   bool live = false;
-  float ray[7];
-  if (base + tid < a.B) {
-    const int64_t i = base + tid;
-    if constexpr (kStages) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        ray[k] = __ldg(a.tr.origins + 3 * i + k);
-        ray[3 + k] = __ldg(a.tr.dirs + 3 * i + k);
-      }
-      ray[6] = __ldg(a.tr.t + i);
-    }
+  if (i < a.B) {
     if constexpr (TRACE) {
       live = __ldg(a.tr.hit + i) != 0 && __ldg(a.cot + i) != T(0);
     } else {
@@ -205,64 +145,22 @@ coeff_scatter_kernel(const Args<T> a) {
       }
     }
   }
-  const unsigned live_lanes = __ballot_sync(hpsdf::kFullWarp, live);
-  int me = live ? tid : -1;         // the ray this lane computes, or -1
-  unsigned lanes = live_lanes;      // the lanes of the warp that compute one
-  int n_live = 0;
-  if constexpr (kCompacts) {
-    if (lane == 0) live_in_warp[warp] = __popc(live_lanes);
-    __syncthreads();
-    int before = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = live_in_warp[w];
-      before += w < warp ? c : 0;
-      n_live += c;
-    }
-    if (n_live == 0) return;        // the whole block: nothing to add
-    const int slot = before + __popc(live_lanes & ((1u << lane) - 1u));
-    if (live) queue[slot] = tid;
-    if constexpr (kStages) {
-      if (live) {
-#pragma unroll
-        for (int k = 0; k < 7; ++k) staged[7 * slot + k] = ray[k];
-      }
-    }
-    lanes = __ballot_sync(hpsdf::kFullWarp, tid < n_live);
-  } else if constexpr (kTabled) {
-    if (!__syncthreads_or(live)) return;
-  } else {
-    if (live_lanes == 0u) return;
-  }
-  if constexpr (kTabled) {
-    for (int k = tid; k < kSlots; k += kThreads) keys[k] = -1;
-    for (int k = tid; k < kSlots * kC; k += kThreads) table[k] = T(0);
-  }
-  if constexpr (kCompacts || kTabled) __syncthreads();
-  if constexpr (kCompacts) me = tid < n_live ? queue[tid] : -1;
-  if constexpr ((FORM & kLiveOnly) != 0) return;
+  const unsigned lanes = __ballot_sync(hpsdf::kFullWarp, live);
+  if (lanes == 0u || (FORM & kLiveOnly)) return;
 
-  if (me >= 0) {
-    const int64_t ip = base + me;
-    T p[3], u[3];
+  if (live) {
+    T p[3], u[3], dir[3];
     bool in_axis[3];
-    float dir[3];
-    if constexpr (kStages) {
+    if constexpr (TRACE) {
+      const float t = __ldg(a.tr.t + i);
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        dir[k] = staged[7 * tid + 3 + k];
-        p[k] = staged[7 * tid + k] + staged[7 * tid + 6] * dir[k];
-      }
-    } else if constexpr (TRACE) {
-      const float t = __ldg(a.tr.t + ip);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        dir[k] = __ldg(a.tr.dirs + 3 * ip + k);
-        p[k] = __ldg(a.tr.origins + 3 * ip + k) + t * dir[k];
+        dir[k] = __ldg(a.tr.dirs + 3 * i + k);
+        p[k] = __ldg(a.tr.origins + 3 * i + k) + t * dir[k];
       }
     } else {
 #pragma unroll
-      for (int k = 0; k < 3; ++k) p[k] = __ldg(a.pts + 3 * ip + k);
+      for (int k = 0; k < 3; ++k) p[k] = __ldg(a.pts + 3 * i + k);
     }
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -309,7 +207,7 @@ coeff_scatter_kernel(const Args<T> a) {
           g[2] += cm * (N[0][ix] * N[1][iy] * dN[2][iz]);
         });
       };
-      if constexpr ((FORM & kVecLoads) && kQuadRows &&
+      if constexpr ((FORM & kVecLoads) && kC % 4 == 0 &&
                     kC / 4 <= kMaxQuads && DEG <= hpsdf::kUnrolledDeg) {
         T cv[kC];
 #pragma unroll
@@ -325,123 +223,57 @@ coeff_scatter_kernel(const Args<T> a) {
       T dfdt = T(0);
 #pragma unroll
       for (int k = 0; k < 3; ++k)
-        if (in_axis[k])
-          dfdt += g[k] * scale * a.inv[k] * dir[k];
+        if (in_axis[k]) dfdt += g[k] * scale * a.inv[k] * dir[k];
       const T safe = fabs(dfdt) > T(1e-6) ? dfdt : T(1e-6);
-      w = -__ldg(a.cot + ip) / safe;
+      w = -__ldg(a.cot + i) / safe;
     } else {
-      w = __ldg(a.cot + ip);
+      w = __ldg(a.cot + i);
     }
     if constexpr ((FORM & kNoScatter) != 0) {
       a.d_coeffs[(int64_t)cur * kC] = w * N[0][DEG] * N[1][DEG] * N[2][DEG];
       return;
     }
-    if constexpr (kTransposes) {
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
+    for (int k = 0; k < 3; ++k)
 #pragma unroll
-        for (int q = 0; q <= DEG; ++q) tN[tid * kNS + k * (DEG + 1) + q] =
-            N[k][q];
-      tW[tid] = w;
-      tLeaf[tid] = cur;
-    } else {
-
-    // (b) the leaf's peers summed, then into the block's table or global
-    const hpsdf::PeerSum peers((unsigned long long)cur, lanes);
-    int slot = -1;
-    if constexpr (kTabled)
-      if (peers.leader) slot = claim_slot<kSlots>(keys, cur);
-    T* gdst = a.d_coeffs + (int64_t)cur * kC;
-    T* sdst = table + (slot < 0 ? 0 : slot) * kC;
-    hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
-      T x = w * (N[0][ix] * N[1][iy] * N[2][iz]);
-      x = peers.sum(x);
-      if (peers.leader) {
-        if constexpr ((FORM & kPlainStores) != 0)
-          gdst[m] = x;
-        else if (kTabled && slot >= 0)
-          atomicAdd(sdst + m, x);
-        else
-          atomicAdd(gdst + m, x);
-      }
-    });
-    }
+      for (int q = 0; q <= DEG; ++q)
+        sN[tid * kNS + k * (DEG + 1) + q] = N[k][q];
+    sW[tid] = w;
+    sLeaf[tid] = cur;
   }
-  if constexpr (kTransposes) {
-    // lane j sums term j (then j + 32, ...) over the warp's rays, a run of
-    // rays on one leaf at a time, and adds each run's sum: a run's adds
-    // are one coalesced row
-    if (lanes != 0u) {
-      if (me < 0) tLeaf[tid] = -1;
-      __syncwarp();
-      const int n = 32 - __clz(lanes);
-      const int w0 = warp * 32;
+  if constexpr ((FORM & kNoScatter) != 0) return;
+  __syncwarp();
+
+  // lane j sums term j (then j + 32, ...) over the warp's live rays, a run
+  // of rays on one leaf at a time, and adds each run's sum
+  const int w0 = tid - lane;
 #pragma unroll 1
-      for (int m = lane; m < ((kC + 31) & ~31); m += 32) {
-        int ix = 0, iy = 0, iz = 0;
-        if (m < kC) term_indices<DEG>(m, ix, iy, iz);
-        T acc = T(0);
-        int leaf = -1;
-#pragma unroll 1
-        for (int r = 0; r < n; ++r) {
-          const int lr = tLeaf[w0 + r];
-          if (lr != leaf) {
-            if (leaf >= 0 && m < kC)
-              atomicAdd(a.d_coeffs + (int64_t)leaf * kC + m, acc);
-            acc = T(0);
-            leaf = lr;
-          }
-          if (lr < 0) continue;
-          const T* row = tN + (w0 + r) * kNS;
-          acc += tW[w0 + r] *
-                 (row[ix] * row[DEG + 1 + iy] * row[2 * (DEG + 1) + iz]);
-        }
+  for (int m = lane; m < ((kC + 31) & ~31); m += 32) {
+    int ix = 0, iy = 0, iz = 0;
+    if (m < kC) term_indices<DEG>(m, ix, iy, iz);
+    T acc = T(0);
+    int leaf = -1;
+    auto add_ray = [&](int r) {
+      const int lr = sLeaf[r];
+      if (lr != leaf) {
         if (leaf >= 0 && m < kC)
           atomicAdd(a.d_coeffs + (int64_t)leaf * kC + m, acc);
+        acc = T(0);
+        leaf = lr;
       }
-    }
-  }
-
-  if constexpr (kTabled) {
-    // each claimed row to global memory once
-    if constexpr ((FORM & kBulkFlush) != 0) {
-      // the shared atomics made visible to the bulk copy's async proxy
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      __syncthreads();
-      for (int s = tid; s < kSlots; s += kThreads) {
-        const int key = keys[s];
-        if (key < 0) continue;
-        const unsigned src =
-            (unsigned)__cvta_generic_to_shared(table + s * kC);
-        asm volatile(
-            "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
-            "[%0], [%1], %2;" ::"l"((unsigned long long)(a.d_coeffs +
-                                                       (int64_t)key * kC)),
-            "r"(src), "r"(kC * 4)
-            : "memory");
-      }
-      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-    } else if constexpr (kQuadRows) {
-      __syncthreads();
-      constexpr int kQ = kC / 4;
-      for (int k = tid; k < kSlots * kQ; k += kThreads) {
-        const int s = k / kQ;
-        const int key = keys[s];
-        if (key >= 0)
-          atomicAdd(reinterpret_cast<float4*>(a.d_coeffs +
-                                              (int64_t)key * kC) + (k - s * kQ),
-                    reinterpret_cast<const float4*>(table)[k]);
-      }
+      const T* n = sN + r * kNS;
+      acc += sW[r] * (n[ix] * n[DEG + 1 + iy] * n[2 * (DEG + 1) + iz]);
+    };
+    if constexpr ((FORM & kUnrolledRuns) != 0) {
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+        if (lanes >> r & 1u) add_ray(w0 + r);
     } else {
-      __syncthreads();
-      for (int k = tid; k < kSlots * kC; k += kThreads) {
-        const int s = k / kC;
-        const int key = keys[s];
-        if (key >= 0) atomicAdd(a.d_coeffs + (int64_t)key * kC + (k - s * kC),
-                                table[k]);
-      }
+#pragma unroll 1
+      for (unsigned rest = lanes; rest != 0u; rest &= rest - 1u)
+        add_ray(w0 + __ffs(rest) - 1);
     }
+    if (m < kC) atomicAdd(a.d_coeffs + (int64_t)leaf * kC + m, acc);
   }
 }
 
@@ -470,7 +302,7 @@ void launch(const Args<T>& a, cudaStream_t s) {
 // dtype 8: the query form in f64 (pts, cot, the tree's centre and coeffs
 // f64); dtype 4: the trace form in f32 (origins, dirs, t, hit, cot = dt; the
 // tree's centre and coeffs f32, coeffs 16-byte aligned). d_coeffs (N, C)
-// must be zeroed by the caller and 16-byte aligned.
+// must be zeroed by the caller.
 extern "C" int hpsdf_coeff_scatter(const int32_t* child_idx,
                                    const void* centre, const int32_t* depth,
                                    const void* coeffs, int deg, int depth_used,

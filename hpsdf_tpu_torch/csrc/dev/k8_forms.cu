@@ -1,12 +1,10 @@
 // K8's development forms, built only by k8_forms.py (_kernels._load("dev",
 // ...)), which times them beside the shipped kernel: the shipped kernel's
 // template (coeff_scatter.cu) with other FORM bits, at degrees 3 and 5 (the
-// main path's). Trace form (dtype 4, f32): the table flushed by the bulk
-// shared -> global reduce-add instead of float4 atomics; no table (the
-// group leaders add to global memory); no compaction (a warp takes its own
-// 32 rays and stops when none is live); the coefficient row in scalar
-// loads. Query form (dtype 8, f64): no table; no compaction. The shipped
-// forms (kTraceForm, kQueryForm) are accepted too.
+// main path's). Trace form (dtype 4, f32): the coefficient row in scalar
+// loads; both forms: the kernel's phases apart (stop once the live rays are
+// known; stop once each has its weight). The shipped forms (kTraceForm,
+// kQueryForm) are accepted too.
 
 #include "../coeff_scatter.cu"
 
@@ -47,47 +45,29 @@ extern "C" int hpsdf_dev_k8(int form, const int32_t* child_idx,
     switch (form) {
       case kTraceForm:
         return dev_launch<float, true, kTraceForm>(deg, a, s);
-      case kTraceForm | kBulkFlush:
-        return dev_launch<float, true, kTraceForm | kBulkFlush>(deg, a, s);
-      case kCompact | kVecLoads:
-        return dev_launch<float, true, kCompact | kVecLoads>(deg, a, s);
-      case kTable | kVecLoads:
-        return dev_launch<float, true, kTable | kVecLoads>(deg, a, s);
-      case kCompact | kTable:
-        return dev_launch<float, true, kCompact | kTable>(deg, a, s);
-      case kVecLoads:
-        return dev_launch<float, true, kVecLoads>(deg, a, s);
-      case kCompact | kVecLoads | kStage:
-        return dev_launch<float, true, kCompact | kVecLoads | kStage>(deg, a,
-                                                                     s);
-      case kCompact | kVecLoads | kLiveOnly:
-        return dev_launch<float, true, kCompact | kVecLoads | kLiveOnly>(
-            deg, a, s);
-      case kCompact | kVecLoads | kPlainStores:
-        return dev_launch<float, true, kCompact | kVecLoads | kPlainStores>(
-            deg, a, s);
-      case kCompact | kVecLoads | kNoScatter:
-        return dev_launch<float, true, kCompact | kVecLoads | kNoScatter>(
-            deg, a, s);
-      case kCompact | kVecLoads | kTranspose:
-        return dev_launch<float, true, kCompact | kVecLoads | kTranspose>(
-            deg, a, s);
-      case kVecLoads | kTranspose:
-        return dev_launch<float, true, kVecLoads | kTranspose>(deg, a, s);
+      case 0:
+        return dev_launch<float, true, 0>(deg, a, s);
+      case kTraceForm | kLiveOnly:
+        return dev_launch<float, true, kTraceForm | kLiveOnly>(deg, a, s);
+      case kTraceForm | kNoScatter:
+        return dev_launch<float, true, kTraceForm | kNoScatter>(deg, a, s);
+      case kTraceForm | kUnrolledRuns:
+        return dev_launch<float, true, kTraceForm | kUnrolledRuns>(deg, a, s);
+      case kUnrolledRuns:
+        return dev_launch<float, true, kUnrolledRuns>(deg, a, s);
     }
   } else if (dtype == 8) {
     const Args<double> a = HPSDF_ARGS(double);
     switch (form) {
       case kQueryForm:
         return dev_launch<double, false, kQueryForm>(deg, a, s);
-      case kCompact:
-        return dev_launch<double, false, kCompact>(deg, a, s);
-      case kTable:
-        return dev_launch<double, false, kTable>(deg, a, s);
-      case kCompact | kTranspose:
-        return dev_launch<double, false, kCompact | kTranspose>(deg, a, s);
-      case kTranspose:
-        return dev_launch<double, false, kTranspose>(deg, a, s);
+      case kQueryForm | kLiveOnly:
+        return dev_launch<double, false, kQueryForm | kLiveOnly>(deg, a, s);
+      case kQueryForm | kNoScatter:
+        return dev_launch<double, false, kQueryForm | kNoScatter>(deg, a, s);
+      case kQueryForm | kUnrolledRuns:
+        return dev_launch<double, false, kQueryForm | kUnrolledRuns>(deg, a,
+                                                                     s);
     }
   }
 #undef HPSDF_ARGS

@@ -10,14 +10,11 @@ their times summed. Query form (f64) on the initial tree: one chunk's band
 points and 2^20 uniform points in its root, random cotangents, the sentinel
 on. Forms: the shipped kernel through its wrapper (memset + launch); the
 shipped launch alone, into a buffer already cleared (what the memset
-costs); with the block's table, flushed by float4 atomics or the bulk
-shared -> global reduce-add; without it; without compaction; the trace's
-rays loaded with hit and dt and passed on in shared memory; scalar row
-loads (trace); the kernel it replaced.
-Two more take the trace form's phases apart and are only timed: the live
-rays queued, then stop; the leaders' sums stored instead of added. Each
-other form but the launch alone is held to autograd of the plain version
-and to the shipped kernel within chip_smoke.GRAD_RTOL32 / GRAD_RTOL64, its
+costs); the trace's coefficient row in scalar loads; the kernel it
+replaced. Two more take the kernel's phases apart and are only timed: stop
+once the live rays are known; stop once each has its weight. Each other
+form but the launch alone is held to autograd of the plain version and to
+the shipped kernel within chip_smoke.GRAD_RTOL32 / GRAD_RTOL64, its
 operations on the card a call counted, and it is timed in CUDA graphs in
 two rounds, the second in the reverse order. Prints one line a shape, then
 all of it as one JSON line.
@@ -41,37 +38,25 @@ from hpsdf_tpu_torch import _kernels
 SIGNATURES = {"hpsdf_dev_k8": (_kernels._I32,
                                *_kernels._SIGNATURES["hpsdf_coeff_scatter"])}
 # FORM bits of csrc/coeff_scatter.cu
-COMPACT, TABLE, VEC_LOADS, BULK_FLUSH, STAGE = 1, 2, 4, 8, 16
-LIVE_ONLY, PLAIN_STORES, NO_SCATTER = 32, 64, 128   # phases: timing only
-TRANSPOSE = 256
+VEC_LOADS, LIVE_ONLY, NO_SCATTER, UNROLLED_RUNS = 1, 2, 4, 8
+PHASES = LIVE_ONLY | NO_SCATTER           # timing only: the result is wrong
 # (label, form): None the wrapper, "alone" the shipped launch without its
 # memset, "replaced" the kernel it replaced, an int a development form
 TRACE_FORMS = (("shipped (memset + launch)", None),
                ("shipped launch alone", "alone"),
-               ("table, float4 flush", COMPACT | TABLE | VEC_LOADS),
-               ("table, bulk reduce-add flush",
-                COMPACT | TABLE | VEC_LOADS | BULK_FLUSH),
-               ("table, no compaction", TABLE | VEC_LOADS),
-               ("table, scalar row loads", COMPACT | TABLE),
-               ("no table", COMPACT | VEC_LOADS),
-               ("no table, no compaction", VEC_LOADS),
-               ("no table, rays staged in shared memory",
-                COMPACT | VEC_LOADS | STAGE),
-               ("phase: the live rays queued, then stop",
-                COMPACT | VEC_LOADS | LIVE_ONLY),
-               ("phase: leaders store their sums, no atomics",
-                COMPACT | VEC_LOADS | PLAIN_STORES),
+               ("scalar row loads", 0),
+               ("scatter loop unrolled", VEC_LOADS | UNROLLED_RUNS),
+               ("scalar row loads, scatter loop unrolled", UNROLLED_RUNS),
+               ("phase: the live rays known, then stop",
+                VEC_LOADS | LIVE_ONLY),
                ("phase: each ray's weight, then stop",
-                COMPACT | VEC_LOADS | NO_SCATTER),
-               ("transposed scatter", COMPACT | VEC_LOADS | TRANSPOSE),
-               ("transposed scatter, no compaction", VEC_LOADS | TRANSPOSE),
+                VEC_LOADS | NO_SCATTER),
                ("the kernel it replaced", "replaced"))
 QUERY_FORMS = (("shipped (memset + launch)", None),
                ("shipped launch alone", "alone"),
-               ("no table", COMPACT),
-               ("no compaction", TABLE),
-               ("transposed scatter", COMPACT | TRANSPOSE),
-               ("transposed scatter, no compaction", TRANSPOSE),
+               ("scatter loop unrolled", UNROLLED_RUNS),
+               ("phase: the live rays known, then stop", LIVE_ONLY),
+               ("phase: each ray's weight, then stop", NO_SCATTER),
                ("the kernel it replaced", "replaced"))
 
 
@@ -130,8 +115,8 @@ def main():
         for name, form in forms:
             fns[name] = [call_of(form, t, w, kw) for t, w, kw, _ in cases]
             row[name] = {"ms": [], "rel_err": 0.0, "rel_err_shipped": 0.0}
-            if form != "alone" and not (isinstance(form, int) and form & (
-                    LIVE_ONLY | PLAIN_STORES | NO_SCATTER)):
+            if form != "alone" and not (isinstance(form, int)
+                                        and form & PHASES):
                 for fn, (t, w, kw, plain) in zip(fns[name], cases):
                     got = fn()
                     want = plain()

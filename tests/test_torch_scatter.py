@@ -301,9 +301,10 @@ def test_backward_reference_kernels_are_checks_only():
     """The earlier forms of K7, G's backward and K8 live only under
     csrc/check/ with entry points of their own, bound only for the checks;
     the shipped K7 and G's backward group by row (group.cuh) instead of
-    summing a warp's lanes before per-point atomics (scatter.cuh, which K8
-    keeps), G's backward adds with no atomic, and the shipped K8 adds
-    through its block's table of leaves, which its earlier form has not."""
+    summing a warp's lanes before per-point atomics (scatter.cuh's PeerSum),
+    G's backward adds with no atomic, and the shipped K8 sums each term
+    over a warp's rays in one lane (a transposed scatter) where its earlier
+    form summed by PeerSum."""
     pkg = os.path.dirname(_kernels.__file__)
     for name, entry in (("packed_grad_reference.cu",
                          "hpsdf_packed_grad_reference"),
@@ -317,7 +318,7 @@ def test_backward_reference_kernels_are_checks_only():
         assert entry in _kernels._CHECK_SIGNATURES
         assert entry not in _kernels._SIGNATURES
         if name == "coeff_scatter_reference.cu":
-            assert "atomicCAS" not in text and '"../scatter.cuh"' in text
+            assert "PeerSum" in text and '"../scatter.cuh"' in text
     for mod in os.listdir(pkg):
         if mod.endswith(".py") and mod != "_kernels.py":
             with open(os.path.join(pkg, mod)) as fh:
@@ -331,7 +332,8 @@ def test_backward_reference_kernels_are_checks_only():
         assert '"scatter.cuh"' not in texts[name]
     assert "atomicAdd" not in texts["row_gather.cu"]
     assert '"scatter.cuh"' in texts["coeff_scatter.cu"]
-    assert "atomicCAS" in texts["coeff_scatter.cu"]
+    assert "PeerSum" not in texts["coeff_scatter.cu"]
+    assert "term_indices" in texts["coeff_scatter.cu"]
 
 
 def test_rows_read_is_locate():
