@@ -26,7 +26,8 @@ render_image traced. K2 is also timed where the main path runs it, on the
 carve's largest F batch (the points as_sdf's packed F reads), and K5 on
 the render's hit points; K2/K5, K1 and K3 are held against their plain
 versions at every basis degree 0..12 on synthetic depth-2 trees (rows of 16
-to 464 lanes).
+to 464 lanes), K7 and K8 to theirs and K8 to the kernel it replaced, and
+the fused mode to modes 0 and 2.
 
 K3 is also held, bit for bit (t, hit, kk), against the kernel it replaced
 (csrc/check/march_reference.cu, built here into a library of its own, on no
@@ -55,12 +56,15 @@ stack frame and no spills.
 
 The backward kernels ([grad]) are held to autograd of their plain versions
 at 2^20 points and at the inverse path's own shapes (one chunk's band
-points, the 7n points of its values_at call, its rays, the repack's grid);
-K7 and G's backward also to the kernels they replaced (csrc/check/, timed
-in the same run), with the operations a call puts on the card. [inverse]
-runs bench.py's 1080p fit_to_depth, profiles a step with and without the
-replaced backward kernels, and holds the kernels' 128^2 losses to the plain
-versions'.
+points, the 7n points of its read, its rays, the repack's grid); K7, G's
+backward and K8 also to the kernels they replaced (csrc/check/, timed in
+the same run), with the operations a call puts on the card; K8's trace
+form at every chunk of a 1080p step with the step's own cotangent, timed
+chunk by chunk and summed; and the fused mode of K2/K5 (values and raw
+gradients in one launch) bit for bit against modes 0 and 2, timed beside
+both. [inverse] runs bench.py's 1080p fit_to_depth, profiles a step with
+and without the replaced backward kernels (and with the fused read split
+again), and holds the kernels' 128^2 losses to the plain versions'.
 
 Phases, one line each: device, build, ptxas, P1 vs plain, the slice, P1 at
 the fit batch, K1 vs plain, times, G vs plain, the reference-default fit,
@@ -615,8 +619,7 @@ def phase_k2(pt, name, sphere, seed=5):
     root. Normals are compared away from the sphere's centre, where the
     field's gradient vanishes and a normal is not defined. Returns (max
     value error, min normal dot, times)."""
-    from hpsdf_tpu_torch.accel import (F32_MAX, NORMALS, RAW_GRAD, VALUES,
-                                       VALUES_AND_GRAD,
+    from hpsdf_tpu_torch.accel import (F32_MAX, NORMALS, VALUES,
                                        normals_plain, packed_eval_kernel,
                                        query_packed_plain, values_at_plain)
 
@@ -1543,15 +1546,12 @@ def phase_grad(pt_s, tree_s, s, smi, seed=11):
         operations a call puts on the card counted."""
         kw = (dict(pts=pts, outside_value_max=True) if rays is None
               else dict(rays=rays))
-        got = coeff_scatter_kernel(tree, w, **kw)
         if rays is None:
-            want = query_vjp_plain(tree, pts, w)
             plain = (lambda: query_vjp_plain(tree, pts, w))
-            ref = coeff_scatter_reference(tree, w, **kw)
         else:
-            want = R.trace_vjp_plain(tree, *rays, w)
             plain = (lambda: R.trace_vjp_plain(tree, *rays, w))
-            ref = coeff_scatter_reference(tree, w, **kw)
+        got, want = coeff_scatter_kernel(tree, w, **kw), plain()
+        ref = coeff_scatter_reference(tree, w, **kw)
         tol = GRAD_RTOL32 if rays is not None else GRAD_RTOL64
         err, ref_err = rel_err(got, want), rel_err(got, ref)
         check(err <= tol, f"K8 vs autograd of the plain version at {label}: "

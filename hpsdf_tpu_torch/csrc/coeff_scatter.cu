@@ -28,24 +28,25 @@
 //     (trace: hit and dt != 0; query: cot != 0 and, under the sentinel,
 //     inside the root), and stops when none does; only the live lanes run
 //     the descent, the recurrences and (trace) the dfdt sum;
+//   * takes the axis norms sqrt((2q+1) 2^d) from a table of roots and the
+//     exponent, bit-equal to the double sqrt and ldexp that the kernel it
+//     replaced computed (those cost ~0.0016 ms a launch at a chunk);
 //   * then scatters transposed: each live lane puts its leaf, its weight
 //     and its 3 (DEG+1) axis factors N in shared memory, and lane j sums
 //     term j (then j + 32, ...) over the warp's live rays in lane order,
 //     one run of rays on a leaf at a time, adding each run's sum with one
 //     atomic. A run's C adds are then one coalesced row from 32 lanes, where
 //     the kernel it replaced summed each term over a leaf's lanes by
-//     shuffles and had one lane add the C sums one by one;
-//   * in the trace form reads the leaf's coefficient row in 16-byte loads
-//     where C % 4 == 0 (rows 16-byte aligned), a scalar load a term
-//     elsewhere.
+//     shuffles and had one lane add the C sums one by one.
 // Skipping a zero weight is exact: the kernel it replaced added +-0 there.
 // The (N, C) output is cleared by the caller (a memset) before the launch.
-// The FORM bits take the 16-byte loads and the kernel's phases apart for
-// k8_forms.py (csrc/dev/k8_forms.cu), which times them; the library
-// launches kTraceForm and kQueryForm. Forms measured and dropped (a
-// block-level queue of the live rays, a shared-memory table of the
-// block's leaves flushed by float4 atomics or the bulk reduce-add, the
-// rays staged in shared memory) are in PERF.md.
+// The FORM bits stop the kernel after a phase, for k8_forms.py
+// (csrc/dev/k8_forms.cu), which times the phases apart; the library
+// launches FORM 0. Forms measured and dropped (a block-level queue of the
+// live rays, a shared-memory table of the block's leaves flushed by float4
+// atomics or the bulk reduce-add, the rays staged in shared memory, the
+// coefficient row in 16-byte loads, a rolled scatter loop) are in
+// PERF.md.
 //
 // Bound. Per live point one descent (depth_used dependent loads), one
 // coefficient row (trace), the recurrences and C adds. A chunk's live
@@ -63,17 +64,52 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxQuads = 16;       // coefficient float4s held in registers
 
-// what a form does (the FORM bits)
-constexpr int kVecLoads = 1;        // the row in float4s (f32 trace)
-// the kernel's phases apart, for timing only (the result is wrong)
-constexpr int kLiveOnly = 2;        // stop once the live rays are known
-constexpr int kNoScatter = 4;       // stop once each ray has its weight
-constexpr int kUnrolledRuns = 8;    // the scatter's loop over the warp's
-                                    // 32 lanes unrolled
-constexpr int kTraceForm = kVecLoads;
-constexpr int kQueryForm = 0;
+// the kernel's phases apart (the FORM bits), for timing only: the result
+// is wrong
+constexpr int kLiveOnly = 1;        // stop once the live rays are known
+constexpr int kNoScatter = 2;       // stop once each ray has its weight
+constexpr int kPlainStores = 4;     // the scatter stores, no atomics
+
+// sqrt(2q + 1) (odd == 0) or sqrt(2 (2q + 1)) (odd == 1), correctly
+// rounded. Times 2^(d >> 1) they are sqrt((2q + 1) 2^d) in double bit for
+// bit, since a power of 4 leaves a correctly rounded root's mantissa as it
+// is.
+__device__ __forceinline__ double odd_root(int q, int odd) {
+  switch (2 * q + odd) {
+    case 0: return 1.0;
+    case 1: return 1.4142135623730951;
+    case 2: return 1.7320508075688772;
+    case 3: return 2.449489742783178;
+    case 4: return 2.23606797749979;
+    case 5: return 3.1622776601683795;
+    case 6: return 2.6457513110645907;
+    case 7: return 3.7416573867739413;
+    case 8: return 3.0;
+    case 9: return 4.242640687119285;
+    case 10: return 3.3166247903554;
+    case 11: return 4.69041575982343;
+    case 12: return 3.605551275463989;
+    case 13: return 5.0990195135927845;
+    case 14: return 3.872983346207417;
+    case 15: return 5.477225575051661;
+    case 16: return 4.123105625617661;
+    case 17: return 5.830951894845301;
+    case 18: return 4.358898943540674;
+    case 19: return 6.164414002968976;
+    case 20: return 4.58257569495584;
+    case 21: return 6.48074069840786;
+    case 22: return 4.795831523312719;
+    case 23: return 6.782329983125268;
+    case 24: return 5.0;
+    default: return 7.0710678118654755;
+  }
+}
+
+// 2^k exactly, for a k well inside the exponent range
+__device__ __forceinline__ double pow2(int k) {
+  return __longlong_as_double((long long)(1023 + k) << 52);
+}
 
 struct TraceIn {
   const float* origins;   // (B, 3)
@@ -178,7 +214,7 @@ coeff_scatter_kernel(const Args<T> a) {
             ((u[2] >= __ldg(cc + 2)) << 2);
     }
     const int d = __ldg(a.depth + cur);
-    const T scale = (T)ldexp(1.0, d + 1);
+    const T scale = (T)pow2(d + 1);
     const T* cc = a.centre + 3 * (int64_t)cur;
     // N[k][q] = L_q(x_k) nt[q], nt[q] = sqrt((2q+1) 2^d); dN likewise
     T N[3][DEG + 1], dN[3][DEG + 1];
@@ -189,7 +225,7 @@ coeff_scatter_kernel(const Args<T> a) {
       if constexpr (TRACE) hpsdf::legendre_deriv<DEG>(L, dL);
 #pragma unroll
       for (int q = 0; q <= DEG; ++q) {
-        const T nt = (T)sqrt((2.0 * q + 1.0) * ldexp(1.0, d));
+        const T nt = (T)(odd_root(q, d & 1) * pow2(d >> 1));
         N[k][q] = L[q] * nt;
         if constexpr (TRACE) dN[k][q] = dL[q] * nt;
       }
@@ -199,27 +235,12 @@ coeff_scatter_kernel(const Args<T> a) {
     if constexpr (TRACE) {
       const T* c = a.coeffs + (int64_t)cur * kC;
       T g[3] = {T(0), T(0), T(0)};
-      auto add_grad = [&](auto coef_of) {
-        hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
-          const T cm = coef_of(m);
-          g[0] += cm * (dN[0][ix] * N[1][iy] * N[2][iz]);
-          g[1] += cm * (N[0][ix] * dN[1][iy] * N[2][iz]);
-          g[2] += cm * (N[0][ix] * N[1][iy] * dN[2][iz]);
-        });
-      };
-      if constexpr ((FORM & kVecLoads) && kC % 4 == 0 &&
-                    kC / 4 <= kMaxQuads && DEG <= hpsdf::kUnrolledDeg) {
-        T cv[kC];
-#pragma unroll
-        for (int q = 0; q < kC / 4; ++q) {
-          const float4 f = __ldg(reinterpret_cast<const float4*>(c) + q);
-          cv[4 * q] = f.x, cv[4 * q + 1] = f.y, cv[4 * q + 2] = f.z,
-          cv[4 * q + 3] = f.w;
-        }
-        add_grad([&](int m) { return cv[m]; });
-      } else {
-        add_grad([&](int m) { return __ldg(c + m); });
-      }
+      hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
+        const T cm = __ldg(c + m);
+        g[0] += cm * (dN[0][ix] * N[1][iy] * N[2][iz]);
+        g[1] += cm * (N[0][ix] * dN[1][iy] * N[2][iz]);
+        g[2] += cm * (N[0][ix] * N[1][iy] * dN[2][iz]);
+      });
       T dfdt = T(0);
 #pragma unroll
       for (int k = 0; k < 3; ++k)
@@ -253,27 +274,27 @@ coeff_scatter_kernel(const Args<T> a) {
     if (m < kC) term_indices<DEG>(m, ix, iy, iz);
     T acc = T(0);
     int leaf = -1;
+    auto add = [&](int row, T x) {
+      T* dst = a.d_coeffs + (int64_t)row * kC + m;
+      if constexpr ((FORM & kPlainStores) != 0)
+        *dst = x;
+      else
+        atomicAdd(dst, x);
+    };
     auto add_ray = [&](int r) {
       const int lr = sLeaf[r];
       if (lr != leaf) {
-        if (leaf >= 0 && m < kC)
-          atomicAdd(a.d_coeffs + (int64_t)leaf * kC + m, acc);
+        if (leaf >= 0 && m < kC) add(leaf, acc);
         acc = T(0);
         leaf = lr;
       }
       const T* n = sN + r * kNS;
       acc += sW[r] * (n[ix] * n[DEG + 1 + iy] * n[2 * (DEG + 1) + iz]);
     };
-    if constexpr ((FORM & kUnrolledRuns) != 0) {
 #pragma unroll
-      for (int r = 0; r < 32; ++r)
-        if (lanes >> r & 1u) add_ray(w0 + r);
-    } else {
-#pragma unroll 1
-      for (unsigned rest = lanes; rest != 0u; rest &= rest - 1u)
-        add_ray(w0 + __ffs(rest) - 1);
-    }
-    if (m < kC) atomicAdd(a.d_coeffs + (int64_t)leaf * kC + m, acc);
+    for (int r = 0; r < 32; ++r)
+      if (lanes >> r & 1u) add_ray(w0 + r);
+    if (m < kC) add(leaf, acc);
   }
 }
 
@@ -301,8 +322,8 @@ void launch(const Args<T>& a, cudaStream_t s) {
 
 // dtype 8: the query form in f64 (pts, cot, the tree's centre and coeffs
 // f64); dtype 4: the trace form in f32 (origins, dirs, t, hit, cot = dt; the
-// tree's centre and coeffs f32, coeffs 16-byte aligned). d_coeffs (N, C)
-// must be zeroed by the caller.
+// tree's centre and coeffs f32). d_coeffs (N, C) must be zeroed by the
+// caller.
 extern "C" int hpsdf_coeff_scatter(const int32_t* child_idx,
                                    const void* centre, const int32_t* depth,
                                    const void* coeffs, int deg, int depth_used,
@@ -321,9 +342,9 @@ extern "C" int hpsdf_coeff_scatter(const int32_t* child_idx,
                outside_zero, d_coeffs)
 #define HPSDF_LAUNCH(D)                                                      \
   if (dtype == 8)                                                            \
-    launch<double, D, false, kQueryForm>(HPSDF_ARGS(double), s);             \
+    launch<double, D, false, 0>(HPSDF_ARGS(double), s);                      \
   else                                                                       \
-    launch<float, D, true, kTraceForm>(HPSDF_ARGS(float), s)
+    launch<float, D, true, 0>(HPSDF_ARGS(float), s)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
 #undef HPSDF_ARGS

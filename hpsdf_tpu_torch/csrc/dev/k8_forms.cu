@@ -1,10 +1,9 @@
-// K8's development forms, built only by k8_forms.py (_kernels._load("dev",
+// K8's phases apart, built only by k8_forms.py (_kernels._load("dev",
 // ...)), which times them beside the shipped kernel: the shipped kernel's
-// template (coeff_scatter.cu) with other FORM bits, at degrees 3 and 5 (the
-// main path's). Trace form (dtype 4, f32): the coefficient row in scalar
-// loads; both forms: the kernel's phases apart (stop once the live rays are
-// known; stop once each has its weight). The shipped forms (kTraceForm,
-// kQueryForm) are accepted too.
+// template (coeff_scatter.cu) stopped once the live rays are known, or once
+// each has its weight, or storing its sums in place of its atomics, at
+// degrees 3 and 5 (the main path's). FORM 0, the shipped kernel, is
+// accepted too.
 
 #include "../coeff_scatter.cu"
 
@@ -43,31 +42,26 @@ extern "C" int hpsdf_dev_k8(int form, const int32_t* child_idx,
   if (dtype == 4) {
     const Args<float> a = HPSDF_ARGS(float);
     switch (form) {
-      case kTraceForm:
-        return dev_launch<float, true, kTraceForm>(deg, a, s);
       case 0:
         return dev_launch<float, true, 0>(deg, a, s);
-      case kTraceForm | kLiveOnly:
-        return dev_launch<float, true, kTraceForm | kLiveOnly>(deg, a, s);
-      case kTraceForm | kNoScatter:
-        return dev_launch<float, true, kTraceForm | kNoScatter>(deg, a, s);
-      case kTraceForm | kUnrolledRuns:
-        return dev_launch<float, true, kTraceForm | kUnrolledRuns>(deg, a, s);
-      case kUnrolledRuns:
-        return dev_launch<float, true, kUnrolledRuns>(deg, a, s);
+      case kLiveOnly:
+        return dev_launch<float, true, kLiveOnly>(deg, a, s);
+      case kNoScatter:
+        return dev_launch<float, true, kNoScatter>(deg, a, s);
+      case kPlainStores:
+        return dev_launch<float, true, kPlainStores>(deg, a, s);
     }
   } else if (dtype == 8) {
     const Args<double> a = HPSDF_ARGS(double);
     switch (form) {
-      case kQueryForm:
-        return dev_launch<double, false, kQueryForm>(deg, a, s);
-      case kQueryForm | kLiveOnly:
-        return dev_launch<double, false, kQueryForm | kLiveOnly>(deg, a, s);
-      case kQueryForm | kNoScatter:
-        return dev_launch<double, false, kQueryForm | kNoScatter>(deg, a, s);
-      case kQueryForm | kUnrolledRuns:
-        return dev_launch<double, false, kQueryForm | kUnrolledRuns>(deg, a,
-                                                                     s);
+      case 0:
+        return dev_launch<double, false, 0>(deg, a, s);
+      case kLiveOnly:
+        return dev_launch<double, false, kLiveOnly>(deg, a, s);
+      case kNoScatter:
+        return dev_launch<double, false, kNoScatter>(deg, a, s);
+      case kPlainStores:
+        return dev_launch<double, false, kPlainStores>(deg, a, s);
     }
   }
 #undef HPSDF_ARGS

@@ -179,9 +179,6 @@ def coeff_scatter_kernel(tree: Octree, cot: torch.Tensor, *, pts=None,
             raise ValueError(f"tree.{name} must be contiguous {want}")
     if tree.coeffs.shape[1] != consts.coeff_count(tree.deg_used):
         raise ValueError("tree arrays do not match deg_used")
-    if trace_form and tree.coeffs.data_ptr() % 16:
-        # the trace form reads a leaf's coefficients in 16-byte loads
-        raise ValueError("tree.coeffs must be 16-byte aligned")
     if cot.shape != (B,) or cot.dtype != dt or cot.device != ref.device:
         raise ValueError(f"cot must be {dt} ({B},) on {ref.device}")
     if trace_form:

@@ -1,4 +1,4 @@
-"""Time K8's development forms (``hpsdf_tpu_torch/csrc/dev/k8_forms.cu``)
+"""Time K8's phases apart (``hpsdf_tpu_torch/csrc/dev/k8_forms.cu``)
 beside the shipped kernel (``csrc/coeff_scatter.cu``) and the kernel it
 replaced (``csrc/check/coeff_scatter_reference.cu``) on the card.
 
@@ -8,18 +8,18 @@ random dt on every ray, the middle chunk with the step's dt (zero where
 either trace missed), and all 32 chunks of the step with the step's dt,
 their times summed. Query form (f64) on the initial tree: one chunk's band
 points and 2^20 uniform points in its root, random cotangents, the sentinel
-on. Forms: the shipped kernel through its wrapper (memset + launch); the
+on. Timed: the shipped kernel through its wrapper (memset + launch); the
 shipped launch alone, into a buffer already cleared (what the memset
-costs); the trace's coefficient row in scalar loads; the kernel it
-replaced. Two more take the kernel's phases apart and are only timed: stop
-once the live rays are known; stop once each has its weight. Each other
-form but the launch alone is held to autograd of the plain version and to
-the shipped kernel within chip_smoke.GRAD_RTOL32 / GRAD_RTOL64, its
-operations on the card a call counted, and it is timed in CUDA graphs in
-two rounds, the second in the reverse order. Prints one line a shape, then
+costs); the kernel stopped once the live rays are known, and once each has
+its weight, and storing its sums in place of its atomics (timing only:
+their results are wrong); the kernel it replaced,
+which with the shipped kernel is held to autograd of the plain version and
+to the shipped kernel within chip_smoke.GRAD_RTOL32 / GRAD_RTOL64. Each is
+timed in CUDA graphs in two rounds, the second in the reverse order, with
+the operations it puts on the card a call. Prints one line a shape, then
 all of it as one JSON line.
 
-    python3 k8_forms.py        # one card
+    python3 k8_forms.py        # one card, ~2 min of command
 """
 
 import functools
@@ -37,27 +37,16 @@ from hpsdf_tpu_torch import _kernels
 # bits, then hpsdf_coeff_scatter's arguments
 SIGNATURES = {"hpsdf_dev_k8": (_kernels._I32,
                                *_kernels._SIGNATURES["hpsdf_coeff_scatter"])}
-# FORM bits of csrc/coeff_scatter.cu
-VEC_LOADS, LIVE_ONLY, NO_SCATTER, UNROLLED_RUNS = 1, 2, 4, 8
-PHASES = LIVE_ONLY | NO_SCATTER           # timing only: the result is wrong
+# FORM bits of csrc/coeff_scatter.cu: the kernel stopped after a phase
+LIVE_ONLY, NO_SCATTER, PLAIN_STORES = 1, 2, 4
 # (label, form): None the wrapper, "alone" the shipped launch without its
-# memset, "replaced" the kernel it replaced, an int a development form
-TRACE_FORMS = (("shipped (memset + launch)", None),
-               ("shipped launch alone", "alone"),
-               ("scalar row loads", 0),
-               ("scatter loop unrolled", VEC_LOADS | UNROLLED_RUNS),
-               ("scalar row loads, scatter loop unrolled", UNROLLED_RUNS),
-               ("phase: the live rays known, then stop",
-                VEC_LOADS | LIVE_ONLY),
-               ("phase: each ray's weight, then stop",
-                VEC_LOADS | NO_SCATTER),
-               ("the kernel it replaced", "replaced"))
-QUERY_FORMS = (("shipped (memset + launch)", None),
-               ("shipped launch alone", "alone"),
-               ("scatter loop unrolled", UNROLLED_RUNS),
-               ("phase: the live rays known, then stop", LIVE_ONLY),
-               ("phase: each ray's weight, then stop", NO_SCATTER),
-               ("the kernel it replaced", "replaced"))
+# memset, "replaced" the kernel it replaced, an int a phase
+FORMS = (("shipped (memset + launch)", None),
+         ("shipped launch alone", "alone"),
+         ("phase: the live rays known, then stop", LIVE_ONLY),
+         ("phase: each ray's weight, then stop", NO_SCATTER),
+         ("phase: the sums stored, no atomics", PLAIN_STORES),
+         ("the kernel it replaced", "replaced"))
 
 
 def main():
@@ -108,15 +97,15 @@ def main():
         return lambda: cs.k8_call(functools.partial(lib.hpsdf_dev_k8, form),
                                   t, w, **kw)
 
-    def run(forms, cases, tol):
+    def run(cases, tol):
         """Each form over the cases (tree, w, kwargs, plain) of one shape:
-        checked at every case, timed summed over them."""
+        the shipped and the replaced kernel checked at every case, all
+        timed summed over them."""
         row, fns = {}, {}
-        for name, form in forms:
+        for name, form in FORMS:
             fns[name] = [call_of(form, t, w, kw) for t, w, kw, _ in cases]
             row[name] = {"ms": [], "rel_err": 0.0, "rel_err_shipped": 0.0}
-            if form != "alone" and not (isinstance(form, int)
-                                        and form & PHASES):
+            if form in (None, "replaced"):
                 for fn, (t, w, kw, plain) in zip(fns[name], cases):
                     got = fn()
                     want = plain()
@@ -150,20 +139,19 @@ def main():
     dt_rand = torch.as_tensor(rng.standard_normal(chunk).astype(np.float32),
                               device=dev)
     shapes = (
-        ("f32 trace, middle chunk, random dt", TRACE_FORMS,
+        ("f32 trace, middle chunk, random dt",
          [trace_case(chunks[mid], dt_rand)], cs.GRAD_RTOL32),
-        ("f32 trace, middle chunk, the step's dt", TRACE_FORMS,
+        ("f32 trace, middle chunk, the step's dt",
          [trace_case(chunks[mid], chunks[mid]["dt"])], cs.GRAD_RTOL32),
         (f"f32 trace, all {len(chunks)} chunks of a step, summed",
-         TRACE_FORMS, [trace_case(c, c["dt"]) for c in chunks],
-         cs.GRAD_RTOL32),
-        ("f64 query, one chunk's band points", QUERY_FORMS,
-         [query_case(band)], cs.GRAD_RTOL64),
-        ("f64 query, 2^20 uniform points", QUERY_FORMS, [query_case(uni)],
+         [trace_case(c, c["dt"]) for c in chunks], cs.GRAD_RTOL32),
+        ("f64 query, one chunk's band points", [query_case(band)],
+         cs.GRAD_RTOL64),
+        ("f64 query, 2^20 uniform points", [query_case(uni)],
          cs.GRAD_RTOL64))
     out = {"device": smi, "degree": tree.deg_used, "shapes": {}}
-    for label, forms, cases, tol in shapes:
-        row = run(forms, cases, tol)
+    for label, cases, tol in shapes:
+        row = run(cases, tol)
         out["shapes"][label] = row
         print(f"[k8] {label} | {smi} | "
               + "; ".join(f"{k}: {v['ms'][0]:.4f} / {v['ms'][1]:.4f} ms, "

@@ -1,6 +1,8 @@
 """hpsdf_tpu_torch stands alone: importing it, its mesh package, its
 kernel bindings, the sphere tracer and inverse rendering loads neither jax
-nor hpsdf_tpu."""
+nor hpsdf_tpu, nor does importing the scripts that drive it on the card
+(chip_smoke.py, k7_forms.py, k8_forms.py), and no import statement in
+either names them."""
 
 import os
 import subprocess
@@ -21,3 +23,45 @@ def test_import_leaves_out_jax_and_hpsdf_tpu():
     res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+_SCRIPTS = ("chip_smoke.py", "k7_forms.py", "k8_forms.py")
+
+
+def test_scripts_leave_out_jax_and_hpsdf_tpu():
+    """The scripts that drive the port on the card import neither jax nor
+    hpsdf_tpu when they load."""
+    code = (
+        "import sys\n"
+        "import chip_smoke, k7_forms, k8_forms\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'hpsdf_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_no_import_of_jax_or_hpsdf_tpu_anywhere():
+    """No import statement of the package or of those scripts, at the top
+    or inside a function, names jax or hpsdf_tpu."""
+    import ast
+
+    pkg = os.path.join(_ROOT, "hpsdf_tpu_torch")
+    files = [os.path.join(_ROOT, s) for s in _SCRIPTS]
+    for dirpath, _, names in os.walk(pkg):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                assert mod.split(".")[0] not in ("jax", "jaxlib",
+                                                 "hpsdf_tpu"), (path, mod)
