@@ -30,7 +30,7 @@
 //     the descent, the recurrences and (trace) the dfdt sum;
 //   * takes the axis norms sqrt((2q+1) 2^d) from a table of roots and the
 //     exponent, bit-equal to the double sqrt and ldexp that the kernel it
-//     replaced computed (those cost ~0.0016 ms a launch at a chunk);
+//     replaced computed at a cost (PERF.md);
 //   * then scatters transposed: each live lane puts its leaf, its weight
 //     and its 3 (DEG+1) axis factors N in shared memory, and lane j sums
 //     term j (then j + 32, ...) over the warp's live rays in lane order,
@@ -40,8 +40,8 @@
 //     shuffles and had one lane add the C sums one by one.
 // Skipping a zero weight is exact: the kernel it replaced added +-0 there.
 // The (N, C) output is cleared by the caller (a memset) before the launch.
-// The FORM bits stop the kernel after a phase, for k8_forms.py
-// (csrc/dev/k8_forms.cu), which times the phases apart; the library
+// The FORM bits stop the kernel after a phase or undo one of its choices,
+// for k8_forms.py (csrc/dev/k8_forms.cu), which times them; the library
 // launches FORM 0. Forms measured and dropped (a block-level queue of the
 // live rays, a shared-memory table of the block's leaves flushed by float4
 // atomics or the bulk reduce-add, the rays staged in shared memory, the
@@ -65,11 +65,14 @@ namespace {
 
 constexpr int kThreads = 128;
 
-// the kernel's phases apart (the FORM bits), for timing only: the result
-// is wrong
+// the FORM bits, which only k8_forms.py sets: the first three stop or cut a
+// phase, for timing only (the result is wrong); the last undoes the table
+// of roots below
 constexpr int kLiveOnly = 1;        // stop once the live rays are known
 constexpr int kNoScatter = 2;       // stop once each ray has its weight
 constexpr int kPlainStores = 4;     // the scatter stores, no atomics
+constexpr int kDoubleRoots = 8;     // the norms by double sqrt and ldexp,
+                                    // as the kernel it replaced
 
 // sqrt(2q + 1) (odd == 0) or sqrt(2 (2q + 1)) (odd == 1), correctly
 // rounded. Times 2^(d >> 1) they are sqrt((2q + 1) 2^d) in double bit for
@@ -214,7 +217,8 @@ coeff_scatter_kernel(const Args<T> a) {
             ((u[2] >= __ldg(cc + 2)) << 2);
     }
     const int d = __ldg(a.depth + cur);
-    const T scale = (T)pow2(d + 1);
+    const T scale = (FORM & kDoubleRoots) ? (T)ldexp(1.0, d + 1)
+                                          : (T)pow2(d + 1);
     const T* cc = a.centre + 3 * (int64_t)cur;
     // N[k][q] = L_q(x_k) nt[q], nt[q] = sqrt((2q+1) 2^d); dN likewise
     T N[3][DEG + 1], dN[3][DEG + 1];
@@ -225,7 +229,9 @@ coeff_scatter_kernel(const Args<T> a) {
       if constexpr (TRACE) hpsdf::legendre_deriv<DEG>(L, dL);
 #pragma unroll
       for (int q = 0; q <= DEG; ++q) {
-        const T nt = (T)(odd_root(q, d & 1) * pow2(d >> 1));
+        const T nt = (FORM & kDoubleRoots)
+                         ? (T)sqrt((2.0 * q + 1.0) * ldexp(1.0, d))
+                         : (T)(odd_root(q, d & 1) * pow2(d >> 1));
         N[k][q] = L[q] * nt;
         if constexpr (TRACE) dN[k][q] = dL[q] * nt;
       }

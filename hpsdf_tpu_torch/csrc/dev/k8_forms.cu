@@ -1,8 +1,9 @@
 // K8's phases apart, built only by k8_forms.py (_kernels._load("dev",
 // ...)), which times them beside the shipped kernel: the shipped kernel's
 // template (coeff_scatter.cu) stopped once the live rays are known, or once
-// each has its weight, or storing its sums in place of its atomics, at
-// degrees 3 and 5 (the main path's). FORM 0, the shipped kernel, is
+// each has its weight, or storing its sums in place of its atomics, or
+// with the axis norms by double sqrt and ldexp as the kernel it replaced,
+// at degrees 3 and 5 (the main path's). FORM 0, the shipped kernel, is
 // accepted too.
 
 #include "../coeff_scatter.cu"
@@ -50,6 +51,8 @@ extern "C" int hpsdf_dev_k8(int form, const int32_t* child_idx,
         return dev_launch<float, true, kNoScatter>(deg, a, s);
       case kPlainStores:
         return dev_launch<float, true, kPlainStores>(deg, a, s);
+      case kDoubleRoots:
+        return dev_launch<float, true, kDoubleRoots>(deg, a, s);
     }
   } else if (dtype == 8) {
     const Args<double> a = HPSDF_ARGS(double);
@@ -62,6 +65,8 @@ extern "C" int hpsdf_dev_k8(int form, const int32_t* child_idx,
         return dev_launch<double, false, kNoScatter>(deg, a, s);
       case kPlainStores:
         return dev_launch<double, false, kPlainStores>(deg, a, s);
+      case kDoubleRoots:
+        return dev_launch<double, false, kDoubleRoots>(deg, a, s);
     }
   }
 #undef HPSDF_ARGS

@@ -1,4 +1,4 @@
-"""Time K8's phases apart (``hpsdf_tpu_torch/csrc/dev/k8_forms.cu``)
+"""Time K8's phases and choices apart (``csrc/dev/k8_forms.cu``)
 beside the shipped kernel (``csrc/coeff_scatter.cu``) and the kernel it
 replaced (``csrc/check/coeff_scatter_reference.cu``) on the card.
 
@@ -12,12 +12,13 @@ on. Timed: the shipped kernel through its wrapper (memset + launch); the
 shipped launch alone, into a buffer already cleared (what the memset
 costs); the kernel stopped once the live rays are known, and once each has
 its weight, and storing its sums in place of its atomics (timing only:
-their results are wrong); the kernel it replaced,
-which with the shipped kernel is held to autograd of the plain version and
-to the shipped kernel within chip_smoke.GRAD_RTOL32 / GRAD_RTOL64. Each is
-timed in CUDA graphs in two rounds, the second in the reverse order, with
-the operations it puts on the card a call. Prints one line a shape, then
-all of it as one JSON line.
+their results are wrong); the kernel with its axis norms by double sqrt
+and ldexp, as the kernel it replaced took them; and the kernel it
+replaced. These last two and the shipped kernel are held to autograd of
+the plain version and to the shipped kernel within chip_smoke.GRAD_RTOL32
+/ GRAD_RTOL64. Each is timed in CUDA graphs in two rounds, the second in
+the reverse order, with the operations it puts on the card a call. Prints
+one line a shape, then all of it as one JSON line.
 
     python3 k8_forms.py        # one card, ~2 min of command
 """
@@ -38,7 +39,7 @@ from hpsdf_tpu_torch import _kernels
 SIGNATURES = {"hpsdf_dev_k8": (_kernels._I32,
                                *_kernels._SIGNATURES["hpsdf_coeff_scatter"])}
 # FORM bits of csrc/coeff_scatter.cu: the kernel stopped after a phase
-LIVE_ONLY, NO_SCATTER, PLAIN_STORES = 1, 2, 4
+LIVE_ONLY, NO_SCATTER, PLAIN_STORES, DOUBLE_ROOTS = 1, 2, 4, 8
 # (label, form): None the wrapper, "alone" the shipped launch without its
 # memset, "replaced" the kernel it replaced, an int a phase
 FORMS = (("shipped (memset + launch)", None),
@@ -46,6 +47,7 @@ FORMS = (("shipped (memset + launch)", None),
          ("phase: the live rays known, then stop", LIVE_ONLY),
          ("phase: each ray's weight, then stop", NO_SCATTER),
          ("phase: the sums stored, no atomics", PLAIN_STORES),
+         ("the norms by double sqrt and ldexp", DOUBLE_ROOTS),
          ("the kernel it replaced", "replaced"))
 
 
@@ -105,7 +107,7 @@ def main():
         for name, form in FORMS:
             fns[name] = [call_of(form, t, w, kw) for t, w, kw, _ in cases]
             row[name] = {"ms": [], "rel_err": 0.0, "rel_err_shipped": 0.0}
-            if form in (None, "replaced"):
+            if form in (None, "replaced", DOUBLE_ROOTS):
                 for fn, (t, w, kw, plain) in zip(fns[name], cases):
                     got = fn()
                     want = plain()

@@ -267,6 +267,31 @@ def test_ctypes_signatures_match_the_sources():
                        else ctypes.c_int), name
 
 
+def test_k8_root_table_is_correctly_rounded():
+    """K8's table of roots (csrc/coeff_scatter.cu odd_root): case 2q + odd
+    holds sqrt(2q + 1) or sqrt(2 (2q + 1)) correctly rounded, for every
+    degree's q <= 12, so that times 2^(d >> 1) it is the double
+    sqrt((2q + 1) 2^d) the kernel it replaced computed, bit for bit."""
+    import math
+
+    path = os.path.join(os.path.dirname(_kernels.__file__), "csrc",
+                        "coeff_scatter.cu")
+    with open(path) as fh:
+        body = fh.read().split("double odd_root(int q, int odd) {", 1)[1]
+    body = body.split("\n}\n", 1)[0]
+    got = {int(k): float(v) for k, v in
+           re.findall(r"case (\d+): return ([0-9.]+);", body)}
+    got[25] = float(re.search(r"default: return ([0-9.]+);", body)[1])
+    assert sorted(got) == list(range(26))
+    for q in range(13):
+        for odd in (0, 1):
+            want = math.sqrt((2 * q + 1) * (1 + odd))
+            assert got[2 * q + odd] == want, (q, odd)
+            for d in (odd, odd + 2, odd + 8):
+                assert math.ldexp(want, d >> 1) == \
+                    math.sqrt((2 * q + 1) * math.ldexp(1.0, d))
+
+
 def test_inverse_points_are_values_at_points(monkeypatch):
     """chip_smoke.inverse_points gives the 7n points that an inverse
     chunk's terms read with values_and_gradient_at, in their order, and
