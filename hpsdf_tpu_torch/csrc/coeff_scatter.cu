@@ -73,8 +73,6 @@ constexpr int kNoScatter = 2;       // stop once each ray has its weight
 constexpr int kPlainStores = 4;     // the scatter stores, no atomics
 constexpr int kDoubleRoots = 8;     // the norms by double sqrt and ldexp,
                                     // as the kernel it replaced
-constexpr int kNoAdds = 16;         // the scatter's sums computed, not added
-constexpr int kSharedRuns = 32;     // runs found from leaves in shared memory
 
 // sqrt(2q + 1) (odd == 0) or sqrt(2 (2q + 1)) (odd == 1), correctly
 // rounded. Times 2^(d >> 1) they are sqrt((2q + 1) 2^d) in double bit for
@@ -189,7 +187,6 @@ coeff_scatter_kernel(const Args<T> a) {
   const unsigned lanes = __ballot_sync(hpsdf::kFullWarp, live);
   if (lanes == 0u || (FORM & kLiveOnly)) return;
 
-  int my_leaf = -1;                 // this lane's leaf, if it is live
   if (live) {
     T p[3], u[3], dir[3];
     bool in_axis[3];
@@ -270,13 +267,8 @@ coeff_scatter_kernel(const Args<T> a) {
         sN[tid * kNS + k * (DEG + 1) + q] = N[k][q];
     sW[tid] = w;
     sLeaf[tid] = cur;
-    my_leaf = cur;
   }
   if constexpr ((FORM & kNoScatter) != 0) return;
-  // the live lanes that start a run of lanes on one leaf
-  const int prev = __shfl_up_sync(hpsdf::kFullWarp, my_leaf, 1);
-  const unsigned starts = __ballot_sync(
-      hpsdf::kFullWarp, live && (lane == 0 || prev != my_leaf));
   __syncwarp();
 
   // lane j sums term j (then j + 32, ...) over the warp's live rays, a run
@@ -290,13 +282,10 @@ coeff_scatter_kernel(const Args<T> a) {
     int leaf = -1;
     auto add = [&](int row, T x) {
       T* dst = a.d_coeffs + (int64_t)row * kC + m;
-      if constexpr ((FORM & kNoAdds) != 0) {
-        if (x == T(-1234.5)) *dst = x;
-      } else if constexpr ((FORM & kPlainStores) != 0) {
+      if constexpr ((FORM & kPlainStores) != 0)
         *dst = x;
-      } else {
+      else
         atomicAdd(dst, x);
-      }
     };
     auto add_ray = [&](int r) {
       const int lr = sLeaf[r];
@@ -308,32 +297,9 @@ coeff_scatter_kernel(const Args<T> a) {
       const T* n = sN + r * kNS;
       acc += sW[r] * (n[ix] * n[DEG + 1 + iy] * n[2 * (DEG + 1) + iz]);
     };
-    if constexpr ((FORM & kSharedRuns) != 0) {
 #pragma unroll
-      for (int r = 0; r < 32; ++r)
-        if (lanes >> r & 1u) add_ray(w0 + r);
-    } else {
-      // every ray's term first (independent loads), then the runs
-      T x[32];
-#pragma unroll
-      for (int r = 0; r < 32; ++r) {
-        x[r] = T(0);
-        if (lanes >> r & 1u) {
-          const T* n = sN + (w0 + r) * kNS;
-          x[r] = sW[w0 + r] *
-                 (n[ix] * n[DEG + 1 + iy] * n[2 * (DEG + 1) + iz]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 32; ++r) {
-        if (starts >> r & 1u) {
-          if (leaf >= 0 && m < kC) add(leaf, acc);
-          acc = T(0);
-          leaf = __shfl_sync(hpsdf::kFullWarp, my_leaf, r);
-        }
-        acc += x[r];
-      }
-    }
+    for (int r = 0; r < 32; ++r)
+      if (lanes >> r & 1u) add_ray(w0 + r);
     if (m < kC) add(leaf, acc);
   }
 }

@@ -53,12 +53,6 @@ extern "C" int hpsdf_dev_k8(int form, const int32_t* child_idx,
         return dev_launch<float, true, kPlainStores>(deg, a, s);
       case kDoubleRoots:
         return dev_launch<float, true, kDoubleRoots>(deg, a, s);
-      case kNoAdds:
-        return dev_launch<float, true, kNoAdds>(deg, a, s);
-      case kSharedRuns:
-        return dev_launch<float, true, kSharedRuns>(deg, a, s);
-      case kSharedRuns | kNoAdds:
-        return dev_launch<float, true, kSharedRuns | kNoAdds>(deg, a, s);
     }
   } else if (dtype == 8) {
     const Args<double> a = HPSDF_ARGS(double);
@@ -73,12 +67,6 @@ extern "C" int hpsdf_dev_k8(int form, const int32_t* child_idx,
         return dev_launch<double, false, kPlainStores>(deg, a, s);
       case kDoubleRoots:
         return dev_launch<double, false, kDoubleRoots>(deg, a, s);
-      case kNoAdds:
-        return dev_launch<double, false, kNoAdds>(deg, a, s);
-      case kSharedRuns:
-        return dev_launch<double, false, kSharedRuns>(deg, a, s);
-      case kSharedRuns | kNoAdds:
-        return dev_launch<double, false, kSharedRuns | kNoAdds>(deg, a, s);
     }
   }
 #undef HPSDF_ARGS

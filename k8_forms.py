@@ -39,8 +39,7 @@ from hpsdf_tpu_torch import _kernels
 SIGNATURES = {"hpsdf_dev_k8": (_kernels._I32,
                                *_kernels._SIGNATURES["hpsdf_coeff_scatter"])}
 # FORM bits of csrc/coeff_scatter.cu: the kernel stopped after a phase
-LIVE_ONLY, NO_SCATTER, PLAIN_STORES, DOUBLE_ROOTS, NO_ADDS = 1, 2, 4, 8, 16
-SHARED_RUNS = 32
+LIVE_ONLY, NO_SCATTER, PLAIN_STORES, DOUBLE_ROOTS = 1, 2, 4, 8
 # (label, form): None the wrapper, "alone" the shipped launch without its
 # memset, "replaced" the kernel it replaced, an int a phase
 FORMS = (("shipped (memset + launch)", None),
@@ -48,9 +47,6 @@ FORMS = (("shipped (memset + launch)", None),
          ("phase: the live rays known, then stop", LIVE_ONLY),
          ("phase: each ray's weight, then stop", NO_SCATTER),
          ("phase: the sums stored, no atomics", PLAIN_STORES),
-         ("phase: the sums computed, not added", NO_ADDS),
-         ("runs found from leaves in shared memory", SHARED_RUNS),
-         ("the same, the sums computed, not added", SHARED_RUNS | NO_ADDS),
          ("the norms by double sqrt and ldexp", DOUBLE_ROOTS),
          ("the kernel it replaced", "replaced"))
 
@@ -111,7 +107,7 @@ def main():
         for name, form in FORMS:
             fns[name] = [call_of(form, t, w, kw) for t, w, kw, _ in cases]
             row[name] = {"ms": [], "rel_err": 0.0, "rel_err_shipped": 0.0}
-            if form in (None, "replaced", DOUBLE_ROOTS, SHARED_RUNS):
+            if form in (None, "replaced", DOUBLE_ROOTS):
                 for fn, (t, w, kw, plain) in zip(fns[name], cases):
                     got = fn()
                     want = plain()
