@@ -45,14 +45,14 @@
 // launches FORM 0. Forms measured and dropped (a block-level queue of the
 // live rays, a shared-memory table of the block's leaves flushed by float4
 // atomics or the bulk reduce-add, the rays staged in shared memory, the
-// coefficient row in 16-byte loads, a rolled scatter loop) are in
-// PERF.md.
+// coefficient row in 16-byte loads, a rolled scatter loop, runs found by a
+// ballot with the terms in registers) are in PERF.md.
 //
 // Bound. Per live point one descent (depth_used dependent loads), one
-// coefficient row (trace), the recurrences and C adds. A chunk's live
-// rays are a few thousand and its launch is short: what costs is the
-// launch and the memset, then one ray's chain of dependent loads and
-// arithmetic (PERF.md).
+// coefficient row (trace), the recurrences and C adds. A chunk has at most
+// some 15,000 live rays and its launch is short: what costs is the launch
+// and the memset, then one ray's chain of dependent loads and arithmetic,
+// then the scatter's loop (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
