@@ -1935,6 +1935,38 @@ def packed_grad_reference(pt, pts, cot, form):
     return d_rows, d_grid
 
 
+class RawGradientAlone(torch.autograd.Function):
+    """K5's raw gradient in a launch of its own (packed_eval_kernel's
+    RAW_GRAD mode), with K7's form 1 as its VJP to the tables: the inverse
+    chunk's second read as it was before the fused mode."""
+
+    @staticmethod
+    def forward(ctx, rows, grid, pts, pt):
+        from hpsdf_tpu_torch import accel as A
+
+        ctx.save_for_backward(pts)
+        ctx.pt = pt
+        return A.packed_eval_kernel(pt, pts, A.RAW_GRAD)
+
+    @staticmethod
+    def backward(ctx, u):
+        from hpsdf_tpu_torch import accel as A
+
+        (pts,) = ctx.saved_tensors
+        d_rows, d_grid = A.packed_grad_kernel(ctx.pt, pts, u.contiguous(), 1)
+        return d_rows, d_grid, None, None
+
+
+def split_read(pt, pts, n_grad):
+    """accel.values_and_gradient_at as two launches, K2 (values_at) and
+    K5's raw gradient alone: the read the fused mode replaced."""
+    from hpsdf_tpu_torch import accel as A
+
+    sub = pts[:n_grad]
+    return (A.values_at(pt, pts),
+            RawGradientAlone.apply(pt.rows, pt.grid, sub, pt))
+
+
 def row_scatter_reference(d_out, idx, n):
     """G's backward as it was before its redesign
     (csrc/check/row_scatter_reference.cu), called as its wrapper called
@@ -2066,10 +2098,7 @@ def phase_inverse(s, s_small, smi):
             mock.patch.object(R, "coeff_scatter_kernel",
                               lambda tree, cot, rays:
                               coeff_scatter_reference(tree, cot, rays=rays)), \
-            mock.patch.object(A, "values_and_gradient_at",
-                              lambda pt, pts, n: (A.values_at(pt, pts),
-                                                  A._point_gradient(
-                                                      pt, pts[:n]))):
+            mock.patch.object(A, "values_and_gradient_at", split_read):
         busy_ref, _, replaced = device_busy_ms(lambda: fit(s, 1), mine)
 
     def plain_march(pt, o, d, t_max, hit_eps, max_steps, step_cap=None,

@@ -25,8 +25,9 @@ Three kernels serve this layout on CUDA tensors:
     row in 16-byte loads, so the tables' rows must be 16-byte aligned (W a
     multiple of 4, as ``_row_width`` makes it).
   * K5, the same source with the gradient: unit normals for ``normals``,
-    or the raw world-space gradient for ``_point_gradient`` and the
-    backward of ``values_at`` with respect to the points.
+    or the raw world-space gradient for the backward of ``values_at`` with
+    respect to the points, and, fused into K2's launch, for
+    ``values_and_gradient_at``.
 
 and two backward kernels make the reads differentiable on CUDA tensors:
 
@@ -36,9 +37,9 @@ and two backward kernels make the reads differentiable on CUDA tensors:
     table row is summed once from its sources: with their inverse given
     (``gather_csr``; ``PackSupport`` keeps the grid's) in one plain launch,
     else grouped by row inside one cooperative launch;
-  * K7 ``packed_grad_kernel`` (``csrc/packed_grad.cu``): the VJP of
-    ``values_at`` (form 0) and of ``_point_gradient`` (form 1) with respect
-    to the rows and the grid, into the coefficient lanes of the row each
+  * K7 ``packed_grad_kernel`` (``csrc/packed_grad.cu``): the VJP of the
+    values (form 0) and of the raw gradients (form 1) with respect to the
+    rows and the grid, into the coefficient lanes of the row each
     point read, the points grouped by that row inside one cooperative
     launch. The meta lanes (0-7) are the tree's topology and take no
     gradient, in the plain versions too.
@@ -49,9 +50,9 @@ a call, no zero-fill.
 
 Tensors on the CPU take the plain torch versions in this module, and
 autograd differentiates them. On CUDA tensors ``values_at``,
-``_point_gradient`` (with respect to the tables) and ``row_gather`` carry
-gradients through their backward kernels; ``query_packed`` and ``normals``
-have none and raise when an input requires one. The TPU
+``values_and_gradient_at`` (with respect to the tables) and ``row_gather``
+carry gradients through their backward kernels; ``query_packed`` and
+``normals`` have none and raise when an input requires one. The TPU
 layout's one-hot meta matmul and zero-padded whole-row contraction
 (``hpsdf_tpu/accel.py:27-33``) exist for XLA's gather fusion and are not carried
 over: lanes are read by slicing.
@@ -697,8 +698,8 @@ packed_eval_kernel.fused_launches = 0
 def packed_grad_kernel(pt: PackedTree, pts: torch.Tensor, cot: torch.Tensor,
                        form: int):
     """Launch K7 on CUDA tensors: (d_rows, d_grid), the VJP of
-    ``values_at`` (form 0, weights ``cot`` (B,)) or of ``_point_gradient``
-    (form 1, cotangents ``cot`` (B, 3)) with respect to the packed tables,
+    ``values_at`` (form 0, weights ``cot`` (B,)) or of the raw gradients
+    ``point_gradient_plain`` gives (form 1, cotangents ``cot`` (B, 3)) with respect to the packed tables,
     in their coefficient lanes, zeros in the others. One launch a call.
     Raises on anything else."""
     _check_packed(pt, pts)
@@ -758,23 +759,6 @@ class _ValuesAt(torch.autograd.Function):
         return d_rows, d_grid, d_pts, None
 
 
-class _PointGradient(torch.autograd.Function):
-    """K5's raw gradient, with K7 (form 1) as its VJP with respect to the
-    tables."""
-
-    @staticmethod
-    def forward(ctx, rows, grid, pts, pt):
-        ctx.save_for_backward(pts)
-        ctx.pt = pt
-        return packed_eval_kernel(pt, pts, RAW_GRAD)
-
-    @staticmethod
-    def backward(ctx, u):
-        (pts,) = ctx.saved_tensors
-        d_rows, d_grid = packed_grad_kernel(ctx.pt, pts, u.contiguous(), 1)
-        return d_rows, d_grid, None, None
-
-
 class _ValuesAndGradient(torch.autograd.Function):
     """K2 and K5's raw gradient in one launch (the fused mode), with K7's
     two forms as its VJP with respect to the tables."""
@@ -804,8 +788,9 @@ def values_and_gradient_at_plain(pt: PackedTree, pts: torch.Tensor,
 
 
 def values_and_gradient_at(pt: PackedTree, pts: torch.Tensor, n_grad: int):
-    """(``values_at(pt, pts)``, ``_point_gradient(pt, pts[:n_grad])``) in
-    one read: the fused mode of K2/K5 on CUDA tensors (one launch),
+    """(``values_at(pt, pts)``, the raw world-space gradients (n_grad, 3)
+    of those values at ``pts[:n_grad]``, zero on axes clamped into the
+    root) in one read: the fused mode of K2/K5 on CUDA tensors (one launch),
     ``values_and_gradient_at_plain`` on CPU tensors. Differentiable with
     respect to ``pt.rows`` and ``pt.grid`` (K7's forms 0 and 1 on CUDA
     tensors), not the points."""
@@ -829,20 +814,6 @@ def values_at(pt: PackedTree, pts: torch.Tensor) -> torch.Tensor:
     if wants_grad(pt.rows, pt.grid, pts):
         return _ValuesAt.apply(pt.rows, pt.grid, pts, pt)
     return packed_eval_kernel(pt, pts, VALUES)
-
-
-def _point_gradient(pt: PackedTree, pts: torch.Tensor) -> torch.Tensor:
-    """The raw world-space gradient (B, 3) of ``values_at`` at world points
-    (zero on axes clamped into the root): what the gradient of
-    ``sum(values_at(pt, P))`` with respect to P is, without a double
-    backward. Differentiable with respect to ``pt.rows`` and ``pt.grid``
-    (K7's form 1 on CUDA tensors), not the points."""
-    if pts.device.type == "cpu":
-        return point_gradient_plain(pt, pts)
-    refuse_grad("_point_gradient with respect to the points", pts)
-    if wants_grad(pt.rows, pt.grid):
-        return _PointGradient.apply(pt.rows, pt.grid, pts, pt)
-    return packed_eval_kernel(pt, pts, RAW_GRAD)
 
 
 def query_packed(pt: PackedTree, pts: torch.Tensor) -> torch.Tensor:

@@ -40,13 +40,12 @@
 //     shuffles and had one lane add the C sums one by one.
 // Skipping a zero weight is exact: the kernel it replaced added +-0 there.
 // The (N, C) output is cleared by the caller (a memset) before the launch.
-// The FORM bits stop the kernel after a phase or undo one of its choices,
-// for k8_forms.py (csrc/dev/k8_forms.cu), which times them; the library
-// launches FORM 0. Forms measured and dropped (a block-level queue of the
-// live rays, a shared-memory table of the block's leaves flushed by float4
-// atomics or the bulk reduce-add, the rays staged in shared memory, the
-// coefficient row in 16-byte loads, a rolled scatter loop, runs found by a
-// ballot with the terms in registers) are in PERF.md.
+// Forms measured and dropped (a block-level queue of the live rays, a
+// shared-memory table of the block's leaves flushed by float4 atomics or the
+// bulk reduce-add, the rays staged in shared memory, the coefficient row in
+// 16-byte loads, a rolled scatter loop, runs found by a ballot with the terms
+// in registers, stores in place of the atomics, the norms by double sqrt and
+// ldexp) are in PERF.md.
 //
 // Bound. Per live point one descent (depth_used dependent loads), one
 // coefficient row (trace), the recurrences and C adds. A chunk has at most
@@ -64,15 +63,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-
-// the FORM bits, which only k8_forms.py sets: the first three stop or cut a
-// phase, for timing only (the result is wrong); the last undoes the table
-// of roots below
-constexpr int kLiveOnly = 1;        // stop once the live rays are known
-constexpr int kNoScatter = 2;       // stop once each ray has its weight
-constexpr int kPlainStores = 4;     // the scatter stores, no atomics
-constexpr int kDoubleRoots = 8;     // the norms by double sqrt and ldexp,
-                                    // as the kernel it replaced
 
 // sqrt(2q + 1) (odd == 0) or sqrt(2 (2q + 1)) (odd == 1), correctly
 // rounded. Times 2^(d >> 1) they are sqrt((2q + 1) 2^d) in double bit for
@@ -121,22 +111,6 @@ struct TraceIn {
   const uint8_t* hit;     // (B,)
 };
 
-template <class T>
-struct Args {
-  const int32_t* child_idx;
-  const T* centre;
-  const int32_t* depth;
-  const T* coeffs;
-  int depth_used;
-  const T* pts;           // query form
-  TraceIn tr;             // trace form
-  int64_t B;
-  T rc[3], inv[3];
-  const T* cot;
-  int outside_zero;
-  T* d_coeffs;
-};
-
 // The indices (i, j, k) of basis term m < C of degree DEG, in
 // for_each_term's order (by total degree p, then i, then j).
 template <int DEG>
@@ -157,9 +131,16 @@ __device__ __forceinline__ void term_indices(int m, int& i, int& j, int& k) {
   k = p - i - j;
 }
 
-template <class T, int DEG, bool TRACE, int FORM>
+template <class T, int DEG, bool TRACE>
 __global__ void __launch_bounds__(kThreads)
-coeff_scatter_kernel(const Args<T> a) {
+coeff_scatter_kernel(const int32_t* __restrict__ child_idx,
+                     const T* __restrict__ centre,
+                     const int32_t* __restrict__ depth,
+                     const T* __restrict__ coeffs, int depth_used,
+                     const T* __restrict__ pts, TraceIn tr, int64_t B,
+                     T rc0, T rc1, T rc2, T inv0, T inv1, T inv2,
+                     const T* __restrict__ cot, int outside_zero,
+                     T* __restrict__ d_coeffs) {
   constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
   constexpr int kNS = 3 * (DEG + 1);
   __shared__ T sN[kThreads * kNS];  // a live lane's N[axis][q]
@@ -167,59 +148,60 @@ coeff_scatter_kernel(const Args<T> a) {
   __shared__ int sLeaf[kThreads];   // its leaf
   const int tid = threadIdx.x, lane = tid & 31;
   const int64_t i = (int64_t)blockIdx.x * kThreads + tid;
+  const T rc[3] = {rc0, rc1, rc2};
+  const T inv[3] = {inv0, inv1, inv2};
 
   // which rays carry a weight, from the cheap inputs
   bool live = false;
-  if (i < a.B) {
+  if (i < B) {
     if constexpr (TRACE) {
-      live = __ldg(a.tr.hit + i) != 0 && __ldg(a.cot + i) != T(0);
+      live = __ldg(tr.hit + i) != 0 && __ldg(cot + i) != T(0);
     } else {
-      live = __ldg(a.cot + i) != T(0);
-      if (a.outside_zero) {
+      live = __ldg(cot + i) != T(0);
+      if (outside_zero) {
 #pragma unroll
         for (int k = 0; k < 3; ++k)
           live = live &&
-                 fabs((__ldg(a.pts + 3 * i + k) - a.rc[k]) * a.inv[k]) <=
+                 fabs((__ldg(pts + 3 * i + k) - rc[k]) * inv[k]) <=
                      T(0.5);
       }
     }
   }
   const unsigned lanes = __ballot_sync(hpsdf::kFullWarp, live);
-  if (lanes == 0u || (FORM & kLiveOnly)) return;
+  if (lanes == 0u) return;
 
   if (live) {
     T p[3], u[3], dir[3];
     bool in_axis[3];
     if constexpr (TRACE) {
-      const float t = __ldg(a.tr.t + i);
+      const float t = __ldg(tr.t + i);
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        dir[k] = __ldg(a.tr.dirs + 3 * i + k);
-        p[k] = __ldg(a.tr.origins + 3 * i + k) + t * dir[k];
+        dir[k] = __ldg(tr.dirs + 3 * i + k);
+        p[k] = __ldg(tr.origins + 3 * i + k) + t * dir[k];
       }
     } else {
 #pragma unroll
-      for (int k = 0; k < 3; ++k) p[k] = __ldg(a.pts + 3 * i + k);
+      for (int k = 0; k < 3; ++k) p[k] = __ldg(pts + 3 * i + k);
     }
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      const T w = (p[k] - a.rc[k]) * a.inv[k];
+      const T w = (p[k] - rc[k]) * inv[k];
       in_axis[k] = fabs(w) <= T(0.5);
       u[k] = w < T(-0.5) ? T(-0.5) : (w > T(0.5) ? T(0.5) : w);
     }
 
     int cur = 0;
-    for (int r = 0; r < a.depth_used; ++r) {
-      const int c0 = __ldg(a.child_idx + cur);
+    for (int r = 0; r < depth_used; ++r) {
+      const int c0 = __ldg(child_idx + cur);
       if (c0 < 0) break;
-      const T* cc = a.centre + 3 * (int64_t)cur;
+      const T* cc = centre + 3 * (int64_t)cur;
       cur = c0 + (u[0] >= __ldg(cc)) + ((u[1] >= __ldg(cc + 1)) << 1) +
             ((u[2] >= __ldg(cc + 2)) << 2);
     }
-    const int d = __ldg(a.depth + cur);
-    const T scale = (FORM & kDoubleRoots) ? (T)ldexp(1.0, d + 1)
-                                          : (T)pow2(d + 1);
-    const T* cc = a.centre + 3 * (int64_t)cur;
+    const int d = __ldg(depth + cur);
+    const T scale = (T)pow2(d + 1);
+    const T* cc = centre + 3 * (int64_t)cur;
     // N[k][q] = L_q(x_k) nt[q], nt[q] = sqrt((2q+1) 2^d); dN likewise
     T N[3][DEG + 1], dN[3][DEG + 1];
 #pragma unroll
@@ -229,9 +211,7 @@ coeff_scatter_kernel(const Args<T> a) {
       if constexpr (TRACE) hpsdf::legendre_deriv<DEG>(L, dL);
 #pragma unroll
       for (int q = 0; q <= DEG; ++q) {
-        const T nt = (FORM & kDoubleRoots)
-                         ? (T)sqrt((2.0 * q + 1.0) * ldexp(1.0, d))
-                         : (T)(odd_root(q, d & 1) * pow2(d >> 1));
+        const T nt = (T)(odd_root(q, d & 1) * pow2(d >> 1));
         N[k][q] = L[q] * nt;
         if constexpr (TRACE) dN[k][q] = dL[q] * nt;
       }
@@ -239,7 +219,7 @@ coeff_scatter_kernel(const Args<T> a) {
 
     T w;
     if constexpr (TRACE) {
-      const T* c = a.coeffs + (int64_t)cur * kC;
+      const T* c = coeffs + (int64_t)cur * kC;
       T g[3] = {T(0), T(0), T(0)};
       hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
         const T cm = __ldg(c + m);
@@ -250,15 +230,11 @@ coeff_scatter_kernel(const Args<T> a) {
       T dfdt = T(0);
 #pragma unroll
       for (int k = 0; k < 3; ++k)
-        if (in_axis[k]) dfdt += g[k] * scale * a.inv[k] * dir[k];
+        if (in_axis[k]) dfdt += g[k] * scale * inv[k] * dir[k];
       const T safe = fabs(dfdt) > T(1e-6) ? dfdt : T(1e-6);
-      w = -__ldg(a.cot + i) / safe;
+      w = -__ldg(cot + i) / safe;
     } else {
-      w = __ldg(a.cot + i);
-    }
-    if constexpr ((FORM & kNoScatter) != 0) {
-      a.d_coeffs[(int64_t)cur * kC] = w * N[0][DEG] * N[1][DEG] * N[2][DEG];
-      return;
+      w = __ldg(cot + i);
     }
 #pragma unroll
     for (int k = 0; k < 3; ++k)
@@ -268,7 +244,6 @@ coeff_scatter_kernel(const Args<T> a) {
     sW[tid] = w;
     sLeaf[tid] = cur;
   }
-  if constexpr ((FORM & kNoScatter) != 0) return;
   __syncwarp();
 
   // lane j sums term j (then j + 32, ...) over the warp's live rays, a run
@@ -280,17 +255,11 @@ coeff_scatter_kernel(const Args<T> a) {
     if (m < kC) term_indices<DEG>(m, ix, iy, iz);
     T acc = T(0);
     int leaf = -1;
-    auto add = [&](int row, T x) {
-      T* dst = a.d_coeffs + (int64_t)row * kC + m;
-      if constexpr ((FORM & kPlainStores) != 0)
-        *dst = x;
-      else
-        atomicAdd(dst, x);
-    };
     auto add_ray = [&](int r) {
       const int lr = sLeaf[r];
       if (lr != leaf) {
-        if (leaf >= 0 && m < kC) add(leaf, acc);
+        if (leaf >= 0 && m < kC)
+          atomicAdd(d_coeffs + (int64_t)leaf * kC + m, acc);
         acc = T(0);
         leaf = lr;
       }
@@ -300,28 +269,8 @@ coeff_scatter_kernel(const Args<T> a) {
 #pragma unroll
     for (int r = 0; r < 32; ++r)
       if (lanes >> r & 1u) add_ray(w0 + r);
-    if (m < kC) add(leaf, acc);
+    if (m < kC) atomicAdd(d_coeffs + (int64_t)leaf * kC + m, acc);
   }
-}
-
-template <class T>
-Args<T> make_args(const int32_t* child_idx, const void* centre,
-                  const int32_t* depth, const void* coeffs, int depth_used,
-                  const void* pts, const float* origins, const float* dirs,
-                  const float* t, const uint8_t* hit, int64_t B, double rc0,
-                  double rc1, double rc2, double inv0, double inv1,
-                  double inv2, const void* cot, int outside_zero,
-                  void* d_coeffs) {
-  return Args<T>{child_idx, (const T*)centre, depth, (const T*)coeffs,
-                 depth_used, (const T*)pts, TraceIn{origins, dirs, t, hit},
-                 B, {(T)rc0, (T)rc1, (T)rc2}, {(T)inv0, (T)inv1, (T)inv2},
-                 (const T*)cot, outside_zero, (T*)d_coeffs};
-}
-
-template <class T, int DEG, bool TRACE, int FORM>
-void launch(const Args<T>& a, cudaStream_t s) {
-  const unsigned blocks = (unsigned)((a.B + kThreads - 1) / kThreads);
-  coeff_scatter_kernel<T, DEG, TRACE, FORM><<<blocks, kThreads, 0, s>>>(a);
 }
 
 }  // namespace
@@ -341,18 +290,22 @@ extern "C" int hpsdf_coeff_scatter(const int32_t* child_idx,
                                    int outside_zero, int dtype,
                                    void* d_coeffs, void* stream) {
   if (B <= 0 || (dtype != 4 && dtype != 8)) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
-#define HPSDF_ARGS(T)                                                        \
-  make_args<T>(child_idx, centre, depth, coeffs, depth_used, pts, origins,   \
-               dirs, t, hit, B, rc0, rc1, rc2, inv0, inv1, inv2, cot,        \
-               outside_zero, d_coeffs)
+  const TraceIn tr{origins, dirs, t, hit};
 #define HPSDF_LAUNCH(D)                                                      \
   if (dtype == 8)                                                            \
-    launch<double, D, false, 0>(HPSDF_ARGS(double), s);                      \
+    coeff_scatter_kernel<double, D, false><<<blocks, kThreads, 0, s>>>(      \
+        child_idx, (const double*)centre, depth, (const double*)coeffs,      \
+        depth_used, (const double*)pts, tr, B, rc0, rc1, rc2, inv0, inv1,    \
+        inv2, (const double*)cot, outside_zero, (double*)d_coeffs);          \
   else                                                                       \
-    launch<float, D, true, 0>(HPSDF_ARGS(float), s)
+    coeff_scatter_kernel<float, D, true><<<blocks, kThreads, 0, s>>>(        \
+        child_idx, (const float*)centre, depth, (const float*)coeffs,        \
+        depth_used, nullptr, tr, B, (float)rc0, (float)rc1, (float)rc2,      \
+        (float)inv0, (float)inv1, (float)inv2, (const float*)cot,            \
+        outside_zero, (float*)d_coeffs)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
-#undef HPSDF_ARGS
   return (int)cudaGetLastError();
 }

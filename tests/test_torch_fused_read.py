@@ -242,12 +242,3 @@ def test_inverse_chunks_give_the_depth_cotangent():
     hits = torch.cat([c["hit"] for c in chunks])[:n]
     assert torch.equal(hits & s["hit_star"], m[:n].bool())
 
-
-def test_k8_forms_needs_a_card(monkeypatch, capsys):
-    """k8_forms.py, which times K8's development forms on the card, stops
-    with exit code 1 and prints no result where there is no card."""
-    import k8_forms
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert k8_forms.main() == 1
-    assert capsys.readouterr().out == ""

@@ -1,8 +1,9 @@
 """Gradients of the port's reads (hpsdf_tpu_torch on CPU tensors: the plain
 versions of kernels G, K2/K5 and K1, which the backward kernels G-bwd, K7
 and K8 are held to on the card) against jax.grad on hpsdf_tpu, on the same
-numpy inputs: ``values_at``, ``_point_gradient``, ``row_gather``,
-``repack_folded`` and ``query`` at basis degrees 1, 3 and 5 on
+numpy inputs: ``values_at``, the raw gradients of
+``values_and_gradient_at``, ``row_gather``, ``repack_folded`` and
+``query`` at basis degrees 1, 3 and 5 on
 ``chip_smoke.synthetic_tree`` (points straddling the root), and the trace's
 implicit VJP on a fitted sphere, against jax.grad of
 ``render._trace_core`` and against finite differences of the
@@ -108,7 +109,8 @@ def test_point_gradient(trees):
         lambda r, g: jnp.sum(jnp.asarray(u) * grad_p(r, g)),
         argnums=(0, 1))(jp.rows, jp.grid)
     pk, rows, grid = _torch_tables(tp)
-    got = TA._point_gradient(pk, torch.tensor(np.asarray(p32)))
+    got = TA.values_and_gradient_at(pk, torch.tensor(np.asarray(p32)),
+                                    N_PTS)[1]
     _close(got.detach(), want, RTOL32)
     (torch.as_tensor(u) * got).sum().backward()
     _close(rows.grad[:, C0:], np.asarray(want_rows)[:, C0:], RTOL32)

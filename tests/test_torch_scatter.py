@@ -253,12 +253,10 @@ def test_ctypes_signatures_match_the_sources():
     C sources' (ctypes passes what it is told: a wrong one corrupts the
     launch without an error)."""
     import k7_forms
-    import k8_forms
 
     c = _c_signatures()
     bound = {**_kernels._SIGNATURES, **_kernels._SIZE_SIGNATURES,
-             **_kernels._CHECK_SIGNATURES, **k7_forms.SIGNATURES,
-             **k8_forms.SIGNATURES}
+             **_kernels._CHECK_SIGNATURES, **k7_forms.SIGNATURES}
     assert set(bound) <= set(c)
     for name, args in bound.items():
         ret, params = c[name]

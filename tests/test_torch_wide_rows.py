@@ -152,9 +152,9 @@ def test_ptxas_check(monkeypatch, spill):
                          stack=24 if spill == "K7" and f else 0,
                          args=f"Li{d}ELi{f}E") for f in (0, 1))
         report += _ptxas_entry("coeff_scatter_kernel", d, None,
-                               args=f"dLi{d}ELb0ELi0E")
+                               args=f"dLi{d}ELb0E")
         report += _ptxas_entry("coeff_scatter_kernel", d, None,
-                               args=f"fLi{d}ELb1ELi1E")
+                               args=f"fLi{d}ELb1E")
     report += _ptxas_entry("row_scatter_kernel", 0, None, args="")
     report += _ptxas_entry("row_scatter_csr_kernel", 0, None, args="",
                            stack=8 if spill == "G CSR" else 0)
