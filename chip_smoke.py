@@ -917,7 +917,7 @@ def phase_render(tree, out_dir):
     from hpsdf_tpu_torch.accel import (NORMALS, normals_plain,
                                        packed_eval_kernel)
     from hpsdf_tpu_torch.render import (CONE_TILE, HIT_EPS, MAX_STEPS,
-                                        _march_block, cone_kernel,
+                                        _march_block, cone_start_plain,
                                         march_kernel)
     from hpsdf_tpu_torch.viz import write_bmp
 
@@ -1002,14 +1002,19 @@ def phase_render(tree, out_dir):
     # and K3 from its starts
     check(launches["cone"] == (0 if lo is not None else 1),
           f"K4 launches on the render path: {launches['cone']}")
-    t0 = None if lo is not None else cone_kernel(
-        pt, o, dirs, T_MAX, HIT_EPS, (view["height"], view["width"],
-                                      CONE_TILE))
+    tiles = (view["height"], view["width"], CONE_TILE)
+    t0 = None
+    if lo is None:
+        t0, rounds = check_k4_exact(pt, o, dirs, T_MAX, tiles, lo,
+                                    "the render's rays")
+        _, rounds_p = cone_start_plain(pt, o, dirs, T_MAX, HIT_EPS, tiles,
+                                       with_stats=True)
+        k = check_k4_rounds(rounds, rounds_p, "the render's rays")
     t_c, h_c, _ = march_kernel(*args, lo=lo, width=view["width"], t0=t0)
     check(bool(torch.equal(h_c, h_r))
           and bool(torch.equal(t_c[h_c], depth.reshape(-1)[h_r])),
           "render_image's hits and depth are K4's and K3's")
-    cone = "no cone (LOD tables)"
+    cone, cone_ms = "no cone (LOD tables)", {}
     if t0 is not None:
         # the carve's fit is no metric field (it holds the CSG tolerance, and
         # its hits are held to the analytic carve above), and its flat faces
@@ -1017,8 +1022,15 @@ def phase_render(tree, out_dir):
         # spans far more than T_ATOL: the render path's own standard for K3
         # against the plain march bounds the rays a start changes
         cone = cone_text(cone_vs_plain(
-            args, lo, (view["height"], view["width"], CONE_TILE), t0, t_c,
-            h_c, t_p, h_p, "the carved tree", K4_CHANGED_SHARE_CARVE))
+            args, lo, tiles, t0, t_c, h_c, t_p, h_p, "the carved tree",
+            K4_CHANGED_SHARE_CARVE))
+        cone_ms = k4_times(pt, o, dirs, tiles, lo, t0, view["width"])
+        cone += (f"; K4's t0 equal to the kernel it replaced bit for bit, "
+                 f"per-tile rounds equal to plain (k {k}) | in CUDA graphs "
+                 f"(best of 2 turns): K4 {cone_ms['k4']:.4f} ms, the kernel "
+                 f"it replaced {cone_ms['reference']:.4f} ms, K3 from K4's "
+                 f"starts {cone_ms['k3_t0']:.4f} ms, K3 alone "
+                 f"{cone_ms['k3']:.4f} ms")
     agree = float((h_k == h_p).float().mean())
     both = h_k & h_p
     check(agree >= HIT_AGREE and bool(both.any()),
@@ -1053,7 +1065,8 @@ def phase_render(tree, out_dir):
           f"min dot {dot_min:.8f} over {int(both.sum())} hits; images and "
           f"tree under {os.path.relpath(out_dir)}, save/load bit-exact, "
           f"launches {launches}", flush=True)
-    return (launches, {"carve_s": carve_s, "render_s": render_s}, frac,
+    return (launches, {"carve_s": carve_s, "render_s": render_s,
+                       "cone": cone_ms}, frac,
             t_err, dot_min, largest[0].to(torch.float32), pt, ph)
 
 
@@ -1098,14 +1111,6 @@ def phase_k2_main(pt_s, carve_pts, pt_c, ph):
           f"{t['hits_normals_plain_ms']:.4f} ms, byte bound "
           f"{t['hits_normals_bound_ms']:.4f} ms", flush=True)
     return v_err, dot_min, t
-
-
-def cone_ops(n_rays, n_tiles, deg):
-    """An upper bound on K4's f32 operations: K4_OPS_PER_RAY a ray for the
-    tile's spread and intervals, and CONE_CAP steps a tile of k3_ops's
-    arithmetic; the bytes bound K4 either way."""
-    from hpsdf_tpu_torch.render import CONE_CAP
-    return n_rays * K4_OPS_PER_RAY + n_tiles * CONE_CAP * k3_ops(deg)
 
 
 def centre_ray_starts(t_p, h_p, tiles):
@@ -1203,14 +1208,198 @@ def cone_text(c):
             f"{b['earlier']} earlier, {b['later']} later)")
 
 
+def cone_reference(pt, origins, dirs, t_max, hit_eps, tiles, lo=None,
+                   max_steps=None):
+    """K4 as it was before its redesign (csrc/check/cone_reference.cu, a
+    warp a tile, in a library of its own on no path of the package),
+    called as cone_kernel is. Returns t0."""
+    from hpsdf_tpu_torch import _kernels
+    from hpsdf_tpu_torch.render import CONE_CAP, MAX_STEPS, _root_box
+
+    max_steps = MAX_STEPS if max_steps is None else max_steps
+    H, W, T = tiles
+    shared = origins.shape[0] > 1 and origins.stride() == (0, 1)
+    if not shared:
+        origins = origins.contiguous()
+    dirs = dirs.contiguous()
+    t0 = torch.empty(origins.shape[0], dtype=torch.float32,
+                     device=origins.device)
+    rc, half = _root_box(pt)
+    inv = (1.0 / np.asarray(pt.root_sizes)).astype(np.float32)
+    box = np.concatenate([rc - half, rc + half, rc, inv]).astype(np.float32)
+    rc_ = _kernels.load_check().hpsdf_cone_reference(
+        pt.grid.data_ptr(), pt.rows.data_ptr(), pt.width, pt.deg_used,
+        None if lo is None else lo[0].data_ptr(),
+        None if lo is None else lo[1].data_ptr(),
+        pt.grid_depth, pt.extra_rounds, origins.data_ptr(),
+        0 if shared else 3, dirs.data_ptr(), H, W, T, box.ctypes.data,
+        float(np.float32(t_max)), float(np.float32(hit_eps)),
+        min(CONE_CAP, int(max_steps)), t0.data_ptr(),
+        _kernels.stream_of(dirs))
+    _kernels.check(_kernels.load(), rc_, "cone_reference")
+    return t0
+
+
+def check_k4_exact(pt, o, d, t_max, tiles, lo, label):
+    """K4 against the kernel it replaced, on the same inputs: t0 bit for
+    bit. Returns K4's (t0, per-tile rounds)."""
+    from hpsdf_tpu_torch.render import HIT_EPS, cone_kernel
+
+    got, rounds = cone_kernel(pt, o, d, t_max, HIT_EPS, tiles, lo=lo,
+                              with_stats=True)
+    want = cone_reference(pt, o, d, t_max, HIT_EPS, tiles, lo=lo)
+    sync()
+    check(bool(torch.equal(got, want)),
+          f"K4 vs the kernel it replaced ({label}): "
+          f"{int((got != want).sum())} of {got.numel()} starts differ")
+    return got, rounds
+
+
+def check_k4_rounds(rounds, rounds_p, label):
+    """K4's per-tile rounds (and so the lockstep round count k, their
+    largest) against the plain version's."""
+    k, k_p = int(rounds.max()), int(rounds_p.max())
+    check(bool(torch.equal(rounds, rounds_p.to(rounds.dtype))) and k == k_p,
+          f"K4 rounds vs plain ({label}): k {k} against {k_p}, "
+          f"{int((rounds != rounds_p).sum())} of {rounds.numel()} tiles "
+          f"differ")
+    return k
+
+
+def tile_rays(tiles, j):
+    """The ray indices of tile j of a row-major H x W grid, row-major."""
+    H, W, T = tiles
+    ty, tx = divmod(j, W // T)
+    r = torch.arange(T)
+    return ((ty * T + r)[:, None] * W + tx * T + r[None, :]).reshape(-1)
+
+
+def cone_read_bytes(pt, lo, o, d, tiles, rounds, t_max):
+    """The table bytes K4's marches must move: the rows their centre rays'
+    samples reach, as packed_read_bytes counts them (the row read whole, a
+    sector of each row the walk passes), on the LOD tables where the march
+    reads them. The samples come from the plain version capped at each
+    round: the t a tile starts round m + 1 from."""
+    from hpsdf_tpu_torch.render import HIT_EPS, _tiles_of, cone_start_plain
+
+    H, W, T = tiles
+    c = (T // 2) * T + T // 2
+    oc, dc = _tiles_of(o, tiles)[:, c], _tiles_of(d, tiles)[:, c]
+    pts = []
+    for m in range(int(rounds.max())):
+        t = cone_start_plain(pt, o, d, t_max, HIT_EPS, tiles, lo=lo,
+                             max_steps=m).reshape(H // T, T, W // T, T)
+        t = t[:, 0, :, 0].reshape(-1)
+        live = rounds > m
+        pts.append(oc[live] + t[live, None] * dc[live])
+    if not pts:
+        return 0
+    tables = pt if lo is None else dataclasses.replace(pt, grid=lo[0],
+                                                       rows=lo[1])
+    return packed_read_bytes(tables, torch.cat(pts), whole=True)
+
+
+def cone_ops(n_rays, total_rounds, deg, lo):
+    """K4's f32 operations: K4_OPS_PER_RAY a ray for the tile's spread and
+    intervals, and the rounds the tiles' marches took at k3_ops's
+    arithmetic a step (an LOD step on the LOD tables)."""
+    return n_rays * K4_OPS_PER_RAY + total_rounds * (
+        k3_ops(2, lo=True) if lo is not None else k3_ops(deg))
+
+
+def sass_round(lib_path, template_args):
+    """SASS instructions of one round of a cone_kernel instantiation: the
+    largest loop (a backward branch) holding a 16-byte global load, which
+    is the march's (the locate's and the row's loads), in cuobjdump's
+    listing of the library. None where the toolkit has no cuobjdump."""
+    from hpsdf_tpu_torch import _kernels
+
+    tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    if not os.access(tool, os.X_OK):
+        return None
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300).stdout
+    best = None
+    for block in re.split(r"\n\s*Function : ", out)[1:]:
+        name = block.split("\n", 1)[0].strip()
+        m = re.search(r"cone_kernelI((?:L[a-z]\d+E|[a-z])+)E", name)
+        if not m or [int(v) for v in re.findall(r"L[a-z](\d+)E",
+                                                m.group(1))] \
+                != list(template_args):
+            continue
+        code = [(int(a, 16), text) for a, text in
+                re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
+        at = {a: i for i, (a, _) in enumerate(code)}
+        for i, (a, text) in enumerate(code):
+            b = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+            if not b or int(b.group(1), 16) >= a \
+                    or int(b.group(1), 16) not in at:
+                continue
+            body = code[at[int(b.group(1), 16)]:i + 1]
+            if any("LDG" in t and ".128" in t for _, t in body):
+                best = max(best or 0, len(body))
+    return best
+
+
+def issue_estimate_ms(instr, rounds, tiles, lane):
+    """Warp instructions of the marches over the card's issue rate (132 SMs
+    x 4 schedulers x the SM clock nvidia-smi reads): ``instr`` a round,
+    each tile a warp (``lane`` False: the kernel it replaced) or a lane of
+    a warp of 32 consecutive tiles of its row (True), a warp as long as its
+    longest tile."""
+    if instr is None:
+        return None, None
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0]) * 1e6
+    H, W, T = tiles
+    r = rounds.long().reshape(H // T, W // T)
+    if lane:
+        pad = (-r.shape[1]) % 32
+        r = torch.nn.functional.pad(r, (0, pad)).reshape(r.shape[0], -1, 32)
+        r = r.amax(dim=-1)
+    warp_instr = float(r.sum()) * instr
+    return warp_instr / (132 * 4 * clock) * 1e3, clock
+
+
+def k4_times(pt, o, d, tiles, lo, t0, width, extra=None):
+    """K4, the kernel it replaced, K3 from K4's starts and K3 alone, in
+    turns in CUDA graphs (best of 2 turns), with ``extra`` forms beside
+    them."""
+    from hpsdf_tpu_torch.render import (HIT_EPS, MAX_STEPS, cone_kernel,
+                                        march_kernel)
+
+    args = (pt, o, d, T_MAX, HIT_EPS, MAX_STEPS)
+    forms = {"reference": lambda: cone_reference(pt, o, d, T_MAX, HIT_EPS,
+                                                 tiles, lo=lo),
+             "k4": lambda: cone_kernel(pt, o, d, T_MAX, HIT_EPS, tiles,
+                                       lo=lo),
+             **(extra or {}),
+             "k3_t0": lambda: march_kernel(*args, lo=lo, width=width,
+                                           t0=t0),
+             "k3": lambda: march_kernel(*args, lo=lo, width=width)}
+    ms = {k: [] for k in forms}
+    for _ in range(2):
+        for k, fn in forms.items():
+            ms[k].append(graph_ms(fn, 10))
+    return {k: min(v) for k, v in ms.items()}
+
+
 def phase_k4(pt, name, smi):
     """K4 then K3 at 1024^2 rays from (0, 0, -1.8), T_MAX 5 (bench.py's
     protocol), on the tree's LOD rows where it has them: K4's starts
-    against its plain version (K4_T0_ATOL on K4_T0_AGREE of the rays, the
-    escaped tiles the same), K4 + K3 against the plain march without a
-    cone (``cone_vs_plain``, K4_CHANGED_SHARE); then K4 in a CUDA graph
-    and K3 with and without its starts, in turns. Returns times and
-    errors."""
+    against the kernel it replaced (bit for bit) and its plain version
+    (K4_T0_ATOL on K4_T0_AGREE of the rays, the escaped tiles the same, the
+    per-tile rounds equal), K4 + K3 against the plain march without a
+    cone (``cone_vs_plain``, K4_CHANGED_SHARE); then, in turns in CUDA
+    graphs, K4 and the kernel it replaced as they run and with no round
+    (the reduction and the writes alone), K3 with and without K4's starts,
+    and both kernels on the longest tile alone and on a tile that misses
+    the root; the bound on the rounds the tiles took and the rows their
+    centre rays reach; and the issue estimate of the marches. Returns
+    times and errors."""
+    from hpsdf_tpu_torch import _kernels
     from hpsdf_tpu_torch.render import (CONE_TILE, HIT_EPS, MAX_STEPS,
                                         _march_block, camera_rays,
                                         cone_kernel, cone_start_plain,
@@ -1222,10 +1411,11 @@ def phase_k4(pt, name, smi):
     lo = pt.lo
     tiles = (side, side, CONE_TILE)
     args = (pt, o, d, T_MAX, HIT_EPS, MAX_STEPS)
-    t0 = cone_kernel(pt, o, d, T_MAX, HIT_EPS, tiles, lo=lo)
+    t0, rounds = check_k4_exact(pt, o, d, T_MAX, tiles, lo, name)
     sync()
     t1 = time.perf_counter()
-    t0_p = cone_start_plain(pt, o, d, T_MAX, HIT_EPS, tiles, lo=lo)
+    t0_p, rounds_p = cone_start_plain(pt, o, d, T_MAX, HIT_EPS, tiles,
+                                      lo=lo, with_stats=True)
     sync()
     plain_ms = (time.perf_counter() - t1) * 1e3
     escape = float(np.float32(T_MAX) + np.float32(1.0))
@@ -1234,41 +1424,87 @@ def phase_k4(pt, name, smi):
     check(bool(torch.equal(t0 == escape, t0_p == escape))
           and t0_agree >= K4_T0_AGREE,
           f"K4 vs plain ({name}): {t0_agree} of rays within {K4_T0_ATOL}")
+    k = check_k4_rounds(rounds, rounds_p, name)
     t_c, h_c, _ = march_kernel(*args, lo=lo, width=side, t0=t0)
     t_p, h_p, _ = _march_block(*args, lo=lo)
     change = cone_vs_plain(args, lo, tiles, t0, t_c, h_c, t_p, h_p, name,
                            K4_CHANGED_SHARE)
-    forms = {"k4": lambda: cone_kernel(pt, o, d, T_MAX, HIT_EPS, tiles,
-                                       lo=lo),
-             "k3_t0": lambda: march_kernel(*args, lo=lo, width=side, t0=t0),
-             "k3": lambda: march_kernel(*args, lo=lo, width=side)}
-    ms = {k: [] for k in forms}
-    for _ in range(2):
-        for k, fn in forms.items():
-            ms[k].append(graph_ms(fn, 10))
-    ms = {k: min(v) for k, v in ms.items()}
-    n, n_tiles = o.shape[0], (side // CONE_TILE) ** 2
-    by_bytes = bytes_ms(pt.rows, pt.grid, d, *(lo or ()), extra=12 + 4 * n)
-    by_ops = cone_ops(n, n_tiles, pt.deg_used) / F32_PEAK * 1e3
+    ms = k4_times(pt, o, d, tiles, lo, t0, side, extra={
+        "reference_cap0": lambda: cone_reference(
+            pt, o, d, T_MAX, HIT_EPS, tiles, lo=lo, max_steps=0),
+        "k4_cap0": lambda: cone_kernel(pt, o, d, T_MAX, HIT_EPS, tiles,
+                                       lo=lo, max_steps=0)})
+    # the longest tile alone, beside a tile whose rays miss the root (a
+    # launch, the reduction and the writes)
+    j = int(torch.argmax(rounds))
+    ray = tile_rays(tiles, j).to(o.device)
+    one = (CONE_TILE, CONE_TILE, CONE_TILE)
+    oj, dj = o[ray].contiguous(), d[ray].contiguous()
+    away = torch.tensor([0.0, 1.0, 0.0], device=o.device).expand_as(dj) \
+        .contiguous()
+    alone = {}
+    for key, dd in (("longest", dj), ("miss", away)):
+        for kern, fn in (("k4", cone_kernel), ("reference", cone_reference)):
+            alone[f"{kern}_{key}"] = min(graph_ms(lambda: fn(
+                pt, oj, dd, T_MAX, HIT_EPS, one, lo=lo), 10)
+                for _ in range(2))
+    n, n_tiles = o.shape[0], rounds.numel()
+    total_rounds = int(rounds.sum())
+    table = cone_read_bytes(pt, lo, o, d, tiles, rounds, T_MAX)
+    by_bytes = bytes_ms(d, t0, extra=12 + table)
+    by_ops = cone_ops(n, total_rounds, pt.deg_used, lo) / F32_PEAK * 1e3
+    # the issue estimate: one round's SASS instructions times the rounds
+    # each warp marches
+    tmpl = ((2, 1) if lo is not None else (pt.deg_used, 0)) + (1, 256)  # DEV
+    instr = sass_round(_kernels.library_path(), tmpl)
+    instr_ref = sass_round(_kernels.library_path("check"),
+                           (pt.deg_used,))
+    est, clock = issue_estimate_ms(instr, rounds, tiles, lane=True)
+    est_ref, _ = issue_estimate_ms(instr_ref, rounds, tiles, lane=False)
     esc = float((t0 == escape).float().mean())
     out = {"k4": ms["k4"], "k4_plain": plain_ms, "k3_t0": ms["k3_t0"],
-           "k3": ms["k3"], "k4_bound": max(by_bytes, by_ops),
+           "k3": ms["k3"], "k4_reference": ms["reference"],
+           "k4_cap0": ms["k4_cap0"], "k4_reference_cap0":
+           ms["reference_cap0"], **alone,
+           "k4_bound": max(by_bytes, by_ops),
            "k4_bound_by": "bytes" if by_bytes >= by_ops else "operations",
            "k4_bytes_bound": by_bytes, "k4_ops_bound": by_ops,
+           "table_bytes": table, "k": k, "rounds": total_rounds,
+           "rounds_hist": torch.bincount(rounds.long()).tolist(),
+           "round_instr": instr, "round_instr_reference": instr_ref,
+           "issue_ms": est, "issue_ms_reference": est_ref,
+           "clock_max_hz": clock,
            "t0_max_abs_err": float(d_t0.max()), "t0_agree": t0_agree,
            "escaped_share": esc, "t_err": change["t_err"], "change": change,
            "cone_pays": ms["k4"] + ms["k3_t0"] < ms["k3"]}
     print(f"[k4] {name}: {side}^2 rays ({n_tiles} tiles, LOD "
-          f"{'on' if lo is not None else 'off'}): t0 vs plain max "
-          f"{out['t0_max_abs_err']:.3e}, {t0_agree:.6f} of rays within "
-          f"{K4_T0_ATOL}, escaped share {esc:.4f}; {cone_text(change)} | "
-          f"{smi} | "
-          f"in CUDA graphs (best of 2 turns): K4 {ms['k4']:.4f} ms (plain "
-          f"{plain_ms:.1f} ms, one run; bound {out['k4_bound']:.5f} ms, "
-          f"{out['k4_bound_by']}), K3 from its starts {ms['k3_t0']:.4f} ms, "
-          f"K3 alone {ms['k3']:.4f} ms: the cone "
+          f"{'on' if lo is not None else 'off'}): t0 equal to the kernel it "
+          f"replaced bit for bit; vs plain max {out['t0_max_abs_err']:.3e}, "
+          f"{t0_agree:.6f} of rays within {K4_T0_ATOL}, per-tile rounds "
+          f"equal (k {k}), escaped share {esc:.4f}; {cone_text(change)}",
+          flush=True)
+    print(f"[k4] {name}: {smi} | in CUDA graphs (best of 2 turns): K4 "
+          f"{ms['k4']:.4f} ms, the kernel it replaced "
+          f"{ms['reference']:.4f} ms; with no round (the reduction and the "
+          f"writes) {ms['k4_cap0']:.4f} / {ms['reference_cap0']:.4f} ms; "
+          f"plain {plain_ms:.1f} ms (one run) | K3 from K4's starts "
+          f"{ms['k3_t0']:.4f} ms, K3 alone {ms['k3']:.4f} ms: the cone "
           f"{'pays' if out['cone_pays'] else 'does not pay'} "
           f"({ms['k4'] + ms['k3_t0']:.4f} against {ms['k3']:.4f} ms)",
+          flush=True)
+    print(f"[k4] {name}: bound {out['k4_bound']:.5f} ms "
+          f"({out['k4_bound_by']}: bytes {by_bytes:.5f} ms with "
+          f"{table} table bytes; operations {by_ops:.5f} ms on "
+          f"{total_rounds} rounds, by rounds from 0: "
+          f"{out['rounds_hist']}), {out['k4_bound'] / ms['k4']:.1%} of K4 "
+          f"| the longest tile ({k} rounds) alone: K4 "
+          f"{alone['k4_longest']:.4f} ms, the kernel it replaced "
+          f"{alone['reference_longest']:.4f} ms; a tile that misses the "
+          f"root {alone['k4_miss']:.4f} / {alone['reference_miss']:.4f} ms "
+          f"| issue estimate: {instr} / {instr_ref} SASS instructions a "
+          f"round (K4 / replaced), at {clock and clock / 1e6} MHz: "
+          f"{est if est is None else f'{est:.4f}'} / "
+          f"{est_ref if est_ref is None else f'{est_ref:.4f}'} ms",
           flush=True)
     return out
 
@@ -1282,7 +1518,7 @@ def phase_boundary(cfg, dev):
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch.render import (CONE_TILE, HIT_EPS, MAX_STEPS,
                                         _march_block, camera_rays,
-                                        cone_kernel, march_kernel)
+                                        march_kernel)
 
     tree = T.build_octree(cfg, lambda p: torch.linalg.norm(p, dim=-1)
                           - BOUNDARY_RADIUS, device=dev)
@@ -1291,8 +1527,8 @@ def phase_boundary(cfg, dev):
     o, d = camera_rays(BOUNDARY_EYE, (0.0, 0.0, 0.0), width=side,
                        height=side, device=dev)
     args = (pt, o, d, T_MAX, HIT_EPS, MAX_STEPS)
-    t0 = cone_kernel(pt, o, d, T_MAX, HIT_EPS, (side, side, CONE_TILE),
-                     lo=pt.lo)
+    t0, _ = check_k4_exact(pt, o, d, T_MAX, (side, side, CONE_TILE), pt.lo,
+                           "the boundary view")
     t_c, h_c, _ = march_kernel(*args, lo=pt.lo, width=side, t0=t0)
     t_p, h_p, _ = _march_block(*args, lo=pt.lo)
     change = cone_vs_plain(args, pt.lo, (side, side, CONE_TILE), t0, t_c,
@@ -1302,8 +1538,9 @@ def phase_boundary(cfg, dev):
           and bool(h_p.any()),
           f"K4 + K3 dropped {change['dropped']} hits on the boundary view")
     print(f"[k4] boundary view (sphere r = {BOUNDARY_RADIUS}, eye "
-          f"{BOUNDARY_EYE}, {side}^2 rays, {tree.n_nodes} nodes): plain "
-          f"march {int(h_p.sum())} hits; {cone_text(change)}", flush=True)
+          f"{BOUNDARY_EYE}, {side}^2 rays, {tree.n_nodes} nodes): K4's t0 "
+          f"equal to the kernel it replaced bit for bit; plain march "
+          f"{int(h_p.sum())} hits; {cone_text(change)}", flush=True)
     return int(h_p.sum()), change
 
 
@@ -2214,15 +2451,18 @@ def phase_degrees(dev, seed=7):
                                        query_kernel, query_plain,
                                        query_vjp_plain,
                                        query_with_gradient_plain)
-    from hpsdf_tpu_torch.render import (HIT_EPS, MAX_STEPS, _march_block,
-                                        _tree_f32, camera_rays,
-                                        trace_vjp_plain)
+    from hpsdf_tpu_torch.render import (CONE_TILE, HIT_EPS, MAX_STEPS,
+                                        _march_block, _tree_f32, camera_rays,
+                                        cone_start_plain, trace_vjp_plain)
 
     side = int(N_SYNTH ** 0.5)
     mid = tuple(0.5 * (a + b) for a, b in zip(*SYNTH_ROOT))
     o, d = camera_rays((mid[0], mid[1], SYNTH_ROOT[0][2] - 2.75), mid,
                        width=side, height=side, device=dev)
+    tiles = (side, side, CONE_TILE)
     k3_err, k3_hits = 0.0, 0
+    k4_tiles = k4_rounds_differ = k4_k = 0
+    k4_t0_err = 0.0
     cfg = T.Config(continuity=False, root_min=SYNTH_ROOT[0],
                    root_max=SYNTH_ROOT[1])
     lo, hi = np.asarray(SYNTH_ROOT[0]), np.asarray(SYNTH_ROOT[1])
@@ -2305,6 +2545,19 @@ def phase_degrees(dev, seed=7):
               f"within {T_ATOL} on {near}, max {e:.3e}, kk {kk_k.tolist()} "
               f"plain {kk_p.tolist()}")
         k3_err, k3_hits = max(k3_err, e), k3_hits + int(both.sum())
+        # K4 on the rays' tiles, on the full rows and on the LOD rows where
+        # the tree has them: t0 against the kernel it replaced bit for bit,
+        # and the rounds and t0 against the plain version
+        for lo_k in (None,) if lo_t is None else (None, lo_t):
+            label = f"degree {deg}{'' if lo_k is None else ', LOD rows'}"
+            t0_k, r_k = check_k4_exact(pt, o, d, SYNTH_T_MAX, tiles, lo_k,
+                                       label)
+            t0_p, r_p = cone_start_plain(pt, o, d, SYNTH_T_MAX, HIT_EPS,
+                                         tiles, lo=lo_k, with_stats=True)
+            k4_tiles += r_k.numel()
+            k4_rounds_differ += int((r_k != r_p).sum())
+            k4_t0_err = max(k4_t0_err, float((t0_k - t0_p).abs().max()))
+            k4_k = max(k4_k, int(r_k.max()))
         # K8, both forms (the trace form on K3's rays), against autograd of
         # the plain versions and the kernel it replaced; the fused mode
         # against modes 0 and 2
@@ -2344,6 +2597,7 @@ def phase_degrees(dev, seed=7):
                   pt, p32[:N_SYNTH // 2], RAW_GRAD)),
               f"the fused mode vs modes 0 and 2 at degree {deg}")
     check(k3_hits > 0, "K3 hits on the synthetic trees")
+    check(k4_k > 0, "K4 marched on the synthetic trees")
     print(f"[degrees] 0..12, {N_SYNTH} pts each on a depth-2 tree (rows "
           f"{T.pack_tree(tree).width} lanes at 12): K2 max|v - plain|/"
           f"max(1,|v|) {k2_err:.3e}, K5 min dot {k5_dot:.8f}, K1 max|value "
@@ -2355,7 +2609,11 @@ def phase_degrees(dev, seed=7):
           f"max|kernel - plain or replaced| / max|plain or replaced| "
           f"{k8_err:.3e} (the trace against plain on its well-posed hits, "
           f"at least {k8_well:.3f} of them); the fused mode bit-equal to "
-          f"modes 0 and 2",
+          f"modes 0 and 2; K4 on the rays' {CONE_TILE}x{CONE_TILE} tiles "
+          f"(full rows, and LOD rows from degree 4): t0 equal to the kernel "
+          f"it replaced bit for bit; against plain, max|t0 - plain| "
+          f"{k4_t0_err:.3e}, rounds differ on {k4_rounds_differ} of "
+          f"{k4_tiles} tiles, k up to {k4_k}",
           flush=True)
     return k2_err, k5_dot, k1_err, k1g_err, k3_err, k7_err, k8_err
 
@@ -2378,7 +2636,9 @@ def _ptxas_key(kernel, args):
         return f"{args[0]}/{('values', 'normals', 'raw', 'fused')[args[1]]}"
     if kernel == "packed_grad_kernel":
         return f"{args[0]}/form{args[1]}"
-    return str(args[0])                   # march_kernel, cone_kernel: degree
+    if kernel == "cone_kernel":
+        return f"{args[0]}/{'lo' if args[1] else 'full'}"
+    return str(args[0])                   # march_kernel: degree
 
 
 def ptxas_check():
@@ -2410,7 +2670,7 @@ def ptxas_check():
             ("K1", "query_kernel", ("3/values", "3/grad", "5/values",
                                     "5/grad")),
             ("K3", "march_kernel", ("3", "5")),
-            ("K4", "cone_kernel", ("3", "5")),
+            ("K4", "cone_kernel", ("3/full", "5/full", "2/lo")),
             ("K5 raw", "packed_eval_kernel", ("3/raw", "5/raw", "3/fused",
                                                "5/fused")),
             ("K7", "packed_grad_kernel", ("3/form0", "3/form1", "5/form0",
@@ -2461,7 +2721,7 @@ def main():
             job.result()
     print(f"[build] {len(_kernels.sources())} sources -> "
           f"{os.path.relpath(_kernels.library_path())}, and the reference "
-          f"kernels of the K3, K7, G's backward and K8 checks -> "
+          f"kernels of the K3, K4, K7, G's backward and K8 checks -> "
           f"{os.path.relpath(_kernels.library_path('check'))}, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 3)
@@ -2653,9 +2913,16 @@ def main():
          **{f"{pre}{k}": t4[k] for pre, t4 in (("", tk4),
                                                ("refdefault_", tk4r))
             for k in ("k3_t0", "k3", "t0_agree", "escaped_share", "t_err",
-                      "cone_pays")},
+                      "cone_pays", "k4_reference", "k4_cap0",
+                      "k4_reference_cap0", "k4_longest", "reference_longest",
+                      "k4_miss", "reference_miss", "k4_bytes_bound",
+                      "k4_ops_bound", "table_bytes", "k", "rounds",
+                      "rounds_hist", "round_instr", "round_instr_reference",
+                      "issue_ms", "issue_ms_reference", "clock_max_hz")},
          "refdefault_ms": tk4r["k4"], "refdefault_plain_ms": tk4r["k4_plain"],
          "refdefault_bound_ms": tk4r["k4_bound"],
+         "refdefault_bound_by": tk4r["k4_bound_by"],
+         "render_512": tr["cone"],
          "boundary_view": {"hits": bnd_hits, **bnd_change},
          "ptxas": ptxas.get("cone_kernel", {})},
         *({"name": name, "route": "cuda", "source": source,

@@ -1,4 +1,4 @@
-// K4: the cone prepass, a warp per T x T pixel tile, in f32.
+// K4: the cone prepass, a lane per T x T pixel tile, in f32.
 //
 // Replaces what XLA fused for hpsdf_tpu/render.py cone_start / _cone_march
 // (:193-291); the plain torch version is cone_start_plain in
@@ -12,24 +12,41 @@
 //     stopping at contact, margin < max(hit_eps, 0.5 radius), after `cap`
 //     rounds, or at escape, past the end of the tile's interval, where the
 //     tile's rays get t_max + 1 and do not march;
-//   * t_stop written to the tile's rays as their start t0 for K3.
+//   * t_stop written to the tile's rays as their start t0 for K3, and, when
+//     asked for, the rounds the tile's march took (the reference's lockstep
+//     round count is their largest).
 // The reference starts and stops on the centre ray's own box interval,
 // which a fine ray can enter earlier or leave later by up to the cone's
 // radius, so it dropped hits near the root's faces (ADVICE.md, high). Here
 // the march covers the union of the fine rays' intervals [max(t_near, 0),
-// min(t_far, t_max)], found with their slab tests in the same warp: it starts
-// at the earliest entry and escapes only past the latest exit, and a tile
-// none of whose rays meets the root escapes at once. Where the centre ray is
-// outside the root the field is read at its clamp into the root, which lies
-// no farther from any fine ray inside the root than the centre ray itself.
+// min(t_far, t_max)], found with their slab tests: it starts at the earliest
+// entry and escapes only past the latest exit, and a tile none of whose rays
+// meets the root escapes at once. Where the centre ray is outside the root
+// the field is read at its clamp into the root, which lies no farther from
+// any fine ray inside the root than the centre ray itself.
 //
-// Bound. The reduction reads each ray's origin and direction once (24 bytes
-// a ray) and writes t0 (4 bytes); the march is at most `cap` relocations of
-// one ray a tile. One thread a tile would leave 16,384 threads at 1024^2
-// rays, too few for the card, so a warp takes a tile: its lanes reduce the
-// tile's rays (T^2 / 32 each) and then march the centre ray together, every
-// lane the same arithmetic on the same row (broadcast loads), which is as
-// fast as one lane marching and needs no broadcast of the result.
+// Bound. The reduction reads each ray's direction (and origin, unless one
+// origin is shared) once and writes t0: bytes. The march is a chain of
+// dependent loads and f32 operations a round (locate, frame, recurrences,
+// the serial term sum, step logic), at most `cap` rounds of one ray a tile,
+// so a tile's march costs latency and its issue is small; the launch is
+// bound by the reduction's bytes and the longest tile's chain. What the
+// design does about it:
+//   * a block takes a strip of one tile row (kThreads / T tiles) and its
+//     threads read the strip's rays in raster order, a thread a pixel
+//     column, so a warp reads consecutive rays of one pixel row; each
+//     thread keeps its column's spread and interval, and the block combines
+//     them per tile in shared memory (maxima and minima, which do not
+//     depend on order);
+//   * then a lane marches a tile, so a round costs one lane's issue and not
+//     a warp's;
+//   * the row reaches the registers in 16-byte loads and stays there while
+//     the locate returns it (the locate runs every round, only the reload
+//     is skipped);
+//   * t0 goes back through shared memory in raster order.
+// Every t0 is bit for bit that of the kernel this one replaced
+// (check/cone_reference.cu, a warp a tile): the schedule and the way a row
+// reaches the registers change, the arithmetic does not.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,132 +56,224 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+constexpr int kMaxHeld = 64;        // coefficient lanes kept in registers
 constexpr int kLoW = 32;            // accel.LO_W
-constexpr int kLoErr = 18;          // accel.LO_ERR_LANE
+constexpr int kLoHeld = 12;         // LOD lanes 8..19: 10 coefficients, err
+constexpr int kLoErr = 10;          // accel.LO_ERR_LANE - COEFF_LANE
 constexpr float kStepScale = 0.95f;
 constexpr float kMinStep = 1e-4f;
 constexpr float kStopFrac = 0.5f;   // render.CONE_STOP_FRAC
 
-struct Box {
+// What every tile of a launch shares. With LOD tables, grid, rows and W
+// are the LOD tables'.
+struct Scene {
+  const float* grid;
+  const float* rows;
+  int W, gd, extra, cap;
   float bmin[3], bmax[3], rc[3], inv[3];
+  float t_max, hit_eps;
 };
 
-// sum_m coef[m] L_i(x) L_j(y) L_k(z) of a row's first C(EDEG) coefficient
-// lanes at `local`
-template <int EDEG>
-__device__ __forceinline__ float eval_row(const float* __restrict__ row,
-                                          const float local[3]) {
+// The row a tile's march holds: its pointer, the leaf frame and, for rows
+// of at most kMaxHeld coefficient lanes, the coefficients (an LOD row's
+// kLoHeld lanes, its error lane among them). EDEG is the degree evaluated.
+template <int EDEG, bool LO>
+struct Held {
+  static constexpr int kC = (EDEG + 1) * (EDEG + 2) * (EDEG + 3) / 6;
+  static constexpr int kQuads = LO ? kLoHeld / 4 : (kC + 3) / 4;
+  static constexpr bool kInRegs = 4 * kQuads <= kMaxHeld;
+  static constexpr int kN = kInRegs ? 4 * kQuads : 1;
+  const float* row;
+  float scale, c[3];
+  float coef[kN];
+};
+
+// Hold `row`: a reload only when it is not the row held (HOLD false:
+// always).
+template <bool HOLD, int EDEG, bool LO>
+__device__ __forceinline__ void hold(Held<EDEG, LO>& h, const float* row) {
+  if (HOLD && row == h.row) return;
+  const float4 m = __ldg(reinterpret_cast<const float4*>(row));
+  h.row = row;
+  h.scale = m.y;
+  h.c[0] = m.z, h.c[1] = m.w, h.c[2] = __ldg(row + 4);
+  if constexpr (Held<EDEG, LO>::kInRegs) {
+    const float4* src =
+        reinterpret_cast<const float4*>(row + hpsdf::kCoeffLane);
+#pragma unroll
+    for (int q = 0; q < Held<EDEG, LO>::kQuads; ++q) {
+      const float4 f = __ldg(src + q);
+      h.coef[4 * q] = f.x, h.coef[4 * q + 1] = f.y, h.coef[4 * q + 2] = f.z,
+                 h.coef[4 * q + 3] = f.w;
+    }
+  }
+}
+
+// The field's bound at `local` from the held row: sum_m coef[m] L_i(x)
+// L_j(y) L_k(z) in basis order, less the error lane on an LOD row.
+template <int EDEG, bool LO>
+__device__ __forceinline__ float eval_held(const Held<EDEG, LO>& h,
+                                           const float local[3]) {
   float Lx[EDEG + 1], Ly[EDEG + 1], Lz[EDEG + 1];
   hpsdf::legendre<EDEG>(local[0], Lx);
   hpsdf::legendre<EDEG>(local[1], Ly);
   hpsdf::legendre<EDEG>(local[2], Lz);
-  const float* coef = row + hpsdf::kCoeffLane;
   float v = 0.0f;
-  hpsdf::for_each_term<EDEG>([&](int m, int i, int j, int k) {
-    v += __ldg(coef + m) * (Lx[i] * Ly[j] * Lz[k]);
-  });
+  if constexpr (Held<EDEG, LO>::kInRegs) {
+    hpsdf::for_each_term<EDEG>([&](int m, int i, int j, int k) {
+      v += h.coef[m] * (Lx[i] * Ly[j] * Lz[k]);
+    });
+  } else {
+    const float* coef = h.row + hpsdf::kCoeffLane;
+    hpsdf::for_each_term<EDEG>([&](int m, int i, int j, int k) {
+      v += __ldg(coef + m) * (Lx[i] * Ly[j] * Lz[k]);
+    });
+  }
+  if constexpr (LO) v = v - h.coef[kLoErr];
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_min(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fminf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-template <int DEG>
-__global__ void __launch_bounds__(kThreads)
-cone_kernel(const float* __restrict__ grid, const float* __restrict__ rows,
-            int W, const float* __restrict__ lo_grid,
-            const float* __restrict__ lo_rows, int gd, int extra,
-            const float* __restrict__ origins, int64_t origin_stride,
-            const float* __restrict__ dirs, int H, int width, int T, Box bx,
-            float t_max, float hit_eps, int cap, float* __restrict__ t0) {
-  const int lane = threadIdx.x & 31;
-  const int64_t tile = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int tiles_x = width / T;
-  if (tile >= (int64_t)(H / T) * tiles_x) return;       // whole warps
-  const int64_t ty = tile / tiles_x, tx = tile - ty * tiles_x;
-  auto ray = [&](int k) {
-    return (ty * T + k / T) * (int64_t)width + tx * T + k % T;
-  };
-  const int64_t c = ray((T / 2) * T + T / 2);
-  float oc[3], dc[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-    oc[a] = origins[origin_stride * c + a], dc[a] = dirs[3 * c + a];
-
-  // the tile's spread around the centre ray, and the union of its rays'
-  // intervals in the root
-  float do2 = 0.0f, dd2 = 0.0f, lo = INFINITY, hi = -INFINITY;
-  for (int k = lane; k < T * T; k += 32) {
-    const int64_t r = ray(k);
-    float so = 0.0f, sd = 0.0f, t_near = -INFINITY, t_far = INFINITY;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float o = origins[origin_stride * r + a], d = dirs[3 * r + a];
-      so += (o - oc[a]) * (o - oc[a]);
-      sd += (d - dc[a]) * (d - dc[a]);
-      const float id = 1.0f / d;
-      const float l = (bx.bmin[a] - o) * id, h = (bx.bmax[a] - o) * id;
-      t_near = fmaxf(t_near, fminf(l, h));
-      t_far = fminf(t_far, fmaxf(l, h));
-    }
-    do2 = fmaxf(do2, so), dd2 = fmaxf(dd2, sd);
-    const float ts = fmaxf(t_near, 0.0f), te = fminf(t_far, t_max);
-    if (t_far >= ts && ts <= te) lo = fminf(lo, ts), hi = fmaxf(hi, te);
-  }
-  const float dev_o = sqrtf(warp_max(do2)), dev_d = sqrtf(warp_max(dd2));
-  lo = warp_min(lo), hi = warp_max(hi);
-
-  // the centre ray's march against the cone margin
-  const float escape = t_max + 1.0f;
+// The march of one tile's centre ray (oc, dc) against the cone margin over
+// [lo, hi]; returns t_stop and sets `taken` to the rounds it took.
+template <bool HOLD, int EDEG, bool LO>
+__device__ __forceinline__ float march_tile(const Scene& sc,
+                                            const float oc[3],
+                                            const float dc[3], float dev_o,
+                                            float dev_d, float lo, float hi,
+                                            int& taken) {
+  const float escape = sc.t_max + 1.0f;
   float uo[3], ud[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a)
-    uo[a] = (oc[a] - bx.rc[a]) * bx.inv[a], ud[a] = dc[a] * bx.inv[a];
+    uo[a] = (oc[a] - sc.rc[a]) * sc.inv[a], ud[a] = dc[a] * sc.inv[a];
   const float inv_lip = 1.0f / (1.0f + dev_d);   // t-Lipschitz of the margin
-  float t = escape;
-  if (lo <= hi) {
-    t = lo;
-    for (int k = 0; k < cap; ++k) {
-      float u[3], local[3];
+  taken = 0;
+  if (!(lo <= hi)) return escape;
+  float t = lo;
+  Held<EDEG, LO> h;
+  h.row = nullptr;
+  for (int k = 0; k < sc.cap; ++k) {
+    ++taken;
+    float u[3], local[3];
 #pragma unroll
-      for (int a = 0; a < 3; ++a) u[a] = hpsdf::clamp_half(uo[a] + t * ud[a]);
-      float v;
-      const float* row =
-          lo_grid != nullptr
-              ? hpsdf::locate_row4(lo_grid, lo_rows, kLoW, gd, extra, u)
-              : hpsdf::locate_row4(grid, rows, W, gd, extra, u);
-      const float4 m = __ldg(reinterpret_cast<const float4*>(row));
-      const float centre[3] = {m.z, m.w, __ldg(row + 4)};
+    for (int a = 0; a < 3; ++a) u[a] = hpsdf::clamp_half(uo[a] + t * ud[a]);
+    hold<HOLD>(h, hpsdf::locate_row4(sc.grid, sc.rows, sc.W, sc.gd,
+                                     sc.extra, u));
 #pragma unroll
-      for (int a = 0; a < 3; ++a) local[a] = (u[a] - centre[a]) * m.y;
-      if (lo_grid != nullptr)
-        v = eval_row<2>(row, local) - __ldg(row + kLoErr);
-      else
-        v = eval_row<DEG>(row, local);
-      const float radius = dev_o + t * dev_d;
-      const float margin = v - radius;
-      if (margin < fmaxf(hit_eps, kStopFrac * radius)) break;    // contact
-      const float adv = (kStepScale * margin) * inv_lip + kMinStep;
-      if (t + adv > hi) {                                        // escape
-        t = escape;
-        break;
+    for (int a = 0; a < 3; ++a) local[a] = (u[a] - h.c[a]) * h.scale;
+    const float v = eval_held(h, local);
+    const float radius = dev_o + t * dev_d;
+    const float margin = v - radius;
+    if (margin < fmaxf(sc.hit_eps, kStopFrac * radius)) break;    // contact
+    const float adv = (kStepScale * margin) * inv_lip + kMinStep;
+    if (t + adv > hi) return escape;                              // escape
+    t = t + adv;
+  }
+  return t;
+}
+
+// A block: tile row blockIdx.x / strips, tiles [tx0, tx0 + nt) of it (nt =
+// THREADS / T, or 1 when T > THREADS).
+template <int EDEG, bool LO, bool HOLD, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+cone_kernel(Scene sc, const float* __restrict__ origins,
+            int64_t origin_stride, const float* __restrict__ dirs, int width,
+            int T, int nt, int strips, float* __restrict__ t0,
+            int* __restrict__ rounds) {
+  __shared__ float s_o2[THREADS], s_d2[THREADS], s_lo[THREADS],
+      s_hi[THREADS], s_t[THREADS];
+  const int tid = threadIdx.x;
+  const int tiles_x = width / T;
+  const int ty = blockIdx.x / strips;
+  const int tx0 = (blockIdx.x - ty * strips) * nt;
+  const int ntb = min(nt, tiles_x - tx0);        // the strip's tiles
+  const int cols = ntb * T;
+  const int64_t ray0 = ((int64_t)ty * T) * width + (int64_t)tx0 * T;
+  auto centre = [&](int j, float oc[3], float dc[3]) {
+    const int64_t c = ray0 + (int64_t)(T / 2) * width + j * T + T / 2;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      oc[a] = origins[origin_stride * c + a], dc[a] = dirs[3 * c + a];
+  };
+
+  // each thread's columns: the spread around their tile's centre ray and
+  // the union of their rays' intervals in the root
+  float do2 = 0.0f, dd2 = 0.0f, lo = INFINITY, hi = -INFINITY;
+  for (int c = tid; c < cols; c += THREADS) {
+    float oc[3], dc[3];
+    centre(c / T, oc, dc);
+    for (int r = 0; r < T; ++r) {
+      const int64_t ray = ray0 + (int64_t)r * width + c;
+      float so = 0.0f, sd = 0.0f, t_near = -INFINITY, t_far = INFINITY;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float o = origins[origin_stride * ray + a];
+        const float d = dirs[3 * ray + a];
+        so += (o - oc[a]) * (o - oc[a]);
+        sd += (d - dc[a]) * (d - dc[a]);
+        const float id = 1.0f / d;
+        const float l = (sc.bmin[a] - o) * id, h = (sc.bmax[a] - o) * id;
+        t_near = fmaxf(t_near, fminf(l, h));
+        t_far = fminf(t_far, fmaxf(l, h));
       }
-      t = t + adv;
+      do2 = fmaxf(do2, so), dd2 = fmaxf(dd2, sd);
+      const float ts = fmaxf(t_near, 0.0f), te = fminf(t_far, sc.t_max);
+      if (t_far >= ts && ts <= te) lo = fminf(lo, ts), hi = fmaxf(hi, te);
     }
   }
-  for (int k = lane; k < T * T; k += 32) t0[ray(k)] = t;
+  s_o2[tid] = do2, s_d2[tid] = dd2, s_lo[tid] = lo, s_hi[tid] = hi;
+  __syncthreads();
+
+  // a lane a tile: combine its columns, then march
+  if (tid < ntb) {
+    const int group = nt > 1 ? T : min(cols, THREADS);
+    const int first = nt > 1 ? tid * T : 0;
+    do2 = 0.0f, dd2 = 0.0f, lo = INFINITY, hi = -INFINITY;
+    for (int i = first; i < first + group; ++i) {
+      do2 = fmaxf(do2, s_o2[i]), dd2 = fmaxf(dd2, s_d2[i]);
+      lo = fminf(lo, s_lo[i]), hi = fmaxf(hi, s_hi[i]);
+    }
+    float oc[3], dc[3];
+    centre(tid, oc, dc);
+    int taken;
+    s_t[tid] = march_tile<HOLD, EDEG, LO>(sc, oc, dc, sqrtf(do2), sqrtf(dd2),
+                                          lo, hi, taken);
+    if (rounds != nullptr) rounds[(int64_t)ty * tiles_x + tx0 + tid] = taken;
+  }
+  __syncthreads();
+  for (int c = tid; c < cols; c += THREADS) {
+    const float t = s_t[c / T];
+    for (int r = 0; r < T; ++r) t0[ray0 + (int64_t)r * width + c] = t;
+  }
+}
+
+template <int EDEG, bool LO, bool HOLD, int THREADS>
+int launch(const Scene& sc, const float* origins, int64_t origin_stride,
+           const float* dirs, int H, int width, int T, float* t0,
+           int* rounds, cudaStream_t s) {
+  const int nt = T <= THREADS ? THREADS / T : 1;
+  const int strips = (width / T + nt - 1) / nt;
+  const int64_t blocks = (int64_t)(H / T) * strips;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  cone_kernel<EDEG, LO, HOLD, THREADS><<<(unsigned)blocks, THREADS, 0, s>>>(
+      sc, origins, origin_stride, dirs, width, T, nt, strips, t0, rounds);
+  return 0;
+}
+
+template <bool HOLD, int THREADS>
+int dispatch(const Scene& sc, bool lod, int deg, const float* origins,
+             int64_t origin_stride, const float* dirs, int H, int width,
+             int T, float* t0, int* rounds, cudaStream_t s) {
+  if (lod)
+    return launch<2, true, HOLD, THREADS>(sc, origins, origin_stride, dirs,
+                                          H, width, T, t0, rounds, s);
+#define HPSDF_LAUNCH(D)                                                    \
+  return launch<D, false, HOLD, THREADS>(sc, origins, origin_stride, dirs, \
+                                         H, width, T, t0, rounds, s)
+  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
+#undef HPSDF_LAUNCH
+  return 0;
 }
 
 }  // namespace
@@ -173,26 +282,39 @@ cone_kernel(const float* __restrict__ grid, const float* __restrict__ rows,
 // nullptr: march on the full rows. origin_stride: 3, or 0 for one shared
 // origin. cap: the round cap (min(CONE_CAP, max_steps)). box: bmin, bmax, the
 // root centre and 1 / root sizes (12 floats). t0: (H * width) floats.
+// rounds: nullptr, or (H / T) * (width / T) ints, the rounds each tile's
+// march took. form (development): 0 rows held, 256 threads; 1 rows
+// reloaded every round; 2 rows held, 128 threads.
 extern "C" int hpsdf_cone(const float* grid, const float* rows, int W,
                           int deg, const float* lo_grid, const float* lo_rows,
                           int gd, int extra, const float* origins,
                           int64_t origin_stride, const float* dirs, int H,
                           int width, int T, const float* box, float t_max,
-                          float hit_eps, int cap, float* t0, void* stream) {
+                          float hit_eps, int cap, float* t0, int* rounds,
+                          int form, void* stream) {
   if (T <= 0 || H % T || width % T) return (int)cudaErrorInvalidValue;
-  Box bx;
+  Scene sc;
+  const bool lod = lo_grid != nullptr;
+  sc.grid = lod ? lo_grid : grid;
+  sc.rows = lod ? lo_rows : rows;
+  sc.W = lod ? kLoW : W;
+  sc.gd = gd, sc.extra = extra, sc.cap = cap;
   for (int a = 0; a < 3; ++a) {
-    bx.bmin[a] = box[a], bx.bmax[a] = box[3 + a];
-    bx.rc[a] = box[6 + a], bx.inv[a] = box[9 + a];
+    sc.bmin[a] = box[a], sc.bmax[a] = box[3 + a];
+    sc.rc[a] = box[6 + a], sc.inv[a] = box[9 + a];
   }
-  const int64_t threads = (int64_t)(H / T) * (width / T) * 32;
-  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
+  sc.t_max = t_max, sc.hit_eps = hit_eps;
   cudaStream_t s = (cudaStream_t)stream;
-#define HPSDF_LAUNCH(D)                                                  \
-  cone_kernel<D><<<blocks, kThreads, 0, s>>>(                            \
-      grid, rows, W, lo_grid, lo_rows, gd, extra, origins, origin_stride, \
-      dirs, H, width, T, bx, t_max, hit_eps, cap, t0)
-  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
-#undef HPSDF_LAUNCH
+  int rc;
+  if (form == 1)
+    rc = dispatch<false, kThreads>(sc, lod, deg, origins, origin_stride,
+                                   dirs, H, width, T, t0, rounds, s);
+  else if (form == 2)
+    rc = dispatch<true, 128>(sc, lod, deg, origins, origin_stride, dirs, H,
+                             width, T, t0, rounds, s);
+  else
+    rc = dispatch<true, kThreads>(sc, lod, deg, origins, origin_stride,
+                                  dirs, H, width, T, t0, rounds, s);
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

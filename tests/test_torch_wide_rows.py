@@ -140,8 +140,10 @@ def test_ptxas_check(monkeypatch, spill):
         _ptxas_entry("march_kernel", d, None, regs=80,
                      stack=16 if spill == "K3" and d == 5 else 0)
         for d in (3, 5, 12))
+    report += _ptxas_entry("cone_kernel", 2, None, regs=40, args="Li2ELb1E")
     for d in (3, 5):
-        report += _ptxas_entry("cone_kernel", d, None, regs=40)
+        report += _ptxas_entry("cone_kernel", d, None, regs=40,
+                               args=f"Li{d}ELb0E")
         report += _ptxas_entry("packed_eval_kernel", d, None,
                                args=f"Li{d}ELi2E")
         report += _ptxas_entry("packed_eval_kernel", d, None,
@@ -180,3 +182,5 @@ def test_ptxas_check(monkeypatch, spill):
     assert set(found["row_scatter_csr_kernel"]) == {"-"}
     assert found["march_kernel"] == {str(d): [80, 0, 0, 0]
                                      for d in (3, 5, 12)}
+    assert found["cone_kernel"] == {k: [40, 0, 0, 0]
+                                    for k in ("3/full", "5/full", "2/lo")}
