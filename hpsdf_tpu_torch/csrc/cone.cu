@@ -175,12 +175,14 @@ __device__ __forceinline__ float march_tile(const Scene& sc,
 
 // A block: tile row blockIdx.x / strips, tiles [tx0, tx0 + nt) of it (nt =
 // THREADS / T, or 1 when T > THREADS).
-template <int EDEG, bool LO, bool HOLD, int THREADS>
-__global__ void __launch_bounds__(THREADS)
+template <int EDEG, bool LO, bool UNROLL, bool SPREAD>
+__global__ void __launch_bounds__(kThreads)
 cone_kernel(Scene sc, const float* __restrict__ origins,
             int64_t origin_stride, const float* __restrict__ dirs, int width,
             int T, int nt, int strips, float* __restrict__ t0,
             int* __restrict__ rounds) {
+  constexpr int THREADS = kThreads;
+  constexpr bool HOLD = true;
   __shared__ float s_o2[THREADS], s_d2[THREADS], s_lo[THREADS],
       s_hi[THREADS], s_t[THREADS];
   const int tid = threadIdx.x;
@@ -200,10 +202,7 @@ cone_kernel(Scene sc, const float* __restrict__ origins,
   // each thread's columns: the spread around their tile's centre ray and
   // the union of their rays' intervals in the root
   float do2 = 0.0f, dd2 = 0.0f, lo = INFINITY, hi = -INFINITY;
-  for (int c = tid; c < cols; c += THREADS) {
-    float oc[3], dc[3];
-    centre(c / T, oc, dc);
-    for (int r = 0; r < T; ++r) {
+  auto spread = [&](int c, int r, const float oc[3], const float dc[3]) {
       const int64_t ray = ray0 + (int64_t)r * width + c;
       float so = 0.0f, sd = 0.0f, t_near = -INFINITY, t_far = INFINITY;
 #pragma unroll
@@ -220,30 +219,45 @@ cone_kernel(Scene sc, const float* __restrict__ origins,
       do2 = fmaxf(do2, so), dd2 = fmaxf(dd2, sd);
       const float ts = fmaxf(t_near, 0.0f), te = fminf(t_far, sc.t_max);
       if (t_far >= ts && ts <= te) lo = fminf(lo, ts), hi = fmaxf(hi, te);
+  };
+  for (int c = tid; c < cols; c += THREADS) {
+    float oc[3], dc[3];
+    centre(c / T, oc, dc);
+    if constexpr (UNROLL) {
+#pragma unroll 8
+      for (int r = 0; r < T; ++r) spread(c, r, oc, dc);
+    } else {
+      for (int r = 0; r < T; ++r) spread(c, r, oc, dc);
     }
   }
   s_o2[tid] = do2, s_d2[tid] = dd2, s_lo[tid] = lo, s_hi[tid] = hi;
   __syncthreads();
 
   // a lane a tile: combine its columns, then march
-  if (tid < ntb) {
+  int j = tid;
+  if constexpr (SPREAD) {
+    const int per_warp = (nt + THREADS / 32 - 1) / (THREADS / 32);
+    j = (tid & 31) < per_warp ? (tid >> 5) * per_warp + (tid & 31) : nt;
+  }
+  if (j < ntb) {
     const int group = nt > 1 ? T : min(cols, THREADS);
-    const int first = nt > 1 ? tid * T : 0;
+    const int first = nt > 1 ? j * T : 0;
     do2 = 0.0f, dd2 = 0.0f, lo = INFINITY, hi = -INFINITY;
     for (int i = first; i < first + group; ++i) {
       do2 = fmaxf(do2, s_o2[i]), dd2 = fmaxf(dd2, s_d2[i]);
       lo = fminf(lo, s_lo[i]), hi = fmaxf(hi, s_hi[i]);
     }
     float oc[3], dc[3];
-    centre(tid, oc, dc);
+    centre(j, oc, dc);
     int taken;
-    s_t[tid] = march_tile<HOLD, EDEG, LO>(sc, oc, dc, sqrtf(do2), sqrtf(dd2),
-                                          lo, hi, taken);
-    if (rounds != nullptr) rounds[(int64_t)ty * tiles_x + tx0 + tid] = taken;
+    s_t[j] = march_tile<HOLD, EDEG, LO>(sc, oc, dc, sqrtf(do2), sqrtf(dd2),
+                                        lo, hi, taken);
+    if (rounds != nullptr) rounds[(int64_t)ty * tiles_x + tx0 + j] = taken;
   }
   __syncthreads();
   for (int c = tid; c < cols; c += THREADS) {
     const float t = s_t[c / T];
+#pragma unroll 8
     for (int r = 0; r < T; ++r) t0[ray0 + (int64_t)r * width + c] = t;
   }
 }
@@ -252,11 +266,12 @@ template <int EDEG, bool LO, bool HOLD, int THREADS>
 int launch(const Scene& sc, const float* origins, int64_t origin_stride,
            const float* dirs, int H, int width, int T, float* t0,
            int* rounds, cudaStream_t s) {
-  const int nt = T <= THREADS ? THREADS / T : 1;
+  const int nt = T <= kThreads ? kThreads / T : 1;
   const int strips = (width / T + nt - 1) / nt;
   const int64_t blocks = (int64_t)(H / T) * strips;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  cone_kernel<EDEG, LO, HOLD, THREADS><<<(unsigned)blocks, THREADS, 0, s>>>(
+  cone_kernel<EDEG, LO, HOLD, (THREADS > 0)><<<(unsigned)blocks, kThreads, 0,
+                                               s>>>(
       sc, origins, origin_stride, dirs, width, T, nt, strips, t0, rounds);
   return 0;
 }
@@ -283,8 +298,9 @@ int dispatch(const Scene& sc, bool lod, int deg, const float* origins,
 // origin. cap: the round cap (min(CONE_CAP, max_steps)). box: bmin, bmax, the
 // root centre and 1 / root sizes (12 floats). t0: (H * width) floats.
 // rounds: nullptr, or (H / T) * (width / T) ints, the rounds each tile's
-// march took. form (development): 0 rows held, 256 threads; 1 rows
-// reloaded every round; 2 rows held, 128 threads.
+// march took. form (development): 0 the reduction's row loop unrolled,
+// 32 tiles a warp; 1 unrolled, the tiles spread over the block's warps;
+// 2 not unrolled, 32 tiles a warp.
 extern "C" int hpsdf_cone(const float* grid, const float* rows, int W,
                           int deg, const float* lo_grid, const float* lo_rows,
                           int gd, int extra, const float* origins,
@@ -307,14 +323,14 @@ extern "C" int hpsdf_cone(const float* grid, const float* rows, int W,
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
   if (form == 1)
-    rc = dispatch<false, kThreads>(sc, lod, deg, origins, origin_stride,
-                                   dirs, H, width, T, t0, rounds, s);
+    rc = dispatch<true, 1>(sc, lod, deg, origins, origin_stride,
+                           dirs, H, width, T, t0, rounds, s);
   else if (form == 2)
-    rc = dispatch<true, 128>(sc, lod, deg, origins, origin_stride, dirs, H,
-                             width, T, t0, rounds, s);
+    rc = dispatch<false, 0>(sc, lod, deg, origins, origin_stride, dirs, H,
+                            width, T, t0, rounds, s);
   else
-    rc = dispatch<true, kThreads>(sc, lod, deg, origins, origin_stride,
-                                  dirs, H, width, T, t0, rounds, s);
+    rc = dispatch<true, 0>(sc, lod, deg, origins, origin_stride,
+                           dirs, H, width, T, t0, rounds, s);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

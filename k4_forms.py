@@ -5,8 +5,8 @@ render and degree phases of chip_smoke.py.
 
     python3 k4_forms.py
 
-Forms: 0 rows held, 256 threads; 1 rows reloaded every round; 2 rows held,
-128 threads. Each must give the replaced kernel's t0 bit for bit.
+Forms: 0 the row loop unrolled, 32 tiles a warp; 1 unrolled, tiles spread
+over the warps; 2 not unrolled. Each must equal the replaced kernel.
 """
 
 import os

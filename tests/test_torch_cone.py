@@ -109,6 +109,90 @@ def test_cone_start_matches_reference(trees, name, view):
     np.testing.assert_allclose(got[same], want[same], rtol=0, atol=T0_ATOL)
 
 
+def _ortho_rays(direction, side):
+    """Parallel rays that all enter the root through its z = -0.5 face at
+    t = 1.3, at points spread over [-0.4, 0.4]^2 of it: with a t_max short
+    of every side exit, every tile's rays share the centre ray's interval,
+    so the port's cone and the reference's march the same one."""
+    u = np.asarray(direction, np.float64)
+    u = u / np.linalg.norm(u)
+    xs = ((np.arange(side) + 0.5) / side * 2.0 - 1.0) * 0.4
+    px, py = np.meshgrid(xs, -xs, indexing="xy")
+    p = np.stack([px, py, np.full_like(px, -0.5)], -1).reshape(-1, 3)
+    d = np.broadcast_to(u, p.shape)
+    return (p - 1.3 * u).astype(np.float32), d.astype(np.float32)
+
+
+# views on which every tile's interval is its centre ray's: ray source and
+# t_max (before every side exit of the oblique rays)
+_SAME_VIEWS = {"inside": (lambda side: _rays(_VIEWS["inside"][0], side),
+                          _VIEWS["inside"][1]),
+               "head_on": (lambda side: _ortho_rays((0, 0, 1), side), 2.5),
+               "oblique": (lambda side: _ortho_rays((0.15, 0.1, 1), side),
+                           1.85)}
+
+
+@pytest.mark.parametrize("view", sorted(_SAME_VIEWS))
+@pytest.mark.parametrize("name", ["shallow", "lod"])
+def test_cone_stats_match_reference(trees, name, view):
+    """cone_start(..., with_stats=True) gives hpsdf_tpu's (t0, k,
+    n_coarse): k the lockstep round count, n_coarse the tiles, on views
+    where the two cones march the same intervals."""
+    _, _, jp, tp = trees[name]
+    rays, t_max = _SAME_VIEWS[view]
+    side = 32
+    o, d = rays(side)
+    tiles = (side, side, TILE)
+    assert _same_interval_tiles(tp, o, d, t_max, side).all()
+    t0_j, k_j, n_j = JR.cone_start(jp, jnp.asarray(o), jnp.asarray(d), t_max,
+                                   TR.HIT_EPS, tiles, lo=JR._lo_of(jp),
+                                   with_stats=True)
+    t0, k, n = TR.cone_start(tp, torch.as_tensor(o), torch.as_tensor(d),
+                             t_max, TR.HIT_EPS, tiles, lo=tp.lo,
+                             with_stats=True)
+    assert (k, n) == (int(k_j), n_j) == (k, (side // TILE) ** 2)
+    assert k > 1
+    np.testing.assert_allclose(t0.numpy(), np.asarray(t0_j), rtol=0,
+                               atol=T0_ATOL)
+
+
+@pytest.mark.parametrize("view", ["inside", "head_on", "oblique",
+                                  "ortho_oblique"])
+@pytest.mark.parametrize("name", ["shallow", "lod"])
+def test_cone_rounds_agree_with_t0(trees, name, view):
+    """The plain cone's per-tile rounds: a tile that took r rounds has the
+    same t0 at max_steps r as with no cap, a cap of m rounds gives each
+    tile min(r, m), and the largest r is cone_start's k."""
+    _, _, _, tp = trees[name]
+    side = 32
+    if view == "ortho_oblique":
+        (o, d), t_max = _SAME_VIEWS["oblique"][0](side), 1.85
+    elif view == "inside":
+        (o, d), t_max = _rays(_VIEWS["inside"][0], side), _VIEWS["inside"][1]
+    else:
+        eye = {"head_on": (0.0, 0.0, -1.8), "oblique": (0.5, 0.4, -1.6)}[view]
+        (o, d), t_max = _rays(eye, side), 5.0
+    o, d = torch.as_tensor(o), torch.as_tensor(d)
+    tiles = (side, side, TILE)
+    t0, rounds = TR.cone_start_plain(tp, o, d, t_max, TR.HIT_EPS, tiles,
+                                     lo=tp.lo, with_stats=True)
+    assert rounds.dtype == torch.int32 and rounds.shape == ((side // TILE)
+                                                            ** 2,)
+    per_ray = rounds.reshape(side // TILE, 1, side // TILE, 1).expand(
+        side // TILE, TILE, side // TILE, TILE).reshape(-1)
+    for r in sorted(set(rounds.tolist())):
+        t0_r, rounds_r = TR.cone_start_plain(tp, o, d, t_max, TR.HIT_EPS,
+                                             tiles, lo=tp.lo, max_steps=r,
+                                             with_stats=True)
+        assert torch.equal(rounds_r, torch.clamp(rounds, max=r))
+        done = per_ray <= r
+        assert torch.equal(t0_r[done], t0[done])
+    _, k, n = TR.cone_start(tp, o, d, t_max, TR.HIT_EPS, tiles, lo=tp.lo,
+                            with_stats=True)
+    assert (k, n) == (int(rounds.max()), rounds.numel())
+    assert k > 1
+
+
 @pytest.mark.parametrize("eye", [(0.6, 0.0, -1.5), (0.7, 0.7, -1.2)])
 def test_boundary_view_drops_no_hit(trees, eye):
     jt, tt, _, tp = trees["boundary"]

@@ -1,7 +1,7 @@
 """hpsdf_tpu_torch stands alone: importing it, its mesh package, its
 kernel bindings, the sphere tracer and inverse rendering loads neither jax
 nor hpsdf_tpu, nor does importing the scripts that drive it on the card
-(chip_smoke.py, k7_forms.py), and no import statement in
+(chip_smoke.py, k4_forms.py), and no import statement in
 either names them."""
 
 import os
@@ -25,7 +25,7 @@ def test_import_leaves_out_jax_and_hpsdf_tpu():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-_SCRIPTS = ("chip_smoke.py", "k7_forms.py")
+_SCRIPTS = ("chip_smoke.py", "k4_forms.py")
 
 
 def test_scripts_leave_out_jax_and_hpsdf_tpu():
@@ -33,7 +33,7 @@ def test_scripts_leave_out_jax_and_hpsdf_tpu():
     hpsdf_tpu when they load."""
     code = (
         "import sys\n"
-        "import chip_smoke, k7_forms\n"
+        "import chip_smoke, k4_forms\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'hpsdf_tpu'))\n"
         "print(bad)\n"

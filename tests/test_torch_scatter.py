@@ -228,12 +228,11 @@ _CTYPES = {"int": ctypes.c_int, "int64_t": ctypes.c_int64,
 
 
 def _c_signatures():
-    """Each extern "C" entry point of csrc/ (and csrc/check/, csrc/dev/):
+    """Each extern "C" entry point of csrc/ (and csrc/check/):
     its return type and its parameters as ctypes types, pointers as
     c_void_p."""
     out = {}
-    for path in (_kernels.sources() + _kernels.sources("check")
-                 + _kernels.sources("dev")):
+    for path in _kernels.sources() + _kernels.sources("check"):
         text = open(path).read()
         for m in re.finditer(
                 r'extern "C" (int|int64_t) (hpsdf_\w+)\(([^)]*)\)', text):
@@ -251,13 +250,12 @@ def _c_signatures():
 def test_ctypes_signatures_match_the_sources():
     """The argument types _kernels declares for every entry point are the
     C sources' (ctypes passes what it is told: a wrong one corrupts the
-    launch without an error)."""
-    import k7_forms
-
+    launch without an error), and every entry point of the sources is
+    bound."""
     c = _c_signatures()
     bound = {**_kernels._SIGNATURES, **_kernels._SIZE_SIGNATURES,
-             **_kernels._CHECK_SIGNATURES, **k7_forms.SIGNATURES}
-    assert set(bound) <= set(c)
+             **_kernels._CHECK_SIGNATURES}
+    assert set(bound) == set(c)
     for name, args in bound.items():
         ret, params = c[name]
         assert list(args) == params, name
@@ -401,13 +399,3 @@ def test_packed_read_bytes_counts_the_walk():
     assert chip_smoke.packed_read_bytes(pt, pts) == 32 * len(cells | read)
     assert chip_smoke.packed_read_bytes(pt, pts, True) == \
         32 * len(cells - read) + 4 * pt.width * len(read)
-
-
-def test_k7_forms_needs_a_card(monkeypatch, capsys):
-    """k7_forms.py, which times K7's development forms on the card, stops
-    with exit code 1 and prints no result where there is no card."""
-    import k7_forms
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert k7_forms.main() == 1
-    assert capsys.readouterr().out == ""
