@@ -89,15 +89,16 @@ struct Held {
   float coef[kN];
 };
 
-// Hold `row`: a reload only when it is not the row held (HOLD false:
-// always).
-template <bool HOLD, int EDEG, bool LO>
-__device__ __forceinline__ void hold(Held<EDEG, LO>& h, const float* row) {
-  if (HOLD && row == h.row) return;
+// Load `row` into `h` (the frame and, where held, the coefficients, all
+// loads issued together); child: its child_idx lane, -1 on a leaf.
+template <int EDEG, bool LO>
+__device__ __forceinline__ void load_row(Held<EDEG, LO>& h, const float* row,
+                                         int& child) {
   const float4 m = __ldg(reinterpret_cast<const float4*>(row));
   h.row = row;
   h.scale = m.y;
   h.c[0] = m.z, h.c[1] = m.w, h.c[2] = __ldg(row + 4);
+  child = __float_as_int(m.x) - 1;
   if constexpr (Held<EDEG, LO>::kInRegs) {
     const float4* src =
         reinterpret_cast<const float4*>(row + hpsdf::kCoeffLane);
@@ -108,6 +109,28 @@ __device__ __forceinline__ void hold(Held<EDEG, LO>& h, const float* row) {
                  h.coef[4 * q + 3] = f.w;
     }
   }
+}
+
+// The leaf row of unit point u in `h`, every row of the walk loaded whole
+// (locate_row4's walk: the grid row, then up to `extra` descents).
+template <int EDEG, bool LO>
+__device__ __forceinline__ void locate_load(const Scene& sc, const float u[3],
+                                            Held<EDEG, LO>& h) {
+  int child;
+  load_row(h, hpsdf::grid_row(sc.grid, sc.W, sc.gd, u), child);
+  for (int r = 0; r < sc.extra && child >= 0; ++r) {
+    const int oct = (u[0] >= h.c[0]) | ((u[1] >= h.c[1]) << 1) |
+                    ((u[2] >= h.c[2]) << 2);
+    load_row(h, sc.rows + (int64_t)(child + oct) * sc.W, child);
+  }
+}
+
+// Hold `row`: a reload only when it is not the row held.
+template <int EDEG, bool LO>
+__device__ __forceinline__ void hold(Held<EDEG, LO>& h, const float* row) {
+  if (row == h.row) return;
+  int child;
+  load_row(h, row, child);
 }
 
 // The field's bound at `local` from the held row: sum_m coef[m] L_i(x)
@@ -136,7 +159,7 @@ __device__ __forceinline__ float eval_held(const Held<EDEG, LO>& h,
 
 // The march of one tile's centre ray (oc, dc) against the cone margin over
 // [lo, hi]; returns t_stop and sets `taken` to the rounds it took.
-template <bool HOLD, int EDEG, bool LO>
+template <bool FUSED, int EDEG, bool LO>
 __device__ __forceinline__ float march_tile(const Scene& sc,
                                             const float oc[3],
                                             const float dc[3], float dev_o,
@@ -158,8 +181,11 @@ __device__ __forceinline__ float march_tile(const Scene& sc,
     float u[3], local[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) u[a] = hpsdf::clamp_half(uo[a] + t * ud[a]);
-    hold<HOLD>(h, hpsdf::locate_row4(sc.grid, sc.rows, sc.W, sc.gd,
-                                     sc.extra, u));
+    if constexpr (FUSED)
+      locate_load(sc, u, h);
+    else
+      hold(h, hpsdf::locate_row4(sc.grid, sc.rows, sc.W, sc.gd, sc.extra,
+                                 u));
 #pragma unroll
     for (int a = 0; a < 3; ++a) local[a] = (u[a] - h.c[a]) * h.scale;
     const float v = eval_held(h, local);
@@ -174,17 +200,15 @@ __device__ __forceinline__ float march_tile(const Scene& sc,
 }
 
 // A block: tile row blockIdx.x / strips, tiles [tx0, tx0 + nt) of it (nt =
-// THREADS / T, or 1 when T > THREADS).
-template <int EDEG, bool LO, bool UNROLL, bool SPREAD>
+// kThreads / T, or 1 when T > kThreads).
+template <int EDEG, bool LO, bool FUSED>
 __global__ void __launch_bounds__(kThreads)
 cone_kernel(Scene sc, const float* __restrict__ origins,
             int64_t origin_stride, const float* __restrict__ dirs, int width,
             int T, int nt, int strips, float* __restrict__ t0,
             int* __restrict__ rounds) {
-  constexpr int THREADS = kThreads;
-  constexpr bool HOLD = true;
-  __shared__ float s_o2[THREADS], s_d2[THREADS], s_lo[THREADS],
-      s_hi[THREADS], s_t[THREADS];
+  __shared__ float s_o2[kThreads], s_d2[kThreads], s_lo[kThreads],
+      s_hi[kThreads], s_t[kThreads], s_c[6][kThreads];
   const int tid = threadIdx.x;
   const int tiles_x = width / T;
   const int ty = blockIdx.x / strips;
@@ -192,17 +216,23 @@ cone_kernel(Scene sc, const float* __restrict__ origins,
   const int ntb = min(nt, tiles_x - tx0);        // the strip's tiles
   const int cols = ntb * T;
   const int64_t ray0 = ((int64_t)ty * T) * width + (int64_t)tx0 * T;
-  auto centre = [&](int j, float oc[3], float dc[3]) {
-    const int64_t c = ray0 + (int64_t)(T / 2) * width + j * T + T / 2;
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-      oc[a] = origins[origin_stride * c + a], dc[a] = dirs[3 * c + a];
-  };
 
   // each thread's columns: the spread around their tile's centre ray and
   // the union of their rays' intervals in the root
   float do2 = 0.0f, dd2 = 0.0f, lo = INFINITY, hi = -INFINITY;
-  auto spread = [&](int c, int r, const float oc[3], const float dc[3]) {
+  for (int c = tid; c < cols; c += kThreads) {
+    const int64_t cr = ray0 + (int64_t)(T / 2) * width + (c / T) * T + T / 2;
+    float oc[3], dc[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      oc[a] = origins[origin_stride * cr + a], dc[a] = dirs[3 * cr + a];
+    if (c % T == 0) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        s_c[a][c / T] = oc[a], s_c[3 + a][c / T] = dc[a];
+    }
+#pragma unroll 8
+    for (int r = 0; r < T; ++r) {
       const int64_t ray = ray0 + (int64_t)r * width + c;
       float so = 0.0f, sd = 0.0f, t_near = -INFINITY, t_far = INFINITY;
 #pragma unroll
@@ -219,50 +249,36 @@ cone_kernel(Scene sc, const float* __restrict__ origins,
       do2 = fmaxf(do2, so), dd2 = fmaxf(dd2, sd);
       const float ts = fmaxf(t_near, 0.0f), te = fminf(t_far, sc.t_max);
       if (t_far >= ts && ts <= te) lo = fminf(lo, ts), hi = fmaxf(hi, te);
-  };
-  for (int c = tid; c < cols; c += THREADS) {
-    float oc[3], dc[3];
-    centre(c / T, oc, dc);
-    if constexpr (UNROLL) {
-#pragma unroll 8
-      for (int r = 0; r < T; ++r) spread(c, r, oc, dc);
-    } else {
-      for (int r = 0; r < T; ++r) spread(c, r, oc, dc);
     }
   }
   s_o2[tid] = do2, s_d2[tid] = dd2, s_lo[tid] = lo, s_hi[tid] = hi;
   __syncthreads();
 
   // a lane a tile: combine its columns, then march
-  int j = tid;
-  if constexpr (SPREAD) {
-    const int per_warp = (nt + THREADS / 32 - 1) / (THREADS / 32);
-    j = (tid & 31) < per_warp ? (tid >> 5) * per_warp + (tid & 31) : nt;
-  }
-  if (j < ntb) {
-    const int group = nt > 1 ? T : min(cols, THREADS);
-    const int first = nt > 1 ? j * T : 0;
+  if (tid < ntb) {
+    const int group = nt > 1 ? T : min(cols, kThreads);
+    const int first = nt > 1 ? tid * T : 0;
     do2 = 0.0f, dd2 = 0.0f, lo = INFINITY, hi = -INFINITY;
     for (int i = first; i < first + group; ++i) {
       do2 = fmaxf(do2, s_o2[i]), dd2 = fmaxf(dd2, s_d2[i]);
       lo = fminf(lo, s_lo[i]), hi = fmaxf(hi, s_hi[i]);
     }
-    float oc[3], dc[3];
-    centre(j, oc, dc);
+    const float oc[3] = {s_c[0][tid], s_c[1][tid], s_c[2][tid]};
+    const float dc[3] = {s_c[3][tid], s_c[4][tid], s_c[5][tid]};
     int taken;
-    s_t[j] = march_tile<HOLD, EDEG, LO>(sc, oc, dc, sqrtf(do2), sqrtf(dd2),
-                                        lo, hi, taken);
-    if (rounds != nullptr) rounds[(int64_t)ty * tiles_x + tx0 + j] = taken;
+    s_t[tid] = march_tile<FUSED, EDEG, LO>(sc, oc, dc, sqrtf(do2),
+                                           sqrtf(dd2), lo, hi, taken);
+    if (rounds != nullptr) rounds[(int64_t)ty * tiles_x + tx0 + tid] = taken;
   }
   __syncthreads();
-  for (int c = tid; c < cols; c += THREADS) {
+  for (int c = tid; c < cols; c += kThreads) {
     const float t = s_t[c / T];
 #pragma unroll 8
     for (int r = 0; r < T; ++r) t0[ray0 + (int64_t)r * width + c] = t;
   }
 }
 
-template <int EDEG, bool LO, bool HOLD, int THREADS>
+template <int EDEG, bool LO, bool FUSED>
 int launch(const Scene& sc, const float* origins, int64_t origin_stride,
            const float* dirs, int H, int width, int T, float* t0,
            int* rounds, cudaStream_t s) {
@@ -270,22 +286,21 @@ int launch(const Scene& sc, const float* origins, int64_t origin_stride,
   const int strips = (width / T + nt - 1) / nt;
   const int64_t blocks = (int64_t)(H / T) * strips;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  cone_kernel<EDEG, LO, HOLD, (THREADS > 0)><<<(unsigned)blocks, kThreads, 0,
-                                               s>>>(
+  cone_kernel<EDEG, LO, FUSED><<<(unsigned)blocks, kThreads, 0, s>>>(
       sc, origins, origin_stride, dirs, width, T, nt, strips, t0, rounds);
   return 0;
 }
 
-template <bool HOLD, int THREADS>
+template <bool FUSED>
 int dispatch(const Scene& sc, bool lod, int deg, const float* origins,
              int64_t origin_stride, const float* dirs, int H, int width,
              int T, float* t0, int* rounds, cudaStream_t s) {
   if (lod)
-    return launch<2, true, HOLD, THREADS>(sc, origins, origin_stride, dirs,
-                                          H, width, T, t0, rounds, s);
-#define HPSDF_LAUNCH(D)                                                    \
-  return launch<D, false, HOLD, THREADS>(sc, origins, origin_stride, dirs, \
-                                         H, width, T, t0, rounds, s)
+    return launch<2, true, FUSED>(sc, origins, origin_stride, dirs, H, width,
+                                  T, t0, rounds, s);
+#define HPSDF_LAUNCH(D)                                                  \
+  return launch<D, false, FUSED>(sc, origins, origin_stride, dirs, H,    \
+                                 width, T, t0, rounds, s)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
   return 0;
@@ -298,9 +313,8 @@ int dispatch(const Scene& sc, bool lod, int deg, const float* origins,
 // origin. cap: the round cap (min(CONE_CAP, max_steps)). box: bmin, bmax, the
 // root centre and 1 / root sizes (12 floats). t0: (H * width) floats.
 // rounds: nullptr, or (H / T) * (width / T) ints, the rounds each tile's
-// march took. form (development): 0 the reduction's row loop unrolled,
-// 32 tiles a warp; 1 unrolled, the tiles spread over the block's warps;
-// 2 not unrolled, 32 tiles a warp.
+// march took. form (development): 0 rows held, reloaded after the locate
+// when they change; 1 every row of the locate's walk loaded whole.
 extern "C" int hpsdf_cone(const float* grid, const float* rows, int W,
                           int deg, const float* lo_grid, const float* lo_rows,
                           int gd, int extra, const float* origins,
@@ -323,14 +337,11 @@ extern "C" int hpsdf_cone(const float* grid, const float* rows, int W,
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
   if (form == 1)
-    rc = dispatch<true, 1>(sc, lod, deg, origins, origin_stride,
-                           dirs, H, width, T, t0, rounds, s);
-  else if (form == 2)
-    rc = dispatch<false, 0>(sc, lod, deg, origins, origin_stride, dirs, H,
-                            width, T, t0, rounds, s);
+    rc = dispatch<true>(sc, lod, deg, origins, origin_stride, dirs, H, width,
+                        T, t0, rounds, s);
   else
-    rc = dispatch<true, 0>(sc, lod, deg, origins, origin_stride,
-                           dirs, H, width, T, t0, rounds, s);
+    rc = dispatch<false>(sc, lod, deg, origins, origin_stride, dirs, H,
+                         width, T, t0, rounds, s);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

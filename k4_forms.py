@@ -5,8 +5,8 @@ render and degree phases of chip_smoke.py.
 
     python3 k4_forms.py
 
-Forms: 0 the row loop unrolled, 32 tiles a warp; 1 unrolled, tiles spread
-over the warps; 2 not unrolled. Each must equal the replaced kernel.
+Forms: 0 rows held and reloaded after the locate when they change; 1 every
+row of the locate's walk loaded whole. Each must equal the replaced kernel.
 """
 
 import os
@@ -21,7 +21,7 @@ def forms(pt, o, d, tiles, lo, label, smi):
     from hpsdf_tpu_torch.render import HIT_EPS, cone_kernel
 
     want = C.cone_reference(pt, o, d, C.T_MAX, HIT_EPS, tiles, lo=lo)
-    for f in (0, 1, 2):
+    for f in (0, 1):
         got, _ = cone_kernel(pt, o, d, C.T_MAX, HIT_EPS, tiles, lo=lo,
                              with_stats=True, form=f)
         C.sync()
@@ -31,7 +31,7 @@ def forms(pt, o, d, tiles, lo, label, smi):
         pt, o, d, C.T_MAX, HIT_EPS, tiles, lo=lo),
         "reference_cap0": lambda: C.cone_reference(
             pt, o, d, C.T_MAX, HIT_EPS, tiles, lo=lo, max_steps=0)}
-    for f in (0, 1, 2):
+    for f in (0, 1):
         fns[f"form{f}"] = (lambda f=f: cone_kernel(
             pt, o, d, C.T_MAX, HIT_EPS, tiles, lo=lo, form=f))
         fns[f"form{f}_cap0"] = (lambda f=f: cone_kernel(
