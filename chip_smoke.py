@@ -36,7 +36,14 @@ of that ray alone, so a redesign may change the schedule and how a row
 reaches the registers, and no result. From K3's per-ray counts [k3] prints
 what the rays did (steps, relocations that found the row already held, the
 SIMT efficiency of 32x1 strips and 8x4 tiles), the bound on that work, and
-the serial floor: the longest ray marched alone.
+the serial floor: the longest ray marched alone. K4, the cone prepass, is
+held the same way to the kernel it replaced (csrc/check/cone_reference.cu),
+t0 bit for bit, on both trees, the boundary view, the render's 512^2 rays
+and every degree, and its per-tile rounds (cone_start's with_stats) to its
+plain version's; [k4] times both beside K3 with and without K4's starts,
+with no round (the reduction alone) and on the longest tile alone, bounds
+K4 by the rounds its tiles took and the rows their centre rays reach, and
+estimates the marches' instruction issue from the SASS of a round.
 
 P1 is also held against its plain version on the main path's own points
 (the largest F batch of the slice fit) and timed there with and without its
@@ -1455,7 +1462,7 @@ def phase_k4(pt, name, smi):
     by_ops = cone_ops(n, total_rounds, pt.deg_used, lo) / F32_PEAK * 1e3
     # the issue estimate: one round's SASS instructions times the rounds
     # each warp marches
-    tmpl = ((2, 1) if lo is not None else (pt.deg_used, 0)) + (0,)  # DEV
+    tmpl = (2, 1) if lo is not None else (pt.deg_used, 0)
     instr = sass_round(_kernels.library_path(), tmpl)
     instr_ref = sass_round(_kernels.library_path("check"),
                            (pt.deg_used,))
@@ -2597,7 +2604,10 @@ def phase_degrees(dev, seed=7):
                   pt, p32[:N_SYNTH // 2], RAW_GRAD)),
               f"the fused mode vs modes 0 and 2 at degree {deg}")
     check(k3_hits > 0, "K3 hits on the synthetic trees")
-    check(k4_k > 0, "K4 marched on the synthetic trees")
+    check(k4_k > 0 and k4_rounds_differ == 0 and k4_t0_err <= K4_T0_ATOL,
+          f"K4 vs plain on the synthetic trees: rounds differ on "
+          f"{k4_rounds_differ} of {k4_tiles} tiles, max|t0 - plain| "
+          f"{k4_t0_err:.3e}, k up to {k4_k}")
     print(f"[degrees] 0..12, {N_SYNTH} pts each on a depth-2 tree (rows "
           f"{T.pack_tree(tree).width} lanes at 12): K2 max|v - plain|/"
           f"max(1,|v|) {k2_err:.3e}, K5 min dot {k5_dot:.8f}, K1 max|value "

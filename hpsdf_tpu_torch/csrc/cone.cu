@@ -27,26 +27,34 @@
 //
 // Bound. The reduction reads each ray's direction (and origin, unless one
 // origin is shared) once and writes t0: bytes. The march is a chain of
-// dependent loads and f32 operations a round (locate, frame, recurrences,
-// the serial term sum, step logic), at most `cap` rounds of one ray a tile,
-// so a tile's march costs latency and its issue is small; the launch is
-// bound by the reduction's bytes and the longest tile's chain. What the
-// design does about it:
+// dependent loads and f32 operations a round (the locate's walk, the frame,
+// the recurrences, the serial term sum, the step logic), at most `cap`
+// rounds of one ray a tile: latency, with little issue. So the launch costs
+// the reduction's bytes, then the longest tile's chain. What the design
+// does about it:
 //   * a block takes a strip of one tile row (kThreads / T tiles) and its
 //     threads read the strip's rays in raster order, a thread a pixel
-//     column, so a warp reads consecutive rays of one pixel row; each
-//     thread keeps its column's spread and interval, and the block combines
-//     them per tile in shared memory (maxima and minima, which do not
-//     depend on order);
+//     column (rows unrolled, so a thread's loads are in flight together),
+//     so a warp reads consecutive rays of one pixel row; each thread keeps
+//     its column's spread and interval, and the block combines them per
+//     tile in shared memory (maxima and minima, which do not depend on
+//     order);
 //   * then a lane marches a tile, so a round costs one lane's issue and not
-//     a warp's;
-//   * the row reaches the registers in 16-byte loads and stays there while
-//     the locate returns it (the locate runs every round, only the reload
-//     is skipped);
+//     a warp's (the kernel this one replaced spent a warp on each tile's
+//     march, 31 lanes of 32 repeating the first: 16,384 warps in 3-4 waves
+//     at 1024^2);
+//   * each row of the locate's walk is loaded whole, frame and coefficients
+//     in 16-byte loads issued together, so the leaf's coefficients come
+//     with its frame and need no load of their own after the walk;
 //   * t0 goes back through shared memory in raster order.
-// Every t0 is bit for bit that of the kernel this one replaced
-// (check/cone_reference.cu, a warp a tile): the schedule and the way a row
-// reaches the registers change, the arithmetic does not.
+// What was timed and lost (PERF.md, PR 9): holding the leaf row and
+// reloading it after the walk only when it changed (a warp's lanes march
+// different tiles, and a round waits for any lane that reloads), reloading
+// it every round, rows not unrolled, blocks of 128 threads, and the
+// marching tiles spread over the block's warps. Every t0 is bit for bit
+// that of the kernel this one replaced (check/cone_reference.cu): the
+// schedule and the way a row reaches the registers change, the arithmetic
+// does not.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,9 +65,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxHeld = 64;        // coefficient lanes kept in registers
+constexpr int kMaxRegLanes = 64;    // coefficient lanes kept in registers
 constexpr int kLoW = 32;            // accel.LO_W
-constexpr int kLoHeld = 12;         // LOD lanes 8..19: 10 coefficients, err
+constexpr int kLoLanes = 12;        // LOD lanes 8..19: 10 coefficients, err
 constexpr int kLoErr = 10;          // accel.LO_ERR_LANE - COEFF_LANE
 constexpr float kStepScale = 0.95f;
 constexpr float kMinStep = 1e-4f;
@@ -75,35 +83,36 @@ struct Scene {
   float t_max, hit_eps;
 };
 
-// The row a tile's march holds: its pointer, the leaf frame and, for rows
-// of at most kMaxHeld coefficient lanes, the coefficients (an LOD row's
-// kLoHeld lanes, its error lane among them). EDEG is the degree evaluated.
+// A row in registers: its pointer, the leaf frame and, for rows of at most
+// kMaxRegLanes coefficient lanes, the coefficients (an LOD row's kLoLanes
+// lanes, its error lane among them). EDEG is the degree evaluated.
 template <int EDEG, bool LO>
-struct Held {
+struct Row {
   static constexpr int kC = (EDEG + 1) * (EDEG + 2) * (EDEG + 3) / 6;
-  static constexpr int kQuads = LO ? kLoHeld / 4 : (kC + 3) / 4;
-  static constexpr bool kInRegs = 4 * kQuads <= kMaxHeld;
+  static constexpr int kQuads = LO ? kLoLanes / 4 : (kC + 3) / 4;
+  static constexpr bool kInRegs = 4 * kQuads <= kMaxRegLanes;
   static constexpr int kN = kInRegs ? 4 * kQuads : 1;
   const float* row;
   float scale, c[3];
   float coef[kN];
 };
 
-// Load `row` into `h` (the frame and, where held, the coefficients, all
-// loads issued together); child: its child_idx lane, -1 on a leaf.
+// Load `row` into `h` (the frame and, where kept in registers, the
+// coefficients, all loads issued together); child: its child_idx lane, -1
+// on a leaf.
 template <int EDEG, bool LO>
-__device__ __forceinline__ void load_row(Held<EDEG, LO>& h, const float* row,
+__device__ __forceinline__ void load_row(Row<EDEG, LO>& h, const float* row,
                                          int& child) {
   const float4 m = __ldg(reinterpret_cast<const float4*>(row));
   h.row = row;
   h.scale = m.y;
   h.c[0] = m.z, h.c[1] = m.w, h.c[2] = __ldg(row + 4);
   child = __float_as_int(m.x) - 1;
-  if constexpr (Held<EDEG, LO>::kInRegs) {
+  if constexpr (Row<EDEG, LO>::kInRegs) {
     const float4* src =
         reinterpret_cast<const float4*>(row + hpsdf::kCoeffLane);
 #pragma unroll
-    for (int q = 0; q < Held<EDEG, LO>::kQuads; ++q) {
+    for (int q = 0; q < Row<EDEG, LO>::kQuads; ++q) {
       const float4 f = __ldg(src + q);
       h.coef[4 * q] = f.x, h.coef[4 * q + 1] = f.y, h.coef[4 * q + 2] = f.z,
                  h.coef[4 * q + 3] = f.w;
@@ -115,7 +124,7 @@ __device__ __forceinline__ void load_row(Held<EDEG, LO>& h, const float* row,
 // (locate_row4's walk: the grid row, then up to `extra` descents).
 template <int EDEG, bool LO>
 __device__ __forceinline__ void locate_load(const Scene& sc, const float u[3],
-                                            Held<EDEG, LO>& h) {
+                                            Row<EDEG, LO>& h) {
   int child;
   load_row(h, hpsdf::grid_row(sc.grid, sc.W, sc.gd, u), child);
   for (int r = 0; r < sc.extra && child >= 0; ++r) {
@@ -125,25 +134,17 @@ __device__ __forceinline__ void locate_load(const Scene& sc, const float u[3],
   }
 }
 
-// Hold `row`: a reload only when it is not the row held.
-template <int EDEG, bool LO>
-__device__ __forceinline__ void hold(Held<EDEG, LO>& h, const float* row) {
-  if (row == h.row) return;
-  int child;
-  load_row(h, row, child);
-}
-
-// The field's bound at `local` from the held row: sum_m coef[m] L_i(x)
+// The field's bound at `local` from the leaf row: sum_m coef[m] L_i(x)
 // L_j(y) L_k(z) in basis order, less the error lane on an LOD row.
 template <int EDEG, bool LO>
-__device__ __forceinline__ float eval_held(const Held<EDEG, LO>& h,
+__device__ __forceinline__ float eval_row(const Row<EDEG, LO>& h,
                                            const float local[3]) {
   float Lx[EDEG + 1], Ly[EDEG + 1], Lz[EDEG + 1];
   hpsdf::legendre<EDEG>(local[0], Lx);
   hpsdf::legendre<EDEG>(local[1], Ly);
   hpsdf::legendre<EDEG>(local[2], Lz);
   float v = 0.0f;
-  if constexpr (Held<EDEG, LO>::kInRegs) {
+  if constexpr (Row<EDEG, LO>::kInRegs) {
     hpsdf::for_each_term<EDEG>([&](int m, int i, int j, int k) {
       v += h.coef[m] * (Lx[i] * Ly[j] * Lz[k]);
     });
@@ -159,7 +160,7 @@ __device__ __forceinline__ float eval_held(const Held<EDEG, LO>& h,
 
 // The march of one tile's centre ray (oc, dc) against the cone margin over
 // [lo, hi]; returns t_stop and sets `taken` to the rounds it took.
-template <bool FUSED, int EDEG, bool LO>
+template <int EDEG, bool LO>
 __device__ __forceinline__ float march_tile(const Scene& sc,
                                             const float oc[3],
                                             const float dc[3], float dev_o,
@@ -174,21 +175,16 @@ __device__ __forceinline__ float march_tile(const Scene& sc,
   taken = 0;
   if (!(lo <= hi)) return escape;
   float t = lo;
-  Held<EDEG, LO> h;
-  h.row = nullptr;
+  Row<EDEG, LO> h;
   for (int k = 0; k < sc.cap; ++k) {
     ++taken;
     float u[3], local[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) u[a] = hpsdf::clamp_half(uo[a] + t * ud[a]);
-    if constexpr (FUSED)
-      locate_load(sc, u, h);
-    else
-      hold(h, hpsdf::locate_row4(sc.grid, sc.rows, sc.W, sc.gd, sc.extra,
-                                 u));
+    locate_load(sc, u, h);
 #pragma unroll
     for (int a = 0; a < 3; ++a) local[a] = (u[a] - h.c[a]) * h.scale;
-    const float v = eval_held(h, local);
+    const float v = eval_row(h, local);
     const float radius = dev_o + t * dev_d;
     const float margin = v - radius;
     if (margin < fmaxf(sc.hit_eps, kStopFrac * radius)) break;    // contact
@@ -201,7 +197,7 @@ __device__ __forceinline__ float march_tile(const Scene& sc,
 
 // A block: tile row blockIdx.x / strips, tiles [tx0, tx0 + nt) of it (nt =
 // kThreads / T, or 1 when T > kThreads).
-template <int EDEG, bool LO, bool FUSED>
+template <int EDEG, bool LO>
 __global__ void __launch_bounds__(kThreads)
 cone_kernel(Scene sc, const float* __restrict__ origins,
             int64_t origin_stride, const float* __restrict__ dirs, int width,
@@ -266,8 +262,8 @@ cone_kernel(Scene sc, const float* __restrict__ origins,
     const float oc[3] = {s_c[0][tid], s_c[1][tid], s_c[2][tid]};
     const float dc[3] = {s_c[3][tid], s_c[4][tid], s_c[5][tid]};
     int taken;
-    s_t[tid] = march_tile<FUSED, EDEG, LO>(sc, oc, dc, sqrtf(do2),
-                                           sqrtf(dd2), lo, hi, taken);
+    s_t[tid] = march_tile<EDEG, LO>(sc, oc, dc, sqrtf(do2), sqrtf(dd2), lo,
+                                    hi, taken);
     if (rounds != nullptr) rounds[(int64_t)ty * tiles_x + tx0 + tid] = taken;
   }
   __syncthreads();
@@ -278,7 +274,7 @@ cone_kernel(Scene sc, const float* __restrict__ origins,
   }
 }
 
-template <int EDEG, bool LO, bool FUSED>
+template <int EDEG, bool LO>
 int launch(const Scene& sc, const float* origins, int64_t origin_stride,
            const float* dirs, int H, int width, int T, float* t0,
            int* rounds, cudaStream_t s) {
@@ -286,24 +282,9 @@ int launch(const Scene& sc, const float* origins, int64_t origin_stride,
   const int strips = (width / T + nt - 1) / nt;
   const int64_t blocks = (int64_t)(H / T) * strips;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  cone_kernel<EDEG, LO, FUSED><<<(unsigned)blocks, kThreads, 0, s>>>(
+  cone_kernel<EDEG, LO><<<(unsigned)blocks, kThreads, 0, s>>>(
       sc, origins, origin_stride, dirs, width, T, nt, strips, t0, rounds);
-  return 0;
-}
-
-template <bool FUSED>
-int dispatch(const Scene& sc, bool lod, int deg, const float* origins,
-             int64_t origin_stride, const float* dirs, int H, int width,
-             int T, float* t0, int* rounds, cudaStream_t s) {
-  if (lod)
-    return launch<2, true, FUSED>(sc, origins, origin_stride, dirs, H, width,
-                                  T, t0, rounds, s);
-#define HPSDF_LAUNCH(D)                                                  \
-  return launch<D, false, FUSED>(sc, origins, origin_stride, dirs, H,    \
-                                 width, T, t0, rounds, s)
-  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
-#undef HPSDF_LAUNCH
-  return 0;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -313,15 +294,14 @@ int dispatch(const Scene& sc, bool lod, int deg, const float* origins,
 // origin. cap: the round cap (min(CONE_CAP, max_steps)). box: bmin, bmax, the
 // root centre and 1 / root sizes (12 floats). t0: (H * width) floats.
 // rounds: nullptr, or (H / T) * (width / T) ints, the rounds each tile's
-// march took. form (development): 0 rows held, reloaded after the locate
-// when they change; 1 every row of the locate's walk loaded whole.
+// march took.
 extern "C" int hpsdf_cone(const float* grid, const float* rows, int W,
                           int deg, const float* lo_grid, const float* lo_rows,
                           int gd, int extra, const float* origins,
                           int64_t origin_stride, const float* dirs, int H,
                           int width, int T, const float* box, float t_max,
                           float hit_eps, int cap, float* t0, int* rounds,
-                          int form, void* stream) {
+                          void* stream) {
   if (T <= 0 || H % T || width % T) return (int)cudaErrorInvalidValue;
   Scene sc;
   const bool lod = lo_grid != nullptr;
@@ -335,13 +315,13 @@ extern "C" int hpsdf_cone(const float* grid, const float* rows, int W,
   }
   sc.t_max = t_max, sc.hit_eps = hit_eps;
   cudaStream_t s = (cudaStream_t)stream;
-  int rc;
-  if (form == 1)
-    rc = dispatch<true>(sc, lod, deg, origins, origin_stride, dirs, H, width,
-                        T, t0, rounds, s);
-  else
-    rc = dispatch<false>(sc, lod, deg, origins, origin_stride, dirs, H,
-                         width, T, t0, rounds, s);
-  if (rc != 0) return rc;
-  return (int)cudaGetLastError();
+  if (lod)
+    return launch<2, true>(sc, origins, origin_stride, dirs, H, width, T, t0,
+                           rounds, s);
+#define HPSDF_LAUNCH(D)                                                    \
+  return launch<D, false>(sc, origins, origin_stride, dirs, H, width, T, t0, \
+                          rounds, s)
+  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
+#undef HPSDF_LAUNCH
+  return 0;
 }

@@ -1,8 +1,7 @@
 """hpsdf_tpu_torch stands alone: importing it, its mesh package, its
 kernel bindings, the sphere tracer and inverse rendering loads neither jax
-nor hpsdf_tpu, nor does importing the scripts that drive it on the card
-(chip_smoke.py, k4_forms.py), and no import statement in
-either names them."""
+nor hpsdf_tpu, nor does importing the script that drives it on the card
+(chip_smoke.py), and no import statement in either names them."""
 
 import os
 import subprocess
@@ -25,15 +24,15 @@ def test_import_leaves_out_jax_and_hpsdf_tpu():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-_SCRIPTS = ("chip_smoke.py", "k4_forms.py")
+_SCRIPTS = ("chip_smoke.py",)
 
 
 def test_scripts_leave_out_jax_and_hpsdf_tpu():
-    """The scripts that drive the port on the card import neither jax nor
-    hpsdf_tpu when they load."""
+    """The script that drives the port on the card imports neither jax nor
+    hpsdf_tpu when it loads."""
     code = (
         "import sys\n"
-        "import chip_smoke, k4_forms\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'hpsdf_tpu'))\n"
         "print(bad)\n"
