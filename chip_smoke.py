@@ -86,6 +86,7 @@ non-zero. Without a CUDA device it exits 1 and prints no result.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -1314,20 +1315,26 @@ def cone_ops(n_rays, total_rounds, deg, lo):
         k3_ops(2, lo=True) if lo is not None else k3_ops(deg))
 
 
-def sass_round(lib_path, template_args):
-    """SASS instructions of one round of a cone_kernel instantiation: the
-    largest loop (a backward branch) holding a 16-byte global load, which
-    is the march's (the locate's and the row's loads), in cuobjdump's
-    listing of the library. None where the toolkit has no cuobjdump."""
+@functools.lru_cache(maxsize=None)
+def sass_listing(lib_path):
+    """cuobjdump's SASS listing of a built library ('' where the toolkit
+    has no cuobjdump)."""
     from hpsdf_tpu_torch import _kernels
 
     tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
     if not os.access(tool, os.X_OK):
-        return None
-    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                         text=True, timeout=300).stdout
+        return ""
+    return subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300).stdout
+
+
+def sass_round(lib_path, template_args):
+    """SASS instructions of one round of a cone_kernel instantiation: the
+    largest loop (a backward branch) holding a 16-byte global load, which
+    is the march's (the locate's and the row's loads), in cuobjdump's
+    listing of the library. None where there is no listing."""
     best = None
-    for block in re.split(r"\n\s*Function : ", out)[1:]:
+    for block in re.split(r"\n\s*Function : ", sass_listing(lib_path))[1:]:
         name = block.split("\n", 1)[0].strip()
         m = re.search(r"cone_kernelI((?:L[a-z]\d+E|[a-z])+)E", name)
         if not m or [int(v) for v in re.findall(r"L[a-z](\d+)E",
@@ -1462,7 +1469,7 @@ def phase_k4(pt, name, smi):
     by_ops = cone_ops(n, total_rounds, pt.deg_used, lo) / F32_PEAK * 1e3
     # the issue estimate: one round's SASS instructions times the rounds
     # each warp marches
-    tmpl = (2, 1) if lo is not None else (pt.deg_used, 0)
+    tmpl = ((2, 1) if lo is not None else (pt.deg_used, 0)) + (0,)  # DEV
     instr = sass_round(_kernels.library_path(), tmpl)
     instr_ref = sass_round(_kernels.library_path("check"),
                            (pt.deg_used,))

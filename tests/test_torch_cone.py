@@ -12,7 +12,16 @@ view of a sphere touching the root's faces (r = 0.499, 128^2, from two
 oblique eyes where the reference's cone drops hits) the port's cone plus
 march must give exactly the hits of the march without a cone, and t
 within 5e-4 on them (tests/test_torch_render.py's bound).
+
+``cone_start(..., with_stats=True)`` gives the reference's (t0, k,
+n_coarse); its k is held to the reference's on views where every tile's
+interval is its centre ray's (from inside the root, and parallel rays that
+all enter through one face, head-on and oblique), and the plain version's
+per-tile rounds to its own t0 under caps. The helpers chip_smoke.py prices
+K4 with are checked here too.
 """
+
+import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
@@ -274,3 +283,78 @@ def test_cone_kernel_refuses_cpu(trees):
     with pytest.raises(ValueError, match="divide"):
         TR.cone_start(tp, torch.as_tensor(o), torch.as_tensor(d), 5.0,
                       TR.HIT_EPS, (16, 16, 5))
+
+
+def test_chip_smoke_tile_rays():
+    """chip_smoke.tile_rays gives tile j's rays in the order _tiles_of
+    lays them out."""
+    import chip_smoke
+
+    tiles = (16, 24, 8)
+    idx = torch.arange(16 * 24, dtype=torch.float32)[:, None].expand(-1, 3)
+    laid = TR._tiles_of(idx, tiles)[..., 0].long()
+    for j in range(laid.shape[0]):
+        assert torch.equal(chip_smoke.tile_rays(tiles, j), laid[j])
+
+
+def test_chip_smoke_cone_read_bytes(trees):
+    """chip_smoke.cone_read_bytes prices the rows the centre rays' samples
+    reach: with every tile cut to one round, the rows of their starts, the
+    earliest entry of each tile's rays, on the full rows and on the LOD
+    tables."""
+    import chip_smoke
+
+    side = 32
+    tiles = (side, side, TILE)
+    o, d = (torch.as_tensor(x) for x in _rays((0.0, 0.0, -1.8), side))
+    c = (TILE // 2) * TILE + TILE // 2
+    for name in ("shallow", "lod"):
+        tp = trees[name][3]
+        _, rounds = TR.cone_start_plain(tp, o, d, 5.0, TR.HIT_EPS, tiles,
+                                        lo=tp.lo, with_stats=True)
+        one = rounds.clamp(max=1)
+        rc, half = TR._root_box(tp)
+        tn, tf, hits = TR.intersect_aabb(o, d, rc - half, rc + half)
+        ts = tn.clamp(min=0.0)
+        act = hits & (ts <= tf.clamp(max=5.0))
+        lo = TR._tiles_of(torch.where(act, ts, np.inf)[:, None].expand(
+            -1, 3), tiles)[..., 0].amin(dim=1)
+        live = one > 0
+        pts = (TR._tiles_of(o, tiles)[:, c] + lo[:, None]
+               * TR._tiles_of(d, tiles)[:, c])[live]
+        tables = tp if tp.lo is None else dataclasses.replace(
+            tp, grid=tp.lo[0], rows=tp.lo[1])
+        assert bool(live.any())
+        assert chip_smoke.cone_read_bytes(tp, tp.lo, o, d, tiles, one,
+                                          5.0) == \
+            chip_smoke.packed_read_bytes(tables, pts, whole=True)
+        assert chip_smoke.cone_read_bytes(tp, tp.lo, o, d, tiles, rounds,
+                                          5.0) > \
+            chip_smoke.packed_read_bytes(tables, pts, whole=True)
+
+
+def test_chip_smoke_sass_round(monkeypatch):
+    """chip_smoke.sass_round counts the instructions of the largest loop
+    with a 16-byte global load in the listing of the instantiation asked
+    for."""
+    import chip_smoke
+
+    def fn(name, body):
+        return (f"\n\tFunction : _ZN12_GLOBAL__N_111cone_kernelI{name}EEvNS_"
+                f"5SceneE\n" + "".join(
+                    f"        /*{16 * i:04x}*/   {ins} ;  /* 0x0 */\n"
+                    for i, ins in enumerate(body)))
+
+    march = ["MOV R1, c[0x0][0x28]", "LDG.E.128.CONSTANT R4, desc[UR4][R2.64]",
+             "FFMA R3, R4, R5, R6", "LDG.E.128.CONSTANT R8, desc[UR4][R2.64]",
+             "@P0 BRA 0x30", "FMUL R3, R4, R5", "@!P1 BRA 0x10", "EXIT",
+             "BRA 0x70"]
+    other = ["MOV R1, c[0x0][0x28]", "FFMA R3, R4, R5, R6",
+             "FFMA R3, R4, R5, R6", "FFMA R3, R4, R5, R6",
+             "FFMA R3, R4, R5, R6", "@P0 BRA 0x10", "EXIT"]
+    listing = (fn("Li3ELb0E", march) + fn("Li3ELb1E", other)
+               + fn("Li5ELb0E", other))
+    monkeypatch.setattr(chip_smoke, "sass_listing", lambda path: listing)
+    assert chip_smoke.sass_round("lib", (3, 0)) == 6     # 0x10 .. 0x60
+    assert chip_smoke.sass_round("lib", (3, 1)) is None
+    assert chip_smoke.sass_round("lib", (2, 1)) is None
