@@ -1469,7 +1469,7 @@ def phase_k4(pt, name, smi):
     by_ops = cone_ops(n, total_rounds, pt.deg_used, lo) / F32_PEAK * 1e3
     # the issue estimate: one round's SASS instructions times the rounds
     # each warp marches
-    tmpl = ((2, 1) if lo is not None else (pt.deg_used, 0)) + (0,)  # DEV
+    tmpl = (2, 1) if lo is not None else (pt.deg_used, 0)
     instr = sass_round(_kernels.library_path(), tmpl)
     instr_ref = sass_round(_kernels.library_path("check"),
                            (pt.deg_used,))

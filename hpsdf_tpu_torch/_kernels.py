@@ -53,7 +53,7 @@ _SIGNATURES = {
                     _P, _I64, _P, _F32, _F32, _I32, _F32, _I32, _F32, _I32,
                     _P, _P, _P, _P, _P, _I32, _P),
     "hpsdf_cone": (_P, _P, _I32, _I32, _P, _P, _I32, _I32, _P, _I64, _P,
-                   _I32, _I32, _I32, _P, _F32, _F32, _I32, _P, _P),
+                   _I32, _I32, _I32, _P, _F32, _F32, _I32, _P, _P, _P),
     "hpsdf_row_scatter": (_P, _I64, _P, _I64, _I64, _P, _I64, _P, _P),
     "hpsdf_row_scatter_csr": (_P, _I64, _P, _P, _I64, _P, _P),
     "hpsdf_packed_grad": (_P, _P, _I32, _I32, _I32, _I32, _I32, _P, _I64,
@@ -78,6 +78,9 @@ _CHECK_SIGNATURES = {
                                     _P, _I32, _P, _P, _P),
     "hpsdf_row_scatter_reference": (_P, _I64, _P, _I64, _I64, _P, _P),
     "hpsdf_coeff_scatter_reference": _SIGNATURES["hpsdf_coeff_scatter"],
+    "hpsdf_cone_reference": (_P, _P, _I32, _I32, _P, _P, _I32, _I32, _P,
+                             _I64, _P, _I32, _I32, _I32, _P, _F32, _F32,
+                             _I32, _P, _P),
 }
 
 _lock = threading.Lock()

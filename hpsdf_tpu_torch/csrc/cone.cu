@@ -197,15 +197,14 @@ __device__ __forceinline__ float march_tile(const Scene& sc,
 
 // A block: tile row blockIdx.x / strips, tiles [tx0, tx0 + nt) of it (nt =
 // kThreads / T, or 1 when T > kThreads).
-template <int EDEG, bool LO, int FORM>
-__global__ void __launch_bounds__(FORM == 2 ? 128 : kThreads)
+template <int EDEG, bool LO>
+__global__ void __launch_bounds__(kThreads)
 cone_kernel(Scene sc, const float* __restrict__ origins,
             int64_t origin_stride, const float* __restrict__ dirs, int width,
             int T, int nt, int strips, float* __restrict__ t0,
             int* __restrict__ rounds) {
-  constexpr int THREADS = FORM == 2 ? 128 : kThreads;
-  __shared__ float s_o2[THREADS], s_d2[THREADS], s_lo[THREADS],
-      s_hi[THREADS], s_t[THREADS], s_c[6][THREADS];
+  __shared__ float s_o2[kThreads], s_d2[kThreads], s_lo[kThreads],
+      s_hi[kThreads], s_t[kThreads], s_c[6][kThreads];
   const int tid = threadIdx.x;
   const int tiles_x = width / T;
   const int ty = blockIdx.x / strips;
@@ -217,7 +216,7 @@ cone_kernel(Scene sc, const float* __restrict__ origins,
   // each thread's columns: the spread around their tile's centre ray and
   // the union of their rays' intervals in the root
   float do2 = 0.0f, dd2 = 0.0f, lo = INFINITY, hi = -INFINITY;
-  for (int c = tid; c < cols; c += THREADS) {
+  for (int c = tid; c < cols; c += kThreads) {
     const int64_t cr = ray0 + (int64_t)(T / 2) * width + (c / T) * T + T / 2;
     float oc[3], dc[3];
 #pragma unroll
@@ -228,18 +227,13 @@ cone_kernel(Scene sc, const float* __restrict__ origins,
       for (int a = 0; a < 3; ++a)
         s_c[a][c / T] = oc[a], s_c[3 + a][c / T] = dc[a];
     }
-    float o0[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) o0[a] = origins[a];
 #pragma unroll 8
     for (int r = 0; r < T; ++r) {
       const int64_t ray = ray0 + (int64_t)r * width + c;
       float so = 0.0f, sd = 0.0f, t_near = -INFINITY, t_far = INFINITY;
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        const float o = FORM == 1 && origin_stride == 0
-                            ? o0[a]
-                            : origins[origin_stride * ray + a];
+        const float o = origins[origin_stride * ray + a];
         const float d = dirs[3 * ray + a];
         so += (o - oc[a]) * (o - oc[a]);
         sd += (d - dc[a]) * (d - dc[a]);
@@ -258,7 +252,7 @@ cone_kernel(Scene sc, const float* __restrict__ origins,
 
   // a lane a tile: combine its columns, then march
   if (tid < ntb) {
-    const int group = nt > 1 ? T : min(cols, THREADS);
+    const int group = nt > 1 ? T : min(cols, kThreads);
     const int first = nt > 1 ? tid * T : 0;
     do2 = 0.0f, dd2 = 0.0f, lo = INFINITY, hi = -INFINITY;
     for (int i = first; i < first + group; ++i) {
@@ -273,40 +267,24 @@ cone_kernel(Scene sc, const float* __restrict__ origins,
     if (rounds != nullptr) rounds[(int64_t)ty * tiles_x + tx0 + tid] = taken;
   }
   __syncthreads();
-  for (int c = tid; c < cols; c += THREADS) {
+  for (int c = tid; c < cols; c += kThreads) {
     const float t = s_t[c / T];
 #pragma unroll 8
     for (int r = 0; r < T; ++r) t0[ray0 + (int64_t)r * width + c] = t;
   }
 }
 
-template <int EDEG, bool LO, int FORM>
+template <int EDEG, bool LO>
 int launch(const Scene& sc, const float* origins, int64_t origin_stride,
            const float* dirs, int H, int width, int T, float* t0,
            int* rounds, cudaStream_t s) {
-  constexpr int THREADS = FORM == 2 ? 128 : kThreads;
-  const int nt = T <= THREADS ? THREADS / T : 1;
+  const int nt = T <= kThreads ? kThreads / T : 1;
   const int strips = (width / T + nt - 1) / nt;
   const int64_t blocks = (int64_t)(H / T) * strips;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  cone_kernel<EDEG, LO, FORM><<<(unsigned)blocks, THREADS, 0, s>>>(
+  cone_kernel<EDEG, LO><<<(unsigned)blocks, kThreads, 0, s>>>(
       sc, origins, origin_stride, dirs, width, T, nt, strips, t0, rounds);
   return (int)cudaGetLastError();
-}
-
-template <int FORM>
-int dispatch(const Scene& sc, bool lod, int deg, const float* origins,
-             int64_t origin_stride, const float* dirs, int H, int width,
-             int T, float* t0, int* rounds, cudaStream_t s) {
-  if (lod)
-    return launch<2, true, FORM>(sc, origins, origin_stride, dirs, H, width,
-                                 T, t0, rounds, s);
-#define HPSDF_LAUNCH(D)                                                  \
-  return launch<D, false, FORM>(sc, origins, origin_stride, dirs, H,     \
-                                width, T, t0, rounds, s)
-  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
-#undef HPSDF_LAUNCH
-  return 0;
 }
 
 }  // namespace
@@ -316,15 +294,14 @@ int dispatch(const Scene& sc, bool lod, int deg, const float* origins,
 // origin. cap: the round cap (min(CONE_CAP, max_steps)). box: bmin, bmax, the
 // root centre and 1 / root sizes (12 floats). t0: (H * width) floats.
 // rounds: nullptr, or (H / T) * (width / T) ints, the rounds each tile's
-// march took. form (development): 0 shipped; 1 one shared origin loaded
-// once a thread; 2 blocks of 128 threads.
+// march took.
 extern "C" int hpsdf_cone(const float* grid, const float* rows, int W,
                           int deg, const float* lo_grid, const float* lo_rows,
                           int gd, int extra, const float* origins,
                           int64_t origin_stride, const float* dirs, int H,
                           int width, int T, const float* box, float t_max,
                           float hit_eps, int cap, float* t0, int* rounds,
-                          int form, void* stream) {
+                          void* stream) {
   if (T <= 0 || H % T || width % T) return (int)cudaErrorInvalidValue;
   Scene sc;
   const bool lod = lo_grid != nullptr;
@@ -338,12 +315,13 @@ extern "C" int hpsdf_cone(const float* grid, const float* rows, int W,
   }
   sc.t_max = t_max, sc.hit_eps = hit_eps;
   cudaStream_t s = (cudaStream_t)stream;
-  if (form == 1)
-    return dispatch<1>(sc, lod, deg, origins, origin_stride, dirs, H, width,
-                       T, t0, rounds, s);
-  if (form == 2)
-    return dispatch<2>(sc, lod, deg, origins, origin_stride, dirs, H, width,
-                       T, t0, rounds, s);
-  return dispatch<0>(sc, lod, deg, origins, origin_stride, dirs, H, width, T,
-                     t0, rounds, s);
+  if (lod)
+    return launch<2, true>(sc, origins, origin_stride, dirs, H, width, T, t0,
+                           rounds, s);
+#define HPSDF_LAUNCH(D)                                                    \
+  return launch<D, false>(sc, origins, origin_stride, dirs, H, width, T, t0, \
+                          rounds, s)
+  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
+#undef HPSDF_LAUNCH
+  return 0;
 }

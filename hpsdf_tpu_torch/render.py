@@ -381,10 +381,13 @@ def _check_tiles(tiles, n_rays: int):
 
 
 def cone_start_plain(pt: PackedTree, origins, dirs, t_max, hit_eps, tiles,
-                     lo=None, max_steps: int = MAX_STEPS) -> torch.Tensor:
+                     lo=None, max_steps: int = MAX_STEPS,
+                     with_stats: bool = False):
     """Per-ray march starts (B,) f32 from the cone prepass over T x T pixel
     tiles of a row-major H x W ray grid, ``tiles`` = (H, W, T)
     (hpsdf_tpu render.cone_start), as masked lockstep loops over the tiles.
+    ``with_stats``: also the rounds each tile's march took, (tiles,) int32
+    in row-major tile order; their largest is the lockstep round count.
 
     Each tile's centre ray marches the margin f - (do + t dd), where do and
     dd bound the tile's origin and direction spread, so that no ray of the
@@ -421,9 +424,11 @@ def cone_start_plain(pt: PackedTree, origins, dirs, t_max, hit_eps, tiles,
     udir = dc * accel._root_f32(pt, dc)[1]
     inv_lip = 1.0 / (1.0 + dd)
     eps = np.float32(hit_eps)
+    taken = torch.zeros(t.shape, dtype=torch.int32, device=t.device)
     for _ in range(min(CONE_CAP, max_steps)):
         if not bool(active.any()):
             break
+        taken += active
         unit = torch.clamp(uo + t[:, None] * udir, -0.5, 0.5)
         if lo is not None:
             row = accel.locate_in(lo[0], lo[1], pt.grid_depth,
@@ -442,15 +447,18 @@ def cone_start_plain(pt: PackedTree, origins, dirs, t_max, hit_eps, tiles,
         t = torch.where(active & ~contact, t + adv, t)
         t = torch.where(escaped, escape, t)
         active = active & ~contact & ~escaped
-    return t.reshape(H // T, 1, W // T, 1).expand(H // T, T, W // T, T) \
+    t0 = t.reshape(H // T, 1, W // T, 1).expand(H // T, T, W // T, T) \
         .reshape(-1)
+    return (t0, taken) if with_stats else t0
 
 
 def cone_kernel(pt: PackedTree, origins, dirs, t_max, hit_eps, tiles,
-                lo=None, max_steps: int = MAX_STEPS) -> torch.Tensor:
-    """Launch K4 on CUDA tensors: what ``cone_start_plain`` computes, a
-    warp per tile. ``origins`` is (B, 3) contiguous or one origin expanded
-    to (B, 3). Raises on anything but CUDA tensors."""
+                lo=None, max_steps: int = MAX_STEPS,
+                with_stats: bool = False):
+    """Launch K4 on CUDA tensors: what ``cone_start_plain`` computes
+    (``with_stats`` too), a lane per tile. ``origins`` is (B, 3) contiguous
+    or one origin expanded to (B, 3). Raises on anything but CUDA
+    tensors."""
     dev = origins.device
     if dev.type != "cuda":
         raise ValueError(f"cone_kernel needs CUDA tensors, got {dev}")
@@ -464,8 +472,10 @@ def cone_kernel(pt: PackedTree, origins, dirs, t_max, hit_eps, tiles,
         origins = origins.contiguous()
     dirs = dirs.contiguous()
     t0 = torch.empty(origins.shape[0], dtype=torch.float32, device=dev)
+    rounds = (torch.empty((H // T) * (W // T), dtype=torch.int32, device=dev)
+              if with_stats else None)
     if t0.numel() == 0:
-        return t0
+        return (t0, rounds) if with_stats else t0
     lib = _kernels.load()
     rc, half = _root_box(pt)
     inv = (1.0 / np.asarray(pt.root_sizes)).astype(np.float32)
@@ -478,23 +488,29 @@ def cone_kernel(pt: PackedTree, origins, dirs, t_max, hit_eps, tiles,
         0 if shared_origin else 3, dirs.data_ptr(), H, W, T,
         box.ctypes.data, float(np.float32(t_max)), float(np.float32(hit_eps)),
         min(CONE_CAP, int(max_steps)), t0.data_ptr(),
+        None if rounds is None else rounds.data_ptr(),
         _kernels.stream_of(dirs)), "cone")
     cone_kernel.launches += 1
-    return t0
+    return (t0, rounds) if with_stats else t0
 
 
 cone_kernel.launches = 0
 
 
 def cone_start(pt: PackedTree, origins, dirs, t_max, hit_eps, tiles,
-               lo=None, max_steps: int = MAX_STEPS) -> torch.Tensor:
+               lo=None, max_steps: int = MAX_STEPS,
+               with_stats: bool = False):
     """Per-ray march starts from the cone prepass: K4 on CUDA tensors,
-    ``cone_start_plain`` on CPU tensors."""
-    if origins.device.type == "cpu":
-        return cone_start_plain(pt, origins, dirs, t_max, hit_eps, tiles, lo,
-                                max_steps)
-    return cone_kernel(pt, origins, dirs, t_max, hit_eps, tiles, lo,
-                       max_steps)
+    ``cone_start_plain`` on CPU tensors. ``with_stats`` (as hpsdf_tpu's):
+    (t0, k, n_coarse), k the lockstep round count (the most rounds a tile's
+    march took) and n_coarse the number of tiles."""
+    fn = cone_start_plain if origins.device.type == "cpu" else cone_kernel
+    out = fn(pt, origins, dirs, t_max, hit_eps, tiles, lo, max_steps,
+             with_stats=with_stats)
+    if not with_stats:
+        return out
+    t0, rounds = out
+    return t0, int(rounds.max()) if rounds.numel() else 0, rounds.numel()
 
 
 def _march(pt: PackedTree, origins, dirs, t_max, hit_eps, max_steps,
