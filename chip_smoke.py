@@ -916,11 +916,13 @@ def phase_k3(pt, name, sphere, lod_expected, smi):
 
 def phase_render(tree, out_dir):
     """The render path of examples/end_to_end.py once, on the card: carve,
-    render, slice, save/load. Then K3 and K5 are held against their plain
-    versions on the carved tree and the render's own rays. Returns
-    (launches, times, hit fraction, K3 max t error on common hits, K5 min
-    normal dot, the carve's largest F batch as as_sdf's packed F reads it,
-    the carved tree's packed tables, the render's hit points)."""
+    render, slice, save/load. Then K3, K4 and K5 are held against their
+    plain versions on the carved tree and the render's own rays (K4 also
+    against the kernel it replaced, bit for bit, and timed beside it and
+    K3 with and without its starts). Returns (launches, times, hit
+    fraction, K3 max t error on common hits, K5 min normal dot, the
+    carve's largest F batch as as_sdf's packed F reads it, the carved
+    tree's packed tables, the render's hit points)."""
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch.accel import (NORMALS, normals_plain,
                                        packed_eval_kernel)
