@@ -47,7 +47,7 @@
 //     in 16-byte loads issued together, so the leaf's coefficients come
 //     with its frame and need no load of their own after the walk;
 //   * t0 goes back through shared memory in raster order.
-// What was timed and lost (PERF.md, PR 9): holding the leaf row and
+// What was timed and lost (PERF.md §6): holding the leaf row and
 // reloading it after the walk only when it changed (a warp's lanes march
 // different tiles, and a round waits for any lane that reloads), reloading
 // it every round, rows not unrolled, blocks of 128 threads, and the
