@@ -85,6 +85,7 @@ nvidia-smi prints them, and the final JSON line
 non-zero. Without a CUDA device it exits 1 and prints no result.
 """
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -93,6 +94,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -336,6 +338,7 @@ def counters():
     and, apart, those of its CSR form."""
     from hpsdf_tpu_torch.accel import (packed_eval_kernel, packed_grad_kernel,
                                        row_gather, row_scatter)
+    from hpsdf_tpu_torch.continuity import cg_matvec, cg_update
     from hpsdf_tpu_torch.mesh import closest_tri_tiles
     from hpsdf_tpu_torch.query import coeff_scatter_kernel, query_kernel
     from hpsdf_tpu_torch.render import cone_kernel, march_kernel
@@ -351,7 +354,9 @@ def counters():
             "row_scatter": (row_scatter, "launches"),
             "row_scatter_csr": (row_scatter, "csr_launches"),
             "packed_grad": (packed_grad_kernel, "launches"),
-            "coeff_scatter": (coeff_scatter_kernel, "launches")}
+            "coeff_scatter": (coeff_scatter_kernel, "launches"),
+            "cg_matvec": (cg_matvec, "launches"),
+            "cg_update": (cg_update, "launches")}
 
 
 def reset_counts():
@@ -361,6 +366,75 @@ def reset_counts():
 
 def read_counts():
     return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
+
+
+# the port's own functions a build's time is split by (module, attribute,
+# phase): the fit driver's, then the continuity post-process's
+FIT_PHASES = (("build", "_fit", "fit"), ("build", "_fit_impl", "projection"),
+              ("build", "pack", "pack"))
+CONTINUITY_PHASES = (
+    ("continuity", "enforce_continuity", "continuity"),
+    ("continuity", "assemble_face_matrix", "assembly"),
+    ("continuity", "leaf_face_pairs", "face pairs"),
+    ("continuity", "_put", "upload"), ("continuity", "csr", "csr"),
+    ("continuity", "_cg_solve", "solve"))
+
+
+@contextlib.contextmanager
+def split_build(phases=FIT_PHASES):
+    """While the block runs, each function of ``phases`` is timed by a
+    ``profiling.PhaseTimer`` phase (synchronised before it starts and when
+    its result is ready), and so is F inside each fit call (``_fit``'s
+    first argument). Yields (timer, calls): calls[phase] holds the last
+    call's (args, kwargs, result)."""
+    from unittest import mock
+
+    from hpsdf_tpu_torch import profiling
+    timer = profiling.PhaseTimer()
+    calls = {}
+
+    def timed(name, fn, pre=None):
+        def call(*args, **kw):
+            if pre is not None:
+                args = pre(args)
+            sync()
+            with timer.phase(name) as out:
+                res = fn(*args, **kw)
+                out.append(res)
+            calls[name] = (args, kw, res)
+            return res
+        return call
+
+    def time_F(args):
+        return (timed("F", args[0]),) + tuple(args[1:])
+
+    with contextlib.ExitStack() as stack:
+        for mod, attr, name in phases:
+            m = __import__(f"hpsdf_tpu_torch.{mod}", fromlist=[attr])
+            fn = timed(name, getattr(m, attr),
+                       time_F if attr == "_fit" else None)
+            stack.enter_context(mock.patch.object(m, attr, fn))
+        yield timer, calls
+
+
+def fit_split(timer, build_s):
+    """A build's seconds by phase (``split_build``): F; the f64 projection;
+    point generation and the host<->device copies (the fit calls less F
+    and the projection); packing the tree onto the device; the
+    continuity post-process where it ran; and the host topology, the rest."""
+    t = timer.times
+    fit, F, proj = t.get("fit", 0.0), t.get("F", 0.0), t.get("projection", 0.0)
+    pack, cont = t.get("pack", 0.0), t.get("continuity", 0.0)
+    return {"F_s": F, "projection_s": proj,
+            "points_and_copies_s": fit - F - proj, "pack_s": pack,
+            "continuity_s": cont,
+            "host_topology_s": build_s - fit - pack - cont,
+            "fit_calls": timer.counts.get("fit", 0)}
+
+
+def split_text(d):
+    return ", ".join(f"{k[:-2].replace('_', ' ')} {v:.3f} s"
+                     for k, v in d.items() if k.endswith("_s"))
 
 
 def phase_slice(mesh, bvh, cfg, n_query, out_path, seed=1):
@@ -391,10 +465,12 @@ def phase_slice(mesh, bvh, cfg, n_query, out_path, seed=1):
 
     reset_counts()
     sync()
-    t0 = time.perf_counter()
-    tree = T.build_octree(cfg, F_counted, device=dev)
-    sync()
-    build_s = time.perf_counter() - t0
+    with split_build() as (timer, _):
+        t0 = time.perf_counter()
+        tree = T.build_octree(cfg, F_counted, device=dev)
+        sync()
+        build_s = time.perf_counter() - t0
+    split = fit_split(timer, build_s)
     t0 = time.perf_counter()
     vals = T.query(tree, pts)
     sync()
@@ -437,13 +513,14 @@ def phase_slice(mesh, bvh, cfg, n_query, out_path, seed=1):
     print(f"[slice] nodes {tree.n_nodes}, leaves {tree.num_leaves()}, "
           f"deg_used {tree.deg_used}, depth_used {tree.depth_used}, "
           f"F samples {samples[0]}, build {build_s:.3f} s (F {f_s[0]:.3f} "
-          f"s of it, synchronised), query "
+          f"s of it, synchronised; split: {split_text(split)}, "
+          f"{split['fit_calls']} fit calls), query "
           f"{n_query / query_s / 1e6:.2f} Mq/s (first call), "
           f"{n_query / warm_s / 1e6:.2f} Mq/s (second), "
           f"max|query - (|p| - 0.3)| {fit_err:.3e}, gradient . radial 1% "
           f"quantile {dot_q01:.6f}, save/load bit-exact, launches "
           f"{launches}", flush=True)
-    return tree, launches, largest[0]
+    return tree, launches, largest[0], split
 
 
 def phase_k1(tree, n, seed=2):
@@ -952,10 +1029,12 @@ def phase_render(tree, out_dir):
 
     reset_counts()
     sync()
-    t0 = time.perf_counter()
-    carved = T.intersect_sdf(tree, minus_box)
-    sync()
-    carve_s = time.perf_counter() - t0
+    with split_build() as (timer, _):
+        t0 = time.perf_counter()
+        carved = T.intersect_sdf(tree, minus_box)
+        sync()
+        carve_s = time.perf_counter() - t0
+    split = fit_split(timer, carve_s)
     t0 = time.perf_counter()
     img, depth, hit = T.render_image(carved, t_max=T_MAX, **view)
     sync()
@@ -1062,7 +1141,8 @@ def phase_render(tree, out_dir):
     shade_err = float((img.reshape(-1, 3)[h_r] - shade[:, None]).abs().max())
     check(shade_err <= 1e-6, f"render shading vs K5 normals: {shade_err}")
     print(f"[render] carve {carved.n_nodes} nodes in {carve_s:.3f} s "
-          f"(deg_used {pt.deg_used}, rows {pt.width} lanes, grid depth "
+          f"(split: {split_text(split)}, {split['fit_calls']} fit calls; "
+          f"deg_used {pt.deg_used}, rows {pt.width} lanes, grid depth "
           f"{pt.grid_depth}, extra rounds {pt.extra_rounds}, LOD "
           f"{'on' if lo is not None else 'off'}), render 512^2 in "
           f"{render_s:.3f} s (first call), hit fraction {frac:.4f}, "
@@ -1076,7 +1156,7 @@ def phase_render(tree, out_dir):
           f"tree under {os.path.relpath(out_dir)}, save/load bit-exact, "
           f"launches {launches}", flush=True)
     return (launches, {"carve_s": carve_s, "render_s": render_s,
-                       "cone": cone_ms}, frac,
+                       "cone": cone_ms, "split": split}, frac,
             t_err, dot_min, largest[0].to(torch.float32), pt, ph)
 
 
@@ -2637,16 +2717,283 @@ def phase_degrees(dev, seed=7):
     return k2_err, k5_dot, k1_err, k1g_err, k3_err, k7_err, k8_err
 
 
+# --- [continuity] ----------------------------------------------------------
+# fit + continuity, bench.py:352-360 (the reference's HPBenchmarks.cpp:51-75):
+# warmed on a sphere of 0.3, timed on 0.301
+CONT_FIT = dict(target_error=1e-6, continuity=True, continuity_strength=8.0,
+                max_depth=5, max_degree=4)
+CONT_FIT_RADII = (0.3, 0.301)
+# the 260k-leaf continuity row, bench.py:578-596 (run_contscale)
+CONT_ROW = dict(target_error=3e-9, continuity=True, continuity_strength=8.0,
+                max_depth=7, max_degree=2, node_capacity=1_000_000)
+CONT_ROW_RADIUS = 0.3
+CONT_RTOL = 1e-13        # K9's y, K9u's vectors and dots against plain's
+CONT_X_RTOL = 1e-9       # the kernels' solve against the plain solve
+N_JUMP = 20000           # points on each plane of the face-jump check
+
+
+def face_jumps(tree, planes=(0.0625, -0.125), seed=2):
+    """|f(plane - eps) - f(plane + eps)| across planes x = c, at N_JUMP
+    points each (tests/test_continuity.py:95-112; faces of depth-4 cells,
+    off the sphere's plane of symmetry x = 0, where every jump is 0)."""
+    import hpsdf_tpu_torch as T
+    yz = torch.as_tensor(np.random.default_rng(seed).uniform(
+        -0.49, 0.49, (N_JUMP, 2)), device=tree.device)
+    out = []
+    for c in planes:
+        L = torch.cat([torch.full((N_JUMP, 1), c - 1e-9, dtype=yz.dtype,
+                                  device=yz.device), yz], 1)
+        R = L.clone()
+        R[:, 0] = c + 1e-9
+        out.append((T.query(tree, L) - T.query(tree, R)).abs())
+    return out
+
+
+def cg_bytes(A):
+    """K9's byte bound: each entry's value and column, the row offsets, z
+    and p read once; y and p' written once. K9u's: five vectors read,
+    three written."""
+    n = A.n
+    k9 = bytes_ms(A.vals, A.cols, A.rowptr, extra=4 * 8 * n)
+    return k9, 8 * 8 * n / HBM_RATE * 1e3
+
+
+def cg_times(A, R, C, V, s, minv, reps):
+    """K9 and K9u in CUDA graphs, a K9 + K9u iteration in a graph (the C
+    loop the solve runs, from a state set up by K9u's first form), their
+    plain versions and cuSPARSE's CSR matvec (torch.mv on a sparse CSR
+    tensor; never on the port's path) by CUDA events, on random vectors,
+    with the flag held up (threshold -1)."""
+    from hpsdf_tpu_torch import _kernels
+    from hpsdf_tpu_torch import continuity as TC
+    dev, n = minv.device, A.n
+    g = torch.Generator(device=dev).manual_seed(9)
+    z, p, x, r = (torch.randn(n, generator=g, dtype=torch.float64,
+                              device=dev) for _ in range(4))
+    p_out, y, zz = (torch.empty_like(z) for _ in range(3))
+    st9 = TC._State.new(dev, -1.0, 2 ** 31 - 1, beta=0.5)
+    k9 = graph_ms(lambda: TC._matvec_launch(A, s, z, p, p_out, y, st9), reps)
+    with warnings.catch_warnings():          # torch's sparse CSR is beta
+        warnings.simplefilter("ignore")
+        sp = torch.sparse_csr_tensor(A.rowptr, A.cols, A.vals, (n, n))
+        lib_y = torch.mv(sp, p_out)
+        library = time_ms(lambda: torch.mv(sp, p_out), reps)
+    lib_err = float((lib_y - (y - s * p_out)).abs().max()
+                    / (y - s * p_out).abs().max())
+
+    st9u = TC._State.new(dev, -1.0, 2 ** 31 - 1, rz=1.0)
+    st9u.sc[TC._SC["alpha"]] = 1e-3
+    xu, ru = x.clone(), r.clone()
+    k9u = graph_ms(lambda: TC._update_launch(False, p_out, y, minv, xu, ru,
+                                             zz, st9u), reps)
+
+    lib = _kernels.load()
+    st = TC._State.new(dev, -1.0, 2 ** 31 - 1)
+    xi, ri, zi, yi = x.clone(), r.clone(), torch.empty_like(x), \
+        torch.empty_like(x)
+    pi = (torch.zeros_like(x), torch.zeros_like(x))
+    TC._update_launch(True, pi[0], pi[0], minv, xi, ri, zi, st)
+
+    def iteration():
+        _kernels.check(lib, lib.hpsdf_cg_iterations(
+            A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(), n,
+            float(s), minv.data_ptr(), xi.data_ptr(), ri.data_ptr(),
+            zi.data_ptr(), pi[0].data_ptr(), pi[1].data_ptr(), yi.data_ptr(),
+            st.partials.data_ptr(), st.sc.data_ptr(), st.st.data_ptr(), 2,
+            0, _kernels.stream_of(xi)), "cg_iterations")
+
+    it = graph_ms(iteration, max(1, reps // 2)) / 2
+    check(int(st.st[TC._ST["active"]]) == 1 and bool(
+        torch.isfinite(st.sc).all()), f"the timed iterations stayed live: "
+          f"{st.st.tolist()} {st.sc.tolist()}")
+    plain = time_ms(lambda: TC.cg_matvec_plain(R, C, V, s, z, p, 0.5),
+                    max(3, reps // 10))
+    plain_u = time_ms(lambda: TC.cg_update_plain(1e-3, p_out, y, minv, x, r),
+                      max(3, reps // 10))
+    return {"k9_ms": k9, "k9u_ms": k9u, "iteration_ms": it,
+            "k9_plain_ms": plain, "k9u_plain_ms": plain_u,
+            "k9_library_ms": library, "library_rel_err": lib_err}
+
+
+def check_cg(A, R, C, V, s, diag, b, x0, n, tol, max_iter, main, label):
+    """K9 and K9u against their plain versions on the same inputs, then the
+    kernels' solve against the plain solve on the card, and against the
+    main path's own solve (``main``: (x, iterations, residual)) bit for
+    bit. Returns the largest errors and the plain solve's count."""
+    from hpsdf_tpu_torch import continuity as TC
+    dev = b.device
+    g = torch.Generator(device=dev).manual_seed(7)
+    z, p, x, r = (torch.randn(n, generator=g, dtype=torch.float64,
+                              device=dev) for _ in range(4))
+    minv = 1.0 / diag
+    got = TC.cg_matvec(A, s, z, p, 0.5)
+    want = TC.cg_matvec_plain(R, C, V, s, z, p, 0.5)
+    errs, abs_errs = {}, {}
+    got_u = TC.cg_update(0.3, want[0], want[1], minv, x, r)
+    want_u = TC.cg_update_plain(0.3, want[0], want[1], minv, x, r)
+    for pre, names, gs, ws in (("k9", ("p'", "y", "p'.y"), got, want),
+                               ("k9u", ("x", "r", "z", "r.z", "r.r"), got_u,
+                                want_u)):
+        for name, a, w in zip(names, gs, ws):
+            abs_errs[f"{pre} {name}"] = float((a - w).abs().max())
+            errs[f"{pre} {name}"] = abs_errs[f"{pre} {name}"] / float(
+                w.abs().max())
+    for k, e in errs.items():
+        check(e <= CONT_RTOL, f"{label}: {k} against plain, relative {e}")
+
+    x_k, k_k, res_k = TC._cg_kernels(A, s, diag, b, x0, tol, max_iter)
+    check(bool(torch.equal(x_k, main[0])) and (k_k, res_k) == main[1:],
+          f"{label}: the kernels' solve repeats bit for bit ({k_k} / "
+          f"{main[1]} iterations, residual {res_k} / {main[2]})")
+    x_p, k_p, res_p = TC._cg_solve_plain(R, C, V, s, diag, b, x0, n, tol,
+                                         max_iter)
+    x_err = float((x_k - x_p).abs().max() / x_p.abs().max())
+    if k_p == k_k:
+        check(x_err <= CONT_X_RTOL, f"{label}: kernels' solve against "
+              f"plain's, relative {x_err}")
+        tie = ""
+    else:
+        check(abs(k_p - k_k) == 1, f"{label}: iterations {k_k} (kernels) "
+              f"against {k_p} (plain)")
+        # a tie at the threshold: index_add_ adds in no fixed order
+        bb = float(torch.dot(b, b))
+        rr = []
+        for xs in (x_k, x_p):
+            _, y, _ = TC.cg_matvec_plain(R, C, V, s, xs, torch.zeros_like(xs),
+                                         0.0)
+            rr.append(float(torch.dot(b - y, b - y)))
+            check(rr[-1] <= tol * tol * bb, f"{label}: recomputed residual "
+                  f"{rr[-1] ** 0.5} against {tol} * |b| = {tol * bb ** 0.5}")
+        tie = (f" (counts differ by one at the threshold: recomputed "
+               f"residuals {rr[0] ** 0.5:.6e} / {rr[1] ** 0.5:.6e}, tol |b| "
+               f"{tol * bb ** 0.5:.6e})")
+    print(f"[continuity] {label}: K9 / K9u against plain (relative): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; solve: kernels {k_k} iterations, residual {res_k:.6e}, "
+          f"bit for bit on a second run; plain {k_p} iterations, residual "
+          f"{res_p:.6e}, max|x - plain| / max|x| {x_err:.3e}{tie}",
+          flush=True)
+    errs["x"] = x_err
+    return errs, abs_errs, k_p
+
+
+def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
+    """build_octree(config with continuity=True) on a sphere at the origin,
+    through the kernels K9 and K9u, its seconds split by phase; then the
+    field against |p| - radius, the face jumps against the fit without
+    continuity, K9/K9u and the solve against their plain versions, and
+    their times beside their bounds and cuSPARSE."""
+    import hpsdf_tpu_torch as T
+    from hpsdf_tpu_torch import continuity as TC
+    dev = torch.device("cuda", 0)
+    cfg = T.Config(**cfg_kw)
+
+    def sphere(r):
+        return lambda p: torch.linalg.norm(p, dim=-1) - r
+
+    if warm_radius is not None:
+        T.build_octree(cfg, sphere(warm_radius), device=dev)
+    reset_counts()
+    TC._cg_kernels.host_syncs = 0
+    sync()
+    with split_build(FIT_PHASES + CONTINUITY_PHASES) as (timer, calls):
+        t0 = time.perf_counter()
+        tree = T.build_octree(cfg, sphere(radius), device=dev)
+        sync()
+        build_s = time.perf_counter() - t0
+    launches = read_counts()
+    syncs = TC._cg_kernels.host_syncs
+    check(launches["cg_matvec"] > 0 and launches["cg_update"] > 0,
+          f"{label}: K9 / K9u never launched on the main path")
+    split = fit_split(timer, build_s)
+    t = timer.times
+    split.update({"face_pairs_s": t["face pairs"],
+                  "assembly_s": t["assembly"] - t["face pairs"],
+                  "upload_s": t["upload"], "csr_s": t["csr"],
+                  "cg_s": t["solve"] - t["csr"]})
+    split["continuity_other_s"] = (t["continuity"] - t["assembly"]
+                                   - t["upload"] - t["solve"])
+    fitted = calls["continuity"][0][0]
+    (R, C, V, s, diag, b, x0), kw, main = calls["solve"]
+    A = calls["csr"][2]
+    n, nnz, iters = A.n, A.vals.shape[0], main[1]
+    check(main[1] < kw["max_iter"], f"{label}: the solve stopped at "
+          f"max_iter ({main[1]} iterations, residual {main[2]})")
+
+    pts = torch.as_tensor(np.random.default_rng(8).uniform(
+        -0.5, 0.5, (N_QUERY, 3)), device=dev)
+    vals = T.query(tree, pts)
+    check(bool(torch.isfinite(vals).all()), f"{label}: field finite")
+    field_err = float((vals - (torch.linalg.norm(pts, dim=-1) - radius))
+                      .abs().max())
+    check(field_err < FIT_ATOL, f"{label}: max|f - (|p| - {radius})| "
+          f"{field_err}")
+    # the jump energy c.Mc, which the solve trades against |c - c0|^2, and
+    # the sampled jumps on two planes must fall
+    zero = torch.zeros_like(x0)
+    energy = [float(TC.cg_matvec_plain(R, C, V, 0.0, c, zero, 0.0)[2])
+              for c in (x0, main[0])]
+    check(energy[1] < energy[0], f"{label}: jump energy {energy}")
+    jumps = [(float(a.mean()), float(a.max()), float(b_.mean()),
+              float(b_.max())) for a, b_ in zip(face_jumps(fitted),
+                                                face_jumps(tree))]
+    for mb, xb, ma, xa in jumps:
+        check(ma < mb and xa < xb, f"{label}: face jumps before (mean {mb}, "
+              f"max {xb}) and after (mean {ma}, max {xa})")
+
+    errs, abs_errs, k_plain = check_cg(A, R, C, V, s, diag, b, x0, n, kw["tol"],
+                             kw["max_iter"], main, label)
+    reps = 200 if nnz < 5_000_000 else 20
+    times = cg_times(A, R, C, V, s, 1.0 / diag, reps)
+    check(times["library_rel_err"] <= CONT_RTOL, f"{label}: cuSPARSE's "
+          f"product against K9's, relative {times['library_rel_err']}")
+    k9_bytes, k9u_bytes = cg_bytes(A)
+    k9_ops = 3 * nnz / F64_PEAK * 1e3
+    out = {"leaves": tree.num_leaves(), "nodes": tree.n_nodes, "n": n,
+           "nnz": nnz, "iterations": iters, "plain_iterations": k_plain,
+           "residual": main[2], "host_syncs": syncs,
+           "launches": {k: launches[k] for k in ("cg_matvec", "cg_update")},
+           "build_s": build_s, "split": split, "field_err": field_err,
+           "jump_energy": energy, "jumps": jumps, "errs": errs, "abs_errs": abs_errs, **times,
+           "k9_bound_ms": max(k9_bytes, k9_ops), "k9_ops_bound_ms": k9_ops,
+           "k9u_bound_ms": k9u_bytes,
+           "cg_ms_per_iteration": split["cg_s"] / max(iters, 1) * 1e3}
+    print(f"[continuity] {label}: {out['nodes']} nodes, {out['leaves']} "
+          f"leaves, n {n}, nnz {nnz}, {iters} iterations, residual "
+          f"{main[2]:.6e}, host syncs {syncs}, launches {out['launches']}; "
+          f"build_octree {build_s:.3f} s (split: {split_text(split)}); "
+          f"max|f - (|p| - {radius})| {field_err:.3e}; jump energy c.Mc "
+          f"{energy[0]:.6e} -> {energy[1]:.6e}; face jumps (mean, "
+          f"max) x = 0.0625: {jumps[0][0]:.3e}, {jumps[0][1]:.3e} -> "
+          f"{jumps[0][2]:.3e}, {jumps[0][3]:.3e}; x = -0.125: "
+          f"{jumps[1][0]:.3e}, {jumps[1][1]:.3e} -> {jumps[1][2]:.3e}, "
+          f"{jumps[1][3]:.3e}", flush=True)
+    print(f"[continuity] {label}: {smi} | in CUDA graphs: K9 "
+          f"{times['k9_ms']:.4f} ms (bound {out['k9_bound_ms']:.4f} ms, "
+          f"bytes; {out['k9_bound_ms'] / times['k9_ms']:.1%}), K9u "
+          f"{times['k9u_ms']:.4f} ms (bound {k9u_bytes:.4f} ms, bytes; "
+          f"{k9u_bytes / times['k9u_ms']:.1%}), an iteration (K9 + K9u) "
+          f"{times['iteration_ms']:.4f} ms | the solve's CG "
+          f"{out['cg_ms_per_iteration']:.4f} ms an iteration, host "
+          f"included | plain {times['k9_plain_ms']:.4f} / "
+          f"{times['k9u_plain_ms']:.4f} ms | cuSPARSE CSR matvec (torch.mv) "
+          f"{times['k9_library_ms']:.4f} ms", flush=True)
+    return launches, out
+
+
 PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
                  "cone_kernel", "packed_grad_kernel", "coeff_scatter_kernel",
-                 "row_scatter_kernel", "row_scatter_csr_kernel")
+                 "row_scatter_kernel", "row_scatter_csr_kernel",
+                 "cg_matvec_kernel", "cg_update_kernel")
 
 
 def _ptxas_key(kernel, args):
     """The report's key for one instantiation, from its template arguments
     (ints, bools and the value type, in order)."""
-    if not args:                          # row_scatter(_csr)_kernel
+    if not args:                   # row_scatter(_csr)_, cg_matvec_kernel
         return "-"
+    if kernel == "cg_update_kernel":
+        return "init" if args[0] else "iteration"
     if kernel == "coeff_scatter_kernel":
         return f"{args[1]}/{'f32 trace' if args[2] else 'f64 query'}"
     if kernel == "query_kernel":
@@ -2664,8 +3011,8 @@ def ptxas_check():
     """Registers, stack and spills of every kernel's instantiations, as
     ptxas reported them when the library was built. K1, K3, K4, K5's raw
     gradient (alone and fused with K2), K7 and K8 at degrees 3 and 5 (the
-    main paths') and both forms of G's backward must have no stack frame and
-    no spills. Returns
+    main paths'), both forms of G's backward, K9 and K9u must have no stack
+    frame and no spills. Returns
     {kernel: {key: [registers, stack, spill stores, spill loads]}}."""
     from hpsdf_tpu_torch import _kernels
 
@@ -2697,7 +3044,9 @@ def ptxas_check():
             ("K8", "coeff_scatter_kernel", ("3/f64 query", "3/f32 trace",
                                             "5/f64 query", "5/f32 trace")),
             ("G backward", "row_scatter_kernel", ("-",)),
-            ("G backward CSR", "row_scatter_csr_kernel", ("-",))):
+            ("G backward CSR", "row_scatter_csr_kernel", ("-",)),
+            ("K9", "cg_matvec_kernel", ("-",)),
+            ("K9u", "cg_update_kernel", ("init", "iteration"))):
         got = found.get(kernel, {})
         for key in keys:
             check(key in got, f"ptxas report for {name} {key}")
@@ -2745,13 +3094,27 @@ def main():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 3)
     ptxas = ptxas_check()
+    if "--only-continuity" in sys.argv[1:]:
+        # development: the build, ptxas and [continuity] alone, no result
+        phase("continuity fit", phase_continuity, "fit + continuity",
+              CONT_FIT, CONT_FIT_RADII[1], CONT_FIT_RADII[0], smi)
+        phase("continuity 260k", phase_continuity, "260k-leaf row",
+              CONT_ROW, CONT_ROW_RADIUS, None, smi)
+        print(f"[seconds] {PHASE_SECONDS}", flush=True)
+        return 0
 
     # --- 3. P1 against its plain version -----------------------------------
     v, f = gen.icosphere(0.3, 5)
+    t0 = time.perf_counter()
     mesh = build_mesh(v, f)
+    mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     bvh = build_bvh(mesh, device=dev)
-    print(f"[mesh] {mesh.n_faces} triangles, {bvh.n_leaves} packed rows",
-          flush=True)
+    sync()
+    bvh_s = time.perf_counter() - t0
+    print(f"[mesh] {mesh.n_faces} triangles, {bvh.n_leaves} packed rows; "
+          f"build_mesh {mesh_s:.3f} s, build_bvh {bvh_s:.3f} s (host, then "
+          f"the rows onto the card, synchronised)", flush=True)
     from hpsdf_tpu_torch.mesh.tiles_sdf import tile_table
     table = tile_table(bvh.tri_rows)
     p1_err = phase("p1", phase_p1, bvh.tri_rows, table, P1_SIZES)
@@ -2760,7 +3123,7 @@ def main():
     cfg = Config(target_error=1e-7, max_depth=5, max_degree=6,
                  continuity=False, fit_dtype="compensated")
     os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
-    tree, launches, fit_pts = phase(
+    tree, launches, fit_pts, split_s = phase(
         "slice", phase_slice, mesh, bvh, cfg, N_QUERY,
         os.path.join(_kernels.BUILD_DIR, "chip_smoke_tree.npz"))
     tf = phase("p1 fit batch", phase_p1_fit, bvh.tri_rows, table, fit_pts)
@@ -2835,8 +3198,16 @@ def main():
     tgrad = phase("grad", phase_grad, pt_s, tree, s_inv, smi)
     launches_i, ti = phase("inverse", phase_inverse, s_inv, s_small, smi)
 
+    # --- 12. the continuity post-process at both sizes ---------------------
+    launches_ca, tca = phase("continuity fit", phase_continuity,
+                             "fit + continuity", CONT_FIT, CONT_FIT_RADII[1],
+                             CONT_FIT_RADII[0], smi)
+    launches_cb, tcb = phase("continuity 260k", phase_continuity,
+                             "260k-leaf row", CONT_ROW, CONT_ROW_RADIUS, None,
+                             smi)
+
     total = {k: launches[k] + launches_r[k] + launches_i[k]
-             for k in launches}
+             + launches_ca[k] + launches_cb[k] for k in launches}
     g_probe = tg[f"{G_TABLE[0]}x{G_TABLE[1]}"]
     g_rows = tg[f"{bvh.tri_rows.shape[0]}x{bvh.tri_rows.shape[1]}"]
     kernels = [
@@ -2968,6 +3339,25 @@ def main():
               ("coeff_scatter", "hpsdf_tpu_torch/csrc/coeff_scatter.cu",
                "hpsdf_tpu/render.py:983",
                "f32 trace, inverse chunk rays"))),
+        *({"name": name, "route": "cuda",
+           "source": "hpsdf_tpu_torch/csrc/continuity.cu",
+           "replaces": replaces, "launches": total[name],
+           "max_abs_err": max(v for c in (tca, tcb)
+                              for k, v in c["abs_errs"].items()
+                              if k.startswith(pre + " ")),
+           "max_rel_err": max(v for c in (tca, tcb)
+                              for k, v in c["errs"].items()
+                              if k.startswith(pre + " ")),
+           "ms": tcb[f"{pre}_ms"], "plain_ms": tcb[f"{pre}_plain_ms"],
+           "bound_ms": tcb[f"{pre}_bound_ms"], "bound_by": "bytes",
+           "library_ms": tcb["k9_library_ms"] if pre == "k9" else None,
+           "fit_continuity": {k: tca[f"{pre}_{k}"]
+                              for k in ("ms", "plain_ms", "bound_ms")},
+           "iteration_ms": tcb["iteration_ms"],
+           "ptxas": ptxas.get(f"{name}_kernel", {})}
+          for name, pre, replaces in (
+              ("cg_matvec", "k9", "hpsdf_tpu/continuity.py:401-405,422"),
+              ("cg_update", "k9u", "hpsdf_tpu/continuity.py:423-428"))),
     ]
     print(f"[e2e] {smi} | carve {tr['carve_s']:.3f} s, render 512^2 "
           f"{tr['render_s']:.3f} s, hit fraction {frac:.4f} | 1024^2 march: "
@@ -2976,7 +3366,12 @@ def main():
           f"{ti['step_s']:.4f} s a step, depth RMSE {ti['rmse_before']:.6f} "
           f"-> {ti['rmse_after']:.6f} | launches {total}", flush=True)
     print(f"[seconds] {PHASE_SECONDS}", flush=True)
-    print(json.dumps({"kernels": kernels, "inverse": ti}))
+    cont = {label: {k: v for k, v in c.items()
+                    if k not in ("errs", "abs_errs")}
+            for label, c in (("fit_continuity", tca), ("row_260k", tcb))}
+    print(json.dumps({"kernels": kernels, "inverse": ti,
+                      "fit_split": {"slice": split_s, "carve": tr["split"]},
+                      "continuity": cont}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

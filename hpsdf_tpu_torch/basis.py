@@ -3,8 +3,9 @@
 The counterpart of ``hpsdf_tpu/basis.py``. The host tables are copied from
 it verbatim (numpy, f64, cached):
 
-  * ``leggauss``, ``fit_rule_size``, ``basis_indices``, ``norm_table``,
-    ``coeff_norms``, ``quadrature_matrix``.
+  * ``leggauss``, ``fit_rule_size``, ``face_rule_size``,
+    ``basis_indices``, ``norm_table``, ``coeff_norms``,
+    ``quadrature_matrix``, ``legendre_all_np``.
 
 The evaluation functions take and return torch tensors on any device. They
 are the plain versions behind the query kernel (``csrc/query.cu``), which
@@ -37,6 +38,13 @@ def fit_rule_size(degree: int) -> int:
     """Quadrature points per axis for a degree-``degree`` fit: the
     (4d+1)-point rule (Source/HP/Octree.cpp:1016-1017)."""
     return 4 * degree + 1
+
+
+def face_rule_size(max_degree: int) -> int:
+    """Quadrature points per axis for the cross-depth shared-face integral
+    of the continuity matrix: the (maxDegree+1)-point rule
+    (Source/HP/Octree.cpp:1270-1272)."""
+    return max_degree + 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,6 +92,17 @@ def quadrature_matrix(degree: int) -> np.ndarray:
     for p in range(2, degree + 1):
         Lv[p] = ((2 * p - 1) / p) * x * Lv[p - 1] - ((p - 1) / p) * Lv[p - 2]
     return Lv * w[None, :]
+
+
+def legendre_all_np(x: np.ndarray, degree: int) -> np.ndarray:
+    """Host-side L_0..L_degree evaluation; returns shape (degree+1,) + x.shape."""
+    x = np.asarray(x, dtype=np.float64)
+    out = np.ones((degree + 1,) + x.shape, dtype=np.float64)
+    if degree >= 1:
+        out[1] = x
+    for p in range(2, degree + 1):
+        out[p] = ((2 * p - 1) / p) * x * out[p - 1] - ((p - 1) / p) * out[p - 2]
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -200,13 +200,11 @@ def build(config: Config, F: SDFFn, *, continuity_fn=None,
 
     ``progress`` receives every log line, whether or not
     ``config.enable_logging`` prints it (hpsdf_tpu build.py:859-863).
-    ``continuity_fn`` (the continuity post-process) and ``fit_mesh`` (a
-    sharded fit) are not ported yet (ROADMAP.md, queue 1) and raise
-    NotImplementedError when given."""
-    if continuity_fn is not None:
-        raise NotImplementedError(
-            "build(continuity_fn=...): the continuity solve is not ported to "
-            "hpsdf_tpu_torch yet (ROADMAP.md, queue 1 'Continuity')")
+    ``continuity_fn`` (``continuity.enforce_continuity`` from
+    ``api.build_octree``) post-processes the packed tree when
+    ``config.continuity`` is set. ``fit_mesh`` (a sharded fit) is not
+    ported yet (ROADMAP.md, queue 1) and raises NotImplementedError when
+    given."""
     if fit_mesh is not None:
         raise NotImplementedError(
             "build(fit_mesh=...): sharded fits are not ported to "
@@ -353,4 +351,9 @@ def build(config: Config, F: SDFFn, *, continuity_fn=None,
                 st.n, config, device=device)
     log(f"packed: {st.n} nodes, {tree.num_leaves()} leaves, "
         f"deg_used={tree.deg_used}, depth_used={tree.depth_used}")
+
+    if config.continuity and continuity_fn is not None:
+        tree = continuity_fn(tree)
+        log("continuity post-process done")
+
     return tree
