@@ -2768,51 +2768,57 @@ def cg_times(A, R, C, V, s, minv, reps):
     from hpsdf_tpu_torch import continuity as TC
     dev, n = minv.device, A.n
     g = torch.Generator(device=dev).manual_seed(9)
-    z, p, x, r = (torch.randn(n, generator=g, dtype=torch.float64,
-                              device=dev) for _ in range(4))
-    p_out, y, zz = (torch.empty_like(z) for _ in range(3))
-    st9 = TC._State.new(dev, -1.0, 2 ** 31 - 1, beta=0.5)
-    k9 = graph_ms(lambda: TC._matvec_launch(A, s, z, p, p_out, y, st9), reps)
+    p, x, r = (torch.randn(n, generator=g, dtype=torch.float64, device=dev)
+               for _ in range(3))
+    y = torch.empty_like(p)
+    st9 = TC._State.new(dev, -1.0, 2 ** 31 - 1)
+    lanes_ms = {}
+    shipped = TC.CG_LANES
+    for lanes in (shipped, 161, 81, 321, 80, 161, shipped):
+        TC.CG_LANES = lanes
+        ms = graph_ms(lambda: TC._matvec_launch(A, s, p, y, st9), reps)
+        lanes_ms[lanes] = min(ms, lanes_ms.get(lanes, ms))
+    TC.CG_LANES = shipped
+    k9 = lanes_ms[shipped]
     with warnings.catch_warnings():          # torch's sparse CSR is beta
         warnings.simplefilter("ignore")
         sp = torch.sparse_csr_tensor(A.rowptr, A.cols, A.vals, (n, n))
-        lib_y = torch.mv(sp, p_out)
-        library = time_ms(lambda: torch.mv(sp, p_out), reps)
-    lib_err = float((lib_y - (y - s * p_out)).abs().max()
-                    / (y - s * p_out).abs().max())
+        lib_y = torch.mv(sp, p)
+        library = time_ms(lambda: torch.mv(sp, p), reps)
+    lib_err = float((lib_y - (y - s * p)).abs().max()
+                    / (y - s * p).abs().max())
 
-    st9u = TC._State.new(dev, -1.0, 2 ** 31 - 1, rz=1.0)
-    st9u.sc[TC._SC["alpha"]] = 1e-3
-    xu, ru = x.clone(), r.clone()
-    k9u = graph_ms(lambda: TC._update_launch(False, p_out, y, minv, xu, ru,
-                                             zz, st9u), reps)
+    st9u = TC._State.new(dev, -1.0, 2 ** 31 - 1, alpha=1e-3, rz=1.0)
+    xu, ru, pu = x.clone(), r.clone(), p.clone()
+    k9u = graph_ms(lambda: TC._update_launch(False, y, minv, xu, ru, pu,
+                                             st9u), reps)
 
     lib = _kernels.load()
     st = TC._State.new(dev, -1.0, 2 ** 31 - 1)
-    xi, ri, zi, yi = x.clone(), r.clone(), torch.empty_like(x), \
+    xi, ri, pi, yi = x.clone(), r.clone(), torch.empty_like(x), \
         torch.empty_like(x)
-    pi = (torch.zeros_like(x), torch.zeros_like(x))
-    TC._update_launch(True, pi[0], pi[0], minv, xi, ri, zi, st)
+    TC._update_launch(True, yi, minv, xi, ri, pi, st)
 
     def iteration():
         _kernels.check(lib, lib.hpsdf_cg_iterations(
-            A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(), n,
-            float(s), minv.data_ptr(), xi.data_ptr(), ri.data_ptr(),
-            zi.data_ptr(), pi[0].data_ptr(), pi[1].data_ptr(), yi.data_ptr(),
+            TC.CG_LANES, A.rowptr.data_ptr(), A.cols.data_ptr(),
+            A.vals.data_ptr(), n, float(s), minv.data_ptr(), xi.data_ptr(),
+            ri.data_ptr(), pi.data_ptr(), yi.data_ptr(),
             st.partials.data_ptr(), st.sc.data_ptr(), st.st.data_ptr(), 2,
-            0, _kernels.stream_of(xi)), "cg_iterations")
+            _kernels.stream_of(xi)), "cg_iterations")
 
     it = graph_ms(iteration, max(1, reps // 2)) / 2
     check(int(st.st[TC._ST["active"]]) == 1 and bool(
         torch.isfinite(st.sc).all()), f"the timed iterations stayed live: "
           f"{st.st.tolist()} {st.sc.tolist()}")
-    plain = time_ms(lambda: TC.cg_matvec_plain(R, C, V, s, z, p, 0.5),
+    plain = time_ms(lambda: TC.cg_matvec_plain(R, C, V, s, p),
                     max(3, reps // 10))
-    plain_u = time_ms(lambda: TC.cg_update_plain(1e-3, p_out, y, minv, x, r),
-                      max(3, reps // 10))
+    plain_u = time_ms(lambda: TC.cg_update_plain(1e-3, 1.0, p, y, minv, x,
+                                                 r), max(3, reps // 10))
     return {"k9_ms": k9, "k9u_ms": k9u, "iteration_ms": it,
             "k9_plain_ms": plain, "k9u_plain_ms": plain_u,
-            "k9_library_ms": library, "library_rel_err": lib_err}
+            "k9_library_ms": library, "library_rel_err": lib_err,
+            "k9_lanes_ms": lanes_ms}
 
 
 def check_cg(A, R, C, V, s, diag, b, x0, n, tol, max_iter, main, label):
@@ -2823,17 +2829,17 @@ def check_cg(A, R, C, V, s, diag, b, x0, n, tol, max_iter, main, label):
     from hpsdf_tpu_torch import continuity as TC
     dev = b.device
     g = torch.Generator(device=dev).manual_seed(7)
-    z, p, x, r = (torch.randn(n, generator=g, dtype=torch.float64,
-                              device=dev) for _ in range(4))
+    p, x, r = (torch.randn(n, generator=g, dtype=torch.float64, device=dev)
+               for _ in range(3))
     minv = 1.0 / diag
-    got = TC.cg_matvec(A, s, z, p, 0.5)
-    want = TC.cg_matvec_plain(R, C, V, s, z, p, 0.5)
+    got = TC.cg_matvec(A, s, p)
+    want = TC.cg_matvec_plain(R, C, V, s, p)
+    got_u = TC.cg_update(0.3, 2.0, p, want[0], minv, x, r)
+    want_u = TC.cg_update_plain(0.3, 2.0, p, want[0], minv, x, r)
     errs, abs_errs = {}, {}
-    got_u = TC.cg_update(0.3, want[0], want[1], minv, x, r)
-    want_u = TC.cg_update_plain(0.3, want[0], want[1], minv, x, r)
-    for pre, names, gs, ws in (("k9", ("p'", "y", "p'.y"), got, want),
-                               ("k9u", ("x", "r", "z", "r.z", "r.r"), got_u,
-                                want_u)):
+    for pre, names, gs, ws in (("k9", ("y", "p.y"), got, want),
+                               ("k9u", ("x", "r", "p'", "r.z", "r.r"),
+                                got_u, want_u)):
         for name, a, w in zip(names, gs, ws):
             abs_errs[f"{pre} {name}"] = float((a - w).abs().max())
             errs[f"{pre} {name}"] = abs_errs[f"{pre} {name}"] / float(
@@ -2859,8 +2865,7 @@ def check_cg(A, R, C, V, s, diag, b, x0, n, tol, max_iter, main, label):
         bb = float(torch.dot(b, b))
         rr = []
         for xs in (x_k, x_p):
-            _, y, _ = TC.cg_matvec_plain(R, C, V, s, xs, torch.zeros_like(xs),
-                                         0.0)
+            y, _ = TC.cg_matvec_plain(R, C, V, s, xs)
             rr.append(float(torch.dot(b - y, b - y)))
             check(rr[-1] <= tol * tol * bb, f"{label}: recomputed residual "
                   f"{rr[-1] ** 0.5} against {tol} * |b| = {tol * bb ** 0.5}")
@@ -2930,8 +2935,7 @@ def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
           f"{field_err}")
     # the jump energy c.Mc, which the solve trades against |c - c0|^2, and
     # the sampled jumps on two planes must fall
-    zero = torch.zeros_like(x0)
-    energy = [float(TC.cg_matvec_plain(R, C, V, 0.0, c, zero, 0.0)[2])
+    energy = [float(TC.cg_matvec_plain(R, C, V, 0.0, c)[1])
               for c in (x0, main[0])]
     check(energy[1] < energy[0], f"{label}: jump energy {energy}")
     jumps = [(float(a.mean()), float(a.max()), float(b_.mean()),
@@ -2977,7 +2981,8 @@ def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
           f"{out['cg_ms_per_iteration']:.4f} ms an iteration, host "
           f"included | plain {times['k9_plain_ms']:.4f} / "
           f"{times['k9u_plain_ms']:.4f} ms | cuSPARSE CSR matvec (torch.mv) "
-          f"{times['k9_library_ms']:.4f} ms", flush=True)
+          f"{times['k9_library_ms']:.4f} ms | K9 by lanes a row "
+          f"{times['k9_lanes_ms']}", flush=True)
     return launches, out
 
 
@@ -2990,8 +2995,10 @@ PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
 def _ptxas_key(kernel, args):
     """The report's key for one instantiation, from its template arguments
     (ints, bools and the value type, in order)."""
-    if not args:                   # row_scatter(_csr)_, cg_matvec_kernel
+    if not args:                          # row_scatter(_csr)_kernel
         return "-"
+    if kernel == "cg_matvec_kernel":
+        return f"{args[0]}/{args[1]}"
     if kernel == "cg_update_kernel":
         return "init" if args[0] else "iteration"
     if kernel == "coeff_scatter_kernel":
@@ -3045,7 +3052,8 @@ def ptxas_check():
                                             "5/f64 query", "5/f32 trace")),
             ("G backward", "row_scatter_kernel", ("-",)),
             ("G backward CSR", "row_scatter_csr_kernel", ("-",)),
-            ("K9", "cg_matvec_kernel", ("-",)),
+            ("K9", "cg_matvec_kernel", ("8/0", "16/0", "8/1", "16/1",
+                                        "32/1")),
             ("K9u", "cg_update_kernel", ("init", "iteration"))):
         got = found.get(kernel, {})
         for key in keys:

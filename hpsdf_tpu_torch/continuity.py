@@ -12,8 +12,8 @@ faces -- the reference's PerformContinuityPostProcess
     reference's recurrences and stopping rule (``_cg_solve``). On a CUDA
     device the COO is sorted by row once (``csr``) and every iteration is
     two hand-written kernels (``csrc/continuity.cu``): K9 (``cg_matvec``,
-    the matvec with the new search direction formed where it is read and
-    p.Ap) and K9u (``cg_update``, the vector update with r.z and r.r); the
+    the matvec and p.Ap) and K9u (``cg_update``, the vector update with r.z
+    and r.r, and the new search direction in the same launch); the
     iteration's scalars and the stopping test stay on the card, and the
     host reads them once every ``CG_CHUNK`` iterations. On the CPU the
     plain torch versions (``cg_matvec_plain``, ``cg_update_plain``) run on
@@ -381,29 +381,32 @@ def csr(R: torch.Tensor, C: torch.Tensor, V: torch.Tensor, n: int) -> Csr:
 
 
 def cg_matvec_plain(R: torch.Tensor, C: torch.Tensor, V: torch.Tensor,
-                    s: float, z: torch.Tensor, p: torch.Tensor, beta):
-    """K9's function on the COO, whatever the device: the new direction
-    p' = z + beta p, y = M p' + s p' (``index_add_``, as the reference's
-    ``segment_sum(V * p'[C], R) + s * p'``) and p'.y."""
-    pn = z + beta * p
-    y = torch.zeros_like(pn).index_add_(0, R, V * pn[C]) + s * pn
-    return pn, y, torch.dot(pn, y)
+                    s: float, p: torch.Tensor):
+    """K9's function on the COO, whatever the device: y = M p + s p
+    (``index_add_``, as the reference's ``segment_sum(V * p[C], R) + s *
+    p``) and p.y."""
+    y = torch.zeros_like(p).index_add_(0, R, V * p[C]) + s * p
+    return y, torch.dot(p, y)
 
 
-def cg_update_plain(alpha, p: torch.Tensor, Ap: torch.Tensor,
+def cg_update_plain(alpha, rz, p: torch.Tensor, Ap: torch.Tensor,
                     minv: torch.Tensor, x: torch.Tensor, r: torch.Tensor):
-    """K9u's function, whatever the device: x + alpha p, r - alpha Ap,
-    z = minv r, r.z and r.r."""
+    """K9u's function, whatever the device: x + alpha p, r - alpha Ap, the
+    new direction z + (rz_new / rz) p with z = minv r, rz_new = r.z and
+    r.r."""
     x = x + alpha * p
     r = r - alpha * Ap
     z = minv * r
-    return x, r, z, torch.dot(r, z), torch.dot(r, r)
+    rz_new = torch.dot(r, z)
+    return x, r, z + (rz_new / rz) * p, rz_new, torch.dot(r, r)
 
 
 # The f64 scalars of the kernels' state (csrc/continuity.cu kRz ... kPAp)
 _SC = dict(rz=0, alpha=1, beta=2, rr=3, thresh=4, pap=5)
 # and its integers (kK ... kCount): iterations, max_iter, flag, block count
 _ST = dict(k=0, max_iter=1, active=2, count=3)
+# K9's form: lanes a row * 10 + 1 where the entries load as a stream
+CG_LANES = 160
 
 
 class _State(NamedTuple):
@@ -413,9 +416,9 @@ class _State(NamedTuple):
     partials: torch.Tensor    # f64
 
     @classmethod
-    def new(cls, device, thresh, max_iter: int, beta=0.0, rz=0.0):
+    def new(cls, device, thresh, max_iter: int, alpha=0.0, rz=0.0):
         sc = torch.zeros(len(_SC), dtype=torch.float64, device=device)
-        sc[_SC["beta"]] = beta
+        sc[_SC["alpha"]] = alpha
         sc[_SC["rz"]] = rz
         sc[_SC["thresh"]] = thresh
         st = torch.tensor([0, max_iter, 1, 0], dtype=torch.int32,
@@ -436,61 +439,58 @@ def _check_cuda(name, *tensors):
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def _matvec_launch(A: Csr, s: float, z, p, p_out, y, state: _State):
-    _check_cuda("cg_matvec", A.rowptr, A.cols, A.vals, z, p, p_out, y)
+def _matvec_launch(A: Csr, s: float, p, y, state: _State):
+    _check_cuda("cg_matvec", A.rowptr, A.cols, A.vals, p, y)
     lib = _kernels.load()
     _kernels.check(lib, lib.hpsdf_cg_matvec(
-        A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(), A.n,
-        float(s), z.data_ptr(), p.data_ptr(), p_out.data_ptr(), y.data_ptr(),
-        state.partials.data_ptr(), state.sc.data_ptr(), state.st.data_ptr(),
-        _kernels.stream_of(z)), "cg_matvec")
+        CG_LANES, A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(),
+        A.n, float(s), p.data_ptr(), y.data_ptr(), state.partials.data_ptr(),
+        state.sc.data_ptr(), state.st.data_ptr(), _kernels.stream_of(p)),
+        "cg_matvec")
     cg_matvec.launches += 1
 
 
-def _update_launch(init: bool, p, Ap, minv, x, r, z, state: _State):
-    _check_cuda("cg_update", p, Ap, minv, x, r, z)
+def _update_launch(init: bool, Ap, minv, x, r, p, state: _State):
+    _check_cuda("cg_update", Ap, minv, x, r, p)
     lib = _kernels.load()
     _kernels.check(lib, lib.hpsdf_cg_update(
-        int(init), minv.shape[0], p.data_ptr(), Ap.data_ptr(),
-        minv.data_ptr(), x.data_ptr(), r.data_ptr(), z.data_ptr(),
-        state.partials.data_ptr(), state.sc.data_ptr(), state.st.data_ptr(),
-        _kernels.stream_of(minv)), "cg_update")
+        int(init), minv.shape[0], Ap.data_ptr(), minv.data_ptr(),
+        x.data_ptr(), r.data_ptr(), p.data_ptr(), state.partials.data_ptr(),
+        state.sc.data_ptr(), state.st.data_ptr(), _kernels.stream_of(minv)),
+        "cg_update")
     cg_update.launches += 1
 
 
-def cg_matvec(A: Csr, s: float, z: torch.Tensor, p: torch.Tensor, beta):
-    """K9 once: (p', y, p'.y) with p' = z + beta p and y = M p' + s p', as
-    ``cg_matvec_plain``. Kernel K9 on CUDA tensors (p'.y as a 0-d tensor on
-    the card); the plain version on the COO on CPU tensors."""
-    if z.device.type == "cpu":
-        return cg_matvec_plain(A.rows, A.cols.long(), A.vals, s, z, p, beta)
-    state = _State.new(z.device, 0.0, 1, beta=beta)
-    p_out, y = torch.empty_like(z), torch.empty_like(z)
-    _matvec_launch(A, s, z, p, p_out, y, state)
-    return p_out, y, state.sc[_SC["pap"]]
+def cg_matvec(A: Csr, s: float, p: torch.Tensor):
+    """K9 once: (y, p.y) with y = M p + s p, as ``cg_matvec_plain``. Kernel
+    K9 on CUDA tensors (p.y as a 0-d tensor on the card); the plain version
+    on the COO on CPU tensors."""
+    if p.device.type == "cpu":
+        return cg_matvec_plain(A.rows, A.cols.long(), A.vals, s, p)
+    state = _State.new(p.device, 0.0, 1)
+    y = torch.empty_like(p)
+    _matvec_launch(A, s, p, y, state)
+    return y, state.sc[_SC["pap"]]
 
 
-def cg_update(alpha, p: torch.Tensor, Ap: torch.Tensor, minv: torch.Tensor,
-              x: torch.Tensor, r: torch.Tensor):
-    """K9u once: (x + alpha p, r - alpha Ap, z, r.z, r.r), as
-    ``cg_update_plain``. Kernel K9u on CUDA tensors (x and r are copied
-    first; the dot products as 0-d tensors on the card); the plain version
-    on CPU tensors."""
+def cg_update(alpha, rz, p: torch.Tensor, Ap: torch.Tensor,
+              minv: torch.Tensor, x: torch.Tensor, r: torch.Tensor):
+    """K9u once: (x + alpha p, r - alpha Ap, the new direction, r.z, r.r),
+    as ``cg_update_plain``. Kernel K9u on CUDA tensors (x, r and p are
+    copied first; the dot products as 0-d tensors on the card); the plain
+    version on CPU tensors."""
     if minv.device.type == "cpu":
-        return cg_update_plain(alpha, p, Ap, minv, x, r)
-    state = _State.new(minv.device, -1.0, 2 ** 31 - 1)
-    state.sc[_SC["alpha"]] = alpha
-    state.sc[_SC["rz"]] = 1.0
-    x, r, z = x.clone(), r.clone(), torch.empty_like(r)
-    _update_launch(False, p, Ap, minv, x, r, z, state)
-    return x, r, z, state.sc[_SC["rz"]], state.sc[_SC["rr"]]
+        return cg_update_plain(alpha, rz, p, Ap, minv, x, r)
+    state = _State.new(minv.device, -1.0, 2 ** 31 - 1, alpha=alpha, rz=rz)
+    x, r, p = x.clone(), r.clone(), p.clone()
+    _update_launch(False, Ap, minv, x, r, p, state)
+    return x, r, p, state.sc[_SC["rz"]], state.sc[_SC["rr"]]
 
 
 cg_matvec.launches = 0
 cg_update.launches = 0
 
-# iterations the host enqueues between two reads of the kernels' flag (even:
-# the direction's two buffers are back where they started)
+# iterations the host enqueues between two reads of the kernels' flag
 CG_CHUNK = 32
 
 
@@ -499,18 +499,14 @@ def _cg_kernels(A: Csr, s: float, diag, b, x0, tol: float, max_iter: int):
     Enqueues CG_CHUNK iterations (a K9 and a K9u launch each; no-ops once
     the flag is down), then reads the flag of the chunk before while the
     card runs this one: one host sync a chunk, and one for the result."""
-    dev = b.device
     n = A.n
-    state = _State.new(dev, 0.0, max_iter)
+    state = _State.new(b.device, 0.0, max_iter)
     state.sc[_SC["thresh"]] = tol * tol * torch.dot(b, b)
     minv = 1.0 / diag
-    zeros = torch.zeros_like(b)
     y = torch.empty_like(b)
-    # r = b - (M + sI) x0: K9 with z = x0, beta = 0
-    _matvec_launch(A, s, x0, zeros, torch.empty_like(b), y, state)
-    x, r, z = x0.clone(), b - y, torch.empty_like(b)
-    _update_launch(True, zeros, zeros, minv, x, r, z, state)
-    p = (zeros, torch.zeros_like(b))
+    _matvec_launch(A, s, x0, y, state)         # y = (M + sI) x0
+    x, r, p = x0.clone(), b - y, torch.empty_like(b)
+    _update_launch(True, y, minv, x, r, p, state)
     flags = [torch.empty(len(_ST), dtype=torch.int32, pin_memory=True)
              for _ in range(2)]
     events = [torch.cuda.Event(), torch.cuda.Event()]
@@ -519,11 +515,11 @@ def _cg_kernels(A: Csr, s: float, diag, b, x0, tol: float, max_iter: int):
     j = 0
     while True:
         _kernels.check(lib, lib.hpsdf_cg_iterations(
-            A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(), n,
-            float(s), minv.data_ptr(), x.data_ptr(), r.data_ptr(),
-            z.data_ptr(), p[0].data_ptr(), p[1].data_ptr(), y.data_ptr(),
+            CG_LANES, A.rowptr.data_ptr(), A.cols.data_ptr(),
+            A.vals.data_ptr(), n, float(s), minv.data_ptr(), x.data_ptr(),
+            r.data_ptr(), p.data_ptr(), y.data_ptr(),
             state.partials.data_ptr(), state.sc.data_ptr(),
-            state.st.data_ptr(), CG_CHUNK, 0, stream), "cg_iterations")
+            state.st.data_ptr(), CG_CHUNK, stream), "cg_iterations")
         cg_matvec.launches += CG_CHUNK
         cg_update.launches += CG_CHUNK
         flags[j % 2].copy_(state.st, non_blocking=True)
@@ -546,20 +542,17 @@ _cg_kernels.host_syncs = 0
 def _cg_solve_plain(R, C, V, s, diag, b, x0, n: int, tol, max_iter: int):
     """The CG of ``hpsdf_tpu.continuity._cg_solve`` on the COO by the plain
     versions, whatever the device (one host sync an iteration on a card):
-    the same recurrences, with the direction p = z + beta p formed by the
-    next matvec, as K9 forms it."""
+    the same recurrences and stopping rule."""
     minv = 1.0 / diag
-    zeros = torch.zeros_like(b)
-    _, y, _ = cg_matvec_plain(R, C, V, s, x0, zeros, 0.0)
+    y, _ = cg_matvec_plain(R, C, V, s, x0)
     x, r = x0, b - y
-    z = minv * r
-    rz, rr = torch.dot(r, z), torch.dot(r, r)
+    p = minv * r
+    rz, rr = torch.dot(r, p), torch.dot(r, r)
     thresh = tol * tol * torch.dot(b, b)
-    p, beta, k = zeros, 0.0, 0
+    k = 0
     while bool(rr > thresh) and k < max_iter:
-        p, Ap, pap = cg_matvec_plain(R, C, V, s, z, p, beta)
-        x, r, z, rz_new, rr = cg_update_plain(rz / pap, p, Ap, minv, x, r)
-        beta, rz = rz_new / rz, rz_new
+        Ap, pap = cg_matvec_plain(R, C, V, s, p)
+        x, r, p, rz, rr = cg_update_plain(rz / pap, rz, p, Ap, minv, x, r)
         k += 1
     return x, k, float(torch.sqrt(rr))
 

@@ -1,8 +1,9 @@
 """The port's public signatures against the reference's: ``mesh_sdf``'s
-positional order, ``build`` and ``build_octree`` with ``progress`` (and the
-options not ported yet, which raise), the CSG rebuilds forwarding their
-keywords, and the package's exports."""
+positional order, ``build`` and ``build_octree`` with ``progress`` and
+``continuity_fn`` (and the options not ported yet, which raise), the CSG
+rebuilds forwarding their keywords, and the package's exports."""
 
+import functools
 import inspect
 import types
 
@@ -14,6 +15,7 @@ import hpsdf_tpu as hp
 from hpsdf_tpu.mesh import sdf as JS
 import hpsdf_tpu_torch as T
 from hpsdf_tpu_torch import build as TB
+from hpsdf_tpu_torch import continuity as TC
 from hpsdf_tpu_torch import mesh as TM
 from hpsdf_tpu_torch.mesh import gen
 
@@ -55,9 +57,35 @@ def test_build_progress():
 
 @pytest.mark.parametrize("option", ["continuity_fn", "fit_mesh"])
 def test_build_refuses_unported(option):
+    """``fit_mesh`` (a sharded fit) raises. ``continuity_fn`` is ported;
+    what it cannot run yet is the row-sharded solve, and that raises."""
+    if option == "continuity_fn":
+        fn = functools.partial(TC.enforce_continuity, mesh=object())
+        with pytest.raises(NotImplementedError, match="mesh"):
+            TB.build(T.Config(**{**_CFG, "continuity": True}), _sphere,
+                     device="cpu", continuity_fn=fn)
+        return
     with pytest.raises(NotImplementedError, match=option):
         TB.build(T.Config(**_CFG), _sphere, device="cpu",
                  **{option: object()})
+
+
+@pytest.mark.parametrize("continuity", [False, True])
+def test_build_applies_continuity_fn(continuity):
+    """``build`` applies ``continuity_fn`` to the packed tree only when the
+    config asks for continuity (hpsdf_tpu/build.py:1017-1019), and
+    ``build_octree`` supplies ``enforce_continuity`` then."""
+    cfg = T.Config(**{**_CFG, "continuity": continuity})
+    seen, lines = [], []
+    tree = TB.build(cfg, _sphere, device="cpu", progress=lines.append,
+                    continuity_fn=lambda t: seen.append(t) or t)
+    assert len(seen) == int(continuity)
+    assert (lines[-1] == "continuity post-process done") == continuity
+    smoothed = T.build_octree(cfg, _sphere, device="cpu")
+    assert torch.equal(smoothed.coeffs, tree.coeffs) != continuity
+    if continuity:
+        assert torch.equal(smoothed.coeffs,
+                           TC.enforce_continuity(tree).coeffs)
 
 
 @pytest.mark.parametrize("op", ["union_sdf", "subtract_sdf", "intersect_sdf"])
