@@ -14,7 +14,28 @@ at full width, the flow of examples/end_to_end.py:
   * the render path on that tree: the CSG carve intersect_sdf(tree,
     -box(0.18)), whose F reads the tree through the packed layout (G for
     the grid, K2 for the values) -> render_image at 512^2 (the march K3,
-    normals K5) -> output_function_slice at 512 (K1) -> save / load.
+    normals K5) -> output_function_slice at 512 (K1) -> save / load;
+  * the continuity post-process ([continuity]), which Config's default
+    asks for: build_octree with continuity=True at bench.py:352-360's fit +
+    continuity config (sphere r = 0.301, target 1e-6, depth 5, degree 4)
+    and at the 260,604-leaf row of bench.py:578-596 (sphere r = 0.3,
+    target 3e-9, depth 7, degree 2), its CG through kernels K9 (the CSR
+    matvec with p.Ap) and K9u (the vector update with r.z and r.r and the
+    new direction; csrc/continuity.cu).
+
+The fit driver's seconds are split (split_build, fit_split: PhaseTimer
+phases around the port's own build._fit, build._fit_impl and build.pack,
+and F inside each fit) into F, the f64 projection, point generation and
+copies, packing and the host topology, in [slice] and [render]'s carve;
+[mesh] times build_mesh and build_bvh. [continuity] splits the
+post-process into face pairs, assembly, upload, CSR and CG, holds the
+field to |p| - r, the jump energy c.Mc and the sampled face jumps to the
+fit without continuity, K9 and K9u to their plain versions (1e-13 of the
+largest entry) and the kernels' solve to the plain solve on the card (the
+same count and x within 1e-9, or a count one apart with both recomputed
+residuals meeting the stopping rule) and to itself bit for bit, and times
+both kernels in CUDA graphs beside their byte bounds, the plain versions
+and cuSPARSE's CSR matvec.
 
 Each kernel is also held against its plain torch version on the card and
 timed beside it, K2/K5 and K3 on the slice tree and on the
@@ -73,14 +94,16 @@ both. [inverse] runs bench.py's 1080p fit_to_depth, profiles a step with
 and without the replaced backward kernels (and with the fused read split
 again), and holds the kernels' 128^2 losses to the plain versions'.
 
-Phases, one line each: device, build, ptxas, P1 vs plain, the slice, P1 at
-the fit batch, K1 vs plain, times, G vs plain, the reference-default fit,
-K2/K5 vs plain, K3 vs plain (three lines a tree: checks and rays, times
-and bound, serial floor), K4, the render path, K2/K5 at the main path's
-shapes, the degrees, the backward kernels, inverse rendering, each phase's
-seconds; then one JSON line with the kernels (K2/K5's launches
-also split into values and normals), the card's name and power limit as
-nvidia-smi prints them, and the final JSON line
+Phases, one line each: device, build, ptxas, mesh, P1 vs plain, the slice,
+P1 at the fit batch, K1 vs plain, times, G vs plain, the reference-default
+fit, K2/K5 vs plain, K3 vs plain (three lines a tree: checks and rays,
+times and bound, serial floor), K4, the render path, K2/K5 at the main
+path's shapes, the degrees, the backward kernels, inverse rendering, the
+continuity post-process (three lines a size: checks, the run and its
+split, times), each phase's seconds; then one JSON line with the kernels
+(K2/K5's launches also split into values and normals), the fit splits and
+the continuity runs, the card's name and power limit as nvidia-smi prints
+them, and the final JSON line
 {"ok": true, "device": {...}}. Any failed check raises and the exit code is
 non-zero. Without a CUDA device it exits 1 and prints no result.
 """
@@ -2772,14 +2795,7 @@ def cg_times(A, R, C, V, s, minv, reps):
                for _ in range(3))
     y = torch.empty_like(p)
     st9 = TC._State.new(dev, -1.0, 2 ** 31 - 1)
-    lanes_ms = {}
-    shipped = TC.CG_LANES
-    for lanes in (shipped, 161, 81, 321, 80, 161, shipped):
-        TC.CG_LANES = lanes
-        ms = graph_ms(lambda: TC._matvec_launch(A, s, p, y, st9), reps)
-        lanes_ms[lanes] = min(ms, lanes_ms.get(lanes, ms))
-    TC.CG_LANES = shipped
-    k9 = lanes_ms[shipped]
+    k9 = graph_ms(lambda: TC._matvec_launch(A, s, p, y, st9), reps)
     with warnings.catch_warnings():          # torch's sparse CSR is beta
         warnings.simplefilter("ignore")
         sp = torch.sparse_csr_tensor(A.rowptr, A.cols, A.vals, (n, n))
@@ -2801,8 +2817,8 @@ def cg_times(A, R, C, V, s, minv, reps):
 
     def iteration():
         _kernels.check(lib, lib.hpsdf_cg_iterations(
-            TC.CG_LANES, A.rowptr.data_ptr(), A.cols.data_ptr(),
-            A.vals.data_ptr(), n, float(s), minv.data_ptr(), xi.data_ptr(),
+            A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(), n,
+            float(s), minv.data_ptr(), xi.data_ptr(),
             ri.data_ptr(), pi.data_ptr(), yi.data_ptr(),
             st.partials.data_ptr(), st.sc.data_ptr(), st.st.data_ptr(), 2,
             _kernels.stream_of(xi)), "cg_iterations")
@@ -2817,8 +2833,7 @@ def cg_times(A, R, C, V, s, minv, reps):
                                                  r), max(3, reps // 10))
     return {"k9_ms": k9, "k9u_ms": k9u, "iteration_ms": it,
             "k9_plain_ms": plain, "k9u_plain_ms": plain_u,
-            "k9_library_ms": library, "library_rel_err": lib_err,
-            "k9_lanes_ms": lanes_ms}
+            "k9_library_ms": library, "library_rel_err": lib_err}
 
 
 def check_cg(A, R, C, V, s, diag, b, x0, n, tol, max_iter, main, label):
@@ -2981,8 +2996,7 @@ def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
           f"{out['cg_ms_per_iteration']:.4f} ms an iteration, host "
           f"included | plain {times['k9_plain_ms']:.4f} / "
           f"{times['k9u_plain_ms']:.4f} ms | cuSPARSE CSR matvec (torch.mv) "
-          f"{times['k9_library_ms']:.4f} ms | K9 by lanes a row "
-          f"{times['k9_lanes_ms']}", flush=True)
+          f"{times['k9_library_ms']:.4f} ms", flush=True)
     return launches, out
 
 
@@ -2997,8 +3011,6 @@ def _ptxas_key(kernel, args):
     (ints, bools and the value type, in order)."""
     if not args:                          # row_scatter(_csr)_kernel
         return "-"
-    if kernel == "cg_matvec_kernel":
-        return f"{args[0]}/{args[1]}"
     if kernel == "cg_update_kernel":
         return "init" if args[0] else "iteration"
     if kernel == "coeff_scatter_kernel":
@@ -3052,8 +3064,7 @@ def ptxas_check():
                                             "5/f64 query", "5/f32 trace")),
             ("G backward", "row_scatter_kernel", ("-",)),
             ("G backward CSR", "row_scatter_csr_kernel", ("-",)),
-            ("K9", "cg_matvec_kernel", ("8/0", "16/0", "8/1", "16/1",
-                                        "32/1")),
+            ("K9", "cg_matvec_kernel", ("-",)),
             ("K9u", "cg_update_kernel", ("init", "iteration"))):
         got = found.get(kernel, {})
         for key in keys:
@@ -3102,14 +3113,6 @@ def main():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 3)
     ptxas = ptxas_check()
-    if "--only-continuity" in sys.argv[1:]:
-        # development: the build, ptxas and [continuity] alone, no result
-        phase("continuity fit", phase_continuity, "fit + continuity",
-              CONT_FIT, CONT_FIT_RADII[1], CONT_FIT_RADII[0], smi)
-        phase("continuity 260k", phase_continuity, "260k-leaf row",
-              CONT_ROW, CONT_ROW_RADIUS, None, smi)
-        print(f"[seconds] {PHASE_SECONDS}", flush=True)
-        return 0
 
     # --- 3. P1 against its plain version -----------------------------------
     v, f = gen.icosphere(0.3, 5)

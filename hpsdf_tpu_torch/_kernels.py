@@ -62,11 +62,10 @@ _SIGNATURES = {
     "hpsdf_coeff_scatter": (_P, _P, _P, _P, _I32, _I32, _P, _P, _P, _P, _P,
                             _I64, _F64, _F64, _F64, _F64, _F64, _F64,
                             _P, _I32, _I32, _P, _P),
-    "hpsdf_cg_matvec": (_I32, _P, _P, _P, _I64, _F64, _P, _P, _P, _P, _P,
-                        _P),
+    "hpsdf_cg_matvec": (_P, _P, _P, _I64, _F64, _P, _P, _P, _P, _P, _P),
     "hpsdf_cg_update": (_I32, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    "hpsdf_cg_iterations": (_I32, _P, _P, _P, _I64, _F64, _P, _P, _P, _P,
-                            _P, _P, _P, _P, _I32, _P),
+    "hpsdf_cg_iterations": (_P, _P, _P, _I64, _F64, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _I32, _P),
 }
 # entry points that return a size in bytes (int64_t), not an error code
 _SIZE_SIGNATURES = {

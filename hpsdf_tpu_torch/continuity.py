@@ -405,8 +405,6 @@ def cg_update_plain(alpha, rz, p: torch.Tensor, Ap: torch.Tensor,
 _SC = dict(rz=0, alpha=1, beta=2, rr=3, thresh=4, pap=5)
 # and its integers (kK ... kCount): iterations, max_iter, flag, block count
 _ST = dict(k=0, max_iter=1, active=2, count=3)
-# K9's form: lanes a row * 10 + 1 where the entries load as a stream
-CG_LANES = 160
 
 
 class _State(NamedTuple):
@@ -443,8 +441,8 @@ def _matvec_launch(A: Csr, s: float, p, y, state: _State):
     _check_cuda("cg_matvec", A.rowptr, A.cols, A.vals, p, y)
     lib = _kernels.load()
     _kernels.check(lib, lib.hpsdf_cg_matvec(
-        CG_LANES, A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(),
-        A.n, float(s), p.data_ptr(), y.data_ptr(), state.partials.data_ptr(),
+        A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(), A.n,
+        float(s), p.data_ptr(), y.data_ptr(), state.partials.data_ptr(),
         state.sc.data_ptr(), state.st.data_ptr(), _kernels.stream_of(p)),
         "cg_matvec")
     cg_matvec.launches += 1
@@ -515,8 +513,8 @@ def _cg_kernels(A: Csr, s: float, diag, b, x0, tol: float, max_iter: int):
     j = 0
     while True:
         _kernels.check(lib, lib.hpsdf_cg_iterations(
-            CG_LANES, A.rowptr.data_ptr(), A.cols.data_ptr(),
-            A.vals.data_ptr(), n, float(s), minv.data_ptr(), x.data_ptr(),
+            A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(), n,
+            float(s), minv.data_ptr(), x.data_ptr(),
             r.data_ptr(), p.data_ptr(), y.data_ptr(),
             state.partials.data_ptr(), state.sc.data_ptr(),
             state.st.data_ptr(), CG_CHUNK, stream), "cg_iterations")
@@ -602,8 +600,10 @@ def enforce_continuity(tree: Octree, mesh=None, cg: str = "auto") -> Octree:
     leaf_ids = np.flatnonzero(st.degree[: st.n] >= 0)
     widths = st.widths[leaf_ids]
     flat_rows = np.repeat(leaf_ids, widths)
-    flat_cols = np.concatenate([np.arange(w) for w in widths]) \
-        if leaf_ids.size else np.zeros(0, np.int64)
+    # each leaf's 0 .. width-1, in one pass (the reference concatenates an
+    # arange a leaf)
+    flat_cols = (np.arange(flat_rows.size)
+                 - np.repeat(np.cumsum(widths) - widths, widths))
     c0 = coeffs[flat_rows, flat_cols]
 
     diag = np.full(n, s, np.float64)

@@ -34,9 +34,11 @@
 // 260,604-leaf row (nnz 62,039,808, n 2,606,040) about 0.80 GB, 0.24 ms at
 // 3.35 TB/s; its f64 operations (3 an entry) are 0.005 ms at 34 TFLOP/s.
 // The gathered p (n * 8 bytes, 21 MB there) stays in L2. The rows are short
-// (about 23 entries), so a group of LANES lanes takes a row: a warp reads
-// 32 / LANES consecutive rows, which are contiguous in the CSR, and each
-// lane sums every LANES-th entry before a fixed tree of shuffles. K9u reads
+// (about 23 entries), so a group of 16 lanes takes a row: a warp reads 2
+// consecutive rows, which are contiguous in the CSR, and each lane sums
+// every 16th entry before a fixed tree of shuffles (8 and 32 lanes a row,
+// several rows in flight a group and streaming loads of the entries were
+// slower on the card: PERF.md, PR 10). K9u reads
 // five vectors and writes three (64 bytes a row), and reads r, the
 // reciprocal diagonal and p once more after its barrier (most of it from
 // L2).
@@ -51,6 +53,8 @@ namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kLanes = 16;                    // lanes a row in K9
+constexpr int kRowsPerWarp = 32 / kLanes;
 // the most blocks a launch takes (its partial sums: 2 a block for K9u)
 constexpr int kMaxBlocks = 4096;
 
@@ -99,36 +103,32 @@ __device__ __forceinline__ void sum_partials(const double* partials,
   block_sum(total, smem);
 }
 
-template <int LANES, bool STREAM>
 __global__ void __launch_bounds__(kThreads)
 cg_matvec_kernel(const int32_t* __restrict__ rowptr,
                  const int32_t* __restrict__ col,
                  const double* __restrict__ val, int64_t n, double s,
                  const double* __restrict__ p, double* __restrict__ y,
                  double* __restrict__ partials, double* sc, int* st) {
-  constexpr int kRows = 32 / LANES;           // rows a warp a round
   __shared__ double smem[kWarps];
   __shared__ bool last;
   if (!st[kActive]) return;                   // uniform over the launch
-  const int lane = threadIdx.x & (LANES - 1);
-  const int sub = (threadIdx.x & 31) / LANES;
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int sub = (threadIdx.x & 31) / kLanes;
   const int64_t warp = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int64_t warps = (int64_t)gridDim.x * kWarps;
   double pap[1] = {0.0};
   // every lane of a warp takes every round, so the shuffles are whole
-  for (int64_t base = warp * kRows; base < n; base += warps * kRows) {
+  for (int64_t base = warp * kRowsPerWarp; base < n;
+       base += warps * kRowsPerWarp) {
     const int64_t i = base + sub;
     double sum = 0.0;
     if (i < n) {
       const int e1 = __ldg(rowptr + i + 1);
-      for (int e = __ldg(rowptr + i) + lane; e < e1; e += LANES) {
-        const double v = STREAM ? __ldcs(val + e) : __ldg(val + e);
-        const int c = STREAM ? __ldcs(col + e) : __ldg(col + e);
-        sum = __fma_rn(v, __ldg(p + c), sum);
-      }
+      for (int e = __ldg(rowptr + i) + lane; e < e1; e += kLanes)
+        sum = __fma_rn(__ldg(val + e), __ldg(p + __ldg(col + e)), sum);
     }
 #pragma unroll
-    for (int o = LANES / 2; o > 0; o >>= 1)
+    for (int o = kLanes / 2; o > 0; o >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, o);
     if (i < n && lane == 0) {
       const double pi = p[i];
@@ -228,39 +228,16 @@ int grid_for(K kernel, int64_t work, int per_block, int* cache) {
   return (int)(need < 1 ? 1 : (need < *cache ? need : *cache));
 }
 
-template <int LANES, bool STREAM>
-cudaError_t launch_matvec_form(const int32_t* rowptr, const int32_t* col,
-                               const double* val, int64_t n, double s,
-                               const double* p, double* y, double* partials,
-                               double* sc, int* st, cudaStream_t stream) {
+cudaError_t launch_matvec(const int32_t* rowptr, const int32_t* col,
+                          const double* val, int64_t n, double s,
+                          const double* p, double* y, double* partials,
+                          double* sc, int* st, cudaStream_t stream) {
   static int cache = 0;
-  const int blocks = grid_for(cg_matvec_kernel<LANES, STREAM>, n,
-                              kWarps * (32 / LANES), &cache);
-  cg_matvec_kernel<LANES, STREAM><<<blocks, kThreads, 0, stream>>>(
-      rowptr, col, val, n, s, p, y, partials, sc, st);
+  const int blocks = grid_for(cg_matvec_kernel, n, kWarps * kRowsPerWarp,
+                              &cache);
+  cg_matvec_kernel<<<blocks, kThreads, 0, stream>>>(rowptr, col, val, n, s, p,
+                                                   y, partials, sc, st);
   return cudaGetLastError();
-}
-
-// form: lanes a row * 10 + 1 where the entries are loaded as a stream
-cudaError_t launch_matvec(int form, const int32_t* rowptr,
-                          const int32_t* col, const double* val, int64_t n,
-                          double s, const double* p, double* y,
-                          double* partials, double* sc, int* st,
-                          cudaStream_t stream) {
-#define HPSDF_FORM(L, S)                                                    \
-  case L * 10 + S:                                                          \
-    return launch_matvec_form<L, S>(rowptr, col, val, n, s, p, y, partials, \
-                                    sc, st, stream);
-  switch (form) {
-    HPSDF_FORM(8, 0)
-    HPSDF_FORM(16, 0)
-    HPSDF_FORM(8, 1)
-    HPSDF_FORM(16, 1)
-    HPSDF_FORM(32, 1)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef HPSDF_FORM
 }
 
 template <bool INIT>
@@ -286,15 +263,14 @@ cudaError_t launch_update(int64_t n, const double* Ap, const double* minv,
 extern "C" int64_t hpsdf_cg_scratch() { return 2 * kMaxBlocks * 8; }
 
 // K9 once: y = A p + s p, sc[alpha] = sc[rz] / p.y (a no-op if st's flag is
-// down). lanes: 4, 8 or 16 a row.
-extern "C" int hpsdf_cg_matvec(int lanes, const int32_t* rowptr,
-                               const int32_t* col, const double* val,
-                               int64_t n, double s, const double* p,
-                               double* y, double* partials, double* sc,
-                               int* st, void* stream) {
+// down).
+extern "C" int hpsdf_cg_matvec(const int32_t* rowptr, const int32_t* col,
+                               const double* val, int64_t n, double s,
+                               const double* p, double* y, double* partials,
+                               double* sc, int* st, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  return (int)launch_matvec(lanes, rowptr, col, val, n, s, p, y, partials,
-                            sc, st, (cudaStream_t)stream);
+  return (int)launch_matvec(rowptr, col, val, n, s, p, y, partials, sc, st,
+                            (cudaStream_t)stream);
 }
 
 // K9u once. init = 0: x += alpha p, r -= alpha Ap, then r.z, r.r, beta,
@@ -314,17 +290,17 @@ extern "C" int hpsdf_cg_update(int init, int64_t n, const double* Ap,
 
 // `iters` iterations: K9 then K9u, each launched every iteration (a no-op
 // once the flag is down).
-extern "C" int hpsdf_cg_iterations(int lanes, const int32_t* rowptr,
-                                   const int32_t* col, const double* val,
-                                   int64_t n, double s, const double* minv,
-                                   double* x, double* r, double* p,
-                                   double* Ap, double* partials, double* sc,
-                                   int* st, int iters, void* stream) {
+extern "C" int hpsdf_cg_iterations(const int32_t* rowptr, const int32_t* col,
+                                   const double* val, int64_t n, double s,
+                                   const double* minv, double* x, double* r,
+                                   double* p, double* Ap, double* partials,
+                                   double* sc, int* st, int iters,
+                                   void* stream) {
   if (n <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t stream_ = (cudaStream_t)stream;
   for (int it = 0; it < iters; ++it) {
-    cudaError_t e = launch_matvec(lanes, rowptr, col, val, n, s, p, Ap,
-                                  partials, sc, st, stream_);
+    cudaError_t e = launch_matvec(rowptr, col, val, n, s, p, Ap, partials,
+                                  sc, st, stream_);
     if (e != cudaSuccess) return (int)e;
     e = launch_update<false>(n, Ap, minv, x, r, p, partials, sc, st,
                              stream_);
