@@ -23,7 +23,7 @@ at full width, the flow of examples/end_to_end.py:
     matvec with p.Ap) and K9u (the vector update with r.z and r.r and the
     new direction; csrc/continuity.cu).
 
-The fit driver's seconds are split (split_build, fit_split: PhaseTimer
+The build's seconds outside F are split (split_build, fit_split: PhaseTimer
 phases around the port's own build._fit, build._fit_impl and build.pack,
 and F inside each fit) into F, the f64 projection, point generation and
 copies, packing and the host topology, in [slice] and [render]'s carve;
@@ -392,7 +392,7 @@ def read_counts():
 
 
 # the port's own functions a build's time is split by (module, attribute,
-# phase): the fit driver's, then the continuity post-process's
+# phase): the fit loop's, then the continuity post-process's
 FIT_PHASES = (("build", "_fit", "fit"), ("build", "_fit_impl", "projection"),
               ("build", "pack", "pack"))
 CONTINUITY_PHASES = (

@@ -8,7 +8,11 @@ package imports neither it nor jax. Tensors on a CUDA device go through hand-wri
 kernels (``csrc/``, built by nvcc on first use); tensors on the CPU take
 the plain torch version of each kernel.
 
-The mesh -> SDF path lives in ``hpsdf_tpu_torch.mesh``.
+The mesh -> SDF path lives in ``hpsdf_tpu_torch.mesh``. The continuity
+post-process (``hpsdf_tpu_torch.continuity``, which ``build_octree`` runs
+when ``Config.continuity`` is set, as it is by default) and phase timing
+(``hpsdf_tpu_torch.profiling``) are submodules imported by name, as in
+hpsdf_tpu.
 """
 
 from .config import Config, NearnessWeighting

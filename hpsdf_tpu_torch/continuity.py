@@ -353,10 +353,8 @@ def assemble_face_matrix(tree: Octree):
 # --------------------------------------------------------------------------
 
 class Csr(NamedTuple):
-    """The COO sorted by row on its device: ``rows`` (i64, the sorted COO
-    rows, which the plain matvec adds by), ``rowptr`` (n + 1) and ``cols``
+    """The COO sorted by row on its device: ``rowptr`` (n + 1) and ``cols``
     (i32), ``vals`` (f64)."""
-    rows: torch.Tensor
     rowptr: torch.Tensor
     cols: torch.Tensor
     vals: torch.Tensor
@@ -376,8 +374,7 @@ def csr(R: torch.Tensor, C: torch.Tensor, V: torch.Tensor, n: int) -> Csr:
     rows, order = torch.sort(R, stable=True)
     rowptr = torch.zeros(n + 1, dtype=torch.int64, device=R.device)
     rowptr[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
-    return Csr(rows, rowptr.to(torch.int32), C[order].to(torch.int32),
-               V[order])
+    return Csr(rowptr.to(torch.int32), C[order].to(torch.int32), V[order])
 
 
 def cg_matvec_plain(R: torch.Tensor, C: torch.Tensor, V: torch.Tensor,
@@ -464,7 +461,9 @@ def cg_matvec(A: Csr, s: float, p: torch.Tensor):
     K9 on CUDA tensors (p.y as a 0-d tensor on the card); the plain version
     on the COO on CPU tensors."""
     if p.device.type == "cpu":
-        return cg_matvec_plain(A.rows, A.cols.long(), A.vals, s, p)
+        rows = torch.repeat_interleave(torch.arange(A.n),
+                                       A.rowptr.diff().long())
+        return cg_matvec_plain(rows, A.cols.long(), A.vals, s, p)
     state = _State.new(p.device, 0.0, 1)
     y = torch.empty_like(p)
     _matvec_launch(A, s, p, y, state)

@@ -38,10 +38,9 @@
 // consecutive rows, which are contiguous in the CSR, and each lane sums
 // every 16th entry before a fixed tree of shuffles (8 and 32 lanes a row,
 // several rows in flight a group and streaming loads of the entries were
-// slower on the card: PERF.md, PR 10). K9u reads
-// five vectors and writes three (64 bytes a row), and reads r, the
-// reciprocal diagonal and p once more after its barrier (most of it from
-// L2).
+// slower on the card; PERF.md section 6 has their times). K9u reads five
+// vectors and writes three (64 bytes a row), and reads r, the reciprocal
+// diagonal and p once more after its barrier (most of it from L2).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

@@ -113,7 +113,6 @@ def test_csr_layout(mixed_depth):
     n, R, C, V, _ = _system(mixed_depth)
     A = TC.csr(torch.as_tensor(R), torch.as_tensor(C), torch.as_tensor(V), n)
     order = np.argsort(R, kind="stable")
-    np.testing.assert_array_equal(A.rows.numpy(), R[order])
     np.testing.assert_array_equal(A.cols.numpy(), C[order])
     np.testing.assert_array_equal(A.vals.numpy(), V[order])
     np.testing.assert_array_equal(
