@@ -111,6 +111,7 @@ non-zero. Without a CUDA device it exits 1 and prints no result.
 import contextlib
 import dataclasses
 import functools
+import importlib
 import json
 import os
 import re
@@ -433,7 +434,7 @@ def split_build(phases=FIT_PHASES):
 
     with contextlib.ExitStack() as stack:
         for mod, attr, name in phases:
-            m = __import__(f"hpsdf_tpu_torch.{mod}", fromlist=[attr])
+            m = importlib.import_module(f"hpsdf_tpu_torch.{mod}")
             fn = timed(name, getattr(m, attr),
                        time_F if attr == "_fit" else None)
             stack.enter_context(mock.patch.object(m, attr, fn))
