@@ -237,7 +237,7 @@ def _c_signatures():
         for m in re.finditer(
                 r'extern "C" (int|int64_t) (hpsdf_\w+)\(([^)]*)\)', text):
             params = []
-            for p in m.group(3).split(","):
+            for p in filter(str.strip, m.group(3).split(",")):
                 p = " ".join(p.split())
                 params.append(ctypes.c_void_p if "*" in p else
                               _CTYPES[p.rsplit(" ", 1)[0]

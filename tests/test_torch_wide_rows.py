@@ -120,15 +120,17 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None):
             f"registers, used 0 barriers, 22528 bytes smem\n")
 
 
-@pytest.mark.parametrize("spill", [None, "K1", "K3", "K7", "G CSR", "K5F"],
+@pytest.mark.parametrize("spill", [None, "K1", "K3", "K7", "G CSR", "K5F",
+                                   "K9u"],
                          ids=["clean", "spills", "march_spills",
                               "backward_spills", "csr_spills",
-                              "fused_spills"])
+                              "fused_spills", "cg_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
     K5's raw gradient (alone or fused with K2), K7 or K8 at degree 3 or 5,
-    or either form of G's backward, has a stack frame or spills."""
+    either form of G's backward, or the continuity kernels K9 and K9u
+    (K9u's two forms), has a stack frame or spills."""
     from hpsdf_tpu_torch import _kernels
 
     report = "".join(
@@ -160,13 +162,19 @@ def test_ptxas_check(monkeypatch, spill):
     report += _ptxas_entry("row_scatter_kernel", 0, None, args="")
     report += _ptxas_entry("row_scatter_csr_kernel", 0, None, args="",
                            stack=8 if spill == "G CSR" else 0)
+    report += _ptxas_entry("cg_matvec_kernel", 0, None, args="", regs=32)
+    for init in (0, 1):
+        report += _ptxas_entry("cg_update_kernel", 0, None, regs=32,
+                               args=f"Lb{init}E",
+                               stack=8 if spill == "K9u" and init else 0)
     monkeypatch.setattr(_kernels, "ptxas_report", lambda: report)
     if spill:
         with pytest.raises(RuntimeError, match={
                 "K1": "K1 5/values", "K3": "K3 5: stack 16",
                 "K7": "K7 3/form1: stack 24",
                 "G CSR": "G backward CSR -: stack 8",
-                "K5F": "K5 raw 3/fused: stack 16"}[spill]):
+                "K5F": "K5 raw 3/fused: stack 16",
+                "K9u": "K9u init: stack 8"}[spill]):
             chip_smoke.ptxas_check()
         return
     found = chip_smoke.ptxas_check()
@@ -184,3 +192,6 @@ def test_ptxas_check(monkeypatch, spill):
                                      for d in (3, 5, 12)}
     assert found["cone_kernel"] == {k: [40, 0, 0, 0]
                                     for k in ("3/full", "5/full", "2/lo")}
+    assert found["cg_matvec_kernel"] == {"-": [32, 0, 0, 0]}
+    assert found["cg_update_kernel"] == {k: [32, 0, 0, 0]
+                                         for k in ("init", "iteration")}
