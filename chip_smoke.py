@@ -2796,18 +2796,6 @@ def cg_times(A, R, C, V, s, minv, reps):
                for _ in range(3))
     y = torch.empty_like(p)
     st9 = TC._State.new(dev, -1.0, 2 ** 31 - 1)
-    lib = _kernels.load()
-    forms, y_plain = {}, TC.cg_matvec_plain(R, C, V, s, p)[0]
-    for form in (0, 1, 2, 3, 3, 2, 1, 0):
-        lib.hpsdf_cg_set_form(form)
-        ms = graph_ms(lambda: TC._matvec_launch(A, s, p, y, st9), reps)
-        forms[form] = min(ms, forms.get(form, ms))
-        err = float((y - y_plain).abs().max() / y_plain.abs().max())
-        check(err <= CONT_RTOL, f"K9 form {form}: y against plain {err}")
-    lib.hpsdf_cg_set_form(0)
-    print(f"[continuity] K9 forms (no hint, entries evict-first, and p "
-          f"evict-last, entries 256-byte prefetch): {forms}",
-          flush=True)
     k9 = graph_ms(lambda: TC._matvec_launch(A, s, p, y, st9), reps)
     with warnings.catch_warnings():          # torch's sparse CSR is beta
         warnings.simplefilter("ignore")
@@ -3077,7 +3065,7 @@ def ptxas_check():
                                             "5/f64 query", "5/f32 trace")),
             ("G backward", "row_scatter_kernel", ("-",)),
             ("G backward CSR", "row_scatter_csr_kernel", ("-",)),
-            ("K9", "cg_matvec_kernel", ("0", "1", "2", "3")),
+            ("K9", "cg_matvec_kernel", ("-",)),
             ("K9u", "cg_update_kernel", ("init", "iteration"))):
         got = found.get(kernel, {})
         for key in keys:

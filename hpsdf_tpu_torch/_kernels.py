@@ -64,7 +64,6 @@ _SIGNATURES = {
                             _P, _I32, _I32, _P, _P),
     "hpsdf_cg_matvec": (_P, _P, _P, _I64, _F64, _P, _P, _P, _P, _P, _P),
     "hpsdf_cg_update": (_I32, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    "hpsdf_cg_set_form": (_I32,),
     "hpsdf_cg_iterations": (_P, _P, _P, _I64, _F64, _P, _P, _P, _P, _P, _P,
                             _P, _P, _I32, _P),
 }

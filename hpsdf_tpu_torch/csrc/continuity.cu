@@ -102,13 +102,40 @@ __device__ __forceinline__ void sum_partials(const double* partials,
   block_sum(total, smem);
 }
 
-// K9's finish: the block's p.y partial, and in the last block to finish,
-// the sum of every block's in block order and alpha = rz / p.y.
-__device__ __forceinline__ void matvec_finish(double (&pap)[1],
-                                              double* partials, double* sc,
-                                              int* st) {
+__global__ void __launch_bounds__(kThreads)
+cg_matvec_kernel(const int32_t* __restrict__ rowptr,
+                 const int32_t* __restrict__ col,
+                 const double* __restrict__ val, int64_t n, double s,
+                 const double* __restrict__ p, double* __restrict__ y,
+                 double* __restrict__ partials, double* sc, int* st) {
   __shared__ double smem[kWarps];
   __shared__ bool last;
+  if (!st[kActive]) return;                   // uniform over the launch
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int sub = (threadIdx.x & 31) / kLanes;
+  const int64_t warp = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int64_t warps = (int64_t)gridDim.x * kWarps;
+  double pap[1] = {0.0};
+  // every lane of a warp takes every round, so the shuffles are whole
+  for (int64_t base = warp * kRowsPerWarp; base < n;
+       base += warps * kRowsPerWarp) {
+    const int64_t i = base + sub;
+    double sum = 0.0;
+    if (i < n) {
+      const int e1 = __ldg(rowptr + i + 1);
+      for (int e = __ldg(rowptr + i) + lane; e < e1; e += kLanes)
+        sum = __fma_rn(__ldg(val + e), __ldg(p + __ldg(col + e)), sum);
+    }
+#pragma unroll
+    for (int o = kLanes / 2; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (i < n && lane == 0) {
+      const double pi = p[i];
+      const double yi = __fma_rn(s, pi, sum);
+      y[i] = yi;
+      pap[0] = __fma_rn(pi, yi, pap[0]);
+    }
+  }
   block_sum(pap, smem);
   if (threadIdx.x == 0) {
     partials[blockIdx.x] = pap[0];
@@ -126,92 +153,6 @@ __device__ __forceinline__ void matvec_finish(double (&pap)[1],
     sc[kPAp] = total[0];
     sc[kAlpha] = sc[kRz] / total[0];
   }
-}
-
-// development: cache hints for the entries (and p)
-__device__ __forceinline__ uint64_t policy_first() {
-  uint64_t pol;
-  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
-  return pol;
-}
-__device__ __forceinline__ uint64_t policy_last() {
-  uint64_t pol;
-  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(pol));
-  return pol;
-}
-__device__ __forceinline__ double ld_pol(const double* a, uint64_t pol) {
-  double v;
-  asm("ld.global.nc.L2::cache_hint.f64 %0, [%1], %2;"
-      : "=d"(v) : "l"(a), "l"(pol));
-  return v;
-}
-__device__ __forceinline__ int ld_pol(const int* a, uint64_t pol) {
-  int v;
-  asm("ld.global.nc.L2::cache_hint.s32 %0, [%1], %2;"
-      : "=r"(v) : "l"(a), "l"(pol));
-  return v;
-}
-__device__ __forceinline__ double ld_256(const double* a) {
-  double v;
-  asm("ld.global.nc.L2::256B.f64 %0, [%1];" : "=d"(v) : "l"(a));
-  return v;
-}
-__device__ __forceinline__ int ld_256(const int* a) {
-  int v;
-  asm("ld.global.nc.L2::256B.s32 %0, [%1];" : "=r"(v) : "l"(a));
-  return v;
-}
-
-template <int HINT>
-__global__ void __launch_bounds__(kThreads)
-cg_matvec_kernel(const int32_t* __restrict__ rowptr,
-                 const int32_t* __restrict__ col,
-                 const double* __restrict__ val, int64_t n, double s,
-                 const double* __restrict__ p, double* __restrict__ y,
-                 double* __restrict__ partials, double* sc, int* st) {
-  if (!st[kActive]) return;                   // uniform over the launch
-  const int lane = threadIdx.x & (kLanes - 1);
-  const int sub = (threadIdx.x & 31) / kLanes;
-  const int64_t warp = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
-  const int64_t warps = (int64_t)gridDim.x * kWarps;
-  double pap[1] = {0.0};
-  // every lane of a warp takes every round, so the shuffles are whole
-  for (int64_t base = warp * kRowsPerWarp; base < n;
-       base += warps * kRowsPerWarp) {
-    const int64_t i = base + sub;
-    double sum = 0.0;
-    if (i < n) {
-      const int e1 = __ldg(rowptr + i + 1);
-      const uint64_t first = HINT == 1 || HINT == 2 ? policy_first() : 0;
-      const uint64_t keep = HINT == 2 ? policy_last() : 0;
-      for (int e = __ldg(rowptr + i) + lane; e < e1; e += kLanes) {
-        double v;
-        int c;
-        if (HINT == 1 || HINT == 2) {
-          v = ld_pol(val + e, first);
-          c = ld_pol(col + e, first);
-        } else if (HINT == 3) {
-          v = ld_256(val + e);
-          c = ld_256(col + e);
-        } else {
-          v = __ldg(val + e);
-          c = __ldg(col + e);
-        }
-        const double pc = HINT == 2 ? ld_pol(p + c, keep) : __ldg(p + c);
-        sum = __fma_rn(v, pc, sum);
-      }
-    }
-#pragma unroll
-    for (int o = kLanes / 2; o > 0; o >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (i < n && lane == 0) {
-      const double pi = p[i];
-      const double yi = __fma_rn(s, pi, sum);
-      y[i] = yi;
-      pap[0] = __fma_rn(pi, yi, pap[0]);
-    }
-  }
-  matvec_finish(pap, partials, sc, st);
 }
 
 // A cooperative launch (every block resident).
@@ -286,39 +227,16 @@ int grid_for(K kernel, int64_t work, int per_block, int* cache) {
   return (int)(need < 1 ? 1 : (need < *cache ? need : *cache));
 }
 
-int matvec_form = 0;      // development: the cache hint of K9's loads
-
-template <int HINT>
-cudaError_t launch_matvec_hint(const int32_t* rowptr, const int32_t* col,
-                               const double* val, int64_t n, double s,
-                               const double* p, double* y, double* partials,
-                               double* sc, int* st, cudaStream_t stream) {
-  static int cache = 0;
-  const int blocks = grid_for(cg_matvec_kernel<HINT>, n,
-                              kWarps * kRowsPerWarp, &cache);
-  cg_matvec_kernel<HINT><<<blocks, kThreads, 0, stream>>>(
-      rowptr, col, val, n, s, p, y, partials, sc, st);
-  return cudaGetLastError();
-}
-
 cudaError_t launch_matvec(const int32_t* rowptr, const int32_t* col,
                           const double* val, int64_t n, double s,
                           const double* p, double* y, double* partials,
                           double* sc, int* st, cudaStream_t stream) {
-  switch (matvec_form) {
-    case 1:
-      return launch_matvec_hint<1>(rowptr, col, val, n, s, p, y, partials, sc,
-                                   st, stream);
-    case 2:
-      return launch_matvec_hint<2>(rowptr, col, val, n, s, p, y, partials, sc,
-                                   st, stream);
-    case 3:
-      return launch_matvec_hint<3>(rowptr, col, val, n, s, p, y, partials, sc,
-                                   st, stream);
-    default:
-      return launch_matvec_hint<0>(rowptr, col, val, n, s, p, y, partials, sc,
-                                   st, stream);
-  }
+  static int cache = 0;
+  const int blocks = grid_for(cg_matvec_kernel, n, kWarps * kRowsPerWarp,
+                              &cache);
+  cg_matvec_kernel<<<blocks, kThreads, 0, stream>>>(rowptr, col, val, n, s, p,
+                                                   y, partials, sc, st);
+  return cudaGetLastError();
 }
 
 template <bool INIT>
@@ -339,11 +257,6 @@ cudaError_t launch_update(int64_t n, const double* Ap, const double* minv,
 }
 
 }  // namespace
-
-extern "C" int hpsdf_cg_set_form(int form) {
-  matvec_form = form;
-  return 0;
-}
 
 // Bytes of the partial sums a launch of either kernel needs.
 extern "C" int64_t hpsdf_cg_scratch() { return 2 * kMaxBlocks * 8; }
