@@ -2837,7 +2837,8 @@ def cg_times(A, R, C, V, s, minv, reps):
             "k9_library_ms": library, "library_rel_err": lib_err}
 
 
-def check_cg(A, R, C, V, s, diag, b, x0, n, tol, max_iter, main, label):
+def check_cg(A, R, C, V, s, diag, b, x0, n, tol, max_iter, main, label,
+             smi):
     """K9 and K9u against their plain versions on the same inputs, then the
     kernels' solve against the plain solve on the card, and against the
     main path's own solve (``main``: (x, iterations, residual)) bit for
@@ -2888,7 +2889,8 @@ def check_cg(A, R, C, V, s, diag, b, x0, n, tol, max_iter, main, label):
         tie = (f" (counts differ by one at the threshold: recomputed "
                f"residuals {rr[0] ** 0.5:.6e} / {rr[1] ** 0.5:.6e}, tol |b| "
                f"{tol * bb ** 0.5:.6e})")
-    print(f"[continuity] {label}: K9 / K9u against plain (relative): "
+    print(f"[continuity] {label}: {smi} | K9 / K9u against plain "
+          f"(relative): "
           + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
           + f"; solve: kernels {k_k} iterations, residual {res_k:.6e}, "
           f"bit for bit on a second run; plain {k_p} iterations, residual "
@@ -2961,8 +2963,9 @@ def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
         check(ma < mb and xa < xb, f"{label}: face jumps before (mean {mb}, "
               f"max {xb}) and after (mean {ma}, max {xa})")
 
-    errs, abs_errs, k_plain = check_cg(A, R, C, V, s, diag, b, x0, n, kw["tol"],
-                             kw["max_iter"], main, label)
+    errs, abs_errs, k_plain = check_cg(A, R, C, V, s, diag, b, x0, n,
+                                       kw["tol"], kw["max_iter"], main,
+                                       label, smi)
     reps = 200 if nnz < 5_000_000 else 20
     times = cg_times(A, R, C, V, s, 1.0 / diag, reps)
     check(times["library_rel_err"] <= CONT_RTOL, f"{label}: cuSPARSE's "
@@ -2978,7 +2981,8 @@ def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
            "k9_bound_ms": max(k9_bytes, k9_ops), "k9_ops_bound_ms": k9_ops,
            "k9u_bound_ms": k9u_bytes,
            "cg_ms_per_iteration": split["cg_s"] / max(iters, 1) * 1e3}
-    print(f"[continuity] {label}: {out['nodes']} nodes, {out['leaves']} "
+    print(f"[continuity] {label}: {smi} | {out['nodes']} nodes, "
+          f"{out['leaves']} "
           f"leaves, n {n}, nnz {nnz}, {iters} iterations, residual "
           f"{main[2]:.6e}, host syncs {syncs}, launches {out['launches']}; "
           f"build_octree {build_s:.3f} s (split: {split_text(split)}); "

@@ -424,18 +424,22 @@ class _State(NamedTuple):
         return cls(sc, st, partials)
 
 
-def _check_cuda(name, *tensors):
+def _check_cuda(name, dtype, n, *tensors):
+    """Each tensor a contiguous CUDA tensor of ``dtype`` and n entries."""
     for t in tensors:
-        if t.device.type != "cuda" or t.dtype not in (torch.float64,
-                                                      torch.int32):
-            raise ValueError(f"{name}: needs f64 / i32 CUDA tensors, got "
+        if t.device.type != "cuda" or t.dtype != dtype:
+            raise ValueError(f"{name}: needs {dtype} CUDA tensors, got "
                              f"{t.dtype} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
+        if t.shape != (n,) or not t.is_contiguous():
+            raise ValueError(f"{name}: needs contiguous ({n},) tensors, got "
+                             f"{tuple(t.shape)}")
 
 
 def _matvec_launch(A: Csr, s: float, p, y, state: _State):
-    _check_cuda("cg_matvec", A.rowptr, A.cols, A.vals, p, y)
+    _check_cuda("cg_matvec", torch.int32, A.n + 1, A.rowptr)
+    _check_cuda("cg_matvec", torch.int32, A.vals.shape[0], A.cols)
+    _check_cuda("cg_matvec", torch.float64, A.cols.shape[0], A.vals)
+    _check_cuda("cg_matvec", torch.float64, A.n, p, y)
     lib = _kernels.load()
     _kernels.check(lib, lib.hpsdf_cg_matvec(
         A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(), A.n,
@@ -446,7 +450,8 @@ def _matvec_launch(A: Csr, s: float, p, y, state: _State):
 
 
 def _update_launch(init: bool, Ap, minv, x, r, p, state: _State):
-    _check_cuda("cg_update", Ap, minv, x, r, p)
+    _check_cuda("cg_update", torch.float64, minv.shape[0], Ap, minv, x, r,
+                p)
     lib = _kernels.load()
     _kernels.check(lib, lib.hpsdf_cg_update(
         int(init), minv.shape[0], Ap.data_ptr(), minv.data_ptr(),
