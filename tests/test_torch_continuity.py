@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import chip_smoke
 import hpsdf_tpu as hp
 from hpsdf_tpu import continuity as JC
 from hpsdf_tpu import oracle
@@ -118,6 +119,22 @@ def test_csr_layout(mixed_depth):
     np.testing.assert_array_equal(
         A.rowptr.numpy(), np.searchsorted(R[order], np.arange(n + 1)))
     assert A.rowptr.dtype == A.cols.dtype == torch.int32 and A.n == n
+
+
+def test_k9_bounds_count_what_it_moves(mixed_depth):
+    """chip_smoke.py's bounds for K9: each entry's value and column and the
+    row offsets read once, p read once, y written once; an f64 FMA an entry
+    and two a row. K9u: five vectors read, three written."""
+    n, R, C, V, _ = _system(mixed_depth)
+    A = TC.csr(torch.as_tensor(R), torch.as_tensor(C), torch.as_tensor(V), n)
+    nnz = R.size
+    k9, k9u = chip_smoke.cg_bytes(A)
+    ms = 1e3 / chip_smoke.HBM_RATE
+    assert k9 == pytest.approx((12 * nnz + 4 * (n + 1) + 16 * n) * ms,
+                               rel=1e-12)
+    assert k9u == pytest.approx(64 * n * ms, rel=1e-12)
+    assert chip_smoke.cg_ops(A) == pytest.approx(
+        (2 * nnz + 4 * n) / chip_smoke.F64_PEAK * 1e3, rel=1e-12)
 
 
 def test_plain_update():
