@@ -19,9 +19,10 @@ at full width, the flow of examples/end_to_end.py:
     asks for: build_octree with continuity=True at bench.py:352-360's fit +
     continuity config (sphere r = 0.301, target 1e-6, depth 5, degree 4)
     and at the 260,604-leaf row of bench.py:578-596 (sphere r = 0.3,
-    target 3e-9, depth 7, degree 2), its CG through kernels K9 (the CSR
-    matvec with p.Ap) and K9u (the vector update with r.z and r.r and the
-    new direction; csrc/continuity.cu).
+    target 3e-9, depth 7, degree 2), its CG through kernel K9 (the matvec
+    on the face operator, with p.Ap) and a persistent launch of K9's and
+    K9u's phases (the vector update with r.z and r.r and the new
+    direction), CG_CHUNK iterations a launch (csrc/continuity.cu).
 
 The build's seconds outside F are split (split_again, split_build,
 fit_split: PhaseTimer phases around the port's own build._fit,
@@ -30,14 +31,18 @@ projection, point generation and copies, packing and the host topology, in
 [slice] and [render]'s carve, from a second build run after the first,
 uninstrumented one whose seconds are printed as the build's;
 [mesh] times build_mesh and build_bvh. [continuity] splits the
-post-process into face pairs, assembly, upload, CSR and CG, holds the
-field to |p| - r, the jump energy c.Mc and the sampled face jumps to the
-fit without continuity, K9 and K9u to their plain versions (1e-13 of the
-largest entry) and the kernels' solve to the plain solve on the card (the
-same count and x within 1e-9, or a count one apart with both recomputed
-residuals meeting the stopping rule) and to itself bit for bit, and times
-both kernels in CUDA graphs beside their byte bounds, the plain versions
-and cuSPARSE's CSR matvec.
+post-process into face pairs, the face operator, the cross-depth blocks,
+upload and CG (and checks that no same-depth entry was assembled), holds
+the field to |p| - r, the jump energy c.Mc and the sampled face jumps to
+the fit without continuity, K9 to the plain matvec on the reference's COO
+and to its own plain version, K9u to its plain version (1e-13 of the
+largest entry), the persistent launch with y in a buffer to it with y in
+shared memory bit for bit, and the kernels' solve to the plain solve on
+the COO (the same count and x within 1e-9, or a count one apart with both
+recomputed residuals meeting the stopping rule) and to itself bit for bit,
+and times K9, an iteration of the persistent launch and K9u once in CUDA
+graphs beside their bounds, PR 10's CSR forms, the plain versions and
+cuSPARSE's CSR matvec on the COO's CSR and on the merged one.
 
 Each kernel is also held against its plain torch version on the card and
 timed beside it, K2/K5 and K3 on the slice tree and on the
@@ -400,10 +405,12 @@ FIT_PHASES = (("build", "_fit", "fit"), ("build", "_fit_impl", "projection"),
               ("build", "pack", "pack"))
 CONTINUITY_PHASES = (
     ("continuity", "enforce_continuity", "continuity"),
-    ("continuity", "assemble_face_matrix", "assembly"),
     ("continuity", "leaf_face_pairs", "face pairs"),
-    ("continuity", "_put", "upload"), ("continuity", "csr", "csr"),
-    ("continuity", "_cg_solve", "solve"))
+    ("continuity", "face_operator", "operator"),
+    ("continuity", "_numeric_entries", "numeric"),
+    ("continuity", "_analytic_entries", "analytic"),
+    ("continuity", "assemble_face_matrix", "assembly"),
+    ("continuity", "_put", "upload"), ("continuity", "cg_solve", "solve"))
 
 
 @contextlib.contextmanager
@@ -2766,6 +2773,7 @@ CONT_ROW = dict(target_error=3e-9, continuity=True, continuity_strength=8.0,
 CONT_ROW_RADIUS = 0.3
 CONT_RTOL = 1e-13        # K9's y, K9u's vectors and dots against plain's
 CONT_X_RTOL = 1e-9       # the kernels' solve against the plain solve
+ITER_CHUNK = 32          # iterations a timed persistent launch runs
 N_JUMP = 20000           # points on each plane of the face-jump check
 
 
@@ -2787,42 +2795,90 @@ def face_jumps(tree, planes=(0.0625, -0.125), seed=2):
 
 
 def cg_bytes(A):
-    """K9's byte bound: each entry's value and column and the row offsets
-    read once, p read once and y written once. K9u's: five vectors read
-    (Ap, 1/diag, x, r, p), three written (x, r, p)."""
+    """K9's byte bound in PR 10's CSR form: each entry's value and column and
+    the row offsets read once, p read once and y written once. K9u's: five
+    vectors read (Ap, 1/diag, x, r, p), three written (x, r, p)."""
     n = A.n
     k9 = bytes_ms(A.vals, A.cols, A.rowptr, extra=2 * 8 * n)
     return k9, 8 * 8 * n / HBM_RATE * 1e3
 
 
 def cg_ops(A):
-    """K9's operation bound: an f64 FMA an entry, and two a row (s p_i + the
-    row's sum, and p.y)."""
+    """K9's operation bound in its CSR form: an f64 FMA an entry, and two a
+    row (s p_i + the row's sum, and p.y)."""
     return (2 * A.vals.shape[0] + 4 * A.n) / F64_PEAK * 1e3
 
 
-def cg_times(A, R, C, V, s, minv, reps):
-    """K9 and K9u in CUDA graphs, a K9 + K9u iteration in a graph (the C
-    loop the solve runs, from a state set up by K9u's first form), their
-    plain versions and cuSPARSE's CSR matvec (torch.mv on a sparse CSR
-    tensor; never on the port's path) by CUDA events, on random vectors,
-    with the flag held up (threshold -1)."""
+def face_bytes(op):
+    """K9's byte bound on the face operator: its arrays (the leaves' rows,
+    the face slots, the cross-depth CSR) read once, p read once and y
+    written once. An iteration of the persistent launch: the operator, p,
+    x, r and 1/diag read once, x, r and p written once."""
+    arrays = (op.leaves, op.slots, op.xrowptr, op.xcols, op.xvals)
+    return (bytes_ms(*arrays, extra=2 * 8 * op.n),
+            bytes_ms(*arrays, extra=7 * 8 * op.n))
+
+
+def _mode_terms():
+    """terms[D, D2]: the neighbour's terms a leaf of degree D needs across a
+    face to one of degree D2, sum over its tangential modes t1 + t2 = t <=
+    min(D, D2) ((t + 1) of them) of the D2 - t + 1 neighbour members."""
+    d = np.arange(13)
+    return np.array([[sum((t + 1) * (b - t + 1) for t in range(min(a, b) + 1))
+                      for b in d] for a in d], np.int64)
+
+
+def face_ops(op):
+    """K9's operation bound on the face operator in f64 FMAs (two operations
+    each): for each same-depth face of a leaf of C rows, C for its own
+    face values, the neighbour's terms on its modes (``_mode_terms``) and C
+    for y; an FMA a cross-depth entry; two a row (s p_r and p.y). An
+    iteration adds six a row (x, r, z, r.z, r.r, p). Returns (K9, the
+    iteration) in ms at the f64 peak."""
+    leaves, slots = op.leaves.long().cpu(), op.slots.long().cpu()
+    deg = (leaves[:, 2] & 255).numpy()
+    C = (deg + 1) * (deg + 2) * (deg + 3) // 6
+    has = (slots[:, :, 0] >= 0).numpy()
+    nbr = np.where(has, _mode_terms()[deg[:, None],
+                                      slots[:, :, 1].clamp(min=0).numpy()], 0)
+    fmas = int((has * 2 * C[:, None]).sum() + nbr.sum()) \
+        + op.xvals.shape[0] + 2 * op.n
+    return (2 * fmas / F64_PEAK * 1e3,
+            2 * (fmas + 6 * op.n) / F64_PEAK * 1e3)
+
+
+def cg_times(op, A, R, C, V, s, minv, reps):
+    """In CUDA graphs: K9 on the face operator, PR 10's K9 on the CSR, K9u
+    once, an iteration of the persistent launch (a chunk of ITER_CHUNK
+    iterations, from a state set up by K9u's first form), an iteration of
+    two launches (K9 on the face operator, then K9u) and PR 10's two-launch
+    iteration (K9 on the CSR, then K9u); by CUDA events the plain
+    versions and cuSPARSE's CSR matvec (torch.mv; never on the port's path)
+    on the 62M-entry CSR and on the CSR with duplicates merged; random
+    vectors, the flag held up (threshold -1)."""
     from hpsdf_tpu_torch import _kernels
     from hpsdf_tpu_torch import continuity as TC
-    dev, n = minv.device, A.n
+    dev, n = minv.device, op.n
     g = torch.Generator(device=dev).manual_seed(9)
     p, x, r = (torch.randn(n, generator=g, dtype=torch.float64, device=dev)
                for _ in range(3))
     y = torch.empty_like(p)
     st9 = TC._State.new(dev, -1.0, 2 ** 31 - 1)
-    k9 = graph_ms(lambda: TC._matvec_launch(A, s, p, y, st9), reps)
+    k9 = graph_ms(lambda: TC._matvec_launch(op, s, p, y, st9), reps)
+    k9_csr = graph_ms(lambda: TC._matvec_launch(A, s, p, y, st9), reps)
+    lib_err, library = [], []
     with warnings.catch_warnings():          # torch's sparse CSR is beta
         warnings.simplefilter("ignore")
-        sp = torch.sparse_csr_tensor(A.rowptr, A.cols, A.vals, (n, n))
-        lib_y = torch.mv(sp, p)
-        library = time_ms(lambda: torch.mv(sp, p), reps)
-    lib_err = float((lib_y - (y - s * p)).abs().max()
-                    / (y - s * p).abs().max())
+        merged = torch.sparse_coo_tensor(torch.stack([R, C]), V, (n, n)) \
+            .coalesce().to_sparse_csr()
+        for sp in (torch.sparse_csr_tensor(A.rowptr, A.cols, A.vals, (n, n)),
+                   merged):
+            lib_y = torch.mv(sp, p)
+            library.append(time_ms(lambda: torch.mv(sp, p), reps))
+            lib_err.append(float((lib_y - (y - s * p)).abs().max()
+                                 / (y - s * p).abs().max()))
+    nnz_merged = merged.values().shape[0]
+    del merged
 
     st9u = TC._State.new(dev, -1.0, 2 ** 31 - 1, alpha=1e-3, rz=1.0)
     xu, ru, pu = x.clone(), r.clone(), p.clone()
@@ -2830,12 +2886,26 @@ def cg_times(A, R, C, V, s, minv, reps):
                                              st9u), reps)
 
     lib = _kernels.load()
-    st = TC._State.new(dev, -1.0, 2 ** 31 - 1)
-    xi, ri, pi, yi = x.clone(), r.clone(), torch.empty_like(x), \
-        torch.empty_like(x)
-    TC._update_launch(True, yi, minv, xi, ri, pi, st)
+    plan = TC._chunk_plan(op)
+    states = []
+    for _ in range(3):
+        st = TC._State.new(dev, -1.0, 2 ** 31 - 1)
+        xi, ri, pi, yi = x.clone(), r.clone(), torch.empty_like(x), \
+            torch.empty_like(x)
+        TC._update_launch(True, yi, minv, xi, ri, pi, st)
+        states.append((st, xi, ri, pi, yi))
 
-    def iteration():
+    def chunk():
+        st, xi, ri, pi, yi = states[0]
+        TC._chunk_launch(op, plan, s, minv, xi, ri, pi, yi, st, ITER_CHUNK)
+
+    def two_launch():
+        st, xi, ri, pi, yi = states[1]
+        TC._matvec_launch(op, s, pi, yi, st)
+        TC._update_launch(False, yi, minv, xi, ri, pi, st)
+
+    def two_launch_csr():
+        st, xi, ri, pi, yi = states[2]
         _kernels.check(lib, lib.hpsdf_cg_iterations(
             A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(), n,
             float(s), minv.data_ptr(), xi.data_ptr(),
@@ -2843,47 +2913,85 @@ def cg_times(A, R, C, V, s, minv, reps):
             st.partials.data_ptr(), st.sc.data_ptr(), st.st.data_ptr(), 2,
             _kernels.stream_of(xi)), "cg_iterations")
 
-    it = graph_ms(iteration, max(1, reps // 2)) / 2
-    check(int(st.st[TC._ST["active"]]) == 1 and bool(
-        torch.isfinite(st.sc).all()), f"the timed iterations stayed live: "
-          f"{st.st.tolist()} {st.sc.tolist()}")
-    plain = time_ms(lambda: TC.cg_matvec_plain(R, C, V, s, p),
-                    max(3, reps // 10))
+    it = graph_ms(chunk, max(1, reps // ITER_CHUNK)) / ITER_CHUNK
+    it_two = graph_ms(two_launch, reps)
+    it_csr = graph_ms(two_launch_csr, max(1, reps // 2)) / 2
+    for st, *_ in states:
+        check(int(st.st[TC._ST["active"]]) == 1 and bool(
+            torch.isfinite(st.sc).all()), f"the timed iterations stayed "
+              f"live: {st.st.tolist()} {st.sc.tolist()}")
+    few = max(3, reps // 10)
+    plain = time_ms(lambda: TC.face_matvec_plain(op, s, p), few)
+    plain_coo = time_ms(lambda: TC.cg_matvec_plain(R, C, V, s, p), few)
     plain_u = time_ms(lambda: TC.cg_update_plain(1e-3, 1.0, p, y, minv, x,
-                                                 r), max(3, reps // 10))
-    return {"k9_ms": k9, "k9u_ms": k9u, "iteration_ms": it,
-            "k9_plain_ms": plain, "k9u_plain_ms": plain_u,
-            "k9_library_ms": library, "library_rel_err": lib_err}
+                                                 r), few)
+    return {"k9_ms": k9, "k9_csr_ms": k9_csr, "k9u_ms": k9u,
+            "iteration_ms": it, "iteration_two_launch_ms": it_two,
+            "iteration_csr_ms": it_csr,
+            "k9_plain_ms": plain, "k9_plain_coo_ms": plain_coo,
+            "k9u_plain_ms": plain_u, "iteration_plain_ms": plain + plain_u,
+            "k9_library_ms": library[1], "k9_library_62m_ms": library[0],
+            "library_rel_err": max(lib_err), "nnz_merged": nnz_merged,
+            "chunk_blocks": plan.blocks, "chunk_group_doubles": plan.cap}
 
 
-def check_cg(A, R, C, V, s, diag, b, x0, n, tol, max_iter, main, label,
+def rel_errs(pre, names, got, want):
+    """max|got - want| / max|want| of each pair, and the absolute errors."""
+    errs, abs_errs = {}, {}
+    for name, a, w in zip(names, got, want):
+        abs_errs[f"{pre} {name}"] = float((a - w).abs().max())
+        errs[f"{pre} {name}"] = abs_errs[f"{pre} {name}"] / float(
+            w.abs().max())
+    return errs, abs_errs
+
+
+def check_cg(op, A, R, C, V, s, diag, b, x0, n, tol, max_iter, main, label,
              smi):
-    """K9 and K9u against their plain versions on the same inputs, then the
-    kernels' solve against the plain solve on the card, and against the
-    main path's own solve (``main``: (x, iterations, residual)) bit for
-    bit. Returns the largest errors and the plain solve's count."""
+    """K9 against the COO's plain matvec and its own plain version on the
+    same random p, PR 10's CSR form against the COO's, K9u against its
+    plain version; the persistent launch with y in a buffer against it with
+    y in shared memory, bit for bit; then the kernels' solve against the
+    plain solve on the COO, and against the main path's own solve
+    (``main``: (x, iterations, residual)) bit for bit. Returns the largest
+    errors and the plain solve's count."""
     from hpsdf_tpu_torch import continuity as TC
     dev = b.device
     g = torch.Generator(device=dev).manual_seed(7)
     p, x, r = (torch.randn(n, generator=g, dtype=torch.float64, device=dev)
                for _ in range(3))
     minv = 1.0 / diag
-    got = TC.cg_matvec(A, s, p)
+    got = TC.cg_matvec(op, s, p)
     want = TC.cg_matvec_plain(R, C, V, s, p)
-    got_u = TC.cg_update(0.3, 2.0, p, want[0], minv, x, r)
-    want_u = TC.cg_update_plain(0.3, 2.0, p, want[0], minv, x, r)
     errs, abs_errs = {}, {}
-    for pre, names, gs, ws in (("k9", ("y", "p.y"), got, want),
-                               ("k9u", ("x", "r", "p'", "r.z", "r.r"),
-                                got_u, want_u)):
-        for name, a, w in zip(names, gs, ws):
-            abs_errs[f"{pre} {name}"] = float((a - w).abs().max())
-            errs[f"{pre} {name}"] = abs_errs[f"{pre} {name}"] / float(
-                w.abs().max())
+    for pre, names, gs, ws in (
+            ("k9", ("y (COO)", "p.y (COO)"), got, want),
+            ("k9", ("y (plain)", "p.y (plain)"), got,
+             TC.face_matvec_plain(op, s, p)),
+            ("csr k9", ("y", "p.y"), TC.cg_matvec(A, s, p), want),
+            ("k9u", ("x", "r", "p'", "r.z", "r.r"),
+             TC.cg_update(0.3, 2.0, p, want[0], minv, x, r),
+             TC.cg_update_plain(0.3, 2.0, p, want[0], minv, x, r))):
+        e, a = rel_errs(pre, names, gs, ws)
+        errs.update(e)
+        abs_errs.update(a)
     for k, e in errs.items():
         check(e <= CONT_RTOL, f"{label}: {k} against plain, relative {e}")
 
-    x_k, k_k, res_k = TC._cg_kernels(A, s, diag, b, x0, tol, max_iter)
+    plan = TC._chunk_plan(op)
+    runs = []
+    for cap in (plan.cap, 0):
+        state = TC._State.new(dev, -1.0, 2 ** 31 - 1)
+        xs, rs, ps, ys = x.clone(), r.clone(), torch.empty_like(x), \
+            torch.empty_like(x)
+        TC._update_launch(True, ys, minv, xs, rs, ps, state)
+        TC._chunk_launch(op, plan._replace(cap=cap), s, minv, xs, rs, ps,
+                         ys, state, TC.CG_CHUNK)
+        runs.append((xs, rs, ps, state.sc))
+    check(plan.cap > 0 and all(torch.equal(u, w) for u, w in zip(*runs)),
+          f"{label}: the persistent launch with y in a buffer against y in "
+          f"shared memory ({plan.cap} doubles a group)")
+
+    x_k, k_k, res_k = TC._cg_kernels(op, s, diag, b, x0, tol, max_iter)
     check(bool(torch.equal(x_k, main[0])) and (k_k, res_k) == main[1:],
           f"{label}: the kernels' solve repeats bit for bit ({k_k} / "
           f"{main[1]} iterations, residual {res_k} / {main[2]})")
@@ -2908,11 +3016,14 @@ def check_cg(A, R, C, V, s, diag, b, x0, n, tol, max_iter, main, label,
         tie = (f" (counts differ by one at the threshold: recomputed "
                f"residuals {rr[0] ** 0.5:.6e} / {rr[1] ** 0.5:.6e}, tol |b| "
                f"{tol * bb ** 0.5:.6e})")
-    print(f"[continuity] {label}: {smi} | K9 / K9u against plain "
-          f"(relative): "
+    print(f"[continuity] {label}: {smi} | K9 on the face operator, PR 10's "
+          f"CSR form and K9u against the COO and plain (relative): "
           + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-          + f"; solve: kernels {k_k} iterations, residual {res_k:.6e}, "
-          f"bit for bit on a second run; plain {k_p} iterations, residual "
+          + f"; the persistent launch ({plan.blocks} blocks) with y in a "
+          f"buffer = y in {plan.cap} doubles of shared memory a group, bit "
+          f"for bit over {TC.CG_CHUNK} iterations; solve: "
+          f"kernels {k_k} iterations, residual {res_k:.6e}, bit for bit on a "
+          f"second run; plain on the COO {k_p} iterations, residual "
           f"{res_p:.6e}, max|x - plain| / max|x| {x_err:.3e}{tie}",
           flush=True)
     errs["x"] = x_err
@@ -2921,10 +3032,13 @@ def check_cg(A, R, C, V, s, diag, b, x0, n, tol, max_iter, main, label,
 
 def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
     """build_octree(config with continuity=True) on a sphere at the origin,
-    through the kernels K9 and K9u, its seconds split by phase; then the
-    field against |p| - radius, the face jumps against the fit without
-    continuity, K9/K9u and the solve against their plain versions, and
-    their times beside their bounds and cuSPARSE."""
+    through K9 and the persistent launch on the face operator, its seconds
+    split by phase (no same-depth entry assembled: ``_analytic_entries``
+    must not run); then the field against |p| - radius, the face jumps
+    against the fit without continuity, the kernels and the solve against
+    the plain versions on the COO ``assemble_face_matrix`` builds (outside
+    the timed builds), and their times beside their bounds, PR 10's forms
+    and cuSPARSE."""
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch import continuity as TC
     dev = torch.device("cuda", 0)
@@ -2952,18 +3066,25 @@ def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
     check(torch.equal(again.coeffs, tree.coeffs), f"{label}: the "
           f"instrumented build's coefficients differ from the first's")
     t = timer.times
+    check(timer.counts.get("analytic", 0) == 0 and "assembly" not in t,
+          f"{label}: same-depth entries were assembled on the path "
+          f"({timer.counts})")
     split.update({"face_pairs_s": t["face pairs"],
-                  "assembly_s": t["assembly"] - t["face pairs"],
-                  "upload_s": t["upload"], "csr_s": t["csr"],
-                  "cg_s": t["solve"] - t["csr"]})
-    split["continuity_other_s"] = (t["continuity"] - t["assembly"]
-                                   - t["upload"] - t["solve"])
+                  "operator_s": t["operator"] - t.get("numeric", 0.0),
+                  "numeric_s": t.get("numeric", 0.0),
+                  "upload_s": t["upload"], "cg_s": t["solve"]})
+    split["continuity_other_s"] = (t["continuity"] - t["face pairs"]
+                                   - t["operator"] - t["upload"]
+                                   - t["solve"])
     fitted = calls["continuity"][0][0]
-    (R, C, V, s, diag, b, x0), kw, main = calls["solve"]
-    A = calls["csr"][2]
-    n, nnz, iters = A.n, A.vals.shape[0], main[1]
+    (op, s, diag, b, x0), kw, main = calls["solve"]
+    n, nnz, iters = op.n, op.nnz, main[1]
     check(main[1] < kw["max_iter"], f"{label}: the solve stopped at "
           f"max_iter ({main[1]} iterations, residual {main[2]})")
+    R, C, V = _coo(fitted, dev)
+    check(R.shape[0] == nnz, f"{label}: the operator stands for {nnz} "
+          f"entries, the COO holds {R.shape[0]}")
+    A = TC.csr(R, C, V, n)
 
     pts = torch.as_tensor(np.random.default_rng(8).uniform(
         -0.5, 0.5, (N_QUERY, 3)), device=dev)
@@ -2985,31 +3106,37 @@ def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
         check(ma < mb and xa < xb, f"{label}: face jumps before (mean {mb}, "
               f"max {xb}) and after (mean {ma}, max {xa})")
 
-    errs, abs_errs, k_plain = check_cg(A, R, C, V, s, diag, b, x0, n,
+    errs, abs_errs, k_plain = check_cg(op, A, R, C, V, s, diag, b, x0, n,
                                        kw["tol"], kw["max_iter"], main,
                                        label, smi)
     reps = 200 if nnz < 5_000_000 else 20
-    times = cg_times(A, R, C, V, s, 1.0 / diag, reps)
+    times = cg_times(op, A, R, C, V, s, 1.0 / diag, reps)
     check(times["library_rel_err"] <= CONT_RTOL, f"{label}: cuSPARSE's "
           f"product against K9's, relative {times['library_rel_err']}")
-    k9_bytes, k9u_bytes = cg_bytes(A)
-    k9_ops = cg_ops(A)
+    k9_bytes, it_bytes = face_bytes(op)
+    k9_ops, it_ops = face_ops(op)
+    csr_bytes, k9u_bytes = cg_bytes(A)
     out = {"leaves": tree.num_leaves(), "nodes": tree.n_nodes, "n": n,
            "nnz": nnz, "iterations": iters, "plain_iterations": k_plain,
            "residual": main[2], "host_syncs": syncs,
            "launches": {k: launches[k] for k in ("cg_matvec", "cg_update")},
            "build_s": build_s, "split": split, "field_err": field_err,
-           "jump_energy": energy, "jumps": jumps, "errs": errs, "abs_errs": abs_errs, **times,
+           "jump_energy": energy, "jumps": jumps, "errs": errs,
+           "abs_errs": abs_errs, **times,
            "k9_bound_ms": max(k9_bytes, k9_ops), "k9_ops_bound_ms": k9_ops,
            "k9_bound_by": "bytes" if k9_bytes >= k9_ops else "operations",
-           "k9u_bound_by": "bytes",
-           "k9u_bound_ms": k9u_bytes,
+           "k9_csr_bound_ms": max(csr_bytes, cg_ops(A)),
+           "k9u_bound_ms": max(it_bytes, it_ops), "k9u_ops_bound_ms": it_ops,
+           "k9u_bound_by": "bytes" if it_bytes >= it_ops else "operations",
+           "k9u_launch_bound_ms": k9u_bytes,
            "cg_ms_per_iteration": split["cg_s"] / max(iters, 1) * 1e3}
     print(f"[continuity] {label}: {smi} | {out['nodes']} nodes, "
           f"{out['leaves']} "
-          f"leaves, n {n}, nnz {nnz}, {iters} iterations, residual "
+          f"leaves, n {n}, nnz {nnz} (merged {times['nnz_merged']}), "
+          f"{iters} iterations, residual "
           f"{main[2]:.6e}, host syncs {syncs}, launches {out['launches']}; "
-          f"build_octree {build_s:.3f} s (split: {split_text(split)}); "
+          f"build_octree {build_s:.3f} s (split: {split_text(split)}; "
+          f"analytic assembly 0 calls); "
           f"max|f - (|p| - {radius})| {field_err:.3e}; jump energy c.Mc "
           f"{energy[0]:.6e} -> {energy[1]:.6e}; face jumps (mean, "
           f"max) x = 0.0625: {jumps[0][0]:.3e}, {jumps[0][1]:.3e} -> "
@@ -3017,23 +3144,43 @@ def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
           f"{jumps[1][0]:.3e}, {jumps[1][1]:.3e} -> {jumps[1][2]:.3e}, "
           f"{jumps[1][3]:.3e}", flush=True)
     print(f"[continuity] {label}: {smi} | in CUDA graphs: K9 "
-          f"{times['k9_ms']:.4f} ms (bound {out['k9_bound_ms']:.4f} ms, "
+          f"{times['k9_ms']:.4f} ms (bound {out['k9_bound_ms']:.5f} ms, "
           f"{out['k9_bound_by']}; {out['k9_bound_ms'] / times['k9_ms']:.1%}"
-          f"), K9u "
-          f"{times['k9u_ms']:.4f} ms (bound {k9u_bytes:.4f} ms, bytes; "
-          f"{k9u_bytes / times['k9u_ms']:.1%}), an iteration (K9 + K9u) "
-          f"{times['iteration_ms']:.4f} ms | the solve's CG "
+          f"; f64 operations {k9_ops:.5f}), PR 10's CSR K9 "
+          f"{times['k9_csr_ms']:.4f} ms (bound "
+          f"{out['k9_csr_bound_ms']:.5f}); an iteration of the persistent "
+          f"launch ({times['chunk_blocks']} blocks, y in "
+          f"{times['chunk_group_doubles']} doubles of shared memory a group) "
+          f"{times['iteration_ms']:.4f} ms (bound {out['k9u_bound_ms']:.5f} "
+          f"ms, {out['k9u_bound_by']}; "
+          f"{out['k9u_bound_ms'] / times['iteration_ms']:.1%}), K9 + K9u "
+          f"as two launches {times['iteration_two_launch_ms']:.4f} ms, PR "
+          f"10's two-launch iteration {times['iteration_csr_ms']:.4f} ms; "
+          f"K9u "
+          f"once {times['k9u_ms']:.4f} ms (bound {k9u_bytes:.5f} ms, bytes; "
+          f"{k9u_bytes / times['k9u_ms']:.1%}) | the solve's CG "
           f"{out['cg_ms_per_iteration']:.4f} ms an iteration, host "
-          f"included | plain {times['k9_plain_ms']:.4f} / "
+          f"included | plain: K9 {times['k9_plain_ms']:.4f}, on the COO "
+          f"{times['k9_plain_coo_ms']:.4f}, K9u "
           f"{times['k9u_plain_ms']:.4f} ms | cuSPARSE CSR matvec (torch.mv) "
-          f"{times['k9_library_ms']:.4f} ms", flush=True)
+          f"{times['k9_library_62m_ms']:.4f} ms on the {nnz}-entry CSR, "
+          f"{times['k9_library_ms']:.4f} ms merged", flush=True)
     return launches, out
+
+
+def _coo(tree, dev):
+    """The COO of M as ``hpsdf_tpu`` builds it (``assemble_face_matrix``),
+    on the card: the reference the face operator is held to."""
+    from hpsdf_tpu_torch import continuity as TC
+    _, R, C, V = TC.assemble_face_matrix(tree)
+    return tuple(torch.as_tensor(a, device=dev) for a in (R, C, V))
 
 
 PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
                  "cone_kernel", "packed_grad_kernel", "coeff_scatter_kernel",
                  "row_scatter_kernel", "row_scatter_csr_kernel",
-                 "cg_matvec_kernel", "cg_update_kernel")
+                 "cg_matvec_kernel", "cg_update_kernel", "face_matvec_kernel",
+                 "cg_chunk_kernel")
 
 
 def _ptxas_key(kernel, args):
@@ -3043,6 +3190,8 @@ def _ptxas_key(kernel, args):
         return "-"
     if kernel == "cg_update_kernel":
         return "init" if args[0] else "iteration"
+    if kernel == "cg_chunk_kernel":
+        return "shared" if args[0] else "buffer"
     if kernel == "coeff_scatter_kernel":
         return f"{args[1]}/{'f32 trace' if args[2] else 'f64 query'}"
     if kernel == "query_kernel":
@@ -3094,8 +3243,10 @@ def ptxas_check():
                                             "5/f64 query", "5/f32 trace")),
             ("G backward", "row_scatter_kernel", ("-",)),
             ("G backward CSR", "row_scatter_csr_kernel", ("-",)),
-            ("K9", "cg_matvec_kernel", ("-",)),
-            ("K9u", "cg_update_kernel", ("init", "iteration"))):
+            ("K9", "face_matvec_kernel", ("-",)),
+            ("K9 CSR", "cg_matvec_kernel", ("-",)),
+            ("K9u", "cg_update_kernel", ("init", "iteration")),
+            ("K9 + K9u persistent", "cg_chunk_kernel", ("shared", "buffer"))):
         got = found.get(kernel, {})
         for key in keys:
             check(key in got, f"ptxas report for {name} {key}")
@@ -3385,21 +3536,31 @@ def main():
            "replaces": replaces, "launches": total[name],
            "max_abs_err": max(v for c in (tca, tcb)
                               for k, v in c["abs_errs"].items()
-                              if k.startswith(pre + " ")),
+                              if k.split(" ")[0] == pre),
            "max_rel_err": max(v for c in (tca, tcb)
                               for k, v in c["errs"].items()
-                              if k.startswith(pre + " ")),
-           "ms": tcb[f"{pre}_ms"], "plain_ms": tcb[f"{pre}_plain_ms"],
+                              if k.split(" ")[0] == pre),
+           "ms": tcb[ms], "plain_ms": tcb[plain],
            "bound_ms": tcb[f"{pre}_bound_ms"],
            "bound_by": tcb[f"{pre}_bound_by"],
            "library_ms": tcb["k9_library_ms"] if pre == "k9" else None,
-           "fit_continuity": {k: tca[f"{pre}_{k}"]
-                              for k in ("ms", "plain_ms", "bound_ms")},
-           "iteration_ms": tcb["iteration_ms"],
-           "ptxas": ptxas.get(f"{name}_kernel", {})}
-          for name, pre, replaces in (
-              ("cg_matvec", "k9", "hpsdf_tpu/continuity.py:401-405,422"),
-              ("cg_update", "k9u", "hpsdf_tpu/continuity.py:423-428"))),
+           "fit_continuity": {"ms": tca[ms], "plain_ms": tca[plain],
+                              "bound_ms": tca[f"{pre}_bound_ms"],
+                              **{k: tca[k] for k in extra}},
+           **{k: tcb[k] for k in extra},
+           "ptxas": {k: ptxas.get(k, {}) for k in kernels_of}}
+          for name, pre, replaces, ms, plain, extra, kernels_of in (
+              ("cg_matvec", "k9", "hpsdf_tpu/continuity.py:401-405,422",
+               "k9_ms", "k9_plain_ms",
+               ("k9_csr_ms", "k9_csr_bound_ms", "k9_library_62m_ms",
+                "k9_plain_coo_ms", "nnz_merged"),
+               ("face_matvec_kernel", "cg_matvec_kernel")),
+              ("cg_update", "k9u", "hpsdf_tpu/continuity.py:423-428",
+               "iteration_ms", "iteration_plain_ms",
+               ("iteration_csr_ms", "iteration_two_launch_ms", "k9u_ms",
+                "k9u_launch_bound_ms",
+                "k9u_plain_ms", "chunk_blocks", "chunk_group_doubles"),
+               ("cg_chunk_kernel", "cg_update_kernel")))),
     ]
     print(f"[e2e] {smi} | carve {tr['carve_s']:.3f} s, render 512^2 "
           f"{tr['render_s']:.3f} s, hit fraction {frac:.4f} | 1024^2 march: "

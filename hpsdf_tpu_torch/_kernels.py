@@ -66,12 +66,17 @@ _SIGNATURES = {
     "hpsdf_cg_update": (_I32, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "hpsdf_cg_iterations": (_P, _P, _P, _I64, _F64, _P, _P, _P, _P, _P, _P,
                             _P, _P, _I32, _P),
+    "hpsdf_face_matvec": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I64, _F64,
+                          _P, _P, _P, _P, _P, _P),
+    "hpsdf_cg_chunk": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I64, _I32,
+                       _I32, _F64, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _P),
 }
 # entry points that return a size in bytes (int64_t), not an error code
 _SIZE_SIGNATURES = {
     "hpsdf_row_scatter_scratch": (_I64, _I64),
     "hpsdf_packed_grad_scratch": (_I64, _I32, _I32, _I32),
     "hpsdf_cg_scratch": (),
+    "hpsdf_cg_chunk_blocks": (_I64,),
 }
 # and of the reference kernels under csrc/check/, which only checks load
 _CHECK_SIGNATURES = {

@@ -5,19 +5,24 @@ where M is the Gram matrix of inter-cell value jumps across shared leaf
 faces -- the reference's PerformContinuityPostProcess
 (Source/HP/Octree.cpp:1663-1762).
 
-  * Host assembly, numpy, copied from ``hpsdf_tpu.continuity``
-    (``leaf_face_pairs`` ... ``assemble_face_matrix``): the same COO
-    (rows, cols, vals), entry for entry.
+  * Host, numpy, copied from ``hpsdf_tpu.continuity``: the face pairs
+    (``leaf_face_pairs``) and the cross-depth blocks (``_numeric_entries``).
+    The same-depth blocks are never assembled on the solve's path: each of
+    their entries is sign * n_i * n_j over a tangential-match pattern, so
+    ``face_operator`` lists each leaf's same-depth neighbours instead, with
+    the cross-depth entries merged into a small CSR and the Jacobi diagonal.
+    ``assemble_face_matrix`` still builds the reference's COO, entry for
+    entry: the tests and ``chip_smoke.py`` hold the operator to it.
   * The Jacobi-preconditioned CG in f64 on the tree's device, with the
-    reference's recurrences and stopping rule (``_cg_solve``). On a CUDA
-    device the COO is sorted by row once (``csr``) and every iteration is
-    two hand-written kernels (``csrc/continuity.cu``): K9 (``cg_matvec``,
-    the matvec and p.Ap) and K9u (``cg_update``, the vector update with r.z
-    and r.r, and the new search direction in the same launch); the
-    iteration's scalars and the stopping test stay on the card, and the
-    host reads them once every ``CG_CHUNK`` iterations. On the CPU the
-    plain torch versions (``cg_matvec_plain``, ``cg_update_plain``) run on
-    the COO, as the reference computes it.
+    reference's recurrences and stopping rule (``cg_solve``). On a CUDA
+    device (``csrc/continuity.cu``) a K9 launch (``cg_matvec``: y = M p +
+    s p and p.y, the entries formed from the norm table) and a K9u launch
+    (``cg_update``) start it, then each chunk of ``CG_CHUNK`` iterations is
+    one persistent cooperative launch running both as phases between grid
+    barriers (``_chunk_launch``); the iteration's scalars and the stopping
+    test stay on the card, and the host reads them once a chunk. On the CPU
+    the plain torch versions (``face_matvec_plain``, ``cg_update_plain``)
+    run.
 
 The H100 has an f64 datapath, so the TPU's mixed-precision CG
 (``_cg_solve_mixed``, its segmented restarts, ``COO_CHUNK``) is not
@@ -349,6 +354,194 @@ def assemble_face_matrix(tree: Octree):
 
 
 # --------------------------------------------------------------------------
+# The face operator: M without its same-depth entries
+# --------------------------------------------------------------------------
+
+class FaceOperator(NamedTuple):
+    """M + sI as K9 reads it, without a same-depth matrix entry.
+
+    Every same-depth entry is sign * n_i * n_j over a tangential-match
+    pattern, n_p = ``basis.norm_table()[p, depth]`` (``_analytic_entries``),
+    so a leaf needs only its same-depth neighbours:
+
+      * ``leaves`` (L, 4) i32, a row per leaf in node order: its row block
+        [start, end), ``degree | depth << 8``, and the offset of its rows
+        in the cross-depth CSR (-1 where it has none);
+      * ``slots`` (L, 6, 2) i32: for face 2d + side of a leaf (side 0: the
+        neighbour lies on its + side along d, the leaf is the pair's A;
+        side 1: on its - side), the same-depth neighbour's row start and
+        degree, or -1;
+      * the cross-depth blocks (``_numeric_entries``, EPSILON_F32-pruned)
+        with duplicate (row, col) entries summed, as a CSR over the rows of
+        the leaves that have any: ``xrowptr``, ``xcols`` (i32), ``xvals``
+        (f64).
+
+    ``n`` rows; ``nnz`` the entries of the COO it stands for, as
+    ``assemble_face_matrix`` counts them; ``widest`` the widest row block;
+    ``host_starts`` the leaves' row starts and n, host numpy, from which
+    the persistent launch sizes its groups' shared memory."""
+    leaves: object
+    slots: object
+    xrowptr: object
+    xcols: object
+    xvals: object
+    n: int
+    nnz: int
+    widest: int
+    host_starts: np.ndarray
+
+    @property
+    def group(self) -> int:
+        """The lanes K9 gives a leaf, a lane a row: the widest block's rows,
+        at most a warp's 32 (a lane then loops over the rows)."""
+        return min(32, self.widest)
+
+    def to(self, device) -> "FaceOperator":
+        """The operator's arrays on ``device`` (``_put``)."""
+        return self._replace(**dict(zip(self._fields[:5],
+                                        _put(device, *self[:5]))))
+
+
+def face_operator(st: _LeafView, a, b, d, s: float):
+    """The face operator of the pairs (a, b, d) (``leaf_face_pairs``), host
+    numpy, and the Jacobi diagonal of M + sI: s, plus n_{i_d}^2 for every
+    same-depth face of row i's leaf (AA and BB both give it), plus the
+    cross-depth diagonal entries. Only the cross-depth pairs are assembled
+    (``_numeric_entries``); no same-depth entry is."""
+    n = st.n_coeffs
+    if n >= 2 ** 31:
+        raise ValueError(f"face_operator: {n} rows exceed 32-bit indices")
+    leaf_ids = np.flatnonzero(st.degree[: st.n] >= 0)
+    L = leaf_ids.size
+    pos = np.full(st.child_idx.shape[0], -1, np.int64)
+    pos[leaf_ids] = np.arange(L)
+    start = st.coeff_start[leaf_ids]
+    width = st.widths[leaf_ids]
+    deg = st.degree[leaf_ids].astype(np.int64)
+    dep = st.depth[leaf_ids].astype(np.int64)
+
+    same = st.depth[a] == st.depth[b]
+    sa, sb, sd = a[same], b[same], d[same]
+    slots = np.full((L, 6, 2), -1, np.int32)
+    for own, nbr, side in ((sa, sb, 0), (sb, sa, 1)):
+        li, sl = pos[own], 2 * sd.astype(np.int64) + side
+        if np.unique(li * 6 + sl).size != li.size:
+            raise AssertionError("face_operator: two same-depth neighbours "
+                                 "across one face")
+        slots[li, sl, 0] = st.coeff_start[nbr]
+        slots[li, sl, 1] = st.degree[nbr]
+    nnz = 0
+    for da, db, dim, m in _groups(st, sa, sb, sd):
+        nnz += int(m.sum()) * sum(
+            _tangential_match(i, j, dim)[0].size * k
+            for i, j, k in ((da, da, 1), (da, db, 2), (db, db, 1)))
+
+    rows: list = []
+    cols: list = []
+    vals: list = []
+    if (~same).any():
+        _numeric_entries(st, a[~same], b[~same], d[~same], rows, cols, vals)
+    R = np.concatenate(rows) if rows else np.zeros(0, np.int64)
+    C = np.concatenate(cols) if cols else np.zeros(0, np.int64)
+    V = np.concatenate(vals) if vals else np.zeros(0, np.float64)
+    nnz += R.size
+    # sorted by (row, col), duplicates summed in COO order
+    order = np.argsort(R * n + C, kind="stable")
+    key = (R * n + C)[order]
+    first = np.flatnonzero(np.r_[True, key[1:] != key[:-1]]) if key.size \
+        else np.zeros(0, np.int64)
+    xvals = np.add.reduceat(V[order], first) if key.size else V
+    mr, mc = key[first] // n, key[first] % n
+    if xvals.size >= 2 ** 31:
+        raise ValueError(f"face_operator: {xvals.size} cross-depth entries "
+                         "exceed 32-bit indices")
+    # a CSR over the rows of the leaves with cross-depth entries
+    leaf_of = np.searchsorted(start, mr, side="right") - 1
+    xleaf = np.unique(leaf_of)
+    xoff = np.full(L, -1, np.int64)
+    xoff[xleaf] = np.cumsum(width[xleaf]) - width[xleaf]
+    xrows = int(width[xleaf].sum())
+    xrowptr = np.zeros(xrows + 1, np.int64)
+    np.cumsum(np.bincount(xoff[leaf_of] + mr - start[leaf_of],
+                          minlength=xrows), out=xrowptr[1:])
+
+    diag = np.full(n, s, np.float64)
+    nt = basis.norm_table()
+    for D in np.unique(deg):
+        li = np.flatnonzero(deg == D)
+        e = basis.basis_indices(int(D))
+        r = start[li][:, None] + np.arange(e.shape[0])
+        for slot in range(6):
+            nk = nt[e[:, slot // 2][None, :], dep[li][:, None]]
+            diag[r] += np.where(slots[li, slot, 0][:, None] >= 0, nk * nk,
+                                0.0)
+    on = mr == mc
+    diag[mr[on]] += xvals[on]
+
+    leaves = np.stack([start, start + width, deg | dep << 8, xoff],
+                      1).astype(np.int32)
+    return FaceOperator(
+        leaves, slots, xrowptr.astype(np.int32), mc.astype(np.int32), xvals,
+        n=n, nnz=nnz, widest=int(max(1, width.max(initial=1))),
+        host_starts=np.append(start, n)), diag
+
+
+def face_matvec_plain(op: FaceOperator, s: float, p: torch.Tensor):
+    """K9's function on the face operator, whatever the device: y = M p +
+    s p and p.y. For each face 2d + side and pair of degrees, the jump
+    across the face is J = v_own - v_nbr on every tangential mode (t1, t2),
+    v = sum over the normal exponent k of L_k(face) n_k p_k (gathers and an
+    ``index_add_`` over the modes), and row k of the leaf takes L_k(face)
+    n_k J (``index_add_``); the cross-depth CSR adds its entries. J^T J is
+    the AA, AB, BA and BB blocks of ``_analytic_entries``."""
+    dev = p.device
+    leaves = op.leaves.long()
+    start, meta = leaves[:, 0], leaves[:, 2]
+    deg, dep = meta & 255, meta >> 8
+    slots = op.slots.long()
+    nt = torch.as_tensor(basis.norm_table(), device=dev)
+    y = s * p
+    for D in torch.unique(deg).tolist():
+        own = torch.nonzero(deg == D).flatten()
+        for slot in range(6):
+            dim, low = slot // 2, slot % 2 == 0
+            nb = slots[own, slot]
+            for D2 in torch.unique(nb[nb[:, 0] >= 0, 1]).tolist():
+                m = own[(nb[:, 0] >= 0) & (nb[:, 1] == D2)]
+                rows, w, mode = _face_side(start[m], dep[m], D, dim, low, nt)
+                rows2, w2, mode2 = _face_side(slots[m, slot, 0], dep[m], D2,
+                                              dim, not low, nt)
+                v = torch.zeros(m.shape[0], 13 * 13, dtype=p.dtype,
+                                device=dev)
+                v.index_add_(1, mode, w * p[rows])
+                v.index_add_(1, mode2, -(w2 * p[rows2]))
+                y.index_add_(0, rows.flatten(), (w * v[:, mode]).flatten())
+    if op.xvals.shape[0]:
+        xl = torch.nonzero(leaves[:, 3] >= 0).flatten()
+        width = leaves[xl, 1] - leaves[xl, 0]
+        xrow_of = (torch.repeat_interleave(leaves[xl, 0] - leaves[xl, 3],
+                                           width)
+                   + torch.arange(int(width.sum()), device=dev))
+        r = torch.repeat_interleave(xrow_of, op.xrowptr.long().diff())
+        y.index_add_(0, r, op.xvals * p[op.xcols.long()])
+    return y, torch.dot(p, y)
+
+
+def _face_side(start, dep, D: int, dim: int, low: bool, nt):
+    """One side of a face for ``face_matvec_plain``: its leaves' rows (E,
+    C), the weights L_k(face) n_k of each row (the side's face is at +1 in
+    its frame if it is the low side, else at -1, where L_k = (-1)^k), and
+    the tangential mode of each row."""
+    e = torch.as_tensor(basis.basis_indices(D), device=start.device).long()
+    k = e[:, dim]
+    sign = torch.ones_like(k) if low else 1 - 2 * (k % 2)
+    mode = e[:, (dim + 1) % 3] * 13 + e[:, (dim + 2) % 3]
+    w = sign * nt[k[None, :], dep[:, None]]
+    return start[:, None] + torch.arange(e.shape[0], device=start.device), \
+        w, mode
+
+
+# --------------------------------------------------------------------------
 # The CG iteration: K9 and K9u, and their plain versions
 # --------------------------------------------------------------------------
 
@@ -402,6 +595,9 @@ def cg_update_plain(alpha, rz, p: torch.Tensor, Ap: torch.Tensor,
 _SC = dict(rz=0, alpha=1, beta=2, rr=3, thresh=4, pap=5)
 # and its integers (kK ... kCount): iterations, max_iter, flag, block count
 _ST = dict(k=0, max_iter=1, active=2, count=3)
+# threads a block of K9 and of the persistent launch (csrc/continuity.cu
+# kThreads)
+_BLOCK_THREADS = 256
 
 
 class _State(NamedTuple):
@@ -430,22 +626,46 @@ def _check_cuda(name, dtype, n, *tensors):
         if t.device.type != "cuda" or t.dtype != dtype:
             raise ValueError(f"{name}: needs {dtype} CUDA tensors, got "
                              f"{t.dtype} on {t.device}")
-        if t.shape != (n,) or not t.is_contiguous():
-            raise ValueError(f"{name}: needs contiguous ({n},) tensors, got "
-                             f"{tuple(t.shape)}")
+        if t.shape[0] != n or not t.is_contiguous():
+            raise ValueError(f"{name}: needs contiguous ({n}, ...) tensors, "
+                             f"got {tuple(t.shape)}")
 
 
-def _matvec_launch(A: Csr, s: float, p, y, state: _State):
-    _check_cuda("cg_matvec", torch.int32, A.n + 1, A.rowptr)
-    _check_cuda("cg_matvec", torch.int32, A.vals.shape[0], A.cols)
-    _check_cuda("cg_matvec", torch.float64, A.cols.shape[0], A.vals)
-    _check_cuda("cg_matvec", torch.float64, A.n, p, y)
+def _face_args(name, op: FaceOperator):
+    """The face operator's pointers and sizes as the C side takes them,
+    after checking its tensors."""
+    L = op.leaves.shape[0]
+    _check_cuda(name, torch.int32, L, op.leaves, op.slots)
+    _check_cuda(name, torch.int32, op.xrowptr.shape[0], op.xrowptr)
+    _check_cuda(name, torch.int32, op.xvals.shape[0], op.xcols)
+    _check_cuda(name, torch.float64, op.xcols.shape[0], op.xvals)
+    if op.leaves.shape[1:] != (4,) or op.slots.shape[1:] != (6, 2):
+        raise ValueError(f"{name}: leaves (L, 4) and slots (L, 6, 2), got "
+                         f"{tuple(op.leaves.shape)}, {tuple(op.slots.shape)}")
+    return (op.leaves.data_ptr(), op.slots.data_ptr(), op.xrowptr.data_ptr(),
+            op.xcols.data_ptr(), op.xvals.data_ptr(), L, op.group,
+            op.widest)
+
+
+def _matvec_launch(A, s: float, p, y, state: _State):
+    """K9 once on the face operator, or in its CSR form of PR 10 on a
+    ``Csr``."""
     lib = _kernels.load()
-    _kernels.check(lib, lib.hpsdf_cg_matvec(
-        A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(), A.n,
-        float(s), p.data_ptr(), y.data_ptr(), state.partials.data_ptr(),
-        state.sc.data_ptr(), state.st.data_ptr(), _kernels.stream_of(p)),
-        "cg_matvec")
+    _check_cuda("cg_matvec", torch.float64, A.n, p, y)
+    if isinstance(A, Csr):
+        _check_cuda("cg_matvec", torch.int32, A.n + 1, A.rowptr)
+        _check_cuda("cg_matvec", torch.int32, A.vals.shape[0], A.cols)
+        _check_cuda("cg_matvec", torch.float64, A.cols.shape[0], A.vals)
+        rc = lib.hpsdf_cg_matvec(
+            A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(), A.n,
+            float(s), p.data_ptr(), y.data_ptr(), state.partials.data_ptr(),
+            state.sc.data_ptr(), state.st.data_ptr(), _kernels.stream_of(p))
+    else:
+        rc = lib.hpsdf_face_matvec(
+            *_face_args("cg_matvec", A), A.n, float(s), p.data_ptr(),
+            y.data_ptr(), state.partials.data_ptr(), state.sc.data_ptr(),
+            state.st.data_ptr(), _kernels.stream_of(p))
+    _kernels.check(lib, rc, "cg_matvec")
     cg_matvec.launches += 1
 
 
@@ -461,11 +681,65 @@ def _update_launch(init: bool, Ap, minv, x, r, p, state: _State):
     cg_update.launches += 1
 
 
-def cg_matvec(A: Csr, s: float, p: torch.Tensor):
-    """K9 once: (y, p.y) with y = M p + s p, as ``cg_matvec_plain``. Kernel
-    K9 on CUDA tensors (p.y as a 0-d tensor on the card); the plain version
-    on the COO on CPU tensors."""
+class _Plan(NamedTuple):
+    """The persistent launch's blocks and the doubles of shared memory each
+    group of lanes keeps y of its leaves' rows in (0: y in a buffer of n on
+    the card)."""
+    blocks: int
+    cap: int
+
+
+def _chunk_plan(op: FaceOperator) -> _Plan:
+    """As many blocks as stay resident together, no more than give each
+    group of lanes a leaf. Group g of the launch's T owns leaves g, g + T,
+    ...; y of their rows stays in shared memory where the card holds every
+    block's at once (``hpsdf_cg_chunk_blocks``: the blocks that stay
+    resident with that much shared memory, 0 if a block cannot have it)."""
+    lib = _kernels.load()
+    width = np.diff(op.host_starts)
+    L = width.size
+    per_block = _BLOCK_THREADS // 32 * (32 // op.group)
+
+    def cap(blocks):
+        T = blocks * per_block
+        return int(np.bincount(np.arange(L) % T, weights=width,
+                               minlength=T).max())
+
+    most = max(1, min(lib.hpsdf_cg_chunk_blocks(0), -(-L // per_block)))
+    blocks = most
+    while True:
+        fit = lib.hpsdf_cg_chunk_blocks(per_block * cap(blocks) * 8)
+        if fit >= blocks:
+            return _Plan(blocks, cap(blocks))
+        if fit == 0:            # y through a buffer on the card
+            return _Plan(most, 0)
+        blocks = fit
+
+
+def _chunk_launch(op: FaceOperator, plan: _Plan, s: float, minv, x, r, p, y,
+                  state: _State, iters: int):
+    """``iters`` iterations in one persistent cooperative launch: K9's
+    matvec and K9u's update as phases between grid barriers. The launch runs
+    both kernels' work and counts once for each."""
+    _check_cuda("cg_chunk", torch.float64, op.n, minv, x, r, p, y)
+    lib = _kernels.load()
+    _kernels.check(lib, lib.hpsdf_cg_chunk(
+        *_face_args("cg_chunk", op), op.n, plan.blocks, plan.cap, float(s),
+        minv.data_ptr(), x.data_ptr(), r.data_ptr(), p.data_ptr(),
+        y.data_ptr(), state.partials.data_ptr(), state.sc.data_ptr(),
+        state.st.data_ptr(), iters, _kernels.stream_of(minv)), "cg_chunk")
+    cg_matvec.launches += 1
+    cg_update.launches += 1
+
+
+def cg_matvec(A, s: float, p: torch.Tensor):
+    """K9 once: (y, p.y) with y = M p + s p, M a ``FaceOperator`` (or PR
+    10's ``Csr`` form). Kernel K9 on CUDA tensors (p.y as a 0-d tensor on
+    the card); on CPU tensors the plain version, ``face_matvec_plain`` or
+    ``cg_matvec_plain`` on the COO."""
     if p.device.type == "cpu":
+        if not isinstance(A, Csr):
+            return face_matvec_plain(A, s, p)
         rows = torch.repeat_interleave(torch.arange(A.n),
                                        A.rowptr.diff().long())
         return cg_matvec_plain(rows, A.cols.long(), A.vals, s, p)
@@ -492,15 +766,18 @@ def cg_update(alpha, rz, p: torch.Tensor, Ap: torch.Tensor,
 cg_matvec.launches = 0
 cg_update.launches = 0
 
-# iterations the host enqueues between two reads of the kernels' flag
+# iterations between two reads of the kernels' flag
 CG_CHUNK = 32
 
 
-def _cg_kernels(A: Csr, s: float, diag, b, x0, tol: float, max_iter: int):
+def _cg_kernels(A, s: float, diag, b, x0, tol: float, max_iter: int):
     """The CG on the card: (x, iterations, residual) as ``_cg_solve``.
-    Enqueues CG_CHUNK iterations (a K9 and a K9u launch each; no-ops once
-    the flag is down), then reads the flag of the chunk before while the
-    card runs this one: one host sync a chunk, and one for the result."""
+    After a K9 and a K9u launch that start it, CG_CHUNK iterations go out
+    at a time: on a ``FaceOperator`` one persistent launch
+    (``_chunk_launch``), on PR 10's ``Csr`` a K9 and a K9u launch each. Any
+    of them returns at once when the flag is down. The host reads the flag
+    of the chunk before while the card runs this one: one host sync a chunk,
+    and one for the result."""
     n = A.n
     state = _State.new(b.device, 0.0, max_iter)
     state.sc[_SC["thresh"]] = tol * tol * torch.dot(b, b)
@@ -514,16 +791,20 @@ def _cg_kernels(A: Csr, s: float, diag, b, x0, tol: float, max_iter: int):
     events = [torch.cuda.Event(), torch.cuda.Event()]
     lib = _kernels.load()
     stream = _kernels.stream_of(b)
+    plan = None if isinstance(A, Csr) else _chunk_plan(A)
     j = 0
     while True:
-        _kernels.check(lib, lib.hpsdf_cg_iterations(
-            A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(), n,
-            float(s), minv.data_ptr(), x.data_ptr(),
-            r.data_ptr(), p.data_ptr(), y.data_ptr(),
-            state.partials.data_ptr(), state.sc.data_ptr(),
-            state.st.data_ptr(), CG_CHUNK, stream), "cg_iterations")
-        cg_matvec.launches += CG_CHUNK
-        cg_update.launches += CG_CHUNK
+        if plan is not None:
+            _chunk_launch(A, plan, s, minv, x, r, p, y, state, CG_CHUNK)
+        else:
+            _kernels.check(lib, lib.hpsdf_cg_iterations(
+                A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(), n,
+                float(s), minv.data_ptr(), x.data_ptr(),
+                r.data_ptr(), p.data_ptr(), y.data_ptr(),
+                state.partials.data_ptr(), state.sc.data_ptr(),
+                state.st.data_ptr(), CG_CHUNK, stream), "cg_iterations")
+            cg_matvec.launches += CG_CHUNK
+            cg_update.launches += CG_CHUNK
         flags[j % 2].copy_(state.st, non_blocking=True)
         events[j % 2].record()
         if j:
@@ -541,22 +822,29 @@ def _cg_kernels(A: Csr, s: float, diag, b, x0, tol: float, max_iter: int):
 _cg_kernels.host_syncs = 0
 
 
-def _cg_solve_plain(R, C, V, s, diag, b, x0, n: int, tol, max_iter: int):
-    """The CG of ``hpsdf_tpu.continuity._cg_solve`` on the COO by the plain
-    versions, whatever the device (one host sync an iteration on a card):
-    the same recurrences and stopping rule."""
+def _cg_plain(matvec, diag, b, x0, tol, max_iter: int):
+    """The CG of ``hpsdf_tpu.continuity._cg_solve`` by the plain versions,
+    ``matvec(p)`` giving (M + sI) p and p.(M + sI) p, whatever the device
+    (one host sync an iteration on a card): the same recurrences and
+    stopping rule."""
     minv = 1.0 / diag
-    y, _ = cg_matvec_plain(R, C, V, s, x0)
+    y, _ = matvec(x0)
     x, r = x0, b - y
     p = minv * r
     rz, rr = torch.dot(r, p), torch.dot(r, r)
     thresh = tol * tol * torch.dot(b, b)
     k = 0
     while bool(rr > thresh) and k < max_iter:
-        Ap, pap = cg_matvec_plain(R, C, V, s, p)
+        Ap, pap = matvec(p)
         x, r, p, rz, rr = cg_update_plain(rz / pap, rz, p, Ap, minv, x, r)
         k += 1
     return x, k, float(torch.sqrt(rr))
+
+
+def _cg_solve_plain(R, C, V, s, diag, b, x0, n: int, tol, max_iter: int):
+    """``_cg_plain`` on the COO (``cg_matvec_plain``)."""
+    return _cg_plain(lambda p: cg_matvec_plain(R, C, V, s, p), diag, b, x0,
+                     tol, max_iter)
 
 
 def _cg_solve(R, C, V, s, diag, b, x0, n: int, tol, max_iter: int):
@@ -564,10 +852,19 @@ def _cg_solve(R, C, V, s, diag, b, x0, n: int, tol, max_iter: int):
     int64, V f64, all on one device): ``hpsdf_tpu.continuity._cg_solve``,
     the stopping rule r.r > tol^2 b.b and k < max_iter. Returns (x,
     iterations, residual = |r|). CUDA tensors: sorted by row once (``csr``),
-    then kernels K9 and K9u; CPU tensors: the plain versions on the COO."""
+    then PR 10's kernels; CPU tensors: the plain versions on the COO."""
     if b.device.type == "cpu":
         return _cg_solve_plain(R, C, V, s, diag, b, x0, n, tol, max_iter)
     return _cg_kernels(csr(R, C, V, n), s, diag, b, x0, tol, max_iter)
+
+
+def cg_solve(op: FaceOperator, s, diag, b, x0, tol, max_iter: int):
+    """The same CG on the face operator: the kernels on a CUDA device
+    (``_cg_kernels``), ``face_matvec_plain`` on the CPU."""
+    if b.device.type == "cpu":
+        return _cg_plain(lambda p: face_matvec_plain(op, s, p), diag, b, x0,
+                         tol, max_iter)
+    return _cg_kernels(op, s, diag, b, x0, tol, max_iter)
 
 
 # --------------------------------------------------------------------------
@@ -582,7 +879,8 @@ def _put(device, *arrays):
 def enforce_continuity(tree: Octree, mesh=None, cg: str = "auto") -> Octree:
     """Return a tree whose coefficients minimize inter-cell jumps: solves
     (M + sI) c = s c0 with warm start (reference: Octree.cpp:1717-1762), on
-    the tree's device.
+    the tree's device, with M as the face operator (``face_operator``: no
+    same-depth entry is assembled).
 
     ``cg``: "f64", "mixed" or "auto", all the f64 CG here (the H100 has
     f64; the reference's "mixed" exists for TPUs). ``mesh`` (the row-sharded
@@ -593,11 +891,12 @@ def enforce_continuity(tree: Octree, mesh=None, cg: str = "auto") -> Octree:
             "to hpsdf_tpu_torch yet (ROADMAP.md, queue 1 'Sharding')")
     if cg not in ("auto", "mixed", "f64"):
         raise ValueError(f"cg must be 'auto', 'mixed' or 'f64', not {cg!r}")
-    st, R, C, V = assemble_face_matrix(tree)
+    st = _LeafView(tree)
     if st.n_coeffs == 0:
         return tree
     s = float(tree.config.continuity_strength)
     n = st.n_coeffs
+    op, diag = face_operator(st, *leaf_face_pairs(st.child_idx, st.n), s)
 
     # pack padded per-leaf rows into the flat coefficient vector
     coeffs = tree.coeffs.cpu().numpy()
@@ -610,15 +909,11 @@ def enforce_continuity(tree: Octree, mesh=None, cg: str = "auto") -> Octree:
                  - np.repeat(np.cumsum(widths) - widths, widths))
     c0 = coeffs[flat_rows, flat_cols]
 
-    diag = np.full(n, s, np.float64)
-    on_diag = R == C
-    np.add.at(diag, R[on_diag], V[on_diag])
-
-    Rt, Ct, Vt, dt, bt, xt = _put(tree.device, R, C, V, diag, s * c0, c0)
-    x, iters, resid = _cg_solve(Rt, Ct, Vt, s, dt, bt, xt, n=n,
-                                tol=consts.EPSILON_F32, max_iter=2 * n)
+    dt, bt, xt = _put(tree.device, diag, s * c0, c0)
+    x, iters, resid = cg_solve(op.to(tree.device), s, dt, bt, xt,
+                               tol=consts.EPSILON_F32, max_iter=2 * n)
     if tree.config.enable_logging:
-        print(f"[hpsdf continuity] n={n} nnz={R.size} cg=f64 "
+        print(f"[hpsdf continuity] n={n} nnz={op.nnz} cg=f64 "
               f"iters={iters} residual={resid:.3e} "
               f"(tol {consts.EPSILON_F32:g}, max_iter {2 * n})")
     new_coeffs = tree.coeffs.clone()

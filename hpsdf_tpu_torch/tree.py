@@ -84,8 +84,8 @@ def to_numpy(tree: Octree) -> dict:
 
 def pack(child_idx: np.ndarray, centre: np.ndarray, depth: np.ndarray,
          degree: np.ndarray, coeffs: np.ndarray, n_nodes: int,
-         config: Config, device=_device.DEFAULT,
-         pad_to: int = 8) -> Octree:
+         config: Config, pad_to: int = 8, *,
+         device=_device.DEFAULT) -> Octree:
     """Pack host build arrays into an Octree on ``device``.
 
     Trims the coefficient width to the maximum degree actually used and pads

@@ -267,3 +267,163 @@ def test_cg_modes_and_mesh(mixed_depth):
         TC.enforce_continuity(tt, mesh=object())
     with pytest.raises(ValueError, match="cg"):
         TC.enforce_continuity(tt, cg="f32")
+
+
+# --------------------------------------------------------------------------
+# The face operator (K9's input on the solve's path)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def uniform():
+    """A fitted tree of one depth: the sphere at depth 4, every leaf at the
+    coarse stage's degree."""
+    return hp.build_octree(hp.Config(target_error=1e-6, continuity=False,
+                                     max_depth=4, max_degree=4), sphere_jax)
+
+
+@pytest.fixture(scope="module")
+def mixed_degree():
+    """chip_smoke.synthetic_tree's depth-2 tree with seeded leaf degrees 0-5
+    and one leaf at degree 12: same-depth faces between unequal degrees,
+    and the widest row block."""
+    from hpsdf_tpu import tree as JT
+    arrays = list(chip_smoke.synthetic_tree(12, seed=3))
+    child, degree = arrays[0], arrays[3].copy()
+    leaves = np.flatnonzero(child < 0)
+    degree[leaves] = np.random.default_rng(0).integers(0, 6, leaves.size)
+    degree[leaves[5]] = 12
+    arrays[3] = degree
+    return JT.pack(*arrays, hp.Config(target_error=1e-6, continuity=True,
+                                      continuity_strength=8.0,
+                                      root_min=chip_smoke.SYNTH_ROOT[0],
+                                      root_max=chip_smoke.SYNTH_ROOT[1]))
+
+
+@pytest.fixture(params=["two_sphere", "mixed_depth", "uniform",
+                        "mixed_degree"])
+def any_tree(request):
+    return request.getfixturevalue(request.param)
+
+
+def _operator(jt, s=8.0):
+    tt = carry(jt)
+    st = TC._LeafView(tt)
+    a, b, d = TC.leaf_face_pairs(st.child_idx, st.n)
+    op, diag = TC.face_operator(st, a, b, d, s)
+    return st, (a, b, d), op.to("cpu"), diag
+
+
+def test_face_matvec_matches_coo(any_tree):
+    """The plain K9 on the face operator against the port's COO matvec and
+    against segment_sum on hpsdf_tpu's COO, at MATVEC_RTOL of max|y|."""
+    st, _, op, _ = _operator(any_tree)
+    n, R, C, V, x = _system(any_tree)
+    s = 8.0
+    assert op.n == n and op.nnz == R.size
+    t = torch.as_tensor
+    got, pap = TC.face_matvec_plain(op, s, t(x))
+    want = np.asarray(jax.ops.segment_sum(
+        jnp.asarray(V * x[C]), jnp.asarray(R), num_segments=n)) + s * x
+    coo, _ = TC.cg_matvec_plain(t(R), t(C), t(V), s, t(x))
+    scale = np.abs(want).max()
+    assert np.abs(got.numpy() - want).max() <= MATVEC_RTOL * scale
+    assert np.abs(got.numpy() - coo.numpy()).max() <= MATVEC_RTOL * scale
+    assert abs(float(pap) - x @ want) <= MATVEC_RTOL * abs(x @ want)
+    y2, pap2 = TC.cg_matvec(op, s, t(x))      # CPU tensors: the plain version
+    assert torch.equal(y2, got) and torch.equal(pap2, pap)
+
+
+def test_face_operator_diagonal(any_tree):
+    """The Jacobi diagonal from the face lists against the COO's np.add.at
+    diagonal, entry by entry at 1e-15."""
+    _, _, _, diag = _operator(any_tree)
+    n, R, C, V, _ = _system(any_tree)
+    want = np.full(n, 8.0)
+    on = R == C
+    np.add.at(want, R[on], V[on])
+    assert np.all(np.abs(diag - want) <= 1e-15 * want)
+
+
+def test_face_slots_hold_each_pair_once_a_side(any_tree):
+    """Every same-depth pair (a, b, d) sits once in a's slot 2d (its
+    neighbour on the + side) and once in b's slot 2d + 1, and nothing
+    else fills a slot; cross-depth pairs fill none."""
+    st, (a, b, d), op, _ = _operator(any_tree)
+    leaf_ids = np.flatnonzero(st.degree[: st.n] >= 0)
+    pos = {int(v): i for i, v in enumerate(leaf_ids)}
+    slots = op.slots.numpy()
+    want = np.full(slots.shape, -1, np.int32)
+    same = st.depth[a] == st.depth[b]
+    assert same.any()
+    for ai, bi, di in zip(a[same], b[same], d[same]):
+        for own, nbr, side in ((ai, bi, 0), (bi, ai, 1)):
+            assert want[pos[int(own)], 2 * di + side, 0] == -1
+            want[pos[int(own)], 2 * di + side] = (st.coeff_start[nbr],
+                                                  st.degree[nbr])
+    np.testing.assert_array_equal(slots, want)
+    leaves = op.leaves.numpy()
+    np.testing.assert_array_equal(leaves[:, 0], st.coeff_start[leaf_ids])
+    np.testing.assert_array_equal(leaves[:, 1] - leaves[:, 0],
+                                  st.widths[leaf_ids])
+    np.testing.assert_array_equal(leaves[:, 2] & 255, st.degree[leaf_ids])
+    np.testing.assert_array_equal(leaves[:, 2] >> 8, st.depth[leaf_ids])
+    assert (leaves[:, 3] >= 0).any() == (~same).any()
+
+
+def test_face_operator_mixed_degrees(mixed_degree):
+    """The fixture holds a same-depth face between unequal degrees and a
+    degree-12 leaf with same-depth faces; the operator's rectangular modes
+    and 455-row block match the COO there."""
+    st, (a, b, d), op, _ = _operator(mixed_degree)
+    same = st.depth[a] == st.depth[b]
+    assert (st.degree[a][same] != st.degree[b][same]).any()
+    twelve = (st.degree[a] == 12) | (st.degree[b] == 12)
+    assert (same & twelve).any()
+    assert op.group == 32 and int((op.leaves[:, 1] - op.leaves[:, 0]).max()) \
+        == 455
+    n, R, C, V, x = _system(mixed_degree, seed=4)
+    got, _ = TC.face_matvec_plain(op, 0.0, torch.as_tensor(x))
+    want = np.zeros(n)
+    np.add.at(want, R, V * x[C])
+    assert np.abs(got.numpy() - want).max() <= \
+        MATVEC_RTOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("name", ["mixed_depth", "uniform"])
+def test_logged_nnz_matches_hpsdf_tpu(name, request, capsys):
+    """enforce_continuity assembles no same-depth entry, yet logs the nnz of
+    the reference's COO (the patterns' sizes plus the numeric entries) and
+    its n."""
+    jt = request.getfixturevalue(name)
+    jt = dataclasses.replace(jt, config=dataclasses.replace(
+        jt.config, continuity=True, enable_logging=True))
+    JC.enforce_continuity(jt, cg="f64")
+    TC.enforce_continuity(carry(jt), cg="f64")
+    logged = re.findall(r"\[hpsdf continuity\] (n=\d+ nnz=\d+)",
+                        capsys.readouterr().out)
+    assert len(logged) == 2 and logged[0] == logged[1], logged
+
+
+def test_face_bounds_count_what_it_moves(mixed_depth):
+    """chip_smoke.py's bounds for K9 on the face operator: its five arrays
+    read once, p read once and y written once; the persistent iteration adds
+    x, r and 1/diag read and x, r and p written. Operations: per same-depth
+    face 2C FMAs and the neighbour's terms on the leaf's modes, an FMA a
+    cross-depth entry, two a row; six a row more an iteration."""
+    _, _, op, _ = _operator(mixed_depth)
+    k9, it = chip_smoke.face_bytes(op)
+    arrays = sum(t.numel() * t.element_size() for t in
+                 (op.leaves, op.slots, op.xrowptr, op.xcols, op.xvals))
+    ms = 1e3 / chip_smoke.HBM_RATE
+    assert k9 == pytest.approx((arrays + 16 * op.n) * ms, rel=1e-12)
+    assert it == pytest.approx((arrays + 56 * op.n) * ms, rel=1e-12)
+    # every leaf of this tree has degree 8 (C = 165): a same-depth face
+    # costs 2 * 165 + sum over t <= 8 of (t + 1)(9 - t)
+    faces = int((op.slots[:, :, 0] >= 0).sum())
+    per_face = 2 * 165 + sum((t + 1) * (9 - t) for t in range(9))
+    fmas = faces * per_face + op.xvals.shape[0] + 2 * op.n
+    k9_ops, it_ops = chip_smoke.face_ops(op)
+    assert k9_ops == pytest.approx(2 * fmas / chip_smoke.F64_PEAK * 1e3,
+                                   rel=1e-12)
+    assert it_ops == pytest.approx(
+        2 * (fmas + 6 * op.n) / chip_smoke.F64_PEAK * 1e3, rel=1e-12)

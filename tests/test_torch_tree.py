@@ -77,3 +77,21 @@ def test_from_numpy_to_numpy_roundtrip(jax_tree):
     assert t.total_coeffs() == jax_tree.total_coeffs()
     _assert_same(jax_tree, T.to_numpy(t), (t.n_nodes, t.deg_used,
                                             t.depth_used))
+
+
+def test_pack_pad_to_by_position(jax_tree):
+    """``pack(..., config, pad_to)`` with pad_to by position, as
+    hpsdf_tpu.tree.pack takes it: the same packed tree in both packages."""
+    from hpsdf_tpu import tree as JT
+    from hpsdf_tpu_torch import tree as TT
+    a = {k: np.asarray(getattr(jax_tree, k)) for k in _ARRAYS}
+    n = jax_tree.n_nodes
+    args = (a["child_idx"], a["centre"], a["depth"], a["degree"],
+            a["coeffs"], n)
+    for pad_to in (16, 24):
+        jt = JT.pack(*args, jax_tree.config, pad_to)
+        tt = TT.pack(*args, port_config(jax_tree.config), pad_to,
+                     device="cpu")
+        assert tt.child_idx.shape[0] == -(-n // pad_to) * pad_to
+        _assert_same(jt, T.to_numpy(tt), (tt.n_nodes, tt.deg_used,
+                                          tt.depth_used))

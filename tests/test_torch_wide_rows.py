@@ -121,16 +121,17 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None):
 
 
 @pytest.mark.parametrize("spill", [None, "K1", "K3", "K7", "G CSR", "K5F",
-                                   "K9u"],
+                                   "K9u", "chunk"],
                          ids=["clean", "spills", "march_spills",
                               "backward_spills", "csr_spills",
-                              "fused_spills", "cg_spills"])
+                              "fused_spills", "cg_spills", "chunk_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
     K5's raw gradient (alone or fused with K2), K7 or K8 at degree 3 or 5,
-    either form of G's backward, or the continuity kernels K9 and K9u
-    (K9u's two forms), has a stack frame or spills."""
+    either form of G's backward, or the continuity kernels (K9 on the face
+    operator and in PR 10's CSR form, K9u's two forms, both forms of the
+    persistent launch) has a stack frame or spills."""
     from hpsdf_tpu_torch import _kernels
 
     report = "".join(
@@ -167,6 +168,11 @@ def test_ptxas_check(monkeypatch, spill):
         report += _ptxas_entry("cg_update_kernel", 0, None, regs=32,
                                args=f"Lb{init}E",
                                stack=8 if spill == "K9u" and init else 0)
+    report += _ptxas_entry("face_matvec_kernel", 0, None, args="", regs=98)
+    for smem in (0, 1):
+        report += _ptxas_entry("cg_chunk_kernel", 0, None, regs=128,
+                               args=f"Lb{smem}E",
+                               stack=16 if spill == "chunk" and smem else 0)
     monkeypatch.setattr(_kernels, "ptxas_report", lambda: report)
     if spill:
         with pytest.raises(RuntimeError, match={
@@ -174,7 +180,8 @@ def test_ptxas_check(monkeypatch, spill):
                 "K7": "K7 3/form1: stack 24",
                 "G CSR": "G backward CSR -: stack 8",
                 "K5F": "K5 raw 3/fused: stack 16",
-                "K9u": "K9u init: stack 8"}[spill]):
+                "K9u": "K9u init: stack 8",
+                "chunk": "K9 \\+ K9u persistent shared: stack 16"}[spill]):
             chip_smoke.ptxas_check()
         return
     found = chip_smoke.ptxas_check()
@@ -195,3 +202,6 @@ def test_ptxas_check(monkeypatch, spill):
     assert found["cg_matvec_kernel"] == {"-": [32, 0, 0, 0]}
     assert found["cg_update_kernel"] == {k: [32, 0, 0, 0]
                                          for k in ("init", "iteration")}
+    assert found["face_matvec_kernel"] == {"-": [98, 0, 0, 0]}
+    assert found["cg_chunk_kernel"] == {k: [128, 0, 0, 0]
+                                        for k in ("shared", "buffer")}
