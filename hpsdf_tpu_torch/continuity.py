@@ -425,16 +425,19 @@ def face_operator(st: _LeafView, a, b, d, s: float):
     slots = np.full((L, 6, 2), -1, np.int32)
     for own, nbr, side in ((sa, sb, 0), (sb, sa, 1)):
         li, sl = pos[own], 2 * sd.astype(np.int64) + side
-        if np.unique(li * 6 + sl).size != li.size:
-            raise AssertionError("face_operator: two same-depth neighbours "
-                                 "across one face")
         slots[li, sl, 0] = st.coeff_start[nbr]
         slots[li, sl, 1] = st.degree[nbr]
-    nnz = 0
-    for da, db, dim, m in _groups(st, sa, sb, sd):
-        nnz += int(m.sum()) * sum(
-            _tangential_match(i, j, dim)[0].size * k
-            for i, j, k in ((da, da, 1), (da, db, 2), (db, db, 1)))
+    if int((slots[:, :, 0] >= 0).sum()) != 2 * sa.size:
+        raise AssertionError("face_operator: two same-depth neighbours "
+                             "across one face")
+    # the COO's same-depth entries: the AA, AB, BA and BB patterns' sizes
+    groups = np.bincount((st.degree[sa].astype(np.int64) * 13
+                          + st.degree[sb]) * 3 + sd, minlength=13 * 13 * 3)
+    nnz = sum(int(groups[k]) * sum(
+        _tangential_match(i, j, k % 3)[0].size * w
+        for i, j, w in ((k // 39, k // 39, 1), (k // 39, k // 3 % 13, 2),
+                        (k // 3 % 13, k // 3 % 13, 1)))
+        for k in np.flatnonzero(groups))
 
     rows: list = []
     cols: list = []
@@ -465,16 +468,24 @@ def face_operator(st: _LeafView, a, b, d, s: float):
     np.cumsum(np.bincount(xoff[leaf_of] + mr - start[leaf_of],
                           minlength=xrows), out=xrowptr[1:])
 
-    diag = np.full(n, s, np.float64)
+    # s, then n_k^2 face by face in slot order: for each degree and depth, a
+    # table of the 64 sets of faces a leaf may have
+    diag = np.empty(n, np.float64)
     nt = basis.norm_table()
-    for D in np.unique(deg):
-        li = np.flatnonzero(deg == D)
-        e = basis.basis_indices(int(D))
-        r = start[li][:, None] + np.arange(e.shape[0])
+    faces = ((slots[:, :, 0] >= 0) << np.arange(6)).sum(1)
+    kind = deg * 64 + dep
+    for key in np.unique(kind):
+        li = np.flatnonzero(kind == key)
+        e = basis.basis_indices(int(key // 64))
+        table = np.full((64, e.shape[0]), s, np.float64)
         for slot in range(6):
-            nk = nt[e[:, slot // 2][None, :], dep[li][:, None]]
-            diag[r] += np.where(slots[li, slot, 0][:, None] >= 0, nk * nk,
-                                0.0)
+            nk = nt[e[:, slot // 2], key % 64]
+            table += (np.arange(64)[:, None] >> slot & 1) * (nk * nk)
+        if li.size == L and width[0] * L == n:     # one kind: rows in order
+            diag[:] = table[faces].ravel()
+        else:
+            diag[start[li][:, None] + np.arange(e.shape[0])] = \
+                table[faces[li]]
     on = mr == mc
     diag[mr[on]] += xvals[on]
 
