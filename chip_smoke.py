@@ -2773,6 +2773,9 @@ CONT_ROW = dict(target_error=3e-9, continuity=True, continuity_strength=8.0,
 CONT_ROW_RADIUS = 0.3
 CONT_RTOL = 1e-13        # K9's y, K9u's vectors and dots against plain's
 CONT_X_RTOL = 1e-9       # the kernels' solve against the plain solve
+# the same on random coefficients, where CG amplifies rounding
+# (tests/test_torch_continuity.py's NOISE_RTOL)
+CONT_NOISE_X_RTOL = 1e-6
 ITER_CHUNK = 32          # iterations a timed persistent launch runs
 N_JUMP = 20000           # points on each plane of the face-jump check
 
@@ -3176,6 +3179,89 @@ def _coo(tree, dev):
     return tuple(torch.as_tensor(a, device=dev) for a in (R, C, V))
 
 
+def mixed_degree_tree(seed=3):
+    """synthetic_tree(12, seed)'s arrays for ``tree.pack`` with seeded leaf
+    degrees 0-5 and one leaf at degree 12: same-depth faces between unequal
+    degrees, cross-depth faces, and a 455-row block, wider than a warp."""
+    arrays = list(synthetic_tree(12, seed))
+    child, degree = arrays[0], arrays[3].copy()
+    leaves = np.flatnonzero(child < 0)
+    degree[leaves] = np.random.default_rng(0).integers(0, 6, leaves.size)
+    degree[leaves[5]] = 12
+    arrays[3] = degree
+    return arrays
+
+
+def phase_continuity_degrees(smi, s=8.0):
+    """K9 and the persistent launch where a lane loops over its leaf's rows
+    (``mixed_degree_tree``): K9 against the COO's plain matvec and its own
+    plain version, the persistent launch with y in a buffer against y in
+    shared memory bit for bit, and the kernels' solve against the plain
+    solve on the COO (random coefficients: CONT_NOISE_X_RTOL, a count one
+    apart allowed) and bit for bit on a second run. Returns the errors."""
+    import hpsdf_tpu_torch as T
+    from hpsdf_tpu_torch import continuity as TC
+    from hpsdf_tpu_torch import tree as TT
+    dev = torch.device("cuda", 0)
+    tree = TT.pack(*mixed_degree_tree(), T.Config(
+        root_min=SYNTH_ROOT[0], root_max=SYNTH_ROOT[1]), device=dev)
+    st = TC._LeafView(tree)
+    op, diag = TC.face_operator(st, *TC.leaf_face_pairs(st.child_idx, st.n),
+                                s)
+    check(op.widest == 455 and op.xvals.shape[0] > 0, f"the mixed-degree "
+          f"tree: widest block {op.widest}, {op.xvals.shape[0]} cross-depth "
+          f"entries")
+    op = op.to(dev)
+    R, C, V = _coo(tree, dev)
+    n = op.n
+    g = torch.Generator(device=dev).manual_seed(5)
+    p = torch.randn(n, generator=g, dtype=torch.float64, device=dev)
+    got = TC.cg_matvec(op, s, p)
+    errs, abs_errs = {}, {}
+    for names, want in ((("y (COO)", "p.y (COO)"),
+                         TC.cg_matvec_plain(R, C, V, s, p)),
+                        (("y (plain)", "p.y (plain)"),
+                         TC.face_matvec_plain(op, s, p))):
+        e, a = rel_errs("k9", names, got, want)
+        errs.update(e)
+        abs_errs.update(a)
+    for k, e in errs.items():
+        check(e <= CONT_RTOL, f"mixed degrees: {k}, relative {e}")
+    dt = torch.as_tensor(diag, device=dev)
+    minv = 1.0 / dt
+    plan = TC._chunk_plan(op)
+    runs = []
+    for cap in (plan.cap, 0):
+        state = TC._State.new(dev, -1.0, 2 ** 31 - 1)
+        xs, rs, ps, ys = p.clone(), p.clone(), torch.empty_like(p), \
+            torch.empty_like(p)
+        TC._update_launch(True, ys, minv, xs, rs, ps, state)
+        TC._chunk_launch(op, plan._replace(cap=cap), s, minv, xs, rs, ps, ys,
+                         state, TC.CG_CHUNK)
+        runs.append((xs, rs, ps, state.sc))
+    check(plan.cap > 0 and all(torch.equal(u, w) for u, w in zip(*runs)),
+          f"mixed degrees: the persistent launch with y in a buffer against "
+          f"y in shared memory ({plan.cap} doubles a group)")
+    b = s * p
+    x1, k1, res1 = TC.cg_solve(op, s, dt, b, p, 1e-6, 2 * n)
+    x2, k2, res2 = TC.cg_solve(op, s, dt, b, p, 1e-6, 2 * n)
+    check(torch.equal(x1, x2) and (k1, res1) == (k2, res2),
+          "mixed degrees: the kernels' solve repeats bit for bit")
+    xp, kp, resp = TC._cg_solve_plain(R, C, V, s, dt, b, p, n, 1e-6, 2 * n)
+    errs["x"] = float((x1 - xp).abs().max() / xp.abs().max())
+    check(abs(k1 - kp) <= 1 and errs["x"] <= CONT_NOISE_X_RTOL,
+          f"mixed degrees: solve {k1} iterations against plain {kp}, "
+          f"relative {errs['x']}")
+    print(f"[continuity] mixed degrees: {smi} | {op.leaves.shape[0]} leaves "
+          f"of degree 0-5 and 12, n {n}, nnz {op.nnz}, {plan.blocks} blocks "
+          f"of {plan.cap} doubles a group | "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" | the persistent launch in a buffer = in shared memory; solve "
+          f"{k1} iterations, residual {res1:.6e}, bit for bit on a second "
+          f"run; plain on the COO {kp} iterations", flush=True)
+    return errs, abs_errs
+
+
 PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
                  "cone_kernel", "packed_grad_kernel", "coeff_scatter_kernel",
                  "row_scatter_kernel", "row_scatter_csr_kernel",
@@ -3209,8 +3295,9 @@ def ptxas_check():
     """Registers, stack and spills of every kernel's instantiations, as
     ptxas reported them when the library was built. K1, K3, K4, K5's raw
     gradient (alone and fused with K2), K7 and K8 at degrees 3 and 5 (the
-    main paths'), both forms of G's backward, K9 and K9u must have no stack
-    frame and no spills. Returns
+    main paths'), both forms of G's backward, K9 (on the face operator and
+    PR 10's CSR form), K9u and both forms of the persistent launch must
+    have no stack frame and no spills. Returns
     {kernel: {key: [registers, stack, spill stores, spill loads]}}."""
     from hpsdf_tpu_torch import _kernels
 
@@ -3397,6 +3484,8 @@ def main():
     launches_cb, tcb = phase("continuity 260k", phase_continuity,
                              "260k-leaf row", CONT_ROW, CONT_ROW_RADIUS, None,
                              smi)
+    tcd = dict(zip(("errs", "abs_errs"), phase(
+        "continuity degrees", phase_continuity_degrees, smi)))
 
     total = {k: launches[k] + launches_r[k] + launches_i[k]
              + launches_ca[k] + launches_cb[k] for k in launches}
@@ -3534,10 +3623,10 @@ def main():
         *({"name": name, "route": "cuda",
            "source": "hpsdf_tpu_torch/csrc/continuity.cu",
            "replaces": replaces, "launches": total[name],
-           "max_abs_err": max(v for c in (tca, tcb)
+           "max_abs_err": max(v for c in (tca, tcb, tcd)
                               for k, v in c["abs_errs"].items()
                               if k.split(" ")[0] == pre),
-           "max_rel_err": max(v for c in (tca, tcb)
+           "max_rel_err": max(v for c in (tca, tcb, tcd)
                               for k, v in c["errs"].items()
                               if k.split(" ")[0] == pre),
            "ms": tcb[ms], "plain_ms": tcb[plain],

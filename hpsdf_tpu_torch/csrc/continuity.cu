@@ -722,8 +722,8 @@ int chunk_smem_limit() {
 // Bytes of the partial sums a launch of any of the kernels needs.
 extern "C" int64_t hpsdf_cg_scratch() { return 3 * kMaxBlocks * 8; }
 
-// K9 once: y = A p + s p, sc[alpha] = sc[rz] / p.y (a no-op if st's flag is
-// down).
+// K9 once in PR 10's CSR form: y = A p + s p, sc[alpha] = sc[rz] / p.y (a
+// no-op if st's flag is down).
 extern "C" int hpsdf_cg_matvec(const int32_t* rowptr, const int32_t* col,
                                const double* val, int64_t n, double s,
                                const double* p, double* y, double* partials,
@@ -748,8 +748,8 @@ extern "C" int hpsdf_cg_update(int init, int64_t n, const double* Ap,
                                            sc, st, stream_));
 }
 
-// `iters` iterations: K9 then K9u, each launched every iteration (a no-op
-// once the flag is down).
+// `iters` iterations as PR 10 ran them: K9 on the CSR then K9u, each
+// launched every iteration (a no-op once the flag is down).
 extern "C" int hpsdf_cg_iterations(const int32_t* rowptr, const int32_t* col,
                                    const double* val, int64_t n, double s,
                                    const double* minv, double* x, double* r,

@@ -283,20 +283,15 @@ def uniform():
 
 @pytest.fixture(scope="module")
 def mixed_degree():
-    """chip_smoke.synthetic_tree's depth-2 tree with seeded leaf degrees 0-5
-    and one leaf at degree 12: same-depth faces between unequal degrees,
-    and the widest row block."""
+    """chip_smoke.mixed_degree_tree: seeded leaf degrees 0-5 and one leaf at
+    degree 12, so same-depth faces between unequal degrees, and the widest
+    row block."""
     from hpsdf_tpu import tree as JT
-    arrays = list(chip_smoke.synthetic_tree(12, seed=3))
-    child, degree = arrays[0], arrays[3].copy()
-    leaves = np.flatnonzero(child < 0)
-    degree[leaves] = np.random.default_rng(0).integers(0, 6, leaves.size)
-    degree[leaves[5]] = 12
-    arrays[3] = degree
-    return JT.pack(*arrays, hp.Config(target_error=1e-6, continuity=True,
-                                      continuity_strength=8.0,
-                                      root_min=chip_smoke.SYNTH_ROOT[0],
-                                      root_max=chip_smoke.SYNTH_ROOT[1]))
+    return JT.pack(*chip_smoke.mixed_degree_tree(),
+                   hp.Config(target_error=1e-6, continuity=True,
+                             continuity_strength=8.0,
+                             root_min=chip_smoke.SYNTH_ROOT[0],
+                             root_max=chip_smoke.SYNTH_ROOT[1]))
 
 
 @pytest.fixture(params=["two_sphere", "mixed_depth", "uniform",
