@@ -366,10 +366,12 @@ def counters():
     """Every launch counter, by name: (kernel wrapper, attribute). K2/K5's
     wrapper counts all its launches and, apart, those of K5's normals, of
     its raw gradient and of the fused mode; G's backward's all its launches
-    and, apart, those of its CSR form."""
+    and, apart, those of its CSR form. K9 (``cg_matvec``), K9u
+    (``cg_update``) and the persistent CG launch (``_chunk_launch``) each
+    count only their own kernel's launches."""
     from hpsdf_tpu_torch.accel import (packed_eval_kernel, packed_grad_kernel,
                                        row_gather, row_scatter)
-    from hpsdf_tpu_torch.continuity import cg_matvec, cg_update
+    from hpsdf_tpu_torch.continuity import _chunk_launch, cg_matvec, cg_update
     from hpsdf_tpu_torch.mesh import closest_tri_tiles
     from hpsdf_tpu_torch.query import coeff_scatter_kernel, query_kernel
     from hpsdf_tpu_torch.render import cone_kernel, march_kernel
@@ -387,7 +389,8 @@ def counters():
             "packed_grad": (packed_grad_kernel, "launches"),
             "coeff_scatter": (coeff_scatter_kernel, "launches"),
             "cg_matvec": (cg_matvec, "launches"),
-            "cg_update": (cg_update, "launches")}
+            "cg_update": (cg_update, "launches"),
+            "cg_chunk": (_chunk_launch, "launches")}
 
 
 def reset_counts():
@@ -2812,6 +2815,11 @@ def cg_ops(A):
     return (2 * A.vals.shape[0] + 4 * A.n) / F64_PEAK * 1e3
 
 
+def update_ops(n):
+    """K9u's operation bound: six f64 FMAs a row (x, r, z, r.z, r.r, p)."""
+    return 2 * 6 * n / F64_PEAK * 1e3
+
+
 def face_bytes(op):
     """K9's byte bound on the face operator: its arrays (the leaves' rows,
     the face slots, the cross-depth CSR) read once, p read once and y
@@ -2948,6 +2956,30 @@ def rel_errs(pre, names, got, want):
     return errs, abs_errs
 
 
+def check_chunk(op, s, minv, x, r):
+    """The persistent launch (``_chunk_launch``) for one iteration from the
+    state K9u's first form sets up on (x, r), against the same iteration by
+    the plain versions (``face_matvec_plain``, ``cg_update_plain``): x, r,
+    the new direction, p.y, r.z and r.r. Returns their relative and
+    absolute errors."""
+    from hpsdf_tpu_torch import continuity as TC
+    state = TC._State.new(x.device, -1.0, 2 ** 31 - 1)
+    xs, rs, ps, ys = x.clone(), r.clone(), torch.empty_like(x), \
+        torch.empty_like(x)
+    TC._update_launch(True, ys, minv, xs, rs, ps, state)
+    TC._chunk_launch(op, TC._chunk_plan(op), s, minv, xs, rs, ps, ys, state,
+                     1)
+    z = minv * r
+    rz = torch.dot(r, z)
+    Ap, pap = TC.face_matvec_plain(op, s, z)
+    want = TC.cg_update_plain(rz / pap, rz, z, Ap, minv, x, r)
+    sc = state.sc
+    return rel_errs("chunk", ("x", "r", "p'", "p.y", "r.z", "r.r"),
+                    (xs, rs, ps, sc[TC._SC["pap"]], sc[TC._SC["rz"]],
+                     sc[TC._SC["rr"]]),
+                    (*want[:3], pap, *want[3:]))
+
+
 def check_cg(op, A, R, C, V, s, diag, b, x0, n, tol, max_iter, main, label,
              smi):
     """K9 against the COO's plain matvec and its own plain version on the
@@ -2977,6 +3009,9 @@ def check_cg(op, A, R, C, V, s, diag, b, x0, n, tol, max_iter, main, label,
         e, a = rel_errs(pre, names, gs, ws)
         errs.update(e)
         abs_errs.update(a)
+    e, a = check_chunk(op, s, minv, x, r)
+    errs.update(e)
+    abs_errs.update(a)
     for k, e in errs.items():
         check(e <= CONT_RTOL, f"{label}: {k} against plain, relative {e}")
 
@@ -3020,7 +3055,8 @@ def check_cg(op, A, R, C, V, s, diag, b, x0, n, tol, max_iter, main, label,
                f"residuals {rr[0] ** 0.5:.6e} / {rr[1] ** 0.5:.6e}, tol |b| "
                f"{tol * bb ** 0.5:.6e})")
     print(f"[continuity] {label}: {smi} | K9 on the face operator, PR 10's "
-          f"CSR form and K9u against the COO and plain (relative): "
+          f"CSR form, K9u and an iteration of the persistent launch against "
+          f"the COO and plain (relative): "
           + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
           + f"; the persistent launch ({plan.blocks} blocks) with y in a "
           f"buffer = y in {plan.cap} doubles of shared memory a group, bit "
@@ -3061,8 +3097,10 @@ def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
     build_s = time.perf_counter() - t0
     launches = read_counts()
     syncs = TC._cg_kernels.host_syncs
-    check(launches["cg_matvec"] > 0 and launches["cg_update"] > 0,
-          f"{label}: K9 / K9u never launched on the main path")
+    for name, kernel in (("cg_matvec", "K9"), ("cg_update", "K9u"),
+                         ("cg_chunk", "the persistent launch")):
+        check(launches[name] > 0, f"{label}: {kernel} never launched on the "
+              f"main path ({launches[name]})")
     split, timer, calls, again = split_again(
         lambda: T.build_octree(cfg, sphere(radius), device=dev),
         FIT_PHASES + CONTINUITY_PHASES)
@@ -3119,19 +3157,27 @@ def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
     k9_bytes, it_bytes = face_bytes(op)
     k9_ops, it_ops = face_ops(op)
     csr_bytes, k9u_bytes = cg_bytes(A)
+    csr_ops, k9u_ops = cg_ops(A), update_ops(n)
     out = {"leaves": tree.num_leaves(), "nodes": tree.n_nodes, "n": n,
            "nnz": nnz, "iterations": iters, "plain_iterations": k_plain,
            "residual": main[2], "host_syncs": syncs,
-           "launches": {k: launches[k] for k in ("cg_matvec", "cg_update")},
+           "launches": {k: launches[k]
+                        for k in ("cg_matvec", "cg_update", "cg_chunk")},
            "build_s": build_s, "split": split, "field_err": field_err,
            "jump_energy": energy, "jumps": jumps, "errs": errs,
            "abs_errs": abs_errs, **times,
            "k9_bound_ms": max(k9_bytes, k9_ops), "k9_ops_bound_ms": k9_ops,
            "k9_bound_by": "bytes" if k9_bytes >= k9_ops else "operations",
-           "k9_csr_bound_ms": max(csr_bytes, cg_ops(A)),
-           "k9u_bound_ms": max(it_bytes, it_ops), "k9u_ops_bound_ms": it_ops,
-           "k9u_bound_by": "bytes" if it_bytes >= it_ops else "operations",
-           "k9u_launch_bound_ms": k9u_bytes,
+           "k9_csr_bound_ms": max(csr_bytes, csr_ops),
+           "k9u_bound_ms": max(k9u_bytes, k9u_ops), "k9u_ops_bound_ms": k9u_ops,
+           "k9u_bound_by": "bytes" if k9u_bytes >= k9u_ops else "operations",
+           "chunk_bound_ms": max(it_bytes, it_ops),
+           "chunk_ops_bound_ms": it_ops,
+           "chunk_bound_by": "bytes" if it_bytes >= it_ops else "operations",
+           # what the persistent launch saves over the same kernels as two
+           # launches an iteration, over the solve's iterations
+           "chunk_saves_ms": (times["iteration_two_launch_ms"]
+                              - times["iteration_ms"]) * iters,
            "cg_ms_per_iteration": split["cg_s"] / max(iters, 1) * 1e3}
     print(f"[continuity] {label}: {smi} | {out['nodes']} nodes, "
           f"{out['leaves']} "
@@ -3154,14 +3200,17 @@ def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
           f"{out['k9_csr_bound_ms']:.5f}); an iteration of the persistent "
           f"launch ({times['chunk_blocks']} blocks, y in "
           f"{times['chunk_group_doubles']} doubles of shared memory a group) "
-          f"{times['iteration_ms']:.4f} ms (bound {out['k9u_bound_ms']:.5f} "
-          f"ms, {out['k9u_bound_by']}; "
-          f"{out['k9u_bound_ms'] / times['iteration_ms']:.1%}), K9 + K9u "
-          f"as two launches {times['iteration_two_launch_ms']:.4f} ms, PR "
+          f"{times['iteration_ms']:.4f} ms (bound "
+          f"{out['chunk_bound_ms']:.5f} ms, {out['chunk_bound_by']}; "
+          f"{out['chunk_bound_ms'] / times['iteration_ms']:.1%}), K9 + K9u "
+          f"as two launches {times['iteration_two_launch_ms']:.4f} ms (the "
+          f"persistent launch saves {out['chunk_saves_ms']:.4f} ms over the "
+          f"solve's {iters} iterations), PR "
           f"10's two-launch iteration {times['iteration_csr_ms']:.4f} ms; "
           f"K9u "
-          f"once {times['k9u_ms']:.4f} ms (bound {k9u_bytes:.5f} ms, bytes; "
-          f"{k9u_bytes / times['k9u_ms']:.1%}) | the solve's CG "
+          f"once {times['k9u_ms']:.4f} ms (bound {out['k9u_bound_ms']:.5f} "
+          f"ms, {out['k9u_bound_by']}; "
+          f"{out['k9u_bound_ms'] / times['k9u_ms']:.1%}) | the solve's CG "
           f"{out['cg_ms_per_iteration']:.4f} ms an iteration, host "
           f"included | plain: K9 {times['k9_plain_ms']:.4f}, on the COO "
           f"{times['k9_plain_coo_ms']:.4f}, K9u "
@@ -3225,10 +3274,14 @@ def phase_continuity_degrees(smi, s=8.0):
         e, a = rel_errs("k9", names, got, want)
         errs.update(e)
         abs_errs.update(a)
-    for k, e in errs.items():
-        check(e <= CONT_RTOL, f"mixed degrees: {k}, relative {e}")
     dt = torch.as_tensor(diag, device=dev)
     minv = 1.0 / dt
+    e, a = check_chunk(op, s, minv, p, torch.randn(
+        n, generator=g, dtype=torch.float64, device=dev))
+    errs.update(e)
+    abs_errs.update(a)
+    for k, e in errs.items():
+        check(e <= CONT_RTOL, f"mixed degrees: {k}, relative {e}")
     plan = TC._chunk_plan(op)
     runs = []
     for cap in (plan.cap, 0):
@@ -3645,11 +3698,12 @@ def main():
                 "k9_plain_coo_ms", "nnz_merged"),
                ("face_matvec_kernel", "cg_matvec_kernel")),
               ("cg_update", "k9u", "hpsdf_tpu/continuity.py:423-428",
+               "k9u_ms", "k9u_plain_ms", (), ("cg_update_kernel",)),
+              ("cg_chunk", "chunk", "hpsdf_tpu/continuity.py:415-430",
                "iteration_ms", "iteration_plain_ms",
-               ("iteration_csr_ms", "iteration_two_launch_ms", "k9u_ms",
-                "k9u_launch_bound_ms",
-                "k9u_plain_ms", "chunk_blocks", "chunk_group_doubles"),
-               ("cg_chunk_kernel", "cg_update_kernel")))),
+               ("iteration_csr_ms", "iteration_two_launch_ms",
+                "chunk_saves_ms", "chunk_blocks", "chunk_group_doubles"),
+               ("cg_chunk_kernel",)))),
     ]
     print(f"[e2e] {smi} | carve {tr['carve_s']:.3f} s, render 512^2 "
           f"{tr['render_s']:.3f} s, hit fraction {frac:.4f} | 1024^2 march: "

@@ -68,8 +68,6 @@ _SIGNATURES = {
                             _P, _P, _I32, _P),
     "hpsdf_face_matvec": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I64, _F64,
                           _P, _P, _P, _P, _P, _P),
-    "hpsdf_face_matvec_product": (_P, _P, _P, _P, _P, _I32, _I32, _I32,
-                                  _I64, _F64, _P, _P, _P, _P, _P, _P),
     "hpsdf_cg_chunk": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I64, _I32,
                        _I32, _F64, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _P),
 }

@@ -729,9 +729,10 @@ def _chunk_plan(op: FaceOperator) -> _Plan:
 
 def _chunk_launch(op: FaceOperator, plan: _Plan, s: float, minv, x, r, p, y,
                   state: _State, iters: int):
-    """``iters`` iterations in one persistent cooperative launch: K9's
-    matvec and K9u's update as phases between grid barriers. The launch runs
-    both kernels' work and counts once for each."""
+    """``iters`` iterations in one persistent cooperative launch
+    (``cg_chunk_kernel``): K9's matvec and K9u's update as phases between
+    grid barriers. Counted in ``_chunk_launch.launches``, apart from K9's
+    and K9u's own launches."""
     _check_cuda("cg_chunk", torch.float64, op.n, minv, x, r, p, y)
     lib = _kernels.load()
     _kernels.check(lib, lib.hpsdf_cg_chunk(
@@ -739,8 +740,10 @@ def _chunk_launch(op: FaceOperator, plan: _Plan, s: float, minv, x, r, p, y,
         minv.data_ptr(), x.data_ptr(), r.data_ptr(), p.data_ptr(),
         y.data_ptr(), state.partials.data_ptr(), state.sc.data_ptr(),
         state.st.data_ptr(), iters, _kernels.stream_of(minv)), "cg_chunk")
-    cg_matvec.launches += 1
-    cg_update.launches += 1
+    _chunk_launch.launches += 1
+
+
+_chunk_launch.launches = 0
 
 
 def cg_matvec(A, s: float, p: torch.Tensor):
@@ -781,41 +784,28 @@ cg_update.launches = 0
 CG_CHUNK = 32
 
 
-def _cg_kernels(A, s: float, diag, b, x0, tol: float, max_iter: int):
-    """The CG on the card: (x, iterations, residual) as ``_cg_solve``.
+def _cg_kernels(op: FaceOperator, s: float, diag, b, x0, tol: float,
+                max_iter: int):
+    """The CG on the card: (x, iterations, residual) as ``_cg_plain``.
     After a K9 and a K9u launch that start it, CG_CHUNK iterations go out
-    at a time: on a ``FaceOperator`` one persistent launch
-    (``_chunk_launch``), on PR 10's ``Csr`` a K9 and a K9u launch each. Any
-    of them returns at once when the flag is down. The host reads the flag
-    of the chunk before while the card runs this one: one host sync a chunk,
-    and one for the result."""
-    n = A.n
+    at a time in one persistent launch (``_chunk_launch``), which returns at
+    once when the flag is down. The host reads the flag of the chunk before
+    while the card runs this one: one host sync a chunk, and one for the
+    result."""
     state = _State.new(b.device, 0.0, max_iter)
     state.sc[_SC["thresh"]] = tol * tol * torch.dot(b, b)
     minv = 1.0 / diag
     y = torch.empty_like(b)
-    _matvec_launch(A, s, x0, y, state)         # y = (M + sI) x0
+    _matvec_launch(op, s, x0, y, state)        # y = (M + sI) x0
     x, r, p = x0.clone(), b - y, torch.empty_like(b)
     _update_launch(True, y, minv, x, r, p, state)
     flags = [torch.empty(len(_ST), dtype=torch.int32, pin_memory=True)
              for _ in range(2)]
     events = [torch.cuda.Event(), torch.cuda.Event()]
-    lib = _kernels.load()
-    stream = _kernels.stream_of(b)
-    plan = None if isinstance(A, Csr) else _chunk_plan(A)
+    plan = _chunk_plan(op)
     j = 0
     while True:
-        if plan is not None:
-            _chunk_launch(A, plan, s, minv, x, r, p, y, state, CG_CHUNK)
-        else:
-            _kernels.check(lib, lib.hpsdf_cg_iterations(
-                A.rowptr.data_ptr(), A.cols.data_ptr(), A.vals.data_ptr(), n,
-                float(s), minv.data_ptr(), x.data_ptr(),
-                r.data_ptr(), p.data_ptr(), y.data_ptr(),
-                state.partials.data_ptr(), state.sc.data_ptr(),
-                state.st.data_ptr(), CG_CHUNK, stream), "cg_iterations")
-            cg_matvec.launches += CG_CHUNK
-            cg_update.launches += CG_CHUNK
+        _chunk_launch(op, plan, s, minv, x, r, p, y, state, CG_CHUNK)
         flags[j % 2].copy_(state.st, non_blocking=True)
         events[j % 2].record()
         if j:
@@ -853,20 +843,12 @@ def _cg_plain(matvec, diag, b, x0, tol, max_iter: int):
 
 
 def _cg_solve_plain(R, C, V, s, diag, b, x0, n: int, tol, max_iter: int):
-    """``_cg_plain`` on the COO (``cg_matvec_plain``)."""
+    """Jacobi-preconditioned CG on (M + sI) x = b, M in COO form (R, C
+    int64, V f64, all on one device): ``hpsdf_tpu.continuity._cg_solve`` by
+    ``_cg_plain`` on the COO (``cg_matvec_plain``), the stopping rule r.r >
+    tol^2 b.b and k < max_iter. Returns (x, iterations, residual = |r|)."""
     return _cg_plain(lambda p: cg_matvec_plain(R, C, V, s, p), diag, b, x0,
                      tol, max_iter)
-
-
-def _cg_solve(R, C, V, s, diag, b, x0, n: int, tol, max_iter: int):
-    """Jacobi-preconditioned CG on (M + sI) x = b, M in COO form (R, C
-    int64, V f64, all on one device): ``hpsdf_tpu.continuity._cg_solve``,
-    the stopping rule r.r > tol^2 b.b and k < max_iter. Returns (x,
-    iterations, residual = |r|). CUDA tensors: sorted by row once (``csr``),
-    then PR 10's kernels; CPU tensors: the plain versions on the COO."""
-    if b.device.type == "cpu":
-        return _cg_solve_plain(R, C, V, s, diag, b, x0, n, tol, max_iter)
-    return _cg_kernels(csr(R, C, V, n), s, diag, b, x0, tol, max_iter)
 
 
 def cg_solve(op: FaceOperator, s, diag, b, x0, tol, max_iter: int):

@@ -209,32 +209,8 @@ __device__ __forceinline__ void face_terms(const Axis<D>& ax, int j, double w,
   }
 }
 
-// The product form of face_terms, kept for the length of an experiment (K9's
-// two forms timed side by side by k9_forms.py): each entry of the row formed
-// as sign * n_k * n_j, bit for bit the COO's value, times its p, added into
-// v[2D + side] (own face: AA +1, BB (-1)^(k + j); the neighbour's: AB
-// -(-1)^j, BA -(-1)^k).
-template <int D>
-__device__ __forceinline__ void face_entries(const Axis<D>& ax, int j,
-                                             double w, double wk,
-                                             const double* p, int own,
-                                             int deg, const int2 (&nb)[6],
-                                             double (&v)[6]) {
-  const double nn = __dmul_rn(wk, w);
-  const double po = j <= deg - ax.t ? p[own + ax.at] : 0.0;
-#pragma unroll
-  for (int side = 0; side < 2; ++side) {
-    const int2 b = nb[2 * D + side];
-    const double pn = b.x >= 0 && j <= b.y - ax.t ? p[b.x + ax.at] : 0.0;
-    const double so = side && ((ax.k + j) & 1) ? -nn : nn;
-    const double sn = (side ? (ax.k & 1) : (j & 1)) ? nn : -nn;
-    v[2 * D + side] = __fma_rn(sn, pn, __fma_rn(so, po, v[2 * D + side]));
-  }
-}
-
 // The terms of normal exponent j on all three axes, then each axis's member
 // steps to j + 1.
-template <bool PRODUCT>
 __device__ __forceinline__ void exponent_terms(Axis<0>& a0, Axis<1>& a1,
                                                Axis<2>& a2, int j,
                                                const double* nt,
@@ -242,15 +218,9 @@ __device__ __forceinline__ void exponent_terms(Axis<0>& a0, Axis<1>& a1,
                                                int deg, const int2 (&nb)[6],
                                                double (&v)[6]) {
   const double w = nt[j * kDepths];
-  if (PRODUCT) {
-    face_entries(a0, j, w, nt[a0.k * kDepths], p, own, deg, nb, v);
-    face_entries(a1, j, w, nt[a1.k * kDepths], p, own, deg, nb, v);
-    face_entries(a2, j, w, nt[a2.k * kDepths], p, own, deg, nb, v);
-  } else {
-    face_terms(a0, j, w, p, own, deg, nb, v);
-    face_terms(a1, j, w, p, own, deg, nb, v);
-    face_terms(a2, j, w, p, own, deg, nb, v);
-  }
+  face_terms(a0, j, w, p, own, deg, nb, v);
+  face_terms(a1, j, w, p, own, deg, nb, v);
+  face_terms(a2, j, w, p, own, deg, nb, v);
   a0.next(j + a0.t);
   a1.next(j + a1.t);
   a2.next(j + a2.t);
@@ -260,9 +230,7 @@ __device__ __forceinline__ void exponent_terms(Axis<0>& a0, Axis<1>& a1,
 // in slot order (k the row's exponent along the face's axis, J the jump of
 // its tangential mode; an absent face's J is not added), then its
 // cross-depth entries in CSR order. The loads of every face at one normal exponent go out
-// together; up to three exponents, all of them. PRODUCT: the entries' sums
-// instead (face_entries), added face by face.
-template <bool PRODUCT = false>
+// together; up to three exponents, all of them.
 __device__ __forceinline__ double leaf_row(const Faces& f, const Tables& t,
                                            const double* p, double s,
                                            int4 lf, const int2 (&nb)[6],
@@ -283,10 +251,10 @@ __device__ __forceinline__ double leaf_row(const Faces& f, const Tables& t,
   if (top <= 3) {
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      if (j < top) exponent_terms<PRODUCT>(a0, a1, a2, j, nt, p, lf.x, deg, nb, v);
+      if (j < top) exponent_terms(a0, a1, a2, j, nt, p, lf.x, deg, nb, v);
   } else {
     for (int j = 0; j < top; ++j)
-      exponent_terms<PRODUCT>(a0, a1, a2, j, nt, p, lf.x, deg, nb, v);
+      exponent_terms(a0, a1, a2, j, nt, p, lf.x, deg, nb, v);
   }
   double acc = 0.0;
 #pragma unroll
@@ -294,8 +262,7 @@ __device__ __forceinline__ double leaf_row(const Faces& f, const Tables& t,
     const int k = slot < 2 ? k0 : slot < 4 ? k1 : k2;
     const double w = nt[k * kDepths];
     if (nb[slot].x >= 0)
-      acc = PRODUCT ? acc + v[slot]
-                    : __fma_rn((slot & 1) && (k & 1) ? -w : w, v[slot], acc);
+      acc = __fma_rn((slot & 1) && (k & 1) ? -w : w, v[slot], acc);
   }
   if (lf.w >= 0) {
     const int xr = lf.w + r, end = __ldg(f.xrowptr + xr + 1);
@@ -309,7 +276,7 @@ __device__ __forceinline__ double leaf_row(const Faces& f, const Tables& t,
 // into y[row] or, LOCAL, into y in leaf order (the group's slice of shared
 // memory); returns the lane's sum of p_r y_r. The next leaf's row block and
 // face slots load while this one's rows run.
-template <bool LOCAL, bool PRODUCT = false>
+template <bool LOCAL>
 __device__ __forceinline__ double group_leaves(const Faces& f,
                                                const Tables& t,
                                                const double* p, double s,
@@ -334,7 +301,7 @@ __device__ __forceinline__ double group_leaves(const Faces& f,
       for (int j = 0; j < 6; ++j) nb2[j] = __ldg(f.slots + after * 6 + j);
     }
     for (int r = lane; r < lf.y - lf.x; r += f.group) {
-      const double yr = leaf_row<PRODUCT>(f, t, p, s, lf, nb, r);
+      const double yr = leaf_row(f, t, p, s, lf, nb, r);
       y[LOCAL ? off + r : lf.x + r] = yr;
       pap = __fma_rn(p[lf.x + r], yr, pap);
     }
@@ -412,12 +379,10 @@ struct Group {
 
 // K9 once on the face operator: a group of f.group lanes a leaf, the
 // leaves in a grid-stride loop; p.y and alpha as cg_matvec_kernel.
-template <bool PRODUCT>
-__device__ __forceinline__ void face_matvec(const Faces& f, double s,
-                                            const double* __restrict__ p,
-                                            double* __restrict__ y,
-                                            double* __restrict__ partials,
-                                            double* sc, int* st) {
+__global__ void __launch_bounds__(kThreads)
+face_matvec_kernel(Faces f, double s, const double* __restrict__ p,
+                   double* __restrict__ y, double* __restrict__ partials,
+                   double* sc, int* st) {
   __shared__ Tables t;
   __shared__ double smem[kWarps];
   __shared__ bool last;
@@ -428,9 +393,8 @@ __device__ __forceinline__ void face_matvec(const Faces& f, double s,
   const int64_t groups = (int64_t)kWarps * g.per_warp;
   double pap[1] = {0.0};
   if (g.live())
-    pap[0] = group_leaves<false, PRODUCT>(f, t, p, s,
-                                          blockIdx.x * groups + g.index,
-                                          gridDim.x * groups, g.lane, y);
+    pap[0] = group_leaves<false>(f, t, p, s, blockIdx.x * groups + g.index,
+                                 gridDim.x * groups, g.lane, y);
   block_sum(pap, smem);
   if (threadIdx.x == 0) {
     partials[blockIdx.x] = pap[0];
@@ -448,22 +412,6 @@ __device__ __forceinline__ void face_matvec(const Faces& f, double s,
     sc[kPAp] = total[0];
     sc[kAlpha] = sc[kRz] / total[0];
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-face_matvec_kernel(Faces f, double s, const double* __restrict__ p,
-                   double* __restrict__ y, double* __restrict__ partials,
-                   double* sc, int* st) {
-  face_matvec<false>(f, s, p, y, partials, sc, st);
-}
-
-// K9 in its product form (face_entries), for the length of an experiment.
-__global__ void __launch_bounds__(kThreads)
-face_matvec_product_kernel(Faces f, double s, const double* __restrict__ p,
-                           double* __restrict__ y,
-                           double* __restrict__ partials, double* sc,
-                           int* st) {
-  face_matvec<true>(f, s, p, y, partials, sc, st);
 }
 
 // `iters` CG iterations in one persistent cooperative launch (every block
@@ -856,24 +804,6 @@ extern "C" int hpsdf_face_matvec(const int* leaves, const int* slots,
   const int blocks = grid_for(face_matvec_kernel, n_leaves,
                               kWarps * (32 / group), &cache);
   face_matvec_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      f, s, p, y, partials, sc, st);
-  return (int)cudaGetLastError();
-}
-
-// K9 in its product form, as hpsdf_face_matvec (k9_forms.py times both).
-extern "C" int hpsdf_face_matvec_product(
-    const int* leaves, const int* slots, const int* xrowptr, const int* xcols,
-    const double* xvals, int n_leaves, int group, int widest, int64_t n,
-    double s, const double* p, double* y, double* partials, double* sc,
-    int* st, void* stream) {
-  if (n <= 0 || n_leaves <= 0 || group < 1 || group > 32)
-    return (int)cudaErrorInvalidValue;
-  static int cache = 0;
-  const Faces f = faces(leaves, slots, xrowptr, xcols, xvals, n_leaves,
-                        group, widest);
-  const int blocks = grid_for(face_matvec_product_kernel, n_leaves,
-                              kWarps * (32 / group), &cache);
-  face_matvec_product_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       f, s, p, y, partials, sc, st);
   return (int)cudaGetLastError();
 }

@@ -137,6 +137,28 @@ def test_k9_bounds_count_what_it_moves(mixed_depth):
         (2 * nnz + 4 * n) / chip_smoke.F64_PEAK * 1e3, rel=1e-12)
 
 
+def test_cg_counters_apart():
+    """chip_smoke.py reads K9, K9u and the persistent CG launch from three
+    counters of their own: a launch of one kernel moves no other's count."""
+    c = chip_smoke.counters()
+    wrappers = [c[k] for k in ("cg_matvec", "cg_update", "cg_chunk")]
+    assert len({(id(fn), attr) for fn, attr in wrappers}) == 3
+    assert c["cg_chunk"] == (TC._chunk_launch, "launches")
+    chip_smoke.reset_counts()
+    assert all(chip_smoke.read_counts()[k] == 0
+               for k in ("cg_matvec", "cg_update", "cg_chunk"))
+
+
+def test_k9u_ops_bound():
+    """chip_smoke.py's operation bound for K9u: six f64 FMAs a row, under its
+    byte bound (eight vectors of f64) at any n."""
+    for n in (1, 40960, 2606040):
+        ops = chip_smoke.update_ops(n)
+        assert ops == pytest.approx(12 * n / chip_smoke.F64_PEAK * 1e3,
+                                    rel=1e-12)
+        assert ops < 64 * n / chip_smoke.HBM_RATE * 1e3
+
+
 def test_plain_update():
     rng = np.random.default_rng(1)
     p, Ap, x, r = rng.normal(size=(4, 1000))
@@ -188,9 +210,9 @@ def test_random_coefficient_solve(mixed_depth):
                              8.0, jnp.asarray(diag), jnp.asarray(8.0 * c0),
                              jnp.asarray(c0), n=n, tol=1e-6,
                              max_iter=2 * n)
-    xt, kt, resid = TC._cg_solve(t(R), t(C), t(V), 8.0, t(diag),
-                                 t(8.0 * c0), t(c0), n=n, tol=1e-6,
-                                 max_iter=2 * n)
+    xt, kt, resid = TC._cg_solve_plain(t(R), t(C), t(V), 8.0, t(diag),
+                                       t(8.0 * c0), t(c0), n=n, tol=1e-6,
+                                       max_iter=2 * n)
     assert abs(kt - int(kj)) <= 1
     assert resid <= 1e-6 * np.linalg.norm(8.0 * c0)
     xj = np.asarray(xj)
