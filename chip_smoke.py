@@ -22,7 +22,12 @@ at full width, the flow of examples/end_to_end.py:
     target 3e-9, depth 7, degree 2), its CG through kernel K9 (the matvec
     on the face operator, with p.Ap) and a persistent launch of K9's and
     K9u's phases (the vector update with r.z and r.r and the new
-    direction), CG_CHUNK iterations a launch (csrc/continuity.cu).
+    direction), CG_CHUNK iterations a launch (csrc/continuity.cu);
+  * the mesh at the reference's scale ([mesh scale]): bumpy_sphere(0.3, 8)
+    (1,310,720 triangles) -> .obj -> the native host build -> a fit
+    through mesh_sdf's default, which takes the hybrid prune (kernel K10)
+    above 65,536 rows, and signed_distance_hybrid; the BVH walk (kernel
+    K11) through mesh_sdf(method="bvh") and signed_distance.
 
 The build's seconds outside F are split (split_again, split_build,
 fit_split: PhaseTimer phases around the port's own build._fit,
@@ -101,13 +106,29 @@ both. [inverse] runs bench.py's 1080p fit_to_depth, profiles a step with
 and without the replaced backward kernels (and with the fused read split
 again), and holds the kernels' 128^2 losses to the plain versions'.
 
+[mesh scale] runs the mesh -> SDF path at the reference's scale
+(bench.py:416-517): bumpy_sphere(0.3, 8), 1,310,720 triangles, written to
+.obj, loaded, half-edged and built into a BVH through the native host
+library (each stage's path is recorded and must be native), then kernel
+K10, the hybrid prune (csrc/hybrid.cu), held to its plain version at
+bench.py's 10,240 uniform points (d2 within P1's tolerance, the bound bit
+for bit, a differing index only on a tie), signed_distance_hybrid(atol=0)
+held to P1's exact signed distances with the share of points each
+escalation took, a tree fitted through mesh_sdf's default (which picks K10
+above AUTO_TILES_MAX rows) at the slice's config and held to P1 at 2^16
+points near the surface; kernel K11, the BVH walk (csrc/bvh_walk.cu), on
+icosphere(0.3, 5) exact against P1 and at mesh_sdf's default cap against
+its plain version; K10 and P1 at 82k and 1.31M triangles (the crossover)
+and both kernels in CUDA graphs beside their bounds and plain versions.
+
 Phases, one line each: device, build, ptxas, mesh, P1 vs plain, the slice,
 P1 at the fit batch, K1 vs plain, times, G vs plain, the reference-default
 fit, K2/K5 vs plain, K3 vs plain (three lines a tree: checks and rays,
 times and bound, serial floor), K4, the render path, K2/K5 at the main
 path's shapes, the degrees, the backward kernels, inverse rendering, the
 continuity post-process (three lines a size: checks, the run and its
-split, times), each phase's seconds; then one JSON line with the kernels
+split, times), the mesh at scale (K10, K11), each phase's seconds; then
+one JSON line with the kernels
 (K2/K5's launches also split into values and normals), the fit splits and
 the continuity runs, the card's name and power limit as nvidia-smi prints
 them, and the final JSON line
@@ -372,10 +393,13 @@ def counters():
     from hpsdf_tpu_torch.accel import (packed_eval_kernel, packed_grad_kernel,
                                        row_gather, row_scatter)
     from hpsdf_tpu_torch.continuity import _chunk_launch, cg_matvec, cg_update
-    from hpsdf_tpu_torch.mesh import closest_tri_tiles
+    from hpsdf_tpu_torch.mesh import (closest_bvh, closest_tri_tiles,
+                                      hybrid_closest)
     from hpsdf_tpu_torch.query import coeff_scatter_kernel, query_kernel
     from hpsdf_tpu_torch.render import cone_kernel, march_kernel
     return {"closest_tri": (closest_tri_tiles, "launches"),
+            "hybrid": (hybrid_closest, "launches"),
+            "bvh_walk": (closest_bvh, "launches"),
             "query": (query_kernel, "launches"),
             "row_gather": (row_gather, "launches"),
             "packed_eval": (packed_eval_kernel, "launches"),
@@ -3315,18 +3339,379 @@ def phase_continuity_degrees(smi, s=8.0):
     return errs, abs_errs
 
 
+# --- the mesh at the reference's scale: K10 (hybrid prune), K11 (BVH walk)
+MESH_SCALE_SUB = 8                  # bumpy_sphere(0.3, 8): 1,310,720 tris
+MESH_MID_SUB = 6                    # bumpy_sphere(0.3, 6): 81,920 tris
+N_MESH_PTS = 10240                  # bench.py:458-459
+N_NEAR = 1 << 16                    # the fit's check points near the surface
+NEAR_OFFSET = 0.01
+BOX_OPS = 20                        # f32 operations of a point-box distance
+NATIVE_STAGES = ("load_obj", "half_edge_twins", "mesh_geom", "kd_order",
+                 "pack_tri_rows", "bvh_node_rows")
+
+
+@contextlib.contextmanager
+def native_paths():
+    """While the block runs, records which native entry points of
+    hpsdf_tpu_torch.native returned a result (the stage took the native
+    path) or None (it fell back to numpy). Yields {stage: [path, ...]}."""
+    from unittest import mock
+
+    from hpsdf_tpu_torch import native
+    took = {}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            took.setdefault(name, []).append(
+                "numpy" if out is None else "native")
+            return out
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name in NATIVE_STAGES:
+            stack.enter_context(mock.patch.object(
+                native, name, wrap(name, getattr(native, name))))
+        yield took
+
+
+def surface_points(mesh, n, offset, seed):
+    """n points at distance up to ``offset`` from random points of random
+    triangles of the mesh (f32, host)."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, mesh.n_faces, n)
+    w = rng.dirichlet(np.ones(3), n)
+    tri = mesh.vertices[mesh.faces[t]]                     # (n, 3, 3)
+    on = (w[:, :, None] * tri).sum(axis=1)
+    out = on + rng.uniform(-offset, offset, (n, 1)) * mesh.face_normals[t]
+    return out.astype(np.float32)
+
+
+def hybrid_bounds(lo, pts, blocks, sub, k1):
+    """K10's bound at these points: the f32 operations of the NC + 8 k1 box
+    distances and the cascades over the kept blocks' rows a point (blocks:
+    the plain version's kept (sub)clusters, SUB rows each), against the
+    bytes of the points in, (d2, index, bound) out, the cluster boxes once
+    and the candidate rows' vertices once (the distinct rows kept). Returns
+    (bound ms, 'operations' or 'bytes', ops ms, bytes ms)."""
+    B, nc = pts.shape[0], lo.shape[0]
+    ops = B * ((nc + 8 * min(k1, nc)) * BOX_OPS
+               + blocks.shape[1] * sub * P1_OPS_PER_PAIR)
+    rows = torch.unique(blocks).numel() * sub
+    nbytes = B * 12 + B * 12 + nc * 24 + rows * 36
+    ops_ms, bytes_ms_ = ops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (max(ops_ms, bytes_ms_),
+            "operations" if ops_ms >= bytes_ms_ else "bytes", ops_ms,
+            bytes_ms_)
+
+
+def bvh_bounds(bvh, pts, visits, seen):
+    """K11's bound at these points from the plain version's walks: the f32
+    operations of two box distances a node row read and a cascade a
+    triangle row read, against the bytes of the points in, (d2, index) out
+    and each row any walk read, once (48 bytes of a node row, 36 of a
+    triangle's vertices)."""
+    T2 = bvh.n_leaves
+    nodes, leaves = visits.double().sum(dim=0).tolist()
+    ops = nodes * 2 * BOX_OPS + leaves * P1_OPS_PER_PAIR
+    nbytes = pts.shape[0] * 20 + int(seen[:T2].sum()) * 48 \
+        + int(seen[T2:].sum()) * 36
+    ops_ms, bytes_ms_ = ops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (max(ops_ms, bytes_ms_),
+            "operations" if ops_ms >= bytes_ms_ else "bytes", ops_ms,
+            bytes_ms_)
+
+
+def check_hybrid(bvh, pts, label, k1=None, k2=None):
+    """K10 against its plain version: d2 within TRI_ATOL + TRI_RTOL d2, the
+    bound bit for bit (both round the box distances alike and select
+    exactly), a differing index only where its triangle reaches the plain
+    best d2. Returns (max |d2 diff|, the plain version's kept blocks and
+    their rows each)."""
+    from hpsdf_tpu_torch.mesh import sdf as TS
+    k1 = k1 or TS.HYBRID_K1
+    k2 = k2 or TS.HYBRID_K2
+    lo, hi = TS.cluster_aabbs(bvh)
+    d2_k, idx_k, bd_k = TS.hybrid_closest(lo, hi, bvh.node_rows,
+                                          bvh.tri_rows, pts, k1, k2)
+    d2_p, idx_p, bd_p, blocks, sub = TS.hybrid_closest_plain(
+        lo, hi, bvh.node_rows, bvh.tri_rows, pts, k1, k2, with_blocks=True)
+    check(bool(torch.isfinite(d2_k).all()), f"K10 d2 finite at {label}")
+    err = (d2_k - d2_p).abs()
+    check(bool((err <= TRI_ATOL + TRI_RTOL * d2_p).all()),
+          f"K10 d2 vs plain at {label}: max {float(err.max()):.3e}")
+    check(bool(torch.equal(bd_k, bd_p)),
+          f"K10 bound vs plain at {label}: {int((bd_k != bd_p).sum())} "
+          "differ")
+    diff = torch.nonzero(idx_k != idx_p).flatten()
+    gap = (TS._tri_d2(bvh.tri_rows[idx_k[diff].long()], pts[diff])
+           - d2_p[diff]).abs()
+    check(bool((gap <= TRI_ATOL + TRI_RTOL * d2_p[diff]).all()),
+          f"K10 index at {label}: {diff.numel()} differ, worst d2 gap "
+          f"{float(gap.max()) if diff.numel() else 0.0:.3e}")
+    print(f"[mesh scale] K10 {label} (k1 {k1}, k2 {k2}): max|d2 - plain| "
+          f"{float(err.max()):.3e}, bound bit for bit, {diff.numel()} tied "
+          f"indices differ", flush=True)
+    return float(err.max()), blocks, sub
+
+
+def check_bvh_capped(bvh, pts, max_iters, exact_d2, label):
+    """K11 against its plain version at a cap: where the plain walk ended
+    8 iterations or more before the cap, the same d2 within
+    TRI_ATOL + TRI_RTOL d2 (a decision flips only where two distances are
+    within an ulp, and a flip can move where the cap cuts); everywhere
+    both are upper bounds of the exact d2. Returns (max |d2 diff| where
+    compared, share of walks with the plain version's visit counts, the
+    plain version's visits and rows read)."""
+    from hpsdf_tpu_torch.mesh import sdf as TS
+    d2_k, idx_k, vis_k = TS._bvh_launch(bvh, pts, max_iters, with_stats=True)
+    d2_p, idx_p, vis_p, seen = TS.closest_bvh_plain(bvh, pts, max_iters,
+                                                    with_stats=True)
+    iters = vis_p[:, 0] - bvh.depth + vis_p[:, 1] - 1
+    done = iters <= max_iters - 8
+    err = (d2_k - d2_p).abs()[done]
+    tol = TRI_ATOL + TRI_RTOL * d2_p[done]
+    check(bool((err <= tol).all()),
+          f"K11 d2 vs plain at {label}: max {float(err.max()):.3e}")
+    for name, d2 in (("kernel", d2_k), ("plain", d2_p)):
+        check(bool((d2 >= exact_d2 - (TRI_ATOL + TRI_RTOL * exact_d2))
+                   .all()), f"K11 {name} below the exact d2 at {label}")
+    same = float((vis_k == vis_p).all(dim=1).double().mean())
+    print(f"[mesh scale] K11 {label} (max_iters {max_iters}): max|d2 - "
+          f"plain| {float(err.max()):.3e} on the {int(done.sum())} walks "
+          f"that ended before the cap, {int((~done).sum())} capped, both "
+          f"upper bounds of the exact d2; visit counts equal on {same:.4%}",
+          flush=True)
+    return float(err.max()), same, vis_p, seen
+
+
+def phase_mesh_scale(cfg, bvh_ico, smi, seed=21):
+    """The mesh -> SDF path at the reference's scale (bench.py:416-517):
+    bumpy_sphere(0.3, 8) written to .obj, loaded and built through the
+    native host paths, then K10 against its plain version and, through
+    signed_distance_hybrid(atol=0), P1's exact distances; K11 on
+    icosphere(0.3, 5) (bench.py's bvh_signed_distance_10k) exact against P1
+    and at mesh_sdf's default cap against its plain version; a tree fitted
+    through mesh_sdf's default (K10) held to P1 near the surface; K10 and
+    P1 timed at 82k and 1.31M triangles; both kernels' times in CUDA
+    graphs beside their bounds. The main path's launches are read over
+    two runs: the fit with signed_distance_hybrid, and the walk through
+    mesh_sdf(method="bvh") and signed_distance. Returns (launches, the
+    kernels' entries)."""
+    import hpsdf_tpu_torch as T
+    from hpsdf_tpu_torch import _kernels, native
+    from hpsdf_tpu_torch.mesh import (build_bvh, build_mesh, gen, load_obj,
+                                      mesh_sdf, signed_distance,
+                                      signed_distance_hybrid)
+    from hpsdf_tpu_torch.mesh import sdf as TS
+    from hpsdf_tpu_torch.mesh.tiles_sdf import closest_tri_tiles, tile_table
+
+    dev = bvh_ico.tri_rows.device
+    check(native.available(), "the native host library builds and loads")
+    host = {}
+    t0 = time.perf_counter()
+    v, f = gen.bumpy_sphere(0.3, MESH_SCALE_SUB)
+    host["generate_s"] = time.perf_counter() - t0
+    path = os.path.join(_kernels.BUILD_DIR, "chip_smoke_1p3m.obj")
+    t0 = time.perf_counter()
+    gen.save_obj(path, v, f)
+    host["save_obj_s"] = time.perf_counter() - t0
+    with native_paths() as took:
+        t0 = time.perf_counter()
+        v2, f2, _ = load_obj(path)
+        host["load_obj_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh = build_mesh(v2, f2)
+        host["build_mesh_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bvh = build_bvh(mesh, device=dev)
+        sync()
+        host["build_bvh_s"] = time.perf_counter() - t0
+    os.remove(path)
+    paths = {k: ",".join(sorted(set(took.get(k, ["not called"]))))
+             for k in NATIVE_STAGES}
+    check(all(p == "native" for p in paths.values()),
+          f"a host stage left the native path: {paths}")
+    check(np.array_equal(f2, f) and float(np.abs(v2 - v).max()) < 1e-6,
+          "load_obj round trip")
+    T2 = bvh.n_leaves
+    lo, hi = TS.cluster_aabbs(bvh)
+    print(f"[mesh scale] {mesh.n_faces} triangles, {T2} rows, NC "
+          f"{lo.shape[0]}: tri_rows {bvh.tri_rows.numel() * 4 / 1e6:.1f} MB "
+          f"and node_rows {bvh.node_rows.numel() * 4 / 1e6:.1f} MB on the "
+          f"card; host {split_text(host)}; paths {paths}", flush=True)
+
+    rng = np.random.default_rng(seed)
+    pts = torch.as_tensor(rng.uniform(-0.5, 0.5, (N_MESH_PTS, 3))
+                          .astype(np.float32), device=dev)
+    table = tile_table(bvh.tri_rows)
+    k10_err, blocks, sub = check_hybrid(bvh, pts, "1.31M")
+    err_w, _, _ = check_hybrid(bvh, pts[:2048], "1.31M, escalation widths",
+                               4 * TS.HYBRID_K1, 4 * TS.HYBRID_K2)
+    k10_err = max(k10_err, err_w)
+    d2_p1, idx_p1 = closest_tri_tiles(bvh.tri_rows, pts, table)
+    exact = TS._signed_from_best(bvh.tri_rows, idx_p1, pts)
+
+    # --- main path, K10: the fit through mesh_sdf's default, then the
+    # certified distances ---
+    F = mesh_sdf(mesh, bvh)
+    check(F.method == "hybrid", f"mesh_sdf auto picked {F.method} at {T2}")
+    samples = [0]
+
+    def F_counted(p):
+        samples[0] += p.shape[0]
+        return F(p)
+
+    near = torch.as_tensor(surface_points(mesh, N_NEAR, NEAR_OFFSET, seed),
+                           device=dev)
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    tree = T.build_octree(cfg, F_counted, device=dev)
+    sync()
+    fit_s = time.perf_counter() - t0
+    fit_launches = read_counts()["hybrid"]
+    q = T.query(tree, near.double())
+    sd, (n_bad, n_worse) = signed_distance_hybrid(bvh, pts, atol=0.0,
+                                                  with_stats=True)
+    sync()
+    launches = read_counts()
+    check(launches["hybrid"] > 0, "K10 never launched on the main path")
+    check(launches["row_gather"] > 0, "G never launched on the mesh path")
+    sd_err = float((sd - exact).abs().max())
+    check(sd_err <= SIGNED_ATOL,
+          f"signed_distance_hybrid(atol=0) vs P1: {sd_err:.3e}")
+    fixed = TS.hybrid_sdf_fn(bvh)(pts)
+    fixed_err = float((fixed - exact).abs().max())
+    _, idx_near = closest_tri_tiles(bvh.tri_rows, near, table)
+    exact_near = TS._signed_from_best(bvh.tri_rows, idx_near, near)
+    fit_err = float((q - exact_near.double()).abs().max())
+    check(bool(torch.isfinite(q).all()) and fit_err < FIT_ATOL,
+          f"max|query - P1 signed distance| near the surface {fit_err}")
+    fit = {"fit_s": fit_s, "F_samples": samples[0], "nodes": tree.n_nodes,
+           "leaves": tree.num_leaves(), "deg_used": tree.deg_used,
+           "depth_used": tree.depth_used, "hybrid_launches": fit_launches,
+           "near_max_abs_err": fit_err}
+    print(f"[mesh scale] fit through mesh_sdf (K10): {fit_s:.3f} s, F "
+          f"samples {samples[0]}, nodes {tree.n_nodes}, leaves "
+          f"{tree.num_leaves()}, deg_used {tree.deg_used}, depth_used "
+          f"{tree.depth_used}, K10 launches {fit_launches} (and "
+          f"{launches['hybrid'] - fit_launches} in signed_distance_hybrid); "
+          f"max|query - P1| at {N_NEAR} points within {NEAR_OFFSET} of the "
+          f"surface {fit_err:.3e} | signed_distance_hybrid(atol=0) at "
+          f"{N_MESH_PTS} uniform points: {n_bad / N_MESH_PTS:.4%} escalated "
+          f"to 4x widths, {n_worse / N_MESH_PTS:.4%} to P1, max|. - P1| "
+          f"{sd_err:.3e}; fixed-K hybrid max|. - P1| {fixed_err:.3e}",
+          flush=True)
+
+    # --- main path, K11: the walk through mesh_sdf(method="bvh") and
+    # signed_distance on icosphere(0.3, 5) ---
+    mesh_ico = build_mesh(*gen.icosphere(0.3, 5))
+    table_ico = tile_table(bvh_ico.tri_rows)
+    d2_ico, idx_ico = closest_tri_tiles(bvh_ico.tri_rows, pts, table_ico)
+    exact_ico = TS._signed_from_best(bvh_ico.tri_rows, idx_ico, pts)
+    cap = 48 * bvh_ico.depth
+    reset_counts()
+    F_bvh = mesh_sdf(mesh_ico, bvh_ico, method="bvh")
+    s_cap = F_bvh(pts)
+    s_exact = signed_distance(bvh_ico, pts)
+    sync()
+    launches_w = read_counts()
+    check(launches_w["bvh_walk"] > 0, "K11 never launched on the main path")
+    walk_err = float((s_exact - exact_ico).abs().max())
+    check(walk_err <= SIGNED_ATOL,
+          f"K11 exact signed distance vs P1: {walk_err:.3e}")
+    d2_x, _ = TS.closest_bvh(bvh_ico, pts, None)
+    k11_err = float((d2_x - d2_ico).abs().max())
+    check(bool((d2_x - d2_ico).abs().le(TRI_ATOL + TRI_RTOL * d2_ico).all()),
+          f"K11 exact d2 vs P1: {k11_err:.3e}")
+    cap_err, same, vis_p, seen = check_bvh_capped(
+        bvh_ico, pts, cap, d2_ico, "icosphere(0.3, 5)")
+    check(bool((s_cap.abs() >= exact_ico.abs() - SIGNED_ATOL).all()),
+          "K11 capped distances are upper bounds")
+    print(f"[mesh scale] K11 exact: max|signed - P1| {walk_err:.3e}, "
+          f"max|d2 - P1| {k11_err:.3e}; capped at {cap}: "
+          f"max|signed - P1| {float((s_cap - exact_ico).abs().max()):.3e}; "
+          f"launches {launches_w['bvh_walk']}", flush=True)
+
+    # --- times: K10 and P1 at 82k and 1.31M, K11 capped and exact, plain
+    # versions once, all at the same points ---
+    mid = build_mesh(*gen.bumpy_sphere(0.3, MESH_MID_SUB))
+    bvh_mid = build_bvh(mid, device=dev)
+    lo_m, hi_m = TS.cluster_aabbs(bvh_mid)
+    table_mid = tile_table(bvh_mid.tri_rows)
+    check_hybrid(bvh_mid, pts, "82k")
+    cross = {}
+    for name, b, lo_, hi_, tab in (("82k", bvh_mid, lo_m, hi_m, table_mid),
+                                   ("1.31M", bvh, lo, hi, table)):
+        cross[name] = {
+            "rows": b.n_leaves, "clusters": lo_.shape[0],
+            "k10_ms": graph_ms(lambda: TS.hybrid_closest(
+                lo_, hi_, b.node_rows, b.tri_rows, pts), 5),
+            "p1_ms": graph_ms(lambda: closest_tri_tiles(b.tri_rows, pts,
+                                                        tab), 2)}
+    k10_plain = time_ms(lambda: TS.hybrid_closest_plain(
+        lo, hi, bvh.node_rows, bvh.tri_rows, pts), 1)
+    k10_bound = hybrid_bounds(lo, pts, blocks, sub, TS.HYBRID_K1)
+    k11_ms = graph_ms(lambda: TS.closest_bvh(bvh_ico, pts, cap), 5)
+    k11_exact_ms = graph_ms(lambda: TS.closest_bvh(bvh_ico, pts, None), 2)
+    k11_plain = time_ms(lambda: TS.closest_bvh_plain(bvh_ico, pts, cap), 1,
+                        warmup=0)
+    k11_bound = bvh_bounds(bvh_ico, pts, vis_p, seen)
+    k10_ms = cross["1.31M"]["k10_ms"]
+    print(f"[mesh scale] {smi} | K10 at {N_MESH_PTS} points, 1.31M: "
+          f"{k10_ms:.4f} ms, bound {k10_bound[0]:.4f} ms ({k10_bound[1]}; "
+          f"operations {k10_bound[2]:.4f}, bytes {k10_bound[3]:.4f}), "
+          f"{k10_bound[0] / k10_ms:.1%} of it, plain {k10_plain:.3f} ms | "
+          f"crossover (CUDA graphs, same points): 82k K10 "
+          f"{cross['82k']['k10_ms']:.4f} / P1 {cross['82k']['p1_ms']:.4f} "
+          f"ms, 1.31M K10 {k10_ms:.4f} / P1 {cross['1.31M']['p1_ms']:.4f} "
+          f"ms | K11 on icosphere(0.3, 5) capped at {cap}: {k11_ms:.4f} ms, "
+          f"exact {k11_exact_ms:.4f} ms, bound {k11_bound[0]:.5f} ms "
+          f"({k11_bound[1]}; operations {k11_bound[2]:.5f}, bytes "
+          f"{k11_bound[3]:.5f}), {k11_bound[0] / k11_ms:.2%} of it, plain "
+          f"{k11_plain:.3f} ms; mean rows a walk read "
+          f"{vis_p.double().mean(dim=0).tolist()}", flush=True)
+    total = {k: launches[k] + launches_w[k] for k in launches}
+    entries = {
+        "hybrid": {
+            "launches": total["hybrid"], "max_abs_err": k10_err,
+            "ms": k10_ms, "plain_ms": k10_plain, "bound_ms": k10_bound[0],
+            "bound_by": k10_bound[1], "library_ms": None,
+            "ops_bound_ms": k10_bound[2], "bytes_bound_ms": k10_bound[3],
+            "points": N_MESH_PTS, "crossover": cross, "fit": fit,
+            "host": host, "native_paths": paths,
+            "escalated_share": n_bad / N_MESH_PTS,
+            "to_p1_share": n_worse / N_MESH_PTS,
+            "signed_atol0_max_abs_err": sd_err,
+            "fixed_k_max_abs_err": fixed_err},
+        "bvh_walk": {
+            "launches": total["bvh_walk"],
+            "max_abs_err": max(k11_err, cap_err), "ms": k11_ms,
+            "plain_ms": k11_plain, "bound_ms": k11_bound[0],
+            "bound_by": k11_bound[1], "library_ms": None,
+            "ops_bound_ms": k11_bound[2], "bytes_bound_ms": k11_bound[3],
+            "exact_ms": k11_exact_ms, "max_iters": cap,
+            "visits_equal_share": same,
+            "mean_rows_read": vis_p.double().mean(dim=0).tolist(),
+            "signed_exact_max_abs_err": walk_err}}
+    return total, entries
+
+
 PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
                  "cone_kernel", "packed_grad_kernel", "coeff_scatter_kernel",
                  "row_scatter_kernel", "row_scatter_csr_kernel",
                  "cg_matvec_kernel", "cg_update_kernel", "face_matvec_kernel",
-                 "cg_chunk_kernel")
+                 "cg_chunk_kernel", "hybrid_kernel", "bvh_walk_kernel")
 
 
 def _ptxas_key(kernel, args):
     """The report's key for one instantiation, from its template arguments
     (ints, bools and the value type, in order)."""
-    if not args:                          # row_scatter(_csr)_kernel
+    if not args:                          # row_scatter(_csr), bvh_walk
         return "-"
+    if kernel == "hybrid_kernel":
+        return "two levels" if args[0] else "one level"
     if kernel == "cg_update_kernel":
         return "init" if args[0] else "iteration"
     if kernel == "cg_chunk_kernel":
@@ -3349,8 +3734,9 @@ def ptxas_check():
     ptxas reported them when the library was built. K1, K3, K4, K5's raw
     gradient (alone and fused with K2), K7 and K8 at degrees 3 and 5 (the
     main paths'), both forms of G's backward, K9 (on the face operator and
-    PR 10's CSR form), K9u and both forms of the persistent launch must
-    have no stack frame and no spills. Returns
+    in its CSR form), K9u, both forms of the persistent launch and both of
+    K10 must have no stack frame and no spills; K11 no spills (its walk's
+    stack is a frame). Returns
     {kernel: {key: [registers, stack, spill stores, spill loads]}}."""
     from hpsdf_tpu_torch import _kernels
 
@@ -3386,12 +3772,17 @@ def ptxas_check():
             ("K9", "face_matvec_kernel", ("-",)),
             ("K9 CSR", "cg_matvec_kernel", ("-",)),
             ("K9u", "cg_update_kernel", ("init", "iteration")),
-            ("K9 + K9u persistent", "cg_chunk_kernel", ("shared", "buffer"))):
+            ("K9 + K9u persistent", "cg_chunk_kernel", ("shared", "buffer")),
+            ("K10", "hybrid_kernel", ("one level", "two levels"))):
         got = found.get(kernel, {})
         for key in keys:
             check(key in got, f"ptxas report for {name} {key}")
             check(got[key][1:] == [0, 0, 0], f"{name} {key}: stack "
                   f"{got[key][1]} B, spills {got[key][2:]}")
+    # K11 keeps its walk's stack (32 ints) in a frame, by design: no spills
+    got = found.get("bvh_walk_kernel", {}).get("-")
+    check(got is not None and got[2:] == [0, 0],
+          f"ptxas report for K11: {got}")
     print(f"[ptxas] registers / stack / spill stores / spill loads (bytes): "
           + " | ".join(f"{k} {found.get(k, {})}" for k in PTXAS_KERNELS),
           flush=True)
@@ -3540,8 +3931,12 @@ def main():
     tcd = dict(zip(("errs", "abs_errs"), phase(
         "continuity degrees", phase_continuity_degrees, smi)))
 
+    # --- 13. the mesh at the reference's scale: K10 and K11 ----------------
+    launches_m, tm = phase("mesh scale", phase_mesh_scale, cfg, bvh, smi)
+
     total = {k: launches[k] + launches_r[k] + launches_i[k]
-             + launches_ca[k] + launches_cb[k] for k in launches}
+             + launches_ca[k] + launches_cb[k] + launches_m[k]
+             for k in launches}
     g_probe = tg[f"{G_TABLE[0]}x{G_TABLE[1]}"]
     g_rows = tg[f"{bvh.tri_rows.shape[0]}x{bvh.tri_rows.shape[1]}"]
     kernels = [
@@ -3553,6 +3948,12 @@ def main():
          "bound_ms": t["p1_bound"], "bound_by": "operations",
          "library_ms": None, "dense_bound_ms": t["p1_dense_bound"],
          "skipped_tile_share_uniform": t["p1_skipped"], **tf},
+        *({"name": name, "route": "cuda",
+           "source": f"hpsdf_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+           **tm[name], "launches": total[name],
+           "ptxas": ptxas.get(f"{name}_kernel", {})}
+          for name, replaces in (("hybrid", "hpsdf_tpu/mesh/sdf.py:292"),
+                                 ("bvh_walk", "hpsdf_tpu/mesh/sdf.py:73"))),
         {"name": "query", "route": "cuda",
          "source": "hpsdf_tpu_torch/csrc/query.cu",
          "replaces": "hpsdf_tpu/query.py:70",

@@ -43,6 +43,10 @@ _F32, _F64 = ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "hpsdf_stage_rows": (_P, _I64, _I64, _P, _P),
     "hpsdf_closest_tri": (_P, _P, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P),
+    "hpsdf_hybrid": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                     _I32, _P, _I64, _P, _P, _P, _P),
+    "hpsdf_bvh_walk": (_P, _P, _I64, _I64, _I32, _P, _I64, _I64, _P, _P, _P,
+                       _P),
     "hpsdf_query": (_P, _P, _P, _P, _I32, _I32, _P, _I64,
                     _F64, _F64, _F64, _F64, _F64, _F64, _I32, _P, _P, _P),
     "hpsdf_row_gather": (_P, _I64, _I64, _I64, _P, _I64, _P, _P),
@@ -77,6 +81,7 @@ _SIZE_SIGNATURES = {
     "hpsdf_packed_grad_scratch": (_I64, _I32, _I32, _I32),
     "hpsdf_cg_scratch": (),
     "hpsdf_cg_chunk_blocks": (_I64,),
+    "hpsdf_hybrid_smem": (_I64, _I64, _I64, _I32),
 }
 # and of the reference kernels under csrc/check/, which only checks load
 _CHECK_SIGNATURES = {

@@ -35,11 +35,12 @@
 //     (tiles_sdf.tile_table), stages every row as (a, ab, ac, |ab|^2, ab.ac,
 //     |ac|^2), twelve floats that three 16-byte shared-memory loads bring to
 //     every thread; d3..d6 then follow from d1 and d2 by one subtraction
-//     each. The cascade is Ericson's (RTCD 5.1.5) as in _closest_d2: six
-//     region predicates, the first true one wins, a division only in the
-//     region taken. Most pairs are far, in a vertex region, and divide
-//     nothing. A division is __fdividef (within 2 ulp, no flush to zero:
-//     the 1e-30 guards keep their meaning).
+//     each. The staging and the cascade live in tri.cuh, which K10 and K11
+//     share: Ericson's cascade (RTCD 5.1.5) as in _closest_d2, six region
+//     predicates, the first true one wins, a division only in the region
+//     taken. Most pairs are far, in a vertex region, and divide nothing. A
+//     division is __fdividef (within 2 ulp, no flush to zero: the 1e-30
+//     guards keep their meaning).
 //  3. Asynchronous tile loads. Tiles are double-buffered in shared memory
 //     and filled with cp.async: tile k+1 loads while tile k is scanned. A
 //     tile is 12 KB against 256 x 256 pairs of work, so this hides little.
@@ -90,6 +91,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tri.cuh"
+
 namespace {
 
 constexpr int kTile = 256;        // rows per tile (tiles_sdf.TILE)
@@ -98,12 +101,9 @@ constexpr int kPPT = 2;           // points per thread
 constexpr int kThreads = kBlockPts / kPPT;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStage = 12;        // staged floats per row (tiles_sdf.STAGE)
-constexpr float kEps = 1e-30f;
 constexpr float kCullRel = 0x1p-12f;   // tiles_sdf.CULL_REL
 
-__device__ __forceinline__ float guard(float x) {
-  return fabsf(x) > kEps ? x : kEps;
-}
+using hpsdf::closest_d2;
 
 // rows -> (a, ab, ac, |ab|^2, ab.ac, |ac|^2)
 __global__ void stage_rows(const float* __restrict__ rows, int64_t T,
@@ -111,53 +111,9 @@ __global__ void stage_rows(const float* __restrict__ rows, int64_t T,
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= T) return;
   const float* v = rows + r * stride;
-  const float ax = v[0], ay = v[1], az = v[2];
-  const float abx = v[3] - ax, aby = v[4] - ay, abz = v[5] - az;
-  const float acx = v[6] - ax, acy = v[7] - ay, acz = v[8] - az;
   float4* s = reinterpret_cast<float4*>(staged + r * kStage);
-  s[0] = make_float4(ax, ay, az, abx);
-  s[1] = make_float4(aby, abz, acx, acy);
-  s[2] = make_float4(acz, abx * abx + aby * aby + abz * abz,
-                     abx * acx + aby * acy + abz * acz,
-                     acx * acx + acy * acy + acz * acz);
-}
-
-// squared distance from p to one staged triangle
-__device__ __forceinline__ float closest_d2(float px, float py, float pz,
-                                            float4 t0, float4 t1, float4 t2) {
-  const float abx = t0.w, aby = t1.x, abz = t1.y;
-  const float acx = t1.z, acy = t1.w, acz = t2.x;
-  const float apx = px - t0.x, apy = py - t0.y, apz = pz - t0.z;
-  const float d1 = abx * apx + aby * apy + abz * apz;
-  const float d2 = acx * apx + acy * apy + acz * apz;
-  const float d3 = d1 - t2.y, d4 = d2 - t2.z;     // ab.(p - b), ac.(p - b)
-  const float d5 = d1 - t2.z, d6 = d2 - t2.w;     // ab.(p - c), ac.(p - c)
-  const float va = d3 * d6 - d5 * d4;
-  const float vb = d5 * d2 - d1 * d6;
-  const float vc = d1 * d4 - d3 * d2;
-  const float e43 = d4 - d3, e56 = d5 - d6;
-  float s, t;
-  if (d1 <= 0.f && d2 <= 0.f) {                          // vertex a
-    s = 0.f; t = 0.f;
-  } else if (d3 >= 0.f && d4 <= d3) {                    // vertex b
-    s = 1.f; t = 0.f;
-  } else if (d6 >= 0.f && d5 <= d6) {                    // vertex c
-    s = 0.f; t = 1.f;
-  } else if (vc <= 0.f && d1 >= 0.f && d3 <= 0.f) {      // edge ab
-    s = __fdividef(d1, guard(d1 - d3)); t = 0.f;
-  } else if (vb <= 0.f && d2 >= 0.f && d6 <= 0.f) {      // edge ca
-    s = 0.f; t = __fdividef(d2, guard(d2 - d6));
-  } else if (va <= 0.f && e43 >= 0.f && e56 >= 0.f) {    // edge bc
-    const float g = guard(e43 + e56);
-    s = __fdividef(e56, g); t = __fdividef(e43, g);
-  } else {                                               // face
-    const float g = guard(va + vb + vc);
-    s = __fdividef(vb, g); t = __fdividef(vc, g);
-  }
-  const float dx = apx - abx * s - acx * t;
-  const float dy = apy - aby * s - acy * t;
-  const float dz = apz - abz * s - acz * t;
-  return dx * dx + dy * dy + dz * dz;
+  hpsdf::stage_terms(v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8],
+                     s[0], s[1], s[2]);
 }
 
 // squared distance between the block's box and tile box bx (tiles_sdf._box_d2)

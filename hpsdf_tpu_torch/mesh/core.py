@@ -1,6 +1,5 @@
-"""Half-edge topology + Baerentzen-Aanaes pseudo-normals (host precompute).
-
-The numpy path of ``hpsdf_tpu/mesh/core.py`` (Meshing::Mesh, reference
+"""Half-edge topology + Baerentzen-Aanaes pseudo-normals (host precompute),
+as ``hpsdf_tpu/mesh/core.py`` computes them (Meshing::Mesh, reference
 Source/Meshing/Mesh.cpp):
 
   * half-edge pairing via an edge map; FAILS on non-watertight meshes, as
@@ -9,8 +8,9 @@ Source/Meshing/Mesh.cpp):
     -- a vectorized scatter-add of angle * face_normal.
   * edge pseudo-normals = pi-weighted two-face average (Mesh.cpp:200-213).
 
-The JAX package also has native C++ versions of the pairing and of the
-geometry pass; they are not ported yet (ROADMAP.md).
+The pairing and the geometry pass run in the native host library
+(``hpsdf_tpu_torch.native``) when it is available; the numpy code below is
+the fallback and the oracle the tests hold the native paths to.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from .. import native as _native
 
 
 class NotWatertightError(ValueError):
@@ -52,21 +54,33 @@ def build_mesh(vertices: np.ndarray, faces: np.ndarray) -> TriMesh:
     F = fc.shape[0]
 
     # --- half-edge pairing (reference: Mesh.cpp:87-131) --------------------
-    he_from = fc.ravel()                                  # (3F,)
-    he_to = fc[:, [1, 2, 0]].ravel()
-    key = (np.minimum(he_from, he_to).astype(np.int64) * v.shape[0]
-           + np.maximum(he_from, he_to))
-    order = np.argsort(key, kind="stable")
-    ks = key[order]
-    # each undirected edge must appear exactly twice, opposite direction
-    if ks.size % 2 or not np.all(ks[0::2] == ks[1::2]):
-        raise NotWatertightError("unpaired edge (boundary or non-manifold)")
-    a, b = order[0::2], order[1::2]
-    if not np.all(he_from[a] == he_to[b]):
-        raise NotWatertightError("inconsistently oriented edge pair")
-    twin = np.empty(3 * F, np.int32)
-    twin[a] = b
-    twin[b] = a
+    # native C++ pairing when built (same contract); the numpy sort-based
+    # pairing below is the fallback and oracle
+    twin = _native.half_edge_twins(fc, v.shape[0])
+    if twin is None:
+        he_from = fc.ravel()                              # (3F,)
+        he_to = fc[:, [1, 2, 0]].ravel()
+        key = (np.minimum(he_from, he_to).astype(np.int64) * v.shape[0]
+               + np.maximum(he_from, he_to))
+        order = np.argsort(key, kind="stable")
+        ks = key[order]
+        # each undirected edge must appear exactly twice, opposite direction
+        if ks.size % 2 or not np.all(ks[0::2] == ks[1::2]):
+            raise NotWatertightError(
+                "unpaired edge (boundary or non-manifold)")
+        a, b = order[0::2], order[1::2]
+        if not np.all(he_from[a] == he_to[b]):
+            raise NotWatertightError("inconsistently oriented edge pair")
+        twin = np.empty(3 * F, np.int32)
+        twin[a] = b
+        twin[b] = a
+
+    # --- geometry: the native single pass when available, else numpy ------
+    geom = _native.mesh_geom(v, fc, twin)
+    if geom is not None:
+        fn, vpn, epn = geom
+        return TriMesh(vertices=v, faces=fc, face_normals=fn, vertex_pn=vpn,
+                       edge_pn=epn, twin=twin.reshape(F, 3))
 
     # --- face normals -------------------------------------------------------
     e1 = v[fc[:, 1]] - v[fc[:, 0]]
@@ -105,3 +119,10 @@ def build_mesh(vertices: np.ndarray, faces: np.ndarray) -> TriMesh:
 
     return TriMesh(vertices=v, faces=fc, face_normals=fn, vertex_pn=vpn,
                    edge_pn=epn, twin=twin.reshape(F, 3))
+
+
+def mesh_from_obj(path: str) -> TriMesh:
+    """Mesh::CreateFromObj equivalent (Mesh.cpp:15-39): parse, then build."""
+    from .obj import load_obj
+    v, f, _ = load_obj(path)
+    return build_mesh(v, f)

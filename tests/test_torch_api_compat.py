@@ -8,6 +8,7 @@ import inspect
 import types
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -36,8 +37,17 @@ def test_mesh_sdf_positional_order():
     mesh = TM.build_mesh(*gen.icosphere(0.3, 1))
     F = TM.mesh_sdf(mesh, None, 0, "tiles", device="cpu")
     assert F.method == "tiles"
-    with pytest.raises(NotImplementedError, match="bvh"):
-        TM.mesh_sdf(mesh, None, None, "bvh", device="cpu")
+    # the BVH walk takes max_iters by position too: 1 visit leaves the
+    # greedy seed's triangle, an upper bound of the exact distance
+    pts = torch.tensor([[0.05, 0.02, 0.0], [0.4, 0.1, -0.2]])
+    exact = TM.mesh_sdf(mesh, None, 0, "bvh", device="cpu")
+    capped = TM.mesh_sdf(mesh, None, 1, "bvh", device="cpu")
+    assert exact.method == capped.method == "bvh"
+    assert bool((capped(pts).abs() >= exact(pts).abs() - 1e-7).all())
+    np.testing.assert_allclose(
+        exact(pts).numpy(), TM.signed_distance_brute(
+            TM.build_bvh(mesh, device="cpu").tri_rows, pts).numpy(),
+        rtol=0, atol=1e-6)
 
 
 def test_build_progress():

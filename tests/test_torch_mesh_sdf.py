@@ -102,6 +102,13 @@ def test_mesh_sdf_auto_takes_tiles_and_keeps_dtype():
     assert vals.dtype == torch.float64
     r = np.linalg.norm(pts.numpy(), axis=-1)
     np.testing.assert_allclose(vals.numpy(), r - 0.3, atol=0.02)
+    # the hybrid prune and the BVH walk run too, and agree with the scan
+    brute = TM.signed_distance_brute(
+        TM.build_bvh(TM.build_mesh(v, f), device="cpu").tri_rows, pts)
     for method in ("hybrid", "bvh"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.mesh_sdf(TM.build_mesh(v, f), method=method, device="cpu")
+        Fm = TM.mesh_sdf(TM.build_mesh(v, f), method=method, device="cpu")
+        assert Fm.method == method
+        got = Fm(pts)
+        assert got.dtype == torch.float64
+        np.testing.assert_allclose(got.numpy(), brute.numpy(), rtol=0,
+                                   atol=1e-6)

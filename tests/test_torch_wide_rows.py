@@ -104,34 +104,39 @@ def test_wide_rows(trees, read):
                                    atol=K1_ATOL)
 
 
-def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None):
+def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
+                 spills=None):
     """ptxas's lines for one instantiation; ``grad`` None: a kernel whose
     only template argument is the degree (K3). ``args``: the mangled
     template arguments, in place of the degree and ``grad``; "" for a
-    kernel that is no template."""
+    kernel that is no template. ``spills``: the spill stores and loads,
+    ``stack`` when not given."""
+    spills = stack if spills is None else spills
     flag = "" if grad is None else f"Lb{int(grad)}E"
     args = f"Li{deg}E{flag}" if args is None else args
     name = (f"_ZN40_GLOBAL__N__1f67f1e9_8_query_cu_1d77935312{kernel}"
             f"{f'I{args}E' if args else ''}EvPKiPKdS2_S4_iS4_lddddddiPdS5_")
     return (f"ptxas info    : Compiling entry function '{name}' for "
             f"'sm_90a'\nptxas info    : Function properties for {name}\n"
-            f"    {stack} bytes stack frame, {stack} bytes spill stores, "
-            f"{stack} bytes spill loads\nptxas info    : Used {regs} "
+            f"    {stack} bytes stack frame, {spills} bytes spill stores, "
+            f"{spills} bytes spill loads\nptxas info    : Used {regs} "
             f"registers, used 0 barriers, 22528 bytes smem\n")
 
 
 @pytest.mark.parametrize("spill", [None, "K1", "K3", "K7", "G CSR", "K5F",
-                                   "K9u", "chunk"],
+                                   "K9u", "chunk", "K10", "K11"],
                          ids=["clean", "spills", "march_spills",
                               "backward_spills", "csr_spills",
-                              "fused_spills", "cg_spills", "chunk_spills"])
+                              "fused_spills", "cg_spills", "chunk_spills",
+                              "hybrid_spills", "walk_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
     K5's raw gradient (alone or fused with K2), K7 or K8 at degree 3 or 5,
     either form of G's backward, or the continuity kernels (K9 on the face
     operator and in PR 10's CSR form, K9u's two forms, both forms of the
-    persistent launch) has a stack frame or spills."""
+    persistent launch) or K10 (either level count) has a stack frame or
+    spills, or K11 spills (its walk's stack is a frame by design)."""
     from hpsdf_tpu_torch import _kernels
 
     report = "".join(
@@ -173,6 +178,12 @@ def test_ptxas_check(monkeypatch, spill):
         report += _ptxas_entry("cg_chunk_kernel", 0, None, regs=128,
                                args=f"Lb{smem}E",
                                stack=16 if spill == "chunk" and smem else 0)
+    for two in (0, 1):
+        report += _ptxas_entry("hybrid_kernel", 0, None, regs=40,
+                               args=f"Lb{two}E",
+                               stack=8 if spill == "K10" and two else 0)
+    report += _ptxas_entry("bvh_walk_kernel", 0, None, args="", regs=38,
+                           stack=128, spills=4 if spill == "K11" else 0)
     monkeypatch.setattr(_kernels, "ptxas_report", lambda: report)
     if spill:
         with pytest.raises(RuntimeError, match={
@@ -181,7 +192,9 @@ def test_ptxas_check(monkeypatch, spill):
                 "G CSR": "G backward CSR -: stack 8",
                 "K5F": "K5 raw 3/fused: stack 16",
                 "K9u": "K9u init: stack 8",
-                "chunk": "K9 \\+ K9u persistent shared: stack 16"}[spill]):
+                "chunk": "K9 \\+ K9u persistent shared: stack 16",
+                "K10": "K10 two levels: stack 8",
+                "K11": "ptxas report for K11"}[spill]):
             chip_smoke.ptxas_check()
         return
     found = chip_smoke.ptxas_check()
@@ -205,3 +218,6 @@ def test_ptxas_check(monkeypatch, spill):
     assert found["face_matvec_kernel"] == {"-": [98, 0, 0, 0]}
     assert found["cg_chunk_kernel"] == {k: [128, 0, 0, 0]
                                         for k in ("shared", "buffer")}
+    assert found["hybrid_kernel"] == {k: [40, 0, 0, 0]
+                                      for k in ("one level", "two levels")}
+    assert found["bvh_walk_kernel"] == {"-": [38, 128, 0, 0]}
