@@ -63,6 +63,17 @@
 
 #include "tri.cuh"
 
+// Timing forms (k10_forms.py compiles this source alone with -D flags):
+// HPSDF_K10_STAGE 1 stops after the cluster box distances, 2 after both
+// selections, 3 (the default) runs the whole kernel; HPSDF_K10_FIX 1 takes
+// the compaction conflict-free (a warp a contiguous segment, ballots).
+#ifndef HPSDF_K10_STAGE
+#define HPSDF_K10_STAGE 3
+#endif
+#ifndef HPSDF_K10_FIX
+#define HPSDF_K10_FIX 0
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -167,6 +178,40 @@ __device__ float block_select(const float* vals, int n, int k, int* out,
   }
   // prefix is the k-th smallest key; take every smaller key and the first
   // r + 1 equal to it, in index order
+#if HPSDF_K10_FIX
+  const int lane = tid & 31, warp = tid >> 5;
+  const int seg = (n + kThreads - 1) / kThreads * 32;
+  const int lo = min(n, warp * seg), hi = min(n, lo + seg);
+  int lt = 0, eq = 0;
+  float above = INFINITY;
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    const unsigned key = i < hi ? __float_as_uint(vals[i]) : 0xffffffffu;
+    lt += __popc(__ballot_sync(kFull, key < prefix));
+    eq += __popc(__ballot_sync(kFull, key == prefix));
+    if (i < hi && key > prefix) above = fminf(above, vals[i]);
+  }
+  int eq_total;
+  const int eq_before = __shfl_sync(
+      kFull, block_excl_scan(lane == 0 ? eq : 0, sh, &eq_total), 0);
+  const int take_eq = max(0, min(eq, r + 1 - eq_before));
+  int n_sel;
+  int pos = __shfl_sync(
+      kFull, block_excl_scan(lane == 0 ? lt + take_eq : 0, sh, &n_sel), 0);
+  int eq_run = eq_before;
+  const unsigned lower = (1u << lane) - 1u;
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    const unsigned key = i < hi ? __float_as_uint(vals[i]) : 0xffffffffu;
+    const unsigned eq_m = __ballot_sync(kFull, key == prefix);
+    const bool take = key < prefix
+        || (key == prefix && eq_run + __popc(eq_m & lower) <= r);
+    const unsigned take_m = __ballot_sync(kFull, take);
+    if (take) out[pos + __popc(take_m & lower)] = i;
+    pos += __popc(take_m);
+    eq_run += __popc(eq_m);
+  }
+#else
   const int per = (n + kThreads - 1) / kThreads;
   const int lo = min(n, tid * per), hi = min(n, lo + per);
   int lt = 0, eq = 0;
@@ -187,6 +232,7 @@ __device__ float block_select(const float* vals, int n, int k, int* out,
     const unsigned key = __float_as_uint(vals[i]);
     if (key < prefix || (key == prefix && taken++ < take_eq)) out[pos++] = i;
   }
+#endif
   // the smallest left out: the k-th value again if more are equal to it
   const float rest_min = block_min(above, sh);
   __syncthreads();                  // out is complete
@@ -220,6 +266,15 @@ hybrid_kernel(const float* __restrict__ node_lo,
                               __ldg(h), __ldg(h + 1), __ldg(h + 2));
   }
   __syncthreads();
+  if (HPSDF_K10_STAGE == 1) {             // the box distances alone
+    const float m = block_min(tid < nc ? d_clu[tid] : INFINITY, sh);
+    if (tid == 0) {
+      best_d2[i] = m;
+      best_idx[i] = 0;
+      bound[i] = m;
+    }
+    return;
+  }
   float bnd = block_select(d_clu, nc, k1, sel1, sh);
 
   // 3. the subclusters of the kept clusters
@@ -241,6 +296,14 @@ hybrid_kernel(const float* __restrict__ node_lo,
     __syncthreads();
     bnd = fminf(bnd, block_select(d_sub, 8 * k1, k2, sel2, sh));
     n_blocks = k2;
+  }
+  if (HPSDF_K10_STAGE == 2) {             // the distances and selections
+    if (tid == 0) {
+      best_d2[i] = bnd;
+      best_idx[i] = kTwo ? sel2[0] + sel2[k2 - 1] : sel1[0] + sel1[k1 - 1];
+      bound[i] = bnd;
+    }
+    return;
   }
 
   // 4. every row of the kept (sub)clusters
