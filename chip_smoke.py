@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (hpsdf_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k10-parent DIR]
 
 Builds the port's CUDA kernels from csrc/ and drives its main paths once
 at full width, the flow of examples/end_to_end.py:
@@ -111,15 +111,25 @@ again), and holds the kernels' 128^2 losses to the plain versions'.
 .obj, loaded, half-edged and built into a BVH through the native host
 library (each stage's path is recorded and must be native), then kernel
 K10, the hybrid prune (csrc/hybrid.cu), held to its plain version at
-bench.py's 10,240 uniform points (d2 within P1's tolerance, the bound bit
-for bit, a differing index only on a tie), signed_distance_hybrid(atol=0)
-held to P1's exact signed distances with the share of points each
-escalation took, a tree fitted through mesh_sdf's default (which picks K10
-above AUTO_TILES_MAX rows) at the slice's config and held to P1 at 2^16
-points near the surface; kernel K11, the BVH walk (csrc/bvh_walk.cu), on
+bench.py's 10,240 uniform points, at the escalation widths, at 2^16
+points near the surface (inside many boxes: the tie-heavy case) and at
+the fit's largest batch (d2 within P1's tolerance, the bound bit for bit,
+a differing index only on a tie), signed_distance_hybrid(atol=0) held to
+P1's exact signed distances with the share of points each escalation
+took, a tree fitted through mesh_sdf's default (which picks K10 above
+AUTO_TILES_MAX rows) at the slice's config, held to P1 at 2^16 points near
+the surface and split by phase in a second build (MESH_PHASES: F, K10's
+launches and the sign inside it, the projection, points and copies, the
+host topology); kernel K11, the BVH walk (csrc/bvh_walk.cu), on
 icosphere(0.3, 5) exact against P1 and at mesh_sdf's default cap against
-its plain version; K10 and P1 at 82k and 1.31M triangles (the crossover)
-and both kernels in CUDA graphs beside their bounds and plain versions.
+its plain version; K10 split by stage (its source built alone with
+HPSDF_K10_STAGE 1 and 2: up to the cluster and the subcluster selection),
+at the fit's largest batch and, with --k10-parent, beside PR 12's K10
+built from that tree, in CUDA graphs, the smaller of two turns; its bound
+on its own work (the kernel's per-point counts) and on the plain
+version's; K10 and P1 at 32k (also at the slice fit's largest batch), 82k
+and 1.31M triangles (the crossover), and K11 in CUDA graphs beside its
+bound and plain version.
 
 Phases, one line each: device, build, ptxas, mesh, P1 vs plain, the slice,
 P1 at the fit batch, K1 vs plain, times, G vs plain, the reference-default
@@ -136,6 +146,7 @@ them, and the final JSON line
 non-zero. Without a CUDA device it exits 1 and prints no result.
 """
 
+import argparse
 import contextlib
 import dataclasses
 import functools
@@ -3387,16 +3398,26 @@ def surface_points(mesh, n, offset, seed):
     return out.astype(np.float32)
 
 
-def hybrid_bounds(lo, pts, blocks, sub, k1):
-    """K10's bound at these points: the f32 operations of the NC + 8 k1 box
-    distances and the cascades over the kept blocks' rows a point (blocks:
-    the plain version's kept (sub)clusters, SUB rows each), against the
-    bytes of the points in, (d2, index, bound) out, the cluster boxes once
-    and the candidate rows' vertices once (the distinct rows kept). Returns
-    (bound ms, 'operations' or 'bytes', ops ms, bytes ms)."""
+def hybrid_bounds(lo, pts, blocks, sub, k1, stats=None):
+    """K10's bound at these points. Operations: with ``stats`` (the
+    kernel's own counts a point, ``sdf._hybrid_launch(with_stats=True)``)
+    the f32 operations of the box distances it took (the NCH chunk boxes,
+    the clusters of the chunks it visited, the subclusters) and of the
+    cascades over the rows it scanned; without, those of every box distance
+    and row the plain version takes (NC + 8 k1, the kept blocks' rows).
+    Bytes: the points in, (d2, index, bound) out, the cluster boxes once
+    and the candidate rows' vertices once (the distinct rows the plain
+    version kept, blocks of SUB rows). Returns (bound ms, 'operations' or
+    'bytes', ops ms, bytes ms)."""
     B, nc = pts.shape[0], lo.shape[0]
-    ops = B * ((nc + 8 * min(k1, nc)) * BOX_OPS
-               + blocks.shape[1] * sub * P1_OPS_PER_PAIR)
+    if stats is None:
+        ops = B * ((nc + 8 * min(k1, nc)) * BOX_OPS
+                   + blocks.shape[1] * sub * P1_OPS_PER_PAIR)
+    else:
+        nch = min(nc // 32, 256) if nc >= 64 else 1
+        work = stats.double().sum(dim=0).tolist()
+        ops = (B * nch + work[1] + work[2]) * BOX_OPS \
+            + work[3] * P1_OPS_PER_PAIR
     rows = torch.unique(blocks).numel() * sub
     nbytes = B * 12 + B * 12 + nc * 24 + rows * 36
     ops_ms, bytes_ms_ = ops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
@@ -3422,20 +3443,89 @@ def bvh_bounds(bvh, pts, visits, seen):
             bytes_ms_)
 
 
-def check_hybrid(bvh, pts, label, k1=None, k2=None):
+def build_hybrid_forms(src, stages, tag, stats_arg=True):
+    """K10's source ``src`` compiled alone with nvcc, once for each
+    HPSDF_K10_STAGE in ``stages`` (1: stop after the cluster selection, 2:
+    after the subcluster selection, 3: the kernel; a source without the
+    macro builds the kernel whatever the stage), all nvcc processes started
+    together, into ctypes libraries beside the kernel library, which no
+    path of the package loads; ``stats_arg`` as for hybrid_form. Returns
+    {stage: library}."""
+    import ctypes
+
+    from hpsdf_tpu_torch import _kernels
+    os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
+    jobs = {}
+    for stage in stages:
+        out = os.path.join(_kernels.BUILD_DIR,
+                           f"k10_{tag}_stage{stage}.so")
+        cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared",
+               f"-DHPSDF_K10_STAGE={stage}", "-o", out, src]
+        jobs[stage] = (out, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for stage, (out, cmd, proc) in jobs.items():
+        so, se = proc.communicate()
+        check(proc.returncode == 0,
+              f"nvcc of a K10 form: {' '.join(cmd)}\n{so}\n{se}")
+        lib = ctypes.CDLL(out)
+        args = list(_kernels._SIGNATURES["hpsdf_hybrid"])
+        lib.hpsdf_hybrid.argtypes = args if stats_arg else args[:-2] \
+            + args[-1:]
+        lib.hpsdf_hybrid.restype = ctypes.c_int
+        libs[stage] = lib
+    return libs
+
+
+def hybrid_form(lib, bvh, pts, k1=None, k2=None, stats_arg=True,
+                rows=None):
+    """A call of a K10 form's library (build_hybrid_forms) on these points,
+    with the wrapper's layout, into outputs allocated once: for timing and
+    checks, counted by no launch counter. ``stats_arg`` False: the PR 12
+    kernel's entry point, which takes no stats pointer. ``rows``: the
+    triangle rows it reads (``bvh.tri_rows`` by default). Returns the call,
+    which returns (best_d2, best_idx, bound)."""
+    from hpsdf_tpu_torch import _kernels
+    from hpsdf_tpu_torch.mesh import sdf as TS
+    lo, hi = TS.cluster_aabbs(bvh)
+    nc, first, sub, two, k1, k2 = TS._layout(
+        lo, bvh.node_rows, bvh.tri_rows, k1 or TS.HYBRID_K1,
+        k2 or TS.HYBRID_K2)
+    rows = bvh.tri_rows if rows is None else rows
+    B = pts.shape[0]
+    out = (torch.empty(B, dtype=torch.float32, device=pts.device),
+           torch.empty(B, dtype=torch.int32, device=pts.device),
+           torch.empty(B, dtype=torch.float32, device=pts.device))
+    stats = (None,) if stats_arg else ()
+
+    def run():
+        rc = lib.hpsdf_hybrid(
+            lo.data_ptr(), hi.data_ptr(), bvh.node_rows.data_ptr(),
+            rows.data_ptr(), rows.stride(0), nc, first, sub,
+            k1, k2, int(two), pts.data_ptr(), B, out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), *stats,
+            _kernels.stream_of(pts))
+        check(rc == 0, f"K10 form launch: CUDA error {rc}")
+        return out
+    return run
+
+
+def check_hybrid(bvh, pts, label, k1=None, k2=None, rows=None):
     """K10 against its plain version: d2 within TRI_ATOL + TRI_RTOL d2, the
     bound bit for bit (both round the box distances alike and select
     exactly), a differing index only where its triangle reaches the plain
-    best d2. Returns (max |d2 diff|, the plain version's kept blocks and
-    their rows each)."""
+    best d2. ``rows``: the triangle rows both read, as the main path passes
+    them (``sdf.vertex_rows``) by default. Returns (max |d2 diff|, the
+    plain version's kept blocks and their rows each)."""
     from hpsdf_tpu_torch.mesh import sdf as TS
     k1 = k1 or TS.HYBRID_K1
     k2 = k2 or TS.HYBRID_K2
+    rows = TS.vertex_rows(bvh.tri_rows) if rows is None else rows
     lo, hi = TS.cluster_aabbs(bvh)
-    d2_k, idx_k, bd_k = TS.hybrid_closest(lo, hi, bvh.node_rows,
-                                          bvh.tri_rows, pts, k1, k2)
+    d2_k, idx_k, bd_k = TS.hybrid_closest(lo, hi, bvh.node_rows, rows, pts,
+                                          k1, k2)
     d2_p, idx_p, bd_p, blocks, sub = TS.hybrid_closest_plain(
-        lo, hi, bvh.node_rows, bvh.tri_rows, pts, k1, k2, with_blocks=True)
+        lo, hi, bvh.node_rows, rows, pts, k1, k2, with_blocks=True)
     check(bool(torch.isfinite(d2_k).all()), f"K10 d2 finite at {label}")
     err = (d2_k - d2_p).abs()
     check(bool((err <= TRI_ATOL + TRI_RTOL * d2_p).all()),
@@ -3485,19 +3575,59 @@ def check_bvh_capped(bvh, pts, max_iters, exact_d2, label):
     return float(err.max()), same, vis_p, seen
 
 
-def phase_mesh_scale(cfg, bvh_ico, smi, seed=21):
+# K10 time split (build_hybrid_forms): the forms stopped after each stage
+HYBRID_STAGES = {1: "cluster prune", 2: "subcluster prune"}
+MESH_PHASES = FIT_PHASES + (("mesh.sdf", "_hybrid_launch", "K10"),
+                            ("mesh.sdf", "_signed_from_best", "sign"))
+
+
+def time_hybrid(bvh, pts, forms, parent, reps=5):
+    """K10 at these points in CUDA graphs, in two turns: the kernel through
+    its wrapper on the rows the main path passes (``sdf.vertex_rows``) and
+    on the packed rows, the forms stopped after each stage, and the PR 12
+    kernel, when its library is given, on both rows. Returns {name: the
+    smaller ms of the turns}."""
+    from hpsdf_tpu_torch.mesh import sdf as TS
+    lo, hi = TS.cluster_aabbs(bvh)
+    verts = TS.vertex_rows(bvh.tri_rows)
+    calls = {"kernel": lambda: TS.hybrid_closest(
+        lo, hi, bvh.node_rows, verts, pts),
+        "kernel, packed rows": lambda: TS.hybrid_closest(
+            lo, hi, bvh.node_rows, bvh.tri_rows, pts)}
+    calls.update({HYBRID_STAGES[s]: hybrid_form(lib, bvh, pts, rows=verts)
+                  for s, lib in forms.items()})
+    if parent is not None:
+        calls["pr12_kernel"] = hybrid_form(parent, bvh, pts,
+                                           stats_arg=False)
+        calls["pr12_kernel, vertex rows"] = hybrid_form(
+            parent, bvh, pts, stats_arg=False, rows=verts)
+    times = {k: [] for k in calls}
+    for _ in range(2):
+        for k, fn in calls.items():
+            times[k].append(graph_ms(fn, reps))
+    return {k: min(v) for k, v in times.items()}
+
+
+def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, parent_tree=None,
+                     seed=21):
     """The mesh -> SDF path at the reference's scale (bench.py:416-517):
     bumpy_sphere(0.3, 8) written to .obj, loaded and built through the
-    native host paths, then K10 against its plain version and, through
-    signed_distance_hybrid(atol=0), P1's exact distances; K11 on
-    icosphere(0.3, 5) (bench.py's bvh_signed_distance_10k) exact against P1
-    and at mesh_sdf's default cap against its plain version; a tree fitted
-    through mesh_sdf's default (K10) held to P1 near the surface; K10 and
-    P1 timed at 82k and 1.31M triangles; both kernels' times in CUDA
-    graphs beside their bounds. The main path's launches are read over
-    two runs: the fit with signed_distance_hybrid, and the walk through
-    mesh_sdf(method="bvh") and signed_distance. Returns (launches, the
-    kernels' entries)."""
+    native host paths, then K10 against its plain version (at the uniform
+    points, at the escalation widths, at N_NEAR points near the surface,
+    where many boxes lie at distance 0, and at the fit's largest batch)
+    and, through signed_distance_hybrid(atol=0), P1's exact distances; K11
+    on icosphere(0.3, 5) (bench.py's bvh_signed_distance_10k) exact against
+    P1 and at mesh_sdf's default cap against its plain version; a tree
+    fitted through mesh_sdf's default (K10) held to P1 near the surface and
+    split by phase in a second build (F, K10 inside it, the sign, the
+    projection, the host topology); K10 split by stage, at the fit's
+    largest batch and beside the PR 12 kernel (built from
+    ``parent_tree``'s csrc/hybrid.cu when given) in CUDA graphs; K10 and
+    P1 at 32k (at the uniform points and the slice fit's largest batch,
+    ``slice_pts``), 82k and 1.31M triangles. The main path's launches are
+    read over two runs: the fit with signed_distance_hybrid, and the walk
+    through mesh_sdf(method="bvh") and signed_distance. Returns (launches,
+    the kernels' entries)."""
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch import _kernels, native
     from hpsdf_tpu_torch.mesh import (build_bvh, build_mesh, gen, load_obj,
@@ -3507,27 +3637,38 @@ def phase_mesh_scale(cfg, bvh_ico, smi, seed=21):
     from hpsdf_tpu_torch.mesh.tiles_sdf import closest_tri_tiles, tile_table
 
     dev = bvh_ico.tri_rows.device
-    check(native.available(), "the native host library builds and loads")
-    host = {}
-    t0 = time.perf_counter()
-    v, f = gen.bumpy_sphere(0.3, MESH_SCALE_SUB)
-    host["generate_s"] = time.perf_counter() - t0
-    path = os.path.join(_kernels.BUILD_DIR, "chip_smoke_1p3m.obj")
-    t0 = time.perf_counter()
-    gen.save_obj(path, v, f)
-    host["save_obj_s"] = time.perf_counter() - t0
-    with native_paths() as took:
+    src = os.path.join(os.path.dirname(_kernels.__file__), "csrc",
+                       "hybrid.cu")
+    with ThreadPoolExecutor(2) as pool:       # the forms build meanwhile
+        forms_job = pool.submit(build_hybrid_forms, src, HYBRID_STAGES,
+                                "split")
+        parent_job = None if parent_tree is None else pool.submit(
+            build_hybrid_forms, os.path.join(
+                parent_tree, "hpsdf_tpu_torch", "csrc", "hybrid.cu"), (3,),
+            "pr12", False)
+        check(native.available(), "the native host library builds and loads")
+        host = {}
         t0 = time.perf_counter()
-        v2, f2, _ = load_obj(path)
-        host["load_obj_s"] = time.perf_counter() - t0
+        v, f = gen.bumpy_sphere(0.3, MESH_SCALE_SUB)
+        host["generate_s"] = time.perf_counter() - t0
+        path = os.path.join(_kernels.BUILD_DIR, "chip_smoke_1p3m.obj")
         t0 = time.perf_counter()
-        mesh = build_mesh(v2, f2)
-        host["build_mesh_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        bvh = build_bvh(mesh, device=dev)
-        sync()
-        host["build_bvh_s"] = time.perf_counter() - t0
-    os.remove(path)
+        gen.save_obj(path, v, f)
+        host["save_obj_s"] = time.perf_counter() - t0
+        with native_paths() as took:
+            t0 = time.perf_counter()
+            v2, f2, _ = load_obj(path)
+            host["load_obj_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mesh = build_mesh(v2, f2)
+            host["build_mesh_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            bvh = build_bvh(mesh, device=dev)
+            sync()
+            host["build_bvh_s"] = time.perf_counter() - t0
+        os.remove(path)
+        forms = forms_job.result()
+        parent = None if parent_job is None else parent_job.result()[3]
     paths = {k: ",".join(sorted(set(took.get(k, ["not called"]))))
              for k in NATIVE_STAGES}
     check(all(p == "native" for p in paths.values()),
@@ -3544,11 +3685,21 @@ def phase_mesh_scale(cfg, bvh_ico, smi, seed=21):
     rng = np.random.default_rng(seed)
     pts = torch.as_tensor(rng.uniform(-0.5, 0.5, (N_MESH_PTS, 3))
                           .astype(np.float32), device=dev)
+    near = torch.as_tensor(surface_points(mesh, N_NEAR, NEAR_OFFSET, seed),
+                           device=dev)
     table = tile_table(bvh.tri_rows)
+    verts = TS.vertex_rows(bvh.tri_rows)
     k10_err, blocks, sub = check_hybrid(bvh, pts, "1.31M")
-    err_w, _, _ = check_hybrid(bvh, pts[:2048], "1.31M, escalation widths",
-                               4 * TS.HYBRID_K1, 4 * TS.HYBRID_K2)
-    k10_err = max(k10_err, err_w)
+    errs = [check_hybrid(bvh, pts, "1.31M, packed rows",
+                         rows=bvh.tri_rows)[0]]
+    errs += [check_hybrid(bvh, p, label, k1, k2)[0] for p, label, k1, k2 in (
+        (pts[:2048], "1.31M, escalation widths", 4 * TS.HYBRID_K1,
+         4 * TS.HYBRID_K2),
+        (near, f"1.31M, {N_NEAR} points near the surface", None, None),
+        (near[:2048], "1.31M, near the surface, escalation widths",
+         4 * TS.HYBRID_K1, 4 * TS.HYBRID_K2))]
+    near_err = errs[2]
+    k10_err = max(k10_err, *errs)
     d2_p1, idx_p1 = closest_tri_tiles(bvh.tri_rows, pts, table)
     exact = TS._signed_from_best(bvh.tri_rows, idx_p1, pts)
 
@@ -3557,13 +3708,14 @@ def phase_mesh_scale(cfg, bvh_ico, smi, seed=21):
     F = mesh_sdf(mesh, bvh)
     check(F.method == "hybrid", f"mesh_sdf auto picked {F.method} at {T2}")
     samples = [0]
+    largest = [torch.empty((0, 3))]
 
     def F_counted(p):
         samples[0] += p.shape[0]
+        if p.shape[0] > largest[0].shape[0]:
+            largest[0] = p
         return F(p)
 
-    near = torch.as_tensor(surface_points(mesh, N_NEAR, NEAR_OFFSET, seed),
-                           device=dev)
     reset_counts()
     sync()
     t0 = time.perf_counter()
@@ -3588,21 +3740,27 @@ def phase_mesh_scale(cfg, bvh_ico, smi, seed=21):
     fit_err = float((q - exact_near.double()).abs().max())
     check(bool(torch.isfinite(q).all()) and fit_err < FIT_ATOL,
           f"max|query - P1 signed distance| near the surface {fit_err}")
+    split, timer, _, _ = split_again(
+        lambda: T.build_octree(cfg, F, device=dev), MESH_PHASES)
+    split.update({"K10_s": timer.times.get("K10", 0.0),
+                  "K10_calls": timer.counts.get("K10", 0),
+                  "sign_s": timer.times.get("sign", 0.0)})
     fit = {"fit_s": fit_s, "F_samples": samples[0], "nodes": tree.n_nodes,
            "leaves": tree.num_leaves(), "deg_used": tree.deg_used,
            "depth_used": tree.depth_used, "hybrid_launches": fit_launches,
-           "near_max_abs_err": fit_err}
+           "near_max_abs_err": fit_err, "split": split}
     print(f"[mesh scale] fit through mesh_sdf (K10): {fit_s:.3f} s, F "
           f"samples {samples[0]}, nodes {tree.n_nodes}, leaves "
           f"{tree.num_leaves()}, deg_used {tree.deg_used}, depth_used "
           f"{tree.depth_used}, K10 launches {fit_launches} (and "
           f"{launches['hybrid'] - fit_launches} in signed_distance_hybrid); "
-          f"max|query - P1| at {N_NEAR} points within {NEAR_OFFSET} of the "
-          f"surface {fit_err:.3e} | signed_distance_hybrid(atol=0) at "
-          f"{N_MESH_PTS} uniform points: {n_bad / N_MESH_PTS:.4%} escalated "
-          f"to 4x widths, {n_worse / N_MESH_PTS:.4%} to P1, max|. - P1| "
-          f"{sd_err:.3e}; fixed-K hybrid max|. - P1| {fixed_err:.3e}",
-          flush=True)
+          f"a second build split: {split_text(split)}, "
+          f"{split['K10_calls']} K10 calls; max|query - P1| at {N_NEAR} "
+          f"points within {NEAR_OFFSET} of the surface {fit_err:.3e} | "
+          f"signed_distance_hybrid(atol=0) at {N_MESH_PTS} uniform points: "
+          f"{n_bad / N_MESH_PTS:.4%} escalated to 4x widths, "
+          f"{n_worse / N_MESH_PTS:.4%} to P1, max|. - P1| {sd_err:.3e}; "
+          f"fixed-K hybrid max|. - P1| {fixed_err:.3e}", flush=True)
 
     # --- main path, K11: the walk through mesh_sdf(method="bvh") and
     # signed_distance on icosphere(0.3, 5) ---
@@ -3634,39 +3792,97 @@ def phase_mesh_scale(cfg, bvh_ico, smi, seed=21):
           f"max|signed - P1| {float((s_cap - exact_ico).abs().max()):.3e}; "
           f"launches {launches_w['bvh_walk']}", flush=True)
 
-    # --- times: K10 and P1 at 82k and 1.31M, K11 capped and exact, plain
-    # versions once, all at the same points ---
+    # --- K10 at the fit's largest batch: checked, timed, bound ---
+    fit_pts = largest[0].to(torch.float32).contiguous()
+    fb_err, fb_blocks, _ = check_hybrid(
+        bvh, fit_pts, f"1.31M, the fit's largest batch ({fit_pts.shape[0]} "
+        "points)")
+    k10_err = max(k10_err, fb_err)
+    fb_times = time_hybrid(bvh, fit_pts, {}, parent, reps=2)
+    fb_stats = TS._hybrid_launch(lo, hi, bvh.node_rows, verts, fit_pts,
+                                 with_stats=True)[3]
+    fb_bound = hybrid_bounds(lo, fit_pts, fb_blocks, sub, TS.HYBRID_K1,
+                             fb_stats)
+    fb_full = hybrid_bounds(lo, fit_pts, fb_blocks, sub, TS.HYBRID_K1)
+    fb_work = fb_stats.double().mean(dim=0).tolist()
+    del fb_blocks, fb_stats
+
+    # --- times: K10 split by stage and beside the PR 12 kernel; K10 and P1
+    # at 32k, 82k and 1.31M; K11 capped and exact; plain versions once ---
+    if parent is not None:
+        bd_o = hybrid_form(parent, bvh, pts, stats_arg=False)()[2]
+        bd_k = TS.hybrid_closest(lo, hi, bvh.node_rows, verts, pts)[2]
+        check(bool(torch.equal(bd_o, bd_k)),
+              "K10 bound vs the PR 12 kernel's, bit for bit")
+    split_ms = time_hybrid(bvh, pts, forms, parent)
     mid = build_mesh(*gen.bumpy_sphere(0.3, MESH_MID_SUB))
     bvh_mid = build_bvh(mid, device=dev)
-    lo_m, hi_m = TS.cluster_aabbs(bvh_mid)
-    table_mid = tile_table(bvh_mid.tri_rows)
     check_hybrid(bvh_mid, pts, "82k")
+    check_hybrid(bvh_ico, pts, "32k (icosphere(0.3, 5))")
+    sp = slice_pts.to(torch.float32).contiguous()
+    check_hybrid(bvh_ico, sp[:N_FIT_CHECK], "32k, the slice fit's batch "
+                 f"(first {N_FIT_CHECK} of {sp.shape[0]})")
     cross = {}
-    for name, b, lo_, hi_, tab in (("82k", bvh_mid, lo_m, hi_m, table_mid),
-                                   ("1.31M", bvh, lo, hi, table)):
+    for name, b, p, reps in (
+            ("32k", bvh_ico, pts, 5),
+            ("32k, slice fit batch", bvh_ico, sp, 2),
+            ("82k", bvh_mid, pts, 5), ("1.31M", bvh, pts, 5)):
+        lo_, hi_ = TS.cluster_aabbs(b)
+        tab = tile_table(b.tri_rows)
+        vb = TS.vertex_rows(b.tri_rows)
         cross[name] = {
             "rows": b.n_leaves, "clusters": lo_.shape[0],
+            "points": p.shape[0],
             "k10_ms": graph_ms(lambda: TS.hybrid_closest(
-                lo_, hi_, b.node_rows, b.tri_rows, pts), 5),
-            "p1_ms": graph_ms(lambda: closest_tri_tiles(b.tri_rows, pts,
-                                                        tab), 2)}
+                lo_, hi_, b.node_rows, vb, p), reps),
+            "p1_ms": graph_ms(lambda: closest_tri_tiles(b.tri_rows, p, tab),
+                              2)}
     k10_plain = time_ms(lambda: TS.hybrid_closest_plain(
-        lo, hi, bvh.node_rows, bvh.tri_rows, pts), 1)
-    k10_bound = hybrid_bounds(lo, pts, blocks, sub, TS.HYBRID_K1)
+        lo, hi, bvh.node_rows, verts, pts), 1)
+    stats = TS._hybrid_launch(lo, hi, bvh.node_rows, verts, pts,
+                              with_stats=True)[3]
+    work = stats.double().mean(dim=0).tolist()
+    k10_bound = hybrid_bounds(lo, pts, blocks, sub, TS.HYBRID_K1, stats)
+    k10_full = hybrid_bounds(lo, pts, blocks, sub, TS.HYBRID_K1)
     k11_ms = graph_ms(lambda: TS.closest_bvh(bvh_ico, pts, cap), 5)
     k11_exact_ms = graph_ms(lambda: TS.closest_bvh(bvh_ico, pts, None), 2)
     k11_plain = time_ms(lambda: TS.closest_bvh_plain(bvh_ico, pts, cap), 1,
                         warmup=0)
     k11_bound = bvh_bounds(bvh_ico, pts, vis_p, seen)
-    k10_ms = cross["1.31M"]["k10_ms"]
+    k10_ms = split_ms["kernel"]
+    pr12 = ({"ms": split_ms["pr12_kernel"],
+             "fit_batch_ms": fb_times["pr12_kernel"],
+             "vertex_rows_ms": split_ms["pr12_kernel, vertex rows"],
+             "fit_batch_vertex_rows_ms":
+                 fb_times["pr12_kernel, vertex rows"]}
+            if parent is not None else None)
     print(f"[mesh scale] {smi} | K10 at {N_MESH_PTS} points, 1.31M: "
-          f"{k10_ms:.4f} ms, bound {k10_bound[0]:.4f} ms ({k10_bound[1]}; "
-          f"operations {k10_bound[2]:.4f}, bytes {k10_bound[3]:.4f}), "
-          f"{k10_bound[0] / k10_ms:.1%} of it, plain {k10_plain:.3f} ms | "
-          f"crossover (CUDA graphs, same points): 82k K10 "
-          f"{cross['82k']['k10_ms']:.4f} / P1 {cross['82k']['p1_ms']:.4f} "
-          f"ms, 1.31M K10 {k10_ms:.4f} / P1 {cross['1.31M']['p1_ms']:.4f} "
-          f"ms | K11 on icosphere(0.3, 5) capped at {cap}: {k11_ms:.4f} ms, "
+          f"{k10_ms:.4f} ms, bound on its own work {k10_bound[0]:.5f} ms "
+          f"({k10_bound[1]}; operations {k10_bound[2]:.5f}, bytes "
+          f"{k10_bound[3]:.5f}), {k10_bound[0] / k10_ms:.1%} of it (a "
+          f"point's chunks, clusters, subclusters, rows {work}); bound on "
+          f"the plain version's work {k10_full[0]:.4f} ms "
+          f"({k10_full[0] / k10_ms:.1%}); plain {k10_plain:.3f} ms; "
+          f"split: " + ", ".join(f"{HYBRID_STAGES[s]} "
+                                 f"{split_ms[HYBRID_STAGES[s]]:.4f}"
+                                 for s in HYBRID_STAGES)
+          + f", whole {k10_ms:.4f} ms (on the packed rows "
+          f"{split_ms['kernel, packed rows']:.4f}); at the fit's largest "
+          f"batch"
+          f" ({fit_pts.shape[0]} points) {fb_times['kernel']:.4f} ms (packed "
+          f"rows {fb_times['kernel, packed rows']:.4f}), bound "
+          f"on its work {fb_bound[0]:.4f} ms ({fb_bound[1]}), "
+          f"{fb_bound[0] / fb_times['kernel']:.1%} of it (a point's work "
+          f"{fb_work}), on the plain version's {fb_full[0]:.4f} ms"
+          + ("" if pr12 is None else
+             f"; the PR 12 kernel {pr12['ms']:.4f} ms, at the fit batch "
+             f"{pr12['fit_batch_ms']:.4f} ms (on the vertex rows "
+             f"{pr12['vertex_rows_ms']:.4f} / "
+             f"{pr12['fit_batch_vertex_rows_ms']:.4f})")
+          + " | crossover (CUDA graphs): " + ", ".join(
+              f"{k} ({v['points']} points) K10 {v['k10_ms']:.4f} / P1 "
+              f"{v['p1_ms']:.4f} ms" for k, v in cross.items())
+          + f" | K11 on icosphere(0.3, 5) capped at {cap}: {k11_ms:.4f} ms, "
           f"exact {k11_exact_ms:.4f} ms, bound {k11_bound[0]:.5f} ms "
           f"({k11_bound[1]}; operations {k11_bound[2]:.5f}, bytes "
           f"{k11_bound[3]:.5f}), {k11_bound[0] / k11_ms:.2%} of it, plain "
@@ -3679,8 +3895,21 @@ def phase_mesh_scale(cfg, bvh_ico, smi, seed=21):
             "ms": k10_ms, "plain_ms": k10_plain, "bound_ms": k10_bound[0],
             "bound_by": k10_bound[1], "library_ms": None,
             "ops_bound_ms": k10_bound[2], "bytes_bound_ms": k10_bound[3],
-            "points": N_MESH_PTS, "crossover": cross, "fit": fit,
-            "host": host, "native_paths": paths,
+            "full_bound_ms": k10_full[0], "work_mean": work,
+            "points": N_MESH_PTS,
+            "split_ms": {HYBRID_STAGES[s]: split_ms[HYBRID_STAGES[s]]
+                         for s in HYBRID_STAGES},
+            "packed_rows_ms": split_ms["kernel, packed rows"],
+            "fit_batch": {"points": fit_pts.shape[0],
+                          "ms": fb_times["kernel"],
+                          "packed_rows_ms": fb_times["kernel, packed rows"],
+                          "bound_ms": fb_bound[0], "bound_by": fb_bound[1],
+                          "ops_bound_ms": fb_bound[2],
+                          "bytes_bound_ms": fb_bound[3],
+                          "full_bound_ms": fb_full[0], "work_mean": fb_work},
+            "pr12_kernel": pr12, "near_max_abs_err": near_err,
+            "crossover": cross, "fit": fit, "host": host,
+            "native_paths": paths,
             "escalated_share": n_bad / N_MESH_PTS,
             "to_p1_share": n_worse / N_MESH_PTS,
             "signed_atol0_max_abs_err": sd_err,
@@ -3797,7 +4026,14 @@ def nvidia_smi():
     return out.strip().splitlines()[0]
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--k10-parent", metavar="DIR", default=None,
+                    help="a tree of the port's PR 12 (git archive of its "
+                    "commit, unpacked): [mesh scale] builds its "
+                    "csrc/hybrid.cu alone and times that K10 beside this "
+                    "one")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -3932,7 +4168,8 @@ def main():
         "continuity degrees", phase_continuity_degrees, smi)))
 
     # --- 13. the mesh at the reference's scale: K10 and K11 ----------------
-    launches_m, tm = phase("mesh scale", phase_mesh_scale, cfg, bvh, smi)
+    launches_m, tm = phase("mesh scale", phase_mesh_scale, cfg, bvh, smi,
+                           fit_pts, args.k10_parent)
 
     total = {k: launches[k] + launches_r[k] + launches_i[k]
              + launches_ca[k] + launches_cb[k] + launches_m[k]

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "hpsdf_stage_rows": (_P, _I64, _I64, _P, _P),
     "hpsdf_closest_tri": (_P, _P, _P, _I64, _P, _I64, _I32, _P, _P, _P, _P),
     "hpsdf_hybrid": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
-                     _I32, _P, _I64, _P, _P, _P, _P),
+                     _I32, _P, _I64, _P, _P, _P, _P, _P),
     "hpsdf_bvh_walk": (_P, _P, _I64, _I64, _I32, _P, _I64, _I64, _P, _P, _P,
                        _P),
     "hpsdf_query": (_P, _P, _P, _P, _I32, _I32, _P, _I64,

@@ -1,13 +1,14 @@
-// K10: the closest triangle per point by the hybrid prune, a block a point.
+// K10: the closest triangle per point by the hybrid prune, a warp a point.
 //
 // Replaces the XLA-fused loop _hybrid_closest, hpsdf_tpu/mesh/sdf.py:292-364
 // (with _axes_dist2 :261-271, _select_min :274-289 and _axes_dist2_pairs
 // :367-375). Same contract:
 //   in : node_lo, node_hi f32 (NC, 3), the boxes of the level-1 kd clusters
 //        (sdf.cluster_aabbs: the heap level whose nodes cover CS = min(256,
-//        T2) leaf rows, FIRST = T2 / CS its first heap id); node_rows f32
-//        (>= 8 FIRST, 16); tri_rows f32 (T2, stride >= 9); pts f32 (B, 3);
-//        k1, k2 the clusters and subclusters kept
+//        T2) leaf rows, FIRST = T2 / CS = NC its first heap id); node_rows
+//        f32 (>= 8 FIRST, 16); tri_rows f32 (T2, stride >= 9: the packed
+//        rows or sdf.vertex_rows); pts f32 (B, 3); k1, k2 the clusters and
+//        subclusters kept
 //   out: best_d2 f32[B], best_idx i32[B] (a row of tri_rows), bound f32[B]
 // Per point:
 //   1. the squared distance to each of the NC cluster boxes;
@@ -23,37 +24,66 @@
 // bound = min(bound1, bound2) is the exact minimum over every pruned box,
 // so max(0, sqrt(best_d2) - sqrt(bound)) bounds the distance's error
 // (sdf._dist_err_bound). Selection is exact: the k smallest by value, ties
-// to the lower index (the subclusters indexed in ascending cluster order),
-// so a pruned entry is never smaller than a kept one and bound is the
-// (k+1)-th smallest value. The box distances round as the plain version's
-// (tri.cuh aabb_d2), so both keep the same sets and give the same bound bit
-// for bit; best_d2 differs from the plain cascade's only by FMA contraction.
+// to the lower index (subcluster 8 c + j: ascending cluster order), so a
+// pruned entry is never smaller than a kept one and bound is the (k+1)-th
+// smallest value. The box distances round as the plain version's (tri.cuh
+// aabb_d2), so both keep the same sets and give the same bound bit for bit;
+// best_d2 differs from the plain cascade's only by FMA contraction.
 //
-// Bound on the H100. Per point the work is NC + 8 k1 box distances (about
-// 20 f32 operations each) and k2 SUB triangle cascades (about 50), against
-// 12 bytes in, 12 out, the cluster boxes (24 NC bytes, once for all points)
-// and the candidate rows: at the reference scale (1,310,720 triangles, NC =
-// 8,192, k1 = k2 = 48, SUB = 32) 180k operations and 1,536 rows a point.
-// Few points share rows, so the rows' bytes and the operations are of one
-// order; chip_smoke.py prices both on the run's points. The selections are
-// not arithmetic: they are passes over shared memory. The design:
-//   - a block of 256 threads a point; the NC cluster distances go to shared
-//     memory (32 KB at NC = 8,192), computed lane-strided from the boxes,
-//     which every block reads and which stay in L2;
-//   - an exact k-selection over them by a radix select on the float bits
-//     (the distances are >= +0, so their bits order as they do): four passes
-//     of 8 bits, each a shared histogram filled with warp-aggregated atomics
-//     (__match_any_sync: the distances of a pass share few digits) and a
-//     block scan that finds the digit holding rank k - 1; then one pass that
-//     takes every key below the k-th and, in index order, as many equal to it
-//     as rank k - 1 needs, written in ascending index order, and the bound;
-//   - the same over the 8 k1 subcluster boxes, read from the kept clusters'
-//     grandchild heap rows as float4s;
-//   - the threads stride over the k2 SUB candidate rows (consecutive threads
-//     on consecutive rows of a subcluster), each row's vertices read as two
-//     float4s and a float, P1's cascade, and a block argmin.
-// Nothing of the TPU's gather economics carries over: no (B, K SUB, 32)
-// gather is materialised.
+// Design on the H100. A key is 64 bits, (distance bits, index): distances
+// are >= +0, so the keys order as (value, lower index), the plain order.
+//   - a block of 8 warps takes 8 consecutive points of the batch, a warp a
+//     point; after the first barrier no warp waits for another;
+//   - the NC clusters fall into NCH <= 256 chunks of G = NC / NCH
+//     consecutive clusters, chunk j the subtree of heap node NCH + j, whose
+//     box its parent's row holds. The block stages the NCH chunk boxes in
+//     shared memory once for its 8 points, and each warp takes its point's
+//     distance to every chunk. A box contains its descendants' boxes (the
+//     BVH's unions, bit for bit) and aabb_d2 does not decrease when a box
+//     shrinks, so a chunk's distance is a lower bound of every key in it;
+//   - the warp visits its chunks nearest first (a warp min over the chunk
+//     distances) and stops at the first one above its threshold, a lane a
+//     cluster distance of the chunk;
+//   - the warp's candidates are a list in shared memory: a key joins (a
+//     ballot gives its slot) only below the threshold, the (k+1)-th
+//     smallest key of the list when it was last compacted; a compaction (a
+//     bitonic sort of the list by the warp) keeps the k+1 smallest. A key
+//     at or above the threshold ranks after k + 1 kept keys, so it is never
+//     needed, whatever the ties: the selection has no overflow case. A last
+//     sort puts the kept keys first in ascending order; key k's distance is
+//     the bound;
+//   - the subclusters: the kept clusters in ascending key order, 4 a round
+//     (a lane a subcluster, its box from the grandchild row as float4s),
+//     into a second list the same way; a round whose first cluster lies
+//     above the threshold ends the stage (a subcluster's box lies inside its
+//     cluster's);
+//   - the lanes take the k2 SUB candidate rows 32 x kRounds at a time, the
+//     kept blocks nearest box first (consecutive lanes on consecutive rows
+//     of a subcluster), P1's cascade, and a warp argmin, lowest row on
+//     ties. The rows stop at a box farther than the best row so far by
+//     more than the rounding of both distances (kReach): a box holds its
+//     rows' triangles, so no row there or in a farther box could come below
+//     the best in the plain scan. best_d2 and the index are the full
+//     scan's, up to the FMA contraction the cascade already differs by.
+// The main path passes sdf.vertex_rows, the rows' lanes 0..11 in 48 bytes,
+// as tri_rows: 32 rows of a subcluster then lie in twelve whole 128-byte
+// lines, where 128-byte packed rows cost two 32-byte sectors each for the
+// 36 bytes read. Results are the same on either.
+// What this does about the PR 12 form's time (k10_forms.py at c73896f: a
+// block a point, 8,192 cluster distances a point read from L2 0.22 ms, a
+// radix select with a bank-conflicted compaction 0.80 ms, the cascade 0.21
+// ms at 10,240 points on 1.31M triangles): the boxes a point reads fall to
+// the chunks it visits (8 of 256 at uniform points), the selections sort
+// lists of about a hundred keys, no block barrier waits on the slowest
+// point, and a point near the surface scans a few of its 48 subclusters.
+// What bounds it now: the cascade's rows, about 1,370 a point away from
+// the surface, read from L2 or, for points in random order, device
+// memory; then the selections' sorts (instructions). PERF.md §6 has the
+// split (chip_smoke.py's [mesh scale]).
+//
+// Timing forms: chip_smoke.py compiles this source alone with
+// HPSDF_K10_STAGE 1 (stop after the cluster selection) or 2 (after the
+// subcluster selection); 3, the default, is the kernel.
 //
 // Numerics. Built without --use_fast_math (the cascade's 1e-30 guards).
 
@@ -63,180 +93,93 @@
 
 #include "tri.cuh"
 
-// Timing forms (k10_forms.py compiles this source alone with -D flags):
-// HPSDF_K10_STAGE 1 stops after the cluster box distances, 2 after both
-// selections, 3 (the default) runs the whole kernel; HPSDF_K10_FIX 1 takes
-// the compaction conflict-free (a warp a contiguous segment, ballots).
 #ifndef HPSDF_K10_STAGE
 #define HPSDF_K10_STAGE 3
-#endif
-#ifndef HPSDF_K10_FIX
-#define HPSDF_K10_FIX 0
 #endif
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = 8;                 // points a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxChunks = 256;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kDone = 0xffffffffu;   // a visited chunk
+constexpr uint64_t kNone = ~0ull;         // above every key
+// the rounding allowed for a point-box and a point-triangle distance, of the
+// coordinates' scale 1 + |px| + |py| + |pz|: the f32 box distance and P1's
+// cascade each round within a few ulps of it
+constexpr float kReach = 1e-5f;
+constexpr int kRounds = 2;                // cascade rounds between stops
 
-struct Scratch {
-  int hist[256];
-  int warp_tot[kWarps];
-  float red_f[kWarps];
-  int red_i[kWarps];
-  int digit, rest;
+__device__ __forceinline__ uint64_t make_key(float d, unsigned idx) {
+  return ((uint64_t)__float_as_uint(d) << 32) | idx;
+}
+
+__device__ __forceinline__ unsigned key_bits(uint64_t key) {
+  return (unsigned)(key >> 32);
+}
+
+__device__ __forceinline__ uint64_t umin64(uint64_t a, uint64_t b) {
+  return b < a ? b : a;
+}
+
+// a[0, n) in ascending order, by the whole warp (bitonic, in shared memory;
+// n padded with kNone to a power of two >= 32, within the list's capacity)
+__device__ void warp_sort(uint64_t* a, int n) {
+  const int lane = threadIdx.x & 31;
+  int len = 32;
+  while (len < n) len <<= 1;
+  for (int i = n + lane; i < len; i += 32) a[i] = kNone;
+  __syncwarp();
+  for (int size = 2; size <= len; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int p = lane; p < (len >> 1); p += 32) {
+        const int i = ((p & ~(stride - 1)) << 1) | (p & (stride - 1));
+        const uint64_t x = a[i], y = a[i + stride];
+        if ((x > y) == ((i & size) == 0)) {
+          a[i] = y;
+          a[i + stride] = x;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// A warp's candidate keys. cap is a power of two with cap - 32 >= k + 1.
+struct List {
+  uint64_t* a;
+  int cap, k, count;
+  uint64_t thr;       // a key joins only below it; kNone before a compaction
+  bool sorted;        // nothing joined since the last sort
 };
 
-// exclusive prefix sum of v over the block in thread order; *total gets the
-// block's sum. Every thread of the block calls it.
-__device__ __forceinline__ int block_excl_scan(int v, Scratch& sh,
-                                               int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, off);
-    if (lane >= off) x += y;
+// each lane offers one key (valid lanes); the warp calls it together
+__device__ __forceinline__ void list_push(List& L, bool valid, uint64_t key) {
+  const int lane = threadIdx.x & 31;
+  const bool take = valid && key < L.thr;
+  const unsigned m = __ballot_sync(kFull, take);
+  if (take) L.a[L.count + __popc(m & ((1u << lane) - 1u))] = key;
+  L.count += __popc(m);
+  L.sorted = L.sorted && m == 0u;
+  if (L.count > L.cap - 32 || (L.thr == kNone && L.count > L.k)) {
+    __syncwarp();
+    warp_sort(L.a, L.count);
+    L.count = L.k + 1;
+    L.thr = L.a[L.k];
+    L.sorted = true;
   }
-  if (lane == 31) sh.warp_tot[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int t = lane < kWarps ? sh.warp_tot[lane] : 0;
-#pragma unroll
-    for (int off = 1; off < kWarps; off <<= 1) {
-      const int y = __shfl_up_sync(kFull, t, off);
-      if (lane >= off) t += y;
-    }
-    if (lane < kWarps) sh.warp_tot[lane] = t;
-  }
-  __syncthreads();
-  const int before = warp > 0 ? sh.warp_tot[warp - 1] : 0;
-  *total = sh.warp_tot[kWarps - 1];
-  __syncthreads();                  // warp_tot is free again
-  return before + x - v;
 }
 
-// the smallest of v over the block
-__device__ __forceinline__ float block_min(float v, Scratch& sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fminf(v, __shfl_xor_sync(kFull, v, off));
-  if (lane == 0) sh.red_f[warp] = v;
-  __syncthreads();
-  float m = sh.red_f[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) m = fminf(m, sh.red_f[w]);
-  __syncthreads();
-  return m;
-}
-
-// The k smallest of vals[0, n) (ties to the lower index) into out[0, k) in
-// ascending index order; returns the smallest value left out, +inf when
-// k >= n (then out holds 0 .. n - 1). Every thread of the block calls it.
-__device__ float block_select(const float* vals, int n, int k, int* out,
-                              Scratch& sh) {
-  const int tid = threadIdx.x;
-  if (k >= n) {
-    for (int i = tid; i < n; i += kThreads) out[i] = i;
-    __syncthreads();
-    return INFINITY;
-  }
-  // radix select of the key of rank k - 1
-  unsigned prefix = 0u, mask = 0u;
-  int r = k - 1;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    sh.hist[tid] = 0;
-    __syncthreads();
-    for (int base = 0; base < n; base += kThreads) {
-      const int i = base + tid;
-      unsigned key = 0u;
-      bool in = false;
-      if (i < n) {
-        key = __float_as_uint(vals[i]);
-        in = (key & mask) == prefix;
-      }
-      const int digit = in ? (int)((key >> shift) & 255u) : 256;
-      const unsigned peers = __match_any_sync(kFull, digit);
-      if (in && (threadIdx.x & 31) == __ffs(peers) - 1)
-        atomicAdd(&sh.hist[digit], __popc(peers));
-    }
-    __syncthreads();
-    const int c = sh.hist[tid];
-    int unused;
-    const int excl = block_excl_scan(c, sh, &unused);
-    if (excl <= r && r < excl + c) {
-      sh.digit = tid;
-      sh.rest = r - excl;
-    }
-    __syncthreads();
-    prefix |= (unsigned)sh.digit << shift;
-    mask |= 255u << shift;
-    r = sh.rest;
-    __syncthreads();
-  }
-  // prefix is the k-th smallest key; take every smaller key and the first
-  // r + 1 equal to it, in index order
-#if HPSDF_K10_FIX
-  const int lane = tid & 31, warp = tid >> 5;
-  const int seg = (n + kThreads - 1) / kThreads * 32;
-  const int lo = min(n, warp * seg), hi = min(n, lo + seg);
-  int lt = 0, eq = 0;
-  float above = INFINITY;
-  for (int base = lo; base < hi; base += 32) {
-    const int i = base + lane;
-    const unsigned key = i < hi ? __float_as_uint(vals[i]) : 0xffffffffu;
-    lt += __popc(__ballot_sync(kFull, key < prefix));
-    eq += __popc(__ballot_sync(kFull, key == prefix));
-    if (i < hi && key > prefix) above = fminf(above, vals[i]);
-  }
-  int eq_total;
-  const int eq_before = __shfl_sync(
-      kFull, block_excl_scan(lane == 0 ? eq : 0, sh, &eq_total), 0);
-  const int take_eq = max(0, min(eq, r + 1 - eq_before));
-  int n_sel;
-  int pos = __shfl_sync(
-      kFull, block_excl_scan(lane == 0 ? lt + take_eq : 0, sh, &n_sel), 0);
-  int eq_run = eq_before;
-  const unsigned lower = (1u << lane) - 1u;
-  for (int base = lo; base < hi; base += 32) {
-    const int i = base + lane;
-    const unsigned key = i < hi ? __float_as_uint(vals[i]) : 0xffffffffu;
-    const unsigned eq_m = __ballot_sync(kFull, key == prefix);
-    const bool take = key < prefix
-        || (key == prefix && eq_run + __popc(eq_m & lower) <= r);
-    const unsigned take_m = __ballot_sync(kFull, take);
-    if (take) out[pos + __popc(take_m & lower)] = i;
-    pos += __popc(take_m);
-    eq_run += __popc(eq_m);
-  }
-#else
-  const int per = (n + kThreads - 1) / kThreads;
-  const int lo = min(n, tid * per), hi = min(n, lo + per);
-  int lt = 0, eq = 0;
-  float above = INFINITY;
-  for (int i = lo; i < hi; ++i) {
-    const unsigned key = __float_as_uint(vals[i]);
-    lt += key < prefix;
-    eq += key == prefix;
-    if (key > prefix) above = fminf(above, vals[i]);
-  }
-  int eq_total;
-  const int eq_before = block_excl_scan(eq, sh, &eq_total);
-  const int take_eq = max(0, min(eq, r + 1 - eq_before));
-  int n_sel;
-  int pos = block_excl_scan(lt + take_eq, sh, &n_sel);
-  int taken = 0;
-  for (int i = lo; i < hi; ++i) {
-    const unsigned key = __float_as_uint(vals[i]);
-    if (key < prefix || (key == prefix && taken++ < take_eq)) out[pos++] = i;
-  }
-#endif
-  // the smallest left out: the k-th value again if more are equal to it
-  const float rest_min = block_min(above, sh);
-  __syncthreads();                  // out is complete
-  return eq_total > r + 1 ? __uint_as_float(prefix) : rest_min;
+// sorts the list and keeps its k smallest (all when it holds k or fewer);
+// returns the (k+1)-th smallest key's distance, +inf when there is none
+__device__ __forceinline__ float list_finish(List& L) {
+  __syncwarp();
+  if (!L.sorted) warp_sort(L.a, L.count);
+  const float b = L.count > L.k ? __uint_as_float(key_bits(L.a[L.k]))
+                                : INFINITY;
+  L.count = min(L.count, L.k);
+  return b;
 }
 
 template <bool kTwo>
@@ -245,88 +188,166 @@ hybrid_kernel(const float* __restrict__ node_lo,
               const float* __restrict__ node_hi,
               const float* __restrict__ node_rows,
               const float* __restrict__ tri_rows, int64_t tri_stride,
-              int nc, int first, int sub, int k1, int k2,
-              const float* __restrict__ pts, float* __restrict__ best_d2,
-              int32_t* __restrict__ best_idx, float* __restrict__ bound) {
-  extern __shared__ float smem[];
-  __shared__ Scratch sh;
-  const int tid = threadIdx.x;
-  const int64_t i = blockIdx.x;
-  const float px = pts[3 * i], py = pts[3 * i + 1], pz = pts[3 * i + 2];
-  float* d_clu = smem;                            // [nc]
-  float* d_sub = d_clu + nc;                      // [8 k1] (two levels)
-  int* sel1 = reinterpret_cast<int*>(d_sub + (kTwo ? 8 * k1 : 0));  // [k1]
-  int* sel2 = sel1 + k1;                          // [k2] (two levels)
+              int nc, int sub, int k1, int k2, int nch, int cap1, int cap2,
+              const float* __restrict__ pts, int64_t B,
+              float* __restrict__ best_d2, int32_t* __restrict__ best_idx,
+              float* __restrict__ bound, int32_t* __restrict__ stats) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint64_t* lists = reinterpret_cast<uint64_t*>(smem);  // [warps][cap1+cap2]
+  float* box = reinterpret_cast<float*>(lists + kWarps * (cap1 + cap2));
+  unsigned* chunk_keys = reinterpret_cast<unsigned*>(box + 6 * nch);
 
-  // 1-2. the clusters
-  for (int c = tid; c < nc; c += kThreads) {
-    const float* l = node_lo + 3 * c;
-    const float* h = node_hi + 3 * c;
-    d_clu[c] = hpsdf::aabb_d2(px, py, pz, __ldg(l), __ldg(l + 1), __ldg(l + 2),
-                              __ldg(h), __ldg(h + 1), __ldg(h + 2));
+  // the chunk boxes (lo xyz, hi xyz, a row of nch each), once a block
+  if (nch > 1) {
+    for (int j = threadIdx.x; j < nch; j += kThreads) {
+      const int node = nch + j;
+      const float* r = node_rows + 16 * (int64_t)(node >> 1) + 6 * (node & 1);
+#pragma unroll
+      for (int e = 0; e < 6; ++e) box[e * nch + j] = __ldg(r + e);
+    }
   }
   __syncthreads();
-  if (HPSDF_K10_STAGE == 1) {             // the box distances alone
-    const float m = block_min(tid < nc ? d_clu[tid] : INFINITY, sh);
-    if (tid == 0) {
-      best_d2[i] = m;
-      best_idx[i] = 0;
-      bound[i] = m;
-    }
-    return;
-  }
-  float bnd = block_select(d_clu, nc, k1, sel1, sh);
+  const int64_t i = (int64_t)blockIdx.x * kWarps + warp;
+  if (i >= B) return;
+  const float px = pts[3 * i], py = pts[3 * i + 1], pz = pts[3 * i + 2];
 
-  // 3. the subclusters of the kept clusters
-  int n_blocks = k1;
-  if (kTwo) {
-    for (int q = tid; q < 8 * k1; q += kThreads) {
-      const int64_t row = 4 * (int64_t)(first + sel1[q >> 3]) + ((q & 7) >> 1);
-      const float4* r = reinterpret_cast<const float4*>(node_rows + 16 * row);
-      float d;
-      if ((q & 1) == 0) {                 // lanes 0..5: the left child
-        const float4 a = __ldg(r), b = __ldg(r + 1);
-        d = hpsdf::aabb_d2(px, py, pz, a.x, a.y, a.z, a.w, b.x, b.y);
-      } else {                            // lanes 6..11: the right child
-        const float4 b = __ldg(r + 1), c = __ldg(r + 2);
-        d = hpsdf::aabb_d2(px, py, pz, b.z, b.w, c.x, c.y, c.z, c.w);
-      }
-      d_sub[q] = d;
-    }
-    __syncthreads();
-    bnd = fminf(bnd, block_select(d_sub, 8 * k1, k2, sel2, sh));
-    n_blocks = k2;
+  // 1. the chunks' distances, a lower bound of their clusters'
+  unsigned* ck = chunk_keys + warp * nch;
+  uint64_t lmin = kNone;             // this lane's nearest unvisited chunk
+  for (int j = lane; j < nch; j += 32) {
+    const float d = nch > 1
+        ? hpsdf::aabb_d2(px, py, pz, box[j], box[nch + j], box[2 * nch + j],
+                         box[3 * nch + j], box[4 * nch + j], box[5 * nch + j])
+        : 0.f;
+    ck[j] = __float_as_uint(d);
+    lmin = umin64(lmin, make_key(d, j));
   }
-  if (HPSDF_K10_STAGE == 2) {             // the distances and selections
-    if (tid == 0) {
+
+  // 2. the chunks nearest first, while one may hold a key below the
+  // threshold; a lane a cluster
+  List L1{lists + warp * (cap1 + cap2), cap1, k1, 0, kNone, true};
+  const int g = nc / nch;
+  int n_chunks = 0, n_clusters = 0, n_subclusters = 0;
+  for (;;) {
+    uint64_t m = lmin;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      m = umin64(m, __shfl_xor_sync(kFull, m, off));
+    if (key_bits(m) == kDone || key_bits(m) > key_bits(L1.thr)) break;
+    const int j = (int)(unsigned)m;
+    if ((j & 31) == lane) {          // the owner marks it and finds its next
+      ck[j] = kDone;
+      lmin = kNone;
+      for (int q = lane; q < nch; q += 32)
+        if (ck[q] != kDone) lmin = umin64(lmin, ((uint64_t)ck[q] << 32) | q);
+    }
+    ++n_chunks;
+    n_clusters += g;
+    for (int c0 = j * g; c0 < (j + 1) * g; c0 += 32) {
+      const int c = c0 + lane;
+      const bool valid = c < (j + 1) * g;
+      float d = 0.f;
+      if (valid) {
+        const float* l = node_lo + 3 * c;
+        const float* h = node_hi + 3 * c;
+        d = hpsdf::aabb_d2(px, py, pz, __ldg(l), __ldg(l + 1), __ldg(l + 2),
+                           __ldg(h), __ldg(h + 1), __ldg(h + 2));
+      }
+      list_push(L1, valid, make_key(d, c));
+    }
+  }
+  float bnd = list_finish(L1);
+  const uint64_t* kept = L1.a;       // ascending keys
+  int n_kept = L1.count;
+  if (HPSDF_K10_STAGE == 1) {
+    if (lane == 0) {
       best_d2[i] = bnd;
-      best_idx[i] = kTwo ? sel2[0] + sel2[k2 - 1] : sel1[0] + sel1[k1 - 1];
+      best_idx[i] = (int32_t)(unsigned)kept[n_kept - 1];
       bound[i] = bnd;
     }
     return;
   }
 
-  // 4. every row of the kept (sub)clusters
-  float best = INFINITY;
-  int32_t idx = INT32_MAX;
-  const int total = n_blocks * sub;
-  for (int q = tid; q < total; q += kThreads) {
-    const int b = q / sub;
-    int blk;
-    if (kTwo) {
-      const int s = sel2[b];
-      blk = 8 * sel1[s >> 3] + (s & 7);
-    } else {
-      blk = sel1[b];
+  // 3. the subclusters of the kept clusters, nearest cluster first
+  if (kTwo) {
+    List L2{L1.a + cap1, cap2, k2, 0, kNone, true};
+    const int64_t first = nc;
+    for (int t = 0; 4 * t < n_kept; ++t) {
+      if (key_bits(kept[4 * t]) > key_bits(L2.thr)) break;
+      const int pos = 4 * t + (lane >> 3);
+      const bool valid = pos < n_kept;
+      n_subclusters += min(32, 8 * (n_kept - 4 * t));
+      uint64_t key = kNone;
+      if (valid) {
+        const unsigned c = (unsigned)kept[pos];
+        const int s = lane & 7;
+        const int64_t row = 4 * (first + c) + (s >> 1);
+        const float4* r =
+            reinterpret_cast<const float4*>(node_rows + 16 * row);
+        float d;
+        if ((s & 1) == 0) {                 // lanes 0..5: the left child
+          const float4 a = __ldg(r), b = __ldg(r + 1);
+          d = hpsdf::aabb_d2(px, py, pz, a.x, a.y, a.z, a.w, b.x, b.y);
+        } else {                            // lanes 6..11: the right child
+          const float4 b = __ldg(r + 1), e = __ldg(r + 2);
+          d = hpsdf::aabb_d2(px, py, pz, b.z, b.w, e.x, e.y, e.z, e.w);
+        }
+        key = make_key(d, 8 * c + s);
+      }
+      list_push(L2, valid, key);
     }
-    const int32_t row = blk * sub + (q - b * sub);
-    const float d2 = hpsdf::row_d2(px, py, pz, tri_rows + row * tri_stride);
-    if (d2 < best || (d2 == best && row < idx)) {
-      best = d2;
-      idx = row;
-    }
+    bnd = fminf(bnd, list_finish(L2));
+    kept = L2.a;
+    n_kept = L2.count;
   }
-  const int lane = tid & 31, warp = tid >> 5;
+  if (HPSDF_K10_STAGE == 2) {
+    if (lane == 0) {
+      best_d2[i] = bnd;
+      best_idx[i] = (int32_t)(unsigned)kept[n_kept - 1];
+      bound[i] = bnd;
+    }
+    return;
+  }
+
+  // 4. the rows of the kept (sub)clusters, nearest box first, 32 x kRounds
+  // at a time; they stop at a box farther than the best row so far by more
+  // than the rounding of both distances (kReach of the coordinates'
+  // scale): a box holds its rows' triangles, so no row in it or in any
+  // farther box can come below the best row in the plain scan
+  const float reach = kReach * (1.f + fabsf(px) + fabsf(py) + fabsf(pz));
+  float best = INFINITY, round_best = INFINITY;
+  int32_t idx = INT32_MAX;
+  const int log_sub = __ffs(sub) - 1;          // sub is a power of two
+  const int total = n_kept << log_sub;
+  int q0 = 0;
+  for (; q0 < total; q0 += 32 * kRounds) {
+    const float r = sqrtf(round_best) + reach;
+    if (__uint_as_float(key_bits(kept[q0 >> log_sub])) > r * r) break;
+    float d2[kRounds];
+    int32_t row[kRounds];
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u) {   // the rows' loads all in flight
+      const int q = q0 + 32 * u + lane;
+      row[u] = -1;
+      if (q < total) {
+        row[u] = ((int32_t)(unsigned)kept[q >> log_sub] << log_sub)
+                 + (q & (sub - 1));
+        d2[u] = hpsdf::row_d2(px, py, pz, tri_rows + row[u] * tri_stride);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u) {
+      if (row[u] >= 0 && (d2[u] < best || (d2[u] == best && row[u] < idx))) {
+        best = d2[u];
+        idx = row[u];
+      }
+    }
+    round_best = best;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      round_best = fminf(round_best, __shfl_xor_sync(kFull, round_best, off));
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const float ob = __shfl_xor_sync(kFull, best, off);
@@ -337,42 +358,61 @@ hybrid_kernel(const float* __restrict__ node_lo,
     }
   }
   if (lane == 0) {
-    sh.red_f[warp] = best;
-    sh.red_i[warp] = idx;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    for (int w = 1; w < kWarps; ++w) {
-      const float ob = sh.red_f[w];
-      const int32_t oi = sh.red_i[w];
-      if (ob < best || (ob == best && oi < idx)) {
-        best = ob;
-        idx = oi;
-      }
-    }
     best_d2[i] = best;
     best_idx[i] = idx;
     bound[i] = bnd;
+    if (stats != nullptr) {
+      int32_t* st = stats + 4 * i;
+      st[0] = n_chunks;
+      st[1] = n_clusters;
+      st[2] = n_subclusters;
+      st[3] = min(q0, total);
+    }
   }
+}
+
+// the chunks and the lists' capacities of a launch
+void shape_of(int64_t nc, int64_t k1, int64_t k2, int two_level,
+              int64_t* nch, int64_t* cap1, int64_t* cap2) {
+  *nch = nc >= 64 ? (nc / 32 < kMaxChunks ? nc / 32 : kMaxChunks) : 1;
+  // a list never holds more than its n keys, and a compaction needs
+  // cap - 32 >= k + 1
+  auto cap = [](int64_t k, int64_t n) {
+    const int64_t want = 2 * (k + 1) < n + 32 ? 2 * (k + 1) : n + 32;
+    int64_t c = 64;
+    while (c < want) c <<= 1;
+    return c;
+  };
+  *cap1 = cap(k1, nc);
+  *cap2 = two_level ? cap(k2, 8 * k1) : 0;
 }
 
 }  // namespace
 
-// Shared memory a block of K10 needs, in bytes: nc + 8 k1 floats (two
-// levels) and k1 + k2 ints, k1 and k2 already clipped (k1 <= nc, k2 <= 8 k1).
+// Shared memory a block of K10 needs, in bytes: each warp's two lists of
+// 8-byte keys and its chunk distances, and the chunk boxes; k1 and k2
+// already clipped (k1 <= nc, k2 <= 8 k1).
 extern "C" int64_t hpsdf_hybrid_smem(int64_t nc, int64_t k1, int64_t k2,
                                      int two_level) {
-  return 4 * (nc + (two_level ? 8 * k1 + k1 + k2 : k1));
+  int64_t nch, cap1, cap2;
+  shape_of(nc, k1, k2, two_level, &nch, &cap1, &cap2);
+  return 8 * kWarps * (cap1 + cap2) + 24 * nch + 4 * kWarps * nch;
 }
 
-// K10 over B points; k1 <= nc, and k2 <= 8 k1 with two levels.
+// K10 over B points; nc = first (node_lo is cluster_aabbs'), nc a power of
+// two, k1 <= nc, and k2 <= 8 k1 with two levels. stats (B, 4) or null: a
+// point's chunks visited, cluster and subcluster distances taken, rows
+// scanned.
 extern "C" int hpsdf_hybrid(const float* node_lo, const float* node_hi,
                             const float* node_rows, const float* tri_rows,
                             int64_t tri_stride, int64_t nc, int64_t first,
                             int64_t sub, int64_t k1, int64_t k2,
                             int two_level, const float* pts, int64_t B,
                             float* best_d2, int32_t* best_idx, float* bound,
-                            void* stream) {
+                            int32_t* stats, void* stream) {
+  if (first != nc || (nc & (nc - 1)) != 0) return (int)cudaErrorInvalidValue;
+  int64_t nch, cap1, cap2;
+  shape_of(nc, k1, k2, two_level, &nch, &cap1, &cap2);
   const int64_t smem = hpsdf_hybrid_smem(nc, k1, k2, two_level);
   const void* fn = two_level ? (const void*)hybrid_kernel<true>
                              : (const void*)hybrid_kernel<false>;
@@ -381,18 +421,17 @@ extern "C" int hpsdf_hybrid(const float* node_lo, const float* node_hi,
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
+  const unsigned blocks = (unsigned)((B + kWarps - 1) / kWarps);
   if (two_level) {
-    hybrid_kernel<true><<<(unsigned)B, kThreads, smem,
-                          (cudaStream_t)stream>>>(
+    hybrid_kernel<true><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
         node_lo, node_hi, node_rows, tri_rows, tri_stride, (int)nc,
-        (int)first, (int)sub, (int)k1, (int)k2, pts, best_d2, best_idx,
-        bound);
+        (int)sub, (int)k1, (int)k2, (int)nch, (int)cap1, (int)cap2, pts, B,
+        best_d2, best_idx, bound, stats);
   } else {
-    hybrid_kernel<false><<<(unsigned)B, kThreads, smem,
-                           (cudaStream_t)stream>>>(
+    hybrid_kernel<false><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
         node_lo, node_hi, node_rows, tri_rows, tri_stride, (int)nc,
-        (int)first, (int)sub, (int)k1, (int)k2, pts, best_d2, best_idx,
-        bound);
+        (int)sub, (int)k1, (int)k2, (int)nch, (int)cap1, (int)cap2, pts, B,
+        best_d2, best_idx, bound, stats);
   }
   return (int)cudaGetLastError();
 }

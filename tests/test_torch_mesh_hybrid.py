@@ -226,3 +226,317 @@ def test_hybrid_launch_refuses_cpu_and_counts_nothing(bumpy):
         TS._hybrid_launch(lo, hi, tb.node_rows, tb.tri_rows, pts)
     with pytest.raises(ValueError, match="f32"):
         TS.hybrid_closest(lo, hi, tb.node_rows, tb.tri_rows, pts.double())
+
+
+# --------------------------------------------------------------------------
+# The invariants kernel K10 (csrc/hybrid.cu) relies on for an exact
+# selection, and a mirror of its selection held to the plain version's.
+# --------------------------------------------------------------------------
+
+NONE = (1 << 64) - 1                 # above every key
+ROUND = 64                           # rows between cascade stops: 32 lanes
+                                     # x kRounds (csrc/hybrid.cu)
+
+
+@pytest.fixture(scope="module")
+def bumpy6():
+    """bumpy_sphere(0.3, 6): 81,920 triangles, 131,072 rows, NC 512, so
+    the kernel's chunks are 16 heap subtrees of 32 clusters."""
+    return TM.build_bvh(TM.build_mesh(*gen.bumpy_sphere(0.3, 6)),
+                        device="cpu")
+
+
+def _node_boxes(node_rows, nodes):
+    """The boxes of heap nodes (>= 2), as their parents' rows hold them."""
+    r = node_rows[nodes // 2]
+    off = (6 * (nodes % 2))[:, None] + torch.arange(6)
+    box = r.gather(1, off)
+    return box[:, :3], box[:, 3:]
+
+
+def _child_boxes(node_rows, nodes):
+    r = node_rows[nodes]
+    return (r[:, 0:3], r[:, 3:6]), (r[:, 6:9], r[:, 9:12])
+
+
+@pytest.mark.parametrize("build", ["reference", "port"])
+def test_heap_boxes_contain_children(bumpy, build):
+    """Every heap node's box (in its parent's row) contains both children's
+    boxes (in its own row) bit for bit, so it contains every descendant's,
+    cluster_aabbs' boxes among them: the kernel's chunk and cluster
+    distances are lower bounds of their descendants'."""
+    if build == "reference":
+        _, tb = bumpy
+    else:
+        tb = TM.build_bvh(TM.build_mesh(*gen.bumpy_sphere(0.3, 5)),
+                          device="cpu")
+    T2 = tb.n_leaves
+    nodes = torch.arange(2, T2)
+    lo, hi = _node_boxes(tb.node_rows, nodes)
+    for clo, chi in _child_boxes(tb.node_rows, nodes):
+        assert bool((lo <= clo).all()) and bool((hi >= chi).all())
+    clo, chi = TS.cluster_aabbs(tb)
+    nc = clo.shape[0]
+    lo, hi = _node_boxes(tb.node_rows, nc + torch.arange(nc))
+    assert bool((lo <= clo).all()) and bool((hi >= chi).all())
+
+
+def test_box_distance_monotone_under_containment(bumpy):
+    """aabb_dist2 in f32 never falls below a containing box's, on random
+    points, points inside boxes and points on their faces: a child's
+    distance >= its parent's, a cluster's >= its chunk's, a subcluster's
+    >= its cluster's."""
+    _, tb = bumpy
+    T2 = tb.n_leaves
+    rng = np.random.default_rng(7)
+    nodes = torch.arange(2, T2)
+    lo, hi = _node_boxes(tb.node_rows, nodes)
+    real = (hi < 1e29).all(dim=1)
+    pick = torch.as_tensor(rng.choice(int(real.sum()), 64, replace=False))
+    inner = lo[real][pick] + (hi[real][pick] - lo[real][pick]) * 0.25
+    pts = torch.cat([torch.as_tensor(_pts(96, seed=8)), inner,
+                     lo[real][pick]])                  # (224, 3)
+    d_parent = TS._axes_dist2(pts, lo, hi)             # (224, T2 - 2)
+    for clo, chi in _child_boxes(tb.node_rows, nodes):
+        assert bool((TS._axes_dist2(pts, clo, chi) >= d_parent).all())
+    assert bool((d_parent == 0).any())
+    # clusters against their chunk (the kernel's chunk j: node NCH + j)
+    clo, chi = TS.cluster_aabbs(tb)
+    nc = clo.shape[0]
+    nch = nc // 32
+    alo, ahi = _node_boxes(tb.node_rows,
+                           nch + torch.arange(nc) // (nc // nch))
+    assert bool((TS._axes_dist2(pts, clo, chi)
+                 >= TS._axes_dist2(pts, alo, ahi)).all())
+
+
+def _key(d, idx):
+    return (int(np.float32(d).view(np.uint32)) << 32) | int(idx)
+
+
+class _List:
+    """The kernel's candidate list (csrc/hybrid.cu ``List``): a key joins
+    only below the threshold, a compaction keeps the k + 1 smallest."""
+
+    def __init__(self, k):
+        self.k, self.cap = k, 64
+        while self.cap < 2 * (k + 1):
+            self.cap <<= 1
+        self.a, self.thr, self.compactions = [], NONE, 0
+
+    def push(self, keys):
+        assert len(keys) <= 32
+        self.a += [x for x in keys if x < self.thr]
+        assert len(self.a) <= self.cap
+        if len(self.a) > self.cap - 32 or (self.thr == NONE
+                                           and len(self.a) > self.k):
+            self.a = sorted(self.a)[:self.k + 1]
+            self.thr = self.a[self.k]
+            self.compactions += 1
+
+    def finish(self):
+        self.a = sorted(self.a)
+        bound = (np.uint32(self.a[self.k] >> 32).view(np.float32)
+                 if len(self.a) > self.k else np.float32(np.inf))
+        self.a = self.a[:self.k]
+        return bound
+
+
+def _kernel_select(tb, p, k1, k2):
+    """K10 for one point, step for step as csrc/hybrid.cu runs it: the
+    chunks nearest first until one lies above the threshold, the clusters
+    into a list, then the kept clusters' subclusters in ascending key order
+    until a cluster lies above the second threshold; then the kept blocks'
+    rows nearest box first, ROUND at a time, until a box lies beyond the
+    best row by more than the reach. Returns (the kept (sub)cluster ids
+    ascending, bound, chunks visited, NCH, best_d2, best row, rows
+    scanned)."""
+    lo, hi = TS.cluster_aabbs(tb)
+    nc, first, _, two_level, k1, k2 = TS._layout(lo, tb.node_rows,
+                                                 tb.tri_rows, k1, k2)
+    assert first == nc
+    nch = min(nc // 32, 256) if nc >= 64 else 1
+    g = nc // nch
+    if nch > 1:
+        alo, ahi = _node_boxes(tb.node_rows, nch + torch.arange(nch))
+        chunk = TS._axes_dist2(p[None], alo, ahi)[0].numpy()
+    else:
+        chunk = np.zeros(1, np.float32)
+    d_clu = TS._axes_dist2(p[None], lo, hi)[0].numpy()
+    L1 = _List(k1)
+    visited = 0
+    for j in sorted(range(nch), key=lambda j: _key(chunk[j], j)):
+        if _key(chunk[j], 0) >> 32 > L1.thr >> 32:
+            break
+        visited += 1
+        for c0 in range(j * g, (j + 1) * g, 32):
+            L1.push([_key(d_clu[c], c) for c in range(c0, min(c0 + 32,
+                                                              (j + 1) * g))])
+    bound = L1.finish()
+    kept = L1.a
+    if two_level:
+        L2 = _List(k2)
+        for t in range(0, len(kept), 4):
+            if kept[t] >> 32 > L2.thr >> 32:
+                break
+            keys = []
+            for key in kept[t:t + 4]:
+                c = key & 0xffffffff
+                rows = tb.node_rows[4 * (first + c) + torch.arange(4)]
+                blo = torch.stack([rows[:, 0:3], rows[:, 6:9]], 1)
+                bhi = torch.stack([rows[:, 3:6], rows[:, 9:12]], 1)
+                d = TS._axes_dist2(p[None], blo.reshape(8, 3),
+                                   bhi.reshape(8, 3))[0].numpy()
+                keys += [_key(d[s], 8 * c + s) for s in range(8)]
+            L2.push(keys)
+        bound = min(bound, L2.finish())
+        kept = L2.a
+    sub = TS._layout(lo, tb.node_rows, tb.tri_rows, k1, k2)[2]
+    rows = torch.as_tensor([(key & 0xffffffff) * sub + r for key in kept
+                            for r in range(sub)])
+    box = np.asarray([key >> 32 for key in kept], np.uint32).view(np.float32)
+    reach = np.float32(TS.HYBRID_REACH * (1.0 + float(p.abs().sum())))
+    best, best_row, q0 = np.float32(np.inf), -1, 0
+    for q0 in range(0, rows.numel(), ROUND):
+        r = np.sqrt(best) + reach
+        if box[q0 // sub] > r * r:
+            break
+        d2 = TS._tri_d2(tb.tri_rows[rows[q0:q0 + ROUND]], p[None]).numpy()
+        m = d2.min()
+        row = int(rows[q0:q0 + ROUND][torch.as_tensor(d2 == m)].min())
+        if m < best or (m == best and row < best_row):  # ties: lowest row
+            best, best_row = m, row
+    else:
+        q0 = rows.numel()
+    return (sorted(k & 0xffffffff for k in kept), bound, visited, nch, best,
+            best_row, q0)
+
+
+@pytest.mark.parametrize("points", ["uniform", "near"])
+@pytest.mark.parametrize("k", [(48, 48), (2, 3), (8, 8), (192, 192),
+                               (512, 4096)])
+def test_kernel_selection_matches_plain(bumpy6, k, points):
+    """The kernel's selection (the chunk prune, the thresholded lists, the
+    subclusters nearest cluster first) keeps the plain version's sets and
+    gives its bound bit for bit: at the default and escalation widths, at
+    k >= n (all kept, bound +inf) and on points near the surface, which lie
+    inside several boxes at distance 0 (ties broken by index)."""
+    tb = bumpy6
+    lo, hi = TS.cluster_aabbs(tb)
+    if points == "uniform":
+        p = torch.as_tensor(_pts(48, seed=11))
+    else:
+        m = TM.build_mesh(*gen.bumpy_sphere(0.3, 6))
+        rng = np.random.default_rng(12)
+        t = rng.integers(0, m.n_faces, 48)
+        w = rng.dirichlet(np.ones(3), 48)
+        on = (w[:, :, None] * m.vertices[m.faces[t]]).sum(axis=1)
+        p = torch.as_tensor((on + rng.uniform(-1e-3, 1e-3, (48, 1))
+                             * m.face_normals[t]).astype(np.float32))
+    d2, idx, bd, blocks, sub = TS.hybrid_closest_plain(
+        lo, hi, tb.node_rows, tb.tri_rows, p, *k, with_blocks=True)
+    visited, scanned = [], []
+    for n in range(p.shape[0]):
+        kept, bound, v, nch, best, row, q = _kernel_select(tb, p[n], *k)
+        assert kept == blocks[n].tolist()
+        assert np.float32(bound).view(np.uint32) \
+            == bd[n].numpy().view(np.uint32)
+        assert best.view(np.uint32) == d2[n].numpy().view(np.uint32)
+        assert row == int(idx[n])
+        visited.append(v)
+        scanned.append(q)
+    if k[0] < 64:                      # the chunk prune skipped chunks
+        assert min(visited) < nch
+    if points == "near":               # and the cascade rows
+        assert min(scanned) < blocks.shape[1] * sub
+    if points == "near" and k == (2, 3):
+        assert bool((bd == 0).any())   # more than k boxes at distance 0
+
+
+def test_plain_selection_tie_heavy(bumpy6):
+    """Mesh vertices where clusters meet lie inside more than k1 cluster
+    boxes: the k1-th smallest key is 0, the plain version keeps the
+    lowest-index clusters at distance 0 and bounds with 0."""
+    tb = bumpy6
+    lo, hi = TS.cluster_aabbs(tb)
+    p = tb.tri_rows[:tb.n_tris:7, 0:3]                 # triangles' vertex a
+    d = TS._axes_dist2(p, lo, hi)
+    zeros = (d == 0).sum(dim=1)
+    k1 = 2
+    heavy = zeros > k1
+    assert bool(heavy.any())
+    cidx, bound = TS._select_min(d, k1)
+    assert bool((bound[heavy] == 0).all())
+    for n in torch.nonzero(heavy).flatten().tolist():
+        want = torch.nonzero(d[n] == 0).flatten()[:k1]
+        assert cidx[n].tolist() == want.tolist()
+
+
+def test_rows_within_reach_of_their_boxes(bumpy6):
+    """The cascade's stop: every triangle lies in its subcluster's box (bit
+    for bit), and no row's plain squared distance falls below its box's by
+    more than the reach allows, at random points and points on and near
+    the surface."""
+    tb = bumpy6
+    lo, hi = TS.cluster_aabbs(tb)
+    nc, first, sub, _, _, _ = TS._layout(lo, tb.node_rows, tb.tri_rows, 48,
+                                         48)
+    T2 = tb.n_leaves
+    n_sub = T2 // sub
+    rng = np.random.default_rng(13)
+    pick = torch.as_tensor(rng.choice(tb.n_tris // sub, 256, replace=False))
+    nodes = 8 * first + pick                   # the subclusters' heap nodes
+    blo, bhi = _node_boxes(tb.node_rows, nodes)
+    assert n_sub == 8 * nc
+    rows = pick[:, None] * sub + torch.arange(sub)
+    v = tb.tri_rows[rows, :9].reshape(256, sub, 3, 3)
+    assert bool((v >= blo[:, None, None]).all())
+    assert bool((v <= bhi[:, None, None]).all())
+    on = v[:, :4].mean(dim=2).reshape(-1, 3)   # centroids: on the surface
+    pts = torch.cat([torch.as_tensor(_pts(64, seed=14)), on,
+                     on + torch.as_tensor(_pts(on.shape[0], 15, -1e-3,
+                                               1e-3))])
+    d_box = TS._axes_dist2(pts, blo, bhi)                       # (P, 256)
+    d_tri = TS._tri_d2(tb.tri_rows[rows.reshape(-1)][None],
+                       pts[:, None]).reshape(pts.shape[0], 256, sub)
+    reach = TS.HYBRID_REACH * (1 + pts.abs().sum(dim=1))
+    low = torch.clamp(torch.sqrt(d_box) - reach[:, None], min=0) ** 2
+    assert bool((d_tri.min(dim=2).values >= low).all())
+
+
+def test_hybrid_bounds_count_the_kernels_work():
+    """chip_smoke.hybrid_bounds prices K10's own per-point counts (the NCH
+    chunk boxes, the clusters and subclusters it took, the rows it
+    scanned) and, without them, every box and row of the plain version."""
+    import chip_smoke as cs
+    B, nc, k1, sub = 10, 8192, 48, 32
+    lo = torch.zeros((nc, 3))
+    pts = torch.zeros((B, 3))
+    blocks = torch.arange(B * 48).reshape(B, 48)
+    stats = torch.tensor([[3, 96, 40, 100]] * B, dtype=torch.int32)
+    own = cs.hybrid_bounds(lo, pts, blocks, sub, k1, stats)
+    ops = (B * 256 + B * 96 + B * 40) * cs.BOX_OPS \
+        + B * 100 * cs.P1_OPS_PER_PAIR
+    assert own[2] == pytest.approx(ops / cs.F32_PEAK * 1e3)
+    full = cs.hybrid_bounds(lo, pts, blocks, sub, k1)
+    ops = B * ((nc + 8 * k1) * cs.BOX_OPS + 48 * sub * cs.P1_OPS_PER_PAIR)
+    assert full[2] == pytest.approx(ops / cs.F32_PEAK * 1e3)
+    nbytes = B * 24 + nc * 24 + B * 48 * sub * 36
+    assert own[3] == full[3] == pytest.approx(nbytes / cs.HBM_RATE * 1e3)
+    assert own[0] == max(own[2], own[3])
+    assert own[1] == full[1] == "bytes"     # 10 points: the cluster boxes
+
+
+def test_vertex_rows_give_the_packed_rows_results(bumpy):
+    """sdf.vertex_rows, which the main path hands K10 as its rows, is the
+    packed rows' lanes 0..11 in contiguous 48-byte rows, and the prune
+    gives the same results on it as on the packed rows."""
+    _, tb = bumpy
+    verts = TS.vertex_rows(tb.tri_rows)
+    assert verts.shape == (tb.n_leaves, 12) and verts.is_contiguous()
+    assert torch.equal(verts, tb.tri_rows[:, :12])
+    lo, hi = TS.cluster_aabbs(tb)
+    p = torch.as_tensor(_pts(256, seed=16))
+    for a, b in zip(TS.hybrid_closest(lo, hi, tb.node_rows, verts, p),
+                    TS.hybrid_closest(lo, hi, tb.node_rows, tb.tri_rows, p)):
+        assert torch.equal(a, b)
