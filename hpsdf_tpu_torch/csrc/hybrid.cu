@@ -76,10 +76,11 @@
 // the chunks it visits (8 of 256 at uniform points), the selections sort
 // lists of about a hundred keys, no block barrier waits on the slowest
 // point, and a point near the surface scans a few of its 48 subclusters.
-// What bounds it now: the cascade's rows, about 1,370 a point away from
-// the surface, read from L2 or, for points in random order, device
-// memory; then the selections' sorts (instructions). PERF.md §6 has the
-// split (chip_smoke.py's [mesh scale]).
+// What bounds it now: the bytes a point reads from L2 (about 1,370 rows a
+// point away from the surface, the kept clusters' subcluster rows, the
+// visited clusters); for points in random order the rows come from device
+// memory. The selections' sorts run beside them. PERF.md §6 has the split
+// (chip_smoke.py's [mesh scale]).
 //
 // Timing forms: chip_smoke.py compiles this source alone with
 // HPSDF_K10_STAGE 1 (stop after the cluster selection) or 2 (after the
