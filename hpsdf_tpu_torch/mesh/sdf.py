@@ -399,9 +399,10 @@ def hybrid_closest(node_lo, node_hi, node_rows, tri_rows, p,
     """Two-level pruned closest triangle: kernel K10 on CUDA tensors,
     ``hybrid_closest_plain`` on CPU tensors. node_lo / node_hi:
     ``cluster_aabbs(bvh)``; tri_rows: the packed rows or their
-    ``vertex_rows`` (the same results; K10 reads the latter faster). Returns (best_d2 f32[B], best_idx i32[B], bound
-    f32[B]); ``max(0, sqrt(best_d2) - sqrt(bound))`` is a guaranteed bound on
-    the distance's error (``_dist_err_bound``)."""
+    ``vertex_rows`` (the same results; K10 reads the latter faster).
+    Returns (best_d2 f32[B], best_idx i32[B], bound f32[B]);
+    ``max(0, sqrt(best_d2) - sqrt(bound))`` is a guaranteed bound on the
+    distance's error (``_dist_err_bound``)."""
     _check_pts(p, node_lo, node_hi, node_rows, tri_rows)
     if p.device.type == "cpu":
         return hybrid_closest_plain(node_lo, node_hi, node_rows, tri_rows, p,
