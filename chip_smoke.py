@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (hpsdf_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--k10-parent DIR]
+    python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ and drives its main paths once
 at full width, the flow of examples/end_to_end.py:
@@ -124,8 +124,8 @@ host topology); kernel K11, the BVH walk (csrc/bvh_walk.cu), on
 icosphere(0.3, 5) exact against P1 and at mesh_sdf's default cap against
 its plain version; K10 split by stage (its source built alone with
 HPSDF_K10_STAGE 1 and 2: up to the cluster and the subcluster selection),
-at the fit's largest batch and, with --k10-parent, beside PR 12's K10
-built from that tree, in CUDA graphs, the smaller of two turns; its bound
+and at the fit's largest batch in CUDA graphs, the smaller of two turns;
+its bound
 on its own work (the kernel's per-point counts) and on the plain
 version's; K10 and P1 at 32k (also at the slice fit's largest batch), 82k
 and 1.31M triangles (the crossover), and K11 in CUDA graphs beside its
@@ -146,7 +146,6 @@ them, and the final JSON line
 non-zero. Without a CUDA device it exits 1 and prints no result.
 """
 
-import argparse
 import contextlib
 import dataclasses
 import functools
@@ -3443,14 +3442,13 @@ def bvh_bounds(bvh, pts, visits, seen):
             bytes_ms_)
 
 
-def build_hybrid_forms(src, stages, tag, stats_arg=True):
+def build_hybrid_forms(src, stages, tag):
     """K10's source ``src`` compiled alone with nvcc, once for each
     HPSDF_K10_STAGE in ``stages`` (1: stop after the cluster selection, 2:
     after the subcluster selection, 3: the kernel; a source without the
     macro builds the kernel whatever the stage), all nvcc processes started
     together, into ctypes libraries beside the kernel library, which no
-    path of the package loads; ``stats_arg`` as for hybrid_form. Returns
-    {stage: library}."""
+    path of the package loads. Returns {stage: library}."""
     import ctypes
 
     from hpsdf_tpu_torch import _kernels
@@ -3469,41 +3467,36 @@ def build_hybrid_forms(src, stages, tag, stats_arg=True):
         check(proc.returncode == 0,
               f"nvcc of a K10 form: {' '.join(cmd)}\n{so}\n{se}")
         lib = ctypes.CDLL(out)
-        args = list(_kernels._SIGNATURES["hpsdf_hybrid"])
-        lib.hpsdf_hybrid.argtypes = args if stats_arg else args[:-2] \
-            + args[-1:]
+        lib.hpsdf_hybrid.argtypes = _kernels._SIGNATURES["hpsdf_hybrid"]
         lib.hpsdf_hybrid.restype = ctypes.c_int
         libs[stage] = lib
     return libs
 
 
-def hybrid_form(lib, bvh, pts, k1=None, k2=None, stats_arg=True,
-                rows=None):
+def hybrid_form(lib, bvh, pts, k1=None, k2=None):
     """A call of a K10 form's library (build_hybrid_forms) on these points,
-    with the wrapper's layout, into outputs allocated once: for timing and
-    checks, counted by no launch counter. ``stats_arg`` False: the PR 12
-    kernel's entry point, which takes no stats pointer. ``rows``: the
-    triangle rows it reads (``bvh.tri_rows`` by default). Returns the call,
-    which returns (best_d2, best_idx, bound)."""
+    with the wrapper's layout and shape on the BVH's vertex rows, into
+    outputs allocated once: for timing, counted by no launch counter.
+    Returns the call, which returns (best_d2, best_idx, bound)."""
     from hpsdf_tpu_torch import _kernels
     from hpsdf_tpu_torch.mesh import sdf as TS
     lo, hi = TS.cluster_aabbs(bvh)
     nc, first, sub, two, k1, k2 = TS._layout(
         lo, bvh.node_rows, bvh.tri_rows, k1 or TS.HYBRID_K1,
         k2 or TS.HYBRID_K2)
-    rows = bvh.tri_rows if rows is None else rows
+    shape = TS._hybrid_shape(nc, k1, k2, two)
+    rows = bvh.vertex_rows
     B = pts.shape[0]
     out = (torch.empty(B, dtype=torch.float32, device=pts.device),
            torch.empty(B, dtype=torch.int32, device=pts.device),
            torch.empty(B, dtype=torch.float32, device=pts.device))
-    stats = (None,) if stats_arg else ()
 
     def run():
         rc = lib.hpsdf_hybrid(
             lo.data_ptr(), hi.data_ptr(), bvh.node_rows.data_ptr(),
             rows.data_ptr(), rows.stride(0), nc, first, sub,
-            k1, k2, int(two), pts.data_ptr(), B, out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(), *stats,
+            k1, k2, int(two), *shape, pts.data_ptr(), B, out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), None,
             _kernels.stream_of(pts))
         check(rc == 0, f"K10 form launch: CUDA error {rc}")
         return out
@@ -3514,13 +3507,13 @@ def check_hybrid(bvh, pts, label, k1=None, k2=None, rows=None):
     """K10 against its plain version: d2 within TRI_ATOL + TRI_RTOL d2, the
     bound bit for bit (both round the box distances alike and select
     exactly), a differing index only where its triangle reaches the plain
-    best d2. ``rows``: the triangle rows both read, as the main path passes
-    them (``sdf.vertex_rows``) by default. Returns (max |d2 diff|, the
+    best d2. ``rows``: the triangle rows both read, the BVH's vertex rows
+    (what the main path passes) by default. Returns (max |d2 diff|, the
     plain version's kept blocks and their rows each)."""
     from hpsdf_tpu_torch.mesh import sdf as TS
     k1 = k1 or TS.HYBRID_K1
     k2 = k2 or TS.HYBRID_K2
-    rows = TS.vertex_rows(bvh.tri_rows) if rows is None else rows
+    rows = bvh.vertex_rows if rows is None else rows
     lo, hi = TS.cluster_aabbs(bvh)
     d2_k, idx_k, bd_k = TS.hybrid_closest(lo, hi, bvh.node_rows, rows, pts,
                                           k1, k2)
@@ -3581,26 +3574,17 @@ MESH_PHASES = FIT_PHASES + (("mesh.sdf", "_hybrid_launch", "K10"),
                             ("mesh.sdf", "_signed_from_best", "sign"))
 
 
-def time_hybrid(bvh, pts, forms, parent, reps=5):
+def time_hybrid(bvh, pts, forms, reps=5):
     """K10 at these points in CUDA graphs, in two turns: the kernel through
-    its wrapper on the rows the main path passes (``sdf.vertex_rows``) and
-    on the packed rows, the forms stopped after each stage, and the PR 12
-    kernel, when its library is given, on both rows. Returns {name: the
-    smaller ms of the turns}."""
+    its wrapper on the rows the main path passes (the BVH's vertex rows)
+    and the forms stopped after each stage. Returns {name: the smaller ms
+    of the turns}."""
     from hpsdf_tpu_torch.mesh import sdf as TS
     lo, hi = TS.cluster_aabbs(bvh)
-    verts = TS.vertex_rows(bvh.tri_rows)
     calls = {"kernel": lambda: TS.hybrid_closest(
-        lo, hi, bvh.node_rows, verts, pts),
-        "kernel, packed rows": lambda: TS.hybrid_closest(
-            lo, hi, bvh.node_rows, bvh.tri_rows, pts)}
-    calls.update({HYBRID_STAGES[s]: hybrid_form(lib, bvh, pts, rows=verts)
+        lo, hi, bvh.node_rows, bvh.vertex_rows, pts)}
+    calls.update({HYBRID_STAGES[s]: hybrid_form(lib, bvh, pts)
                   for s, lib in forms.items()})
-    if parent is not None:
-        calls["pr12_kernel"] = hybrid_form(parent, bvh, pts,
-                                           stats_arg=False)
-        calls["pr12_kernel, vertex rows"] = hybrid_form(
-            parent, bvh, pts, stats_arg=False, rows=verts)
     times = {k: [] for k in calls}
     for _ in range(2):
         for k, fn in calls.items():
@@ -3608,21 +3592,21 @@ def time_hybrid(bvh, pts, forms, parent, reps=5):
     return {k: min(v) for k, v in times.items()}
 
 
-def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, parent_tree=None,
-                     seed=21):
+def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, seed=21):
     """The mesh -> SDF path at the reference's scale (bench.py:416-517):
     bumpy_sphere(0.3, 8) written to .obj, loaded and built through the
     native host paths, then K10 against its plain version (at the uniform
     points, at the escalation widths, at N_NEAR points near the surface,
-    where many boxes lie at distance 0, and at the fit's largest batch)
-    and, through signed_distance_hybrid(atol=0), P1's exact distances; K11
+    where many boxes lie at distance 0, at the fit's largest batch, and
+    at k1 = k2 = 512 and 2,048, whose lists outgrow 8 warps' shared
+    memory) and, through signed_distance_hybrid(atol=0) at the default
+    widths and at 128 (escalating to 512), P1's exact distances; K11
     on icosphere(0.3, 5) (bench.py's bvh_signed_distance_10k) exact against
     P1 and at mesh_sdf's default cap against its plain version; a tree
     fitted through mesh_sdf's default (K10) held to P1 near the surface and
     split by phase in a second build (F, K10 inside it, the sign, the
-    projection, the host topology); K10 split by stage, at the fit's
-    largest batch and beside the PR 12 kernel (built from
-    ``parent_tree``'s csrc/hybrid.cu when given) in CUDA graphs; K10 and
+    projection, the host topology); K10 split by stage and at the fit's
+    largest batch in CUDA graphs; K10 and
     P1 at 32k (at the uniform points and the slice fit's largest batch,
     ``slice_pts``), 82k and 1.31M triangles. The main path's launches are
     read over two runs: the fit with signed_distance_hybrid, and the walk
@@ -3639,13 +3623,9 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, parent_tree=None,
     dev = bvh_ico.tri_rows.device
     src = os.path.join(os.path.dirname(_kernels.__file__), "csrc",
                        "hybrid.cu")
-    with ThreadPoolExecutor(2) as pool:       # the forms build meanwhile
+    with ThreadPoolExecutor(1) as pool:       # the forms build meanwhile
         forms_job = pool.submit(build_hybrid_forms, src, HYBRID_STAGES,
                                 "split")
-        parent_job = None if parent_tree is None else pool.submit(
-            build_hybrid_forms, os.path.join(
-                parent_tree, "hpsdf_tpu_torch", "csrc", "hybrid.cu"), (3,),
-            "pr12", False)
         check(native.available(), "the native host library builds and loads")
         host = {}
         t0 = time.perf_counter()
@@ -3668,7 +3648,6 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, parent_tree=None,
             host["build_bvh_s"] = time.perf_counter() - t0
         os.remove(path)
         forms = forms_job.result()
-        parent = None if parent_job is None else parent_job.result()[3]
     paths = {k: ",".join(sorted(set(took.get(k, ["not called"]))))
              for k in NATIVE_STAGES}
     check(all(p == "native" for p in paths.values()),
@@ -3688,7 +3667,7 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, parent_tree=None,
     near = torch.as_tensor(surface_points(mesh, N_NEAR, NEAR_OFFSET, seed),
                            device=dev)
     table = tile_table(bvh.tri_rows)
-    verts = TS.vertex_rows(bvh.tri_rows)
+    verts = bvh.vertex_rows
     k10_err, blocks, sub = check_hybrid(bvh, pts, "1.31M")
     errs = [check_hybrid(bvh, pts, "1.31M, packed rows",
                          rows=bvh.tri_rows)[0]]
@@ -3697,7 +3676,12 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, parent_tree=None,
          4 * TS.HYBRID_K2),
         (near, f"1.31M, {N_NEAR} points near the surface", None, None),
         (near[:2048], "1.31M, near the surface, escalation widths",
-         4 * TS.HYBRID_K1, 4 * TS.HYBRID_K2))]
+         4 * TS.HYBRID_K1, 4 * TS.HYBRID_K2),
+        (pts[:1024], "1.31M, wide lists", 512, 512),
+        (near[:1024], "1.31M, near the surface, wide lists", 512, 512),
+        (pts[:256], "1.31M, the wide lists' escalation", 2048, 2048),
+        (near[:256], "1.31M, near the surface, the wide lists' escalation",
+         2048, 2048))]
     near_err = errs[2]
     k10_err = max(k10_err, *errs)
     d2_p1, idx_p1 = closest_tri_tiles(bvh.tri_rows, pts, table)
@@ -3735,6 +3719,11 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, parent_tree=None,
           f"signed_distance_hybrid(atol=0) vs P1: {sd_err:.3e}")
     fixed = TS.hybrid_sdf_fn(bvh)(pts)
     fixed_err = float((fixed - exact).abs().max())
+    sd_w, (n_bad_w, n_worse_w) = signed_distance_hybrid(
+        bvh, pts, 128, 128, atol=0.0, with_stats=True)
+    sd_w_err = float((sd_w - exact).abs().max())
+    check(sd_w_err <= SIGNED_ATOL, "signed_distance_hybrid(k1 = k2 = 128, "
+          f"atol=0) vs P1: {sd_w_err:.3e}")
     _, idx_near = closest_tri_tiles(bvh.tri_rows, near, table)
     exact_near = TS._signed_from_best(bvh.tri_rows, idx_near, near)
     fit_err = float((q - exact_near.double()).abs().max())
@@ -3760,6 +3749,8 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, parent_tree=None,
           f"signed_distance_hybrid(atol=0) at {N_MESH_PTS} uniform points: "
           f"{n_bad / N_MESH_PTS:.4%} escalated to 4x widths, "
           f"{n_worse / N_MESH_PTS:.4%} to P1, max|. - P1| {sd_err:.3e}; "
+          f"at k1 = k2 = 128 {n_bad_w} escalated to 512, {n_worse_w} to P1, "
+          f"max|. - P1| {sd_w_err:.3e}; "
           f"fixed-K hybrid max|. - P1| {fixed_err:.3e}", flush=True)
 
     # --- main path, K11: the walk through mesh_sdf(method="bvh") and
@@ -3798,7 +3789,7 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, parent_tree=None,
         bvh, fit_pts, f"1.31M, the fit's largest batch ({fit_pts.shape[0]} "
         "points)")
     k10_err = max(k10_err, fb_err)
-    fb_times = time_hybrid(bvh, fit_pts, {}, parent, reps=2)
+    fb_times = time_hybrid(bvh, fit_pts, {}, reps=2)
     fb_stats = TS._hybrid_launch(lo, hi, bvh.node_rows, verts, fit_pts,
                                  with_stats=True)[3]
     fb_bound = hybrid_bounds(lo, fit_pts, fb_blocks, sub, TS.HYBRID_K1,
@@ -3807,14 +3798,9 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, parent_tree=None,
     fb_work = fb_stats.double().mean(dim=0).tolist()
     del fb_blocks, fb_stats
 
-    # --- times: K10 split by stage and beside the PR 12 kernel; K10 and P1
+    # --- times: K10 split by stage; K10 and P1
     # at 32k, 82k and 1.31M; K11 capped and exact; plain versions once ---
-    if parent is not None:
-        bd_o = hybrid_form(parent, bvh, pts, stats_arg=False)()[2]
-        bd_k = TS.hybrid_closest(lo, hi, bvh.node_rows, verts, pts)[2]
-        check(bool(torch.equal(bd_o, bd_k)),
-              "K10 bound vs the PR 12 kernel's, bit for bit")
-    split_ms = time_hybrid(bvh, pts, forms, parent)
+    split_ms = time_hybrid(bvh, pts, forms)
     mid = build_mesh(*gen.bumpy_sphere(0.3, MESH_MID_SUB))
     bvh_mid = build_bvh(mid, device=dev)
     check_hybrid(bvh_mid, pts, "82k")
@@ -3829,7 +3815,7 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, parent_tree=None,
             ("82k", bvh_mid, pts, 5), ("1.31M", bvh, pts, 5)):
         lo_, hi_ = TS.cluster_aabbs(b)
         tab = tile_table(b.tri_rows)
-        vb = TS.vertex_rows(b.tri_rows)
+        vb = b.vertex_rows
         cross[name] = {
             "rows": b.n_leaves, "clusters": lo_.shape[0],
             "points": p.shape[0],
@@ -3850,12 +3836,6 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, parent_tree=None,
                         warmup=0)
     k11_bound = bvh_bounds(bvh_ico, pts, vis_p, seen)
     k10_ms = split_ms["kernel"]
-    pr12 = ({"ms": split_ms["pr12_kernel"],
-             "fit_batch_ms": fb_times["pr12_kernel"],
-             "vertex_rows_ms": split_ms["pr12_kernel, vertex rows"],
-             "fit_batch_vertex_rows_ms":
-                 fb_times["pr12_kernel, vertex rows"]}
-            if parent is not None else None)
     print(f"[mesh scale] {smi} | K10 at {N_MESH_PTS} points, 1.31M: "
           f"{k10_ms:.4f} ms, bound on its own work {k10_bound[0]:.5f} ms "
           f"({k10_bound[1]}; operations {k10_bound[2]:.5f}, bytes "
@@ -3866,19 +3846,11 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, parent_tree=None,
           f"split: " + ", ".join(f"{HYBRID_STAGES[s]} "
                                  f"{split_ms[HYBRID_STAGES[s]]:.4f}"
                                  for s in HYBRID_STAGES)
-          + f", whole {k10_ms:.4f} ms (on the packed rows "
-          f"{split_ms['kernel, packed rows']:.4f}); at the fit's largest "
-          f"batch"
-          f" ({fit_pts.shape[0]} points) {fb_times['kernel']:.4f} ms (packed "
-          f"rows {fb_times['kernel, packed rows']:.4f}), bound "
+          + f", whole {k10_ms:.4f} ms; at the fit's largest batch"
+          f" ({fit_pts.shape[0]} points) {fb_times['kernel']:.4f} ms, bound "
           f"on its work {fb_bound[0]:.4f} ms ({fb_bound[1]}), "
           f"{fb_bound[0] / fb_times['kernel']:.1%} of it (a point's work "
           f"{fb_work}), on the plain version's {fb_full[0]:.4f} ms"
-          + ("" if pr12 is None else
-             f"; the PR 12 kernel {pr12['ms']:.4f} ms, at the fit batch "
-             f"{pr12['fit_batch_ms']:.4f} ms (on the vertex rows "
-             f"{pr12['vertex_rows_ms']:.4f} / "
-             f"{pr12['fit_batch_vertex_rows_ms']:.4f})")
           + " | crossover (CUDA graphs): " + ", ".join(
               f"{k} ({v['points']} points) K10 {v['k10_ms']:.4f} / P1 "
               f"{v['p1_ms']:.4f} ms" for k, v in cross.items())
@@ -3899,20 +3871,20 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, parent_tree=None,
             "points": N_MESH_PTS,
             "split_ms": {HYBRID_STAGES[s]: split_ms[HYBRID_STAGES[s]]
                          for s in HYBRID_STAGES},
-            "packed_rows_ms": split_ms["kernel, packed rows"],
             "fit_batch": {"points": fit_pts.shape[0],
                           "ms": fb_times["kernel"],
-                          "packed_rows_ms": fb_times["kernel, packed rows"],
                           "bound_ms": fb_bound[0], "bound_by": fb_bound[1],
                           "ops_bound_ms": fb_bound[2],
                           "bytes_bound_ms": fb_bound[3],
                           "full_bound_ms": fb_full[0], "work_mean": fb_work},
-            "pr12_kernel": pr12, "near_max_abs_err": near_err,
+            "near_max_abs_err": near_err,
             "crossover": cross, "fit": fit, "host": host,
             "native_paths": paths,
             "escalated_share": n_bad / N_MESH_PTS,
             "to_p1_share": n_worse / N_MESH_PTS,
             "signed_atol0_max_abs_err": sd_err,
+            "signed_k128_max_abs_err": sd_w_err,
+            "k128_escalated": n_bad_w, "k128_to_p1": n_worse_w,
             "fixed_k_max_abs_err": fixed_err},
         "bvh_walk": {
             "launches": total["bvh_walk"],
@@ -4026,14 +3998,7 @@ def nvidia_smi():
     return out.strip().splitlines()[0]
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--k10-parent", metavar="DIR", default=None,
-                    help="a tree of the port's PR 12 (git archive of its "
-                    "commit, unpacked): [mesh scale] builds its "
-                    "csrc/hybrid.cu alone and times that K10 beside this "
-                    "one")
-    args = ap.parse_args(argv)
+def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -4169,7 +4134,7 @@ def main(argv=None):
 
     # --- 13. the mesh at the reference's scale: K10 and K11 ----------------
     launches_m, tm = phase("mesh scale", phase_mesh_scale, cfg, bvh, smi,
-                           fit_pts, args.k10_parent)
+                           fit_pts)
 
     total = {k: launches[k] + launches_r[k] + launches_i[k]
              + launches_ca[k] + launches_cb[k] + launches_m[k]

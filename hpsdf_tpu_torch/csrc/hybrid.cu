@@ -7,7 +7,7 @@
 //        (sdf.cluster_aabbs: the heap level whose nodes cover CS = min(256,
 //        T2) leaf rows, FIRST = T2 / CS = NC its first heap id); node_rows
 //        f32 (>= 8 FIRST, 16); tri_rows f32 (T2, stride >= 9: the packed
-//        rows or sdf.vertex_rows); pts f32 (B, 3); k1, k2 the clusters and
+//        rows or BVH.vertex_rows); pts f32 (B, 3); k1, k2 the clusters and
 //        subclusters kept
 //   out: best_d2 f32[B], best_idx i32[B] (a row of tri_rows), bound f32[B]
 // Per point:
@@ -32,12 +32,12 @@
 //
 // Design on the H100. A key is 64 bits, (distance bits, index): distances
 // are >= +0, so the keys order as (value, lower index), the plain order.
-//   - a block of 8 warps takes 8 consecutive points of the batch, a warp a
-//     point; after the first barrier no warp waits for another;
+//   - a block of W <= 8 warps takes W consecutive points of the batch, a
+//     warp a point; after the first barrier no warp waits for another;
 //   - the NC clusters fall into NCH <= 256 chunks of G = NC / NCH
 //     consecutive clusters, chunk j the subtree of heap node NCH + j, whose
 //     box its parent's row holds. The block stages the NCH chunk boxes in
-//     shared memory once for its 8 points, and each warp takes its point's
+//     shared memory once for its W points, and each warp takes its point's
 //     distance to every chunk. A box contains its descendants' boxes (the
 //     BVH's unions, bit for bit) and aabb_d2 does not decrease when a box
 //     shrinks, so a chunk's distance is a lower bound of every key in it;
@@ -47,7 +47,12 @@
 //   - the warp's candidates are a list in shared memory: a key joins (a
 //     ballot gives its slot) only below the threshold, the (k+1)-th
 //     smallest key of the list when it was last compacted; a compaction (a
-//     bitonic sort of the list by the warp) keeps the k+1 smallest. A key
+//     bitonic sort of the list by the warp, any length) keeps the k+1
+//     smallest. A list holds min(2 (k+1), n + 32) keys rounded up to a power
+//     of two; where 8 such warps do not fit in a block's shared memory the
+//     block takes fewer, and where one does not, its lists shrink toward
+//     k + 33 keys (sdf._hybrid_shape), so every width whose lists of k + 33
+//     keys fit one warp runs, compacting more often. A key
 //     at or above the threshold ranks after k + 1 kept keys, so it is never
 //     needed, whatever the ties: the selection has no overflow case. A last
 //     sort puts the kept keys first in ascending order; key k's distance is
@@ -65,11 +70,11 @@
 //     rows' triangles, so no row there or in a farther box could come below
 //     the best in the plain scan. best_d2 and the index are the full
 //     scan's, up to the FMA contraction the cascade already differs by.
-// The main path passes sdf.vertex_rows, the rows' lanes 0..11 in 48 bytes,
-// as tri_rows: 32 rows of a subcluster then lie in twelve whole 128-byte
+// The main path passes the BVH's vertex_rows, the rows' lanes 0..11 in 48
+// bytes, as tri_rows: 32 rows of a subcluster then lie in twelve whole 128-byte
 // lines, where 128-byte packed rows cost two 32-byte sectors each for the
 // 36 bytes read. Results are the same on either.
-// What this does about the PR 12 form's time (k10_forms.py at c73896f: a
+// What this does about the earlier form's time (k10_forms.py at c73896f: a
 // block a point, 8,192 cluster distances a point read from L2 0.22 ms, a
 // radix select with a bank-conflicted compaction 0.80 ms, the cascade 0.21
 // ms at 10,240 points on 1.31M triangles): the boxes a point reads fall to
@@ -100,9 +105,7 @@
 
 namespace {
 
-constexpr int kWarps = 8;                 // points a block
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxChunks = 256;
+constexpr int kMaxWarps = 8;              // points a block at most
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kDone = 0xffffffffu;   // a visited chunk
 constexpr uint64_t kNone = ~0ull;         // above every key
@@ -124,22 +127,25 @@ __device__ __forceinline__ uint64_t umin64(uint64_t a, uint64_t b) {
   return b < a ? b : a;
 }
 
-// a[0, n) in ascending order, by the whole warp (bitonic, in shared memory;
-// n padded with kNone to a power of two >= 32, within the list's capacity)
+// a[0, n) in ascending order, by the whole warp, in place: a bitonic
+// network over the next power of two whose merges all run ascending (the
+// first step of each mirrors the block), so the virtual entries past n are
+// +inf that no comparator moves, and the list needs no more than n keys
 __device__ void warp_sort(uint64_t* a, int n) {
   const int lane = threadIdx.x & 31;
   int len = 32;
   while (len < n) len <<= 1;
-  for (int i = n + lane; i < len; i += 32) a[i] = kNone;
-  __syncwarp();
   for (int size = 2; size <= len; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       for (int p = lane; p < (len >> 1); p += 32) {
         const int i = ((p & ~(stride - 1)) << 1) | (p & (stride - 1));
-        const uint64_t x = a[i], y = a[i + stride];
-        if ((x > y) == ((i & size) == 0)) {
-          a[i] = y;
-          a[i + stride] = x;
+        const int j = stride == size >> 1 ? i ^ (size - 1) : i + stride;
+        if (j < n) {
+          const uint64_t x = a[i], y = a[j];
+          if (x > y) {
+            a[i] = y;
+            a[j] = x;
+          }
         }
       }
       __syncwarp();
@@ -147,7 +153,8 @@ __device__ void warp_sort(uint64_t* a, int n) {
   }
 }
 
-// A warp's candidate keys. cap is a power of two with cap - 32 >= k + 1.
+// A warp's candidate keys. cap - 32 >= k + 1, or cap - 32 >= the keys
+// the list is ever offered (then it never compacts).
 struct List {
   uint64_t* a;
   int cap, k, count;
@@ -184,7 +191,7 @@ __device__ __forceinline__ float list_finish(List& L) {
 }
 
 template <bool kTwo>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kMaxWarps)
 hybrid_kernel(const float* __restrict__ node_lo,
               const float* __restrict__ node_hi,
               const float* __restrict__ node_rows,
@@ -195,13 +202,14 @@ hybrid_kernel(const float* __restrict__ node_lo,
               float* __restrict__ bound, int32_t* __restrict__ stats) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
   uint64_t* lists = reinterpret_cast<uint64_t*>(smem);  // [warps][cap1+cap2]
-  float* box = reinterpret_cast<float*>(lists + kWarps * (cap1 + cap2));
+  float* box = reinterpret_cast<float*>(lists + warps * (cap1 + cap2));
   unsigned* chunk_keys = reinterpret_cast<unsigned*>(box + 6 * nch);
 
   // the chunk boxes (lo xyz, hi xyz, a row of nch each), once a block
   if (nch > 1) {
-    for (int j = threadIdx.x; j < nch; j += kThreads) {
+    for (int j = threadIdx.x; j < nch; j += blockDim.x) {
       const int node = nch + j;
       const float* r = node_rows + 16 * (int64_t)(node >> 1) + 6 * (node & 1);
 #pragma unroll
@@ -209,7 +217,7 @@ hybrid_kernel(const float* __restrict__ node_lo,
     }
   }
   __syncthreads();
-  const int64_t i = (int64_t)blockIdx.x * kWarps + warp;
+  const int64_t i = (int64_t)blockIdx.x * warps + warp;
   if (i >= B) return;
   const float px = pts[3 * i], py = pts[3 * i + 1], pz = pts[3 * i + 2];
 
@@ -372,49 +380,31 @@ hybrid_kernel(const float* __restrict__ node_lo,
   }
 }
 
-// the chunks and the lists' capacities of a launch
-void shape_of(int64_t nc, int64_t k1, int64_t k2, int two_level,
-              int64_t* nch, int64_t* cap1, int64_t* cap2) {
-  *nch = nc >= 64 ? (nc / 32 < kMaxChunks ? nc / 32 : kMaxChunks) : 1;
-  // a list never holds more than its n keys, and a compaction needs
-  // cap - 32 >= k + 1
-  auto cap = [](int64_t k, int64_t n) {
-    const int64_t want = 2 * (k + 1) < n + 32 ? 2 * (k + 1) : n + 32;
-    int64_t c = 64;
-    while (c < want) c <<= 1;
-    return c;
-  };
-  *cap1 = cap(k1, nc);
-  *cap2 = two_level ? cap(k2, 8 * k1) : 0;
-}
-
 }  // namespace
 
-// Shared memory a block of K10 needs, in bytes: each warp's two lists of
-// 8-byte keys and its chunk distances, and the chunk boxes; k1 and k2
-// already clipped (k1 <= nc, k2 <= 8 k1).
-extern "C" int64_t hpsdf_hybrid_smem(int64_t nc, int64_t k1, int64_t k2,
-                                     int two_level) {
-  int64_t nch, cap1, cap2;
-  shape_of(nc, k1, k2, two_level, &nch, &cap1, &cap2);
-  return 8 * kWarps * (cap1 + cap2) + 24 * nch + 4 * kWarps * nch;
-}
-
 // K10 over B points; nc = first (node_lo is cluster_aabbs'), nc a power of
-// two, k1 <= nc, and k2 <= 8 k1 with two levels. stats (B, 4) or null: a
-// point's chunks visited, cluster and subcluster distances taken, rows
-// scanned.
+// two, k1 <= nc, and k2 <= 8 k1 with two levels. The launch's shape is the
+// wrapper's (sdf._hybrid_shape): nch chunks, warps points a block, lists of
+// cap1 and cap2 keys, smem bytes of shared memory a block. stats (B, 4) or
+// null: a point's chunks visited, cluster and subcluster distances taken,
+// rows scanned.
 extern "C" int hpsdf_hybrid(const float* node_lo, const float* node_hi,
                             const float* node_rows, const float* tri_rows,
                             int64_t tri_stride, int64_t nc, int64_t first,
                             int64_t sub, int64_t k1, int64_t k2,
-                            int two_level, const float* pts, int64_t B,
-                            float* best_d2, int32_t* best_idx, float* bound,
-                            int32_t* stats, void* stream) {
-  if (first != nc || (nc & (nc - 1)) != 0) return (int)cudaErrorInvalidValue;
-  int64_t nch, cap1, cap2;
-  shape_of(nc, k1, k2, two_level, &nch, &cap1, &cap2);
-  const int64_t smem = hpsdf_hybrid_smem(nc, k1, k2, two_level);
+                            int two_level, int64_t nch, int64_t warps,
+                            int64_t cap1, int64_t cap2, int64_t smem,
+                            const float* pts, int64_t B, float* best_d2,
+                            int32_t* best_idx, float* bound, int32_t* stats,
+                            void* stream) {
+  auto fits = [](int64_t cap, int64_t k, int64_t n) {
+    return cap - 32 >= (k + 1 < n ? k + 1 : n);
+  };
+  if (first != nc || (nc & (nc - 1)) != 0 || nch < 1 || nc % nch != 0 ||
+      warps < 1 || warps > kMaxWarps || !fits(cap1, k1, nc) ||
+      (two_level && !fits(cap2, k2, 8 * k1)) ||
+      smem < 8 * warps * (cap1 + cap2) + 4 * warps * nch + 24 * nch)
+    return (int)cudaErrorInvalidValue;
   const void* fn = two_level ? (const void*)hybrid_kernel<true>
                              : (const void*)hybrid_kernel<false>;
   if (smem > 48 * 1024) {
@@ -422,14 +412,15 @@ extern "C" int hpsdf_hybrid(const float* node_lo, const float* node_hi,
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const unsigned blocks = (unsigned)((B + kWarps - 1) / kWarps);
+  const unsigned blocks = (unsigned)((B + warps - 1) / warps);
+  const unsigned threads = (unsigned)(32 * warps);
   if (two_level) {
-    hybrid_kernel<true><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+    hybrid_kernel<true><<<blocks, threads, smem, (cudaStream_t)stream>>>(
         node_lo, node_hi, node_rows, tri_rows, tri_stride, (int)nc,
         (int)sub, (int)k1, (int)k2, (int)nch, (int)cap1, (int)cap2, pts, B,
         best_d2, best_idx, bound, stats);
   } else {
-    hybrid_kernel<false><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+    hybrid_kernel<false><<<blocks, threads, smem, (cudaStream_t)stream>>>(
         node_lo, node_hi, node_rows, tri_rows, tri_stride, (int)nc,
         (int)sub, (int)k1, (int)k2, (int)nch, (int)cap1, (int)cap2, pts, B,
         best_d2, best_idx, bound, stats);

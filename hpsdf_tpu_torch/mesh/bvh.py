@@ -17,6 +17,7 @@ of two; their squared distance overflows f32 to +inf and never wins.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -63,6 +64,17 @@ class BVH:
     @property
     def n_leaves(self) -> int:
         return self.tri_rows.shape[0]
+
+    @functools.cached_property
+    def vertex_rows(self) -> torch.Tensor:
+        """The vertex lanes of ``tri_rows`` as a contiguous (T2, 12) f32
+        copy, 48 bytes a row, made at first use and kept: the rows the hybrid
+        prune's cascade (kernel K10) reads, lanes 0..8 of every candidate,
+        which in a 128-byte packed row cost two 32-byte sectors and here come
+        in whole 128-byte lines (32 rows of a subcluster). Row indices are
+        ``tri_rows``'; K10 and its plain version give the same results on
+        either."""
+        return self.tri_rows[:, :12].contiguous()
 
 
 def kd_order(cent: np.ndarray, T2: int) -> np.ndarray:

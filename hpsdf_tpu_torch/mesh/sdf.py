@@ -46,6 +46,8 @@ PLAIN_CANDIDATES = 2048 * HYBRID_K2 * 32
 # tiles -> hybrid crossover of mesh_sdf(method="auto"), as in hpsdf_tpu
 AUTO_TILES_MAX = 65536
 MAX_SMEM = 232448        # shared memory a block of K10 may use on the H100
+HYBRID_WARPS = 8         # K10's points a block at most, a warp each
+HYBRID_CHUNKS = 256      # K10's chunks (heap subtrees of clusters) at most
 # K10's cascade stops at a box farther than its best row by more than this
 # share of the coordinates' scale 1 + |x| + |y| + |z| (csrc/hybrid.cu kReach)
 HYBRID_REACH = 1e-5
@@ -340,6 +342,43 @@ def _axes_dist2(p, lo, hi):
     return _tri.aabb_dist2(p[:, None, :], lo, hi)
 
 
+def _hybrid_shape(nc, k1, k2, two_level):
+    """K10's launch shape for these (clipped) widths: (NCH chunks, warps a
+    block, list capacities cap1 and cap2 in keys, shared memory in bytes).
+    A list of k takes min(2 (k + 1), n + 32) keys rounded up to a power of
+    two, so a compaction keeps k + 1 and admits as many; where 8 warps do
+    not fit in MAX_SMEM a block takes fewer, and where one does not, the
+    lists' spare room halves down to the 32 keys a step adds (min(k + 33,
+    n + 32) keys: a compaction every 32 keys that join)."""
+    nch = min(nc // 32, HYBRID_CHUNKS) if nc >= 64 else 1
+    n2 = 8 * k1
+
+    def ideal(k, n):
+        want, c = min(2 * (k + 1), n + 32), 64
+        while c < want:
+            c <<= 1
+        return c
+
+    def smem(w, c1, c2):
+        return 8 * w * (c1 + c2) + 4 * w * nch + 24 * nch
+
+    c1, c2 = ideal(k1, nc), ideal(k2, n2) if two_level else 0
+    for w in range(HYBRID_WARPS, 0, -1):
+        if smem(w, c1, c2) <= MAX_SMEM:
+            return nch, w, c1, c2, smem(w, c1, c2)
+    e1, e2 = c1 - k1 - 1, c2 - k2 - 1
+    while True:
+        e1, e2 = max(32, e1 // 2), max(32, e2 // 2)
+        c1 = min(k1 + 1 + e1, nc + 32)
+        c2 = min(k2 + 1 + e2, n2 + 32) if two_level else 0
+        if smem(1, c1, c2) <= MAX_SMEM:
+            return nch, 1, c1, c2, smem(1, c1, c2)
+        if e1 == e2 == 32:
+            raise ValueError(f"hybrid_closest: {nc} clusters with k1 = {k1}, "
+                             f"k2 = {k2} need {smem(1, c1, c2)} bytes of "
+                             "shared memory")
+
+
 def hybrid_closest_plain(node_lo, node_hi, node_rows, tri_rows, p,
                          k1: int = HYBRID_K1, k2: int = HYBRID_K2,
                          with_blocks: bool = False):
@@ -398,7 +437,7 @@ def hybrid_closest(node_lo, node_hi, node_rows, tri_rows, p,
                    k1: int = HYBRID_K1, k2: int = HYBRID_K2):
     """Two-level pruned closest triangle: kernel K10 on CUDA tensors,
     ``hybrid_closest_plain`` on CPU tensors. node_lo / node_hi:
-    ``cluster_aabbs(bvh)``; tri_rows: the packed rows or their
+    ``cluster_aabbs(bvh)``; tri_rows: the packed rows or the BVH's
     ``vertex_rows`` (the same results; K10 reads the latter faster).
     Returns (best_d2 f32[B], best_idx i32[B], bound f32[B]);
     ``max(0, sqrt(best_d2) - sqrt(bound))`` is a guaranteed bound on the
@@ -431,11 +470,7 @@ def _hybrid_launch(node_lo, node_hi, node_rows, tri_rows, p, k1=HYBRID_K1,
             and node_rows.data_ptr() % 16 == 0):
         raise ValueError("hybrid_closest: node_lo, node_hi (NC, 3) and "
                          "node_rows (N, 16) must be contiguous")
-    lib = _kernels.load()
-    smem = lib.hpsdf_hybrid_smem(nc, k1, k2, int(two_level))
-    if smem > MAX_SMEM - 2048:
-        raise ValueError(f"hybrid_closest: {nc} clusters with k1 = {k1}, "
-                         f"k2 = {k2} need {smem} bytes of shared memory")
+    shape = _hybrid_shape(nc, k1, k2, two_level)
     p = p.contiguous()
     B, dev = p.shape[0], p.device
     best_d2 = torch.empty(B, dtype=torch.float32, device=dev)
@@ -444,10 +479,11 @@ def _hybrid_launch(node_lo, node_hi, node_rows, tri_rows, p, k1=HYBRID_K1,
     stats = torch.empty((B, 4), dtype=torch.int32, device=dev) \
         if with_stats else None
     if B:
+        lib = _kernels.load()
         _kernels.check(lib, lib.hpsdf_hybrid(
             node_lo.data_ptr(), node_hi.data_ptr(), node_rows.data_ptr(),
             tri_rows.data_ptr(), tri_rows.stride(0), nc, first, sub, k1, k2,
-            int(two_level), p.data_ptr(), B, best_d2.data_ptr(),
+            int(two_level), *shape, p.data_ptr(), B, best_d2.data_ptr(),
             best_idx.data_ptr(), bound.data_ptr(),
             stats.data_ptr() if with_stats else None,
             _kernels.stream_of(p)), "hybrid")
@@ -458,16 +494,6 @@ def _hybrid_launch(node_lo, node_hi, node_rows, tri_rows, p, k1=HYBRID_K1,
 
 
 hybrid_closest.launches = 0
-
-
-def vertex_rows(tri_rows):
-    """The vertex lanes of packed triangle rows as a contiguous (T2, 12) f32
-    copy, 48 bytes a row, for K10's cascade: it reads lanes 0..8 of every
-    candidate row, which in a 128-byte packed row cost two 32-byte sectors
-    and here come in whole 128-byte lines (32 rows of a subcluster). Row
-    indices are the packed rows'; the kernel and its plain version give the
-    same results on either."""
-    return tri_rows[:, :12].contiguous()
 
 
 def _dist_err_bound(d2, bound):
@@ -490,7 +516,7 @@ def signed_distance_hybrid(bvh: BVH, pts, k1: int = HYBRID_K1,
     escalated to P1)."""
     p = pts.to(torch.float32)
     lo, hi = cluster_aabbs(bvh)
-    verts = vertex_rows(bvh.tri_rows)
+    verts = bvh.vertex_rows
     d2, idx, bd = hybrid_closest(lo, hi, bvh.node_rows, verts, p, k1, k2)
     bad = torch.nonzero(_dist_err_bound(d2, bd) > atol).flatten()
     n_bad = n_worse = 0
@@ -515,8 +541,7 @@ def hybrid_sdf_fn(bvh: BVH, k1: int = HYBRID_K1, k2: int = HYBRID_K2):
     ~1e-4 at most on the reference's 1.3M-triangle differential). F casts
     the points to f32 and returns the caller's dtype."""
     lo, hi = cluster_aabbs(bvh)
-    node_rows, tri_rows = bvh.node_rows, bvh.tri_rows
-    verts = vertex_rows(tri_rows)           # once for every call of F
+    node_rows, tri_rows, verts = bvh.node_rows, bvh.tri_rows, bvh.vertex_rows
 
     def F(pts):
         p = pts.to(torch.float32)

@@ -315,13 +315,12 @@ def _key(d, idx):
 
 
 class _List:
-    """The kernel's candidate list (csrc/hybrid.cu ``List``): a key joins
-    only below the threshold, a compaction keeps the k + 1 smallest."""
+    """The kernel's candidate list (csrc/hybrid.cu ``List``) of ``cap`` keys:
+    a key joins only below the threshold, a compaction keeps the k + 1
+    smallest."""
 
-    def __init__(self, k):
-        self.k, self.cap = k, 64
-        while self.cap < 2 * (k + 1):
-            self.cap <<= 1
+    def __init__(self, k, cap):
+        self.k, self.cap = k, cap
         self.a, self.thr, self.compactions = [], NONE, 0
 
     def push(self, keys):
@@ -342,8 +341,10 @@ class _List:
         return bound
 
 
-def _kernel_select(tb, p, k1, k2):
-    """K10 for one point, step for step as csrc/hybrid.cu runs it: the
+def _kernel_select(tb, p, k1, k2, shortest=False):
+    """K10 for one point, step for step as csrc/hybrid.cu runs it, with the
+    lists the launch's shape gives (``shortest``: min(k + 33, n + 32) keys,
+    what the shape falls back to where one warp's lists do not fit): the
     chunks nearest first until one lies above the threshold, the clusters
     into a list, then the kept clusters' subclusters in ascending key order
     until a cluster lies above the second threshold; then the kept blocks'
@@ -355,7 +356,10 @@ def _kernel_select(tb, p, k1, k2):
     nc, first, _, two_level, k1, k2 = TS._layout(lo, tb.node_rows,
                                                  tb.tri_rows, k1, k2)
     assert first == nc
-    nch = min(nc // 32, 256) if nc >= 64 else 1
+    nch, _, cap1, cap2, _ = TS._hybrid_shape(nc, k1, k2, two_level)
+    assert nch == (min(nc // 32, 256) if nc >= 64 else 1)
+    if shortest:
+        cap1, cap2 = min(k1 + 33, nc + 32), min(k2 + 33, 8 * k1 + 32)
     g = nc // nch
     if nch > 1:
         alo, ahi = _node_boxes(tb.node_rows, nch + torch.arange(nch))
@@ -363,7 +367,7 @@ def _kernel_select(tb, p, k1, k2):
     else:
         chunk = np.zeros(1, np.float32)
     d_clu = TS._axes_dist2(p[None], lo, hi)[0].numpy()
-    L1 = _List(k1)
+    L1 = _List(k1, cap1)
     visited = 0
     for j in sorted(range(nch), key=lambda j: _key(chunk[j], j)):
         if _key(chunk[j], 0) >> 32 > L1.thr >> 32:
@@ -375,7 +379,7 @@ def _kernel_select(tb, p, k1, k2):
     bound = L1.finish()
     kept = L1.a
     if two_level:
-        L2 = _List(k2)
+        L2 = _List(k2, cap2)
         for t in range(0, len(kept), 4):
             if kept[t] >> 32 > L2.thr >> 32:
                 break
@@ -412,32 +416,26 @@ def _kernel_select(tb, p, k1, k2):
             best_row, q0)
 
 
-@pytest.mark.parametrize("points", ["uniform", "near"])
-@pytest.mark.parametrize("k", [(48, 48), (2, 3), (8, 8), (192, 192),
-                               (512, 4096)])
-def test_kernel_selection_matches_plain(bumpy6, k, points):
-    """The kernel's selection (the chunk prune, the thresholded lists, the
-    subclusters nearest cluster first) keeps the plain version's sets and
-    gives its bound bit for bit: at the default and escalation widths, at
-    k >= n (all kept, bound +inf) and on points near the surface, which lie
-    inside several boxes at distance 0 (ties broken by index)."""
-    tb = bumpy6
-    lo, hi = TS.cluster_aabbs(tb)
+def _selection_points(points, n=48):
     if points == "uniform":
-        p = torch.as_tensor(_pts(48, seed=11))
-    else:
-        m = TM.build_mesh(*gen.bumpy_sphere(0.3, 6))
-        rng = np.random.default_rng(12)
-        t = rng.integers(0, m.n_faces, 48)
-        w = rng.dirichlet(np.ones(3), 48)
-        on = (w[:, :, None] * m.vertices[m.faces[t]]).sum(axis=1)
-        p = torch.as_tensor((on + rng.uniform(-1e-3, 1e-3, (48, 1))
-                             * m.face_normals[t]).astype(np.float32))
+        return torch.as_tensor(_pts(n, seed=11))
+    m = TM.build_mesh(*gen.bumpy_sphere(0.3, 6))
+    rng = np.random.default_rng(12)
+    t = rng.integers(0, m.n_faces, n)
+    w = rng.dirichlet(np.ones(3), n)
+    on = (w[:, :, None] * m.vertices[m.faces[t]]).sum(axis=1)
+    return torch.as_tensor((on + rng.uniform(-1e-3, 1e-3, (n, 1))
+                            * m.face_normals[t]).astype(np.float32))
+
+
+def _selection_against_plain(tb, p, k, points, shortest=False):
+    lo, hi = TS.cluster_aabbs(tb)
     d2, idx, bd, blocks, sub = TS.hybrid_closest_plain(
         lo, hi, tb.node_rows, tb.tri_rows, p, *k, with_blocks=True)
     visited, scanned = [], []
     for n in range(p.shape[0]):
-        kept, bound, v, nch, best, row, q = _kernel_select(tb, p[n], *k)
+        kept, bound, v, nch, best, row, q = _kernel_select(
+            tb, p[n], *k, shortest=shortest)
         assert kept == blocks[n].tolist()
         assert np.float32(bound).view(np.uint32) \
             == bd[n].numpy().view(np.uint32)
@@ -451,6 +449,86 @@ def test_kernel_selection_matches_plain(bumpy6, k, points):
         assert min(scanned) < blocks.shape[1] * sub
     if points == "near" and k == (2, 3):
         assert bool((bd == 0).any())   # more than k boxes at distance 0
+
+
+@pytest.mark.parametrize("points", ["uniform", "near"])
+@pytest.mark.parametrize("k", [(48, 48), (2, 3), (8, 8), (192, 192),
+                               (512, 4096)])
+def test_kernel_selection_matches_plain(bumpy6, k, points):
+    """The kernel's selection (the chunk prune, the thresholded lists, the
+    subclusters nearest cluster first) keeps the plain version's sets and
+    gives its bound bit for bit: at the default and escalation widths, at
+    k >= n (all kept, bound +inf) and on points near the surface, which lie
+    inside several boxes at distance 0 (ties broken by index)."""
+    _selection_against_plain(bumpy6, _selection_points(points), k, points)
+
+
+@pytest.mark.parametrize("points", ["uniform", "near"])
+@pytest.mark.parametrize("k", [(2, 3), (48, 48), (192, 192)])
+def test_kernel_selection_with_the_shortest_lists(bumpy6, k, points):
+    """The same with the shortest lists the launch's shape may give, k + 33
+    keys (a compaction every 32 keys that join), as at widths whose lists
+    outgrow one warp's room at their full length."""
+    _selection_against_plain(bumpy6, _selection_points(points, 24), k, points,
+                             shortest=True)
+
+
+def _warp_sort(a):
+    """csrc/hybrid.cu ``warp_sort``: the bitonic network over the next power
+    of two, every merge ascending with a mirrored first step, comparators
+    reaching past n skipped (their entry would be +inf)."""
+    a, n = list(a), len(a)
+    size_all = 32
+    while size_all < n:
+        size_all <<= 1
+    size = 2
+    while size <= size_all:
+        stride = size >> 1
+        while stride > 0:
+            for p in range(size_all >> 1):
+                i = ((p & ~(stride - 1)) << 1) | (p & (stride - 1))
+                j = i ^ (size - 1) if stride == size >> 1 else i + stride
+                assert i < j
+                if j < n and a[i] > a[j]:
+                    a[i], a[j] = a[j], a[i]
+            stride >>= 1
+        size <<= 1
+    return a
+
+
+def test_warp_sort_sorts_any_length():
+    """The compaction's sort touches only the list's n keys and sorts them,
+    whatever n: lists need not be a power of two long."""
+    rng = np.random.default_rng(17)
+    for n in [0, 1, 2, 31, 32, 33, 66, 97, 128, 161, 300, 545]:
+        keys = rng.choice(1 << 40, n, replace=False).tolist()
+        assert _warp_sort(keys) == sorted(keys)
+    ties = [_key(0.0, i) for i in rng.permutation(70)]   # distance-0 keys
+    assert _warp_sort(ties) == sorted(ties)
+
+
+def test_hybrid_shape_fits_every_width_that_fit_before():
+    """Every (NC, k1, k2) the one-block-a-point kernel took (4 (NC + 9 k1 +
+    k2) bytes of shared memory within MAX_SMEM - 2048; 4 (NC + k1) with one
+    level) gets a launch shape within MAX_SMEM whose lists compact (cap - 32
+    >= k + 1, or >= every key the list is offered); the default and
+    escalation widths at NC 8,192 keep 8 warps a block."""
+    limit = (TS.MAX_SMEM - 2048) // 4
+    for nc in [1 << e for e in range(16)]:
+        for two in (False, True):
+            k1 = np.arange(1, nc + 1)
+            k2 = np.minimum(8 * k1, limit - nc - 9 * k1) if two else 0 * k1
+            ok = k2 >= 1 if two else nc + k1 <= limit
+            for a, b in zip(k1[ok].tolist(), k2[ok].tolist()):
+                nch, w, c1, c2, smem = TS._hybrid_shape(nc, a, b, two)
+                assert 1 <= w <= TS.HYBRID_WARPS and smem <= TS.MAX_SMEM
+                assert smem == 8 * w * (c1 + c2) + 4 * w * nch + 24 * nch
+                assert c1 - 32 >= min(a + 1, nc)
+                assert not two or c2 - 32 >= min(b + 1, 8 * a)
+    for k in (48, 192):
+        assert TS._hybrid_shape(8192, k, k, True)[1] == TS.HYBRID_WARPS
+    with pytest.raises(ValueError, match="shared memory"):
+        TS._hybrid_shape(8192, 8192, 65536, True)
 
 
 def test_plain_selection_tie_heavy(bumpy6):
@@ -528,11 +606,12 @@ def test_hybrid_bounds_count_the_kernels_work():
 
 
 def test_vertex_rows_give_the_packed_rows_results(bumpy):
-    """sdf.vertex_rows, which the main path hands K10 as its rows, is the
-    packed rows' lanes 0..11 in contiguous 48-byte rows, and the prune
-    gives the same results on it as on the packed rows."""
+    """The BVH's vertex_rows, which the main path hands K10 as its rows, are
+    the packed rows' lanes 0..11 in contiguous 48-byte rows, made once, and
+    the prune gives the same results on them as on the packed rows."""
     _, tb = bumpy
-    verts = TS.vertex_rows(tb.tri_rows)
+    verts = tb.vertex_rows
+    assert verts is tb.vertex_rows
     assert verts.shape == (tb.n_leaves, 12) and verts.is_contiguous()
     assert torch.equal(verts, tb.tri_rows[:, :12])
     lo, hi = TS.cluster_aabbs(tb)
