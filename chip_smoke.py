@@ -3385,6 +3385,18 @@ def native_paths():
         yield took
 
 
+def cube_mesh(half):
+    """The 12-triangle axis-aligned cube of half-side ``half`` about the
+    origin, outward-oriented (as tests/util.cube_mesh): its BVH is a heap of
+    depth 4. Returns (vertices f64 (8, 3), faces i32 (12, 3))."""
+    v = half * np.asarray([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                           for z in (-1, 1)], np.float64)
+    quads = ((0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+             (0, 2, 6, 4), (1, 5, 7, 3))
+    f = [t for a, b, c, d in quads for t in ((a, b, c), (a, c, d))]
+    return v, np.asarray(f, np.int32)
+
+
 def surface_points(mesh, n, offset, seed):
     """n points at distance up to ``offset`` from random points of random
     triangles of the mesh (f32, host)."""

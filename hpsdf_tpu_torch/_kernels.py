@@ -96,6 +96,7 @@ _CHECK_SIGNATURES = {
     "hpsdf_cone_reference": (_P, _P, _I32, _I32, _P, _P, _I32, _I32, _P,
                              _I64, _P, _I32, _I32, _I32, _P, _F32, _F32,
                              _I32, _P, _P),
+    "hpsdf_bvh_walk_reference": _SIGNATURES["hpsdf_bvh_walk"],
 }
 
 _lock = threading.Lock()

@@ -1,13 +1,15 @@
 // K11: the closest triangle per point by a walk of the perfect-heap BVH,
-// one thread a point.
+// a warp a point, the heap loaded a window of levels at a time.
 //
 // Replaces the XLA-fused loop _closest_bvh_impl,
 // hpsdf_tpu/mesh/sdf.py:73-160 (the batched while_loop of
 // signed_distance). Same contract:
 //   in : node_rows f32 (T2, 16), heap node n's children's boxes in lanes
 //        0..11 (left min, left max, right min, right max); tri_rows f32
-//        (T2, stride >= 9), the leaves in heap order (heap id T2 + row);
-//        pts f32 (B, 3); max_iters, the visits after which a walk stops
+//        (T2, stride >= 9), the leaves in heap order (heap id T2 + row):
+//        the packed rows or, as the main path passes them, BVH.vertex_rows
+//        (stride 12); pts f32 (B, 3); max_iters, the visits after which a
+//        walk stops
 //   out: best_d2 f32[B], best_idx i32[B] (a row of tri_rows)
 // Each point first descends greedily, always into the nearer child, to one
 // leaf, whose triangle seeds the best distance (an upper bound, so the walk
@@ -18,32 +20,39 @@
 // the stack is empty or after max_iters iterations (4 T2 visits every node
 // a DFS can reach, so that cap is exact).
 //
-// A point's walk depends on that point alone, so a thread follows exactly
-// the sequence of the lockstep plain version (sdf.closest_bvh_plain): the
-// same decisions on the same distances. The box distances round as the
-// plain version's do (tri.cuh aabb_d2); the triangle distance is P1's
-// (tri.cuh), which differs from the plain cascade by FMA contraction in the
-// last bits, so a decision can flip only where a box distance and the best
-// are within an ulp or two.
+// What bounds it. Not bytes or arithmetic (chip_smoke.py prices both on
+// the rows the plain walks read: microseconds), but the walk's chain of
+// dependent loads: the next node is known only after the distances of this
+// one. Walked a thread a point, every visit waited on one load from L2 or
+// device memory (~0.6 us a visit on the H100), 32 walks of different
+// lengths shared a warp, and 10,240 points filled 80 blocks.
 //
-// Bound on the H100. The work is data-dependent: per point, the node rows
-// and triangle rows its walk visits (counted by the plain version, or by
-// this kernel's `visits`). Each visit is a dependent load -- the next node
-// is known only after the distances of this one -- of 48 bytes (a node row's
-// twelve lanes as three float4s) or 36 (a triangle's vertices, two float4s
-// and a float), and about 40 f32 operations (two box distances) or 70 (the
-// staging and the cascade). So a walk is a chain of L2 or device-memory
-// latencies, not a stream of bytes or operations: the kernel is bound by
-// latency, and by divergence, since the 32 walks of a warp take different
-// lengths and branches (a deep-interior point, nearly equidistant from much
-// of the surface, visits thousands of nodes where a point near the surface
-// visits tens). The design does the simple thing: one thread a point, the
-// stack in local memory (32 ints, so T2 <= 2^30), rows read with 16-byte
-// read-only loads, no reordering of the points. chip_smoke.py prices the
-// bound on the visits the plain version counts and records how far the
-// kernel is from it.
+// The design. A visit's decision depends only on the node's two child-box
+// distances and on the best, and the best changes only at a leaf. So a
+// warp follows one point's walk and, from the node where the walk stands,
+// loads the heap subtree kLevels levels deep in one round (the heap keeps a
+// subtree's level k below node r in the contiguous ids r 2^k .. r 2^k +
+// 2^k - 1): a node row a lane, and where the window reaches the leaves
+// (ids >= T2) their vertices too, a row a lane (48 contiguous bytes of
+// vertex_rows). Each lane computes its rows' child-box distances (tri.cuh
+// aabb_d2, rounded as the plain version rounds) or its triangle's (P1's
+// cascade, tri.cuh row_d2) into the warp's shared window. Then every lane
+// replays, visit by visit, the sequential walk's decisions from those
+// values (a broadcast read a visit), updating the best at leaves in walk
+// order, until the walk leaves the window: it descends below it, or pops
+// to a node outside it, and the next round loads the window under that
+// node. The greedy seed descends the same way, a window a round. The stack
+// lives in the warp's lanes, an entry a lane (a heap of depth d stacks at
+// most d entries), read back with a shuffle: no local frame. So a walk
+// costs one dependent round trip per window (on icosphere(0.3, 5) about 8
+// visits a round) instead of one per visit, and its visits are the
+// thread-a-point walk's own, decision for decision: the same distances in
+// the same order, hence the same results and visit counts.
 //
 // Numerics. Built without --use_fast_math (the cascade's 1e-30 guards).
+// The triangle distance is P1's, which differs from the plain cascade by
+// FMA contraction in the last bits, so a decision can flip only where a box
+// distance and the best are within an ulp or two.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,80 +62,169 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxStack = 32;     // heap depth + 1 for T2 <= 2^30
+#ifndef HPSDF_K11_LEVELS
+#define HPSDF_K11_LEVELS 5
+#endif
+#ifndef HPSDF_K11_WARPS
+#define HPSDF_K11_WARPS 4
+#endif
+constexpr int kWarps = HPSDF_K11_WARPS;   // walks a block, a warp each
+constexpr int kLevels = HPSDF_K11_LEVELS; // internal heap levels a window
+constexpr int kItems = 2 << kLevels;     // window slots, heap order from 1
+constexpr int kSlots = kItems / 32;      // a lane's slots
+constexpr int kMaxStack = 32;            // an entry a lane: depth <= 31
+constexpr unsigned kFull = 0xffffffffu;
 
-// the two child boxes' squared distances of internal heap node n
-__device__ __forceinline__ void child_d2(const float* __restrict__ node_rows,
-                                         int32_t n, float px, float py,
-                                         float pz, float& dl, float& dr) {
-  const float4* r = reinterpret_cast<const float4*>(node_rows) + 4 * (int64_t)n;
-  const float4 a = __ldg(r), b = __ldg(r + 1), c = __ldg(r + 2);
-  dl = hpsdf::aabb_d2(px, py, pz, a.x, a.y, a.z, a.w, b.x, b.y);
-  dr = hpsdf::aabb_d2(px, py, pz, b.z, b.w, c.x, c.y, c.z, c.w);
+__device__ __forceinline__ int level_of(int32_t n) { return 31 - __clz(n); }
+
+// The window under heap node r (at level L): n item levels, kLevels levels
+// of internal nodes, and the leaves' level too where it comes next (or all
+// levels down to the leaves); item j (heap order, 1 .. 2^n - 1) is heap id
+// r 2^k + j - 2^k at k = level_of(j). Each lane loads its items' rows
+// (all loads issued before any arithmetic), then writes (dl, dr) of an
+// internal node or (d2, 0) of a leaf to win[j]. Returns n.
+__device__ __forceinline__ int load_window(
+    const float* __restrict__ node_rows, const float* __restrict__ tri_rows,
+    int64_t tri_stride, int32_t T2, int depth, int32_t r, int L, float px,
+    float py, float pz, float2* win, int lane) {
+  const int up = depth - L;
+  const int n = up <= kLevels ? up + 1 : kLevels;
+  float4 a[kSlots], b[kSlots];
+  float c[kSlots][4];
+  bool leaf[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int j = lane + 32 * s;
+    leaf[s] = false;
+    if (j >= 1 && j < (1 << n)) {
+      const int k = level_of(j);
+      const int32_t g = (r << k) + (j - (1 << k));
+      leaf[s] = g >= T2;
+      if (leaf[s]) {
+        const float* row = tri_rows + (int64_t)(g - T2) * tri_stride;
+        a[s] = __ldg(reinterpret_cast<const float4*>(row));
+        b[s] = __ldg(reinterpret_cast<const float4*>(row) + 1);
+        c[s][0] = __ldg(row + 8);
+      } else {
+        const float4* q = reinterpret_cast<const float4*>(node_rows) +
+                          4 * (int64_t)g;
+        a[s] = __ldg(q);
+        b[s] = __ldg(q + 1);
+        const float4 t = __ldg(q + 2);
+        c[s][0] = t.x; c[s][1] = t.y; c[s][2] = t.z; c[s][3] = t.w;
+      }
+    }
+  }
+  __syncwarp();                           // the last replay's reads are done
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int j = lane + 32 * s;
+    if (j >= 1 && j < (1 << n)) {
+      float2 v;
+      if (leaf[s]) {
+        float4 s0, s1, s2;
+        hpsdf::stage_terms(a[s].x, a[s].y, a[s].z, a[s].w, b[s].x, b[s].y,
+                           b[s].z, b[s].w, c[s][0], s0, s1, s2);
+        v = make_float2(hpsdf::closest_d2(px, py, pz, s0, s1, s2), 0.f);
+      } else {
+        v.x = hpsdf::aabb_d2(px, py, pz, a[s].x, a[s].y, a[s].z, a[s].w,
+                             b[s].x, b[s].y);
+        v.y = hpsdf::aabb_d2(px, py, pz, b[s].z, b[s].w, c[s][0], c[s][1],
+                             c[s][2], c[s][3]);
+      }
+      win[j] = v;
+    }
+  }
+  __syncwarp();
+  return n;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kWarps)
 bvh_walk_kernel(const float* __restrict__ node_rows,
                 const float* __restrict__ tri_rows, int64_t tri_stride,
                 int32_t T2, int depth, const float* __restrict__ pts,
                 int64_t B, int64_t max_iters, float* __restrict__ best_d2,
                 int32_t* __restrict__ best_idx,
                 int32_t* __restrict__ visits) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= B) return;
+  __shared__ float2 windows[kWarps][kItems];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int64_t i = (int64_t)blockIdx.x * kWarps + w;
+  if (i >= B) return;                     // the whole warp
+  float2* win = windows[w];
   const float px = pts[3 * i], py = pts[3 * i + 1], pz = pts[3 * i + 2];
 
-  // greedy seed: always into the nearer child, down to one leaf
-  int32_t seed = 1;
-  for (int d = 0; d < depth; ++d) {
-    float dl, dr;
-    child_d2(node_rows, seed, px, py, pz, dl, dr);
-    seed = dl <= dr ? 2 * seed : 2 * seed + 1;
+  // greedy seed: always into the nearer child, down to one leaf, a window
+  // a round
+  int32_t cur = 1, r;
+  int L, n, j;
+  for (;;) {
+    r = cur;
+    L = level_of(r);
+    n = load_window(node_rows, tri_rows, tri_stride, T2, depth, r, L, px,
+                    py, pz, win, lane);
+    j = 1;
+    while (cur < T2 && j < (1 << n)) {
+      const float2 v = win[j];
+      const int right = v.x <= v.y ? 0 : 1;
+      cur = 2 * cur + right;
+      j = 2 * j + right;
+    }
+    if (cur >= T2) break;                 // the leaf lies in this window
   }
-  const int32_t seed_row = min(max(seed - T2, 0), T2 - 1);
-  float best = hpsdf::row_d2(px, py, pz, tri_rows + seed_row * tri_stride);
-  int32_t idx = seed_row;
+  float best = win[j].x;
+  int32_t idx = cur - T2;
   int32_t n_nodes = depth, n_leaves = 1;
 
-  int32_t stack[kMaxStack];
+  int32_t stack = 0;                      // lane t: entry t
   int sp = 0;
-  int32_t cur = 1;
-  for (int64_t it = 0;;) {                    // as the plain loop: one visit
-    bool descend = false;                     // even when max_iters < 1
+  cur = 1;
+  bool fresh = true;
+  for (int64_t it = 0;;) {                // as the plain loop: one visit
+    if (fresh) {                          // even when max_iters < 1
+      r = cur;
+      L = level_of(r);
+      n = load_window(node_rows, tri_rows, tri_stride, T2, depth, r, L, px,
+                      py, pz, win, lane);
+      j = 1;
+    }
+    const float2 v = win[j];
+    bool descend = false;
     int32_t near = 0;
-    if (cur >= T2) {                          // a leaf: its triangle
-      const int32_t row = cur - T2;
-      const float d2 = hpsdf::row_d2(px, py, pz, tri_rows + row * tri_stride);
+    if (cur >= T2) {                      // a leaf: its triangle
       ++n_leaves;
-      if (d2 < best) {
-        best = d2;
-        idx = row;
+      if (v.x < best) {
+        best = v.x;
+        idx = cur - T2;
       }
-    } else {                                  // internal: nearer, farther
-      float dl, dr;
-      child_d2(node_rows, cur, px, py, pz, dl, dr);
+    } else {                              // internal: nearer, farther
       ++n_nodes;
-      const bool l_near = dl <= dr;
-      near = l_near ? 2 * cur : 2 * cur + 1;
-      descend = fminf(dl, dr) < best;
-      if (descend && fmaxf(dl, dr) < best) stack[sp++] = l_near ? 2 * cur + 1
-                                                                 : 2 * cur;
+      near = v.x <= v.y ? 2 * cur : 2 * cur + 1;
+      descend = fminf(v.x, v.y) < best;
+      if (descend && fmaxf(v.x, v.y) < best) {
+        if (lane == sp) stack = near ^ 1;
+        ++sp;
+      }
     }
     if (descend) {
       cur = near;
     } else if (sp > 0) {
-      cur = stack[--sp];
+      --sp;
+      cur = __shfl_sync(kFull, stack, sp);
     } else {
       break;
     }
     if (++it >= max_iters) break;
+    const int k = level_of(cur) - L;      // still inside the window?
+    fresh = k < 0 || k >= n || (cur >> k) != r;
+    if (!fresh) j = (1 << k) + (cur - (r << k));
   }
-  best_d2[i] = best;
-  best_idx[i] = idx;
-  if (visits != nullptr) {
-    visits[2 * i] = n_nodes;
-    visits[2 * i + 1] = n_leaves;
+  if (lane == 0) {
+    best_d2[i] = best;
+    best_idx[i] = idx;
+    if (visits != nullptr) {
+      visits[2 * i] = n_nodes;
+      visits[2 * i + 1] = n_leaves;
+    }
   }
 }
 
@@ -143,8 +241,9 @@ extern "C" int hpsdf_bvh_walk(const float* node_rows, const float* tri_rows,
       depth + 1 > kMaxStack) {
     return (int)cudaErrorInvalidValue;
   }
-  const int64_t blocks = (B + kThreads - 1) / kThreads;
-  bvh_walk_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  const int64_t blocks = (B + kWarps - 1) / kWarps;
+  bvh_walk_kernel<<<(unsigned)blocks, 32 * kWarps, 0,
+                    (cudaStream_t)stream>>>(
       node_rows, tri_rows, tri_stride, (int32_t)T2, depth, pts, B, max_iters,
       best_d2, best_idx, visits);
   return (int)cudaGetLastError();

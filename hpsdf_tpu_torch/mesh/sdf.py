@@ -51,6 +51,8 @@ HYBRID_CHUNKS = 256      # K10's chunks (heap subtrees of clusters) at most
 # K10's cascade stops at a box farther than its best row by more than this
 # share of the coordinates' scale 1 + |x| + |y| + |z| (csrc/hybrid.cu kReach)
 HYBRID_REACH = 1e-5
+BVH_MAX_ROWS = 2 ** 30   # K11's rows: heap ids up to 2 T2 - 1 in an i32
+BVH_MAX_STACK = 32       # K11's stack entries, a lane of the warp each
 
 
 def _tri_parts(rows):
@@ -206,17 +208,29 @@ def closest_bvh(bvh: BVH, p: torch.Tensor, max_iters: int | None = None):
     return _bvh_launch(bvh, p, max_iters)
 
 
+def _bvh_check(T2: int, depth: int):
+    """K11's limits: heap ids 1 .. 2 T2 - 1 in i32, and a stack of
+    ``depth`` + 1 entries in the 32 lanes of a warp."""
+    if T2 > BVH_MAX_ROWS:
+        raise ValueError(f"closest_bvh: {T2} rows exceed the kernel's 2^30")
+    if depth + 1 > BVH_MAX_STACK:
+        raise ValueError(f"closest_bvh: a heap of depth {depth} needs a "
+                         f"stack of {depth + 1} entries, more than the "
+                         f"kernel's {BVH_MAX_STACK} (a lane of the warp an "
+                         "entry)")
+
+
 def _bvh_launch(bvh: BVH, p, max_iters=None, with_stats=False):
-    """Kernel K11; with ``with_stats`` also the visits i32[B, 2] (as
+    """Kernel K11 on the BVH's node rows and, for the leaves, its vertex
+    rows; with ``with_stats`` also the visits i32[B, 2] (as
     ``closest_bvh_plain``'s)."""
     _check_pts(p, bvh.node_rows, bvh.tri_rows)
     if p.device.type != "cuda":
         raise ValueError(f"closest_bvh: unsupported device {p.device}")
-    tri_rows, node_rows = bvh.tri_rows, bvh.node_rows
-    _check_rows("closest_bvh", tri_rows)
-    T2 = tri_rows.shape[0]
-    if T2 > 2 ** 30 or bvh.depth + 1 > 32:
-        raise ValueError(f"closest_bvh: {T2} rows exceed the kernel's 2^30")
+    rows, node_rows = bvh.vertex_rows, bvh.node_rows
+    _check_rows("closest_bvh", rows)
+    T2 = rows.shape[0]
+    _bvh_check(T2, bvh.depth)
     if not node_rows.is_contiguous() or node_rows.shape[1] != 16 \
             or node_rows.data_ptr() % 16:
         raise ValueError("closest_bvh: node_rows must be contiguous (T2, 16)")
@@ -231,7 +245,7 @@ def _bvh_launch(bvh: BVH, p, max_iters=None, with_stats=False):
     if B:
         lib = _kernels.load()
         _kernels.check(lib, lib.hpsdf_bvh_walk(
-            node_rows.data_ptr(), tri_rows.data_ptr(), tri_rows.stride(0),
+            node_rows.data_ptr(), rows.data_ptr(), rows.stride(0),
             T2, bvh.depth, p.data_ptr(), B, int(max_iters),
             best_d2.data_ptr(), best_idx.data_ptr(),
             visits.data_ptr() if with_stats else None,

@@ -1,41 +1,85 @@
 #!/usr/bin/env python3
-"""Time K11, the BVH walk (csrc/bvh_walk.cu), on the H100 at the shapes of
-mesh_sdf(method="bvh"):
+"""Check and time forms of K11, the BVH walk (csrc/bvh_walk.cu), beside the
+kernel it replaced (csrc/check/bvh_walk_reference.cu), on the H100:
 
     python3 k11_forms.py [--out chiprun_out/k11_forms.json]
 
-Builds icosphere(0.3, 5) (20,480 triangles, 32,768 rows, depth 15) and
-bumpy_sphere(0.3, 8) (1,310,720 triangles, 2^21 rows, depth 21) on the
-card and times the kernel library's K11 at chip_smoke.py's 10,240 uniform
-points in CUDA graphs: at 32k capped (48 x depth visits) and exact, at
-1.31M capped, and the longest walk alone (the point with the most visits,
-launched by itself) at 32k capped and exact; prints the walks' visits and
-how many ran into the cap.
+Compiles csrc/bvh_walk.cu alone once for each form (HPSDF_K11_LEVELS: the
+internal heap levels a window; HPSDF_K11_WARPS: walks a block), all nvcc
+processes started together. Holds every form to the reference kernel bit
+for bit (best_d2, best_idx, visits) at chip_smoke.py's 10,240 uniform
+points on the cube (depth 4), icosphere(0.3, s) for s = 0, 1, 3 and 5
+(depths 5, 7, 11, 15), capped (48 x depth visits) and exact, and on
+bumpy_sphere(0.3, 8) (1,310,720 triangles, depth 21) capped; then times
+the reference and every form in CUDA graphs, in turns, twice: at 32k
+(icosphere(0.3, 5)) capped and exact, at 1.31M capped, and the longest
+walk alone (the point with the most visits) at 32k capped and exact.
 """
 
 import argparse
+import ctypes
 import json
 import os
+import subprocess
 import sys
 
 import numpy as np
 import torch
 
 import chip_smoke as cs
+from hpsdf_tpu_torch import _kernels
 from hpsdf_tpu_torch.mesh import build_bvh, build_mesh, gen
-from hpsdf_tpu_torch.mesh import sdf as TS
+
+FORMS = {"L4 W4": (4, 4), "L5 W4": (5, 4), "L6 W4": (6, 4),
+         "L5 W8": (5, 8), "L5 W2": (5, 2)}
 
 
-def walk_stats(bvh, pts, cap):
-    """The kernel's visits at this cap: mean node and triangle rows a walk,
-    the most visits (iterations after the seed) and how many walks ran into
-    the cap; and the index of the longest walk."""
-    _, _, vis = TS._bvh_launch(bvh, pts, cap, with_stats=True)
-    iters = vis[:, 0] - bvh.depth + vis[:, 1] - 1
-    cap_ = cap if cap is not None else 4 * bvh.n_leaves
-    return {"mean_rows": vis.double().mean(dim=0).tolist(),
-            "max_iters": int(iters.max()),
-            "capped": int((iters >= cap_).sum())}, int(iters.argmax())
+def build_forms(src):
+    """{form: ctypes library}, and ptxas's lines of each."""
+    os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
+    jobs = {}
+    for name, (levels, warps) in FORMS.items():
+        out = os.path.join(_kernels.BUILD_DIR,
+                           f"k11_form_l{levels}_w{warps}.so")
+        cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared",
+               f"-DHPSDF_K11_LEVELS={levels}", f"-DHPSDF_K11_WARPS={warps}",
+               "-o", out, src]
+        jobs[name] = (out, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs, ptxas = {}, {}
+    for name, (out, cmd, proc) in jobs.items():
+        so, se = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{so}\n{se}")
+        ptxas[name] = [ln.strip() for ln in (so + se).splitlines()
+                       if "Used" in ln or "stack frame" in ln]
+        lib = ctypes.CDLL(out)
+        lib.hpsdf_bvh_walk.argtypes = list(
+            _kernels._SIGNATURES["hpsdf_bvh_walk"])
+        lib.hpsdf_bvh_walk.restype = ctypes.c_int
+        libs[name] = lib
+    return libs, ptxas
+
+
+def launcher(fn, bvh, rows, pts, cap, with_stats=False):
+    """A call of an hpsdf_bvh_walk-shaped entry point into outputs made
+    once."""
+    B = pts.shape[0]
+    d2 = torch.empty(B, dtype=torch.float32, device=pts.device)
+    idx = torch.empty(B, dtype=torch.int32, device=pts.device)
+    vis = torch.empty((B, 2), dtype=torch.int32, device=pts.device)
+    cap = 4 * bvh.n_leaves if cap is None else cap
+
+    def run():
+        rc = fn(bvh.node_rows.data_ptr(), rows.data_ptr(), rows.stride(0),
+                bvh.n_leaves, bvh.depth, pts.data_ptr(), B, int(cap),
+                d2.data_ptr(), idx.data_ptr(),
+                vis.data_ptr() if with_stats else None,
+                _kernels.stream_of(pts))
+        if rc != 0:
+            raise RuntimeError(f"K11 form launch failed: {rc}")
+        return d2, idx, vis
+    return run
 
 
 def main():
@@ -46,36 +90,75 @@ def main():
         print("k11_forms.py: no CUDA device", file=sys.stderr)
         return 1
     smi = cs.nvidia_smi()
+    src = os.path.join(os.path.dirname(_kernels.__file__), "csrc",
+                       "bvh_walk.cu")
+    libs, ptxas = build_forms(src)
+    ref = _kernels.load_check().hpsdf_bvh_walk_reference
+    print(smi, flush=True)
+    print(json.dumps(ptxas), flush=True)
     rng = np.random.default_rng(21)
     pts = torch.as_tensor(rng.uniform(-0.5, 0.5, (cs.N_MESH_PTS, 3))
                           .astype(np.float32), device="cuda")
-    res = {"device": smi, "points": cs.N_MESH_PTS, "cases": {}}
-    for name, mesh in (("32k", gen.icosphere(0.3, 5)),
-                       ("1.31M", gen.bumpy_sphere(0.3, cs.MESH_SCALE_SUB))):
+    meshes = {"cube": cs.cube_mesh(0.2),
+              **{f"ico{s}": gen.icosphere(0.3, s) for s in (0, 1, 3, 5)},
+              "1.31M": gen.bumpy_sphere(0.3, cs.MESH_SCALE_SUB)}
+    res = {"device": smi, "points": cs.N_MESH_PTS, "ptxas": ptxas,
+           "checks": {}, "ms": {}}
+    ok = True
+    for mname, mesh in meshes.items():
         bvh = build_bvh(build_mesh(*mesh), device="cuda")
-        cap = 48 * bvh.depth
-        caps = {"capped": cap, "exact": None} if name == "32k" \
-            else {"capped": cap}
-        for kind, c in caps.items():
-            stats, longest = walk_stats(bvh, pts, c)
-            one = pts[longest:longest + 1].contiguous()
-            ms = [cs.graph_ms(lambda: TS.closest_bvh(bvh, pts, c), 3)
-                  for _ in range(2)]
-            entry = {"rows": bvh.n_leaves, "depth": bvh.depth, "cap": c,
-                     "ms": ms, **stats}
-            if name == "32k":
-                entry["longest_alone_ms"] = [
-                    cs.graph_ms(lambda: TS.closest_bvh(bvh, one, c), 5)
-                    for _ in range(2)]
-            res["cases"][f"{name} {kind}"] = entry
-            print(f"{name} {kind}: {entry}", flush=True)
+        caps = {"capped": 48 * bvh.depth}
+        if mname != "1.31M":
+            caps["exact"] = None
+        for kind, cap in caps.items():
+            want = [t.clone() for t in launcher(
+                ref, bvh, bvh.tri_rows, pts, cap, True)()]
+            label = f"{mname} {kind}"
+            res["checks"][label] = {}
+            for name, lib in libs.items():
+                got = launcher(lib.hpsdf_bvh_walk, bvh, bvh.vertex_rows, pts,
+                               cap, True)()
+                torch.cuda.synchronize()
+                bad = {k: int((a != b).reshape(a.shape[0], -1)
+                              .any(dim=1).sum())
+                       for k, a, b in zip(("d2", "idx", "visits"), got, want)}
+                res["checks"][label][name] = bad
+                ok &= not any(bad.values())
+            print(f"{label}: {res['checks'][label]}", flush=True)
+            if mname not in ("ico5", "1.31M"):
+                continue
+            runs = {"reference": launcher(ref, bvh, bvh.tri_rows, pts, cap)}
+            runs.update({name: launcher(lib.hpsdf_bvh_walk, bvh,
+                                        bvh.vertex_rows, pts, cap)
+                         for name, lib in libs.items()})
+            times = {k: [] for k in runs}
+            for _ in range(2):
+                for k, run in runs.items():
+                    times[k].append(cs.graph_ms(run, 3))
+            res["ms"][label] = times
+            print(f"{label} ms: {times}", flush=True)
+            if mname == "ico5":
+                i = int(want[2].sum(dim=1).argmax())
+                one = pts[i:i + 1].contiguous()
+                runs = {"reference": launcher(ref, bvh, bvh.tri_rows, one,
+                                              cap)}
+                runs.update({name: launcher(lib.hpsdf_bvh_walk, bvh,
+                                            bvh.vertex_rows, one, cap)
+                             for name, lib in libs.items()})
+                times = {k: [] for k in runs}
+                for _ in range(2):
+                    for k, run in runs.items():
+                        times[k].append(cs.graph_ms(run, 3))
+                res["ms"][f"{label} longest alone"] = times
+                print(f"{label} longest alone ({want[2][i].tolist()} rows) "
+                      f"ms: {times}", flush=True)
         del bvh
         torch.cuda.empty_cache()
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(res, fh, indent=1)
-    print(smi)
-    return 0
+    print(json.dumps({"all_equal": ok}))
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
