@@ -34,20 +34,24 @@
 // subtree's level k below node r in the contiguous ids r 2^k .. r 2^k +
 // 2^k - 1): a node row a lane, and where the window reaches the leaves
 // (ids >= T2) their vertices too, a row a lane (48 contiguous bytes of
-// vertex_rows). Each lane computes its rows' child-box distances (tri.cuh
-// aabb_d2, rounded as the plain version rounds) or its triangle's (P1's
-// cascade, tri.cuh row_d2) into the warp's shared window. Then every lane
-// replays, visit by visit, the sequential walk's decisions from those
-// values (a broadcast read a visit), updating the best at leaves in walk
-// order, until the walk leaves the window: it descends below it, or pops
-// to a node outside it, and the next round loads the window under that
-// node. The greedy seed descends the same way, a window a round. The stack
-// lives in the warp's lanes, an entry a lane (a heap of depth d stacks at
-// most d entries), read back with a shuffle: no local frame. So a walk
-// costs one dependent round trip per window (on icosphere(0.3, 5) about 8
-// visits a round) instead of one per visit, and its visits are the
-// thread-a-point walk's own, decision for decision: the same distances in
-// the same order, hence the same results and visit counts.
+// vertex_rows): 63 items, two a lane. Each lane computes its items'
+// child-box distances (tri.cuh aabb_d2, rounded as the plain version rounds)
+// or triangle distance (P1's cascade, tri.cuh row_d2) in registers, and the
+// warp turns them into 64-bit masks by ballots: which child is nearer, and,
+// against the best, which nodes descend, which push, which leaves improve.
+// Then every lane replays, visit by visit, the sequential walk's decisions
+// by testing item j's bits, updating the best at a leaf in walk order (a
+// shuffle of its value, and the masks again), until the walk leaves the
+// window: it descends below it, or pops to a node outside it, and the next
+// round loads the window under that node. The greedy seed descends the
+// same way, a window a round. The stack lives in the warp's lanes, an entry
+// a lane (a heap of depth d stacks at most d entries), read back with a
+// shuffle: no local frame, no shared memory. So a walk pays one dependent
+// round trip a window (on icosphere(0.3, 5) about 8 visits a round)
+// instead of one a visit, a visit costs a few integer operations, and its
+// visits are the thread-a-point walk's own, decision for decision: the
+// same distances in the same order, hence the same results and visit
+// counts.
 //
 // Numerics. Built without --use_fast_math (the cascade's 1e-30 guards).
 // The triangle distance is P1's, which differs from the plain cascade by
@@ -62,116 +66,136 @@
 
 namespace {
 
-#ifndef HPSDF_K11_LEVELS
-#define HPSDF_K11_LEVELS 5
-#endif
 #ifndef HPSDF_K11_WARPS
 #define HPSDF_K11_WARPS 4
 #endif
 constexpr int kWarps = HPSDF_K11_WARPS;   // walks a block, a warp each
-constexpr int kLevels = HPSDF_K11_LEVELS; // internal heap levels a window
-constexpr int kItems = 2 << kLevels;     // window slots, heap order from 1
-constexpr int kSlots = kItems / 32;      // a lane's slots
+constexpr int kLevels = 5;               // internal heap levels a window
 constexpr int kMaxStack = 32;            // an entry a lane: depth <= 31
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int level_of(int32_t n) { return 31 - __clz(n); }
 
-// The window under heap node r (at level L): n item levels, kLevels levels
-// of internal nodes, and the leaves' level too where it comes next (or all
-// levels down to the leaves); item j (heap order, 1 .. 2^n - 1) is heap id
-// r 2^k + j - 2^k at k = level_of(j). Each lane loads its items' rows
-// (all loads issued before any arithmetic), then writes (dl, dr) of an
-// internal node or (d2, 0) of a leaf to win[j]. Returns n.
-__device__ __forceinline__ int load_window(
-    const float* __restrict__ node_rows, const float* __restrict__ tri_rows,
-    int64_t tri_stride, int32_t T2, int depth, int32_t r, int L, float px,
-    float py, float pz, float2* win, int lane) {
-  const int up = depth - L;
-  const int n = up <= kLevels ? up + 1 : kLevels;
-  float4 a[kSlots], b[kSlots];
-  float c[kSlots][4];
-  bool leaf[kSlots];
+// bit j of the result: item j's predicate; lane t holds items t and 32 + t
+__device__ __forceinline__ uint64_t ballot2(bool p0, bool p1) {
+  return (uint64_t)__ballot_sync(kFull, p0) |
+         ((uint64_t)__ballot_sync(kFull, p1) << 32);
+}
+
+// One window: the items a lane holds (item lane and item 32 + lane) and the
+// warp's masks over the items, bit j for item j (heap order from 1).
+struct Window {
+  int32_t r;            // the heap node it hangs under
+  int L, n;             // r's level; its item levels (items 1 .. 2^n - 1)
+  float x[2], y[2];     // (dl, dr) of an internal item, (d2, -) of a leaf
+  bool inner[2], leaf[2];
+  uint64_t right;       // internal items whose right child is the nearer
+  uint64_t desc, push;  // internal: nearer box < best; farther box < best
+  uint64_t better;      // leaves: d2 < best
+
+  // the masks that depend on the best (again whenever the best drops)
+  __device__ __forceinline__ void against(float best) {
+    desc = ballot2(inner[0] && fminf(x[0], y[0]) < best,
+                   inner[1] && fminf(x[1], y[1]) < best);
+    push = ballot2(inner[0] && fmaxf(x[0], y[0]) < best,
+                   inner[1] && fmaxf(x[1], y[1]) < best);
+    better = ballot2(leaf[0] && x[0] < best, leaf[1] && x[1] < best);
+  }
+
+  // item j's first value, in every lane
+  __device__ __forceinline__ float value(int j) const {
+    return __shfl_sync(kFull, j < 32 ? x[0] : x[1], j & 31);
+  }
+
+  // the heap subtree under r (at level L): kLevels levels of internal nodes,
+  // and the leaves' level too where it comes next (or every level down to
+  // the leaves). Item j is heap id r 2^k + j - 2^k at k = level_of(j); the
+  // lanes load their items' rows (every load issued before any arithmetic)
+  // and compute the child-box or the triangle distances.
+  __device__ __forceinline__ void load(
+      const float* __restrict__ node_rows, const float* __restrict__ tri_rows,
+      int64_t tri_stride, int32_t T2, int depth, int32_t root, float px,
+      float py, float pz, int lane) {
+    r = root;
+    L = level_of(r);
+    const int up = depth - L;
+    n = up <= kLevels ? up + 1 : kLevels;
+    float4 a[2], b[2];
+    float c[2][4];
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int j = lane + 32 * s;
-    leaf[s] = false;
-    if (j >= 1 && j < (1 << n)) {
-      const int k = level_of(j);
-      const int32_t g = (r << k) + (j - (1 << k));
-      leaf[s] = g >= T2;
-      if (leaf[s]) {
-        const float* row = tri_rows + (int64_t)(g - T2) * tri_stride;
-        a[s] = __ldg(reinterpret_cast<const float4*>(row));
-        b[s] = __ldg(reinterpret_cast<const float4*>(row) + 1);
-        c[s][0] = __ldg(row + 8);
-      } else {
-        const float4* q = reinterpret_cast<const float4*>(node_rows) +
-                          4 * (int64_t)g;
-        a[s] = __ldg(q);
-        b[s] = __ldg(q + 1);
-        const float4 t = __ldg(q + 2);
-        c[s][0] = t.x; c[s][1] = t.y; c[s][2] = t.z; c[s][3] = t.w;
+    for (int s = 0; s < 2; ++s) {
+      const int j = lane + 32 * s;
+      inner[s] = leaf[s] = false;
+      if (j >= 1 && j < (1 << n)) {
+        const int k = level_of(j);
+        const int32_t g = (r << k) + (j - (1 << k));
+        leaf[s] = g >= T2;
+        inner[s] = !leaf[s];
+        if (leaf[s]) {
+          const float* row = tri_rows + (int64_t)(g - T2) * tri_stride;
+          a[s] = __ldg(reinterpret_cast<const float4*>(row));
+          b[s] = __ldg(reinterpret_cast<const float4*>(row) + 1);
+          c[s][0] = __ldg(row + 8);
+        } else {
+          const float4* q = reinterpret_cast<const float4*>(node_rows) +
+                            4 * (int64_t)g;
+          a[s] = __ldg(q);
+          b[s] = __ldg(q + 1);
+          const float4 t = __ldg(q + 2);
+          c[s][0] = t.x; c[s][1] = t.y; c[s][2] = t.z; c[s][3] = t.w;
+        }
       }
     }
-  }
-  __syncwarp();                           // the last replay's reads are done
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int j = lane + 32 * s;
-    if (j >= 1 && j < (1 << n)) {
-      float2 v;
+    for (int s = 0; s < 2; ++s) {
+      x[s] = y[s] = 0.f;
       if (leaf[s]) {
         float4 s0, s1, s2;
         hpsdf::stage_terms(a[s].x, a[s].y, a[s].z, a[s].w, b[s].x, b[s].y,
                            b[s].z, b[s].w, c[s][0], s0, s1, s2);
-        v = make_float2(hpsdf::closest_d2(px, py, pz, s0, s1, s2), 0.f);
-      } else {
-        v.x = hpsdf::aabb_d2(px, py, pz, a[s].x, a[s].y, a[s].z, a[s].w,
-                             b[s].x, b[s].y);
-        v.y = hpsdf::aabb_d2(px, py, pz, b[s].z, b[s].w, c[s][0], c[s][1],
-                             c[s][2], c[s][3]);
+        x[s] = hpsdf::closest_d2(px, py, pz, s0, s1, s2);
+      } else if (inner[s]) {
+        x[s] = hpsdf::aabb_d2(px, py, pz, a[s].x, a[s].y, a[s].z, a[s].w,
+                              b[s].x, b[s].y);
+        y[s] = hpsdf::aabb_d2(px, py, pz, b[s].z, b[s].w, c[s][0], c[s][1],
+                              c[s][2], c[s][3]);
       }
-      win[j] = v;
     }
+    right = ballot2(inner[0] && !(x[0] <= y[0]), inner[1] && !(x[1] <= y[1]));
   }
-  __syncwarp();
-  return n;
-}
+};
+
+static_assert(2 << kLevels == 64, "a window's items fill two 32-bit masks");
 
 __global__ void __launch_bounds__(32 * kWarps)
 bvh_walk_kernel(const float* __restrict__ node_rows,
                 const float* __restrict__ tri_rows, int64_t tri_stride,
                 int32_t T2, int depth, const float* __restrict__ pts,
-                int64_t B, int64_t max_iters, float* __restrict__ best_d2,
+                int64_t B, int32_t cap, float* __restrict__ best_d2,
                 int32_t* __restrict__ best_idx,
                 int32_t* __restrict__ visits) {
-  __shared__ float2 windows[kWarps][kItems];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int64_t i = (int64_t)blockIdx.x * kWarps + w;
+  const int lane = threadIdx.x & 31;
+  const int64_t i = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (i >= B) return;                     // the whole warp
-  float2* win = windows[w];
   const float px = pts[3 * i], py = pts[3 * i + 1], pz = pts[3 * i + 2];
+  Window w;
 
   // greedy seed: always into the nearer child, down to one leaf, a window
   // a round
-  int32_t cur = 1, r;
-  int L, n, j;
+  int32_t cur = 1;
+  int j;
   for (;;) {
-    r = cur;
-    L = level_of(r);
-    n = load_window(node_rows, tri_rows, tri_stride, T2, depth, r, L, px,
-                    py, pz, win, lane);
+    w.load(node_rows, tri_rows, tri_stride, T2, depth, cur, px, py, pz,
+           lane);
     j = 1;
-    while (cur < T2 && j < (1 << n)) {
-      const float2 v = win[j];
-      const int right = v.x <= v.y ? 0 : 1;
+    while (cur < T2 && j < (1 << w.n)) {
+      const int right = (int)(w.right >> j) & 1;
       cur = 2 * cur + right;
       j = 2 * j + right;
     }
     if (cur >= T2) break;                 // the leaf lies in this window
   }
-  float best = win[j].x;
+  float best = w.value(j);
   int32_t idx = cur - T2;
   int32_t n_nodes = depth, n_leaves = 1;
 
@@ -179,44 +203,45 @@ bvh_walk_kernel(const float* __restrict__ node_rows,
   int sp = 0;
   cur = 1;
   bool fresh = true;
-  for (int64_t it = 0;;) {                // as the plain loop: one visit
-    if (fresh) {                          // even when max_iters < 1
-      r = cur;
-      L = level_of(r);
-      n = load_window(node_rows, tri_rows, tri_stride, T2, depth, r, L, px,
-                      py, pz, win, lane);
+  for (int32_t it = 0;;) {                // as the plain loop: one visit
+    if (fresh) {                          // even when cap < 1
+      w.load(node_rows, tri_rows, tri_stride, T2, depth, cur, px, py, pz,
+             lane);
+      w.against(best);
       j = 1;
     }
-    const float2 v = win[j];
     bool descend = false;
-    int32_t near = 0;
+    int right = 0;
     if (cur >= T2) {                      // a leaf: its triangle
       ++n_leaves;
-      if (v.x < best) {
-        best = v.x;
+      if ((w.better >> j) & 1) {
+        best = w.value(j);
         idx = cur - T2;
+        w.against(best);
       }
     } else {                              // internal: nearer, farther
       ++n_nodes;
-      near = v.x <= v.y ? 2 * cur : 2 * cur + 1;
-      descend = fminf(v.x, v.y) < best;
-      if (descend && fmaxf(v.x, v.y) < best) {
-        if (lane == sp) stack = near ^ 1;
+      right = (int)(w.right >> j) & 1;
+      descend = (w.desc >> j) & 1;
+      if (descend && ((w.push >> j) & 1)) {
+        if (lane == sp) stack = 2 * cur + 1 - right;
         ++sp;
       }
     }
     if (descend) {
-      cur = near;
+      cur = 2 * cur + right;
+      j = 2 * j + right;
+      fresh = j >= (1 << w.n);            // below the window
     } else if (sp > 0) {
       --sp;
       cur = __shfl_sync(kFull, stack, sp);
+      const int k = level_of(cur) - w.L;  // still inside the window?
+      fresh = k < 0 || k >= w.n || (cur >> k) != w.r;
+      if (!fresh) j = (1 << k) + (cur - (w.r << k));
     } else {
       break;
     }
-    if (++it >= max_iters) break;
-    const int k = level_of(cur) - L;      // still inside the window?
-    fresh = k < 0 || k >= n || (cur >> k) != r;
-    if (!fresh) j = (1 << k) + (cur - (r << k));
+    if (++it >= cap) break;
   }
   if (lane == 0) {
     best_d2[i] = best;
@@ -241,10 +266,15 @@ extern "C" int hpsdf_bvh_walk(const float* node_rows, const float* tri_rows,
       depth + 1 > kMaxStack) {
     return (int)cudaErrorInvalidValue;
   }
+  // a walk visits each of the 2 T2 - 1 heap nodes at most once, so a cap
+  // clamped into i32 stops every walk where max_iters does
+  const int32_t cap = (int32_t)(max_iters < 0 ? 0
+                                : max_iters < INT32_MAX ? max_iters
+                                                        : INT32_MAX);
   const int64_t blocks = (B + kWarps - 1) / kWarps;
   bvh_walk_kernel<<<(unsigned)blocks, 32 * kWarps, 0,
                     (cudaStream_t)stream>>>(
-      node_rows, tri_rows, tri_stride, (int32_t)T2, depth, pts, B, max_iters,
+      node_rows, tri_rows, tri_stride, (int32_t)T2, depth, pts, B, cap,
       best_d2, best_idx, visits);
   return (int)cudaGetLastError();
 }

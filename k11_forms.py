@@ -4,9 +4,9 @@ kernel it replaced (csrc/check/bvh_walk_reference.cu), on the H100:
 
     python3 k11_forms.py [--out chiprun_out/k11_forms.json]
 
-Compiles csrc/bvh_walk.cu alone once for each form (HPSDF_K11_LEVELS: the
-internal heap levels a window; HPSDF_K11_WARPS: walks a block), all nvcc
-processes started together. Holds every form to the reference kernel bit
+Compiles csrc/bvh_walk.cu alone once for each form (HPSDF_K11_WARPS: walks
+a block), and ``--prev``, another version of the source, at 4 warps, all
+nvcc processes started together. Holds every form to the reference kernel bit
 for bit (best_d2, best_idx, visits) at chip_smoke.py's 10,240 uniform
 points on the cube (depth 4), icosphere(0.3, s) for s = 0, 1, 3 and 5
 (depths 5, 7, 11, 15), capped (48 x depth visits) and exact, and on
@@ -30,20 +30,23 @@ import chip_smoke as cs
 from hpsdf_tpu_torch import _kernels
 from hpsdf_tpu_torch.mesh import build_bvh, build_mesh, gen
 
-FORMS = {"L4 W4": (4, 4), "L5 W4": (5, 4), "L6 W4": (6, 4),
-         "L5 W8": (5, 8), "L5 W2": (5, 2)}
+WARPS = (4, 8, 2)
 
 
-def build_forms(src):
-    """{form: ctypes library}, and ptxas's lines of each."""
+def build_forms(src, prev):
+    """{form: ctypes library}, and ptxas's lines of each: the source at
+    each HPSDF_K11_WARPS, and ``prev`` (another bvh_walk.cu) at 4."""
     os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
+    forms = {f"W{w}": (src, w) for w in WARPS}
+    if prev:
+        forms["prev W4"] = (prev, 4)
     jobs = {}
-    for name, (levels, warps) in FORMS.items():
+    for name, (path, warps) in forms.items():
         out = os.path.join(_kernels.BUILD_DIR,
-                           f"k11_form_l{levels}_w{warps}.so")
+                           f"k11_form_{name.replace(' ', '_')}.so")
         cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared",
-               f"-DHPSDF_K11_LEVELS={levels}", f"-DHPSDF_K11_WARPS={warps}",
-               "-o", out, src]
+               f"-DHPSDF_K11_WARPS={warps}", "-I", os.path.dirname(src),
+               "-o", out, path]
         jobs[name] = (out, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs, ptxas = {}, {}
@@ -85,6 +88,8 @@ def launcher(fn, bvh, rows, pts, cap, with_stats=False):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="chiprun_out/k11_forms.json")
+    ap.add_argument("--prev", default=None,
+                    help="another bvh_walk.cu to build and time beside")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k11_forms.py: no CUDA device", file=sys.stderr)
@@ -92,7 +97,7 @@ def main():
     smi = cs.nvidia_smi()
     src = os.path.join(os.path.dirname(_kernels.__file__), "csrc",
                        "bvh_walk.cu")
-    libs, ptxas = build_forms(src)
+    libs, ptxas = build_forms(src, args.prev)
     ref = _kernels.load_check().hpsdf_bvh_walk_reference
     print(smi, flush=True)
     print(json.dumps(ptxas), flush=True)

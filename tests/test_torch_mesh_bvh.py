@@ -7,7 +7,15 @@ FMAs where torch does not, so a decision of the walk can flip only where
 two distances are within an ulp). best_idx: equal, or a triangle that
 reaches the same d2 within 1e-7 (triangles sharing the closest vertex or
 edge tie). Signed distances: 1e-6 against the brute-force scan, 1e-5
-against the analytic box (the reference's own tolerance)."""
+against the analytic box (the reference's own tolerance).
+
+Kernel K11 walks a warp a point: it loads the heap subtree a few levels deep
+under the node where the walk stands (a window), computes its distances in
+parallel, then replays the sequential walk's decisions from them until the
+walk leaves the window. ``window_walk`` runs those steps on the CPU, one
+point at a time, with the plain version's arithmetic, and must give
+``closest_bvh_plain``'s d2, index and visits bit for bit: the replay is the
+plain walk, decision for decision, whatever the window's depth."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -20,12 +28,14 @@ from hpsdf_tpu_torch import mesh as TM
 from hpsdf_tpu_torch.mesh import bvh as TB
 from hpsdf_tpu_torch.mesh import gen
 from hpsdf_tpu_torch.mesh import sdf as TS
+from hpsdf_tpu_torch.mesh import tri as TT
 
 from .test_torch_query import few_torch_threads  # noqa: F401
 from .util import cube_mesh, uniform_pts
 
 D2_ATOL = 1e-7
 SIGNED_ATOL = 1e-6
+WINDOW_LEVELS = 5        # csrc/bvh_walk.cu kLevels: internal levels a window
 
 
 @pytest.fixture(scope="module")
@@ -142,3 +152,171 @@ def test_bvh_launch_refuses_cpu_and_counts_nothing(ico):
         TS._bvh_launch(tb, pts)
     with pytest.raises(ValueError, match="f32"):
         TS.closest_bvh(tb, pts.double())
+
+
+# --------------------------------------------------------------------------
+# K11's window replay, mirrored on the CPU
+# --------------------------------------------------------------------------
+
+def window_walk(bvh, p, max_iters=None, levels=WINDOW_LEVELS):
+    """K11's steps for one point p (3,): the greedy seed and then the walk,
+    each a window at a time. A window under heap node r (at level L) holds
+    ``levels`` levels of internal nodes, and the leaves' level too where it
+    comes next (or every level down to the leaves): item j (heap order from
+    1) is heap id r 2^k + j - 2^k at k = floor(log2 j). Its distances are
+    computed at once (the children's boxes of a node, the triangle of a
+    leaf, from ``vertex_rows``) and turned into masks, bit j for item j:
+    the nodes whose right child is the nearer, and, against the best, the
+    nodes that descend, those that push and the leaves that improve (again
+    whenever the best drops). The walk's visits are replayed from the bits
+    until the walk descends below the window or pops to a node outside it,
+    and the next window is the one under that node. Returns (d2, index,
+    (node rows, triangle rows), rounds)."""
+    node_rows, rows = bvh.node_rows, bvh.vertex_rows
+    T2, depth = bvh.n_leaves, bvh.depth
+    max_iters = 4 * T2 if max_iters is None else max_iters
+    p1 = p[None, :]
+    rounds = [0]
+
+    def bits(flags):
+        return sum(1 << j for j, f in enumerate(flags, start=1) if f)
+
+    def window(r):
+        """(L, n, item values (dl, dr) or (d2, 0), right mask)"""
+        L = r.bit_length() - 1
+        n = min(levels, depth - L) + (depth - L <= levels)
+        j = torch.arange(1, 1 << n)
+        k = torch.as_tensor([int(x).bit_length() - 1 for x in j.tolist()])
+        g = (r << k) + j - (1 << k)
+        dl, dr = torch.zeros(j.shape[0]), torch.zeros(j.shape[0])
+        inner = g < T2
+        nrow = node_rows[g[inner]]
+        dl[inner] = TT.aabb_dist2(p1, nrow[:, 0:3], nrow[:, 3:6])
+        dr[inner] = TT.aabb_dist2(p1, nrow[:, 6:9], nrow[:, 9:12])
+        dl[~inner] = TS._tri_d2(rows[g[~inner] - T2], p1)
+        rounds[0] += 1
+        items = list(zip(inner.tolist(), dl.tolist(), dr.tolist()))
+        right = bits(i and not a <= b for i, a, b in items)
+        return L, n, [None] + items, right
+
+    def against(items, best):
+        """(descend, push, better) masks"""
+        return (bits(i and min(a, b) < best for i, a, b in items[1:]),
+                bits(i and max(a, b) < best for i, a, b in items[1:]),
+                bits(not i and a < best for i, a, b in items[1:]))
+
+    cur = 1                                   # the seed, a window a round
+    while True:
+        L, n, items, right = window(cur)
+        j = 1
+        while cur < T2 and j < (1 << n):
+            b = right >> j & 1
+            cur, j = 2 * cur + b, 2 * j + b
+        if cur >= T2:
+            break
+    best, idx = items[j][1], cur - T2
+    n_nodes, n_leaves = depth, 1
+
+    stack, it, cur, fresh = [], 0, 1, True
+    while True:
+        if fresh:                             # a new window under cur
+            r = cur
+            L, n, items, right = window(r)
+            desc, push, better = against(items, best)
+            j = 1
+        descend = False
+        if cur >= T2:
+            n_leaves += 1
+            if better >> j & 1:
+                best, idx = items[j][1], cur - T2
+                desc, push, better = against(items, best)
+        else:
+            n_nodes += 1
+            b = right >> j & 1
+            descend = bool(desc >> j & 1)
+            if descend and push >> j & 1:
+                stack.append(2 * cur + 1 - b)
+        if descend:
+            cur, j = 2 * cur + b, 2 * j + b
+            fresh = j >= 1 << n               # below the window
+        elif stack:
+            cur = stack.pop()
+            k = cur.bit_length() - 1 - L      # still inside the window?
+            fresh = not (0 <= k < n and cur >> k == r)
+            if not fresh:
+                j = (1 << k) + cur - (r << k)
+        else:
+            break
+        it += 1
+        if it >= max_iters:
+            break
+    return best, idx, (n_nodes, n_leaves), rounds[0]
+
+
+def _window_walks(bvh, pts, max_iters, levels=WINDOW_LEVELS):
+    out = [window_walk(bvh, p, max_iters, levels) for p in pts]
+    return (torch.tensor([o[0] for o in out], dtype=torch.float32),
+            torch.tensor([o[1] for o in out], dtype=torch.int32),
+            torch.tensor([o[2] for o in out], dtype=torch.int32),
+            torch.tensor([o[3] for o in out]))
+
+
+@pytest.fixture(scope="module")
+def heaps(ico):
+    """BVHs of depth 4 (the 12-triangle cube, shallower than a window),
+    5 and 7 (icosphere(0.3, 0) and (0.3, 1); 7 is no multiple of the
+    window) and 11 (the module's icosphere(0.3, 3))."""
+    out = {"cube": TM.build_bvh(TM.build_mesh(*cube_mesh(half=0.2)),
+                                device="cpu"),
+           "ico3": ico[1]}
+    for s in (0, 1):
+        out[f"ico{s}"] = TM.build_bvh(TM.build_mesh(*gen.icosphere(0.3, s)),
+                                      device="cpu")
+    return out
+
+
+@pytest.mark.parametrize("cap", ["exact", "default", "small"])
+@pytest.mark.parametrize("heap,depth", [("cube", 4), ("ico0", 5),
+                                        ("ico1", 7), ("ico3", 11)])
+def test_window_replay_matches_plain_walk(heaps, heap, depth, cap):
+    """The window replay gives the plain walk's d2, index and visits bit for
+    bit at the exact, default (48 x depth) and small caps."""
+    bvh = heaps[heap]
+    assert bvh.depth == depth
+    max_iters = {"exact": None, "default": 48 * depth, "small": 12}[cap]
+    pts = torch.as_tensor(_pts(128, seed=depth))
+    d2_p, idx_p, vis_p, _ = TS.closest_bvh_plain(bvh, pts, max_iters,
+                                                 with_stats=True)
+    d2_w, idx_w, vis_w, rounds = _window_walks(bvh, pts, max_iters)
+    assert torch.equal(d2_w, d2_p)
+    assert torch.equal(idx_w, idx_p)
+    assert torch.equal(vis_w, vis_p)
+    iters = vis_p[:, 0] - depth + vis_p[:, 1] - 1
+    if cap == "small":
+        assert int(iters.max()) == 12             # the cap cut some walks
+    # a round serves several visits: the seed's windows and the walk's
+    assert int(rounds.min()) >= 1
+    if depth == 11 and cap == "exact":
+        assert 3 * int(rounds.sum()) < int(iters.sum())
+
+
+@pytest.mark.parametrize("levels", [4, 6])
+def test_window_replay_any_depth(heaps, levels):
+    """The replay is the plain walk whatever the window's depth: four and
+    six levels give the same bits as five."""
+    bvh = heaps["ico3"]
+    pts = torch.as_tensor(_pts(96, seed=levels))
+    want = TS.closest_bvh_plain(bvh, pts, 48 * bvh.depth, with_stats=True)
+    got = _window_walks(bvh, pts, 48 * bvh.depth, levels)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+
+
+def test_bvh_limits_have_their_own_messages():
+    """K11's wrapper names the limit a BVH breaks: its rows (heap ids in an
+    i32) or its depth (a stack entry a lane of the warp)."""
+    TS._bvh_check(2 ** 30, 30)
+    with pytest.raises(ValueError, match="rows exceed the kernel's 2"):
+        TS._bvh_check(2 ** 31, 31)
+    with pytest.raises(ValueError, match="depth 32 needs a stack of 33"):
+        TS._bvh_check(1024, 32)
