@@ -3358,6 +3358,10 @@ NEAR_OFFSET = 0.01
 BOX_OPS = 20                        # f32 operations of a point-box distance
 NATIVE_STAGES = ("load_obj", "half_edge_twins", "mesh_geom", "kd_order",
                  "pack_tri_rows", "bvh_node_rows")
+K11_VISITS_SAME = 0.999             # walks with the plain visit counts
+# K11's small heaps: (name, icosphere(0.3, s)'s s, or None for the cube)
+K11_HEAPS = (("cube", None), ("icosphere(0.3, 0)", 0),
+             ("icosphere(0.3, 1)", 1), ("icosphere(0.3, 3)", 3))
 
 
 @contextlib.contextmanager
@@ -3580,6 +3584,138 @@ def check_bvh_capped(bvh, pts, max_iters, exact_d2, label):
     return float(err.max()), same, vis_p, seen
 
 
+def bvh_reference(bvh, pts, max_iters, with_stats=False):
+    """K11 as it was before its redesign (csrc/check/bvh_walk_reference.cu,
+    a library of its own, on no path of the package), a thread a point on
+    the BVH's packed rows, called as sdf._bvh_launch calls K11. Returns
+    (best_d2, best_idx) and, with ``with_stats``, the visits i32[B, 2]."""
+    from hpsdf_tpu_torch import _kernels
+    B, dev = pts.shape[0], pts.device
+    d2 = torch.empty(B, dtype=torch.float32, device=dev)
+    idx = torch.empty(B, dtype=torch.int32, device=dev)
+    vis = torch.empty((B, 2), dtype=torch.int32, device=dev) \
+        if with_stats else None
+    rows = bvh.tri_rows
+    rc = _kernels.load_check().hpsdf_bvh_walk_reference(
+        bvh.node_rows.data_ptr(), rows.data_ptr(), rows.stride(0),
+        bvh.n_leaves, bvh.depth, pts.data_ptr(), B,
+        int(4 * bvh.n_leaves if max_iters is None else max_iters),
+        d2.data_ptr(), idx.data_ptr(), None if vis is None else vis.data_ptr(),
+        _kernels.stream_of(pts))
+    _kernels.check(_kernels.load(), rc, "bvh_walk_reference")
+    return (d2, idx, vis) if with_stats else (d2, idx)
+
+
+def check_k11_exact(bvh, pts, max_iters, label):
+    """K11 against the kernel it replaced (bvh_reference) on the same
+    points: best_d2, best_idx and visits bit for bit (both walk the plain
+    version's sequence on the same distances, tri.cuh's, compiled alike).
+    Returns K11's visits."""
+    from hpsdf_tpu_torch.mesh import sdf as TS
+    got = TS._bvh_launch(bvh, pts, max_iters, with_stats=True)
+    want = bvh_reference(bvh, pts, max_iters, with_stats=True)
+    diff = {name: int((a != b).reshape(a.shape[0], -1).any(dim=1).sum())
+            for name, a, b in zip(("d2", "index", "visits"), got, want)}
+    check(not any(diff.values()),
+          f"K11 vs the kernel it replaced at {label}: walks differing {diff}")
+    return got[2]
+
+
+def check_k11_heaps(pts):
+    """K11 on heaps of depth 4, 5, 7 and 11 (K11_HEAPS: shallower than a
+    window, one window, and depths that are no multiple of it), exact and
+    at mesh_sdf's cap of 48 x depth visits, against its plain version
+    (check_bvh_capped, the exact d2 from P1) and the kernel it replaced
+    (bit for bit). Returns (max |d2 - plain|, the smallest share of walks
+    with the plain version's visit counts)."""
+    from hpsdf_tpu_torch.mesh import build_bvh, build_mesh, gen
+    from hpsdf_tpu_torch.mesh.tiles_sdf import closest_tri_tiles
+    errs, sames = [], []
+    for name, sub in K11_HEAPS:
+        b = build_bvh(build_mesh(*(cube_mesh(0.2) if sub is None
+                                   else gen.icosphere(0.3, sub))),
+                      device=pts.device)
+        exact_d2, _ = closest_tri_tiles(b.tri_rows, pts)
+        for kind, cap in (("capped", 48 * b.depth),
+                          ("exact", 4 * b.n_leaves)):
+            label = f"{name} (depth {b.depth}), {kind}"
+            err, same, _, _ = check_bvh_capped(b, pts, cap, exact_d2, label)
+            check_k11_exact(b, pts, cap, label)
+            errs.append(err)
+            sames.append(same)
+    return max(errs), min(sames)
+
+
+def turns(calls, reps):
+    """Each call's device time in CUDA graphs (graph_ms), in turns: the
+    calls in order, then in reverse. Returns {name: the smaller ms}."""
+    times = {k: [] for k in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for k in order:
+            times[k].append(graph_ms(calls[k], reps))
+    return {k: min(v) for k, v in times.items()}
+
+
+def run_ms(fn):
+    """fn() once and its device time by CUDA events: (its result, ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    sync()
+    return out, start.elapsed_time(end)
+
+
+def k11_times(bvh_ico, bvh, pts, smi, walks):
+    """K11 and the kernel it replaced (bvh_reference) timed in CUDA graphs,
+    in turns, beside the bound on the rows the plain walks read
+    (bvh_bounds) and the plain version's time, at four shapes: the 10,240
+    points on icosphere(0.3, 5) at mesh_sdf's cap and exact, on the 1.31M
+    mesh at its cap, and the longest walk at 32k (the point with the most
+    visits at the cap, and exact) launched by itself. ``walks``: {case:
+    (bvh, cap, the plain version's visits and rows read, its ms)} for the
+    first three (the exact case's plain run is made here). Prints a line a
+    case. Returns {case: its numbers}."""
+    from hpsdf_tpu_torch.mesh import sdf as TS
+    out = {}
+    cases = {k: (b, c, pts, vis, seen, plain)
+             for k, (b, c, vis, seen, plain) in walks.items()}
+    cap = walks["32k capped"][1]
+    (_, _, vis_x, seen_x), plain_x = run_ms(
+        lambda: TS.closest_bvh_plain(bvh_ico, pts, None, with_stats=True))
+    cases["32k exact"] = (bvh_ico, None, pts, vis_x, seen_x, plain_x)
+    for kind, c, vis in (("capped", cap, walks["32k capped"][2]),
+                         ("exact", None, vis_x)):
+        i = int(vis.sum(dim=1).argmax())
+        one = pts[i:i + 1].contiguous()
+        _, _, vis1, seen1 = TS.closest_bvh_plain(bvh_ico, one, c,
+                                                 with_stats=True)
+        cases[f"32k longest walk alone, {kind}"] = (bvh_ico, c, one, vis1,
+                                                    seen1, None)
+    for name, (b, c, p, vis, seen, plain) in cases.items():
+        ms = turns({"K11": lambda: TS.closest_bvh(b, p, c),
+                    "replaced": lambda: bvh_reference(b, p, c)},
+                   5 if p.shape[0] == 1 or c is not None else 2)
+        bound = bvh_bounds(b, p, vis, seen)
+        out[name] = {
+            "points": p.shape[0], "max_iters": c, "ms": ms["K11"],
+            "replaced_kernel_ms": ms["replaced"], "plain_ms": plain,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "ops_bound_ms": bound[2], "bytes_bound_ms": bound[3],
+            "mean_rows_read": vis.double().mean(dim=0).tolist()}
+        print(f"[mesh scale] {smi} | K11 {name} ({p.shape[0]} points, "
+              f"{b.n_leaves} rows, max_iters {c or 'exact'}): "
+              f"{ms['K11']:.4f} ms, the kernel it replaced "
+              f"{ms['replaced']:.4f} ms; bound {bound[0]:.5f} ms "
+              f"({bound[1]}; operations {bound[2]:.5f}, bytes "
+              f"{bound[3]:.5f}), {bound[0] / ms['K11']:.2%} of it"
+              + ("" if plain is None else f"; plain {plain:.3f} ms")
+              + f"; mean rows a walk read {out[name]['mean_rows_read']}",
+              flush=True)
+    return out
+
+
 # K10 time split (build_hybrid_forms): the forms stopped after each stage
 HYBRID_STAGES = {1: "cluster prune", 2: "subcluster prune"}
 MESH_PHASES = FIT_PHASES + (("mesh.sdf", "_hybrid_launch", "K10"),
@@ -3788,12 +3924,27 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, seed=21):
           f"K11 exact d2 vs P1: {k11_err:.3e}")
     cap_err, same, vis_p, seen = check_bvh_capped(
         bvh_ico, pts, cap, d2_ico, "icosphere(0.3, 5)")
+    check(same >= K11_VISITS_SAME, f"K11 visit counts equal the plain "
+          f"version's on {same:.4%} of walks at the cap")
     check(bool((s_cap.abs() >= exact_ico.abs() - SIGNED_ATOL).all()),
           "K11 capped distances are upper bounds")
+    for c in (cap, None):
+        check_k11_exact(bvh_ico, pts, c, f"icosphere(0.3, 5), max_iters {c}")
     print(f"[mesh scale] K11 exact: max|signed - P1| {walk_err:.3e}, "
           f"max|d2 - P1| {k11_err:.3e}; capped at {cap}: "
           f"max|signed - P1| {float((s_cap - exact_ico).abs().max()):.3e}; "
-          f"launches {launches_w['bvh_walk']}", flush=True)
+          f"launches {launches_w['bvh_walk']}; best_d2, best_idx and visits "
+          "bit for bit those of the kernel it replaced, capped and exact",
+          flush=True)
+    heaps_err, heaps_same = check_k11_heaps(pts)
+    cap_m = 48 * bvh.depth
+    m_err, m_same, vis_m, seen_m = check_bvh_capped(
+        bvh, pts, cap_m, d2_p1, "1.31M")
+    iters_m = check_k11_exact(bvh, pts, cap_m, f"1.31M, max_iters {cap_m}"
+                              ).sum(dim=1) - bvh.depth - 1
+    print(f"[mesh scale] K11 on the 1.31M mesh at its cap of {cap_m}: "
+          f"{int((iters_m >= cap_m).sum())} of {N_MESH_PTS} walks reach it; "
+          "bit for bit the kernel it replaced", flush=True)
 
     # --- K10 at the fit's largest batch: checked, timed, bound ---
     fit_pts = largest[0].to(torch.float32).contiguous()
@@ -3842,11 +3993,13 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, seed=21):
     work = stats.double().mean(dim=0).tolist()
     k10_bound = hybrid_bounds(lo, pts, blocks, sub, TS.HYBRID_K1, stats)
     k10_full = hybrid_bounds(lo, pts, blocks, sub, TS.HYBRID_K1)
-    k11_ms = graph_ms(lambda: TS.closest_bvh(bvh_ico, pts, cap), 5)
-    k11_exact_ms = graph_ms(lambda: TS.closest_bvh(bvh_ico, pts, None), 2)
     k11_plain = time_ms(lambda: TS.closest_bvh_plain(bvh_ico, pts, cap), 1,
                         warmup=0)
-    k11_bound = bvh_bounds(bvh_ico, pts, vis_p, seen)
+    m_plain = time_ms(lambda: TS.closest_bvh_plain(bvh, pts, cap_m), 1,
+                      warmup=0)
+    k11 = k11_times(bvh_ico, bvh, pts, smi, {
+        "32k capped": (bvh_ico, cap, vis_p, seen, k11_plain),
+        "1.31M capped": (bvh, cap_m, vis_m, seen_m, m_plain)})
     k10_ms = split_ms["kernel"]
     print(f"[mesh scale] {smi} | K10 at {N_MESH_PTS} points, 1.31M: "
           f"{k10_ms:.4f} ms, bound on its own work {k10_bound[0]:.5f} ms "
@@ -3865,13 +4018,7 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, seed=21):
           f"{fb_work}), on the plain version's {fb_full[0]:.4f} ms"
           + " | crossover (CUDA graphs): " + ", ".join(
               f"{k} ({v['points']} points) K10 {v['k10_ms']:.4f} / P1 "
-              f"{v['p1_ms']:.4f} ms" for k, v in cross.items())
-          + f" | K11 on icosphere(0.3, 5) capped at {cap}: {k11_ms:.4f} ms, "
-          f"exact {k11_exact_ms:.4f} ms, bound {k11_bound[0]:.5f} ms "
-          f"({k11_bound[1]}; operations {k11_bound[2]:.5f}, bytes "
-          f"{k11_bound[3]:.5f}), {k11_bound[0] / k11_ms:.2%} of it, plain "
-          f"{k11_plain:.3f} ms; mean rows a walk read "
-          f"{vis_p.double().mean(dim=0).tolist()}", flush=True)
+              f"{v['p1_ms']:.4f} ms" for k, v in cross.items()), flush=True)
     total = {k: launches[k] + launches_w[k] for k in launches}
     entries = {
         "hybrid": {
@@ -3900,13 +4047,17 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, seed=21):
             "fixed_k_max_abs_err": fixed_err},
         "bvh_walk": {
             "launches": total["bvh_walk"],
-            "max_abs_err": max(k11_err, cap_err), "ms": k11_ms,
-            "plain_ms": k11_plain, "bound_ms": k11_bound[0],
-            "bound_by": k11_bound[1], "library_ms": None,
-            "ops_bound_ms": k11_bound[2], "bytes_bound_ms": k11_bound[3],
-            "exact_ms": k11_exact_ms, "max_iters": cap,
-            "visits_equal_share": same,
-            "mean_rows_read": vis_p.double().mean(dim=0).tolist(),
+            "max_abs_err": max(k11_err, cap_err, m_err, heaps_err),
+            **{k: k11["32k capped"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "ops_bound_ms",
+                "bytes_bound_ms", "replaced_kernel_ms", "mean_rows_read",
+                "max_iters")},
+            "library_ms": None, "exact_ms": k11["32k exact"]["ms"],
+            "shapes": k11, "visits_equal_share": same,
+            "mesh_1p31m": {"max_abs_err": m_err, "visits_equal_share": m_same,
+                           "capped_walks": int((iters_m >= cap_m).sum())},
+            "heaps": {"max_abs_err": heaps_err,
+                      "min_visits_equal_share": heaps_same},
             "signed_exact_max_abs_err": walk_err}}
     return total, entries
 

@@ -33,13 +33,15 @@ from hpsdf_tpu_torch.mesh import build_bvh, build_mesh, gen
 WARPS = (4, 8, 2)
 
 
-def build_forms(src, prev):
+def build_forms(src, prev, prof):
     """{form: ctypes library}, and ptxas's lines of each: the source at
     each HPSDF_K11_WARPS, and ``prev`` (another bvh_walk.cu) at 4."""
     os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
     forms = {f"W{w}": (src, w) for w in WARPS}
     if prev:
         forms["prev W4"] = (prev, 4)
+    if prof:
+        forms["prof"] = (prof, 4)
     jobs = {}
     for name, (path, warps) in forms.items():
         out = os.path.join(_kernels.BUILD_DIR,
@@ -60,6 +62,9 @@ def build_forms(src, prev):
         lib.hpsdf_bvh_walk.argtypes = list(
             _kernels._SIGNATURES["hpsdf_bvh_walk"])
         lib.hpsdf_bvh_walk.restype = ctypes.c_int
+        if name == "prof":
+            lib.hpsdf_bvh_walk_profile.argtypes = [ctypes.c_void_p]
+            lib.hpsdf_bvh_walk_profile.restype = ctypes.c_int
         libs[name] = lib
     return libs, ptxas
 
@@ -85,11 +90,27 @@ def launcher(fn, bvh, rows, pts, cap, with_stats=False):
     return run
 
 
+def profile(prof, bvh, pts, cap):
+    """The instrumented form's clock64 counters over one launch, a warp's
+    mean: cycles in all, in window loads (and their masks), in the seed,
+    at improving leaves; rounds, improvements, rows read."""
+    launcher(prof.hpsdf_bvh_walk, bvh, bvh.vertex_rows, pts, cap)()
+    out = (ctypes.c_ulonglong * 8)()
+    prof.hpsdf_bvh_walk_profile(out)
+    warps = max(out[7], 1)
+    return dict(zip(("cycles", "load", "seed", "improve", "rounds",
+                     "improvements", "rows"),
+                    [round(out[k] / warps, 1) for k in range(7)]))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="chiprun_out/k11_forms.json")
     ap.add_argument("--prev", default=None,
                     help="another bvh_walk.cu to build and time beside")
+    ap.add_argument("--prof", default=None,
+                    help="a bvh_walk.cu with clock64 counters "
+                    "(hpsdf_bvh_walk_profile) to run once a case")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k11_forms.py: no CUDA device", file=sys.stderr)
@@ -97,7 +118,8 @@ def main():
     smi = cs.nvidia_smi()
     src = os.path.join(os.path.dirname(_kernels.__file__), "csrc",
                        "bvh_walk.cu")
-    libs, ptxas = build_forms(src, args.prev)
+    libs, ptxas = build_forms(src, args.prev, args.prof)
+    prof = libs.pop("prof", None)
     ref = _kernels.load_check().hpsdf_bvh_walk_reference
     print(smi, flush=True)
     print(json.dumps(ptxas), flush=True)
@@ -142,6 +164,11 @@ def main():
                     times[k].append(cs.graph_ms(run, 3))
             res["ms"][label] = times
             print(f"{label} ms: {times}", flush=True)
+            if prof is not None:
+                prof.hpsdf_bvh_walk_profile((ctypes.c_ulonglong * 8)())
+                res.setdefault("profile", {})[label] = pr = profile(
+                    prof, bvh, pts, cap)
+                print(f"{label} profile: {pr}", flush=True)
             if mname == "ico5":
                 i = int(want[2].sum(dim=1).argmax())
                 one = pts[i:i + 1].contiguous()
@@ -157,6 +184,10 @@ def main():
                 res["ms"][f"{label} longest alone"] = times
                 print(f"{label} longest alone ({want[2][i].tolist()} rows) "
                       f"ms: {times}", flush=True)
+                if prof is not None:
+                    res["profile"][f"{label} longest alone"] = pr = profile(
+                        prof, bvh, one, cap)
+                    print(f"{label} longest alone profile: {pr}", flush=True)
         del bvh
         torch.cuda.empty_cache()
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
