@@ -122,14 +122,18 @@ the surface and split by phase in a second build (MESH_PHASES: F, K10's
 launches and the sign inside it, the projection, points and copies, the
 host topology); kernel K11, the BVH walk (csrc/bvh_walk.cu), on
 icosphere(0.3, 5) exact against P1 and at mesh_sdf's default cap against
-its plain version; K10 split by stage (its source built alone with
+its plain version (visit counts equal on K11_VISITS_SAME of the walks), on
+heaps of depth 4, 5, 7 and 11 (K11_HEAPS) and at 1.31M at the cap against
+its plain version, and everywhere against the kernel it replaced
+(csrc/check/bvh_walk_reference.cu) bit for bit; K10 split by stage (its source built alone with
 HPSDF_K10_STAGE 1 and 2: up to the cluster and the subcluster selection),
 and at the fit's largest batch in CUDA graphs, the smaller of two turns;
 its bound
 on its own work (the kernel's per-point counts) and on the plain
 version's; K10 and P1 at 32k (also at the slice fit's largest batch), 82k
-and 1.31M triangles (the crossover), and K11 in CUDA graphs beside its
-bound and plain version.
+and 1.31M triangles (the crossover), and K11 and the kernel it replaced
+in CUDA graphs beside its bound and plain version, a line a shape (32k
+capped and exact, 1.31M capped, the longest walk alone).
 
 Phases, one line each: device, build, ptxas, mesh, P1 vs plain, the slice,
 P1 at the fit batch, K1 vs plain, times, G vs plain, the reference-default
@@ -4098,9 +4102,8 @@ def ptxas_check():
     ptxas reported them when the library was built. K1, K3, K4, K5's raw
     gradient (alone and fused with K2), K7 and K8 at degrees 3 and 5 (the
     main paths'), both forms of G's backward, K9 (on the face operator and
-    in its CSR form), K9u, both forms of the persistent launch and both of
-    K10 must have no stack frame and no spills; K11 no spills (its walk's
-    stack is a frame). Returns
+    in its CSR form), K9u, both forms of the persistent launch, both of
+    K10 and K11 must have no stack frame and no spills. Returns
     {kernel: {key: [registers, stack, spill stores, spill loads]}}."""
     from hpsdf_tpu_torch import _kernels
 
@@ -4137,16 +4140,13 @@ def ptxas_check():
             ("K9 CSR", "cg_matvec_kernel", ("-",)),
             ("K9u", "cg_update_kernel", ("init", "iteration")),
             ("K9 + K9u persistent", "cg_chunk_kernel", ("shared", "buffer")),
-            ("K10", "hybrid_kernel", ("one level", "two levels"))):
+            ("K10", "hybrid_kernel", ("one level", "two levels")),
+            ("K11", "bvh_walk_kernel", ("-",))):
         got = found.get(kernel, {})
         for key in keys:
             check(key in got, f"ptxas report for {name} {key}")
             check(got[key][1:] == [0, 0, 0], f"{name} {key}: stack "
                   f"{got[key][1]} B, spills {got[key][2:]}")
-    # K11 keeps its walk's stack (32 ints) in a frame, by design: no spills
-    got = found.get("bvh_walk_kernel", {}).get("-")
-    check(got is not None and got[2:] == [0, 0],
-          f"ptxas report for K11: {got}")
     print(f"[ptxas] registers / stack / spill stores / spill loads (bytes): "
           + " | ".join(f"{k} {found.get(k, {})}" for k in PTXAS_KERNELS),
           flush=True)
@@ -4184,7 +4184,7 @@ def main():
             job.result()
     print(f"[build] {len(_kernels.sources())} sources -> "
           f"{os.path.relpath(_kernels.library_path())}, and the reference "
-          f"kernels of the K3, K4, K7, G's backward and K8 checks -> "
+          f"kernels of the K3, K4, K7, G's backward, K8 and K11 checks -> "
           f"{os.path.relpath(_kernels.library_path('check'))}, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 3)

@@ -76,6 +76,31 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int level_of(int32_t n) { return 31 - __clz(n); }
 
+#ifndef HPSDF_K11_PREFETCH
+#define HPSDF_K11_PREFETCH 0
+#endif
+
+// The rows of the window under heap node r, asked into L1 ahead of its
+// load (two 32-byte sectors a row).
+__device__ __forceinline__ void prefetch_window(
+    const float* node_rows, const float* tri_rows, int64_t tri_stride,
+    int32_t T2, int depth, int32_t r, int lane) {
+  const int up = depth - level_of(r);
+  const int n = up <= kLevels ? up + 1 : kLevels;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int j = lane + 32 * s;
+    if (j >= 1 && j < (1 << n)) {
+      const int k = level_of(j);
+      const int32_t g = (r << k) + (j - (1 << k));
+      const float* row = g >= T2 ? tri_rows + (int64_t)(g - T2) * tri_stride
+                                 : node_rows + 16 * (int64_t)g;
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(row));
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(row + 8));
+    }
+  }
+}
+
 // bit j of the result: item j's predicate; lane t holds items t and 32 + t
 __device__ __forceinline__ uint64_t ballot2(bool p0, bool p1) {
   return (uint64_t)__ballot_sync(kFull, p0) |
@@ -209,38 +234,41 @@ bvh_walk_kernel(const float* __restrict__ node_rows,
              lane);
       w.against(best);
       j = 1;
-    }
-    bool descend = false;
-    int right = 0;
-    if (cur >= T2) {                      // a leaf: its triangle
-      ++n_leaves;
-      if ((w.better >> j) & 1) {
-        best = w.value(j);
-        idx = cur - T2;
-        w.against(best);
+#if HPSDF_K11_PREFETCH
+      if (depth - w.L > kLevels) {        // no leaves: the best holds, so
+        int e = 1;                        // the walk leaves where the near
+        while (e < (1 << w.n) && ((w.desc >> e) & 1))    // chain does,
+          e = 2 * e + ((int)(w.right >> e) & 1);         // if it does
+        if (e >= (1 << w.n))
+          prefetch_window(node_rows, tri_rows, tri_stride, T2, depth,
+                          (w.r << w.n) + (e - (1 << w.n)), lane);
       }
-    } else {                              // internal: nearer, farther
-      ++n_nodes;
-      right = (int)(w.right >> j) & 1;
-      descend = (w.desc >> j) & 1;
-      if (descend && ((w.push >> j) & 1)) {
-        if (lane == sp) stack = 2 * cur + 1 - right;
-        ++sp;
-      }
+#endif
     }
-    if (descend) {
-      cur = 2 * cur + right;
-      j = 2 * j + right;
-      fresh = j >= (1 << w.n);            // below the window
-    } else if (sp > 0) {
-      --sp;
-      cur = __shfl_sync(kFull, stack, sp);
-      const int k = level_of(cur) - w.L;  // still inside the window?
-      fresh = k < 0 || k >= w.n || (cur >> k) != w.r;
-      if (!fresh) j = (1 << k) + (cur - (w.r << k));
-    } else {
-      break;
+    // item j's decisions, from its bits; both next nodes, then a select
+    if ((w.better >> j) & 1) {            // a leaf nearer than the best
+      best = w.value(j);
+      idx = cur - T2;
+      w.against(best);
     }
+    const bool leaf = cur >= T2;
+    n_leaves += leaf;
+    n_nodes += !leaf;
+    const bool descend = (w.desc >> j) & 1;
+    const bool push = descend && ((w.push >> j) & 1);
+    const int right = (int)(w.right >> j) & 1;
+    const int32_t near = 2 * cur + right;
+    const int32_t top = __shfl_sync(kFull, stack, sp > 0 ? sp - 1 : 0);
+    if (push && lane == sp) stack = near ^ 1;
+    if (!descend && sp == 0) break;
+    const int k = level_of(top) - w.L;    // the popped node in the window?
+    const int kc = min(max(k, 0), kLevels);
+    const bool in_pop = (unsigned)k < (unsigned)w.n && (top >> kc) == w.r;
+    const int j_near = 2 * j + right;
+    cur = descend ? near : top;
+    sp += descend ? (int)push : -1;
+    fresh = descend ? j_near >= (1 << w.n) : !in_pop;
+    j = descend ? j_near : (1 << kc) + (top - (w.r << kc));
     if (++it >= cap) break;
   }
   if (lane == 0) {

@@ -4,9 +4,10 @@ kernel it replaced (csrc/check/bvh_walk_reference.cu), on the H100:
 
     python3 k11_forms.py [--out chiprun_out/k11_forms.json]
 
-Compiles csrc/bvh_walk.cu alone once for each form (HPSDF_K11_WARPS: walks
-a block), and ``--prev``, another version of the source, at 4 warps, all
-nvcc processes started together. Holds every form to the reference kernel bit
+Compiles csrc/bvh_walk.cu alone once for each form (FORMS: HPSDF_K11_WARPS,
+walks a block; HPSDF_K11_PREFETCH, the predicted next window asked into L1),
+``--prev``, another version of the source, and ``--prof``, a copy with
+clock64 counters, all nvcc processes started together. Holds every form to the reference kernel bit
 for bit (best_d2, best_idx, visits) at chip_smoke.py's 10,240 uniform
 points on the cube (depth 4), icosphere(0.3, s) for s = 0, 1, 3 and 5
 (depths 5, 7, 11, 15), capped (48 x depth visits) and exact, and on
@@ -30,25 +31,27 @@ import chip_smoke as cs
 from hpsdf_tpu_torch import _kernels
 from hpsdf_tpu_torch.mesh import build_bvh, build_mesh, gen
 
-WARPS = (4, 8, 2)
+FORMS = {"W4": ("-DHPSDF_K11_WARPS=4",),
+         "W4 prefetch": ("-DHPSDF_K11_WARPS=4", "-DHPSDF_K11_PREFETCH=1"),
+         "W2 prefetch": ("-DHPSDF_K11_WARPS=2", "-DHPSDF_K11_PREFETCH=1")}
 
 
 def build_forms(src, prev, prof):
-    """{form: ctypes library}, and ptxas's lines of each: the source at
-    each HPSDF_K11_WARPS, and ``prev`` (another bvh_walk.cu) at 4."""
+    """{form: ctypes library}, and ptxas's lines of each: the source with
+    each FORMS' macros, ``prev`` (another bvh_walk.cu) and ``prof`` (an
+    instrumented one) as they are."""
     os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
-    forms = {f"W{w}": (src, w) for w in WARPS}
+    forms = {name: (src, d) for name, d in FORMS.items()}
     if prev:
-        forms["prev W4"] = (prev, 4)
+        forms["prev"] = (prev, ())
     if prof:
-        forms["prof"] = (prof, 4)
+        forms["prof"] = (prof, ())
     jobs = {}
-    for name, (path, warps) in forms.items():
+    for name, (path, defines) in forms.items():
         out = os.path.join(_kernels.BUILD_DIR,
                            f"k11_form_{name.replace(' ', '_')}.so")
-        cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared",
-               f"-DHPSDF_K11_WARPS={warps}", "-I", os.path.dirname(src),
-               "-o", out, path]
+        cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", *defines,
+               "-I", os.path.dirname(src), "-o", out, path]
         jobs[name] = (out, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs, ptxas = {}, {}
