@@ -37,8 +37,10 @@
 // vertex_rows): 63 items, two a lane. Each lane computes its items'
 // child-box distances (tri.cuh aabb_d2, rounded as the plain version rounds)
 // or triangle distance (P1's cascade, tri.cuh row_d2) in registers, and the
-// warp turns them into 64-bit masks by ballots: which child is nearer, and,
-// against the best, which nodes descend, which push, which leaves improve.
+// warp turns them into bit masks by ballots (32 bits for the internal
+// items, which lie on the top five levels, 64 for the leaves): which child
+// is nearer, and, against the best, which nodes descend, which push, which
+// leaves improve.
 // Then every lane replays, visit by visit, the sequential walk's decisions
 // by testing item j's bits, updating the best at a leaf in walk order (a
 // shuffle of its value, and the masks again), until the walk leaves the
@@ -76,55 +78,25 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int level_of(int32_t n) { return 31 - __clz(n); }
 
-#ifndef HPSDF_K11_PREFETCH
-#define HPSDF_K11_PREFETCH 0
-#endif
-
-// The rows of the window under heap node r, asked into L1 ahead of its
-// load (two 32-byte sectors a row).
-__device__ __forceinline__ void prefetch_window(
-    const float* node_rows, const float* tri_rows, int64_t tri_stride,
-    int32_t T2, int depth, int32_t r, int lane) {
-  const int up = depth - level_of(r);
-  const int n = up <= kLevels ? up + 1 : kLevels;
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int j = lane + 32 * s;
-    if (j >= 1 && j < (1 << n)) {
-      const int k = level_of(j);
-      const int32_t g = (r << k) + (j - (1 << k));
-      const float* row = g >= T2 ? tri_rows + (int64_t)(g - T2) * tri_stride
-                                 : node_rows + 16 * (int64_t)g;
-      asm volatile("prefetch.global.L1 [%0];" ::"l"(row));
-      asm volatile("prefetch.global.L1 [%0];" ::"l"(row + 8));
-    }
-  }
-}
-
-// bit j of the result: item j's predicate; lane t holds items t and 32 + t
-__device__ __forceinline__ uint64_t ballot2(bool p0, bool p1) {
-  return (uint64_t)__ballot_sync(kFull, p0) |
-         ((uint64_t)__ballot_sync(kFull, p1) << 32);
-}
-
 // One window: the items a lane holds (item lane and item 32 + lane) and the
-// warp's masks over the items, bit j for item j (heap order from 1).
+// warp's masks over the items, bit j for item j (heap order from 1). An
+// internal item lies on one of the window's top kLevels levels, so j < 32:
+// its masks are the first lane's ballots alone.
 struct Window {
   int32_t r;            // the heap node it hangs under
   int L, n;             // r's level; its item levels (items 1 .. 2^n - 1)
-  float x[2], y[2];     // (dl, dr) of an internal item, (d2, -) of a leaf
-  bool inner[2], leaf[2];
-  uint64_t right;       // internal items whose right child is the nearer
-  uint64_t desc, push;  // internal: nearer box < best; farther box < best
+  float x[2], y;        // (dl, dr) of an internal item, (d2, -) of a leaf
+  bool inner, leaf[2];  // item lane's kind; both items' leafness
+  uint32_t right;       // internal items whose right child is the nearer
+  uint32_t desc, push;  // internal: nearer box < best; farther box < best
   uint64_t better;      // leaves: d2 < best
 
   // the masks that depend on the best (again whenever the best drops)
   __device__ __forceinline__ void against(float best) {
-    desc = ballot2(inner[0] && fminf(x[0], y[0]) < best,
-                   inner[1] && fminf(x[1], y[1]) < best);
-    push = ballot2(inner[0] && fmaxf(x[0], y[0]) < best,
-                   inner[1] && fmaxf(x[1], y[1]) < best);
-    better = ballot2(leaf[0] && x[0] < best, leaf[1] && x[1] < best);
+    desc = __ballot_sync(kFull, inner && fminf(x[0], y) < best);
+    push = __ballot_sync(kFull, inner && fmaxf(x[0], y) < best);
+    better = (uint64_t)__ballot_sync(kFull, leaf[0] && x[0] < best) |
+             ((uint64_t)__ballot_sync(kFull, leaf[1] && x[1] < best) << 32);
   }
 
   // item j's first value, in every lane
@@ -150,43 +122,41 @@ struct Window {
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       const int j = lane + 32 * s;
-      inner[s] = leaf[s] = false;
-      if (j >= 1 && j < (1 << n)) {
-        const int k = level_of(j);
-        const int32_t g = (r << k) + (j - (1 << k));
-        leaf[s] = g >= T2;
-        inner[s] = !leaf[s];
-        if (leaf[s]) {
-          const float* row = tri_rows + (int64_t)(g - T2) * tri_stride;
-          a[s] = __ldg(reinterpret_cast<const float4*>(row));
-          b[s] = __ldg(reinterpret_cast<const float4*>(row) + 1);
-          c[s][0] = __ldg(row + 8);
-        } else {
-          const float4* q = reinterpret_cast<const float4*>(node_rows) +
-                            4 * (int64_t)g;
-          a[s] = __ldg(q);
-          b[s] = __ldg(q + 1);
-          const float4 t = __ldg(q + 2);
-          c[s][0] = t.x; c[s][1] = t.y; c[s][2] = t.z; c[s][3] = t.w;
-        }
+      const bool item = j >= 1 && j < (1 << n);
+      const int k = level_of(max(j, 1));
+      const int32_t g = item ? (r << k) + (j - (1 << k)) : 0;
+      leaf[s] = item && g >= T2;
+      if (s == 0) inner = item && g < T2;
+      if (leaf[s]) {
+        const float* row = tri_rows + (int64_t)(g - T2) * tri_stride;
+        a[s] = __ldg(reinterpret_cast<const float4*>(row));
+        b[s] = __ldg(reinterpret_cast<const float4*>(row) + 1);
+        c[s][0] = __ldg(row + 8);
+      } else if (s == 0 && inner) {
+        const float4* q = reinterpret_cast<const float4*>(node_rows) +
+                          4 * (int64_t)g;
+        a[s] = __ldg(q);
+        b[s] = __ldg(q + 1);
+        const float4 t = __ldg(q + 2);
+        c[s][0] = t.x; c[s][1] = t.y; c[s][2] = t.z; c[s][3] = t.w;
       }
     }
+    x[0] = x[1] = y = 0.f;
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
-      x[s] = y[s] = 0.f;
       if (leaf[s]) {
         float4 s0, s1, s2;
         hpsdf::stage_terms(a[s].x, a[s].y, a[s].z, a[s].w, b[s].x, b[s].y,
                            b[s].z, b[s].w, c[s][0], s0, s1, s2);
         x[s] = hpsdf::closest_d2(px, py, pz, s0, s1, s2);
-      } else if (inner[s]) {
-        x[s] = hpsdf::aabb_d2(px, py, pz, a[s].x, a[s].y, a[s].z, a[s].w,
-                              b[s].x, b[s].y);
-        y[s] = hpsdf::aabb_d2(px, py, pz, b[s].z, b[s].w, c[s][0], c[s][1],
-                              c[s][2], c[s][3]);
+      } else if (s == 0 && inner) {
+        x[0] = hpsdf::aabb_d2(px, py, pz, a[0].x, a[0].y, a[0].z, a[0].w,
+                              b[0].x, b[0].y);
+        y = hpsdf::aabb_d2(px, py, pz, b[0].z, b[0].w, c[0][0], c[0][1],
+                           c[0][2], c[0][3]);
       }
     }
-    right = ballot2(inner[0] && !(x[0] <= y[0]), inner[1] && !(x[1] <= y[1]));
+    right = __ballot_sync(kFull, inner && !(x[0] <= y));
   }
 };
 
@@ -214,7 +184,7 @@ bvh_walk_kernel(const float* __restrict__ node_rows,
            lane);
     j = 1;
     while (cur < T2 && j < (1 << w.n)) {
-      const int right = (int)(w.right >> j) & 1;
+      const int right = (w.right >> j) & 1;
       cur = 2 * cur + right;
       j = 2 * j + right;
     }
@@ -234,41 +204,38 @@ bvh_walk_kernel(const float* __restrict__ node_rows,
              lane);
       w.against(best);
       j = 1;
-#if HPSDF_K11_PREFETCH
-      if (depth - w.L > kLevels) {        // no leaves: the best holds, so
-        int e = 1;                        // the walk leaves where the near
-        while (e < (1 << w.n) && ((w.desc >> e) & 1))    // chain does,
-          e = 2 * e + ((int)(w.right >> e) & 1);         // if it does
-        if (e >= (1 << w.n))
-          prefetch_window(node_rows, tri_rows, tri_stride, T2, depth,
-                          (w.r << w.n) + (e - (1 << w.n)), lane);
+    }
+    bool descend = false;
+    int right = 0;
+    if (cur >= T2) {                      // a leaf: its triangle
+      ++n_leaves;
+      if ((w.better >> j) & 1) {
+        best = w.value(j);
+        idx = cur - T2;
+        w.against(best);
       }
-#endif
+    } else {                              // internal: nearer, farther
+      ++n_nodes;
+      right = (w.right >> j) & 1;
+      descend = (w.desc >> j) & 1;
+      if (descend && ((w.push >> j) & 1)) {
+        if (lane == sp) stack = 2 * cur + 1 - right;
+        ++sp;
+      }
     }
-    // item j's decisions, from its bits; both next nodes, then a select
-    if ((w.better >> j) & 1) {            // a leaf nearer than the best
-      best = w.value(j);
-      idx = cur - T2;
-      w.against(best);
+    if (descend) {
+      cur = 2 * cur + right;
+      j = 2 * j + right;
+      fresh = j >= (1 << w.n);            // below the window
+    } else if (sp > 0) {
+      --sp;
+      cur = __shfl_sync(kFull, stack, sp);
+      const int k = level_of(cur) - w.L;  // still inside the window?
+      fresh = k < 0 || k >= w.n || (cur >> k) != w.r;
+      if (!fresh) j = (1 << k) + (cur - (w.r << k));
+    } else {
+      break;
     }
-    const bool leaf = cur >= T2;
-    n_leaves += leaf;
-    n_nodes += !leaf;
-    const bool descend = (w.desc >> j) & 1;
-    const bool push = descend && ((w.push >> j) & 1);
-    const int right = (int)(w.right >> j) & 1;
-    const int32_t near = 2 * cur + right;
-    const int32_t top = __shfl_sync(kFull, stack, sp > 0 ? sp - 1 : 0);
-    if (push && lane == sp) stack = near ^ 1;
-    if (!descend && sp == 0) break;
-    const int k = level_of(top) - w.L;    // the popped node in the window?
-    const int kc = min(max(k, 0), kLevels);
-    const bool in_pop = (unsigned)k < (unsigned)w.n && (top >> kc) == w.r;
-    const int j_near = 2 * j + right;
-    cur = descend ? near : top;
-    sp += descend ? (int)push : -1;
-    fresh = descend ? j_near >= (1 << w.n) : !in_pop;
-    j = descend ? j_near : (1 << kc) + (top - (w.r << kc));
     if (++it >= cap) break;
   }
   if (lane == 0) {

@@ -5,8 +5,8 @@ kernel it replaced (csrc/check/bvh_walk_reference.cu), on the H100:
     python3 k11_forms.py [--out chiprun_out/k11_forms.json]
 
 Compiles csrc/bvh_walk.cu alone once for each form (FORMS: HPSDF_K11_WARPS,
-walks a block; HPSDF_K11_PREFETCH, the predicted next window asked into L1),
-``--prev``, another version of the source, and ``--prof``, a copy with
+walks a block), each ``--prev``, another version of the source, and
+``--prof``, a copy with
 clock64 counters, all nvcc processes started together. Holds every form to the reference kernel bit
 for bit (best_d2, best_idx, visits) at chip_smoke.py's 10,240 uniform
 points on the cube (depth 4), icosphere(0.3, s) for s = 0, 1, 3 and 5
@@ -31,9 +31,7 @@ import chip_smoke as cs
 from hpsdf_tpu_torch import _kernels
 from hpsdf_tpu_torch.mesh import build_bvh, build_mesh, gen
 
-FORMS = {"W4": ("-DHPSDF_K11_WARPS=4",),
-         "W4 prefetch": ("-DHPSDF_K11_WARPS=4", "-DHPSDF_K11_PREFETCH=1"),
-         "W2 prefetch": ("-DHPSDF_K11_WARPS=2", "-DHPSDF_K11_PREFETCH=1")}
+FORMS = {"W4": ("-DHPSDF_K11_WARPS=4",), "W2": ("-DHPSDF_K11_WARPS=2",)}
 
 
 def build_forms(src, prev, prof):
@@ -42,8 +40,8 @@ def build_forms(src, prev, prof):
     instrumented one) as they are."""
     os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
     forms = {name: (src, d) for name, d in FORMS.items()}
-    if prev:
-        forms["prev"] = (prev, ())
+    for path in prev or ():
+        forms[os.path.basename(path)[:-3]] = (path, ())
     if prof:
         forms["prof"] = (prof, ())
     jobs = {}
@@ -109,7 +107,7 @@ def profile(prof, bvh, pts, cap):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="chiprun_out/k11_forms.json")
-    ap.add_argument("--prev", default=None,
+    ap.add_argument("--prev", action="append",
                     help="another bvh_walk.cu to build and time beside")
     ap.add_argument("--prof", default=None,
                     help="a bvh_walk.cu with clock64 counters "
