@@ -167,11 +167,12 @@ def window_walk(bvh, p, max_iters=None, levels=WINDOW_LEVELS):
     computed at once (the children's boxes of a node, the triangle of a
     leaf, from ``vertex_rows``) and turned into masks, bit j for item j:
     the nodes whose right child is the nearer, and, against the best, the
-    nodes that descend, those that push and the leaves that improve (again
-    whenever the best drops). The walk's visits are replayed from the bits
-    until the walk descends below the window or pops to a node outside it,
-    and the next window is the one under that node. Returns (d2, index,
-    (node rows, triangle rows), rounds)."""
+    nodes that descend, those that push and the leaves that improve, and
+    from them each node's descent run (again whenever the best drops). The
+    walk's visits are replayed a run at a time, until the walk descends
+    below the window or pops to a node outside it, and the next window is
+    the one under that node. Returns (d2, index, (node rows, triangle
+    rows), rounds)."""
     node_rows, rows = bvh.node_rows, bvh.vertex_rows
     T2, depth = bvh.n_leaves, bvh.depth
     max_iters = 4 * T2 if max_iters is None else max_iters
@@ -200,10 +201,21 @@ def window_walk(bvh, p, max_iters=None, levels=WINDOW_LEVELS):
         return L, n, [None] + items, right
 
     def against(items, best):
-        """(descend, push, better) masks"""
-        return (bits(i and min(a, b) < best for i, a, b in items[1:]),
-                bits(i and max(a, b) < best for i, a, b in items[1:]),
-                bits(not i and a < best for i, a, b in items[1:]))
+        """(descend, push, better) masks, and each internal item's descent
+        run: the item e where descending into the nearer child stops (a
+        leaf, a node that does not descend, or, at 2^n or past it, the child
+        below the window), and the levels at which the run pushes."""
+        desc = bits(i and min(a, b) < best for i, a, b in items[1:])
+        push = bits(i and max(a, b) < best for i, a, b in items[1:])
+        better = bits(not i and a < best for i, a, b in items[1:])
+        runs = {}
+        for j in range(1, min(len(items), 1 << levels)):  # internal items
+            e, pushes = j, 0
+            while e < 1 << levels and desc >> e & 1:
+                pushes |= (push >> e & 1) << (e.bit_length() - 1)
+                e = 2 * e + (right >> e & 1)
+            runs[j] = e, pushes
+        return desc, push, better, runs
 
     cur = 1                                   # the seed, a window a round
     while True:
@@ -217,39 +229,50 @@ def window_walk(bvh, p, max_iters=None, levels=WINDOW_LEVELS):
     best, idx = items[j][1], cur - T2
     n_nodes, n_leaves = depth, 1
 
+    # the walk, a descent run a step; at least one visit, as the plain loop
+    max_iters = max(max_iters, 1)
     stack, it, cur, fresh = [], 0, 1, True
     while True:
         if fresh:                             # a new window under cur
             r = cur
             L, n, items, right = window(r)
-            desc, push, better = against(items, best)
-            j = 1
-        descend = False
-        if cur >= T2:
+            desc, push, better, runs = against(items, best)
+            j, fresh = 1, False
+        if cur < T2:                          # descend while nearer
+            e, pushes = runs[j]
+            ke = e.bit_length() - 1
+            length = ke - (j.bit_length() - 1)
+            if length >= max_iters - it:      # the cap falls in the run
+                n_nodes += max_iters - it
+                break
+            n_nodes += length
+            it += length
+            for lev in range(ke):             # each pushes the farther child
+                if pushes >> lev & 1:
+                    k = lev + 1
+                    far = (e >> (ke - k)) ^ 1
+                    stack.append((r << k) + far - (1 << k))
+            cur, j = (r << ke) + e - (1 << ke), e
+            if e >= 1 << n:                   # below the window
+                fresh = True
+                continue
+        if cur >= T2:                         # the visit ending the run
             n_leaves += 1
             if better >> j & 1:
                 best, idx = items[j][1], cur - T2
-                desc, push, better = against(items, best)
+                desc, push, better, runs = against(items, best)
         else:
             n_nodes += 1
-            b = right >> j & 1
-            descend = bool(desc >> j & 1)
-            if descend and push >> j & 1:
-                stack.append(2 * cur + 1 - b)
-        if descend:
-            cur, j = 2 * cur + b, 2 * j + b
-            fresh = j >= 1 << n               # below the window
-        elif stack:
-            cur = stack.pop()
-            k = cur.bit_length() - 1 - L      # still inside the window?
-            fresh = not (0 <= k < n and cur >> k == r)
-            if not fresh:
-                j = (1 << k) + cur - (r << k)
-        else:
+        if not stack:
             break
         it += 1
         if it >= max_iters:
             break
+        cur = stack.pop()
+        k = cur.bit_length() - 1 - L          # still inside the window?
+        fresh = not (0 <= k < n and cur >> k == r)
+        if not fresh:
+            j = (1 << k) + cur - (r << k)
     return best, idx, (n_nodes, n_leaves), rounds[0]
 
 
@@ -275,15 +298,17 @@ def heaps(ico):
     return out
 
 
-@pytest.mark.parametrize("cap", ["exact", "default", "small"])
+@pytest.mark.parametrize("cap", ["exact", "default", "small", "zero"])
 @pytest.mark.parametrize("heap,depth", [("cube", 4), ("ico0", 5),
                                         ("ico1", 7), ("ico3", 11)])
 def test_window_replay_matches_plain_walk(heaps, heap, depth, cap):
     """The window replay gives the plain walk's d2, index and visits bit for
-    bit at the exact, default (48 x depth) and small caps."""
+    bit at the exact, default (48 x depth) and small caps, and at a cap of 0
+    (one visit, as the plain loop makes at least one)."""
     bvh = heaps[heap]
     assert bvh.depth == depth
-    max_iters = {"exact": None, "default": 48 * depth, "small": 12}[cap]
+    max_iters = {"exact": None, "default": 48 * depth, "small": 12,
+                 "zero": 0}[cap]
     pts = torch.as_tensor(_pts(128, seed=depth))
     d2_p, idx_p, vis_p, _ = TS.closest_bvh_plain(bvh, pts, max_iters,
                                                  with_stats=True)
@@ -294,6 +319,8 @@ def test_window_replay_matches_plain_walk(heaps, heap, depth, cap):
     iters = vis_p[:, 0] - depth + vis_p[:, 1] - 1
     if cap == "small":
         assert int(iters.max()) == 12             # the cap cut some walks
+    if cap == "zero":
+        assert bool((iters == 1).all())
     # a round serves several visits: the seed's windows and the walk's
     assert int(rounds.min()) >= 1
     if depth == 11 and cap == "exact":
