@@ -96,12 +96,12 @@ def profile(prof, bvh, pts, cap):
     mean: cycles in all, in window loads (and their masks), in the seed,
     at improving leaves; rounds, improvements, rows read."""
     launcher(prof.hpsdf_bvh_walk, bvh, bvh.vertex_rows, pts, cap)()
-    out = (ctypes.c_ulonglong * 8)()
+    out = (ctypes.c_ulonglong * 12)()
     prof.hpsdf_bvh_walk_profile(out)
-    warps = max(out[7], 1)
-    return dict(zip(("cycles", "load", "seed", "improve", "rounds",
-                     "improvements", "rows"),
-                    [round(out[k] / warps, 1) for k in range(7)]))
+    warps = max(out[10], 1)
+    return dict(zip(("cycles", "seed", "loads", "distances", "right",
+                     "masks", "iterations", "pops", "rounds", "rows"),
+                    [round(out[k] / warps, 1) for k in range(10)]))
 
 
 def main():
@@ -166,7 +166,7 @@ def main():
             res["ms"][label] = times
             print(f"{label} ms: {times}", flush=True)
             if prof is not None:
-                prof.hpsdf_bvh_walk_profile((ctypes.c_ulonglong * 8)())
+                prof.hpsdf_bvh_walk_profile((ctypes.c_ulonglong * 12)())
                 res.setdefault("profile", {})[label] = pr = profile(
                     prof, bvh, pts, cap)
                 print(f"{label} profile: {pr}", flush=True)
