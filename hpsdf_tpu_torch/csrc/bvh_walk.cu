@@ -90,26 +90,13 @@ struct Window {
   uint32_t right;       // internal items whose right child is the nearer
   uint32_t desc, push;  // internal: nearer box < best; farther box < best
   uint64_t better;      // leaves: d2 < best
-  int32_t run;          // item lane's descent run: its end | pushes << 8
 
-  // the masks that depend on the best (again whenever the best drops), and
-  // each internal item's descent run under them: from item j the walk
-  // descends into the nearer child while that box is nearer than the best,
-  // to the item e where it stops (a leaf, a node it does not descend from,
-  // or, at or past 2^n, the child below the window it leaves for); the run
-  // pushes the farther child at the levels set in its push bits
-  __device__ __forceinline__ void against(float best, int lane) {
+  // the masks that depend on the best (again whenever the best drops)
+  __device__ __forceinline__ void against(float best) {
     desc = __ballot_sync(kFull, inner && fminf(x[0], y) < best);
     push = __ballot_sync(kFull, inner && fmaxf(x[0], y) < best);
     better = (uint64_t)__ballot_sync(kFull, leaf[0] && x[0] < best) |
              ((uint64_t)__ballot_sync(kFull, leaf[1] && x[1] < best) << 32);
-    int e = lane;
-    uint32_t pushes = 0;
-    while (e < 32 && ((desc >> e) & 1)) { // desc holds internal items only
-      pushes |= ((push >> e) & 1) << level_of(e);
-      e = 2 * e + ((right >> e) & 1);
-    }
-    run = e | (int32_t)(pushes << 8);
   }
 
   // item j's first value, in every lane
@@ -207,7 +194,6 @@ bvh_walk_kernel(const float* __restrict__ node_rows,
   int32_t idx = cur - T2;
   int32_t n_nodes = depth, n_leaves = 1;
 
-  // the walk, a descent run a step: item j of window w is where it stands
   int32_t stack = 0;                      // lane t: entry t
   int sp = 0;
   cur = 1;
@@ -216,48 +202,38 @@ bvh_walk_kernel(const float* __restrict__ node_rows,
     if (fresh) {
       w.load(node_rows, tri_rows, tri_stride, T2, depth, cur, px, py, pz,
              lane);
-      w.against(best, lane);
+      w.against(best);
       j = 1;
       fresh = false;
     }
-    if (cur < T2) {                       // descend while the box is nearer
-      const int32_t info = __shfl_sync(kFull, w.run, j);
-      const int e = info & 0x7f, ke = level_of(e);
-      const uint32_t pushes = (uint32_t)info >> 8;
-      const int len = ke - level_of(j);   // a visit each, each counted
-      if (len >= cap - it) {              // the cap falls inside the run
-        n_nodes += cap - it;
+    // descend into the nearer child while its box is nearer than the best,
+    // pushing the farther one when its box is too: a visit a step, each a
+    // few bit operations on the masks (an internal item has j < 32)
+    while (cur < T2) {
+      const uint32_t bit = 1u << j;
+      ++n_nodes;
+      if (!(w.desc & bit)) break;         // the nearer box is no nearer
+      const int right = (w.right & bit) ? 1 : 0;
+      if (w.push & bit) {
+        if (lane == sp) stack = 2 * cur + 1 - right;
+        ++sp;
+      }
+      cur = 2 * cur + right;
+      j = 2 * j + right;
+      if (++it >= cap) goto done;
+      if (j >= (1 << w.n)) {              // below the window
+        fresh = true;
         break;
       }
-      n_nodes += len;
-      it += len;
-      const int np = __popc(pushes), rank = lane - sp;
-      if (rank >= 0 && rank < np) {       // the lanes of the new entries
-        uint32_t m = pushes;
-        for (int q = 0; q < rank; ++q) m &= m - 1;
-        const int k = __ffs(m);           // the farther child's level
-        const int far = (e >> (ke - k)) ^ 1;
-        stack = (w.r << k) + (far - (1 << k));
-      }
-      sp += np;
-      cur = (w.r << ke) + (e - (1 << ke));
-      j = e;
-      if (e >= (1 << w.n)) {              // below the window
-        fresh = true;
-        continue;
-      }
     }
-    // the visit that ends the run: a leaf, or a node whose nearer box is no
-    // nearer than the best
-    if (cur >= T2) {
+    if (fresh) continue;
+    if (cur >= T2) {                      // a leaf: its triangle
       ++n_leaves;
       if ((w.better >> j) & 1) {
         best = w.value(j);
         idx = cur - T2;
-        w.against(best, lane);
+        w.against(best);
       }
-    } else {
-      ++n_nodes;
     }
     if (sp == 0 || ++it >= cap) break;    // the stack is empty, or the cap
     --sp;                                 // pop
@@ -266,6 +242,7 @@ bvh_walk_kernel(const float* __restrict__ node_rows,
     fresh = k < 0 || k >= w.n || (cur >> k) != w.r;
     if (!fresh) j = (1 << k) + (cur - (w.r << k));
   }
+done:
   if (lane == 0) {
     best_d2[i] = best;
     best_idx[i] = idx;

@@ -167,12 +167,11 @@ def window_walk(bvh, p, max_iters=None, levels=WINDOW_LEVELS):
     computed at once (the children's boxes of a node, the triangle of a
     leaf, from ``vertex_rows``) and turned into masks, bit j for item j:
     the nodes whose right child is the nearer, and, against the best, the
-    nodes that descend, those that push and the leaves that improve, and
-    from them each node's descent run (again whenever the best drops). The
-    walk's visits are replayed a run at a time, until the walk descends
-    below the window or pops to a node outside it, and the next window is
-    the one under that node. Returns (d2, index, (node rows, triangle
-    rows), rounds)."""
+    nodes that descend, those that push and the leaves that improve (again
+    whenever the best drops). The walk's visits are replayed from the bits,
+    until the walk descends below the window or pops to a node outside it,
+    and the next window is the one under that node. Returns (d2, index,
+    (node rows, triangle rows), rounds)."""
     node_rows, rows = bvh.node_rows, bvh.vertex_rows
     T2, depth = bvh.n_leaves, bvh.depth
     max_iters = 4 * T2 if max_iters is None else max_iters
@@ -201,21 +200,10 @@ def window_walk(bvh, p, max_iters=None, levels=WINDOW_LEVELS):
         return L, n, [None] + items, right
 
     def against(items, best):
-        """(descend, push, better) masks, and each internal item's descent
-        run: the item e where descending into the nearer child stops (a
-        leaf, a node that does not descend, or, at 2^n or past it, the child
-        below the window), and the levels at which the run pushes."""
-        desc = bits(i and min(a, b) < best for i, a, b in items[1:])
-        push = bits(i and max(a, b) < best for i, a, b in items[1:])
-        better = bits(not i and a < best for i, a, b in items[1:])
-        runs = {}
-        for j in range(1, min(len(items), 1 << levels)):  # internal items
-            e, pushes = j, 0
-            while e < 1 << levels and desc >> e & 1:
-                pushes |= (push >> e & 1) << (e.bit_length() - 1)
-                e = 2 * e + (right >> e & 1)
-            runs[j] = e, pushes
-        return desc, push, better, runs
+        """(descend, push, better) masks"""
+        return (bits(i and min(a, b) < best for i, a, b in items[1:]),
+                bits(i and max(a, b) < best for i, a, b in items[1:]),
+                bits(not i and a < best for i, a, b in items[1:]))
 
     cur = 1                                   # the seed, a window a round
     while True:
@@ -229,40 +217,36 @@ def window_walk(bvh, p, max_iters=None, levels=WINDOW_LEVELS):
     best, idx = items[j][1], cur - T2
     n_nodes, n_leaves = depth, 1
 
-    # the walk, a descent run a step; at least one visit, as the plain loop
+    # the walk; at least one visit, as the plain loop
     max_iters = max(max_iters, 1)
     stack, it, cur, fresh = [], 0, 1, True
     while True:
         if fresh:                             # a new window under cur
             r = cur
             L, n, items, right = window(r)
-            desc, push, better, runs = against(items, best)
+            desc, push, better = against(items, best)
             j, fresh = 1, False
-        if cur < T2:                          # descend while nearer
-            e, pushes = runs[j]
-            ke = e.bit_length() - 1
-            length = ke - (j.bit_length() - 1)
-            if length >= max_iters - it:      # the cap falls in the run
-                n_nodes += max_iters - it
+        while cur < T2:                       # descend while nearer
+            n_nodes += 1
+            if not desc >> j & 1:
                 break
-            n_nodes += length
-            it += length
-            for lev in range(ke):             # each pushes the farther child
-                if pushes >> lev & 1:
-                    k = lev + 1
-                    far = (e >> (ke - k)) ^ 1
-                    stack.append((r << k) + far - (1 << k))
-            cur, j = (r << ke) + e - (1 << ke), e
-            if e >= 1 << n:                   # below the window
+            b = right >> j & 1
+            if push >> j & 1:
+                stack.append(2 * cur + 1 - b)
+            cur, j = 2 * cur + b, 2 * j + b
+            it += 1
+            if it >= max_iters:
+                return best, idx, (n_nodes, n_leaves), rounds[0]
+            if j >= 1 << n:                   # below the window
                 fresh = True
-                continue
-        if cur >= T2:                         # the visit ending the run
+                break
+        if fresh:
+            continue
+        if cur >= T2:                         # a leaf
             n_leaves += 1
             if better >> j & 1:
                 best, idx = items[j][1], cur - T2
-                desc, push, better, runs = against(items, best)
-        else:
-            n_nodes += 1
+                desc, push, better = against(items, best)
         if not stack:
             break
         it += 1
