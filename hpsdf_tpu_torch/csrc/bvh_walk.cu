@@ -85,6 +85,7 @@ __device__ __forceinline__ int level_of(int32_t n) { return 31 - __clz(n); }
 struct Window {
   int32_t r;            // the heap node it hangs under
   int L, n;             // r's level; its item levels (items 1 .. 2^n - 1)
+  int lim;              // items from here on are leaves, or below the window
   float x[2], y;        // (dl, dr) of an internal item, (d2, -) of a leaf
   bool inner, leaf[2];  // item lane's kind; both items' leafness
   uint32_t right;       // internal items whose right child is the nearer
@@ -117,6 +118,7 @@ struct Window {
     L = level_of(r);
     const int up = depth - L;
     n = up <= kLevels ? up + 1 : kLevels;
+    lim = 1 << (up <= kLevels ? up : kLevels);
     float4 a[2], b[2];
     float c[2][4];
 #pragma unroll
@@ -208,25 +210,33 @@ bvh_walk_kernel(const float* __restrict__ node_rows,
     }
     // descend into the nearer child while its box is nearer than the best,
     // pushing the farther one when its box is too: a visit a step, each a
-    // few bit operations on the masks (an internal item has j < 32)
-    while (cur < T2) {
-      const uint32_t bit = 1u << j;
-      ++n_nodes;
-      if (!(w.desc & bit)) break;         // the nearer box is no nearer
-      const int right = (w.right & bit) ? 1 : 0;
-      if (w.push & bit) {
-        if (lane == sp) stack = 2 * cur + 1 - right;
-        ++sp;
+    // few bit operations on the masks (an internal item has j < lim <= 32)
+    if (cur < T2) {
+      int steps = 0;
+      for (;;) {
+        const uint32_t bit = 1u << j;
+        if (!(w.desc & bit)) break;       // the nearer box is no nearer
+        const int right = (w.right >> j) & 1;
+        const bool push = w.push & bit;
+        if (push && lane == sp) stack = 2 * cur + 1 - right;
+        sp += push;
+        cur = 2 * cur + right;
+        j = 2 * j + right;
+        ++steps;
+        if (j >= w.lim || it + steps >= cap) break;
       }
-      cur = 2 * cur + right;
-      j = 2 * j + right;
-      if (++it >= cap) goto done;
-      if (j >= (1 << w.n)) {              // below the window
-        fresh = true;
-        break;
+      n_nodes += steps;
+      it += steps;
+      if (it >= cap) break;
+      if (j >= w.lim) {
+        if (cur < T2) {                   // below the window
+          fresh = true;
+          continue;
+        }
+      } else {
+        ++n_nodes;                        // the node it did not descend from
       }
     }
-    if (fresh) continue;
     if (cur >= T2) {                      // a leaf: its triangle
       ++n_leaves;
       if ((w.better >> j) & 1) {
@@ -242,7 +252,6 @@ bvh_walk_kernel(const float* __restrict__ node_rows,
     fresh = k < 0 || k >= w.n || (cur >> k) != w.r;
     if (!fresh) j = (1 << k) + (cur - (w.r << k));
   }
-done:
   if (lane == 0) {
     best_d2[i] = best;
     best_idx[i] = idx;
