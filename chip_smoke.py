@@ -3629,17 +3629,17 @@ def check_k11_heaps(pts):
     """K11 on heaps of depth 4, 5, 7 and 11 (K11_HEAPS: shallower than a
     window, one window, and depths that are no multiple of it), exact and
     at mesh_sdf's cap of 48 x depth visits, against its plain version
-    (check_bvh_capped, the exact d2 from P1) and the kernel it replaced
-    (bit for bit). Returns (max |d2 - plain|, the smallest share of walks
-    with the plain version's visit counts)."""
+    (check_bvh_capped, the exact d2 from the plain walk uncapped) and the
+    kernel it replaced (bit for bit). Returns (max |d2 - plain|, the
+    smallest share of walks with the plain version's visit counts)."""
     from hpsdf_tpu_torch.mesh import build_bvh, build_mesh, gen
-    from hpsdf_tpu_torch.mesh.tiles_sdf import closest_tri_tiles
+    from hpsdf_tpu_torch.mesh import sdf as TS
     errs, sames = [], []
     for name, sub in K11_HEAPS:
         b = build_bvh(build_mesh(*(cube_mesh(0.2) if sub is None
                                    else gen.icosphere(0.3, sub))),
                       device=pts.device)
-        exact_d2, _ = closest_tri_tiles(b.tri_rows, pts)
+        exact_d2, _ = TS.closest_bvh_plain(b, pts)
         for kind, cap in (("capped", 48 * b.depth),
                           ("exact", 4 * b.n_leaves)):
             label = f"{name} (depth {b.depth}), {kind}"

@@ -31,7 +31,9 @@ import chip_smoke as cs
 from hpsdf_tpu_torch import _kernels
 from hpsdf_tpu_torch.mesh import build_bvh, build_mesh, gen
 
-FORMS = {"W4": ("-DHPSDF_K11_WARPS=4",), "W2": ("-DHPSDF_K11_WARPS=2",)}
+FORMS = {"W4": (), "unroll": ("-DHPSDF_K11_UNROLL=1",),
+         "prefetch": ("-DHPSDF_K11_PREFETCH=1",),
+         "unroll prefetch": ("-DHPSDF_K11_UNROLL=1", "-DHPSDF_K11_PREFETCH=1")}
 
 
 def build_forms(src, prev, prof):
