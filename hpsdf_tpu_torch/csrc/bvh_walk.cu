@@ -78,34 +78,6 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int level_of(int32_t n) { return 31 - __clz(n); }
 
-#ifndef HPSDF_K11_PREFETCH
-#define HPSDF_K11_PREFETCH 0
-#endif
-#ifndef HPSDF_K11_UNROLL
-#define HPSDF_K11_UNROLL 0
-#endif
-
-// The rows of the window under heap node r, asked into L1 ahead of its
-// load (two 32-byte sectors a row).
-__device__ __forceinline__ void prefetch_window(
-    const float* node_rows, const float* tri_rows, int64_t tri_stride,
-    int32_t T2, int depth, int32_t r, int lane) {
-  const int up = depth - level_of(r);
-  const int n = up <= kLevels ? up + 1 : kLevels;
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int j = lane + 32 * s;
-    if (j >= 1 && j < (1 << n)) {
-      const int k = level_of(j);
-      const int32_t g = (r << k) + (j - (1 << k));
-      const float* row = g >= T2 ? tri_rows + (int64_t)(g - T2) * tri_stride
-                                 : node_rows + 16 * (int64_t)g;
-      asm volatile("prefetch.global.L1 [%0];" ::"l"(row));
-      asm volatile("prefetch.global.L1 [%0];" ::"l"(row + 8));
-    }
-  }
-}
-
 // One window: the items a lane holds (item lane and item 32 + lane) and the
 // warp's masks over the items, bit j for item j (heap order from 1). An
 // internal item lies on one of the window's top kLevels levels, so j < 32:
@@ -235,43 +207,12 @@ bvh_walk_kernel(const float* __restrict__ node_rows,
       w.against(best);
       j = 1;
       fresh = false;
-#if HPSDF_K11_PREFETCH
-      // the next window lies under the stack's top, or where the near
-      // chain leaves this one, if it does
-      if (sp > 0)
-        prefetch_window(node_rows, tri_rows, tri_stride, T2, depth,
-                        __shfl_sync(kFull, stack, sp - 1), lane);
-      if (w.lim == (1 << w.n)) {
-        int e = 1;
-        while (e < w.lim && ((w.desc >> e) & 1))
-          e = 2 * e + ((w.right >> e) & 1);
-        if (e >= w.lim)
-          prefetch_window(node_rows, tri_rows, tri_stride, T2, depth,
-                          (w.r << w.n) + (e - (1 << w.n)), lane);
-      }
-#endif
     }
     // descend into the nearer child while its box is nearer than the best,
     // pushing the farther one when its box is too: a visit a step, each a
     // few bit operations on the masks (an internal item has j < lim <= 32)
     if (cur < T2) {
       int steps = 0;
-#if HPSDF_K11_UNROLL
-      bool go = true;
-#pragma unroll
-      for (int q = 0; q < kLevels; ++q) {
-        const uint32_t bit = 1u << (j & 31);
-        go = go && (w.desc & bit);
-        const int right = (w.right >> (j & 31)) & 1;
-        const bool push = go && (w.push & bit);
-        stack = push && lane == sp ? 2 * cur + 1 - right : stack;
-        sp += push;
-        cur = go ? 2 * cur + right : cur;
-        j = go ? 2 * j + right : j;
-        steps += go;
-        go = go && j < w.lim && it + steps < cap;
-      }
-#else
       for (;;) {
         const uint32_t bit = 1u << j;
         if (!(w.desc & bit)) break;       // the nearer box is no nearer
@@ -284,7 +225,6 @@ bvh_walk_kernel(const float* __restrict__ node_rows,
         ++steps;
         if (j >= w.lim || it + steps >= cap) break;
       }
-#endif
       n_nodes += steps;
       it += steps;
       if (it >= cap) break;

@@ -31,9 +31,7 @@ import chip_smoke as cs
 from hpsdf_tpu_torch import _kernels
 from hpsdf_tpu_torch.mesh import build_bvh, build_mesh, gen
 
-FORMS = {"W4": (), "unroll": ("-DHPSDF_K11_UNROLL=1",),
-         "prefetch": ("-DHPSDF_K11_PREFETCH=1",),
-         "unroll prefetch": ("-DHPSDF_K11_UNROLL=1", "-DHPSDF_K11_PREFETCH=1")}
+FORMS = {f"W{w}": (f"-DHPSDF_K11_WARPS={w}",) for w in (1, 2, 4, 8)}
 
 
 def build_forms(src, prev, prof):
