@@ -125,11 +125,10 @@ icosphere(0.3, 5) exact against P1 and at mesh_sdf's default cap against
 its plain version (visit counts equal on K11_VISITS_SAME of the walks), on
 heaps of depth 4, 5, 7 and 11 (K11_HEAPS) and at 1.31M at the cap against
 its plain version, and everywhere against the kernel it replaced
-(csrc/check/bvh_walk_reference.cu) bit for bit; K10 split by stage (its source built alone with
-HPSDF_K10_STAGE 1 and 2: up to the cluster and the subcluster selection),
-and at the fit's largest batch in CUDA graphs, the smaller of two turns;
-its bound
-on its own work (the kernel's per-point counts) and on the plain
+(csrc/check/bvh_walk_reference.cu) bit for bit; K10 split by stage (its
+source built alone with HPSDF_K10_STAGE 1 and 2: up to the cluster and the
+subcluster selection), and at the fit's largest batch in CUDA graphs, the
+smaller of two turns; its bound on its own work (the kernel's per-point counts) and on the plain
 version's; K10 and P1 at 32k (also at the slice fit's largest batch), 82k
 and 1.31M triangles (the crossover), and K11 and the kernel it replaced
 in CUDA graphs beside its bound and plain version, a line a shape (32k

@@ -22,10 +22,10 @@
 //
 // What bounds it. Not bytes or arithmetic (chip_smoke.py prices both on
 // the rows the plain walks read: microseconds), but the walk's chain of
-// dependent loads: the next node is known only after the distances of this
-// one. Walked a thread a point, every visit waited on one load from L2 or
-// device memory (~0.6 us a visit on the H100), 32 walks of different
-// lengths shared a warp, and 10,240 points filled 80 blocks.
+// dependent steps: the next node is known only after the distances of this
+// one. Walked a thread a point (the kernel this one replaces), every visit
+// waited on one load from L2 or device memory, ~0.3 us on the H100, and
+// 32 walks of different lengths shared a warp.
 //
 // The design. A visit's decision depends only on the node's two child-box
 // distances and on the best, and the best changes only at a leaf. So a
@@ -40,20 +40,24 @@
 // warp turns them into bit masks by ballots (32 bits for the internal
 // items, which lie on the top five levels, 64 for the leaves): which child
 // is nearer, and, against the best, which nodes descend, which push, which
-// leaves improve.
-// Then every lane replays, visit by visit, the sequential walk's decisions
-// by testing item j's bits, updating the best at a leaf in walk order (a
-// shuffle of its value, and the masks again), until the walk leaves the
-// window: it descends below it, or pops to a node outside it, and the next
-// round loads the window under that node. The greedy seed descends the
-// same way, a window a round. The stack lives in the warp's lanes, an entry
-// a lane (a heap of depth d stacks at most d entries), read back with a
-// shuffle: no local frame, no shared memory. So a walk pays one dependent
-// round trip a window (on icosphere(0.3, 5) about 8 visits a round)
-// instead of one a visit, a visit costs a few integer operations, and its
+// leaves improve. Then the warp replays the sequential walk's visits in
+// order from the bits, a descent a few bit operations a step, updating the
+// best at a leaf in walk order (a shuffle of its value, and the masks
+// again), until the walk leaves the window: it descends below it, or pops
+// to a node outside it, and the next round loads the window under that
+// node. The greedy seed descends the same way, a window a round. The stack
+// lives in the warp's lanes, an entry a lane (a heap of depth d stacks at
+// most d entries), read back with a shuffle: no local frame, no shared
+// memory. So a walk pays one dependent round trip a window (on
+// icosphere(0.3, 5) about 8 visits a round) instead of one a visit, and its
 // visits are the thread-a-point walk's own, decision for decision: the
 // same distances in the same order, hence the same results and visit
-// counts.
+// counts. What bounds it now: alone, a round (~1,000 cycles: the loads'
+// L2 latency, then the distances, the cascade's branches diverging) and
+// the replay's dependent chain (~170 cycles a visit); in a batch, issue.
+// Five levels, four walks a block and the replay as written were chosen
+// by timing forms on the H100 (PERF.md); an unrolled descent, a replay of
+// whole descent runs and an L1 prefetch of the next window were slower.
 //
 // Numerics. Built without --use_fast_math (the cascade's 1e-30 guards).
 // The triangle distance is P1's, which differs from the plain cascade by
@@ -68,10 +72,7 @@
 
 namespace {
 
-#ifndef HPSDF_K11_WARPS
-#define HPSDF_K11_WARPS 4
-#endif
-constexpr int kWarps = HPSDF_K11_WARPS;   // walks a block, a warp each
+constexpr int kWarps = 4;                // walks a block, a warp each
 constexpr int kLevels = 5;               // internal heap levels a window
 constexpr int kMaxStack = 32;            // an entry a lane: depth <= 31
 constexpr unsigned kFull = 0xffffffffu;
@@ -81,7 +82,7 @@ __device__ __forceinline__ int level_of(int32_t n) { return 31 - __clz(n); }
 // One window: the items a lane holds (item lane and item 32 + lane) and the
 // warp's masks over the items, bit j for item j (heap order from 1). An
 // internal item lies on one of the window's top kLevels levels, so j < 32:
-// its masks are the first lane's ballots alone.
+// its masks are one ballot of the lanes' first items.
 struct Window {
   int32_t r;            // the heap node it hangs under
   int L, n;             // r's level; its item levels (items 1 .. 2^n - 1)

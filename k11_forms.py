@@ -31,7 +31,7 @@ import chip_smoke as cs
 from hpsdf_tpu_torch import _kernels
 from hpsdf_tpu_torch.mesh import build_bvh, build_mesh, gen
 
-FORMS = {f"W{w}": (f"-DHPSDF_K11_WARPS={w}",) for w in (1, 2, 4, 8)}
+FORMS = {"W4": ()}
 
 
 def build_forms(src, prev, prof):
@@ -91,6 +91,80 @@ def launcher(fn, bvh, rows, pts, cap, with_stats=False):
     return run
 
 
+PROFILE_PATCHES = (
+    ("__device__ __forceinline__ int level_of(int32_t n) { return 31 - "
+     "__clz(n); }",
+     "__device__ __forceinline__ int level_of(int32_t n) { return 31 - "
+     "__clz(n); }\n__device__ unsigned long long k11_prof[12];\n"
+     "#define FORCE_F(v) asm volatile(\"\" :: \"f\"(v))\n"
+     "#define FORCE_R(v) asm volatile(\"\" :: \"r\"(v))"),
+    ("  uint64_t better;      // leaves: d2 < best",
+     "  uint64_t better;      // leaves: d2 < best\n"
+     "  long long tl = 0, tc = 0, tm = 0, ta = 0;"),
+    ("  __device__ __forceinline__ void against(float best) {\n",
+     "  __device__ __forceinline__ void against(float best) {\n"
+     "    long long t0 = clock64();\n"),
+    ("<< 32);\n  }",
+     "<< 32);\n    FORCE_R(desc); FORCE_R(push); "
+     "FORCE_R((uint32_t)better);\n    ta += clock64() - t0;\n  }"),
+    ("    r = root;\n", "    long long t0 = clock64();\n    r = root;\n"),
+    ("    x[0] = x[1] = y = 0.f;",
+     "    if (leaf[0] || inner) { FORCE_F(a[0].x); FORCE_F(b[0].w); "
+     "FORCE_F(c[0][0]); }\n    if (leaf[1]) { FORCE_F(a[1].x); "
+     "FORCE_F(b[1].w); FORCE_F(c[1][0]); }\n    long long t1 = clock64();\n"
+     "    tl += t1 - t0;\n    x[0] = x[1] = y = 0.f;"),
+    ("    right = __ballot_sync(kFull, inner && !(x[0] <= y));",
+     "    FORCE_F(x[0]); FORCE_F(x[1]); FORCE_F(y);\n"
+     "    long long t2 = clock64();\n    tc += t2 - t1;\n"
+     "    right = __ballot_sync(kFull, inner && !(x[0] <= y));\n"
+     "    FORCE_R(right);\n    tm += clock64() - t2;"),
+    ("  Window w;\n",
+     "  Window w;\n  long long t_start = clock64(), t_seed = 0, pops = 0, "
+     "rounds = 0;\n"),
+    ("  float best = w.value(j);",
+     "  t_seed = clock64() - t_start;\n  float best = w.value(j);"),
+    ("    if (fresh) {\n", "    if (fresh) {\n      ++rounds;\n"),
+    ("    --sp;                                 // pop",
+     "    --sp;\n    ++pops;"),
+    ("  if (lane == 0) {\n    best_d2[i] = best;",
+     "  if (lane == 0) {\n    unsigned long long v[12] = {\n"
+     "      (unsigned long long)(clock64() - t_start),\n"
+     "      (unsigned long long)t_seed, (unsigned long long)w.tl,\n"
+     "      (unsigned long long)w.tc, (unsigned long long)w.tm,\n"
+     "      (unsigned long long)w.ta, (unsigned long long)pops,\n"
+     "      (unsigned long long)rounds,\n"
+     "      (unsigned long long)(n_nodes + n_leaves), 1ull, 0ull, 0ull};\n"
+     "    for (int q = 0; q < 10; ++q) atomicAdd(&k11_prof[q], v[q]);\n"
+     "    best_d2[i] = best;"))
+PROFILE_ENTRY = """
+extern "C" int hpsdf_bvh_walk_profile(unsigned long long* out) {
+  cudaDeviceSynchronize();
+  cudaMemcpyFromSymbol(out, k11_prof, sizeof(k11_prof));
+  unsigned long long zero[12] = {0};
+  cudaMemcpyToSymbol(k11_prof, zero, sizeof(k11_prof));
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def instrument(src, out):
+    """A copy of bvh_walk.cu at ``out`` with clock64 counters a warp (the
+    cycles in all, in the seed, in a window's loads until their rows
+    arrive, its distances, its right mask, its best-dependent masks; its
+    pops, rounds and rows), added to a device array that
+    hpsdf_bvh_walk_profile reads and clears. Each phase ends on an empty
+    asm that uses its results, so that its work stays inside."""
+    with open(src) as fh:
+        text = fh.read()
+    for old, new in PROFILE_PATCHES:
+        if old not in text:
+            raise RuntimeError(f"instrument: {old!r} not in {src}")
+        text = text.replace(old, new, 1)
+    with open(out, "w") as fh:
+        fh.write(text + PROFILE_ENTRY)
+    return out
+
+
 def profile(prof, bvh, pts, cap):
     """The instrumented form's clock64 counters over one launch, a warp's
     mean: cycles in all, in window loads (and their masks), in the seed,
@@ -98,10 +172,10 @@ def profile(prof, bvh, pts, cap):
     launcher(prof.hpsdf_bvh_walk, bvh, bvh.vertex_rows, pts, cap)()
     out = (ctypes.c_ulonglong * 12)()
     prof.hpsdf_bvh_walk_profile(out)
-    warps = max(out[10], 1)
+    warps = max(out[9], 1)
     return dict(zip(("cycles", "seed", "loads", "distances", "right",
-                     "masks", "iterations", "pops", "rounds", "rows"),
-                    [round(out[k] / warps, 1) for k in range(10)]))
+                     "masks", "pops", "rounds", "rows"),
+                    [round(out[k] / warps, 1) for k in range(9)]))
 
 
 def main():
@@ -109,9 +183,9 @@ def main():
     ap.add_argument("--out", default="chiprun_out/k11_forms.json")
     ap.add_argument("--prev", action="append",
                     help="another bvh_walk.cu to build and time beside")
-    ap.add_argument("--prof", default=None,
-                    help="a bvh_walk.cu with clock64 counters "
-                    "(hpsdf_bvh_walk_profile) to run once a case")
+    ap.add_argument("--prof", action="store_true",
+                    help="also run an instrumented copy of the source "
+                    "(instrument) once a case")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k11_forms.py: no CUDA device", file=sys.stderr)
@@ -119,7 +193,10 @@ def main():
     smi = cs.nvidia_smi()
     src = os.path.join(os.path.dirname(_kernels.__file__), "csrc",
                        "bvh_walk.cu")
-    libs, ptxas = build_forms(src, args.prev, args.prof)
+    os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
+    prof_src = instrument(src, os.path.join(
+        _kernels.BUILD_DIR, "bvh_walk_prof.cu")) if args.prof else None
+    libs, ptxas = build_forms(src, args.prev, prof_src)
     prof = libs.pop("prof", None)
     ref = _kernels.load_check().hpsdf_bvh_walk_reference
     print(smi, flush=True)

@@ -331,3 +331,35 @@ def test_bvh_limits_have_their_own_messages():
         TS._bvh_check(2 ** 31, 31)
     with pytest.raises(ValueError, match="depth 32 needs a stack of 33"):
         TS._bvh_check(1024, 32)
+
+
+def test_chip_smoke_cube_is_the_tests_cube():
+    """chip_smoke.py's depth-4 heap for K11 is built from this cube."""
+    import chip_smoke
+    v, f = chip_smoke.cube_mesh(0.2)
+    v2, f2 = cube_mesh(half=0.2)
+    np.testing.assert_array_equal(v, v2)
+    np.testing.assert_array_equal(f, f2)
+    bvh = TM.build_bvh(TM.build_mesh(v, f), device="cpu")
+    assert bvh.depth == 4
+
+
+def test_chip_smoke_bvh_bounds_count_the_plain_walks(ico):
+    """K11's bound in chip_smoke.py: two box distances a node row read and
+    a cascade a triangle row read, against the bytes of the points, the
+    outputs and each row read once."""
+    import chip_smoke as cs
+    _, tb = ico
+    pts = torch.as_tensor(_pts(64, seed=5))
+    _, _, vis, seen = TS.closest_bvh_plain(tb, pts, None, with_stats=True)
+    bound, kind, ops_ms, bytes_ms = cs.bvh_bounds(tb, pts, vis, seen)
+    nodes, leaves = vis.double().sum(dim=0).tolist()
+    want_ops = (nodes * 2 * cs.BOX_OPS + leaves * cs.P1_OPS_PER_PAIR) \
+        / cs.F32_PEAK * 1e3
+    T2 = tb.n_leaves
+    want_bytes = (64 * 20 + int(seen[:T2].sum()) * 48
+                  + int(seen[T2:].sum()) * 36) / cs.HBM_RATE * 1e3
+    assert ops_ms == pytest.approx(want_ops, rel=1e-12)
+    assert bytes_ms == pytest.approx(want_bytes, rel=1e-12)
+    assert bound == max(ops_ms, bytes_ms)
+    assert kind == ("operations" if ops_ms >= bytes_ms else "bytes")
