@@ -101,12 +101,14 @@ PROFILE_PATCHES = (
     ("  uint64_t better;      // leaves: d2 < best",
      "  uint64_t better;      // leaves: d2 < best\n"
      "  long long tl = 0, tc = 0, tm = 0, ta = 0;"),
-    ("  __device__ __forceinline__ void against(float best) {\n",
-     "  __device__ __forceinline__ void against(float best) {\n"
-     "    long long t0 = clock64();\n"),
-    ("<< 32);\n  }",
-     "<< 32);\n    FORCE_R(desc); FORCE_R(push); "
-     "FORCE_R((uint32_t)better);\n    ta += clock64() - t0;\n  }"),
+    ("    desc = __ballot_sync(kFull, inner && fminf(x[0], y) < best);",
+     "    long long t0 = clock64();\n"
+     "    desc = __ballot_sync(kFull, inner && fminf(x[0], y) < best);"),
+    (("<< 32);\n  }", "run = e | (int32_t)(pushes << 8);\n  }"),
+     ("<< 32);\n    FORCE_R(desc); FORCE_R(push); "
+      "FORCE_R((uint32_t)better);\n    ta += clock64() - t0;\n  }",
+      "run = e | (int32_t)(pushes << 8);\n    FORCE_R(run); "
+      "FORCE_R((uint32_t)better);\n    ta += clock64() - t0;\n  }")),
     ("    r = root;\n", "    long long t0 = clock64();\n    r = root;\n"),
     ("    x[0] = x[1] = y = 0.f;",
      "    if (leaf[0] || inner) { FORCE_F(a[0].x); FORCE_F(b[0].w); "
@@ -124,8 +126,9 @@ PROFILE_PATCHES = (
     ("  float best = w.value(j);",
      "  t_seed = clock64() - t_start;\n  float best = w.value(j);"),
     ("    if (fresh) {\n", "    if (fresh) {\n      ++rounds;\n"),
-    ("    --sp;                                 // pop",
-     "    --sp;\n    ++pops;"),
+    (("    --sp;                                 // pop",
+      "    if (rest == 0) --sp;"),
+     ("    --sp;\n    ++pops;", "    if (rest == 0) --sp;\n    ++pops;")),
     ("  if (lane == 0) {\n    best_d2[i] = best;",
      "  if (lane == 0) {\n    unsigned long long v[12] = {\n"
      "      (unsigned long long)(clock64() - t_start),\n"
@@ -157,9 +160,12 @@ def instrument(src, out):
     with open(src) as fh:
         text = fh.read()
     for old, new in PROFILE_PATCHES:
-        if old not in text:
-            raise RuntimeError(f"instrument: {old!r} not in {src}")
-        text = text.replace(old, new, 1)
+        olds, news = (old, new) if isinstance(old, tuple) else ((old,),
+                                                                  (new,))
+        hit = [k for k, o in enumerate(olds) if o in text]
+        if not hit:
+            raise RuntimeError(f"instrument: {olds!r} not in {src}")
+        text = text.replace(olds[hit[0]], news[hit[0]], 1)
     with open(out, "w") as fh:
         fh.write(text + PROFILE_ENTRY)
     return out
