@@ -92,26 +92,13 @@ struct Window {
   uint32_t right;       // internal items whose right child is the nearer
   uint32_t desc, push;  // internal: nearer box < best; farther box < best
   uint64_t better;      // leaves: d2 < best
-  int32_t run;          // item lane's descent run: its end | pushes << 8
 
-  // the masks that depend on the best (again whenever the best drops), and
-  // each internal item's descent run under them: from item j the walk
-  // descends into the nearer child while that box is nearer than the best,
-  // to the item e where it stops (a leaf, a node it does not descend from,
-  // or, at lim or past it, the child below the window it leaves for); the
-  // run's nodes that push their farther child set their level's bit
-  __device__ __forceinline__ void against(float best, int lane) {
+  // the masks that depend on the best (again whenever the best drops)
+  __device__ __forceinline__ void against(float best) {
     desc = __ballot_sync(kFull, inner && fminf(x[0], y) < best);
     push = __ballot_sync(kFull, inner && fmaxf(x[0], y) < best);
     better = (uint64_t)__ballot_sync(kFull, leaf[0] && x[0] < best) |
              ((uint64_t)__ballot_sync(kFull, leaf[1] && x[1] < best) << 32);
-    int e = lane;
-    uint32_t pushes = 0;
-    while (e < lim && ((desc >> e) & 1)) {
-      pushes |= ((push >> e) & 1) << level_of(e);
-      e = 2 * e + ((right >> e) & 1);
-    }
-    run = e | (int32_t)(pushes << 8);
   }
 
   // item j's first value, in every lane
@@ -210,11 +197,7 @@ bvh_walk_kernel(const float* __restrict__ node_rows,
   int32_t idx = cur - T2;
   int32_t n_nodes = depth, n_leaves = 1;
 
-  // The stack holds a record a run that pushed: the run's end (a heap id)
-  // and its pushing nodes' levels, the farther children still to visit;
-  // the deepest is the next to pop. Lane t holds record t.
-  int32_t rec_end = 0;
-  uint32_t rec_levels = 0;
+  int32_t stack = 0;                      // lane t: entry t
   int sp = 0;
   cur = 1;
   bool fresh = true;                      // cur needs its window
@@ -222,31 +205,31 @@ bvh_walk_kernel(const float* __restrict__ node_rows,
     if (fresh) {
       w.load(node_rows, tri_rows, tri_stride, T2, depth, cur, px, py, pz,
              lane);
-      w.against(best, lane);
+      w.against(best);
       j = 1;
       fresh = false;
     }
-    if (cur < T2) {                       // item j's descent run
-      const int32_t info = __shfl_sync(kFull, w.run, j);
-      const int e = info & 0x7f, ke = level_of(e);
-      const uint32_t pushes = (uint32_t)info >> 8;
-      const int len = ke - level_of(j);   // a visit a node it descends from
-      if (len >= cap - it) {              // the cap falls inside the run
-        n_nodes += cap - it;
-        break;
+    // descend into the nearer child while its box is nearer than the best,
+    // pushing the farther one when its box is too: a visit a step, each a
+    // few bit operations on the masks (an internal item has j < lim <= 32)
+    if (cur < T2) {
+      int steps = 0;
+      for (;;) {
+        const uint32_t bit = 1u << j;
+        if (!(w.desc & bit)) break;       // the nearer box is no nearer
+        const int right = (w.right >> j) & 1;
+        const bool push = w.push & bit;
+        if (push && lane == sp) stack = 2 * cur + 1 - right;
+        sp += push;
+        cur = 2 * cur + right;
+        j = 2 * j + right;
+        ++steps;
+        if (j >= w.lim || it + steps >= cap) break;
       }
-      n_nodes += len;
-      it += len;
-      cur = (w.r << ke) + (e - (1 << ke));
-      if (pushes != 0) {
-        if (lane == sp) {
-          rec_end = cur;
-          rec_levels = pushes << w.L;
-        }
-        ++sp;
-      }
-      j = e;
-      if (e >= w.lim) {
+      n_nodes += steps;
+      it += steps;
+      if (it >= cap) break;
+      if (j >= w.lim) {
         if (cur < T2) {                   // below the window
           fresh = true;
           continue;
@@ -260,18 +243,12 @@ bvh_walk_kernel(const float* __restrict__ node_rows,
       if ((w.better >> j) & 1) {
         best = w.value(j);
         idx = cur - T2;
-        w.against(best, lane);
+        w.against(best);
       }
     }
     if (sp == 0 || ++it >= cap) break;    // the stack is empty, or the cap
-    // pop the deepest farther child still to visit of the top record
-    const int32_t end = __shfl_sync(kFull, rec_end, sp - 1);
-    const uint32_t levels = __shfl_sync(kFull, rec_levels, sp - 1);
-    const int l = level_of((int32_t)levels);
-    cur = (end >> (level_of(end) - l - 1)) ^ 1;
-    const uint32_t rest = levels & ~(1u << l);
-    if (lane == sp - 1) rec_levels = rest;
-    if (rest == 0) --sp;
+    --sp;                                 // pop
+    cur = __shfl_sync(kFull, stack, sp);
     const int k = level_of(cur) - w.L;    // still inside the window?
     fresh = k < 0 || k >= w.n || (cur >> k) != w.r;
     if (!fresh) j = (1 << k) + (cur - (w.r << k));

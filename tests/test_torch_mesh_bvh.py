@@ -167,12 +167,11 @@ def window_walk(bvh, p, max_iters=None, levels=WINDOW_LEVELS):
     computed at once (the children's boxes of a node, the triangle of a
     leaf, from ``vertex_rows``) and turned into masks, bit j for item j:
     the nodes whose right child is the nearer, and, against the best, the
-    nodes that descend, those that push and the leaves that improve, and
-    from them each node's descent run (again whenever the best drops). The
-    walk's visits are replayed a run at a time, a stack record a run that
-    pushes, until the walk descends below the window or pops to a node
-    outside it, and the next window is the one under that node. Returns
-    (d2, index, (node rows, triangle rows), rounds)."""
+    nodes that descend, those that push and the leaves that improve (again
+    whenever the best drops). The walk's visits are replayed from the bits,
+    until the walk descends below the window or pops to a node outside it,
+    and the next window is the one under that node. Returns (d2, index,
+    (node rows, triangle rows), rounds)."""
     node_rows, rows = bvh.node_rows, bvh.vertex_rows
     T2, depth = bvh.n_leaves, bvh.depth
     max_iters = 4 * T2 if max_iters is None else max_iters
@@ -183,8 +182,7 @@ def window_walk(bvh, p, max_iters=None, levels=WINDOW_LEVELS):
         return sum(1 << j for j, f in enumerate(flags, start=1) if f)
 
     def window(r):
-        """(L, n, lim, item values (inner, dl, dr) or (inner, d2, 0), right
-        mask); items from lim on are leaves or below the window"""
+        """(L, n, item values (dl, dr) or (d2, 0), right mask)"""
         L = r.bit_length() - 1
         n = min(levels, depth - L) + (depth - L <= levels)
         j = torch.arange(1, 1 << n)
@@ -199,30 +197,17 @@ def window_walk(bvh, p, max_iters=None, levels=WINDOW_LEVELS):
         rounds[0] += 1
         items = list(zip(inner.tolist(), dl.tolist(), dr.tolist()))
         right = bits(i and not a <= b for i, a, b in items)
-        return L, n, 1 << min(levels, depth - L), [None] + items, right
+        return L, n, [None] + items, right
 
-    def against(items, lim, best):
-        """(better mask, descent runs): from internal item j the walk
-        descends into the nearer child while that box is nearer than the
-        best, to the item e where it stops (a leaf, a node it does not
-        descend from, or, at lim or past it, the child below the window);
-        the run's nodes that push their farther child set their level's
-        bit"""
-        desc = bits(i and min(a, b) < best for i, a, b in items[1:])
-        push = bits(i and max(a, b) < best for i, a, b in items[1:])
-        better = bits(not i and a < best for i, a, b in items[1:])
-        runs = {}
-        for j in range(1, min(len(items), lim)):
-            e, pushes = j, 0
-            while e < lim and desc >> e & 1:
-                pushes |= (push >> e & 1) << (e.bit_length() - 1)
-                e = 2 * e + (right >> e & 1)
-            runs[j] = e, pushes
-        return better, runs
+    def against(items, best):
+        """(descend, push, better) masks"""
+        return (bits(i and min(a, b) < best for i, a, b in items[1:]),
+                bits(i and max(a, b) < best for i, a, b in items[1:]),
+                bits(not i and a < best for i, a, b in items[1:]))
 
     cur = 1                                   # the seed, a window a round
     while True:
-        L, n, lim, items, right = window(cur)
+        L, n, items, right = window(cur)
         j = 1
         while cur < T2 and j < (1 << n):
             b = right >> j & 1
@@ -232,52 +217,42 @@ def window_walk(bvh, p, max_iters=None, levels=WINDOW_LEVELS):
     best, idx = items[j][1], cur - T2
     n_nodes, n_leaves = depth, 1
 
-    # the walk, a descent run a step; at least one visit, as the plain
-    # loop. The stack holds a record a run that pushed: [the run's end, its
-    # pushing nodes' levels still to pop]; the deepest pops first.
+    # the walk; at least one visit, as the plain loop
     max_iters = max(max_iters, 1)
-    records, it, cur, fresh = [], 0, 1, True
+    stack, it, cur, fresh = [], 0, 1, True
     while True:
         if fresh:                             # a new window under cur
             r = cur
-            L, n, lim, items, right = window(r)
-            better, runs = against(items, lim, best)
+            L, n, items, right = window(r)
+            desc, push, better = against(items, best)
             j, fresh = 1, False
-        if cur < T2:                          # item j's descent run
-            e, pushes = runs[j]
-            ke = e.bit_length() - 1
-            length = ke - (j.bit_length() - 1)
-            if length >= max_iters - it:      # the cap falls in the run
-                n_nodes += max_iters - it
+        while cur < T2:                       # descend while nearer
+            n_nodes += 1
+            if not desc >> j & 1:
                 break
-            n_nodes += length
-            it += length
-            cur, j = (r << ke) + e - (1 << ke), e
-            if pushes:
-                records.append([cur, pushes << L])
-            if e >= lim:
-                if cur < T2:                  # below the window
-                    fresh = True
-                    continue
-            else:
-                n_nodes += 1                  # the node it did not descend
+            b = right >> j & 1
+            if push >> j & 1:
+                stack.append(2 * cur + 1 - b)
+            cur, j = 2 * cur + b, 2 * j + b
+            it += 1
+            if it >= max_iters:
+                return best, idx, (n_nodes, n_leaves), rounds[0]
+            if j >= 1 << n:                   # below the window
+                fresh = True
+                break
+        if fresh:
+            continue
         if cur >= T2:                         # a leaf
             n_leaves += 1
             if better >> j & 1:
                 best, idx = items[j][1], cur - T2
-                better, runs = against(items, lim, best)
-        if not records:
+                desc, push, better = against(items, best)
+        if not stack:
             break
         it += 1
         if it >= max_iters:
             break
-        end, lv = records[-1]
-        lev = lv.bit_length() - 1             # the deepest pushing node
-        cur = (end >> (end.bit_length() - 2 - lev)) ^ 1
-        if lv & ~(1 << lev):
-            records[-1][1] = lv & ~(1 << lev)
-        else:
-            records.pop()
+        cur = stack.pop()
         k = cur.bit_length() - 1 - L          # still inside the window?
         fresh = not (0 <= k < n and cur >> k == r)
         if not fresh:
