@@ -128,11 +128,12 @@ its plain version, and everywhere against the kernel it replaced
 (csrc/check/bvh_walk_reference.cu) bit for bit; K10 split by stage (its
 source built alone with HPSDF_K10_STAGE 1 and 2: up to the cluster and the
 subcluster selection), and at the fit's largest batch in CUDA graphs, the
-smaller of two turns; its bound on its own work (the kernel's per-point counts) and on the plain
-version's; K10 and P1 at 32k (also at the slice fit's largest batch), 82k
-and 1.31M triangles (the crossover), and K11 and the kernel it replaced
-in CUDA graphs beside its bound and plain version, a line a shape (32k
-capped and exact, 1.31M capped, the longest walk alone).
+smaller of two turns; its bound on its own work (the kernel's per-point
+counts) and on the plain version's; K10 and P1 at 32k (also at the slice
+fit's largest batch), 82k and 1.31M triangles (the crossover), and K11 and
+the kernel it replaced in CUDA graphs beside its bound and plain version,
+a line a shape (32k capped and exact, 1.31M capped, the longest walk
+alone).
 
 Phases, one line each: device, build, ptxas, mesh, P1 vs plain, the slice,
 P1 at the fit batch, K1 vs plain, times, G vs plain, the reference-default
@@ -3678,8 +3679,8 @@ def k11_times(bvh_ico, bvh, pts, smi, walks):
     mesh at its cap, and the longest walk at 32k (the point with the most
     visits at the cap, and exact) launched by itself. ``walks``: {case:
     (bvh, cap, the plain version's visits and rows read, its ms)} for the
-    first three (the exact case's plain run is made here). Prints a line a
-    case. Returns {case: its numbers}."""
+    two capped batches; the exact batch's plain run and the longest walks'
+    are made here. Prints a line a case. Returns {case: its numbers}."""
     from hpsdf_tpu_torch.mesh import sdf as TS
     out = {}
     cases = {k: (b, c, pts, vis, seen, plain)
@@ -3753,7 +3754,9 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, seed=21):
     memory) and, through signed_distance_hybrid(atol=0) at the default
     widths and at 128 (escalating to 512), P1's exact distances; K11
     on icosphere(0.3, 5) (bench.py's bvh_signed_distance_10k) exact against
-    P1 and at mesh_sdf's default cap against its plain version; a tree
+    P1 and at mesh_sdf's default cap against its plain version, on the
+    small heaps (check_k11_heaps) and at 1.31M at its cap, everywhere bit
+    for bit against the kernel it replaced, and timed (k11_times); a tree
     fitted through mesh_sdf's default (K10) held to P1 near the surface and
     split by phase in a second build (F, K10 inside it, the sign, the
     projection, the host topology); K10 split by stage and at the fit's

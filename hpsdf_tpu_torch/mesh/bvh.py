@@ -69,11 +69,11 @@ class BVH:
     def vertex_rows(self) -> torch.Tensor:
         """The vertex lanes of ``tri_rows`` as a contiguous (T2, 12) f32
         copy, 48 bytes a row, made at first use and kept: the rows the hybrid
-        prune's cascade (kernel K10) reads, lanes 0..8 of every candidate,
-        which in a 128-byte packed row cost two 32-byte sectors and here come
-        in whole 128-byte lines (32 rows of a subcluster). Row indices are
-        ``tri_rows``'; K10 and its plain version give the same results on
-        either."""
+        prune's cascade (kernel K10) and the BVH walk's leaves (kernel K11)
+        read, lanes 0..8 of every triangle, which in a 128-byte packed row
+        cost two 32-byte sectors and here come in whole 128-byte lines (32
+        consecutive rows). Row indices are ``tri_rows``'; the kernels and
+        their plain versions give the same results on either."""
         return self.tri_rows[:, :12].contiguous()
 
 

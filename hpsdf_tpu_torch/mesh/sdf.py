@@ -227,10 +227,10 @@ def _bvh_launch(bvh: BVH, p, max_iters=None, with_stats=False):
     _check_pts(p, bvh.node_rows, bvh.tri_rows)
     if p.device.type != "cuda":
         raise ValueError(f"closest_bvh: unsupported device {p.device}")
+    _bvh_check(bvh.n_leaves, bvh.depth)
     rows, node_rows = bvh.vertex_rows, bvh.node_rows
     _check_rows("closest_bvh", rows)
     T2 = rows.shape[0]
-    _bvh_check(T2, bvh.depth)
     if not node_rows.is_contiguous() or node_rows.shape[1] != 16 \
             or node_rows.data_ptr() % 16:
         raise ValueError("closest_bvh: node_rows must be contiguous (T2, 16)")
