@@ -135,17 +135,37 @@ the kernel it replaced in CUDA graphs beside its bound and plain version,
 a line a shape (32k capped and exact, 1.31M capped, the longest walk
 alone).
 
+[sharding] drives the port's sharded paths (hpsdf_tpu_torch.parallel) at
+one NCCL rank on the card, at the main path's sizes, with the counts set
+to 0 before and read after: shard_query at 2^20 points and shard_trace at
+1024^2 rays through K4 and K3 on the slice tree, bit for bit the
+one-device calls; build_octree(fit_mesh=) through the slice's mesh F, bit
+for bit the slice tree; enforce_continuity(mesh=), the row-sharded CG (K9
+in its partial mode and K9u split in two launches, the collectives
+between them), on both continuity trees within 1e-10 of [continuity]'s
+solves and their counts within one; fit_to_depth(mesh=) for 3 steps at
+1080p, losses within 1e-4 of the one-device run. It holds K9's partial
+mode and K9u's two launches to their plain versions at the 260k row
+(the partial mode at one rank also to K9 bit for bit) and times them in
+CUDA graphs beside their bounds, an iteration of the sharded CG (in a
+CUDA graph and as the solve enqueues it) and the sharded reads' host
+cost over the unsharded ones. Then two gloo ranks on the one card, in
+processes of their own (NCCL refuses two ranks on one device), repeat
+the checks at small sizes, with the partial modes on each rank's real
+row block.
+
 Phases, one line each: device, build, ptxas, mesh, P1 vs plain, the slice,
 P1 at the fit batch, K1 vs plain, times, G vs plain, the reference-default
 fit, K2/K5 vs plain, K3 vs plain (three lines a tree: checks and rays,
 times and bound, serial floor), K4, the render path, K2/K5 at the main
 path's shapes, the degrees, the backward kernels, inverse rendering, the
 continuity post-process (three lines a size: checks, the run and its
-split, times), the mesh at scale (K10, K11), each phase's seconds; then
-one JSON line with the kernels
-(K2/K5's launches also split into values and normals), the fit splits and
-the continuity runs, the card's name and power limit as nvidia-smi prints
-them, and the final JSON line
+split, times), the mesh at scale (K10, K11), the sharded paths (three
+lines: one rank's checks, the new modes and times, two ranks), each
+phase's seconds; then one JSON line with the kernels
+(K2/K5's launches also split into values and normals), the fit splits,
+the continuity runs and the sharded runs, the card's name and power limit
+as nvidia-smi prints them, and the final JSON line
 {"ok": true, "device": {...}}. Any failed check raises and the exit code is
 non-zero. Without a CUDA device it exits 1 and prints no result.
 """
@@ -157,6 +177,7 @@ import importlib
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import time
@@ -402,11 +423,15 @@ def counters():
     wrapper counts all its launches and, apart, those of K5's normals, of
     its raw gradient and of the fused mode; G's backward's all its launches
     and, apart, those of its CSR form. K9 (``cg_matvec``), K9u
-    (``cg_update``) and the persistent CG launch (``_chunk_launch``) each
-    count only their own kernel's launches."""
+    (``cg_update``), the persistent CG launch (``_chunk_launch``) and the
+    row-sharded CG's K9 partial mode and K9u's two launches
+    (``cg_matvec_rows``, ``cg_update_rows``, ``cg_direction``) each count
+    only their own kernel's launches."""
     from hpsdf_tpu_torch.accel import (packed_eval_kernel, packed_grad_kernel,
                                        row_gather, row_scatter)
-    from hpsdf_tpu_torch.continuity import _chunk_launch, cg_matvec, cg_update
+    from hpsdf_tpu_torch.continuity import (_chunk_launch, cg_direction,
+                                            cg_matvec, cg_matvec_rows,
+                                            cg_update, cg_update_rows)
     from hpsdf_tpu_torch.mesh import (closest_bvh, closest_tri_tiles,
                                       hybrid_closest)
     from hpsdf_tpu_torch.query import coeff_scatter_kernel, query_kernel
@@ -428,7 +453,10 @@ def counters():
             "coeff_scatter": (coeff_scatter_kernel, "launches"),
             "cg_matvec": (cg_matvec, "launches"),
             "cg_update": (cg_update, "launches"),
-            "cg_chunk": (_chunk_launch, "launches")}
+            "cg_chunk": (_chunk_launch, "launches"),
+            "cg_matvec_rows": (cg_matvec_rows, "launches"),
+            "cg_update_rows": (cg_update_rows, "launches"),
+            "cg_direction": (cg_direction, "launches")}
 
 
 def reset_counts():
@@ -3255,7 +3283,7 @@ def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
           f"{times['k9u_plain_ms']:.4f} ms | cuSPARSE CSR matvec (torch.mv) "
           f"{times['k9_library_62m_ms']:.4f} ms on the {nnz}-entry CSR, "
           f"{times['k9_library_ms']:.4f} ms merged", flush=True)
-    return launches, out
+    return launches, out, dict(fitted=fitted, tree=tree, main=main)
 
 
 def _coo(tree, dev):
@@ -4068,11 +4096,462 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, seed=21):
     return total, entries
 
 
+# --------------------------------------------------------------------------
+# [sharding]: the port's sharded paths on torch.distributed
+# --------------------------------------------------------------------------
+
+SHARD_CG_RTOL, SHARD_CG_ATOL = 1e-10, 1e-12   # tests/test_parallel.py:117-130
+SHARD_INV_RTOL = 1e-4       # K7, K8 and G's backward add with atomics
+SHARD_INV_STEPS = 3
+SHARD_TILE = 8              # K4's tiles, as render_image takes them
+# the two gloo ranks on one card: points, rays a side, inverse rays a side
+SHARD_SMALL = dict(points=1 << 16, side=256, inverse=128)
+SHARD_REPS = 20             # iterations a timed run of the sharded CG takes
+SHARD_RANKS_S = 300         # the two gloo ranks' limit, start-up included
+
+
+def cg_close(got, want):
+    """The largest |got - want| - (atol + rtol |want|) at
+    SHARD_CG_RTOL / SHARD_CG_ATOL (within where <= 0), and the largest
+    |got - want|."""
+    d = (got - want).abs()
+    return (float((d - SHARD_CG_ATOL - SHARD_CG_RTOL * want.abs()).max()),
+            float(d.max()))
+
+
+@contextlib.contextmanager
+def record_calls(module, attr):
+    """While the block runs, every call of module.attr appends its result to
+    the list the block gets."""
+    from unittest import mock
+    fn, seen = getattr(module, attr), []
+
+    def call(*args, **kw):
+        seen.append(fn(*args, **kw))
+        return seen[-1]
+
+    with mock.patch.object(module, attr, call):
+        yield seen
+
+
+def wall_ms(fn, reps):
+    """Host milliseconds a call of fn(), synchronised: what a caller waits."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def check_row_modes(blk, s, minv, label, seed=13):
+    """K9's partial mode and K9u's two launches on a rank's block
+    (``continuity.RowBlock``) against their plain versions on the card, on
+    random vectors (p gathered, x and r the rank's rows; K9u fed the plain
+    matvec's y and p.y): CONT_RTOL of the largest entry. Returns (errs,
+    abs_errs, the gathered p)."""
+    from hpsdf_tpu_torch import continuity as TC
+    dev = minv.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p_all = torch.randn(blk.op.n, generator=g, dtype=torch.float64,
+                        device=dev)
+    x, r = (torch.randn(blk.rows, generator=g, dtype=torch.float64,
+                        device=dev) for _ in range(2))
+    p, minv = p_all[blk.row0: blk.row0 + blk.rows], minv[:blk.rows]
+    want = TC.face_matvec_rows_plain(blk, s, p_all)
+    rz = torch.dot(r, minv * r)
+    upd = TC.cg_update_rows_plain(False, rz, want[1], p, want[0], minv, x, r)
+    errs, abs_errs = {}, {}
+    for pre, names, got, w in (
+            ("k9 rows", ("y", "p.y"), TC.cg_matvec_rows(blk, s, p_all),
+             want),
+            ("k9u rows", ("x", "r", "z", "r.z", "r.r"),
+             TC.cg_update_rows(False, rz, want[1], p, want[0], minv, x, r),
+             upd),
+            ("direction", ("p'",),
+             (TC.cg_direction(False, rz, upd[3], upd[2], p),),
+             (TC.cg_direction_plain(False, rz, upd[3], upd[2], p),))):
+        e, a = rel_errs(pre, names, got, w)
+        errs.update(e)
+        abs_errs.update(a)
+    for k, e in errs.items():
+        check(e <= CONT_RTOL, f"{label}: {k} against plain, relative {e}")
+    return errs, abs_errs, p_all
+
+
+def row_block_of(tree, s, size, rank):
+    """A fitted tree's face operator (host), its Jacobi diagonal on the
+    card, and rank ``rank``'s block of ``size`` on the card."""
+    from hpsdf_tpu_torch import continuity as TC
+    st = TC._LeafView(tree)
+    op, diag = TC.face_operator(st, *TC.leaf_face_pairs(st.child_idx, st.n),
+                                s)
+    blk = TC.row_block(op, size, rank)
+    minv = torch.as_tensor(1.0 / diag[blk.lo: blk.lo + blk.rows],
+                           device=tree.device)
+    return op, blk.to(tree.device), minv
+
+
+def sharding_rank(rank, size, port, cfg, tree_path, out_path):
+    """One of ``size`` gloo ranks on the one card (NCCL refuses two ranks on
+    one device), at SHARD_SMALL's sizes: shard_query and shard_trace (K4 +
+    K3) on the slice tree bit for bit against query and trace;
+    build(fit_mesh=) at fit + continuity's config bit for bit against the
+    one-device build; enforce_continuity(mesh=) within SHARD_CG_RTOL /
+    SHARD_CG_ATOL of the one-device solve and its count within one; K9's
+    partial mode and K9u's two launches against their plain versions on the
+    rank's real block; fit_to_depth(mesh=) at SHARD_SMALL's inverse side,
+    losses within SHARD_INV_RTOL. Rank 0 writes what it saw to out_path."""
+    import hpsdf_tpu_torch as T
+    from hpsdf_tpu_torch import continuity as TC
+    from hpsdf_tpu_torch import parallel as P
+    from hpsdf_tpu_torch.inverse import fit_to_depth
+
+    dev = torch.device("cuda", 0)
+    P.init_distributed(f"localhost:{port}", size, rank, backend="gloo",
+                       device=dev)
+    dmesh = P.make_mesh(device=dev)
+    tree = T.load(tree_path, device=dev)
+    reset_counts()
+    pts = torch.as_tensor(np.random.default_rng(41).uniform(
+        -0.4, 0.4, (SHARD_SMALL["points"], 3)), device=dev)
+    check(torch.equal(P.shard_query(tree, pts, dmesh), T.query(tree, pts)),
+          f"{size} gloo ranks: shard_query against query")
+    side = SHARD_SMALL["side"]
+    o, d = T.camera_rays((0.0, 0.0, -1.8), (0.0, 0.0, 0.0), width=side,
+                         height=side, device=dev)
+    kw = dict(t_max=T_MAX, cone_tiles=(side, side, SHARD_TILE))
+    a, b = P.shard_trace(tree, o, d, dmesh, **kw), T.trace(tree, o, d, **kw)
+    check(torch.equal(a.t, b.t) and torch.equal(a.hit, b.hit),
+          f"{size} gloo ranks: shard_trace against trace")
+
+    fit_cfg = T.Config(**{**CONT_FIT, "continuity": False})
+
+    def sphere(p):
+        return torch.linalg.norm(p, dim=-1) - CONT_FIT_RADII[1]
+
+    fit_sh = T.build_octree(fit_cfg, sphere, fit_mesh=dmesh, device=dev)
+    fit_one = T.build_octree(fit_cfg, sphere, device=dev)
+    check(torch.equal(fit_sh.child_idx, fit_one.child_idx)
+          and torch.equal(fit_sh.coeffs, fit_one.coeffs),
+          f"{size} gloo ranks: build(fit_mesh=) against one device")
+    with record_calls(TC, "cg_solve_rows") as rows, \
+            record_calls(TC, "cg_solve") as one:
+        cont_sh = TC.enforce_continuity(fit_one, mesh=dmesh)
+        cont_one = TC.enforce_continuity(fit_one)
+    excess, cg_err = cg_close(cont_sh.coeffs, cont_one.coeffs)
+    iters = (rows[0][1], one[0][1])
+    check(excess <= 0 and abs(iters[0] - iters[1]) <= 1,
+          f"{size} gloo ranks: row-sharded CG against one device: "
+          f"max|diff| {cg_err}, iterations {iters}")
+    _, blk, minv = row_block_of(fit_one, CONT_FIT["continuity_strength"],
+                                size, rank)
+    errs, abs_errs, _ = check_row_modes(blk, CONT_FIT["continuity_strength"],
+                                        minv, f"{size} gloo ranks, rank "
+                                        f"{rank}")
+
+    (si,) = inverse_setup(cfg, dev, [(SHARD_SMALL["inverse"],) * 2])
+    args = (si["init"], si["o"], si["d"], si["t_star"], si["hit_star"])
+    l_sh = fit_to_depth(*args, n_steps=SHARD_INV_STEPS, t_max=T_MAX,
+                        mesh=dmesh).losses.cpu()
+    l_one = fit_to_depth(*args, n_steps=SHARD_INV_STEPS,
+                         t_max=T_MAX).losses.cpu()
+    inv_rel = float(((l_sh - l_one) / l_one).abs().max())
+    check(inv_rel <= SHARD_INV_RTOL, f"{size} gloo ranks: fit_to_depth "
+          f"losses {l_sh.tolist()} against {l_one.tolist()}")
+    launches = read_counts()
+    for k in ("cg_matvec_rows", "cg_update_rows", "cg_direction"):
+        check(launches[k] > 0, f"{size} gloo ranks: {k} never launched")
+    if rank == 0:
+        with open(out_path, "w") as fh:
+            json.dump({"ranks": size, "backend": P.dist.get_backend(),
+                       "block_rows": blk.rows, "block_leaves":
+                       int(blk.op.leaves.shape[0]), "cg_max_abs_diff": cg_err,
+                       "cg_iterations": iters, "inverse_losses":
+                       l_sh.tolist(), "inverse_one_device": l_one.tolist(),
+                       "inverse_rel_err": inv_rel, "errs": errs,
+                       "abs_errs": abs_errs, "launches": launches}, fh)
+    P.dist.destroy_process_group()
+
+
+def phase_sharding(tree, mesh, bvh, cfg, s_inv, solved, persistent_ms,
+                   tree_path, smi):
+    """The sharded paths at one NCCL rank on the card, at the main path's
+    sizes, with the counts set to 0 just before and read just after:
+    shard_query at 2^20 points and shard_trace at 1024^2 rays (K4 + K3) on
+    the slice tree, bit for bit against query and trace; the slice's fit
+    through the mesh F with fit_mesh, bit for bit against the slice tree and
+    a one-device build timed beside it; enforce_continuity(mesh=) on both
+    continuity trees (fit + continuity, the 260k-leaf row) within
+    SHARD_CG_RTOL / SHARD_CG_ATOL of [continuity]'s solves, counts within
+    one; fit_to_depth(mesh=) for SHARD_INV_STEPS steps at 1080p, losses
+    within SHARD_INV_RTOL. No launch of the unsharded CG's kernels. Then,
+    outside the count, K9's partial mode (bit for bit K9 at one rank) and
+    K9u's two launches against their plain versions at the 260k row, their
+    times in CUDA graphs beside their bounds, a sharded CG iteration's (in a
+    CUDA graph, NCCL's collectives captured, and by events as the solve
+    enqueues it, beside ``persistent_ms``, [continuity]'s iteration of the
+    persistent launch at the row) and shard_query's and shard_trace's
+    overhead; then the
+    same at two gloo ranks on the card in processes of their own
+    (``sharding_rank``). Returns (launches, the numbers)."""
+    import torch.multiprocessing as tmp
+
+    import hpsdf_tpu_torch as T
+    from hpsdf_tpu_torch import continuity as TC
+    from hpsdf_tpu_torch import parallel as P
+    from hpsdf_tpu_torch.inverse import fit_to_depth
+    from hpsdf_tpu_torch.mesh import mesh_sdf
+
+    dev = torch.device("cuda", 0)
+    P.init_distributed(device=dev)
+    check(P.dist.get_backend() == "nccl" and P.dist.get_world_size() == 1,
+          f"one NCCL rank ({P.dist.get_backend()}, "
+          f"{P.dist.get_world_size()})")
+    dmesh = P.make_mesh(device=dev)
+    shard = P.batch_shard(dmesh)
+    F = mesh_sdf(mesh, bvh)
+    pts = torch.as_tensor(np.random.default_rng(31).uniform(
+        -0.4, 0.4, (N_QUERY, 3)), device=dev)
+    o, d = T.camera_rays((0.0, 0.0, -1.8), (0.0, 0.0, 0.0), width=RAYS_SIDE,
+                         height=RAYS_SIDE, device=dev)
+    kw = dict(t_max=T_MAX, cone_tiles=(RAYS_SIDE, RAYS_SIDE, SHARD_TILE))
+    inv_args = (s_inv["init"], s_inv["o"], s_inv["d"], s_inv["t_star"],
+                s_inv["hit_star"])
+    # the one-device results, outside the counted run
+    q_one, tr_one = T.query(tree, pts), T.trace(tree, o, d, **kw)
+    sync()
+    t0 = time.perf_counter()
+    fit_one = T.build_octree(cfg, F, device=dev)
+    sync()
+    fit_one_s = time.perf_counter() - t0
+    inv_one = fit_to_depth(*inv_args, n_steps=SHARD_INV_STEPS,
+                           t_max=T_MAX).losses.cpu()
+
+    reset_counts()
+    TC._cg_rows_kernels.host_syncs = 0
+    sync()
+    t0 = time.perf_counter()
+    q = P.shard_query(tree, pts, dmesh)
+    tr = P.shard_trace(tree, o, d, dmesh, **kw)
+    sync()
+    reads_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fit = T.build_octree(cfg, F, fit_mesh=dmesh, device=dev)
+    sync()
+    fit_s = time.perf_counter() - t0
+    cg = {}
+    with record_calls(TC, "cg_solve_rows") as solves:
+        for label, sv in (("fit_continuity", solved[0]),
+                          ("row_260k", solved[1])):
+            sync()
+            t0 = time.perf_counter()
+            out = TC.enforce_continuity(sv["fitted"], mesh=dmesh)
+            sync()
+            cg[label] = dict(seconds=time.perf_counter() - t0, out=out,
+                             iterations=solves[-1][1],
+                             residual=solves[-1][2])
+    sync()
+    t0 = time.perf_counter()
+    inv = fit_to_depth(*inv_args, n_steps=SHARD_INV_STEPS, t_max=T_MAX,
+                       mesh=dmesh).losses.cpu()
+    inv_s = time.perf_counter() - t0
+    launches = read_counts()
+    host_syncs = TC._cg_rows_kernels.host_syncs
+
+    check(torch.equal(q, q_one), "shard_query against query")
+    check(torch.equal(tr.t, tr_one.t) and torch.equal(tr.hit, tr_one.hit),
+          "shard_trace against trace (K4 + K3)")
+    for ref, name in ((tree, "the slice tree"), (fit_one, "a build")):
+        check(torch.equal(fit.child_idx, ref.child_idx)
+              and torch.equal(fit.coeffs, ref.coeffs),
+              f"build(fit_mesh=) against {name}, bit for bit")
+    for label, sv in (("fit_continuity", solved[0]), ("row_260k", solved[1])):
+        c = cg[label]
+        c["excess"], c["max_abs_diff"] = cg_close(c.pop("out").coeffs,
+                                                  sv["tree"].coeffs)
+        c["one_device_iterations"] = sv["main"][1]
+        check(c["excess"] <= 0, f"{label}: row-sharded CG against the "
+              f"solve, max|diff| {c['max_abs_diff']}")
+        check(abs(c["iterations"] - sv["main"][1]) <= 1, f"{label}: "
+              f"iterations {c['iterations']} against {sv['main'][1]}")
+    inv_rel = float(((inv - inv_one) / inv_one).abs().max())
+    check(bool(torch.isfinite(inv).all()) and inv_rel <= SHARD_INV_RTOL,
+          f"1080p fit_to_depth losses {inv.tolist()} against "
+          f"{inv_one.tolist()}")
+    for k in ("query", "march", "cone", "closest_tri", "cg_matvec_rows",
+              "cg_update_rows", "cg_direction", "coeff_scatter",
+              "packed_grad", "packed_eval_fused"):
+        check(launches[k] > 0, f"{k} never launched on the sharded paths")
+    for k in ("cg_matvec", "cg_update", "cg_chunk"):
+        check(launches[k] == 0, f"the sharded CG launched {k} "
+              f"{launches[k]} times")
+
+    # K9's partial mode and K9u's two launches at the 260k row, one rank
+    fitted = solved[1]["fitted"]
+    s = float(fitted.config.continuity_strength)
+    op, blk, minv = row_block_of(fitted, s, 1, 0)
+    errs, abs_errs, p_all = check_row_modes(blk, s, minv, "one rank")
+    full = TC.cg_matvec(op.to(dev), s, p_all)
+    part = TC.cg_matvec_rows(blk, s, p_all)
+    check(torch.equal(part[0], full[0]) and torch.equal(part[1], full[1]),
+          "K9's partial mode at one rank against K9, bit for bit")
+    n = blk.rows
+    g = torch.Generator(device=dev).manual_seed(17)
+    x0, b = (torch.randn(n, generator=g, dtype=torch.float64, device=dev)
+             for _ in range(2))
+    st9 = TC._State.new(dev, -1.0, 2 ** 31 - 1)
+    y = torch.zeros(n, dtype=torch.float64, device=dev)
+    k9_ms = graph_ms(lambda: TC._matvec_rows_launch(blk, s, p_all, y, st9),
+                     SHARD_REPS)
+    # a live CG state, as the solve's first launches leave it
+    state = TC._State.new(dev, -1.0, 2 ** 31 - 1)
+    gathered = torch.empty(blk.op.n, dtype=torch.float64, device=dev)
+    P.all_gather(x0, shard, gathered)
+    TC._matvec_rows_launch(blk, s, gathered, y, state)
+    x, r = x0.clone(), b - y
+    p, z = torch.zeros_like(b), torch.zeros_like(b)
+    TC._update_rows_launch(True, n, y, minv, x, r, p, z, state)
+    pap = state.sc[TC._SC["pap"]: TC._SC["pap"] + 1]
+    parts = state.sc[TC._SC["rz_part"]: TC._SC["rr_part"] + 1]
+    P.all_reduce(parts, shard)
+    TC._direction_launch(True, n, z, p, state)
+
+    def iteration():
+        P.all_gather(p, shard, gathered)
+        TC._matvec_rows_launch(blk, s, gathered, y, state)
+        P.all_reduce(pap, shard)
+        TC._update_rows_launch(False, n, y, minv, x, r, p, z, state)
+        P.all_reduce(parts, shard)
+        TC._direction_launch(False, n, z, p, state)
+
+    it_ms = time_ms(iteration, SHARD_REPS)
+    it_graph_ms = graph_ms(iteration, SHARD_REPS)
+    check(int(state.st[TC._ST["active"]]) == 1
+          and bool(torch.isfinite(state.sc).all()),
+          f"the timed iterations stayed live: {state.st.tolist()}")
+    st_u = TC._State.new(dev, -1.0, 2 ** 31 - 1, rz=1.0)
+    st_u.sc[TC._SC["pap"]] = 1e3
+    st_u.sc[TC._SC["rz_part"]] = 1.0
+    xu, ru, zu, pu = x.clone(), r.clone(), z.clone(), p.clone()
+    k9u_ms = graph_ms(lambda: TC._update_rows_launch(
+        False, n, y, minv, xu, ru, pu, zu, st_u), SHARD_REPS)
+    # the second launch's 42 MB would stay in the 50 MB L2 from one launch
+    # to the next: turns over four copies, as the solve's other vectors
+    # pass through L2 between two of its launches
+    copies = [(z.clone(), p.clone()) for _ in range(4)]
+    turn = iter(range(1 << 30))
+    dir_ms = graph_ms(lambda: TC._direction_launch(
+        False, n, *copies[next(turn) % 4], st_u), SHARD_REPS)
+    few = 3
+    plain = {"k9": time_ms(lambda: TC.face_matvec_rows_plain(blk, s, p_all),
+                           few),
+             "k9u": time_ms(lambda: TC.cg_update_rows_plain(
+                 False, 1.0, 1e3, p, y, minv, x, r), few),
+             "direction": time_ms(lambda: TC.cg_direction_plain(
+                 False, 1.0, 1.0, z, p), few)}
+    arrays = (blk.op.leaves, blk.op.slots, blk.op.xrowptr, blk.op.xcols,
+              blk.op.xvals)
+    bounds = {"k9": (bytes_ms(*arrays, extra=8 * (blk.op.n + n)),
+                     face_ops(blk.op)[0]),
+              "k9u": (8 * 8 * n / HBM_RATE * 1e3,
+                      2 * 5 * n / F64_PEAK * 1e3),
+              "direction": (3 * 8 * n / HBM_RATE * 1e3,
+                            2 * n / F64_PEAK * 1e3)}
+    overhead = {"shard_query_ms": wall_ms(
+        lambda: P.shard_query(tree, pts, dmesh), 5),
+        "query_ms": wall_ms(lambda: T.query(tree, pts), 5),
+        "shard_trace_ms": wall_ms(
+            lambda: P.shard_trace(tree, o, d, dmesh, **kw), 5),
+        "trace_ms": wall_ms(lambda: T.trace(tree, o, d, **kw), 5)}
+
+    # two gloo ranks on the one card, in processes of their own
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    out_path = os.path.join(os.path.dirname(tree_path),
+                            "chip_smoke_sharding.json")
+    if os.path.exists(out_path):
+        os.remove(out_path)
+    t0 = time.perf_counter()
+    ranks = tmp.start_processes(sharding_rank, args=(2, port, cfg, tree_path,
+                                                     out_path), nprocs=2,
+                                join=False, start_method="spawn")
+    # join raises where a rank failed, and stops the other
+    while not ranks.join(timeout=5):
+        if time.perf_counter() - t0 > SHARD_RANKS_S:
+            for proc in ranks.processes:
+                proc.kill()
+            raise RuntimeError(f"the gloo ranks ran past {SHARD_RANKS_S} s")
+    two_s = time.perf_counter() - t0
+    with open(out_path) as fh:
+        two = json.load(fh)
+    P.dist.destroy_process_group()
+
+    out = {"fit_s": fit_s, "fit_one_device_s": fit_one_s,
+           "reads_s": reads_s, "inverse_s": inv_s,
+           "inverse_losses": inv.tolist(),
+           "inverse_one_device": inv_one.tolist(), "inverse_rel_err": inv_rel,
+           "cg": cg, "host_syncs": host_syncs, "errs": errs,
+           "abs_errs": abs_errs, "two_ranks": two, "two_ranks_s": two_s,
+           "iteration_ms": it_ms, "iteration_graph_ms": it_graph_ms,
+           "persistent_iteration_ms": persistent_ms,
+           "k9_ms": k9_ms, "k9u_ms": k9u_ms, "direction_ms": dir_ms,
+           **{f"{k}_plain_ms": v for k, v in plain.items()},
+           **{f"{k}_bound_ms": max(v) for k, v in bounds.items()},
+           **{f"{k}_bound_by": "bytes" if v[0] >= v[1] else "operations"
+              for k, v in bounds.items()}, **overhead}
+    print(f"[sharding] one NCCL rank: {smi} | shard_query at {N_QUERY} "
+          f"points and shard_trace at {RAYS_SIDE}^2 rays (K4 + K3) bit for "
+          f"bit the one-device calls, {reads_s:.3f} s; build(fit_mesh=) of "
+          f"the slice bit for bit the slice tree, {fit_s:.3f} s against "
+          f"{fit_one_s:.3f} s on one device; row-sharded CG: "
+          + "; ".join(f"{k} {v['iterations']} iterations (one device "
+                      f"{v['one_device_iterations']}), max|diff| "
+                      f"{v['max_abs_diff']:.3e}, {v['seconds']:.3f} s"
+                      for k, v in cg.items())
+          + f", host syncs {host_syncs}; fit_to_depth 1080p "
+          f"{SHARD_INV_STEPS} steps {inv_s:.3f} s, losses "
+          f"{[f'{v:.6g}' for v in out['inverse_losses']]}, max relative "
+          f"difference {inv_rel:.3e} | launches {launches}", flush=True)
+    print(f"[sharding] 260k row, one rank: {smi} | against plain "
+          f"(relative): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; K9's partial mode = K9 bit for bit | in CUDA graphs: K9 "
+          f"partial {k9_ms:.4f} ms (bound {out['k9_bound_ms']:.5f}, "
+          f"{out['k9_bound_by']}), K9u's first launch {k9u_ms:.4f} ms "
+          f"(bound {out['k9u_bound_ms']:.5f}), its second {dir_ms:.4f} ms "
+          f"(bound {out['direction_bound_ms']:.5f}); a sharded iteration "
+          f"(all-gather, K9, all-reduce, K9u, all-reduce, K9u) "
+          f"{it_graph_ms:.4f} ms in a CUDA graph, {it_ms:.4f} ms as the "
+          f"solve enqueues it, against the persistent launch's "
+          f"{persistent_ms:.4f} ms unsharded | plain: K9 {plain['k9']:.4f}, K9u "
+          f"{plain['k9u']:.4f}, direction {plain['direction']:.4f} ms | "
+          f"host ms a call: shard_query {overhead['shard_query_ms']:.3f} "
+          f"against query {overhead['query_ms']:.3f}, shard_trace "
+          f"{overhead['shard_trace_ms']:.3f} against trace "
+          f"{overhead['trace_ms']:.3f}", flush=True)
+    print(f"[sharding] two gloo ranks on the card: {smi} | "
+          f"{two_s:.2f} s with start-up; shard_query at "
+          f"{SHARD_SMALL['points']} points, shard_trace at "
+          f"{SHARD_SMALL['side']}^2 and build(fit_mesh=) at fit + continuity "
+          f"bit for bit; row-sharded CG (rank 0: {two['block_leaves']} "
+          f"leaves, {two['block_rows']} rows) iterations "
+          f"{two['cg_iterations']}, max|diff| {two['cg_max_abs_diff']:.3e}; "
+          f"partial modes against plain: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in two["errs"].items())
+          + f"; fit_to_depth {SHARD_SMALL['inverse']}^2 max relative "
+          f"difference {two['inverse_rel_err']:.3e} | rank 0's launches "
+          f"{two['launches']}", flush=True)
+    return launches, out
+
+
 PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
                  "cone_kernel", "packed_grad_kernel", "coeff_scatter_kernel",
                  "row_scatter_kernel", "row_scatter_csr_kernel",
                  "cg_matvec_kernel", "cg_update_kernel", "face_matvec_kernel",
-                 "cg_chunk_kernel", "hybrid_kernel", "bvh_walk_kernel")
+                 "cg_chunk_kernel", "cg_update_rows_kernel",
+                 "cg_direction_kernel", "hybrid_kernel", "bvh_walk_kernel")
 
 
 def _ptxas_key(kernel, args):
@@ -4082,7 +4561,8 @@ def _ptxas_key(kernel, args):
         return "-"
     if kernel == "hybrid_kernel":
         return "two levels" if args[0] else "one level"
-    if kernel == "cg_update_kernel":
+    if kernel in ("cg_update_kernel", "cg_update_rows_kernel",
+                  "cg_direction_kernel"):
         return "init" if args[0] else "iteration"
     if kernel == "cg_chunk_kernel":
         return "shared" if args[0] else "buffer"
@@ -4104,8 +4584,9 @@ def ptxas_check():
     ptxas reported them when the library was built. K1, K3, K4, K5's raw
     gradient (alone and fused with K2), K7 and K8 at degrees 3 and 5 (the
     main paths'), both forms of G's backward, K9 (on the face operator and
-    in its CSR form), K9u, both forms of the persistent launch, both of
-    K10 and K11 must have no stack frame and no spills. Returns
+    in its CSR form), K9u, both forms of the persistent launch, both forms
+    of each of the row-sharded CG's two K9u launches, both of K10 and K11
+    must have no stack frame and no spills. Returns
     {kernel: {key: [registers, stack, spill stores, spill loads]}}."""
     from hpsdf_tpu_torch import _kernels
 
@@ -4142,6 +4623,8 @@ def ptxas_check():
             ("K9 CSR", "cg_matvec_kernel", ("-",)),
             ("K9u", "cg_update_kernel", ("init", "iteration")),
             ("K9 + K9u persistent", "cg_chunk_kernel", ("shared", "buffer")),
+            ("K9u rows", "cg_update_rows_kernel", ("init", "iteration")),
+            ("K9u direction", "cg_direction_kernel", ("init", "iteration")),
             ("K10", "hybrid_kernel", ("one level", "two levels")),
             ("K11", "bvh_walk_kernel", ("-",))):
         got = found.get(kernel, {})
@@ -4288,12 +4771,12 @@ def main():
     launches_i, ti = phase("inverse", phase_inverse, s_inv, s_small, smi)
 
     # --- 12. the continuity post-process at both sizes ---------------------
-    launches_ca, tca = phase("continuity fit", phase_continuity,
-                             "fit + continuity", CONT_FIT, CONT_FIT_RADII[1],
-                             CONT_FIT_RADII[0], smi)
-    launches_cb, tcb = phase("continuity 260k", phase_continuity,
-                             "260k-leaf row", CONT_ROW, CONT_ROW_RADIUS, None,
-                             smi)
+    launches_ca, tca, solved_a = phase(
+        "continuity fit", phase_continuity, "fit + continuity", CONT_FIT,
+        CONT_FIT_RADII[1], CONT_FIT_RADII[0], smi)
+    launches_cb, tcb, solved_b = phase(
+        "continuity 260k", phase_continuity, "260k-leaf row", CONT_ROW,
+        CONT_ROW_RADIUS, None, smi)
     tcd = dict(zip(("errs", "abs_errs"), phase(
         "continuity degrees", phase_continuity_degrees, smi)))
 
@@ -4301,9 +4784,15 @@ def main():
     launches_m, tm = phase("mesh scale", phase_mesh_scale, cfg, bvh, smi,
                            fit_pts)
 
+    # --- 14. the sharded paths: one NCCL rank, then two gloo ranks --------
+    launches_s, tsh = phase(
+        "sharding", phase_sharding, tree, mesh, bvh, cfg, s_inv,
+        (solved_a, solved_b), tcb["iteration_ms"],
+        os.path.join(_kernels.BUILD_DIR, "chip_smoke_tree.npz"), smi)
+
     total = {k: launches[k] + launches_r[k] + launches_i[k]
              + launches_ca[k] + launches_cb[k] + launches_m[k]
-             for k in launches}
+             + launches_s[k] for k in launches}
     g_probe = tg[f"{G_TABLE[0]}x{G_TABLE[1]}"]
     g_rows = tg[f"{bvh.tri_rows.shape[0]}x{bvh.tri_rows.shape[1]}"]
     kernels = [
@@ -4472,6 +4961,31 @@ def main():
                ("iteration_csr_ms", "iteration_two_launch_ms",
                 "chunk_saves_ms", "chunk_blocks", "chunk_group_doubles"),
                ("cg_chunk_kernel",)))),
+        *({"name": name, "route": "cuda",
+           "source": "hpsdf_tpu_torch/csrc/continuity.cu",
+           "replaces": replaces, "launches": launches_s[name],
+           "max_abs_err": max(v for e in (tsh["abs_errs"],
+                                          tsh["two_ranks"]["abs_errs"])
+                              for k, v in e.items() if k.startswith(pre)),
+           "max_rel_err": max(v for e in (tsh["errs"],
+                                          tsh["two_ranks"]["errs"])
+                              for k, v in e.items() if k.startswith(pre)),
+           "ms": tsh[f"{key}_ms"], "plain_ms": tsh[f"{key}_plain_ms"],
+           "bound_ms": tsh[f"{key}_bound_ms"],
+           "bound_by": tsh[f"{key}_bound_by"],
+           # K9's yardstick in [continuity]: torch.mv on the 260k row's
+           # merged CSR, the same product at one rank
+           "library_ms": tcb["k9_library_ms"] if key == "k9" else None,
+           "two_rank_launches": tsh["two_ranks"]["launches"][name],
+           "ptxas": ptxas.get(kernel, {})}
+          for name, key, pre, replaces, kernel in (
+              ("cg_matvec_rows", "k9", "k9 rows",
+               "hpsdf_tpu/continuity.py:568-571,591", "face_matvec_kernel"),
+              ("cg_update_rows", "k9u", "k9u rows",
+               "hpsdf_tpu/continuity.py:585-586,592-595",
+               "cg_update_rows_kernel"),
+              ("cg_direction", "direction", "direction",
+               "hpsdf_tpu/continuity.py:596", "cg_direction_kernel"))),
     ]
     print(f"[e2e] {smi} | carve {tr['carve_s']:.3f} s, render 512^2 "
           f"{tr['render_s']:.3f} s, hit fraction {frac:.4f} | 1024^2 march: "
@@ -4485,7 +4999,7 @@ def main():
             for label, c in (("fit_continuity", tca), ("row_260k", tcb))}
     print(json.dumps({"kernels": kernels, "inverse": ti,
                       "fit_split": {"slice": split_s, "carve": tr["split"]},
-                      "continuity": cont}))
+                      "continuity": cont, "sharding": tsh}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

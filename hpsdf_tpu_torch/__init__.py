@@ -10,8 +10,9 @@ the plain torch version of each kernel.
 
 The mesh -> SDF path lives in ``hpsdf_tpu_torch.mesh``. The continuity
 post-process (``hpsdf_tpu_torch.continuity``, which ``build_octree`` runs
-when ``Config.continuity`` is set, as it is by default) and phase timing
-(``hpsdf_tpu_torch.profiling``) are submodules imported by name, as in
+when ``Config.continuity`` is set, as it is by default), phase timing
+(``hpsdf_tpu_torch.profiling``) and sharding on ``torch.distributed``
+(``hpsdf_tpu_torch.parallel``) are submodules imported by name, as in
 hpsdf_tpu.
 """
 
@@ -25,13 +26,13 @@ from .render import (trace, camera_rays, intersect_aabb,
                      render as render_image)
 # ``render`` is the submodule (the function is exported as
 # ``render_image``), as in hpsdf_tpu
-from . import inverse, render
+from . import inverse, parallel, render
 
 __all__ = [
     "Config", "NearnessWeighting", "Octree", "save", "load", "from_numpy",
     "to_numpy", "build_octree", "query", "query_with_gradient", "query_grid",
     "as_sdf", "union_sdf", "subtract_sdf", "intersect_sdf", "pack_tree",
     "trace", "render_image", "camera_rays", "intersect_aabb", "render",
-    "output_function_slice", "function_slice", "inverse",
+    "output_function_slice", "function_slice", "inverse", "parallel",
 ]
 __version__ = "0.1.0"

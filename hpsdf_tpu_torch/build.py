@@ -11,6 +11,12 @@ A fit batch is one plain synchronous call: quadrature points are generated
 on the device for a chunk of cells, F is evaluated on them, and the
 separable Gauss-Legendre projection runs as three torch einsums. Chunks
 bound the points one F call sees (``BLOCK_PTS``) for memory only.
+
+A sharded fit (``fit_mesh``, a ``torch.distributed`` DeviceMesh) gives
+chunk j of every fit batch to rank j mod the mesh's batch axis and
+all-gathers the results: every F call and einsum sees the shapes of the
+one-device build, so the tree is the same bit for bit, and the host
+topology stays the same on every rank.
 """
 
 from __future__ import annotations
@@ -78,20 +84,26 @@ def _fit_impl(nw: NearnessWeighting, nw_strength: float, degree: int,
     return coeffs, err
 
 
-def _fit(F_int: SDFFn, cfg: Config, dt: torch.dtype, device, degree: int,
-         centres: np.ndarray, depths: np.ndarray,
+def _fit(F_int: SDFFn, cfg: Config, dt: torch.dtype, device, shard,
+         degree: int, centres: np.ndarray, depths: np.ndarray,
          prev: np.ndarray | None = None):
     """Point generation + F + projection for a batch of cells, chunked by
     ``BLOCK_PTS`` (hpsdf_tpu build._FitCache._fused). ``F_int`` takes
-    internal unit-cube points. Returns (coeffs (M, C) f64, err (M,) f64) as
-    host numpy."""
+    internal unit-cube points. ``shard`` (``parallel.BatchShard`` or None):
+    this rank fits chunks rank, rank + size, ... and the chunks are
+    all-gathered (``_gather_chunks``). Returns (coeffs (M, C) f64, err (M,)
+    f64) as host numpy."""
     Q = basis.fit_rule_size(degree)
     xj = torch.as_tensor(basis.leggauss(Q)[0], dtype=dt, device=device)
     cn = basis.coeff_norms(degree)
     pw = 0 if prev is None else prev.shape[1]
     cc = max(1, BLOCK_PTS // Q ** 3)
-    out_c, out_e = [], []
-    for s in range(0, centres.shape[0], cc):
+    chunks = range(0, centres.shape[0], cc)
+    out_c = [torch.zeros((0, consts.coeff_count(degree)), dtype=dt,
+                         device=device)]
+    out_e = [torch.zeros(0, dtype=dt, device=device)]
+    for s in (chunks if shard is None
+              else chunks[shard.rank::shard.size]):
         d_np = depths[s: s + cc]
         c = torch.as_tensor(centres[s: s + cc], dtype=dt, device=device)
         d = torch.as_tensor(d_np, dtype=torch.int32, device=device)
@@ -110,8 +122,38 @@ def _fit(F_int: SDFFn, cfg: Config, dt: torch.dtype, device, degree: int,
             torch.as_tensor(cn[d_np], dtype=dt, device=device), p)
         out_c.append(coeffs)
         out_e.append(err)
-    return (torch.cat(out_c).to(torch.float64).cpu().numpy(),
-            torch.cat(out_e).to(torch.float64).cpu().numpy())
+    coeffs, err = torch.cat(out_c), torch.cat(out_e)
+    if shard is not None:
+        coeffs, err = _gather_chunks(coeffs, err, centres.shape[0], cc,
+                                     shard)
+    return (coeffs.to(torch.float64).cpu().numpy(),
+            err.to(torch.float64).cpu().numpy())
+
+
+def _gather_chunks(coeffs, err, M: int, cc: int, shard):
+    """Every rank's chunks (chunk j of cc cells from rank j mod size, in
+    order) to every rank, as f64 rows [coeffs | err] padded to the most
+    rows a rank holds and all-gathered; returns (coeffs, err) of all M
+    cells in order."""
+    from . import parallel
+
+    size = shard.size
+    sizes = np.minimum(cc, M - np.arange(0, M, cc))           # per chunk
+    # chunk j's first row among its rank's (j mod size) rows
+    first = np.zeros(sizes.size, np.int64)
+    for k in range(size):
+        mine = sizes[k::size]
+        first[k::size] = np.cumsum(mine) - mine
+    most = max(int(sizes[k::size].sum()) for k in range(size))
+    rows = torch.zeros((most, coeffs.shape[1] + 1), dtype=torch.float64,
+                       device=coeffs.device)
+    rows[: coeffs.shape[0], :-1] = coeffs
+    rows[: coeffs.shape[0], -1] = err
+    out = parallel.all_gather(rows, shard)
+    first += np.arange(sizes.size) % size * most
+    idx = np.concatenate([np.arange(f, f + n) for f, n in zip(first, sizes)])
+    full = out[torch.as_tensor(idx, device=out.device)]
+    return full[:, :-1], full[:, -1]
 
 
 class _State:
@@ -202,13 +244,15 @@ def build(config: Config, F: SDFFn, *, continuity_fn=None,
     ``config.enable_logging`` prints it (hpsdf_tpu build.py:859-863).
     ``continuity_fn`` (``continuity.enforce_continuity`` from
     ``api.build_octree``) post-processes the packed tree when
-    ``config.continuity`` is set. ``fit_mesh`` (a sharded fit) is not
-    ported yet (ROADMAP.md, queue 1) and raises NotImplementedError when
-    given."""
+    ``config.continuity`` is set. ``fit_mesh`` (a ``torch.distributed``
+    DeviceMesh, ``parallel.make_mesh``; every rank calls ``build`` alike)
+    shards each fit batch's chunks over its batch axis; the tree is the
+    one-device build's bit for bit (hpsdf_tpu build.py:789-793). Anything
+    else but None raises TypeError."""
+    shard = None
     if fit_mesh is not None:
-        raise NotImplementedError(
-            "build(fit_mesh=...): sharded fits are not ported to "
-            "hpsdf_tpu_torch yet (ROADMAP.md, queue 1 'Sharding')")
+        from .parallel import batch_shard
+        shard = batch_shard(fit_mesh)
     device = _device.resolve(device)
     config.validate()
     t0 = time.monotonic()
@@ -225,7 +269,7 @@ def build(config: Config, F: SDFFn, *, continuity_fn=None,
         return F(torch.addcmul(root_centre, pts, root_sizes))
 
     st = _State(config)
-    fit = functools.partial(_fit, F_int, config, dt, device)
+    fit = functools.partial(_fit, F_int, config, dt, device, shard)
 
     def log(msg):
         if config.enable_logging:

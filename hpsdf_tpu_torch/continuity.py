@@ -24,10 +24,20 @@ faces -- the reference's PerformContinuityPostProcess
     the plain torch versions (``face_matvec_plain``, ``cg_update_plain``)
     run.
 
+  * The row-sharded CG (``mesh=``, hpsdf_tpu continuity.py:523-618): each
+    rank owns a contiguous block of leaves balanced by rows (``row_block``),
+    the vector padded to equal blocks; an iteration all-gathers p, runs K9
+    in its partial mode on the rank's leaves (``cg_matvec_rows``),
+    all-reduces p.Ap, runs K9u's first launch (``cg_update_rows``: x, r, z
+    and the rank's r.z and r.r), all-reduces those and runs its second
+    (``cg_direction``: the new direction, beta, the count and the flag). The
+    scalars stay on the card, the collectives go on the kernels' stream,
+    and the host reads the flag once a chunk (``_cg_rows_kernels``). On the
+    CPU the plain versions run (``_cg_rows_plain``).
+
 The H100 has an f64 datapath, so the TPU's mixed-precision CG
 (``_cg_solve_mixed``, its segmented restarts, ``COO_CHUNK``) is not
-ported: ``cg="mixed"`` and ``cg="auto"`` mean f64. The row-sharded solve
-(``mesh=``) waits for the port's sharding.
+ported: ``cg="mixed"`` and ``cg="auto"`` mean f64.
 """
 
 from __future__ import annotations
@@ -602,8 +612,11 @@ def cg_update_plain(alpha, rz, p: torch.Tensor, Ap: torch.Tensor,
     return x, r, z + (rz_new / rz) * p, rz_new, torch.dot(r, r)
 
 
-# The f64 scalars of the kernels' state (csrc/continuity.cu kRz ... kPAp)
-_SC = dict(rz=0, alpha=1, beta=2, rr=3, thresh=4, pap=5)
+# The f64 scalars of the kernels' state (csrc/continuity.cu kRz ...
+# kRrPart): rz_part and rr_part are a rank's r.z and r.r in the row-sharded
+# CG, before and after their all-reduce
+_SC = dict(rz=0, alpha=1, beta=2, rr=3, thresh=4, pap=5, rz_part=6,
+           rr_part=7)
 # and its integers (kK ... kCount): iterations, max_iter, flag, block count
 _ST = dict(k=0, max_iter=1, active=2, count=3)
 # threads a block of K9 and of the persistent launch (csrc/continuity.cu
@@ -861,6 +874,303 @@ def cg_solve(op: FaceOperator, s, diag, b, x0, tol, max_iter: int):
 
 
 # --------------------------------------------------------------------------
+# The row-sharded CG: K9's partial mode and K9u's two launches
+# --------------------------------------------------------------------------
+
+class RowBlock(NamedTuple):
+    """A rank's share of the face operator in the row-sharded CG.
+
+    The ranks own contiguous blocks of leaves balanced by rows, a leaf never
+    split (K9 gives a leaf to a group of lanes). Every rank's vectors are
+    padded to ``width`` rows, so that p gathers into equal blocks: global
+    row g of rank k's block sits at k * width + g - (k's first row).
+    ``op`` holds the rank's leaves with their rows, their same-depth
+    neighbours' rows and their cross-depth columns in that gathered layout
+    (its ``n`` the gathered length, size * width); ``lo`` and ``rows`` give
+    the rank's global rows, ``row0`` = rank * width where they start in the
+    gathered vector, and ``order`` (host) the gathered index of every
+    global row."""
+    op: FaceOperator
+    lo: int
+    rows: int
+    width: int
+    row0: int
+    order: np.ndarray
+
+    def to(self, device) -> "RowBlock":
+        return self._replace(op=self.op.to(device))
+
+
+def row_cuts(starts: np.ndarray, size: int) -> np.ndarray:
+    """The first leaf of each of ``size`` contiguous blocks, and the leaf
+    count (size + 1,): each block starts at the leaf whose first row is the
+    first at or past an equal share of the rows, and holds one leaf at
+    least. ``starts`` the leaves' first rows and n (L + 1,)."""
+    L = starts.size - 1
+    if L < size:
+        raise ValueError(f"row-sharded CG: {L} leaves for {size} ranks")
+    cuts = np.searchsorted(starts[:L], np.arange(size + 1) * starts[L] / size)
+    cuts[0], cuts[size] = 0, L
+    for k in range(1, size):
+        cuts[k] = min(max(cuts[k], cuts[k - 1] + 1), L - (size - k))
+    return cuts
+
+
+def row_block(op: FaceOperator, size: int, rank: int) -> RowBlock:
+    """Rank ``rank``'s block of the host face operator ``op`` (``RowBlock``):
+    its leaves (``row_cuts``), their row starts, their neighbours' starts
+    and their cross-depth columns remapped once to the gathered layout, and
+    their stretch of the cross-depth CSR."""
+    starts = op.host_starts.astype(np.int64)
+    cuts = row_cuts(starts, size)
+    first = starts[cuts]                                   # (size + 1,)
+    width = int(np.diff(first).max())
+    if size * width >= 2 ** 31:
+        raise ValueError(f"row_block: {size} x {width} rows exceed 32-bit "
+                         "indices")
+
+    def remap(g):
+        k = np.searchsorted(first, g, side="right") - 1
+        return (k * width + g - first[k]).astype(np.int32)
+
+    l0, l1 = int(cuts[rank]), int(cuts[rank + 1])
+    leaves = np.array(op.leaves[l0:l1], np.int32)
+    w = leaves[:, 1] - leaves[:, 0]
+    leaves[:, 0] = remap(leaves[:, 0].astype(np.int64))
+    leaves[:, 1] = leaves[:, 0] + w
+    slots = np.array(op.slots[l0:l1], np.int32)
+    has = slots[:, :, 0] >= 0
+    slots[:, :, 0][has] = remap(slots[:, :, 0][has].astype(np.int64))
+    xoff = leaves[:, 3]
+    xl = np.flatnonzero(xoff >= 0)
+    if xl.size:                 # the rank's cross-depth rows are contiguous
+        x0, x1 = int(xoff[xl[0]]), int(xoff[xl[-1]] + w[xl[-1]])
+        e0, e1 = int(op.xrowptr[x0]), int(op.xrowptr[x1])
+        xrowptr = (op.xrowptr[x0:x1 + 1] - e0).astype(np.int32)
+        xcols = remap(np.asarray(op.xcols[e0:e1], np.int64))
+        xvals = np.asarray(op.xvals[e0:e1], np.float64)
+        leaves[xl, 3] -= x0
+    else:
+        xrowptr = np.zeros(1, np.int32)
+        xcols, xvals = np.zeros(0, np.int32), np.zeros(0, np.float64)
+    order = np.concatenate([k * width + np.arange(first[k + 1] - first[k])
+                            for k in range(size)])
+    return RowBlock(
+        FaceOperator(leaves, slots, xrowptr, xcols, xvals, n=size * width,
+                     nnz=op.nnz, widest=int(max(1, w.max(initial=1))),
+                     host_starts=np.append(leaves[:, 0], leaves[-1, 1])),
+        lo=int(first[rank]), rows=int(first[rank + 1] - first[rank]),
+        width=width, row0=rank * width, order=order)
+
+
+def face_matvec_rows_plain(blk: RowBlock, s: float, p: torch.Tensor):
+    """K9's partial mode, whatever the device: y = M p + s p on the rank's
+    rows (p the gathered vector, y of the rank's ``rows``) and the rank's
+    share of p.y."""
+    y = face_matvec_plain(blk.op, s, p)[0][blk.row0: blk.row0 + blk.rows]
+    return y, torch.dot(p[blk.row0: blk.row0 + blk.rows], y)
+
+
+def cg_update_rows_plain(init: bool, rz, pap, p, Ap, minv, x, r):
+    """K9u's first launch in the row-sharded CG, whatever the device:
+    alpha = rz / p.Ap, x + alpha p and r - alpha Ap (the first form: x and
+    r as they are), z = minv r, and the rank's r.z and r.r."""
+    if not init:
+        alpha = rz / pap
+        x = x + alpha * p
+        r = r - alpha * Ap
+    z = minv * r
+    return x, r, z, torch.dot(r, z), torch.dot(r, r)
+
+
+def cg_direction_plain(init: bool, rz, rz_new, z, p):
+    """K9u's second launch, whatever the device: z + (rz_new / rz) p (the
+    first form: z)."""
+    return z.clone() if init else z + (rz_new / rz) * p
+
+
+def _matvec_rows_launch(blk: RowBlock, s: float, p, y, state: _State):
+    """K9's partial mode once: y (the rank's rows) and its p.y into
+    sc[pap]."""
+    lib = _kernels.load()
+    _check_cuda("cg_matvec_rows", torch.float64, blk.op.n, p)
+    if y.shape[0] < blk.rows:
+        raise ValueError(f"cg_matvec_rows: y holds {y.shape[0]} of the "
+                         f"rank's {blk.rows} rows")
+    _check_cuda("cg_matvec_rows", torch.float64, y.shape[0], y)
+    _kernels.check(lib, lib.hpsdf_face_matvec_rows(
+        *_face_args("cg_matvec_rows", blk.op), blk.row0, float(s),
+        p.data_ptr(), y.data_ptr(), state.partials.data_ptr(),
+        state.sc.data_ptr(), state.st.data_ptr(), _kernels.stream_of(p)),
+        "cg_matvec_rows")
+    cg_matvec_rows.launches += 1
+
+
+def _update_rows_launch(init: bool, n: int, Ap, minv, x, r, p, z,
+                        state: _State):
+    """K9u's first launch once over the first n rows."""
+    _check_cuda("cg_update_rows", torch.float64, minv.shape[0], Ap, minv, x,
+                r, p, z)
+    if not 0 < n <= minv.shape[0]:
+        raise ValueError(f"cg_update_rows: {n} rows of {minv.shape[0]}")
+    lib = _kernels.load()
+    _kernels.check(lib, lib.hpsdf_cg_update_rows(
+        int(init), n, Ap.data_ptr(), minv.data_ptr(), x.data_ptr(),
+        r.data_ptr(), p.data_ptr(), z.data_ptr(), state.partials.data_ptr(),
+        state.sc.data_ptr(), state.st.data_ptr(), _kernels.stream_of(minv)),
+        "cg_update_rows")
+    cg_update_rows.launches += 1
+
+
+def _direction_launch(init: bool, n: int, z, p, state: _State):
+    """K9u's second launch once over the first n rows."""
+    _check_cuda("cg_direction", torch.float64, z.shape[0], z, p)
+    if not 0 < n <= z.shape[0]:
+        raise ValueError(f"cg_direction: {n} rows of {z.shape[0]}")
+    lib = _kernels.load()
+    _kernels.check(lib, lib.hpsdf_cg_direction(
+        int(init), n, z.data_ptr(), p.data_ptr(), state.sc.data_ptr(),
+        state.st.data_ptr(), _kernels.stream_of(z)), "cg_direction")
+    cg_direction.launches += 1
+
+
+def cg_matvec_rows(blk: RowBlock, s: float, p: torch.Tensor):
+    """K9's partial mode once: (y, the rank's p.y) on the rank's rows of the
+    gathered ``p``. Kernel K9 on CUDA tensors (p.y as a 0-d tensor on the
+    card); ``face_matvec_rows_plain`` on CPU tensors."""
+    if p.device.type == "cpu":
+        return face_matvec_rows_plain(blk, s, p)
+    state = _State.new(p.device, 0.0, 1)
+    y = torch.empty(blk.rows, dtype=p.dtype, device=p.device)
+    _matvec_rows_launch(blk, s, p, y, state)
+    return y, state.sc[_SC["pap"]]
+
+
+def cg_update_rows(init: bool, rz, pap, p, Ap, minv, x, r):
+    """K9u's first launch once, as ``cg_update_rows_plain``: (x, r, z, r.z,
+    r.r). Kernel K9u on CUDA tensors (x and r are copied first; the dots as
+    0-d tensors on the card); the plain version on CPU tensors."""
+    if minv.device.type == "cpu":
+        return cg_update_rows_plain(init, rz, pap, p, Ap, minv, x, r)
+    state = _State.new(minv.device, 0.0, 1, rz=0.0 if init else rz)
+    state.sc[_SC["pap"]] = 1.0 if init else pap
+    x, r, z = x.clone(), r.clone(), torch.empty_like(r)
+    p = torch.zeros_like(r) if p is None else p
+    _update_rows_launch(init, minv.shape[0], r if Ap is None else Ap, minv,
+                        x, r, p, z, state)
+    return x, r, z, state.sc[_SC["rz_part"]], state.sc[_SC["rr_part"]]
+
+
+def cg_direction(init: bool, rz, rz_new, z, p):
+    """K9u's second launch once, as ``cg_direction_plain``. Kernel K9u on
+    CUDA tensors (p is copied first); the plain version on CPU tensors."""
+    if z.device.type == "cpu":
+        return cg_direction_plain(init, rz, rz_new, z, p)
+    state = _State.new(z.device, 0.0, 2 ** 31 - 1, rz=rz)
+    state.sc[_SC["rz_part"]] = rz_new
+    p = p.clone()
+    _direction_launch(init, z.shape[0], z, p, state)
+    return p
+
+
+cg_matvec_rows.launches = 0
+cg_update_rows.launches = 0
+cg_direction.launches = 0
+
+
+def _cg_rows_plain(blk: RowBlock, s: float, diag, b, x0, tol: float,
+                   max_iter: int, shard):
+    """The row-sharded CG by the plain versions, whatever the device: the
+    recurrences and stopping rule of ``_cg_plain`` on the rank's padded
+    vectors, p all-gathered for each matvec and every dot all-reduced (one
+    host read an iteration). Returns (x of the rank's rows, iterations,
+    residual)."""
+    from . import parallel
+
+    def matvec(v):
+        y, pap = face_matvec_rows_plain(blk, s, parallel.all_gather(v, shard))
+        return torch.cat([y, y.new_zeros(blk.width - blk.rows)]), pap
+
+    def reduce(*v):
+        return parallel.all_reduce(torch.stack(v), shard)
+
+    minv = 1.0 / diag
+    y, _ = matvec(x0)
+    x, r, z, rz, rr = cg_update_rows_plain(True, None, None, None, None,
+                                           minv, x0, b - y)
+    rz, rr = reduce(rz, rr)
+    p = cg_direction_plain(True, rz, rz, z, None)
+    thresh = tol * tol * reduce(torch.dot(b, b))[0]
+    k = 0
+    while bool(rr > thresh) and k < max_iter:
+        Ap, pap = matvec(p)
+        x, r, z, rz_new, rr = cg_update_rows_plain(False, rz, reduce(pap)[0],
+                                                   p, Ap, minv, x, r)
+        rz_new, rr = reduce(rz_new, rr)
+        p = cg_direction_plain(False, rz, rz_new, z, p)
+        rz = rz_new
+        k += 1
+    return x, k, float(torch.sqrt(rr))
+
+
+def _cg_rows_kernels(blk: RowBlock, s: float, diag, b, x0, tol: float,
+                     max_iter: int, shard):
+    """The row-sharded CG on the card, as ``_cg_rows_plain``: each
+    iteration all-gathers p, launches K9's partial mode, all-reduces p.Ap,
+    launches K9u's first launch, all-reduces r.z and r.r and launches its
+    second, the scalars kept in the state on the card; CG_CHUNK iterations
+    go out at a time and the host reads the flag after each chunk (kernels
+    whose flag is down return at once). Counted in
+    ``_cg_rows_kernels.host_syncs``."""
+    from . import parallel
+
+    dev, n = b.device, blk.rows
+    state = _State.new(dev, 0.0, max_iter)
+    bb = parallel.all_reduce(torch.dot(b, b).reshape(1), shard)
+    state.sc[_SC["thresh"]] = tol * tol * bb[0]
+    pap = state.sc[_SC["pap"]: _SC["pap"] + 1]
+    parts = state.sc[_SC["rz_part"]: _SC["rr_part"] + 1]
+    minv = 1.0 / diag
+    gathered = torch.empty(blk.op.n, dtype=b.dtype, device=dev)
+    y = torch.zeros_like(b)          # the padded tail stays 0
+    parallel.all_gather(x0, shard, gathered)
+    _matvec_rows_launch(blk, s, gathered, y, state)       # y = (M + sI) x0
+    x, r = x0.clone(), b - y
+    p, z = torch.zeros_like(b), torch.zeros_like(b)
+    _update_rows_launch(True, n, y, minv, x, r, p, z, state)
+    parallel.all_reduce(parts, shard)
+    _direction_launch(True, n, z, p, state)
+    flags = torch.empty(len(_ST), dtype=torch.int32, pin_memory=True)
+    while True:
+        for _ in range(CG_CHUNK):
+            parallel.all_gather(p, shard, gathered)
+            _matvec_rows_launch(blk, s, gathered, y, state)
+            parallel.all_reduce(pap, shard)
+            _update_rows_launch(False, n, y, minv, x, r, p, z, state)
+            parallel.all_reduce(parts, shard)
+            _direction_launch(False, n, z, p, state)
+        flags.copy_(state.st, non_blocking=True)
+        torch.cuda.current_stream(dev).synchronize()
+        _cg_rows_kernels.host_syncs += 1
+        if not flags[_ST["active"]]:
+            break
+    return x, int(flags[_ST["k"]]), float(torch.sqrt(state.sc[_SC["rr"]]))
+
+
+_cg_rows_kernels.host_syncs = 0
+
+
+def cg_solve_rows(blk: RowBlock, s, diag, b, x0, tol, max_iter: int, shard):
+    """The row-sharded CG on the rank's padded vectors (diag, b, x0 of
+    ``blk.width`` rows, the rank's ``blk.rows`` first): the kernels on a
+    CUDA device (``_cg_rows_kernels``), the plain versions on the CPU.
+    Returns (x of the rank's padded rows, iterations, residual), the count
+    and residual the same on every rank."""
+    fn = _cg_rows_plain if b.device.type == "cpu" else _cg_rows_kernels
+    return fn(blk, s, diag, b, x0, tol, max_iter, shard)
+
+
+# --------------------------------------------------------------------------
 # Public entry
 # --------------------------------------------------------------------------
 
@@ -876,12 +1186,15 @@ def enforce_continuity(tree: Octree, mesh=None, cg: str = "auto") -> Octree:
     same-depth entry is assembled).
 
     ``cg``: "f64", "mixed" or "auto", all the f64 CG here (the H100 has
-    f64; the reference's "mixed" exists for TPUs). ``mesh`` (the row-sharded
-    solve) is not ported yet and raises NotImplementedError."""
+    f64; the reference's "mixed" exists for TPUs). ``mesh``: a
+    ``torch.distributed`` DeviceMesh (``parallel.make_mesh``; every rank
+    calls with the same tree): the CG runs row-sharded over its batch axis
+    (``row_block``, ``cg_solve_rows``) and every rank returns the same
+    tree; anything else but None raises TypeError."""
+    shard = None
     if mesh is not None:
-        raise NotImplementedError(
-            "enforce_continuity(mesh=...): the row-sharded CG is not ported "
-            "to hpsdf_tpu_torch yet (ROADMAP.md, queue 1 'Sharding')")
+        from .parallel import all_gather, batch_shard
+        shard = batch_shard(mesh)
     if cg not in ("auto", "mixed", "f64"):
         raise ValueError(f"cg must be 'auto', 'mixed' or 'f64', not {cg!r}")
     st = _LeafView(tree)
@@ -902,11 +1215,25 @@ def enforce_continuity(tree: Octree, mesh=None, cg: str = "auto") -> Octree:
                  - np.repeat(np.cumsum(widths) - widths, widths))
     c0 = coeffs[flat_rows, flat_cols]
 
-    dt, bt, xt = _put(tree.device, diag, s * c0, c0)
-    x, iters, resid = cg_solve(op.to(tree.device), s, dt, bt, xt,
-                               tol=consts.EPSILON_F32, max_iter=2 * n)
+    if shard is None:
+        dt, bt, xt = _put(tree.device, diag, s * c0, c0)
+        x, iters, resid = cg_solve(op.to(tree.device), s, dt, bt, xt,
+                                   tol=consts.EPSILON_F32, max_iter=2 * n)
+    else:
+        blk = row_block(op, shard.size, shard.rank)
+        mine = slice(blk.lo, blk.lo + blk.rows)
+        pad = np.zeros(blk.width - blk.rows)
+        dt, bt, xt = _put(tree.device, *(np.concatenate([v[mine], pad + f])
+                                         for v, f in ((diag, 1.0),
+                                                      (s * c0, 0.0),
+                                                      (c0, 0.0))))
+        x, iters, resid = cg_solve_rows(blk.to(tree.device), s, dt, bt, xt,
+                                        consts.EPSILON_F32, 2 * n, shard)
+        order, = _put(tree.device, blk.order)
+        x = all_gather(x, shard)[order]
     if tree.config.enable_logging:
-        print(f"[hpsdf continuity] n={n} nnz={op.nnz} cg=f64 "
+        print(f"[hpsdf continuity] n={n} nnz={op.nnz} cg=f64"
+              f"{'' if shard is None else f' row-sharded over {shard.size}'} "
               f"iters={iters} residual={resid:.3e} "
               f"(tol {consts.EPSILON_F32:g}, max_iter {2 * n})")
     new_coeffs = tree.coeffs.clone()

@@ -44,6 +44,24 @@
 //       (16 lanes a row); kept for the comparison in chip_smoke.py, not on
 //       the solve's path.
 //
+// The row-sharded CG (continuity._cg_rows_kernels, enforce_continuity's
+// mesh=) gives each rank a contiguous block of leaves and their rows; its
+// dot products are sums over ranks, and a collective cannot sit between the
+// grid barriers of a cooperative launch, so an iteration there is K9 in its
+// partial mode and K9u split at its barrier, with the host's all-gather of
+// p and all-reduces of the dots between the launches on one stream:
+//   K9, partial mode (hpsdf_face_matvec_rows): the rank's leaves only, y
+//       into the rank's rows (row0 its first row in the gathered p), its
+//       share of p.y left in sc[kPAp]; alpha is not set.
+//   K9u's first launch, cg_update_rows_kernel: alpha = rz / p.Ap from the
+//       reduced sum, x += alpha p, r -= alpha Ap, z = r / diag kept in z,
+//       and the rank's r.z and r.r into sc[kRzPart] and sc[kRrPart].
+//   K9u's second launch, cg_direction_kernel: beta = r.z / rz from the
+//       reduced sums, p = z + beta p; its last block sets beta, rz, r.r, k
+//       and the flag, the reference's stopping rule on the global dots.
+// Each adds its blocks' partial sums in block order in its last block (an
+// atomic count of the blocks done), so the scalars never leave the card.
+//
 // Scalars on the card. Each launch writes one partial sum a block; K9's last
 // block to finish (an atomic count of the blocks done) and each of K9u's and
 // the persistent launch's blocks add the partials in block order. A launch
@@ -75,7 +93,7 @@ constexpr int kRowsPerWarp = 32 / kLanes;
 constexpr int kMaxBlocks = 4096;
 
 // the f64 scalars of the iteration (continuity._SC)
-enum { kRz = 0, kAlpha, kBeta, kRr, kThresh, kPAp };
+enum { kRz = 0, kAlpha, kBeta, kRr, kThresh, kPAp, kRzPart, kRrPart };
 // and the integers (continuity._ST)
 enum { kK = 0, kMaxIter, kActive, kCount };
 
@@ -117,6 +135,29 @@ __device__ __forceinline__ void sum_partials(const double* partials,
     for (int j = 0; j < N; ++j)
       total[j] += __ldcg(partials + j * gridDim.x + b);
   block_sum(total, smem);
+}
+
+// Adds v[0..N) of every block in block order in the launch's last block to
+// finish (an atomic count of the blocks done, reset by that block); true in
+// that block, whose thread 0 holds the totals.
+template <int N>
+__device__ __forceinline__ bool last_block_sums(double (&v)[N],
+                                                double* partials, int* st,
+                                                double* smem, bool* last) {
+  block_sum(v, smem);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) partials[j * gridDim.x + blockIdx.x] = v[j];
+    __threadfence();
+    *last = atomicAdd(reinterpret_cast<unsigned*>(st + kCount), 1u) ==
+            gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!*last) return false;
+  __threadfence();
+  sum_partials(partials, v, smem);
+  if (threadIdx.x == 0) st[kCount] = 0;
+  return true;
 }
 
 // --- the face operator -------------------------------------------------
@@ -273,15 +314,16 @@ __device__ __forceinline__ double leaf_row(const Faces& f, const Tables& t,
 }
 
 // The leaves of one group, leaf0, leaf0 + stride, ..., a lane a row: y_r
-// into y[row] or, LOCAL, into y in leaf order (the group's slice of shared
-// memory); returns the lane's sum of p_r y_r. The next leaf's row block and
-// face slots load while this one's rows run.
+// into y[row - row0] or, LOCAL, into y in leaf order (the group's slice of
+// shared memory); returns the lane's sum of p_r y_r. The next leaf's row
+// block and face slots load while this one's rows run.
 template <bool LOCAL>
 __device__ __forceinline__ double group_leaves(const Faces& f,
                                                const Tables& t,
                                                const double* p, double s,
                                                int64_t leaf0, int64_t stride,
-                                               int lane, double* y) {
+                                               int lane, double* y,
+                                               int64_t row0) {
   double pap = 0.0;
   int4 lf = make_int4(0, 0, 0, -1);
   int2 nb[6];
@@ -302,7 +344,7 @@ __device__ __forceinline__ double group_leaves(const Faces& f,
     }
     for (int r = lane; r < lf.y - lf.x; r += f.group) {
       const double yr = leaf_row(f, t, p, s, lf, nb, r);
-      y[LOCAL ? off + r : lf.x + r] = yr;
+      y[LOCAL ? off + r : lf.x + r - row0] = yr;
       pap = __fma_rn(p[lf.x + r], yr, pap);
     }
     off += lf.y - lf.x;
@@ -378,11 +420,13 @@ struct Group {
 };
 
 // K9 once on the face operator: a group of f.group lanes a leaf, the
-// leaves in a grid-stride loop; p.y and alpha as cg_matvec_kernel.
+// leaves in a grid-stride loop; p.y and alpha as cg_matvec_kernel. In the
+// partial mode (the row-sharded CG) y starts at row row0, and only p.y is
+// left in sc[kPAp], for the host to all-reduce.
 __global__ void __launch_bounds__(kThreads)
 face_matvec_kernel(Faces f, double s, const double* __restrict__ p,
-                   double* __restrict__ y, double* __restrict__ partials,
-                   double* sc, int* st) {
+                   double* __restrict__ y, int64_t row0, int partial,
+                   double* __restrict__ partials, double* sc, int* st) {
   __shared__ Tables t;
   __shared__ double smem[kWarps];
   __shared__ bool last;
@@ -394,24 +438,11 @@ face_matvec_kernel(Faces f, double s, const double* __restrict__ p,
   double pap[1] = {0.0};
   if (g.live())
     pap[0] = group_leaves<false>(f, t, p, s, blockIdx.x * groups + g.index,
-                                 gridDim.x * groups, g.lane, y);
-  block_sum(pap, smem);
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = pap[0];
-    __threadfence();
-    last = atomicAdd(reinterpret_cast<unsigned*>(st + kCount), 1u) ==
-           gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;                          // the last block finishes
-  __threadfence();
-  double total[1];
-  sum_partials(partials, total, smem);
-  if (threadIdx.x == 0) {
-    st[kCount] = 0;
-    sc[kPAp] = total[0];
-    sc[kAlpha] = sc[kRz] / total[0];
-  }
+                                 gridDim.x * groups, g.lane, y, row0);
+  // the last block finishes
+  if (!last_block_sums(pap, partials, st, smem, &last) || threadIdx.x) return;
+  sc[kPAp] = pap[0];
+  if (!partial) sc[kAlpha] = sc[kRz] / pap[0];
 }
 
 // `iters` CG iterations in one persistent cooperative launch (every block
@@ -452,7 +483,7 @@ cg_chunk_kernel(Faces f, int cap, double s, const double* __restrict__ minv,
     // (1) y = M p + s p of the group's leaves, and p.y
     double v1[1] = {0.0};
     if (g.live())
-      v1[0] = group_leaves<SMEM>(f, t, p, s, leaf0, stride, g.lane, y);
+      v1[0] = group_leaves<SMEM>(f, t, p, s, leaf0, stride, g.lane, y, 0);
     block_sum(v1, smem);
     if (threadIdx.x == 0) partials[blockIdx.x] = v1[0];
     grid.sync();
@@ -570,23 +601,10 @@ cg_matvec_kernel(const int32_t* __restrict__ rowptr,
       pap[0] = __fma_rn(pi, yi, pap[0]);
     }
   }
-  block_sum(pap, smem);
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = pap[0];
-    __threadfence();
-    last = atomicAdd(reinterpret_cast<unsigned*>(st + kCount), 1u) ==
-           gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;                          // the last block finishes
-  __threadfence();
-  double total[1];
-  sum_partials(partials, total, smem);
-  if (threadIdx.x == 0) {
-    st[kCount] = 0;
-    sc[kPAp] = total[0];
-    sc[kAlpha] = sc[kRz] / total[0];
-  }
+  // the last block finishes
+  if (!last_block_sums(pap, partials, st, smem, &last) || threadIdx.x) return;
+  sc[kPAp] = pap[0];
+  sc[kAlpha] = sc[kRz] / pap[0];
 }
 
 // A cooperative launch (every block resident).
@@ -641,6 +659,78 @@ cg_update_kernel(int64_t n, const double* __restrict__ Ap,
     st[kK] = k;
     st[kActive] = total[1] > sc[kThresh] && k < st[kMaxIter];
   }
+}
+
+// K9u's first launch in the row-sharded CG, over the rank's n rows: alpha =
+// rz / p.Ap (p.Ap all-reduced), x += alpha p, r -= alpha Ap, z = r / diag
+// (times the reciprocal) kept in z, and the rank's r.z and r.r into
+// sc[kRzPart] and sc[kRrPart]. The first form (INIT) leaves x and r as they
+// are (x, p and Ap are not read).
+template <bool INIT>
+__global__ void __launch_bounds__(kThreads)
+cg_update_rows_kernel(int64_t n, const double* __restrict__ Ap,
+                      const double* __restrict__ minv,
+                      double* __restrict__ x, double* __restrict__ r,
+                      const double* __restrict__ p, double* __restrict__ z,
+                      double* __restrict__ partials, double* sc, int* st) {
+  __shared__ double smem[2 * kWarps];
+  __shared__ bool last;
+  if (!INIT && !st[kActive]) return;          // uniform over the launch
+  const double alpha = INIT ? 0.0 : sc[kRz] / sc[kPAp];
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  double v[2] = {0.0, 0.0};                   // r.z, r.r
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += stride) {
+    double ri = r[i];
+    if (!INIT) {
+      x[i] = __fma_rn(alpha, p[i], x[i]);
+      ri = __fma_rn(-alpha, Ap[i], ri);
+      r[i] = ri;
+    }
+    const double zi = __dmul_rn(__ldg(minv + i), ri);
+    z[i] = zi;
+    v[0] = __fma_rn(ri, zi, v[0]);
+    v[1] = __fma_rn(ri, ri, v[1]);
+  }
+  if (!last_block_sums(v, partials, st, smem, &last) || threadIdx.x) return;
+  if (!INIT) sc[kAlpha] = alpha;
+  sc[kRzPart] = v[0];
+  sc[kRrPart] = v[1];
+}
+
+// K9u's second launch in the row-sharded CG, over the rank's n rows: beta =
+// r.z / rz (r.z all-reduced), p = z + beta p (the first form: p = z). Every
+// block reads rz before it counts itself done, and the last block then sets
+// beta, rz, r.r, the count k and the flag: r.r > tol^2 b.b and k < max_iter.
+template <bool INIT>
+__global__ void __launch_bounds__(kThreads)
+cg_direction_kernel(int64_t n, const double* __restrict__ z,
+                    double* __restrict__ p, double* sc, int* st) {
+  __shared__ bool last;
+  if (!INIT && !st[kActive]) return;          // uniform over the launch
+  const double rz_new = sc[kRzPart];
+  const double beta = INIT ? 0.0 : rz_new / sc[kRz];
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += stride)
+    p[i] = INIT ? z[i] : __fma_rn(beta, p[i], z[i]);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(reinterpret_cast<unsigned*>(st + kCount), 1u) ==
+           gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last || threadIdx.x) return;
+  __threadfence();
+  const int k = INIT ? 0 : st[kK] + 1;
+  const double rr = sc[kRrPart];
+  st[kCount] = 0;
+  sc[kBeta] = beta;
+  sc[kRz] = rz_new;
+  sc[kRr] = rr;
+  st[kK] = k;
+  st[kActive] = rr > sc[kThresh] && k < st[kMaxIter];
 }
 
 // The blocks a launch of `kernel` takes for `work` items of `per_block`:
@@ -787,6 +877,25 @@ extern "C" int64_t hpsdf_cg_chunk_blocks(int64_t smem) {
   return cap > kMaxBlocks ? kMaxBlocks : cap;
 }
 
+cudaError_t launch_face_matvec(const int* leaves, const int* slots,
+                               const int* xrowptr, const int* xcols,
+                               const double* xvals, int n_leaves, int group,
+                               int widest, int64_t row0, int partial,
+                               double s, const double* p, double* y,
+                               double* partials, double* sc, int* st,
+                               void* stream) {
+  if (n_leaves <= 0 || group < 1 || group > 32 || row0 < 0)
+    return cudaErrorInvalidValue;
+  static int cache = 0;
+  const Faces f = faces(leaves, slots, xrowptr, xcols, xvals, n_leaves,
+                        group, widest);
+  const int blocks = grid_for(face_matvec_kernel, n_leaves,
+                              kWarps * (32 / group), &cache);
+  face_matvec_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      f, s, p, y, row0, partial, partials, sc, st);
+  return cudaGetLastError();
+}
+
 // K9 once on the face operator (leaves (L, 4), slots (L, 6, 2), the
 // cross-depth CSR; `group` lanes a leaf, `widest` the widest row block):
 // y = M p + s p, sc[alpha] = sc[rz] / p.y (a no-op if st's flag is down).
@@ -796,15 +905,68 @@ extern "C" int hpsdf_face_matvec(const int* leaves, const int* slots,
                                  int group, int widest, int64_t n, double s,
                                  const double* p, double* y, double* partials,
                                  double* sc, int* st, void* stream) {
-  if (n <= 0 || n_leaves <= 0 || group < 1 || group > 32)
-    return (int)cudaErrorInvalidValue;
-  static int cache = 0;
-  const Faces f = faces(leaves, slots, xrowptr, xcols, xvals, n_leaves,
-                        group, widest);
-  const int blocks = grid_for(face_matvec_kernel, n_leaves,
-                              kWarps * (32 / group), &cache);
-  face_matvec_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      f, s, p, y, partials, sc, st);
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  return (int)launch_face_matvec(leaves, slots, xrowptr, xcols, xvals,
+                                 n_leaves, group, widest, 0, 0, s, p, y,
+                                 partials, sc, st, stream);
+}
+
+// K9's partial mode: the rank's leaves (their rows and neighbours in the
+// gathered p), y at rows row0, row0 + 1, ... into y[0], y[1], ...; the
+// rank's p.y into sc[kPAp], alpha not set (a no-op if st's flag is down).
+extern "C" int hpsdf_face_matvec_rows(const int* leaves, const int* slots,
+                                      const int* xrowptr, const int* xcols,
+                                      const double* xvals, int n_leaves,
+                                      int group, int widest, int64_t row0,
+                                      double s, const double* p, double* y,
+                                      double* partials, double* sc, int* st,
+                                      void* stream) {
+  return (int)launch_face_matvec(leaves, slots, xrowptr, xcols, xvals,
+                                 n_leaves, group, widest, row0, 1, s, p, y,
+                                 partials, sc, st, stream);
+}
+
+// K9u's first launch over n rows (init = 1: z = minv r and the dots only).
+extern "C" int hpsdf_cg_update_rows(int init, int64_t n, const double* Ap,
+                                    const double* minv, double* x, double* r,
+                                    const double* p, double* z,
+                                    double* partials, double* sc, int* st,
+                                    void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  static int cache[2] = {0, 0};
+  cudaStream_t stream_ = (cudaStream_t)stream;
+  if (init) {
+    const int blocks = grid_for(cg_update_rows_kernel<true>, n, kThreads,
+                                cache);
+    cg_update_rows_kernel<true><<<blocks, kThreads, 0, stream_>>>(
+        n, Ap, minv, x, r, p, z, partials, sc, st);
+  } else {
+    const int blocks = grid_for(cg_update_rows_kernel<false>, n, kThreads,
+                                cache + 1);
+    cg_update_rows_kernel<false><<<blocks, kThreads, 0, stream_>>>(
+        n, Ap, minv, x, r, p, z, partials, sc, st);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K9u's second launch over n rows (init = 1: p = z and iteration 0's state).
+extern "C" int hpsdf_cg_direction(int init, int64_t n, const double* z,
+                                  double* p, double* sc, int* st,
+                                  void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  static int cache[2] = {0, 0};
+  cudaStream_t stream_ = (cudaStream_t)stream;
+  if (init) {
+    const int blocks = grid_for(cg_direction_kernel<true>, n, kThreads,
+                                cache);
+    cg_direction_kernel<true><<<blocks, kThreads, 0, stream_>>>(n, z, p, sc,
+                                                               st);
+  } else {
+    const int blocks = grid_for(cg_direction_kernel<false>, n, kThreads,
+                                cache + 1);
+    cg_direction_kernel<false><<<blocks, kThreads, 0, stream_>>>(n, z, p,
+                                                                sc, st);
+  }
   return (int)cudaGetLastError();
 }
 

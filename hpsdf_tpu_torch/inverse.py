@@ -16,6 +16,12 @@ graph (the march's VJP needs only its ``t`` and ``hit``), which fixes the
 depth term's normaliser, the hit count over all chunks; then each chunk's
 terms are built and differentiated on their own into the gradients of the
 step's tables, which one backward carries to the parameters.
+
+With ``mesh`` (a ``torch.distributed`` DeviceMesh) each chunk's rays are
+split over the mesh's batch axis (hpsdf_tpu inverse.py:138-152): the hit
+count, the chunk losses and the tables' gradients are all-reduced before
+the backward to the parameters, the anchor term is added once after it,
+and Adam steps alike on every rank.
 """
 
 from __future__ import annotations
@@ -93,13 +99,16 @@ def fit_to_depth(tree: Octree, origins, dirs, target_t, target_hit,
     ``param_space``: "folded" (Adam on the normaliser-premultiplied
     coefficients, the packed rows' lanes) or "raw" (on ``tree.coeffs``).
     The learning rate warms up linearly over ``lr_warmup`` updates,
-    lr * min(1, (k + 1) / lr_warmup) at update k. ``mesh`` (rays sharded
-    over devices) is not ported yet and raises NotImplementedError.
+    lr * min(1, (k + 1) / lr_warmup) at update k. ``mesh``: a
+    ``torch.distributed`` DeviceMesh (``parallel.make_mesh``; every rank
+    calls with the same arguments): each chunk's rays are split over its
+    batch axis, padded with rays whose target_hit is False, and every rank
+    returns the same result; anything else but None raises TypeError.
     """
+    shard = None
     if mesh is not None:
-        raise NotImplementedError(
-            "fit_to_depth(mesh=...): sharding is not ported to "
-            "hpsdf_tpu_torch yet (ROADMAP.md, queue 1 'Sharding')")
+        from . import parallel
+        shard = parallel.batch_shard(mesh)
     if param_space not in ("folded", "raw"):
         raise ValueError(f"param_space must be 'folded' or 'raw', "
                          f"got {param_space!r}")
@@ -115,6 +124,10 @@ def fit_to_depth(tree: Octree, origins, dirs, target_t, target_hit,
     target_hit = torch.as_tensor(target_hit, dtype=torch.bool, device=dev)
     chunks = _padded_chunks(origins, dirs, target_t, target_hit,
                             min(ray_chunk, origins.shape[0]))
+    if shard is not None:       # this rank's share of each chunk
+        per = -(-chunks[0][0].shape[0] // shard.size) * shard.size
+        chunks = [tuple(parallel.share(x, shard)
+                        for x in _padded_chunks(*c, per)[0]) for c in chunks]
 
     fold = support.fold                      # f32 (Np, cw), > 0
     inv_fold = 1.0 / fold
@@ -144,8 +157,11 @@ def fit_to_depth(tree: Octree, origins, dirs, target_t, target_hit,
                                   grid=pk.grid.detach())
         marched = [R._march(pk0, o, d, t_max, R.HIT_EPS, max_steps,
                             STEP_CAP)[:2] for o, d, _, _ in chunks]
-        dn = torch.clamp(sum(torch.sum(h & th) for (_, _, _, th), (_, h)
-                             in zip(chunks, marched)).to(f32), min=1.0)
+        dn = sum(torch.sum(h & th) for (_, _, _, th), (_, h)
+                 in zip(chunks, marched)).to(f32).reshape(1)
+        if shard is not None:
+            parallel.all_reduce(dn, shard)
+        dn = torch.clamp(dn[0], min=1.0)
         # each chunk's terms into the gradients of this step's tables
         leaves = [x.detach().requires_grad_(True)
                   for x in (c32, pk.rows, pk.grid)]
@@ -159,10 +175,15 @@ def fit_to_depth(tree: Octree, origins, dirs, target_t, target_hit,
                     * torch.sum(m * (t - tt) ** 2) / dn)
             loss.backward()
             total = total + loss.detach()
-        torch.autograd.backward(
-            [c32, pk.rows, pk.grid],
-            [torch.zeros_like(x) if x.grad is None else x.grad
-             for x in leaves])
+        grads = [torch.zeros_like(x) if x.grad is None else x.grad
+                 for x in leaves]
+        if shard is not None:   # the sums over every rank's rays
+            flat = parallel.all_reduce(torch.cat(
+                [g.reshape(-1) for g in grads] + [total.reshape(1)]), shard)
+            grads = [v.view_as(g) for v, g in zip(
+                flat[:-1].split([g.numel() for g in grads]), grads)]
+            total = flat[-1]
+        torch.autograd.backward([c32, pk.rows, pk.grid], grads)
         anchor = np.float32(anchor_weight) * torch.mean((params - params0)
                                                         ** 2)
         anchor.backward()

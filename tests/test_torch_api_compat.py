@@ -67,15 +67,16 @@ def test_build_progress():
 
 @pytest.mark.parametrize("option", ["continuity_fn", "fit_mesh"])
 def test_build_refuses_unported(option):
-    """``fit_mesh`` (a sharded fit) raises. ``continuity_fn`` is ported;
-    what it cannot run yet is the row-sharded solve, and that raises."""
+    """A ``fit_mesh`` (a sharded fit), and the ``mesh`` of the row-sharded
+    solve that ``continuity_fn`` runs, must be torch.distributed
+    DeviceMeshes: any other object raises TypeError."""
     if option == "continuity_fn":
         fn = functools.partial(TC.enforce_continuity, mesh=object())
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             TB.build(T.Config(**{**_CFG, "continuity": True}), _sphere,
                      device="cpu", continuity_fn=fn)
         return
-    with pytest.raises(NotImplementedError, match=option):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TB.build(T.Config(**_CFG), _sphere, device="cpu",
                  **{option: object()})
 
@@ -105,7 +106,7 @@ def test_csg_forwards_keywords(op):
     out = getattr(T, op)(tree, lambda p: p[:, 0] - 0.1,
                          progress=lines.append)
     assert out.device == tree.device and lines
-    with pytest.raises(NotImplementedError, match="fit_mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         getattr(T, op)(tree, lambda p: p[:, 0], fit_mesh=object())
 
 

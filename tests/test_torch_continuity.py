@@ -285,7 +285,7 @@ def test_cg_modes_and_mesh(mixed_depth):
     for mode in ("mixed", "auto"):
         assert torch.equal(TC.enforce_continuity(tt, cg=mode).coeffs, f64)
     assert not torch.equal(f64, tt.coeffs)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TC.enforce_continuity(tt, mesh=object())
     with pytest.raises(ValueError, match="cg"):
         TC.enforce_continuity(tt, cg="f32")

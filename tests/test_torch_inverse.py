@@ -121,5 +121,5 @@ def test_refused_options(trees):
     with pytest.raises(ValueError, match="param_space"):
         T.inverse.fit_to_depth(ti, o, d, tt, th, n_steps=1,
                                param_space="bogus")
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         T.inverse.fit_to_depth(ti, o, d, tt, th, n_steps=1, mesh=object())

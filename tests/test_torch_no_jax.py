@@ -1,6 +1,6 @@
 """hpsdf_tpu_torch stands alone: importing it, its mesh package, its
-kernel bindings, the sphere tracer, inverse rendering, the continuity solve
-and the profiling helpers loads neither jax
+kernel bindings, the sphere tracer, inverse rendering, the continuity solve,
+the profiling helpers and sharding loads neither jax
 nor hpsdf_tpu, nor does importing the script that drives it on the card
 (chip_smoke.py), and no import statement in either names them."""
 
@@ -17,6 +17,7 @@ def test_import_leaves_out_jax_and_hpsdf_tpu():
         "import hpsdf_tpu_torch, hpsdf_tpu_torch.mesh, hpsdf_tpu_torch._kernels\n"
         "import hpsdf_tpu_torch.inverse, hpsdf_tpu_torch.render\n"
         "import hpsdf_tpu_torch.continuity, hpsdf_tpu_torch.profiling\n"
+        "import hpsdf_tpu_torch.parallel\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'hpsdf_tpu'))\n"
         "print(bad)\n"

@@ -124,19 +124,20 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
 
 
 @pytest.mark.parametrize("spill", [None, "K1", "K3", "K7", "G CSR", "K5F",
-                                   "K9u", "chunk", "K10", "K11"],
+                                   "K9u", "chunk", "rows", "K10", "K11"],
                          ids=["clean", "spills", "march_spills",
                               "backward_spills", "csr_spills",
                               "fused_spills", "cg_spills", "chunk_spills",
-                              "hybrid_spills", "walk_spills"])
+                              "rows_spills", "hybrid_spills", "walk_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
     K5's raw gradient (alone or fused with K2), K7 or K8 at degree 3 or 5,
     either form of G's backward, or the continuity kernels (K9 on the face
     operator and in PR 10's CSR form, K9u's two forms, both forms of the
-    persistent launch), K10 (either level count) or K11 has a stack frame
-    or spills."""
+    persistent launch, both forms of each of the row-sharded CG's two K9u
+    launches), K10 (either level count) or K11 has a stack frame or
+    spills."""
     from hpsdf_tpu_torch import _kernels
 
     report = "".join(
@@ -174,6 +175,12 @@ def test_ptxas_check(monkeypatch, spill):
                                args=f"Lb{init}E",
                                stack=8 if spill == "K9u" and init else 0)
     report += _ptxas_entry("face_matvec_kernel", 0, None, args="", regs=98)
+    for kernel in ("cg_update_rows_kernel", "cg_direction_kernel"):
+        for init in (0, 1):
+            report += _ptxas_entry(
+                kernel, 0, None, regs=32, args=f"Lb{init}E",
+                stack=8 if spill == "rows" and init
+                and kernel == "cg_update_rows_kernel" else 0)
     for smem in (0, 1):
         report += _ptxas_entry("cg_chunk_kernel", 0, None, regs=128,
                                args=f"Lb{smem}E",
@@ -193,6 +200,7 @@ def test_ptxas_check(monkeypatch, spill):
                 "K5F": "K5 raw 3/fused: stack 16",
                 "K9u": "K9u init: stack 8",
                 "chunk": "K9 \\+ K9u persistent shared: stack 16",
+                "rows": "K9u rows init: stack 8",
                 "K10": "K10 two levels: stack 8",
                 "K11": "K11 -: stack 8"}[spill]):
             chip_smoke.ptxas_check()
@@ -213,6 +221,9 @@ def test_ptxas_check(monkeypatch, spill):
     assert found["cone_kernel"] == {k: [40, 0, 0, 0]
                                     for k in ("3/full", "5/full", "2/lo")}
     assert found["cg_matvec_kernel"] == {"-": [32, 0, 0, 0]}
+    for kernel in ("cg_update_rows_kernel", "cg_direction_kernel"):
+        assert found[kernel] == {k: [32, 0, 0, 0]
+                                 for k in ("init", "iteration")}
     assert found["cg_update_kernel"] == {k: [32, 0, 0, 0]
                                          for k in ("init", "iteration")}
     assert found["face_matvec_kernel"] == {"-": [98, 0, 0, 0]}
