@@ -161,7 +161,8 @@ times and bound, serial floor), K4, the render path, K2/K5 at the main
 path's shapes, the degrees, the backward kernels, inverse rendering, the
 continuity post-process (three lines a size: checks, the run and its
 split, times), the mesh at scale (K10, K11), the sharded paths (three
-lines: one rank's checks, the new modes and times, two ranks), each
+lines: one rank's checks, the new modes and times at each continuity
+size, the reads' host cost, two ranks), each
 phase's seconds; then one JSON line with the kernels
 (K2/K5's launches also split into values and normals), the fit splits,
 the continuity runs and the sharded runs, the card's name and power limit
@@ -4275,6 +4276,114 @@ def sharding_rank(rank, size, port, cfg, tree_path, out_path):
     P.dist.destroy_process_group()
 
 
+def row_mode_times(fitted, shard, label, persistent_ms, smi):
+    """At one rank on a fitted tree's face operator: K9's partial mode and
+    K9u's two launches against their plain versions (``check_row_modes``),
+    the partial mode against K9 bit for bit; their times in CUDA graphs
+    beside their bounds and the plain versions'; an iteration of the
+    sharded CG (all-gather, K9, all-reduce, K9u, all-reduce, K9u) in a CUDA
+    graph, NCCL's collectives captured, and by events as the solve enqueues
+    it, beside ``persistent_ms``, [continuity]'s iteration of the
+    persistent launch on the same tree. Prints a line; returns the
+    numbers."""
+    from hpsdf_tpu_torch import continuity as TC
+    from hpsdf_tpu_torch import parallel as P
+
+    dev = fitted.device
+    s = float(fitted.config.continuity_strength)
+    op, blk, minv = row_block_of(fitted, s, 1, 0)
+    errs, abs_errs, p_all = check_row_modes(blk, s, minv, label)
+    full = TC.cg_matvec(op.to(dev), s, p_all)
+    part = TC.cg_matvec_rows(blk, s, p_all)
+    check(torch.equal(part[0], full[0]) and torch.equal(part[1], full[1]),
+          f"{label}: K9's partial mode at one rank against K9, bit for bit")
+    n = blk.rows
+    reps = SHARD_REPS if n > 1_000_000 else 10 * SHARD_REPS
+    g = torch.Generator(device=dev).manual_seed(17)
+    x0, b = (torch.randn(n, generator=g, dtype=torch.float64, device=dev)
+             for _ in range(2))
+    st9 = TC._State.new(dev, -1.0, 2 ** 31 - 1)
+    y = torch.zeros(n, dtype=torch.float64, device=dev)
+    k9_ms = graph_ms(lambda: TC._matvec_rows_launch(blk, s, p_all, y, st9),
+                     reps)
+    # a live CG state, as the solve's first launches leave it
+    state = TC._State.new(dev, -1.0, 2 ** 31 - 1)
+    gathered = torch.empty(blk.op.n, dtype=torch.float64, device=dev)
+    P.all_gather(x0, shard, gathered)
+    TC._matvec_rows_launch(blk, s, gathered, y, state)
+    x, r = x0.clone(), b - y
+    p, z = torch.zeros_like(b), torch.zeros_like(b)
+    TC._update_rows_launch(True, n, y, minv, x, r, p, z, state)
+    pap = state.sc[TC._SC["pap"]: TC._SC["pap"] + 1]
+    parts = state.sc[TC._SC["rz_part"]: TC._SC["rr_part"] + 1]
+    P.all_reduce(parts, shard)
+    TC._direction_launch(True, n, z, p, state)
+
+    def iteration():
+        P.all_gather(p, shard, gathered)
+        TC._matvec_rows_launch(blk, s, gathered, y, state)
+        P.all_reduce(pap, shard)
+        TC._update_rows_launch(False, n, y, minv, x, r, p, z, state)
+        P.all_reduce(parts, shard)
+        TC._direction_launch(False, n, z, p, state)
+
+    it_ms = time_ms(iteration, reps)
+    it_graph_ms = graph_ms(iteration, reps)
+    check(int(state.st[TC._ST["active"]]) == 1
+          and bool(torch.isfinite(state.sc).all()),
+          f"{label}: the timed iterations stayed live: {state.st.tolist()}")
+    st_u = TC._State.new(dev, -1.0, 2 ** 31 - 1, rz=1.0)
+    st_u.sc[TC._SC["pap"]] = 1e3
+    st_u.sc[TC._SC["rz_part"]] = 1.0
+    xu, ru, zu, pu = x.clone(), r.clone(), z.clone(), p.clone()
+    k9u_ms = graph_ms(lambda: TC._update_rows_launch(
+        False, n, y, minv, xu, ru, pu, zu, st_u), reps)
+    # at the 260k row the second launch's 42 MB would stay in the 50 MB L2
+    # from one launch to the next: it turns over four copies, as the
+    # solve's other vectors pass through L2 between two of its launches
+    copies = [(z.clone(), p.clone()) for _ in range(4)]
+    turn = iter(range(1 << 30))
+    dir_ms = graph_ms(lambda: TC._direction_launch(
+        False, n, *copies[next(turn) % 4], st_u), reps)
+    few = 3
+    plain = {"k9": time_ms(lambda: TC.face_matvec_rows_plain(blk, s, p_all),
+                           few),
+             "k9u": time_ms(lambda: TC.cg_update_rows_plain(
+                 False, 1.0, 1e3, p, y, minv, x, r), few),
+             "direction": time_ms(lambda: TC.cg_direction_plain(
+                 False, 1.0, 1.0, z, p), few)}
+    arrays = (blk.op.leaves, blk.op.slots, blk.op.xrowptr, blk.op.xcols,
+              blk.op.xvals)
+    bounds = {"k9": (bytes_ms(*arrays, extra=8 * (blk.op.n + n)),
+                     face_ops(blk.op)[0]),
+              "k9u": (8 * 8 * n / HBM_RATE * 1e3,
+                      2 * 5 * n / F64_PEAK * 1e3),
+              "direction": (3 * 8 * n / HBM_RATE * 1e3,
+                            2 * n / F64_PEAK * 1e3)}
+    out = {"rows": n, "errs": errs, "abs_errs": abs_errs,
+           "k9_ms": k9_ms, "k9u_ms": k9u_ms, "direction_ms": dir_ms,
+           "iteration_ms": it_ms, "iteration_graph_ms": it_graph_ms,
+           "persistent_iteration_ms": persistent_ms,
+           **{f"{k}_plain_ms": v for k, v in plain.items()},
+           **{f"{k}_bound_ms": max(v) for k, v in bounds.items()},
+           **{f"{k}_bound_by": "bytes" if v[0] >= v[1] else "operations"
+              for k, v in bounds.items()}}
+    print(f"[sharding] {label}, one rank: {smi} | n {n} | against plain "
+          f"(relative): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; K9's partial mode = K9 bit for bit | in CUDA graphs: K9 "
+          f"partial {k9_ms:.4f} ms (bound {out['k9_bound_ms']:.5f}, "
+          f"{out['k9_bound_by']}), K9u's first launch {k9u_ms:.4f} ms "
+          f"(bound {out['k9u_bound_ms']:.5f}), its second {dir_ms:.4f} ms "
+          f"(bound {out['direction_bound_ms']:.5f}); a sharded iteration "
+          f"(all-gather, K9, all-reduce, K9u, all-reduce, K9u) "
+          f"{it_graph_ms:.4f} ms in a CUDA graph, {it_ms:.4f} ms as the "
+          f"solve enqueues it, against the persistent launch's "
+          f"{persistent_ms:.4f} ms unsharded | plain: K9 {plain['k9']:.4f}, "
+          f"K9u {plain['k9u']:.4f}, direction {plain['direction']:.4f} ms",
+          flush=True)
+    return out
+
+
 def phase_sharding(tree, mesh, bvh, cfg, s_inv, solved, persistent_ms,
                    tree_path, smi):
     """The sharded paths at one NCCL rank on the card, at the main path's
@@ -4287,13 +4396,14 @@ def phase_sharding(tree, mesh, bvh, cfg, s_inv, solved, persistent_ms,
     SHARD_CG_RTOL / SHARD_CG_ATOL of [continuity]'s solves, counts within
     one; fit_to_depth(mesh=) for SHARD_INV_STEPS steps at 1080p, losses
     within SHARD_INV_RTOL. No launch of the unsharded CG's kernels. Then,
-    outside the count, K9's partial mode (bit for bit K9 at one rank) and
-    K9u's two launches against their plain versions at the 260k row, their
-    times in CUDA graphs beside their bounds, a sharded CG iteration's (in a
-    CUDA graph, NCCL's collectives captured, and by events as the solve
-    enqueues it, beside ``persistent_ms``, [continuity]'s iteration of the
-    persistent launch at the row) and shard_query's and shard_trace's
-    overhead; then the
+    outside the count, on both trees (``row_mode_times``), K9's partial mode
+    (bit for bit K9 at one rank) and K9u's two launches against their plain
+    versions, their times in CUDA graphs beside their bounds, a sharded CG
+    iteration's (in a CUDA graph, NCCL's collectives captured, and by
+    events as the solve
+    enqueues it, beside ``persistent_ms``, [continuity]'s iterations of
+    the persistent launch on the two trees) and shard_query's and
+    shard_trace's overhead; then the
     same at two gloo ranks on the card in processes of their own
     (``sharding_rank``). Returns (launches, the numbers)."""
     import torch.multiprocessing as tmp
@@ -4388,77 +4498,25 @@ def phase_sharding(tree, mesh, bvh, cfg, s_inv, solved, persistent_ms,
         check(launches[k] == 0, f"the sharded CG launched {k} "
               f"{launches[k]} times")
 
-    # K9's partial mode and K9u's two launches at the 260k row, one rank
-    fitted = solved[1]["fitted"]
-    s = float(fitted.config.continuity_strength)
-    op, blk, minv = row_block_of(fitted, s, 1, 0)
-    errs, abs_errs, p_all = check_row_modes(blk, s, minv, "one rank")
-    full = TC.cg_matvec(op.to(dev), s, p_all)
-    part = TC.cg_matvec_rows(blk, s, p_all)
-    check(torch.equal(part[0], full[0]) and torch.equal(part[1], full[1]),
-          "K9's partial mode at one rank against K9, bit for bit")
-    n = blk.rows
-    g = torch.Generator(device=dev).manual_seed(17)
-    x0, b = (torch.randn(n, generator=g, dtype=torch.float64, device=dev)
-             for _ in range(2))
-    st9 = TC._State.new(dev, -1.0, 2 ** 31 - 1)
-    y = torch.zeros(n, dtype=torch.float64, device=dev)
-    k9_ms = graph_ms(lambda: TC._matvec_rows_launch(blk, s, p_all, y, st9),
-                     SHARD_REPS)
-    # a live CG state, as the solve's first launches leave it
-    state = TC._State.new(dev, -1.0, 2 ** 31 - 1)
-    gathered = torch.empty(blk.op.n, dtype=torch.float64, device=dev)
-    P.all_gather(x0, shard, gathered)
-    TC._matvec_rows_launch(blk, s, gathered, y, state)
-    x, r = x0.clone(), b - y
-    p, z = torch.zeros_like(b), torch.zeros_like(b)
-    TC._update_rows_launch(True, n, y, minv, x, r, p, z, state)
-    pap = state.sc[TC._SC["pap"]: TC._SC["pap"] + 1]
-    parts = state.sc[TC._SC["rz_part"]: TC._SC["rr_part"] + 1]
-    P.all_reduce(parts, shard)
-    TC._direction_launch(True, n, z, p, state)
+    print(f"[sharding] one NCCL rank: {smi} | shard_query at {N_QUERY} "
+          f"points and shard_trace at {RAYS_SIDE}^2 rays (K4 + K3) bit for "
+          f"bit the one-device calls, {reads_s:.3f} s; build(fit_mesh=) of "
+          f"the slice bit for bit the slice tree, {fit_s:.3f} s against "
+          f"{fit_one_s:.3f} s on one device; row-sharded CG: "
+          + "; ".join(f"{k} {v['iterations']} iterations (one device "
+                      f"{v['one_device_iterations']}), max|diff| "
+                      f"{v['max_abs_diff']:.3e}, {v['seconds']:.3f} s"
+                      for k, v in cg.items())
+          + f", host syncs {host_syncs}; fit_to_depth 1080p "
+          f"{SHARD_INV_STEPS} steps {inv_s:.3f} s, losses "
+          f"{[f'{v:.6g}' for v in inv.tolist()]}, max relative "
+          f"difference {inv_rel:.3e} | launches {launches}", flush=True)
 
-    def iteration():
-        P.all_gather(p, shard, gathered)
-        TC._matvec_rows_launch(blk, s, gathered, y, state)
-        P.all_reduce(pap, shard)
-        TC._update_rows_launch(False, n, y, minv, x, r, p, z, state)
-        P.all_reduce(parts, shard)
-        TC._direction_launch(False, n, z, p, state)
-
-    it_ms = time_ms(iteration, SHARD_REPS)
-    it_graph_ms = graph_ms(iteration, SHARD_REPS)
-    check(int(state.st[TC._ST["active"]]) == 1
-          and bool(torch.isfinite(state.sc).all()),
-          f"the timed iterations stayed live: {state.st.tolist()}")
-    st_u = TC._State.new(dev, -1.0, 2 ** 31 - 1, rz=1.0)
-    st_u.sc[TC._SC["pap"]] = 1e3
-    st_u.sc[TC._SC["rz_part"]] = 1.0
-    xu, ru, zu, pu = x.clone(), r.clone(), z.clone(), p.clone()
-    k9u_ms = graph_ms(lambda: TC._update_rows_launch(
-        False, n, y, minv, xu, ru, pu, zu, st_u), SHARD_REPS)
-    # the second launch's 42 MB would stay in the 50 MB L2 from one launch
-    # to the next: turns over four copies, as the solve's other vectors
-    # pass through L2 between two of its launches
-    copies = [(z.clone(), p.clone()) for _ in range(4)]
-    turn = iter(range(1 << 30))
-    dir_ms = graph_ms(lambda: TC._direction_launch(
-        False, n, *copies[next(turn) % 4], st_u), SHARD_REPS)
-    few = 3
-    plain = {"k9": time_ms(lambda: TC.face_matvec_rows_plain(blk, s, p_all),
-                           few),
-             "k9u": time_ms(lambda: TC.cg_update_rows_plain(
-                 False, 1.0, 1e3, p, y, minv, x, r), few),
-             "direction": time_ms(lambda: TC.cg_direction_plain(
-                 False, 1.0, 1.0, z, p), few)}
-    arrays = (blk.op.leaves, blk.op.slots, blk.op.xrowptr, blk.op.xcols,
-              blk.op.xvals)
-    bounds = {"k9": (bytes_ms(*arrays, extra=8 * (blk.op.n + n)),
-                     face_ops(blk.op)[0]),
-              "k9u": (8 * 8 * n / HBM_RATE * 1e3,
-                      2 * 5 * n / F64_PEAK * 1e3),
-              "direction": (3 * 8 * n / HBM_RATE * 1e3,
-                            2 * n / F64_PEAK * 1e3)}
+    # K9's partial mode and K9u's two launches at one rank, both sizes
+    modes = {label: row_mode_times(sv["fitted"], shard, label, ms, smi)
+             for (label, sv), ms in zip((("fit_continuity", solved[0]),
+                                         ("row_260k", solved[1])),
+                                        persistent_ms)}
     overhead = {"shard_query_ms": wall_ms(
         lambda: P.shard_query(tree, pts, dmesh), 5),
         "query_ms": wall_ms(lambda: T.query(tree, pts), 5),
@@ -4493,42 +4551,11 @@ def phase_sharding(tree, mesh, bvh, cfg, s_inv, solved, persistent_ms,
            "reads_s": reads_s, "inverse_s": inv_s,
            "inverse_losses": inv.tolist(),
            "inverse_one_device": inv_one.tolist(), "inverse_rel_err": inv_rel,
-           "cg": cg, "host_syncs": host_syncs, "errs": errs,
-           "abs_errs": abs_errs, "two_ranks": two, "two_ranks_s": two_s,
-           "iteration_ms": it_ms, "iteration_graph_ms": it_graph_ms,
-           "persistent_iteration_ms": persistent_ms,
-           "k9_ms": k9_ms, "k9u_ms": k9u_ms, "direction_ms": dir_ms,
-           **{f"{k}_plain_ms": v for k, v in plain.items()},
-           **{f"{k}_bound_ms": max(v) for k, v in bounds.items()},
-           **{f"{k}_bound_by": "bytes" if v[0] >= v[1] else "operations"
-              for k, v in bounds.items()}, **overhead}
-    print(f"[sharding] one NCCL rank: {smi} | shard_query at {N_QUERY} "
-          f"points and shard_trace at {RAYS_SIDE}^2 rays (K4 + K3) bit for "
-          f"bit the one-device calls, {reads_s:.3f} s; build(fit_mesh=) of "
-          f"the slice bit for bit the slice tree, {fit_s:.3f} s against "
-          f"{fit_one_s:.3f} s on one device; row-sharded CG: "
-          + "; ".join(f"{k} {v['iterations']} iterations (one device "
-                      f"{v['one_device_iterations']}), max|diff| "
-                      f"{v['max_abs_diff']:.3e}, {v['seconds']:.3f} s"
-                      for k, v in cg.items())
-          + f", host syncs {host_syncs}; fit_to_depth 1080p "
-          f"{SHARD_INV_STEPS} steps {inv_s:.3f} s, losses "
-          f"{[f'{v:.6g}' for v in out['inverse_losses']]}, max relative "
-          f"difference {inv_rel:.3e} | launches {launches}", flush=True)
-    print(f"[sharding] 260k row, one rank: {smi} | against plain "
-          f"(relative): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-          + f"; K9's partial mode = K9 bit for bit | in CUDA graphs: K9 "
-          f"partial {k9_ms:.4f} ms (bound {out['k9_bound_ms']:.5f}, "
-          f"{out['k9_bound_by']}), K9u's first launch {k9u_ms:.4f} ms "
-          f"(bound {out['k9u_bound_ms']:.5f}), its second {dir_ms:.4f} ms "
-          f"(bound {out['direction_bound_ms']:.5f}); a sharded iteration "
-          f"(all-gather, K9, all-reduce, K9u, all-reduce, K9u) "
-          f"{it_graph_ms:.4f} ms in a CUDA graph, {it_ms:.4f} ms as the "
-          f"solve enqueues it, against the persistent launch's "
-          f"{persistent_ms:.4f} ms unsharded | plain: K9 {plain['k9']:.4f}, K9u "
-          f"{plain['k9u']:.4f}, direction {plain['direction']:.4f} ms | "
-          f"host ms a call: shard_query {overhead['shard_query_ms']:.3f} "
-          f"against query {overhead['query_ms']:.3f}, shard_trace "
+           "cg": cg, "host_syncs": host_syncs, "modes": modes,
+           "two_ranks": two, "two_ranks_s": two_s, **overhead}
+    print(f"[sharding] {smi} | host ms a call: shard_query "
+          f"{overhead['shard_query_ms']:.3f} against query "
+          f"{overhead['query_ms']:.3f}, shard_trace "
           f"{overhead['shard_trace_ms']:.3f} against trace "
           f"{overhead['trace_ms']:.3f}", flush=True)
     print(f"[sharding] two gloo ranks on the card: {smi} | "
@@ -4787,7 +4814,7 @@ def main():
     # --- 14. the sharded paths: one NCCL rank, then two gloo ranks --------
     launches_s, tsh = phase(
         "sharding", phase_sharding, tree, mesh, bvh, cfg, s_inv,
-        (solved_a, solved_b), tcb["iteration_ms"],
+        (solved_a, solved_b), (tca["iteration_ms"], tcb["iteration_ms"]),
         os.path.join(_kernels.BUILD_DIR, "chip_smoke_tree.npz"), smi)
 
     total = {k: launches[k] + launches_r[k] + launches_i[k]
@@ -4964,15 +4991,18 @@ def main():
         *({"name": name, "route": "cuda",
            "source": "hpsdf_tpu_torch/csrc/continuity.cu",
            "replaces": replaces, "launches": launches_s[name],
-           "max_abs_err": max(v for e in (tsh["abs_errs"],
-                                          tsh["two_ranks"]["abs_errs"])
-                              for k, v in e.items() if k.startswith(pre)),
-           "max_rel_err": max(v for e in (tsh["errs"],
-                                          tsh["two_ranks"]["errs"])
-                              for k, v in e.items() if k.startswith(pre)),
-           "ms": tsh[f"{key}_ms"], "plain_ms": tsh[f"{key}_plain_ms"],
-           "bound_ms": tsh[f"{key}_bound_ms"],
-           "bound_by": tsh[f"{key}_bound_by"],
+           "max_abs_err": max(v for e in (
+               *(m["abs_errs"] for m in tsh["modes"].values()),
+               tsh["two_ranks"]["abs_errs"])
+               for k, v in e.items() if k.startswith(pre)),
+           "max_rel_err": max(v for e in (
+               *(m["errs"] for m in tsh["modes"].values()),
+               tsh["two_ranks"]["errs"])
+               for k, v in e.items() if k.startswith(pre)),
+           **{k: tsh["modes"]["row_260k"][f"{key}_{k}"]
+              for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+           "fit_continuity": {k: tsh["modes"]["fit_continuity"][f"{key}_{k}"]
+                              for k in ("ms", "plain_ms", "bound_ms")},
            # K9's yardstick in [continuity]: torch.mv on the 260k row's
            # merged CSR, the same product at one rank
            "library_ms": tcb["k9_library_ms"] if key == "k9" else None,
