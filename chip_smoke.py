@@ -149,10 +149,28 @@ mode and K9u's two launches to their plain versions at the 260k row
 (the partial mode at one rank also to K9 bit for bit) and times them in
 CUDA graphs beside their bounds, an iteration of the sharded CG (in a
 CUDA graph and as the solve enqueues it) and the sharded reads' host
-cost over the unsharded ones. Then two gloo ranks on the one card, in
+cost over the unsharded ones. It holds the node axis's kernel modes in
+one process with no collective, on bench.py:626-668's complete depth-7
+octree (2,396,752 rows, degree 2) at 2^20 uniform points split into 1, 2
+and 3 blocks (complete_tree, phase_node_modes): K1's node-range descent
+rounds against their plain versions exactly, the summed leaves against
+the plain descent, its leaf evaluation against its plain version and the
+summed query against K1 within K1_VAL_ATOL (bit for bit or not, printed),
+K8's node-range mode against its plain version and, concatenated, its
+query form within GRAD_RTOL64; times them at one block in CUDA graphs
+(each round, the leaf, K8's mode) beside K1's query and K8's query form,
+their plain versions and bounds. Then two gloo ranks on the one card, in
 processes of their own (NCCL refuses two ranks on one device), repeat
 the checks at small sizes, with the partial modes on each rank's real
-row block.
+row block, and run the node axis on make_mesh(node_parallel=2), a (1, 2)
+mesh: the node-sharded shard_query of the complete tree within
+K1_VAL_ATOL of query, each rank's rows and bytes beside the replicated
+bytes, its collectives (depth_used + 1 all-reduces of the points' size
+over the node axis, one all-gather over the batch axis, none of node
+rows), its host ms beside the batch axis's shard_query, and two
+node-sharded train steps on the slice tree (the loss falls, within 1e-10
+of the one-device step's, coefficients within 1e-12); their counts give
+the node-range modes' launches.
 
 Phases, one line each: device, build, ptxas, mesh, P1 vs plain, the slice,
 P1 at the fit batch, K1 vs plain, times, G vs plain, the reference-default
@@ -160,9 +178,9 @@ fit, K2/K5 vs plain, K3 vs plain (three lines a tree: checks and rays,
 times and bound, serial floor), K4, the render path, K2/K5 at the main
 path's shapes, the degrees, the backward kernels, inverse rendering, the
 continuity post-process (three lines a size: checks, the run and its
-split, times), the mesh at scale (K10, K11), the sharded paths (three
-lines: one rank's checks, the new modes and times at each continuity
-size, the reads' host cost, two ranks), each
+split, times), the mesh at scale (K10, K11), the sharded paths (one
+rank's checks, the row modes and times at each continuity size, the
+node-range modes, the reads' host cost, two ranks, the node axis), each
 phase's seconds; then one JSON line with the kernels
 (K2/K5's launches also split into values and normals), the fit splits,
 the continuity runs and the sharded runs, the card's name and power limit
@@ -427,7 +445,8 @@ def counters():
     (``cg_update``), the persistent CG launch (``_chunk_launch``) and the
     row-sharded CG's K9 partial mode and K9u's two launches
     (``cg_matvec_rows``, ``cg_update_rows``, ``cg_direction``) each count
-    only their own kernel's launches."""
+    only their own kernel's launches; K1's node-range mode
+    (``query_nodes``) counts its descent rounds and leaf evaluations."""
     from hpsdf_tpu_torch.accel import (packed_eval_kernel, packed_grad_kernel,
                                        row_gather, row_scatter)
     from hpsdf_tpu_torch.continuity import (_chunk_launch, cg_direction,
@@ -435,7 +454,9 @@ def counters():
                                             cg_update, cg_update_rows)
     from hpsdf_tpu_torch.mesh import (closest_bvh, closest_tri_tiles,
                                       hybrid_closest)
-    from hpsdf_tpu_torch.query import coeff_scatter_kernel, query_kernel
+    from hpsdf_tpu_torch.query import (coeff_scatter_kernel,
+                                       coeff_scatter_nodes_kernel,
+                                       query_kernel, query_nodes_kernel)
     from hpsdf_tpu_torch.render import cone_kernel, march_kernel
     return {"closest_tri": (closest_tri_tiles, "launches"),
             "hybrid": (hybrid_closest, "launches"),
@@ -452,6 +473,8 @@ def counters():
             "row_scatter_csr": (row_scatter, "csr_launches"),
             "packed_grad": (packed_grad_kernel, "launches"),
             "coeff_scatter": (coeff_scatter_kernel, "launches"),
+            "query_nodes": (query_nodes_kernel, "launches"),
+            "coeff_scatter_nodes": (coeff_scatter_nodes_kernel, "launches"),
             "cg_matvec": (cg_matvec, "launches"),
             "cg_update": (cg_update, "launches"),
             "cg_chunk": (_chunk_launch, "launches"),
@@ -2187,16 +2210,12 @@ def node_walk(tree, unit):
     """The nodes each unit-cube point's descent on the generic tree visits
     (query.descend), one tensor a round: the root, then the node after each
     round (a point on a leaf keeps it). The last is its leaf."""
+    from hpsdf_tpu_torch.query import _round
+
     cur = torch.zeros(unit.shape[0], dtype=torch.long, device=unit.device)
     walk = [cur]
-    child_idx = tree.child_idx.long()
     for _ in range(tree.depth_used):
-        child0 = child_idx[cur]
-        cc = tree.centre[cur]
-        oct_ = ((unit[:, 0] >= cc[:, 0]).long()
-                + ((unit[:, 1] >= cc[:, 1]).long() << 1)
-                + ((unit[:, 2] >= cc[:, 2]).long() << 2))
-        cur = torch.where(child0 < 0, cur, child0 + oct_)
+        cur = _round(tree, cur, cur, unit)
         walk.append(cur)
     return walk
 
@@ -4194,6 +4213,241 @@ def row_block_of(tree, s, size, rank):
     return op, blk.to(tree.device), minv
 
 
+# the node axis: bench.py:626-668's complete octree (depth 7, 2,396,752
+# rows, degree 2, coefficients N(0, 0.01) from the seed) at bench.py:684's
+# 2^20 uniform points
+NODE_DEPTH = 7
+NODE_SEED = 0
+NODE_SPLITS = (1, 2, 3)             # blocks summed on one rank
+NODE_STEP_POINTS = 1 << 16          # the node-sharded train steps' points
+NODE_STEP_LR = 1e-4
+NODE_STEP_ATOL = 1e-12              # tests/test_parallel.py:62-84
+
+
+def complete_tree(depth, seed, device):
+    """bench.py:626-668's complete octree as the port's Octree: every level
+    full to ``depth``, in level order (level l starts at (8^l - 1) / 7 and
+    node s_l + j has its children at s_(l+1) + 8 j), the rows padded to a
+    multiple of 8, leaves of degree 2 with N(0, 0.01) coefficients from
+    ``seed``."""
+    import hpsdf_tpu_torch as T
+    from hpsdf_tpu_torch import consts
+
+    n_total = (8 ** (depth + 1) - 1) // 7
+    N = -(-n_total // 8) * 8
+    child = np.full(N, -1, np.int32)
+    dep = np.zeros(N, np.int32)
+    degree = np.full(N, -1, np.int32)
+    centre = np.zeros((N, 3), np.float64)
+    start = 0
+    for lvl in range(depth + 1):
+        cnt = 8 ** lvl
+        nxt = start + cnt
+        if lvl < depth:
+            child[start: nxt] = nxt + 8 * np.arange(cnt)
+        else:
+            degree[start: nxt] = 2
+        dep[start: nxt] = lvl
+        # the centre from the node's octal path (bit 0 x, 1 y, 2 z)
+        jj = np.arange(cnt, dtype=np.int64)
+        c = np.zeros((cnt, 3))
+        for lev in range(lvl, 0, -1):
+            digit = jj % 8
+            q = 2.0 ** -(lev + 1)
+            for a in range(3):
+                c[:, a] += q * (((digit >> a) & 1) * 2 - 1)
+            jj //= 8
+        centre[start: nxt] = c
+        start = nxt
+    coeffs = np.zeros((N, consts.coeff_count(2)))
+    leaf = degree >= 0
+    coeffs[leaf] = np.random.default_rng(seed).normal(
+        0, 0.01, (int(leaf.sum()), coeffs.shape[1]))
+    cfg = T.Config(target_error=1e-4, continuity=False, max_depth=depth,
+                   max_degree=2)
+    return T.from_numpy(dict(child_idx=child, centre=centre, depth=dep,
+                             degree=degree, coeffs=coeffs), N, 2, depth, cfg,
+                        device=device)
+
+
+def node_points(n, seed, device):
+    """bench.py:684's points: n uniform in the root, f64."""
+    return torch.as_tensor(np.random.default_rng(seed).uniform(
+        -0.5, 0.5, (n, 3)), device=device)
+
+
+def phase_node_modes(dev, smi, seed=NODE_SEED):
+    """K1's and K8's node-range modes in one process, no collective, on the
+    complete depth-NODE_DEPTH tree at 2^20 points: the tree split into 1, 2
+    and 3 blocks (NODE_SPLITS), each block's descent rounds and leaf
+    evaluation against their plain versions (the rounds exactly, the values
+    within K1_VAL_ATOL) and summed, the leaves equal to the plain descent's,
+    the values within K1_VAL_ATOL of K1's query (whether bit for bit is
+    recorded); K8's mode on each block against its plain version and, the
+    blocks concatenated, K8's query form within GRAD_RTOL64. Then at one
+    block, in CUDA graphs, each descent round, the leaf evaluation and K8's
+    mode, beside K1's query and K8's query form on the same tree and
+    points, the plain versions (by events) and the bounds. Prints a line;
+    returns the numbers. Its launches are not main-path launches."""
+    from hpsdf_tpu_torch import parallel as P
+    from hpsdf_tpu_torch.query import (
+        OUTSIDE_VALUE, _to_unit, coeff_scatter_kernel,
+        coeff_scatter_nodes_kernel, coeff_scatter_nodes_plain, descend,
+        descend_round_plain, leaf_eval_plain, query_kernel,
+        query_nodes_kernel)
+
+    counts = read_counts()
+    tree = complete_tree(NODE_DEPTH, seed, dev)
+    pts = node_points(N_QUERY, seed, dev)
+    unit = _to_unit(tree, pts)
+    inside = torch.all(unit.abs() <= 0.5, dim=-1)
+    clamped = unit.clamp(-0.5, 0.5)
+    leaves = descend(tree, clamped)
+    k1 = query_kernel(tree, pts, False)
+    w = torch.randn(N_QUERY, generator=torch.Generator(device=dev)
+                    .manual_seed(seed), dtype=torch.float64, device=dev)
+    k8 = coeff_scatter_kernel(tree, w, pts=pts)
+    errs = {"round": 0.0, "leaf": 0.0, "k1": 0.0, "k8": 0.0, "k8 query": 0.0,
+            "k8 abs": 0.0}
+    bit_for_bit = {}
+    for k in NODE_SPLITS:
+        blocks = [P.node_block(tree, k, r) for r in range(k)]
+        cur = torch.zeros(N_QUERY, dtype=torch.int32, device=dev)
+        for _ in range(tree.depth_used):
+            outs = [query_nodes_kernel(b, clamped, cur) for b in blocks]
+            for b, o in zip(blocks, outs):
+                check(torch.equal(o, descend_round_plain(b, clamped, cur)),
+                      f"K1's node-range round against plain, {k} blocks")
+            cur = torch.stack(outs).sum(0, dtype=torch.int32)
+        check(torch.equal(cur, leaves), f"the node-range descent's leaves "
+              f"against the plain descent, {k} blocks")
+        vals = [query_nodes_kernel(b, clamped, cur, leaf=True)
+                for b in blocks]
+        for b, v in zip(blocks, vals):
+            e = float((v - leaf_eval_plain(b, clamped, cur)).abs().max())
+            errs["leaf"] = max(errs["leaf"], e)
+            check(e <= K1_VAL_ATOL, f"K1's node-range leaf evaluation "
+                  f"against plain, {k} blocks: {e}")
+        v = torch.where(inside, torch.stack(vals).sum(0), OUTSIDE_VALUE)
+        e = float((v - k1).abs().max())
+        errs["k1"] = max(errs["k1"], e)
+        bit_for_bit[k] = bool(torch.equal(v, k1))
+        check(e <= K1_VAL_ATOL, f"the node-range query against K1, {k} "
+              f"blocks: {e}")
+        grads = [coeff_scatter_nodes_kernel(b, pts, cur, w) for b in blocks]
+        for b, g in zip(blocks, grads):
+            e = rel_err(g, coeff_scatter_nodes_plain(b, pts, cur, w))
+            errs["k8"] = max(errs["k8"], e)
+            check(e <= GRAD_RTOL64, f"K8's node-range mode against plain, "
+                  f"{k} blocks: {e}")
+        g = torch.cat(grads)
+        errs["k8 query"] = max(errs["k8 query"], rel_err(g, k8))
+        errs["k8 abs"] = max(errs["k8 abs"], float((g - k8).abs().max()))
+        check(errs["k8 query"] <= GRAD_RTOL64, f"K8's node-range mode "
+              f"against its query form, {k} blocks: {errs['k8 query']}")
+        del blocks, vals, grads, g
+
+    # times at one block: the whole tree in the node-range modes
+    blk = P.node_block(tree, 1, 0)
+    curs = [torch.zeros(N_QUERY, dtype=torch.int32, device=dev)]
+    for _ in range(tree.depth_used):
+        curs.append(query_nodes_kernel(blk, clamped, curs[-1]))
+    rounds = [graph_ms(lambda c=c: query_nodes_kernel(blk, clamped, c), 20)
+              for c in curs[:-1]]
+    leaf_ms = graph_ms(lambda: query_nodes_kernel(blk, clamped, leaves,
+                                                  leaf=True), 20)
+    k8n_ms = graph_ms(lambda: coeff_scatter_nodes_kernel(blk, pts, leaves, w),
+                      10)
+    t = {"rounds_ms": rounds, "leaf_ms": leaf_ms,
+         "ms": sum(rounds) + leaf_ms,
+         "k1_ms": graph_ms(lambda: query_kernel(tree, pts, False), 20),
+         "k8_ms": k8n_ms,
+         "k8_query_ms": graph_ms(lambda: coeff_scatter_kernel(
+             tree, w, pts=pts), 10)}
+
+    def plain_query():
+        c = curs[0]
+        for _ in range(tree.depth_used):
+            c = descend_round_plain(blk, clamped, c)
+        return leaf_eval_plain(blk, clamped, c)
+
+    t["plain_ms"] = time_ms(plain_query, 3)
+    t["k8_plain_ms"] = time_ms(lambda: coeff_scatter_nodes_plain(
+        blk, pts, leaves, w), 3)
+    # bounds: each input read once, each output written once, of what these
+    # points need: the points (24 B), the indices in and out (4 + 4 B), the
+    # rows of the distinct nodes a round reads (child_idx and centre, 28 B);
+    # the leaf evaluation's points, leaves and values (24 + 4 + 8 B) and its
+    # distinct leaves' rows (depth, centre, coefficients), with K1's f64
+    # operations less the descent; K8's points, leaves and cotangents (24 +
+    # 4 + 8 B), its leaves' depth and centre, the (N, C) output written
+    C = tree.coeffs.shape[1]
+    n_leaves = torch.unique(leaves).numel()
+    round_bytes = [N_QUERY * 32 + 28 * torch.unique(c).numel()
+                   for c in curs[:-1]]
+    leaf_bytes = N_QUERY * 36 + n_leaves * (4 + 24 + 8 * C)
+    leaf_ops = N_QUERY * k1_ops(tree.deg_used, 0, False) / F64_PEAK * 1e3
+    k8_bytes_n = N_QUERY * 36 + n_leaves * 28 + tree.coeffs.nbytes
+    rounds_bound = sum(bytes_ms(extra=b) for b in round_bytes)
+    leaf_bound = max(bytes_ms(extra=leaf_bytes), leaf_ops)
+    t.update(rounds_bound_ms=rounds_bound, leaf_bound_ms=leaf_bound,
+             bound_ms=rounds_bound + leaf_bound,
+             bound_by="bytes" if bytes_ms(extra=leaf_bytes) >= leaf_ops
+             else "operations",
+             k8_bound_ms=max(bytes_ms(extra=k8_bytes_n), leaf_ops),
+             k8_bound_by="bytes" if bytes_ms(extra=k8_bytes_n) >= leaf_ops
+             else "operations",
+             errs=errs, bit_for_bit=bit_for_bit, rows=tree.n_nodes,
+             leaves=n_leaves, node_bytes=sum(
+                 getattr(tree, k).nbytes for k in P._ARRAYS))
+    for name, (fn, attr) in counters().items():   # not main-path launches
+        setattr(fn, attr, counts[name])
+    print(f"[sharding] node-range modes, one rank, no collective: {smi} | "
+          f"the complete depth-{NODE_DEPTH} tree ({tree.n_nodes} rows, "
+          f"{t['node_bytes']} B) at {N_QUERY} points, split into "
+          f"{NODE_SPLITS} blocks: rounds equal plain's, leaves equal the "
+          f"plain descent's; leaf evaluation against plain {errs['leaf']:.2e}"
+          f", the summed query against K1 {errs['k1']:.2e} (bit for bit: "
+          f"{bit_for_bit}); K8's mode against plain {errs['k8']:.2e}, "
+          f"concatenated against its query form {errs['k8 query']:.2e} "
+          f"(relative) | in CUDA graphs at one block: rounds "
+          f"{[round(r, 4) for r in rounds]} ms (bound {rounds_bound:.4f}), "
+          f"leaf {leaf_ms:.4f} ms (bound {leaf_bound:.4f}), a query's "
+          f"launches {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}) against "
+          f"K1's {t['k1_ms']:.4f}; K8's mode {k8n_ms:.4f} ms (bound "
+          f"{t['k8_bound_ms']:.4f}) against its query form "
+          f"{t['k8_query_ms']:.4f} | plain: query {t['plain_ms']:.3f}, K8 "
+          f"{t['k8_plain_ms']:.3f} ms", flush=True)
+    return t
+
+
+@contextlib.contextmanager
+def collectives(axes):
+    """Every all_reduce and all-gather of hpsdf_tpu_torch.parallel made
+    while the block runs, as (axis, elements), the axis the name under which
+    ``axes`` holds the group it ran on ("other" for any other group)."""
+    from hpsdf_tpu_torch import parallel as P
+
+    seen, real = [], {k: getattr(P.dist, k)
+                      for k in ("all_reduce", "all_gather_into_tensor")}
+
+    def counted(name):
+        def call(*args, group=None, **kw):
+            x = args[1] if name == "all_gather_into_tensor" else args[0]
+            seen.append((next((a for a, g in axes.items() if g is group),
+                              "other"), x.numel()))
+            return real[name](*args, group=group, **kw)
+        return call
+
+    for name in real:
+        setattr(P.dist, name, counted(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(P.dist, name, fn)
+
+
 def sharding_rank(rank, size, port, cfg, tree_path, out_path):
     """One of ``size`` gloo ranks on the one card (NCCL refuses two ranks on
     one device), at SHARD_SMALL's sizes: shard_query and shard_trace (K4 +
@@ -4203,7 +4457,16 @@ def sharding_rank(rank, size, port, cfg, tree_path, out_path):
     SHARD_CG_ATOL of the one-device solve and its count within one; K9's
     partial mode and K9u's two launches against their plain versions on the
     rank's real block; fit_to_depth(mesh=) at SHARD_SMALL's inverse side,
-    losses within SHARD_INV_RTOL. Rank 0 writes what it saw to out_path."""
+    losses within SHARD_INV_RTOL; then on make_mesh(node_parallel=size),
+    the node-sharded shard_query of the complete depth-NODE_DEPTH tree at
+    2^20 points within K1_VAL_ATOL of query, its collectives
+    (depth_used + 1 over the node axis, each of the points' size, and the
+    batch axis's all-gather) and each rank's rows, and two node-sharded
+    train steps on the slice tree (the loss falling, the first within
+    1e-10 of the one-device step's, the coefficients within
+    NODE_STEP_ATOL), with the counts read after them; the host ms of a
+    node-sharded query beside the batch axis's. Rank 0 writes what it saw
+    to out_path."""
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch import continuity as TC
     from hpsdf_tpu_torch import parallel as P
@@ -4261,9 +4524,52 @@ def sharding_rank(rank, size, port, cfg, tree_path, out_path):
     inv_rel = float(((l_sh - l_one) / l_one).abs().max())
     check(inv_rel <= SHARD_INV_RTOL, f"{size} gloo ranks: fit_to_depth "
           f"losses {l_sh.tolist()} against {l_one.tolist()}")
+    # the node axis, on a (1, size) mesh: the complete tree's rows split
+    nmesh = P.make_mesh(node_parallel=size, device=dev)
+    big = complete_tree(NODE_DEPTH, NODE_SEED, dev)
+    bpts = node_points(N_QUERY, NODE_SEED, dev)
+    q_one = T.query(big, bpts)
+    block = P._shard_tree(big, nmesh, True)
+    nd = P.node_shard(nmesh, block.n_rows)
+    with collectives({"node": nd.group,
+                      "batch": P.batch_shard(nmesh).group}) as seen:
+        q_node = P.shard_query(block, bpts, nmesh, shard_nodes=True)
+    node_err = float((q_node - q_one).abs().max())
+    check(node_err <= K1_VAL_ATOL, f"{size} gloo ranks: the node-sharded "
+          f"shard_query against query: {node_err}")
+    want = [("node", N_QUERY)] * (big.depth_used + 1) + [("batch", N_QUERY)]
+    check(seen == want, f"{size} gloo ranks: the node-sharded query's "
+          f"collectives {seen}, not {want}")
+    whole_bytes = sum(getattr(big, k).nbytes for k in P._ARRAYS)
+    check(block.hi - block.lo <= -(-block.n_rows // size), f"{size} gloo "
+          f"ranks: rank {rank} holds {block.hi - block.lo} rows")
+    g = torch.Generator().manual_seed(NODE_SEED)
+    noisy = dataclasses.replace(tree, coeffs=tree.coeffs + 1e-3 * torch.randn(
+        tree.coeffs.shape, generator=g, dtype=torch.float64).to(dev))
+    tpts = torch.as_tensor(np.random.default_rng(43).uniform(
+        -0.4, 0.4, (NODE_STEP_POINTS, 3)), device=dev)
+    target = torch.linalg.norm(tpts, dim=-1) - 0.3
+    step = P.make_sharded_train_step(nmesh, noisy)
+    t1, l1 = step(noisy, tpts, target, lr=NODE_STEP_LR)
+    t2, l2 = step(t1, tpts, target, lr=NODE_STEP_LR)
+    t_one, l_step = P.train_step(noisy, tpts, target, NODE_STEP_LR)
+    step_err = float((P.gather_tree(t1, nmesh).coeffs
+                      - t_one.coeffs).abs().max())
+    losses = [float(l1), float(l2), float(l_step)]
+    check(isinstance(t2, P.ShardedTree) and losses[1] < losses[0]
+          and abs(losses[0] - losses[2]) <= 1e-10 * abs(losses[2])
+          and step_err <= NODE_STEP_ATOL, f"{size} gloo ranks: node-sharded "
+          f"train steps: losses {losses} (the last one device's), "
+          f"max|coeffs - one device's| {step_err}")
     launches = read_counts()
-    for k in ("cg_matvec_rows", "cg_update_rows", "cg_direction"):
+    for k in ("cg_matvec_rows", "cg_update_rows", "cg_direction",
+              "query_nodes", "coeff_scatter_nodes"):
         check(launches[k] > 0, f"{size} gloo ranks: {k} never launched")
+    # host ms a call, outside the count: the node-sharded query beside the
+    # batch axis's on the whole tree
+    node_ms = wall_ms(lambda: P.shard_query(block, bpts, nmesh,
+                                            shard_nodes=True), 5)
+    batch_ms = wall_ms(lambda: P.shard_query(big, bpts, dmesh), 5)
     if rank == 0:
         with open(out_path, "w") as fh:
             json.dump({"ranks": size, "backend": P.dist.get_backend(),
@@ -4272,7 +4578,19 @@ def sharding_rank(rank, size, port, cfg, tree_path, out_path):
                        "cg_iterations": iters, "inverse_losses":
                        l_sh.tolist(), "inverse_one_device": l_one.tolist(),
                        "inverse_rel_err": inv_rel, "errs": errs,
-                       "abs_errs": abs_errs, "launches": launches}, fh)
+                       "abs_errs": abs_errs, "launches": launches,
+                       "node": {
+                           "rows": block.hi - block.lo,
+                           "tree_rows": block.n_rows,
+                           "bytes": block.nbytes,
+                           "replicated_bytes": whole_bytes,
+                           "max_abs_err": node_err,
+                           "bit_for_bit": bool(torch.equal(q_node, q_one)),
+                           "collectives": seen,
+                           "shard_query_ms": node_ms,
+                           "batch_shard_query_ms": batch_ms,
+                           "step_losses": losses,
+                           "step_max_abs_diff": step_err}}, fh)
     P.dist.destroy_process_group()
 
 
@@ -4517,6 +4835,7 @@ def phase_sharding(tree, mesh, bvh, cfg, s_inv, solved, persistent_ms,
              for (label, sv), ms in zip((("fit_continuity", solved[0]),
                                          ("row_260k", solved[1])),
                                         persistent_ms)}
+    nodes = phase_node_modes(dev, smi)
     overhead = {"shard_query_ms": wall_ms(
         lambda: P.shard_query(tree, pts, dmesh), 5),
         "query_ms": wall_ms(lambda: T.query(tree, pts), 5),
@@ -4552,7 +4871,8 @@ def phase_sharding(tree, mesh, bvh, cfg, s_inv, solved, persistent_ms,
            "inverse_losses": inv.tolist(),
            "inverse_one_device": inv_one.tolist(), "inverse_rel_err": inv_rel,
            "cg": cg, "host_syncs": host_syncs, "modes": modes,
-           "two_ranks": two, "two_ranks_s": two_s, **overhead}
+           "node_modes": nodes, "two_ranks": two, "two_ranks_s": two_s,
+           **overhead}
     print(f"[sharding] {smi} | host ms a call: shard_query "
           f"{overhead['shard_query_ms']:.3f} against query "
           f"{overhead['query_ms']:.3f}, shard_trace "
@@ -4570,6 +4890,20 @@ def phase_sharding(tree, mesh, bvh, cfg, s_inv, solved, persistent_ms,
           + f"; fit_to_depth {SHARD_SMALL['inverse']}^2 max relative "
           f"difference {two['inverse_rel_err']:.3e} | rank 0's launches "
           f"{two['launches']}", flush=True)
+    nd = two["node"]
+    print(f"[sharding] the node axis, two gloo ranks on the card, mesh "
+          f"(1, 2): {smi} | the complete depth-{NODE_DEPTH} tree at "
+          f"{N_QUERY} points: shard_query(shard_nodes=True) against query "
+          f"max|diff| {nd['max_abs_err']:.3e} (bit for bit: "
+          f"{nd['bit_for_bit']}); rank 0 holds {nd['rows']} of "
+          f"{nd['tree_rows']} rows, {nd['bytes']} B against "
+          f"{nd['replicated_bytes']} B replicated; collectives a query "
+          f"{nd['collectives']}; host ms a call {nd['shard_query_ms']:.3f} "
+          f"against the batch axis's {nd['batch_shard_query_ms']:.3f} | "
+          f"two node-sharded train steps on the slice tree: losses "
+          f"{nd['step_losses'][:2]} (one device {nd['step_losses'][2]}), "
+          f"max|coeffs - one device's| {nd['step_max_abs_diff']:.3e}",
+          flush=True)
     return launches, out
 
 
@@ -4578,13 +4912,15 @@ PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
                  "row_scatter_kernel", "row_scatter_csr_kernel",
                  "cg_matvec_kernel", "cg_update_kernel", "face_matvec_kernel",
                  "cg_chunk_kernel", "cg_update_rows_kernel",
-                 "cg_direction_kernel", "hybrid_kernel", "bvh_walk_kernel")
+                 "cg_direction_kernel", "hybrid_kernel", "bvh_walk_kernel",
+                 "descend_nodes_kernel", "leaf_nodes_kernel",
+                 "coeff_scatter_nodes_kernel")
 
 
 def _ptxas_key(kernel, args):
     """The report's key for one instantiation, from its template arguments
     (ints, bools and the value type, in order)."""
-    if not args:                          # row_scatter(_csr), bvh_walk
+    if not args:        # row_scatter(_csr), bvh_walk, descend_nodes
         return "-"
     if kernel == "hybrid_kernel":
         return "two levels" if args[0] else "one level"
@@ -4603,7 +4939,7 @@ def _ptxas_key(kernel, args):
         return f"{args[0]}/form{args[1]}"
     if kernel == "cone_kernel":
         return f"{args[0]}/{'lo' if args[1] else 'full'}"
-    return str(args[0])                   # march_kernel: degree
+    return str(args[0])   # march, leaf_nodes, coeff_scatter_nodes: degree
 
 
 def ptxas_check():
@@ -4612,8 +4948,10 @@ def ptxas_check():
     gradient (alone and fused with K2), K7 and K8 at degrees 3 and 5 (the
     main paths'), both forms of G's backward, K9 (on the face operator and
     in its CSR form), K9u, both forms of the persistent launch, both forms
-    of each of the row-sharded CG's two K9u launches, both of K10 and K11
-    must have no stack frame and no spills. Returns
+    of each of the row-sharded CG's two K9u launches, both of K10 and K11,
+    K1's node-range descent round and, at degrees 3 and 5, its leaf
+    evaluation and K8's node-range mode must have no stack frame and no
+    spills. Returns
     {kernel: {key: [registers, stack, spill stores, spill loads]}}."""
     from hpsdf_tpu_torch import _kernels
 
@@ -4653,7 +4991,10 @@ def ptxas_check():
             ("K9u rows", "cg_update_rows_kernel", ("init", "iteration")),
             ("K9u direction", "cg_direction_kernel", ("init", "iteration")),
             ("K10", "hybrid_kernel", ("one level", "two levels")),
-            ("K11", "bvh_walk_kernel", ("-",))):
+            ("K11", "bvh_walk_kernel", ("-",)),
+            ("K1 node round", "descend_nodes_kernel", ("-",)),
+            ("K1 node leaf", "leaf_nodes_kernel", ("3", "5")),
+            ("K8 nodes", "coeff_scatter_nodes_kernel", ("3", "5"))):
         got = found.get(kernel, {})
         for key in keys:
             check(key in got, f"ptxas report for {name} {key}")
@@ -5016,6 +5357,33 @@ def main():
                "cg_update_rows_kernel"),
               ("cg_direction", "direction", "direction",
                "hpsdf_tpu/continuity.py:596", "cg_direction_kernel"))),
+        # the node-range modes: launches from the two gloo ranks' node-axis
+        # run (rank 0), the node axis's main path; times at one block
+        {"name": "query_nodes", "route": "cuda",
+         "source": "hpsdf_tpu_torch/csrc/query.cu",
+         "replaces": "hpsdf_tpu/query.py:37-66",
+         "launches": tsh["two_ranks"]["launches"]["query_nodes"],
+         "max_abs_err": max(tsh["node_modes"]["errs"]["leaf"],
+                            tsh["node_modes"]["errs"]["k1"],
+                            tsh["two_ranks"]["node"]["max_abs_err"]),
+         **{k: tsh["node_modes"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "rounds_ms",
+                      "leaf_ms", "rounds_bound_ms", "leaf_bound_ms", "k1_ms",
+                      "bit_for_bit")},
+         "library_ms": None,
+         "ptxas": {k: ptxas.get(k, {}) for k in ("descend_nodes_kernel",
+                                                  "leaf_nodes_kernel")}},
+        {"name": "coeff_scatter_nodes", "route": "cuda",
+         "source": "hpsdf_tpu_torch/csrc/coeff_scatter.cu",
+         "replaces": "hpsdf_tpu/query.py:70-88",
+         "launches": tsh["two_ranks"]["launches"]["coeff_scatter_nodes"],
+         "max_abs_err": tsh["node_modes"]["errs"]["k8 abs"],
+         "max_rel_err": max(tsh["node_modes"]["errs"]["k8"],
+                            tsh["node_modes"]["errs"]["k8 query"]),
+         **{k: tsh["node_modes"][f"k8_{k}"]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None, "query_form_ms": tsh["node_modes"]["k8_query_ms"],
+         "ptxas": ptxas.get("coeff_scatter_nodes_kernel", {})},
     ]
     print(f"[e2e] {smi} | carve {tr['carve_s']:.3f} s, render 512^2 "
           f"{tr['render_s']:.3f} s, hit fraction {frac:.4f} | 1024^2 march: "

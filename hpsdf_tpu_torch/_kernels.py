@@ -50,6 +50,8 @@ _SIGNATURES = {
                        _P),
     "hpsdf_query": (_P, _P, _P, _P, _I32, _I32, _P, _I64,
                     _F64, _F64, _F64, _F64, _F64, _F64, _I32, _P, _P, _P),
+    "hpsdf_descend_nodes": (_P, _P, _I32, _I32, _P, _P, _I64, _P, _P),
+    "hpsdf_leaf_nodes": (_P, _P, _P, _I32, _I32, _I32, _P, _P, _I64, _P, _P),
     "hpsdf_row_gather": (_P, _I64, _I64, _I64, _P, _I64, _P, _P),
     "hpsdf_packed_eval": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
                           _F32, _F32, _F32, _F32, _F32, _F32,
@@ -67,6 +69,9 @@ _SIGNATURES = {
     "hpsdf_coeff_scatter": (_P, _P, _P, _P, _I32, _I32, _P, _P, _P, _P, _P,
                             _I64, _F64, _F64, _F64, _F64, _F64, _F64,
                             _P, _I32, _I32, _P, _P),
+    "hpsdf_coeff_scatter_nodes": (_P, _P, _I32, _I32, _I32, _P, _P, _I64,
+                                  _F64, _F64, _F64, _F64, _F64, _F64, _P,
+                                  _I32, _P, _P),
     "hpsdf_cg_matvec": (_P, _P, _P, _I64, _F64, _P, _P, _P, _P, _P, _P),
     "hpsdf_cg_update": (_I32, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "hpsdf_cg_iterations": (_P, _P, _P, _I64, _F64, _P, _P, _P, _P, _P, _P,

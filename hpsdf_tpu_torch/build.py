@@ -13,10 +13,11 @@ separable Gauss-Legendre projection runs as three torch einsums. Chunks
 bound the points one F call sees (``BLOCK_PTS``) for memory only.
 
 A sharded fit (``fit_mesh``, a ``torch.distributed`` DeviceMesh) gives
-chunk j of every fit batch to rank j mod the mesh's batch axis and
-all-gathers the results: every F call and einsum sees the shapes of the
-one-device build, so the tree is the same bit for bit, and the host
-topology stays the same on every rank.
+chunk j of every fit batch to rank j mod the mesh's ranks (all of them, as
+the reference flattens its mesh) and all-gathers the results: every F
+call and einsum sees the shapes of the one-device build, so the tree is
+the same bit for bit, and the host topology stays the same on every
+rank.
 """
 
 from __future__ import annotations
@@ -246,13 +247,14 @@ def build(config: Config, F: SDFFn, *, continuity_fn=None,
     ``api.build_octree``) post-processes the packed tree when
     ``config.continuity`` is set. ``fit_mesh`` (a ``torch.distributed``
     DeviceMesh, ``parallel.make_mesh``; every rank calls ``build`` alike)
-    shards each fit batch's chunks over its batch axis; the tree is the
+    shards each fit batch's chunks over all its ranks
+    (``parallel.mesh_shard``); the tree is the
     one-device build's bit for bit (hpsdf_tpu build.py:789-793). Anything
     else but None raises TypeError."""
     shard = None
     if fit_mesh is not None:
-        from .parallel import batch_shard
-        shard = batch_shard(fit_mesh)
+        from .parallel import mesh_shard
+        shard = mesh_shard(fit_mesh)
     device = _device.resolve(device)
     config.validate()
     t0 = time.monotonic()

@@ -1188,13 +1188,14 @@ def enforce_continuity(tree: Octree, mesh=None, cg: str = "auto") -> Octree:
     ``cg``: "f64", "mixed" or "auto", all the f64 CG here (the H100 has
     f64; the reference's "mixed" exists for TPUs). ``mesh``: a
     ``torch.distributed`` DeviceMesh (``parallel.make_mesh``; every rank
-    calls with the same tree): the CG runs row-sharded over its batch axis
-    (``row_block``, ``cg_solve_rows``) and every rank returns the same
+    calls with the same tree): the CG runs row-sharded over all its ranks
+    (``parallel.mesh_shard``, as the reference flattens its mesh;
+    ``row_block``, ``cg_solve_rows``) and every rank returns the same
     tree; anything else but None raises TypeError."""
     shard = None
     if mesh is not None:
-        from .parallel import all_gather, batch_shard
-        shard = batch_shard(mesh)
+        from .parallel import all_gather, mesh_shard
+        shard = mesh_shard(mesh)
     if cg not in ("auto", "mixed", "f64"):
         raise ValueError(f"cg must be 'auto', 'mixed' or 'f64', not {cg!r}")
     st = _LeafView(tree)

@@ -47,6 +47,12 @@
 // in registers, stores in place of the atomics, the norms by double sqrt and
 // ldexp) are in PERF.md.
 //
+// The node-range mode (coeff_scatter_nodes_kernel) is the query form for a
+// rank of the node axis (hpsdf_tpu_torch/parallel.py), which holds a range
+// of the node rows: it takes each point's leaf from the forward's descent
+// and scatters only into the rank's rows, through the same transposed
+// scatter (scatter_terms).
+//
 // Bound. Per live point one descent (depth_used dependent loads), one
 // coefficient row (trace), the recurrences and C adds. A chunk has at most
 // some 15,000 live rays and its launch is short: what costs is the launch
@@ -129,6 +135,41 @@ __device__ __forceinline__ void term_indices(int m, int& i, int& j, int& k) {
   }
   j = m;
   k = p - i - j;
+}
+
+// Lane j sums term j (then j + 32, ...) over the warp's live rays (the
+// bits of `lanes`, the warp's first thread w0), a run of rays on one row at a
+// time, and adds each run's sum into d_coeffs with one atomic: a ray's axis
+// factors N in sN, its weight in sW and its row in sLeaf.
+template <class T, int DEG>
+__device__ __forceinline__ void scatter_terms(const T* sN, const T* sW,
+                                              const int* sLeaf,
+                                              unsigned lanes, int w0,
+                                              int lane, T* d_coeffs) {
+  constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
+  constexpr int kNS = 3 * (DEG + 1);
+#pragma unroll 1
+  for (int m = lane; m < ((kC + 31) & ~31); m += 32) {
+    int ix = 0, iy = 0, iz = 0;
+    if (m < kC) term_indices<DEG>(m, ix, iy, iz);
+    T acc = T(0);
+    int leaf = -1;
+    auto add_ray = [&](int r) {
+      const int lr = sLeaf[r];
+      if (lr != leaf) {
+        if (leaf >= 0 && m < kC)
+          atomicAdd(d_coeffs + (int64_t)leaf * kC + m, acc);
+        acc = T(0);
+        leaf = lr;
+      }
+      const T* n = sN + r * kNS;
+      acc += sW[r] * (n[ix] * n[DEG + 1 + iy] * n[2 * (DEG + 1) + iz]);
+    };
+#pragma unroll
+    for (int r = 0; r < 32; ++r)
+      if (lanes >> r & 1u) add_ray(w0 + r);
+    if (m < kC) atomicAdd(d_coeffs + (int64_t)leaf * kC + m, acc);
+  }
 }
 
 template <class T, int DEG, bool TRACE>
@@ -245,32 +286,74 @@ coeff_scatter_kernel(const int32_t* __restrict__ child_idx,
     sLeaf[tid] = cur;
   }
   __syncwarp();
+  scatter_terms<T, DEG>(sN, sW, sLeaf, lanes, tid - lane, lane, d_coeffs);
+}
 
-  // lane j sums term j (then j + 32, ...) over the warp's live rays, a run
-  // of rays on one leaf at a time, and adds each run's sum
-  const int w0 = tid - lane;
-#pragma unroll 1
-  for (int m = lane; m < ((kC + 31) & ~31); m += 32) {
-    int ix = 0, iy = 0, iz = 0;
-    if (m < kC) term_indices<DEG>(m, ix, iy, iz);
-    T acc = T(0);
-    int leaf = -1;
-    auto add_ray = [&](int r) {
-      const int lr = sLeaf[r];
-      if (lr != leaf) {
-        if (leaf >= 0 && m < kC)
-          atomicAdd(d_coeffs + (int64_t)leaf * kC + m, acc);
-        acc = T(0);
-        leaf = lr;
-      }
-      const T* n = sN + r * kNS;
-      acc += sW[r] * (n[ix] * n[DEG + 1 + iy] * n[2 * (DEG + 1) + iz]);
-    };
+// The node-range mode (the node axis, hpsdf_tpu_torch/parallel.py): the
+// query form's VJP into the rows [lo, hi) a rank holds, d_coeffs (hi - lo,
+// C), from each point's leaf (its global index, from the node-sharded
+// query's descent) in place of the descent, which would need rows the rank
+// lacks. A point carries a weight only where its leaf lies in the range;
+// otherwise as the query form, f64.
+template <int DEG>
+__global__ void __launch_bounds__(kThreads)
+coeff_scatter_nodes_kernel(const double* __restrict__ centre,
+                           const int32_t* __restrict__ depth, int lo, int hi,
+                           const double* __restrict__ pts,
+                           const int32_t* __restrict__ leaf, int64_t B,
+                           double rc0, double rc1, double rc2, double inv0,
+                           double inv1, double inv2,
+                           const double* __restrict__ cot, int outside_zero,
+                           double* __restrict__ d_coeffs) {
+  constexpr int kNS = 3 * (DEG + 1);
+  __shared__ double sN[kThreads * kNS];
+  __shared__ double sW[kThreads];
+  __shared__ int sLeaf[kThreads];   // the leaf's row in the rank's arrays
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int64_t i = (int64_t)blockIdx.x * kThreads + tid;
+  const double rc[3] = {rc0, rc1, rc2};
+  const double inv[3] = {inv0, inv1, inv2};
+
+  bool live = false;
+  int n = 0;
+  if (i < B) {
+    n = __ldg(leaf + i) - lo;
+    live = n >= 0 && n < hi - lo && __ldg(cot + i) != 0.0;
+    if (outside_zero) {
 #pragma unroll
-    for (int r = 0; r < 32; ++r)
-      if (lanes >> r & 1u) add_ray(w0 + r);
-    if (m < kC) atomicAdd(d_coeffs + (int64_t)leaf * kC + m, acc);
+      for (int k = 0; k < 3; ++k)
+        live = live &&
+               fabs((__ldg(pts + 3 * i + k) - rc[k]) * inv[k]) <= 0.5;
+    }
   }
+  const unsigned lanes = __ballot_sync(hpsdf::kFullWarp, live);
+  if (lanes == 0u) return;
+
+  if (live) {
+    double u[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const double w = (__ldg(pts + 3 * i + k) - rc[k]) * inv[k];
+      u[k] = w < -0.5 ? -0.5 : (w > 0.5 ? 0.5 : w);
+    }
+    const int d = __ldg(depth + n);
+    const double scale = pow2(d + 1);
+    const double* cc = centre + 3 * (int64_t)n;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      double L[DEG + 1];
+      hpsdf::legendre<DEG>((u[k] - __ldg(cc + k)) * scale, L);
+#pragma unroll
+      for (int q = 0; q <= DEG; ++q)
+        sN[tid * kNS + k * (DEG + 1) + q] =
+            L[q] * (odd_root(q, d & 1) * pow2(d >> 1));
+    }
+    sW[tid] = __ldg(cot + i);
+    sLeaf[tid] = n;
+  }
+  __syncwarp();
+  scatter_terms<double, DEG>(sN, sW, sLeaf, lanes, tid - lane, lane,
+                             d_coeffs);
 }
 
 }  // namespace
@@ -305,6 +388,29 @@ extern "C" int hpsdf_coeff_scatter(const int32_t* child_idx,
         depth_used, nullptr, tr, B, (float)rc0, (float)rc1, (float)rc2,      \
         (float)inv0, (float)inv1, (float)inv2, (const float*)cot,            \
         outside_zero, (float*)d_coeffs)
+  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
+#undef HPSDF_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// The node-range mode: d_coeffs (hi - lo, C) f64 of the rows [lo, hi), from
+// the points' global leaves (B,) and cotangents (B,); zeroed by the caller.
+extern "C" int hpsdf_coeff_scatter_nodes(const double* centre,
+                                         const int32_t* depth, int deg,
+                                         int lo, int hi, const double* pts,
+                                         const int32_t* leaf, int64_t B,
+                                         double rc0, double rc1, double rc2,
+                                         double inv0, double inv1,
+                                         double inv2, const double* cot,
+                                         int outside_zero, double* d_coeffs,
+                                         void* stream) {
+  if (B <= 0) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+#define HPSDF_LAUNCH(D)                                                      \
+  coeff_scatter_nodes_kernel<D><<<blocks, kThreads, 0, s>>>(                 \
+      centre, depth, lo, hi, pts, leaf, B, rc0, rc1, rc2, inv0, inv1, inv2,  \
+      cot, outside_zero, d_coeffs)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
   return (int)cudaGetLastError();

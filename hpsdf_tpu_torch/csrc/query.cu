@@ -38,6 +38,14 @@
 // depth_used dependent rounds of a child load and a centre (three scattered
 // loads a round), which keep their f64 decisions u >= centre, since a grid
 // lookup rounds differently at the faces.
+//
+// The node-range mode (descend_nodes_kernel, leaf_nodes_kernel) serves the
+// node axis of hpsdf_tpu_torch/parallel.py, where a rank holds a contiguous
+// range of the node rows and XLA's counterpart is the descent's gathers on
+// node-sharded arrays (hpsdf_tpu/parallel.py:89-97): one launch a descent
+// round and one for the leaf, each answering only the points whose node lies
+// in the rank's range, the ranks' answers summed between launches. The leaf
+// launch evaluates through query_kernel's own code (eval_leaf).
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -231,6 +239,43 @@ __device__ __forceinline__ void sum_row(double* tile,
   }
 }
 
+// Adds leaf n's basis at the clamped unit-cube point u into lf: its row
+// staged with the warp's when the warp reads more than kStageMin distinct
+// rows, the leaf frame and the recurrences while the rows arrive. Every lane
+// of the warp must call it. Returns the frame's scale 2^(depth+1).
+template <int DEG, bool WITH_GRAD>
+__device__ __forceinline__ double eval_leaf(
+    double* tile, const double** slot_row, const double* __restrict__ centre,
+    const int32_t* __restrict__ depth, const double* __restrict__ coeffs,
+    int n, const double (&u)[3], Leaf<DEG, WITH_GRAD>& lf) {
+  using S = Shape<DEG>;
+  const double* row = coeffs + (int64_t)n * S::kC;
+  const WarpSlots ws = warp_slots(row, slot_row);
+  const bool staged = ws.n > kStageMin;
+  if (staged) stage_rows<S::kStride>(tile, slot_row, ws.n, 0, S::kTile);
+  const int d = __ldg(depth + n);
+  double cc[3];
+  load_centre(centre, n, cc);
+  const double scale = ldexp(1.0, d + 1);
+  double nt[DEG + 1];
+  axis_norms<DEG>(d, nt);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    double L[DEG + 1];
+    hpsdf::legendre<DEG>((u[a] - cc[a]) * scale, L);
+#pragma unroll
+    for (int p = 0; p <= DEG; ++p) lf.N[a][p] = L[p] * nt[p];
+    if constexpr (WITH_GRAD) {
+      double dL[DEG + 1];
+      hpsdf::legendre_deriv<DEG>(L, dL);
+#pragma unroll
+      for (int p = 0; p <= DEG; ++p) lf.dN[a][p] = dL[p] * nt[p];
+    }
+  }
+  sum_row<DEG, WITH_GRAD>(tile, slot_row, ws, staged, row, lf);
+  return scale;
+}
+
 template <int DEG, bool WITH_GRAD>
 __global__ void __launch_bounds__(kThreads)
 query_kernel(const int32_t* __restrict__ child_idx,
@@ -267,34 +312,10 @@ query_kernel(const int32_t* __restrict__ child_idx,
           ((u[2] >= cc[2]) << 2);
   }
 
-  const double* row = coeffs + (int64_t)cur * S::kC;
   const int warp = threadIdx.x >> 5;
-  const WarpSlots ws = warp_slots(row, slot_rows[warp]);
-  const bool staged = ws.n > kStageMin;
-  if (staged)
-    stage_rows<S::kStride>(tiles[warp], slot_rows[warp], ws.n, 0, S::kTile);
-  // the leaf frame and the recurrences while the rows arrive
-  const int d = __ldg(depth + cur);
-  double cc[3];
-  load_centre(centre, cur, cc);
-  const double scale = ldexp(1.0, d + 1);
-  double nt[DEG + 1];
-  axis_norms<DEG>(d, nt);
   Leaf<DEG, WITH_GRAD> lf{};
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    double L[DEG + 1];
-    hpsdf::legendre<DEG>((u[a] - cc[a]) * scale, L);
-#pragma unroll
-    for (int p = 0; p <= DEG; ++p) lf.N[a][p] = L[p] * nt[p];
-    if constexpr (WITH_GRAD) {
-      double dL[DEG + 1];
-      hpsdf::legendre_deriv<DEG>(L, dL);
-#pragma unroll
-      for (int p = 0; p <= DEG; ++p) lf.dN[a][p] = dL[p] * nt[p];
-    }
-  }
-  sum_row<DEG, WITH_GRAD>(tiles[warp], slot_rows[warp], ws, staged, row, lf);
+  const double scale = eval_leaf<DEG, WITH_GRAD>(
+      tiles[warp], slot_rows[warp], centre, depth, coeffs, cur, u, lf);
   if (i >= B) return;
   val[i] = (outside_max && !inside) ? DBL_MAX : lf.v;
 
@@ -309,6 +330,73 @@ query_kernel(const int32_t* __restrict__ child_idx,
     grad[3 * i + 1] = g1 / den;
     grad[3 * i + 2] = g2 / den;
   }
+}
+
+// --- the node-range mode (the node axis, hpsdf_tpu_torch/parallel.py) ------
+//
+// A rank holds the rows [lo, hi) of the node arrays, row n of its arrays
+// being node lo + n, and a query is depth_used descent rounds and one leaf
+// evaluation, each summed over the node axis's ranks between launches. In
+// both launches a rank answers the points whose node lies in its range and
+// writes 0 for every other point: exactly one rank answers each point, so
+// the sum is the answer, exactly.
+
+// One descent round: cur's next node, cur itself on a leaf, from the f64
+// decisions of query_kernel's descent (u >= centre).
+__global__ void __launch_bounds__(kThreads)
+descend_nodes_kernel(const int32_t* __restrict__ child_idx,
+                     const double* __restrict__ centre, int lo, int hi,
+                     const double* __restrict__ unit,
+                     const int32_t* __restrict__ cur, int64_t B,
+                     int32_t* __restrict__ next) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= B) return;
+  const int c = __ldg(cur + i);
+  int out = 0;
+  if (c >= lo && c < hi) {
+    const int c0 = __ldg(child_idx + (c - lo));
+    out = c;
+    if (c0 >= 0) {
+      double cc[3];
+      load_centre(centre, c - lo, cc);
+      const double* u = unit + 3 * i;
+      out = c0 + (__ldg(u) >= cc[0]) + ((__ldg(u + 1) >= cc[1]) << 1) +
+            ((__ldg(u + 2) >= cc[2]) << 2);
+    }
+  }
+  next[i] = out;
+}
+
+// The leaf evaluation: query_kernel's (eval_leaf) at the leaves in range. A
+// point another rank answers reads row 0 with the warp and writes 0; a rank
+// with no rows writes 0 everywhere.
+template <int DEG>
+__global__ void __launch_bounds__(kThreads)
+leaf_nodes_kernel(const double* __restrict__ centre,
+                  const int32_t* __restrict__ depth,
+                  const double* __restrict__ coeffs, int lo, int hi,
+                  const double* __restrict__ unit,
+                  const int32_t* __restrict__ leaf, int64_t B,
+                  double* __restrict__ val) {
+  using S = Shape<DEG>;
+  __shared__ double tiles[kWarps][32 * S::kStride];
+  __shared__ const double* slot_rows[kWarps][32];
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (hi <= lo) {
+    if (i < B) val[i] = 0.0;
+    return;
+  }
+  const int64_t ip = i < B ? i : B - 1;     // spare lanes repeat the last point
+  const int c = __ldg(leaf + ip);
+  const bool own = c >= lo && c < hi;
+  double u[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) u[a] = __ldg(unit + 3 * ip + a);
+  const int warp = threadIdx.x >> 5;
+  Leaf<DEG, false> lf{};
+  eval_leaf<DEG, false>(tiles[warp], slot_rows[warp], centre, depth, coeffs,
+                        own ? c - lo : 0, u, lf);
+  if (i < B) val[i] = own ? lf.v : 0.0;
 }
 
 }  // namespace
@@ -341,5 +429,38 @@ extern "C" int hpsdf_query(const int32_t* child_idx, const double* centre,
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
 #undef HPSDF_ARGS
+  return (int)cudaGetLastError();
+}
+
+// K1's node-range mode, one descent round: next (B,) from cur (B,), the
+// rank's child_idx and centre rows [lo, hi) and the clamped unit-cube points.
+extern "C" int hpsdf_descend_nodes(const int32_t* child_idx,
+                                   const double* centre, int lo, int hi,
+                                   const double* unit, const int32_t* cur,
+                                   int64_t B, int32_t* next, void* stream) {
+  if (B <= 0) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+  descend_nodes_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      child_idx, centre, lo, hi, unit, cur, B, next);
+  return (int)cudaGetLastError();
+}
+
+// K1's node-range mode, the leaf evaluation: val (B,) at the leaves (B,) in
+// [lo, hi), 0 elsewhere.
+extern "C" int hpsdf_leaf_nodes(const double* centre, const int32_t* depth,
+                                const double* coeffs, int deg, int lo, int hi,
+                                const double* unit, const int32_t* leaf,
+                                int64_t B, double* val, void* stream) {
+  if (B <= 0) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+#define HPSDF_LAUNCH(D)                                                      \
+  cudaFuncSetAttribute(leaf_nodes_kernel<D>,                                 \
+                       cudaFuncAttributePreferredSharedMemoryCarveout,       \
+                       kCarveout);                                           \
+  leaf_nodes_kernel<D><<<blocks, kThreads, 0, s>>>(                        \
+      centre, depth, coeffs, lo, hi, unit, leaf, B, val)
+  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
+#undef HPSDF_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -102,7 +102,8 @@ def fit_to_depth(tree: Octree, origins, dirs, target_t, target_hit,
     lr * min(1, (k + 1) / lr_warmup) at update k. ``mesh``: a
     ``torch.distributed`` DeviceMesh (``parallel.make_mesh``; every rank
     calls with the same arguments): each chunk's rays are split over its
-    batch axis, padded with rays whose target_hit is False, and every rank
+    batch axis (the work repeated over a node axis, where the reference
+    replicates), padded with rays whose target_hit is False, and every rank
     returns the same result; anything else but None raises TypeError.
     """
     shard = None

@@ -20,6 +20,13 @@ products into its leaf's coefficients, in f64; the same kernel serves the
 sphere tracer's implicit VJP in f32 (``render.trace``). ``query`` with
 respect to the points and ``query_with_gradient`` have no backward kernel
 and raise on CUDA tensors when an input requires a gradient.
+
+The node axis of ``parallel.py`` splits the node arrays over ranks; there
+a query is ``descend_round`` depth_used times and ``leaf_eval`` once, each
+summed over the ranks, and its VJP ``coeff_scatter_nodes``: the node-range
+modes of K1 (``query_nodes_kernel``) and K8
+(``coeff_scatter_nodes_kernel``) on CUDA tensors, their plain versions on
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -47,21 +54,35 @@ def _to_unit(tree: Octree, pts: torch.Tensor) -> torch.Tensor:
     return (pts - centre) * inv
 
 
+def _round(tree, row: torch.Tensor, cur: torch.Tensor,
+           unit_pts: torch.Tensor) -> torch.Tensor:
+    """One descent round from the nodes ``cur`` (long), row ``row`` of the
+    tree's arrays: child_idx + (x>=cx) + 2(y>=cy) + 4(z>=cz), or ``cur``
+    itself on a leaf."""
+    child0 = tree.child_idx[row].long()
+    cc = tree.centre[row]
+    oct_ = ((unit_pts[..., 0] >= cc[..., 0]).long()
+            + ((unit_pts[..., 1] >= cc[..., 1]).long() << 1)
+            + ((unit_pts[..., 2] >= cc[..., 2]).long() << 2))
+    return torch.where(child0 < 0, cur, child0 + oct_)
+
+
 def descend(tree: Octree, unit_pts: torch.Tensor) -> torch.Tensor:
     """Leaf index (B,) i32 containing each unit-cube point (B, 3): depth_used
-    rounds of child = child_idx[cur] + (x>=cx) + 2(y>=cy) + 4(z>=cz), with
-    leaves carried unchanged."""
+    rounds (``_round``), leaves carried unchanged."""
     cur = torch.zeros(unit_pts.shape[:-1], dtype=torch.long,
                       device=unit_pts.device)
-    child_idx = tree.child_idx.long()
     for _ in range(tree.depth_used):
-        child0 = child_idx[cur]
-        cc = tree.centre[cur]
-        oct_ = ((unit_pts[..., 0] >= cc[..., 0]).long()
-                + ((unit_pts[..., 1] >= cc[..., 1]).long() << 1)
-                + ((unit_pts[..., 2] >= cc[..., 2]).long() << 2))
-        cur = torch.where(child0 < 0, cur, child0 + oct_)
+        cur = _round(tree, cur, cur, unit_pts)
     return cur.int()
+
+
+def _frame(tree, row: torch.Tensor, clamped: torch.Tensor):
+    """The points in the [-1, 1]^3 frames of the leaves at row ``row`` of
+    the tree's arrays: (local, depth, 2**(depth+1))."""
+    depth = tree.depth[row]
+    scale = torch.exp2((depth + 1).to(clamped.dtype))
+    return (clamped - tree.centre[row]) * scale[..., None], depth, scale
 
 
 def _leaf_frame(tree: Octree, pts: torch.Tensor):
@@ -71,9 +92,7 @@ def _leaf_frame(tree: Octree, pts: torch.Tensor):
     inside = torch.all(unit.abs() <= 0.5, dim=-1)
     clamped = unit.clamp(-0.5, 0.5)
     leaf = descend(tree, clamped).long()
-    depth = tree.depth[leaf]
-    scale = torch.exp2((depth + 1).to(pts.dtype))
-    local = (clamped - tree.centre[leaf]) * scale[..., None]
+    local, depth, scale = _frame(tree, leaf, clamped)
     return inside, tree.coeffs[leaf], local, depth, scale
 
 
@@ -231,6 +250,198 @@ def query_vjp_plain(tree: Octree, pts: torch.Tensor, w: torch.Tensor,
                         pts.detach(), outside_value_max)
         (d,) = torch.autograd.grad(v, coeffs, w)
     return d
+
+
+# --------------------------------------------------------------------------
+# The node-range modes of K1 and K8 (the node axis of parallel.py)
+# --------------------------------------------------------------------------
+#
+# ``block`` is a rank's share of a node-sharded tree
+# (``parallel.ShardedTree``): the rows [block.lo, block.hi) of the node
+# arrays, row n being node lo + n, child indices global. A rank answers the
+# points whose node lies in its range and gives 0 for every other point, so
+# the sum over the node axis's ranks is the one-device answer, exactly.
+
+def _block_rows(block, idx: torch.Tensor):
+    """Each global node index's row in the block's arrays (row 0 where the
+    block does not hold it), and whether it holds it."""
+    idx = idx.long()
+    own = (idx >= block.lo) & (idx < block.hi)
+    return torch.where(own, idx - block.lo, 0), own
+
+
+def descend_round_plain(block, unit: torch.Tensor,
+                        cur: torch.Tensor) -> torch.Tensor:
+    """K1's node-range descent round by plain torch: for each clamped
+    unit-cube point (B, 3) whose node ``cur`` (B,) lies in the block, its
+    next node (``descend``'s round: ``cur`` itself on a leaf); 0 elsewhere.
+    Returns (B,) i32."""
+    if block.hi <= block.lo:
+        return torch.zeros_like(cur, dtype=torch.int32)
+    row, own = _block_rows(block, cur)
+    return torch.where(own, _round(block, row, cur.long(), unit), 0).int()
+
+
+def leaf_eval_plain(block, unit: torch.Tensor,
+                    leaf: torch.Tensor) -> torch.Tensor:
+    """K1's node-range leaf evaluation by plain torch: the value (B,) f64 of
+    each clamped unit-cube point whose leaf lies in the block, as
+    ``query_plain`` evaluates it; 0 elsewhere."""
+    if block.hi <= block.lo:
+        return torch.zeros(unit.shape[:-1], dtype=unit.dtype,
+                           device=unit.device)
+    row, own = _block_rows(block, leaf)
+    local, depth, _ = _frame(block, row, unit)
+    val = basis.eval_basis(block.coeffs[row], local, depth, block.deg_used)
+    return torch.where(own, val, 0.0)
+
+
+def query_nodes_kernel(block, unit: torch.Tensor, idx: torch.Tensor,
+                       leaf: bool = False) -> torch.Tensor:
+    """Launch K1's node-range mode on CUDA tensors: with ``leaf`` False one
+    descent round (``descend_round_plain``), (B,) i32; with ``leaf`` the
+    leaf evaluation at the leaves ``idx`` (``leaf_eval_plain``), (B,) f64.
+    ``unit``: the clamped unit-cube points (B, 3) f64; ``idx``: (B,) i32
+    global node indices. Raises on anything else."""
+    if unit.device.type != "cuda" or block.device != unit.device \
+            or idx.device != unit.device:
+        raise ValueError("query_nodes_kernel needs the block, the points and "
+                         f"the indices on one CUDA device (block "
+                         f"{block.device}, points {unit.device}, indices "
+                         f"{idx.device})")
+    B = unit.shape[0]
+    if unit.dtype != torch.float64 or unit.shape != (B, 3) \
+            or idx.dtype != torch.int32 or idx.shape != (B,):
+        raise ValueError("unit must be f64 (B, 3) and idx i32 (B,), got "
+                         f"{unit.dtype} {tuple(unit.shape)}, {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+    for name, t, dt in (("child_idx", block.child_idx, torch.int32),
+                        ("centre", block.centre, torch.float64),
+                        ("depth", block.depth, torch.int32),
+                        ("coeffs", block.coeffs, torch.float64)):
+        if t.dtype != dt or not t.is_contiguous() \
+                or t.shape[0] != block.hi - block.lo:
+            raise ValueError(f"block.{name} must be contiguous {dt} with "
+                             f"hi - lo = {block.hi - block.lo} rows")
+    if block.coeffs.shape[1] != consts.coeff_count(block.deg_used):
+        raise ValueError("block arrays do not match deg_used")
+    if block.centre.data_ptr() % 16:
+        raise ValueError("block.centre must be 16-byte aligned")
+    unit, idx = unit.contiguous(), idx.contiguous()
+    out = torch.empty(B, dtype=torch.float64 if leaf else torch.int32,
+                      device=unit.device)
+    if B == 0:
+        return out
+    lib = _kernels.load()
+    if leaf:
+        rc = lib.hpsdf_leaf_nodes(
+            block.centre.data_ptr(), block.depth.data_ptr(),
+            block.coeffs.detach().data_ptr(), block.deg_used, block.lo,
+            block.hi, unit.data_ptr(), idx.data_ptr(), B, out.data_ptr(),
+            _kernels.stream_of(unit))
+    else:
+        rc = lib.hpsdf_descend_nodes(
+            block.child_idx.data_ptr(), block.centre.data_ptr(), block.lo,
+            block.hi, unit.data_ptr(), idx.data_ptr(), B, out.data_ptr(),
+            _kernels.stream_of(unit))
+    _kernels.check(lib, rc, "query_nodes")
+    query_nodes_kernel.launches += 1
+    return out
+
+
+query_nodes_kernel.launches = 0
+
+
+def descend_round(block, unit, cur):
+    """One node-range descent round: the plain version on CPU tensors, K1's
+    node-range mode on CUDA tensors."""
+    if unit.device.type == "cpu":
+        return descend_round_plain(block, unit, cur)
+    return query_nodes_kernel(block, unit, cur)
+
+
+def leaf_eval(block, unit, leaf):
+    """The node-range leaf evaluation: the plain version on CPU tensors,
+    K1's node-range mode on CUDA tensors."""
+    if unit.device.type == "cpu":
+        return leaf_eval_plain(block, unit, leaf)
+    return query_nodes_kernel(block, unit, leaf, leaf=True)
+
+
+def coeff_scatter_nodes_kernel(block, pts: torch.Tensor, leaf: torch.Tensor,
+                               cot: torch.Tensor,
+                               outside_value_max: bool = False):
+    """Launch K8's node-range mode on CUDA tensors: the gradient (hi - lo,
+    C) f64 of sum(cot * query) with respect to the block's coefficient rows,
+    from the points (B, 3) f64, their global leaves (B,) i32 (the forward's
+    descent) and the cotangents (B,) f64; nothing from points outside the
+    root when ``outside_value_max``. A call is the output's memset and one
+    launch. Raises on anything else."""
+    if pts.device.type != "cuda" or block.device != pts.device \
+            or leaf.device != pts.device or cot.device != pts.device:
+        raise ValueError("coeff_scatter_nodes_kernel needs the block and its "
+                         "inputs on one CUDA device")
+    B = pts.shape[0]
+    if pts.dtype != torch.float64 or pts.shape != (B, 3) \
+            or leaf.dtype != torch.int32 or leaf.shape != (B,) \
+            or cot.dtype != torch.float64 or cot.shape != (B,):
+        raise ValueError("pts must be f64 (B, 3), leaf i32 (B,) and cot f64 "
+                         "(B,)")
+    rows = block.hi - block.lo
+    for name, t, dt in (("centre", block.centre, torch.float64),
+                        ("depth", block.depth, torch.int32)):
+        if t.dtype != dt or not t.is_contiguous() or t.shape[0] != rows:
+            raise ValueError(f"block.{name} must be contiguous {dt} with "
+                             f"hi - lo = {rows} rows")
+    C = consts.coeff_count(block.deg_used)
+    out = torch.zeros((rows, C), dtype=torch.float64, device=pts.device)
+    if B == 0:
+        return out
+    pts, leaf, cot = (x.detach().contiguous() for x in (pts, leaf, cot))
+    lib = _kernels.load()
+    rc = block.config.root_centre
+    inv = 1.0 / block.config.root_sizes
+    _kernels.check(lib, lib.hpsdf_coeff_scatter_nodes(
+        block.centre.data_ptr(), block.depth.data_ptr(), block.deg_used,
+        block.lo, block.hi, pts.data_ptr(), leaf.data_ptr(), B,
+        *map(float, rc), *map(float, inv), cot.data_ptr(),
+        int(outside_value_max), out.data_ptr(), _kernels.stream_of(pts)),
+        "coeff_scatter_nodes")
+    coeff_scatter_nodes_kernel.launches += 1
+    return out
+
+
+coeff_scatter_nodes_kernel.launches = 0
+
+
+def coeff_scatter_nodes_plain(block, pts: torch.Tensor, leaf: torch.Tensor,
+                              w: torch.Tensor,
+                              outside_value_max: bool = False):
+    """K8's node-range mode by autograd of ``leaf_eval_plain``: the gradient
+    (hi - lo, C) of sum(w * query) with respect to the block's coefficient
+    rows, nothing from points outside the root when
+    ``outside_value_max``."""
+    C = consts.coeff_count(block.deg_used)
+    if block.hi <= block.lo:
+        return torch.zeros((0, C), dtype=w.dtype, device=w.device)
+    unit = _to_unit(block, pts.detach())
+    if outside_value_max:
+        w = torch.where(torch.all(unit.abs() <= 0.5, dim=-1), w, 0.0)
+    coeffs = block.coeffs.detach().requires_grad_(True)
+    with torch.enable_grad():
+        v = leaf_eval_plain(dataclasses.replace(block, coeffs=coeffs),
+                            unit.clamp(-0.5, 0.5), leaf)
+        (d,) = torch.autograd.grad(v, coeffs, w.detach())
+    return d
+
+
+def coeff_scatter_nodes(block, pts, leaf, w, outside_value_max=False):
+    """K8's node-range mode: the plain version on CPU tensors, the kernel on
+    CUDA tensors."""
+    if pts.device.type == "cpu":
+        return coeff_scatter_nodes_plain(block, pts, leaf, w,
+                                         outside_value_max)
+    return coeff_scatter_nodes_kernel(block, pts, leaf, w, outside_value_max)
 
 
 class _Query(torch.autograd.Function):

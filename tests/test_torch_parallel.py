@@ -19,7 +19,23 @@ hpsdf_tpu.parallel on the same inputs:
   * the row-sharded CG within rtol 1e-10, atol 1e-12 of the port's and
     hpsdf_tpu's solves (tests/test_parallel.py:117-130);
   * fit_to_depth(mesh=) at 64^2 rays, 2 steps: losses rtol 1e-4,
-    coefficients rtol 1e-4, atol 1e-7 against the one-rank run.
+    coefficients rtol 1e-4, atol 1e-7 against the one-rank run;
+  * the node axis, on make_mesh(node_parallel=size) (uneven row blocks at
+    3): shard_query(shard_nodes=True) bit for bit against the port's query
+    and 1e-12 against hpsdf_tpu's node-sharded shard_query
+    (tests/test_parallel.py:37-43), at most ceil(N / size) rows a rank and
+    depth_used + 1 collectives over the node axis, each of the batch
+    share's size; the default (node-sharded) train step as the sharded SGD
+    step above (tests/test_parallel.py:62-84), returning the rank's block.
+
+A world of GRID_RANKS ranks on a (2, 2) mesh runs
+__graft_entry__.dryrun_multichip's sequence at its sizes and tolerances:
+the fit with fit_mesh bit for bit the one-device fit and spread over all
+four ranks, as the row-sharded CG (within 1e-10 / 1e-12 of the port's and
+hpsdf_tpu's solves) is; the node-sharded train step's loss within 1e-10 of
+hpsdf_tpu's train_step; shard_query (replicated and node-sharded) and
+shard_trace against the port's one-device calls; fit_to_depth over the
+batch axis against the one-device run at another chunk size.
 
 The plain versions of K9's partial mode and K9u's two launches, which the
 CPU ranks run, are held to the one-device operator on row blocks here.
@@ -51,6 +67,10 @@ from .util import sphere_sdf, uniform_pts
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _WORKER = os.path.join(_ROOT, "tests", "_torch_parallel_worker.py")
 SIZES = (2, 3)
+GRID_RANKS = 4                      # a (2, 2) mesh
+# __graft_entry__.dryrun_multichip's tree
+DRY_CFG = dict(target_error=1e-3, continuity=False, max_depth=4,
+               max_degree=3)
 CFG = dict(target_error=1e-6, continuity=False, continuity_strength=8.0,
            max_depth=4, max_degree=4)
 # off every mirror plane of the cell grid (tests/test_torch_build.py)
@@ -85,7 +105,7 @@ def small_tree():
 
 
 @pytest.fixture(scope="module")
-def inputs(small_tree, cg_tree, tmp_path_factory):
+def inputs(small_tree, cg_tree, dry_tree, tmp_path_factory):
     jt, cfg = small_tree
     d = tmp_path_factory.mktemp("inputs")
     inp = {k: np.asarray(getattr(jt, k)) for k in _ARRAYS}
@@ -118,13 +138,22 @@ def inputs(small_tree, cg_tree, tmp_path_factory):
         inp[f"{name}_depth_used"] = it.depth_used
     inp["inv_o"], inp["inv_d"] = _rays(INV_SIDE)
     inp["inv_chunk"] = INV_CHUNK
-    ct = cg_tree[0]
-    for k in _ARRAYS:
-        inp[f"cg_{k}"] = np.asarray(getattr(ct, k))
-    inp.update(cg_n_nodes=ct.n_nodes, cg_deg_used=ct.deg_used,
-               cg_depth_used=ct.depth_used)
+    for pre, t in (("cg_", cg_tree[0]), ("dry_", dry_tree)):
+        for k in _ARRAYS:
+            inp[f"{pre}{k}"] = np.asarray(getattr(t, k))
+        inp.update({f"{pre}n_nodes": t.n_nodes, f"{pre}deg_used": t.deg_used,
+                    f"{pre}depth_used": t.depth_used})
+    # __graft_entry__.py:70-85's points and rays
+    inp["dry_pts"] = np.random.default_rng(1).uniform(-0.5, 0.5, (256, 3))
+    inp["dry_o"] = np.tile(np.float32([[0.0, 0.0, -2.0]]), (16, 1))
+    inp["dry_d"] = np.tile(np.float32([[0.0, 0.0, 1.0]]), (16, 1))
     np.savez(d / "inputs.npz", **inp)
     return d, inp
+
+
+@pytest.fixture(scope="module")
+def dry_tree():
+    return hp.build_octree(hp.Config(**DRY_CFG), sphere_sdf(radius=0.3))
 
 
 @pytest.fixture(scope="module")
@@ -148,11 +177,11 @@ def _spawn(size, inp_dir, out_dir):
 
 @pytest.fixture(scope="module")
 def ranks(inputs, tmp_path_factory):
-    """Both world sizes' ranks, started together; {size: [rank 0's results,
-    ...]}."""
+    """Every world's ranks (SIZES, then GRID_RANKS), started together;
+    {size: [rank 0's results, ...]}."""
     inp_dir, _ = inputs
     runs = {}
-    for size in SIZES:
+    for size in SIZES + (GRID_RANKS,):
         out_dir = tmp_path_factory.mktemp(f"world{size}")
         runs[size] = (out_dir, _spawn(size, inp_dir, out_dir))
     got = {}
@@ -187,18 +216,23 @@ def world(request, ranks):
     for other in got[1:]:
         for k in ("query", "trace_t", "trace_hit", "cone_t", "train_losses",
                   "train_coeffs", "fit_coeffs", "cg_coeffs", "inv_losses",
-                  "inv_coeffs"):
+                  "inv_coeffs", "node_query", "node_losses", "node_coeffs"):
             np.testing.assert_array_equal(other[k], got[0][k], err_msg=k)
     return request.param, got[0]
 
 
 def test_make_mesh(world):
+    """make_mesh(node_parallel=npar) gives the (size / npar, npar) mesh
+    where npar divides the ranks (tests/test_parallel.py:21-27) and raises
+    ValueError where it does not."""
     size, got = world
     assert tuple(got["mesh_shape"]) == (size, 1)
     for npar in range(2, size + 2):
-        want = ("NotImplementedError" if size % npar == 0
-                else "ValueError")
-        assert str(got[f"node_parallel_{npar}"]) == want, npar
+        if size % npar == 0:
+            assert tuple(got[f"node_parallel_{npar}"]) == (size // npar,
+                                                           npar), npar
+        else:
+            assert str(got[f"node_parallel_{npar}"]) == "ValueError", npar
 
 
 def test_shard_query(world, small_tree, port_tree, inputs):
@@ -210,6 +244,56 @@ def test_shard_query(world, small_tree, port_tree, inputs):
                                             JP.make_mesh()))
     np.testing.assert_allclose(got["query"], jax_sharded, rtol=0,
                                atol=1e-12)
+
+
+def test_shard_query_node_sharded(world, ranks, small_tree, port_tree,
+                                  inputs):
+    """The node-sharded query on make_mesh(node_parallel=size): bit for bit
+    the port's query, 1e-12 of hpsdf_tpu's on make_mesh(node_parallel=2);
+    each rank holds its ceil(N / size) rows (fewer on the last) and their
+    share of the bytes; the query made depth_used + 1 all-reduces over the
+    node axis, each of the batch share's (here all the points') size, and
+    one all-gather over the batch axis, and nothing else."""
+    size, got = world
+    _, inp = inputs
+    want = T.query(port_tree, torch.as_tensor(inp["pts"])).numpy()
+    np.testing.assert_array_equal(got["node_query"], want)
+    jax_sharded = np.asarray(JP.shard_query(
+        small_tree[0], inp["pts"], JP.make_mesh(node_parallel=2),
+        shard_nodes=True))
+    np.testing.assert_allclose(got["node_query"], jax_sharded, rtol=0,
+                               atol=1e-12)
+    rows = port_tree.child_idx.shape[0]
+    per = -(-rows // size)
+    whole = sum(getattr(port_tree, k).nbytes for k in _ARRAYS)
+    blocks = [r["node_block"] for r in ranks[size]]
+    assert [tuple(b[:3]) for b in blocks] == [
+        (k * per, min((k + 1) * per, rows), rows) for k in range(size)]
+    assert sum(int(b[3]) for b in blocks) == whole
+    assert max(int(b[3]) for b in blocks) <= whole * per / rows
+    n = inp["pts"].shape[0]
+    want_calls = [["node", str(n)]] * (port_tree.depth_used + 1) \
+        + [["batch", str(n)]]
+    for r in ranks[size]:
+        assert r["node_collectives"].tolist() == want_calls
+
+
+def test_node_sharded_train_step(world, small_tree, inputs):
+    """make_sharded_train_step's default on make_mesh(node_parallel=size):
+    the loss within 1e-10 of hpsdf_tpu's train_step and falling over two
+    steps, the gathered coefficients within 1e-12, the rank's block
+    returned (tests/test_parallel.py:62-84)."""
+    _, got = world
+    _, inp = inputs
+    jt = dataclasses.replace(small_tree[0], coeffs=jnp.asarray(inp["noisy"]))
+    t1, l1 = JP.train_step(jt, jnp.asarray(inp["train_pts"]),
+                           jnp.asarray(inp["train_target"]), 1e-4)
+    l1g, l2g = got["node_losses"]
+    np.testing.assert_allclose(l1g, float(l1), rtol=1e-10)
+    np.testing.assert_allclose(got["node_coeffs"], np.asarray(t1.coeffs),
+                               rtol=0, atol=1e-12)
+    assert l2g < l1g
+    assert str(got["node_step_type"]) == "ShardedTree"
 
 
 def test_shard_trace(world, small_tree, port_tree, inputs):
@@ -308,6 +392,117 @@ def test_sharded_fit_to_depth(world, inverse_one):
     np.testing.assert_allclose(got["inv_coeffs"],
                                inverse_one.tree.coeffs.numpy(),
                                rtol=INV_RTOL, atol=INV_ATOL)
+
+
+# --------------------------------------------------------------------------
+# A (2, 2) mesh: __graft_entry__.dryrun_multichip's sequence
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def grid(ranks):
+    """The GRID_RANKS ranks' results, after checking that every rank
+    returned the same arrays."""
+    got = ranks[GRID_RANKS]
+    for other in got[1:]:
+        for k in ("grid_fit_equal", "grid_loss", "grid_step_coeffs",
+                  "grid_query_0", "grid_query_1", "grid_trace_t",
+                  "grid_trace_hit", "grid_cg_coeffs", "grid_inv_losses"):
+            np.testing.assert_array_equal(other[k], got[0][k], err_msg=k)
+    return got
+
+
+@pytest.fixture(scope="module")
+def dry_port(dry_tree):
+    return carry(dry_tree, hp.Config(**DRY_CFG))
+
+
+def test_grid_mesh(grid):
+    """make_mesh(node_parallel=2) on 4 ranks: a (2, 2) mesh whose batch and
+    node axes have two ranks each, and whose ranks together (mesh_shard,
+    the fit's and the CG's) are four."""
+    for r in grid:
+        assert tuple(r["grid_shape"]) == (2, 2)
+        assert tuple(r["grid_sizes"]) == (2, 2, 4)
+
+
+def test_grid_fit(grid):
+    """build(fit_mesh=) on the (2, 2) mesh: bit for bit the one-device
+    build, the cells the one device fits shared out over the four ranks,
+    each fitting some."""
+    cells = [int(r["grid_fit_cells"]) for r in grid]
+    assert all(bool(r["grid_fit_equal"]) for r in grid)
+    assert min(cells) > 0
+    assert sum(cells) == int(grid[0]["grid_fit_one_cells"])
+
+
+def test_grid_train_step(grid, dry_tree, dry_port, inputs):
+    """The default train step on the (2, 2) mesh (__graft_entry__.py:
+    72-79): the loss within 1e-10 of hpsdf_tpu's train_step, the
+    coefficients within 1e-12, each rank holding half the rows."""
+    _, inp = inputs
+    pts = inp["dry_pts"]
+    target = np.linalg.norm(pts, axis=-1) - 0.3
+    t1, loss = JP.train_step(dry_tree, jnp.asarray(pts),
+                             jnp.asarray(target), 1e-4)
+    rows = dry_port.child_idx.shape[0]
+    for r in grid:
+        assert str(r["grid_step_type"]) == "ShardedTree"
+        assert int(r["grid_step_rows"]) <= -(-rows // 2)
+    assert abs(float(grid[0]["grid_loss"]) - float(loss)) < 1e-10
+    np.testing.assert_allclose(grid[0]["grid_step_coeffs"],
+                               np.asarray(t1.coeffs), rtol=0, atol=1e-12)
+
+
+def test_grid_query_and_trace(grid, dry_tree, dry_port, inputs):
+    """shard_query (replicated and node-sharded) and shard_trace on the
+    (2, 2) mesh against the port's one-device calls, bit for bit, and
+    hpsdf_tpu's (1e-12; hits equal and t within 1e-5,
+    __graft_entry__.py:82-92)."""
+    _, inp = inputs
+    pts = inp["dry_pts"][:64]
+    want = T.query(dry_port, torch.as_tensor(pts)).numpy()
+    jq = np.asarray(hp.query(dry_tree, jnp.asarray(pts)))
+    for nodes in (0, 1):
+        np.testing.assert_array_equal(grid[0][f"grid_query_{nodes}"], want)
+        np.testing.assert_allclose(grid[0][f"grid_query_{nodes}"], jq,
+                                   rtol=0, atol=1e-12)
+    one = T.trace(dry_port, inp["dry_o"], inp["dry_d"], t_max=5.0)
+    np.testing.assert_array_equal(grid[0]["grid_trace_t"], one.t.numpy())
+    np.testing.assert_array_equal(grid[0]["grid_trace_hit"],
+                                  one.hit.numpy())
+    js = hp.trace(dry_tree, inp["dry_o"], inp["dry_d"], t_max=5.0)
+    np.testing.assert_array_equal(grid[0]["grid_trace_hit"],
+                                  np.asarray(js.hit))
+    np.testing.assert_allclose(grid[0]["grid_trace_t"], np.asarray(js.t),
+                               atol=1e-5)
+    assert bool(grid[0]["grid_trace_hit"][0])
+
+
+def test_grid_cg(grid, dry_tree, dry_port):
+    """enforce_continuity(mesh=) on the (2, 2) mesh: row blocks over all
+    four ranks, within 1e-10 / 1e-12 of the port's one-device solve and
+    hpsdf_tpu's (__graft_entry__.py:94-101)."""
+    ccfg = dict(DRY_CFG, continuity=True, continuity_strength=8.0)
+    port = TC.enforce_continuity(dataclasses.replace(
+        dry_port, config=T.Config(**ccfg))).coeffs.numpy()
+    jax_one = np.asarray(JC.enforce_continuity(dataclasses.replace(
+        dry_tree, config=hp.Config(**ccfg)), cg="f64").coeffs)
+    assert sorted(tuple(r["grid_cg_block"]) for r in grid) == [
+        (GRID_RANKS, k) for k in range(GRID_RANKS)]
+    for want in (port, jax_one):
+        np.testing.assert_allclose(grid[0]["grid_cg_coeffs"], want,
+                                   rtol=CG_RTOL, atol=CG_ATOL)
+    assert not np.array_equal(grid[0]["grid_cg_coeffs"],
+                              dry_port.coeffs.numpy())
+
+
+def test_grid_fit_to_depth(grid):
+    """fit_to_depth(mesh=) on the (2, 2) mesh, rays over the batch axis in
+    chunks of 64, against the one-device run in chunks of 256: losses
+    within 1e-4 (__graft_entry__.py:103-113)."""
+    losses = grid[0]["grid_inv_losses"]
+    assert np.isfinite(losses).all() and losses.shape == (2,)
+    np.testing.assert_allclose(losses, grid[0]["grid_inv_one"], rtol=1e-4)
 
 
 # --------------------------------------------------------------------------

@@ -124,11 +124,14 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
 
 
 @pytest.mark.parametrize("spill", [None, "K1", "K3", "K7", "G CSR", "K5F",
-                                   "K9u", "chunk", "rows", "K10", "K11"],
+                                   "K9u", "chunk", "rows", "K10", "K11",
+                                   "round", "leaf", "K8 nodes"],
                          ids=["clean", "spills", "march_spills",
                               "backward_spills", "csr_spills",
                               "fused_spills", "cg_spills", "chunk_spills",
-                              "rows_spills", "hybrid_spills", "walk_spills"])
+                              "rows_spills", "hybrid_spills", "walk_spills",
+                              "node_round_spills", "node_leaf_spills",
+                              "node_scatter_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
@@ -136,8 +139,9 @@ def test_ptxas_check(monkeypatch, spill):
     either form of G's backward, or the continuity kernels (K9 on the face
     operator and in PR 10's CSR form, K9u's two forms, both forms of the
     persistent launch, both forms of each of the row-sharded CG's two K9u
-    launches), K10 (either level count) or K11 has a stack frame or
-    spills."""
+    launches), K10 (either level count), K11, or K1's node-range descent
+    round, its leaf evaluation or K8's node-range mode (at degree 3 or 5)
+    has a stack frame or spills."""
     from hpsdf_tpu_torch import _kernels
 
     report = "".join(
@@ -191,6 +195,14 @@ def test_ptxas_check(monkeypatch, spill):
                                stack=8 if spill == "K10" and two else 0)
     report += _ptxas_entry("bvh_walk_kernel", 0, None, args="", regs=64,
                            stack=8 if spill == "K11" else 0)
+    report += _ptxas_entry("descend_nodes_kernel", 0, None, args="",
+                           regs=24, stack=8 if spill == "round" else 0)
+    for d in (3, 5):
+        report += _ptxas_entry("leaf_nodes_kernel", d, None, regs=48,
+                               stack=8 if spill == "leaf" and d == 5 else 0)
+        report += _ptxas_entry("coeff_scatter_nodes_kernel", d, None,
+                               regs=40, stack=16 if spill == "K8 nodes"
+                               and d == 3 else 0)
     monkeypatch.setattr(_kernels, "ptxas_report", lambda: report)
     if spill:
         with pytest.raises(RuntimeError, match={
@@ -202,7 +214,10 @@ def test_ptxas_check(monkeypatch, spill):
                 "chunk": "K9 \\+ K9u persistent shared: stack 16",
                 "rows": "K9u rows init: stack 8",
                 "K10": "K10 two levels: stack 8",
-                "K11": "K11 -: stack 8"}[spill]):
+                "K11": "K11 -: stack 8",
+                "round": "K1 node round -: stack 8",
+                "leaf": "K1 node leaf 5: stack 8",
+                "K8 nodes": "K8 nodes 3: stack 16"}[spill]):
             chip_smoke.ptxas_check()
         return
     found = chip_smoke.ptxas_check()
@@ -232,3 +247,7 @@ def test_ptxas_check(monkeypatch, spill):
     assert found["hybrid_kernel"] == {k: [40, 0, 0, 0]
                                       for k in ("one level", "two levels")}
     assert found["bvh_walk_kernel"] == {"-": [64, 0, 0, 0]}
+    assert found["descend_nodes_kernel"] == {"-": [24, 0, 0, 0]}
+    assert found["leaf_nodes_kernel"] == {k: [48, 0, 0, 0] for k in "35"}
+    assert found["coeff_scatter_nodes_kernel"] == {k: [40, 0, 0, 0]
+                                                   for k in "35"}
