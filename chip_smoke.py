@@ -8,8 +8,8 @@ at full width, the flow of examples/end_to_end.py:
 
   * the slice: icosphere(0.3, 5) (20,480 triangles) -> half-edges and
     pseudo-normals -> packed rows on the card -> mesh F (kernel P1, the
-    sign's row gather G) -> an hp-adaptive f64 fit at the headline config
-    of bench.py (target 1e-7, depth 5, degree 6) -> query /
+    sign on the best triangle K14) -> an hp-adaptive f64 fit at the
+    headline config of bench.py (target 1e-7, depth 5, degree 6) -> query /
     query_with_gradient on 2^20 points (kernel K1) -> save / load;
   * the render path on that tree: the CSG carve intersect_sdf(tree,
     -box(0.18)), whose F reads the tree through the packed layout (G for
@@ -105,6 +105,22 @@ gradients in one launch) bit for bit against modes 0 and 2, timed beside
 both. [inverse] runs bench.py's 1080p fit_to_depth, profiles a step with
 and without the replaced backward kernels (and with the fused read split
 again), and holds the kernels' 128^2 losses to the plain versions'.
+
+K14, the sign on the best triangle (csrc/sign.cu), runs inside every mesh
+F; [k14] holds it to its plain version (the distance within SIGNED_ATOL,
+the sign wherever |d| exceeds it; the points whose sign or feature code
+differ counted) at the slice fit's largest batch and, in [mesh scale], at
+2^20 uniform points on the 1.31M mesh, and times it in a CUDA graph beside
+its plain version, the sign as it was before (G's gather and the torch
+cascade) and its bound; both fit splits show the sign's seconds with K14
+and with the old sign swapped in, and G's launches falling by the sign
+calls. K13, the inverse chunk's loss terms (csrc/inverse_terms.cu: the 7n
+points, then the terms and their VJP with the chunk's loss), is held at a
+1080p chunk ([k13]): the points bit for bit, the loss within K13_LOSS_RTOL
+of the plain version, the cotangents within K13_COT_RTOL / K13_COT_ATOL of
+autograd of the formula fit_to_depth ran before it (formula_terms), timed
+in CUDA graphs beside their bounds, with the operations a chunk puts on the
+card; [inverse] times a step with it and with the formula swapped in.
 
 [mesh scale] runs the mesh -> SDF path at the reference's scale
 (bench.py:416-517): bumpy_sphere(0.3, 8), 1,310,720 triangles, written to
@@ -259,6 +275,8 @@ INV_SIZE = (1920, 1080)             # bench.py:734-767: 1080p rays
 INV_STEPS = 5
 INV_SMALL = 128                     # the kernels-against-plain run's side
 INV_LOSS_RTOL = 1e-3
+K13_LOSS_RTOL = 1e-5                # K13's loss against its plain version
+K13_COT_RTOL, K13_COT_ATOL = 1e-6, 1e-7   # its cotangents against autograd
 
 
 PHASE_SECONDS = {}
@@ -437,6 +455,150 @@ def phase_p1_fit(rows, table, fit_pts):
     return t
 
 
+K14_OPS = 85            # f32 operations of K14's cascade a point (face)
+K13_POINT_OPS = 47      # f32 operations of K13's first launch a ray
+K13_TERM_OPS = 100      # and of its second
+
+
+def sign_before(tri_rows, best_idx, p):
+    """The sign as the port took it before K14: the best rows by G, then
+    mesh.sdf._signed in torch ops."""
+    from hpsdf_tpu_torch.accel import row_gather
+    from hpsdf_tpu_torch.mesh import sdf as TS
+
+    return TS._signed(row_gather(tri_rows, best_idx), p)
+
+
+def sign_bytes(idx, pts, feat):
+    """K14's byte bound's bytes: each point, its index and its distance
+    once; the vertex lanes (36 bytes) of each distinct row read and the
+    pseudo-normal (12) of each distinct (row, feature) pair."""
+    key = idx.long()
+    rows = torch.unique(key).numel()
+    pairs = torch.unique(key * 8 + feat.long()).numel()
+    return pts.shape[0] * (12 + idx.element_size() + 4) + 36 * rows \
+        + 12 * pairs
+
+
+def check_k14(rows, idx, pts, label, ops=False):
+    """K14 against its plain version on the same best indices: the distance
+    within SIGNED_ATOL at every point, the sign equal wherever |d| >
+    SIGNED_ATOL; the points whose sign or feature code (the plain
+    cascade's, mesh/tri.py) differ are counted. Then K14 in a CUDA graph,
+    its plain version and the sign as it was before K14 (G's gather and
+    the torch cascade) by events, and the bound; a call launches K14 once
+    and G never (the counters); with ``ops`` also the operations a call
+    puts on the card, by torch.profiler (not before [grad]: traces taken
+    before the phases that replay CUDA graphs have left later ones empty),
+    None where a trace held none. Launches made here are not the main
+    path's."""
+    from hpsdf_tpu_torch.accel import row_gather, row_gather_plain
+    from hpsdf_tpu_torch.mesh import sdf as TS
+    from hpsdf_tpu_torch.mesh import tri as TT
+
+    counts = (TS.signed_from_best_kernel.launches, row_gather.launches)
+    got, feat = TS.signed_from_best_kernel(rows, idx, pts, with_feature=True)
+    g_rows = row_gather_plain(rows, idx)
+    want = TS._signed(g_rows, pts)
+    _, feat_p = TT.closest_point_triangle(pts, *TS._tri_parts(g_rows))
+    err = float((got - want).abs().max())
+    flip = torch.signbit(got) != torch.signbit(want)
+    clear = want.abs() > SIGNED_ATOL
+    t = {"points": pts.shape[0], "max_abs_err": err,
+         "sign_differ": int(flip.sum()),
+         "sign_differ_beyond_atol": int((flip & clear).sum()),
+         "feature_differ": int((feat.long() != feat_p.long()).sum()),
+         "features": torch.bincount(feat.long(), minlength=7).tolist(),
+         "bit_for_bit": bool(torch.equal(got, want))}
+    check(err <= SIGNED_ATOL, f"K14 vs plain at {label}: {err:.3e}")
+    check(t["sign_differ_beyond_atol"] == 0, f"K14 vs plain at {label}: "
+          f"{t['sign_differ_beyond_atol']} signs differ beyond "
+          f"{SIGNED_ATOL}")
+    t.update(
+        ms=graph_ms(lambda: TS.signed_from_best_kernel(rows, idx, pts), 20),
+        plain_ms=time_ms(lambda: TS.signed_from_best_plain(rows, idx, pts),
+                         3),
+        before_ms=time_ms(lambda: sign_before(rows, idx, pts), 3))
+    k0, g0 = TS.signed_from_best_kernel.launches, row_gather.launches
+    TS._signed_from_best(rows, idx, pts)
+    t.update(kernel_launches_a_call=TS.signed_from_best_kernel.launches - k0,
+             g_launches_a_call=row_gather.launches - g0)
+    check((t["kernel_launches_a_call"], t["g_launches_a_call"]) == (1, 0),
+          f"a sign call launched K14 {t['kernel_launches_a_call']} and G "
+          f"{t['g_launches_a_call']} times")
+    if ops:
+        t.update(launches_a_call=device_ops(
+            lambda: TS._signed_from_best(rows, idx, pts)) or None,
+            before_launches_a_call=device_ops(
+                lambda: sign_before(rows, idx, pts)) or None)
+        check(t["launches_a_call"] in (None, 1), f"K14 puts "
+              f"{t['launches_a_call']} operations on the card a call")
+    by_bytes = sign_bytes(idx, pts, feat) / HBM_RATE * 1e3
+    by_ops = pts.shape[0] * K14_OPS / F32_PEAK * 1e3
+    t.update(bytes_bound_ms=by_bytes, ops_bound_ms=by_ops,
+             bound_ms=max(by_bytes, by_ops),
+             bound_by="bytes" if by_bytes >= by_ops else "operations",
+             library_ms=None)
+    TS.signed_from_best_kernel.launches, row_gather.launches = counts
+    print(f"[k14] {label}: {t['points']} points, max|K14 - plain| "
+          f"{err:.3e} (bit for bit: {t['bit_for_bit']}), {t['sign_differ']} "
+          f"signs differ ({t['sign_differ_beyond_atol']} beyond "
+          f"{SIGNED_ATOL}), {t['feature_differ']} feature codes differ, "
+          f"features {t['features']} | K14 {t['ms']:.4f} ms in a CUDA graph,"
+          f" plain {t['plain_ms']:.3f} ms, before K14 (G + torch) "
+          f"{t['before_ms']:.3f} ms; a call launches K14 once and G never;"
+          f" operations on the card a call "
+          f"{t.get('launches_a_call') or 'not traced'} against "
+          f"{t.get('before_launches_a_call') or 'not traced'}; "
+          f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}; bytes "
+          f"{by_bytes:.5f}, operations {by_ops:.5f}), "
+          f"{t['bound_ms'] / t['ms']:.1%} of it", flush=True)
+    return t
+
+
+def phase_k14_fit(rows, table, fit_pts):
+    """K14 at the main path's own points, the slice fit's largest F batch,
+    on P1's best indices."""
+    from hpsdf_tpu_torch.mesh import closest_tri_tiles
+
+    count = closest_tri_tiles.launches
+    pts = fit_pts.to(torch.float32)
+    _, idx = closest_tri_tiles(rows, pts, table)
+    closest_tri_tiles.launches = count       # not main-path launches
+    return check_k14(rows, idx, pts, "the slice fit's largest batch")
+
+
+def sign_split(build, phases, TS):
+    """``build()`` split twice by ``phases`` (which time F and the sign):
+    with K14, then with the sign as it was before K14 (``sign_before``
+    swapped in for the kernel) in the same run; and the G launches of each.
+    Every sign call of the second build launches G, so G's launches differ
+    by the count of sign calls."""
+    from unittest import mock
+    from hpsdf_tpu_torch.accel import row_gather
+
+    out = {}
+    for key, swap in (("k14", None), ("before", sign_before)):
+        with contextlib.ExitStack() as stack:
+            if swap is not None:
+                stack.enter_context(mock.patch.object(
+                    TS, "signed_from_best_kernel", swap))
+            g0 = row_gather.launches
+            split, timer, _, _ = split_again(build, phases)
+            for _, _, name in phases[len(FIT_PHASES):]:
+                split[f"{name}_s"] = timer.times.get(name, 0.0)
+                split[f"{name}_calls"] = timer.counts.get(name, 0)
+            split["g_launches"] = row_gather.launches - g0
+            row_gather.launches = g0
+        out[key] = split
+    check(out["before"]["g_launches"] - out["k14"]["g_launches"]
+          == out["before"]["sign_calls"] > 0, f"G's launches with K14 "
+          f"{out['k14']['g_launches']}, before it "
+          f"{out['before']['g_launches']}, sign calls "
+          f"{out['before']['sign_calls']}")
+    return out
+
+
 def counters():
     """Every launch counter, by name: (kernel wrapper, attribute). K2/K5's
     wrapper counts all its launches and, apart, those of K5's normals, of
@@ -452,8 +614,11 @@ def counters():
     from hpsdf_tpu_torch.continuity import (_chunk_launch, cg_direction,
                                             cg_matvec, cg_matvec_rows,
                                             cg_update, cg_update_rows)
+    from hpsdf_tpu_torch.inverse import (inverse_points_kernel,
+                                         inverse_terms_kernel)
     from hpsdf_tpu_torch.mesh import (closest_bvh, closest_tri_tiles,
-                                      hybrid_closest)
+                                      hybrid_closest,
+                                      signed_from_best_kernel)
     from hpsdf_tpu_torch.query import (coeff_scatter_kernel,
                                        coeff_scatter_nodes_kernel,
                                        query_kernel, query_nodes_kernel)
@@ -480,7 +645,10 @@ def counters():
             "cg_chunk": (_chunk_launch, "launches"),
             "cg_matvec_rows": (cg_matvec_rows, "launches"),
             "cg_update_rows": (cg_update_rows, "launches"),
-            "cg_direction": (cg_direction, "launches")}
+            "cg_direction": (cg_direction, "launches"),
+            "signed_from_best": (signed_from_best_kernel, "launches"),
+            "inverse_points": (inverse_points_kernel, "launches"),
+            "inverse_terms": (inverse_terms_kernel, "launches")}
 
 
 def reset_counts():
@@ -496,6 +664,7 @@ def read_counts():
 # phase): the fit loop's, then the continuity post-process's
 FIT_PHASES = (("build", "_fit", "fit"), ("build", "_fit_impl", "projection"),
               ("build", "pack", "pack"))
+SLICE_PHASES = FIT_PHASES + (("mesh.sdf", "_signed_from_best", "sign"),)
 CONTINUITY_PHASES = (
     ("continuity", "enforce_continuity", "continuity"),
     ("continuity", "leaf_face_pairs", "face pairs"),
@@ -578,9 +747,11 @@ def split_text(d):
 
 def phase_slice(mesh, bvh, cfg, n_query, out_path, seed=1):
     """The main path once; returns (tree, launches, the largest F batch's
-    points)."""
+    points, a second build's split with K14 and with the sign as before
+    it, ``sign_split``)."""
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch.mesh import mesh_sdf
+    from hpsdf_tpu_torch.mesh import sdf as TS
 
     dev = bvh.tri_rows.device
     F = mesh_sdf(mesh, bvh)                       # method "auto"
@@ -622,11 +793,14 @@ def phase_slice(mesh, bvh, cfg, n_query, out_path, seed=1):
     T.save(tree, out_path)
     back = T.load(out_path, device=dev)
     launches = read_counts()
-    split = split_again(lambda: T.build_octree(cfg, F, device=dev))[0]
+    splits = sign_split(lambda: T.build_octree(cfg, F, device=dev),
+                        SLICE_PHASES, TS)
+    split = splits["k14"]
 
     check(launches["closest_tri"] > 0, "P1 never launched on the main path")
     check(launches["query"] > 0, "K1 never launched on the main path")
-    check(launches["row_gather"] > 0, "G never launched on the mesh path")
+    check(launches["signed_from_best"] > 0,
+          "K14 never launched on the mesh path")
     check(vals.shape == (n_query,) and bool(torch.isfinite(vals).all()),
           "query values finite")
     vg_err = float((vals - vg).abs().max())
@@ -652,13 +826,17 @@ def phase_slice(mesh, bvh, cfg, n_query, out_path, seed=1):
           f"deg_used {tree.deg_used}, depth_used {tree.depth_used}, "
           f"F samples {samples[0]}, build {build_s:.3f} s (F {f_s[0]:.3f} "
           f"s of it, synchronised; split: {split_text(split)}, "
-          f"{split['fit_calls']} fit calls), query "
+          f"{split['fit_calls']} fit calls, {split['sign_calls']} sign "
+          f"calls; with the sign as before K14 (G + torch), "
+          f"{split_text(splits['before'])}, G launches "
+          f"{splits['before']['g_launches']} against "
+          f"{split['g_launches']}), query "
           f"{n_query / query_s / 1e6:.2f} Mq/s (first call), "
           f"{n_query / warm_s / 1e6:.2f} Mq/s (second), "
           f"max|query - (|p| - 0.3)| {fit_err:.3e}, gradient . radial 1% "
           f"quantile {dot_q01:.6f}, save/load bit-exact, launches "
           f"{launches}", flush=True)
-    return tree, launches, largest[0], split
+    return tree, launches, largest[0], splits
 
 
 def phase_k1(tree, n, seed=2):
@@ -2347,7 +2525,8 @@ def trace_well_posed(tree, origins, dirs, t):
 def inverse_chunks(s, chunk, depth_weight=0.1):
     """The inverse step's ray chunks (inverse._padded_chunks), marched on
     the initial tree as fit_to_depth's first step marches them, each with
-    its rays (origins, dirs, t, hit) and the depth term's cotangent dt =
+    its rays (origins, dirs, t, hit), its targets (tt, th), the depth
+    term's normaliser dn and its cotangent dt =
     depth_weight * 2 m (t - target t) / dn, m = hit & target hit, dn the
     count of m over all chunks: zero where either trace missed."""
     from hpsdf_tpu_torch import accel as A
@@ -2360,25 +2539,73 @@ def inverse_chunks(s, chunk, depth_weight=0.1):
                                        s["hit_star"], chunk):
         t, hit, _ = R._march(pk, o, d, T_MAX, R.HIT_EPS, R.MAX_STEPS,
                              STEP_CAP)
-        out.append(dict(rays=(o, d, t, hit), t=t, hit=hit, tt=tt,
+        out.append(dict(rays=(o, d, t, hit), t=t, hit=hit, tt=tt, th=th,
                         m=(hit & th).to(torch.float32)))
     dn = torch.clamp(sum(c["m"].sum() for c in out), min=1.0)
     for c in out:
+        c["dn"] = dn
         c["dt"] = (np.float32(depth_weight) * 2.0 * c["m"]
                    * (c["t"] - c["tt"]) / dn).contiguous()
     return out
 
 
 def inverse_points(s, rays):
-    """The 7n points of an inverse chunk's one values_at call
-    (inverse._Terms): the band points, then the free-space points at
-    FRACS of each target depth."""
-    from hpsdf_tpu_torch.inverse import FRACS
+    """The 7n points of an inverse chunk's one read, for the rays ``rays``
+    (a slice) of the inverse set-up ``s``."""
+    return formula_points(s["o"][rays], s["d"][rays], s["t_star"][rays])
 
-    o, d, tt = s["o"][rays], s["d"][rays], s["t_star"][rays]
+
+def formula_points(o, d, tt):
+    """An inverse chunk's 7n points as fit_to_depth formed them in torch
+    ops before K13 (the band points, then the free-space points at FRACS
+    of each target depth): the yardstick of K13's first launch."""
+    from hpsdf_tpu_torch.inverse import BAND, FRACS
+
+    band = np.float32(BAND)
     fracs = torch.tensor(FRACS, dtype=torch.float32, device=o.device)
+    surf = o + tt[:, None] * d
+    out_p = o + (tt - band)[:, None] * d
+    in_p = o + (tt + band)[:, None] * d
     free = o[None] + (fracs[:, None, None] * tt[None, :, None]) * d[None]
-    return torch.cat([band_points(s, rays), free.reshape(-1, 3)])
+    return torch.cat([surf, in_p, out_p, free.reshape(-1, 3)])
+
+
+def formula_terms(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
+                  eikonal_weight, depth_weight):
+    """An inverse chunk's loss from the values f (7n,) at formula_points,
+    the band points' gradients g (3n, 3) and the depths, in the torch ops
+    fit_to_depth ran before K13 (hpsdf_tpu inverse.py chunk_field, the
+    depth term over dn): autograd of it is the yardstick of K13's
+    cotangents and of chunk_terms_plain."""
+    from hpsdf_tpu_torch.inverse import BAND, FRACS
+
+    half = np.float32(BAND) * np.float32(0.5)
+    sw, ew = np.float32(surface_weight), np.float32(eikonal_weight)
+    surf_m = th.to(torch.float32)
+    n = t.shape[0]
+    fsurf, f_in, f_out = f[:n], f[n:2 * n], f[2 * n:3 * n]
+    f_free = f[3 * n:].reshape(len(FRACS), n)
+    field = (fsurf ** 2 + torch.relu(f_in + half) ** 2
+             + torch.relu(half - f_out) ** 2)
+    free_sum = torch.sum(surf_m[None] * torch.relu(half - f_free) ** 2)
+    gnorm = torch.sqrt(torch.sum(g * g, dim=-1) + 1e-12)
+    eik = torch.sum(surf_m.repeat(3) * (gnorm - 1.0) ** 2)
+    terms = (sw * (torch.sum(surf_m * field) + free_sum / len(FRACS))
+             / surf_n + ew * eik / (3.0 * surf_n))
+    m = (hit & th).to(torch.float32)
+    return terms + np.float32(depth_weight) * torch.sum(m * (t - tt) ** 2) / dn
+
+
+def formula_chunk_loss(pk, o, d, tt, th, t, hit, dn, surf_n, surface_weight,
+                       eikonal_weight, depth_weight):
+    """inverse.chunk_loss as it ran before K13: formula_points, the fused
+    read, formula_terms differentiated by autograd."""
+    from hpsdf_tpu_torch import accel as A
+
+    f, g = A.values_and_gradient_at(pk, formula_points(o, d, tt),
+                                    3 * o.shape[0])
+    return formula_terms(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
+                         eikonal_weight, depth_weight)
 
 
 def packed_grad_reference(pt, pts, cot, form):
@@ -2512,6 +2739,125 @@ def device_busy_ms(fn, keep=()):
             [entry(e) for e in ev if any(k in e.key for k in keep)])
 
 
+def check_k13(s, smi, weights=(1.0, 0.1, 0.1)):
+    """K13 at one 1080p chunk (the middle one, 2^16 rays, marched on the
+    initial tree as the first step marches it): the first launch bit for
+    bit its plain version and formula_points; the second's loss within
+    K13_LOSS_RTOL of its plain version's and bit for bit its own on a second
+    launch; its (df, dg, dt) within K13_COT_RTOL / K13_COT_ATOL of autograd
+    of formula_terms (and, printed, of the plain version). Both launches
+    timed in CUDA graphs beside their plain versions and bounds; a chunk
+    launches each once (the counters), and the operations a chunk's terms
+    put on the card, forward and backward, by torch.profiler against the
+    formula's (None where a trace held none). Launches made here are not
+    the main path's."""
+    from hpsdf_tpu_torch import accel as A
+    from hpsdf_tpu_torch import inverse as I
+
+    chunks = inverse_chunks(s, 1 << 16)
+    c = chunks[len(chunks) // 2]
+    o, d, t, hit = c["rays"]
+    tt, th, dn = c["tt"], c["th"], c["dn"]
+    surf_n = torch.clamp(s["hit_star"].sum().to(torch.float32), min=1.0)
+    n = o.shape[0]
+    counts = (I.inverse_points_kernel.launches,
+              I.inverse_terms_kernel.launches)
+    pts = I.inverse_points_kernel(o, d, tt)
+    pts_p = I.inverse_points_plain(o, d, tt)
+    check(torch.equal(pts, pts_p) and torch.equal(pts, formula_points(
+        o, d, tt)), f"K13 points vs plain: {int((pts != pts_p).sum())} "
+          "coordinates differ")
+    pk = A.pack_tree(s["init"])
+    f, g = A.values_and_gradient_at(pk, pts, 3 * n)
+    args = (f, g, th, hit, t, tt, dn, surf_n, *weights)
+    loss, df, dg, dt = I.inverse_terms_kernel(*args)
+    again = I.inverse_terms_kernel(*args)
+    plain = I.chunk_terms_plain(*args)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (f, g, t)]
+    want_loss = formula_terms(leaves[0], leaves[1], th, hit, leaves[2], tt,
+                              dn, surf_n, *weights)
+    want = torch.autograd.grad(want_loss, leaves)
+    loss_rel = abs(float(loss) - float(plain[0])) / abs(float(plain[0]))
+    check(loss_rel <= K13_LOSS_RTOL, f"K13 loss {float(loss)} vs plain "
+          f"{float(plain[0])}: {loss_rel:.3e}")
+    check(all(torch.equal(a, b) for a, b in zip((loss, df, dg, dt), again)),
+          "K13's second launch is not deterministic")
+    cot = {}
+    for name, got, ref, pl in zip(("df", "dg", "dt"), (df, dg, dt), want,
+                                  plain[1:]):
+        ok = torch.allclose(got, ref, rtol=K13_COT_RTOL, atol=K13_COT_ATOL)
+        cot[name] = {"max_abs_err": float((got - ref).abs().max()),
+                     "max_abs": float(ref.abs().max()),
+                     "max_abs_err_plain": float((got - pl).abs().max())}
+        check(ok, f"K13 {name} vs autograd of the formula: {cot[name]}")
+    one = torch.ones((), device=f.device)
+
+    def terms_grad(fn):
+        return lambda: torch.autograd.grad(
+            fn(leaves[0], leaves[1], th, hit, leaves[2], tt, dn, surf_n,
+               *weights), leaves, one)
+
+    def k13_terms(f_, g_, th_, hit_, t_, *rest):
+        return I._ChunkTerms.apply(f_, g_, t_, th_, hit_, rest[0], rest[1],
+                                   rest[2], tuple(rest[3:]))
+
+    t_ = {"rays": n, "loss_rel_err": loss_rel, "cotangents": cot,
+          "points_bit_for_bit": True,
+          "points_ms": graph_ms(lambda: I.inverse_points_kernel(o, d, tt),
+                                20),
+          "points_plain_ms": time_ms(
+              lambda: I.inverse_points_plain(o, d, tt), 5),
+          "terms_ms": graph_ms(lambda: I.inverse_terms_kernel(*args), 20),
+          "terms_plain_ms": time_ms(lambda: I.chunk_terms_plain(*args), 5),
+          "points_ops": device_ops(lambda: I.inverse_points(o, d, tt))
+          or None,
+          "terms_ops": device_ops(terms_grad(k13_terms)) or None,
+          "formula_points_ops": device_ops(lambda: formula_points(o, d,
+                                                                  tt)) or None,
+          "formula_terms_ops": device_ops(terms_grad(formula_terms)) or None}
+    k0 = (I.inverse_points_kernel.launches, I.inverse_terms_kernel.launches)
+    terms_grad(k13_terms)()
+    I.inverse_points(o, d, tt)
+    check((I.inverse_points_kernel.launches - k0[0],
+           I.inverse_terms_kernel.launches - k0[1]) == (1, 1),
+          "a chunk's points and terms did not launch K13 once each")
+    for key, bts, ops in (
+            ("points", bytes_ms(o, d, tt, pts), n * K13_POINT_OPS),
+            ("terms", bytes_ms(f, g, th, hit, t, tt, dn, surf_n, loss, df,
+                               dg, dt), n * K13_TERM_OPS)):
+        by_ops = ops / F32_PEAK * 1e3
+        t_[f"{key}_bytes_bound_ms"], t_[f"{key}_ops_bound_ms"] = bts, by_ops
+        t_[f"{key}_bound_ms"] = max(bts, by_ops)
+        t_[f"{key}_bound_by"] = "bytes" if bts >= by_ops else "operations"
+    check(t_["points_ops"] in (None, 1) and (t_["terms_ops"] or 0) <= 4,
+          f"K13 puts {t_['points_ops']} + {t_['terms_ops']} operations on "
+          "the card a chunk (at most 1 + 4: the terms' launch and three "
+          "scalings)")
+    I.inverse_points_kernel.launches, I.inverse_terms_kernel.launches = counts
+    print(f"[k13] a 1080p chunk ({n} rays, {int(th.sum())} target hits): "
+          f"points bit for bit plain; loss {float(loss):.8g} vs plain "
+          f"{float(plain[0]):.8g} ({loss_rel:.3e}), deterministic; "
+          f"cotangents vs autograd of the formula {cot} | {smi} | points "
+          f"{t_['points_ms']:.4f} ms in a CUDA graph (plain "
+          f"{t_['points_plain_ms']:.3f}), bound {t_['points_bound_ms']:.5f} "
+          f"ms ({t_['points_bound_by']}), "
+          f"{t_['points_bound_ms'] / t_['points_ms']:.1%} of it; terms "
+          f"{t_['terms_ms']:.4f} ms (plain {t_['terms_plain_ms']:.3f}), bound"
+          f" {t_['terms_bound_ms']:.5f} ms ({t_['terms_bound_by']}), "
+          f"{t_['terms_bound_ms'] / t_['terms_ms']:.1%} of it | operations "
+          f"on the card a chunk: points {t_['points_ops']}, terms forward "
+          f"and backward {t_['terms_ops']}; the formula's "
+          f"{t_['formula_points_ops']} + {t_['formula_terms_ops']}",
+          flush=True)
+    return t_
+
+
+def step_ops(fit):
+    """The operations one more step puts on the card: a two-step run's
+    less a one-step run's (set-up and the last copies cancel)."""
+    return device_ops(lambda: fit(2)) - device_ops(lambda: fit(1))
+
+
 def phase_inverse(s, s_small, smi):
     """fit_to_depth at bench.py's 1080p protocol for INV_STEPS steps on the
     card: the depth RMSE and hit overlap before and after, the warm
@@ -2523,9 +2869,13 @@ def phase_inverse(s, s_small, smi):
     torch.profiler, and once more with K7, G's backward and K8 swapped for
     the kernels they replaced and the fused read split into K2 and K5's raw
     gradient again, to set their device time in a step beside the earlier
-    forms'. Returns (launches, the numbers)."""
+    forms'; and the warm seconds, device busy ms and operations a step
+    (``step_ops``) with K13 and with the chunk's loss as it ran before K13
+    (``formula_chunk_loss`` swapped in). Returns (launches, the
+    numbers)."""
     from unittest import mock
     from hpsdf_tpu_torch import accel as A
+    from hpsdf_tpu_torch import inverse as I
     from hpsdf_tpu_torch import render as R
     from hpsdf_tpu_torch.inverse import fit_to_depth
 
@@ -2546,7 +2896,7 @@ def phase_inverse(s, s_small, smi):
     check(bool(torch.isfinite(losses).all()), f"1080p losses {losses}")
     for k in ("march", "packed_eval", "packed_eval_fused", "packed_grad",
               "row_gather", "row_scatter", "row_scatter_csr",
-              "coeff_scatter"):
+              "coeff_scatter", "inverse_points", "inverse_terms"):
         check(launches[k] > 0, f"{k} never launched by fit_to_depth")
     check(launches["packed_eval_raw"] == 0, f"fit_to_depth launched K5's "
           f"raw gradient on its own {launches['packed_eval_raw']} times")
@@ -2557,6 +2907,18 @@ def phase_inverse(s, s_small, smi):
     mine = ("packed_grad", "row_scatter", "coeff_scatter", "packed_eval",
             "Memset")
     busy_ms, top, mine_ms = device_busy_ms(lambda: fit(s, 1), mine)
+    ops_step = step_ops(lambda n: fit(s, n))
+    # the same step with the chunk's loss as fit_to_depth ran it before K13
+    # (formula_chunk_loss: the torch ops, differentiated by autograd)
+    with mock.patch.object(I, "chunk_loss", formula_chunk_loss):
+        fit(s, 1)
+        sync()
+        t1 = time.perf_counter()
+        fit(s, INV_STEPS).losses.cpu()
+        sync()
+        formula_step_s = (time.perf_counter() - t1) / INV_STEPS
+        formula_busy, formula_top, _ = device_busy_ms(lambda: fit(s, 1), ())
+        formula_ops_step = step_ops(lambda n: fit(s, n))
     with mock.patch.object(A, "packed_grad_kernel", packed_grad_reference), \
             mock.patch.object(A, "row_scatter",
                               lambda d_out, idx, n, csr=None:
@@ -2580,7 +2942,11 @@ def phase_inverse(s, s_small, smi):
                               lambda table, idx, csr=None:
                               A.row_gather_plain(table, idx)), \
             mock.patch.object(R, "_march", plain_march), \
-            mock.patch.object(R, "trace_vjp", R.trace_vjp_plain):
+            mock.patch.object(R, "trace_vjp", R.trace_vjp_plain), \
+            mock.patch.object(I, "inverse_points_kernel",
+                              I.inverse_points_plain), \
+            mock.patch.object(I, "inverse_terms_kernel",
+                              I.chunk_terms_plain):
         plain = fit(s_small, INV_STEPS).losses.cpu()
     plain_launches = sum(read_counts().values())
     check(plain_launches == 0, f"the plain run launched {plain_launches} "
@@ -2596,7 +2962,12 @@ def phase_inverse(s, s_small, smi):
            "profiled_step_device_ms": busy_ms, "profiled_step_top": top,
            "profiled_step_backward": mine_ms,
            "replaced_profiled_step_device_ms": busy_ref,
-           "replaced_profiled_step_backward": replaced}
+           "replaced_profiled_step_backward": replaced,
+           "device_ops_a_step": ops_step,
+           "formula_step_s": formula_step_s,
+           "formula_profiled_step_device_ms": formula_busy,
+           "formula_profiled_step_top": formula_top,
+           "formula_device_ops_a_step": formula_ops_step}
     print(f"[inverse] {INV_SIZE[0]}x{INV_SIZE[1]} rays, sphere r = 0.27 "
           f"towards 0.3 ({s['init'].n_nodes} nodes): {INV_STEPS} steps, "
           f"losses {[f'{v:.6g}' for v in out['losses']]} | {smi} | warm "
@@ -2604,7 +2975,11 @@ def phase_inverse(s, s_small, smi):
           f"device busy {busy_ms} ms, by kernel {top}; K7, G's backward, "
           f"K8, K2/K5 and zero-fills {mine_ms}; with the kernels they "
           f"replaced (K2 and K5's raw gradient in two launches): device busy"
-          f" {busy_ref} ms, {replaced} | depth RMSE "
+          f" {busy_ref} ms, {replaced}; operations on the card a step "
+          f"{ops_step} | with the chunk's loss as before K13 (torch ops and "
+          f"autograd): warm {formula_step_s:.4f} s a step, device busy "
+          f"{formula_busy} ms, by kernel {formula_top}, operations on the "
+          f"card a step {formula_ops_step} | depth RMSE "
           f"{rmse0:.6f} -> {rmse1:.6f}, "
           f"hit overlap {hit0:.6f} -> {hit1:.6f} | launches {launches} | "
           f"{INV_SMALL}^2: losses with the kernels "
@@ -3915,7 +4290,8 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, seed=21):
     sync()
     launches = read_counts()
     check(launches["hybrid"] > 0, "K10 never launched on the main path")
-    check(launches["row_gather"] > 0, "G never launched on the mesh path")
+    check(launches["signed_from_best"] > 0,
+          "K14 never launched on the mesh path")
     sd_err = float((sd - exact).abs().max())
     check(sd_err <= SIGNED_ATOL,
           f"signed_distance_hybrid(atol=0) vs P1: {sd_err:.3e}")
@@ -3931,22 +4307,25 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, seed=21):
     fit_err = float((q - exact_near.double()).abs().max())
     check(bool(torch.isfinite(q).all()) and fit_err < FIT_ATOL,
           f"max|query - P1 signed distance| near the surface {fit_err}")
-    split, timer, _, _ = split_again(
-        lambda: T.build_octree(cfg, F, device=dev), MESH_PHASES)
-    split.update({"K10_s": timer.times.get("K10", 0.0),
-                  "K10_calls": timer.counts.get("K10", 0),
-                  "sign_s": timer.times.get("sign", 0.0)})
+    splits = sign_split(lambda: T.build_octree(cfg, F, device=dev),
+                        MESH_PHASES, TS)
+    split = splits["k14"]
     fit = {"fit_s": fit_s, "F_samples": samples[0], "nodes": tree.n_nodes,
            "leaves": tree.num_leaves(), "deg_used": tree.deg_used,
            "depth_used": tree.depth_used, "hybrid_launches": fit_launches,
-           "near_max_abs_err": fit_err, "split": split}
+           "near_max_abs_err": fit_err, "split": split,
+           "split_sign_before": splits["before"]}
     print(f"[mesh scale] fit through mesh_sdf (K10): {fit_s:.3f} s, F "
           f"samples {samples[0]}, nodes {tree.n_nodes}, leaves "
           f"{tree.num_leaves()}, deg_used {tree.deg_used}, depth_used "
           f"{tree.depth_used}, K10 launches {fit_launches} (and "
           f"{launches['hybrid'] - fit_launches} in signed_distance_hybrid); "
           f"a second build split: {split_text(split)}, "
-          f"{split['K10_calls']} K10 calls; max|query - P1| at {N_NEAR} "
+          f"{split['K10_calls']} K10 calls, {split['sign_calls']} sign calls"
+          f"; with the sign as before K14 (G + torch): "
+          f"{split_text(splits['before'])}, G launches "
+          f"{splits['before']['g_launches']} against {split['g_launches']}; "
+          f"max|query - P1| at {N_NEAR} "
           f"points within {NEAR_OFFSET} of the surface {fit_err:.3e} | "
           f"signed_distance_hybrid(atol=0) at {N_MESH_PTS} uniform points: "
           f"{n_bad / N_MESH_PTS:.4%} escalated to 4x widths, "
@@ -3954,6 +4333,15 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, seed=21):
           f"at k1 = k2 = 128 {n_bad_w} escalated to 512, {n_worse_w} to P1, "
           f"max|. - P1| {sd_w_err:.3e}; "
           f"fixed-K hybrid max|. - P1| {fixed_err:.3e}", flush=True)
+
+    # --- K14 at 2^20 uniform points on K10's best indices ---
+    uni = torch.as_tensor(np.random.default_rng(seed + 1).uniform(
+        -0.5, 0.5, (1 << 20, 3)).astype(np.float32), device=dev)
+    count = TS.hybrid_closest.launches
+    _, idx_uni, _ = TS.hybrid_closest(lo, hi, bvh.node_rows, verts, uni)
+    TS.hybrid_closest.launches = count
+    k14 = check_k14(bvh.tri_rows, idx_uni, uni,
+                    f"2^20 uniform points, {T2} rows", ops=True)
 
     # --- main path, K11: the walk through mesh_sdf(method="bvh") and
     # signed_distance on icosphere(0.3, 5) ---
@@ -4112,7 +4500,8 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, seed=21):
                            "capped_walks": int((iters_m >= cap_m).sum())},
             "heaps": {"max_abs_err": heaps_err,
                       "min_visits_equal_share": heaps_same},
-            "signed_exact_max_abs_err": walk_err}}
+            "signed_exact_max_abs_err": walk_err},
+        "k14": k14}
     return total, entries
 
 
@@ -4914,14 +5303,17 @@ PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
                  "cg_chunk_kernel", "cg_update_rows_kernel",
                  "cg_direction_kernel", "hybrid_kernel", "bvh_walk_kernel",
                  "descend_nodes_kernel", "leaf_nodes_kernel",
-                 "coeff_scatter_nodes_kernel")
+                 "coeff_scatter_nodes_kernel", "signed_from_best_kernel",
+                 "inverse_points_kernel", "inverse_terms_kernel")
 
 
 def _ptxas_key(kernel, args):
     """The report's key for one instantiation, from its template arguments
     (ints, bools and the value type, in order)."""
-    if not args:        # row_scatter(_csr), bvh_walk, descend_nodes
+    if not args:        # row_scatter(_csr), bvh_walk, descend_nodes, K13
         return "-"
+    if kernel == "signed_from_best_kernel":
+        return {"i": "int32", "l": "int64"}[args[0]]
     if kernel == "hybrid_kernel":
         return "two levels" if args[0] else "one level"
     if kernel in ("cg_update_kernel", "cg_update_rows_kernel",
@@ -4994,7 +5386,10 @@ def ptxas_check():
             ("K11", "bvh_walk_kernel", ("-",)),
             ("K1 node round", "descend_nodes_kernel", ("-",)),
             ("K1 node leaf", "leaf_nodes_kernel", ("3", "5")),
-            ("K8 nodes", "coeff_scatter_nodes_kernel", ("3", "5"))):
+            ("K8 nodes", "coeff_scatter_nodes_kernel", ("3", "5")),
+            ("K14", "signed_from_best_kernel", ("int32", "int64")),
+            ("K13 points", "inverse_points_kernel", ("-",)),
+            ("K13 terms", "inverse_terms_kernel", ("-",))):
         got = found.get(kernel, {})
         for key in keys:
             check(key in got, f"ptxas report for {name} {key}")
@@ -5068,6 +5463,8 @@ def main():
         os.path.join(_kernels.BUILD_DIR, "chip_smoke_tree.npz"))
     tf = phase("p1 fit batch", phase_p1_fit, bvh.tri_rows, table, fit_pts)
     p1_err = max(p1_err, tf["fit_max_abs_err"])
+    tk14 = phase("k14 fit batch", phase_k14_fit, bvh.tri_rows, table,
+                 fit_pts)
 
     # --- 5. K1 against its plain version -----------------------------------
     k1_err, k1g_err = phase("k1", phase_k1, tree, N_QUERY)
@@ -5136,6 +5533,7 @@ def main():
     s_inv, s_small = phase("inverse setup", inverse_setup, cfg, dev,
                            (INV_SIZE, (INV_SMALL, INV_SMALL)))
     tgrad = phase("grad", phase_grad, pt_s, tree, s_inv, smi)
+    tk13 = phase("k13", check_k13, s_inv, smi)
     launches_i, ti = phase("inverse", phase_inverse, s_inv, s_small, smi)
 
     # --- 12. the continuity post-process at both sizes ---------------------
@@ -5373,6 +5771,37 @@ def main():
          "library_ms": None,
          "ptxas": {k: ptxas.get(k, {}) for k in ("descend_nodes_kernel",
                                                   "leaf_nodes_kernel")}},
+        {"name": "signed_from_best", "route": "cuda",
+         "source": "hpsdf_tpu_torch/csrc/sign.cu",
+         "replaces": "hpsdf_tpu/mesh/sdf.py:61",
+         "launches": total["signed_from_best"],
+         "max_abs_err": max(tk14["max_abs_err"], tm["k14"]["max_abs_err"]),
+         **{k: tk14[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "bytes_bound_ms",
+                                 "ops_bound_ms", "before_ms", "points",
+                                 "sign_differ", "feature_differ")},
+         **{k: tm["k14"][k] for k in ("launches_a_call",
+                                      "before_launches_a_call")},
+         "mesh_1p31m_uniform": tm["k14"],
+         "ptxas": ptxas.get("signed_from_best_kernel", {})},
+        *({"name": f"inverse_{key}", "route": "cuda",
+           "source": "hpsdf_tpu_torch/csrc/inverse_terms.cu",
+           "replaces": "hpsdf_tpu/inverse.py:188",
+           "launches": total[f"inverse_{key}"],
+           "max_abs_err": err, "ms": tk13[f"{key}_ms"],
+           "plain_ms": tk13[f"{key}_plain_ms"],
+           **{k: tk13[f"{key}_{k}"] for k in (
+               "bound_ms", "bound_by", "bytes_bound_ms", "ops_bound_ms")},
+           "library_ms": None, "rays": tk13["rays"],
+           "launches_a_chunk": tk13[f"{key}_ops"],
+           "formula_launches_a_chunk": tk13[f"formula_{key}_ops"], **extra,
+           "ptxas": ptxas.get(f"inverse_{key}_kernel", {})}
+          for key, err, extra in (
+              ("points", 0.0, {"bit_for_bit": True}),
+              ("terms", max(v["max_abs_err"]
+                            for v in tk13["cotangents"].values()),
+               {"loss_rel_err": tk13["loss_rel_err"],
+                "cotangents": tk13["cotangents"]}))),
         {"name": "coeff_scatter_nodes", "route": "cuda",
          "source": "hpsdf_tpu_torch/csrc/coeff_scatter.cu",
          "replaces": "hpsdf_tpu/query.py:70-88",
@@ -5389,7 +5818,8 @@ def main():
           f"{tr['render_s']:.3f} s, hit fraction {frac:.4f} | 1024^2 march: "
           f"slice {tk3['mrays']:.2f} Mrays/s, refdefault "
           f"{tk3r['mrays']:.2f} Mrays/s | inverse 1080p "
-          f"{ti['step_s']:.4f} s a step, depth RMSE {ti['rmse_before']:.6f} "
+          f"{ti['step_s']:.4f} s a step (the chunk's loss as before K13: "
+          f"{ti['formula_step_s']:.4f} s), depth RMSE {ti['rmse_before']:.6f} "
           f"-> {ti['rmse_after']:.6f} | launches {total}", flush=True)
     print(f"[seconds] {PHASE_SECONDS}", flush=True)
     cont = {label: {k: v for k, v in c.items()

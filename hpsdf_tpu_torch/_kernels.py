@@ -53,6 +53,11 @@ _SIGNATURES = {
     "hpsdf_descend_nodes": (_P, _P, _I32, _I32, _P, _P, _I64, _P, _P),
     "hpsdf_leaf_nodes": (_P, _P, _P, _I32, _I32, _I32, _P, _P, _I64, _P, _P),
     "hpsdf_row_gather": (_P, _I64, _I64, _I64, _P, _I64, _P, _P),
+    "hpsdf_signed_from_best": (_P, _I64, _I64, _P, _I32, _P, _I64, _P, _P,
+                               _P),
+    "hpsdf_inverse_points": (_P, _P, _P, _I64, _P, _P),
+    "hpsdf_inverse_terms": (_P, _P, _P, _P, _P, _P, _I64, _P, _P, _F32,
+                            _F32, _F32, _P, _P, _P, _P, _P, _P),
     "hpsdf_packed_eval": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
                           _F32, _F32, _F32, _F32, _F32, _F32,
                           _F32, _F32, _F32, _I32, _I32, _P, _P, _I64, _P),
@@ -92,6 +97,7 @@ _SIZE_SIGNATURES = {
     "hpsdf_packed_grad_scratch": (_I64, _I32, _I32, _I32),
     "hpsdf_cg_scratch": (),
     "hpsdf_cg_chunk_blocks": (_I64,),
+    "hpsdf_inverse_terms_scratch": (_I64,),
 }
 # and of the reference kernels under csrc/check/, which only checks load
 _CHECK_SIGNATURES = {

@@ -21,7 +21,7 @@
 //   * values and raw gradients in one launch (the fused mode): the value at
 //     every point and the raw gradient at the first B_g, the points of an
 //     inverse chunk's one read (its band points first, whose gradients the
-//     eikonal term takes; inverse.py _Terms). A thread i < B_g runs the
+//     eikonal term takes; inverse.py chunk_loss). A thread i < B_g runs the
 //     derivative recurrences and the three gradient sums on the row it
 //     already holds, after the value's sum; each sum is written as in its
 //     own mode, so the values are bit-equal to mode 0's and the gradients

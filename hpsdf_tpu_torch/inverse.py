@@ -9,7 +9,11 @@ re-derived from the current coefficients every step (``accel.repack`` /
 ``repack_folded``, whose grid gather carries gradients back through G's
 backward) with ``accel.values_and_gradient_at``: the values (K2) and the
 eikonal term's raw gradients (K5) in one launch a chunk, backward K7's two
-forms. Adam is ``torch.optim.Adam`` with optax's defaults.
+forms. A chunk's target points and its loss terms with their VJP are
+kernel K13 on CUDA tensors (csrc/inverse_terms.cu: ``inverse_points_kernel``
+and ``inverse_terms_kernel``, a launch each), their plain versions
+``inverse_points_plain`` and ``chunk_terms_plain`` on CPU tensors. Adam is
+``torch.optim.Adam`` with optax's defaults.
 
 Memory stays chunk-sized: a step first marches every ray chunk without a
 graph (the march's VJP needs only its ``t`` and ``hit``), which fixes the
@@ -32,7 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import accel, render as R
+from . import _kernels, accel, render as R
 from .tree import Octree
 
 # Fixed constants of the loss (hpsdf_tpu inverse.py:108-112, 182-183): the
@@ -140,8 +144,8 @@ def fit_to_depth(tree: Octree, origins, dirs, target_t, target_hit,
     if lr_warmup > 0:
         sched = torch.optim.lr_scheduler.LambdaLR(
             opt, lambda k: min(1.0, (k + 1.0) / lr_warmup))
-    terms = _Terms(surface_weight, eikonal_weight,
-                   torch.clamp(target_hit.sum().to(f32), min=1.0), dev)
+    surf_n = torch.clamp(target_hit.sum().to(f32), min=1.0)
+    weights = (surface_weight, eikonal_weight, depth_weight)
 
     losses = []
     for _ in range(n_steps):
@@ -170,10 +174,8 @@ def fit_to_depth(tree: Octree, origins, dirs, target_t, target_hit,
         total = torch.zeros((), dtype=f32, device=dev)
         for (o, d, tt, th), (t, hit) in zip(chunks, marched):
             t = R.implicit_t(tree32, leaves[0], t, hit, o, d)
-            m = (hit & th).to(f32)
-            loss = (terms(pk_l, o, d, tt, th)
-                    + np.float32(depth_weight)
-                    * torch.sum(m * (t - tt) ** 2) / dn)
+            loss = chunk_loss(pk_l, o, d, tt, th, t, hit, dn, surf_n,
+                              *weights)
             loss.backward()
             total = total + loss.detach()
         grads = [torch.zeros_like(x) if x.grad is None else x.grad
@@ -200,42 +202,178 @@ def fit_to_depth(tree: Octree, origins, dirs, target_t, target_hit,
                          else torch.zeros(0, dtype=f32, device=dev))
 
 
-class _Terms:
-    """A chunk's field and eikonal terms, normalised by the target hit
-    count (hpsdf_tpu inverse.py chunk_field, without the depth term)."""
+def chunk_loss(pk, o, d, tt, th, t, hit, dn, surf_n, surface_weight,
+               eikonal_weight, depth_weight):
+    """A chunk's loss (hpsdf_tpu inverse.py chunk_field with the depth term
+    normalised by ``dn``): its 7n target points (``inverse_points``), one
+    read of the values there and of the band points' gradients
+    (``accel.values_and_gradient_at``), then the terms and their VJP
+    (``chunk_terms``). Differentiable with respect to ``pk``'s tables and
+    ``t``."""
+    n = o.shape[0]
+    f, g = accel.values_and_gradient_at(pk, inverse_points(o, d, tt), 3 * n)
+    return _ChunkTerms.apply(f, g, t, th, hit, tt, dn, surf_n,
+                             (surface_weight, eikonal_weight, depth_weight))
 
-    def __init__(self, surface_weight, eikonal_weight, surf_n, dev):
-        self.sw = np.float32(surface_weight)
-        self.ew = np.float32(eikonal_weight)
-        self.surf_n = surf_n
-        self.fracs = torch.tensor(FRACS, dtype=torch.float32, device=dev)
 
-    def __call__(self, pk, o, d, tt, th):
-        band = np.float32(BAND)
-        half = band * np.float32(0.5)
-        surf_m = th.to(torch.float32)
-        n = o.shape[0]
-        surf = o + tt[:, None] * d
-        out_p = o + (tt - band)[:, None] * d        # want f >= +band/2
-        in_p = o + (tt + band)[:, None] * d         # want f <= -band/2
-        free = o[None] + (self.fracs[:, None, None] * tt[None, :, None]) \
-            * d[None]
-        band_pts = torch.cat([surf, in_p, out_p])
-        # one read of every point of the chunk, with the band points'
-        # spatial gradients for the eikonal term
-        f, g = accel.values_and_gradient_at(
-            pk, torch.cat([band_pts, free.reshape(-1, 3)]), 3 * n)
-        fsurf, f_in, f_out = f[:n], f[n:2 * n], f[2 * n:3 * n]
-        f_free = f[3 * n:].reshape(len(FRACS), n)
-        field = (fsurf ** 2 + torch.relu(f_in + half) ** 2
-                 + torch.relu(half - f_out) ** 2)
-        free_sum = torch.sum(surf_m[None] * torch.relu(half - f_free) ** 2)
-        # eikonal: the eps inside the sqrt keeps a zero gradient's norm
-        # differentiable
-        gnorm = torch.sqrt(torch.sum(g * g, dim=-1) + 1e-12)
-        eik = torch.sum(surf_m.repeat(3) * (gnorm - 1.0) ** 2)
-        return (self.sw * (torch.sum(surf_m * field) + free_sum / len(FRACS))
-                / self.surf_n + self.ew * eik / (3.0 * self.surf_n))
+def _check_rays(*tensors):
+    dev = tensors[0].device
+    for x in tensors:
+        if x.device != dev:
+            raise ValueError(f"inverse: tensors on {x.device} and {dev}")
+
+
+def inverse_points_plain(o, d, tt):
+    """The chunk's 7n points, (7n, 3) f32: the band points (surface o + tt
+    d, in o + (tt + BAND) d, out o + (tt - BAND) d), then the free-space
+    points at FRACS of tt, fraction-major."""
+    _check_rays(o, d, tt)
+    band = float(np.float32(BAND))
+    fracs = torch.tensor(FRACS, dtype=torch.float32, device=o.device)
+    surf = o + tt[:, None] * d
+    in_p = o + (tt + band)[:, None] * d         # want f <= -band/2
+    out_p = o + (tt - band)[:, None] * d        # want f >= +band/2
+    free = o[None] + (fracs[:, None, None] * tt[None, :, None]) * d[None]
+    return torch.cat([surf, in_p, out_p, free.reshape(-1, 3)])
+
+
+def inverse_points_kernel(o, d, tt):
+    """K13's first launch (csrc/inverse_terms.cu): ``inverse_points_plain``
+    bit for bit, on CUDA tensors."""
+    _check_rays(o, d, tt)
+    if o.device.type != "cuda":
+        raise ValueError(f"inverse_points_kernel: tensors on {o.device}, "
+                         "not a CUDA device")
+    o, d, tt = (x.to(torch.float32).contiguous() for x in (o, d, tt))
+    n = o.shape[0]
+    out = torch.empty((7 * n, 3), dtype=torch.float32, device=o.device)
+    lib = _kernels.load()
+    _kernels.check(lib, lib.hpsdf_inverse_points(
+        o.data_ptr(), d.data_ptr(), tt.data_ptr(), n, out.data_ptr(),
+        _kernels.stream_of(o)), "inverse_points")
+    inverse_points_kernel.launches += 1
+    return out
+
+
+inverse_points_kernel.launches = 0
+
+
+def inverse_points(o, d, tt):
+    """The chunk's 7n points: kernel K13's first launch on CUDA tensors,
+    the plain version on CPU tensors."""
+    if o.device.type == "cpu":
+        return inverse_points_plain(o, d, tt)
+    return inverse_points_kernel(o, d, tt)
+
+
+def chunk_terms_plain(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
+                      eikonal_weight, depth_weight):
+    """A chunk's loss terms and their VJP by hand, whatever the device, in
+    K13's order of operations: f (7n,) the values at ``inverse_points``,
+    g (3n, 3) the band points' gradients, th / hit (n,) bool the target and
+    marched hits, t / tt (n,) the marched and target depths, dn and surf_n
+    the depth and field normalisers (f32 scalars on the device). Returns
+    (loss, df (7n,), dg (3n, 3), dt (n,)): the field, free-space and
+    eikonal terms over surf_n plus the depth term over dn (hpsdf_tpu
+    inverse.py chunk_field), and their gradients with respect to f, g and
+    t. relu's derivative is 0 at 0, as autograd's."""
+    f32 = torch.float32
+    n = t.shape[0]
+    half = float(np.float32(BAND) * np.float32(0.5))
+    s = th.to(f32)
+    m = (hit & th).to(f32)
+    cs = surf_n.new_tensor(np.float32(surface_weight)) / surf_n
+    ce = surf_n.new_tensor(np.float32(eikonal_weight)) / (3.0 * surf_n)
+    cd = dn.new_tensor(np.float32(depth_weight)) / dn
+    fs, ff = f[:n], f[3 * n:].view(len(FRACS), n)
+    r_in = torch.clamp(f[n:2 * n] + half, min=0.0)
+    r_out = torch.clamp(half - f[2 * n:3 * n], min=0.0)
+    r_ff = torch.clamp(half - ff, min=0.0)
+    field = (fs * fs + r_in * r_in) + r_out * r_out
+    free = r_ff[0] * r_ff[0]
+    for k in range(1, len(FRACS)):
+        free = free + r_ff[k] * r_ff[k]
+    gg = g * g
+    gn = torch.sqrt((gg[:, 0] + gg[:, 1]) + gg[:, 2] + 1e-12).view(3, n)
+    e = gn - 1.0
+    eik = (e[0] * e[0] + e[1] * e[1]) + e[2] * e[2]
+    dtt = t - tt
+    loss = torch.sum(s * (cs * (field + 0.25 * free) + ce * eik)
+                     + m * (cd * (dtt * dtt)))
+    ws = s * cs
+    w2, wh = 2.0 * ws, 0.5 * ws
+    df = torch.cat([w2 * fs, w2 * r_in, -(w2 * r_out),
+                    (-(wh * r_ff)).reshape(-1)])
+    dg = ((2.0 * (s * ce)) * (e / gn)).reshape(-1, 1) * g
+    dt = (2.0 * (m * cd)) * dtt
+    return loss, df, dg, dt
+
+
+def inverse_terms_kernel(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
+                         eikonal_weight, depth_weight):
+    """K13's second launch (csrc/inverse_terms.cu): ``chunk_terms_plain``
+    on CUDA tensors, the loss summed in a fixed order in the same launch.
+    dn and surf_n stay on the card: nothing is read back."""
+    _check_rays(f, g, th, hit, t, tt, dn, surf_n)
+    if f.device.type != "cuda":
+        raise ValueError(f"inverse_terms_kernel: tensors on {f.device}, not "
+                         "a CUDA device")
+    n = t.shape[0]
+    if f.shape != (7 * n,) or g.shape != (3 * n, 3) \
+            or th.shape != (n,) or hit.shape != (n,) or tt.shape != (n,) \
+            or th.dtype != torch.bool or hit.dtype != torch.bool:
+        raise ValueError(f"inverse_terms_kernel: f {tuple(f.shape)}, g "
+                         f"{tuple(g.shape)}, th {th.dtype} "
+                         f"{tuple(th.shape)}, hit {hit.dtype} "
+                         f"{tuple(hit.shape)}, tt {tuple(tt.shape)} for "
+                         f"{n} rays")
+    f, g, t, tt, dn, surf_n = (x.to(torch.float32).contiguous()
+                               for x in (f, g, t, tt, dn, surf_n))
+    th, hit = th.contiguous(), hit.contiguous()
+    df, dg, dt = torch.empty_like(f), torch.empty_like(g), torch.empty_like(t)
+    loss = torch.empty((), dtype=torch.float32, device=f.device)
+    lib = _kernels.load()
+    partials = torch.empty(lib.hpsdf_inverse_terms_scratch(n),
+                           dtype=torch.float32, device=f.device)
+    _kernels.check(lib, lib.hpsdf_inverse_terms(
+        f.data_ptr(), g.data_ptr(), th.data_ptr(), hit.data_ptr(),
+        t.data_ptr(), tt.data_ptr(), n, surf_n.data_ptr(), dn.data_ptr(),
+        float(np.float32(surface_weight)), float(np.float32(eikonal_weight)),
+        float(np.float32(depth_weight)), loss.data_ptr(), df.data_ptr(),
+        dg.data_ptr(), dt.data_ptr(), partials.data_ptr(),
+        _kernels.stream_of(f)), "inverse_terms")
+    inverse_terms_kernel.launches += 1
+    return loss, df, dg, dt
+
+
+inverse_terms_kernel.launches = 0
+
+
+def chunk_terms(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
+                eikonal_weight, depth_weight):
+    """(loss, df, dg, dt) of a chunk: kernel K13's second launch on CUDA
+    tensors, ``chunk_terms_plain`` on CPU tensors."""
+    terms = chunk_terms_plain if f.device.type == "cpu" \
+        else inverse_terms_kernel
+    return terms(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
+                 eikonal_weight, depth_weight)
+
+
+class _ChunkTerms(torch.autograd.Function):
+    """A chunk's loss from (f, g, t), its VJP written by ``chunk_terms`` in
+    the forward and scaled by the loss's cotangent in the backward."""
+
+    @staticmethod
+    def forward(ctx, f, g, t, th, hit, tt, dn, surf_n, weights):
+        loss, df, dg, dt = chunk_terms(f, g, th, hit, t, tt, dn, surf_n,
+                                       *weights)
+        ctx.save_for_backward(df, dg, dt)
+        return loss
+
+    @staticmethod
+    def backward(ctx, go):
+        df, dg, dt = ctx.saved_tensors
+        return (df * go, dg * go, dt * go) + (None,) * 6
 
 
 def render_targets(tree: Octree, origins, dirs, t_max: float = 10.0,

@@ -9,7 +9,8 @@
   tiles_sdf.py <- kernel P1: dense closest-triangle scan (replaces the
                   Pallas kernel in hpsdf_tpu/mesh/pallas_sdf.py)
   sdf.py       <- signed distance: the BVH walk (kernel K11), the hybrid
-                  prune (kernel K10), the scans, and the F callable for
+                  prune (kernel K10), the sign on the best triangle
+                  (kernel K14), the scans, and the F callable for
                   build_octree
 """
 
@@ -22,6 +23,7 @@ from .sdf import (mesh_sdf, signed_distance, signed_distance_brute,
                   signed_distance_tiles, signed_distance_hybrid,
                   hybrid_sdf_fn, hybrid_closest, hybrid_closest_plain,
                   closest_bvh, closest_bvh_plain, cluster_aabbs,
+                  signed_from_best_kernel, signed_from_best_plain,
                   AUTO_TILES_MAX)
 
 __all__ = [
@@ -31,5 +33,6 @@ __all__ = [
     "signed_distance", "signed_distance_brute", "signed_distance_tiles",
     "signed_distance_hybrid", "hybrid_sdf_fn", "hybrid_closest",
     "hybrid_closest_plain", "closest_bvh", "closest_bvh_plain",
-    "cluster_aabbs", "AUTO_TILES_MAX",
+    "cluster_aabbs", "signed_from_best_kernel", "signed_from_best_plain",
+    "AUTO_TILES_MAX",
 ]

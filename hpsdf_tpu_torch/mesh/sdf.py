@@ -16,8 +16,9 @@ Source/Meshing/Mesh.cpp:42-63 and Source/Meshing/BVH.cpp:263-342).
 
 Each kernel's wrapper launches it on CUDA tensors and runs its plain torch
 version (``closest_bvh_plain``, ``hybrid_closest_plain``) on CPU tensors.
-The sign is taken on the best triangle alone (``_signed_from_best``, its row
-fetched by kernel G).
+The sign is taken on the best triangle alone (``_signed_from_best``: kernel
+K14, ``signed_from_best_kernel``, csrc/sign.cu, on CUDA tensors; its plain
+version ``signed_from_best_plain`` on CPU tensors).
 
 Sign convention (Baerentzen-Aanaes): sign(dot(pseudo_normal(feature),
 p - closest)), with the pseudo-normal picked by the closest simplex
@@ -29,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from .. import _device, _kernels
-from ..accel import row_gather
+from ..accel import row_gather_plain
 from . import bvh as _bvh
 from . import tri as _tri
 from .bvh import BVH, build_bvh
@@ -83,10 +84,57 @@ def _signed(rows, p):
     return torch.where(torch.sum(pn * diff, dim=-1) >= 0.0, 1.0, -1.0) * dist
 
 
+def signed_from_best_plain(tri_rows, best_idx, p):
+    """K14's plain version, whatever the device: the best triangle's row by
+    the plain row gather (zeros for an index outside the table), then
+    ``_signed``."""
+    return _signed(row_gather_plain(tri_rows, best_idx), p)
+
+
 def _signed_from_best(tri_rows, best_idx, p):
-    """Final sign + distance evaluation on the best triangle only; its row
-    is fetched by the row gather (kernel G on CUDA tensors)."""
-    return _signed(row_gather(tri_rows, best_idx), p)
+    """Final sign + distance evaluation on the best triangle only: kernel
+    K14 on CUDA tensors, the plain version on CPU tensors. tri_rows (T2,
+    TRI_W) f32, best_idx (B,) int32 / int64, p (B, 3) f32 -> (B,) f32."""
+    if p.device.type == "cpu":
+        return signed_from_best_plain(tri_rows, best_idx, p)
+    return signed_from_best_kernel(tri_rows, best_idx, p)
+
+
+def signed_from_best_kernel(tri_rows, best_idx, p, with_feature=False):
+    """K14 (csrc/sign.cu): one launch, a thread a point, reading the best
+    row's lanes straight from ``tri_rows``. Refuses tensors off the card.
+    With ``with_feature`` also returns the closest feature's code (B,) int8
+    (``tri.FEAT_*``)."""
+    if p.device.type != "cuda":
+        raise ValueError(f"signed_from_best_kernel: tensors on {p.device}, "
+                         "not a CUDA device")
+    _check_pts(p, tri_rows)
+    _check_rows("signed_from_best_kernel", tri_rows)
+    if tri_rows.shape[1] < _bvh._EPN + 9:
+        raise ValueError(f"signed_from_best_kernel: rows of "
+                         f"{tri_rows.shape[1]} lanes, the pseudo-normals need "
+                         f"{_bvh._EPN + 9}")
+    if best_idx.dim() != 1 or best_idx.shape[0] != p.shape[0] \
+            or best_idx.dtype not in (torch.int32, torch.int64) \
+            or best_idx.device != p.device:
+        raise ValueError(f"best_idx must be int32/int64 ({p.shape[0]},) on "
+                         f"{p.device}, got {best_idx.dtype} "
+                         f"{tuple(best_idx.shape)} on {best_idx.device}")
+    p, idx = p.contiguous(), best_idx.contiguous()
+    out = torch.empty(p.shape[0], dtype=torch.float32, device=p.device)
+    feat = torch.empty(p.shape[0], dtype=torch.int8, device=p.device) \
+        if with_feature else None
+    lib = _kernels.load()
+    _kernels.check(lib, lib.hpsdf_signed_from_best(
+        tri_rows.data_ptr(), tri_rows.shape[0], tri_rows.stride(0),
+        idx.data_ptr(), int(idx.dtype == torch.int64), p.data_ptr(),
+        p.shape[0], out.data_ptr(), 0 if feat is None else feat.data_ptr(),
+        _kernels.stream_of(p)), "signed_from_best")
+    signed_from_best_kernel.launches += 1
+    return (out, feat) if with_feature else out
+
+
+signed_from_best_kernel.launches = 0
 
 
 def _tri_d2(rows, p):

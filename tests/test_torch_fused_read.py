@@ -3,7 +3,7 @@
 plain versions that the fused mode of K2/K5 and K7's two forms are held to
 on the card) against jax.grad on hpsdf_tpu, on the same numpy inputs, at
 basis degrees 1, 3 and 5 on ``chip_smoke.synthetic_tree`` (points
-straddling the root); the points ``inverse._Terms`` reads with it; and
+straddling the root); the points ``inverse.chunk_loss`` reads with it; and
 chip_smoke.py's helpers around K8: the nodes a descent visits
 (``node_walk``), the bytes in K8's bound (``coeff_scatter_bytes``) and the
 inverse step's chunks with their depth cotangents (``inverse_chunks``).
@@ -140,9 +140,10 @@ def _setup(side=12):
 
 
 def test_terms_read_the_points_in_chip_smoke_order(monkeypatch):
-    """_Terms reads every point of a chunk in one values_and_gradient_at
-    call: chip_smoke.inverse_points' 7n points, in their order, with the
-    gradients of the first 3n, chip_smoke.band_points'."""
+    """chunk_loss reads every point of a chunk in one
+    values_and_gradient_at call: chip_smoke.inverse_points' 7n points, in
+    their order, with the gradients of the first 3n, chip_smoke.band_points'.
+    """
     s = _setup()
     seen = []
 
@@ -151,9 +152,10 @@ def test_terms_read_the_points_in_chip_smoke_order(monkeypatch):
         return TA.values_and_gradient_at_plain(pk, pts, n_grad)
 
     monkeypatch.setattr(TA, "values_and_gradient_at", fused)
-    terms = TI._Terms(1.0, 0.1, torch.tensor(1.0), "cpu")
-    terms(TA.pack_tree(s["init"]), s["o"], s["d"], s["t_star"],
-          s["hit_star"])
+    one = torch.tensor(1.0)
+    TI.chunk_loss(TA.pack_tree(s["init"]), s["o"], s["d"], s["t_star"],
+                  s["hit_star"], s["t_star"], s["hit_star"], one, one, 1.0,
+                  0.1, 0.1)
     rays = slice(0, s["o"].shape[0])
     (pts, n_grad), = seen
     np.testing.assert_array_equal(pts.numpy(),

@@ -308,8 +308,9 @@ def test_inverse_points_are_values_at_points(monkeypatch):
         return TA.values_and_gradient_at_plain(pk, pts, n_grad)
 
     monkeypatch.setattr(TA, "values_and_gradient_at", fused)
-    terms = inverse._Terms(1.0, 0.1, torch.tensor(1.0), "cpu")
-    terms(TA.pack_tree(tree), o, d, t_star, hit)
+    one = torch.tensor(1.0)
+    inverse.chunk_loss(TA.pack_tree(tree), o, d, t_star, hit, t_star, hit,
+                       one, one, 1.0, 0.1, 0.1)
     rays = slice(0, o.shape[0])
     np.testing.assert_array_equal(seen["values_at"].numpy(),
                                   chip_smoke.inverse_points(s, rays).numpy())

@@ -125,13 +125,15 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
 
 @pytest.mark.parametrize("spill", [None, "K1", "K3", "K7", "G CSR", "K5F",
                                    "K9u", "chunk", "rows", "K10", "K11",
-                                   "round", "leaf", "K8 nodes"],
+                                   "round", "leaf", "K8 nodes", "K14",
+                                   "K13"],
                          ids=["clean", "spills", "march_spills",
                               "backward_spills", "csr_spills",
                               "fused_spills", "cg_spills", "chunk_spills",
                               "rows_spills", "hybrid_spills", "walk_spills",
                               "node_round_spills", "node_leaf_spills",
-                              "node_scatter_spills"])
+                              "node_scatter_spills", "sign_spills",
+                              "inverse_terms_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
@@ -139,9 +141,10 @@ def test_ptxas_check(monkeypatch, spill):
     either form of G's backward, or the continuity kernels (K9 on the face
     operator and in PR 10's CSR form, K9u's two forms, both forms of the
     persistent launch, both forms of each of the row-sharded CG's two K9u
-    launches), K10 (either level count), K11, or K1's node-range descent
-    round, its leaf evaluation or K8's node-range mode (at degree 3 or 5)
-    has a stack frame or spills."""
+    launches), K10 (either level count), K11, K1's node-range descent
+    round, its leaf evaluation or K8's node-range mode (at degree 3 or 5),
+    K14 (either index type) or either launch of K13 has a stack frame or
+    spills."""
     from hpsdf_tpu_torch import _kernels
 
     report = "".join(
@@ -203,6 +206,14 @@ def test_ptxas_check(monkeypatch, spill):
         report += _ptxas_entry("coeff_scatter_nodes_kernel", d, None,
                                regs=40, stack=16 if spill == "K8 nodes"
                                and d == 3 else 0)
+    for index in ("i", "l"):
+        report += _ptxas_entry("signed_from_best_kernel", 0, None, regs=40,
+                               args=index, stack=8 if spill == "K14"
+                               and index == "l" else 0)
+    report += _ptxas_entry("inverse_points_kernel", 0, None, args="",
+                           regs=32)
+    report += _ptxas_entry("inverse_terms_kernel", 0, None, args="",
+                           regs=40, stack=8 if spill == "K13" else 0)
     monkeypatch.setattr(_kernels, "ptxas_report", lambda: report)
     if spill:
         with pytest.raises(RuntimeError, match={
@@ -217,7 +228,9 @@ def test_ptxas_check(monkeypatch, spill):
                 "K11": "K11 -: stack 8",
                 "round": "K1 node round -: stack 8",
                 "leaf": "K1 node leaf 5: stack 8",
-                "K8 nodes": "K8 nodes 3: stack 16"}[spill]):
+                "K8 nodes": "K8 nodes 3: stack 16",
+                "K14": "K14 int64: stack 8",
+                "K13": "K13 terms -: stack 8"}[spill]):
             chip_smoke.ptxas_check()
         return
     found = chip_smoke.ptxas_check()
@@ -236,6 +249,10 @@ def test_ptxas_check(monkeypatch, spill):
     assert found["cone_kernel"] == {k: [40, 0, 0, 0]
                                     for k in ("3/full", "5/full", "2/lo")}
     assert found["cg_matvec_kernel"] == {"-": [32, 0, 0, 0]}
+    assert found["signed_from_best_kernel"] == {"int32": [40, 0, 0, 0],
+                                                "int64": [40, 0, 0, 0]}
+    assert found["inverse_points_kernel"] == {"-": [32, 0, 0, 0]}
+    assert found["inverse_terms_kernel"] == {"-": [40, 0, 0, 0]}
     for kernel in ("cg_update_rows_kernel", "cg_direction_kernel"):
         assert found[kernel] == {k: [32, 0, 0, 0]
                                  for k in ("init", "iteration")}
