@@ -117,10 +117,12 @@ and with the old sign swapped in, and G's launches falling by the sign
 calls. K13, the inverse chunk's loss terms (csrc/inverse_terms.cu: the 7n
 points, then the terms and their VJP with the chunk's loss), is held at a
 1080p chunk ([k13]): the points bit for bit, the loss within K13_LOSS_RTOL
-of the plain version, the cotangents within K13_COT_RTOL / K13_COT_ATOL of
-autograd of the formula fit_to_depth ran before it (formula_terms), timed
-in CUDA graphs beside their bounds, with the operations a chunk puts on the
-card; [inverse] times a step with it and with the formula swapped in.
+of the plain version, the cotangents (each times its normaliser) within
+K13_COT_RTOL / K13_COT_ATOL of autograd of the formula fit_to_depth ran
+before it (formula_terms) and within K13_PLAIN_RTOL of the plain
+version's, timed in CUDA graphs beside their bounds, with the operations a
+chunk puts on the card (and a sign call, after it); [inverse] times a step
+with it and with the formula swapped in.
 
 [mesh scale] runs the mesh -> SDF path at the reference's scale
 (bench.py:416-517): bumpy_sphere(0.3, 8), 1,310,720 triangles, written to
@@ -276,7 +278,17 @@ INV_STEPS = 5
 INV_SMALL = 128                     # the kernels-against-plain run's side
 INV_LOSS_RTOL = 1e-3
 K13_LOSS_RTOL = 1e-5                # K13's loss against its plain version
-K13_COT_RTOL, K13_COT_ATOL = 1e-6, 1e-7   # its cotangents against autograd
+# its cotangents against autograd of the formula, each cotangent times its
+# normaliser (surf_n for df and dg, dn for dt: the loss's units before the
+# terms are averaged over the rays)
+K13_COT_RTOL, K13_COT_ATOL = 1e-6, 1e-7
+# and against its plain version, which rounds as it does: elementwise and
+# relative to the tensor's largest entry
+K13_PLAIN_RTOL = 1e-6
+# the operations on the card a chunk's points and terms (forward and
+# backward) may take, and a sign call: the launches themselves and the
+# backward's three scalings
+K13_POINT_LAUNCHES, K13_TERM_LAUNCHES, K14_LAUNCHES = 1, 4, 1
 
 
 PHASE_SECONDS = {}
@@ -480,17 +492,14 @@ def sign_bytes(idx, pts, feat):
         + 12 * pairs
 
 
-def check_k14(rows, idx, pts, label, ops=False):
+def check_k14(rows, idx, pts, label):
     """K14 against its plain version on the same best indices: the distance
     within SIGNED_ATOL at every point, the sign equal wherever |d| >
     SIGNED_ATOL; the points whose sign or feature code (the plain
     cascade's, mesh/tri.py) differ are counted. Then K14 in a CUDA graph,
     its plain version and the sign as it was before K14 (G's gather and
     the torch cascade) by events, and the bound; a call launches K14 once
-    and G never (the counters); with ``ops`` also the operations a call
-    puts on the card, by torch.profiler (not before [grad]: traces taken
-    before the phases that replay CUDA graphs have left later ones empty),
-    None where a trace held none. Launches made here are not the main
+    and G never (the counters). Launches made here are not the main
     path's."""
     from hpsdf_tpu_torch.accel import row_gather, row_gather_plain
     from hpsdf_tpu_torch.mesh import sdf as TS
@@ -526,13 +535,6 @@ def check_k14(rows, idx, pts, label, ops=False):
     check((t["kernel_launches_a_call"], t["g_launches_a_call"]) == (1, 0),
           f"a sign call launched K14 {t['kernel_launches_a_call']} and G "
           f"{t['g_launches_a_call']} times")
-    if ops:
-        t.update(launches_a_call=device_ops(
-            lambda: TS._signed_from_best(rows, idx, pts)) or None,
-            before_launches_a_call=device_ops(
-                lambda: sign_before(rows, idx, pts)) or None)
-        check(t["launches_a_call"] in (None, 1), f"K14 puts "
-              f"{t['launches_a_call']} operations on the card a call")
     by_bytes = sign_bytes(idx, pts, feat) / HBM_RATE * 1e3
     by_ops = pts.shape[0] * K14_OPS / F32_PEAK * 1e3
     t.update(bytes_bound_ms=by_bytes, ops_bound_ms=by_ops,
@@ -547,10 +549,7 @@ def check_k14(rows, idx, pts, label, ops=False):
           f"features {t['features']} | K14 {t['ms']:.4f} ms in a CUDA graph,"
           f" plain {t['plain_ms']:.3f} ms, before K14 (G + torch) "
           f"{t['before_ms']:.3f} ms; a call launches K14 once and G never;"
-          f" operations on the card a call "
-          f"{t.get('launches_a_call') or 'not traced'} against "
-          f"{t.get('before_launches_a_call') or 'not traced'}; "
-          f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}; bytes "
+          f" bound {t['bound_ms']:.5f} ms ({t['bound_by']}; bytes "
           f"{by_bytes:.5f}, operations {by_ops:.5f}), "
           f"{t['bound_ms'] / t['ms']:.1%} of it", flush=True)
     return t
@@ -2552,28 +2551,16 @@ def inverse_chunks(s, chunk, depth_weight=0.1):
 def inverse_points(s, rays):
     """The 7n points of an inverse chunk's one read, for the rays ``rays``
     (a slice) of the inverse set-up ``s``."""
-    return formula_points(s["o"][rays], s["d"][rays], s["t_star"][rays])
+    from hpsdf_tpu_torch.inverse import inverse_points_plain
 
-
-def formula_points(o, d, tt):
-    """An inverse chunk's 7n points as fit_to_depth formed them in torch
-    ops before K13 (the band points, then the free-space points at FRACS
-    of each target depth): the yardstick of K13's first launch."""
-    from hpsdf_tpu_torch.inverse import BAND, FRACS
-
-    band = np.float32(BAND)
-    fracs = torch.tensor(FRACS, dtype=torch.float32, device=o.device)
-    surf = o + tt[:, None] * d
-    out_p = o + (tt - band)[:, None] * d
-    in_p = o + (tt + band)[:, None] * d
-    free = o[None] + (fracs[:, None, None] * tt[None, :, None]) * d[None]
-    return torch.cat([surf, in_p, out_p, free.reshape(-1, 3)])
+    return inverse_points_plain(s["o"][rays], s["d"][rays],
+                                s["t_star"][rays])
 
 
 def formula_terms(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
                   eikonal_weight, depth_weight):
-    """An inverse chunk's loss from the values f (7n,) at formula_points,
-    the band points' gradients g (3n, 3) and the depths, in the torch ops
+    """An inverse chunk's loss from the values f (7n,) at its points
+    (inverse.inverse_points_plain), the band points' gradients g (3n, 3) and the depths, in the torch ops
     fit_to_depth ran before K13 (hpsdf_tpu inverse.py chunk_field, the
     depth term over dn): autograd of it is the yardstick of K13's
     cotangents and of chunk_terms_plain."""
@@ -2597,12 +2584,14 @@ def formula_terms(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
 
 
 def formula_chunk_loss(pk, o, d, tt, th, t, hit, dn, surf_n, surface_weight,
-                       eikonal_weight, depth_weight):
-    """inverse.chunk_loss as it ran before K13: formula_points, the fused
-    read, formula_terms differentiated by autograd."""
+                       eikonal_weight, depth_weight, scratch=None):
+    """inverse.chunk_loss as it ran before K13: the points in torch ops
+    (inverse.inverse_points_plain), the fused read, formula_terms
+    differentiated by autograd (``scratch``, K13's, unused)."""
     from hpsdf_tpu_torch import accel as A
+    from hpsdf_tpu_torch.inverse import inverse_points_plain
 
-    f, g = A.values_and_gradient_at(pk, formula_points(o, d, tt),
+    f, g = A.values_and_gradient_at(pk, inverse_points_plain(o, d, tt),
                                     3 * o.shape[0])
     return formula_terms(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
                          eikonal_weight, depth_weight)
@@ -2739,18 +2728,58 @@ def device_busy_ms(fn, keep=()):
             [entry(e) for e in ev if any(k in e.key for k in keep)])
 
 
+def k13_terms_check(args, scratch, label):
+    """K13's second launch on ``args`` (chunk_terms_plain's) against its
+    plain version and autograd of formula_terms, as check_k13 holds it.
+    Returns ((loss, df, dg, dt), the plain loss, the loss's relative
+    error, the cotangents' errors)."""
+    from hpsdf_tpu_torch import inverse as I
+
+    f, g, th, hit, t, tt, dn, surf_n, *weights = args
+    out = I.inverse_terms_kernel(*args, scratch=scratch)
+    again = I.inverse_terms_kernel(*args, scratch=scratch)
+    plain = I.chunk_terms_plain(*args)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (f, g, t)]
+    want = torch.autograd.grad(formula_terms(
+        leaves[0], leaves[1], th, hit, leaves[2], tt, dn, surf_n, *weights),
+        leaves)
+    loss, loss_p = float(out[0]), float(plain[0])
+    loss_rel = abs(loss - loss_p) / abs(loss_p)
+    check(loss_rel <= K13_LOSS_RTOL, f"K13 loss at {label} {loss} vs plain "
+          f"{loss_p}: {loss_rel:.3e}")
+    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+          f"K13's second launch is not deterministic at {label}")
+    cot = {}
+    for name, got, ref, pl, norm in zip(("df", "dg", "dt"), out[1:], want,
+                                        plain[1:], (surf_n, surf_n, dn)):
+        cot[name] = {"max_abs_err": float((got - ref).abs().max()),
+                     "max_abs": float(ref.abs().max()),
+                     "max_abs_err_plain": float((got - pl).abs().max()),
+                     "bit_for_bit_plain": bool(torch.equal(got, pl))}
+        check(torch.allclose(got * norm, ref * norm, rtol=K13_COT_RTOL,
+                             atol=K13_COT_ATOL),
+              f"K13 {name} at {label} vs autograd of the formula: "
+              f"{cot[name]}")
+        check(torch.allclose(got, pl, rtol=K13_PLAIN_RTOL,
+                             atol=K13_PLAIN_RTOL * float(pl.abs().max())),
+              f"K13 {name} at {label} vs its plain version: {cot[name]}")
+    return out, loss_p, loss_rel, cot
+
+
 def check_k13(s, smi, weights=(1.0, 0.1, 0.1)):
     """K13 at one 1080p chunk (the middle one, 2^16 rays, marched on the
     initial tree as the first step marches it): the first launch bit for
-    bit its plain version and formula_points; the second's loss within
-    K13_LOSS_RTOL of its plain version's and bit for bit its own on a second
-    launch; its (df, dg, dt) within K13_COT_RTOL / K13_COT_ATOL of autograd
-    of formula_terms (and, printed, of the plain version). Both launches
+    bit its plain version; the second's loss within K13_LOSS_RTOL of its
+    plain version's and bit for bit its own on a second launch; its (df,
+    dg, dt), each times its normaliser, within K13_COT_RTOL / K13_COT_ATOL
+    of autograd of formula_terms, and within K13_PLAIN_RTOL of the plain
+    version's (elementwise and of its largest entry); the second launch
+    also on seeded values and gradients at the chunk's masks. Both launches
     timed in CUDA graphs beside their plain versions and bounds; a chunk
-    launches each once (the counters), and the operations a chunk's terms
-    put on the card, forward and backward, by torch.profiler against the
-    formula's (None where a trace held none). Launches made here are not
-    the main path's."""
+    launches each once (the counters), and the operations a chunk's points
+    and terms put on the card, forward and backward, by torch.profiler (at
+    most K13_POINT_LAUNCHES and K13_TERM_LAUNCHES) beside the torch ops'.
+    Launches made here are not the main path's."""
     from hpsdf_tpu_torch import accel as A
     from hpsdf_tpu_torch import inverse as I
 
@@ -2764,32 +2793,24 @@ def check_k13(s, smi, weights=(1.0, 0.1, 0.1)):
               I.inverse_terms_kernel.launches)
     pts = I.inverse_points_kernel(o, d, tt)
     pts_p = I.inverse_points_plain(o, d, tt)
-    check(torch.equal(pts, pts_p) and torch.equal(pts, formula_points(
-        o, d, tt)), f"K13 points vs plain: {int((pts != pts_p).sum())} "
-          "coordinates differ")
+    check(torch.equal(pts, pts_p), f"K13 points vs plain: "
+          f"{int((pts != pts_p).sum())} coordinates differ")
     pk = A.pack_tree(s["init"])
     f, g = A.values_and_gradient_at(pk, pts, 3 * n)
     args = (f, g, th, hit, t, tt, dn, surf_n, *weights)
-    loss, df, dg, dt = I.inverse_terms_kernel(*args)
-    again = I.inverse_terms_kernel(*args)
-    plain = I.chunk_terms_plain(*args)
+    scratch = I.inverse_terms_scratch(n, f.device)
+    (loss, df, dg, dt), loss_p, loss_rel, cot = k13_terms_check(
+        args, scratch, "a 1080p chunk")
+    # the same rays with seeded values about the band and gradients about
+    # unit norm, where every term is live (the chunk's free-space points
+    # mostly lie outside the band, and its |g| near 1)
+    rng = np.random.default_rng(0)
+    seeded = tuple(torch.as_tensor(x, device=f.device) for x in (
+        rng.uniform(-0.03, 0.03, 7 * n).astype(np.float32),
+        (rng.normal(size=(3 * n, 3)) * 0.6).astype(np.float32)))
+    *_, rel_s, cot_s = k13_terms_check(seeded + args[2:], scratch,
+                                       "seeded values")
     leaves = [x.detach().clone().requires_grad_(True) for x in (f, g, t)]
-    want_loss = formula_terms(leaves[0], leaves[1], th, hit, leaves[2], tt,
-                              dn, surf_n, *weights)
-    want = torch.autograd.grad(want_loss, leaves)
-    loss_rel = abs(float(loss) - float(plain[0])) / abs(float(plain[0]))
-    check(loss_rel <= K13_LOSS_RTOL, f"K13 loss {float(loss)} vs plain "
-          f"{float(plain[0])}: {loss_rel:.3e}")
-    check(all(torch.equal(a, b) for a, b in zip((loss, df, dg, dt), again)),
-          "K13's second launch is not deterministic")
-    cot = {}
-    for name, got, ref, pl in zip(("df", "dg", "dt"), (df, dg, dt), want,
-                                  plain[1:]):
-        ok = torch.allclose(got, ref, rtol=K13_COT_RTOL, atol=K13_COT_ATOL)
-        cot[name] = {"max_abs_err": float((got - ref).abs().max()),
-                     "max_abs": float(ref.abs().max()),
-                     "max_abs_err_plain": float((got - pl).abs().max())}
-        check(ok, f"K13 {name} vs autograd of the formula: {cot[name]}")
     one = torch.ones((), device=f.device)
 
     def terms_grad(fn):
@@ -2799,22 +2820,23 @@ def check_k13(s, smi, weights=(1.0, 0.1, 0.1)):
 
     def k13_terms(f_, g_, th_, hit_, t_, *rest):
         return I._ChunkTerms.apply(f_, g_, t_, th_, hit_, rest[0], rest[1],
-                                   rest[2], tuple(rest[3:]))
+                                   rest[2], tuple(rest[3:]), scratch)
 
     t_ = {"rays": n, "loss_rel_err": loss_rel, "cotangents": cot,
+          "seeded_loss_rel_err": rel_s, "seeded_cotangents": cot_s,
           "points_bit_for_bit": True,
           "points_ms": graph_ms(lambda: I.inverse_points_kernel(o, d, tt),
                                 20),
           "points_plain_ms": time_ms(
               lambda: I.inverse_points_plain(o, d, tt), 5),
-          "terms_ms": graph_ms(lambda: I.inverse_terms_kernel(*args), 20),
+          "terms_ms": graph_ms(lambda: I.inverse_terms_kernel(
+              *args, scratch=scratch), 20),
           "terms_plain_ms": time_ms(lambda: I.chunk_terms_plain(*args), 5),
-          "points_ops": device_ops(lambda: I.inverse_points(o, d, tt))
-          or None,
-          "terms_ops": device_ops(terms_grad(k13_terms)) or None,
-          "formula_points_ops": device_ops(lambda: formula_points(o, d,
-                                                                  tt)) or None,
-          "formula_terms_ops": device_ops(terms_grad(formula_terms)) or None}
+          "points_ops": device_ops(lambda: I.inverse_points(o, d, tt)),
+          "terms_ops": device_ops(terms_grad(k13_terms)),
+          "formula_points_ops": device_ops(
+              lambda: I.inverse_points_plain(o, d, tt)),
+          "formula_terms_ops": device_ops(terms_grad(formula_terms))}
     k0 = (I.inverse_points_kernel.launches, I.inverse_terms_kernel.launches)
     terms_grad(k13_terms)()
     I.inverse_points(o, d, tt)
@@ -2829,15 +2851,19 @@ def check_k13(s, smi, weights=(1.0, 0.1, 0.1)):
         t_[f"{key}_bytes_bound_ms"], t_[f"{key}_ops_bound_ms"] = bts, by_ops
         t_[f"{key}_bound_ms"] = max(bts, by_ops)
         t_[f"{key}_bound_by"] = "bytes" if bts >= by_ops else "operations"
-    check(t_["points_ops"] in (None, 1) and (t_["terms_ops"] or 0) <= 4,
+    check(1 <= t_["points_ops"] <= K13_POINT_LAUNCHES
+          and 1 <= t_["terms_ops"] <= K13_TERM_LAUNCHES,
           f"K13 puts {t_['points_ops']} + {t_['terms_ops']} operations on "
-          "the card a chunk (at most 1 + 4: the terms' launch and three "
-          "scalings)")
+          f"the card a chunk (at most {K13_POINT_LAUNCHES} + "
+          f"{K13_TERM_LAUNCHES}: the points' launch; the terms' launch and "
+          "three scalings)")
     I.inverse_points_kernel.launches, I.inverse_terms_kernel.launches = counts
     print(f"[k13] a 1080p chunk ({n} rays, {int(th.sum())} target hits): "
           f"points bit for bit plain; loss {float(loss):.8g} vs plain "
-          f"{float(plain[0]):.8g} ({loss_rel:.3e}), deterministic; "
-          f"cotangents vs autograd of the formula {cot} | {smi} | points "
+          f"{loss_p:.8g} ({loss_rel:.3e}), deterministic; "
+          f"cotangents vs autograd of the formula and the plain version "
+          f"{cot}; on seeded values, loss {rel_s:.3e}, {cot_s} | {smi} | "
+          f"points "
           f"{t_['points_ms']:.4f} ms in a CUDA graph (plain "
           f"{t_['points_plain_ms']:.3f}), bound {t_['points_bound_ms']:.5f} "
           f"ms ({t_['points_bound_by']}), "
@@ -2846,10 +2872,39 @@ def check_k13(s, smi, weights=(1.0, 0.1, 0.1)):
           f" {t_['terms_bound_ms']:.5f} ms ({t_['terms_bound_by']}), "
           f"{t_['terms_bound_ms'] / t_['terms_ms']:.1%} of it | operations "
           f"on the card a chunk: points {t_['points_ops']}, terms forward "
-          f"and backward {t_['terms_ops']}; the formula's "
+          f"and backward {t_['terms_ops']}; the torch ops' "
           f"{t_['formula_points_ops']} + {t_['formula_terms_ops']}",
           flush=True)
     return t_
+
+
+def phase_k14_ops(rows, table, fit_pts, t):
+    """The operations a sign call puts on the card, by torch.profiler
+    (after [grad]: traces taken before the phases that replay CUDA graphs
+    have left later ones empty), at the slice fit's largest batch on P1's
+    best indices: K14's at most K14_LAUNCHES, beside the sign as it was
+    before K14. Adds them to [k14]'s numbers ``t``. Launches made here are
+    not the main path's."""
+    from hpsdf_tpu_torch.accel import row_gather
+    from hpsdf_tpu_torch.mesh import closest_tri_tiles
+    from hpsdf_tpu_torch.mesh import sdf as TS
+
+    counts = (closest_tri_tiles.launches, TS.signed_from_best_kernel.launches,
+              row_gather.launches)
+    pts = fit_pts.to(torch.float32)
+    _, idx = closest_tri_tiles(rows, pts, table)
+    t.update(launches_a_call=device_ops(
+        lambda: TS._signed_from_best(rows, idx, pts)),
+        before_launches_a_call=device_ops(lambda: sign_before(rows, idx,
+                                                              pts)))
+    (closest_tri_tiles.launches, TS.signed_from_best_kernel.launches,
+     row_gather.launches) = counts
+    check(1 <= t["launches_a_call"] <= K14_LAUNCHES, f"K14 puts "
+          f"{t['launches_a_call']} operations on the card a call (at most "
+          f"{K14_LAUNCHES})")
+    print(f"[k14] operations on the card a sign call at the slice fit's "
+          f"largest batch: {t['launches_a_call']}, the sign as before K14 "
+          f"{t['before_launches_a_call']}", flush=True)
 
 
 def step_ops(fit):
@@ -2946,7 +3001,8 @@ def phase_inverse(s, s_small, smi):
             mock.patch.object(I, "inverse_points_kernel",
                               I.inverse_points_plain), \
             mock.patch.object(I, "inverse_terms_kernel",
-                              I.chunk_terms_plain):
+                              lambda *args, scratch=None:
+                              I.chunk_terms_plain(*args)):
         plain = fit(s_small, INV_STEPS).losses.cpu()
     plain_launches = sum(read_counts().values())
     check(plain_launches == 0, f"the plain run launched {plain_launches} "
@@ -4341,7 +4397,7 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, seed=21):
     _, idx_uni, _ = TS.hybrid_closest(lo, hi, bvh.node_rows, verts, uni)
     TS.hybrid_closest.launches = count
     k14 = check_k14(bvh.tri_rows, idx_uni, uni,
-                    f"2^20 uniform points, {T2} rows", ops=True)
+                    f"2^20 uniform points, {T2} rows")
 
     # --- main path, K11: the walk through mesh_sdf(method="bvh") and
     # signed_distance on icosphere(0.3, 5) ---
@@ -5310,10 +5366,8 @@ PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
 def _ptxas_key(kernel, args):
     """The report's key for one instantiation, from its template arguments
     (ints, bools and the value type, in order)."""
-    if not args:        # row_scatter(_csr), bvh_walk, descend_nodes, K13
-        return "-"
-    if kernel == "signed_from_best_kernel":
-        return {"i": "int32", "l": "int64"}[args[0]]
+    if not args:        # row_scatter(_csr), bvh_walk, descend_nodes, K13,
+        return "-"      # K14
     if kernel == "hybrid_kernel":
         return "two levels" if args[0] else "one level"
     if kernel in ("cg_update_kernel", "cg_update_rows_kernel",
@@ -5387,7 +5441,7 @@ def ptxas_check():
             ("K1 node round", "descend_nodes_kernel", ("-",)),
             ("K1 node leaf", "leaf_nodes_kernel", ("3", "5")),
             ("K8 nodes", "coeff_scatter_nodes_kernel", ("3", "5")),
-            ("K14", "signed_from_best_kernel", ("int32", "int64")),
+            ("K14", "signed_from_best_kernel", ("-",)),
             ("K13 points", "inverse_points_kernel", ("-",)),
             ("K13 terms", "inverse_terms_kernel", ("-",))):
         got = found.get(kernel, {})
@@ -5534,6 +5588,7 @@ def main():
                            (INV_SIZE, (INV_SMALL, INV_SMALL)))
     tgrad = phase("grad", phase_grad, pt_s, tree, s_inv, smi)
     tk13 = phase("k13", check_k13, s_inv, smi)
+    phase("k14 ops", phase_k14_ops, bvh.tri_rows, table, fit_pts, tk14)
     launches_i, ti = phase("inverse", phase_inverse, s_inv, s_small, smi)
 
     # --- 12. the continuity post-process at both sizes ---------------------
@@ -5779,9 +5834,9 @@ def main():
          **{k: tk14[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "bytes_bound_ms",
                                  "ops_bound_ms", "before_ms", "points",
-                                 "sign_differ", "feature_differ")},
-         **{k: tm["k14"][k] for k in ("launches_a_call",
-                                      "before_launches_a_call")},
+                                 "sign_differ", "feature_differ",
+                                 "launches_a_call",
+                                 "before_launches_a_call")},
          "mesh_1p31m_uniform": tm["k14"],
          "ptxas": ptxas.get("signed_from_best_kernel", {})},
         *({"name": f"inverse_{key}", "route": "cuda",

@@ -53,8 +53,7 @@ _SIGNATURES = {
     "hpsdf_descend_nodes": (_P, _P, _I32, _I32, _P, _P, _I64, _P, _P),
     "hpsdf_leaf_nodes": (_P, _P, _P, _I32, _I32, _I32, _P, _P, _I64, _P, _P),
     "hpsdf_row_gather": (_P, _I64, _I64, _I64, _P, _I64, _P, _P),
-    "hpsdf_signed_from_best": (_P, _I64, _I64, _P, _I32, _P, _I64, _P, _P,
-                               _P),
+    "hpsdf_signed_from_best": (_P, _I64, _I64, _P, _P, _I64, _P, _P, _P),
     "hpsdf_inverse_points": (_P, _P, _P, _I64, _P, _P),
     "hpsdf_inverse_terms": (_P, _P, _P, _P, _P, _P, _I64, _P, _P, _F32,
                             _F32, _F32, _P, _P, _P, _P, _P, _P),

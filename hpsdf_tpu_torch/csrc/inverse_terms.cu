@@ -30,8 +30,10 @@
 // version's order of operations. relu's derivative is 0 at 0, as torch's
 // (x > 0, not x >= 0); a padded ray (target hit false) gets zeros. The
 // chunk's loss is summed deterministically: a fixed tree in each block,
-// the block's partial to scratch, and the last block to finish (an integer
-// ticket, no float atomics) sums the partials in a fixed order.
+// the block's partial to the caller's scratch, and the last block to finish
+// (an integer ticket in the same scratch, no float atomics) sums the
+// partials in a fixed order and sets the ticket back to 0. The scratch is
+// the launch's own: launches in flight at once each need theirs.
 // Bound: 74 bytes a ray in, 68 out; ~90 f32 operations a ray, under the
 // bytes on this card.
 
@@ -47,10 +49,6 @@ constexpr float kHalf = 0.01f;                 // BAND * 0.5, exact
 constexpr int kFracs = 4;
 __constant__ float kFrac[kFracs] = {0.35f, 0.6f, 0.8f, 0.93f};  // FRACS
 constexpr float kEikEps = 1e-12f;
-
-// blocks of inverse_terms_kernel that have written their partial; the last
-// one resets it for the next launch
-__device__ unsigned int g_retired = 0;
 
 __global__ void __launch_bounds__(kThreads)
 inverse_points_kernel(const float* __restrict__ o,
@@ -100,7 +98,7 @@ inverse_terms_kernel(const float* __restrict__ f, const float* __restrict__ g,
                      const float* __restrict__ dn_p, float sw, float ew,
                      float dw, float* __restrict__ loss,
                      float* __restrict__ df, float* __restrict__ dg,
-                     float* __restrict__ dt, float* __restrict__ partials) {
+                     float* __restrict__ dt, float* __restrict__ scratch) {
   __shared__ float warp_sums[kWarps];
   __shared__ bool last;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -159,12 +157,15 @@ inverse_terms_kernel(const float* __restrict__ f, const float* __restrict__ g,
         __fmul_rn(m, __fmul_rn(cd, sq(dtt))));
   }
 
-  // the chunk's loss: this block's partial, then the last block's sum
+  // the chunk's loss: this block's partial, then the last block's sum;
+  // scratch[0] counts the blocks done, the partials follow it
+  unsigned* const ticket = reinterpret_cast<unsigned*>(scratch);
+  float* const partials = scratch + 1;
   const float part = block_sum(contrib, warp_sums);
   if (threadIdx.x == 0) {
     partials[blockIdx.x] = part;
     __threadfence();
-    last = atomicAdd(&g_retired, 1u) == gridDim.x - 1;
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   }
   __syncthreads();
   if (!last) return;
@@ -175,7 +176,7 @@ inverse_terms_kernel(const float* __restrict__ f, const float* __restrict__ g,
   const float total = block_sum(acc, warp_sums);
   if (threadIdx.x == 0) {
     *loss = total;
-    g_retired = 0;
+    *ticket = 0;
   }
 }
 
@@ -195,25 +196,27 @@ extern "C" int hpsdf_inverse_points(const float* o, const float* d,
   return (int)cudaGetLastError();
 }
 
-// The number of f32 partials inverse_terms needs as scratch.
+// The 4-byte words of inverse_terms's scratch: the ticket, then a partial
+// a block.
 extern "C" int64_t hpsdf_inverse_terms_scratch(int64_t n) {
-  return (int64_t)blocks_for(n);
+  return 1 + (int64_t)blocks_for(n);
 }
 
 // f: (7n,) f32; g: (3n, 3) f32; th, hit: (n,) bool as bytes; t, tt: (n,)
 // f32; surf_n, dn: one f32 each on the card; loss: one f32; df (7n,),
-// dg (3n, 3), dt (n,) f32; partials: hpsdf_inverse_terms_scratch(n) f32.
-// n > 0, all contiguous.
+// dg (3n, 3), dt (n,) f32; scratch: hpsdf_inverse_terms_scratch(n) words,
+// zero on entry and left zero, no other launch's in flight. n > 0, all
+// contiguous.
 extern "C" int hpsdf_inverse_terms(const float* f, const float* g,
                                    const uint8_t* th, const uint8_t* hit,
                                    const float* t, const float* tt, int64_t n,
                                    const float* surf_n, const float* dn,
                                    float sw, float ew, float dw, float* loss,
                                    float* df, float* dg, float* dt,
-                                   float* partials, void* stream) {
+                                   float* scratch, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   inverse_terms_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       f, g, th, hit, t, tt, n, surf_n, dn, sw, ew, dw, loss, df, dg, dt,
-      partials);
+      scratch);
   return (int)cudaGetLastError();
 }

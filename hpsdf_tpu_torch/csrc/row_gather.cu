@@ -8,8 +8,7 @@
 // the transposed table; the port keeps rows contiguous, so one kernel serves
 // all three). The plain torch version is row_gather_plain in
 // hpsdf_tpu_torch/accel.py. On the port's path it derives the packed grid
-// from the rows (accel.pack_tree / repack_folded) and fetches each point's
-// winning triangle row for the mesh sign (mesh/sdf.py _signed_from_best).
+// from the rows (accel.pack_tree / repack_folded).
 //
 // Bound. Pure data movement: B*W*4 bytes written (128 MB at 2^20 x 32) and
 // as many read from a table that is small enough to stay in L2 (4681 x 32 x 4

@@ -57,10 +57,9 @@ __device__ __forceinline__ float along(float q, float e, float s) {
   return __fadd_rn(q, __fmul_rn(e, s));
 }
 
-template <typename Index>
 __global__ void __launch_bounds__(kThreads)
 signed_from_best_kernel(const float* __restrict__ rows, int64_t n_rows,
-                        int64_t stride, const Index* __restrict__ idx,
+                        int64_t stride, const int32_t* __restrict__ idx,
                         const float* __restrict__ pts, int64_t B,
                         float* __restrict__ out, int8_t* __restrict__ feat) {
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -146,33 +145,22 @@ signed_from_best_kernel(const float* __restrict__ rows, int64_t n_rows,
   out[b] = dot3(nx, ny, nz, dx, dy, dz) >= 0.f ? dist : -dist;
 }
 
-template <typename Index>
-int launch(const float* rows, int64_t n_rows, int64_t stride,
-           const void* idx, const float* pts, int64_t B, float* out,
-           int8_t* feat, cudaStream_t stream) {
-  const int64_t blocks = (B + kThreads - 1) / kThreads;
-  signed_from_best_kernel<Index><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      rows, n_rows, stride, static_cast<const Index*>(idx), pts, B, out,
-      feat);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // rows: (n_rows, >= 30) f32, lanes contiguous, rows 16-byte aligned (row
-// stride a multiple of 4 floats); idx: (B,) int32 (idx64 = 0) or int64;
-// pts: (B, 3) f32 contiguous; out: (B,) f32; feat: (B,) int8 or null.
+// stride a multiple of 4 floats); idx: (B,) int32; pts: (B, 3) f32
+// contiguous; out: (B,) f32; feat: (B,) int8 or null.
 extern "C" int hpsdf_signed_from_best(const float* rows, int64_t n_rows,
-                                      int64_t stride, const void* idx,
-                                      int idx64, const float* pts, int64_t B,
+                                      int64_t stride, const int32_t* idx,
+                                      const float* pts, int64_t B,
                                       float* out, int8_t* feat,
                                       void* stream) {
   if (stride % 4 != 0 || (uintptr_t)rows % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   if (B == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  return idx64
-             ? launch<int64_t>(rows, n_rows, stride, idx, pts, B, out, feat, s)
-             : launch<int32_t>(rows, n_rows, stride, idx, pts, B, out, feat,
-                               s);
+  const int64_t blocks = (B + kThreads - 1) / kThreads;
+  signed_from_best_kernel<<<(unsigned)blocks, kThreads, 0,
+                            (cudaStream_t)stream>>>(rows, n_rows, stride, idx,
+                                                    pts, B, out, feat);
+  return (int)cudaGetLastError();
 }

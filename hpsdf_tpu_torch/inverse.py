@@ -146,6 +146,9 @@ def fit_to_depth(tree: Octree, origins, dirs, target_t, target_hit,
             opt, lambda k: min(1.0, (k + 1.0) / lr_warmup))
     surf_n = torch.clamp(target_hit.sum().to(f32), min=1.0)
     weights = (surface_weight, eikonal_weight, depth_weight)
+    # K13's loss sum, reused by every chunk in stream order
+    scratch = None if dev.type == "cpu" \
+        else inverse_terms_scratch(chunks[0][0].shape[0], dev)
 
     losses = []
     for _ in range(n_steps):
@@ -175,7 +178,7 @@ def fit_to_depth(tree: Octree, origins, dirs, target_t, target_hit,
         for (o, d, tt, th), (t, hit) in zip(chunks, marched):
             t = R.implicit_t(tree32, leaves[0], t, hit, o, d)
             loss = chunk_loss(pk_l, o, d, tt, th, t, hit, dn, surf_n,
-                              *weights)
+                              *weights, scratch=scratch)
             loss.backward()
             total = total + loss.detach()
         grads = [torch.zeros_like(x) if x.grad is None else x.grad
@@ -203,17 +206,18 @@ def fit_to_depth(tree: Octree, origins, dirs, target_t, target_hit,
 
 
 def chunk_loss(pk, o, d, tt, th, t, hit, dn, surf_n, surface_weight,
-               eikonal_weight, depth_weight):
+               eikonal_weight, depth_weight, scratch=None):
     """A chunk's loss (hpsdf_tpu inverse.py chunk_field with the depth term
     normalised by ``dn``): its 7n target points (``inverse_points``), one
     read of the values there and of the band points' gradients
     (``accel.values_and_gradient_at``), then the terms and their VJP
-    (``chunk_terms``). Differentiable with respect to ``pk``'s tables and
-    ``t``."""
+    (``chunk_terms``, ``scratch`` as there). Differentiable with respect to
+    ``pk``'s tables and ``t``."""
     n = o.shape[0]
     f, g = accel.values_and_gradient_at(pk, inverse_points(o, d, tt), 3 * n)
     return _ChunkTerms.apply(f, g, t, th, hit, tt, dn, surf_n,
-                             (surface_weight, eikonal_weight, depth_weight))
+                             (surface_weight, eikonal_weight, depth_weight),
+                             scratch)
 
 
 def _check_rays(*tensors):
@@ -309,11 +313,22 @@ def chunk_terms_plain(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
     return loss, df, dg, dt
 
 
+def inverse_terms_scratch(n, device):
+    """Zeroed scratch for ``inverse_terms_kernel`` on chunks of up to ``n``
+    rays: a ticket and a partial sum a block, which every launch leaves
+    zeroed. Launches in order on one stream may share it; launches in flight
+    at once each need their own."""
+    return torch.zeros(_kernels.load().hpsdf_inverse_terms_scratch(n),
+                       dtype=torch.float32, device=device)
+
+
 def inverse_terms_kernel(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
-                         eikonal_weight, depth_weight):
+                         eikonal_weight, depth_weight, scratch=None):
     """K13's second launch (csrc/inverse_terms.cu): ``chunk_terms_plain``
     on CUDA tensors, the loss summed in a fixed order in the same launch.
-    dn and surf_n stay on the card: nothing is read back."""
+    dn and surf_n stay on the card: nothing is read back. ``scratch``:
+    ``inverse_terms_scratch`` for at least these rays; None makes one (a
+    zero-fill on the card beside the launch)."""
     _check_rays(f, g, th, hit, t, tt, dn, surf_n)
     if f.device.type != "cuda":
         raise ValueError(f"inverse_terms_kernel: tensors on {f.device}, not "
@@ -333,14 +348,20 @@ def inverse_terms_kernel(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
     df, dg, dt = torch.empty_like(f), torch.empty_like(g), torch.empty_like(t)
     loss = torch.empty((), dtype=torch.float32, device=f.device)
     lib = _kernels.load()
-    partials = torch.empty(lib.hpsdf_inverse_terms_scratch(n),
-                           dtype=torch.float32, device=f.device)
+    if scratch is None:
+        scratch = inverse_terms_scratch(n, f.device)
+    if scratch.dtype != torch.float32 or not scratch.is_contiguous() \
+            or scratch.device != f.device \
+            or scratch.numel() < lib.hpsdf_inverse_terms_scratch(n):
+        raise ValueError(f"inverse_terms_kernel: scratch {scratch.dtype} "
+                         f"{tuple(scratch.shape)} on {scratch.device} for "
+                         f"{n} rays on {f.device}")
     _kernels.check(lib, lib.hpsdf_inverse_terms(
         f.data_ptr(), g.data_ptr(), th.data_ptr(), hit.data_ptr(),
         t.data_ptr(), tt.data_ptr(), n, surf_n.data_ptr(), dn.data_ptr(),
         float(np.float32(surface_weight)), float(np.float32(eikonal_weight)),
         float(np.float32(depth_weight)), loss.data_ptr(), df.data_ptr(),
-        dg.data_ptr(), dt.data_ptr(), partials.data_ptr(),
+        dg.data_ptr(), dt.data_ptr(), scratch.data_ptr(),
         _kernels.stream_of(f)), "inverse_terms")
     inverse_terms_kernel.launches += 1
     return loss, df, dg, dt
@@ -350,13 +371,15 @@ inverse_terms_kernel.launches = 0
 
 
 def chunk_terms(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
-                eikonal_weight, depth_weight):
+                eikonal_weight, depth_weight, scratch=None):
     """(loss, df, dg, dt) of a chunk: kernel K13's second launch on CUDA
-    tensors, ``chunk_terms_plain`` on CPU tensors."""
-    terms = chunk_terms_plain if f.device.type == "cpu" \
-        else inverse_terms_kernel
-    return terms(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
-                 eikonal_weight, depth_weight)
+    tensors (with ``scratch``, as there), ``chunk_terms_plain`` on CPU
+    tensors."""
+    args = (f, g, th, hit, t, tt, dn, surf_n, surface_weight,
+            eikonal_weight, depth_weight)
+    if f.device.type == "cpu":
+        return chunk_terms_plain(*args)
+    return inverse_terms_kernel(*args, scratch=scratch)
 
 
 class _ChunkTerms(torch.autograd.Function):
@@ -364,16 +387,17 @@ class _ChunkTerms(torch.autograd.Function):
     the forward and scaled by the loss's cotangent in the backward."""
 
     @staticmethod
-    def forward(ctx, f, g, t, th, hit, tt, dn, surf_n, weights):
+    def forward(ctx, f, g, t, th, hit, tt, dn, surf_n, weights,
+                scratch=None):
         loss, df, dg, dt = chunk_terms(f, g, th, hit, t, tt, dn, surf_n,
-                                       *weights)
+                                       *weights, scratch=scratch)
         ctx.save_for_backward(df, dg, dt)
         return loss
 
     @staticmethod
     def backward(ctx, go):
         df, dg, dt = ctx.saved_tensors
-        return (df * go, dg * go, dt * go) + (None,) * 6
+        return (df * go, dg * go, dt * go) + (None,) * 7
 
 
 def render_targets(tree: Octree, origins, dirs, t_max: float = 10.0,

@@ -94,7 +94,9 @@ def signed_from_best_plain(tri_rows, best_idx, p):
 def _signed_from_best(tri_rows, best_idx, p):
     """Final sign + distance evaluation on the best triangle only: kernel
     K14 on CUDA tensors, the plain version on CPU tensors. tri_rows (T2,
-    TRI_W) f32, best_idx (B,) int32 / int64, p (B, 3) f32 -> (B,) f32."""
+    TRI_W) f32, best_idx (B,) int32 (as every closest-triangle search
+    returns it; the plain version takes any integer type), p (B, 3) f32 ->
+    (B,) f32."""
     if p.device.type == "cpu":
         return signed_from_best_plain(tri_rows, best_idx, p)
     return signed_from_best_kernel(tri_rows, best_idx, p)
@@ -102,9 +104,15 @@ def _signed_from_best(tri_rows, best_idx, p):
 
 def signed_from_best_kernel(tri_rows, best_idx, p, with_feature=False):
     """K14 (csrc/sign.cu): one launch, a thread a point, reading the best
-    row's lanes straight from ``tri_rows``. Refuses tensors off the card.
-    With ``with_feature`` also returns the closest feature's code (B,) int8
-    (``tri.FEAT_*``)."""
+    row's lanes straight from ``tri_rows``. Refuses tensors off the card
+    and indices that are not int32. With ``with_feature`` also returns the
+    closest feature's code (B,) int8 (``tri.FEAT_*``)."""
+    if best_idx.dim() != 1 or best_idx.shape[0] != p.shape[0] \
+            or best_idx.dtype != torch.int32 \
+            or best_idx.device != p.device:
+        raise ValueError(f"best_idx must be int32 ({p.shape[0]},) on "
+                         f"{p.device}, got {best_idx.dtype} "
+                         f"{tuple(best_idx.shape)} on {best_idx.device}")
     if p.device.type != "cuda":
         raise ValueError(f"signed_from_best_kernel: tensors on {p.device}, "
                          "not a CUDA device")
@@ -114,12 +122,6 @@ def signed_from_best_kernel(tri_rows, best_idx, p, with_feature=False):
         raise ValueError(f"signed_from_best_kernel: rows of "
                          f"{tri_rows.shape[1]} lanes, the pseudo-normals need "
                          f"{_bvh._EPN + 9}")
-    if best_idx.dim() != 1 or best_idx.shape[0] != p.shape[0] \
-            or best_idx.dtype not in (torch.int32, torch.int64) \
-            or best_idx.device != p.device:
-        raise ValueError(f"best_idx must be int32/int64 ({p.shape[0]},) on "
-                         f"{p.device}, got {best_idx.dtype} "
-                         f"{tuple(best_idx.shape)} on {best_idx.device}")
     p, idx = p.contiguous(), best_idx.contiguous()
     out = torch.empty(p.shape[0], dtype=torch.float32, device=p.device)
     feat = torch.empty(p.shape[0], dtype=torch.int8, device=p.device) \
@@ -127,7 +129,7 @@ def signed_from_best_kernel(tri_rows, best_idx, p, with_feature=False):
     lib = _kernels.load()
     _kernels.check(lib, lib.hpsdf_signed_from_best(
         tri_rows.data_ptr(), tri_rows.shape[0], tri_rows.stride(0),
-        idx.data_ptr(), int(idx.dtype == torch.int64), p.data_ptr(),
+        idx.data_ptr(), p.data_ptr(),
         p.shape[0], out.data_ptr(), 0 if feat is None else feat.data_ptr(),
         _kernels.stream_of(p)), "signed_from_best")
     signed_from_best_kernel.launches += 1

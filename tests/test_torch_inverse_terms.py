@@ -2,14 +2,16 @@
 take) against the formula fit_to_depth ran before them and against
 hpsdf_tpu.inverse.
 
-- The points: ``inverse_points_plain`` is the formula's points bit for bit
-  (``chip_smoke.formula_points``, the torch ops the chunk formed them with).
+- The points: ``inverse_points_plain`` is bit for bit the points of
+  hpsdf_tpu inverse.py ``chunk_field`` (its formula and order, in numpy
+  f32: every operation rounded on its own, as torch's are).
 - The cotangents: ``chunk_terms_plain`` writes the VJP by hand; on seeded
   values, gradients, masks and depths (with rays on relu's kink, where
-  torch's derivative is 0, and padded rays) its (df, dg, dt) equal
-  ``torch.autograd.grad`` of the formula (``chip_smoke.formula_terms``)
-  within 1e-6 relative, 1e-7 absolute (the two round in other orders), its
-  loss within 1e-6 relative.
+  torch's derivative is 0, and padded rays) its (df, dg, dt), each times
+  its normaliser (surf_n, surf_n, dn: the loss's units before the terms are
+  averaged), equal ``torch.autograd.grad`` of the formula
+  (``chip_smoke.formula_terms``) within 1e-6 relative, 1e-7 absolute (the
+  two round in other orders), its loss within 1e-6 relative.
 - One step: ``fit_to_depth``'s coefficients after one step equal
   ``hpsdf_tpu``'s within 1e-5 of the largest coefficient change (Adam's
   first step moves each coefficient by about lr times the sign of its
@@ -43,10 +45,26 @@ def _rays_np(n, seed):
     return (torch.as_tensor(x) for x in (o, d, tt))
 
 
+def _reference_points(o, d, tt):
+    """hpsdf_tpu inverse.py chunk_field's points in numpy f32: surface, in
+    (want f <= -band/2) and out (want f >= +band/2), then the free-space
+    points fraction-major, in its order (band_pts, then free_pts)."""
+    o, d, tt = (np.asarray(x, np.float32) for x in (o, d, tt))
+    band = np.float32(0.02)
+    fracs = np.asarray([0.35, 0.6, 0.8, 0.93], np.float32)
+    surf = o + tt[..., None] * d
+    out_p = o + (tt - band)[..., None] * d
+    in_p = o + (tt + band)[..., None] * d
+    free = o[None] + (fracs[:, None, None] * tt[None, :, None]) * d[None]
+    return torch.as_tensor(np.concatenate([surf, in_p, out_p,
+                                           free.reshape(-1, 3)]))
+
+
 @pytest.mark.parametrize("n", [1, 37, 400])
 def test_points_bit_equal_to_the_formula(n):
     o, d, tt = _rays_np(n, seed=n)
-    want = chip_smoke.formula_points(o, d, tt)
+    want = _reference_points(o, d, tt)
+    assert (TI.BAND, TI.FRACS) == (0.02, (0.35, 0.6, 0.8, 0.93))
     got = TI.inverse_points_plain(o, d, tt)
     assert got.shape == (7 * n, 3) and got.dtype == torch.float32
     assert torch.equal(got, want)
@@ -92,8 +110,9 @@ def test_cotangents_equal_autograd_of_the_formula(n, seed, weights):
     assert (df.shape, dg.shape, dt.shape) == ((7 * n,), (3 * n, 3), (n,))
     np.testing.assert_allclose(float(loss), float(want.detach()),
                                rtol=LOSS_RTOL)
-    for got, ref in ((df, wf), (dg, wg), (dt, wt)):
-        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=COT_RTOL,
+    for got, ref, norm in ((df, wf, surf_n), (dg, wg, surf_n), (dt, wt, dn)):
+        np.testing.assert_allclose((got * norm).numpy(),
+                                   (ref * norm).numpy(), rtol=COT_RTOL,
                                    atol=COT_ATOL)
     # padded rays, rays off target and relu's kink: exactly zero
     off = ~th
@@ -116,9 +135,9 @@ def test_chunk_terms_function_scales_by_the_cotangent():
     want = torch.autograd.grad(2.5 * chip_smoke.formula_terms(
         fr2, gr2, th, hit, tr2, tt, dn, surf_n, *WEIGHTS["defaults"]),
         (fr2, gr2, tr2))
-    for a, b in zip(got, want):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=COT_RTOL,
-                                   atol=COT_ATOL)
+    for a, b, norm in zip(got, want, (surf_n, surf_n, dn)):
+        np.testing.assert_allclose((a * norm).numpy(), (b * norm).numpy(),
+                                   rtol=COT_RTOL, atol=COT_ATOL)
 
 
 def test_cpu_route_launches_nothing_and_kernels_refuse_cpu():

@@ -112,6 +112,14 @@ def test_signed_from_best_gathers_zeros_out_of_range(ico):
                                              pts[~out]))
 
 
+def test_kernel_refuses_int64_indices(ico):
+    *_, tb = ico
+    with pytest.raises(ValueError, match="int32"):
+        TS.signed_from_best_kernel(tb.tri_rows, torch.zeros(4, dtype=torch
+                                                            .int64),
+                                   torch.zeros(4, 3))
+
+
 def test_kernel_refuses_cpu_tensors(ico):
     *_, tb = ico
     pts = torch.zeros(4, 3)

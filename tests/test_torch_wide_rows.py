@@ -206,10 +206,8 @@ def test_ptxas_check(monkeypatch, spill):
         report += _ptxas_entry("coeff_scatter_nodes_kernel", d, None,
                                regs=40, stack=16 if spill == "K8 nodes"
                                and d == 3 else 0)
-    for index in ("i", "l"):
-        report += _ptxas_entry("signed_from_best_kernel", 0, None, regs=40,
-                               args=index, stack=8 if spill == "K14"
-                               and index == "l" else 0)
+    report += _ptxas_entry("signed_from_best_kernel", 0, None, args="",
+                           regs=40, stack=8 if spill == "K14" else 0)
     report += _ptxas_entry("inverse_points_kernel", 0, None, args="",
                            regs=32)
     report += _ptxas_entry("inverse_terms_kernel", 0, None, args="",
@@ -229,7 +227,7 @@ def test_ptxas_check(monkeypatch, spill):
                 "round": "K1 node round -: stack 8",
                 "leaf": "K1 node leaf 5: stack 8",
                 "K8 nodes": "K8 nodes 3: stack 16",
-                "K14": "K14 int64: stack 8",
+                "K14": "K14 -: stack 8",
                 "K13": "K13 terms -: stack 8"}[spill]):
             chip_smoke.ptxas_check()
         return
@@ -249,8 +247,7 @@ def test_ptxas_check(monkeypatch, spill):
     assert found["cone_kernel"] == {k: [40, 0, 0, 0]
                                     for k in ("3/full", "5/full", "2/lo")}
     assert found["cg_matvec_kernel"] == {"-": [32, 0, 0, 0]}
-    assert found["signed_from_best_kernel"] == {"int32": [40, 0, 0, 0],
-                                                "int64": [40, 0, 0, 0]}
+    assert found["signed_from_best_kernel"] == {"-": [40, 0, 0, 0]}
     assert found["inverse_points_kernel"] == {"-": [32, 0, 0, 0]}
     assert found["inverse_terms_kernel"] == {"-": [40, 0, 0, 0]}
     for kernel in ("cg_update_rows_kernel", "cg_direction_kernel"):
