@@ -31,10 +31,23 @@ at full width, the flow of examples/end_to_end.py:
 
 The build's seconds outside F are split (split_again, split_build,
 fit_split: PhaseTimer phases around the port's own build._fit,
-build._fit_impl and build.pack, and F inside each fit) into F, the f64
-projection, point generation and copies, packing and the host topology, in
-[slice] and [render]'s carve, from a second build run after the first,
-uninstrumented one whose seconds are printed as the build's;
+build.fit_points, build._fit_impl and build.pack, and F inside each fit)
+into F, the projection (K6's second launch, csrc/fit.cu), point generation
+(K6's first launch) and copies, packing and the host topology, in [slice]
+and [render]'s carve, from a second build run after the first,
+uninstrumented one whose seconds are printed as the build's. Every fit
+split (the slice, the carve, both continuity configs, the mesh at scale)
+is taken with K6 and then with its plain versions swapped in (k6_split:
+K6's launches equal the fit's chunks, the trees' node counts and depth
+and degree histograms equal). [k6] holds K6 to its plain versions: the
+points bit for bit at the slice fit's largest chunk and at degrees 2..11,
+the projection on that chunk's own F values and on seeded chunks at
+degrees 2..11 x kept widths x the three weightings in f64 and f32
+(K6_RTOL), shows that three wrong rows fail the check, and times both
+launches in CUDA graphs at degrees 2, 5 and 11 beside the plain versions,
+the three einsums and the bounds; [k6 ops] counts a chunk's operations on
+the card. [cold] runs this script twice more as a child (--cold k6, --cold
+plain) that splits a fresh process's first slice build by phase.
 [mesh] times build_mesh and build_bvh. [continuity] splits the
 post-process into face pairs, the face operator, the cross-depth blocks,
 upload and CG (and checks that no same-depth entry was assembled), holds
@@ -191,7 +204,8 @@ of the one-device step's, coefficients within 1e-12); their counts give
 the node-range modes' launches.
 
 Phases, one line each: device, build, ptxas, mesh, P1 vs plain, the slice,
-P1 at the fit batch, K1 vs plain, times, G vs plain, the reference-default
+P1 at the fit batch, K14 at the fit batch, K6 (four lines: checks, times
+at three degrees), the cold builds (a line each), K1 vs plain, times, G vs plain, the reference-default
 fit, K2/K5 vs plain, K3 vs plain (three lines a tree: checks and rays,
 times and bound, serial floor), K4, the render path, K2/K5 at the main
 path's shapes, the degrees, the backward kernels, inverse rendering, the
@@ -212,6 +226,7 @@ import dataclasses
 import functools
 import importlib
 import json
+import math
 import os
 import re
 import socket
@@ -228,6 +243,9 @@ TRI_ATOL, TRI_RTOL = 1e-7, 1e-5     # P1 best_d2 against the plain scan
 SIGNED_ATOL = 1e-6                  # signed distance from either index
 K1_VAL_ATOL, K1_GRAD_ATOL = 1e-12, 1e-10
 FIT_ATOL = 0.01                     # query vs |p| - 0.3 on the slice
+# the slice's fit: bench.py:69-74's headline config
+SLICE_CONFIG = dict(target_error=1e-7, max_depth=5, max_degree=6,
+                    continuity=False, fit_dtype="compensated")
 P1_SIZES = (65536, 1, 7, 1_000_003)
 N_FIT_CHECK = 65536                 # P1 vs plain on the fit's own points
 # roofline of one H100 SXM (NVIDIA's data sheet, at 700 W): f32 and f64
@@ -289,6 +307,19 @@ K13_PLAIN_RTOL = 1e-6
 # backward) may take, and a sign call: the launches themselves and the
 # backward's three scalings
 K13_POINT_LAUNCHES, K13_TERM_LAUNCHES, K14_LAUNCHES = 1, 4, 1
+# K6 against its plain version: each coefficient within K6_RTOL of its
+# cell's largest |c| (the einsums and the kernel sum in other orders); each
+# err within 40 K6_RTOL sqrt(err) max|c| + 10 K6_RTOL err, which follows from
+# the coefficients' tolerance over at most 78 top-degree terms (and covers
+# the nearness factor's rounding); NaN where the plain version has NaN
+K6_RTOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+# the nearness strengths of the seeded checks: 1.5 (not an integer) makes
+# the polynomial weight NaN where fbar > sqrt 3, as in both packages
+K6_STRENGTH = {"NONE": 0.0, "POLYNOMIAL": 1.5, "EXPONENTIAL": 3.0}
+K6_TIME_DEGREES = (2, 5, 11)
+# the operations on the card a fit chunk's points and projection may take
+K6_LAUNCHES = 2
+COLD_TIMEOUT_S = 180                # a cold-build child, start-up included
 
 
 PHASE_SECONDS = {}
@@ -598,6 +629,446 @@ def sign_split(build, phases, TS):
     return out
 
 
+def project_rows_plain(nw, nw_strength, degree, prev_width, Fv, depths, cn,
+                       prev_coeffs, out=None):
+    """K6's projection by its plain version, as the kernel returns it: rows
+    [coeffs | err], into ``out`` where given (a concatenation and a copy
+    more than the plain version)."""
+    from hpsdf_tpu_torch import build as TB
+
+    coeffs, err = TB.fit_project_plain(nw, nw_strength, degree, prev_width,
+                                       Fv, depths, cn, prev_coeffs)
+    rows = torch.cat([coeffs, err[:, None]], dim=1)
+    if out is None:
+        return rows
+    out.copy_(rows)
+    return out
+
+
+@contextlib.contextmanager
+def k6_plain():
+    """K6's plain versions swapped in for its two launches while the block
+    runs (``build.fit_points_kernel``, ``build.fit_project_kernel``)."""
+    from unittest import mock
+    from hpsdf_tpu_torch import build as TB
+
+    with mock.patch.object(TB, "fit_points_kernel", TB.fit_points_plain), \
+            mock.patch.object(TB, "fit_project_kernel", project_rows_plain):
+        yield
+
+
+def tree_shape(tree):
+    """A tree's node count and its histograms of depth and degree (-1, the
+    interior nodes, first)."""
+    n = tree.n_nodes
+    return {"nodes": n,
+            "depths": np.bincount(tree.depth[:n].cpu().numpy()).tolist(),
+            "degrees": np.bincount(tree.degree[:n].cpu().numpy()
+                                   + 1).tolist()}
+
+
+def k6_split(build, phases):
+    """``build()`` split by ``phases``: with K6, then twice with its plain
+    versions swapped in (``k6_plain``; the first of these pays the first
+    use of the einsums' kernels in the process, "plain_first"), in the same
+    run. With K6 each fit
+    chunk launches the points and the projection once (their launches equal
+    the ``_fit_impl`` calls), with the plain versions neither; both trees
+    have the same node count and depth and degree histograms (the sums'
+    order may only swap the members of a mirror tie). Returns ({"k6": split,
+    "plain_first": split, "plain": split, "same_tree": bool,
+    "max_coeff_diff": float or None}, and the K6 run's timer, calls and
+    tree)."""
+    from hpsdf_tpu_torch import build as TB
+
+    kernels = (TB.fit_points_kernel, TB.fit_project_kernel)
+    out, runs = {}, {}
+    for key in ("k6", "plain_first", "plain"):
+        n0 = [k.launches for k in kernels]
+        with (contextlib.nullcontext() if key == "k6" else k6_plain()):
+            split, timer, calls, res = split_again(build, phases)
+        split["k6_launches"] = [k.launches - n for k, n in zip(kernels, n0)]
+        split["chunks"] = timer.counts.get("projection", 0)
+        split["tree"] = tree_shape(res)
+        out[key], runs[key] = split, (timer, calls, res)
+    chunks = out["k6"]["chunks"]
+    check(chunks > 0 and out["k6"]["k6_launches"] == [chunks, chunks]
+          and out["plain"]["k6_launches"] == [0, 0]
+          == out["plain_first"]["k6_launches"], f"K6's launches "
+          f"{out['k6']['k6_launches']} over {chunks} fit chunks, "
+          f"{out['plain']['k6_launches']} with the plain versions")
+    check(out["k6"]["tree"] == out["plain"]["tree"], f"the tree with K6 "
+          f"{out['k6']['tree']} and with the plain projection "
+          f"{out['plain']['tree']}")
+    a, b = runs["k6"][2], runs["plain"][2]
+    same = bool(torch.equal(a.child_idx, b.child_idx)
+                and torch.equal(a.degree, b.degree))
+    out["same_tree"] = same
+    out["max_coeff_diff"] = (float((a.coeffs - b.coeffs).abs().max())
+                             if same else None)
+    return out, *runs["k6"]
+
+
+def k6_text(splits):
+    """[slice], [render], [continuity] and [mesh scale]'s words on K6."""
+    k, p = splits["k6"], splits["plain"]
+    diff = ("the same topology, coefficients within "
+            f"{splits['max_coeff_diff']:.3e}" if splits["same_tree"] else
+            "a mirror tie taken the other way, same node count and "
+            "histograms")
+    return (f"K6 ({k['chunks']} fit chunks, launches {k['k6_launches']}): "
+            f"projection {k['projection_s']:.4f} s, points "
+            f"{k['points_s']:.4f} s, points and copies "
+            f"{k['points_and_copies_s']:.4f} s of {k['instrumented_build_s']:.3f}"
+            f" s; with the plain versions: projection "
+            f"{p['projection_s']:.4f} s, points {p['points_s']:.4f} s, "
+            f"points and copies {p['points_and_copies_s']:.4f} s of "
+            f"{p['instrumented_build_s']:.3f} s (the first such build: "
+            f"projection {splits['plain_first']['projection_s']:.4f} s of "
+            f"{splits['plain_first']['instrumented_build_s']:.3f} s; {diff})")
+
+
+def k6_check(rows, coeffs, err, label):
+    """K6's rows [coeffs | err] against the plain version's (coeffs, err):
+    raises unless each coefficient is within K6_RTOL of its cell's largest
+    |c|, each err within 40 K6_RTOL sqrt(err) max|c| + 10 K6_RTOL err and
+    NaN exactly where the plain err is. Returns (the largest coefficient
+    error over its cell's largest |c|, the largest err error over its
+    tolerance, the largest absolute difference)."""
+    tol = K6_RTOL[coeffs.dtype]
+    C = coeffs.shape[1]
+    got_c, got_e = rows[:, :C], rows[:, C]
+    big = coeffs.abs().amax(dim=1)
+    dc = (got_c - coeffs).abs()
+    c_rel = float((dc.amax(dim=1) / big.clamp_min(1e-300)).max())
+    check(bool((dc <= tol * big[:, None]).all()), f"K6 vs plain at {label}:"
+          f" a coefficient {c_rel:.3e} of its cell's largest off")
+    nan = torch.isnan(err)
+    check(torch.equal(nan, torch.isnan(got_e)), f"K6 vs plain at {label}: "
+          f"NaN errors at {int(torch.isnan(got_e).sum())} cells, the plain "
+          f"version's at {int(nan.sum())}")
+    e, g = err[~nan], got_e[~nan]
+    limit = 40 * tol * e.abs().sqrt() * big[~nan] + 10 * tol * e.abs()
+    e_rel = float(((g - e).abs() / limit.clamp_min(1e-300)).max()) \
+        if e.numel() else 0.0
+    check(bool(((g - e).abs() <= limit).all()), f"K6 vs plain at {label}: "
+          f"an err {e_rel:.3e} of its tolerance off")
+    ab = float(torch.cat([dc.reshape(-1), (g - e).abs()]).max())
+    return c_rel, e_rel, ab
+
+
+def k6_caught(rows, coeffs, err, label):
+    """Whether ``k6_check`` fails (a mutation must)."""
+    try:
+        k6_check(rows, coeffs, err, label)
+    except RuntimeError:
+        return True
+    return False
+
+
+def k6_seeded(degree, dt, seed):
+    """A degree's seeded fit chunk on the card at the main path's size
+    (max(1, 2^20 // Q^3) cells): F values uniform in [-1, 1] about a cell
+    offset in [-2.5, 2.5] (so fbar crosses sqrt 3), depths 0..10, and the
+    kept coefficients (C(d-1) of them) the cell's own fit times factors in
+    [0.5, 1.5]. Returns (Fv, depths, prev)."""
+    from hpsdf_tpu_torch import build as TB
+    from hpsdf_tpu_torch import consts
+    from hpsdf_tpu_torch.config import NearnessWeighting as NW
+
+    Q = 4 * degree + 1
+    m = max(1, TB.BLOCK_PTS // Q ** 3)
+    rng = np.random.default_rng(seed)
+    Fv = torch.as_tensor(rng.uniform(-1.0, 1.0, (m, Q, Q, Q))
+                         + rng.uniform(-2.5, 2.5, (m, 1, 1, 1)),
+                         device="cuda").to(dt)
+    d = torch.as_tensor(rng.integers(0, consts.TREE_MAX_DEPTH + 1, m),
+                        dtype=torch.int32, device="cuda")
+    pw = consts.coeff_count(degree - 1)
+    cn = TB.fit_tables(degree, dt, Fv.device).cn
+    own, _ = TB.fit_project_plain(NW.NONE, 0.0, degree, 0, Fv, d, cn, None)
+    prev = own[:, :pw] * torch.as_tensor(rng.uniform(0.5, 1.5, (m, pw)),
+                                         device="cuda").to(dt)
+    return Fv, d, prev.contiguous()
+
+
+def k6_bounds(degree, m, pw, es):
+    """K6's bounds (ms) at m cells of a degree, es bytes a value: the
+    points' (m Q^3 points written, the centres, depths and nodes read; an
+    add a coordinate) and the projection's (F's values, the depths, the
+    kept coefficients and the tables read once, the rows written; the FMAs
+    of the three contractions, Q^3 (d+1) + Q^2 (d+1)(d+2)/2 + Q C a cell,
+    two operations each)."""
+    from hpsdf_tpu_torch import consts
+
+    Q, C = 4 * degree + 1, consts.coeff_count(degree)
+    peak = F64_PEAK if es == 8 else F32_PEAK
+    pts_bytes = m * Q ** 3 * 3 * es + m * (3 * es + 4) + Q * es
+    pts_ops = m * Q ** 3 * 3
+    prj_bytes = (m * Q ** 3 * es + 4 * m + m * pw * es
+                 + ((degree + 1) * Q + (consts.TREE_MAX_DEPTH + 1) * C) * es
+                 + m * (C + 1) * es)
+    fmas = m * (Q ** 3 * (degree + 1) + Q ** 2 * (degree + 1) * (degree + 2)
+                // 2 + Q * C)
+    out = {}
+    for key, nbytes, ops in (("points", pts_bytes, pts_ops),
+                             ("project", prj_bytes, 2 * fmas)):
+        b, o = nbytes / HBM_RATE * 1e3, ops / peak * 1e3
+        out[key] = {"bound_ms": max(b, o), "bytes_bound_ms": b,
+                    "ops_bound_ms": o,
+                    "bound_by": "bytes" if b >= o else "operations"}
+    return out
+
+
+def phase_k6(calls, smi, seed=30):
+    """K6 (csrc/fit.cu) against its plain versions: the points bit for bit
+    at the slice fit's largest chunk (the main path's own call, from the
+    split's ``calls``) and at every degree 2..11 (seeded); the projection
+    on that chunk's F values (the main path's own rows) and on seeded
+    chunks at degrees 2..11 x pw in {0, C(d-1)} x the three weightings, in
+    f64 and f32 (``k6_check``); the check's teeth (one coefficient x (1 +
+    1e-10), the nearness factor dropped, the fbar of the new c_0 in place
+    of the kept prev[0]: each must fail it); then both launches in CUDA
+    graphs at degrees 2, 5 and 11 beside the plain versions, the three
+    einsums alone (the library column) and the bounds. Launches made here
+    are not the main path's."""
+    from hpsdf_tpu_torch import build as TB
+    from hpsdf_tpu_torch import consts
+    from hpsdf_tpu_torch.config import NearnessWeighting as NW
+
+    counts = (TB.fit_points_kernel.launches, TB.fit_project_kernel.launches)
+    t = {"points": {}, "project": {}, "errs": {}}
+
+    # --- the slice fit's largest chunk, as the main path ran it ----------
+    (c, d, deg), _, pts = calls[("points", "largest")]
+    check(torch.equal(pts, TB.fit_points_plain(c, d, deg))
+          and torch.equal(TB.fit_points_kernel(c, d, deg), pts),
+          f"K6's points at the slice fit's largest chunk ({c.shape[0]} "
+          f"cells, degree {deg}) differ from the plain version's")
+    args, _, res = calls[("projection", "largest")]
+    nw, s, deg_p, pw, Fv, dp, cn, prev = args[:8]
+    coeffs, err = TB.fit_project_plain(nw, s, deg_p, pw, Fv, dp, cn, prev)
+    rows = torch.cat([res[0], res[1][:, None]], dim=1)
+    t["errs"]["slice"] = k6_check(rows, coeffs, err, "the slice fit's "
+                                  "largest chunk")
+    t["slice_chunk"] = {"cells": Fv.shape[0], "degree": deg_p, "pw": pw,
+                        "points_cells": c.shape[0], "points_degree": deg}
+
+    # --- seeded chunks at every degree ------------------------------------
+    f64_err, f32_err = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
+    teeth = {}
+    for degree in TB.FIT_DEGREES:
+        Q = 4 * degree + 1
+        m = max(1, TB.BLOCK_PTS // Q ** 3)
+        rng = np.random.default_rng(seed + degree)
+        cc = torch.as_tensor(rng.uniform(-0.5, 0.5, (m, 3)), device="cuda")
+        dd = torch.as_tensor(rng.integers(0, consts.TREE_MAX_DEPTH + 1, m),
+                             dtype=torch.int32, device="cuda")
+        for dt in (torch.float64, torch.float32):
+            ct = cc.to(dt)
+            check(torch.equal(TB.fit_points_kernel(ct, dd, degree),
+                              TB.fit_points_plain(ct, dd, degree)),
+                  f"K6's points at degree {degree}, {dt}")
+            Fv, dv, prev = k6_seeded(degree, dt, seed + 100 + degree)
+            cn = TB.fit_tables(degree, dt, Fv.device).cn
+            for pw in (0, prev.shape[1]):
+                for name, s in K6_STRENGTH.items():
+                    nw = NW[name]
+                    p = prev if pw else None
+                    got = TB.fit_project_kernel(nw, s, degree, pw, Fv, dv,
+                                                cn, p)
+                    want = TB.fit_project_plain(nw, s, degree, pw, Fv, dv,
+                                                cn, p)
+                    e = k6_check(got, *want, f"degree {degree}, pw {pw}, "
+                                 f"{name}, {dt}")
+                    acc = f64_err if dt == torch.float64 else f32_err
+                    for i in range(3):
+                        acc[i] = max(acc[i], e[i])
+                    if (dt == torch.float64 and degree == 5 and pw
+                            and name == "POLYNOMIAL"):
+                        teeth = k6_teeth(got, want, degree, Fv, dv, cn, s)
+    t["errs"].update(f64=f64_err, f32=f32_err)
+    t["teeth"] = teeth
+    check(all(teeth.values()), f"K6's check missed a mutation: {teeth}")
+
+    # --- times ---------------------------------------------------------
+    for degree in K6_TIME_DEGREES:
+        Q = 4 * degree + 1
+        m = max(1, TB.BLOCK_PTS // Q ** 3)
+        rng = np.random.default_rng(seed + 200 + degree)
+        cc = torch.as_tensor(rng.uniform(-0.5, 0.5, (m, 3)), device="cuda")
+        dd = torch.as_tensor(rng.integers(0, consts.TREE_MAX_DEPTH + 1, m),
+                             dtype=torch.int32, device="cuda")
+        Fv, dv, _ = k6_seeded(degree, torch.float64, seed + 300 + degree)
+        cn = TB.fit_tables(degree, torch.float64, Fv.device).cn
+        A = TB.fit_tables(degree, torch.float64, Fv.device).A
+        out = torch.empty((m, consts.coeff_count(degree) + 1),
+                          dtype=torch.float64, device="cuda")
+
+        def einsums():
+            T_ = torch.einsum("mijk,pi->mpjk", Fv, A)
+            T_ = torch.einsum("mpjk,qj->mpqk", T_, A)
+            return torch.einsum("mpqk,rk->mpqr", T_, A)
+
+        b = k6_bounds(degree, m, 0, 8)
+        t["points"][degree] = {
+            "cells": m, "ms": graph_ms(
+                lambda: TB.fit_points_kernel(cc, dd, degree), 20),
+            "plain_ms": time_ms(lambda: TB.fit_points_plain(cc, dd, degree),
+                                5), **b["points"], "library_ms": None}
+        t["project"][degree] = {
+            "cells": m, "ms": graph_ms(
+                lambda: TB.fit_project_kernel(NW.NONE, 0.0, degree, 0, Fv,
+                                              dv, cn, None, out), 20),
+            "plain_ms": time_ms(lambda: TB.fit_project_plain(
+                NW.NONE, 0.0, degree, 0, Fv, dv, cn, None), 5),
+            "library_ms": time_ms(einsums, 5), **b["project"]}
+    TB.fit_points_kernel.launches, TB.fit_project_kernel.launches = counts
+    sc = t["slice_chunk"]
+    print(f"[k6] {smi} | points bit for bit at the slice fit's largest "
+          f"chunk ({sc['points_cells']} cells, degree {sc['points_degree']})"
+          f" and at degrees 2..11 (f64, f32); projection at its largest "
+          f"chunk ({sc['cells']} cells, degree {sc['degree']}, pw "
+          f"{sc['pw']}): coefficients within {t['errs']['slice'][0]:.3e} of"
+          f" their cell's largest, err at {t['errs']['slice'][1]:.3e} of "
+          f"its tolerance; seeded degrees 2..11 x pw x weightings: f64 "
+          f"{f64_err[0]:.3e} / {f64_err[1]:.3e}, f32 {f32_err[0]:.3e} / "
+          f"{f32_err[1]:.3e}; mutations caught {teeth}", flush=True)
+    for degree in K6_TIME_DEGREES:
+        p, j = t["points"][degree], t["project"][degree]
+        print(f"[k6] degree {degree}, {j['cells']} cells, f64: points "
+              f"{p['ms']:.4f} ms in a CUDA graph, plain {p['plain_ms']:.3f} "
+              f"ms, bound {p['bound_ms']:.5f} ms ({p['bound_by']}), "
+              f"{p['bound_ms'] / p['ms']:.1%} of it | projection "
+              f"{j['ms']:.4f} ms in a CUDA graph, plain {j['plain_ms']:.3f} "
+              f"ms, the three einsums {j['library_ms']:.3f} ms, bound "
+              f"{j['bound_ms']:.5f} ms ({j['bound_by']}; bytes "
+              f"{j['bytes_bound_ms']:.5f}, f64 operations "
+              f"{j['ops_bound_ms']:.5f}), {j['bound_ms'] / j['ms']:.1%} of "
+              f"it; {j['cells']} blocks on "
+              f"{torch.cuda.get_device_properties(0).multi_processor_count}"
+              f" SMs", flush=True)
+    return t
+
+
+def k6_teeth(rows, want, degree, Fv, depths, cn, s):
+    """Three wrong kernels' rows, made from K6's own, each of which
+    ``k6_check`` must fail: one coefficient (a cell's largest) x (1 +
+    1e-10); the nearness factor dropped; and the polynomial weight taken
+    from the new c_0 in place of the kept prev[0]."""
+    from hpsdf_tpu_torch import build as TB
+    from hpsdf_tpu_torch.config import NearnessWeighting as NW
+
+    coeffs, err = want
+    C = coeffs.shape[1]
+    top = TB.fit_tables(degree, Fv.dtype, Fv.device).top
+    unweighted = torch.sum(torch.where(top, coeffs ** 2, 0.0), dim=1)
+    live = ~torch.isnan(err) & (err > 0)
+
+    one = rows.clone()
+    cell = int(torch.nonzero(live)[0])
+    one[cell, int(coeffs[cell].abs().argmax())] *= 1.0 + 1e-10
+    dropped = rows.clone()
+    dropped[:, C] = unweighted
+    new0, _ = TB.fit_project_plain(NW.NONE, 0.0, degree, 0, Fv, depths, cn,
+                                   None)
+    fbar = torch.abs(new0[:, 0] * torch.exp2(1.5 * depths.to(Fv.dtype)))
+    k = torch.clamp((1.0 - fbar / math.sqrt(3.0)) ** s, 0.0, 1.0)
+    new_c0 = rows.clone()
+    new_c0[:, C] = unweighted * k
+    return {name: k6_caught(r, coeffs, err, f"mutation: {name}")
+            for name, r in (("coefficient x (1 + 1e-10)", one),
+                            ("nearness factor dropped", dropped),
+                            ("fbar from the new c_0", new_c0))}
+
+
+def phase_k6_ops(calls):
+    """The operations a fit chunk's points and projection put on the card
+    (torch.profiler), at the slice fit's largest chunk: K6's must be at
+    most K6_LAUNCHES; the plain versions' beside them. Taken after [grad]
+    (an early trace leaves later ones empty)."""
+    from hpsdf_tpu_torch import build as TB
+
+    counts = (TB.fit_points_kernel.launches, TB.fit_project_kernel.launches)
+    (c, d, deg), _, _ = calls[("points", "largest")]
+    args, _, _ = calls[("projection", "largest")]
+    out = torch.empty((args[4].shape[0], args[6].shape[1] + 1),
+                      dtype=args[4].dtype, device=args[4].device)
+
+    def chunk():
+        TB.fit_points(c, d, deg)
+        TB._fit_impl(*args[:8], out)
+
+    ops = device_ops(chunk)
+    with k6_plain():
+        plain = device_ops(chunk)
+    TB.fit_points_kernel.launches, TB.fit_project_kernel.launches = counts
+    check(1 <= ops <= K6_LAUNCHES, f"a fit chunk's points and projection "
+          f"put {ops} operations on the card (at most {K6_LAUNCHES})")
+    print(f"[k6 ops] a fit chunk's points and projection: {ops} operations "
+          f"on the card with K6, {plain} with the plain versions (the rows' "
+          f"concatenation and copy included)", flush=True)
+    return {"launches_a_chunk": ops, "plain_launches_a_chunk": plain}
+
+
+def cold_child(mode):
+    """A fresh process's first slice build and a second one, split by
+    phase (``split_again``), with K6 (``mode`` "k6") or its plain versions
+    (``mode`` "plain"); prints one JSON line. The kernel library is the
+    parent's, loaded before the builds; the mesh and its rows are made
+    first."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import hpsdf_tpu_torch as T
+    from hpsdf_tpu_torch import _kernels
+    from hpsdf_tpu_torch.mesh import build_bvh, build_mesh, gen, mesh_sdf
+
+    _kernels.load()
+    dev = torch.device("cuda", 0)
+    v, f = gen.icosphere(0.3, 5)
+    mesh = build_mesh(v, f)
+    F = mesh_sdf(mesh, build_bvh(mesh, device=dev))
+    sync()
+    cfg = T.Config(**SLICE_CONFIG)
+    with (k6_plain() if mode == "plain" else contextlib.nullcontext()):
+        first = split_again(lambda: T.build_octree(cfg, F, device=dev),
+                            SLICE_PHASES)[0]
+        warm = split_again(lambda: T.build_octree(cfg, F, device=dev),
+                           SLICE_PHASES)[0]
+    print(json.dumps({"mode": mode, "first": first, "warm": warm}),
+          flush=True)
+    return 0
+
+
+def phase_cold(first_s, warm_s, smi):
+    """The first slice build of a fresh process split by phase, with K6 and
+    with its plain versions (``cold_child`` in a child process each, one
+    after the other), beside this process's first and warm builds."""
+    out = {"in_process_first_s": first_s, "in_process_warm_s": warm_s}
+    for mode in ("k6", "plain"):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--cold", mode],
+            capture_output=True, text=True, timeout=COLD_TIMEOUT_S,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(res.returncode == 0, f"the cold child ({mode}) exited "
+              f"{res.returncode}: {res.stderr[-2000:]}")
+        out[mode] = json.loads(res.stdout.strip().splitlines()[-1])
+        out[mode]["process_s"] = time.perf_counter() - t0
+    for mode in ("k6", "plain"):
+        c = out[mode]
+        print(f"[cold] {smi} | {mode}: a fresh process's first slice build "
+              f"{c['first']['instrumented_build_s']:.3f} s (split: "
+              f"{split_text(c['first'])}), its second "
+              f"{c['warm']['instrumented_build_s']:.3f} s (split: "
+              f"{split_text(c['warm'])}); the child took "
+              f"{c['process_s']:.1f} s | this process: first build "
+              f"{first_s:.3f} s, warm {warm_s:.3f} s (instrumented)",
+              flush=True)
+    return out
+
+
 def counters():
     """Every launch counter, by name: (kernel wrapper, attribute). K2/K5's
     wrapper counts all its launches and, apart, those of K5's normals, of
@@ -610,6 +1081,7 @@ def counters():
     (``query_nodes``) counts its descent rounds and leaf evaluations."""
     from hpsdf_tpu_torch.accel import (packed_eval_kernel, packed_grad_kernel,
                                        row_gather, row_scatter)
+    from hpsdf_tpu_torch.build import fit_points_kernel, fit_project_kernel
     from hpsdf_tpu_torch.continuity import (_chunk_launch, cg_direction,
                                             cg_matvec, cg_matvec_rows,
                                             cg_update, cg_update_rows)
@@ -647,7 +1119,9 @@ def counters():
             "cg_direction": (cg_direction, "launches"),
             "signed_from_best": (signed_from_best_kernel, "launches"),
             "inverse_points": (inverse_points_kernel, "launches"),
-            "inverse_terms": (inverse_terms_kernel, "launches")}
+            "inverse_terms": (inverse_terms_kernel, "launches"),
+            "fit_points": (fit_points_kernel, "launches"),
+            "fit_project": (fit_project_kernel, "launches")}
 
 
 def reset_counts():
@@ -661,8 +1135,8 @@ def read_counts():
 
 # the port's own functions a build's time is split by (module, attribute,
 # phase): the fit loop's, then the continuity post-process's
-FIT_PHASES = (("build", "_fit", "fit"), ("build", "_fit_impl", "projection"),
-              ("build", "pack", "pack"))
+FIT_PHASES = (("build", "_fit", "fit"), ("build", "fit_points", "points"),
+              ("build", "_fit_impl", "projection"), ("build", "pack", "pack"))
 SLICE_PHASES = FIT_PHASES + (("mesh.sdf", "_signed_from_best", "sign"),)
 CONTINUITY_PHASES = (
     ("continuity", "enforce_continuity", "continuity"),
@@ -680,7 +1154,8 @@ def split_build(phases=FIT_PHASES):
     ``profiling.PhaseTimer`` phase (synchronised before it starts and when
     its result is ready), and so is F inside each fit call (``_fit``'s
     first argument). Yields (timer, calls): calls[phase] holds the last
-    call's (args, kwargs, result)."""
+    call's (args, kwargs, result), calls[(phase, "largest")] that of the
+    call whose first tensor argument has the most rows."""
     from unittest import mock
 
     from hpsdf_tpu_torch import profiling
@@ -696,6 +1171,11 @@ def split_build(phases=FIT_PHASES):
                 res = fn(*args, **kw)
                 out.append(res)
             calls[name] = (args, kw, res)
+            rows = next((a.shape[0] for a in args
+                         if isinstance(a, torch.Tensor)), 0)
+            if rows >= calls.get((name, "rows"), -1):
+                calls[(name, "rows")] = rows
+                calls[(name, "largest")] = (args, kw, res)
             return res
         return call
 
@@ -720,7 +1200,8 @@ def fit_split(timer, build_s):
     fit, F, proj = t.get("fit", 0.0), t.get("F", 0.0), t.get("projection", 0.0)
     pack, cont = t.get("pack", 0.0), t.get("continuity", 0.0)
     return {"instrumented_build_s": build_s, "F_s": F, "projection_s": proj,
-            "points_and_copies_s": fit - F - proj, "pack_s": pack,
+            "points_and_copies_s": fit - F - proj,
+            "points_s": t.get("points", 0.0), "pack_s": pack,
             "continuity_s": cont,
             "host_topology_s": build_s - fit - pack - cont,
             "fit_calls": timer.counts.get("fit", 0)}
@@ -795,8 +1276,14 @@ def phase_slice(mesh, bvh, cfg, n_query, out_path, seed=1):
     splits = sign_split(lambda: T.build_octree(cfg, F, device=dev),
                         SLICE_PHASES, TS)
     split = splits["k14"]
+    splits["first_build_s"] = build_s
+    splits["k6"], _, k6_calls, _ = k6_split(
+        lambda: T.build_octree(cfg, F, device=dev), SLICE_PHASES)
 
     check(launches["closest_tri"] > 0, "P1 never launched on the main path")
+    check(launches["fit_points"] > 0 and launches["fit_project"] > 0,
+          f"K6 launched {launches['fit_points']} / "
+          f"{launches['fit_project']} times on the main path")
     check(launches["query"] > 0, "K1 never launched on the main path")
     check(launches["signed_from_best"] > 0,
           "K14 never launched on the mesh path")
@@ -829,13 +1316,13 @@ def phase_slice(mesh, bvh, cfg, n_query, out_path, seed=1):
           f"calls; with the sign as before K14 (G + torch), "
           f"{split_text(splits['before'])}, G launches "
           f"{splits['before']['g_launches']} against "
-          f"{split['g_launches']}), query "
+          f"{split['g_launches']}; {k6_text(splits['k6'])}), query "
           f"{n_query / query_s / 1e6:.2f} Mq/s (first call), "
           f"{n_query / warm_s / 1e6:.2f} Mq/s (second), "
           f"max|query - (|p| - 0.3)| {fit_err:.3e}, gradient . radial 1% "
           f"quantile {dot_q01:.6f}, save/load bit-exact, launches "
           f"{launches}", flush=True)
-    return tree, launches, largest[0], splits
+    return tree, launches, largest[0], splits, k6_calls
 
 
 def phase_k1(tree, n, seed=2):
@@ -1362,7 +1849,8 @@ def phase_render(tree, out_dir):
     back = T.load(path, device=dev)
     sync()
     launches = read_counts()
-    split = split_again(lambda: T.intersect_sdf(tree, minus_box))[0]
+    k6s = k6_split(lambda: T.intersect_sdf(tree, minus_box), FIT_PHASES)[0]
+    split = k6s["k6"]
 
     for k in ("row_gather", "packed_eval", "packed_eval_normals", "march",
               "query"):
@@ -1456,7 +1944,7 @@ def phase_render(tree, out_dir):
     check(shade_err <= 1e-6, f"render shading vs K5 normals: {shade_err}")
     print(f"[render] carve {carved.n_nodes} nodes in {carve_s:.3f} s "
           f"(split: {split_text(split)}, {split['fit_calls']} fit calls; "
-          f"deg_used {pt.deg_used}, rows {pt.width} lanes, grid depth "
+          f"{k6_text(k6s)}; deg_used {pt.deg_used}, rows {pt.width} lanes, grid depth "
           f"{pt.grid_depth}, extra rounds {pt.extra_rounds}, LOD "
           f"{'on' if lo is not None else 'off'}), render 512^2 in "
           f"{render_s:.3f} s (first call), hit fraction {frac:.4f}, "
@@ -1470,7 +1958,8 @@ def phase_render(tree, out_dir):
           f"tree under {os.path.relpath(out_dir)}, save/load bit-exact, "
           f"launches {launches}", flush=True)
     return (launches, {"carve_s": carve_s, "render_s": render_s,
-                       "cone": cone_ms, "split": split}, frac,
+                       "cone": cone_ms, "split": split, "k6_split": k6s},
+            frac,
             t_err, dot_min, largest[0].to(torch.float32), pt, ph)
 
 
@@ -3618,9 +4107,10 @@ def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
                          ("cg_chunk", "the persistent launch")):
         check(launches[name] > 0, f"{label}: {kernel} never launched on the "
               f"main path ({launches[name]})")
-    split, timer, calls, again = split_again(
+    k6s, timer, calls, again = k6_split(
         lambda: T.build_octree(cfg, sphere(radius), device=dev),
         FIT_PHASES + CONTINUITY_PHASES)
+    split = k6s["k6"]
     check(torch.equal(again.coeffs, tree.coeffs), f"{label}: the "
           f"instrumented build's coefficients differ from the first's")
     t = timer.times
@@ -3680,7 +4170,8 @@ def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
            "residual": main[2], "host_syncs": syncs,
            "launches": {k: launches[k]
                         for k in ("cg_matvec", "cg_update", "cg_chunk")},
-           "build_s": build_s, "split": split, "field_err": field_err,
+           "build_s": build_s, "split": split, "k6_split": k6s,
+           "field_err": field_err,
            "jump_energy": energy, "jumps": jumps, "errs": errs,
            "abs_errs": abs_errs, **times,
            "k9_bound_ms": max(k9_bytes, k9_ops), "k9_ops_bound_ms": k9_ops,
@@ -3702,7 +4193,7 @@ def phase_continuity(label, cfg_kw, radius, warm_radius, smi):
           f"{iters} iterations, residual "
           f"{main[2]:.6e}, host syncs {syncs}, launches {out['launches']}; "
           f"build_octree {build_s:.3f} s (split: {split_text(split)}; "
-          f"analytic assembly 0 calls); "
+          f"analytic assembly 0 calls; {k6_text(k6s)}); "
           f"max|f - (|p| - {radius})| {field_err:.3e}; jump energy c.Mc "
           f"{energy[0]:.6e} -> {energy[1]:.6e}; face jumps (mean, "
           f"max) x = 0.0625: {jumps[0][0]:.3e}, {jumps[0][1]:.3e} -> "
@@ -4366,11 +4857,13 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, seed=21):
     splits = sign_split(lambda: T.build_octree(cfg, F, device=dev),
                         MESH_PHASES, TS)
     split = splits["k14"]
+    k6s = k6_split(lambda: T.build_octree(cfg, F, device=dev),
+                   MESH_PHASES)[0]
     fit = {"fit_s": fit_s, "F_samples": samples[0], "nodes": tree.n_nodes,
            "leaves": tree.num_leaves(), "deg_used": tree.deg_used,
            "depth_used": tree.depth_used, "hybrid_launches": fit_launches,
            "near_max_abs_err": fit_err, "split": split,
-           "split_sign_before": splits["before"]}
+           "split_sign_before": splits["before"], "k6_split": k6s}
     print(f"[mesh scale] fit through mesh_sdf (K10): {fit_s:.3f} s, F "
           f"samples {samples[0]}, nodes {tree.n_nodes}, leaves "
           f"{tree.num_leaves()}, deg_used {tree.deg_used}, depth_used "
@@ -4381,7 +4874,7 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, seed=21):
           f"; with the sign as before K14 (G + torch): "
           f"{split_text(splits['before'])}, G launches "
           f"{splits['before']['g_launches']} against {split['g_launches']}; "
-          f"max|query - P1| at {N_NEAR} "
+          f"{k6_text(k6s)}; max|query - P1| at {N_NEAR} "
           f"points within {NEAR_OFFSET} of the surface {fit_err:.3e} | "
           f"signed_distance_hybrid(atol=0) at {N_MESH_PTS} uniform points: "
           f"{n_bad / N_MESH_PTS:.4%} escalated to 4x widths, "
@@ -5360,7 +5853,8 @@ PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
                  "cg_direction_kernel", "hybrid_kernel", "bvh_walk_kernel",
                  "descend_nodes_kernel", "leaf_nodes_kernel",
                  "coeff_scatter_nodes_kernel", "signed_from_best_kernel",
-                 "inverse_points_kernel", "inverse_terms_kernel")
+                 "inverse_points_kernel", "inverse_terms_kernel",
+                 "fit_points_kernel", "fit_project_kernel")
 
 
 def _ptxas_key(kernel, args):
@@ -5385,6 +5879,10 @@ def _ptxas_key(kernel, args):
         return f"{args[0]}/form{args[1]}"
     if kernel == "cone_kernel":
         return f"{args[0]}/{'lo' if args[1] else 'full'}"
+    if kernel == "fit_points_kernel":
+        return "f64" if args[0] == "d" else "f32"
+    if kernel == "fit_project_kernel":
+        return f"{args[0]}/{'f64' if args[1] == 'd' else 'f32'}"
     return str(args[0])   # march, leaf_nodes, coeff_scatter_nodes: degree
 
 
@@ -5396,8 +5894,9 @@ def ptxas_check():
     in its CSR form), K9u, both forms of the persistent launch, both forms
     of each of the row-sharded CG's two K9u launches, both of K10 and K11,
     K1's node-range descent round and, at degrees 3 and 5, its leaf
-    evaluation and K8's node-range mode must have no stack frame and no
-    spills. Returns
+    evaluation and K8's node-range mode, K14, both launches of K13, K6's
+    points and, at degrees 3 and 5 in f64 and f32, K6's projection must
+    have no stack frame and no spills. Returns
     {kernel: {key: [registers, stack, spill stores, spill loads]}}."""
     from hpsdf_tpu_torch import _kernels
 
@@ -5443,7 +5942,10 @@ def ptxas_check():
             ("K8 nodes", "coeff_scatter_nodes_kernel", ("3", "5")),
             ("K14", "signed_from_best_kernel", ("-",)),
             ("K13 points", "inverse_points_kernel", ("-",)),
-            ("K13 terms", "inverse_terms_kernel", ("-",))):
+            ("K13 terms", "inverse_terms_kernel", ("-",)),
+            ("K6 points", "fit_points_kernel", ("f64", "f32")),
+            ("K6 proj", "fit_project_kernel", ("3/f64", "3/f32", "5/f64",
+                                                "5/f32"))):
         got = found.get(kernel, {})
         for key in keys:
             check(key in got, f"ptxas report for {name} {key}")
@@ -5509,16 +6011,18 @@ def main():
     p1_err = phase("p1", phase_p1, bvh.tri_rows, table, P1_SIZES)
 
     # --- 4. the slice ------------------------------------------------------
-    cfg = Config(target_error=1e-7, max_depth=5, max_degree=6,
-                 continuity=False, fit_dtype="compensated")
+    cfg = Config(**SLICE_CONFIG)
     os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
-    tree, launches, fit_pts, split_s = phase(
+    tree, launches, fit_pts, split_s, k6_calls = phase(
         "slice", phase_slice, mesh, bvh, cfg, N_QUERY,
         os.path.join(_kernels.BUILD_DIR, "chip_smoke_tree.npz"))
     tf = phase("p1 fit batch", phase_p1_fit, bvh.tri_rows, table, fit_pts)
     p1_err = max(p1_err, tf["fit_max_abs_err"])
     tk14 = phase("k14 fit batch", phase_k14_fit, bvh.tri_rows, table,
                  fit_pts)
+    tk6 = phase("k6", phase_k6, k6_calls, smi)
+    tcold = phase("cold", phase_cold, split_s["first_build_s"],
+                  split_s["k14"]["instrumented_build_s"], smi)
 
     # --- 5. K1 against its plain version -----------------------------------
     k1_err, k1g_err = phase("k1", phase_k1, tree, N_QUERY)
@@ -5589,6 +6093,7 @@ def main():
     tgrad = phase("grad", phase_grad, pt_s, tree, s_inv, smi)
     tk13 = phase("k13", check_k13, s_inv, smi)
     phase("k14 ops", phase_k14_ops, bvh.tri_rows, table, fit_pts, tk14)
+    tk6.update(phase("k6 ops", phase_k6_ops, k6_calls))
     launches_i, ti = phase("inverse", phase_inverse, s_inv, s_small, smi)
 
     # --- 12. the continuity post-process at both sizes ---------------------
@@ -5868,6 +6373,26 @@ def main():
             for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None, "query_form_ms": tsh["node_modes"]["k8_query_ms"],
          "ptxas": ptxas.get("coeff_scatter_nodes_kernel", {})},
+        # K6 at degree 2's chunk (1,438 cells, the slice's largest); its
+        # times at degrees 2, 5 and 11 under "degrees"
+        *({"name": f"fit_{key}", "route": "cuda",
+           "source": "hpsdf_tpu_torch/csrc/fit.cu", "replaces": replaces,
+           "launches": total[f"fit_{key}"], "max_abs_err": err,
+           **{k: tk6[key][2][k] for k in (
+               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+               "bytes_bound_ms", "ops_bound_ms", "cells")},
+           "degrees": tk6[key], **extra,
+           "launches_a_chunk": tk6["launches_a_chunk"],
+           "plain_launches_a_chunk": tk6["plain_launches_a_chunk"],
+           "ptxas": ptxas.get(f"fit_{key}_kernel", {})}
+          for key, replaces, err, extra in (
+              ("points", "hpsdf_tpu/build.py:515", 0.0,
+               {"bit_for_bit": True}),
+              ("project", "hpsdf_tpu/build.py:100",
+               max(tk6["errs"]["slice"][2], tk6["errs"]["f64"][2],
+                   tk6["errs"]["f32"][2]),
+               {"errs": tk6["errs"], "teeth": tk6["teeth"],
+                "slice_chunk": tk6["slice_chunk"]}))),
     ]
     print(f"[e2e] {smi} | carve {tr['carve_s']:.3f} s, render 512^2 "
           f"{tr['render_s']:.3f} s, hit fraction {frac:.4f} | 1024^2 march: "
@@ -5881,7 +6406,11 @@ def main():
                     if k not in ("errs", "abs_errs")}
             for label, c in (("fit_continuity", tca), ("row_260k", tcb))}
     print(json.dumps({"kernels": kernels, "inverse": ti,
-                      "fit_split": {"slice": split_s, "carve": tr["split"]},
+                      "fit_split": {"slice": split_s, "carve": tr["split"],
+                                    "carve_k6": tr["k6_split"],
+                                    "mesh_scale_k6":
+                                    tm["hybrid"]["fit"]["k6_split"],
+                                    "cold": tcold},
                       "continuity": cont, "sharding": tsh}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -5891,4 +6420,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cold"]:
+        sys.exit(cold_child(sys.argv[2]))
     sys.exit(main())

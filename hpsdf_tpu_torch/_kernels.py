@@ -89,6 +89,9 @@ _SIGNATURES = {
     "hpsdf_cg_update_rows": (_I32, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P),
     "hpsdf_cg_direction": (_I32, _I64, _P, _P, _P, _P, _P),
+    "hpsdf_fit_points": (_P, _P, _P, _I32, _I64, _I32, _P, _P),
+    "hpsdf_fit_project": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _F64, _I64,
+                          _I32, _P, _P),
 }
 # entry points that return a size in bytes (int64_t), not an error code
 _SIZE_SIGNATURES = {
