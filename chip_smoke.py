@@ -39,15 +39,21 @@ uninstrumented one whose seconds are printed as the build's. Every fit
 split (the slice, the carve, both continuity configs, the mesh at scale)
 is taken with K6 and then with its plain versions swapped in (k6_split:
 K6's launches equal the fit's chunks, the trees' node counts and depth
-and degree histograms equal). [k6] holds K6 to its plain versions: the
-points bit for bit at the slice fit's largest chunk and at degrees 2..11,
-the projection on that chunk's own F values and on seeded chunks at
-degrees 2..11 x kept widths x the three weightings in f64 and f32
-(K6_RTOL), shows that three wrong rows fail the check, and times both
-launches in CUDA graphs at degrees 2, 5 and 11 beside the plain versions,
-the three einsums and the bounds; [k6 ops] counts a chunk's operations on
-the card. [cold] runs this script twice more as a child (--cold k6, --cold
-plain) that splits a fresh process's first slice build by phase.
+and degree histograms equal). [k6] holds K6 to its plain versions and to
+the kernels they replaced (csrc/check/fit_reference.cu): the points bit
+for bit at the slice fit's largest chunk and at degrees 2..11, the
+projection on that chunk's own F values and on seeded chunks at degrees
+2..11 x kept widths x the three weightings in f64 and f32 (K6_RTOL; bit
+for bit the replaced kernel's where a cell takes one block), shows that
+three wrong rows fail the check, holds each cell's row bit for bit across
+chunkings (k6_invariance, with a chunk-following split that must fail it),
+and times both launches in CUDA graphs, warm and cold (F flushed from L2;
+the points into fresh memory), beside the replaced kernels, the plain
+versions, the three einsums and the bounds, at K6_TIME_DEGREES' full
+chunks, the slice fit's largest degree-2 and degree-3 chunks and
+K6_SMALL's chunks; [k6 ops] counts a chunk's operations on the card.
+[cold] runs this script twice more as a child (--cold k6, --cold plain)
+that splits a fresh process's first slice build by phase.
 [mesh] times build_mesh and build_bvh. [continuity] splits the
 post-process into face pairs, the face operator, the cross-depth blocks,
 upload and CG (and checks that no same-depth entry was assembled), holds
@@ -204,8 +210,9 @@ of the one-device step's, coefficients within 1e-12); their counts give
 the node-range modes' launches.
 
 Phases, one line each: device, build, ptxas, mesh, P1 vs plain, the slice,
-P1 at the fit batch, K14 at the fit batch, K6 (four lines: checks, times
-at three degrees), the cold builds (a line each), K1 vs plain, times, G vs plain, the reference-default
+P1 at the fit batch, K14 at the fit batch, K6 (checks, invariance, the
+launch, a line a timed chunk, the other degrees), the cold builds (a
+line each), K1 vs plain, times, G vs plain, the reference-default
 fit, K2/K5 vs plain, K3 vs plain (three lines a tree: checks and rays,
 times and bound, serial floor), K4, the render path, K2/K5 at the main
 path's shapes, the degrees, the backward kernels, inverse rendering, the
@@ -316,7 +323,19 @@ K6_RTOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 # the nearness strengths of the seeded checks: 1.5 (not an integer) makes
 # the polynomial weight NaN where fbar > sqrt 3, as in both packages
 K6_STRENGTH = {"NONE": 0.0, "POLYNOMIAL": 1.5, "EXPONENTIAL": 3.0}
-K6_TIME_DEGREES = (2, 5, 11)
+K6_TIME_DEGREES = (2, 3, 4, 5, 8, 11)
+# csrc/fit.cu's kSplit and kCells: the blocks (a cluster) a cell's i-slabs
+# are split over, and the cells a block takes, by degree
+K6_SPLIT = {2: 1, 3: 1, 4: 2, 5: 4, 6: 4, 7: 8, 8: 8, 9: 8, 10: 8, 11: 8}
+K6_CELLS = {2: 4, 3: 2, **{d: 1 for d in range(4, 12)}}
+# the small chunks the reference default's fits take, (degree, cells)
+K6_SMALL = ((3, 6), (5, 48), (4, 134), (2, 48))
+K6_SHIFT = 3                        # cells before the shifted chunk's
+# what [k6] reads between replays to flush L2 (50 MB) of a kernel's inputs
+K6_FLUSH_BYTES = 96 << 20
+# K6's instantiations in ptxas's report: every degree a fit takes, f64, f32
+K6_PTXAS_KEYS = tuple(f"{d}/{t}" for d in range(2, 12)
+                      for t in ("f64", "f32"))
 # the operations on the card a fit chunk's points and projection may take
 K6_LAUNCHES = 2
 COLD_TIMEOUT_S = 180                # a cold-build child, start-up included
@@ -766,18 +785,18 @@ def k6_caught(rows, coeffs, err, label):
     return False
 
 
-def k6_seeded(degree, dt, seed):
-    """A degree's seeded fit chunk on the card at the main path's size
-    (max(1, 2^20 // Q^3) cells): F values uniform in [-1, 1] about a cell
-    offset in [-2.5, 2.5] (so fbar crosses sqrt 3), depths 0..10, and the
-    kept coefficients (C(d-1) of them) the cell's own fit times factors in
-    [0.5, 1.5]. Returns (Fv, depths, prev)."""
+def k6_seeded(degree, dt, seed, m=None):
+    """A degree's seeded fit chunk on the card, of m cells (the main path's
+    full chunk, max(1, 2^20 // Q^3), where not given): F values uniform in
+    [-1, 1] about a cell offset in [-2.5, 2.5] (so fbar crosses sqrt 3),
+    depths 0..10, and the kept coefficients (C(d-1) of them) the cell's own
+    fit times factors in [0.5, 1.5]. Returns (Fv, depths, prev)."""
     from hpsdf_tpu_torch import build as TB
     from hpsdf_tpu_torch import consts
     from hpsdf_tpu_torch.config import NearnessWeighting as NW
 
     Q = 4 * degree + 1
-    m = max(1, TB.BLOCK_PTS // Q ** 3)
+    m = max(1, TB.BLOCK_PTS // Q ** 3) if m is None else m
     rng = np.random.default_rng(seed)
     Fv = torch.as_tensor(rng.uniform(-1.0, 1.0, (m, Q, Q, Q))
                          + rng.uniform(-2.5, 2.5, (m, 1, 1, 1)),
@@ -820,54 +839,357 @@ def k6_bounds(degree, m, pw, es):
     return out
 
 
+def k6_centres(degree, seed, m=None):
+    """Seeded centres in [-0.5, 0.5]^3 (f64) and depths 0..10 on the card
+    for a chunk of m cells (the full chunk where not given)."""
+    from hpsdf_tpu_torch import build as TB
+    from hpsdf_tpu_torch import consts
+
+    m = max(1, TB.BLOCK_PTS // (4 * degree + 1) ** 3) if m is None else m
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.uniform(-0.5, 0.5, (m, 3)), device="cuda"),
+            torch.as_tensor(rng.integers(0, consts.TREE_MAX_DEPTH + 1, m),
+                            dtype=torch.int32, device="cuda"))
+
+
+def k6_ranges(degree, split):
+    """The i-slabs [i0, i1) of each block of a cluster of ``split`` blocks,
+    as csrc/fit.cu gives them: block s takes [s Q // S, (s + 1) Q // S)."""
+    Q = 4 * degree + 1
+    return [(s * Q // split, (s + 1) * Q // split) for s in range(split)]
+
+
+def k6_model(Fv, depths, degree, split):
+    """K6's projection in numpy f64 (no kept coefficients, no nearness
+    weight) with the kernel's split: each cell's i-slabs split as a cluster
+    of ``split`` blocks splits them (``k6_ranges``), each block's partial
+    sums over its slabs in index order, the partials added in rank order;
+    then coeffs = raw cn[depth] half^3 and err the sum of the top degree's
+    squares. Fv (m, Q, Q, Q) and depths (m,) numpy or tensors. Returns
+    (coeffs (m, C), err (m,)) numpy."""
+    from hpsdf_tpu_torch import basis
+
+    F = np.asarray(torch.as_tensor(Fv).cpu(), np.float64)
+    d = np.asarray(torch.as_tensor(depths).cpu(), np.int64)
+    A = basis.quadrature_matrix(degree)                       # (P, Q)
+    idx = basis.basis_indices(degree)                         # (C, 3)
+    G = np.einsum("mijk,rk->mijr", F, A)
+    G = np.einsum("mijr,qj->miqr", G, A)                      # (m, Q, P, P)
+    terms = A.T[None, :, idx[:, 0]] * G[:, :, idx[:, 1], idx[:, 2]]
+    raw = None
+    for i0, i1 in k6_ranges(degree, split):
+        part = terms[:, i0]
+        for i in range(i0 + 1, i1):
+            part = part + terms[:, i]
+        raw = part if raw is None else raw + part
+    half = np.ldexp(1.0, -(d + 1))
+    coeffs = raw * basis.coeff_norms(degree)[d] * (half ** 3)[:, None]
+    err = np.sum(np.where(idx.sum(axis=1) == degree, coeffs ** 2, 0.0),
+                 axis=1)
+    return coeffs, err
+
+
+def k6_rows_differ(a, b):
+    """How many rows of a and b differ in any bit (NaN equal to a NaN of
+    the same bits)."""
+    a, b = torch.as_tensor(a).contiguous(), torch.as_tensor(b).contiguous()
+    it = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return int((a.view(it) != b.to(a.device).view(it)).any(dim=1).sum())
+
+
+def fit_points_reference(c, d, degree):
+    """K6's points as they were before the redesign
+    (csrc/check/fit_reference.cu)."""
+    from hpsdf_tpu_torch import _kernels
+    from hpsdf_tpu_torch import build as TB
+
+    Q = 4 * degree + 1
+    out = torch.empty((c.shape[0] * Q ** 3, 3), dtype=c.dtype,
+                      device=c.device)
+    xj = TB.fit_tables(degree, c.dtype, c.device).xj
+    rc = _kernels.load_check().hpsdf_fit_points_reference(
+        c.data_ptr(), d.data_ptr(), xj.data_ptr(), Q, c.shape[0],
+        int(c.dtype == torch.float64), out.data_ptr(), _kernels.stream_of(c))
+    _kernels.check(_kernels.load(), rc, "fit_points_reference")
+    return out
+
+
+def fit_project_reference(nw, nw_strength, degree, pw, Fv, depths, cn,
+                          prev, out=None):
+    """K6's projection as it was before the redesign
+    (csrc/check/fit_reference.cu): rows [coeffs |
+    err], into ``out`` where given."""
+    from hpsdf_tpu_torch import _kernels, consts
+    from hpsdf_tpu_torch import build as TB
+
+    M, C = Fv.shape[0], consts.coeff_count(degree)
+    if out is None:
+        out = torch.empty((M, C + 1), dtype=Fv.dtype, device=Fv.device)
+    A = TB.fit_tables(degree, Fv.dtype, Fv.device).A
+    rc = _kernels.load_check().hpsdf_fit_project_reference(
+        Fv.data_ptr(), depths.data_ptr(), A.data_ptr(), cn.data_ptr(),
+        prev.data_ptr() if pw else 0, pw, degree, nw.value,
+        float(nw_strength), M, int(Fv.dtype == torch.float64),
+        out.data_ptr(), _kernels.stream_of(Fv))
+    _kernels.check(_kernels.load(), rc, "fit_project_reference")
+    return out
+
+
+def k6_shape(degree, dt):
+    """K6's projection launch at a degree on this card, from the C side
+    (``hpsdf_fit_project_shape``): blocks a cell (the cluster), cells a
+    block, threads, dynamic shared memory in bytes, and the clusters (or
+    blocks, where a cell takes one) the card holds at once."""
+    import ctypes
+    from hpsdf_tpu_torch import _kernels
+
+    buf = (ctypes.c_int64 * 5)()
+    lib = _kernels.load()
+    _kernels.check(lib, lib.hpsdf_fit_project_shape(
+        degree, int(dt == torch.float64), ctypes.addressof(buf)),
+        "fit_project_shape")
+    return dict(zip(("split", "cells", "threads", "smem_bytes", "active"),
+                    map(int, buf)))
+
+
+def graph_ms_fresh(fn, reps):
+    """fn()'s mean device time when every call writes fresh memory: reps
+    calls captured in one CUDA graph with all their results kept, so each
+    call's writes evict earlier calls' dirty lines from L2 and reach device
+    memory while it runs (``graph_ms`` replays one buffer, which L2
+    holds)."""
+    keep = [fn()]
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            keep.append(fn())
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    sync()
+    del keep
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms_flushed(fn, reps, flush):
+    """fn()'s mean device time with L2 flushed before each call: reps
+    (flush, fn) pairs in one CUDA graph less reps flushes alone
+    (``graph_ms`` both)."""
+    return (graph_ms(lambda: (flush(), fn()), reps)
+            - graph_ms(flush, reps))
+
+
+def k6_invariance(seed):
+    """A cell's row does not depend on its chunk: at every degree 2..11,
+    in f64 and f32, the same seeded cells (``k6_seeded``: kept
+    coefficients, polynomial weight) fitted in one full chunk, in chunks of
+    one cell and shifted by K6_SHIFT cells (other cells before them) give
+    the same rows bit for bit. Its teeth, at every degree in f64: the same
+    check fails a projection whose split follows the chunk, the full chunk
+    summed with the kernel's split and the one-cell chunks with twice as
+    many blocks a cell (``k6_model``, from the same per-slab terms).
+    Returns {"cells": cells checked, "mutation_rows": {degree: rows that
+    differ}}."""
+    from hpsdf_tpu_torch import build as TB
+    from hpsdf_tpu_torch import consts
+    from hpsdf_tpu_torch.config import NearnessWeighting as NW
+
+    cells, caught = 0, {}
+    for degree in TB.FIT_DEGREES:
+        C = consts.coeff_count(degree)
+        for dt in (torch.float64, torch.float32):
+            Fv, dv, prev = k6_seeded(degree, dt, seed + degree)
+            m, pw = Fv.shape[0], prev.shape[1]
+            cn = TB.fit_tables(degree, dt, Fv.device).cn
+            args = (NW.POLYNOMIAL, K6_STRENGTH["POLYNOMIAL"], degree, pw)
+            full = TB.fit_project_kernel(*args, Fv, dv, cn, prev)
+            one = torch.empty((m, C + 1), dtype=dt, device=Fv.device)
+            for i in range(m):
+                TB.fit_project_kernel(*args, Fv[i:i + 1], dv[i:i + 1], cn,
+                                      prev[i:i + 1], one[i:i + 1])
+            k = min(K6_SHIFT, m)
+            shifted = TB.fit_project_kernel(
+                *args, torch.cat([Fv[-k:], Fv]), torch.cat([dv[-k:], dv]),
+                cn, torch.cat([prev[-k:], prev]))[k:]
+            for name, rows in (("one-cell chunks", one),
+                               (f"shifted by {k}", shifted)):
+                n = k6_rows_differ(full, rows)
+                check(n == 0, f"K6's rows at degree {degree}, {dt}: {n} of "
+                      f"{m} cells differ between one chunk and {name}")
+            cells += m
+            if dt == torch.float64:
+                a = k6_model(Fv, dv, degree, K6_SPLIT[degree])
+                b = k6_model(Fv, dv, degree, 2 * K6_SPLIT[degree])
+                caught[degree] = k6_rows_differ(
+                    np.concatenate([a[0], a[1][:, None]], axis=1),
+                    np.concatenate([b[0], b[1][:, None]], axis=1))
+    check(all(caught.values()), f"the chunk-invariance check passed a split "
+          f"that follows the chunk: rows that differ {caught}")
+    return {"cells": cells, "mutation_rows": caught}
+
+
+def k6_time(fn_new, fn_ref, cold, reps=30):
+    """A K6 launch and the one it replaced on the same inputs, in CUDA
+    graphs: warm (back to back: the inputs, and the one output buffer,
+    left in L2, as the main path leaves F) and cold (``cold(fn,
+    reps)``)."""
+    return {"ms": graph_ms(fn_new, reps), "cold_ms": cold(fn_new, reps),
+            "reference_ms": graph_ms(fn_ref, reps),
+            "reference_cold_ms": cold(fn_ref, reps)}
+
+
+def k6_times(pts_args, prj_args, flush, plain=True):
+    """K6's two launches at one chunk, beside the replaced kernels, the plain
+    versions (``plain``), the three einsums (in a CUDA graph) and the
+    bounds (``k6_bounds``), each share against the cold time: the
+    projection with F flushed from L2 by ``flush`` before each call
+    (``graph_ms_flushed``), the points writing fresh memory each call, so
+    that their writes reach device memory (``graph_ms_fresh``). pts_args
+    (centres, depths, degree) or None; prj_args ``_fit_impl``'s first
+    eight."""
+    from hpsdf_tpu_torch import build as TB
+    from hpsdf_tpu_torch import consts
+
+    nw, s, degree, pw, Fv, dv, cn, prev = prj_args
+    m = Fv.shape[0]
+    es = Fv.element_size()
+    b = k6_bounds(degree, m, pw, es)
+    out = {"cells": m, "degree": degree, "pw": pw,
+           "dtype": str(Fv.dtype).split(".")[-1]}
+    if pts_args is not None:
+        c, d, _ = pts_args
+        pb = k6_bounds(degree, c.shape[0], 0, c.element_size())["points"]
+        out["points"] = {
+            "cells": c.shape[0],
+            **k6_time(lambda: TB.fit_points_kernel(c, d, degree),
+                      lambda: fit_points_reference(c, d, degree),
+                      lambda fn, reps: graph_ms_fresh(fn, reps + 10)),
+            **pb, "library_ms": None}
+        if plain:
+            out["points"]["plain_ms"] = time_ms(
+                lambda: TB.fit_points_plain(c, d, degree), 5)
+    rows = torch.empty((m, consts.coeff_count(degree) + 1), dtype=Fv.dtype,
+                       device="cuda")
+    A = TB.fit_tables(degree, Fv.dtype, Fv.device).A
+
+    def einsums():
+        T_ = torch.einsum("mijk,pi->mpjk", Fv, A)
+        T_ = torch.einsum("mpjk,qj->mpqk", T_, A)
+        return torch.einsum("mpqk,rk->mpqr", T_, A)
+
+    out["project"] = {
+        "cells": m, **k6_time(lambda: TB.fit_project_kernel(*prj_args, rows),
+                  lambda: fit_project_reference(*prj_args, rows),
+                  lambda fn, reps: graph_ms_flushed(fn, reps, flush)),
+        "library_ms": graph_ms(einsums, 10), **b["project"]}
+    if plain:
+        out["project"]["plain_ms"] = time_ms(
+            lambda: TB.fit_project_plain(*prj_args), 5)
+    for key in ("points", "project"):
+        if key in out:
+            j = out[key]
+            j["share"] = j["bound_ms"] / j["cold_ms"]
+            j["faster"] = (j["ms"] < j["reference_ms"]
+                           and j["cold_ms"] < j["reference_cold_ms"])
+    return out
+
+
+def k6_line(label, t):
+    """A [k6] line: one chunk's times (``k6_times``)."""
+    j = t["project"]
+    text = (f"[k6] {label}: {t['cells']} cells, degree {t['degree']}, pw "
+            f"{t['pw']}, {t['dtype']}: projection {j['ms']:.4f} ms warm / "
+            f"{j['cold_ms']:.4f} L2-flushed (the replaced kernel "
+            f"{j['reference_ms']:.4f} / {j['reference_cold_ms']:.4f}), "
+            f"the three einsums {j['library_ms']:.4f}"
+            + (f", plain {j['plain_ms']:.3f}" if "plain_ms" in j else "")
+            + f", bound {j['bound_ms']:.5f} ({j['bound_by']}; bytes "
+            f"{j['bytes_bound_ms']:.5f}, operations {j['ops_bound_ms']:.5f})"
+            f", {j['share']:.1%} of it flushed")
+    if "points" in t:
+        p = t["points"]
+        text += (f" | points ({p['cells']} cells) {p['ms']:.4f} warm / "
+                 f"{p['cold_ms']:.4f} into fresh memory (the replaced "
+                 f"kernel's "
+                 f"{p['reference_ms']:.4f} / "
+                 f"{p['reference_cold_ms']:.4f})"
+                 + (f", plain {p['plain_ms']:.3f}" if "plain_ms" in p
+                    else "")
+                 + f", bound {p['bound_ms']:.5f} ({p['bound_by']}), "
+                 f"{p['share']:.1%} of it into fresh memory")
+    return text
+
+
 def phase_k6(calls, smi, seed=30):
-    """K6 (csrc/fit.cu) against its plain versions: the points bit for bit
-    at the slice fit's largest chunk (the main path's own call, from the
-    split's ``calls``) and at every degree 2..11 (seeded); the projection
-    on that chunk's F values (the main path's own rows) and on seeded
-    chunks at degrees 2..11 x pw in {0, C(d-1)} x the three weightings, in
-    f64 and f32 (``k6_check``); the check's teeth (one coefficient x (1 +
-    1e-10), the nearness factor dropped, the fbar of the new c_0 in place
-    of the kept prev[0]: each must fail it); then both launches in CUDA
-    graphs at degrees 2, 5 and 11 beside the plain versions, the three
-    einsums alone (the library column) and the bounds. Launches made here
-    are not the main path's."""
+    """K6 (csrc/fit.cu) against its plain versions and the kernels it replaced
+    (csrc/check/fit_reference.cu). The launch's shape at every degree (its
+    split and cells a block as K6_SPLIT and K6_CELLS say, clusters that
+    fit on the card). The points bit for bit the plain version's and PR
+    18's at the slice fit's largest chunk (the main path's own call, from
+    the split's ``calls``) and at every degree 2..11 (seeded), f64 and f32;
+    the projection on that chunk's F values (the main path's own rows) and
+    on seeded chunks at degrees 2..11 x pw in {0, C(d-1)} x the three
+    weightings, in f64 and f32 (``k6_check``), and bit for bit the replaced
+    rows where a cell takes one block (degrees 2 and 3); the check's teeth
+    (one coefficient x (1 + 1e-10), the nearness factor dropped, the fbar
+    of the new c_0 in place of the kept prev[0]: each must fail it); the
+    chunk invariance and its teeth (``k6_invariance``). Then both launches
+    in CUDA graphs, warm and cold (``k6_times``), beside the replaced kernels,
+    the plain versions, the three einsums and the bounds: at
+    K6_TIME_DEGREES' full chunks, at the slice fit's largest degree-2 and
+    degree-3 chunks and at K6_SMALL's seeded chunks; the projection and the
+    einsums alone at the other degrees. Launches made here are not the
+    main path's."""
     from hpsdf_tpu_torch import build as TB
     from hpsdf_tpu_torch import consts
     from hpsdf_tpu_torch.config import NearnessWeighting as NW
 
     counts = (TB.fit_points_kernel.launches, TB.fit_project_kernel.launches)
-    t = {"points": {}, "project": {}, "errs": {}}
+    t = {"errs": {}, "shapes": {}}
+
+    # --- the launch's shape ----------------------------------------------
+    for degree in TB.FIT_DEGREES:
+        for dt in (torch.float64, torch.float32):
+            sh = k6_shape(degree, dt)
+            check(sh["split"] == K6_SPLIT[degree]
+                  and sh["cells"] == K6_CELLS[degree] and sh["active"] > 0,
+                  f"K6's projection at degree {degree}, {dt}: {sh}")
+            t["shapes"][f"{degree}/{str(dt)[-7:]}"] = sh
 
     # --- the slice fit's largest chunk, as the main path ran it ----------
     (c, d, deg), _, pts = calls[("points", "largest")]
     check(torch.equal(pts, TB.fit_points_plain(c, d, deg))
-          and torch.equal(TB.fit_points_kernel(c, d, deg), pts),
+          and torch.equal(TB.fit_points_kernel(c, d, deg), pts)
+          and torch.equal(fit_points_reference(c, d, deg), pts),
           f"K6's points at the slice fit's largest chunk ({c.shape[0]} "
-          f"cells, degree {deg}) differ from the plain version's")
+          f"cells, degree {deg}) differ from the plain version's or PR "
+          f"18's")
     args, _, res = calls[("projection", "largest")]
     nw, s, deg_p, pw, Fv, dp, cn, prev = args[:8]
     coeffs, err = TB.fit_project_plain(nw, s, deg_p, pw, Fv, dp, cn, prev)
     rows = torch.cat([res[0], res[1][:, None]], dim=1)
     t["errs"]["slice"] = k6_check(rows, coeffs, err, "the slice fit's "
                                   "largest chunk")
+    if K6_SPLIT[deg_p] == 1:
+        n = k6_rows_differ(rows, fit_project_reference(*args[:8]))
+        check(n == 0, f"K6's projection at the slice fit's largest chunk: "
+              f"{n} rows differ from the replaced kernel's")
     t["slice_chunk"] = {"cells": Fv.shape[0], "degree": deg_p, "pw": pw,
                         "points_cells": c.shape[0], "points_degree": deg}
 
     # --- seeded chunks at every degree ------------------------------------
     f64_err, f32_err = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
-    teeth = {}
+    teeth, same_as_pr18 = {}, 0
     for degree in TB.FIT_DEGREES:
-        Q = 4 * degree + 1
-        m = max(1, TB.BLOCK_PTS // Q ** 3)
-        rng = np.random.default_rng(seed + degree)
-        cc = torch.as_tensor(rng.uniform(-0.5, 0.5, (m, 3)), device="cuda")
-        dd = torch.as_tensor(rng.integers(0, consts.TREE_MAX_DEPTH + 1, m),
-                             dtype=torch.int32, device="cuda")
+        cc, dd = k6_centres(degree, seed + degree)
         for dt in (torch.float64, torch.float32):
             ct = cc.to(dt)
-            check(torch.equal(TB.fit_points_kernel(ct, dd, degree),
-                              TB.fit_points_plain(ct, dd, degree)),
+            pts = TB.fit_points_kernel(ct, dd, degree)
+            check(torch.equal(pts, TB.fit_points_plain(ct, dd, degree))
+                  and torch.equal(pts, fit_points_reference(ct, dd, degree)),
                   f"K6's points at degree {degree}, {dt}")
             Fv, dv, prev = k6_seeded(degree, dt, seed + 100 + degree)
             cn = TB.fit_tables(degree, dt, Fv.device).cn
@@ -875,79 +1197,125 @@ def phase_k6(calls, smi, seed=30):
                 for name, s in K6_STRENGTH.items():
                     nw = NW[name]
                     p = prev if pw else None
-                    got = TB.fit_project_kernel(nw, s, degree, pw, Fv, dv,
-                                                cn, p)
-                    want = TB.fit_project_plain(nw, s, degree, pw, Fv, dv,
-                                                cn, p)
+                    a8 = (nw, s, degree, pw, Fv, dv, cn, p)
+                    got = TB.fit_project_kernel(*a8)
+                    want = TB.fit_project_plain(*a8)
                     e = k6_check(got, *want, f"degree {degree}, pw {pw}, "
                                  f"{name}, {dt}")
                     acc = f64_err if dt == torch.float64 else f32_err
                     for i in range(3):
                         acc[i] = max(acc[i], e[i])
+                    if K6_SPLIT[degree] == 1:
+                        n = k6_rows_differ(got, fit_project_reference(*a8))
+                        check(n == 0, f"K6's projection at degree {degree},"
+                              f" pw {pw}, {name}, {dt}: {n} rows differ "
+                              f"from the replaced kernel's")
+                        same_as_pr18 += 1
                     if (dt == torch.float64 and degree == 5 and pw
                             and name == "POLYNOMIAL"):
                         teeth = k6_teeth(got, want, degree, Fv, dv, cn, s)
     t["errs"].update(f64=f64_err, f32=f32_err)
     t["teeth"] = teeth
     check(all(teeth.values()), f"K6's check missed a mutation: {teeth}")
+    t["invariance"] = k6_invariance(seed + 400)
+    t["same_as_pr18_cases"] = same_as_pr18
 
     # --- times ---------------------------------------------------------
+    big = torch.ones(K6_FLUSH_BYTES // 8, dtype=torch.float64, device="cuda")
+
+    def flush():
+        big.sum()
+
+    t["full"], t["main"], t["small"], t["einsums_only"] = {}, {}, {}, {}
     for degree in K6_TIME_DEGREES:
-        Q = 4 * degree + 1
-        m = max(1, TB.BLOCK_PTS // Q ** 3)
-        rng = np.random.default_rng(seed + 200 + degree)
-        cc = torch.as_tensor(rng.uniform(-0.5, 0.5, (m, 3)), device="cuda")
-        dd = torch.as_tensor(rng.integers(0, consts.TREE_MAX_DEPTH + 1, m),
-                             dtype=torch.int32, device="cuda")
+        cc, dd = k6_centres(degree, seed + 200 + degree)
         Fv, dv, _ = k6_seeded(degree, torch.float64, seed + 300 + degree)
         cn = TB.fit_tables(degree, torch.float64, Fv.device).cn
+        t["full"][degree] = k6_times(
+            (cc, dd, degree), (NW.NONE, 0.0, degree, 0, Fv, dv, cn, None),
+            flush)
+    for degree in (2, 3):
+        (c, d, _), _, _ = calls[("points", "largest", degree)]
+        args, _, _ = calls[("projection", "largest", degree)]
+        t["main"][degree] = k6_times((c, d, degree), tuple(args[:8]), flush,
+                                     plain=False)
+    for degree, m in K6_SMALL:
+        cc, dd = k6_centres(degree, seed + 500 + degree, m)
+        Fv, dv, _ = k6_seeded(degree, torch.float64, seed + 600 + degree, m)
+        cn = TB.fit_tables(degree, torch.float64, Fv.device).cn
+        t["small"][f"{m}@{degree}"] = k6_times(
+            (cc, dd, degree), (NW.NONE, 0.0, degree, 0, Fv, dv, cn, None),
+            flush, plain=False)
+    for degree in TB.FIT_DEGREES:
+        if degree in K6_TIME_DEGREES:
+            continue
+        Fv, dv, _ = k6_seeded(degree, torch.float64, seed + 700 + degree)
+        cn = TB.fit_tables(degree, torch.float64, Fv.device).cn
         A = TB.fit_tables(degree, torch.float64, Fv.device).A
-        out = torch.empty((m, consts.coeff_count(degree) + 1),
-                          dtype=torch.float64, device="cuda")
+        rows = torch.empty((Fv.shape[0], consts.coeff_count(degree) + 1),
+                           dtype=torch.float64, device="cuda")
 
         def einsums():
             T_ = torch.einsum("mijk,pi->mpjk", Fv, A)
             T_ = torch.einsum("mpjk,qj->mpqk", T_, A)
             return torch.einsum("mpqk,rk->mpqr", T_, A)
 
-        b = k6_bounds(degree, m, 0, 8)
-        t["points"][degree] = {
-            "cells": m, "ms": graph_ms(
-                lambda: TB.fit_points_kernel(cc, dd, degree), 20),
-            "plain_ms": time_ms(lambda: TB.fit_points_plain(cc, dd, degree),
-                                5), **b["points"], "library_ms": None}
-        t["project"][degree] = {
-            "cells": m, "ms": graph_ms(
-                lambda: TB.fit_project_kernel(NW.NONE, 0.0, degree, 0, Fv,
-                                              dv, cn, None, out), 20),
-            "plain_ms": time_ms(lambda: TB.fit_project_plain(
-                NW.NONE, 0.0, degree, 0, Fv, dv, cn, None), 5),
-            "library_ms": time_ms(einsums, 5), **b["project"]}
+        t["einsums_only"][degree] = {
+            "cells": Fv.shape[0],
+            "ms": graph_ms(lambda: TB.fit_project_kernel(
+                NW.NONE, 0.0, degree, 0, Fv, dv, cn, None, rows), 30),
+            "library_ms": graph_ms(einsums, 10)}
+    del big
     TB.fit_points_kernel.launches, TB.fit_project_kernel.launches = counts
-    sc = t["slice_chunk"]
-    print(f"[k6] {smi} | points bit for bit at the slice fit's largest "
-          f"chunk ({sc['points_cells']} cells, degree {sc['points_degree']})"
-          f" and at degrees 2..11 (f64, f32); projection at its largest "
-          f"chunk ({sc['cells']} cells, degree {sc['degree']}, pw "
-          f"{sc['pw']}): coefficients within {t['errs']['slice'][0]:.3e} of"
-          f" their cell's largest, err at {t['errs']['slice'][1]:.3e} of "
-          f"its tolerance; seeded degrees 2..11 x pw x weightings: f64 "
-          f"{f64_err[0]:.3e} / {f64_err[1]:.3e}, f32 {f32_err[0]:.3e} / "
-          f"{f32_err[1]:.3e}; mutations caught {teeth}", flush=True)
-    for degree in K6_TIME_DEGREES:
-        p, j = t["points"][degree], t["project"][degree]
-        print(f"[k6] degree {degree}, {j['cells']} cells, f64: points "
-              f"{p['ms']:.4f} ms in a CUDA graph, plain {p['plain_ms']:.3f} "
-              f"ms, bound {p['bound_ms']:.5f} ms ({p['bound_by']}), "
-              f"{p['bound_ms'] / p['ms']:.1%} of it | projection "
-              f"{j['ms']:.4f} ms in a CUDA graph, plain {j['plain_ms']:.3f} "
-              f"ms, the three einsums {j['library_ms']:.3f} ms, bound "
-              f"{j['bound_ms']:.5f} ms ({j['bound_by']}; bytes "
-              f"{j['bytes_bound_ms']:.5f}, f64 operations "
-              f"{j['ops_bound_ms']:.5f}), {j['bound_ms'] / j['ms']:.1%} of "
-              f"it; {j['cells']} blocks on "
-              f"{torch.cuda.get_device_properties(0).multi_processor_count}"
-              f" SMs", flush=True)
+
+    timed = [*t["full"].values(), *t["main"].values(), *t["small"].values()]
+    t["faster_than_pr18"] = all(x[k]["faster"] for x in timed
+                                for k in ("points", "project"))
+    t["faster_than_einsums"] = all(
+        x["project"]["ms"] < x["project"]["library_ms"]
+        for x in t["full"].values()) and all(
+        x["ms"] < x["library_ms"] for x in t["einsums_only"].values())
+    sc, inv = t["slice_chunk"], t["invariance"]
+    print(f"[k6] {smi} | points bit for bit the plain version's and the "
+          f"replaced kernel's "
+          f"at the slice fit's largest chunk ({sc['points_cells']} cells, "
+          f"degree {sc['points_degree']}) and at degrees 2..11 (f64, f32); "
+          f"projection at its largest chunk ({sc['cells']} cells, degree "
+          f"{sc['degree']}, pw {sc['pw']}): coefficients within "
+          f"{t['errs']['slice'][0]:.3e} of their cell's largest, err at "
+          f"{t['errs']['slice'][1]:.3e} of its tolerance; seeded degrees "
+          f"2..11 x pw x weightings: f64 {f64_err[0]:.3e} / "
+          f"{f64_err[1]:.3e}, f32 {f32_err[0]:.3e} / {f32_err[1]:.3e}; "
+          f"bit for bit the replaced kernel's rows where a cell takes one "
+          f"block "
+          f"({same_as_pr18} seeded cases and the slice's chunk); mutations "
+          f"caught {teeth}", flush=True)
+    print(f"[k6] chunk invariance: {inv['cells']} cells' rows bit for bit in "
+          f"one chunk, in one-cell chunks and shifted by {K6_SHIFT} at "
+          f"degrees 2..11, f64 and f32; a split that follows the chunk "
+          f"(one-cell chunks on twice the blocks, k6_model) changes "
+          f"{inv['mutation_rows']} rows by degree: caught", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print("[k6] launch: " + ", ".join(
+        f"degree {k}: {v['split']} block(s) a cell, {v['cells']} cell(s) a "
+        f"block, {v['smem_bytes']} B, {v['active']} at once"
+        for k, v in t["shapes"].items() if k.endswith("float64"))
+          + f" (f64; {sms} SMs)", flush=True)
+    for degree, x in t["full"].items():
+        print(k6_line(f"full chunk, degree {degree}", x), flush=True)
+    for degree, x in t["main"].items():
+        print(k6_line(f"the slice fit's largest degree-{degree} chunk", x),
+              flush=True)
+    for key, x in t["small"].items():
+        print(k6_line(f"small chunk {key}", x), flush=True)
+    print("[k6] projection / the three einsums at the other degrees (full "
+          "chunks, warm): " + ", ".join(
+              f"degree {k} ({v['cells']} cells) {v['ms']:.4f} / "
+              f"{v['library_ms']:.4f} ms"
+              for k, v in t["einsums_only"].items())
+          + f" | faster than the replaced kernels at every timed chunk: "
+          f"{t['faster_than_pr18']}; projection faster than the einsums at "
+          f"every degree: {t['faster_than_einsums']}", flush=True)
     return t
 
 
@@ -1155,7 +1523,8 @@ def split_build(phases=FIT_PHASES):
     its result is ready), and so is F inside each fit call (``_fit``'s
     first argument). Yields (timer, calls): calls[phase] holds the last
     call's (args, kwargs, result), calls[(phase, "largest")] that of the
-    call whose first tensor argument has the most rows."""
+    call whose first tensor argument has the most rows, and for K6's two
+    phases calls[(phase, "largest", degree)] that of each degree's."""
     from unittest import mock
 
     from hpsdf_tpu_torch import profiling
@@ -1176,6 +1545,11 @@ def split_build(phases=FIT_PHASES):
             if rows >= calls.get((name, "rows"), -1):
                 calls[(name, "rows")] = rows
                 calls[(name, "largest")] = (args, kw, res)
+            if name in ("points", "projection"):       # by degree, args[2]
+                key = (name, "largest", args[2])
+                if rows >= calls.get((name, "rows", args[2]), -1):
+                    calls[(name, "rows", args[2])] = rows
+                    calls[key] = (args, kw, res)
             return res
         return call
 
@@ -5879,9 +6253,7 @@ def _ptxas_key(kernel, args):
         return f"{args[0]}/form{args[1]}"
     if kernel == "cone_kernel":
         return f"{args[0]}/{'lo' if args[1] else 'full'}"
-    if kernel == "fit_points_kernel":
-        return "f64" if args[0] == "d" else "f32"
-    if kernel == "fit_project_kernel":
+    if kernel in ("fit_points_kernel", "fit_project_kernel"):
         return f"{args[0]}/{'f64' if args[1] == 'd' else 'f32'}"
     return str(args[0])   # march, leaf_nodes, coeff_scatter_nodes: degree
 
@@ -5894,9 +6266,9 @@ def ptxas_check():
     in its CSR form), K9u, both forms of the persistent launch, both forms
     of each of the row-sharded CG's two K9u launches, both of K10 and K11,
     K1's node-range descent round and, at degrees 3 and 5, its leaf
-    evaluation and K8's node-range mode, K14, both launches of K13, K6's
-    points and, at degrees 3 and 5 in f64 and f32, K6's projection must
-    have no stack frame and no spills. Returns
+    evaluation and K8's node-range mode, K14, both launches of K13, and
+    both of K6's launches at every degree 2..11 in f64 and f32 must have no
+    stack frame and no spills. Returns
     {kernel: {key: [registers, stack, spill stores, spill loads]}}."""
     from hpsdf_tpu_torch import _kernels
 
@@ -5943,9 +6315,8 @@ def ptxas_check():
             ("K14", "signed_from_best_kernel", ("-",)),
             ("K13 points", "inverse_points_kernel", ("-",)),
             ("K13 terms", "inverse_terms_kernel", ("-",)),
-            ("K6 points", "fit_points_kernel", ("f64", "f32")),
-            ("K6 proj", "fit_project_kernel", ("3/f64", "3/f32", "5/f64",
-                                                "5/f32"))):
+            ("K6 points", "fit_points_kernel", K6_PTXAS_KEYS),
+            ("K6 proj", "fit_project_kernel", K6_PTXAS_KEYS)):
         got = found.get(kernel, {})
         for key in keys:
             check(key in got, f"ptxas report for {name} {key}")
@@ -5988,7 +6359,8 @@ def main():
             job.result()
     print(f"[build] {len(_kernels.sources())} sources -> "
           f"{os.path.relpath(_kernels.library_path())}, and the reference "
-          f"kernels of the K3, K4, K7, G's backward, K8 and K11 checks -> "
+          f"kernels of the K3, K4, K7, G's backward, K8, K11 and K6 checks "
+          f"-> "
           f"{os.path.relpath(_kernels.library_path('check'))}, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 3)
@@ -6373,15 +6745,26 @@ def main():
             for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None, "query_form_ms": tsh["node_modes"]["k8_query_ms"],
          "ptxas": ptxas.get("coeff_scatter_nodes_kernel", {})},
-        # K6 at degree 2's chunk (1,438 cells, the slice's largest); its
-        # times at degrees 2, 5 and 11 under "degrees"
+        # K6 at degree 2's full chunk (1,438 cells, as the slice's
+        # largest), warm; cold, the replaced kernel (csrc/check/
+        # fit_reference.cu) and the other chunks under "chunks"
         *({"name": f"fit_{key}", "route": "cuda",
            "source": "hpsdf_tpu_torch/csrc/fit.cu", "replaces": replaces,
            "launches": total[f"fit_{key}"], "max_abs_err": err,
-           **{k: tk6[key][2][k] for k in (
+           **{k: tk6["full"][2][key][k] for k in (
                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-               "bytes_bound_ms", "ops_bound_ms", "cells")},
-           "degrees": tk6[key], **extra,
+               "bytes_bound_ms", "ops_bound_ms", "cells", "cold_ms",
+               "share")},
+           "replaced_kernel_ms": tk6["full"][2][key]["reference_ms"],
+           "reference": {
+               "source": "hpsdf_tpu_torch/csrc/check/fit_reference.cu",
+               "entry": f"hpsdf_fit_{key}_reference",
+               "ms": tk6["full"][2][key]["reference_ms"],
+               "cold_ms": tk6["full"][2][key]["reference_cold_ms"]},
+           "chunks": {f"{group} {k}": {kk: v for kk, v in x[key].items()}
+                      for group in ("full", "main", "small")
+                      for k, x in tk6[group].items()},
+           **extra, "faster_than_pr18": tk6["faster_than_pr18"],
            "launches_a_chunk": tk6["launches_a_chunk"],
            "plain_launches_a_chunk": tk6["plain_launches_a_chunk"],
            "ptxas": ptxas.get(f"fit_{key}_kernel", {})}
@@ -6392,7 +6775,10 @@ def main():
                max(tk6["errs"]["slice"][2], tk6["errs"]["f64"][2],
                    tk6["errs"]["f32"][2]),
                {"errs": tk6["errs"], "teeth": tk6["teeth"],
-                "slice_chunk": tk6["slice_chunk"]}))),
+                "slice_chunk": tk6["slice_chunk"],
+                "invariance": tk6["invariance"], "shapes": tk6["shapes"],
+                "einsums_only": tk6["einsums_only"],
+                "faster_than_einsums": tk6["faster_than_einsums"]}))),
     ]
     print(f"[e2e] {smi} | carve {tr['carve_s']:.3f} s, render 512^2 "
           f"{tr['render_s']:.3f} s, hit fraction {frac:.4f} | 1024^2 march: "

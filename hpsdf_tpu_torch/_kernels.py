@@ -92,6 +92,7 @@ _SIGNATURES = {
     "hpsdf_fit_points": (_P, _P, _P, _I32, _I64, _I32, _P, _P),
     "hpsdf_fit_project": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _F64, _I64,
                           _I32, _P, _P),
+    "hpsdf_fit_project_shape": (_I32, _I32, _P),
 }
 # entry points that return a size in bytes (int64_t), not an error code
 _SIZE_SIGNATURES = {
@@ -115,6 +116,8 @@ _CHECK_SIGNATURES = {
                              _I64, _P, _I32, _I32, _I32, _P, _F32, _F32,
                              _I32, _P, _P),
     "hpsdf_bvh_walk_reference": _SIGNATURES["hpsdf_bvh_walk"],
+    "hpsdf_fit_points_reference": _SIGNATURES["hpsdf_fit_points"],
+    "hpsdf_fit_project_reference": _SIGNATURES["hpsdf_fit_project"],
 }
 
 _lock = threading.Lock()

@@ -11,7 +11,9 @@ A fit batch is one plain synchronous call: for each chunk of cells kernel
 K6 (csrc/fit.cu) generates the quadrature points on the device
 (``fit_points_kernel``), F is evaluated on them, and K6's second launch
 runs the separable Gauss-Legendre projection with its error and nearness
-weight (``fit_project_kernel``), one row [coeffs | err] a cell; on CPU
+weight (``fit_project_kernel``: a few whole cells a block at degrees 2-3, a
+cell's slabs split over a cluster of 2-8 blocks above, fixed by the
+degree), one row [coeffs | err] a cell; on CPU
 tensors the plain versions (``fit_points_plain``, ``fit_project_plain``:
 three torch einsums) run instead. Chunks bound the points one F call sees
 (``BLOCK_PTS``) for memory only. A fit call copies its centres, depths and
@@ -157,7 +159,8 @@ def _check_fit(what: str, degree: int, x, depths):
 
 def fit_points_kernel(centres, depths, degree: int):
     """K6's points (csrc/fit.cu): ``fit_points_plain`` bit for bit, one
-    launch, on CUDA tensors; raises on anything else."""
+    launch (16-byte stores from each cell's 3Q coordinates), on CUDA
+    tensors; raises on anything else."""
     _check_fit("fit_points_kernel", degree, centres, depths)
     if centres.dim() != 2 or centres.shape[1] != 3:
         raise ValueError(f"fit_points_kernel: centres of shape "
@@ -184,8 +187,9 @@ def fit_project_kernel(nw: NearnessWeighting, nw_strength: float,
                        prev_coeffs, out=None):
     """K6's projection (csrc/fit.cu): ``fit_project_plain``'s coefficients
     and error as rows [coeffs (C) | err] (M, C+1) in Fv's dtype, into
-    ``out`` where given, one launch a block a cell, on CUDA tensors; raises
-    on anything else."""
+    ``out`` where given, one launch, on CUDA tensors; raises on anything
+    else. How a cell's sums are split over blocks depends on the degree
+    alone, so a cell's row does not depend on the chunk that holds it."""
     _check_fit("fit_project_kernel", degree, Fv, depths)
     M, Q, C = Fv.shape[0], basis.fit_rule_size(degree), \
         consts.coeff_count(degree)

@@ -11,7 +11,14 @@ of the batch's largest |c| and errors within 1e-13 relative in f64, both
 within 1e-5 in f32; a polynomial weight whose cell mean passes sqrt 3 (at
 a strength that is not an integer) is NaN in both packages. The kernels
 themselves need nvcc and a card: ``chip_smoke.py``'s [k6] holds them to
-these plain versions."""
+these plain versions. Here a numpy model of the projection kernel's own
+summation order (``chip_smoke.k6_model``: each cell's i-slabs split over
+the blocks of its cluster, partial sums added in rank order) is held to
+hpsdf_tpu's ``_fit_impl`` within the same tolerances, and the split it
+assumes to the kernel's source."""
+
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +32,8 @@ from hpsdf_tpu import build as JBuild
 import hpsdf_tpu_torch as T
 from hpsdf_tpu_torch import build as TB
 from hpsdf_tpu_torch import consts
+
+import chip_smoke
 
 from .test_torch_query import few_torch_threads  # noqa: F401
 
@@ -108,6 +117,53 @@ def test_fit_project_plain_against_jax_f32(degree, name,
     nan = np.isnan(je)
     np.testing.assert_array_equal(np.isnan(te), nan)
     np.testing.assert_allclose(te[~nan], je[~nan], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("degree", list(TB.FIT_DEGREES))
+def test_split_sums_against_jax(degree, few_torch_threads):  # noqa: F811
+    """The projection kernel's summation order (csrc/fit.cu: a cell's
+    i-slabs split evenly over the K6_SPLIT[degree] blocks of a cluster,
+    each block's sum over its slabs in index order, the partial sums added
+    in rank order), modelled in numpy f64 by ``chip_smoke.k6_model``,
+    against hpsdf_tpu's ``_fit_impl``: coefficients within 1e-14 of the
+    batch's largest |c|, errors within 1e-13 relative, as the plain
+    version is held."""
+    Fv, depths, _ = _cells(degree, np.float64, degree)
+    jc, je = JBuild._fit_impl(
+        hp.NearnessWeighting.NONE, 0.0, degree, 0, jnp.asarray(Fv),
+        jnp.asarray(depths), jnp.asarray(JB.coeff_norms(degree)[depths]),
+        jnp.asarray(np.zeros((len(OFFSETS), 0))))
+    split = chip_smoke.K6_SPLIT[degree]
+    mc, me = chip_smoke.k6_model(Fv, depths, degree, split)
+    jc, je = np.asarray(jc), np.asarray(je)
+    assert mc.shape == jc.shape == (len(OFFSETS), consts.coeff_count(degree))
+    np.testing.assert_allclose(mc, jc, rtol=0, atol=1e-14 * np.abs(jc).max())
+    np.testing.assert_allclose(me, je, rtol=1e-13, atol=0)
+    # the split sums differ from one block's in the last bits somewhere:
+    # the model sums what the kernel sums, not the unsplit order
+    if split > 1:
+        one, _ = chip_smoke.k6_model(Fv, depths, degree, 1)
+        assert not np.array_equal(mc, one)
+
+
+def test_split_table_is_the_kernels():
+    """chip_smoke.K6_SPLIT and K6_CELLS, which the model and [k6] take, are
+    csrc/fit.cu's kSplit and kCells; k6_ranges covers a cell's Q slabs
+    once, in S ranges whose sizes differ by one at most."""
+    path = os.path.join(os.path.dirname(TB.__file__), "csrc", "fit.cu")
+    with open(path) as fh:
+        src = fh.read()
+    for name, table in (("kSplit", chip_smoke.K6_SPLIT),
+                        ("kCells", chip_smoke.K6_CELLS)):
+        vals = re.search(name + r"\[12\] = \{([^}]*)\}", src)[1]
+        vals = [int(v) for v in vals.split(",")]
+        assert {d: vals[d] for d in TB.FIT_DEGREES} == table
+    for degree in TB.FIT_DEGREES:
+        ranges = chip_smoke.k6_ranges(degree, chip_smoke.K6_SPLIT[degree])
+        assert ranges[0][0] == 0 and ranges[-1][1] == 4 * degree + 1
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        sizes = [b - a for a, b in ranges]
+        assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
 
 
 def _jax_points(degree, dt):

@@ -204,9 +204,9 @@ def test_lod_tables_stay_with_the_packed_tree(trees):
 
 
 def test_reference_kernel_is_on_no_path():
-    """The kernels K3, K4, K7, G's backward, K8 and K11 replaced are built
-    into a library of their own, which no module of the package loads: only
-    chip_smoke.py does, to hold the shipped kernels to them."""
+    """The kernels K3, K4, K7, G's backward, K8, K11 and K6 replaced are
+    built into a library of their own, which no module of the package
+    loads: only chip_smoke.py does, to hold the shipped kernels to them."""
     import glob
     import os
 
@@ -217,7 +217,7 @@ def test_reference_kernel_is_on_no_path():
     assert "march.cu" in main and check == {
         "march_reference.cu", "packed_grad_reference.cu",
         "row_scatter_reference.cu", "coeff_scatter_reference.cu",
-        "cone_reference.cu", "bvh_walk_reference.cu"}
+        "cone_reference.cu", "bvh_walk_reference.cu", "fit_reference.cu"}
     assert not main & check
     assert _kernels.library_path("check") != _kernels.library_path()
     pkg = os.path.dirname(_kernels.__file__)
@@ -232,3 +232,7 @@ def test_reference_kernel_is_on_no_path():
     with open(os.path.join(pkg, "csrc", "check",
                            "bvh_walk_reference.cu")) as fh:
         assert 'extern "C" int hpsdf_bvh_walk_reference(' in fh.read()
+    with open(os.path.join(pkg, "csrc", "check", "fit_reference.cu")) as fh:
+        text = fh.read()
+    assert 'extern "C" int hpsdf_fit_points_reference(' in text
+    assert 'extern "C" int hpsdf_fit_project_reference(' in text

@@ -256,8 +256,10 @@ def test_ctypes_signatures_match_the_sources():
     bound = {**_kernels._SIGNATURES, **_kernels._SIZE_SIGNATURES,
              **_kernels._CHECK_SIGNATURES}
     assert set(bound) == set(c)
-    assert {"hpsdf_fit_points", "hpsdf_fit_project"} <= set(
-        _kernels._SIGNATURES)
+    assert {"hpsdf_fit_points", "hpsdf_fit_project",
+            "hpsdf_fit_project_shape"} <= set(_kernels._SIGNATURES)
+    assert {"hpsdf_fit_points_reference", "hpsdf_fit_project_reference"} \
+        <= set(_kernels._CHECK_SIGNATURES)
     for name, args in bound.items():
         ret, params = c[name]
         assert list(args) == params, name

@@ -126,14 +126,15 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
 @pytest.mark.parametrize("spill", [None, "K1", "K3", "K7", "G CSR", "K5F",
                                    "K9u", "chunk", "rows", "K10", "K11",
                                    "round", "leaf", "K8 nodes", "K14",
-                                   "K13", "K6"],
+                                   "K13", "K6", "K6 points"],
                          ids=["clean", "spills", "march_spills",
                               "backward_spills", "csr_spills",
                               "fused_spills", "cg_spills", "chunk_spills",
                               "rows_spills", "hybrid_spills", "walk_spills",
                               "node_round_spills", "node_leaf_spills",
                               "node_scatter_spills", "sign_spills",
-                              "inverse_terms_spills", "fit_project_spills"])
+                              "inverse_terms_spills", "fit_project_spills",
+                              "fit_points_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
@@ -143,9 +144,10 @@ def test_ptxas_check(monkeypatch, spill):
     persistent launch, both forms of each of the row-sharded CG's two K9u
     launches), K10 (either level count), K11, K1's node-range descent
     round, its leaf evaluation or K8's node-range mode (at degree 3 or 5),
-    K14 (either index type), either launch of K13, K6's points (f64 or
-    f32) or K6's projection (degree 3 or 5, f64 or f32) has a stack frame
-    or spills."""
+    K14 (either index type), either launch of K13, or either of K6's
+    launches (at any degree 2..11, f64 or f32) has a stack frame or
+    spills; every instantiation of K6's two kernels must be in the
+    report."""
     from hpsdf_tpu_torch import _kernels
 
     report = "".join(
@@ -214,11 +216,13 @@ def test_ptxas_check(monkeypatch, spill):
     report += _ptxas_entry("inverse_terms_kernel", 0, None, args="",
                            regs=40, stack=8 if spill == "K13" else 0)
     for t in "df":
-        report += _ptxas_entry("fit_points_kernel", 0, None, args=t,
-                               regs=19)
-        for d in (3, 5, 11):
+        for d in range(2, 12):
             report += _ptxas_entry(
-                "fit_project_kernel", d, None, regs=32, args=f"Li{d}E{t}",
+                "fit_points_kernel", d, None, regs=27, args=f"Li{d}E{t}",
+                stack=8 if spill == "K6 points" and d == 7 and t == "d"
+                else 0)
+            report += _ptxas_entry(
+                "fit_project_kernel", d, None, regs=46, args=f"Li{d}E{t}",
                 stack=16 if spill == "K6" and d == 5 and t == "f" else 0)
     monkeypatch.setattr(_kernels, "ptxas_report", lambda: report)
     if spill:
@@ -237,7 +241,8 @@ def test_ptxas_check(monkeypatch, spill):
                 "K8 nodes": "K8 nodes 3: stack 16",
                 "K14": "K14 -: stack 8",
                 "K13": "K13 terms -: stack 8",
-                "K6": "K6 proj 5/f32: stack 16"}[spill]):
+                "K6": "K6 proj 5/f32: stack 16",
+                "K6 points": "K6 points 7/f64: stack 8"}[spill]):
             chip_smoke.ptxas_check()
         return
     found = chip_smoke.ptxas_check()
@@ -259,10 +264,11 @@ def test_ptxas_check(monkeypatch, spill):
     assert found["signed_from_best_kernel"] == {"-": [40, 0, 0, 0]}
     assert found["inverse_points_kernel"] == {"-": [32, 0, 0, 0]}
     assert found["inverse_terms_kernel"] == {"-": [40, 0, 0, 0]}
-    assert found["fit_points_kernel"] == {"f64": [19, 0, 0, 0],
-                                          "f32": [19, 0, 0, 0]}
+    assert found["fit_points_kernel"] == {
+        f"{d}/{t}": [27, 0, 0, 0] for d in range(2, 12)
+        for t in ("f64", "f32")}
     assert found["fit_project_kernel"] == {
-        f"{d}/{t}": [32, 0, 0, 0] for d in (3, 5, 11)
+        f"{d}/{t}": [46, 0, 0, 0] for d in range(2, 12)
         for t in ("f64", "f32")}
     for kernel in ("cg_update_rows_kernel", "cg_direction_kernel"):
         assert found[kernel] == {k: [32, 0, 0, 0]
