@@ -128,20 +128,31 @@ again), and holds the kernels' 128^2 losses to the plain versions'.
 K14, the sign on the best triangle (csrc/sign.cu), runs inside every mesh
 F; [k14] holds it to its plain version (the distance within SIGNED_ATOL,
 the sign wherever |d| exceeds it; the points whose sign or feature code
-differ counted) at the slice fit's largest batch and, in [mesh scale], at
-2^20 uniform points on the 1.31M mesh, and times it in a CUDA graph beside
-its plain version, the sign as it was before (G's gather and the torch
-cascade) and its bound; both fit splits show the sign's seconds with K14
-and with the old sign swapped in, and G's launches falling by the sign
-calls. K13, the inverse chunk's loss terms (csrc/inverse_terms.cu: the 7n
-points, then the terms and their VJP with the chunk's loss), is held at a
-1080p chunk ([k13]): the points bit for bit, the loss within K13_LOSS_RTOL
-of the plain version, the cotangents (each times its normaliser) within
-K13_COT_RTOL / K13_COT_ATOL of autograd of the formula fit_to_depth ran
-before it (formula_terms) and within K13_PLAIN_RTOL of the plain
-version's, timed in CUDA graphs beside their bounds, with the operations a
-chunk puts on the card (and a sign call, after it); [inverse] times a step
-with it and with the formula swapped in.
+differ counted) and bit for bit, in distance and feature code, to the
+kernel it replaced (csrc/check/sign_reference.cu) and so its other load
+form (built alone), three wrong results shown to fail that check, at the
+slice fit's largest batch and, in [mesh scale], at 2^20 uniform points on
+the 1.31M mesh and at the 1.31M fit's largest batch on K10's indices; it
+times K14, the replaced kernel and the other form in CUDA graphs, in
+turns, beside its plain version, the sign as it was before K14 (G's
+gather and the torch cascade), its bound on the lanes it needs and the
+32-byte sectors each form touches; both fit splits show the sign's
+seconds with K14 and with the old sign swapped in, and G's launches
+falling by the sign calls. K13, the inverse chunk's loss terms
+(csrc/inverse_terms.cu: the 7n points; the loss forward; its VJP times
+the loss's cotangent backward), is held at a 1080p chunk ([k13]): the
+points bit for bit, the loss deterministic and within K13_LOSS_RTOL of
+the plain version, the VJP at go 1 and at a seeded go bit for bit the
+replaced kernel's cotangents (csrc/check/inverse_terms_reference.cu)
+times go, three wrong VJPs shown to fail that check, the cotangents (each
+times its normaliser) within K13_COT_RTOL / K13_COT_ATOL of autograd of
+the formula fit_to_depth ran before it (formula_terms) and within
+K13_PLAIN_RTOL of the plain version's; the loss, the VJP and the pair
+timed in CUDA graphs beside their bounds, the pair in turns with the
+replaced launch and its three scalings, with the operations a chunk puts
+on the card (and a sign call, after it); [inverse] times a step with it
+and with the formula swapped in, and counts a step's operations on the
+card with it and with the replaced terms (two fewer a chunk).
 
 [mesh scale] runs the mesh -> SDF path at the reference's scale
 (bench.py:416-517): bumpy_sphere(0.3, 8), 1,310,720 triangles, written to
@@ -311,9 +322,16 @@ K13_COT_RTOL, K13_COT_ATOL = 1e-6, 1e-7
 # relative to the tensor's largest entry
 K13_PLAIN_RTOL = 1e-6
 # the operations on the card a chunk's points and terms (forward and
-# backward) may take, and a sign call: the launches themselves and the
-# backward's three scalings
-K13_POINT_LAUNCHES, K13_TERM_LAUNCHES, K14_LAUNCHES = 1, 4, 1
+# backward) may take, and a sign call: the launches themselves (the terms:
+# the loss forward, the VJP backward, which scales by the loss's cotangent
+# itself)
+K13_POINT_LAUNCHES, K13_TERM_LAUNCHES, K14_LAUNCHES = 1, 2, 1
+# the operations on the card of a 1080p inverse step with K13's terms as
+# they were before their redesign (a launch forward, three torch scalings
+# backward), as an H100 run of this script counted them; the redesign cuts
+# 2 a chunk, which [inverse] checks against the replaced terms in the same
+# run
+K13_REPLACED_STEP_OPS = 796
 # K6 against its plain version: each coefficient within K6_RTOL of its
 # cell's largest |c| (the einsums and the kernel sum in other orders); each
 # err within 40 K6_RTOL sqrt(err) max|c| + 10 K6_RTOL err, which follows from
@@ -519,7 +537,8 @@ def phase_p1_fit(rows, table, fit_pts):
 
 K14_OPS = 85            # f32 operations of K14's cascade a point (face)
 K13_POINT_OPS = 47      # f32 operations of K13's first launch a ray
-K13_TERM_OPS = 100      # and of its second
+K13_LOSS_OPS = 64       # of its terms forward (the loss)
+K13_VJP_OPS = 100       # and of its terms backward (the VJP times go)
 
 
 def sign_before(tri_rows, best_idx, p):
@@ -542,15 +561,161 @@ def sign_bytes(idx, pts, feat):
         + 12 * pairs
 
 
+# K14's load forms: csrc/sign.cu's HPSDF_K14_* macros (the whole row
+# before the cascade, or the vertex lanes before it and the feature's
+# pseudo-normal after; points a thread; resident blocks an SM its registers
+# must allow; a grid of one wave of resident blocks striding over the
+# points, or a block for every 128 groups). The source's defaults ship;
+# each other form is built alone and timed beside it and the kernel K14
+# replaced.
+K14_FORMS = {
+    "whole row, 4 points a thread, one wave":
+        dict(WHOLE_ROW=1, PTS=4, MIN_BLOCKS=2, ONE_WAVE=1),
+    "whole row, 2 points a thread, one wave":
+        dict(WHOLE_ROW=1, PTS=2, MIN_BLOCKS=4, ONE_WAVE=1),
+    "whole row, a point a thread, every point's block":
+        dict(WHOLE_ROW=1, PTS=1, MIN_BLOCKS=8, ONE_WAVE=0),
+    "vertex lanes first, 2 points a thread, one wave":
+        dict(WHOLE_ROW=0, PTS=2, MIN_BLOCKS=8, ONE_WAVE=1),
+    "vertex lanes first, a point a thread, one wave":
+        dict(WHOLE_ROW=0, PTS=1, MIN_BLOCKS=8, ONE_WAVE=1),
+    "vertex lanes first, a point a thread, every point's block":
+        dict(WHOLE_ROW=0, PTS=1, MIN_BLOCKS=8, ONE_WAVE=0),
+}
+# the first lane of each feature's pseudo-normal in a packed row (codes
+# 0..5; the face normal, code 6, lies in the vertices' sectors)
+K14_PN_LANES = (12, 15, 18, 21, 24, 27)
+
+
+def k14_shipped_form():
+    """The name of the K14_FORMS entry csrc/sign.cu builds by default."""
+    from hpsdf_tpu_torch import _kernels
+
+    with open(os.path.join(_kernels._CSRC, "sign.cu")) as fh:
+        text = fh.read()
+    form = {k: int(re.search(rf"#define HPSDF_K14_{k} (\d+)", text).group(1))
+            for k in ("WHOLE_ROW", "PTS", "MIN_BLOCKS", "ONE_WAVE")}
+    names = [n for n, f in K14_FORMS.items() if f == form]
+    check(len(names) == 1, f"csrc/sign.cu's default form {form} is not one "
+          "of K14_FORMS")
+    return names[0]
+
+
+@functools.lru_cache(maxsize=None)
+def build_sign_forms():
+    """csrc/sign.cu compiled alone in each form of K14_FORMS it does not
+    ship, all nvcc processes started together, into ctypes libraries
+    beside the kernel library that no path of the package loads; built
+    once. Returns {form: the entry point}."""
+    import ctypes
+
+    from hpsdf_tpu_torch import _kernels
+    os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
+    shipped = k14_shipped_form()
+    jobs = {}
+    for i, (name, form) in enumerate(K14_FORMS.items()):
+        if name == shipped:
+            continue
+        out = os.path.join(_kernels.BUILD_DIR, f"k14_form{i}.so")
+        cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared",
+               *(f"-DHPSDF_K14_{k}={v}" for k, v in form.items()), "-o",
+               out, os.path.join(_kernels._CSRC, "sign.cu")]
+        jobs[name] = (out, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    fns = {}
+    for name, (out, cmd, proc) in jobs.items():
+        so, se = proc.communicate()
+        check(proc.returncode == 0,
+              f"nvcc of a K14 form: {' '.join(cmd)}\n{so}\n{se}")
+        fn = ctypes.CDLL(out).hpsdf_signed_from_best
+        fn.argtypes = _kernels._SIGNATURES["hpsdf_signed_from_best"]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def sign_call(fn, rows, idx, pts, with_feature=True):
+    """A call of a K14 entry point ``fn`` (the check library's reference,
+    or another form's) with the wrapper's arguments, into outputs
+    allocated once (the feature codes only ``with_feature``, as the main
+    path writes none): counted by no launch counter. Returns the call,
+    which returns (distance, feature code or None)."""
+    from hpsdf_tpu_torch import _kernels
+
+    out = (torch.empty(pts.shape[0], dtype=torch.float32, device=pts.device),
+           torch.empty(pts.shape[0], dtype=torch.int8, device=pts.device)
+           if with_feature else None)
+
+    def run():
+        rc = fn(rows.data_ptr(), rows.shape[0], rows.stride(0),
+                idx.data_ptr(), pts.data_ptr(), pts.shape[0],
+                out[0].data_ptr(), 0 if out[1] is None else out[1].data_ptr(),
+                _kernels.stream_of(pts))
+        check(rc == 0, f"K14 form launch: CUDA error {rc}")
+        return out
+    return run
+
+
+def k14_differ(got, want):
+    """(distances whose bits differ, feature codes that differ) between two
+    K14 results (distance, code)."""
+    return (int((got[0].view(torch.int32) != want[0].view(torch.int32))
+                .sum()), int((got[1] != want[1]).sum()))
+
+
+def k14_teeth(got, want):
+    """Three wrong kernels' results, made from K14's own, each of which the
+    bit-for-bit check against ``want`` must fail: one distance an ulp
+    larger, one sign flipped, one feature code changed."""
+    d, code = got
+    ulp, flip, feat = d.clone(), d.clone(), code.clone()
+    ulp[0] = torch.nextafter(d[0], d.new_tensor(math.inf))
+    k = int(torch.nonzero(d != 0)[0]) if bool((d != 0).any()) else 0
+    flip[k] = -d[k]
+    feat[0] = (code[0] + 1) % 7
+    return {name: k14_differ(r, want) != (0, 0)
+            for name, r in (("a distance an ulp off", (ulp, code)),
+                            ("a sign flipped", (flip, code)),
+                            ("a feature code changed", (d, feat)))}
+
+
+def sign_sector_bytes(idx, pts, feat, n_rows, whole_row):
+    """K14's sector bound's bytes: each point, its index and its distance
+    once; each 32-byte sector of a distinct in-range row that the form
+    touches: all four (``whole_row``), or those of the vertex lanes 0..11
+    and of each distinct (row, feature)'s pseudo-normal lanes."""
+    key = idx.long()
+    key = key[(key >= 0) & (key < n_rows)]
+    code = feat.long()[(idx.long() >= 0) & (idx.long() < n_rows)]
+    if whole_row:
+        sectors = 4 * torch.unique(key).numel()
+    else:
+        rows = torch.unique(key)
+        lanes = torch.tensor(K14_PN_LANES + (9,), device=key.device)[code]
+        pn = torch.cat([key * 4 + lanes // 8, key * 4 + (lanes + 2) // 8])
+        base = torch.cat([rows * 4, rows * 4 + 1])
+        sectors = torch.unique(torch.cat([base, pn])).numel()
+    return pts.shape[0] * (12 + idx.element_size() + 4) + 32 * sectors
+
+
 def check_k14(rows, idx, pts, label):
     """K14 against its plain version on the same best indices: the distance
     within SIGNED_ATOL at every point, the sign equal wherever |d| >
     SIGNED_ATOL; the points whose sign or feature code (the plain
-    cascade's, mesh/tri.py) differ are counted. Then K14 in a CUDA graph,
-    its plain version and the sign as it was before K14 (G's gather and
-    the torch cascade) by events, and the bound; a call launches K14 once
-    and G never (the counters). Launches made here are not the main
-    path's."""
+    cascade's, mesh/tri.py) differ are counted. K14 bit for bit the kernel
+    it replaced (csrc/check/sign_reference.cu) in distance and feature
+    code, and so is each other load form (``build_sign_forms``); three
+    wrong results (``k14_teeth``) fail that check. Then K14, the replaced
+    kernel and the other forms in CUDA graphs, each writing the distances
+    alone, in turns (replaced, K14, the forms, then back: each the smaller
+    of its two), K14 with every index out of range and with one row for
+    every point (the stream and launch alone; the cascade with its rows
+    from L1), its plain version
+    and the sign as it was before K14 (G's gather and the torch cascade)
+    by events, and the bound on the lanes, beside the sectors each form
+    touches; a call launches K14 once and G never (the counters). Launches
+    made here are not the main path's."""
+    from hpsdf_tpu_torch import _kernels
     from hpsdf_tpu_torch.accel import row_gather, row_gather_plain
     from hpsdf_tpu_torch.mesh import sdf as TS
     from hpsdf_tpu_torch.mesh import tri as TT
@@ -563,18 +728,60 @@ def check_k14(rows, idx, pts, label):
     err = float((got - want).abs().max())
     flip = torch.signbit(got) != torch.signbit(want)
     clear = want.abs() > SIGNED_ATOL
+    ref_call = sign_call(_kernels.load_check()
+                         .hpsdf_signed_from_best_reference, rows, idx, pts)
+    form_calls = {name: sign_call(fn, rows, idx, pts)
+                  for name, fn in build_sign_forms().items()}
+    ref = tuple(x.clone() for x in ref_call())
+    differ = k14_differ((got, feat), ref)
+    forms_differ = {name: k14_differ(call(), ref)
+                    for name, call in form_calls.items()}
+    teeth = k14_teeth((got, feat), ref)
     t = {"points": pts.shape[0], "max_abs_err": err,
          "sign_differ": int(flip.sum()),
          "sign_differ_beyond_atol": int((flip & clear).sum()),
          "feature_differ": int((feat.long() != feat_p.long()).sum()),
          "features": torch.bincount(feat.long(), minlength=7).tolist(),
-         "bit_for_bit": bool(torch.equal(got, want))}
+         "distinct_rows": int(torch.unique(idx).numel()),
+         "bit_for_bit": bool(torch.equal(got, want)),
+         "bit_for_bit_reference": differ == (0, 0),
+         "forms_bit_for_bit_reference": all(
+             d == (0, 0) for d in forms_differ.values()),
+         "teeth": teeth}
     check(err <= SIGNED_ATOL, f"K14 vs plain at {label}: {err:.3e}")
     check(t["sign_differ_beyond_atol"] == 0, f"K14 vs plain at {label}: "
           f"{t['sign_differ_beyond_atol']} signs differ beyond "
           f"{SIGNED_ATOL}")
+    check(differ == (0, 0) and t["forms_bit_for_bit_reference"],
+          f"K14 vs the kernel it replaced at {label}: (distances, codes) "
+          f"differing {differ}, the other forms' {forms_differ}")
+    check(all(teeth.values()), f"K14's check missed a mutation: {teeth}")
+
+    # the times: every kernel writes the distances alone, as on the main
+    # path
+    order = [("reference", sign_call(_kernels.load_check()
+                                     .hpsdf_signed_from_best_reference,
+                                     rows, idx, pts, False)),
+             ("shipped", lambda: TS.signed_from_best_kernel(rows, idx, pts)),
+             *((name, sign_call(fn, rows, idx, pts, False))
+               for name, fn in build_sign_forms().items())]
+    turns = {name: [] for name, _ in order}
+    for name, fn in order + order[::-1]:
+        turns[name].append(graph_ms(fn, 20))
+    form = k14_shipped_form()
+    t.update(ms=min(turns["shipped"]), reference_ms=min(turns["reference"]),
+             form=form, forms_ms={name: min(turns[name])
+                                  for name in form_calls})
+    # where the time goes: the same points with every index out of range
+    # (no row read, the cascade on a zero triangle: the points' stream and
+    # the launch) and with one row for every point (the cascade on every
+    # point, its row from L1)
+    none, first = torch.full_like(idx, -1), torch.zeros_like(idx)
+    t.update(no_rows_ms=graph_ms(
+        lambda: TS.signed_from_best_kernel(rows, none, pts), 20),
+        one_row_ms=graph_ms(
+            lambda: TS.signed_from_best_kernel(rows, first, pts), 20))
     t.update(
-        ms=graph_ms(lambda: TS.signed_from_best_kernel(rows, idx, pts), 20),
         plain_ms=time_ms(lambda: TS.signed_from_best_plain(rows, idx, pts),
                          3),
         before_ms=time_ms(lambda: sign_before(rows, idx, pts), 3))
@@ -587,21 +794,37 @@ def check_k14(rows, idx, pts, label):
           f"{t['g_launches_a_call']} times")
     by_bytes = sign_bytes(idx, pts, feat) / HBM_RATE * 1e3
     by_ops = pts.shape[0] * K14_OPS / F32_PEAK * 1e3
+    by_sectors = {w: sign_sector_bytes(idx, pts, feat, rows.shape[0], w)
+                  / HBM_RATE * 1e3 for w in (0, 1)}
     t.update(bytes_bound_ms=by_bytes, ops_bound_ms=by_ops,
              bound_ms=max(by_bytes, by_ops),
              bound_by="bytes" if by_bytes >= by_ops else "operations",
-             library_ms=None)
+             sector_bound_ms=by_sectors[K14_FORMS[form]["WHOLE_ROW"]],
+             sector_bound_ms_whole_row=by_sectors[1],
+             sector_bound_ms_vertex_first=by_sectors[0], library_ms=None)
     TS.signed_from_best_kernel.launches, row_gather.launches = counts
-    print(f"[k14] {label}: {t['points']} points, max|K14 - plain| "
+    print(f"[k14] {label}: {t['points']} points on {t['distinct_rows']} "
+          f"distinct rows, max|K14 - plain| "
           f"{err:.3e} (bit for bit: {t['bit_for_bit']}), {t['sign_differ']} "
           f"signs differ ({t['sign_differ_beyond_atol']} beyond "
           f"{SIGNED_ATOL}), {t['feature_differ']} feature codes differ, "
-          f"features {t['features']} | K14 {t['ms']:.4f} ms in a CUDA graph,"
-          f" plain {t['plain_ms']:.3f} ms, before K14 (G + torch) "
-          f"{t['before_ms']:.3f} ms; a call launches K14 once and G never;"
-          f" bound {t['bound_ms']:.5f} ms ({t['bound_by']}; bytes "
-          f"{by_bytes:.5f}, operations {by_ops:.5f}), "
-          f"{t['bound_ms'] / t['ms']:.1%} of it", flush=True)
+          f"features {t['features']}; bit for bit the kernel it replaced in "
+          f"distance and code, and so is every other form; mutations caught "
+          f"{teeth} | K14 ({form}) {t['ms']:.4f} ms in a CUDA graph (turns "
+          f"{turns['shipped']}), the kernel it replaced "
+          f"{t['reference_ms']:.4f} ({turns['reference']}), the other forms "
+          f"{ {n: [round(v, 5) for v in turns[n]] for n in form_calls} }; "
+          f"with no row read {t['no_rows_ms']:.4f} ms, with one row for "
+          f"every point {t['one_row_ms']:.4f}; plain {t['plain_ms']:.3f} ms, "
+          f"before K14 (G + torch) {t['before_ms']:.3f} ms; a call launches "
+          f"K14 once and G never; bound {t['bound_ms']:.5f} ms "
+          f"({t['bound_by']}; lanes' bytes {by_bytes:.5f}, operations "
+          f"{by_ops:.5f}), {t['bound_ms'] / t['ms']:.1%} of it (the "
+          f"replaced kernel {t['bound_ms'] / t['reference_ms']:.1%}); "
+          f"sector bound {t['sector_bound_ms']:.5f} ms "
+          f"({t['sector_bound_ms'] / t['ms']:.1%}; the whole row's "
+          f"{t['sector_bound_ms_whole_row']:.5f}, the vertex lanes first "
+          f"{t['sector_bound_ms_vertex_first']:.5f})", flush=True)
     return t
 
 
@@ -1453,8 +1676,9 @@ def counters():
     from hpsdf_tpu_torch.continuity import (_chunk_launch, cg_direction,
                                             cg_matvec, cg_matvec_rows,
                                             cg_update, cg_update_rows)
-    from hpsdf_tpu_torch.inverse import (inverse_points_kernel,
-                                         inverse_terms_kernel)
+    from hpsdf_tpu_torch.inverse import (inverse_loss_kernel,
+                                         inverse_points_kernel,
+                                         inverse_vjp_kernel)
     from hpsdf_tpu_torch.mesh import (closest_bvh, closest_tri_tiles,
                                       hybrid_closest,
                                       signed_from_best_kernel)
@@ -1487,7 +1711,8 @@ def counters():
             "cg_direction": (cg_direction, "launches"),
             "signed_from_best": (signed_from_best_kernel, "launches"),
             "inverse_points": (inverse_points_kernel, "launches"),
-            "inverse_terms": (inverse_terms_kernel, "launches"),
+            "inverse_loss": (inverse_loss_kernel, "launches"),
+            "inverse_vjp": (inverse_vjp_kernel, "launches"),
             "fit_points": (fit_points_kernel, "launches"),
             "fit_project": (fit_project_kernel, "launches")}
 
@@ -3591,57 +3816,129 @@ def device_busy_ms(fn, keep=()):
             [entry(e) for e in ev if any(k in e.key for k in keep)])
 
 
-def k13_terms_check(args, scratch, label):
-    """K13's second launch on ``args`` (chunk_terms_plain's) against its
-    plain version and autograd of formula_terms, as check_k13 holds it.
-    Returns ((loss, df, dg, dt), the plain loss, the loss's relative
-    error, the cotangents' errors)."""
+def k13_reference(args, scratch=None):
+    """K13's terms as they were before their redesign (csrc/check/
+    inverse_terms_reference.cu: one launch writing the loss and the
+    cotangents), called as their wrapper called them, into outputs
+    allocated once and ``scratch`` (zeroed, a word a ray at least: the
+    ticket and a partial a block; None makes one): counted by no launch
+    counter. Returns the call, which returns (loss, df, dg, dt)."""
+    from hpsdf_tpu_torch import _kernels
+
+    f, g, th, hit, t, tt, dn, surf_n, *weights = args
+    n = t.shape[0]
+    out = (torch.empty((), dtype=torch.float32, device=f.device),
+           torch.empty_like(f), torch.empty_like(g), torch.empty_like(t))
+    if scratch is None:
+        scratch = torch.zeros(1 + n, dtype=torch.float32, device=f.device)
+
+    def run():
+        rc = _kernels.load_check().hpsdf_inverse_terms_reference(
+            f.data_ptr(), g.data_ptr(), th.data_ptr(), hit.data_ptr(),
+            t.data_ptr(), tt.data_ptr(), n, surf_n.data_ptr(),
+            dn.data_ptr(), *(float(np.float32(w)) for w in weights),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            out[3].data_ptr(), scratch.data_ptr(), _kernels.stream_of(f))
+        check(rc == 0, f"K13 reference launch: CUDA error {rc}")
+        return out
+    return run
+
+
+def k13_vjp_differ(got, ref, go):
+    """The entries of (df, dg, dt) whose bits differ from the replaced
+    kernel's cotangents ``ref`` times go (torch's df * go on the card)."""
+    return sum(int((a.view(torch.int32) != (b * go).view(torch.int32)).sum())
+               for a, b in zip(got, ref))
+
+
+def k13_teeth(got, ref, go):
+    """Three wrong VJPs, made from K13's own at ``go`` (not 1), each of
+    which the bit-for-bit check must fail: one dg entry an ulp off, dt not
+    scaled by go (the go = 1 cotangent), one nonzero df entry's sign
+    flipped."""
+    df, dg, dt = got
+    ulp, flip = dg.clone(), df.clone()
+    ulp.view(-1)[0] = torch.nextafter(dg.view(-1)[0],
+                                      dg.new_tensor(math.inf))
+    k = int(torch.nonzero(df)[0])
+    flip[k] = -df[k]
+    return {name: k13_vjp_differ(r, ref, go) > 0
+            for name, r in (("a dg entry an ulp off", (df, ulp, dt)),
+                            ("dt not times go", (df, dg, ref[2])),
+                            ("a df sign flipped", (flip, dg, dt)))}
+
+
+def k13_terms_check(args, scratch, go, label):
+    """K13's terms on ``args`` (chunk_terms_plain's): the loss forward twice
+    (bit for bit: deterministic) and within K13_LOSS_RTOL of the plain
+    version's; the VJP at go = 1 and at ``go`` bit for bit the replaced
+    kernel's cotangents times go (k13_vjp_differ), and three wrong VJPs
+    caught (k13_teeth); the cotangents, each times its normaliser, within
+    K13_COT_RTOL / K13_COT_ATOL of autograd of formula_terms and within
+    K13_PLAIN_RTOL of the plain version's. Returns ((loss, df, dg, dt), the
+    plain loss, the loss's relative error, the cotangents' errors, the
+    mutations caught, the replaced kernel's loss's relative error)."""
     from hpsdf_tpu_torch import inverse as I
 
     f, g, th, hit, t, tt, dn, surf_n, *weights = args
-    out = I.inverse_terms_kernel(*args, scratch=scratch)
-    again = I.inverse_terms_kernel(*args, scratch=scratch)
+    loss = I.inverse_loss_kernel(*args, scratch=scratch)
+    again = I.inverse_loss_kernel(*args, scratch=scratch)
+    df, dg, dt = I.inverse_vjp_kernel(*args)
+    out = (loss, df, dg, dt)
+    ref = [x.clone() for x in k13_reference(args)()]
     plain = I.chunk_terms_plain(*args)
     leaves = [x.detach().clone().requires_grad_(True) for x in (f, g, t)]
     want = torch.autograd.grad(formula_terms(
         leaves[0], leaves[1], th, hit, leaves[2], tt, dn, surf_n, *weights),
         leaves)
-    loss, loss_p = float(out[0]), float(plain[0])
-    loss_rel = abs(loss - loss_p) / abs(loss_p)
-    check(loss_rel <= K13_LOSS_RTOL, f"K13 loss at {label} {loss} vs plain "
-          f"{loss_p}: {loss_rel:.3e}")
-    check(all(torch.equal(a, b) for a, b in zip(out, again)),
-          f"K13's second launch is not deterministic at {label}")
+    loss_f, loss_p = float(loss), float(plain[0])
+    loss_rel = abs(loss_f - loss_p) / abs(loss_p)
+    ref_rel = abs(float(ref[0]) - loss_p) / abs(loss_p)
+    check(loss_rel <= K13_LOSS_RTOL, f"K13 loss at {label} {loss_f} vs "
+          f"plain {loss_p}: {loss_rel:.3e}")
+    check(torch.equal(loss.view(torch.int32), again.view(torch.int32)),
+          f"K13's loss launch is not deterministic at {label}")
+    one = torch.ones((), device=f.device)
+    differ = {"go 1": k13_vjp_differ((df, dg, dt), ref[1:], one),
+              "go tensor 1": k13_vjp_differ(
+                  I.inverse_vjp_kernel(*args, go=one), ref[1:], one),
+              f"go {float(go)!r}": k13_vjp_differ(
+                  I.inverse_vjp_kernel(*args, go=go), ref[1:], go)}
+    check(not any(differ.values()), f"K13's VJP vs the replaced kernel's "
+          f"cotangents times go at {label}: entries differing {differ}")
+    teeth = k13_teeth(I.inverse_vjp_kernel(*args, go=go), ref[1:], go)
+    check(all(teeth.values()), f"K13's check missed a mutation: {teeth}")
     cot = {}
-    for name, got, ref, pl, norm in zip(("df", "dg", "dt"), out[1:], want,
-                                        plain[1:], (surf_n, surf_n, dn)):
-        cot[name] = {"max_abs_err": float((got - ref).abs().max()),
-                     "max_abs": float(ref.abs().max()),
+    for name, got, r, pl, norm in zip(("df", "dg", "dt"), out[1:], want,
+                                      plain[1:], (surf_n, surf_n, dn)):
+        cot[name] = {"max_abs_err": float((got - r).abs().max()),
+                     "max_abs": float(r.abs().max()),
                      "max_abs_err_plain": float((got - pl).abs().max()),
                      "bit_for_bit_plain": bool(torch.equal(got, pl))}
-        check(torch.allclose(got * norm, ref * norm, rtol=K13_COT_RTOL,
+        check(torch.allclose(got * norm, r * norm, rtol=K13_COT_RTOL,
                              atol=K13_COT_ATOL),
               f"K13 {name} at {label} vs autograd of the formula: "
               f"{cot[name]}")
         check(torch.allclose(got, pl, rtol=K13_PLAIN_RTOL,
                              atol=K13_PLAIN_RTOL * float(pl.abs().max())),
               f"K13 {name} at {label} vs its plain version: {cot[name]}")
-    return out, loss_p, loss_rel, cot
+    return out, loss_p, loss_rel, cot, teeth, ref_rel
 
 
 def check_k13(s, smi, weights=(1.0, 0.1, 0.1)):
     """K13 at one 1080p chunk (the middle one, 2^16 rays, marched on the
-    initial tree as the first step marches it): the first launch bit for
-    bit its plain version; the second's loss within K13_LOSS_RTOL of its
-    plain version's and bit for bit its own on a second launch; its (df,
-    dg, dt), each times its normaliser, within K13_COT_RTOL / K13_COT_ATOL
-    of autograd of formula_terms, and within K13_PLAIN_RTOL of the plain
-    version's (elementwise and of its largest entry); the second launch
-    also on seeded values and gradients at the chunk's masks. Both launches
-    timed in CUDA graphs beside their plain versions and bounds; a chunk
-    launches each once (the counters), and the operations a chunk's points
-    and terms put on the card, forward and backward, by torch.profiler (at
-    most K13_POINT_LAUNCHES and K13_TERM_LAUNCHES) beside the torch ops'.
+    initial tree as the first step marches it): the points bit for bit
+    their plain version; the terms by k13_terms_check at the chunk's
+    values, at a seeded go, and on seeded values and gradients at the
+    chunk's masks. Timed in CUDA graphs: the points, the loss and the VJP
+    alone, and the pair (the loss, then the VJP at go, the launches a
+    chunk's forward and backward make) in turns with the replaced form
+    (its launch and the three torch scalings by go that its backward made:
+    replaced, pair, pair, replaced; each the smaller of its two), beside
+    their plain versions and bounds; a chunk launches each kernel once (the
+    counters), and the operations a chunk's points and terms put on the
+    card, forward and backward, by torch.profiler (at most
+    K13_POINT_LAUNCHES and K13_TERM_LAUNCHES) beside the torch ops'.
     Launches made here are not the main path's."""
     from hpsdf_tpu_torch import accel as A
     from hpsdf_tpu_torch import inverse as I
@@ -3652,8 +3949,8 @@ def check_k13(s, smi, weights=(1.0, 0.1, 0.1)):
     tt, th, dn = c["tt"], c["th"], c["dn"]
     surf_n = torch.clamp(s["hit_star"].sum().to(torch.float32), min=1.0)
     n = o.shape[0]
-    counts = (I.inverse_points_kernel.launches,
-              I.inverse_terms_kernel.launches)
+    counts = (I.inverse_points_kernel.launches, I.inverse_loss_kernel.launches,
+              I.inverse_vjp_kernel.launches)
     pts = I.inverse_points_kernel(o, d, tt)
     pts_p = I.inverse_points_plain(o, d, tt)
     check(torch.equal(pts, pts_p), f"K13 points vs plain: "
@@ -3662,17 +3959,18 @@ def check_k13(s, smi, weights=(1.0, 0.1, 0.1)):
     f, g = A.values_and_gradient_at(pk, pts, 3 * n)
     args = (f, g, th, hit, t, tt, dn, surf_n, *weights)
     scratch = I.inverse_terms_scratch(n, f.device)
-    (loss, df, dg, dt), loss_p, loss_rel, cot = k13_terms_check(
-        args, scratch, "a 1080p chunk")
+    rng = np.random.default_rng(0)
+    go = torch.tensor(np.float32(rng.uniform(0.25, 4.0)), device=f.device)
+    (loss, df, dg, dt), loss_p, loss_rel, cot, teeth, ref_rel = \
+        k13_terms_check(args, scratch, go, "a 1080p chunk")
     # the same rays with seeded values about the band and gradients about
     # unit norm, where every term is live (the chunk's free-space points
     # mostly lie outside the band, and its |g| near 1)
-    rng = np.random.default_rng(0)
     seeded = tuple(torch.as_tensor(x, device=f.device) for x in (
         rng.uniform(-0.03, 0.03, 7 * n).astype(np.float32),
         (rng.normal(size=(3 * n, 3)) * 0.6).astype(np.float32)))
-    *_, rel_s, cot_s = k13_terms_check(seeded + args[2:], scratch,
-                                       "seeded values")
+    _, _, rel_s, cot_s, teeth_s, ref_rel_s = k13_terms_check(
+        seeded + args[2:], scratch, go, "seeded values")
     leaves = [x.detach().clone().requires_grad_(True) for x in (f, g, t)]
     one = torch.ones((), device=f.device)
 
@@ -3685,31 +3983,60 @@ def check_k13(s, smi, weights=(1.0, 0.1, 0.1)):
         return I._ChunkTerms.apply(f_, g_, t_, th_, hit_, rest[0], rest[1],
                                    rest[2], tuple(rest[3:]), scratch)
 
-    t_ = {"rays": n, "loss_rel_err": loss_rel, "cotangents": cot,
+    ref = k13_reference(args)
+
+    def replaced():
+        _, rdf, rdg, rdt = ref()
+        return rdf * go, rdg * go, rdt * go
+
+    def pair():
+        return (I.inverse_loss_kernel(*args, scratch=scratch),
+                I.inverse_vjp_kernel(*args, go=go))
+    turns = {"replaced_pair_ms": [], "pair_ms": []}
+    for key, fn in (("replaced_pair_ms", replaced), ("pair_ms", pair),
+                    ("pair_ms", pair), ("replaced_pair_ms", replaced)):
+        turns[key].append(graph_ms(fn, 20))
+    t_ = {"rays": n, "loss_rel_err": loss_rel,
+          "loss_abs_err": abs(float(loss) - loss_p), "cotangents": cot,
+          "replaced_loss_rel_err": ref_rel, "teeth": teeth,
           "seeded_loss_rel_err": rel_s, "seeded_cotangents": cot_s,
+          "seeded_replaced_loss_rel_err": ref_rel_s,
+          "seeded_teeth": teeth_s, "go": float(go),
+          "vjp_bit_for_bit_replaced_times_go": True,
           "points_bit_for_bit": True,
+          **{k: min(v) for k, v in turns.items()},
           "points_ms": graph_ms(lambda: I.inverse_points_kernel(o, d, tt),
                                 20),
           "points_plain_ms": time_ms(
               lambda: I.inverse_points_plain(o, d, tt), 5),
-          "terms_ms": graph_ms(lambda: I.inverse_terms_kernel(
+          "loss_ms": graph_ms(lambda: I.inverse_loss_kernel(
               *args, scratch=scratch), 20),
-          "terms_plain_ms": time_ms(lambda: I.chunk_terms_plain(*args), 5),
+          "loss_plain_ms": time_ms(lambda: I.chunk_terms_plain(*args), 5),
+          "vjp_ms": graph_ms(lambda: I.inverse_vjp_kernel(*args, go=go),
+                             20),
+          "vjp_plain_ms": time_ms(
+              lambda: I.chunk_terms_vjp_plain(*args, go), 5),
+          "replaced_ms": graph_ms(ref, 20),
           "points_ops": device_ops(lambda: I.inverse_points(o, d, tt)),
           "terms_ops": device_ops(terms_grad(k13_terms)),
           "formula_points_ops": device_ops(
               lambda: I.inverse_points_plain(o, d, tt)),
           "formula_terms_ops": device_ops(terms_grad(formula_terms))}
-    k0 = (I.inverse_points_kernel.launches, I.inverse_terms_kernel.launches)
+    k0 = (I.inverse_points_kernel.launches, I.inverse_loss_kernel.launches,
+          I.inverse_vjp_kernel.launches)
     terms_grad(k13_terms)()
     I.inverse_points(o, d, tt)
     check((I.inverse_points_kernel.launches - k0[0],
-           I.inverse_terms_kernel.launches - k0[1]) == (1, 1),
-          "a chunk's points and terms did not launch K13 once each")
+           I.inverse_loss_kernel.launches - k0[1],
+           I.inverse_vjp_kernel.launches - k0[2]) == (1, 1, 1),
+          "a chunk's points, loss and VJP did not launch K13 once each")
+    inputs = bytes_ms(f, g, th, hit, t, tt, dn, surf_n)
     for key, bts, ops in (
             ("points", bytes_ms(o, d, tt, pts), n * K13_POINT_OPS),
-            ("terms", bytes_ms(f, g, th, hit, t, tt, dn, surf_n, loss, df,
-                               dg, dt), n * K13_TERM_OPS)):
+            ("loss", inputs + bytes_ms(loss), n * K13_LOSS_OPS),
+            ("vjp", inputs + bytes_ms(go, df, dg, dt), n * K13_VJP_OPS),
+            ("pair", 2 * inputs + bytes_ms(loss, go, df, dg, dt),
+             n * (K13_LOSS_OPS + K13_VJP_OPS))):
         by_ops = ops / F32_PEAK * 1e3
         t_[f"{key}_bytes_bound_ms"], t_[f"{key}_ops_bound_ms"] = bts, by_ops
         t_[f"{key}_bound_ms"] = max(bts, by_ops)
@@ -3718,24 +4045,37 @@ def check_k13(s, smi, weights=(1.0, 0.1, 0.1)):
           and 1 <= t_["terms_ops"] <= K13_TERM_LAUNCHES,
           f"K13 puts {t_['points_ops']} + {t_['terms_ops']} operations on "
           f"the card a chunk (at most {K13_POINT_LAUNCHES} + "
-          f"{K13_TERM_LAUNCHES}: the points' launch; the terms' launch and "
-          "three scalings)")
-    I.inverse_points_kernel.launches, I.inverse_terms_kernel.launches = counts
+          f"{K13_TERM_LAUNCHES}: the points' launch; the loss's launch and "
+          "the VJP's)")
+    (I.inverse_points_kernel.launches, I.inverse_loss_kernel.launches,
+     I.inverse_vjp_kernel.launches) = counts
     print(f"[k13] a 1080p chunk ({n} rays, {int(th.sum())} target hits): "
           f"points bit for bit plain; loss {float(loss):.8g} vs plain "
-          f"{loss_p:.8g} ({loss_rel:.3e}), deterministic; "
-          f"cotangents vs autograd of the formula and the plain version "
-          f"{cot}; on seeded values, loss {rel_s:.3e}, {cot_s} | {smi} | "
-          f"points "
+          f"{loss_p:.8g} ({loss_rel:.3e}; the replaced kernel's "
+          f"{ref_rel:.3e}), deterministic; the VJP at go 1 and at go "
+          f"{float(go)!r} bit for bit the replaced kernel's cotangents "
+          f"times go, mutations caught {teeth}; cotangents vs autograd of "
+          f"the formula and the plain version {cot}; on seeded values, loss "
+          f"{rel_s:.3e} (replaced {ref_rel_s:.3e}), {cot_s}, mutations "
+          f"caught {teeth_s} | {smi} | points "
           f"{t_['points_ms']:.4f} ms in a CUDA graph (plain "
           f"{t_['points_plain_ms']:.3f}), bound {t_['points_bound_ms']:.5f} "
           f"ms ({t_['points_bound_by']}), "
-          f"{t_['points_bound_ms'] / t_['points_ms']:.1%} of it; terms "
-          f"{t_['terms_ms']:.4f} ms (plain {t_['terms_plain_ms']:.3f}), bound"
-          f" {t_['terms_bound_ms']:.5f} ms ({t_['terms_bound_by']}), "
-          f"{t_['terms_bound_ms'] / t_['terms_ms']:.1%} of it | operations "
-          f"on the card a chunk: points {t_['points_ops']}, terms forward "
-          f"and backward {t_['terms_ops']}; the torch ops' "
+          f"{t_['points_bound_ms'] / t_['points_ms']:.1%} of it | terms: the"
+          f" pair (loss, then VJP at go) {t_['pair_ms']:.4f} ms (turns "
+          f"{turns['pair_ms']}), the replaced launch and three scalings "
+          f"{t_['replaced_pair_ms']:.4f} ({turns['replaced_pair_ms']}), "
+          f"the replaced launch alone {t_['replaced_ms']:.4f}; pair bound "
+          f"{t_['pair_bound_ms']:.5f} ms ({t_['pair_bound_by']}), "
+          f"{t_['pair_bound_ms'] / t_['pair_ms']:.1%} of it; the loss alone"
+          f" {t_['loss_ms']:.4f} ms (plain {t_['loss_plain_ms']:.3f}), "
+          f"bound {t_['loss_bound_ms']:.5f}, "
+          f"{t_['loss_bound_ms'] / t_['loss_ms']:.1%}; the VJP alone "
+          f"{t_['vjp_ms']:.4f} ms (plain {t_['vjp_plain_ms']:.3f}), bound "
+          f"{t_['vjp_bound_ms']:.5f}, "
+          f"{t_['vjp_bound_ms'] / t_['vjp_ms']:.1%} | operations on the "
+          f"card a chunk: points {t_['points_ops']}, terms forward and "
+          f"backward {t_['terms_ops']}; the torch ops' "
           f"{t_['formula_points_ops']} + {t_['formula_terms_ops']}",
           flush=True)
     return t_
@@ -3770,6 +4110,28 @@ def phase_k14_ops(rows, table, fit_pts, t):
           f"{t['before_launches_a_call']}", flush=True)
 
 
+def replaced_chunk_terms(scratch):
+    """inverse._ChunkTerms as it was before K13's terms were redesigned:
+    the replaced kernel (``k13_reference`` with ``scratch``) writes the
+    loss and the cotangents in the forward, the backward scales them by
+    the loss's cotangent in three torch launches."""
+
+    class ReplacedChunkTerms(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, f, g, t, th, hit, tt, dn, surf_n, weights,
+                    _scratch=None):
+            loss, df, dg, dt = k13_reference(
+                (f, g, th, hit, t, tt, dn, surf_n, *weights), scratch)()
+            ctx.save_for_backward(df, dg, dt)
+            return loss
+
+        @staticmethod
+        def backward(ctx, go):
+            df, dg, dt = ctx.saved_tensors
+            return (df * go, dg * go, dt * go) + (None,) * 7
+    return ReplacedChunkTerms
+
+
 def step_ops(fit):
     """The operations one more step puts on the card: a two-step run's
     less a one-step run's (set-up and the last copies cancel)."""
@@ -3789,8 +4151,9 @@ def phase_inverse(s, s_small, smi):
     gradient again, to set their device time in a step beside the earlier
     forms'; and the warm seconds, device busy ms and operations a step
     (``step_ops``) with K13 and with the chunk's loss as it ran before K13
-    (``formula_chunk_loss`` swapped in). Returns (launches, the
-    numbers)."""
+    (``formula_chunk_loss`` swapped in); and a step's operations with K13's
+    terms as they were before their redesign (``replaced_chunk_terms``),
+    two more a chunk. Returns (launches, the numbers)."""
     from unittest import mock
     from hpsdf_tpu_torch import accel as A
     from hpsdf_tpu_torch import inverse as I
@@ -3814,7 +4177,8 @@ def phase_inverse(s, s_small, smi):
     check(bool(torch.isfinite(losses).all()), f"1080p losses {losses}")
     for k in ("march", "packed_eval", "packed_eval_fused", "packed_grad",
               "row_gather", "row_scatter", "row_scatter_csr",
-              "coeff_scatter", "inverse_points", "inverse_terms"):
+              "coeff_scatter", "inverse_points", "inverse_loss",
+              "inverse_vjp"):
         check(launches[k] > 0, f"{k} never launched by fit_to_depth")
     check(launches["packed_eval_raw"] == 0, f"fit_to_depth launched K5's "
           f"raw gradient on its own {launches['packed_eval_raw']} times")
@@ -3837,6 +4201,17 @@ def phase_inverse(s, s_small, smi):
         formula_step_s = (time.perf_counter() - t1) / INV_STEPS
         formula_busy, formula_top, _ = device_busy_ms(lambda: fit(s, 1), ())
         formula_ops_step = step_ops(lambda n: fit(s, n))
+    # the same step with K13's terms as they were before their redesign
+    # (ReplacedChunkTerms: the replaced kernel forward, three torch
+    # scalings backward): the redesign saves 2 operations a chunk
+    chunks_a_step = -(-s["o"].shape[0] // (1 << 16))
+    with mock.patch.object(I, "_ChunkTerms", replaced_chunk_terms(
+            torch.zeros(1 + (1 << 16), device=s["o"].device))):
+        replaced_ops_step = step_ops(lambda n: fit(s, n))
+    check(replaced_ops_step - ops_step == 2 * chunks_a_step,
+          f"operations on the card a step: {ops_step}, with K13's terms as "
+          f"before their redesign {replaced_ops_step}; the redesign saves "
+          f"2 a chunk, {2 * chunks_a_step} a step")
     with mock.patch.object(A, "packed_grad_kernel", packed_grad_reference), \
             mock.patch.object(A, "row_scatter",
                               lambda d_out, idx, n, csr=None:
@@ -3863,9 +4238,13 @@ def phase_inverse(s, s_small, smi):
             mock.patch.object(R, "trace_vjp", R.trace_vjp_plain), \
             mock.patch.object(I, "inverse_points_kernel",
                               I.inverse_points_plain), \
-            mock.patch.object(I, "inverse_terms_kernel",
+            mock.patch.object(I, "inverse_loss_kernel",
                               lambda *args, scratch=None:
-                              I.chunk_terms_plain(*args)):
+                              I.chunk_terms_plain(*args)[0]), \
+            mock.patch.object(I, "inverse_vjp_kernel",
+                              lambda *args, go=None:
+                              I.chunk_terms_vjp_plain(
+                                  *args, 1.0 if go is None else go)):
         plain = fit(s_small, INV_STEPS).losses.cpu()
     plain_launches = sum(read_counts().values())
     check(plain_launches == 0, f"the plain run launched {plain_launches} "
@@ -3886,7 +4265,10 @@ def phase_inverse(s, s_small, smi):
            "formula_step_s": formula_step_s,
            "formula_profiled_step_device_ms": formula_busy,
            "formula_profiled_step_top": formula_top,
-           "formula_device_ops_a_step": formula_ops_step}
+           "formula_device_ops_a_step": formula_ops_step,
+           "replaced_terms_device_ops_a_step": replaced_ops_step,
+           "replaced_terms_recorded_device_ops_a_step":
+           K13_REPLACED_STEP_OPS}
     print(f"[inverse] {INV_SIZE[0]}x{INV_SIZE[1]} rays, sphere r = 0.27 "
           f"towards 0.3 ({s['init'].n_nodes} nodes): {INV_STEPS} steps, "
           f"losses {[f'{v:.6g}' for v in out['losses']]} | {smi} | warm "
@@ -3895,7 +4277,10 @@ def phase_inverse(s, s_small, smi):
           f"K8, K2/K5 and zero-fills {mine_ms}; with the kernels they "
           f"replaced (K2 and K5's raw gradient in two launches): device busy"
           f" {busy_ref} ms, {replaced}; operations on the card a step "
-          f"{ops_step} | with the chunk's loss as before K13 (torch ops and "
+          f"{ops_step} (with K13's terms as before their redesign "
+          f"{K13_REPLACED_STEP_OPS} recorded, {replaced_ops_step} in this "
+          f"run) | with "
+          f"the chunk's loss as before K13 (torch ops and "
           f"autograd): warm {formula_step_s:.4f} s a step, device busy "
           f"{formula_busy} ms, by kernel {formula_top}, operations on the "
           f"card a step {formula_ops_step} | depth RMSE "
@@ -5326,6 +5711,15 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, seed=21):
     fb_work = fb_stats.double().mean(dim=0).tolist()
     del fb_blocks, fb_stats
 
+    # --- K14 at the fit's largest batch, on K10's best indices ---
+    count = TS.hybrid_closest.launches
+    _, idx_fb, _ = TS.hybrid_closest(lo, hi, bvh.node_rows, verts, fit_pts)
+    TS.hybrid_closest.launches = count
+    k14_fb = check_k14(bvh.tri_rows, idx_fb, fit_pts,
+                       f"the 1.31M fit's largest batch ({fit_pts.shape[0]} "
+                       "points)")
+    del idx_fb
+
     # --- times: K10 split by stage; K10 and P1
     # at 32k, 82k and 1.31M; K11 capped and exact; plain versions once ---
     split_ms = time_hybrid(bvh, pts, forms)
@@ -5424,7 +5818,7 @@ def phase_mesh_scale(cfg, bvh_ico, smi, slice_pts, seed=21):
             "heaps": {"max_abs_err": heaps_err,
                       "min_visits_equal_share": heaps_same},
             "signed_exact_max_abs_err": walk_err},
-        "k14": k14}
+        "k14": k14, "k14_fit_batch": k14_fb}
     return total, entries
 
 
@@ -6227,15 +6621,21 @@ PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
                  "cg_direction_kernel", "hybrid_kernel", "bvh_walk_kernel",
                  "descend_nodes_kernel", "leaf_nodes_kernel",
                  "coeff_scatter_nodes_kernel", "signed_from_best_kernel",
-                 "inverse_points_kernel", "inverse_terms_kernel",
+                 "inverse_points_kernel", "inverse_loss_kernel",
+                 "inverse_vjp_kernel",
                  "fit_points_kernel", "fit_project_kernel")
+# the check library's kernels the ptxas check reads (csrc/check/)
+CHECK_PTXAS_KERNELS = ("signed_from_best_reference_kernel",
+                       "inverse_terms_reference_kernel")
 
 
 def _ptxas_key(kernel, args):
     """The report's key for one instantiation, from its template arguments
     (ints, bools and the value type, in order)."""
-    if not args:        # row_scatter(_csr), bvh_walk, descend_nodes, K13,
-        return "-"      # K14
+    if not args:        # row_scatter(_csr), bvh_walk, descend_nodes, K13
+        return "-"
+    if kernel == "signed_from_best_kernel":     # K14's offsets
+        return {"i": "int32", "l": "int64"}[args[0]]
     if kernel == "hybrid_kernel":
         return "two levels" if args[0] else "one level"
     if kernel in ("cg_update_kernel", "cg_update_rows_kernel",
@@ -6266,23 +6666,28 @@ def ptxas_check():
     in its CSR form), K9u, both forms of the persistent launch, both forms
     of each of the row-sharded CG's two K9u launches, both of K10 and K11,
     K1's node-range descent round and, at degrees 3 and 5, its leaf
-    evaluation and K8's node-range mode, K14, both launches of K13, and
-    both of K6's launches at every degree 2..11 in f64 and f32 must have no
-    stack frame and no spills. Returns
+    evaluation and K8's node-range mode, K14, the three launches of K13,
+    and both of K6's launches at every degree 2..11 in f64 and f32 must
+    have no stack frame and no spills; so must the check library's forms
+    of K14 and K13's terms before their redesign (CHECK_PTXAS_KERNELS), the
+    references the redesigned kernels are held and timed against. Returns
     {kernel: {key: [registers, stack, spill stores, spill loads]}}."""
     from hpsdf_tpu_torch import _kernels
 
-    text = _kernels.ptxas_report()
     found = {}
     within = r"(?:(?!Compiling entry).)*?"      # inside one entry's report
-    for m in re.finditer(
-            r"Compiling entry function '(\S+)'" + within
-            + r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-            r"(\d+) bytes spill loads" + within + r"Used (\d+) registers",
-            text, flags=re.S):
-        k = re.search(r"(" + "|".join(PTXAS_KERNELS)
-                      + r")(?:I((?:L[a-z]\d+E|[a-z])+)E)?", m.group(1))
-        if k:
+    for text, kernels in ((_kernels.ptxas_report(), PTXAS_KERNELS),
+                          (_kernels.ptxas_report("check"),
+                           CHECK_PTXAS_KERNELS)):
+        for m in re.finditer(
+                r"Compiling entry function '(\S+)'" + within
+                + r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                r"(\d+) bytes spill loads" + within
+                + r"Used (\d+) registers", text, flags=re.S):
+            k = re.search(r"(" + "|".join(kernels)
+                          + r")(?:I((?:L[a-z]\d+E|[a-z])+)E)?", m.group(1))
+            if not k:
+                continue
             args = [int(v) if v else t for v, t in
                     re.findall(r"L[a-z](\d+)E|([a-z])", k.group(2) or "")]
             found.setdefault(k.group(1), {})[_ptxas_key(k.group(1), args)] \
@@ -6312,18 +6717,23 @@ def ptxas_check():
             ("K1 node round", "descend_nodes_kernel", ("-",)),
             ("K1 node leaf", "leaf_nodes_kernel", ("3", "5")),
             ("K8 nodes", "coeff_scatter_nodes_kernel", ("3", "5")),
-            ("K14", "signed_from_best_kernel", ("-",)),
+            ("K14", "signed_from_best_kernel", ("int32", "int64")),
             ("K13 points", "inverse_points_kernel", ("-",)),
-            ("K13 terms", "inverse_terms_kernel", ("-",)),
+            ("K13 loss", "inverse_loss_kernel", ("-",)),
+            ("K13 vjp", "inverse_vjp_kernel", ("-",)),
             ("K6 points", "fit_points_kernel", K6_PTXAS_KEYS),
-            ("K6 proj", "fit_project_kernel", K6_PTXAS_KEYS)):
+            ("K6 proj", "fit_project_kernel", K6_PTXAS_KEYS),
+            ("K14 reference", "signed_from_best_reference_kernel", ("-",)),
+            ("K13 terms reference", "inverse_terms_reference_kernel",
+             ("-",))):
         got = found.get(kernel, {})
         for key in keys:
             check(key in got, f"ptxas report for {name} {key}")
             check(got[key][1:] == [0, 0, 0], f"{name} {key}: stack "
                   f"{got[key][1]} B, spills {got[key][2:]}")
     print(f"[ptxas] registers / stack / spill stores / spill loads (bytes): "
-          + " | ".join(f"{k} {found.get(k, {})}" for k in PTXAS_KERNELS),
+          + " | ".join(f"{k} {found.get(k, {})}"
+                       for k in PTXAS_KERNELS + CHECK_PTXAS_KERNELS),
           flush=True)
     return found
 
@@ -6353,15 +6763,17 @@ def main():
 
     # --- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:       # both libraries together
+    with ThreadPoolExecutor(3) as pool:       # every library together
         for job in [pool.submit(_kernels.load),
-                    pool.submit(_kernels.load_check)]:
+                    pool.submit(_kernels.load_check),
+                    pool.submit(build_sign_forms)]:
             job.result()
     print(f"[build] {len(_kernels.sources())} sources -> "
-          f"{os.path.relpath(_kernels.library_path())}, and the reference "
-          f"kernels of the K3, K4, K7, G's backward, K8, K11 and K6 checks "
-          f"-> "
-          f"{os.path.relpath(_kernels.library_path('check'))}, in "
+          f"{os.path.relpath(_kernels.library_path())}, the reference "
+          f"kernels of the K3, K4, K7, G's backward, K8, K11, K6, K14 and "
+          f"K13 checks -> "
+          f"{os.path.relpath(_kernels.library_path('check'))}, and K14's "
+          f"other forms ({len(K14_FORMS) - 1}), in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 3)
     ptxas = ptxas_check()
@@ -6707,14 +7119,25 @@ def main():
          "source": "hpsdf_tpu_torch/csrc/sign.cu",
          "replaces": "hpsdf_tpu/mesh/sdf.py:61",
          "launches": total["signed_from_best"],
-         "max_abs_err": max(tk14["max_abs_err"], tm["k14"]["max_abs_err"]),
+         "max_abs_err": max(tk14["max_abs_err"], tm["k14"]["max_abs_err"],
+                            tm["k14_fit_batch"]["max_abs_err"]),
          **{k: tk14[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "bytes_bound_ms",
                                  "ops_bound_ms", "before_ms", "points",
                                  "sign_differ", "feature_differ",
                                  "launches_a_call",
-                                 "before_launches_a_call")},
+                                 "before_launches_a_call",
+                                 "sector_bound_ms", "form", "forms_ms",
+                                 "sector_bound_ms_whole_row",
+                                 "sector_bound_ms_vertex_first", "teeth",
+                                 "no_rows_ms", "one_row_ms")},
+         "replaced_kernel_ms": tk14["reference_ms"],
+         "reference": {"source": "hpsdf_tpu_torch/csrc/check/"
+                                 "sign_reference.cu",
+                       "entry": "hpsdf_signed_from_best_reference",
+                       "ms": tk14["reference_ms"]},
          "mesh_1p31m_uniform": tm["k14"],
+         "mesh_1p31m_fit_batch": tm["k14_fit_batch"],
          "ptxas": ptxas.get("signed_from_best_kernel", {})},
         *({"name": f"inverse_{key}", "route": "cuda",
            "source": "hpsdf_tpu_torch/csrc/inverse_terms.cu",
@@ -6724,16 +7147,37 @@ def main():
            "plain_ms": tk13[f"{key}_plain_ms"],
            **{k: tk13[f"{key}_{k}"] for k in (
                "bound_ms", "bound_by", "bytes_bound_ms", "ops_bound_ms")},
-           "library_ms": None, "rays": tk13["rays"],
-           "launches_a_chunk": tk13[f"{key}_ops"],
-           "formula_launches_a_chunk": tk13[f"formula_{key}_ops"], **extra,
+           "library_ms": None, "rays": tk13["rays"], **extra,
            "ptxas": ptxas.get(f"inverse_{key}_kernel", {})}
           for key, err, extra in (
-              ("points", 0.0, {"bit_for_bit": True}),
-              ("terms", max(v["max_abs_err"]
-                            for v in tk13["cotangents"].values()),
+              ("points", 0.0, {"bit_for_bit": True,
+                               "launches_a_chunk": tk13["points_ops"],
+                               "formula_launches_a_chunk":
+                               tk13["formula_points_ops"]}),
+              ("loss", tk13["loss_abs_err"],
                {"loss_rel_err": tk13["loss_rel_err"],
-                "cotangents": tk13["cotangents"]}))),
+                             "seeded_loss_rel_err":
+                             tk13["seeded_loss_rel_err"],
+                             "replaced_loss_rel_err":
+                             tk13["replaced_loss_rel_err"]}),
+              ("vjp", max(v["max_abs_err"]
+                          for v in tk13["cotangents"].values()),
+               {"cotangents": tk13["cotangents"],
+                "bit_for_bit_replaced_times_go": True, "go": tk13["go"],
+                "teeth": tk13["teeth"], "seeded_teeth": tk13["seeded_teeth"],
+                "replaced_kernel_ms": tk13["replaced_ms"],
+                "reference": {"source": "hpsdf_tpu_torch/csrc/check/"
+                                        "inverse_terms_reference.cu",
+                              "entry": "hpsdf_inverse_terms_reference",
+                              "ms": tk13["replaced_ms"]},
+                **{f"pair_{k}": tk13[f"pair_{k}"] for k in (
+                    "bound_ms", "bound_by", "bytes_bound_ms",
+                    "ops_bound_ms")},
+                "pair_ms": tk13["pair_ms"],
+                "replaced_pair_ms": tk13["replaced_pair_ms"],
+                "terms_launches_a_chunk": tk13["terms_ops"],
+                "formula_terms_launches_a_chunk":
+                tk13["formula_terms_ops"]}))),
         {"name": "coeff_scatter_nodes", "route": "cuda",
          "source": "hpsdf_tpu_torch/csrc/coeff_scatter.cu",
          "replaces": "hpsdf_tpu/query.py:70-88",

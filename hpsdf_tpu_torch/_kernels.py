@@ -55,8 +55,10 @@ _SIGNATURES = {
     "hpsdf_row_gather": (_P, _I64, _I64, _I64, _P, _I64, _P, _P),
     "hpsdf_signed_from_best": (_P, _I64, _I64, _P, _P, _I64, _P, _P, _P),
     "hpsdf_inverse_points": (_P, _P, _P, _I64, _P, _P),
-    "hpsdf_inverse_terms": (_P, _P, _P, _P, _P, _P, _I64, _P, _P, _F32,
-                            _F32, _F32, _P, _P, _P, _P, _P, _P),
+    "hpsdf_inverse_loss": (_P, _P, _P, _P, _P, _P, _I64, _P, _P, _F32,
+                           _F32, _F32, _P, _P, _P),
+    "hpsdf_inverse_vjp": (_P, _P, _P, _P, _P, _P, _I64, _P, _P, _F32, _F32,
+                          _F32, _P, _P, _P, _P, _P),
     "hpsdf_packed_eval": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
                           _F32, _F32, _F32, _F32, _F32, _F32,
                           _F32, _F32, _F32, _I32, _I32, _P, _P, _I64, _P),
@@ -118,6 +120,10 @@ _CHECK_SIGNATURES = {
     "hpsdf_bvh_walk_reference": _SIGNATURES["hpsdf_bvh_walk"],
     "hpsdf_fit_points_reference": _SIGNATURES["hpsdf_fit_points"],
     "hpsdf_fit_project_reference": _SIGNATURES["hpsdf_fit_project"],
+    "hpsdf_signed_from_best_reference": _SIGNATURES["hpsdf_signed_from_best"],
+    "hpsdf_inverse_terms_reference": (_P, _P, _P, _P, _P, _P, _I64, _P, _P,
+                                      _F32, _F32, _F32, _P, _P, _P, _P, _P,
+                                      _P),
 }
 
 _lock = threading.Lock()

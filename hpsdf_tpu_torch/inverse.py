@@ -10,9 +10,10 @@ re-derived from the current coefficients every step (``accel.repack`` /
 backward) with ``accel.values_and_gradient_at``: the values (K2) and the
 eikonal term's raw gradients (K5) in one launch a chunk, backward K7's two
 forms. A chunk's target points and its loss terms with their VJP are
-kernel K13 on CUDA tensors (csrc/inverse_terms.cu: ``inverse_points_kernel``
-and ``inverse_terms_kernel``, a launch each), their plain versions
-``inverse_points_plain`` and ``chunk_terms_plain`` on CPU tensors. Adam is
+kernel K13 on CUDA tensors (csrc/inverse_terms.cu: ``inverse_points_kernel``,
+then ``inverse_loss_kernel`` in the forward and ``inverse_vjp_kernel`` in the
+backward, a launch each), their plain versions ``inverse_points_plain``,
+``chunk_terms_plain`` and ``chunk_terms_vjp_plain`` on CPU tensors. Adam is
 ``torch.optim.Adam`` with optax's defaults.
 
 Memory stays chunk-sized: a step first marches every ray chunk without a
@@ -210,9 +211,9 @@ def chunk_loss(pk, o, d, tt, th, t, hit, dn, surf_n, surface_weight,
     """A chunk's loss (hpsdf_tpu inverse.py chunk_field with the depth term
     normalised by ``dn``): its 7n target points (``inverse_points``), one
     read of the values there and of the band points' gradients
-    (``accel.values_and_gradient_at``), then the terms and their VJP
-    (``chunk_terms``, ``scratch`` as there). Differentiable with respect to
-    ``pk``'s tables and ``t``."""
+    (``accel.values_and_gradient_at``), then the terms (``_ChunkTerms``:
+    the loss, its VJP in the backward; ``scratch`` as ``inverse_loss_kernel``
+    takes it). Differentiable with respect to ``pk``'s tables and ``t``."""
     n = o.shape[0]
     f, g = accel.values_and_gradient_at(pk, inverse_points(o, d, tt), 3 * n)
     return _ChunkTerms.apply(f, g, t, th, hit, tt, dn, surf_n,
@@ -313,8 +314,19 @@ def chunk_terms_plain(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
     return loss, df, dg, dt
 
 
+def chunk_terms_vjp_plain(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
+                          eikonal_weight, depth_weight, go=1.0):
+    """The VJP of a chunk's loss, whatever the device: chunk_terms_plain's
+    (df, dg, dt), each times go (the loss's cotangent: a number or a 0-d
+    tensor, taken as f32) as torch's df * go rounds it."""
+    go = torch.as_tensor(go, dtype=torch.float32, device=f.device)
+    return tuple(x * go for x in chunk_terms_plain(
+        f, g, th, hit, t, tt, dn, surf_n, surface_weight, eikonal_weight,
+        depth_weight)[1:])
+
+
 def inverse_terms_scratch(n, device):
-    """Zeroed scratch for ``inverse_terms_kernel`` on chunks of up to ``n``
+    """Zeroed scratch for ``inverse_loss_kernel`` on chunks of up to ``n``
     rays: a ticket and a partial sum a block, which every launch leaves
     zeroed. Launches in order on one stream may share it; launches in flight
     at once each need their own."""
@@ -322,30 +334,40 @@ def inverse_terms_scratch(n, device):
                        dtype=torch.float32, device=device)
 
 
-def inverse_terms_kernel(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
-                         eikonal_weight, depth_weight, scratch=None):
-    """K13's second launch (csrc/inverse_terms.cu): ``chunk_terms_plain``
-    on CUDA tensors, the loss summed in a fixed order in the same launch.
-    dn and surf_n stay on the card: nothing is read back. ``scratch``:
-    ``inverse_terms_scratch`` for at least these rays; None makes one (a
-    zero-fill on the card beside the launch)."""
+def _terms_args(f, g, th, hit, t, tt, dn, surf_n, what):
+    """The terms launches' checks: the arrays on one CUDA device in the
+    shapes and types the kernels take, f32 and contiguous."""
     _check_rays(f, g, th, hit, t, tt, dn, surf_n)
     if f.device.type != "cuda":
-        raise ValueError(f"inverse_terms_kernel: tensors on {f.device}, not "
-                         "a CUDA device")
+        raise ValueError(f"{what}: tensors on {f.device}, not a CUDA device")
     n = t.shape[0]
     if f.shape != (7 * n,) or g.shape != (3 * n, 3) \
             or th.shape != (n,) or hit.shape != (n,) or tt.shape != (n,) \
             or th.dtype != torch.bool or hit.dtype != torch.bool:
-        raise ValueError(f"inverse_terms_kernel: f {tuple(f.shape)}, g "
-                         f"{tuple(g.shape)}, th {th.dtype} "
-                         f"{tuple(th.shape)}, hit {hit.dtype} "
-                         f"{tuple(hit.shape)}, tt {tuple(tt.shape)} for "
-                         f"{n} rays")
+        raise ValueError(f"{what}: f {tuple(f.shape)}, g {tuple(g.shape)}, "
+                         f"th {th.dtype} {tuple(th.shape)}, hit {hit.dtype} "
+                         f"{tuple(hit.shape)}, tt {tuple(tt.shape)} for {n} "
+                         "rays")
     f, g, t, tt, dn, surf_n = (x.to(torch.float32).contiguous()
                                for x in (f, g, t, tt, dn, surf_n))
-    th, hit = th.contiguous(), hit.contiguous()
-    df, dg, dt = torch.empty_like(f), torch.empty_like(g), torch.empty_like(t)
+    return f, g, th.contiguous(), hit.contiguous(), t, tt, dn, surf_n
+
+
+def _weights(surface_weight, eikonal_weight, depth_weight):
+    return tuple(float(np.float32(w)) for w in (surface_weight,
+                                                eikonal_weight, depth_weight))
+
+
+def inverse_loss_kernel(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
+                        eikonal_weight, depth_weight, scratch=None):
+    """K13's terms forward (csrc/inverse_terms.cu): the loss of
+    ``chunk_terms_plain`` on CUDA tensors, summed in a fixed order in the
+    same launch. dn and surf_n stay on the card: nothing is read back.
+    ``scratch``: ``inverse_terms_scratch`` for at least these rays; None
+    makes one (a zero-fill on the card beside the launch)."""
+    f, g, th, hit, t, tt, dn, surf_n = _terms_args(
+        f, g, th, hit, t, tt, dn, surf_n, "inverse_loss_kernel")
+    n = t.shape[0]
     loss = torch.empty((), dtype=torch.float32, device=f.device)
     lib = _kernels.load()
     if scratch is None:
@@ -353,51 +375,105 @@ def inverse_terms_kernel(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
     if scratch.dtype != torch.float32 or not scratch.is_contiguous() \
             or scratch.device != f.device \
             or scratch.numel() < lib.hpsdf_inverse_terms_scratch(n):
-        raise ValueError(f"inverse_terms_kernel: scratch {scratch.dtype} "
+        raise ValueError(f"inverse_loss_kernel: scratch {scratch.dtype} "
                          f"{tuple(scratch.shape)} on {scratch.device} for "
                          f"{n} rays on {f.device}")
-    _kernels.check(lib, lib.hpsdf_inverse_terms(
+    _kernels.check(lib, lib.hpsdf_inverse_loss(
         f.data_ptr(), g.data_ptr(), th.data_ptr(), hit.data_ptr(),
         t.data_ptr(), tt.data_ptr(), n, surf_n.data_ptr(), dn.data_ptr(),
-        float(np.float32(surface_weight)), float(np.float32(eikonal_weight)),
-        float(np.float32(depth_weight)), loss.data_ptr(), df.data_ptr(),
-        dg.data_ptr(), dt.data_ptr(), scratch.data_ptr(),
-        _kernels.stream_of(f)), "inverse_terms")
-    inverse_terms_kernel.launches += 1
-    return loss, df, dg, dt
+        *_weights(surface_weight, eikonal_weight, depth_weight),
+        loss.data_ptr(), scratch.data_ptr(), _kernels.stream_of(f)),
+        "inverse_loss")
+    inverse_loss_kernel.launches += 1
+    return loss
 
 
-inverse_terms_kernel.launches = 0
+inverse_loss_kernel.launches = 0
+
+
+def inverse_vjp_kernel(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
+                       eikonal_weight, depth_weight, go=None):
+    """K13's terms backward (csrc/inverse_terms.cu): ``chunk_terms_vjp_plain``
+    bit for bit on CUDA tensors, (df, dg, dt) in one launch. ``go``: the
+    loss's cotangent, a 0-d f32 tensor on the card (read there: no sync),
+    or None for 1."""
+    f, g, th, hit, t, tt, dn, surf_n = _terms_args(
+        f, g, th, hit, t, tt, dn, surf_n, "inverse_vjp_kernel")
+    if go is not None:
+        if go.numel() != 1 or go.device != f.device:
+            raise ValueError(f"inverse_vjp_kernel: go {tuple(go.shape)} on "
+                             f"{go.device}, not one value on {f.device}")
+        go = go.to(torch.float32).contiguous()
+    df, dg, dt = torch.empty_like(f), torch.empty_like(g), torch.empty_like(t)
+    lib = _kernels.load()
+    _kernels.check(lib, lib.hpsdf_inverse_vjp(
+        f.data_ptr(), g.data_ptr(), th.data_ptr(), hit.data_ptr(),
+        t.data_ptr(), tt.data_ptr(), t.shape[0], surf_n.data_ptr(),
+        dn.data_ptr(), *_weights(surface_weight, eikonal_weight,
+                                 depth_weight),
+        None if go is None else go.data_ptr(), df.data_ptr(), dg.data_ptr(),
+        dt.data_ptr(), _kernels.stream_of(f)), "inverse_vjp")
+    inverse_vjp_kernel.launches += 1
+    return df, dg, dt
+
+
+inverse_vjp_kernel.launches = 0
+
+
+def chunk_terms_loss(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
+                     eikonal_weight, depth_weight, scratch=None):
+    """A chunk's loss: K13's terms forward on CUDA tensors (with
+    ``scratch``, as there), ``chunk_terms_plain``'s on CPU tensors."""
+    args = (f, g, th, hit, t, tt, dn, surf_n, surface_weight,
+            eikonal_weight, depth_weight)
+    if f.device.type == "cpu":
+        return chunk_terms_plain(*args)[0]
+    return inverse_loss_kernel(*args, scratch=scratch)
+
+
+def chunk_terms_vjp(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
+                    eikonal_weight, depth_weight, go=None):
+    """(df, dg, dt) of a chunk times ``go`` (None: 1): K13's terms backward
+    on CUDA tensors, ``chunk_terms_vjp_plain`` on CPU tensors."""
+    args = (f, g, th, hit, t, tt, dn, surf_n, surface_weight,
+            eikonal_weight, depth_weight)
+    if f.device.type == "cpu":
+        return chunk_terms_vjp_plain(*args, 1.0 if go is None else go)
+    return inverse_vjp_kernel(*args, go=go)
 
 
 def chunk_terms(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
                 eikonal_weight, depth_weight, scratch=None):
-    """(loss, df, dg, dt) of a chunk: kernel K13's second launch on CUDA
-    tensors (with ``scratch``, as there), ``chunk_terms_plain`` on CPU
-    tensors."""
+    """(loss, df, dg, dt) of a chunk: K13's terms forward and backward
+    (go = 1) on CUDA tensors (with ``scratch``, as there),
+    ``chunk_terms_plain`` on CPU tensors."""
     args = (f, g, th, hit, t, tt, dn, surf_n, surface_weight,
             eikonal_weight, depth_weight)
     if f.device.type == "cpu":
         return chunk_terms_plain(*args)
-    return inverse_terms_kernel(*args, scratch=scratch)
+    return (inverse_loss_kernel(*args, scratch=scratch),
+            *inverse_vjp_kernel(*args))
 
 
 class _ChunkTerms(torch.autograd.Function):
-    """A chunk's loss from (f, g, t), its VJP written by ``chunk_terms`` in
-    the forward and scaled by the loss's cotangent in the backward."""
+    """A chunk's loss from (f, g, t): the forward keeps its inputs and
+    writes the loss alone, the backward writes its VJP times the loss's
+    cotangent in one launch (``chunk_terms_loss``, ``chunk_terms_vjp``)."""
 
     @staticmethod
     def forward(ctx, f, g, t, th, hit, tt, dn, surf_n, weights,
                 scratch=None):
-        loss, df, dg, dt = chunk_terms(f, g, th, hit, t, tt, dn, surf_n,
-                                       *weights, scratch=scratch)
-        ctx.save_for_backward(df, dg, dt)
-        return loss
+        ctx.save_for_backward(f, g, t, th, hit, tt, dn, surf_n)
+        ctx.weights = weights
+        return chunk_terms_loss(f, g, th, hit, t, tt, dn, surf_n, *weights,
+                                scratch=scratch)
 
     @staticmethod
     def backward(ctx, go):
-        df, dg, dt = ctx.saved_tensors
-        return (df * go, dg * go, dt * go) + (None,) * 7
+        f, g, t, th, hit, tt, dn, surf_n = ctx.saved_tensors
+        df, dg, dt = chunk_terms_vjp(f, g, th, hit, t, tt, dn, surf_n,
+                                     *ctx.weights, go=go)
+        return (df, dg, dt) + (None,) * 7
 
 
 def render_targets(tree: Octree, origins, dirs, t_max: float = 10.0,

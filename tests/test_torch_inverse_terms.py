@@ -12,6 +12,10 @@ hpsdf_tpu.inverse.
   averaged), equal ``torch.autograd.grad`` of the formula
   (``chip_smoke.formula_terms``) within 1e-6 relative, 1e-7 absolute (the
   two round in other orders), its loss within 1e-6 relative.
+- The backward: ``chunk_terms_vjp_plain`` (what ``_ChunkTerms.backward``
+  takes on CPU tensors, as K13's VJP launch takes it on the card) is
+  ``chunk_terms_plain``'s cotangents times the loss's cotangent bit for
+  bit, for go a number or a 0-d tensor.
 - One step: ``fit_to_depth``'s coefficients after one step equal
   ``hpsdf_tpu``'s within 1e-5 of the largest coefficient change (Adam's
   first step moves each coefficient by about lr times the sign of its
@@ -24,9 +28,11 @@ import torch
 
 from hpsdf_tpu import inverse as JI
 import hpsdf_tpu_torch as T
+from hpsdf_tpu_torch import _kernels
 from hpsdf_tpu_torch import inverse as TI
 
 import chip_smoke
+from chip_smoke import K13_TERM_LAUNCHES
 from .test_torch_inverse import _rays, trees  # noqa: F401
 from .test_torch_query import few_torch_threads  # noqa: F401
 
@@ -140,19 +146,65 @@ def test_chunk_terms_function_scales_by_the_cotangent():
                                    rtol=COT_RTOL, atol=COT_ATOL)
 
 
+@pytest.mark.parametrize("go", ["one", "0.37", "tensor"])
+@pytest.mark.parametrize("weights", sorted(WEIGHTS))
+@pytest.mark.parametrize("n, seed", [(1, 7), (64, 8), (1000, 9)])
+def test_vjp_plain_is_the_cotangents_times_go(n, seed, weights, go):
+    args = _chunk(n, seed, pad=n // 8) + list(WEIGHTS[weights])
+    _, df, dg, dt = TI.chunk_terms_plain(*args)
+    go = {"one": 1.0, "0.37": 0.37,
+          "tensor": torch.tensor(np.float32(-2.718))}[go]
+    got = TI.chunk_terms_vjp_plain(*args, go)
+    go32 = torch.as_tensor(go, dtype=torch.float32)
+    for a, b in zip(got, (df, dg, dt)):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), (b * go32).view(torch.int32))
+    assert all(torch.equal(a, b) for a, b in zip(
+        TI.chunk_terms_vjp(*args, go=go32), got))
+    if go == 1.0:
+        assert all(torch.equal(a, b) for a, b in zip(
+            TI.chunk_terms_vjp(*args), (df, dg, dt)))
+
+
+def test_chunk_terms_function_backward_is_the_vjp_plain():
+    """_ChunkTerms on CPU tensors: the forward's loss is chunk_terms_plain's,
+    the backward's gradients chunk_terms_vjp_plain's at the loss's
+    cotangent, bit for bit; chunk_terms_loss is the plain loss."""
+    n = 300
+    f, g, th, hit, t, tt, dn, surf_n = _chunk(n, 11, pad=5)
+    w = WEIGHTS["others"]
+    fr, gr, tr = (x.clone().requires_grad_(True) for x in (f, g, t))
+    loss = TI._ChunkTerms.apply(fr, gr, tr, th, hit, tt, dn, surf_n, w)
+    plain = TI.chunk_terms_plain(f, g, th, hit, t, tt, dn, surf_n, *w)
+    assert torch.equal(loss.detach(), plain[0])
+    assert torch.equal(TI.chunk_terms_loss(f, g, th, hit, t, tt, dn, surf_n,
+                                           *w), plain[0])
+    got = torch.autograd.grad(loss * np.float32(0.37), (fr, gr, tr))
+    want = TI.chunk_terms_vjp_plain(f, g, th, hit, t, tt, dn, surf_n, *w,
+                                    torch.tensor(np.float32(0.37)))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_cpu_route_launches_nothing_and_kernels_refuse_cpu():
     TI.inverse_points_kernel.launches = 0
-    TI.inverse_terms_kernel.launches = 0
+    TI.inverse_loss_kernel.launches = 0
+    TI.inverse_vjp_kernel.launches = 0
     o, d, tt = _rays_np(16, seed=5)
     TI.inverse_points(o, d, tt)
     args = _chunk(16, 4, pad=2)
     TI.chunk_terms(*args[:6], args[6], args[7], *WEIGHTS["defaults"])
+    TI.chunk_terms_loss(*args, *WEIGHTS["defaults"])
+    TI.chunk_terms_vjp(*args, *WEIGHTS["defaults"], go=torch.tensor(2.0))
     assert TI.inverse_points_kernel.launches == 0
-    assert TI.inverse_terms_kernel.launches == 0
+    assert TI.inverse_loss_kernel.launches == 0
+    assert TI.inverse_vjp_kernel.launches == 0
     with pytest.raises(ValueError, match="CUDA"):
         TI.inverse_points_kernel(o, d, tt)
     with pytest.raises(ValueError, match="CUDA"):
-        TI.inverse_terms_kernel(*args, *WEIGHTS["defaults"])
+        TI.inverse_loss_kernel(*args, *WEIGHTS["defaults"])
+    with pytest.raises(ValueError, match="CUDA"):
+        TI.inverse_vjp_kernel(*args, *WEIGHTS["defaults"])
 
 
 @pytest.mark.parametrize("param_space", ["folded", "raw"])
@@ -165,10 +217,31 @@ def test_one_step_coefficients_match_reference(trees, param_space, side):  # noq
     c0 = np.asarray(ji.coeffs, np.float64)
     want = np.asarray(JI.fit_to_depth(ji, o, d, tt, th, **kw).tree.coeffs,
                       np.float64)
-    TI.inverse_terms_kernel.launches = 0
+    TI.inverse_loss_kernel.launches = 0
+    TI.inverse_vjp_kernel.launches = 0
     got = T.inverse.fit_to_depth(ti, o, d, tt, th, **kw).tree.coeffs
-    assert TI.inverse_terms_kernel.launches == 0
+    assert TI.inverse_loss_kernel.launches == 0
+    assert TI.inverse_vjp_kernel.launches == 0
     change = np.abs(want - c0).max()
     assert change > 0
     err = np.abs(got.numpy().astype(np.float64) - want).max()
     assert err <= STEP_RTOL * change, (err, change)
+
+
+def test_k13_check_fails_every_mutation():
+    """chip_smoke.k13_vjp_differ counts the VJP's entries whose bits differ
+    from the replaced cotangents times go; each of k13_teeth's wrong VJPs
+    differs, on the plain version's cotangents (a stand-in for both
+    kernels' on the card). The replaced kernel stays a check: its entry
+    point is bound only by the check library."""
+    args = _chunk(500, 12, pad=20) + list(WEIGHTS["defaults"])
+    _, *ref = TI.chunk_terms_plain(*args)
+    go = torch.tensor(np.float32(1.7))
+    got = TI.chunk_terms_vjp_plain(*args, go)
+    assert chip_smoke.k13_vjp_differ(got, ref, go) == 0
+    assert chip_smoke.k13_vjp_differ(ref, ref, go) > 0
+    teeth = chip_smoke.k13_teeth(got, ref, go)
+    assert len(teeth) == 3 and all(teeth.values())
+    assert "hpsdf_inverse_terms_reference" in _kernels._CHECK_SIGNATURES
+    assert "hpsdf_inverse_terms_reference" not in _kernels._SIGNATURES
+    assert K13_TERM_LAUNCHES == 2

@@ -258,8 +258,15 @@ def test_ctypes_signatures_match_the_sources():
     assert set(bound) == set(c)
     assert {"hpsdf_fit_points", "hpsdf_fit_project",
             "hpsdf_fit_project_shape"} <= set(_kernels._SIGNATURES)
-    assert {"hpsdf_fit_points_reference", "hpsdf_fit_project_reference"} \
+    assert {"hpsdf_fit_points_reference", "hpsdf_fit_project_reference",
+            "hpsdf_signed_from_best_reference",
+            "hpsdf_inverse_terms_reference"} \
         <= set(_kernels._CHECK_SIGNATURES)
+    # K13's terms: the forward (the loss) and the backward (the VJP) in
+    # launches of their own; the single launch of before only in check/
+    assert {"hpsdf_inverse_loss", "hpsdf_inverse_vjp",
+            "hpsdf_signed_from_best"} <= set(_kernels._SIGNATURES)
+    assert "hpsdf_inverse_terms" not in bound
     for name, args in bound.items():
         ret, params = c[name]
         assert list(args) == params, name
