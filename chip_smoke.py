@@ -128,15 +128,13 @@ again), and holds the kernels' 128^2 losses to the plain versions'.
 K14, the sign on the best triangle (csrc/sign.cu), runs inside every mesh
 F; [k14] holds it to its plain version (the distance within SIGNED_ATOL,
 the sign wherever |d| exceeds it; the points whose sign or feature code
-differ counted) and bit for bit, in distance and feature code, to the
-kernel it replaced (csrc/check/sign_reference.cu) and so its other load
-form (built alone), three wrong results shown to fail that check, at the
-slice fit's largest batch and, in [mesh scale], at 2^20 uniform points on
-the 1.31M mesh and at the 1.31M fit's largest batch on K10's indices; it
-times K14, the replaced kernel and the other form in CUDA graphs, in
-turns, beside its plain version, the sign as it was before K14 (G's
-gather and the torch cascade), its bound on the lanes it needs and the
-32-byte sectors each form touches; both fit splits show the sign's
+differ counted; two wrong results shown to fail that check) at the slice
+fit's largest batch and, in [mesh scale], at 2^20 uniform points on the
+1.31M mesh and at the 1.31M fit's largest batch on K10's indices; it
+times K14 in CUDA graphs (also with no row read and with one row for
+every point) beside its plain version, the sign as it was before K14
+(G's gather and the torch cascade), its bound on the lanes it needs and
+the 32-byte sectors it touches; both fit splits show the sign's
 seconds with K14 and with the old sign swapped in, and G's launches
 falling by the sign calls. K13, the inverse chunk's loss terms
 (csrc/inverse_terms.cu: the 7n points; the loss forward; its VJP times
@@ -561,161 +559,60 @@ def sign_bytes(idx, pts, feat):
         + 12 * pairs
 
 
-# K14's load forms: csrc/sign.cu's HPSDF_K14_* macros (the whole row
-# before the cascade, or the vertex lanes before it and the feature's
-# pseudo-normal after; points a thread; resident blocks an SM its registers
-# must allow; a grid of one wave of resident blocks striding over the
-# points, or a block for every 128 groups). The source's defaults ship;
-# each other form is built alone and timed beside it and the kernel K14
-# replaced.
-K14_FORMS = {
-    "whole row, 4 points a thread, one wave":
-        dict(WHOLE_ROW=1, PTS=4, MIN_BLOCKS=2, ONE_WAVE=1),
-    "whole row, 2 points a thread, one wave":
-        dict(WHOLE_ROW=1, PTS=2, MIN_BLOCKS=4, ONE_WAVE=1),
-    "whole row, a point a thread, every point's block":
-        dict(WHOLE_ROW=1, PTS=1, MIN_BLOCKS=8, ONE_WAVE=0),
-    "vertex lanes first, 2 points a thread, one wave":
-        dict(WHOLE_ROW=0, PTS=2, MIN_BLOCKS=8, ONE_WAVE=1),
-    "vertex lanes first, a point a thread, one wave":
-        dict(WHOLE_ROW=0, PTS=1, MIN_BLOCKS=8, ONE_WAVE=1),
-    "vertex lanes first, a point a thread, every point's block":
-        dict(WHOLE_ROW=0, PTS=1, MIN_BLOCKS=8, ONE_WAVE=0),
-}
 # the first lane of each feature's pseudo-normal in a packed row (codes
 # 0..5; the face normal, code 6, lies in the vertices' sectors)
 K14_PN_LANES = (12, 15, 18, 21, 24, 27)
 
 
-def k14_shipped_form():
-    """The name of the K14_FORMS entry csrc/sign.cu builds by default."""
-    from hpsdf_tpu_torch import _kernels
-
-    with open(os.path.join(_kernels._CSRC, "sign.cu")) as fh:
-        text = fh.read()
-    form = {k: int(re.search(rf"#define HPSDF_K14_{k} (\d+)", text).group(1))
-            for k in ("WHOLE_ROW", "PTS", "MIN_BLOCKS", "ONE_WAVE")}
-    names = [n for n, f in K14_FORMS.items() if f == form]
-    check(len(names) == 1, f"csrc/sign.cu's default form {form} is not one "
-          "of K14_FORMS")
-    return names[0]
-
-
-@functools.lru_cache(maxsize=None)
-def build_sign_forms():
-    """csrc/sign.cu compiled alone in each form of K14_FORMS it does not
-    ship, all nvcc processes started together, into ctypes libraries
-    beside the kernel library that no path of the package loads; built
-    once. Returns {form: the entry point}."""
-    import ctypes
-
-    from hpsdf_tpu_torch import _kernels
-    os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
-    shipped = k14_shipped_form()
-    jobs = {}
-    for i, (name, form) in enumerate(K14_FORMS.items()):
-        if name == shipped:
-            continue
-        out = os.path.join(_kernels.BUILD_DIR, f"k14_form{i}.so")
-        cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared",
-               *(f"-DHPSDF_K14_{k}={v}" for k, v in form.items()), "-o",
-               out, os.path.join(_kernels._CSRC, "sign.cu")]
-        jobs[name] = (out, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    fns = {}
-    for name, (out, cmd, proc) in jobs.items():
-        so, se = proc.communicate()
-        check(proc.returncode == 0,
-              f"nvcc of a K14 form: {' '.join(cmd)}\n{so}\n{se}")
-        fn = ctypes.CDLL(out).hpsdf_signed_from_best
-        fn.argtypes = _kernels._SIGNATURES["hpsdf_signed_from_best"]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
-
-
-def sign_call(fn, rows, idx, pts, with_feature=True):
-    """A call of a K14 entry point ``fn`` (the check library's reference,
-    or another form's) with the wrapper's arguments, into outputs
-    allocated once (the feature codes only ``with_feature``, as the main
-    path writes none): counted by no launch counter. Returns the call,
-    which returns (distance, feature code or None)."""
-    from hpsdf_tpu_torch import _kernels
-
-    out = (torch.empty(pts.shape[0], dtype=torch.float32, device=pts.device),
-           torch.empty(pts.shape[0], dtype=torch.int8, device=pts.device)
-           if with_feature else None)
-
-    def run():
-        rc = fn(rows.data_ptr(), rows.shape[0], rows.stride(0),
-                idx.data_ptr(), pts.data_ptr(), pts.shape[0],
-                out[0].data_ptr(), 0 if out[1] is None else out[1].data_ptr(),
-                _kernels.stream_of(pts))
-        check(rc == 0, f"K14 form launch: CUDA error {rc}")
-        return out
-    return run
-
-
-def k14_differ(got, want):
-    """(distances whose bits differ, feature codes that differ) between two
-    K14 results (distance, code)."""
-    return (int((got[0].view(torch.int32) != want[0].view(torch.int32))
-                .sum()), int((got[1] != want[1]).sum()))
+def k14_wrong(got, want):
+    """What breaks K14's check against its plain version ``want`` (both
+    distances): (points whose distance is more than SIGNED_ATOL off, points
+    whose sign differs where |want| > SIGNED_ATOL)."""
+    flip = torch.signbit(got) != torch.signbit(want)
+    return (int(((got - want).abs() > SIGNED_ATOL).sum()),
+            int((flip & (want.abs() > SIGNED_ATOL)).sum()))
 
 
 def k14_teeth(got, want):
-    """Three wrong kernels' results, made from K14's own, each of which the
-    bit-for-bit check against ``want`` must fail: one distance an ulp
-    larger, one sign flipped, one feature code changed."""
-    d, code = got
-    ulp, flip, feat = d.clone(), d.clone(), code.clone()
-    ulp[0] = torch.nextafter(d[0], d.new_tensor(math.inf))
-    k = int(torch.nonzero(d != 0)[0]) if bool((d != 0).any()) else 0
-    flip[k] = -d[k]
-    feat[0] = (code[0] + 1) % 7
-    return {name: k14_differ(r, want) != (0, 0)
-            for name, r in (("a distance an ulp off", (ulp, code)),
-                            ("a sign flipped", (flip, code)),
-                            ("a feature code changed", (d, feat)))}
+    """Two wrong kernels' distances, made from K14's own, each of which the
+    check against the plain version's ``want`` must fail: one distance
+    2 SIGNED_ATOL off, one sign flipped where |d| > SIGNED_ATOL."""
+    off, flip = got.clone(), got.clone()
+    off[0] = got[0] + 2 * SIGNED_ATOL
+    k = int(torch.nonzero(want.abs() > SIGNED_ATOL)[0])
+    flip[k] = -got[k]
+    return {name: k14_wrong(r, want) != (0, 0)
+            for name, r in (("a distance 2 atol off", off),
+                            ("a sign flipped", flip))}
 
 
-def sign_sector_bytes(idx, pts, feat, n_rows, whole_row):
+def sign_sector_bytes(idx, pts, feat, n_rows):
     """K14's sector bound's bytes: each point, its index and its distance
-    once; each 32-byte sector of a distinct in-range row that the form
-    touches: all four (``whole_row``), or those of the vertex lanes 0..11
-    and of each distinct (row, feature)'s pseudo-normal lanes."""
-    key = idx.long()
-    key = key[(key >= 0) & (key < n_rows)]
-    code = feat.long()[(idx.long() >= 0) & (idx.long() < n_rows)]
-    if whole_row:
-        sectors = 4 * torch.unique(key).numel()
-    else:
-        rows = torch.unique(key)
-        lanes = torch.tensor(K14_PN_LANES + (9,), device=key.device)[code]
-        pn = torch.cat([key * 4 + lanes // 8, key * 4 + (lanes + 2) // 8])
-        base = torch.cat([rows * 4, rows * 4 + 1])
-        sectors = torch.unique(torch.cat([base, pn])).numel()
+    once; each 32-byte sector of a distinct in-range row that the kernel
+    touches: those of the vertex lanes 0..11 and of each distinct (row,
+    feature)'s pseudo-normal lanes."""
+    ok = (idx.long() >= 0) & (idx.long() < n_rows)
+    key, code = idx.long()[ok], feat.long()[ok]
+    rows = torch.unique(key)
+    lanes = torch.tensor(K14_PN_LANES + (9,), device=key.device)[code]
+    pn = torch.cat([key * 4 + lanes // 8, key * 4 + (lanes + 2) // 8])
+    base = torch.cat([rows * 4, rows * 4 + 1])
+    sectors = torch.unique(torch.cat([base, pn])).numel()
     return pts.shape[0] * (12 + idx.element_size() + 4) + 32 * sectors
 
 
 def check_k14(rows, idx, pts, label):
     """K14 against its plain version on the same best indices: the distance
     within SIGNED_ATOL at every point, the sign equal wherever |d| >
-    SIGNED_ATOL; the points whose sign or feature code (the plain
-    cascade's, mesh/tri.py) differ are counted. K14 bit for bit the kernel
-    it replaced (csrc/check/sign_reference.cu) in distance and feature
-    code, and so is each other load form (``build_sign_forms``); three
-    wrong results (``k14_teeth``) fail that check. Then K14, the replaced
-    kernel and the other forms in CUDA graphs, each writing the distances
-    alone, in turns (replaced, K14, the forms, then back: each the smaller
-    of its two), K14 with every index out of range and with one row for
-    every point (the stream and launch alone; the cascade with its rows
-    from L1), its plain version
+    SIGNED_ATOL (``k14_wrong``); the points whose sign or feature code (the
+    plain cascade's, mesh/tri.py) differ are counted; two wrong results
+    (``k14_teeth``) fail that check. Then K14 in a CUDA graph, with every
+    index out of range and with one row for every point (the stream and
+    launch alone; the cascade with its rows from L1), its plain version
     and the sign as it was before K14 (G's gather and the torch cascade)
-    by events, and the bound on the lanes, beside the sectors each form
-    touches; a call launches K14 once and G never (the counters). Launches
-    made here are not the main path's."""
-    from hpsdf_tpu_torch import _kernels
+    by events, and the bound on the lanes it needs beside the 32-byte
+    sectors it touches; a call launches K14 once and G never (the
+    counters). Launches made here are not the main path's."""
     from hpsdf_tpu_torch.accel import row_gather, row_gather_plain
     from hpsdf_tpu_torch.mesh import sdf as TS
     from hpsdf_tpu_torch.mesh import tri as TT
@@ -727,61 +624,29 @@ def check_k14(rows, idx, pts, label):
     _, feat_p = TT.closest_point_triangle(pts, *TS._tri_parts(g_rows))
     err = float((got - want).abs().max())
     flip = torch.signbit(got) != torch.signbit(want)
-    clear = want.abs() > SIGNED_ATOL
-    ref_call = sign_call(_kernels.load_check()
-                         .hpsdf_signed_from_best_reference, rows, idx, pts)
-    form_calls = {name: sign_call(fn, rows, idx, pts)
-                  for name, fn in build_sign_forms().items()}
-    ref = tuple(x.clone() for x in ref_call())
-    differ = k14_differ((got, feat), ref)
-    forms_differ = {name: k14_differ(call(), ref)
-                    for name, call in form_calls.items()}
-    teeth = k14_teeth((got, feat), ref)
+    wrong, teeth = k14_wrong(got, want), k14_teeth(got, want)
     t = {"points": pts.shape[0], "max_abs_err": err,
          "sign_differ": int(flip.sum()),
-         "sign_differ_beyond_atol": int((flip & clear).sum()),
+         "sign_differ_beyond_atol": wrong[1],
          "feature_differ": int((feat.long() != feat_p.long()).sum()),
          "features": torch.bincount(feat.long(), minlength=7).tolist(),
          "distinct_rows": int(torch.unique(idx).numel()),
-         "bit_for_bit": bool(torch.equal(got, want)),
-         "bit_for_bit_reference": differ == (0, 0),
-         "forms_bit_for_bit_reference": all(
-             d == (0, 0) for d in forms_differ.values()),
-         "teeth": teeth}
-    check(err <= SIGNED_ATOL, f"K14 vs plain at {label}: {err:.3e}")
-    check(t["sign_differ_beyond_atol"] == 0, f"K14 vs plain at {label}: "
-          f"{t['sign_differ_beyond_atol']} signs differ beyond "
+         "bit_for_bit": bool(torch.equal(got, want)), "teeth": teeth}
+    check(wrong == (0, 0), f"K14 vs plain at {label}: max error "
+          f"{err:.3e}, {wrong[0]} distances and {wrong[1]} signs off beyond "
           f"{SIGNED_ATOL}")
-    check(differ == (0, 0) and t["forms_bit_for_bit_reference"],
-          f"K14 vs the kernel it replaced at {label}: (distances, codes) "
-          f"differing {differ}, the other forms' {forms_differ}")
     check(all(teeth.values()), f"K14's check missed a mutation: {teeth}")
-
-    # the times: every kernel writes the distances alone, as on the main
-    # path
-    order = [("reference", sign_call(_kernels.load_check()
-                                     .hpsdf_signed_from_best_reference,
-                                     rows, idx, pts, False)),
-             ("shipped", lambda: TS.signed_from_best_kernel(rows, idx, pts)),
-             *((name, sign_call(fn, rows, idx, pts, False))
-               for name, fn in build_sign_forms().items())]
-    turns = {name: [] for name, _ in order}
-    for name, fn in order + order[::-1]:
-        turns[name].append(graph_ms(fn, 20))
-    form = k14_shipped_form()
-    t.update(ms=min(turns["shipped"]), reference_ms=min(turns["reference"]),
-             form=form, forms_ms={name: min(turns[name])
-                                  for name in form_calls})
     # where the time goes: the same points with every index out of range
     # (no row read, the cascade on a zero triangle: the points' stream and
     # the launch) and with one row for every point (the cascade on every
     # point, its row from L1)
     none, first = torch.full_like(idx, -1), torch.zeros_like(idx)
-    t.update(no_rows_ms=graph_ms(
-        lambda: TS.signed_from_best_kernel(rows, none, pts), 20),
-        one_row_ms=graph_ms(
-            lambda: TS.signed_from_best_kernel(rows, first, pts), 20))
     t.update(
+        ms=graph_ms(lambda: TS.signed_from_best_kernel(rows, idx, pts), 20),
+        no_rows_ms=graph_ms(
+            lambda: TS.signed_from_best_kernel(rows, none, pts), 20),
+        one_row_ms=graph_ms(
+            lambda: TS.signed_from_best_kernel(rows, first, pts), 20),
         plain_ms=time_ms(lambda: TS.signed_from_best_plain(rows, idx, pts),
                          3),
         before_ms=time_ms(lambda: sign_before(rows, idx, pts), 3))
@@ -794,37 +659,27 @@ def check_k14(rows, idx, pts, label):
           f"{t['g_launches_a_call']} times")
     by_bytes = sign_bytes(idx, pts, feat) / HBM_RATE * 1e3
     by_ops = pts.shape[0] * K14_OPS / F32_PEAK * 1e3
-    by_sectors = {w: sign_sector_bytes(idx, pts, feat, rows.shape[0], w)
-                  / HBM_RATE * 1e3 for w in (0, 1)}
     t.update(bytes_bound_ms=by_bytes, ops_bound_ms=by_ops,
              bound_ms=max(by_bytes, by_ops),
              bound_by="bytes" if by_bytes >= by_ops else "operations",
-             sector_bound_ms=by_sectors[K14_FORMS[form]["WHOLE_ROW"]],
-             sector_bound_ms_whole_row=by_sectors[1],
-             sector_bound_ms_vertex_first=by_sectors[0], library_ms=None)
+             sector_bound_ms=sign_sector_bytes(idx, pts, feat, rows.shape[0])
+             / HBM_RATE * 1e3, library_ms=None)
     TS.signed_from_best_kernel.launches, row_gather.launches = counts
     print(f"[k14] {label}: {t['points']} points on {t['distinct_rows']} "
           f"distinct rows, max|K14 - plain| "
           f"{err:.3e} (bit for bit: {t['bit_for_bit']}), {t['sign_differ']} "
           f"signs differ ({t['sign_differ_beyond_atol']} beyond "
           f"{SIGNED_ATOL}), {t['feature_differ']} feature codes differ, "
-          f"features {t['features']}; bit for bit the kernel it replaced in "
-          f"distance and code, and so is every other form; mutations caught "
-          f"{teeth} | K14 ({form}) {t['ms']:.4f} ms in a CUDA graph (turns "
-          f"{turns['shipped']}), the kernel it replaced "
-          f"{t['reference_ms']:.4f} ({turns['reference']}), the other forms "
-          f"{ {n: [round(v, 5) for v in turns[n]] for n in form_calls} }; "
-          f"with no row read {t['no_rows_ms']:.4f} ms, with one row for "
-          f"every point {t['one_row_ms']:.4f}; plain {t['plain_ms']:.3f} ms, "
-          f"before K14 (G + torch) {t['before_ms']:.3f} ms; a call launches "
-          f"K14 once and G never; bound {t['bound_ms']:.5f} ms "
-          f"({t['bound_by']}; lanes' bytes {by_bytes:.5f}, operations "
-          f"{by_ops:.5f}), {t['bound_ms'] / t['ms']:.1%} of it (the "
-          f"replaced kernel {t['bound_ms'] / t['reference_ms']:.1%}); "
-          f"sector bound {t['sector_bound_ms']:.5f} ms "
-          f"({t['sector_bound_ms'] / t['ms']:.1%}; the whole row's "
-          f"{t['sector_bound_ms_whole_row']:.5f}, the vertex lanes first "
-          f"{t['sector_bound_ms_vertex_first']:.5f})", flush=True)
+          f"features {t['features']}; mutations caught {teeth} | K14 "
+          f"{t['ms']:.4f} ms in a CUDA graph; with no row read "
+          f"{t['no_rows_ms']:.4f} ms, with one row for every point "
+          f"{t['one_row_ms']:.4f}; plain {t['plain_ms']:.3f} ms, before K14 "
+          f"(G + torch) {t['before_ms']:.3f} ms; a call launches K14 once "
+          f"and G never; bound {t['bound_ms']:.5f} ms ({t['bound_by']}; "
+          f"lanes' bytes {by_bytes:.5f}, operations {by_ops:.5f}), "
+          f"{t['bound_ms'] / t['ms']:.1%} of it; sector bound "
+          f"{t['sector_bound_ms']:.5f} ms "
+          f"({t['sector_bound_ms'] / t['ms']:.1%})", flush=True)
     return t
 
 
@@ -3883,7 +3738,8 @@ def k13_terms_check(args, scratch, go, label):
     f, g, th, hit, t, tt, dn, surf_n, *weights = args
     loss = I.inverse_loss_kernel(*args, scratch=scratch)
     again = I.inverse_loss_kernel(*args, scratch=scratch)
-    df, dg, dt = I.inverse_vjp_kernel(*args)
+    one = torch.ones((), device=f.device)
+    df, dg, dt = I.inverse_vjp_kernel(*args, go=one)
     out = (loss, df, dg, dt)
     ref = [x.clone() for x in k13_reference(args)()]
     plain = I.chunk_terms_plain(*args)
@@ -3898,10 +3754,7 @@ def k13_terms_check(args, scratch, go, label):
           f"plain {loss_p}: {loss_rel:.3e}")
     check(torch.equal(loss.view(torch.int32), again.view(torch.int32)),
           f"K13's loss launch is not deterministic at {label}")
-    one = torch.ones((), device=f.device)
     differ = {"go 1": k13_vjp_differ((df, dg, dt), ref[1:], one),
-              "go tensor 1": k13_vjp_differ(
-                  I.inverse_vjp_kernel(*args, go=one), ref[1:], one),
               f"go {float(go)!r}": k13_vjp_differ(
                   I.inverse_vjp_kernel(*args, go=go), ref[1:], go)}
     check(not any(differ.values()), f"K13's VJP vs the replaced kernel's "
@@ -4242,9 +4095,7 @@ def phase_inverse(s, s_small, smi):
                               lambda *args, scratch=None:
                               I.chunk_terms_plain(*args)[0]), \
             mock.patch.object(I, "inverse_vjp_kernel",
-                              lambda *args, go=None:
-                              I.chunk_terms_vjp_plain(
-                                  *args, 1.0 if go is None else go)):
+                              I.chunk_terms_vjp_plain):
         plain = fit(s_small, INV_STEPS).losses.cpu()
     plain_launches = sum(read_counts().values())
     check(plain_launches == 0, f"the plain run launched {plain_launches} "
@@ -6625,17 +6476,14 @@ PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
                  "inverse_vjp_kernel",
                  "fit_points_kernel", "fit_project_kernel")
 # the check library's kernels the ptxas check reads (csrc/check/)
-CHECK_PTXAS_KERNELS = ("signed_from_best_reference_kernel",
-                       "inverse_terms_reference_kernel")
+CHECK_PTXAS_KERNELS = ("inverse_terms_reference_kernel",)
 
 
 def _ptxas_key(kernel, args):
     """The report's key for one instantiation, from its template arguments
     (ints, bools and the value type, in order)."""
-    if not args:        # row_scatter(_csr), bvh_walk, descend_nodes, K13
-        return "-"
-    if kernel == "signed_from_best_kernel":     # K14's offsets
-        return {"i": "int32", "l": "int64"}[args[0]]
+    if not args:        # row_scatter(_csr), bvh_walk, descend_nodes, K13,
+        return "-"      # K14
     if kernel == "hybrid_kernel":
         return "two levels" if args[0] else "one level"
     if kernel in ("cg_update_kernel", "cg_update_rows_kernel",
@@ -6668,9 +6516,9 @@ def ptxas_check():
     K1's node-range descent round and, at degrees 3 and 5, its leaf
     evaluation and K8's node-range mode, K14, the three launches of K13,
     and both of K6's launches at every degree 2..11 in f64 and f32 must
-    have no stack frame and no spills; so must the check library's forms
-    of K14 and K13's terms before their redesign (CHECK_PTXAS_KERNELS), the
-    references the redesigned kernels are held and timed against. Returns
+    have no stack frame and no spills; so must the check library's K13
+    terms as they were before their redesign (CHECK_PTXAS_KERNELS), the
+    reference the redesigned kernels are held and timed against. Returns
     {kernel: {key: [registers, stack, spill stores, spill loads]}}."""
     from hpsdf_tpu_torch import _kernels
 
@@ -6717,13 +6565,12 @@ def ptxas_check():
             ("K1 node round", "descend_nodes_kernel", ("-",)),
             ("K1 node leaf", "leaf_nodes_kernel", ("3", "5")),
             ("K8 nodes", "coeff_scatter_nodes_kernel", ("3", "5")),
-            ("K14", "signed_from_best_kernel", ("int32", "int64")),
+            ("K14", "signed_from_best_kernel", ("-",)),
             ("K13 points", "inverse_points_kernel", ("-",)),
             ("K13 loss", "inverse_loss_kernel", ("-",)),
             ("K13 vjp", "inverse_vjp_kernel", ("-",)),
             ("K6 points", "fit_points_kernel", K6_PTXAS_KEYS),
             ("K6 proj", "fit_project_kernel", K6_PTXAS_KEYS),
-            ("K14 reference", "signed_from_best_reference_kernel", ("-",)),
             ("K13 terms reference", "inverse_terms_reference_kernel",
              ("-",))):
         got = found.get(kernel, {})
@@ -6763,17 +6610,14 @@ def main():
 
     # --- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:       # every library together
+    with ThreadPoolExecutor(2) as pool:       # both libraries together
         for job in [pool.submit(_kernels.load),
-                    pool.submit(_kernels.load_check),
-                    pool.submit(build_sign_forms)]:
+                    pool.submit(_kernels.load_check)]:
             job.result()
     print(f"[build] {len(_kernels.sources())} sources -> "
           f"{os.path.relpath(_kernels.library_path())}, the reference "
-          f"kernels of the K3, K4, K7, G's backward, K8, K11, K6, K14 and "
-          f"K13 checks -> "
-          f"{os.path.relpath(_kernels.library_path('check'))}, and K14's "
-          f"other forms ({len(K14_FORMS) - 1}), in "
+          f"kernels of the K3, K4, K7, G's backward, K8, K11, K6 and K13 "
+          f"checks -> {os.path.relpath(_kernels.library_path('check'))}, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 3)
     ptxas = ptxas_check()
@@ -7127,15 +6971,8 @@ def main():
                                  "sign_differ", "feature_differ",
                                  "launches_a_call",
                                  "before_launches_a_call",
-                                 "sector_bound_ms", "form", "forms_ms",
-                                 "sector_bound_ms_whole_row",
-                                 "sector_bound_ms_vertex_first", "teeth",
+                                 "sector_bound_ms", "teeth",
                                  "no_rows_ms", "one_row_ms")},
-         "replaced_kernel_ms": tk14["reference_ms"],
-         "reference": {"source": "hpsdf_tpu_torch/csrc/check/"
-                                 "sign_reference.cu",
-                       "entry": "hpsdf_signed_from_best_reference",
-                       "ms": tk14["reference_ms"]},
          "mesh_1p31m_uniform": tm["k14"],
          "mesh_1p31m_fit_batch": tm["k14_fit_batch"],
          "ptxas": ptxas.get("signed_from_best_kernel", {})},

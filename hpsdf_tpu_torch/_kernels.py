@@ -120,7 +120,6 @@ _CHECK_SIGNATURES = {
     "hpsdf_bvh_walk_reference": _SIGNATURES["hpsdf_bvh_walk"],
     "hpsdf_fit_points_reference": _SIGNATURES["hpsdf_fit_points"],
     "hpsdf_fit_project_reference": _SIGNATURES["hpsdf_fit_project"],
-    "hpsdf_signed_from_best_reference": _SIGNATURES["hpsdf_signed_from_best"],
     "hpsdf_inverse_terms_reference": (_P, _P, _P, _P, _P, _P, _I64, _P, _P,
                                       _F32, _F32, _F32, _P, _P, _P, _P, _P,
                                       _P),

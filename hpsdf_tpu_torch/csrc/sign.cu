@@ -23,68 +23,20 @@
 // mesh/tri.py's. A dot product adds x, y, then z. An index outside
 // [0, rows) reads a row of zeros, as G gives one. Where the caller asks, the
 // feature's code (mesh/tri.py: 0, 1, 2 the vertices a, b, c; 3, 4, 5 the
-// edges ab, bc, ca; 6 the face) is written too, for the checks. The
-// arithmetic is that of the kernel this one replaced (csrc/check/
-// sign_reference.cu), so both give the same bits.
+// edges ab, bc, ca; 6 the face) is written too, for the checks.
 //
 // Bound. Bytes: a point reads its 12 bytes and its index and writes 4; its
-// row's lanes 0..11 (vertices and face normal) and the three lanes of the
-// feature's pseudo-normal come from the table, read once for every point
-// that shares the row. The cascade is ~85 f32 operations a point, far
-// under the bytes on this card. The replaced kernel ran three dependent
-// trips a point (its index; the row's vertices; after the cascade, the
-// feature's pseudo-normal), a thread a point, in several waves.
-//
-// Design. A thread takes kPts consecutive points (1, 2 or 4): where B and
-// the pointers allow, their coordinates come as 8- or 16-byte loads, their
-// indices as one, and the distances (and codes) go out as one store; a
-// scalar path takes the rest. Offsets are 32-bit where 3 B fits. Every
-// row load of a thread's points is issued before its first cascade. With
-// HPSDF_K14_WHOLE_ROW 1, each point's whole 128-byte row comes as eight
-// 16-byte loads with its vertices, and the feature's pseudo-normal is
-// selected from registers after the cascade (a chain of selects, no
-// indexed array, which ptxas would put in local memory): two trips a
-// point, four sectors a row. With 0, only the vertex lanes (three 16-byte
-// loads) come before the cascades, and the features' pseudo-normals are
-// loaded together after them: three trips, the replaced kernel's two or
-// three sectors a row. With HPSDF_K14_ONE_WAVE 1 the grid is one wave of
-// resident blocks (HPSDF_K14_MIN_BLOCKS an SM at least: a bound on the
-// registers) striding over the groups; with 0, a block for every 128
-// groups. The defaults below are the shipped form, picked by the times of
-// every form at the main path's shapes (chip_smoke.py builds the others
-// alone and times them beside it and the replaced kernel). At the fit's
-// batches the points' stream and the launch take about half the time and
-// the cascade little; the rows' reads from L2 take the rest, and forms
-// that put more of them in flight (several points a thread, the whole
-// row) lose more to registers and occupancy than they gain.
+// row's lanes 0..11 (vertices and face normal: 16-byte loads, two sectors)
+// and the three lanes of the feature's pseudo-normal come from the table,
+// read once for every point that shares the row. The cascade is ~80 f32
+// operations a point, far under the bytes on this card. A thread a point.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <climits>
-
-// the load form (see the note above); the defaults are the shipped one
-#ifndef HPSDF_K14_WHOLE_ROW
-#define HPSDF_K14_WHOLE_ROW 0
-#endif
-#ifndef HPSDF_K14_PTS
-#define HPSDF_K14_PTS 1
-#endif
-#ifndef HPSDF_K14_MIN_BLOCKS
-#define HPSDF_K14_MIN_BLOCKS 8
-#endif
-#ifndef HPSDF_K14_ONE_WAVE
-#define HPSDF_K14_ONE_WAVE 1
-#endif
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr bool kOneWave = HPSDF_K14_ONE_WAVE != 0;
-constexpr int kMinBlocks = HPSDF_K14_MIN_BLOCKS;  // resident blocks an SM
-constexpr int kPts = HPSDF_K14_PTS;              // points a thread
-static_assert(kPts == 1 || kPts == 2 || kPts == 4, "1, 2 or 4 points");
-constexpr bool kWholeRow = HPSDF_K14_WHOLE_ROW != 0;
-constexpr int kRowVecs = kWholeRow ? 8 : 3;    // 16-byte loads of a row
+constexpr int kThreads = 256;
 constexpr float kGuard = 1e-30f;
 // packed row lanes (mesh/bvh.py): vertex and edge pseudo-normals (the face
 // normal, lanes 9..11, comes with the vertices' 16-byte loads)
@@ -105,20 +57,26 @@ __device__ __forceinline__ float along(float q, float e, float s) {
   return __fadd_rn(q, __fmul_rn(e, s));
 }
 
-// lane k of a row held as 16-byte vectors (k a constant after unrolling)
-__device__ __forceinline__ float lane(const float4* v, int k) {
-  const float4 x = v[k >> 2];
-  return (k & 3) == 0 ? x.x : (k & 3) == 1 ? x.y : (k & 3) == 2 ? x.z : x.w;
-}
-
-// The cascade on point p and the row's lanes 0..8: the closest point q and
-// the feature's code.
-__device__ __forceinline__ int cascade(const float4* v, float px, float py,
-                                       float pz, float& qx, float& qy,
-                                       float& qz) {
-  const float ax = v[0].x, ay = v[0].y, az = v[0].z;
-  const float bx = v[0].w, by = v[1].x, bz = v[1].y;
-  const float cx = v[1].z, cy = v[1].w, cz = v[2].x;
+__global__ void __launch_bounds__(kThreads)
+signed_from_best_kernel(const float* __restrict__ rows, int64_t n_rows,
+                        int64_t stride, const int32_t* __restrict__ idx,
+                        const float* __restrict__ pts, int64_t B,
+                        float* __restrict__ out, int8_t* __restrict__ feat) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const float px = pts[3 * b], py = pts[3 * b + 1], pz = pts[3 * b + 2];
+  const int64_t r = (int64_t)__ldg(idx + b);
+  const bool ok = r >= 0 && r < n_rows;
+  const float* row = rows + (ok ? r : 0) * stride;
+  float4 v0 = make_float4(0.f, 0.f, 0.f, 0.f), v1 = v0, v2 = v0;
+  if (ok) {
+    v0 = __ldg(reinterpret_cast<const float4*>(row));
+    v1 = __ldg(reinterpret_cast<const float4*>(row) + 1);
+    v2 = __ldg(reinterpret_cast<const float4*>(row) + 2);
+  }
+  const float ax = v0.x, ay = v0.y, az = v0.z;
+  const float bx = v0.w, by = v1.x, bz = v1.y;
+  const float cx = v1.z, cy = v1.w, cz = v2.x;
 
   const float abx = __fsub_rn(bx, ax), aby = __fsub_rn(by, ay),
               abz = __fsub_rn(bz, az);
@@ -141,252 +99,68 @@ __device__ __forceinline__ int cascade(const float4* v, float px, float py,
   const float vc = __fsub_rn(__fmul_rn(d1, d4), __fmul_rn(d3, d2));
   const float e43 = __fsub_rn(d4, d3), e56 = __fsub_rn(d5, d6);
 
+  // the feature's code, its closest point (qx, qy, qz) and the lane of its
+  // pseudo-normal: vertex k at kVPN + 3k, edge k at kEPN + 3k
+  float qx, qy, qz;
+  int code;
   if (d1 <= 0.f && d2 <= 0.f) {                            // vertex a
-    qx = ax; qy = ay; qz = az;
-    return 0;
-  }
-  if (d3 >= 0.f && d4 <= d3) {                             // vertex b
-    qx = bx; qy = by; qz = bz;
-    return 1;
-  }
-  if (d6 >= 0.f && d5 <= d6) {                             // vertex c
-    qx = cx; qy = cy; qz = cz;
-    return 2;
-  }
-  if (vc <= 0.f && d1 >= 0.f && d3 <= 0.f) {               // edge ab
+    qx = ax; qy = ay; qz = az; code = 0;
+  } else if (d3 >= 0.f && d4 <= d3) {                      // vertex b
+    qx = bx; qy = by; qz = bz; code = 1;
+  } else if (d6 >= 0.f && d5 <= d6) {                      // vertex c
+    qx = cx; qy = cy; qz = cz; code = 2;
+  } else if (vc <= 0.f && d1 >= 0.f && d3 <= 0.f) {        // edge ab
     const float s = __fdiv_rn(d1, guard(__fsub_rn(d1, d3)));
     qx = along(ax, abx, s); qy = along(ay, aby, s); qz = along(az, abz, s);
-    return 3;
-  }
-  if (vb <= 0.f && d2 >= 0.f && d6 <= 0.f) {               // edge ca
+    code = 3;
+  } else if (vb <= 0.f && d2 >= 0.f && d6 <= 0.f) {        // edge ca
     const float s = __fdiv_rn(d2, guard(__fsub_rn(d2, d6)));
     qx = along(ax, acx, s); qy = along(ay, acy, s); qz = along(az, acz, s);
-    return 5;
-  }
-  if (va <= 0.f && e43 >= 0.f && e56 >= 0.f) {             // edge bc
+    code = 5;
+  } else if (va <= 0.f && e43 >= 0.f && e56 >= 0.f) {      // edge bc
     const float s = __fdiv_rn(e43, guard(__fadd_rn(e43, e56)));
     qx = along(bx, __fsub_rn(cx, bx), s);
     qy = along(by, __fsub_rn(cy, by), s);
     qz = along(bz, __fsub_rn(cz, bz), s);
-    return 4;
+    code = 4;
+  } else {                                                 // face
+    const float g = guard(__fadd_rn(__fadd_rn(va, vb), vc));
+    const float v = __fdiv_rn(vb, g), w = __fdiv_rn(vc, g);
+    qx = __fadd_rn(along(ax, abx, v), __fmul_rn(acx, w));
+    qy = __fadd_rn(along(ay, aby, v), __fmul_rn(acy, w));
+    qz = __fadd_rn(along(az, abz, v), __fmul_rn(acz, w));
+    code = 6;
   }
-  const float g = guard(__fadd_rn(__fadd_rn(va, vb), vc));  // face
-  const float v_ = __fdiv_rn(vb, g), w = __fdiv_rn(vc, g);
-  qx = __fadd_rn(along(ax, abx, v_), __fmul_rn(acx, w));
-  qy = __fadd_rn(along(ay, aby, v_), __fmul_rn(acy, w));
-  qz = __fadd_rn(along(az, abz, v_), __fmul_rn(acz, w));
-  return 6;
-}
-
-// the first lane of a feature's pseudo-normal: vertex k at kVPN + 3k, edge
-// k at kEPN + 3k; the face normal (code 6) at lane 9
-__device__ __forceinline__ int pn_lane(int code) {
-  return code < 3 ? kVPN + 3 * code : code < 6 ? kEPN + 3 * (code - 3) : 9;
-}
-
-// the pseudo-normal of `code` from a whole row in registers, by selects
-__device__ __forceinline__ void pn_select(const float4* v, int code,
-                                          float& nx, float& ny, float& nz) {
-  nx = lane(v, 9); ny = lane(v, 10); nz = lane(v, 11);
-#pragma unroll
-  for (int c = 0; c < 6; ++c) {
-    const int l = c < 3 ? kVPN + 3 * c : kEPN + 3 * (c - 3);
-    if (code == c) {
-      nx = lane(v, l); ny = lane(v, l + 1); nz = lane(v, l + 2);
-    }
+  float nx = v2.y, ny = v2.z, nz = v2.w;                   // lanes 9..11
+  if (code != 6 && ok) {
+    const int pn = code < 3 ? kVPN + 3 * code : kEPN + 3 * (code - 3);
+    nx = __ldg(row + pn);
+    ny = __ldg(row + pn + 1);
+    nz = __ldg(row + pn + 2);
   }
+  if (feat != nullptr) feat[b] = (int8_t)code;
+  const float dx = __fsub_rn(px, qx), dy = __fsub_rn(py, qy),
+              dz = __fsub_rn(pz, qz);
+  const float dist = __fsqrt_rn(dot3(dx, dy, dz, dx, dy, dz));
+  out[b] = dot3(nx, ny, nz, dx, dy, dz) >= 0.f ? dist : -dist;
 }
-
-// The coordinates and indices of group grp's points: vector loads where
-// the whole group lies in [0, B) and the pointers allow, else scalar ones;
-// a point past B gets index -1 (a zero row) and is not stored. I: the
-// offsets' type, 32-bit where 3 B fits.
-template <typename I>
-__device__ __forceinline__ void load_group(const float* __restrict__ pts,
-                                           const int32_t* __restrict__ idx,
-                                           I B, bool vec, I grp,
-                                           float (&px)[kPts],
-                                           float (&py)[kPts],
-                                           float (&pz)[kPts],
-                                           int32_t (&r)[kPts]) {
-  const I b0 = grp * kPts;
-  if constexpr (kPts > 1) {
-    if (vec && b0 + kPts <= B) {
-      float p[3 * kPts];
-      if constexpr (kPts == 4) {
-        const float4* p4 = reinterpret_cast<const float4*>(pts) + 3 * grp;
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const float4 x = __ldg(p4 + j);
-          p[4 * j] = x.x; p[4 * j + 1] = x.y; p[4 * j + 2] = x.z;
-          p[4 * j + 3] = x.w;
-        }
-        const int4 i4 = __ldg(reinterpret_cast<const int4*>(idx) + grp);
-        r[0] = i4.x; r[1] = i4.y; r[2] = i4.z; r[3] = i4.w;
-      } else {
-        const float2* p2 = reinterpret_cast<const float2*>(pts) + 3 * grp;
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const float2 x = __ldg(p2 + j);
-          p[2 * j] = x.x; p[2 * j + 1] = x.y;
-        }
-        const int2 i2 = __ldg(reinterpret_cast<const int2*>(idx) + grp);
-        r[0] = i2.x; r[1] = i2.y;
-      }
-#pragma unroll
-      for (int k = 0; k < kPts; ++k) {
-        px[k] = p[3 * k]; py[k] = p[3 * k + 1]; pz[k] = p[3 * k + 2];
-      }
-      return;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kPts; ++k) {
-    const I b = b0 + k;
-    const bool in = b < B;
-    px[k] = in ? __ldg(pts + 3 * b) : 0.f;
-    py[k] = in ? __ldg(pts + 3 * b + 1) : 0.f;
-    pz[k] = in ? __ldg(pts + 3 * b + 2) : 0.f;
-    r[k] = in ? __ldg(idx + b) : -1;
-  }
-}
-
-template <typename I>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-signed_from_best_kernel(const float* __restrict__ rows, int64_t n_rows,
-                        int64_t stride, const int32_t* __restrict__ idx,
-                        const float* __restrict__ pts, I B, bool vec,
-                        float* __restrict__ out, int8_t* __restrict__ feat) {
-  const I groups = (B + kPts - 1) / kPts;
-  const I step = (I)gridDim.x * kThreads;
-  I grp = (I)blockIdx.x * kThreads + threadIdx.x;
-  float px[kPts], py[kPts], pz[kPts];
-  int32_t r[kPts];
-  if (grp < groups) load_group<I>(pts, idx, B, vec, grp, px, py, pz, r);
-  for (; grp < groups; grp += step) {
-    // every row load of the group before the first cascade
-    float4 v[kPts][kRowVecs];
-    bool ok[kPts];
-#pragma unroll
-    for (int k = 0; k < kPts; ++k) {
-      ok[k] = r[k] >= 0 && (int64_t)r[k] < n_rows;
-      const float4* row = reinterpret_cast<const float4*>(
-          rows + (ok[k] ? (int64_t)r[k] : 0) * stride);
-#pragma unroll
-      for (int j = 0; j < kRowVecs; ++j)
-        v[k][j] = ok[k] ? __ldg(row + j) : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    float qx[kPts], qy[kPts], qz[kPts], nx[kPts], ny[kPts], nz[kPts];
-    int code[kPts];
-#pragma unroll
-    for (int k = 0; k < kPts; ++k) {
-      code[k] = cascade(v[k], px[k], py[k], pz[k], qx[k], qy[k], qz[k]);
-      if (kWholeRow) {
-        pn_select(v[k], code[k], nx[k], ny[k], nz[k]);
-      } else {
-        nx[k] = v[k][2].y; ny[k] = v[k][2].z; nz[k] = v[k][2].w;
-      }
-    }
-    if (!kWholeRow) {     // the features' pseudo-normals, all in flight
-#pragma unroll
-      for (int k = 0; k < kPts; ++k) {
-        if (code[k] != 6 && ok[k]) {
-          const float* pn = rows + (int64_t)r[k] * stride + pn_lane(code[k]);
-          nx[k] = __ldg(pn); ny[k] = __ldg(pn + 1); nz[k] = __ldg(pn + 2);
-        }
-      }
-    }
-    float d[kPts];
-#pragma unroll
-    for (int k = 0; k < kPts; ++k) {
-      const float dx = __fsub_rn(px[k], qx[k]), dy = __fsub_rn(py[k], qy[k]),
-                  dz = __fsub_rn(pz[k], qz[k]);
-      const float dist = __fsqrt_rn(dot3(dx, dy, dz, dx, dy, dz));
-      d[k] = dot3(nx[k], ny[k], nz[k], dx, dy, dz) >= 0.f ? dist : -dist;
-    }
-    const I b0 = grp * kPts;
-    bool stored = false;
-    if constexpr (kPts > 1) {
-      if (vec && b0 + kPts <= B) {
-        if constexpr (kPts == 4) {
-          reinterpret_cast<float4*>(out)[grp] = make_float4(d[0], d[1], d[2],
-                                                            d[3]);
-          if (feat != nullptr)
-            reinterpret_cast<char4*>(feat)[grp] = make_char4(
-                (char)code[0], (char)code[1], (char)code[2], (char)code[3]);
-        } else {
-          reinterpret_cast<float2*>(out)[grp] = make_float2(d[0], d[1]);
-          if (feat != nullptr)
-            reinterpret_cast<char2*>(feat)[grp] = make_char2((char)code[0],
-                                                             (char)code[1]);
-        }
-        stored = true;
-      }
-    }
-    if (!stored) {
-#pragma unroll
-      for (int k = 0; k < kPts; ++k) {
-        if (b0 + k < B) {
-          out[b0 + k] = d[k];
-          if (feat != nullptr) feat[b0 + k] = (int8_t)code[k];
-        }
-      }
-    }
-    if (grp + step < groups)
-      load_group<I>(pts, idx, B, vec, grp + step, px, py, pz, r);
-  }
-}
-
-// the resident blocks of the card for instantiation I (the device current
-// at the first call)
-template <typename I>
-int wave_blocks() {
-  static const int blocks = [] {
-    int dev = 0, sms = 0, per_sm = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess
-        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
-               != cudaSuccess
-        || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &per_sm, signed_from_best_kernel<I>, kThreads, 0)
-               != cudaSuccess)
-      return 0;
-    return sms * per_sm;
-  }();
-  return blocks;
-}
-
-template <typename I>
-int launch(const float* rows, int64_t n_rows, int64_t stride,
-           const int32_t* idx, const float* pts, int64_t B, bool vec,
-           float* out, int8_t* feat, cudaStream_t stream) {
-  const int wave = wave_blocks<I>();
-  if (wave < 1) return (int)cudaErrorInvalidConfiguration;
-  const int64_t groups = (B + kPts - 1) / kPts;
-  const int64_t need = (groups + kThreads - 1) / kThreads;
-  const unsigned blocks = (unsigned)(kOneWave && need > wave ? wave : need);
-  signed_from_best_kernel<I><<<blocks, kThreads, 0, stream>>>(
-      rows, n_rows, stride, idx, pts, (I)B, vec, out, feat);
-  return (int)cudaGetLastError();
-}
-
-bool aligned(const void* p, uintptr_t a) { return (uintptr_t)p % a == 0; }
 
 }  // namespace
 
+// rows: (n_rows, >= 30) f32, lanes contiguous, rows 16-byte aligned (row
+// stride a multiple of 4 floats); idx: (B,) int32; pts: (B, 3) f32
+// contiguous; out: (B,) f32; feat: (B,) int8 or null.
 extern "C" int hpsdf_signed_from_best(const float* rows, int64_t n_rows,
                                       int64_t stride, const int32_t* idx,
                                       const float* pts, int64_t B,
                                       float* out, int8_t* feat,
                                       void* stream) {
-  if (stride % 4 != 0 || !aligned(rows, 16))
+  if (stride % 4 != 0 || (uintptr_t)rows % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   if (B == 0) return 0;
-  const bool vec = aligned(pts, 4 * kPts) && aligned(idx, 4 * kPts)
-                   && aligned(out, 4 * kPts) && aligned(feat, kPts);
-  // 32-bit offsets where the coordinates' 3 B (and a group past B) fit
-  if (3 * (B + kPts) <= INT32_MAX)
-    return launch<int32_t>(rows, n_rows, stride, idx, pts, B, vec, out, feat,
-                           (cudaStream_t)stream);
-  return launch<int64_t>(rows, n_rows, stride, idx, pts, B, vec, out, feat,
-                         (cudaStream_t)stream);
+  const int64_t blocks = (B + kThreads - 1) / kThreads;
+  signed_from_best_kernel<<<(unsigned)blocks, kThreads, 0,
+                            (cudaStream_t)stream>>>(rows, n_rows, stride, idx,
+                                                    pts, B, out, feat);
+  return (int)cudaGetLastError();
 }

@@ -315,7 +315,7 @@ def chunk_terms_plain(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
 
 
 def chunk_terms_vjp_plain(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
-                          eikonal_weight, depth_weight, go=1.0):
+                          eikonal_weight, depth_weight, go):
     """The VJP of a chunk's loss, whatever the device: chunk_terms_plain's
     (df, dg, dt), each times go (the loss's cotangent: a number or a 0-d
     tensor, taken as f32) as torch's df * go rounds it."""
@@ -392,18 +392,17 @@ inverse_loss_kernel.launches = 0
 
 
 def inverse_vjp_kernel(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
-                       eikonal_weight, depth_weight, go=None):
+                       eikonal_weight, depth_weight, go):
     """K13's terms backward (csrc/inverse_terms.cu): ``chunk_terms_vjp_plain``
     bit for bit on CUDA tensors, (df, dg, dt) in one launch. ``go``: the
-    loss's cotangent, a 0-d f32 tensor on the card (read there: no sync),
-    or None for 1."""
+    loss's cotangent, one value in a tensor on the card (read there as f32:
+    no sync)."""
     f, g, th, hit, t, tt, dn, surf_n = _terms_args(
         f, g, th, hit, t, tt, dn, surf_n, "inverse_vjp_kernel")
-    if go is not None:
-        if go.numel() != 1 or go.device != f.device:
-            raise ValueError(f"inverse_vjp_kernel: go {tuple(go.shape)} on "
-                             f"{go.device}, not one value on {f.device}")
-        go = go.to(torch.float32).contiguous()
+    if go.numel() != 1 or go.device != f.device:
+        raise ValueError(f"inverse_vjp_kernel: go {tuple(go.shape)} on "
+                         f"{go.device}, not one value on {f.device}")
+    go = go.to(torch.float32).contiguous()
     df, dg, dt = torch.empty_like(f), torch.empty_like(g), torch.empty_like(t)
     lib = _kernels.load()
     _kernels.check(lib, lib.hpsdf_inverse_vjp(
@@ -411,7 +410,7 @@ def inverse_vjp_kernel(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
         t.data_ptr(), tt.data_ptr(), t.shape[0], surf_n.data_ptr(),
         dn.data_ptr(), *_weights(surface_weight, eikonal_weight,
                                  depth_weight),
-        None if go is None else go.data_ptr(), df.data_ptr(), dg.data_ptr(),
+        go.data_ptr(), df.data_ptr(), dg.data_ptr(),
         dt.data_ptr(), _kernels.stream_of(f)), "inverse_vjp")
     inverse_vjp_kernel.launches += 1
     return df, dg, dt
@@ -432,14 +431,14 @@ def chunk_terms_loss(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
 
 
 def chunk_terms_vjp(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
-                    eikonal_weight, depth_weight, go=None):
-    """(df, dg, dt) of a chunk times ``go`` (None: 1): K13's terms backward
-    on CUDA tensors, ``chunk_terms_vjp_plain`` on CPU tensors."""
+                    eikonal_weight, depth_weight, go):
+    """(df, dg, dt) of a chunk times ``go``: K13's terms backward on CUDA
+    tensors, ``chunk_terms_vjp_plain`` on CPU tensors."""
     args = (f, g, th, hit, t, tt, dn, surf_n, surface_weight,
             eikonal_weight, depth_weight)
     if f.device.type == "cpu":
-        return chunk_terms_vjp_plain(*args, 1.0 if go is None else go)
-    return inverse_vjp_kernel(*args, go=go)
+        return chunk_terms_vjp_plain(*args, go)
+    return inverse_vjp_kernel(*args, go)
 
 
 def chunk_terms(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
@@ -452,7 +451,7 @@ def chunk_terms(f, g, th, hit, t, tt, dn, surf_n, surface_weight,
     if f.device.type == "cpu":
         return chunk_terms_plain(*args)
     return (inverse_loss_kernel(*args, scratch=scratch),
-            *inverse_vjp_kernel(*args))
+            *inverse_vjp_kernel(*args, torch.ones((), device=f.device)))
 
 
 class _ChunkTerms(torch.autograd.Function):

@@ -103,12 +103,10 @@ def _signed_from_best(tri_rows, best_idx, p):
 
 
 def signed_from_best_kernel(tri_rows, best_idx, p, with_feature=False):
-    """K14 (csrc/sign.cu): one launch, a point a thread in one wave of
-    resident blocks, the best row's lanes read straight from ``tri_rows``;
-    bit for bit the kernel it replaced (csrc/check/sign_reference.cu).
-    Refuses tensors off the card and indices that are not int32. With
-    ``with_feature`` also returns the closest feature's code (B,) int8
-    (``tri.FEAT_*``)."""
+    """K14 (csrc/sign.cu): one launch, a thread a point, reading the best
+    row's lanes straight from ``tri_rows``. Refuses tensors off the card
+    and indices that are not int32. With ``with_feature`` also returns the
+    closest feature's code (B,) int8 (``tri.FEAT_*``)."""
     if best_idx.dim() != 1 or best_idx.shape[0] != p.shape[0] \
             or best_idx.dtype != torch.int32 \
             or best_idx.device != p.device:

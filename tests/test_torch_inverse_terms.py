@@ -163,7 +163,7 @@ def test_vjp_plain_is_the_cotangents_times_go(n, seed, weights, go):
         TI.chunk_terms_vjp(*args, go=go32), got))
     if go == 1.0:
         assert all(torch.equal(a, b) for a, b in zip(
-            TI.chunk_terms_vjp(*args), (df, dg, dt)))
+            TI.chunk_terms_vjp(*args, go=1.0), (df, dg, dt)))
 
 
 def test_chunk_terms_function_backward_is_the_vjp_plain():
@@ -204,7 +204,8 @@ def test_cpu_route_launches_nothing_and_kernels_refuse_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         TI.inverse_loss_kernel(*args, *WEIGHTS["defaults"])
     with pytest.raises(ValueError, match="CUDA"):
-        TI.inverse_vjp_kernel(*args, *WEIGHTS["defaults"])
+        TI.inverse_vjp_kernel(*args, *WEIGHTS["defaults"],
+                              go=torch.tensor(1.0))
 
 
 @pytest.mark.parametrize("param_space", ["folded", "raw"])

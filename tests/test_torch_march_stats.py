@@ -204,8 +204,8 @@ def test_lod_tables_stay_with_the_packed_tree(trees):
 
 
 def test_reference_kernel_is_on_no_path():
-    """The kernels K3, K4, K7, G's backward, K8, K11, K6, K14 and K13's
-    terms replaced are built into a library of their own, which no module
+    """The kernels K3, K4, K7, G's backward, K8, K11, K6 and K13's terms
+    replaced are built into a library of their own, which no module
     of the package loads: only chip_smoke.py does, to hold the shipped
     kernels to them."""
     import glob
@@ -219,7 +219,7 @@ def test_reference_kernel_is_on_no_path():
         "march_reference.cu", "packed_grad_reference.cu",
         "row_scatter_reference.cu", "coeff_scatter_reference.cu",
         "cone_reference.cu", "bvh_walk_reference.cu", "fit_reference.cu",
-        "sign_reference.cu", "inverse_terms_reference.cu"}
+        "inverse_terms_reference.cu"}
     assert not main & check
     assert _kernels.library_path("check") != _kernels.library_path()
     pkg = os.path.dirname(_kernels.__file__)

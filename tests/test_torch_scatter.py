@@ -259,7 +259,6 @@ def test_ctypes_signatures_match_the_sources():
     assert {"hpsdf_fit_points", "hpsdf_fit_project",
             "hpsdf_fit_project_shape"} <= set(_kernels._SIGNATURES)
     assert {"hpsdf_fit_points_reference", "hpsdf_fit_project_reference",
-            "hpsdf_signed_from_best_reference",
             "hpsdf_inverse_terms_reference"} \
         <= set(_kernels._CHECK_SIGNATURES)
     # K13's terms: the forward (the loss) and the backward (the VJP) in

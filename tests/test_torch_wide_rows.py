@@ -127,7 +127,7 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                                    "K9u", "chunk", "rows", "K10", "K11",
                                    "round", "leaf", "K8 nodes", "K14",
                                    "K13", "K6", "K6 points", "K13 vjp",
-                                   "K14 ref", "K13 ref"],
+                                   "K13 ref"],
                          ids=["clean", "spills", "march_spills",
                               "backward_spills", "csr_spills",
                               "fused_spills", "cg_spills", "chunk_spills",
@@ -136,7 +136,6 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                               "node_scatter_spills", "sign_spills",
                               "inverse_terms_spills", "fit_project_spills",
                               "fit_points_spills", "inverse_vjp_spills",
-                              "sign_reference_spills",
                               "inverse_terms_reference_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
@@ -147,11 +146,11 @@ def test_ptxas_check(monkeypatch, spill):
     persistent launch, both forms of each of the row-sharded CG's two K9u
     launches), K10 (either level count), K11, K1's node-range descent
     round, its leaf evaluation or K8's node-range mode (at degree 3 or 5),
-    K14 (either offset type), any launch of K13 (the points, the terms'
-    loss forward or VJP backward), either of K6's launches (at any degree
-    2..11, f64 or f32), or, in the check library's report, K14 or K13's
-    terms as they were before their redesign has a stack frame or spills;
-    every instantiation of K6's two kernels must be in the report."""
+    K14, any launch of K13 (the points, the terms' loss forward or VJP
+    backward), either of K6's launches (at any degree 2..11, f64 or f32),
+    or, in the check library's report, K13's terms as they were before
+    their redesign has a stack frame or spills; every instantiation of
+    K6's two kernels must be in the report."""
     from hpsdf_tpu_torch import _kernels
 
     report = "".join(
@@ -213,10 +212,8 @@ def test_ptxas_check(monkeypatch, spill):
         report += _ptxas_entry("coeff_scatter_nodes_kernel", d, None,
                                regs=40, stack=16 if spill == "K8 nodes"
                                and d == 3 else 0)
-    for t in "il":
-        report += _ptxas_entry("signed_from_best_kernel", 0, None, args=t,
-                               regs=40,
-                               stack=8 if spill == "K14" and t == "l" else 0)
+    report += _ptxas_entry("signed_from_best_kernel", 0, None, args="",
+                           regs=40, stack=8 if spill == "K14" else 0)
     report += _ptxas_entry("inverse_points_kernel", 0, None, args="",
                            regs=32)
     report += _ptxas_entry("inverse_loss_kernel", 0, None, args="",
@@ -224,9 +221,6 @@ def test_ptxas_check(monkeypatch, spill):
     report += _ptxas_entry("inverse_vjp_kernel", 0, None, args="",
                            regs=40, stack=8 if spill == "K13 vjp" else 0)
     check_report = _ptxas_entry(
-        "signed_from_best_reference_kernel", 0, None, args="", regs=43,
-        stack=8 if spill == "K14 ref" else 0)
-    check_report += _ptxas_entry(
         "inverse_terms_reference_kernel", 0, None, args="", regs=40,
         stack=8 if spill == "K13 ref" else 0)
     for t in "df":
@@ -254,10 +248,9 @@ def test_ptxas_check(monkeypatch, spill):
                 "round": "K1 node round -: stack 8",
                 "leaf": "K1 node leaf 5: stack 8",
                 "K8 nodes": "K8 nodes 3: stack 16",
-                "K14": "K14 int64: stack 8",
+                "K14": "K14 -: stack 8",
                 "K13": "K13 loss -: stack 8",
                 "K13 vjp": "K13 vjp -: stack 8",
-                "K14 ref": "K14 reference -: stack 8",
                 "K13 ref": "K13 terms reference -: stack 8",
                 "K6": "K6 proj 5/f32: stack 16",
                 "K6 points": "K6 points 7/f64: stack 8"}[spill]):
@@ -279,12 +272,10 @@ def test_ptxas_check(monkeypatch, spill):
     assert found["cone_kernel"] == {k: [40, 0, 0, 0]
                                     for k in ("3/full", "5/full", "2/lo")}
     assert found["cg_matvec_kernel"] == {"-": [32, 0, 0, 0]}
-    assert found["signed_from_best_kernel"] == {"int32": [40, 0, 0, 0],
-                                                "int64": [40, 0, 0, 0]}
+    assert found["signed_from_best_kernel"] == {"-": [40, 0, 0, 0]}
     assert found["inverse_points_kernel"] == {"-": [32, 0, 0, 0]}
     assert found["inverse_loss_kernel"] == {"-": [40, 0, 0, 0]}
     assert found["inverse_vjp_kernel"] == {"-": [40, 0, 0, 0]}
-    assert found["signed_from_best_reference_kernel"] == {"-": [43, 0, 0, 0]}
     assert found["inverse_terms_reference_kernel"] == {"-": [40, 0, 0, 0]}
     assert found["fit_points_kernel"] == {
         f"{d}/{t}": [27, 0, 0, 0] for d in range(2, 12)
