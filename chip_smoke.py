@@ -326,10 +326,11 @@ K13_PLAIN_RTOL = 1e-6
 K13_POINT_LAUNCHES, K13_TERM_LAUNCHES, K14_LAUNCHES = 1, 2, 1
 # the operations on the card of a 1080p inverse step with K13's terms as
 # they were before their redesign (a launch forward, three torch scalings
-# backward), as an H100 run of this script counted them; the redesign cuts
-# 2 a chunk, which [inverse] checks against the replaced terms in the same
-# run
-K13_REPLACED_STEP_OPS = 796
+# backward), as an H100 run of this script counted them (796 with the
+# optimizer step's user-annotation span, which device_ops leaves out); the
+# redesign cuts 2 a chunk, which [inverse] checks against the replaced
+# terms in the same run
+K13_REPLACED_STEP_OPS = 795
 # K6 against its plain version: each coefficient within K6_RTOL of its
 # cell's largest |c| (the einsums and the kernel sum in other orders); each
 # err within 40 K6_RTOL sqrt(err) max|c| + 10 K6_RTOL err, which follows from
@@ -1457,6 +1458,36 @@ def phase_k6_ops(calls):
     return {"launches_a_chunk": ops, "plain_launches_a_chunk": plain}
 
 
+def phase_k8n_ops(tree, dev):
+    """The operations a call of K8's node-range mode puts on the card
+    (torch.profiler) at the train step's shape (rank 0's half of the slice
+    tree at NODE_STEP_POINTS points in [-0.4, 0.4]^3): at least one and at
+    most K8N_LAUNCHES, the kernel it replaced, as its wrapper called it,
+    beside them.
+    Taken after [grad] (an early trace leaves later ones empty)."""
+    from hpsdf_tpu_torch import parallel as P
+    from hpsdf_tpu_torch.query import (_to_unit, coeff_scatter_nodes_kernel,
+                                       descend, node_buckets_kernel)
+
+    counts = (coeff_scatter_nodes_kernel.launches,
+              node_buckets_kernel.launches)
+    pts = torch.as_tensor(np.random.default_rng(43).uniform(
+        -0.4, 0.4, (NODE_STEP_POINTS, 3)), device=dev)
+    leaves = descend(tree, _to_unit(tree, pts).clamp(-0.5, 0.5))
+    w = torch.ones(NODE_STEP_POINTS, dtype=torch.float64, device=dev)
+    blk = P.node_block(tree, 2, 0)
+    ops = device_ops(lambda: coeff_scatter_nodes_kernel(blk, pts, leaves, w))
+    replaced = device_ops(lambda: coeff_scatter_nodes_reference(
+        blk, pts, leaves, w))
+    coeff_scatter_nodes_kernel.launches, node_buckets_kernel.launches = counts
+    check(1 <= ops <= K8N_LAUNCHES, f"a call of K8's node-range mode put "
+          f"{ops} operations on the card (at most {K8N_LAUNCHES})")
+    print(f"[k8 nodes ops] a call of K8's node-range mode: {ops} operations "
+          f"on the card, the kernel it replaced {replaced} (the output's "
+          f"memset and a launch)", flush=True)
+    return {"launches_a_call": ops, "replaced_launches_a_call": replaced}
+
+
 def cold_child(mode):
     """A fresh process's first slice build and a second one, split by
     phase (``split_again``), with K6 (``mode`` "k6") or its plain versions
@@ -1524,7 +1555,9 @@ def counters():
     row-sharded CG's K9 partial mode and K9u's two launches
     (``cg_matvec_rows``, ``cg_update_rows``, ``cg_direction``) each count
     only their own kernel's launches; K1's node-range mode
-    (``query_nodes``) counts its descent rounds and leaf evaluations."""
+    (``query_nodes``) counts its descent rounds and leaf evaluations; K8's
+    node-range mode its tile launches (``coeff_scatter_nodes``) and, apart,
+    its sort's (``node_buckets``)."""
     from hpsdf_tpu_torch.accel import (packed_eval_kernel, packed_grad_kernel,
                                        row_gather, row_scatter)
     from hpsdf_tpu_torch.build import fit_points_kernel, fit_project_kernel
@@ -1539,7 +1572,8 @@ def counters():
                                       signed_from_best_kernel)
     from hpsdf_tpu_torch.query import (coeff_scatter_kernel,
                                        coeff_scatter_nodes_kernel,
-                                       query_kernel, query_nodes_kernel)
+                                       node_buckets_kernel, query_kernel,
+                                       query_nodes_kernel)
     from hpsdf_tpu_torch.render import cone_kernel, march_kernel
     return {"closest_tri": (closest_tri_tiles, "launches"),
             "hybrid": (hybrid_closest, "launches"),
@@ -1558,6 +1592,7 @@ def counters():
             "coeff_scatter": (coeff_scatter_kernel, "launches"),
             "query_nodes": (query_nodes_kernel, "launches"),
             "coeff_scatter_nodes": (coeff_scatter_nodes_kernel, "launches"),
+            "node_buckets": (node_buckets_kernel, "launches"),
             "cg_matvec": (cg_matvec, "launches"),
             "cg_update": (cg_update, "launches"),
             "cg_chunk": (_chunk_launch, "launches"),
@@ -3610,24 +3645,32 @@ def row_scatter_reference(d_out, idx, n):
     return out
 
 
-def device_ops(fn, tries=3):
+def device_ops(fn, tries=4):
     """The operations (kernels, memsets, copies) one call of fn() puts on
-    the card, counted by torch.profiler: what the host launches a call. A
-    trace that holds no device operation at all is taken again, up to
-    ``tries`` times (0 if none holds one)."""
+    the card, counted by torch.profiler: the trace's device activities,
+    its user-annotation spans (a record_function's range drawn on the
+    device's timeline, no operation) left out. The call is traced until two
+    traces that hold an operation agree (a trace can lose a record), up to
+    ``tries`` times, and the check fails if no two agree; 0 if no trace
+    holds one."""
     from torch.profiler import ProfilerActivity, profile
 
+    cuda = torch.autograd.DeviceType.CUDA
     fn()
     sync()
+    counts = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             sync()
-        n = sum(1 for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-        if n:
+        n = sum(1 for e in prof.events() if e.device_type == cuda
+                and not getattr(e, "is_user_annotation", False))
+        if n and n in counts:
             return n
+        counts.append(n)
+    check(not any(counts), f"no two traces of a call agree on its "
+          f"operations on the card: {counts}")
     return 0
 
 
@@ -4194,9 +4237,10 @@ def phase_degrees(dev, seed=7):
     points and its trace form on K3's rays against autograd of the plain
     versions (the trace on its well-posed rays, trace_well_posed) and
     the kernel it replaced, and the fused mode against modes 0 and 2 bit
-    for bit. Returns (max K2 error, min K5 dot, max K1 value
-    error, max K1 gradient error, max K3 t error on common hits, max K7
-    error, max K8 error)."""
+    for bit; K8's node-range mode on two blocks, in tiles of its own rows
+    and of two, against its plain version. Returns (max K2 error, min K5
+    dot, max K1 value error, max K1 gradient error, max K3 t error on
+    common hits, max K7 error, max K8 error)."""
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch import tree as TT
     from hpsdf_tpu_torch.accel import (F32_MAX, NORMALS, RAW_GRAD, VALUES,
@@ -4206,8 +4250,12 @@ def phase_degrees(dev, seed=7):
                                        point_gradient_vjp_plain,
                                        query_packed_plain, values_at_plain,
                                        values_at_vjp_plain)
-    from hpsdf_tpu_torch.query import (OUTSIDE_VALUE, coeff_scatter_kernel,
-                                       query_kernel, query_plain,
+    from hpsdf_tpu_torch import parallel as P
+    from hpsdf_tpu_torch.query import (OUTSIDE_VALUE, _coeff_scatter_nodes,
+                                       _to_unit, coeff_scatter_kernel,
+                                       coeff_scatter_nodes_plain, descend,
+                                       node_tile_rows, query_kernel,
+                                       query_plain,
                                        query_vjp_plain,
                                        query_with_gradient_plain)
     from hpsdf_tpu_torch.render import (CONE_TILE, HIT_EPS, MAX_STEPS,
@@ -4228,7 +4276,7 @@ def phase_degrees(dev, seed=7):
     pad = 0.1 * (hi - lo)
     rng = np.random.default_rng(seed)
     rng7 = np.random.default_rng(seed + 100)         # K7's cotangents
-    k2_err = k1_err = k1g_err = k7_err = k8_err = 0.0
+    k2_err = k1_err = k1g_err = k7_err = k8_err = k8n_err = 0.0
     k8_well = 1.0
     k5_dot = 1.0
     for deg in range(13):
@@ -4327,6 +4375,17 @@ def phase_degrees(dev, seed=7):
                 rel_err(got, coeff_scatter_reference(tree, w64, **kw)))
         check(e <= GRAD_RTOL64, f"K8 (f64 query) vs autograd of the plain "
               f"version and the kernel it replaced at degree {deg}: {e:.3e}")
+        # K8's node-range mode on two blocks, in tiles of node_tile_rows and
+        # of two rows, against its plain version
+        lv = descend(tree, _to_unit(tree, p64).clamp(-0.5, 0.5))
+        for b in (P.node_block(tree, 2, r) for r in range(2)):
+            want = coeff_scatter_nodes_plain(b, p64, lv, w64, True)
+            for T_ in (node_tile_rows(deg, b.hi - b.lo), 2):
+                en = rel_err(_coeff_scatter_nodes(b, p64, lv, w64, True, T_),
+                             want)
+                check(en <= GRAD_RTOL64, f"K8's node-range mode vs plain at "
+                      f"degree {deg}, tiles of {T_} rows: {en:.3e}")
+                k8n_err = max(k8n_err, en)
         # the trace form against the kernel it replaced on every ray, and
         # against the plain version on the well-posed rays
         # (trace_well_posed; the others take dt = 0 there): on the rest two
@@ -4370,14 +4429,16 @@ def phase_degrees(dev, seed=7):
           f"replaced bit for bit; K8 both forms (the trace on K3's rays) "
           f"max|kernel - plain or replaced| / max|plain or replaced| "
           f"{k8_err:.3e} (the trace against plain on its well-posed hits, "
-          f"at least {k8_well:.3f} of them); the fused mode bit-equal to "
+          f"at least {k8_well:.3f} of them), its node-range mode on two "
+          f"blocks against plain {k8n_err:.3e}; the fused mode bit-equal to "
           f"modes 0 and 2; K4 on the rays' {CONE_TILE}x{CONE_TILE} tiles "
           f"(full rows, and LOD rows from degree 4): t0 equal to the kernel "
           f"it replaced bit for bit; against plain, max|t0 - plain| "
           f"{k4_t0_err:.3e}, rounds differ on {k4_rounds_differ} of "
           f"{k4_tiles} tiles, k up to {k4_k}",
           flush=True)
-    return k2_err, k5_dot, k1_err, k1g_err, k3_err, k7_err, k8_err
+    return k2_err, k5_dot, k1_err, k1g_err, k3_err, k7_err, max(k8_err,
+                                                                 k8n_err)
 
 
 # --- [continuity] ----------------------------------------------------------
@@ -5777,8 +5838,15 @@ NODE_DEPTH = 7
 NODE_SEED = 0
 NODE_SPLITS = (1, 2, 3)             # blocks summed on one rank
 NODE_STEP_POINTS = 1 << 16          # the node-sharded train steps' points
+# points past two windows of the sort's segments (csrc/coeff_scatter.cu's
+# kSegWindow of kSortPoints points each)
+NODE_MANY_POINTS = 3 << 22
 NODE_STEP_LR = 1e-4
 NODE_STEP_ATOL = 1e-12              # tests/test_parallel.py:62-84
+# the operations a call of K8's node-range mode may put on the card (the
+# kernel it replaced: the output's memset and a launch; now the sort and
+# the tiles)
+K8N_LAUNCHES = 3
 
 
 def complete_tree(depth, seed, device):
@@ -5833,24 +5901,174 @@ def node_points(n, seed, device):
         -0.5, 0.5, (n, 3)), device=device)
 
 
-def phase_node_modes(dev, smi, seed=NODE_SEED):
+def bucket_records(sort):
+    """A node-range sort's listed points (``node_buckets_kernel``'s or
+    ``node_buckets_plain``'s (offsets, items)) in one order: each place's
+    run (segment-major: segment g, tile t is run g n_tiles + t) and its
+    item (point index, row within the tile), sorted by run and index; None
+    where the runs are not all of size zero or more and within their
+    segments."""
+    from hpsdf_tpu_torch.query import NODE_SORT_POINTS
+
+    offsets, items = sort
+    o = offsets.long().T                            # (n_tiles + 1, G)
+    n_tiles, G = o.shape[0] - 1, o.shape[1]
+    runs = (o[1:] - o[:-1]).T.flatten()            # segment-major
+    if bool((runs < 0).any()) or bool((o[0] != 0).any()) \
+            or bool((o[-1] > NODE_SORT_POINTS).any()):
+        return None
+    first = (torch.arange(G, device=o.device)[:, None] * NODE_SORT_POINTS
+             + o[:-1].T).flatten()
+    run = torch.repeat_interleave(torch.arange(
+        runs.numel(), device=o.device), runs)
+    pos = first[run] + torch.arange(run.numel(), device=o.device) \
+        - (torch.cumsum(runs, 0) - runs)[run]
+    it = items[pos].long()
+    order = torch.sort(run * (items.shape[0] + 1) + it[:, 0]).indices
+    return run[order], it[order]
+
+
+def buckets_match(kernel, plain):
+    """The kernel's node-range sort against ``node_buckets_plain``'s: the
+    same offsets, and each run the same points, each with the same row
+    within its tile, in any order within the run."""
+    if not torch.equal(kernel[0].cpu(), plain[0].cpu()):
+        return False
+    got, want = bucket_records(kernel), bucket_records(plain)
+    return got is not None and all(torch.equal(a.cpu(), b.cpu())
+                                   for a, b in zip(got, want))
+
+
+def k8n_teeth(got, want, block, pts, leaf, w, tile_rows):
+    """K8's node-range check against two wrong results made from the
+    kernel's own: the sums of the tile that holds the largest entry dropped,
+    and the largest term of the point with the largest |w| among those the
+    block holds counted twice. Returns whether each was caught (its error
+    beyond GRAD_RTOL64)."""
+    from hpsdf_tpu_torch.query import coeff_scatter_nodes_plain
+
+    dropped = got.clone()
+    row = int(want.abs().amax(1).argmax())
+    t0 = row // tile_rows * tile_rows
+    dropped[t0: t0 + tile_rows] = 0.0
+    n = leaf.long() - block.lo
+    held = (n >= 0) & (n < block.hi - block.lo)
+    p = int(torch.where(held, w.abs(), -1.0).argmax())
+    one = coeff_scatter_nodes_plain(block, pts[p: p + 1], leaf[p: p + 1],
+                                    w[p: p + 1])
+    r, m = divmod(int(one.abs().argmax()), one.shape[1])
+    doubled = got.clone()
+    doubled[r, m] += one[r, m]
+    return [rel_err(x, want) > GRAD_RTOL64 for x in (dropped, doubled)]
+
+
+def coeff_scatter_nodes_reference(block, pts, leaf, w,
+                                  outside_value_max=False):
+    """K8's node-range mode as it was before its redesign
+    (csrc/check/coeff_scatter_nodes_reference.cu), called as its wrapper
+    called it: the (hi - lo, C) output zeroed, then one launch."""
+    from hpsdf_tpu_torch import _kernels, consts
+
+    out = torch.zeros((block.hi - block.lo, consts.coeff_count(
+        block.deg_used)), dtype=torch.float64, device=pts.device)
+    if pts.shape[0] == 0 or block.hi <= block.lo:
+        return out
+    rc = block.config.root_centre
+    inv = 1.0 / block.config.root_sizes
+    rc_ = _kernels.load_check().hpsdf_coeff_scatter_nodes_reference(
+        block.centre.data_ptr(), block.depth.data_ptr(), block.deg_used,
+        block.lo, block.hi, pts.data_ptr(), leaf.data_ptr(), pts.shape[0],
+        *map(float, rc), *map(float, inv), w.data_ptr(),
+        int(outside_value_max), out.data_ptr(), _kernels.stream_of(pts))
+    _kernels.check(_kernels.load(), rc_, "coeff_scatter_nodes_reference")
+    return out
+
+
+def k8n_shape(block, pts, leaf, w, label):
+    """K8's node-range mode at one block: the kernel and the one it replaced
+    (``coeff_scatter_nodes_reference``) in CUDA graphs in turns, the sort
+    alone, the plain versions by events, and the bound on
+    the bytes these points need (a point whose leaf lies in another block
+    its leaf, 4 B; one the block holds its cotangent too and, where that is
+    not zero, its coordinates: 12 or 36 B; the block's distinct leaves'
+    depth and centre, 28 B; its rows written) or the live points' f64
+    operations, the larger."""
+    from hpsdf_tpu_torch import consts
+    from hpsdf_tpu_torch.query import (NODE_SORT_POINTS,
+                                       coeff_scatter_nodes_kernel,
+                                       coeff_scatter_nodes_plain,
+                                       node_buckets_kernel,
+                                       node_buckets_plain, node_tile_rows)
+
+    rows = block.hi - block.lo
+    n = leaf.long() - block.lo
+    held = (n >= 0) & (n < rows)
+    live = held & (w != 0)
+    T = node_tile_rows(block.deg_used, rows)
+    t = turns({"ms": lambda: coeff_scatter_nodes_kernel(block, pts, leaf, w),
+               "replaced_ms": lambda: coeff_scatter_nodes_reference(
+                   block, pts, leaf, w)}, 10)
+    t["buckets_ms"] = graph_ms(lambda: node_buckets_kernel(
+        block, pts, leaf, w), 10)
+    t["plain_ms"] = time_ms(lambda: coeff_scatter_nodes_plain(
+        block, pts, leaf, w), 3)
+    t["buckets_plain_ms"] = time_ms(lambda: node_buckets_plain(
+        block, pts, leaf, w), 3)
+    # the sort's bytes: each point's leaf and cotangent read, each live
+    # point's (index, row) written, an offset a tile and segment
+    b_bytes = pts.shape[0] * 12 + int(live.sum()) * 8 + 4 * (
+        -(-rows // T) + 1) * -(-pts.shape[0] // NODE_SORT_POINTS)
+    t["buckets_bound_ms"] = bytes_ms(extra=b_bytes)
+    leaves = torch.unique(leaf[held]).numel()
+    nbytes = pts.shape[0] * 4 + int(held.sum()) * 8 + int(live.sum()) * 24 \
+        + leaves * 28 + rows * 8 * consts.coeff_count(block.deg_used)
+    ops = int(live.sum()) * k1_ops(block.deg_used, 0, False) / F64_PEAK * 1e3
+    t.update(label=label, tile_rows=T, points=pts.shape[0],
+             live=int(live.sum()), rows=rows, leaves=leaves, bytes=nbytes,
+             bytes_bound_ms=bytes_ms(extra=nbytes), ops_bound_ms=ops,
+             bound_ms=max(bytes_ms(extra=nbytes), ops),
+             bound_by="bytes" if bytes_ms(extra=nbytes) >= ops
+             else "operations")
+    t["share"] = t["bound_ms"] / t["ms"]
+    t["replaced_share"] = t["bound_ms"] / t["replaced_ms"]
+    return t
+
+
+def phase_node_modes(dev, smi, slice_tree, seed=NODE_SEED):
     """K1's and K8's node-range modes in one process, no collective, on the
     complete depth-NODE_DEPTH tree at 2^20 points: the tree split into 1, 2
     and 3 blocks (NODE_SPLITS), each block's descent rounds and leaf
     evaluation against their plain versions (the rounds exactly, the values
     within K1_VAL_ATOL) and summed, the leaves equal to the plain descent's,
     the values within K1_VAL_ATOL of K1's query (whether bit for bit is
-    recorded); K8's mode on each block against its plain version and, the
-    blocks concatenated, K8's query form within GRAD_RTOL64. Then at one
-    block, in CUDA graphs, each descent round, the leaf evaluation and K8's
-    mode, beside K1's query and K8's query form on the same tree and
-    points, the plain versions (by events) and the bounds. Prints a line;
-    returns the numbers. Its launches are not main-path launches."""
+    recorded); K8's mode on each block against its plain version and PR
+    16's kernel (``coeff_scatter_nodes_reference``) and, the blocks
+    concatenated, K8's query form within GRAD_RTOL64; its sort against
+    ``node_buckets_plain`` run by run (``buckets_match``), and two wrong
+    results caught (``k8n_teeth``). At 2 blocks also with the sentinel on
+    points straddling the root, and in tiles of two rows; at the train
+    step's shape with and without the sentinel, its two wrong results
+    caught. The tile rows
+    the wrapper gives each degree and its points a sort block equal the
+    kernel's (``node_tile_rows``, ``hpsdf_node_tile_rows``,
+    ``NODE_SORT_POINTS``). Then at one block, in CUDA graphs,
+    each descent round, the leaf evaluation and K8's mode, beside K1's
+    query and K8's query form on the same tree and points, the plain
+    versions (by events) and the bounds; K8's mode beside the kernel it
+    replaced at
+    five shapes (``k8n_shape``): one block, rank 0's of 2 and of 3 blocks,
+    and the train step's (rank 0's half of ``slice_tree`` at
+    NODE_STEP_POINTS points in [-0.4, 0.4]^3), and at one block and
+    NODE_MANY_POINTS points, there held to the kernel it replaced. Prints
+    two lines; returns the numbers. Its launches are not main-path
+    launches."""
     from hpsdf_tpu_torch import parallel as P
     from hpsdf_tpu_torch.query import (
-        OUTSIDE_VALUE, _to_unit, coeff_scatter_kernel,
+        OUTSIDE_VALUE, _coeff_scatter_nodes, _node_buckets,
+        _node_buckets_plain, _to_unit, coeff_scatter_kernel,
         coeff_scatter_nodes_kernel, coeff_scatter_nodes_plain, descend,
-        descend_round_plain, leaf_eval_plain, query_kernel,
+        descend_round_plain, leaf_eval_plain, node_buckets_kernel,
+        node_buckets_plain, node_tile_rows, query_kernel,
         query_nodes_kernel)
 
     counts = read_counts()
@@ -5864,9 +6082,19 @@ def phase_node_modes(dev, smi, seed=NODE_SEED):
     w = torch.randn(N_QUERY, generator=torch.Generator(device=dev)
                     .manual_seed(seed), dtype=torch.float64, device=dev)
     k8 = coeff_scatter_kernel(tree, w, pts=pts)
+    from hpsdf_tpu_torch import _kernels
+    from hpsdf_tpu_torch.query import NODE_SORT_POINTS
+    lib = _kernels.load()
+    rows_c = [lib.hpsdf_node_tile_rows(d) for d in range(13)]
+    check(rows_c == [node_tile_rows(d) for d in range(13)]
+          and lib.hpsdf_node_sort_points() == NODE_SORT_POINTS, f"K8's "
+          f"node-range shapes: the kernel's tile rows by degree {rows_c} and "
+          f"{lib.hpsdf_node_sort_points()} points a sort block, the "
+          f"wrapper's {[node_tile_rows(d) for d in range(13)]} and "
+          f"{NODE_SORT_POINTS}")
     errs = {"round": 0.0, "leaf": 0.0, "k1": 0.0, "k8": 0.0, "k8 query": 0.0,
-            "k8 abs": 0.0}
-    bit_for_bit = {}
+            "k8 abs": 0.0, "k8 replaced": 0.0}
+    bit_for_bit, teeth, buckets = {}, [], 0
     for k in NODE_SPLITS:
         blocks = [P.node_block(tree, k, r) for r in range(k)]
         cur = torch.zeros(N_QUERY, dtype=torch.int32, device=dev)
@@ -5892,17 +6120,55 @@ def phase_node_modes(dev, smi, seed=NODE_SEED):
         check(e <= K1_VAL_ATOL, f"the node-range query against K1, {k} "
               f"blocks: {e}")
         grads = [coeff_scatter_nodes_kernel(b, pts, cur, w) for b in blocks]
-        for b, g in zip(blocks, grads):
-            e = rel_err(g, coeff_scatter_nodes_plain(b, pts, cur, w))
+        for r, (b, g) in enumerate(zip(blocks, grads)):
+            want = coeff_scatter_nodes_plain(b, pts, cur, w)
+            e = rel_err(g, want)
             errs["k8"] = max(errs["k8"], e)
             check(e <= GRAD_RTOL64, f"K8's node-range mode against plain, "
                   f"{k} blocks: {e}")
+            e = rel_err(g, coeff_scatter_nodes_reference(b, pts, cur, w))
+            errs["k8 replaced"] = max(errs["k8 replaced"], e)
+            check(e <= GRAD_RTOL64, f"K8's node-range mode against the "
+                  f"kernel it replaced, {k} blocks: {e}")
+            check(buckets_match(node_buckets_kernel(b, pts, cur, w),
+                                node_buckets_plain(b, pts, cur, w)),
+                  f"K8's node-range sort against plain, {k} blocks, "
+                  f"block {r}")
+            buckets += 1
+            caught = k8n_teeth(g, want, b, pts, cur, w, node_tile_rows(
+                b.deg_used, b.hi - b.lo))
+            teeth.append(caught)
+            check(all(caught), f"K8's node-range check against a tile "
+                  f"dropped and a term doubled, {k} blocks: {caught}")
         g = torch.cat(grads)
         errs["k8 query"] = max(errs["k8 query"], rel_err(g, k8))
         errs["k8 abs"] = max(errs["k8 abs"], float((g - k8).abs().max()))
         check(errs["k8 query"] <= GRAD_RTOL64, f"K8's node-range mode "
               f"against its query form, {k} blocks: {errs['k8 query']}")
         del blocks, vals, grads, g
+
+    # at 2 blocks: the sentinel on points straddling the root, and tiles
+    # of two rows (a tile's count past a sort block's shared window)
+    wide = pts * 1.25
+    wide_leaves = descend(tree, _to_unit(tree, wide).clamp(-0.5, 0.5))
+    variants = 0
+    for b in (P.node_block(tree, 2, r) for r in range(2)):
+        for p_, lv, ovm, T_ in ((wide, wide_leaves, True,
+                                 node_tile_rows(b.deg_used, b.hi - b.lo)),
+                                (pts, leaves, False, 2)):
+            want = coeff_scatter_nodes_plain(b, p_, lv, w, ovm)
+            e = rel_err(_coeff_scatter_nodes(b, p_, lv, w, ovm, T_),
+                        want)
+            errs["k8"] = max(errs["k8"], e)
+            check(e <= GRAD_RTOL64, f"K8's node-range mode against plain, "
+                  f"2 blocks, sentinel {ovm}, tiles of {T_} rows: {e}")
+            check(buckets_match(
+                _node_buckets(b, p_, lv, w, ovm, T_),
+                _node_buckets_plain(b, p_, lv, w, ovm, T_)),
+                f"K8's node-range sort against plain, 2 blocks, sentinel "
+                f"{ovm}, tiles of {T_} rows")
+            variants += 1
+    del wide, wide_leaves
 
     # times at one block: the whole tree in the node-range modes
     blk = P.node_block(tree, 1, 0)
@@ -5913,12 +6179,9 @@ def phase_node_modes(dev, smi, seed=NODE_SEED):
               for c in curs[:-1]]
     leaf_ms = graph_ms(lambda: query_nodes_kernel(blk, clamped, leaves,
                                                   leaf=True), 20)
-    k8n_ms = graph_ms(lambda: coeff_scatter_nodes_kernel(blk, pts, leaves, w),
-                      10)
     t = {"rounds_ms": rounds, "leaf_ms": leaf_ms,
          "ms": sum(rounds) + leaf_ms,
          "k1_ms": graph_ms(lambda: query_kernel(tree, pts, False), 20),
-         "k8_ms": k8n_ms,
          "k8_query_ms": graph_ms(lambda: coeff_scatter_kernel(
              tree, w, pts=pts), 10)}
 
@@ -5929,31 +6192,79 @@ def phase_node_modes(dev, smi, seed=NODE_SEED):
         return leaf_eval_plain(blk, clamped, c)
 
     t["plain_ms"] = time_ms(plain_query, 3)
-    t["k8_plain_ms"] = time_ms(lambda: coeff_scatter_nodes_plain(
-        blk, pts, leaves, w), 3)
+    # K8's mode at five shapes
+    shapes = {"one block": k8n_shape(blk, pts, leaves, w, "one block")}
+    for k in (2, 3):
+        shapes[f"rank 0 of {k}"] = k8n_shape(P.node_block(tree, k, 0), pts,
+                                             leaves, w, f"rank 0 of {k}")
+    spts = torch.as_tensor(np.random.default_rng(43).uniform(
+        -0.4, 0.4, (NODE_STEP_POINTS, 3)), device=dev)
+    sleaves = descend(slice_tree, _to_unit(slice_tree, spts).clamp(-0.5, 0.5))
+    sw = torch.randn(NODE_STEP_POINTS, generator=torch.Generator(
+        device=dev).manual_seed(seed + 1), dtype=torch.float64, device=dev)
+    sblk = P.node_block(slice_tree, 2, 0)
+    # there with and without the sentinel on points straddling the root,
+    # and the wrong results
+    swide = spts * 1.6
+    swide_leaves = descend(slice_tree,
+                           _to_unit(slice_tree, swide).clamp(-0.5, 0.5))
+    for p_, lv, ovm in ((spts, sleaves, False), (swide, swide_leaves, True)):
+        want = coeff_scatter_nodes_plain(sblk, p_, lv, sw, ovm)
+        got = coeff_scatter_nodes_kernel(sblk, p_, lv, sw, ovm)
+        e = rel_err(got, want)
+        errs["k8"] = max(errs["k8"], e)
+        check(e <= GRAD_RTOL64, f"K8's node-range mode against plain at the "
+              f"train step's shape, sentinel {ovm}: {e}")
+        caught = k8n_teeth(got, want, sblk, p_, lv, sw, node_tile_rows(
+            sblk.deg_used, sblk.hi - sblk.lo))
+        teeth.append(caught)
+        check(all(caught), f"K8's node-range check against a tile dropped "
+              f"and a term doubled at the train step's shape: {caught}")
+    shapes["train step"] = k8n_shape(sblk, spts, sleaves, sw, "train step")
+    # one block at NODE_MANY_POINTS points: the sort's runs read in two
+    # windows of segments a tile, held to the kernel it replaced
+    del sw, spts, sleaves
+    mpts = node_points(NODE_MANY_POINTS, seed + 2, dev)
+    mleaves = descend(tree, _to_unit(tree, mpts).clamp(-0.5, 0.5))
+    mw = torch.randn(NODE_MANY_POINTS, generator=torch.Generator(
+        device=dev).manual_seed(seed + 2), dtype=torch.float64, device=dev)
+    e = rel_err(coeff_scatter_nodes_kernel(blk, mpts, mleaves, mw),
+                coeff_scatter_nodes_reference(blk, mpts, mleaves, mw))
+    errs["k8 replaced"] = max(errs["k8 replaced"], e)
+    check(e <= GRAD_RTOL64, f"K8's node-range mode against the kernel it "
+          f"replaced at one block and {NODE_MANY_POINTS} points: {e}")
+    shapes["many points"] = k8n_shape(blk, mpts, mleaves, mw, "many points")
+    del mpts, mleaves, mw
+    one = shapes["one block"]
+    step = shapes["train step"]
+    # the aim at the train step's shape: no slower than the kernel it
+    # replaced, by at most 5% or 1 us (recorded, not a check)
+    step["no_slower"] = step["ms"] <= step["replaced_ms"] + max(
+        0.05 * step["replaced_ms"], 0.001)
     # bounds: each input read once, each output written once, of what these
     # points need: the points (24 B), the indices in and out (4 + 4 B), the
     # rows of the distinct nodes a round reads (child_idx and centre, 28 B);
     # the leaf evaluation's points, leaves and values (24 + 4 + 8 B) and its
     # distinct leaves' rows (depth, centre, coefficients), with K1's f64
-    # operations less the descent; K8's points, leaves and cotangents (24 +
-    # 4 + 8 B), its leaves' depth and centre, the (N, C) output written
+    # operations less the descent; K8's as k8n_shape
     C = tree.coeffs.shape[1]
     n_leaves = torch.unique(leaves).numel()
     round_bytes = [N_QUERY * 32 + 28 * torch.unique(c).numel()
                    for c in curs[:-1]]
     leaf_bytes = N_QUERY * 36 + n_leaves * (4 + 24 + 8 * C)
     leaf_ops = N_QUERY * k1_ops(tree.deg_used, 0, False) / F64_PEAK * 1e3
-    k8_bytes_n = N_QUERY * 36 + n_leaves * 28 + tree.coeffs.nbytes
     rounds_bound = sum(bytes_ms(extra=b) for b in round_bytes)
     leaf_bound = max(bytes_ms(extra=leaf_bytes), leaf_ops)
     t.update(rounds_bound_ms=rounds_bound, leaf_bound_ms=leaf_bound,
              bound_ms=rounds_bound + leaf_bound,
              bound_by="bytes" if bytes_ms(extra=leaf_bytes) >= leaf_ops
              else "operations",
-             k8_bound_ms=max(bytes_ms(extra=k8_bytes_n), leaf_ops),
-             k8_bound_by="bytes" if bytes_ms(extra=k8_bytes_n) >= leaf_ops
-             else "operations",
+             k8_ms=one["ms"], k8_plain_ms=one["plain_ms"],
+             k8_bound_ms=one["bound_ms"], k8_bound_by=one["bound_by"],
+             k8_replaced_ms=one["replaced_ms"], k8_shapes=shapes,
+             k8_teeth=teeth,
+             k8_buckets_checked=buckets, k8_variants_checked=variants,
+             k8_tile_rows={k: v["tile_rows"] for k, v in shapes.items()},
              errs=errs, bit_for_bit=bit_for_bit, rows=tree.n_nodes,
              leaves=n_leaves, node_bytes=sum(
                  getattr(tree, k).nbytes for k in P._ARRAYS))
@@ -5965,16 +6276,34 @@ def phase_node_modes(dev, smi, seed=NODE_SEED):
           f"{NODE_SPLITS} blocks: rounds equal plain's, leaves equal the "
           f"plain descent's; leaf evaluation against plain {errs['leaf']:.2e}"
           f", the summed query against K1 {errs['k1']:.2e} (bit for bit: "
-          f"{bit_for_bit}); K8's mode against plain {errs['k8']:.2e}, "
-          f"concatenated against its query form {errs['k8 query']:.2e} "
-          f"(relative) | in CUDA graphs at one block: rounds "
-          f"{[round(r, 4) for r in rounds]} ms (bound {rounds_bound:.4f}), "
-          f"leaf {leaf_ms:.4f} ms (bound {leaf_bound:.4f}), a query's "
-          f"launches {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}) against "
-          f"K1's {t['k1_ms']:.4f}; K8's mode {k8n_ms:.4f} ms (bound "
-          f"{t['k8_bound_ms']:.4f}) against its query form "
-          f"{t['k8_query_ms']:.4f} | plain: query {t['plain_ms']:.3f}, K8 "
-          f"{t['k8_plain_ms']:.3f} ms", flush=True)
+          f"{bit_for_bit}); K8's mode against plain {errs['k8']:.2e}, the "
+          f"kernel it replaced {errs['k8 replaced']:.2e}, concatenated "
+          f"against its "
+          f"query form {errs['k8 query']:.2e} (relative); its sort "
+          f"equal to plain's run by run on {buckets} blocks and "
+          f"{variants} variants (sentinel, tiles of 2 rows); a tile dropped "
+          f"and a "
+          f"term doubled caught {teeth} | in CUDA graphs at one block: "
+          f"rounds {[round(r, 4) for r in rounds]} ms (bound "
+          f"{rounds_bound:.4f}), leaf {leaf_ms:.4f} ms (bound "
+          f"{leaf_bound:.4f}), a query's launches {t['ms']:.4f} ms (bound "
+          f"{t['bound_ms']:.4f}) against K1's {t['k1_ms']:.4f}; K8's query "
+          f"form {t['k8_query_ms']:.4f} | plain: query {t['plain_ms']:.3f} "
+          f"ms", flush=True)
+    print(f"[sharding] K8's node-range mode beside the kernel it replaced, "
+          f"CUDA graphs in turns: {smi} | "
+          + " | ".join(
+              f"{k} ({v['rows']} rows in tiles of "
+              f"{t['k8_tile_rows'][k]}, {v['points']} points, {v['live']} "
+              f"live): {v['ms']:.4f} ms (sort alone "
+              f"{v['buckets_ms']:.4f}), replaced {v['replaced_ms']:.4f}; "
+              f"bound "
+              f"{v['bound_ms']:.4f} ({v['bound_by']}), {v['share']:.1%} "
+              f"(replaced {v['replaced_share']:.1%}); plain "
+              f"{v['plain_ms']:.3f}"
+              for k, v in shapes.items())
+          + f" | the train step no slower than the kernel it replaced (by "
+          f"at most 5% or 1 us): {step['no_slower']}", flush=True)
     return t
 
 
@@ -6120,7 +6449,7 @@ def sharding_rank(rank, size, port, cfg, tree_path, out_path):
           f"max|coeffs - one device's| {step_err}")
     launches = read_counts()
     for k in ("cg_matvec_rows", "cg_update_rows", "cg_direction",
-              "query_nodes", "coeff_scatter_nodes"):
+              "query_nodes", "coeff_scatter_nodes", "node_buckets"):
         check(launches[k] > 0, f"{size} gloo ranks: {k} never launched")
     # host ms a call, outside the count: the node-sharded query beside the
     # batch axis's on the whole tree
@@ -6392,7 +6721,7 @@ def phase_sharding(tree, mesh, bvh, cfg, s_inv, solved, persistent_ms,
              for (label, sv), ms in zip((("fit_continuity", solved[0]),
                                          ("row_260k", solved[1])),
                                         persistent_ms)}
-    nodes = phase_node_modes(dev, smi)
+    nodes = phase_node_modes(dev, smi, tree)
     overhead = {"shard_query_ms": wall_ms(
         lambda: P.shard_query(tree, pts, dmesh), 5),
         "query_ms": wall_ms(lambda: T.query(tree, pts), 5),
@@ -6471,7 +6800,8 @@ PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
                  "cg_chunk_kernel", "cg_update_rows_kernel",
                  "cg_direction_kernel", "hybrid_kernel", "bvh_walk_kernel",
                  "descend_nodes_kernel", "leaf_nodes_kernel",
-                 "coeff_scatter_nodes_kernel", "signed_from_best_kernel",
+                 "coeff_scatter_nodes_kernel", "node_sort_kernel",
+                 "signed_from_best_kernel",
                  "inverse_points_kernel", "inverse_loss_kernel",
                  "inverse_vjp_kernel",
                  "fit_points_kernel", "fit_project_kernel")
@@ -6483,7 +6813,7 @@ def _ptxas_key(kernel, args):
     """The report's key for one instantiation, from its template arguments
     (ints, bools and the value type, in order)."""
     if not args:        # row_scatter(_csr), bvh_walk, descend_nodes, K13,
-        return "-"      # K14
+        return "-"      # K14, node_sort
     if kernel == "hybrid_kernel":
         return "two levels" if args[0] else "one level"
     if kernel in ("cg_update_kernel", "cg_update_rows_kernel",
@@ -6514,7 +6844,8 @@ def ptxas_check():
     in its CSR form), K9u, both forms of the persistent launch, both forms
     of each of the row-sharded CG's two K9u launches, both of K10 and K11,
     K1's node-range descent round and, at degrees 3 and 5, its leaf
-    evaluation and K8's node-range mode, K14, the three launches of K13,
+    evaluation, K8's node-range mode at degrees 0..6 and its sort,
+    K14, the three launches of K13,
     and both of K6's launches at every degree 2..11 in f64 and f32 must
     have no stack frame and no spills; so must the check library's K13
     terms as they were before their redesign (CHECK_PTXAS_KERNELS), the
@@ -6564,7 +6895,9 @@ def ptxas_check():
             ("K11", "bvh_walk_kernel", ("-",)),
             ("K1 node round", "descend_nodes_kernel", ("-",)),
             ("K1 node leaf", "leaf_nodes_kernel", ("3", "5")),
-            ("K8 nodes", "coeff_scatter_nodes_kernel", ("3", "5")),
+            ("K8 nodes", "coeff_scatter_nodes_kernel",
+             tuple(str(d) for d in range(7))),
+            ("K8 node sort", "node_sort_kernel", ("-",)),
             ("K14", "signed_from_best_kernel", ("-",)),
             ("K13 points", "inverse_points_kernel", ("-",)),
             ("K13 loss", "inverse_loss_kernel", ("-",)),
@@ -6722,6 +7055,7 @@ def main():
     tk13 = phase("k13", check_k13, s_inv, smi)
     phase("k14 ops", phase_k14_ops, bvh.tri_rows, table, fit_pts, tk14)
     tk6.update(phase("k6 ops", phase_k6_ops, k6_calls))
+    tk8n = phase("k8 nodes ops", phase_k8n_ops, tree, dev)
     launches_i, ti = phase("inverse", phase_inverse, s_inv, s_small, smi)
 
     # --- 12. the continuity post-process at both sizes ---------------------
@@ -7025,7 +7359,29 @@ def main():
          **{k: tsh["node_modes"][f"k8_{k}"]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None, "query_form_ms": tsh["node_modes"]["k8_query_ms"],
+         "replaced_kernel_ms": tsh["node_modes"]["k8_replaced_ms"],
+         "reference": {"source": "hpsdf_tpu_torch/csrc/check/"
+                                 "coeff_scatter_nodes_reference.cu",
+                       "entry": "hpsdf_coeff_scatter_nodes_reference",
+                       "ms": tsh["node_modes"]["k8_replaced_ms"]},
+         "tile_rows": tsh["node_modes"]["k8_tile_rows"],
+         **tk8n, "shapes": tsh["node_modes"]["k8_shapes"],
+         "teeth": tsh["node_modes"]["k8_teeth"],
          "ptxas": ptxas.get("coeff_scatter_nodes_kernel", {})},
+        # its sort, the node-range mode's first launch; timed at one
+        # block of the complete tree, the other shapes under
+        # coeff_scatter_nodes' "shapes"
+        {"name": "node_buckets", "route": "cuda",
+         "source": "hpsdf_tpu_torch/csrc/coeff_scatter.cu",
+         "replaces": "hpsdf_tpu/query.py:70-88",
+         "launches": tsh["two_ranks"]["launches"]["node_buckets"],
+         "max_abs_err": 0.0, "per_tile_sets_equal_plain": True,
+         "blocks_checked": tsh["node_modes"]["k8_buckets_checked"],
+         "variants_checked": tsh["node_modes"]["k8_variants_checked"],
+         **{k: tsh["node_modes"]["k8_shapes"]["one block"][f"buckets_{k}"]
+            for k in ("ms", "plain_ms", "bound_ms")},
+         "bound_by": "bytes", "library_ms": None,
+         "ptxas": ptxas.get("node_sort_kernel", {})},
         # K6 at degree 2's full chunk (1,438 cells, as the slice's
         # largest), warm; cold, the replaced kernel (csrc/check/
         # fit_reference.cu) and the other chunks under "chunks"

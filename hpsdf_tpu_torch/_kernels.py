@@ -75,9 +75,11 @@ _SIGNATURES = {
     "hpsdf_coeff_scatter": (_P, _P, _P, _P, _I32, _I32, _P, _P, _P, _P, _P,
                             _I64, _F64, _F64, _F64, _F64, _F64, _F64,
                             _P, _I32, _I32, _P, _P),
-    "hpsdf_coeff_scatter_nodes": (_P, _P, _I32, _I32, _I32, _P, _P, _I64,
-                                  _F64, _F64, _F64, _F64, _F64, _F64, _P,
-                                  _I32, _P, _P),
+    "hpsdf_node_buckets": (_I32, _I32, _I32, _P, _P, _I64, _F64, _F64, _F64,
+                           _F64, _F64, _F64, _P, _I32, _P, _P, _P),
+    "hpsdf_coeff_scatter_nodes": (_P, _P, _I32, _I32, _I32, _I32, _P, _P,
+                                  _I64, _F64, _F64, _F64, _F64, _F64, _F64,
+                                  _P, _P, _P, _P),
     "hpsdf_cg_matvec": (_P, _P, _P, _I64, _F64, _P, _P, _P, _P, _P, _P),
     "hpsdf_cg_update": (_I32, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "hpsdf_cg_iterations": (_P, _P, _P, _I64, _F64, _P, _P, _P, _P, _P, _P,
@@ -103,6 +105,8 @@ _SIZE_SIGNATURES = {
     "hpsdf_cg_scratch": (),
     "hpsdf_cg_chunk_blocks": (_I64,),
     "hpsdf_inverse_terms_scratch": (_I64,),
+    "hpsdf_node_sort_points": (),
+    "hpsdf_node_tile_rows": (_I32,),
 }
 # and of the reference kernels under csrc/check/, which only checks load
 _CHECK_SIGNATURES = {
@@ -114,6 +118,9 @@ _CHECK_SIGNATURES = {
                                     _P, _I32, _P, _P, _P),
     "hpsdf_row_scatter_reference": (_P, _I64, _P, _I64, _I64, _P, _P),
     "hpsdf_coeff_scatter_reference": _SIGNATURES["hpsdf_coeff_scatter"],
+    "hpsdf_coeff_scatter_nodes_reference": (_P, _P, _I32, _I32, _I32, _P, _P,
+                                            _I64, _F64, _F64, _F64, _F64,
+                                            _F64, _F64, _P, _I32, _P, _P),
     "hpsdf_cone_reference": (_P, _P, _I32, _I32, _P, _P, _I32, _I32, _P,
                              _I64, _P, _I32, _I32, _I32, _P, _F32, _F32,
                              _I32, _P, _P),

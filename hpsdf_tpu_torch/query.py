@@ -25,8 +25,9 @@ The node axis of ``parallel.py`` splits the node arrays over ranks; there
 a query is ``descend_round`` depth_used times and ``leaf_eval`` once, each
 summed over the ranks, and its VJP ``coeff_scatter_nodes``: the node-range
 modes of K1 (``query_nodes_kernel``) and K8
-(``coeff_scatter_nodes_kernel``) on CUDA tensors, their plain versions on
-CPU tensors.
+(``coeff_scatter_nodes_kernel``: a sort of the live points by tile of
+rows, ``node_buckets_kernel``, then a block a tile writing its rows once)
+on CUDA tensors, their plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -368,6 +369,157 @@ def leaf_eval(block, unit, leaf):
     return query_nodes_kernel(block, unit, leaf, leaf=True)
 
 
+# K8's node-range mode cuts the rank's rows into tiles, a tile's T x C f64
+# sums held in one block's shared memory: at most NODE_TILE_ELEMS sums and
+# NODE_TILE_MAX_ROWS rows (csrc/coeff_scatter.cu's kTileElems and
+# kTileMaxRows), and no fewer than NODE_MIN_TILES tiles where the rows allow
+# (two blocks an SM of an H100). A sort launch first lists the live points
+# of each segment of NODE_SORT_POINTS points (kSortThreads * kSortPer) in
+# tile order.
+NODE_TILE_ELEMS = 4096
+NODE_TILE_MAX_ROWS = 512
+NODE_MIN_TILES = 264
+NODE_SORT_POINTS = 4096
+
+
+def node_tile_rows(deg: int, rows: int | None = None) -> int:
+    """Rows a tile of K8's node-range mode holds at degree ``deg``: the most
+    whose T x C sums fit NODE_TILE_ELEMS, even (so that every tile starts
+    on 16 bytes), at most NODE_TILE_MAX_ROWS; for a block of ``rows`` rows
+    no more than gives NODE_MIN_TILES tiles, and at least 2."""
+    T = min(NODE_TILE_ELEMS // consts.coeff_count(deg) // 2 * 2,
+            NODE_TILE_MAX_ROWS)
+    if rows is not None:
+        T = min(T, max(2, rows // NODE_MIN_TILES // 2 * 2))
+    return T
+
+
+def _node_checks(block, pts, leaf, cot, who):
+    if pts.device.type != "cuda" or block.device != pts.device \
+            or leaf.device != pts.device or cot.device != pts.device:
+        raise ValueError(f"{who} needs the block and its inputs on one CUDA "
+                         "device")
+    B = pts.shape[0]
+    if pts.dtype != torch.float64 or pts.shape != (B, 3) \
+            or leaf.dtype != torch.int32 or leaf.shape != (B,) \
+            or cot.dtype != torch.float64 or cot.shape != (B,):
+        raise ValueError("pts must be f64 (B, 3), leaf i32 (B,) and cot f64 "
+                         "(B,)")
+    return tuple(x.detach().contiguous() for x in (pts, leaf, cot))
+
+
+def _node_buckets(block, pts, leaf, cot, outside_value_max, T):
+    """``node_buckets_kernel`` in tiles of ``T`` rows."""
+    pts, leaf, cot = _node_checks(block, pts, leaf, cot,
+                                  "node_buckets_kernel")
+    if block.hi <= block.lo:
+        raise ValueError("node_buckets_kernel needs a block with rows")
+    B = pts.shape[0]
+    n_tiles = -(-(block.hi - block.lo) // T)
+    G = -(-B // NODE_SORT_POINTS)
+    offsets = torch.empty((G, n_tiles + 1), dtype=torch.int32,
+                          device=pts.device)
+    items = torch.empty((B, 2), dtype=torch.int32, device=pts.device)
+    if B == 0:
+        return offsets, items
+    lib = _kernels.load()
+    rc = block.config.root_centre
+    inv = 1.0 / block.config.root_sizes
+    _kernels.check(lib, lib.hpsdf_node_buckets(
+        block.lo, block.hi, T, pts.data_ptr(), leaf.data_ptr(), B,
+        *map(float, rc), *map(float, inv), cot.data_ptr(),
+        int(outside_value_max), offsets.data_ptr(), items.data_ptr(),
+        _kernels.stream_of(pts)), "node_buckets")
+    node_buckets_kernel.launches += 1
+    return offsets, items
+
+
+def node_buckets_kernel(block, pts: torch.Tensor, leaf: torch.Tensor,
+                        cot: torch.Tensor, outside_value_max: bool = False):
+    """Launch the sort of K8's node-range mode on CUDA tensors: the live
+    points (``node_buckets_plain``'s) of each segment of
+    NODE_SORT_POINTS points listed in order of their tile of
+    ``node_tile_rows`` rows of the block. Returns (offsets (G, n_tiles + 1)
+    i32, items (B, 2) i32), G segments: segment g's points of tile t at
+    places g NODE_SORT_POINTS + [offsets[g, t], offsets[g, t + 1]) of
+    items, as (point index, row within the tile), in an order within the
+    run that can change from call to call; the other places unwritten. One
+    launch (none for no points). Raises on anything else, and on a block of
+    no rows."""
+    return _node_buckets(block, pts, leaf, cot, outside_value_max,
+                         node_tile_rows(block.deg_used, block.hi - block.lo))
+
+
+node_buckets_kernel.launches = 0
+
+
+def _node_buckets_plain(block, pts, leaf, w, outside_value_max, T):
+    """``node_buckets_plain`` in tiles of ``T`` rows."""
+    B = pts.shape[0]
+    rows = max(block.hi - block.lo, 0)
+    n_tiles, G = -(-rows // T), -(-B // NODE_SORT_POINTS)
+    n = leaf.long() - block.lo
+    live = (n >= 0) & (n < rows) & (w != 0)
+    if outside_value_max:
+        live &= torch.all(_to_unit(block, pts).abs() <= 0.5, dim=-1)
+    idx = torch.nonzero(live).flatten()
+    tile, seg = n[idx] // T, idx // NODE_SORT_POINTS
+    key = seg * n_tiles + tile
+    order = torch.sort(key, stable=True).indices
+    idx, tile, seg, key = idx[order], tile[order], seg[order], key[order]
+    counts = torch.bincount(key, minlength=G * n_tiles)
+    offsets = torch.zeros((G, n_tiles + 1), dtype=torch.long,
+                          device=pts.device)
+    offsets[:, 1:] = torch.cumsum(counts.reshape(G, n_tiles), 1)
+    first = torch.cumsum(counts, 0) - counts       # each run's first in key
+    at = seg * NODE_SORT_POINTS + offsets[seg, tile] \
+        + torch.arange(idx.numel(), device=pts.device) - first[key]
+    items = torch.zeros((B, 2), dtype=torch.int32, device=pts.device)
+    items[at] = torch.stack([idx, n[idx] - tile * T], 1).int()
+    return offsets.int(), items
+
+
+def node_buckets_plain(block, pts: torch.Tensor, leaf: torch.Tensor,
+                       w: torch.Tensor, outside_value_max: bool = False):
+    """The sort of K8's node-range mode by plain torch, as
+    ``node_buckets_kernel`` returns it, each run's points in index order
+    and the unused places zero. A point is live where its leaf lies in the
+    block, its cotangent is not zero and, with ``outside_value_max``, it
+    lies inside the root."""
+    rows = max(block.hi - block.lo, 0)
+    return _node_buckets_plain(block, pts, leaf, w, outside_value_max,
+                               node_tile_rows(block.deg_used, rows))
+
+
+def _coeff_scatter_nodes(block, pts, leaf, cot, outside_value_max, T):
+    """``coeff_scatter_nodes_kernel`` in tiles of ``T`` rows."""
+    pts, leaf, cot = _node_checks(block, pts, leaf, cot,
+                                  "coeff_scatter_nodes_kernel")
+    rows = block.hi - block.lo
+    C = consts.coeff_count(block.deg_used)
+    if rows <= 0:
+        return torch.empty((0, C), dtype=torch.float64, device=pts.device)
+    for name, t, dt in (("centre", block.centre, torch.float64),
+                        ("depth", block.depth, torch.int32)):
+        if t.dtype != dt or not t.is_contiguous() or t.shape[0] != rows:
+            raise ValueError(f"block.{name} must be contiguous {dt} with "
+                             f"hi - lo = {rows} rows")
+    offsets, items = _node_buckets(block, pts, leaf, cot, outside_value_max,
+                                   T)
+    out = torch.empty((rows, C), dtype=torch.float64, device=pts.device)
+    lib = _kernels.load()
+    rc = block.config.root_centre
+    inv = 1.0 / block.config.root_sizes
+    _kernels.check(lib, lib.hpsdf_coeff_scatter_nodes(
+        block.centre.data_ptr(), block.depth.data_ptr(), block.deg_used,
+        block.lo, block.hi, T, pts.data_ptr(), cot.data_ptr(), pts.shape[0],
+        *map(float, rc), *map(float, inv), offsets.data_ptr(),
+        items.data_ptr(), out.data_ptr(), _kernels.stream_of(pts)),
+        "coeff_scatter_nodes")
+    coeff_scatter_nodes_kernel.launches += 1
+    return out
+
+
 def coeff_scatter_nodes_kernel(block, pts: torch.Tensor, leaf: torch.Tensor,
                                cot: torch.Tensor,
                                outside_value_max: bool = False):
@@ -375,40 +527,15 @@ def coeff_scatter_nodes_kernel(block, pts: torch.Tensor, leaf: torch.Tensor,
     C) f64 of sum(cot * query) with respect to the block's coefficient rows,
     from the points (B, 3) f64, their global leaves (B,) i32 (the forward's
     descent) and the cotangents (B,) f64; nothing from points outside the
-    root when ``outside_value_max``. A call is the output's memset and one
-    launch. Raises on anything else."""
-    if pts.device.type != "cuda" or block.device != pts.device \
-            or leaf.device != pts.device or cot.device != pts.device:
-        raise ValueError("coeff_scatter_nodes_kernel needs the block and its "
-                         "inputs on one CUDA device")
-    B = pts.shape[0]
-    if pts.dtype != torch.float64 or pts.shape != (B, 3) \
-            or leaf.dtype != torch.int32 or leaf.shape != (B,) \
-            or cot.dtype != torch.float64 or cot.shape != (B,):
-        raise ValueError("pts must be f64 (B, 3), leaf i32 (B,) and cot f64 "
-                         "(B,)")
-    rows = block.hi - block.lo
-    for name, t, dt in (("centre", block.centre, torch.float64),
-                        ("depth", block.depth, torch.int32)):
-        if t.dtype != dt or not t.is_contiguous() or t.shape[0] != rows:
-            raise ValueError(f"block.{name} must be contiguous {dt} with "
-                             f"hi - lo = {rows} rows")
-    C = consts.coeff_count(block.deg_used)
-    out = torch.zeros((rows, C), dtype=torch.float64, device=pts.device)
-    if B == 0:
-        return out
-    pts, leaf, cot = (x.detach().contiguous() for x in (pts, leaf, cot))
-    lib = _kernels.load()
-    rc = block.config.root_centre
-    inv = 1.0 / block.config.root_sizes
-    _kernels.check(lib, lib.hpsdf_coeff_scatter_nodes(
-        block.centre.data_ptr(), block.depth.data_ptr(), block.deg_used,
-        block.lo, block.hi, pts.data_ptr(), leaf.data_ptr(), B,
-        *map(float, rc), *map(float, inv), cot.data_ptr(),
-        int(outside_value_max), out.data_ptr(), _kernels.stream_of(pts)),
-        "coeff_scatter_nodes")
-    coeff_scatter_nodes_kernel.launches += 1
-    return out
+    root when ``outside_value_max``. A call is two launches and no memset:
+    the sort (``node_buckets_kernel``), then a block a tile of
+    ``node_tile_rows`` rows forms its sums in shared memory and writes its
+    rows once. Up to 2^31 - 1 points: the sort's offsets, (G, n_tiles + 1)
+    i32 with G = ceil(B / NODE_SORT_POINTS), grow as the points times the
+    tiles, and each tile reads its G runs. Raises on anything else."""
+    return _coeff_scatter_nodes(block, pts, leaf, cot, outside_value_max,
+                                node_tile_rows(block.deg_used,
+                                               block.hi - block.lo))
 
 
 coeff_scatter_nodes_kernel.launches = 0

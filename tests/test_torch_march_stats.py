@@ -204,10 +204,10 @@ def test_lod_tables_stay_with_the_packed_tree(trees):
 
 
 def test_reference_kernel_is_on_no_path():
-    """The kernels K3, K4, K7, G's backward, K8, K11, K6 and K13's terms
-    replaced are built into a library of their own, which no module
-    of the package loads: only chip_smoke.py does, to hold the shipped
-    kernels to them."""
+    """The kernels K3, K4, K7, G's backward, K8, K8's node-range mode, K11,
+    K6 and K13's terms replaced are built into a library of their own,
+    which no module of the package loads: only chip_smoke.py does, to hold
+    the shipped kernels to them."""
     import glob
     import os
 
@@ -218,7 +218,8 @@ def test_reference_kernel_is_on_no_path():
     assert "march.cu" in main and check == {
         "march_reference.cu", "packed_grad_reference.cu",
         "row_scatter_reference.cu", "coeff_scatter_reference.cu",
-        "cone_reference.cu", "bvh_walk_reference.cu", "fit_reference.cu",
+        "coeff_scatter_nodes_reference.cu", "cone_reference.cu",
+        "bvh_walk_reference.cu", "fit_reference.cu",
         "inverse_terms_reference.cu"}
     assert not main & check
     assert _kernels.library_path("check") != _kernels.library_path()
@@ -234,6 +235,10 @@ def test_reference_kernel_is_on_no_path():
     with open(os.path.join(pkg, "csrc", "check",
                            "bvh_walk_reference.cu")) as fh:
         assert 'extern "C" int hpsdf_bvh_walk_reference(' in fh.read()
+    with open(os.path.join(pkg, "csrc", "check",
+                           "coeff_scatter_nodes_reference.cu")) as fh:
+        assert ('extern "C" int hpsdf_coeff_scatter_nodes_reference('
+                in fh.read())
     with open(os.path.join(pkg, "csrc", "check", "fit_reference.cu")) as fh:
         text = fh.read()
     assert 'extern "C" int hpsdf_fit_points_reference(' in text

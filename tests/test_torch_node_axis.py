@@ -32,6 +32,7 @@ from hpsdf_tpu_torch.query import (OUTSIDE_VALUE, _to_unit,
                                    coeff_scatter_nodes_kernel,
                                    coeff_scatter_nodes_plain, descend,
                                    descend_round_plain, leaf_eval_plain,
+                                   node_buckets_kernel,
                                    query_nodes_kernel, query_plain,
                                    query_vjp_plain)
 
@@ -185,8 +186,8 @@ def test_node_sharded_capacity():
 
 def test_kernel_wrappers_refuse_cpu_tensors(trees):
     """CPU tensors never reach the kernels' plain versions through the
-    wrappers: query_nodes_kernel and coeff_scatter_nodes_kernel launch on
-    CUDA tensors or raise."""
+    wrappers: query_nodes_kernel, coeff_scatter_nodes_kernel and its
+    sort, node_buckets_kernel, launch on CUDA tensors or raise."""
     _, tt = trees
     blk = P.node_block(tt, 2, 1)
     unit = torch.zeros(4, 3, dtype=torch.float64)
@@ -194,6 +195,6 @@ def test_kernel_wrappers_refuse_cpu_tensors(trees):
     for leaf in (False, True):
         with pytest.raises(ValueError, match="CUDA"):
             query_nodes_kernel(blk, unit, idx, leaf=leaf)
-    with pytest.raises(ValueError, match="CUDA"):
-        coeff_scatter_nodes_kernel(blk, unit, idx,
-                                   torch.ones(4, dtype=torch.float64))
+    for wrapper in (coeff_scatter_nodes_kernel, node_buckets_kernel):
+        with pytest.raises(ValueError, match="CUDA"):
+            wrapper(blk, unit, idx, torch.ones(4, dtype=torch.float64))

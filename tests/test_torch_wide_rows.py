@@ -127,7 +127,7 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                                    "K9u", "chunk", "rows", "K10", "K11",
                                    "round", "leaf", "K8 nodes", "K14",
                                    "K13", "K6", "K6 points", "K13 vjp",
-                                   "K13 ref"],
+                                   "K13 ref", "K8 sort"],
                          ids=["clean", "spills", "march_spills",
                               "backward_spills", "csr_spills",
                               "fused_spills", "cg_spills", "chunk_spills",
@@ -136,7 +136,8 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                               "node_scatter_spills", "sign_spills",
                               "inverse_terms_spills", "fit_project_spills",
                               "fit_points_spills", "inverse_vjp_spills",
-                              "inverse_terms_reference_spills"])
+                              "inverse_terms_reference_spills",
+                              "node_sort_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
@@ -145,7 +146,8 @@ def test_ptxas_check(monkeypatch, spill):
     operator and in PR 10's CSR form, K9u's two forms, both forms of the
     persistent launch, both forms of each of the row-sharded CG's two K9u
     launches), K10 (either level count), K11, K1's node-range descent
-    round, its leaf evaluation or K8's node-range mode (at degree 3 or 5),
+    round, its leaf evaluation (at degree 3 or 5), K8's node-range mode (at
+    any degree 0..6) or its sort,
     K14, any launch of K13 (the points, the terms' loss forward or VJP
     backward), either of K6's launches (at any degree 2..11, f64 or f32),
     or, in the check library's report, K13's terms as they were before
@@ -209,9 +211,12 @@ def test_ptxas_check(monkeypatch, spill):
     for d in (3, 5):
         report += _ptxas_entry("leaf_nodes_kernel", d, None, regs=48,
                                stack=8 if spill == "leaf" and d == 5 else 0)
+    for d in range(7):
         report += _ptxas_entry("coeff_scatter_nodes_kernel", d, None,
                                regs=40, stack=16 if spill == "K8 nodes"
                                and d == 3 else 0)
+    report += _ptxas_entry("node_sort_kernel", 0, None, args="", regs=40,
+                           stack=8 if spill == "K8 sort" else 0)
     report += _ptxas_entry("signed_from_best_kernel", 0, None, args="",
                            regs=40, stack=8 if spill == "K14" else 0)
     report += _ptxas_entry("inverse_points_kernel", 0, None, args="",
@@ -248,6 +253,7 @@ def test_ptxas_check(monkeypatch, spill):
                 "round": "K1 node round -: stack 8",
                 "leaf": "K1 node leaf 5: stack 8",
                 "K8 nodes": "K8 nodes 3: stack 16",
+                "K8 sort": "K8 node sort -: stack 8",
                 "K14": "K14 -: stack 8",
                 "K13": "K13 loss -: stack 8",
                 "K13 vjp": "K13 vjp -: stack 8",
@@ -296,5 +302,6 @@ def test_ptxas_check(monkeypatch, spill):
     assert found["bvh_walk_kernel"] == {"-": [64, 0, 0, 0]}
     assert found["descend_nodes_kernel"] == {"-": [24, 0, 0, 0]}
     assert found["leaf_nodes_kernel"] == {k: [48, 0, 0, 0] for k in "35"}
-    assert found["coeff_scatter_nodes_kernel"] == {k: [40, 0, 0, 0]
-                                                   for k in "35"}
+    assert found["coeff_scatter_nodes_kernel"] == {str(d): [40, 0, 0, 0]
+                                                   for d in range(7)}
+    assert found["node_sort_kernel"] == {"-": [40, 0, 0, 0]}
