@@ -1557,9 +1557,12 @@ def counters():
     only their own kernel's launches; K1's node-range mode
     (``query_nodes``) counts its descent rounds and leaf evaluations; K8's
     node-range mode its tile launches (``coeff_scatter_nodes``) and, apart,
-    its sort's (``node_buckets``)."""
+    its sort's (``node_buckets``); K1's backward modes all their launches
+    (``query_vjp``) and, apart, K1h's (``query_vjp_hess``); K7 its form 2's
+    apart (``packed_grad_form2``)."""
     from hpsdf_tpu_torch.accel import (packed_eval_kernel, packed_grad_kernel,
-                                       row_gather, row_scatter)
+                                       packed_hvp_kernel, row_gather,
+                                       row_scatter)
     from hpsdf_tpu_torch.build import fit_points_kernel, fit_project_kernel
     from hpsdf_tpu_torch.continuity import (_chunk_launch, cg_direction,
                                             cg_matvec, cg_matvec_rows,
@@ -1570,10 +1573,11 @@ def counters():
     from hpsdf_tpu_torch.mesh import (closest_bvh, closest_tri_tiles,
                                       hybrid_closest,
                                       signed_from_best_kernel)
-    from hpsdf_tpu_torch.query import (coeff_scatter_kernel,
+    from hpsdf_tpu_torch.query import (coeff_scatter_grad_kernel,
+                                       coeff_scatter_kernel,
                                        coeff_scatter_nodes_kernel,
                                        node_buckets_kernel, query_kernel,
-                                       query_nodes_kernel)
+                                       query_nodes_kernel, query_vjp_kernel)
     from hpsdf_tpu_torch.render import cone_kernel, march_kernel
     return {"closest_tri": (closest_tri_tiles, "launches"),
             "hybrid": (hybrid_closest, "launches"),
@@ -1604,7 +1608,12 @@ def counters():
             "inverse_loss": (inverse_loss_kernel, "launches"),
             "inverse_vjp": (inverse_vjp_kernel, "launches"),
             "fit_points": (fit_points_kernel, "launches"),
-            "fit_project": (fit_project_kernel, "launches")}
+            "fit_project": (fit_project_kernel, "launches"),
+            "query_vjp": (query_vjp_kernel, "launches"),
+            "query_vjp_hess": (query_vjp_kernel, "hess_launches"),
+            "coeff_scatter_grad": (coeff_scatter_grad_kernel, "launches"),
+            "packed_hvp": (packed_hvp_kernel, "launches"),
+            "packed_grad_form2": (packed_grad_kernel, "form2_launches")}
 
 
 def reset_counts():
@@ -2290,7 +2299,7 @@ def phase_render(tree, out_dir):
     K3 with and without its starts). Returns (launches, times, hit
     fraction, K3 max t error on common hits, K5 min normal dot, the
     carve's largest F batch as as_sdf's packed F reads it, the carved
-    tree's packed tables, the render's hit points)."""
+    tree's packed tables, the render's hit points, the carved tree)."""
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch.accel import (NORMALS, normals_plain,
                                        packed_eval_kernel)
@@ -2449,7 +2458,7 @@ def phase_render(tree, out_dir):
     return (launches, {"carve_s": carve_s, "render_s": render_s,
                        "cone": cone_ms, "split": split, "k6_split": k6s},
             frac,
-            t_err, dot_min, largest[0].to(torch.float32), pt, ph)
+            t_err, dot_min, largest[0].to(torch.float32), pt, ph, carved)
 
 
 def phase_k2_main(pt_s, carve_pts, pt_c, ph):
@@ -2981,6 +2990,105 @@ def rel_err(a, b):
     return float((a - b).abs().max() / scale)
 
 
+# --------------------------------------------------------------------------
+# [grad2]: the reads' derivatives as backward kernels (K1v, K1h, K8g, K5h,
+# K7's form 2) and three paths through them
+# --------------------------------------------------------------------------
+
+PROJ_STEPS, FIT_STEPS, NMAP_STEPS = 5, 5, 3
+# Adam's steps, paths (b) (on raw coefficients, whose field moves by the
+# norms, ~10^3 times the step) and (c) (on folded ones)
+FIT_LR, NMAP_LR = 1e-7, 1e-4
+NMAP_EIKONAL = 0.1                  # path (c)'s eikonal weight
+# the kernels against their plain versions, of the largest entry: f64, f32
+# first derivatives, f32 Hessian products (K5h), and path (c)'s gradient
+GRAD2_RTOL64, GRAD2_RTOL32, GRAD2_RTOL_HVP = 1e-10, 1e-5, 1e-4
+NMAP_RTOL = 1e-4
+# the operations on the card a call may take
+K1V_OPS = K1H_OPS = K5H_OPS = K7F2_OPS = 1
+K8G_OPS = 2
+# the five kernels' names in the kernels line, from the launch counts
+GRAD2_KERNELS = {
+    "query_vjp": lambda n: n["query_vjp"] - n["query_vjp_hess"],
+    "query_vjp_hess": lambda n: n["query_vjp_hess"],
+    "coeff_scatter_grad": lambda n: n["coeff_scatter_grad"],
+    "packed_hvp": lambda n: n["packed_hvp"],
+    "packed_grad_form2": lambda n: n["packed_grad_form2"]}
+
+
+def oriented_samples(mesh, n, seed):
+    """n points on random triangles of the mesh and their triangles' unit
+    normals, f64 on the host."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, mesh.n_faces, n)
+    w = rng.dirichlet(np.ones(3), n)
+    tri = np.asarray(mesh.vertices, np.float64)[mesh.faces[t]]
+    return (w[:, :, None] * tri).sum(axis=1), \
+        np.asarray(mesh.face_normals, np.float64)[t]
+
+
+def root_points(lo, hi, n, seed, pad=0.0):
+    """n points drawn in the box [lo, hi] grown by ``pad`` of its size on
+    each side (f64, host), a sixteenth of them with one coordinate moved
+    onto a face of [lo, hi]."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    p = rng.uniform(lo - pad * (hi - lo), hi + pad * (hi - lo), (n, 3))
+    k = np.arange(0, n, 16)
+    axis, side = rng.integers(0, 3, k.size), rng.integers(0, 2, k.size)
+    p[k, axis] = np.where(side == 1, hi[axis], lo[axis])
+    return p
+
+
+def projection_step(tree, p):
+    """One step of the projection onto the surface, p <- p - f grad f /
+    |grad f|^2, with f grad f from torch.autograd.grad of sum(query^2) / 2
+    (the clamped evaluation outside the root; K1 and K1v on CUDA tensors).
+    Returns (the new points, f)."""
+    import hpsdf_tpu_torch as T
+
+    p = p.detach().requires_grad_(True)
+    f = T.query(tree, p, outside_value_max=False)
+    (fg,) = torch.autograd.grad(0.5 * (f * f).sum(), p)
+    f = f.detach()
+    den = (fg * fg).sum(-1, keepdim=True)
+    step = torch.where(den > 0, fg * (f * f)[:, None] / den, 0.0)
+    return (p - step).detach(), f
+
+
+def oriented_fit_loss(tree, coeffs, shift, pts, n_t):
+    """Path (b)'s loss on the tree with coefficients ``coeffs``, at the
+    oriented samples moved by ``shift`` (3,): mean query^2 + mean (1 - n .
+    n_t), n query_with_gradient's unit gradient. On CUDA tensors K1 with
+    K8 and K1v, and K1 with the gradient with K8g and K1h."""
+    import hpsdf_tpu_torch as T
+
+    tr = dataclasses.replace(tree, coeffs=coeffs)
+    p = pts + shift
+    f = T.query(tr, p)
+    _, n = T.query_with_gradient(tr, p)
+    return (f * f).mean() + (1.0 - (n * n_t).sum(-1)).mean()
+
+
+def normal_map_loss(packed, support, folded, shift, hits, n_t):
+    """Path (c)'s loss on the tables repacked from the folded coefficients
+    (inverse.fit_to_depth's parameters), at the hits moved by ``shift``
+    (3,): mean (1 - n . n_t), n from accel.normals, plus the field there,
+    mean f^2 + NMAP_EIKONAL mean (|grad f| - 1)^2 from
+    values_and_gradient_at. On CUDA tensors K5 with K7's form 2 and K5h,
+    the fused read with K7's forms 0 and 1 and K5h, and G with its
+    backward."""
+    from hpsdf_tpu_torch import accel as A
+
+    pk = A.repack_folded(packed, support, folded)
+    p = hits + shift
+    n = A.normals(pk, p)
+    v, g = A.values_and_gradient_at(pk, p, p.shape[0])
+    gn = torch.sqrt((g * g).sum(-1) + 1e-12)
+    return ((1.0 - (n * n_t).sum(-1)).mean() + (v * v).mean()
+            + NMAP_EIKONAL * ((gn - 1.0) ** 2).mean())
+
+
 def phase_grad(pt_s, tree_s, s, smi, seed=11):
     """The backward kernels against autograd of their plain versions on the
     card, at 2^20 points and at the main path's shapes (one inverse chunk's
@@ -3315,6 +3423,366 @@ def phase_grad(pt_s, tree_s, s, smi, seed=11):
                      f"{t['replaced_launches_a_call']}"),
                   flush=True)
     return out
+
+
+def k1h_ops(deg, depth_used):
+    """f64 operations a point of K1h: K1's with the gradient
+    (``k1_ops``), six Hessian sums a term (two products and an FMA each,
+    24), three pair products more, the second derivative recurrences and
+    their folding, and the unit gradient's VJP with the Hessian product
+    (60)."""
+    C = (deg + 1) * (deg + 2) * (deg + 3) // 6
+    T = (deg + 1) * (deg + 2) // 2
+    return k1_ops(deg, depth_used, True) + 24 * C + 3 * T \
+        + 9 * max(deg - 1, 0) + 3 * (deg + 1) + 60
+
+
+def k5h_ops(deg):
+    """f32 operations a point of K5h: the frame (9), three Legendre
+    recurrences and their first and second derivatives (30 (deg - 1)),
+    three gradient and six Hessian sums a term (four operations each,
+    36), and the chain with the Hessian product (40)."""
+    C = (deg + 1) * (deg + 2) * (deg + 3) // 6
+    return 9 + 30 * max(deg - 1, 0) + 36 * C + 40
+
+
+def grad2_teeth(got, want, tol, face=None):
+    """Whether each wrong result fails the check rel_err <= tol: the
+    largest entry moved by 10 tol of the largest (of 1 where the result is
+    zero), and, for a point VJP with ``face`` (B, 3) the entries on an
+    axis at a face of the root, where some of those are not zero, those
+    entries doubled (the clamp's derivative taken as 1 there, the fault
+    the face rule repairs)."""
+    flat = got.clone().reshape(-1)
+    k = int(want.reshape(-1).abs().argmax())
+    flat[k] += 10 * tol * max(float(want.abs().max()), 1.0)
+    caught = [rel_err(flat.reshape(got.shape), want) > tol]
+    if face is not None and bool((face & (got != 0)).any()):
+        caught.append(rel_err(torch.where(face, 2 * got, got), want) > tol)
+    return caught
+
+
+def grad2_checks(tree, pt, p64, seed, with_teeth=False):
+    """The five backward kernels against their plain versions on CUDA
+    tensors at the points p64 (B, 3) (f32 for the packed ones), seeded
+    cotangents. Returns {kernel: (max|kernel - plain| / max|plain|,
+    max|kernel - plain|, teeth or None)}; raises where one is above its
+    tolerance or, with ``with_teeth``, a wrong result passes."""
+    from hpsdf_tpu_torch import accel as A
+    from hpsdf_tpu_torch.query import (_to_unit, coeff_scatter_grad_kernel,
+                                       query_points_vjp_plain,
+                                       query_vjp_kernel,
+                                       query_with_gradient_vjp_plain)
+
+    rng = np.random.default_rng(seed)
+    dev, B = p64.device, p64.shape[0]
+
+    def rand(*shape, dt=torch.float64):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dt,
+                               device=dev)
+
+    p32 = p64.to(torch.float32)
+    face64 = _to_unit(tree, p64).abs() == 0.5
+    face32 = A.to_unit(pt, p32).abs() == 0.5
+    w, wn = rand(B), rand(B, 3)
+    w32, wn32 = w.float(), wn.float()
+    n_g = B // 2
+    cd, pd = query_with_gradient_vjp_plain(tree, p64, w, wn)
+    nr, ng, npt = A.normals_vjp_plain(pt, p32, wn32)
+    cases = {
+        "query_vjp": (query_vjp_kernel(tree, p64, w),
+                      query_points_vjp_plain(tree, p64, w), GRAD2_RTOL64,
+                      face64),
+        "query_vjp_inside_out": (
+            query_vjp_kernel(tree, p64, w, outside_value_max=False),
+            query_points_vjp_plain(tree, p64, w, False), GRAD2_RTOL64,
+            face64),
+        "query_vjp_hess": (query_vjp_kernel(tree, p64, w, wn), pd,
+                           GRAD2_RTOL64, face64),
+        "coeff_scatter_grad": (coeff_scatter_grad_kernel(tree, p64, w, wn),
+                               cd, GRAD2_RTOL64, None),
+        "packed_hvp": (A.packed_hvp_kernel(pt, p32, A.NORMALS_VJP,
+                                           cot3=wn32), npt, GRAD2_RTOL_HVP,
+                       face32),
+        "packed_hvp_values": (
+            A.packed_hvp_kernel(pt, p32, A.VALUES_GRAD_VJP, w32,
+                                wn32[:n_g]),
+            A.values_and_gradient_vjp_plain(pt, p32, w32, wn32[:n_g]),
+            GRAD2_RTOL_HVP, face32),
+        "packed_grad_form2": (torch.cat(A.packed_grad_kernel(pt, p32, wn32,
+                                                             2)),
+                              torch.cat((nr, ng)), GRAD_RTOL32, None),
+    }
+    out = {}
+    for name, (got, want, tol, face) in cases.items():
+        check(bool(torch.isfinite(got).all()), f"{name}: not finite")
+        err = rel_err(got, want)
+        check(err <= tol, f"{name} vs its plain version ({B} points, "
+              f"degree {tree.deg_used}): {err:.3e} > {tol:g}")
+        teeth = None
+        if with_teeth:
+            teeth = grad2_teeth(got, want, tol, face)
+            check(all(teeth), f"{name}: a wrong result passes the check "
+                  f"{teeth}")
+        out[name] = (err, float((got - want).abs().max()), teeth)
+    return out
+
+
+def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, seed=12):
+    """The reads' derivatives on the card: K1v and K1h (query.cu's
+    backward modes), K8g (coeff_scatter.cu), K5h (packed_eval.cu, both
+    modes) and K7's form 2 (packed_grad.cu) against their plain versions
+    at 2^20 points on the slice tree (a sixteenth on the root's faces,
+    some outside) and at every degree 0..12 on synthetic_tree, with two
+    wrong results each shown to fail (grad2_teeth); each timed in a CUDA
+    graph beside its plain version and its bound, with the operations a
+    call puts on the card. Then the three paths, the launch counts set to
+    0 just before and read just after: (a) PROJ_STEPS projection steps of
+    2^20 points in the root (projection_step), (b) FIT_STEPS Adam steps of
+    the oriented-point fit of the inverse setup's initial tree (the r =
+    0.27 sphere, the slice's config) on its coefficients and the samples'
+    shift (oriented_fit_loss, 2^20 samples of the icosphere(0.3, 5)
+    mesh's triangles), (c) NMAP_STEPS Adam steps of the normal map on the
+    carved
+    tree's folded coefficients and the hits' shift (normal_map_loss at the
+    render's hits); (b)'s and (c)'s first gradients held to the plain
+    versions. Returns (launches, {...})."""
+    import unittest.mock
+
+    import hpsdf_tpu_torch as T
+    from hpsdf_tpu_torch import accel as A
+    from hpsdf_tpu_torch.query import (coeff_scatter_grad_kernel,
+                                       query_points_vjp_plain, query_plain,
+                                       query_vjp_kernel,
+                                       query_with_gradient_plain,
+                                       query_with_gradient_vjp_plain)
+
+    dev = tree_s.device
+    pt_s = T.pack_tree(tree_s)
+    lo, hi = (np.asarray(x, np.float64) for x in tree_s.root_aabb)
+    p64 = torch.as_tensor(root_points(lo, hi, N_QUERY, seed, pad=0.05),
+                          device=dev)
+    out = {"checks": {}, "degrees": {}}
+    out["checks"]["2^20 slice"] = grad2_checks(tree_s, pt_s, p64, seed,
+                                               with_teeth=True)
+    # every degree, one descent below a depth-1 grid (as [degrees])
+    cfg = T.Config(continuity=False, root_min=SYNTH_ROOT[0],
+                   root_max=SYNTH_ROOT[1])
+    from hpsdf_tpu_torch import tree as TT
+    for deg in range(13):
+        tree = TT.pack(*synthetic_tree(deg, seed + deg), cfg, device=dev)
+        pts = torch.as_tensor(root_points(SYNTH_ROOT[0], SYNTH_ROOT[1],
+                                          N_SYNTH, seed + deg, pad=0.1),
+                              device=dev)
+        out["degrees"][deg] = grad2_checks(
+            tree, T.pack_tree(tree, grid_depth=1), pts, seed + deg,
+            with_teeth=True)
+    errs = {k: max(max(c[k][0] for c in out["degrees"].values()),
+                   out["checks"]["2^20 slice"][k][0])
+            for k in out["checks"]["2^20 slice"]}
+    abs_errs = {k: max(max(c[k][1] for c in out["degrees"].values()),
+                       out["checks"]["2^20 slice"][k][1])
+                for k in out["checks"]["2^20 slice"]}
+    print(f"[grad2] the five backward kernels against their plain versions "
+          f"at 2^20 points on the slice tree (a sixteenth on the root's "
+          f"faces, some outside) and at degrees 0-12, max|kernel - plain| / "
+          f"max|plain|: " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                       errs.items())
+          + " | two wrong results caught at every shape (a moved entry; "
+          "the face rule undone, where the points reach a face)",
+          flush=True)
+
+    # times at 2^20 points on the slice tree, with the bounds and the
+    # operations a call
+    rng = np.random.default_rng(seed + 100)
+    B = p64.shape[0]
+    w = torch.as_tensor(rng.standard_normal(B), device=dev)
+    wn = torch.as_tensor(rng.standard_normal((B, 3)), device=dev)
+    p32, w32, wn32 = p64.float(), w.float(), wn.float()
+    arrays = [getattr(tree_s, k) for k in ("child_idx", "centre", "depth",
+                                            "degree", "coeffs")]
+    deg, dep = tree_s.deg_used, tree_s.depth_used
+    from hpsdf_tpu_torch.query import _to_unit
+    unit = _to_unit(tree_s, p64)
+    live = torch.ones(B, dtype=torch.bool, device=dev)
+    k8g_bytes = coeff_scatter_bytes(tree_s, unit.clamp(-0.5, 0.5), live,
+                                    56, 0, True)
+    packed_bytes = packed_read_bytes(pt_s, p32, True)
+    C = (deg + 1) * (deg + 2) * (deg + 3) // 6
+    shapes = {
+        "query_vjp": (
+            lambda: query_vjp_kernel(tree_s, p64, w),
+            lambda: query_points_vjp_plain(tree_s, p64, w),
+            bytes_ms(*arrays, p64, w, extra=24 * B),
+            B * k1_ops(deg, dep, True) / F64_PEAK * 1e3, K1V_OPS),
+        "query_vjp_hess": (
+            lambda: query_vjp_kernel(tree_s, p64, w, wn),
+            lambda: query_with_gradient_vjp_plain(tree_s, p64, w, wn),
+            bytes_ms(*arrays, p64, w, wn, extra=24 * B),
+            B * k1h_ops(deg, dep) / F64_PEAK * 1e3, K1H_OPS),
+        "coeff_scatter_grad": (
+            lambda: coeff_scatter_grad_kernel(tree_s, p64, w, wn),
+            lambda: query_with_gradient_vjp_plain(tree_s, p64, w, wn),
+            bytes_ms(extra=k8g_bytes),
+            B * (k1_ops(deg, dep, True) + 12 * C) / F64_PEAK * 1e3,
+            K8G_OPS),
+        "packed_hvp": (
+            lambda: A.packed_hvp_kernel(pt_s, p32, A.NORMALS_VJP,
+                                        cot3=wn32),
+            lambda: A.normals_vjp_plain(pt_s, p32, wn32),
+            bytes_ms(p32, wn32, extra=12 * B + packed_bytes),
+            B * k5h_ops(deg) / F32_PEAK * 1e3, K5H_OPS),
+        "packed_hvp_values": (
+            lambda: A.packed_hvp_kernel(pt_s, p32, A.VALUES_GRAD_VJP, w32,
+                                        wn32),
+            lambda: A.values_and_gradient_vjp_plain(pt_s, p32, w32, wn32),
+            bytes_ms(p32, w32, wn32, extra=12 * B + packed_bytes),
+            B * k5h_ops(deg) / F32_PEAK * 1e3, K5H_OPS),
+        "packed_grad_form2": (
+            lambda: A.packed_grad_kernel(pt_s, p32, wn32, 2),
+            lambda: A.normals_vjp_plain(pt_s, p32, wn32),
+            bytes_ms(p32, wn32, pt_s.rows, pt_s.grid, extra=packed_bytes),
+            B * (k7_ops(deg, 1) + 12 * C) / F32_PEAK * 1e3, K7F2_OPS),
+    }
+    times = {}
+    for name, (kernel, plain, by_bytes, by_ops, limit) in shapes.items():
+        t = {"ms": graph_ms(kernel, 10), "plain_ms": time_ms(plain, 2),
+             "bound_ms": max(by_bytes, by_ops),
+             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+             "bytes_bound_ms": by_bytes, "ops_bound_ms": by_ops,
+             "library_ms": None, "points": B,
+             "launches_a_call": device_ops(kernel)}
+        check(1 <= t["launches_a_call"] <= limit, f"{name} puts "
+              f"{t['launches_a_call']} operations on the card a call (at "
+              f"most {limit})")
+        times[name] = t
+        print(f"[grad2] {name} at 2^20 points on the slice tree | {smi} | "
+              f"kernel {t['ms']:.4f} ms in a CUDA graph, plain "
+              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}; bytes {by_bytes:.5f}, operations "
+              f"{by_ops:.5f}; {t['bound_ms'] / t['ms']:.1%} of it) | "
+              f"operations on the card a call: {t['launches_a_call']}",
+              flush=True)
+
+    # --- the paths: the counts from here to the end of (c) ------------
+    reset_counts()
+    sync()
+    # (a) projection onto the surface
+    t0 = time.perf_counter()
+    p = torch.as_tensor(root_points(lo, hi, N_QUERY, seed + 1), device=dev)
+    f0 = None
+    for _ in range(PROJ_STEPS):
+        p, f = projection_step(tree_s, p)
+        f0 = f if f0 is None else f0
+    f_end = T.query(tree_s, p, outside_value_max=False)
+    check(bool(torch.isfinite(p).all()), "projection: points not finite")
+    proj = {"mean_abs_f_before": float(f0.abs().mean()),
+            "mean_abs_f_after": float(f_end.abs().mean()),
+            "steps": PROJ_STEPS, "points": N_QUERY}
+    sync()
+    proj["s"] = time.perf_counter() - t0
+    check(proj["mean_abs_f_after"] < proj["mean_abs_f_before"],
+          f"projection: mean |f| {proj['mean_abs_f_before']:.4e} -> "
+          f"{proj['mean_abs_f_after']:.4e}")
+    print(f"[grad2] (a) projection of 2^20 points of the slice tree's root "
+          f"(a sixteenth on its faces), {PROJ_STEPS} steps: mean |f| "
+          f"{proj['mean_abs_f_before']:.6e} -> {proj['mean_abs_f_after']:.6e}"
+          f", {proj['s']:.3f} s", flush=True)
+
+    # (b) oriented-point fit: the initial tree's coefficients and the
+    # samples' shift
+    pts, n_t = (torch.as_tensor(x, device=dev) for x in
+                oriented_samples(mesh, N_QUERY, seed + 2))
+    params = [tree_i.coeffs.detach().clone().requires_grad_(True),
+              torch.zeros(3, dtype=torch.float64, device=dev,
+                          requires_grad=True)]
+    opt = torch.optim.Adam(params, lr=FIT_LR)
+    fit = {"loss": [], "steps": FIT_STEPS, "samples": N_QUERY}
+    t0 = time.perf_counter()
+    for k in range(FIT_STEPS):
+        opt.zero_grad()
+        loss = oriented_fit_loss(tree_i, *params, pts, n_t)
+        loss.backward()
+        fit["loss"].append(float(loss.detach()))
+        if k == 0:
+            grads = [x.grad.clone() for x in params]
+        opt.step()
+    sync()
+    fit["s"] = time.perf_counter() - t0
+    print(f"[grad2] (b) oriented-point fit, {FIT_STEPS} Adam steps on the "
+          f"r = 0.27 tree's coefficients and the samples' shift, 2^20 "
+          f"samples of icosphere(0.3, 5)'s triangles: loss {fit['loss']}, "
+          f"{fit['s']:.3f} s", flush=True)
+
+    # (c) normal map on the carved tree's folded coefficients and the
+    # hits' shift
+    packed, support = A.pack_tree(carved), A.pack_support(carved)
+    hits = hits.to(torch.float32).contiguous()
+    n_h = hits / torch.linalg.norm(hits, dim=-1, keepdim=True)
+    nparams = [(carved.coeffs * support.fold).to(torch.float32)
+               .requires_grad_(True),
+               torch.zeros(3, device=dev, requires_grad=True)]
+    opt = torch.optim.Adam(nparams, lr=NMAP_LR)
+    nmap = {"loss": [], "steps": NMAP_STEPS, "hits": hits.shape[0]}
+    t0 = time.perf_counter()
+    for k in range(NMAP_STEPS):
+        opt.zero_grad()
+        loss = normal_map_loss(packed, support, *nparams, hits, n_h)
+        loss.backward()
+        nmap["loss"].append(float(loss.detach()))
+        if k == 0:
+            ngrads = [x.grad.clone() for x in nparams]
+        opt.step()
+    sync()
+    nmap["s"] = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"[grad2] (c) normal map, {NMAP_STEPS} Adam steps on the carved "
+          f"tree's folded coefficients and the shift of the render's "
+          f"{hits.shape[0]} hits: loss {nmap['loss']}, {nmap['s']:.3f} s",
+          flush=True)
+    for k, count in GRAD2_KERNELS.items():
+        check(count(launches) > 0, f"{k} never launched on [grad2]'s paths")
+    for k, loss in (("(b)", fit["loss"]), ("(c)", nmap["loss"])):
+        check(all(math.isfinite(x) for x in loss) and loss[-1] < loss[0],
+              f"{k}'s loss does not fall: {loss}")
+
+    # (b)'s and (c)'s first gradients against the plain versions
+    with unittest.mock.patch.object(T, "query", query_plain), \
+            unittest.mock.patch.object(T, "query_with_gradient",
+                                       query_with_gradient_plain):
+        ps = [tree_i.coeffs.detach().clone().requires_grad_(True),
+              torch.zeros(3, dtype=torch.float64, device=dev,
+                          requires_grad=True)]
+        want = torch.autograd.grad(oriented_fit_loss(tree_i, *ps, pts, n_t),
+                                   ps)
+    fit["grad_rel_err"] = [rel_err(g, w_) for g, w_ in zip(grads, want)]
+    check(max(fit["grad_rel_err"]) <= GRAD2_RTOL64, f"(b)'s gradient vs "
+          f"the plain versions: {fit['grad_rel_err']}")
+    with unittest.mock.patch.object(A, "normals", A.normals_plain), \
+            unittest.mock.patch.object(A, "values_and_gradient_at",
+                                       A.values_and_gradient_at_plain), \
+            unittest.mock.patch.object(
+                A, "row_gather",
+                lambda t, i, csr=None: A.row_gather_plain(t, i)):
+        ps = [(carved.coeffs * support.fold).to(torch.float32)
+              .requires_grad_(True),
+              torch.zeros(3, device=dev, requires_grad=True)]
+        want = torch.autograd.grad(normal_map_loss(packed, support, *ps,
+                                                   hits, n_h), ps)
+    nmap["grad_rel_err"] = [rel_err(g, w_) for g, w_ in zip(ngrads, want)]
+    check(max(nmap["grad_rel_err"]) <= NMAP_RTOL, f"(c)'s gradient vs the "
+          f"plain versions: {nmap['grad_rel_err']}")
+    print(f"[grad2] the first step's gradients against the plain versions, "
+          f"max|kernels - plain| / max|plain| (coefficients, shift): (b) "
+          f"{fit['grad_rel_err']}, (c) {nmap['grad_rel_err']} | launches "
+          f"on the paths: " + ", ".join(f"{k} {count(launches)}" for k, count
+                                         in GRAD2_KERNELS.items()),
+          flush=True)
+    return launches, {"errs": errs, "abs_errs": abs_errs, "times": times,
+                      "projection": proj, "oriented_fit": fit,
+                      "normal_map": nmap,
+                      "teeth": {k: v[2] for k, v in
+                                out["checks"]["2^20 slice"].items()}}
 
 
 def row_walk(pt, pts):
@@ -6804,7 +7272,8 @@ PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
                  "signed_from_best_kernel",
                  "inverse_points_kernel", "inverse_loss_kernel",
                  "inverse_vjp_kernel",
-                 "fit_points_kernel", "fit_project_kernel")
+                 "fit_points_kernel", "fit_project_kernel",
+                 "coeff_scatter_grad_kernel", "packed_hvp_kernel")
 # the check library's kernels the ptxas check reads (csrc/check/)
 CHECK_PTXAS_KERNELS = ("inverse_terms_reference_kernel",)
 
@@ -6824,7 +7293,9 @@ def _ptxas_key(kernel, args):
     if kernel == "coeff_scatter_kernel":
         return f"{args[1]}/{'f32 trace' if args[2] else 'f64 query'}"
     if kernel == "query_kernel":
-        return f"{args[0]}/{'grad' if args[1] else 'values'}"
+        return f"{args[0]}/{('values', 'grad', 'hess')[args[1]]}"
+    if kernel == "packed_hvp_kernel":
+        return f"{args[0]}/{('normals', 'values')[args[1]]}"
     if kernel == "packed_eval_kernel":
         return f"{args[0]}/{('values', 'normals', 'raw', 'fused')[args[1]]}"
     if kernel == "packed_grad_kernel":
@@ -6838,9 +7309,11 @@ def _ptxas_key(kernel, args):
 
 def ptxas_check():
     """Registers, stack and spills of every kernel's instantiations, as
-    ptxas reported them when the library was built. K1, K3, K4, K5's raw
-    gradient (alone and fused with K2), K7 and K8 at degrees 3 and 5 (the
-    main paths'), both forms of G's backward, K9 (on the face operator and
+    ptxas reported them when the library was built. K1 (with K1v, its
+    gradient's instantiation), K3, K4, K5's raw gradient (alone and fused
+    with K2), K7 (its three forms), K8, K8g and K5h (both modes) at degrees
+    3 and 5 (the main paths'), K1h at degree 3 (at 5 it spills 48 bytes),
+    both forms of G's backward, K9 (on the face operator and
     in its CSR form), K9u, both forms of the persistent launch, both forms
     of each of the row-sharded CG's two K9u launches, both of K10 and K11,
     K1's node-range descent round and, at degrees 3 and 5, its leaf
@@ -6880,7 +7353,11 @@ def ptxas_check():
             ("K5 raw", "packed_eval_kernel", ("3/raw", "5/raw", "3/fused",
                                                "5/fused")),
             ("K7", "packed_grad_kernel", ("3/form0", "3/form1", "5/form0",
-                                          "5/form1")),
+                                          "5/form1", "3/form2", "5/form2")),
+            ("K1h", "query_kernel", ("3/hess",)),
+            ("K8g", "coeff_scatter_grad_kernel", ("3", "5")),
+            ("K5h", "packed_hvp_kernel", ("3/normals", "3/values",
+                                          "5/normals", "5/values")),
             ("K8", "coeff_scatter_kernel", ("3/f64 query", "3/f32 trace",
                                             "5/f64 query", "5/f32 trace")),
             ("G backward", "row_scatter_kernel", ("-",)),
@@ -7039,8 +7516,8 @@ def main():
     bnd_hits, bnd_change = phase("k4 boundary", phase_boundary, cfg, dev)
 
     # --- 9. the render path ------------------------------------------------
-    launches_r, tr, frac, k3c_err, k5c_dot, carve_pts, pt_c, ph = phase(
-        "render", phase_render, tree, _kernels.BUILD_DIR)
+    launches_r, tr, frac, k3c_err, k5c_dot, carve_pts, pt_c, ph, carved = \
+        phase("render", phase_render, tree, _kernels.BUILD_DIR)
     k2m_err, k5m_dot, tk2m = phase("k2-main", phase_k2_main, pt_s,
                                    carve_pts, pt_c, ph)
 
@@ -7052,6 +7529,8 @@ def main():
     s_inv, s_small = phase("inverse setup", inverse_setup, cfg, dev,
                            (INV_SIZE, (INV_SMALL, INV_SMALL)))
     tgrad = phase("grad", phase_grad, pt_s, tree, s_inv, smi)
+    launches_g2, tg2 = phase("grad2", phase_grad2, tree, s_inv["init"], mesh,
+                             carved, ph, smi)
     tk13 = phase("k13", check_k13, s_inv, smi)
     phase("k14 ops", phase_k14_ops, bvh.tri_rows, table, fit_pts, tk14)
     tk6.update(phase("k6 ops", phase_k6_ops, k6_calls))
@@ -7080,7 +7559,7 @@ def main():
 
     total = {k: launches[k] + launches_r[k] + launches_i[k]
              + launches_ca[k] + launches_cb[k] + launches_m[k]
-             + launches_s[k] for k in launches}
+             + launches_s[k] + launches_g2[k] for k in launches}
     g_probe = tg[f"{G_TABLE[0]}x{G_TABLE[1]}"]
     g_rows = tg[f"{bvh.tri_rows.shape[0]}x{bvh.tri_rows.shape[1]}"]
     kernels = [
@@ -7416,6 +7895,34 @@ def main():
                 "invariance": tk6["invariance"], "shapes": tk6["shapes"],
                 "einsums_only": tk6["einsums_only"],
                 "faster_than_einsums": tk6["faster_than_einsums"]}))),
+        # the reads' backward kernels; launches from [grad2]'s paths
+        *({"name": name, "route": "cuda",
+           "source": f"hpsdf_tpu_torch/csrc/{source}", "replaces": replaces,
+           "launches": GRAD2_KERNELS[name](launches_g2),
+           "max_abs_err": max(tg2["abs_errs"][k] for k in keys),
+           "max_rel_err": max(tg2["errs"][k] for k in keys),
+           **{k: tg2["times"][name][k] for k in (
+               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+               "bytes_bound_ms", "ops_bound_ms", "launches_a_call",
+               "points")},
+           **({"values_mode": tg2["times"]["packed_hvp_values"]}
+              if name == "packed_hvp" else {}),
+           "teeth": {k: tg2["teeth"][k] for k in keys},
+           "ptxas": ptxas.get(kernel, {})}
+          for name, source, replaces, keys, kernel in (
+              ("query_vjp", "query.cu", "hpsdf_tpu/query.py:69-85",
+               ("query_vjp", "query_vjp_inside_out"), "query_kernel"),
+              ("query_vjp_hess", "query.cu", "hpsdf_tpu/query.py:88-108",
+               ("query_vjp_hess",), "query_kernel"),
+              ("coeff_scatter_grad", "coeff_scatter.cu",
+               "hpsdf_tpu/query.py:88-108", ("coeff_scatter_grad",),
+               "coeff_scatter_grad_kernel"),
+              ("packed_hvp", "packed_eval.cu",
+               "hpsdf_tpu/render.py:1092-1110,hpsdf_tpu/inverse.py:234",
+               ("packed_hvp", "packed_hvp_values"), "packed_hvp_kernel"),
+              ("packed_grad_form2", "packed_grad.cu",
+               "hpsdf_tpu/render.py:1092-1110", ("packed_grad_form2",),
+               "packed_grad_kernel"))),
     ]
     print(f"[e2e] {smi} | carve {tr['carve_s']:.3f} s, render 512^2 "
           f"{tr['render_s']:.3f} s, hit fraction {frac:.4f} | 1024^2 march: "
@@ -7429,6 +7936,9 @@ def main():
                     if k not in ("errs", "abs_errs")}
             for label, c in (("fit_continuity", tca), ("row_260k", tcb))}
     print(json.dumps({"kernels": kernels, "inverse": ti,
+                      "grad2": {k: tg2[k] for k in ("projection",
+                                                    "oriented_fit",
+                                                    "normal_map")},
                       "fit_split": {"slice": split_s, "carve": tr["split"],
                                     "carve_k6": tr["k6_split"],
                                     "mesh_scale_k6":

@@ -50,6 +50,9 @@ _SIGNATURES = {
                        _P),
     "hpsdf_query": (_P, _P, _P, _P, _I32, _I32, _P, _I64,
                     _F64, _F64, _F64, _F64, _F64, _F64, _I32, _P, _P, _P),
+    "hpsdf_query_vjp": (_P, _P, _P, _P, _I32, _I32, _P, _I64,
+                        _F64, _F64, _F64, _F64, _F64, _F64, _I32, _P, _P, _P,
+                        _P),
     "hpsdf_descend_nodes": (_P, _P, _I32, _I32, _P, _P, _I64, _P, _P),
     "hpsdf_leaf_nodes": (_P, _P, _P, _I32, _I32, _I32, _P, _P, _I64, _P, _P),
     "hpsdf_row_gather": (_P, _I64, _I64, _I64, _P, _I64, _P, _P),
@@ -62,6 +65,9 @@ _SIGNATURES = {
     "hpsdf_packed_eval": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
                           _F32, _F32, _F32, _F32, _F32, _F32,
                           _F32, _F32, _F32, _I32, _I32, _P, _P, _I64, _P),
+    "hpsdf_packed_hvp": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
+                         _F32, _F32, _F32, _F32, _F32, _F32,
+                         _F32, _F32, _F32, _I32, _P, _P, _I64, _P, _P),
     "hpsdf_march": (_P, _P, _I32, _I32, _P, _P, _I32, _I32, _I32, _P, _I64,
                     _P, _I64, _P, _F32, _F32, _I32, _F32, _I32, _F32, _I32,
                     _P, _P, _P, _P, _P, _I32, _P),
@@ -71,10 +77,13 @@ _SIGNATURES = {
     "hpsdf_row_scatter_csr": (_P, _I64, _P, _P, _I64, _P, _P),
     "hpsdf_packed_grad": (_P, _P, _I32, _I32, _I32, _I32, _I32, _P, _I64,
                           _F32, _F32, _F32, _F32, _F32, _F32,
-                          _P, _I32, _P, _I64, _P, _P, _P),
+                          _F32, _F32, _F32, _P, _I32, _P, _I64, _P, _P, _P),
     "hpsdf_coeff_scatter": (_P, _P, _P, _P, _I32, _I32, _P, _P, _P, _P, _P,
                             _I64, _F64, _F64, _F64, _F64, _F64, _F64,
                             _P, _I32, _I32, _P, _P),
+    "hpsdf_coeff_scatter_grad": (_P, _P, _P, _P, _I32, _I32, _P, _I64,
+                                 _F64, _F64, _F64, _F64, _F64, _F64,
+                                 _P, _P, _P, _P),
     "hpsdf_node_buckets": (_I32, _I32, _I32, _P, _P, _I64, _F64, _F64, _F64,
                            _F64, _F64, _F64, _P, _I32, _P, _P, _P),
     "hpsdf_coeff_scatter_nodes": (_P, _P, _I32, _I32, _I32, _I32, _P, _P,

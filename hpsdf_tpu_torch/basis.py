@@ -133,6 +133,18 @@ def legendre_all_with_derivative(x: torch.Tensor, degree: int):
     return L, torch.stack(dvals, dim=-1)
 
 
+def legendre_second_derivative(dL: torch.Tensor, degree: int) -> torch.Tensor:
+    """L''_p for p = 0..degree from L'_p (..., degree+1) by the recurrence
+    L''_p = L''_{p-2} + (2p-1) L'_{p-1}: the plain version of the second
+    derivative the backward kernels K1h and K5h sum their Hessians with
+    (``legendre_deriv2``, csrc/packed_rows.cuh)."""
+    zero = torch.zeros_like(dL[..., 0])
+    vals = [zero, zero] if degree >= 1 else [zero]
+    for p in range(2, degree + 1):
+        vals.append(vals[p - 2] + (2.0 * p - 1.0) * dL[..., p - 1])
+    return torch.stack(vals, dim=-1)
+
+
 def _tables(degree: int, like: torch.Tensor):
     idx = torch.as_tensor(basis_indices(degree), dtype=torch.long,
                           device=like.device)

@@ -5,7 +5,9 @@
 // tables the caller zeroed. chip_smoke.py builds this file apart from the
 // library (_kernels.load_check), holds the shipped kernel to it and times
 // both in the same run. It is on no path of the package. The arithmetic is
-// described in packed_grad.cu.
+// described in packed_grad.cu; form 1 takes the clamp's slope on each axis
+// as packed_grad.cu does since the face rule (1/2 on a face of the root),
+// so that the two compute the same function.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,12 +35,11 @@ packed_grad_reference_kernel(const float* __restrict__ grid,
   const int64_t ip = valid ? i : B - 1;     // spare lanes repeat the last point
   const float rc[3] = {rc0, rc1, rc2};
   const float inv[3] = {inv0, inv1, inv2};
-  float u[3];
-  bool in_axis[3];
+  float u[3], slope[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float w = (pts[3 * ip + a] - rc[a]) * inv[a];
-    in_axis[a] = fabsf(w) <= 0.5f;
+    slope[a] = hpsdf::clamp_half_slope(w);
     u[a] = hpsdf::clamp_half(w);
   }
   // locate_row4, keeping the table the row comes from
@@ -71,7 +72,9 @@ packed_grad_reference_kernel(const float* __restrict__ grid,
   } else {
 #pragma unroll
     for (int a = 0; a < 3; ++a)
-      ua[a] = valid && in_axis[a] ? cot[3 * i + a] * (scale * inv[a]) : 0.0f;
+      ua[a] = valid && slope[a] > 0.0f
+                  ? slope[a] * cot[3 * i + a] * (scale * inv[a])
+                  : 0.0f;
   }
 
   const hpsdf::PeerSum peers(valid ? (unsigned long long)dst : ~0ull);

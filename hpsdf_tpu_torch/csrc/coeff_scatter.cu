@@ -48,6 +48,10 @@
 // in registers, stores in place of the atomics, the norms by double sqrt and
 // ldexp) are in PERF.md.
 //
+// K8g (coeff_scatter_grad_kernel), the VJP of query_with_gradient to the
+// coefficients, is the query form with the unit gradient's cotangent too;
+// it is described above its kernel below.
+//
 // The node-range mode (node_buckets_kernel, then coeff_scatter_nodes_kernel)
 // is the query form for a rank of the node axis, which holds a range of the
 // node rows; it is laid out for scattered points and described above its
@@ -141,14 +145,17 @@ __device__ __forceinline__ void term_indices(int m, int& i, int& j, int& k) {
 // Lane j sums term j (then j + 32, ...) over the warp's live rays (the
 // bits of `lanes`, the warp's first thread w0), a run of rays on one row at a
 // time, and adds each run's sum into d_coeffs with one atomic: a ray's axis
-// factors N in sN, its weight in sW and its row in sLeaf.
-template <class T, int DEG>
+// factors N in sN, its weight in sW and its row in sLeaf. With GRAD (K8g) a
+// ray's factors are N and, after them, B_a = q_a dN_a, and its term m adds
+// w N_i N_j N_k + B_i N_j N_k + N_i B_j N_k + N_i N_j B_k.
+template <class T, int DEG, bool GRAD = false>
 __device__ __forceinline__ void scatter_terms(const T* sN, const T* sW,
                                               const int* sLeaf,
                                               unsigned lanes, int w0,
                                               int lane, T* d_coeffs) {
   constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
-  constexpr int kNS = 3 * (DEG + 1);
+  constexpr int kD = DEG + 1;
+  constexpr int kNS = (GRAD ? 6 : 3) * kD;
 #pragma unroll 1
   for (int m = lane; m < ((kC + 31) & ~31); m += 32) {
     int ix = 0, iy = 0, iz = 0;
@@ -164,7 +171,11 @@ __device__ __forceinline__ void scatter_terms(const T* sN, const T* sW,
         leaf = lr;
       }
       const T* n = sN + r * kNS;
-      acc += sW[r] * (n[ix] * n[DEG + 1 + iy] * n[2 * (DEG + 1) + iz]);
+      const T nx = n[ix], ny = n[kD + iy], nz = n[2 * kD + iz];
+      acc += sW[r] * (nx * ny * nz);
+      if constexpr (GRAD)
+        acc += n[3 * kD + ix] * ny * nz + nx * n[4 * kD + iy] * nz +
+               nx * ny * n[5 * kD + iz];
     };
 #pragma unroll
     for (int r = 0; r < 32; ++r)
@@ -288,6 +299,124 @@ coeff_scatter_kernel(const int32_t* __restrict__ child_idx,
   }
   __syncwarp();
   scatter_terms<T, DEG>(sN, sW, sLeaf, lanes, tid - lane, lane, d_coeffs);
+}
+
+// --- K8g: the VJP of query_with_gradient to the coefficients -------------
+//
+// query_with_gradient_vjp_plain's coefficient half, in f64, as the query
+// form: a thread a point, the warp's live points scattered transposed
+// (scatter_terms). A point is live where its value's cotangent (zero
+// outside the root, where the value is the sentinel) or its unit
+// gradient's is not zero. Like the trace form, a live point reads its
+// leaf's coefficient row for the gradient g of its leaf frame: with
+// s_a = 2^(depth+1) / size_a and gb = unit_vector_vjp(g s, wn, 1e-30),
+// d_coeffs[leaf, m] += w' P_m + sum_a gb_a s_a dP_m/dx_a, P_m the
+// normalised basis product. Its factors are twice the query form's, so a
+// block is kGradThreads threads, whose factors fit 48 KB at degree 12.
+// The (N, C) output is cleared by the caller (a memset) before the launch.
+
+constexpr int kGradThreads = 64;
+
+template <int DEG>
+__global__ void __launch_bounds__(kGradThreads)
+coeff_scatter_grad_kernel(const int32_t* __restrict__ child_idx,
+                          const double* __restrict__ centre,
+                          const int32_t* __restrict__ depth,
+                          const double* __restrict__ coeffs, int depth_used,
+                          const double* __restrict__ pts, int64_t B,
+                          double rc0, double rc1, double rc2, double inv0,
+                          double inv1, double inv2,
+                          const double* __restrict__ wv,
+                          const double* __restrict__ wn,
+                          double* __restrict__ d_coeffs) {
+  constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
+  constexpr int kD = DEG + 1;
+  constexpr int kNS = 6 * kD;
+  __shared__ double sN[kGradThreads * kNS];  // a live lane's N, then B
+  __shared__ double sW[kGradThreads];        // its value's weight
+  __shared__ int sLeaf[kGradThreads];        // its leaf
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int64_t i = (int64_t)blockIdx.x * kGradThreads + tid;
+  const double rc[3] = {rc0, rc1, rc2};
+  const double inv[3] = {inv0, inv1, inv2};
+
+  // which points carry a weight, from the cheap inputs
+  bool live = false;
+  double x[3], w = 0.0, wnv[3] = {0.0, 0.0, 0.0};
+  if (i < B) {
+    bool inside = true;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      x[a] = (__ldg(pts + 3 * i + a) - rc[a]) * inv[a];
+      inside = inside && fabs(x[a]) <= 0.5;
+      wnv[a] = __ldg(wn + 3 * i + a);
+    }
+    w = inside ? __ldg(wv + i) : 0.0;
+    live = w != 0.0 || wnv[0] != 0.0 || wnv[1] != 0.0 || wnv[2] != 0.0;
+  }
+  const unsigned lanes = __ballot_sync(hpsdf::kFullWarp, live);
+  if (lanes == 0u) return;
+
+  if (live) {
+    double u[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      u[a] = x[a] < -0.5 ? -0.5 : (x[a] > 0.5 ? 0.5 : x[a]);
+    int cur = 0;
+    for (int r = 0; r < depth_used; ++r) {
+      const int c0 = __ldg(child_idx + cur);
+      if (c0 < 0) break;
+      const double* cc = centre + 3 * (int64_t)cur;
+      cur = c0 + (u[0] >= __ldg(cc)) + ((u[1] >= __ldg(cc + 1)) << 1) +
+            ((u[2] >= __ldg(cc + 2)) << 2);
+    }
+    const int d = __ldg(depth + cur);
+    const double scale = pow2(d + 1);
+    const double* cc = centre + 3 * (int64_t)cur;
+    double N[3][kD], dN[3][kD];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      double L[kD], dL[kD];
+      hpsdf::legendre<DEG>((u[a] - __ldg(cc + a)) * scale, L);
+      hpsdf::legendre_deriv<DEG>(L, dL);
+#pragma unroll
+      for (int q = 0; q <= DEG; ++q) {
+        const double nt = odd_root(q, d & 1) * pow2(d >> 1);
+        N[a][q] = L[q] * nt;
+        dN[a][q] = dL[q] * nt;
+      }
+    }
+    const double* c = coeffs + (int64_t)cur * kC;
+    double g[3] = {0.0, 0.0, 0.0};
+    hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
+      const double cm = __ldg(c + m);
+      g[0] += cm * (dN[0][ix] * N[1][iy] * N[2][iz]);
+      g[1] += cm * (N[0][ix] * dN[1][iy] * N[2][iz]);
+      g[2] += cm * (N[0][ix] * N[1][iy] * dN[2][iz]);
+    });
+    // local = (unit - centre) * 2^(depth+1), unit = (world - c) / sizes
+    double s[3], G[3], gb[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      s[a] = scale * inv[a];
+      G[a] = g[a] * s[a];
+    }
+    hpsdf::unit_vector_vjp(G, wnv, 1e-30, gb);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const double qa = gb[a] * s[a];
+#pragma unroll
+      for (int q = 0; q <= DEG; ++q) {
+        sN[tid * kNS + a * kD + q] = N[a][q];
+        sN[tid * kNS + (3 + a) * kD + q] = qa * dN[a][q];
+      }
+    }
+    sW[tid] = w;
+    sLeaf[tid] = cur;
+  }
+  __syncwarp();
+  scatter_terms<double, DEG, true>(sN, sW, sLeaf, lanes, tid - lane, lane,
+                                   d_coeffs);
 }
 
 // --- the node-range mode --------------------------------------------------
@@ -740,6 +869,31 @@ extern "C" int hpsdf_coeff_scatter(const int32_t* child_idx,
         depth_used, nullptr, tr, B, (float)rc0, (float)rc1, (float)rc2,      \
         (float)inv0, (float)inv1, (float)inv2, (const float*)cot,            \
         outside_zero, (float*)d_coeffs)
+  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
+#undef HPSDF_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// K8g: d_coeffs (N, C) f64 += the VJP of query_with_gradient at the points
+// (B, 3) with cotangents wv (B,) for the values and wn (B, 3) for the unit
+// gradients; d_coeffs must be zeroed by the caller. One launch.
+extern "C" int hpsdf_coeff_scatter_grad(const int32_t* child_idx,
+                                        const double* centre,
+                                        const int32_t* depth,
+                                        const double* coeffs, int deg,
+                                        int depth_used, const double* pts,
+                                        int64_t B, double rc0, double rc1,
+                                        double rc2, double inv0, double inv1,
+                                        double inv2, const double* wv,
+                                        const double* wn, double* d_coeffs,
+                                        void* stream) {
+  if (B <= 0) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((B + kGradThreads - 1) / kGradThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+#define HPSDF_LAUNCH(D)                                                      \
+  coeff_scatter_grad_kernel<D><<<blocks, kGradThreads, 0, s>>>(              \
+      child_idx, centre, depth, coeffs, depth_used, pts, B, rc0, rc1, rc2,   \
+      inv0, inv1, inv2, wv, wn, d_coeffs)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
   return (int)cudaGetLastError();

@@ -16,8 +16,9 @@
 //   * the raw gradient (K5's third form, for the backward of values_at and
 //     the eikonal term of inverse rendering, hpsdf_tpu/inverse.py:233-240):
 //     the local gradient chained through scale / root_sizes, as autodiff
-//     of values_at chains it, and zero on each axis on which the point was
-//     clamped into the root (the derivative of the clamp);
+//     of values_at chains it, times the clamp's derivative on each axis: 1
+//     inside the root, 1/2 on a face (jnp.clip's max and min split the
+//     tie), 0 where the point was clamped;
 //   * values and raw gradients in one launch (the fused mode): the value at
 //     every point and the raw gradient at the first B_g, the points of an
 //     inverse chunk's one read (its band points first, whose gradients the
@@ -27,6 +28,10 @@
 //     own mode, so the values are bit-equal to mode 0's and the gradients
 //     to mode 2's. It saves the raw-gradient launch and its second read of
 //     the same rows.
+//
+// K5h (packed_hvp_kernel), the same read with the Hessian, gives the point
+// VJPs of normals and values_and_gradient_at; it is described above its
+// kernel below.
 //
 // Bound. The tables are a few MB and stay in the 50 MB L2, and the
 // arithmetic is ~4*C f32 operations a point (~16*C with the gradient). At
@@ -76,15 +81,14 @@ packed_eval_kernel(const float* __restrict__ grid,
   if (i >= B) return;
   const float rc[3] = {rc0, rc1, rc2};
   const float inv[3] = {inv0, inv1, inv2};
-  float u[3];
-  bool in_axis[3];
+  float u[3], slope[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float w = (pts[3 * i + a] - rc[a]) * inv[a];
-    in_axis[a] = fabsf(w) <= 0.5f;
+    slope[a] = hpsdf::clamp_half_slope(w);
     u[a] = hpsdf::clamp_half(w);
   }
-  const bool inside = in_axis[0] && in_axis[1] && in_axis[2];
+  const bool inside = slope[0] > 0.0f && slope[1] > 0.0f && slope[2] > 0.0f;
   const float* row = hpsdf::locate_row4(grid, rows, W, gd, extra, u);
   const float4 meta = __ldg(reinterpret_cast<const float4*>(row));
   const float centre[3] = {meta.z, meta.w, __ldg(row + 4)};
@@ -134,7 +138,8 @@ packed_eval_kernel(const float* __restrict__ grid,
     if (with_grad) {
 #pragma unroll
       for (int a = 0; a < 3; ++a)
-        dst[3 * i + a] = in_axis[a] ? g[a] * scale * inv[a] : 0.0f;
+        dst[3 * i + a] =
+            slope[a] > 0.0f ? slope[a] * (g[a] * scale * inv[a]) : 0.0f;
     }
     if constexpr (MODE == kValuesGrad) out[i] = v;
   } else if constexpr (MODE == kNormals) {
@@ -149,6 +154,128 @@ packed_eval_kernel(const float* __restrict__ grid,
   } else {
     out[i] = (outside_max && !inside) ? FLT_MAX : v;
   }
+}
+
+// K5h: Hessian-vector products of the packed eval, the point VJPs of
+// normals and of values_and_gradient_at (normals_vjp_plain,
+// values_and_gradient_vjp_plain), per point in f32. The thread locates
+// and reads its row as K5 does, and sums the leaf-frame gradient g and
+// Hessian H (xx, yy, zz, xy, xz, yz; the second derivative recurrence).
+// With c_a the clamp's slope (1, 1/2 on a face, 0 clamped) and
+// s_a = scale / size_a (scale * inv_a where values_at's chain takes it):
+//   * kNormalsVjp, cotangents wn (B, 3) of the unit normals g s /
+//     max(|g s|, 1e-12): gb = unit_vector_vjp(g s, wn, 1e-12), q_a =
+//     (gb_a / size_a) scale, and d_p_b = c_b scale inv_b sum_a H_ab q_a;
+//   * kValuesGradVjp, cotangents w (B,) of the values and u (B_g, 3) of
+//     the raw gradients c_a g_a scale inv_a of the first B_g points:
+//     q_a = u_a c_a scale inv_a there (0 beyond), and
+//     d_p_b = c_b scale inv_b (w g_b + sum_a H_ab q_a); a thread past B_g
+//     sums no Hessian.
+// Bound: the row read, as K5; the Hessian adds six sums a term. Above
+// degree 6 the terms go in a loop (for_each_term_of).
+constexpr int kNormalsVjp = 0, kValuesGradVjp = 1;
+
+template <int DEG, int MODE>
+__global__ void __launch_bounds__(kThreads)
+packed_hvp_kernel(const float* __restrict__ grid,
+                  const float* __restrict__ rows, int W, int gd, int extra,
+                  const float* __restrict__ pts, int64_t B, float rc0,
+                  float rc1, float rc2, float inv0, float inv1, float inv2,
+                  float sz0, float sz1, float sz2,
+                  const float* __restrict__ w, const float* __restrict__ cot3,
+                  int64_t B_g, float* __restrict__ d_pts) {
+  constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
+  constexpr int kQuads = (kC + 3) / 4;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  const bool hess = MODE == kNormalsVjp || i < B_g;
+  const float rc[3] = {rc0, rc1, rc2};
+  const float inv[3] = {inv0, inv1, inv2};
+  const float sz[3] = {sz0, sz1, sz2};
+  float u[3], slope[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float x = (pts[3 * i + a] - rc[a]) * inv[a];
+    slope[a] = hpsdf::clamp_half_slope(x);
+    u[a] = hpsdf::clamp_half(x);
+  }
+  const float* row = hpsdf::locate_row4(grid, rows, W, gd, extra, u);
+  const float4 meta = __ldg(reinterpret_cast<const float4*>(row));
+  const float centre[3] = {meta.z, meta.w, __ldg(row + 4)};
+  const float scale = meta.y;
+  const float* coef = row + hpsdf::kCoeffLane;
+
+  float L[3][DEG + 1], dL[3][DEG + 1], d2L[3][DEG + 1];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    hpsdf::legendre<DEG>((u[a] - centre[a]) * scale, L[a]);
+    hpsdf::legendre_deriv<DEG>(L[a], dL[a]);
+    if (hess) hpsdf::legendre_deriv2<DEG>(dL[a], d2L[a]);
+  }
+  float g[3] = {0.0f, 0.0f, 0.0f};
+  float h[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  auto add_terms = [&](auto coef_of) {
+    hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
+      const float cm = coef_of(m);
+      g[0] += cm * (dL[0][ix] * L[1][iy] * L[2][iz]);
+      g[1] += cm * (L[0][ix] * dL[1][iy] * L[2][iz]);
+      g[2] += cm * (L[0][ix] * L[1][iy] * dL[2][iz]);
+    });
+    if (hess) {
+      hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
+        const float cm = coef_of(m);
+        h[0] += cm * (d2L[0][ix] * L[1][iy] * L[2][iz]);
+        h[1] += cm * (L[0][ix] * d2L[1][iy] * L[2][iz]);
+        h[2] += cm * (L[0][ix] * L[1][iy] * d2L[2][iz]);
+        h[3] += cm * (dL[0][ix] * dL[1][iy] * L[2][iz]);
+        h[4] += cm * (dL[0][ix] * L[1][iy] * dL[2][iz]);
+        h[5] += cm * (L[0][ix] * dL[1][iy] * dL[2][iz]);
+      });
+    }
+  };
+  if constexpr (kQuads <= kMaxQuads) {
+    float c[4 * kQuads];
+#pragma unroll
+    for (int q = 0; q < kQuads; ++q) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(coef) + q);
+      c[4 * q] = f.x, c[4 * q + 1] = f.y, c[4 * q + 2] = f.z,
+      c[4 * q + 3] = f.w;
+    }
+    add_terms([&](int m) { return c[m]; });
+  } else {
+    add_terms([&](int m) { return __ldg(coef + m); });
+  }
+
+  float q[3] = {0.0f, 0.0f, 0.0f}, dl[3] = {0.0f, 0.0f, 0.0f};
+  if constexpr (MODE == kNormalsVjp) {
+    // n = G / max(|G|, 1e-12), G_a = g_a scale / size_a
+    float G[3], wn[3], gb[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      G[a] = g[a] * scale / sz[a];
+      wn[a] = __ldg(cot3 + 3 * i + a);
+    }
+    hpsdf::unit_vector_vjp(G, wn, 1e-12f, gb);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) q[a] = gb[a] / sz[a] * scale;
+  } else {
+    const float wi = __ldg(w + i);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      dl[a] = wi * g[a];
+      if (hess) q[a] = __ldg(cot3 + 3 * i + a) * slope[a] * (scale * inv[a]);
+    }
+  }
+  if (hess) {
+    float hq[3];
+    hpsdf::hessian_times(h, q, hq);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) dl[a] += hq[a];
+  }
+  // local = (unit - centre) * scale, unit = clamp((p - c) * (1 / sizes))
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    d_pts[3 * i + a] = slope[a] * (dl[a] * scale * inv[a]);
 }
 
 }  // namespace
@@ -181,6 +308,37 @@ extern "C" int hpsdf_packed_eval(const float* grid, const float* rows, int W,
     HPSDF_MODE(D, kValuesGrad);             \
   else                                      \
     HPSDF_MODE(D, kValues)
+  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
+#undef HPSDF_LAUNCH
+#undef HPSDF_MODE
+  return (int)cudaGetLastError();
+}
+
+// K5h: d_pts (B, 3), mode 0 the VJP of the unit normals with cotangents
+// cot3 = wn (B, 3); mode 1 the VJP of values_and_gradient_at with
+// cotangents w (B,) for the values and cot3 = u (B_g, 3) for the raw
+// gradients of the first B_g <= B points. Rows 16-byte aligned.
+extern "C" int hpsdf_packed_hvp(const float* grid, const float* rows, int W,
+                                int deg, int gd, int extra, const float* pts,
+                                int64_t B, float rc0, float rc1, float rc2,
+                                float inv0, float inv1, float inv2, float sz0,
+                                float sz1, float sz2, int mode,
+                                const float* w, const float* cot3,
+                                int64_t B_g, float* d_pts, void* stream) {
+  if (B <= 0 || (mode != kNormalsVjp && mode != kValuesGradVjp) ||
+      (mode == kValuesGradVjp && (B_g < 0 || B_g > B)))
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+#define HPSDF_MODE(D, M)                                                     \
+  packed_hvp_kernel<D, M><<<blocks, kThreads, 0, s>>>(                       \
+      grid, rows, W, gd, extra, pts, B, rc0, rc1, rc2, inv0, inv1, inv2, sz0, \
+      sz1, sz2, w, cot3, B_g, d_pts)
+#define HPSDF_LAUNCH(D)          \
+  if (mode == kNormalsVjp)       \
+    HPSDF_MODE(D, kNormalsVjp);  \
+  else                           \
+    HPSDF_MODE(D, kValuesGradVjp)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
 #undef HPSDF_MODE

@@ -13,8 +13,17 @@
 //       d[8 + m] += w * P_m(local),  P_m = L_i(x) L_j(y) L_k(z);
 //   * form 1, the VJP of the raw point gradient (K5's third form) with
 //     cotangents u (B, 3):
-//       d[8 + m] += sum_a u_a * scale * (1 / size_a) * dP_m/dlocal_a,
-//     the axes on which the point was clamped into the root left out.
+//       d[8 + m] += sum_a c_a u_a * scale * (1 / size_a) * dP_m/dlocal_a,
+//     c_a the clamp's slope: 1 inside the root, 1/2 on a face, 0 on an
+//     axis on which the point was clamped;
+//   * form 2, the VJP of the unit normals (K5's normals, normals_vjp_plain)
+//     with cotangents wn (B, 3): with G_a = g_a scale / size_a the normal's
+//     unnormalised gradient at the point (g from the row it reads) and
+//     gb = unit_vector_vjp(G, wn, 1e-12),
+//       d[8 + m] += sum_a (gb_a / size_a) * scale * dP_m/dlocal_a,
+//     with no axis left out: the normals chain through the clamped point
+//     but do not mask it. Each point's record takes gb / size, computed
+//     where the point is placed in row order (it has located its row).
 // The meta lanes 0-7 get zero: inverse rendering rebuilds them from
 // PackSupport.meta_rows, a constant.
 //
@@ -70,8 +79,8 @@ struct Terms {
   static constexpr int PPL = kWarps * 64 * S * 4 <= 40960 ? 2 : 1;
   static constexpr int BATCH = 32 * PPL;
   // float4s of a point's record, its unit-cube coordinates u and its
-  // cotangent: (u, w), or (u, c_0) and (c_1, c_2, 0, 0), the cotangent c_a
-  // zeroed on each axis on which the point lay outside the root
+  // cotangent: (u, w), or (u, c_0) and (c_1, c_2, 0, 0), form 1's
+  // cotangent c_a times the clamp's slope, form 2's gb_a / size_a
   static constexpr int REC = FORM == 0 ? 1 : 2;
 };
 
@@ -96,16 +105,16 @@ struct Inputs {
   int W, gd, extra, G3;
   const float* pts;
   const float* cot;
-  float rc[3], inv[3];
+  float rc[3], inv[3], sz[3];
 
-  // the point's unit-cube coordinates, clamped into the root, and the axes
-  // on which it lay inside
+  // the point's unit-cube coordinates, clamped into the root, and the
+  // clamp's slope on each axis
   __device__ __forceinline__ void unit(int64_t b, float u[3],
-                                       bool in_axis[3]) const {
+                                       float slope[3]) const {
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const float w = (pts[3 * b + a] - rc[a]) * inv[a];
-      in_axis[a] = fabsf(w) <= 0.5f;
+      slope[a] = hpsdf::clamp_half_slope(w);
       u[a] = hpsdf::clamp_half(w);
     }
   }
@@ -113,9 +122,8 @@ struct Inputs {
   // the row the point reads (locate_row4): key < G3 the grid row key,
   // else node row key - G3
   __device__ __forceinline__ int key(int64_t b) const {
-    float u[3];
-    bool in_axis[3];
-    unit(b, u, in_axis);
+    float u[3], slope[3];
+    unit(b, u, slope);
     int k = hpsdf::grid_cell(gd, u);
     const float* row = grid + (int64_t)k * W;
     for (int r = 0; r < extra; ++r) {
@@ -134,18 +142,49 @@ struct Inputs {
     return k < G3 ? grid + k * W : rows + (k - G3) * W;
   }
 
-  // point b's record (Terms::REC float4s at r)
-  template <int FORM>
-  __device__ __forceinline__ void record(int64_t b, float4* r) const {
-    float u[3];
-    bool in_axis[3];
-    unit(b, u, in_axis);
+  // point b's record (Terms::REC float4s at r); it reads row k
+  template <int DEG, int FORM>
+  __device__ __forceinline__ void record(int64_t b, int64_t k,
+                                         float4* r) const {
+    float u[3], slope[3];
+    unit(b, u, slope);
     if constexpr (FORM == 0) {
       r[0] = make_float4(u[0], u[1], u[2], cot[b]);
     } else {
       float c[3];
+      if constexpr (FORM == 1) {
 #pragma unroll
-      for (int a = 0; a < 3; ++a) c[a] = in_axis[a] ? cot[3 * b + a] : 0.0f;
+        for (int a = 0; a < 3; ++a)
+          c[a] = slope[a] > 0.0f ? slope[a] * cot[3 * b + a] : 0.0f;
+      } else {
+        // the normal's gradient at the point, then the unit vector's VJP
+        const float* rw = row(k);
+        const float4 meta = __ldg(reinterpret_cast<const float4*>(rw));
+        const float centre[3] = {meta.z, meta.w, __ldg(rw + 4)};
+        const float scale = meta.y;
+        float L[3][DEG + 1], dL[3][DEG + 1];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          hpsdf::legendre<DEG>((u[a] - centre[a]) * scale, L[a]);
+          hpsdf::legendre_deriv<DEG>(L[a], dL[a]);
+        }
+        float G[3] = {0.0f, 0.0f, 0.0f}, wn[3], gb[3];
+        const float* coef = rw + hpsdf::kCoeffLane;
+        hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
+          const float cm = __ldg(coef + m);
+          G[0] += cm * (dL[0][ix] * L[1][iy] * L[2][iz]);
+          G[1] += cm * (L[0][ix] * dL[1][iy] * L[2][iz]);
+          G[2] += cm * (L[0][ix] * L[1][iy] * dL[2][iz]);
+        });
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          G[a] = G[a] * scale / sz[a];
+          wn[a] = cot[3 * b + a];
+        }
+        hpsdf::unit_vector_vjp(G, wn, 1e-12f, gb);
+#pragma unroll
+        for (int a = 0; a < 3; ++a) c[a] = gb[a] / sz[a];
+      }
       r[0] = make_float4(u[0], u[1], u[2], c[0]);
       r[1] = make_float4(c[1], c[2], 0.0f, 0.0f);
     }
@@ -181,7 +220,7 @@ struct Inputs {
       for (int a = 0; a < 3; ++a) {
         float dL[N];
         hpsdf::legendre_deriv<DEG>(L[a], dL);
-        const float ua = c[a] * (scale * inv[a]);
+        const float ua = FORM == 1 ? c[a] * (scale * inv[a]) : c[a] * scale;
 #pragma unroll
         for (int i = 0; i < N; ++i) {
           t[a * N + i] = L[a][i];
@@ -254,14 +293,15 @@ packed_grad_kernel(const float* __restrict__ grid,
                    const float* __restrict__ rows, int W, int gd, int extra,
                    int Np, const float* __restrict__ pts, int64_t B,
                    float rc0, float rc1, float rc2, float inv0, float inv1,
-                   float inv2, const float* __restrict__ cot, int cs,
+                   float inv2, float sz0, float sz1, float sz2,
+                   const float* __restrict__ cot, int cs,
                    void* __restrict__ scratch, float* __restrict__ d_grid,
                    float* __restrict__ d_rows) {
   using T = Terms<DEG, FORM>;
   __shared__ float s_tab[kWarps][T::BATCH * T::S];
   const int lane = threadIdx.x & 31;
   const Inputs in{grid, rows, W, gd, extra, 1 << (3 * gd), pts, cot,
-                  {rc0, rc1, rc2}, {inv0, inv1, inv2}};
+                  {rc0, rc1, rc2}, {inv0, inv1, inv2}, {sz0, sz1, sz2}};
   const int K = in.G3 + Np;
   // scratch (scratch_bytes): the records, the keys, the row order, the
   // grouping's counters
@@ -278,7 +318,7 @@ packed_grad_kernel(const float* __restrict__ grid,
   };
   auto place = [&](int64_t b, int pos, int k) {
     sorted[pos] = k;
-    in.record<FORM>(b, recs + (int64_t)pos * T::REC);
+    in.record<DEG, FORM>(b, k, recs + (int64_t)pos * T::REC);
   };
   hpsdf::group_by_key<kThreads>(
       B, K, [&](int64_t b) { return in.key(b); }, keys, cnt, cs,
@@ -348,11 +388,12 @@ cudaError_t launch(void** args, cudaStream_t s) {
 // order, then the grouping's counters; -1 where 32-bit indices do not
 // reach.
 int64_t scratch_bytes(int64_t B, int gd, int64_t Np, int form) {
-  if ((form != 0 && form != 1) || B < 0 || 2 * B >= INT32_MAX || Np < 0 ||
+  if (form < 0 || form > 2 || B < 0 || 2 * B >= INT32_MAX || Np < 0 ||
       gd < 0 || gd > 10)
     return -1;
   const int64_t counts = hpsdf::group_ints((int64_t{1} << (3 * gd)) + Np);
-  return counts < 0 ? -1 : 16 * (form + 1) * B + 4 * (2 * B + counts);
+  return counts < 0 ? -1
+                    : 16 * (form == 0 ? 1 : 2) * B + 4 * (2 * B + counts);
 }
 
 }  // namespace
@@ -362,7 +403,8 @@ extern "C" int64_t hpsdf_packed_grad_scratch(int64_t B, int gd, int Np,
   return scratch_bytes(B, gd, Np, form);
 }
 
-// form 0: cot = w (B,); form 1: cot = u (B, 3). Np: the node rows;
+// form 0: cot = w (B,); form 1: cot = u (B, 3); form 2: cot = wn (B, 3),
+// the normals' cotangents (sz: the root's sizes). Np: the node rows;
 // scratch: hpsdf_packed_grad_scratch bytes, 16-byte aligned. Writes every
 // row of d_grid and d_rows (the tables' shapes), zeros outside the
 // coefficient lanes. Rows 16-byte aligned. One cooperative launch.
@@ -370,7 +412,8 @@ extern "C" int hpsdf_packed_grad(const float* grid, const float* rows, int W,
                                  int deg, int gd, int extra, int Np,
                                  const float* pts, int64_t B, float rc0,
                                  float rc1, float rc2, float inv0, float inv1,
-                                 float inv2, const float* cot, int form,
+                                 float inv2, float sz0, float sz1, float sz2,
+                                 const float* cot, int form,
                                  void* scratch, int64_t scratch_size,
                                  float* d_grid, float* d_rows, void* stream) {
   const int64_t need = scratch_bytes(B, gd, Np, form);
@@ -380,14 +423,15 @@ extern "C" int hpsdf_packed_grad(const float* grid, const float* rows, int W,
       (uintptr_t)d_rows % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   int cs = hpsdf::counter_stride((int64_t{1} << (3 * gd)) + Np);
-  void* args[] = {&grid, &rows, &W,    &gd,      &extra,  &Np,
-                  &pts,  &B,    &rc0,  &rc1,     &rc2,    &inv0,
-                  &inv1, &inv2, &cot,  &cs,      &scratch, &d_grid,
+  void* args[] = {&grid, &rows,  &W,    &gd,   &extra, &Np,     &pts,
+                  &B,    &rc0,   &rc1,  &rc2,  &inv0,  &inv1,   &inv2,
+                  &sz0,  &sz1,   &sz2,  &cot,  &cs,    &scratch, &d_grid,
                   &d_rows};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaSuccess;
-#define HPSDF_LAUNCH(D) \
-  e = form == 0 ? launch<D, 0>(args, s) : launch<D, 1>(args, s)
+#define HPSDF_LAUNCH(D)                                        \
+  e = form == 0 ? launch<D, 0>(args, s)                        \
+                : (form == 1 ? launch<D, 1>(args, s) : launch<D, 2>(args, s))
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
   if (e != cudaSuccess) {

@@ -16,6 +16,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace hpsdf {
@@ -24,6 +25,48 @@ constexpr int kCoeffLane = 8;
 
 __device__ __forceinline__ float clamp_half(float x) {
   return fminf(fmaxf(x, -0.5f), 0.5f);
+}
+
+// The derivative of the clamp into [-0.5, 0.5] at x, as jnp.clip's: 1
+// inside, 1/2 on a face (max and min split a tie), 0 outside.
+template <class T>
+__device__ __forceinline__ T clamp_half_slope(T x) {
+  const T a = x < T(0) ? -x : x;
+  return a < T(0.5) ? T(1) : (a == T(0.5) ? T(0.5) : T(0));
+}
+
+__device__ __forceinline__ float root(float x) { return sqrtf(x); }
+__device__ __forceinline__ double root(double x) { return sqrt(x); }
+
+// The VJP of the unit vector g / max(|g|, floor) at g with cotangent wn:
+// (wn - t n (n . wn)) / den, n = g / den, den = max(|g|, floor), t = 1
+// above the floor, 1/2 on it (jnp.maximum splits a tie) and 0 below.
+template <class T>
+__device__ __forceinline__ void unit_vector_vjp(const T (&g)[3],
+                                                const T (&wn)[3], T floor,
+                                                T (&out)[3]) {
+  const T nrm = root(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]);
+  const T den = nrm > floor ? nrm : floor;
+  const T t = nrm > floor ? T(1) : (nrm == floor ? T(0.5) : T(0));
+  T n[3], nd = T(0);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    n[a] = g[a] / den;
+    nd += n[a] * wn[a];
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) out[a] = (wn[a] - t * n[a] * nd) / den;
+}
+
+// H (xx, yy, zz, xy, xz, yz) applied to the vector q: out_b = sum_a
+// H_ab q_a.
+template <class T>
+__device__ __forceinline__ void hessian_times(const T (&h)[6],
+                                              const T (&q)[3],
+                                              T (&out)[3]) {
+  out[0] = h[0] * q[0] + h[3] * q[1] + h[4] * q[2];
+  out[1] = h[3] * q[0] + h[1] * q[1] + h[5] * q[2];
+  out[2] = h[4] * q[0] + h[5] * q[1] + h[2] * q[2];
 }
 
 // The depth-gd grid cell of the unit-cube point u (clamped into the root),
@@ -85,6 +128,18 @@ __device__ __forceinline__ void legendre_deriv(const T (&L)[DEG + 1],
   for (int p = 2; p <= DEG; ++p) dL[p] = dL[p - 2] + (T)(2 * p - 1) * L[p - 1];
 }
 
+// L''_0..L''_DEG by L''_p = L''_{p-2} + (2p-1) L'_{p-1}
+// (basis.legendre_second_derivative).
+template <int DEG, class T>
+__device__ __forceinline__ void legendre_deriv2(const T (&dL)[DEG + 1],
+                                                T (&d2L)[DEG + 1]) {
+  d2L[0] = T(0);
+  if constexpr (DEG >= 1) d2L[1] = T(0);
+#pragma unroll
+  for (int p = 2; p <= DEG; ++p)
+    d2L[p] = d2L[p - 2] + (T)(2 * p - 1) * dL[p - 1];
+}
+
 // f(m, i, j, k) for each basis term m of degree DEG, in basis_indices order
 // (by total degree p, then i, then j; k = p - i - j).
 template <int DEG, class F>
@@ -96,6 +151,28 @@ __device__ __forceinline__ void for_each_term(F&& f) {
     for (int i = 0; i <= p; ++i)
 #pragma unroll
       for (int j = 0; j <= p - i; ++j, ++m) f(m, i, j, p - i - j);
+}
+
+// for_each_term's order, unrolled up to degree
+// kUnrolledDeg and in loops above it: the backward kernels do several
+// products, shuffles and an atomic a term, and their high-degree
+// instantiations, which no fitted tree on the main path reaches, would
+// otherwise take ptxas minutes (their arrays go to local memory instead).
+constexpr int kUnrolledDeg = 6;
+
+template <int DEG, class F>
+__device__ __forceinline__ void for_each_term_of(F&& f) {
+  if constexpr (DEG <= kUnrolledDeg) {
+    for_each_term<DEG>(f);
+  } else {
+    int m = 0;
+#pragma unroll 1
+    for (int p = 0; p <= DEG; ++p)
+#pragma unroll 1
+      for (int i = 0; i <= p; ++i)
+#pragma unroll 1
+        for (int j = 0; j <= p - i; ++j, ++m) f(m, i, j, p - i - j);
+  }
 }
 
 }  // namespace hpsdf

@@ -11,13 +11,13 @@
 //     stopping at a leaf (the plain version carries the leaf unchanged);
 //   * the local frame (u - centre) * 2^(depth+1);
 //   * the three-term Legendre recurrence per axis up to the degree, a
-//     template parameter, and with WITH_GRAD the derivative recurrence
-//     L'_p = L'_{p-2} + (2p-1) L_{p-1};
+//     template parameter, and with the gradient (ORDER 1) the derivative
+//     recurrence L'_p = L'_{p-2} + (2p-1) L_{p-1};
 //   * sum_m c_m * Lx[i_m] * Ly[j_m] * Lz[k_m] * coeff_norms[depth, m] over
 //     the basis_indices triples, with the norm folded into the axes:
 //     coeff_norms[d, m] = nt[i_m] nt[j_m] nt[k_m], nt[p] = sqrt((2p+1) 2^d),
 //     each nt[p] equal bit for bit to basis.norm_table's;
-//   * the f64-max sentinel outside the root AABB and, with WITH_GRAD, the
+//   * the f64-max sentinel outside the root AABB and, with the gradient, the
 //     world-space chain rule and normalisation (query.py:103-109).
 //
 // Bound. The tree's arrays stay in the 50 MB L2 and the f64 arithmetic is
@@ -38,6 +38,10 @@
 // depth_used dependent rounds of a child load and a centre (three scattered
 // loads a round), which keep their f64 decisions u >= centre, since a grid
 // lookup rounds differently at the faces.
+//
+// The backward modes K1v and K1h (query_kernel with a cotangent, ORDER 1
+// and 2) are the VJPs of query and query_with_gradient with respect to the
+// points; they are described above the kernel below.
 //
 // The node-range mode (descend_nodes_kernel, leaf_nodes_kernel) serves the
 // node axis of hpsdf_tpu_torch/parallel.py, where a rank holds a contiguous
@@ -166,42 +170,58 @@ __device__ __forceinline__ void axis_norms(int d, double (&nt)[DEG + 1]) {
     nt[p] = ((d & 1) ? kOdd[p] : kEven[p]) * two_k;
 }
 
-template <int DEG, bool WITH_GRAD>
+// A point's axis factors and sums: ORDER 0 the value, 1 also the gradient,
+// 2 also the Hessian h (xx, yy, zz, xy, xz, yz), all in the leaf's frame.
+template <int DEG, int ORDER>
 struct Leaf {
-  double N[3][DEG + 1];     // L_p(x_a) * nt[p]
-  double dN[3][DEG + 1];    // L'_p(x_a) * nt[p]
-  double v, g[3];
+  double N[3][DEG + 1];                         // L_p(x_a) * nt[p]
+  double dN[3][ORDER >= 1 ? DEG + 1 : 1];       // L'_p(x_a) * nt[p]
+  double d2N[3][ORDER >= 2 ? DEG + 1 : 1];      // L''_p(x_a) * nt[p]
+  double v, g[3], h[6];
 };
 
 // Adds the terms m in [lo, hi) to lf, coef(m) their coefficients.
-template <int DEG, bool WITH_GRAD, class Coef>
+template <int DEG, int ORDER, class Coef>
 __device__ __forceinline__ void add_terms(Coef coef, int lo, int hi,
-                                          Leaf<DEG, WITH_GRAD>& lf) {
-  hpsdf::for_each_term<DEG>([&](int m, int i, int j, int k) {
+                                          Leaf<DEG, ORDER>& lf) {
+  auto term = [&](int m, int i, int j, int k) {
     if (m < lo || m >= hi) return;
     const double cm = coef(m);
     const double(&N)[3][DEG + 1] = lf.N;
     const double xy = N[0][i] * N[1][j];
     lf.v += cm * (xy * N[2][k]);
-    if constexpr (WITH_GRAD) {
-      const double(&dN)[3][DEG + 1] = lf.dN;
+    if constexpr (ORDER >= 1) {
+      const auto& dN = lf.dN;
       lf.g[0] += cm * (dN[0][i] * N[1][j] * N[2][k]);
       lf.g[1] += cm * (N[0][i] * dN[1][j] * N[2][k]);
       lf.g[2] += cm * (xy * dN[2][k]);
+      if constexpr (ORDER >= 2) {
+        const auto& d2N = lf.d2N;
+        lf.h[0] += cm * (d2N[0][i] * N[1][j] * N[2][k]);
+        lf.h[1] += cm * (N[0][i] * d2N[1][j] * N[2][k]);
+        lf.h[2] += cm * (xy * d2N[2][k]);
+        lf.h[3] += cm * (dN[0][i] * dN[1][j] * N[2][k]);
+        lf.h[4] += cm * (dN[0][i] * N[1][j] * dN[2][k]);
+        lf.h[5] += cm * (N[0][i] * dN[1][j] * dN[2][k]);
+      }
     }
-  });
+  };
+  if constexpr (ORDER >= 2)
+    hpsdf::for_each_term_of<DEG>(term);
+  else
+    hpsdf::for_each_term<DEG>(term);
 }
 
 // The product sum over the row (one per lane; with `staged`, the warp's
 // rows staged in the tile, chunk 0's copy started by the caller), kChunk
 // coefficients at a time: unrolled up to two chunks, which the degrees up
 // to 5 take, in a loop above.
-template <int DEG, bool WITH_GRAD>
+template <int DEG, int ORDER>
 __device__ __forceinline__ void sum_row(double* tile,
                                         const double* const* slot_row,
                                         WarpSlots ws, bool staged,
                                         const double* row,
-                                        Leaf<DEG, WITH_GRAD>& lf) {
+                                        Leaf<DEG, ORDER>& lf) {
   using S = Shape<DEG>;
   if constexpr (S::kChunks <= 2) {
     if (staged) {
@@ -243,11 +263,11 @@ __device__ __forceinline__ void sum_row(double* tile,
 // staged with the warp's when the warp reads more than kStageMin distinct
 // rows, the leaf frame and the recurrences while the rows arrive. Every lane
 // of the warp must call it. Returns the frame's scale 2^(depth+1).
-template <int DEG, bool WITH_GRAD>
+template <int DEG, int ORDER>
 __device__ __forceinline__ double eval_leaf(
     double* tile, const double** slot_row, const double* __restrict__ centre,
     const int32_t* __restrict__ depth, const double* __restrict__ coeffs,
-    int n, const double (&u)[3], Leaf<DEG, WITH_GRAD>& lf) {
+    int n, const double (&u)[3], Leaf<DEG, ORDER>& lf) {
   using S = Shape<DEG>;
   const double* row = coeffs + (int64_t)n * S::kC;
   const WarpSlots ws = warp_slots(row, slot_row);
@@ -265,18 +285,40 @@ __device__ __forceinline__ double eval_leaf(
     hpsdf::legendre<DEG>((u[a] - cc[a]) * scale, L);
 #pragma unroll
     for (int p = 0; p <= DEG; ++p) lf.N[a][p] = L[p] * nt[p];
-    if constexpr (WITH_GRAD) {
+    if constexpr (ORDER >= 1) {
       double dL[DEG + 1];
       hpsdf::legendre_deriv<DEG>(L, dL);
 #pragma unroll
       for (int p = 0; p <= DEG; ++p) lf.dN[a][p] = dL[p] * nt[p];
+      if constexpr (ORDER >= 2) {
+        double d2L[DEG + 1];
+        hpsdf::legendre_deriv2<DEG>(dL, d2L);
+#pragma unroll
+        for (int p = 0; p <= DEG; ++p) lf.d2N[a][p] = d2L[p] * nt[p];
+      }
     }
   }
-  sum_row<DEG, WITH_GRAD>(tile, slot_row, ws, staged, row, lf);
+  sum_row<DEG, ORDER>(tile, slot_row, ws, staged, row, lf);
   return scale;
 }
 
-template <int DEG, bool WITH_GRAD>
+// The query (ORDER 0: values; 1: values and unit gradients, or K1v) and
+// its backward modes K1v and K1h, the VJPs of query and
+// query_with_gradient with respect to the points
+// (query_points_vjp_plain, query_with_gradient_vjp_plain). A backward
+// mode (w given, or ORDER 2) re-descends and re-evaluates the point's
+// leaf to one order above its forward and writes the point's three
+// cotangents. With s_a = 2^(depth+1) / size_a, c_a the clamp's slope (1
+// inside, 1/2 on a face, 0 clamped, as jnp.clip's) and w' the value's
+// cotangent, zero outside the root under the f64-max sentinel:
+//   * K1v (ORDER 1, w): d_p_a = c_a w' g_a s_a, g the leaf-frame gradient;
+//   * K1h (ORDER 2, w and wn, the unit gradient's cotangent): with G = g s
+//     the world gradient and gb = unit_vector_vjp(G, wn, 1e-30),
+//     d_p_b = c_b s_b (w' g_b + sum_a H_ab s_a gb_a), H the leaf-frame
+//     Hessian (the second derivative recurrence). Its six Hessian sums
+//     make about 10 sums a term, which bind on f64 operations from degree
+//     4; above degree 6 its terms go in a loop (for_each_term_of).
+template <int DEG, int ORDER>
 __global__ void __launch_bounds__(kThreads)
 query_kernel(const int32_t* __restrict__ child_idx,
              const double* __restrict__ centre,
@@ -285,7 +327,9 @@ query_kernel(const int32_t* __restrict__ child_idx,
              const double* __restrict__ pts, int64_t B,
              double rc0, double rc1, double rc2,
              double inv0, double inv1, double inv2, int outside_max,
-             double* __restrict__ val, double* __restrict__ grad) {
+             double* __restrict__ val, double* __restrict__ grad,
+             const double* __restrict__ w, const double* __restrict__ wn,
+             double* __restrict__ d_pts) {
   using S = Shape<DEG>;
   __shared__ double tiles[kWarps][32 * S::kStride];
   __shared__ const double* slot_rows[kWarps][32];
@@ -293,13 +337,14 @@ query_kernel(const int32_t* __restrict__ child_idx,
   const int64_t ip = i < B ? i : B - 1;     // spare lanes repeat the last point
   const double rc[3] = {rc0, rc1, rc2};
   const double inv[3] = {inv0, inv1, inv2};
-  double u[3];
+  double u[3], slope[3];
   bool inside = true;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const double w = (pts[3 * ip + a] - rc[a]) * inv[a];
-    inside = inside && fabs(w) <= 0.5;
-    u[a] = w < -0.5 ? -0.5 : (w > 0.5 ? 0.5 : w);
+    const double x = (pts[3 * ip + a] - rc[a]) * inv[a];
+    inside = inside && fabs(x) <= 0.5;
+    slope[a] = hpsdf::clamp_half_slope(x);
+    u[a] = x < -0.5 ? -0.5 : (x > 0.5 ? 0.5 : x);
   }
 
   int cur = 0;
@@ -313,14 +358,36 @@ query_kernel(const int32_t* __restrict__ child_idx,
   }
 
   const int warp = threadIdx.x >> 5;
-  Leaf<DEG, WITH_GRAD> lf{};
-  const double scale = eval_leaf<DEG, WITH_GRAD>(
+  Leaf<DEG, ORDER> lf{};
+  const double scale = eval_leaf<DEG, ORDER>(
       tiles[warp], slot_rows[warp], centre, depth, coeffs, cur, u, lf);
   if (i >= B) return;
-  val[i] = (outside_max && !inside) ? DBL_MAX : lf.v;
 
-  if constexpr (WITH_GRAD) {
-    // local = (unit - centre) * 2^(depth+1), unit = (world - c) / sizes
+  // local = (unit - centre) * 2^(depth+1), unit = (world - c) / sizes
+  const double s[3] = {scale * inv0, scale * inv1, scale * inv2};
+  if (ORDER == 2 || (ORDER == 1 && w != nullptr)) {
+    const double wv = (outside_max && !inside) ? 0.0 : __ldg(w + i);
+    double dl[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) dl[a] = wv * lf.g[a];
+    if constexpr (ORDER == 2) {
+      const double G[3] = {lf.g[0] * s[0], lf.g[1] * s[1], lf.g[2] * s[2]};
+      const double wnv[3] = {__ldg(wn + 3 * i), __ldg(wn + 3 * i + 1),
+                             __ldg(wn + 3 * i + 2)};
+      double gb[3], q[3], hq[3];
+      hpsdf::unit_vector_vjp(G, wnv, 1e-30, gb);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) q[a] = gb[a] * s[a];
+      hpsdf::hessian_times(lf.h, q, hq);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) dl[a] += hq[a];
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) d_pts[3 * i + a] = slope[a] * (dl[a] * s[a]);
+    return;
+  }
+  val[i] = (outside_max && !inside) ? DBL_MAX : lf.v;
+  if constexpr (ORDER == 1) {
     const double g0 = lf.g[0] * scale * inv0;
     const double g1 = lf.g[1] * scale * inv1;
     const double g2 = lf.g[2] * scale * inv2;
@@ -393,10 +460,20 @@ leaf_nodes_kernel(const double* __restrict__ centre,
 #pragma unroll
   for (int a = 0; a < 3; ++a) u[a] = __ldg(unit + 3 * ip + a);
   const int warp = threadIdx.x >> 5;
-  Leaf<DEG, false> lf{};
-  eval_leaf<DEG, false>(tiles[warp], slot_rows[warp], centre, depth, coeffs,
-                        own ? c - lo : 0, u, lf);
+  Leaf<DEG, 0> lf{};
+  eval_leaf<DEG, 0>(tiles[warp], slot_rows[warp], centre, depth, coeffs,
+                    own ? c - lo : 0, u, lf);
   if (i < B) val[i] = own ? lf.v : 0.0;
+}
+
+// query_kernel<DEG, ORDER>, the launch preferring kCarveout percent of
+// shared memory.
+template <int DEG, int ORDER, class... Args>
+void launch_query(unsigned blocks, cudaStream_t s, Args... args) {
+  cudaFuncSetAttribute(query_kernel<DEG, ORDER>,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       kCarveout);
+  query_kernel<DEG, ORDER><<<blocks, kThreads, 0, s>>>(args...);
 }
 
 }  // namespace
@@ -413,19 +490,42 @@ extern "C" int hpsdf_query(const int32_t* child_idx, const double* centre,
   cudaStream_t s = (cudaStream_t)stream;
 #define HPSDF_ARGS                                                          \
   child_idx, centre, depth, coeffs, depth_used, pts, B, rc0, rc1, rc2, inv0, \
-      inv1, inv2, outside_max, val, grad
+      inv1, inv2, outside_max, val, grad, nullptr, nullptr, nullptr
 #define HPSDF_LAUNCH(D)                                                      \
-  if (grad != nullptr) {                                                     \
-    cudaFuncSetAttribute(query_kernel<D, true>,                              \
-                         cudaFuncAttributePreferredSharedMemoryCarveout,     \
-                         kCarveout);                                         \
-    query_kernel<D, true><<<blocks, kThreads, 0, s>>>(HPSDF_ARGS);           \
-  } else {                                                                   \
-    cudaFuncSetAttribute(query_kernel<D, false>,                             \
-                         cudaFuncAttributePreferredSharedMemoryCarveout,     \
-                         kCarveout);                                         \
-    query_kernel<D, false><<<blocks, kThreads, 0, s>>>(HPSDF_ARGS);          \
-  }
+  if (grad != nullptr)                                                       \
+    launch_query<D, 1>(blocks, s, HPSDF_ARGS);                               \
+  else                                                                       \
+    launch_query<D, 0>(blocks, s, HPSDF_ARGS)
+  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
+#undef HPSDF_LAUNCH
+#undef HPSDF_ARGS
+  return (int)cudaGetLastError();
+}
+
+// K1's backward modes: d_pts (B, 3), the VJP of query with respect to the
+// points with cotangents w (B,) (K1v, wn == nullptr; nothing from points
+// outside the root with outside_max), or of query_with_gradient with
+// cotangents w (B,) for the values and wn (B, 3) for the unit gradients
+// (K1h; pass outside_max = 1, as that query returns the sentinel).
+extern "C" int hpsdf_query_vjp(const int32_t* child_idx, const double* centre,
+                               const int32_t* depth, const double* coeffs,
+                               int deg, int depth_used, const double* pts,
+                               int64_t B, double rc0, double rc1, double rc2,
+                               double inv0, double inv1, double inv2,
+                               int outside_max, const double* w,
+                               const double* wn, double* d_pts,
+                               void* stream) {
+  if (B <= 0) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+#define HPSDF_ARGS                                                          \
+  child_idx, centre, depth, coeffs, depth_used, pts, B, rc0, rc1, rc2, inv0, \
+      inv1, inv2, outside_max, nullptr, nullptr, w, wn, d_pts
+#define HPSDF_LAUNCH(D)                                                      \
+  if (wn != nullptr)                                                         \
+    launch_query<D, 2>(blocks, s, HPSDF_ARGS);                               \
+  else                                                                       \
+    launch_query<D, 1>(blocks, s, HPSDF_ARGS)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
 #undef HPSDF_ARGS

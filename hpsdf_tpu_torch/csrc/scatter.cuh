@@ -1,5 +1,5 @@
 // Warp-aggregated scatter-add, used by the earlier forms of K7 and K8 kept
-// in check/; K8 (coeff_scatter.cu) takes for_each_term_of from here.
+// in check/.
 //
 // Each of those adds, per point, a few to a few hundred values into one row
 // of a table with atomics. Where many points of a warp land in the same row
@@ -67,27 +67,5 @@ struct PeerSum {
     return x;
   }
 };
-
-// for_each_term's order (packed_rows.cuh), unrolled up to degree
-// kUnrolledDeg and in loops above it: the backward kernels do several
-// products, shuffles and an atomic a term, and their high-degree
-// instantiations, which no fitted tree on the main path reaches, would
-// otherwise take ptxas minutes (their arrays go to local memory instead).
-constexpr int kUnrolledDeg = 6;
-
-template <int DEG, class F>
-__device__ __forceinline__ void for_each_term_of(F&& f) {
-  if constexpr (DEG <= kUnrolledDeg) {
-    for_each_term<DEG>(f);
-  } else {
-    int m = 0;
-#pragma unroll 1
-    for (int p = 0; p <= DEG; ++p)
-#pragma unroll 1
-      for (int i = 0; i <= p; ++i)
-#pragma unroll 1
-        for (int j = 0; j <= p - i; ++j, ++m) f(m, i, j, p - i - j);
-  }
-}
 
 }  // namespace hpsdf

@@ -13,13 +13,24 @@ the plain torch version (``descend`` + ``basis.eval_basis``), which is also
 what the kernel is held against.
 
 Gradients. On CPU tensors autograd differentiates the plain version. On
-CUDA tensors ``query`` is differentiable with respect to ``tree.coeffs``:
-its VJP is kernel K8 (``csrc/coeff_scatter.cu``, wrapper
-``coeff_scatter_kernel``), which scatters each point's weighted basis
-products into its leaf's coefficients, in f64; the same kernel serves the
-sphere tracer's implicit VJP in f32 (``render.trace``). ``query`` with
-respect to the points and ``query_with_gradient`` have no backward kernel
-and raise on CUDA tensors when an input requires a gradient.
+CUDA tensors both are differentiable with respect to ``tree.coeffs`` and
+the points, through backward kernels, in f64:
+
+  * ``query`` to the coefficients: K8 (``csrc/coeff_scatter.cu``, wrapper
+    ``coeff_scatter_kernel``), which scatters each point's weighted basis
+    products into its leaf's coefficients; the same kernel serves the
+    sphere tracer's implicit VJP in f32 (``render.trace``);
+  * ``query`` to the points: K1v, and ``query_with_gradient`` to the
+    points: K1h, the backward modes of K1 (``query_vjp_kernel``), which
+    re-descend and re-evaluate the leaf to one order higher (K1h: the
+    Hessian);
+  * ``query_with_gradient`` to the coefficients: K8g
+    (``coeff_scatter_grad_kernel``), K8 with the unit gradient's term.
+
+Points are clamped into the root by ``clip_half``, whose derivative is
+``jnp.clip``'s: 1 inside, 1/2 on a face of the root, 0 outside; the unit
+gradient's floor splits a tie as ``jnp.maximum`` does (``unit_vector``).
+With respect to ``tree.centre`` both raise on CUDA tensors.
 
 The node axis of ``parallel.py`` splits the node arrays over ranks; there
 a query is ``descend_round`` depth_used times and ``leaf_eval`` once, each
@@ -44,6 +55,30 @@ from .tree import Octree
 # Value returned for points outside the root AABB
 # (reference returns std::numeric_limits<f64>::max(), Octree.cpp:668-671).
 OUTSIDE_VALUE = float(np.finfo(np.float64).max)
+
+
+def clip_half(x: torch.Tensor) -> torch.Tensor:
+    """``x`` clamped into [-0.5, 0.5] as ``jnp.clip`` clamps it, a maximum
+    then a minimum, so that its derivative is jnp.clip's: 1 inside, 1/2
+    on a face (each splits a tie), 0 outside. ``torch.clamp`` passes 1 on
+    the faces."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(-0.5)),
+                         x.new_tensor(0.5))
+
+
+def clip_slope(x: torch.Tensor) -> torch.Tensor:
+    """``clip_half``'s derivative at ``x``, a constant: 1, 1/2 or 0."""
+    a = x.detach().abs()
+    return torch.where(a < 0.5, 1.0, torch.where(a == 0.5, 0.5, 0.0)).to(
+        x.dtype)
+
+
+def unit_vector(g: torch.Tensor, floor: float) -> torch.Tensor:
+    """g / max(|g|, floor) along the last axis, the floor taken by
+    ``torch.maximum``, whose derivative splits a tie as ``jnp.maximum``'s
+    does (``torch.clamp`` gives it whole to the norm)."""
+    norm = torch.linalg.norm(g, dim=-1, keepdim=True)
+    return g / torch.maximum(norm, norm.new_tensor(floor))
 
 
 def _to_unit(tree: Octree, pts: torch.Tensor) -> torch.Tensor:
@@ -88,11 +123,12 @@ def _frame(tree, row: torch.Tensor, clamped: torch.Tensor):
 
 def _leaf_frame(tree: Octree, pts: torch.Tensor):
     """Inside-root mask, then each point's leaf: its coefficient row, the
-    point in the leaf's [-1, 1]^3 frame, the leaf depth and 2**(depth+1)."""
+    point in the leaf's [-1, 1]^3 frame, the leaf depth and 2**(depth+1).
+    The point is clamped into the root by ``clip_half``."""
     unit = _to_unit(tree, pts)
     inside = torch.all(unit.abs() <= 0.5, dim=-1)
-    clamped = unit.clamp(-0.5, 0.5)
-    leaf = descend(tree, clamped).long()
+    clamped = clip_half(unit)
+    leaf = descend(tree, clamped.detach()).long()
     local, depth, scale = _frame(tree, leaf, clamped)
     return inside, tree.coeffs[leaf], local, depth, scale
 
@@ -115,17 +151,16 @@ def query_with_gradient_plain(tree: Octree, pts: torch.Tensor):
     inv_sizes = torch.as_tensor(1.0 / tree.config.root_sizes,
                                 dtype=pts.dtype, device=pts.device)
     g_world = g_local * scale[..., None] * inv_sizes
-    norm = torch.linalg.norm(g_world, dim=-1, keepdim=True)
-    unit_grad = g_world / torch.clamp(norm, min=1e-30)
-    return torch.where(inside, val, OUTSIDE_VALUE), unit_grad
+    return torch.where(inside, val, OUTSIDE_VALUE), unit_vector(g_world,
+                                                                1e-30)
 
 
-def query_kernel(tree: Octree, pts: torch.Tensor, with_grad: bool,
-                 outside_value_max: bool = True):
-    """Launch K1 on CUDA tensors: values (B,) f64, and with ``with_grad``
-    also unit world gradients (B, 3) f64. Raises on anything else."""
+def _check_f64(tree: Octree, pts: torch.Tensor, who: str) -> None:
+    """What K1 and its backward modes take: the tree and f64 points (B, 3)
+    on one CUDA device, the tree's arrays contiguous, its centres 16-byte
+    aligned."""
     if pts.device.type != "cuda" or tree.device != pts.device:
-        raise ValueError("query_kernel needs the tree and the points on one "
+        raise ValueError(f"{who} needs the tree and the points on one "
                          f"CUDA device (tree {tree.device}, pts {pts.device})")
     if pts.dtype != torch.float64 or pts.dim() != 2 or pts.shape[1] != 3:
         raise ValueError(f"pts must be f64 (B, 3), got {pts.dtype} "
@@ -142,6 +177,25 @@ def query_kernel(tree: Octree, pts: torch.Tensor, with_grad: bool,
     if tree.centre.data_ptr() % 16:
         # the kernel reads each 24-byte centre as one 16- and one 8-byte load
         raise ValueError("tree.centre must be 16-byte aligned")
+
+
+def _cotangents(B: int, dev, *cots) -> list:
+    """Cotangents as contiguous detached f64 tensors: (B,) for the values,
+    (B, 3) for the unit gradients."""
+    out = []
+    for c, shape in zip(cots, ((B,), (B, 3))):
+        if c.shape != shape or c.dtype != torch.float64 or c.device != dev:
+            raise ValueError(f"cotangent must be f64 {shape} on {dev}, got "
+                             f"{c.dtype} {tuple(c.shape)} on {c.device}")
+        out.append(c.detach().contiguous())
+    return out
+
+
+def query_kernel(tree: Octree, pts: torch.Tensor, with_grad: bool,
+                 outside_value_max: bool = True):
+    """Launch K1 on CUDA tensors: values (B,) f64, and with ``with_grad``
+    also unit world gradients (B, 3) f64. Raises on anything else."""
+    _check_f64(tree, pts, "query_kernel")
     pts = pts.contiguous()
     B = pts.shape[0]
     val = torch.empty(B, dtype=torch.float64, device=pts.device)
@@ -166,6 +220,42 @@ def query_kernel(tree: Octree, pts: torch.Tensor, with_grad: bool,
 
 
 query_kernel.launches = 0
+
+
+def query_vjp_kernel(tree: Octree, pts: torch.Tensor, w: torch.Tensor,
+                     wn: torch.Tensor | None = None,
+                     outside_value_max: bool = True) -> torch.Tensor:
+    """Launch K1's backward modes on CUDA tensors: the gradient (B, 3) f64
+    with respect to the points of sum(w * query) (K1v, ``wn`` None;
+    nothing from points outside the root when ``outside_value_max``), or
+    of sum(w * value) + sum(wn * unit_grad) of ``query_with_gradient``
+    (K1h). One launch a call. Raises on anything else."""
+    _check_f64(tree, pts, "query_vjp_kernel")
+    pts = pts.detach().contiguous()
+    B = pts.shape[0]
+    hess = wn is not None
+    cots = _cotangents(B, pts.device, w, *((wn,) if hess else ()))
+    out = torch.empty((B, 3), dtype=torch.float64, device=pts.device)
+    if B == 0:
+        return out
+    lib = _kernels.load()
+    rc = tree.config.root_centre
+    inv = 1.0 / tree.config.root_sizes
+    _kernels.check(lib, lib.hpsdf_query_vjp(
+        tree.child_idx.data_ptr(), tree.centre.data_ptr(),
+        tree.depth.data_ptr(), tree.coeffs.detach().data_ptr(),
+        tree.deg_used, tree.depth_used, pts.data_ptr(), B,
+        *map(float, rc), *map(float, inv),
+        int(outside_value_max or hess), cots[0].data_ptr(),
+        cots[1].data_ptr() if hess else None, out.data_ptr(),
+        _kernels.stream_of(pts)), "query_vjp")
+    query_vjp_kernel.launches += 1
+    query_vjp_kernel.hess_launches += int(hess)
+    return out
+
+
+query_vjp_kernel.launches = 0
+query_vjp_kernel.hess_launches = 0
 
 
 def coeff_scatter_kernel(tree: Octree, cot: torch.Tensor, *, pts=None,
@@ -241,16 +331,80 @@ def coeff_scatter_kernel(tree: Octree, cot: torch.Tensor, *, pts=None,
 coeff_scatter_kernel.launches = 0
 
 
+def coeff_scatter_grad_kernel(tree: Octree, pts: torch.Tensor,
+                              wv: torch.Tensor,
+                              wn: torch.Tensor) -> torch.Tensor:
+    """Launch K8g on CUDA tensors: the gradient (N, C) f64 with respect to
+    ``tree.coeffs`` of sum(wv * value) + sum(wn * unit_grad) of
+    ``query_with_gradient`` at ``pts`` (B, 3) f64. A call is two
+    operations on the card: the output's memset and the launch. Raises on
+    anything else."""
+    _check_f64(tree, pts, "coeff_scatter_grad_kernel")
+    pts = pts.detach().contiguous()
+    B = pts.shape[0]
+    wv, wn = _cotangents(B, pts.device, wv, wn)
+    out = torch.zeros(tree.coeffs.shape, dtype=torch.float64,
+                      device=pts.device)
+    if B == 0:
+        return out
+    lib = _kernels.load()
+    rc = tree.config.root_centre
+    inv = 1.0 / tree.config.root_sizes
+    _kernels.check(lib, lib.hpsdf_coeff_scatter_grad(
+        tree.child_idx.data_ptr(), tree.centre.data_ptr(),
+        tree.depth.data_ptr(), tree.coeffs.detach().data_ptr(),
+        tree.deg_used, tree.depth_used, pts.data_ptr(), B,
+        *map(float, rc), *map(float, inv), wv.data_ptr(), wn.data_ptr(),
+        out.data_ptr(), _kernels.stream_of(pts)), "coeff_scatter_grad")
+    coeff_scatter_grad_kernel.launches += 1
+    return out
+
+
+coeff_scatter_grad_kernel.launches = 0
+
+
+def _grads(fn, inputs, cot) -> tuple:
+    """The VJP of fn(*inputs) with cotangents ``cot``, by autograd, with
+    respect to each input: zeros where the output does not depend on it
+    (a degree-0 basis does not depend on the points)."""
+    xs = [x.detach().requires_grad_(True) for x in inputs]
+    with torch.enable_grad():
+        out = fn(*xs)
+        outs, cots = (out, cot) if isinstance(out, tuple) else ((out,),
+                                                               (cot,))
+        live = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+        d = torch.autograd.grad([o for o, _ in live], xs,
+                                [c for _, c in live], allow_unused=True) \
+            if live else [None] * len(xs)
+    return tuple(torch.zeros_like(x) if g is None else g
+                 for g, x in zip(d, xs))
+
+
 def query_vjp_plain(tree: Octree, pts: torch.Tensor, w: torch.Tensor,
                     outside_value_max: bool = True) -> torch.Tensor:
     """K8's query form by autograd of ``query_plain``: the gradient (N, C)
     of sum(w * query) with respect to ``tree.coeffs``."""
-    coeffs = tree.coeffs.detach().requires_grad_(True)
-    with torch.enable_grad():
-        v = query_plain(dataclasses.replace(tree, coeffs=coeffs),
-                        pts.detach(), outside_value_max)
-        (d,) = torch.autograd.grad(v, coeffs, w)
-    return d
+    return _grads(lambda c: query_plain(dataclasses.replace(tree, coeffs=c),
+                                        pts.detach(), outside_value_max),
+                  (tree.coeffs,), w)[0]
+
+
+def query_points_vjp_plain(tree: Octree, pts: torch.Tensor, w: torch.Tensor,
+                           outside_value_max: bool = True) -> torch.Tensor:
+    """K1v by autograd of ``query_plain``: the gradient (B, 3) of
+    sum(w * query) with respect to the points."""
+    return _grads(lambda p: query_plain(tree, p, outside_value_max),
+                  (pts,), w)[0]
+
+
+def query_with_gradient_vjp_plain(tree: Octree, pts: torch.Tensor,
+                                  wv: torch.Tensor, wn: torch.Tensor):
+    """K8g and K1h by autograd of ``query_with_gradient_plain``: the
+    gradients (N, C) and (B, 3) of sum(wv * value) + sum(wn * unit_grad)
+    with respect to ``tree.coeffs`` and the points."""
+    return _grads(lambda c, p: query_with_gradient_plain(
+        dataclasses.replace(tree, coeffs=c), p), (tree.coeffs, pts),
+        (wv, wn))
 
 
 # --------------------------------------------------------------------------
@@ -572,8 +726,8 @@ def coeff_scatter_nodes(block, pts, leaf, w, outside_value_max=False):
 
 
 class _Query(torch.autograd.Function):
-    """K1, with K8 (query form) as its VJP with respect to the
-    coefficients."""
+    """K1, with K8 (query form) as its VJP with respect to the coefficients
+    and K1v with respect to the points."""
 
     @staticmethod
     def forward(ctx, coeffs, tree, pts, outside_value_max):
@@ -584,9 +738,36 @@ class _Query(torch.autograd.Function):
     @staticmethod
     def backward(ctx, w):
         (pts,) = ctx.saved_tensors
-        d = coeff_scatter_kernel(ctx.tree, w.contiguous(), pts=pts,
-                                 outside_value_max=ctx.outside_value_max)
-        return d, None, None, None
+        w = w.contiguous()
+        d_coeffs = d_pts = None
+        if ctx.needs_input_grad[0]:
+            d_coeffs = coeff_scatter_kernel(
+                ctx.tree, w, pts=pts, outside_value_max=ctx.outside_value_max)
+        if ctx.needs_input_grad[2]:
+            d_pts = query_vjp_kernel(ctx.tree, pts, w,
+                                     outside_value_max=ctx.outside_value_max)
+        return d_coeffs, None, d_pts, None
+
+
+class _QueryWithGradient(torch.autograd.Function):
+    """K1 with the gradient, with K8g as its VJP with respect to the
+    coefficients and K1h with respect to the points."""
+
+    @staticmethod
+    def forward(ctx, coeffs, tree, pts):
+        ctx.save_for_backward(pts)
+        ctx.tree = tree
+        return query_kernel(tree, pts, True)
+
+    @staticmethod
+    def backward(ctx, wv, wn):
+        (pts,) = ctx.saved_tensors
+        d_coeffs = d_pts = None
+        if ctx.needs_input_grad[0]:
+            d_coeffs = coeff_scatter_grad_kernel(ctx.tree, pts, wv, wn)
+        if ctx.needs_input_grad[2]:
+            d_pts = query_vjp_kernel(ctx.tree, pts, wv, wn)
+        return d_coeffs, None, d_pts
 
 
 def query(tree: Octree, pts: torch.Tensor, outside_value_max: bool = True):
@@ -595,24 +776,28 @@ def query(tree: Octree, pts: torch.Tensor, outside_value_max: bool = True):
     Negative inside the surface. Points outside the root AABB return the f64
     max sentinel unless ``outside_value_max`` is False, in which case they
     return the clamped-boundary evaluation. Differentiable with respect to
-    ``tree.coeffs`` (kernel K8 on CUDA tensors); on CUDA tensors not with
-    respect to the points or the centres.
+    ``tree.coeffs`` (kernel K8 on CUDA tensors) and the points (K1v); on
+    CUDA tensors not with respect to the centres.
     """
     if pts.device.type == "cpu":
         return query_plain(tree, pts, outside_value_max)
-    refuse_grad("query with respect to the points or centres", pts,
-                 tree.centre)
-    if wants_grad(tree.coeffs):
+    refuse_grad("query with respect to tree.centre", tree.centre)
+    if wants_grad(tree.coeffs, pts):
         return _Query.apply(tree.coeffs, tree, pts, outside_value_max)
     return query_kernel(tree, pts, False, outside_value_max)
 
 
 def query_with_gradient(tree: Octree, pts: torch.Tensor):
     """Value and unit world-space gradient at ``pts`` (B, 3).
-    Returns (val (B,), unit_grad (B, 3)). No gradient on CUDA tensors."""
+    Returns (val (B,), unit_grad (B, 3)). Differentiable with respect to
+    ``tree.coeffs`` (K8g on CUDA tensors) and the points (K1h); on CUDA
+    tensors not with respect to the centres."""
     if pts.device.type == "cpu":
         return query_with_gradient_plain(tree, pts)
-    refuse_grad("query_with_gradient", pts, tree.centre, tree.coeffs)
+    refuse_grad("query_with_gradient with respect to tree.centre",
+                tree.centre)
+    if wants_grad(tree.coeffs, pts):
+        return _QueryWithGradient.apply(tree.coeffs, tree, pts)
     return query_kernel(tree, pts, True)
 
 

@@ -104,10 +104,11 @@ def test_values_and_gradient_at_grad(trees):
     assert not rows.grad[:, :C0].any() and not grid.grad[:, :C0].any()
 
 
-def test_values_and_gradient_at_refuses():
+def test_values_and_gradient_at_refuses(monkeypatch):
     """n_grad outside [0, B] raises; on a device other than the CPU a
-    gradient with respect to the points is refused, and the fused mode's
-    wrapper launches on CUDA tensors or raises."""
+    gradient with respect to the points goes through the autograd function
+    (whose backward to the points is K5h), and the fused mode's wrapper
+    launches on CUDA tensors or raises."""
     tree = TT.pack(*chip_smoke.synthetic_tree(2, seed=1),
                    T.Config(continuity=False,
                             root_min=chip_smoke.SYNTH_ROOT[0],
@@ -118,8 +119,11 @@ def test_values_and_gradient_at_refuses():
         with pytest.raises(ValueError, match="n_grad"):
             TA.values_and_gradient_at(pt, pts, bad)
     meta = torch.zeros((4, 3), device="meta", requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        TA.values_and_gradient_at(pt, meta, 2)
+    taken = []
+    monkeypatch.setattr(TA._ValuesAndGradient, "apply",
+                        lambda *args: taken.append(args) or "taken")
+    assert TA.values_and_gradient_at(pt, meta, 2) == "taken"
+    assert len(taken) == 1 and taken[0][2] is meta and taken[0][4] == 2
     with pytest.raises(ValueError, match="CUDA"):
         TA.packed_eval_kernel(pt, pts, TA.VALUES_AND_GRAD, n_grad=2)
 

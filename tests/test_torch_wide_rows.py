@@ -127,7 +127,8 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                                    "K9u", "chunk", "rows", "K10", "K11",
                                    "round", "leaf", "K8 nodes", "K14",
                                    "K13", "K6", "K6 points", "K13 vjp",
-                                   "K13 ref", "K8 sort"],
+                                   "K13 ref", "K8 sort", "K1h", "K7 form2",
+                                   "K8g", "K5h"],
                          ids=["clean", "spills", "march_spills",
                               "backward_spills", "csr_spills",
                               "fused_spills", "cg_spills", "chunk_spills",
@@ -137,7 +138,9 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                               "inverse_terms_spills", "fit_project_spills",
                               "fit_points_spills", "inverse_vjp_spills",
                               "inverse_terms_reference_spills",
-                              "node_sort_spills"])
+                              "node_sort_spills", "hess_spills",
+                              "normals_backward_spills",
+                              "grad_scatter_spills", "hvp_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
@@ -149,7 +152,8 @@ def test_ptxas_check(monkeypatch, spill):
     round, its leaf evaluation (at degree 3 or 5), K8's node-range mode (at
     any degree 0..6) or its sort,
     K14, any launch of K13 (the points, the terms' loss forward or VJP
-    backward), either of K6's launches (at any degree 2..11, f64 or f32),
+    backward), K1h at degree 3, K7's form 2, K8g or K5h (either mode) at
+    degree 3 or 5, either of K6's launches (at any degree 2..11, f64 or f32),
     or, in the check library's report, K13's terms as they were before
     their redesign has a stack frame or spills; every instantiation of
     K6's two kernels must be in the report."""
@@ -159,6 +163,8 @@ def test_ptxas_check(monkeypatch, spill):
         _ptxas_entry("query_kernel", d, g,
                      stack=8 if spill == "K1" and d == 5 else 0)
         for d in (3, 5, 12) for g in (False, True))
+    report += _ptxas_entry("query_kernel", 3, None, args="Li3ELi2E",
+                           stack=8 if spill == "K1h" else 0)
     report += _ptxas_entry("packed_eval_kernel", 3, False, regs=32)
     report += "".join(
         _ptxas_entry("march_kernel", d, None, regs=80,
@@ -175,8 +181,15 @@ def test_ptxas_check(monkeypatch, spill):
                                stack=16 if spill == "K5F" and d == 3 else 0)
         report += "".join(
             _ptxas_entry("packed_grad_kernel", d, None,
-                         stack=24 if spill == "K7" and f else 0,
-                         args=f"Li{d}ELi{f}E") for f in (0, 1))
+                         stack=24 if spill == "K7" and f == 1
+                         or spill == "K7 form2" and f == 2 and d == 5 else 0,
+                         args=f"Li{d}ELi{f}E") for f in (0, 1, 2))
+        report += _ptxas_entry("coeff_scatter_grad_kernel", d, None,
+                               stack=8 if spill == "K8g" and d == 5 else 0)
+        report += "".join(
+            _ptxas_entry("packed_hvp_kernel", d, None, args=f"Li{d}ELi{m}E",
+                         stack=8 if spill == "K5h" and d == 3 and m else 0)
+            for m in (0, 1))
         report += _ptxas_entry("coeff_scatter_kernel", d, None,
                                args=f"dLi{d}ELb0E")
         report += _ptxas_entry("coeff_scatter_kernel", d, None,
@@ -259,13 +272,18 @@ def test_ptxas_check(monkeypatch, spill):
                 "K13 vjp": "K13 vjp -: stack 8",
                 "K13 ref": "K13 terms reference -: stack 8",
                 "K6": "K6 proj 5/f32: stack 16",
-                "K6 points": "K6 points 7/f64: stack 8"}[spill]):
+                "K6 points": "K6 points 7/f64: stack 8",
+                "K1h": "K1h 3/hess: stack 8",
+                "K7 form2": "K7 5/form2: stack 24",
+                "K8g": "K8g 5: stack 8",
+                "K5h": "K5h 3/values: stack 8"}[spill]):
             chip_smoke.ptxas_check()
         return
     found = chip_smoke.ptxas_check()
     assert found["query_kernel"]["3/grad"] == [56, 0, 0, 0]
     assert set(found["query_kernel"]) == {f"{d}/{k}" for d in (3, 5, 12)
-                                          for k in ("values", "grad")}
+                                          for k in ("values", "grad")} \
+        | {"3/hess"}
     assert found["packed_eval_kernel"]["3/values"] == [32, 0, 0, 0]
     assert set(found["packed_eval_kernel"]) == {
         "3/values", "3/raw", "5/raw", "3/fused", "5/fused"}
