@@ -142,6 +142,59 @@ __device__ __forceinline__ void term_indices(int m, int& i, int& j, int& k) {
   k = p - i - j;
 }
 
+// The leaf of the tree that holds the clamped unit-cube point u (up to
+// depth_used rounds of the descent, stopping at a leaf), returned with its
+// scale 2^(depth+1) and its axis factors N[a][q] = L_q(x_a) nt[q],
+// nt[q] = sqrt((2q + 1) 2^depth), and with GRAD dN[a][q] = L'_q(x_a) nt[q];
+// x = (u - centre) * scale. Every form of the file reads a point's leaf
+// through it.
+template <class T, int DEG, bool GRAD>
+__device__ __forceinline__ int leaf_factors(
+    const int32_t* __restrict__ child_idx, const T* __restrict__ centre,
+    const int32_t* __restrict__ depth, int depth_used, const T (&u)[3],
+    T& scale, T (&N)[3][DEG + 1], T (&dN)[3][DEG + 1]) {
+  int cur = 0;
+  for (int r = 0; r < depth_used; ++r) {
+    const int c0 = __ldg(child_idx + cur);
+    if (c0 < 0) break;
+    const T* cc = centre + 3 * (int64_t)cur;
+    cur = c0 + (u[0] >= __ldg(cc)) + ((u[1] >= __ldg(cc + 1)) << 1) +
+          ((u[2] >= __ldg(cc + 2)) << 2);
+  }
+  const int d = __ldg(depth + cur);
+  scale = (T)pow2(d + 1);
+  const T* cc = centre + 3 * (int64_t)cur;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    T L[DEG + 1], dL[DEG + 1];
+    hpsdf::legendre<DEG>((u[k] - __ldg(cc + k)) * scale, L);
+    if constexpr (GRAD) hpsdf::legendre_deriv<DEG>(L, dL);
+#pragma unroll
+    for (int q = 0; q <= DEG; ++q) {
+      const T nt = (T)(odd_root(q, d & 1) * pow2(d >> 1));
+      N[k][q] = L[q] * nt;
+      if constexpr (GRAD) dN[k][q] = dL[q] * nt;
+    }
+  }
+  return cur;
+}
+
+// g = the leaf-frame gradient of the product sum over the coefficient row
+// c, from leaf_factors' N and dN.
+template <class T, int DEG>
+__device__ __forceinline__ void leaf_gradient(const T* __restrict__ c,
+                                              const T (&N)[3][DEG + 1],
+                                              const T (&dN)[3][DEG + 1],
+                                              T (&g)[3]) {
+  g[0] = g[1] = g[2] = T(0);
+  hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
+    const T cm = __ldg(c + m);
+    g[0] += cm * (dN[0][ix] * N[1][iy] * N[2][iz]);
+    g[1] += cm * (N[0][ix] * dN[1][iy] * N[2][iz]);
+    g[2] += cm * (N[0][ix] * N[1][iy] * dN[2][iz]);
+  });
+}
+
 // Lane j sums term j (then j + 32, ...) over the warp's live rays (the
 // bits of `lanes`, the warp's first thread w0), a run of rays on one row at a
 // time, and adds each run's sum into d_coeffs with one atomic: a ray's axis
@@ -244,42 +297,14 @@ coeff_scatter_kernel(const int32_t* __restrict__ child_idx,
       u[k] = w < T(-0.5) ? T(-0.5) : (w > T(0.5) ? T(0.5) : w);
     }
 
-    int cur = 0;
-    for (int r = 0; r < depth_used; ++r) {
-      const int c0 = __ldg(child_idx + cur);
-      if (c0 < 0) break;
-      const T* cc = centre + 3 * (int64_t)cur;
-      cur = c0 + (u[0] >= __ldg(cc)) + ((u[1] >= __ldg(cc + 1)) << 1) +
-            ((u[2] >= __ldg(cc + 2)) << 2);
-    }
-    const int d = __ldg(depth + cur);
-    const T scale = (T)pow2(d + 1);
-    const T* cc = centre + 3 * (int64_t)cur;
-    // N[k][q] = L_q(x_k) nt[q], nt[q] = sqrt((2q+1) 2^d); dN likewise
-    T N[3][DEG + 1], dN[3][DEG + 1];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      T L[DEG + 1], dL[DEG + 1];
-      hpsdf::legendre<DEG>((u[k] - __ldg(cc + k)) * scale, L);
-      if constexpr (TRACE) hpsdf::legendre_deriv<DEG>(L, dL);
-#pragma unroll
-      for (int q = 0; q <= DEG; ++q) {
-        const T nt = (T)(odd_root(q, d & 1) * pow2(d >> 1));
-        N[k][q] = L[q] * nt;
-        if constexpr (TRACE) dN[k][q] = dL[q] * nt;
-      }
-    }
+    T scale, N[3][DEG + 1], dN[3][DEG + 1];
+    const int cur = leaf_factors<T, DEG, TRACE>(child_idx, centre, depth,
+                                                depth_used, u, scale, N, dN);
 
     T w;
     if constexpr (TRACE) {
-      const T* c = coeffs + (int64_t)cur * kC;
-      T g[3] = {T(0), T(0), T(0)};
-      hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
-        const T cm = __ldg(c + m);
-        g[0] += cm * (dN[0][ix] * N[1][iy] * N[2][iz]);
-        g[1] += cm * (N[0][ix] * dN[1][iy] * N[2][iz]);
-        g[2] += cm * (N[0][ix] * N[1][iy] * dN[2][iz]);
-      });
+      T g[3];
+      leaf_gradient<T, DEG>(coeffs + (int64_t)cur * kC, N, dN, g);
       T dfdt = T(0);
 #pragma unroll
       for (int k = 0; k < 3; ++k)
@@ -362,38 +387,10 @@ coeff_scatter_grad_kernel(const int32_t* __restrict__ child_idx,
 #pragma unroll
     for (int a = 0; a < 3; ++a)
       u[a] = x[a] < -0.5 ? -0.5 : (x[a] > 0.5 ? 0.5 : x[a]);
-    int cur = 0;
-    for (int r = 0; r < depth_used; ++r) {
-      const int c0 = __ldg(child_idx + cur);
-      if (c0 < 0) break;
-      const double* cc = centre + 3 * (int64_t)cur;
-      cur = c0 + (u[0] >= __ldg(cc)) + ((u[1] >= __ldg(cc + 1)) << 1) +
-            ((u[2] >= __ldg(cc + 2)) << 2);
-    }
-    const int d = __ldg(depth + cur);
-    const double scale = pow2(d + 1);
-    const double* cc = centre + 3 * (int64_t)cur;
-    double N[3][kD], dN[3][kD];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      double L[kD], dL[kD];
-      hpsdf::legendre<DEG>((u[a] - __ldg(cc + a)) * scale, L);
-      hpsdf::legendre_deriv<DEG>(L, dL);
-#pragma unroll
-      for (int q = 0; q <= DEG; ++q) {
-        const double nt = odd_root(q, d & 1) * pow2(d >> 1);
-        N[a][q] = L[q] * nt;
-        dN[a][q] = dL[q] * nt;
-      }
-    }
-    const double* c = coeffs + (int64_t)cur * kC;
-    double g[3] = {0.0, 0.0, 0.0};
-    hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
-      const double cm = __ldg(c + m);
-      g[0] += cm * (dN[0][ix] * N[1][iy] * N[2][iz]);
-      g[1] += cm * (N[0][ix] * dN[1][iy] * N[2][iz]);
-      g[2] += cm * (N[0][ix] * N[1][iy] * dN[2][iz]);
-    });
+    double scale, N[3][kD], dN[3][kD], g[3];
+    const int cur = leaf_factors<double, DEG, true>(
+        child_idx, centre, depth, depth_used, u, scale, N, dN);
+    leaf_gradient<double, DEG>(coeffs + (int64_t)cur * kC, N, dN, g);
     // local = (unit - centre) * 2^(depth+1), unit = (world - c) / sizes
     double s[3], G[3], gb[3];
 #pragma unroll

@@ -58,7 +58,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxQuads = 16;       // coefficient float4s held in registers
 // what a launch computes (the wrapper's `mode`)
 constexpr int kValues = 0, kNormals = 1, kRawGrad = 2, kValuesGrad = 3;
 
@@ -71,9 +70,9 @@ packed_eval_kernel(const float* __restrict__ grid,
                    float sz0, float sz1, float sz2, int outside_max,
                    float* __restrict__ out, float* __restrict__ out_grad,
                    int64_t B_g) {
-  constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
-  constexpr int kQuads = (kC + 3) / 4;
-  constexpr bool VALUES = MODE == kValues || MODE == kValuesGrad;
+  constexpr int kSums =
+      (MODE == kValues || MODE == kValuesGrad ? hpsdf::kSumValue : 0) |
+      (MODE == kValues ? 0 : hpsdf::kSumGrad);
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   // whether this thread sums the gradient
   const bool with_grad = MODE == kNormals || MODE == kRawGrad ||
@@ -82,55 +81,12 @@ packed_eval_kernel(const float* __restrict__ grid,
   const float rc[3] = {rc0, rc1, rc2};
   const float inv[3] = {inv0, inv1, inv2};
   float u[3], slope[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float w = (pts[3 * i + a] - rc[a]) * inv[a];
-    slope[a] = hpsdf::clamp_half_slope(w);
-    u[a] = hpsdf::clamp_half(w);
-  }
+  hpsdf::unit_point(pts + 3 * i, rc, inv, u, slope);
   const bool inside = slope[0] > 0.0f && slope[1] > 0.0f && slope[2] > 0.0f;
   const float* row = hpsdf::locate_row4(grid, rows, W, gd, extra, u);
-  const float4 meta = __ldg(reinterpret_cast<const float4*>(row));
-  const float centre[3] = {meta.z, meta.w, __ldg(row + 4)};
-  const float scale = meta.y;
-  const float* coef = row + hpsdf::kCoeffLane;
-
-  float L[3][DEG + 1], dL[3][DEG + 1];
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-    hpsdf::legendre<DEG>((u[a] - centre[a]) * scale, L[a]);
-  if (with_grad) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) hpsdf::legendre_deriv<DEG>(L[a], dL[a]);
-  }
-  float v = 0.0f, g[3] = {0.0f, 0.0f, 0.0f};
-  auto add_terms = [&](auto coef_of) {
-    if constexpr (VALUES) {
-      hpsdf::for_each_term<DEG>([&](int m, int ix, int iy, int iz) {
-        v += coef_of(m) * (L[0][ix] * L[1][iy] * L[2][iz]);
-      });
-    }
-    if (with_grad) {
-      hpsdf::for_each_term<DEG>([&](int m, int ix, int iy, int iz) {
-        const float cm = coef_of(m);
-        g[0] += cm * (dL[0][ix] * L[1][iy] * L[2][iz]);
-        g[1] += cm * (L[0][ix] * dL[1][iy] * L[2][iz]);
-        g[2] += cm * (L[0][ix] * L[1][iy] * dL[2][iz]);
-      });
-    }
-  };
-  if constexpr (kQuads <= kMaxQuads) {
-    float c[4 * kQuads];
-#pragma unroll
-    for (int q = 0; q < kQuads; ++q) {
-      const float4 f = __ldg(reinterpret_cast<const float4*>(coef) + q);
-      c[4 * q] = f.x, c[4 * q + 1] = f.y, c[4 * q + 2] = f.z,
-      c[4 * q + 3] = f.w;
-    }
-    add_terms([&](int m) { return c[m]; });
-  } else {
-    add_terms([&](int m) { return __ldg(coef + m); });
-  }
+  float v, g[3], h[6];
+  const float scale = hpsdf::packed_leaf_sums<DEG, kSums>(row, u, with_grad,
+                                                          false, v, g, h);
 
   if constexpr (MODE == kRawGrad || MODE == kValuesGrad) {
     // local = (unit - centre) * scale, unit = clamp((p - c) * (1 / sizes))
@@ -159,8 +115,9 @@ packed_eval_kernel(const float* __restrict__ grid,
 // K5h: Hessian-vector products of the packed eval, the point VJPs of
 // normals and of values_and_gradient_at (normals_vjp_plain,
 // values_and_gradient_vjp_plain), per point in f32. The thread locates
-// and reads its row as K5 does, and sums the leaf-frame gradient g and
-// Hessian H (xx, yy, zz, xy, xz, yz; the second derivative recurrence).
+// and reads its row through K5's read (packed_leaf_sums), which sums the
+// leaf-frame gradient g and here the Hessian H too (xx, yy, zz, xy, xz,
+// yz; the second derivative recurrence).
 // With c_a the clamp's slope (1, 1/2 on a face, 0 clamped) and
 // s_a = scale / size_a (scale * inv_a where values_at's chain takes it):
 //   * kNormalsVjp, cotangents wn (B, 3) of the unit normals g s /
@@ -184,8 +141,6 @@ packed_hvp_kernel(const float* __restrict__ grid,
                   float sz0, float sz1, float sz2,
                   const float* __restrict__ w, const float* __restrict__ cot3,
                   int64_t B_g, float* __restrict__ d_pts) {
-  constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
-  constexpr int kQuads = (kC + 3) / 4;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   const bool hess = MODE == kNormalsVjp || i < B_g;
@@ -193,58 +148,12 @@ packed_hvp_kernel(const float* __restrict__ grid,
   const float inv[3] = {inv0, inv1, inv2};
   const float sz[3] = {sz0, sz1, sz2};
   float u[3], slope[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float x = (pts[3 * i + a] - rc[a]) * inv[a];
-    slope[a] = hpsdf::clamp_half_slope(x);
-    u[a] = hpsdf::clamp_half(x);
-  }
+  hpsdf::unit_point(pts + 3 * i, rc, inv, u, slope);
   const float* row = hpsdf::locate_row4(grid, rows, W, gd, extra, u);
-  const float4 meta = __ldg(reinterpret_cast<const float4*>(row));
-  const float centre[3] = {meta.z, meta.w, __ldg(row + 4)};
-  const float scale = meta.y;
-  const float* coef = row + hpsdf::kCoeffLane;
-
-  float L[3][DEG + 1], dL[3][DEG + 1], d2L[3][DEG + 1];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    hpsdf::legendre<DEG>((u[a] - centre[a]) * scale, L[a]);
-    hpsdf::legendre_deriv<DEG>(L[a], dL[a]);
-    if (hess) hpsdf::legendre_deriv2<DEG>(dL[a], d2L[a]);
-  }
-  float g[3] = {0.0f, 0.0f, 0.0f};
-  float h[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  auto add_terms = [&](auto coef_of) {
-    hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
-      const float cm = coef_of(m);
-      g[0] += cm * (dL[0][ix] * L[1][iy] * L[2][iz]);
-      g[1] += cm * (L[0][ix] * dL[1][iy] * L[2][iz]);
-      g[2] += cm * (L[0][ix] * L[1][iy] * dL[2][iz]);
-    });
-    if (hess) {
-      hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
-        const float cm = coef_of(m);
-        h[0] += cm * (d2L[0][ix] * L[1][iy] * L[2][iz]);
-        h[1] += cm * (L[0][ix] * d2L[1][iy] * L[2][iz]);
-        h[2] += cm * (L[0][ix] * L[1][iy] * d2L[2][iz]);
-        h[3] += cm * (dL[0][ix] * dL[1][iy] * L[2][iz]);
-        h[4] += cm * (dL[0][ix] * L[1][iy] * dL[2][iz]);
-        h[5] += cm * (L[0][ix] * dL[1][iy] * dL[2][iz]);
-      });
-    }
-  };
-  if constexpr (kQuads <= kMaxQuads) {
-    float c[4 * kQuads];
-#pragma unroll
-    for (int q = 0; q < kQuads; ++q) {
-      const float4 f = __ldg(reinterpret_cast<const float4*>(coef) + q);
-      c[4 * q] = f.x, c[4 * q + 1] = f.y, c[4 * q + 2] = f.z,
-      c[4 * q + 3] = f.w;
-    }
-    add_terms([&](int m) { return c[m]; });
-  } else {
-    add_terms([&](int m) { return __ldg(coef + m); });
-  }
+  float v, g[3], h[6];
+  const float scale =
+      hpsdf::packed_leaf_sums<DEG, hpsdf::kSumGrad | hpsdf::kSumHess, true>(
+          row, u, true, hess, v, g, h);
 
   float q[3] = {0.0f, 0.0f, 0.0f}, dl[3] = {0.0f, 0.0f, 0.0f};
   if constexpr (MODE == kNormalsVjp) {

@@ -109,14 +109,9 @@ struct Inputs {
 
   // the point's unit-cube coordinates, clamped into the root, and the
   // clamp's slope on each axis
-  __device__ __forceinline__ void unit(int64_t b, float u[3],
-                                       float slope[3]) const {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float w = (pts[3 * b + a] - rc[a]) * inv[a];
-      slope[a] = hpsdf::clamp_half_slope(w);
-      u[a] = hpsdf::clamp_half(w);
-    }
+  __device__ __forceinline__ void unit(int64_t b, float (&u)[3],
+                                       float (&slope)[3]) const {
+    hpsdf::unit_point(pts + 3 * b, rc, inv, u, slope);
   }
 
   // the row the point reads (locate_row4): key < G3 the grid row key,
@@ -157,25 +152,13 @@ struct Inputs {
         for (int a = 0; a < 3; ++a)
           c[a] = slope[a] > 0.0f ? slope[a] * cot[3 * b + a] : 0.0f;
       } else {
-        // the normal's gradient at the point, then the unit vector's VJP
-        const float* rw = row(k);
-        const float4 meta = __ldg(reinterpret_cast<const float4*>(rw));
-        const float centre[3] = {meta.z, meta.w, __ldg(rw + 4)};
-        const float scale = meta.y;
-        float L[3][DEG + 1], dL[3][DEG + 1];
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          hpsdf::legendre<DEG>((u[a] - centre[a]) * scale, L[a]);
-          hpsdf::legendre_deriv<DEG>(L[a], dL[a]);
-        }
-        float G[3] = {0.0f, 0.0f, 0.0f}, wn[3], gb[3];
-        const float* coef = rw + hpsdf::kCoeffLane;
-        hpsdf::for_each_term_of<DEG>([&](int m, int ix, int iy, int iz) {
-          const float cm = __ldg(coef + m);
-          G[0] += cm * (dL[0][ix] * L[1][iy] * L[2][iz]);
-          G[1] += cm * (L[0][ix] * dL[1][iy] * L[2][iz]);
-          G[2] += cm * (L[0][ix] * L[1][iy] * dL[2][iz]);
-        });
+        // the normal's gradient at the point (K5's read of row k, one
+        // 4-byte load a term: the registers of the whole launch bound its
+        // blocks a multiprocessor), then the unit vector's VJP
+        float v, G[3], h[6], wn[3], gb[3];
+        const float scale =
+            hpsdf::packed_leaf_sums<DEG, hpsdf::kSumGrad, true, 0>(
+                row(k), u, true, false, v, G, h);
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
           G[a] = G[a] * scale / sz[a];

@@ -1,6 +1,7 @@
-// Device helpers shared by K2/K5 (packed_eval.cu) and K3 (march.cu): reading
-// the packed row layout of hpsdf_tpu_torch/accel.py and evaluating the
-// Legendre product sum over a row's folded coefficient lanes, in f32. K1
+// Device helpers shared by K2/K5 and K5h (packed_eval.cu), K7
+// (packed_grad.cu) and K3 (march.cu): reading the packed row layout of
+// hpsdf_tpu_torch/accel.py and evaluating the Legendre product sums over a
+// row's folded coefficient lanes, in f32 (packed_leaf_sums). K1
 // (query.cu) takes the recurrences (in f64), the term order and the degree
 // dispatch from here too.
 //
@@ -33,6 +34,20 @@ template <class T>
 __device__ __forceinline__ T clamp_half_slope(T x) {
   const T a = x < T(0) ? -x : x;
   return a < T(0.5) ? T(1) : (a == T(0.5) ? T(0.5) : T(0));
+}
+
+// World point p's unit-cube coordinates (p - rc) * inv, clamped into the
+// root, and the clamp's slope on each axis.
+__device__ __forceinline__ void unit_point(const float* p,
+                                           const float (&rc)[3],
+                                           const float (&inv)[3],
+                                           float (&u)[3], float (&slope)[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float w = (p[a] - rc[a]) * inv[a];
+    slope[a] = clamp_half_slope(w);
+    u[a] = clamp_half(w);
+  }
 }
 
 __device__ __forceinline__ float root(float x) { return sqrtf(x); }
@@ -153,6 +168,24 @@ __device__ __forceinline__ void for_each_term(F&& f) {
       for (int j = 0; j <= p - i; ++j, ++m) f(m, i, j, p - i - j);
 }
 
+// for_each_term's terms grouped by (i, j), k rising in a group: the terms
+// that share the pair products N_i(x) N_j(y) come one after another, so an
+// unrolled sum holds a group's pair products, not the whole row's. m is
+// term (i, j, k)'s place in for_each_term's order.
+template <int DEG, class F>
+__device__ __forceinline__ void for_each_term_by_pair(F&& f) {
+#pragma unroll
+  for (int i = 0; i <= DEG; ++i)
+#pragma unroll
+    for (int j = 0; j <= DEG - i; ++j)
+#pragma unroll
+      for (int k = 0; k <= DEG - i - j; ++k) {
+        const int p = i + j + k;
+        f(p * (p + 1) * (p + 2) / 6 + i * (p + 1) - i * (i - 1) / 2 + j, i,
+          j, k);
+      }
+}
+
 // for_each_term's order, unrolled up to degree
 // kUnrolledDeg and in loops above it: the backward kernels do several
 // products, shuffles and an atomic a term, and their high-degree
@@ -173,6 +206,98 @@ __device__ __forceinline__ void for_each_term_of(F&& f) {
 #pragma unroll 1
         for (int j = 0; j <= p - i; ++j, ++m) f(m, i, j, p - i - j);
   }
+}
+
+// What packed_leaf_sums sums (bits of SUMS).
+constexpr int kSumValue = 1, kSumGrad = 2, kSumHess = 4;
+// coefficient float4s a thread holds in registers
+constexpr int kMaxQuads = 16;
+
+// The read of a packed row at the clamped unit-cube point u, one thread: the
+// Legendre product sums over the row's coefficient lanes in its leaf frame
+// (u - centre) * scale, those SUMS asks for: the value v (kSumValue), the
+// gradient g (kSumGrad, where `grad`) and the Hessian h (xx, yy, zz, xy,
+// xz, yz; kSumHess, where `hess`, which needs g's recurrences: `grad` too).
+// Rows of up to MAX_QUADS float4 coefficient lanes are read in 16-byte
+// loads into registers, wider ones one 4-byte load a term. With LOOPED the
+// terms go in loops above kUnrolledDeg (for_each_term_of). K2/K5, K5h and
+// K7's form 2 read a row through it. Returns the row's scale 2^(depth+1).
+template <int DEG, int SUMS, bool LOOPED = false, int MAX_QUADS = kMaxQuads>
+__device__ __forceinline__ float packed_leaf_sums(const float* row,
+                                                  const float (&u)[3],
+                                                  bool grad, bool hess,
+                                                  float& v, float (&g)[3],
+                                                  float (&h)[6]) {
+  constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
+  constexpr int kQuads = (kC + 3) / 4;
+  const float4 meta = __ldg(reinterpret_cast<const float4*>(row));
+  const float centre[3] = {meta.z, meta.w, __ldg(row + 4)};
+  const float scale = meta.y;
+  const float* coef = row + kCoeffLane;
+
+  float L[3][DEG + 1], dL[3][DEG + 1], d2L[3][DEG + 1];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    legendre<DEG>((u[a] - centre[a]) * scale, L[a]);
+    if constexpr ((SUMS & (kSumGrad | kSumHess)) != 0)
+      if (grad) legendre_deriv<DEG>(L[a], dL[a]);
+    if constexpr ((SUMS & kSumHess) != 0)
+      if (hess) legendre_deriv2<DEG>(dL[a], d2L[a]);
+  }
+  v = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) g[a] = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 6; ++a) h[a] = 0.0f;
+  auto each = [](auto&& f) {
+    if constexpr (LOOPED)
+      for_each_term_of<DEG>(f);
+    else
+      for_each_term<DEG>(f);
+  };
+  auto add_terms = [&](auto coef_of) {
+    if constexpr ((SUMS & kSumValue) != 0) {
+      each([&](int m, int ix, int iy, int iz) {
+        v += coef_of(m) * (L[0][ix] * L[1][iy] * L[2][iz]);
+      });
+    }
+    if constexpr ((SUMS & kSumGrad) != 0) {
+      if (grad) {
+        each([&](int m, int ix, int iy, int iz) {
+          const float cm = coef_of(m);
+          g[0] += cm * (dL[0][ix] * L[1][iy] * L[2][iz]);
+          g[1] += cm * (L[0][ix] * dL[1][iy] * L[2][iz]);
+          g[2] += cm * (L[0][ix] * L[1][iy] * dL[2][iz]);
+        });
+      }
+    }
+    if constexpr ((SUMS & kSumHess) != 0) {
+      if (hess) {
+        each([&](int m, int ix, int iy, int iz) {
+          const float cm = coef_of(m);
+          h[0] += cm * (d2L[0][ix] * L[1][iy] * L[2][iz]);
+          h[1] += cm * (L[0][ix] * d2L[1][iy] * L[2][iz]);
+          h[2] += cm * (L[0][ix] * L[1][iy] * d2L[2][iz]);
+          h[3] += cm * (dL[0][ix] * dL[1][iy] * L[2][iz]);
+          h[4] += cm * (dL[0][ix] * L[1][iy] * dL[2][iz]);
+          h[5] += cm * (L[0][ix] * dL[1][iy] * dL[2][iz]);
+        });
+      }
+    }
+  };
+  if constexpr (kQuads <= MAX_QUADS) {
+    float c[4 * kQuads];
+#pragma unroll
+    for (int q = 0; q < kQuads; ++q) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(coef) + q);
+      c[4 * q] = f.x, c[4 * q + 1] = f.y, c[4 * q + 2] = f.z,
+      c[4 * q + 3] = f.w;
+    }
+    add_terms([&](int m) { return c[m]; });
+  } else {
+    add_terms([&](int m) { return __ldg(coef + m); });
+  }
+  return scale;
 }
 
 }  // namespace hpsdf

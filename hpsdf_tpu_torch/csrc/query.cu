@@ -206,7 +206,12 @@ __device__ __forceinline__ void add_terms(Coef coef, int lo, int hi,
       }
     }
   };
-  if constexpr (ORDER >= 2)
+  // K1h's nine sums take the terms by (i, j): in for_each_term's order
+  // their six kinds of pair product stay live across the row, which spilled
+  // 48 bytes at degree 5 (PERF.md)
+  if constexpr (ORDER >= 2 && DEG <= hpsdf::kUnrolledDeg)
+    hpsdf::for_each_term_by_pair<DEG>(term);
+  else if constexpr (ORDER >= 2)
     hpsdf::for_each_term_of<DEG>(term);
   else
     hpsdf::for_each_term<DEG>(term);
@@ -315,9 +320,9 @@ __device__ __forceinline__ double eval_leaf(
 //   * K1h (ORDER 2, w and wn, the unit gradient's cotangent): with G = g s
 //     the world gradient and gb = unit_vector_vjp(G, wn, 1e-30),
 //     d_p_b = c_b s_b (w' g_b + sum_a H_ab s_a gb_a), H the leaf-frame
-//     Hessian (the second derivative recurrence). Its six Hessian sums
-//     make about 10 sums a term, which bind on f64 operations from degree
-//     4; above degree 6 its terms go in a loop (for_each_term_of).
+//     Hessian (the second derivative recurrence). Its nine sums take
+//     the terms grouped by (i, j) (for_each_term_by_pair) up to degree 6,
+//     in a loop above it (for_each_term_of).
 template <int DEG, int ORDER>
 __global__ void __launch_bounds__(kThreads)
 query_kernel(const int32_t* __restrict__ child_idx,

@@ -391,6 +391,14 @@ class _QueryNodes(torch.autograd.Function):
                 None, None, None)
 
 
+def _refuse_gathered_grad(what: str, *xs) -> None:
+    """Raise where one of ``xs`` requires a gradient: a sharded read
+    all-gathers its shares, which cuts them off from autograd."""
+    if _device.wants_grad(*(x for x in xs if isinstance(x, torch.Tensor))):
+        raise RuntimeError(f"parallel.{what} cannot carry a gradient: its "
+                           "all-gather cuts the shares off from autograd")
+
+
 def shard_query(tree, pts, mesh: DeviceMesh,
                 shard_nodes: bool = False) -> torch.Tensor:
     """``query`` with the points split over the mesh's batch axis: each rank
@@ -399,7 +407,10 @@ def shard_query(tree, pts, mesh: DeviceMesh,
     tree (an ``Octree``, sliced here, or this rank's ``ShardedTree``) is
     split over the node axis and each share's query runs on the node
     blocks (``_query_nodes``). Every rank passes the same points and
-    returns all the values, equal to ``query(tree, pts)``."""
+    returns all the values, equal to ``query(tree, pts)``. Not
+    differentiable: the all-gather carries no gradient, so points or
+    coefficients that require one raise."""
+    _refuse_gathered_grad("shard_query", pts, tree.coeffs)
     sh = batch_shard(mesh, shard_nodes)
     st = _shard_tree(tree, mesh, shard_nodes)
     pts = torch.as_tensor(pts, dtype=st.centre.dtype, device=st.device)
@@ -421,7 +432,10 @@ def shard_trace(tree, origins, dirs, mesh: DeviceMesh,
     one-device call; ``steps`` is summed over the batch axis, padded rays
     included. With ``cone_tiles`` = (H, W, T) the rays are an image and the
     shares are whole rows of tiles (the last row of tiles repeated as
-    padding), each traced as an image of its own through K4 and K3."""
+    padding), each traced as an image of its own through K4 and K3. Not
+    differentiable: the all-gather carries no gradient, so rays or
+    coefficients that require one raise."""
+    _refuse_gathered_grad("shard_trace", origins, dirs, tree.coeffs)
     sh = batch_shard(mesh)
     tree = _shard_tree(tree, mesh, False)
     packed = kw.pop("packed", None) or pack_tree(tree)

@@ -580,3 +580,26 @@ def test_refuses_what_is_not_a_mesh(port_tree):
         with pytest.raises(TypeError, match="DeviceMesh"):
             call()
     assert TB.BLOCK_PTS == 1 << 20
+
+
+@pytest.mark.parametrize("what", ["points", "coeffs"])
+def test_sharded_reads_refuse_a_gradient(what, port_tree):
+    """shard_query and shard_trace all-gather their shares, which carries no
+    gradient: points, rays or coefficients that require one raise before
+    any collective instead of returning values cut off from autograd."""
+    from hpsdf_tpu_torch import parallel
+
+    pts = torch.zeros(4, 3, dtype=torch.float64)
+    tree = port_tree
+    if what == "points":
+        pts.requires_grad_(True)
+    else:
+        tree = dataclasses.replace(
+            port_tree, coeffs=port_tree.coeffs.clone().requires_grad_(True))
+    for call in (lambda: parallel.shard_query(tree, pts, object()),
+                 lambda: parallel.shard_trace(tree, pts, pts, object())):
+        with pytest.raises(RuntimeError, match="all-gather"):
+            call()
+    with torch.no_grad():               # no gradient asked for: the mesh
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            parallel.shard_query(tree, pts, object())

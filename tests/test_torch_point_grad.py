@@ -612,3 +612,29 @@ def test_grad2_helpers():
     assert chip_smoke.grad2_teeth(zero, zero, 1e-4,
                                   torch.ones((4, 3), dtype=torch.bool)) \
         == [True]
+
+
+@pytest.mark.parametrize("deg", [0, 3, 5, 12])
+def test_grad2_operation_counts(deg):
+    """chip_smoke's operation counts of the backward kernels, which set
+    their bounds: the sums by hand (three operations a term, each kind of
+    pair product once a point), no value sum in K1v, K1h, K8g or K5h, and
+    K1's frame the part of k1_ops outside its four sums."""
+    C = (deg + 1) * (deg + 2) * (deg + 3) // 6
+    T_ = (deg + 1) * (deg + 2) // 2
+    dep = 5
+    assert chip_smoke.product_sum_ops(deg, 9, 6) == 27 * C + 6 * T_
+    assert chip_smoke.k1_ops(deg, dep, False) \
+        == chip_smoke.k1_frame_ops(deg, dep, 0) + 3 * C + T_
+    assert chip_smoke.k1_ops(deg, dep, True) \
+        == chip_smoke.k1_frame_ops(deg, dep, 1) + 11 * C + 3 * T_
+    assert chip_smoke.k1v_ops(deg, dep) \
+        == chip_smoke.k1_frame_ops(deg, dep, 1) + 9 * C + 3 * T_
+    assert chip_smoke.k1h_ops(deg, dep) \
+        == chip_smoke.k1_frame_ops(deg, dep, 2) + 27 * C + 6 * T_
+    assert chip_smoke.k8g_ops(deg, dep) \
+        == chip_smoke.k1v_ops(deg, dep) + 12 * C
+    assert chip_smoke.k5h_ops(deg) \
+        == 49 + 30 * max(deg - 1, 0) + 27 * C + 6 * T_
+    assert chip_smoke.k7f2_ops(deg) \
+        == chip_smoke.k7_ops(deg, 1) + 9 * C + 3 * T_

@@ -152,8 +152,8 @@ def test_ptxas_check(monkeypatch, spill):
     round, its leaf evaluation (at degree 3 or 5), K8's node-range mode (at
     any degree 0..6) or its sort,
     K14, any launch of K13 (the points, the terms' loss forward or VJP
-    backward), K1h at degree 3, K7's form 2, K8g or K5h (either mode) at
-    degree 3 or 5, either of K6's launches (at any degree 2..11, f64 or f32),
+    backward), K1h, K7's form 2, K8g or K5h (either mode) at degree 3 or
+    5, either of K6's launches (at any degree 2..11, f64 or f32),
     or, in the check library's report, K13's terms as they were before
     their redesign has a stack frame or spills; every instantiation of
     K6's two kernels must be in the report."""
@@ -163,8 +163,10 @@ def test_ptxas_check(monkeypatch, spill):
         _ptxas_entry("query_kernel", d, g,
                      stack=8 if spill == "K1" and d == 5 else 0)
         for d in (3, 5, 12) for g in (False, True))
-    report += _ptxas_entry("query_kernel", 3, None, args="Li3ELi2E",
-                           stack=8 if spill == "K1h" else 0)
+    report += "".join(
+        _ptxas_entry("query_kernel", d, None, args=f"Li{d}ELi2E",
+                     stack=8 if spill == "K1h" and d == 5 else 0)
+        for d in (3, 5))
     report += _ptxas_entry("packed_eval_kernel", 3, False, regs=32)
     report += "".join(
         _ptxas_entry("march_kernel", d, None, regs=80,
@@ -273,7 +275,7 @@ def test_ptxas_check(monkeypatch, spill):
                 "K13 ref": "K13 terms reference -: stack 8",
                 "K6": "K6 proj 5/f32: stack 16",
                 "K6 points": "K6 points 7/f64: stack 8",
-                "K1h": "K1h 3/hess: stack 8",
+                "K1h": "K1h 5/hess: stack 8",
                 "K7 form2": "K7 5/form2: stack 24",
                 "K8g": "K8g 5: stack 8",
                 "K5h": "K5h 3/values: stack 8"}[spill]):
@@ -283,7 +285,7 @@ def test_ptxas_check(monkeypatch, spill):
     assert found["query_kernel"]["3/grad"] == [56, 0, 0, 0]
     assert set(found["query_kernel"]) == {f"{d}/{k}" for d in (3, 5, 12)
                                           for k in ("values", "grad")} \
-        | {"3/hess"}
+        | {"3/hess", "5/hess"}
     assert found["packed_eval_kernel"]["3/values"] == [32, 0, 0, 0]
     assert set(found["packed_eval_kernel"]) == {
         "3/values", "3/raw", "5/raw", "3/fused", "5/fused"}
