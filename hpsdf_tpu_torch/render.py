@@ -38,7 +38,8 @@ import torch
 from . import _device, _kernels, accel, basis
 from ._device import refuse_grad, wants_grad
 from .accel import PackedTree, pack_tree
-from .query import _to_unit, coeff_scatter_kernel, descend
+from .query import (_to_unit, clip_half, clip_slope, coeff_scatter_kernel,
+                    descend)
 from .tree import Octree
 
 # March constants (reference: Source/HP/Octree.cpp:725-743; hpsdf_tpu
@@ -544,14 +545,16 @@ def _tree_f32(tree: Octree) -> Octree:
 def trace_vjp_plain(tree32: Octree, origins, dirs, t, hit, dt):
     """The gradient (N, C) f32 of sum(dt * t) with respect to
     ``tree32.coeffs`` (hpsdf_tpu render._trace_bwd), on the generic f32
-    tree: at p = o + t d, dfdt = grad f(p) . d, safe = dfdt where
-    |dfdt| > 1e-6 and 1e-6 elsewhere, w = -dt / safe on hit rays and 0
-    elsewhere, and w times each basis product into the leaf's
+    tree: at p = o + t d, dfdt = grad f(p) . d, each axis weighted by the
+    clamp's derivative (``clip_slope``: 1 inside the root, 1/2 on a face,
+    0 outside, as ``jax.jvp`` through ``jnp.clip`` gives it), safe = dfdt
+    where |dfdt| > 1e-6 and 1e-6 elsewhere, w = -dt / safe on hit rays and
+    0 elsewhere, and w times each basis product into the leaf's
     coefficients (the implicit function theorem at f = 0)."""
     p = origins + t[:, None] * dirs
     unit = _to_unit(tree32, p)
-    inside = unit.abs() <= 0.5
-    unit = unit.clamp(-0.5, 0.5)
+    slope = clip_slope(unit)
+    unit = clip_half(unit)
     leaf = descend(tree32, unit).long()
     depth = tree32.depth[leaf]
     scale = torch.exp2((depth + 1).to(torch.float32))[:, None]
@@ -560,7 +563,7 @@ def trace_vjp_plain(tree32: Octree, origins, dirs, t, hit, dt):
                                  tree32.deg_used)
     inv = torch.as_tensor(1.0 / tree32.config.root_sizes,
                           dtype=torch.float32, device=p.device)
-    dfdt = torch.sum(torch.where(inside, g * scale * inv, 0.0) * dirs, dim=-1)
+    dfdt = torch.sum(slope * g * scale * inv * dirs, dim=-1)
     safe = torch.where(dfdt.abs() > 1e-6, dfdt, 1e-6)
     w = torch.where(hit, -dt / safe, 0.0)
     idx, norms = basis._tables(tree32.deg_used, local)

@@ -18,6 +18,7 @@ in f64, 1e-4 for the trace's VJP.
 """
 
 import dataclasses
+import unittest.mock as mock
 
 import numpy as np
 import jax
@@ -31,6 +32,7 @@ from hpsdf_tpu import render as JR
 from hpsdf_tpu import tree as JT
 import hpsdf_tpu_torch as T
 from hpsdf_tpu_torch import accel as TA
+from hpsdf_tpu_torch import render as TR
 from hpsdf_tpu_torch.query import coeff_scatter_kernel, query_vjp_plain
 
 import chip_smoke
@@ -223,6 +225,78 @@ def test_trace_vjp(sphere):
     _close(coeffs.grad, want, RTOL_TRACE)
     with pytest.raises(RuntimeError, match="origins or directions"):
         T.trace(tt, torch.as_tensor(o).requires_grad_(True), d)
+
+
+_FACES = [(a, e) for a in range(3) for e in (0, 1)] + [("edge", None)]
+
+
+@pytest.mark.parametrize("where", _FACES, ids=lambda x: (
+    "edge" if x[0] == "edge" else f"axis{x[0]}_{('lo', 'hi')[x[1]]}"))
+def test_trace_face_rule(sphere, where, few_torch_threads):  # noqa: F811
+    """Rays whose hit p = o + t d lies exactly on a face of the root, or on
+    an edge: the clamp's derivative in dfdt is 1/2 on that axis, as
+    jax.jvp through jnp.clip gives it. trace_vjp_plain (the CPU route of
+    the trace's implicit VJP, which K8's trace form is held to) against
+    hpsdf_tpu's _trace_bwd called with the same residuals. o, t and d are
+    dyadic, so o + t d is exact in f32; one ray missed."""
+    jt, tt = sphere
+    rng = np.random.default_rng(23)
+    n = 6
+    p = np.round(rng.uniform(-0.5, 0.5, (n, 3)) * 1024) / 1024
+    axis, end = where
+    if axis == "edge":
+        p[:, 0], p[:, 2] = 0.5, -0.5
+        on = [0, 2]
+    else:
+        p[:, axis] = (-0.5, 0.5)[end]
+        on = [axis]
+    d = rng.integers(1, 17, (n, 3)) * rng.choice([-1.0, 1.0], (n, 3)) / 16
+    t = np.full(n, 1.5)
+    o = (p - t[:, None] * d).astype(np.float32)
+    d, t = d.astype(np.float32), t.astype(np.float32)
+    hit = np.arange(n) != n - 1
+    dt = rng.standard_normal(n).astype(np.float32)
+    hits = o + t[:, None] * d
+    assert np.all(np.abs(hits[:, on]) == 0.5)
+    tree32 = JR._tree_f32(jt)
+    static = JR._static_of(tree32, JA.pack_tree(jt), JR.HIT_EPS, 200)
+    res = (tree32.child_idx, tree32.centre, tree32.depth, tree32.coeffs,
+           *(jnp.asarray(x) for x in (o, d, t, hit)))
+    want = JR._trace_bwd(static, res, (jnp.asarray(dt), None, None))[5]
+    got = TR.trace_vjp_plain(TR._tree_f32(tt), *(torch.as_tensor(x) for x in
+                                                  (o, d, t, hit, dt)))
+    assert np.abs(np.asarray(want)).max() > 0
+    _close(got, want, RTOL_TRACE)
+
+
+def test_face_rays(sphere, few_torch_threads):  # noqa: F811
+    """chip_smoke.face_rays (the rays of [grad2]'s face check) hit each face
+    of the root and an edge exactly in f32, the others inside; off_faces
+    (the rays K8's trace form and the kernel it replaced both hold to the
+    clamp's slope 1) keeps just the inside ones; and trace_vjp_plain on
+    the face rays differs from the same sum with slope 1 on the faces,
+    while on the inside rays it does not."""
+    _, tt = sphere
+    rays, kind = chip_smoke.face_rays(tt, 512, 62)
+    o, d, t, hit = rays
+    unit = (o + t[:, None] * d).numpy()
+    for k, (axes, _) in enumerate(chip_smoke.TRACE_FACE_KINDS):
+        assert np.all(np.abs(unit[kind.numpy() == k][:, list(axes)]) == 0.5)
+    assert np.all(np.abs(unit[kind.numpy() < 0]) < 0.5)
+    assert torch.equal(chip_smoke.off_faces(tt, rays), kind < 0)
+    dt = torch.as_tensor(np.random.default_rng(3).standard_normal(512)
+                         .astype(np.float32))
+    tree32 = TR._tree_f32(tt)
+    terms = chip_smoke._dfdt_terms(tt, (o + t[:, None] * d).double(), d)
+    assert terms.shape == (512, 3 * tt.coeffs.shape[1])
+    for face in (False, True):
+        m = (kind >= 0) if face else (kind < 0)
+        got = TR.trace_vjp_plain(tree32, *(x[m] for x in rays), dt[m])
+        with mock.patch.object(TR, "clip_slope", lambda u: (
+                u.abs() <= 0.5).to(u.dtype)):
+            old = TR.trace_vjp_plain(tree32, *(x[m] for x in rays), dt[m])
+        err = float((got - old).abs().max() / old.abs().max())
+        assert (err > 0.1) if face else (err == 0.0)
 
 
 def test_trace_vjp_matches_fd(sphere):

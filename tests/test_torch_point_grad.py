@@ -518,7 +518,7 @@ def test_path_normal_map(sphere, few_torch_threads):  # noqa: F811
 
 @pytest.mark.parametrize("kernel", ["query_vjp", "query_vjp_hess",
                                     "coeff_scatter_grad", "packed_hvp",
-                                    "packed_grad_form2"])
+                                    "packed_grad_form2", "grad_buckets"])
 def test_kernel_wrappers_refuse_cpu(kernel, few_torch_threads):  # noqa: F811
     """The new backward kernels' wrappers launch on CUDA tensors or raise;
     only the entry points take the plain versions, for CPU tensors."""
@@ -534,6 +534,8 @@ def test_kernel_wrappers_refuse_cpu(kernel, few_torch_threads):  # noqa: F811
             TQ.query_vjp_kernel(tt, p64, w64, p64)
         elif kernel == "coeff_scatter_grad":
             TQ.coeff_scatter_grad_kernel(tt, p64, w64, p64)
+        elif kernel == "grad_buckets":
+            TQ.grad_buckets_kernel(tt, p64, w64, p64)
         elif kernel == "packed_hvp":
             TA.packed_hvp_kernel(tp, p32, TA.VALUES_GRAD_VJP, w32, p32)
         else:
