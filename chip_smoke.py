@@ -1576,7 +1576,6 @@ def counters():
     from hpsdf_tpu_torch.query import (coeff_scatter_grad_kernel,
                                        coeff_scatter_kernel,
                                        coeff_scatter_nodes_kernel,
-                                       grad_buckets_kernel,
                                        node_buckets_kernel, query_kernel,
                                        query_nodes_kernel, query_vjp_kernel)
     from hpsdf_tpu_torch.render import cone_kernel, march_kernel
@@ -1613,7 +1612,6 @@ def counters():
             "query_vjp": (query_vjp_kernel, "launches"),
             "query_vjp_hess": (query_vjp_kernel, "hess_launches"),
             "coeff_scatter_grad": (coeff_scatter_grad_kernel, "launches"),
-            "grad_buckets": (grad_buckets_kernel, "launches"),
             "packed_hvp": (packed_hvp_kernel, "launches"),
             "packed_grad_form2": (packed_grad_kernel, "form2_launches")}
 
@@ -3015,13 +3013,11 @@ NMAP_RTOL = 1e-4
 # the operations on the card a call may take
 K1V_OPS = K1H_OPS = K5H_OPS = K7F2_OPS = 1
 K8G_OPS = 2
-# the kernels' names in the kernels line, from the launch counts (K8g's
-# sort apart from its tile launch)
+# the five kernels' names in the kernels line, from the launch counts
 GRAD2_KERNELS = {
     "query_vjp": lambda n: n["query_vjp"] - n["query_vjp_hess"],
     "query_vjp_hess": lambda n: n["query_vjp_hess"],
     "coeff_scatter_grad": lambda n: n["coeff_scatter_grad"],
-    "grad_buckets": lambda n: n["grad_buckets"],
     "packed_hvp": lambda n: n["packed_hvp"],
     "packed_grad_form2": lambda n: n["packed_grad_form2"]}
 
@@ -3523,45 +3519,6 @@ def grad2_teeth(got, want, tol, face=None):
     return caught
 
 
-def coeff_scatter_grad_reference(tree, pts, wv, wn):
-    """K8g as it was before its redesign
-    (csrc/check/coeff_scatter_grad_reference.cu), called as its wrapper
-    called it: the (N, C) output zeroed, then one launch."""
-    from hpsdf_tpu_torch import _kernels
-
-    pts, wv, wn = (x.detach().contiguous() for x in (pts, wv, wn))
-    out = torch.zeros(tree.coeffs.shape, dtype=torch.float64,
-                      device=pts.device)
-    if pts.shape[0] == 0:
-        return out
-    rc = tree.config.root_centre
-    inv = 1.0 / tree.config.root_sizes
-    rc_ = _kernels.load_check().hpsdf_coeff_scatter_grad_reference(
-        tree.child_idx.data_ptr(), tree.centre.data_ptr(),
-        tree.depth.data_ptr(), tree.coeffs.detach().data_ptr(),
-        tree.deg_used, tree.depth_used, pts.data_ptr(), pts.shape[0],
-        *map(float, rc), *map(float, inv), wv.data_ptr(), wn.data_ptr(),
-        out.data_ptr(), _kernels.stream_of(pts))
-    _kernels.check(_kernels.load(), rc_, "coeff_scatter_grad_reference")
-    return out
-
-
-def device_memsets(fn):
-    """The memsets one call of fn() puts on the card, by one torch.profiler
-    trace."""
-    from torch.profiler import ProfilerActivity, profile
-
-    cuda = torch.autograd.DeviceType.CUDA
-    fn()
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync()
-    return sum(1 for e in prof.events() if e.device_type == cuda
-               and "memset" in e.name.lower())
-
-
 def sparse_cotangents(w, wn, seed):
     """The cotangents with a third of wv and a third of wn's rows zero (a
     ninth of the points both), as K8g's liveness sees them."""
@@ -3614,7 +3571,7 @@ def trace_face_check(tree, smi, seed):
     10 GRAD_RTOL32 apart on the rays of each face kind. Returns the
     errors."""
     from hpsdf_tpu_torch import render as R
-    from hpsdf_tpu_torch.query import _to_unit, coeff_scatter_kernel
+    from hpsdf_tpu_torch.query import coeff_scatter_kernel
 
     tree32 = R._tree_f32(tree)
     rays, kind = face_rays(tree, TRACE_FACE_RAYS, seed)
@@ -3679,10 +3636,7 @@ def grad2_checks(tree, pt, p64, seed, with_teeth=False):
     max|kernel - plain|, teeth or None)}; raises where one is above its
     tolerance or, with ``with_teeth``, a wrong result passes."""
     from hpsdf_tpu_torch import accel as A
-    from hpsdf_tpu_torch.query import (GRAD_SORT_POINTS, _to_unit,
-                                       coeff_scatter_grad_kernel,
-                                       grad_buckets_kernel,
-                                       grad_buckets_plain, grad_record_items,
+    from hpsdf_tpu_torch.query import (_to_unit, coeff_scatter_grad_kernel,
                                        query_points_vjp_plain,
                                        query_vjp_kernel,
                                        query_with_gradient_vjp_plain)
@@ -3719,10 +3673,6 @@ def grad2_checks(tree, pt, p64, seed, with_teeth=False):
             coeff_scatter_grad_kernel(tree, p64, ws, wns),
             query_with_gradient_vjp_plain(tree, p64, ws, wns)[0],
             GRAD2_RTOL64, None),
-        "coeff_scatter_grad_replaced": (
-            coeff_scatter_grad_kernel(tree, p64, w, wn),
-            coeff_scatter_grad_reference(tree, p64, w, wn), GRAD2_RTOL64,
-            None),
         "packed_hvp": (A.packed_hvp_kernel(pt, p32, A.NORMALS_VJP,
                                            cot3=wn32), npt, GRAD2_RTOL_HVP,
                        face32),
@@ -3747,16 +3697,6 @@ def grad2_checks(tree, pt, p64, seed, with_teeth=False):
             check(all(teeth), f"{name}: a wrong result passes the check "
                   f"{teeth}")
         out[name] = (err, float((got - want).abs().max()), teeth)
-    # K8g's sort against its plain version, run by run, with both sets of
-    # cotangents
-    for a, b in ((w, wn), (ws, wns)):
-        offsets, recs, _ = grad_buckets_kernel(tree, p64, a, b)
-        check(buckets_match((offsets, grad_record_items(recs)),
-                            grad_buckets_plain(tree, p64, a, b),
-                            GRAD_SORT_POINTS),
-              f"K8g's sort vs its plain version ({B} points, degree "
-              f"{tree.deg_used})")
-    out["grad_buckets"] = (0.0, 0.0, None)
     return out
 
 
@@ -3768,10 +3708,9 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, seed=12):
     some outside) and at every degree 0..12 on synthetic_tree, with two
     wrong results each shown to fail (grad2_teeth); each timed in a CUDA
     graph beside its plain version and its bound, with the operations a
-    call puts on the card; K8g also in turns with the kernel it replaced at
-    2^20 and 2^16 slice points and at path (b)'s samples, and K8's trace form
-    on rays that hit the root's faces (trace_face_check). Then the three
-    paths, the launch counts set to
+    call puts on the card; K8g also with a third of each cotangent zero,
+    and K8's trace form on rays that hit the root's faces
+    (trace_face_check). Then the three paths, the launch counts set to
     0 just before and read just after: (a) PROJ_STEPS projection steps of
     2^20 points in the root (projection_step), (b) FIT_STEPS Adam steps of
     the oriented-point fit of the inverse setup's initial tree (the r =
@@ -3786,10 +3725,7 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, seed=12):
 
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch import accel as A
-    from hpsdf_tpu_torch.query import (GRAD_RECORD, GRAD_SORT_POINTS,
-                                       coeff_scatter_grad_kernel,
-                                       grad_buckets_kernel,
-                                       grad_buckets_plain, node_tile_rows,
+    from hpsdf_tpu_torch.query import (coeff_scatter_grad_kernel,
                                        query_points_vjp_plain, query_plain,
                                        query_vjp_kernel,
                                        query_with_gradient_plain,
@@ -3826,28 +3762,11 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, seed=12):
           f"faces, some outside) and at degrees 0-12, max|kernel - plain| / "
           f"max|plain|: " + ", ".join(f"{k} {v:.3e}" for k, v in
                                        errs.items())
-          + " (K8g also with a third of each cotangent zero, _sparse, and "
-          "against the kernel it replaced, _replaced; its sort equal to "
-          "plain's run "
-          "by run) | two wrong results caught at every shape (a moved "
-          "entry; the face rule undone, where the points reach a face)",
+          + " (K8g also with a third of each cotangent zero, _sparse) | two "
+          "wrong results caught at every shape (a moved entry; the face rule "
+          "undone, where the points reach a face)",
           flush=True)
     out["trace_faces"] = trace_face_check(tree_s, smi, seed + 50)
-    # K8g's segments are the wrapper's, and its tile launch fits a block's
-    # shared memory at every degree in the longest tiles any tree takes
-    # (node_tile_rows(deg)), at 2^20 points and at the most a call takes
-    from hpsdf_tpu_torch import _kernels
-    lib = _kernels.load()
-    check(lib.hpsdf_grad_sort_points() == GRAD_SORT_POINTS, f"K8g's "
-          f"segments: the kernel's {lib.hpsdf_grad_sort_points()} points, "
-          f"the wrapper's {GRAD_SORT_POINTS}")
-    smem = {d: max(lib.hpsdf_node_tile_smem(d, 1, node_tile_rows(d), n)
-                   for n in (N_QUERY, (1 << 31) - 1)) for d in range(13)}
-    optin = getattr(torch.cuda.get_device_properties(0),
-                    "shared_memory_per_block_optin", 227 * 1024)
-    check(max(smem.values()) <= optin, f"K8g's tile launch's shared "
-          f"memory by degree {smem} over the card's {optin} B")
-    out["grad_smem"] = smem
 
     # times at 2^20 points on the slice tree, with the bounds and the
     # operations a call
@@ -3919,68 +3838,6 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, seed=12):
               f"{by_ops:.5f}; {t['bound_ms'] / t['ms']:.1%} of it) | "
               f"operations on the card a call: {t['launches_a_call']}",
               flush=True)
-    # K8g in turns with the kernel it replaced (csrc/check/) at 2^20 and
-    # 2^16 slice points, each beside its bound, its sort alone; no memset
-    k8g = times["coeff_scatter_grad"]
-    k8g["memsets_a_call"] = device_memsets(
-        lambda: coeff_scatter_grad_kernel(tree_s, p64, w, wn))
-    check(k8g["memsets_a_call"] == 0, f"K8g puts "
-          f"{k8g['memsets_a_call']} memsets on the card a call")
-    k8g["shapes"] = {}
-    # and at path (b)'s oriented samples on its tree, which crowd the
-    # leaves near the surface
-    crowd = torch.as_tensor(oriented_samples(mesh, N_QUERY, seed + 2)[0],
-                            device=dev)
-    for label, tr, pn, wv_, wn_ in (
-            ("2^20 slice points", tree_s, p64, w, wn),
-            ("2^16 slice points", tree_s, p64[:1 << 16], w[:1 << 16],
-             wn[:1 << 16]),
-            ("path (b)'s 2^20 samples", tree_i, crowd, w, wn)):
-        n = pn.shape[0]
-        t = turns({"ms": lambda: coeff_scatter_grad_kernel(tr, pn, wv_, wn_),
-                   "replaced_ms": lambda: coeff_scatter_grad_reference(
-                       tr, pn, wv_, wn_)}, 10)
-        t["sort_ms"] = graph_ms(lambda: grad_buckets_kernel(tr, pn, wv_,
-                                                            wn_), 10)
-        u_ = _to_unit(tr, pn)
-        every = torch.ones(n, dtype=torch.bool, device=dev)
-        by_bytes = bytes_ms(extra=coeff_scatter_bytes(
-            tr, u_.clamp(-0.5, 0.5), every, 56, 0, True))
-        by_ops = n * k8g_ops(tr.deg_used, tr.depth_used) / F64_PEAK * 1e3
-        t.update(points=n, bound_ms=max(by_bytes, by_ops),
-                 bound_by="bytes" if by_bytes >= by_ops else "operations")
-        t["share"] = t["bound_ms"] / t["ms"]
-        t["replaced_share"] = t["bound_ms"] / t["replaced_ms"]
-        # the sort's bound: the points and wn read, wv where a point is
-        # inside the root, the tree's descent arrays once; a record and a
-        # row a live point and the offsets written
-        G = -(-n // GRAD_SORT_POINTS)
-        rows_ = tr.coeffs.shape[0]
-        n_tiles = -(-rows_ // node_tile_rows(tr.deg_used, rows_))
-        inside = torch.all(u_.abs() <= 0.5, dim=-1)
-        t["sort_bound_ms"] = bytes_ms(
-            tr.child_idx, tr.centre, extra=48 * n + 8 * int(inside.sum())
-            + (8 * GRAD_RECORD + 4) * n + 4 * G * (n_tiles + 1))
-        t["sort_plain_ms"] = time_ms(lambda: grad_buckets_plain(
-            tr, pn, wv_, wn_), 2)
-        k8g["shapes"][label] = t
-    k8g["ms"] = k8g["shapes"]["2^20 slice points"]["ms"]
-    k8g["replaced_kernel_ms"] = k8g["shapes"]["2^20 slice points"][
-        "replaced_ms"]
-    # faster than the kernel it replaced at 2^20 points: recorded, not a check
-    k8g["faster_than_replaced"] = k8g["ms"] < k8g["replaced_kernel_ms"]
-    print(f"[grad2] K8g in CUDA graphs in turns with the kernel it "
-          f"replaced: {smi} "
-          f"| " + " | ".join(
-              f"{k}: {v['ms']:.4f} ms (sort alone "
-              f"{v['sort_ms']:.4f}), replaced {v['replaced_ms']:.4f}; bound "
-              f"{v['bound_ms']:.5f} ({v['bound_by']}), {v['share']:.1%} "
-              f"(replaced {v['replaced_share']:.1%})"
-              for k, v in k8g["shapes"].items())
-          + f" | faster than the kernel it replaced at 2^20 slice points: "
-          f"{k8g['faster_than_replaced']}"
-          f" | operations on the card a call {k8g['launches_a_call']}, "
-          f"memsets {k8g['memsets_a_call']}", flush=True)
 
     # --- the paths: the counts from here to the end of (c) ------------
     reset_counts()
@@ -4099,63 +3956,6 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, seed=12):
           f"{fit['grad_rel_err']}, (c) {nmap['grad_rel_err']} | launches "
           f"on the paths: " + ", ".join(f"{k} {count(launches)}" for k, count
                                          in GRAD2_KERNELS.items()),
-          flush=True)
-
-    # (b)'s steps with K8g and with the kernel it replaced, in turns:
-    # the step's host time (FIT_STEPS steps, after a synchronise) and one
-    # step's device time (torch.profiler); not main-path launches
-    TQ = importlib.import_module("hpsdf_tpu_torch.query")
-
-    def fit_params():
-        ps = [tree_i.coeffs.detach().clone().requires_grad_(True),
-              torch.zeros(3, dtype=torch.float64, device=dev,
-                          requires_grad=True)]
-        return ps, torch.optim.Adam(ps, lr=FIT_LR)
-
-    def fit_step(ps, opt):
-        opt.zero_grad()
-        oriented_fit_loss(tree_i, *ps, pts, n_t).backward()
-        opt.step()
-
-    def fit_step_s():
-        ps, opt = fit_params()
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(FIT_STEPS):
-            fit_step(ps, opt)
-        sync()
-        return (time.perf_counter() - t0) / FIT_STEPS
-
-    def swapped(which):
-        return (unittest.mock.patch.object(
-            TQ, "coeff_scatter_grad_kernel", coeff_scatter_grad_reference)
-            if which == "replaced" else contextlib.nullcontext())
-
-    counts = read_counts()
-    step_s, busy, top = {"k8g": [], "replaced": []}, {}, {}
-    for which in ("replaced", "k8g", "k8g", "replaced"):
-        with swapped(which):
-            step_s[which].append(fit_step_s())
-    for which in ("k8g", "replaced"):
-        with swapped(which):
-            ps, opt = fit_params()
-            fit_step(ps, opt)
-            busy[which], top[which], _ = device_busy_ms(
-                lambda: fit_step(ps, opt))
-    for name, (fn, attr) in counters().items():
-        setattr(fn, attr, counts[name])
-    fit.update(step_s=min(step_s["k8g"]),
-               replaced_step_s=min(step_s["replaced"]),
-               step_device_ms=busy["k8g"],
-               replaced_step_device_ms=busy["replaced"],
-               step_top_kernels=top["k8g"],
-               replaced_step_top_kernels=top["replaced"])
-    print(f"[grad2] (b) a step in turns, K8g / the kernel it replaced: "
-          f"{smi} | host {fit['step_s'] * 1e3:.3f} / "
-          f"{fit['replaced_step_s'] * 1e3:.3f} ms a step (the smaller of "
-          f"two runs of {FIT_STEPS}), device {busy['k8g']} / "
-          f"{busy['replaced']} ms a step | the longest kernels (name, ms, "
-          f"launches): {top['k8g'][:4]} / {top['replaced'][:4]}",
           flush=True)
     return launches, {"errs": errs, "abs_errs": abs_errs, "times": times,
                       "projection": proj, "oriented_fit": fit,
@@ -6768,25 +6568,23 @@ def node_points(n, seed, device):
         -0.5, 0.5, (n, 3)), device=device)
 
 
-def bucket_records(sort, P=None):
+def bucket_records(sort):
     """A node-range sort's listed points (``node_buckets_kernel``'s or
-    ``node_buckets_plain``'s (offsets, items), in segments of ``P`` points,
-    NODE_SORT_POINTS by default) in one order: each place's run
-    (segment-major: segment g, tile t is run g n_tiles + t) and its item
-    (point index, row within the tile), sorted by run and index; None where
-    the runs are not all of size zero or more and within their
+    ``node_buckets_plain``'s (offsets, items)) in one order: each place's
+    run (segment-major: segment g, tile t is run g n_tiles + t) and its
+    item (point index, row within the tile), sorted by run and index; None
+    where the runs are not all of size zero or more and within their
     segments."""
     from hpsdf_tpu_torch.query import NODE_SORT_POINTS
 
-    P = NODE_SORT_POINTS if P is None else P
     offsets, items = sort
     o = offsets.long().T                            # (n_tiles + 1, G)
     n_tiles, G = o.shape[0] - 1, o.shape[1]
     runs = (o[1:] - o[:-1]).T.flatten()            # segment-major
     if bool((runs < 0).any()) or bool((o[0] != 0).any()) \
-            or bool((o[-1] > P).any()):
+            or bool((o[-1] > NODE_SORT_POINTS).any()):
         return None
-    first = (torch.arange(G, device=o.device)[:, None] * P
+    first = (torch.arange(G, device=o.device)[:, None] * NODE_SORT_POINTS
              + o[:-1].T).flatten()
     run = torch.repeat_interleave(torch.arange(
         runs.numel(), device=o.device), runs)
@@ -6797,14 +6595,13 @@ def bucket_records(sort, P=None):
     return run[order], it[order]
 
 
-def buckets_match(kernel, plain, P=None):
-    """The kernel's node-range sort against ``node_buckets_plain``'s (in
-    segments of ``P`` points, NODE_SORT_POINTS by default): the same
-    offsets, and each run the same points, each with the same row within
-    its tile, in any order within the run."""
+def buckets_match(kernel, plain):
+    """The kernel's node-range sort against ``node_buckets_plain``'s: the
+    same offsets, and each run the same points, each with the same row
+    within its tile, in any order within the run."""
     if not torch.equal(kernel[0].cpu(), plain[0].cpu()):
         return False
-    got, want = bucket_records(kernel, P), bucket_records(plain, P)
+    got, want = bucket_records(kernel), bucket_records(plain)
     return got is not None and all(torch.equal(a.cpu(), b.cpu())
                                    for a, b in zip(got, want))
 
@@ -7675,7 +7472,7 @@ PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
                  "inverse_points_kernel", "inverse_loss_kernel",
                  "inverse_vjp_kernel",
                  "fit_points_kernel", "fit_project_kernel",
-                 "grad_tile_kernel", "packed_hvp_kernel")
+                 "coeff_scatter_grad_kernel", "packed_hvp_kernel")
 # the check library's kernels the ptxas check reads (csrc/check/)
 CHECK_PTXAS_KERNELS = ("inverse_terms_reference_kernel",)
 
@@ -7684,7 +7481,7 @@ def _ptxas_key(kernel, args):
     """The report's key for one instantiation, from its template arguments
     (ints, bools and the value type, in order)."""
     if not args:        # row_scatter(_csr), bvh_walk, descend_nodes, K13,
-        return "-"      # K14
+        return "-"      # K14, node_sort
     if kernel == "hybrid_kernel":
         return "two levels" if args[0] else "one level"
     if kernel in ("cg_update_kernel", "cg_update_rows_kernel",
@@ -7706,24 +7503,20 @@ def _ptxas_key(kernel, args):
         return f"{args[0]}/{'lo' if args[1] else 'full'}"
     if kernel in ("fit_points_kernel", "fit_project_kernel"):
         return f"{args[0]}/{'f64' if args[1] == 'd' else 'f32'}"
-    if kernel == "node_sort_kernel":          # the node-range mode's, K8g's
-        return "grad" if args[0] else "-"
-    return str(args[0])   # march, leaf_nodes, coeff_scatter_nodes, K8g's
-    #                       tile launch: degree
+    return str(args[0])   # march, leaf_nodes, coeff_scatter_nodes: degree
 
 
 def ptxas_check():
     """Registers, stack and spills of every kernel's instantiations, as
     ptxas reported them when the library was built. K1 (with K1v, its
     gradient's instantiation), K3, K4, K5's raw gradient (alone and fused
-    with K2), K7 (its three forms), K8, K8g's tile launch, K1h and K5h (both
-    modes) at degrees 3 and 5 (the main paths'), both forms of G's
-    backward, K9 (on the face operator and in its CSR form), K9u, both
-    forms of the persistent launch, both forms of each of the row-sharded
-    CG's two K9u launches, both of K10 and K11, K1's node-range descent
-    round and, at degrees 3 and 5, its leaf evaluation, K8's node-range
-    mode at degrees 0..6 and its sort, K8g's sort, K14, the three launches
-    of K13,
+    with K2), K7 (its three forms), K8, K8g, K1h and K5h (both modes) at
+    degrees 3 and 5 (the main paths'), both forms of G's backward, K9 (on
+    the face operator and in its CSR form), K9u, both forms of the persistent launch, both forms
+    of each of the row-sharded CG's two K9u launches, both of K10 and K11,
+    K1's node-range descent round and, at degrees 3 and 5, its leaf
+    evaluation, K8's node-range mode at degrees 0..6 and its sort,
+    K14, the three launches of K13,
     and both of K6's launches at every degree 2..11 in f64 and f32 must
     have no stack frame and no spills; so must the check library's K13
     terms as they were before their redesign (CHECK_PTXAS_KERNELS), the
@@ -7760,8 +7553,7 @@ def ptxas_check():
             ("K7", "packed_grad_kernel", ("3/form0", "3/form1", "5/form0",
                                           "5/form1", "3/form2", "5/form2")),
             ("K1h", "query_kernel", ("3/hess", "5/hess")),
-            ("K8g", "grad_tile_kernel", ("3", "5")),
-            ("K8g sort", "node_sort_kernel", ("grad",)),
+            ("K8g", "coeff_scatter_grad_kernel", ("3", "5")),
             ("K5h", "packed_hvp_kernel", ("3/normals", "3/values",
                                           "5/normals", "5/values")),
             ("K8", "coeff_scatter_kernel", ("3/f64 query", "3/f32 trace",
@@ -7832,9 +7624,8 @@ def main():
             job.result()
     print(f"[build] {len(_kernels.sources())} sources -> "
           f"{os.path.relpath(_kernels.library_path())}, the reference "
-          f"kernels of the K3, K4, K7, G's backward, K8 (its node-range "
-          f"mode too), K8g, K11, K6 and K13 checks -> "
-          f"{os.path.relpath(_kernels.library_path('check'))}, in "
+          f"kernels of the K3, K4, K7, G's backward, K8, K11, K6 and K13 "
+          f"checks -> {os.path.relpath(_kernels.library_path('check'))}, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 3)
     ptxas = ptxas_check()
@@ -8267,8 +8058,7 @@ def main():
          **{k: tsh["node_modes"]["k8_shapes"]["one block"][f"buckets_{k}"]
             for k in ("ms", "plain_ms", "bound_ms")},
          "bound_by": "bytes", "library_ms": None,
-         "ptxas": {k: v for k, v in ptxas.get("node_sort_kernel", {}).items()
-                   if k == "-"}},
+         "ptxas": ptxas.get("node_sort_kernel", {})},
         # K6 at degree 2's full chunk (1,438 cells, as the slice's
         # largest), warm; cold, the replaced kernel (csrc/check/
         # fit_reference.cu) and the other chunks under "chunks"
@@ -8315,10 +8105,6 @@ def main():
                "points")},
            **({"values_mode": tg2["times"]["packed_hvp_values"]}
               if name == "packed_hvp" else {}),
-           **({k: tg2["times"][name][k] for k in (
-               "shapes", "replaced_kernel_ms", "memsets_a_call",
-               "faster_than_replaced")}
-              if name == "coeff_scatter_grad" else {}),
            "teeth": {k: tg2["teeth"][k] for k in keys},
            "ptxas": ptxas.get(kernel, {})}
           for name, source, replaces, keys, kernel in (
@@ -8329,25 +8115,13 @@ def main():
               ("coeff_scatter_grad", "coeff_scatter.cu",
                "hpsdf_tpu/query.py:88-108",
                ("coeff_scatter_grad", "coeff_scatter_grad_sparse"),
-               "grad_tile_kernel"),
+               "coeff_scatter_grad_kernel"),
               ("packed_hvp", "packed_eval.cu",
                "hpsdf_tpu/render.py:1092-1110,hpsdf_tpu/inverse.py:234",
                ("packed_hvp", "packed_hvp_values"), "packed_hvp_kernel"),
               ("packed_grad_form2", "packed_grad.cu",
                "hpsdf_tpu/render.py:1092-1110", ("packed_grad_form2",),
                "packed_grad_kernel"))),
-        # K8g's sort, its first launch; timed at 2^20 slice points
-        {"name": "grad_buckets", "route": "cuda",
-         "source": "hpsdf_tpu_torch/csrc/coeff_scatter.cu",
-         "replaces": "hpsdf_tpu/query.py:88-108",
-         "launches": GRAD2_KERNELS["grad_buckets"](launches_g2),
-         "max_abs_err": 0.0, "per_tile_sets_equal_plain": True,
-         **{k: tg2["times"]["coeff_scatter_grad"]["shapes"][
-             "2^20 slice points"][f"sort_{k}"]
-            for k in ("ms", "plain_ms", "bound_ms")},
-         "bound_by": "bytes", "library_ms": None,
-         "ptxas": {k: v for k, v in ptxas.get("node_sort_kernel", {}).items()
-                   if k == "grad"}},
     ]
     print(f"[e2e] {smi} | carve {tr['carve_s']:.3f} s, render 512^2 "
           f"{tr['render_s']:.3f} s, hit fraction {frac:.4f} | 1024^2 march: "

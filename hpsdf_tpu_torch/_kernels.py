@@ -81,10 +81,9 @@ _SIGNATURES = {
     "hpsdf_coeff_scatter": (_P, _P, _P, _P, _I32, _I32, _P, _P, _P, _P, _P,
                             _I64, _F64, _F64, _F64, _F64, _F64, _F64,
                             _P, _I32, _I32, _P, _P),
-    "hpsdf_grad_buckets": (_P, _P, _I32, _I32, _I32, _P, _I64, _F64, _F64,
-                           _F64, _F64, _F64, _F64, _P, _P, _P, _P, _P, _P),
-    "hpsdf_coeff_scatter_grad": (_P, _P, _P, _I32, _I32, _I32, _I64, _F64,
-                                 _F64, _F64, _P, _P, _P, _P, _P),
+    "hpsdf_coeff_scatter_grad": (_P, _P, _P, _P, _I32, _I32, _P, _I64,
+                                 _F64, _F64, _F64, _F64, _F64, _F64,
+                                 _P, _P, _P, _P),
     "hpsdf_node_buckets": (_I32, _I32, _I32, _P, _P, _I64, _F64, _F64, _F64,
                            _F64, _F64, _F64, _P, _I32, _P, _P, _P),
     "hpsdf_coeff_scatter_nodes": (_P, _P, _I32, _I32, _I32, _I32, _P, _P,
@@ -116,9 +115,7 @@ _SIZE_SIGNATURES = {
     "hpsdf_cg_chunk_blocks": (_I64,),
     "hpsdf_inverse_terms_scratch": (_I64,),
     "hpsdf_node_sort_points": (),
-    "hpsdf_grad_sort_points": (),
     "hpsdf_node_tile_rows": (_I32,),
-    "hpsdf_node_tile_smem": (_I32, _I32, _I32, _I64),
 }
 # and of the reference kernels under csrc/check/, which only checks load
 _CHECK_SIGNATURES = {
@@ -130,9 +127,6 @@ _CHECK_SIGNATURES = {
                                     _P, _I32, _P, _P, _P),
     "hpsdf_row_scatter_reference": (_P, _I64, _P, _I64, _I64, _P, _P),
     "hpsdf_coeff_scatter_reference": _SIGNATURES["hpsdf_coeff_scatter"],
-    "hpsdf_coeff_scatter_grad_reference": (_P, _P, _P, _P, _I32, _I32, _P,
-                                           _I64, _F64, _F64, _F64, _F64,
-                                           _F64, _F64, _P, _P, _P, _P),
     "hpsdf_coeff_scatter_nodes_reference": (_P, _P, _I32, _I32, _I32, _P, _P,
                                             _I64, _F64, _F64, _F64, _F64,
                                             _F64, _F64, _P, _I32, _P, _P),

@@ -49,19 +49,21 @@
 // in registers, stores in place of the atomics, the norms by double sqrt and
 // ldexp) are in PERF.md.
 //
-// The node-range mode (node_sort_kernel, then coeff_scatter_nodes_kernel)
+// K8g (coeff_scatter_grad_kernel), the VJP of query_with_gradient to the
+// coefficients, is the query form with the unit gradient's cotangent too;
+// it is described above its kernel below.
+//
+// The node-range mode (node_buckets_kernel, then coeff_scatter_nodes_kernel)
 // is the query form for a rank of the node axis, which holds a range of the
-// node rows; K8g, the VJP of query_with_gradient to the coefficients, is
-// the same pair over the whole tree with the unit gradient's term. Both are
-// laid out for scattered points and described above their kernels below.
+// node rows; it is laid out for scattered points and described above its
+// kernels below.
 //
 // Bound. Per live point one descent (depth_used dependent loads), one
 // coefficient row (trace), the recurrences and C adds. A chunk has at most
 // some 15,000 live rays and its launch is short: what costs is the launch
 // and the memset, then one ray's chain of dependent loads and arithmetic,
 // then the scatter's loop (PERF.md). The node-range mode at a rank of a
-// large tree is bound by writing its (hi - lo, C) rows once; K8g reads its
-// points twice, to sort them and to sum them.
+// large tree is bound by writing its (hi - lo, C) rows once.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -141,14 +143,17 @@ __device__ __forceinline__ void term_indices(int m, int& i, int& j, int& k) {
   k = p - i - j;
 }
 
-// The leaf of the tree that holds the clamped unit-cube point u: up to
-// depth_used rounds of K1's descent, stopping at a leaf. Every form of the
-// file but the node-range mode (which reads the leaf its forward found)
-// finds a point's leaf through it.
-template <class T>
-__device__ __forceinline__ int descend_leaf(
+// The leaf of the tree that holds the clamped unit-cube point u (up to
+// depth_used rounds of the descent, stopping at a leaf), returned with its
+// scale 2^(depth+1) and its axis factors N[a][q] = L_q(x_a) nt[q],
+// nt[q] = sqrt((2q + 1) 2^depth), and with GRAD dN[a][q] = L'_q(x_a) nt[q];
+// x = (u - centre) * scale. Every form of the file reads a point's leaf
+// through it.
+template <class T, int DEG, bool GRAD>
+__device__ __forceinline__ int leaf_factors(
     const int32_t* __restrict__ child_idx, const T* __restrict__ centre,
-    int depth_used, const T (&u)[3]) {
+    const int32_t* __restrict__ depth, int depth_used, const T (&u)[3],
+    T& scale, T (&N)[3][DEG + 1], T (&dN)[3][DEG + 1]) {
   int cur = 0;
   for (int r = 0; r < depth_used; ++r) {
     const int c0 = __ldg(child_idx + cur);
@@ -157,19 +162,6 @@ __device__ __forceinline__ int descend_leaf(
     cur = c0 + (u[0] >= __ldg(cc)) + ((u[1] >= __ldg(cc + 1)) << 1) +
           ((u[2] >= __ldg(cc + 2)) << 2);
   }
-  return cur;
-}
-
-// The leaf that holds u (descend_leaf), returned with its scale
-// 2^(depth+1) and its axis factors N[a][q] = L_q(x_a) nt[q], nt[q] =
-// sqrt((2q + 1) 2^depth), and with GRAD dN[a][q] = L'_q(x_a) nt[q];
-// x = (u - centre) * scale.
-template <class T, int DEG, bool GRAD>
-__device__ __forceinline__ int leaf_factors(
-    const int32_t* __restrict__ child_idx, const T* __restrict__ centre,
-    const int32_t* __restrict__ depth, int depth_used, const T (&u)[3],
-    T& scale, T (&N)[3][DEG + 1], T (&dN)[3][DEG + 1]) {
-  const int cur = descend_leaf<T>(child_idx, centre, depth_used, u);
   const int d = __ldg(depth + cur);
   scale = (T)pow2(d + 1);
   const T* cc = centre + 3 * (int64_t)cur;
@@ -207,15 +199,17 @@ __device__ __forceinline__ void leaf_gradient(const T* __restrict__ c,
 // Lane j sums term j (then j + 32, ...) over the warp's live rays (the
 // bits of `lanes`, the warp's first thread w0), a run of rays on one row at a
 // time, and adds each run's sum into d_coeffs with one atomic: a ray's axis
-// factors N in sN, its weight in sW and its row in sLeaf.
-template <class T, int DEG>
+// factors N in sN, its weight in sW and its row in sLeaf. With GRAD (K8g) a
+// ray's factors are N and, after them, B_a = q_a dN_a, and its term m adds
+// w N_i N_j N_k + B_i N_j N_k + N_i B_j N_k + N_i N_j B_k.
+template <class T, int DEG, bool GRAD = false>
 __device__ __forceinline__ void scatter_terms(const T* sN, const T* sW,
                                               const int* sLeaf,
                                               unsigned lanes, int w0,
                                               int lane, T* d_coeffs) {
   constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
   constexpr int kD = DEG + 1;
-  constexpr int kNS = 3 * kD;
+  constexpr int kNS = (GRAD ? 6 : 3) * kD;
 #pragma unroll 1
   for (int m = lane; m < ((kC + 31) & ~31); m += 32) {
     int ix = 0, iy = 0, iz = 0;
@@ -233,6 +227,9 @@ __device__ __forceinline__ void scatter_terms(const T* sN, const T* sW,
       const T* n = sN + r * kNS;
       const T nx = n[ix], ny = n[kD + iy], nz = n[2 * kD + iz];
       acc += sW[r] * (nx * ny * nz);
+      if constexpr (GRAD)
+        acc += n[3 * kD + ix] * ny * nz + nx * n[4 * kD + iy] * nz +
+               nx * ny * n[5 * kD + iz];
     };
 #pragma unroll
     for (int r = 0; r < 32; ++r)
@@ -330,35 +327,108 @@ coeff_scatter_kernel(const int32_t* __restrict__ child_idx,
   scatter_terms<T, DEG>(sN, sW, sLeaf, lanes, tid - lane, lane, d_coeffs);
 }
 
-// --- the node-range mode and K8g -------------------------------------------
+// --- K8g: the VJP of query_with_gradient to the coefficients -------------
 //
-// The node-range mode: the query form's VJP into the rows [lo, hi) that a
-// rank of the node axis (hpsdf_tpu_torch/parallel.py) holds, d_coeffs
-// (hi - lo, C), from each point's leaf (its global index, from the
-// node-sharded query's descent) in place of the descent, which would need
-// rows the rank lacks. A point carries a weight only where its leaf lies in
-// the range, its cotangent is not zero and, under the f64-max sentinel, it
-// lies inside the root.
+// query_with_gradient_vjp_plain's coefficient half, in f64, as the query
+// form: a thread a point, the warp's live points scattered transposed
+// (scatter_terms). A point is live where its value's cotangent (zero
+// outside the root, where the value is the sentinel) or its unit
+// gradient's is not zero. Like the trace form, a live point reads its
+// leaf's coefficient row for the gradient g of its leaf frame: with
+// s_a = 2^(depth+1) / size_a and gb = unit_vector_vjp(g s, wn, 1e-30),
+// d_coeffs[leaf, m] += w' P_m + sum_a gb_a s_a dP_m/dx_a, P_m the
+// normalised basis product. Its factors are twice the query form's, so a
+// block is kGradThreads threads, whose factors fit 48 KB at degree 12.
+// The (N, C) output is cleared by the caller (a memset) before the launch.
+
+constexpr int kGradThreads = 64;
+
+template <int DEG>
+__global__ void __launch_bounds__(kGradThreads)
+coeff_scatter_grad_kernel(const int32_t* __restrict__ child_idx,
+                          const double* __restrict__ centre,
+                          const int32_t* __restrict__ depth,
+                          const double* __restrict__ coeffs, int depth_used,
+                          const double* __restrict__ pts, int64_t B,
+                          double rc0, double rc1, double rc2, double inv0,
+                          double inv1, double inv2,
+                          const double* __restrict__ wv,
+                          const double* __restrict__ wn,
+                          double* __restrict__ d_coeffs) {
+  constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
+  constexpr int kD = DEG + 1;
+  constexpr int kNS = 6 * kD;
+  __shared__ double sN[kGradThreads * kNS];  // a live lane's N, then B
+  __shared__ double sW[kGradThreads];        // its value's weight
+  __shared__ int sLeaf[kGradThreads];        // its leaf
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int64_t i = (int64_t)blockIdx.x * kGradThreads + tid;
+  const double rc[3] = {rc0, rc1, rc2};
+  const double inv[3] = {inv0, inv1, inv2};
+
+  // which points carry a weight, from the cheap inputs
+  bool live = false;
+  double x[3], w = 0.0, wnv[3] = {0.0, 0.0, 0.0};
+  if (i < B) {
+    bool inside = true;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      x[a] = (__ldg(pts + 3 * i + a) - rc[a]) * inv[a];
+      inside = inside && fabs(x[a]) <= 0.5;
+      wnv[a] = __ldg(wn + 3 * i + a);
+    }
+    w = inside ? __ldg(wv + i) : 0.0;
+    live = w != 0.0 || wnv[0] != 0.0 || wnv[1] != 0.0 || wnv[2] != 0.0;
+  }
+  const unsigned lanes = __ballot_sync(hpsdf::kFullWarp, live);
+  if (lanes == 0u) return;
+
+  if (live) {
+    double u[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      u[a] = x[a] < -0.5 ? -0.5 : (x[a] > 0.5 ? 0.5 : x[a]);
+    double scale, N[3][kD], dN[3][kD], g[3];
+    const int cur = leaf_factors<double, DEG, true>(
+        child_idx, centre, depth, depth_used, u, scale, N, dN);
+    leaf_gradient<double, DEG>(coeffs + (int64_t)cur * kC, N, dN, g);
+    // local = (unit - centre) * 2^(depth+1), unit = (world - c) / sizes
+    double s[3], G[3], gb[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      s[a] = scale * inv[a];
+      G[a] = g[a] * s[a];
+    }
+    hpsdf::unit_vector_vjp(G, wnv, 1e-30, gb);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const double qa = gb[a] * s[a];
+#pragma unroll
+      for (int q = 0; q <= DEG; ++q) {
+        sN[tid * kNS + a * kD + q] = N[a][q];
+        sN[tid * kNS + (3 + a) * kD + q] = qa * dN[a][q];
+      }
+    }
+    sW[tid] = w;
+    sLeaf[tid] = cur;
+  }
+  __syncwarp();
+  scatter_terms<double, DEG, true>(sN, sW, sLeaf, lanes, tid - lane, lane,
+                                   d_coeffs);
+}
+
+// --- the node-range mode --------------------------------------------------
 //
-// K8g, the VJP of query_with_gradient to the coefficients
-// (query_with_gradient_vjp_plain's coefficient half, f64), is the same
-// sort over the whole tree, lo = 0 and hi = N (GRAD), and a tile launch of
-// its own, grad_tile_kernel (described above it). A point is live where
-// it lies inside the root and its value's cotangent wv is not zero
-// (outside, the value is the sentinel), or where its unit gradient's
-// cotangent wn is not zero; the sort finds its leaf by K1's descent
-// (descend_leaf), takes segments of kGradSortPoints points, and lays out
-// each live point's record (its unit-cube coordinates, w', wn, its index
-// and row) in place of an item, so that the tile launch reads records in
-// runs rather than points scattered over the inputs. For each live point,
-// with s_a = 2^(depth+1) / size_a, g its leaf frame's gradient and
-// gb = unit_vector_vjp(g s, wn, 1e-30),
-//   d_coeffs[leaf, m] += w' P_m + sum_a gb_a s_a dP_m/dx_a,
-// P_m the normalised basis product, w' = wv inside the root and 0 outside.
+// The query form's VJP into the rows [lo, hi) that a rank of the node axis
+// (hpsdf_tpu_torch/parallel.py) holds, d_coeffs (hi - lo, C), from each
+// point's leaf (its global index, from the node-sharded query's descent) in
+// place of the descent, which would need rows the rank lacks. A point
+// carries a weight only where its leaf lies in the range, its cotangent is
+// not zero and, under the f64-max sentinel, it lies inside the root.
 //
-// Design. The rows are cut into tiles of T consecutive rows, T x C at most
-// kTileElems sums (the wrapper's node_tile_rows). Two plain launches, no
-// memset, and no global atomic:
+// Design. The rank's rows are cut into tiles of T consecutive rows, T x C
+// at most kTileElems sums (the wrapper's node_tile_rows). Two plain
+// launches, no memset, and no global atomic:
 //   * node_sort_kernel, a block of kSortThreads threads a segment of
 //     kSortPoints points: the block counts its live points a tile in shared
 //     memory (tiles a window of kSortBins at a time), scans the counts,
@@ -367,22 +437,21 @@ coeff_scatter_kernel(const int32_t* __restrict__ child_idx,
 //     its live points, (index, row within the tile), out in tile order in
 //     shared memory and writes them out whole from the segment's start.
 //     Dead points are read here and never again; every store is coalesced.
-//     K8g's points descend here, a thread's points one after another.
 //   * coeff_scatter_nodes_kernel, persistent blocks, a tile at a time: the
 //     tile's runs (one a segment) are read kSegWindow segments at a time,
 //     the first ones loaded into registers while the block works on the
 //     tile before, and its rows' depth and centre are read whole into
-//     shared memory. Its points are staged a chunk at a time: each run's
-//     places written out by a thread a run, then a thread a point (two in
-//     flight up to degree 4) loads the item, then the point and cotangent,
-//     forms the axis factors N by the query form's recurrences and norms
-//     and writes the point's C products w N_i N_j N_k to shared memory, and
-//     lists the point with the warp that owns its row (a warp owns T / 8
-//     rows). Each warp then adds its points' products one point after
-//     another, a lane a term, into the tile's T x C sums in shared memory,
-//     so that no two threads ever add to one sum. The sums are stored whole
-//     with 16-byte streaming stores, the zero rows too. Each output element
-//     is written once, by a plain store.
+//     shared memory. Its points are staged a chunk at a
+//     time: each run's places written out by a thread a run, then a thread
+//     a point (two in flight up to degree 4) loads the item, then the point
+//     and cotangent, forms the axis factors N by the query form's
+//     recurrences and norms and writes the point's C products w N_i N_j N_k
+//     to shared memory, and lists the point with the warp that owns its row
+//     (a warp owns T / 8 rows). Each warp then adds its points' products
+//     one point after another, a lane a term, into the tile's T x C sums in
+//     shared memory, so that no two threads ever add to one sum. The sums
+//     are stored whole with 16-byte streaming stores, the zero rows too.
+//     Each output element is written once, by a plain store.
 // The offsets grow as the points times the tiles, G (n_tiles + 1) ints for
 // G = ceil(B / kSortPoints) segments, and each tile reads and scans its G
 // runs, so the call's share of its bound falls as the points grow
@@ -395,9 +464,6 @@ coeff_scatter_kernel(const int32_t* __restrict__ child_idx,
 constexpr int kSortThreads = 1024;
 constexpr int kSortPer = 4;                        // points a thread
 constexpr int kSortPoints = kSortThreads * kSortPer;
-constexpr int kGradSortPer = 2;                    // K8g's points a thread
-constexpr int kGradSortPoints = kSortThreads * kGradSortPer;
-constexpr int kRec = 8;                            // K8g's record, f64
 constexpr int kSortBins = 8 * 1024;                // tiles a window
 constexpr int kTileThreads = 256;
 constexpr int kTileWarps = kTileThreads / 32;
@@ -405,11 +471,6 @@ constexpr int kTileElems = 4096;                   // sums a tile
 constexpr int kTileMaxRows = 512;
 constexpr int kStageBytes = 20 * 1024;             // a chunk's points
 constexpr int kSegWindow = 2048;                   // segments' runs at once
-constexpr int kGradThreads = 256;                  // K8g's tile launch
-constexpr int kGradWarps = kGradThreads / 32;
-constexpr int kGradBufs = 3;                       // batches a warp stages
-constexpr int kSmemOptIn = 227 * 1024;             // a block's most, H100
-constexpr int kGradWarpBytes = 6 * 1024;           // a warp's products
 
 // A tile's shape at degree DEG: its most rows, the points a chunk stages
 // (at least 32), and its fixed shared memory (the sums, the rows' centre
@@ -435,28 +496,13 @@ struct NodeTile {
 // What both launches read of the points.
 struct NodeIn {
   const double* pts;     // (B, 3)
-  const int32_t* leaf;   // (B,) global leaf indices (node-range mode)
-  const double* cot;     // (B,) (K8g: the values' cotangents wv)
+  const int32_t* leaf;   // (B,) global leaf indices
+  const double* cot;     // (B,)
   int64_t B;
   int lo, rows, tile_rows;
   int outside_zero;
   double rc[3], inv[3];
-  // K8g: the tree the sort descends and the tile pass reads, the unit
-  // gradients' cotangents (B, 3)
-  const int32_t* child_idx;
-  const double* centre;
-  const double* coeffs;
-  const double* wn;
-  int depth_used;
-  double* recs;        // (B, kRec) K8g's records, the sort's output
-  int32_t* rec_rows;   // (B,) and each record's row within its tile
 };
-
-// The points a sort block takes: a segment.
-template <bool GRAD>
-__host__ __device__ constexpr int seg_points() {
-  return GRAD ? kGradSortPoints : kSortPoints;
-}
 
 // Point i's tile and its row n in the rank's arrays, or -1 where it
 // carries no weight into the rank's rows.
@@ -471,32 +517,6 @@ __device__ __forceinline__ int node_tile(const NodeIn& in, int64_t i,
       live = live && fabs((__ldg(in.pts + 3 * i + k) - in.rc[k]) *
                           in.inv[k]) <= 0.5;
   }
-  return live ? n / in.tile_rows : -1;
-}
-
-// K8g's: point i's tile and its leaf n (its row in the tree), by the
-// descent, or -1 where it carries no weight; and in r the first kRec - 1
-// doubles of its record: its unit-cube coordinates before the clamp, w'
-// (wv inside the root, 0 outside), wn.
-__device__ __forceinline__ int grad_tile(const NodeIn& in, int64_t i,
-                                         int& n, double (&r)[kRec - 1]) {
-  double u[3];
-  bool inside = true;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    r[a] = (__ldg(in.pts + 3 * i + a) - in.rc[a]) * in.inv[a];
-    inside = inside && fabs(r[a]) <= 0.5;
-    u[a] = r[a] < -0.5 ? -0.5 : (r[a] > 0.5 ? 0.5 : r[a]);
-  }
-  r[3] = inside ? __ldg(in.cot + i) : 0.0;
-  bool live = r[3] != 0.0;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    r[4 + a] = __ldg(in.wn + 3 * i + a);
-    live = live || r[4 + a] != 0.0;
-  }
-  n = live ? descend_leaf<double>(in.child_idx, in.centre, in.depth_used, u)
-           : 0;
   return live ? n / in.tile_rows : -1;
 }
 
@@ -541,43 +561,32 @@ __device__ __forceinline__ void block_scan(int* v, int n, int* warp_sums) {
 }
 
 // The sort: block g's segment is the points [g P, (g + 1) P), P =
-// seg_points<GRAD>(). On return tile t's points of segment g lie at places
-// g P + [offsets[g (n_tiles + 1) + t], offsets[g (n_tiles + 1) + t + 1])
-// of items (point index, row within the tile), or (K8g) of in.recs, each
-// as its record: its unit-cube coordinates before the clamp, w' (wv inside
-// the root, 0 outside), wn, and (point index, row within the tile) as two
-// ints, the point index in the low word. Dynamic shared memory: P items or
-// records, then min(n_tiles, kSortBins) + 1 ints.
-template <bool GRAD>
+// kSortPoints. On return tile t's points of segment g lie at places g P +
+// [offsets[g (n_tiles + 1) + t], offsets[g (n_tiles + 1) + t + 1]) of items
+// (point index, row within the tile). Dynamic shared memory: P items, then
+// min(n_tiles, kSortBins) + 1 ints.
 __global__ void __launch_bounds__(kSortThreads)
 node_sort_kernel(NodeIn in, int n_tiles, int* __restrict__ offsets,
                  int2* __restrict__ items) {
-  constexpr int kPer = GRAD ? kGradSortPer : kSortPer;
-  constexpr int kP = seg_points<GRAD>();
-  extern __shared__ double2 sRec[];                     // P items or records
-  int2* sItem = reinterpret_cast<int2*>(sRec);
-  int* sBin = reinterpret_cast<int*>(sRec + (GRAD ? kP * kRec / 2 : kP / 2));
+  extern __shared__ int2 sItem[];                       // P
+  int* sBin = reinterpret_cast<int*>(sItem + kSortPoints);
   __shared__ int sWarp[kSortThreads / 32];
-  const int64_t base = (int64_t)blockIdx.x * kP;
+  const int64_t base = (int64_t)blockIdx.x * kSortPoints;
   int* row_off = offsets + (int64_t)blockIdx.x * (n_tiles + 1);
-  int t[kPer], n[kPer];
-  double rec[GRAD ? kPer : 1][kRec - 1];   // K8g: the points' records
+  int t[kSortPer], n[kSortPer];
 #pragma unroll
-  for (int u = 0; u < kPer; ++u) {
+  for (int u = 0; u < kSortPer; ++u) {
     const int64_t i = base + threadIdx.x + u * kSortThreads;
-    if constexpr (GRAD)
-      t[u] = i < in.B ? grad_tile(in, i, n[u], rec[u]) : -1;
-    else
-      t[u] = i < in.B ? node_tile(in, i, n[u]) : -1;
+    t[u] = i < in.B ? node_tile(in, i, n[u]) : -1;
   }
   int carry = 0;                      // the block's places before a window
   for (int w0 = 0; w0 < n_tiles; w0 += kSortBins) {
     const int W = min(kSortBins, n_tiles - w0);
     for (int k = threadIdx.x; k <= W; k += kSortThreads) sBin[k] = 0;
     __syncthreads();
-    int rank[kPer];
+    int rank[kSortPer];
 #pragma unroll
-    for (int u = 0; u < kPer; ++u)
+    for (int u = 0; u < kSortPer; ++u)
       rank[u] = t[u] >= w0 && t[u] < w0 + W
                     ? atomicAdd(sBin + t[u] - w0, 1) : -1;
     __syncthreads();
@@ -586,121 +595,17 @@ node_sort_kernel(NodeIn in, int n_tiles, int* __restrict__ offsets,
     for (int k = threadIdx.x; k < W; k += kSortThreads)
       row_off[w0 + k] = carry + sBin[k];
 #pragma unroll
-    for (int u = 0; u < kPer; ++u)
-      if (rank[u] >= 0) {
-        const int at = carry + sBin[t[u] - w0] + rank[u];
-        const int i = (int)(base + threadIdx.x + u * kSortThreads);
-        if constexpr (GRAD) {
-          const double* r = rec[u];
-          double2* d = sRec + at * kRec / 2;
-          d[0] = make_double2(r[0], r[1]);
-          d[1] = make_double2(r[2], r[3]);
-          d[2] = make_double2(r[4], r[5]);
-          d[3] = make_double2(
-              r[6], __hiloint2double(n[u] - t[u] * in.tile_rows, i));
-        } else
-          sItem[at] = make_int2(i, n[u] - t[u] * in.tile_rows);
-      }
+    for (int u = 0; u < kSortPer; ++u)
+      if (rank[u] >= 0)
+        sItem[carry + sBin[t[u] - w0] + rank[u]] = make_int2(
+            (int)(base + threadIdx.x + u * kSortThreads),
+            n[u] - t[u] * in.tile_rows);
     carry += sBin[W];
     __syncthreads();
   }
   if (threadIdx.x == 0) row_off[n_tiles] = carry;
-  if constexpr (GRAD) {
-    double2* out = reinterpret_cast<double2*>(in.recs) + base * kRec / 2;
-    for (int k = threadIdx.x; k < carry * kRec / 2; k += kSortThreads)
-      out[k] = sRec[k];
-    for (int k = threadIdx.x; k < carry; k += kSortThreads)
-      in.rec_rows[base + k] =
-          __double2hiint(sRec[k * kRec / 2 + kRec / 2 - 1].y);
-  } else {
-    for (int k = threadIdx.x; k < carry; k += kSortThreads)
-      items[base + k] = sItem[k];
-  }
-}
-
-// f(m, i, j, k) for each term of degree DEG, grouped by (i, j) up to
-// kUnrolledDeg (so that an unrolled sum keeps a pair's products, not the
-// row's) and in for_each_term_of's loops above it.
-template <int DEG, class F>
-__device__ __forceinline__ void each_term_by_pair(F&& f) {
-  if constexpr (DEG <= hpsdf::kUnrolledDeg)
-    hpsdf::for_each_term_by_pair<DEG>(f);
-  else
-    hpsdf::for_each_term_of<DEG>(f);
-}
-
-// K8g's staging of the point whose record (its unit-cube coordinates, w',
-// wn) is staged at p, at row `row` of the tile: its C products
-// w' P_m + sum_a gb_a s_a dP_m/dx_a into v, from the tile's rows' depth,
-// centre and coefficients in shared memory. The sums take the terms by
-// pair (each_term_by_pair), and the unit vector's VJP divides once.
-template <int DEG>
-__device__ __forceinline__ void stage_grad(const NodeIn& in,
-                                           const double* p, int row,
-                                           const int* sDepth,
-                                           const double* sCentre,
-                                           const double* sCoef, double* v) {
-  constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
-  constexpr int kD = DEG + 1;
-  const double x[3] = {p[0], p[1], p[2]};
-  const double w = p[3];
-  const double wn[3] = {p[4], p[5], p[6]};
-  const int d = sDepth[row];
-  const double scale = pow2(d + 1);
-  const double nt_half = pow2(d >> 1);
-  // N, and dN until it becomes B_a = gb_a s_a dN_a
-  double N[3][kD], B[3][kD];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const double u = x[a] < -0.5 ? -0.5 : (x[a] > 0.5 ? 0.5 : x[a]);
-    double L[kD], dL[kD];
-    hpsdf::legendre<DEG>((u - sCentre[3 * row + a]) * scale, L);
-    hpsdf::legendre_deriv<DEG>(L, dL);
-#pragma unroll
-    for (int q = 0; q <= DEG; ++q) {
-      const double nt = odd_root(q, d & 1) * nt_half;
-      N[a][q] = L[q] * nt;
-      B[a][q] = dL[q] * nt;
-    }
-  }
-  const double* c = sCoef + row * kC;
-  double g[3] = {0.0, 0.0, 0.0};
-  each_term_by_pair<DEG>([&](int m, int ix, int iy, int iz) {
-    const double cz = c[m] * N[2][iz];
-    g[0] += cz * (B[0][ix] * N[1][iy]);
-    g[1] += cz * (N[0][ix] * B[1][iy]);
-    g[2] += (c[m] * B[2][iz]) * (N[0][ix] * N[1][iy]);
-  });
-  // local = (unit - centre) * 2^(depth+1), unit = (world - c) / sizes; the
-  // unit vector's VJP at G = g s: (wn - t n (n . wn)) / den, n = G / den,
-  // den = max(|G|, 1e-30), t = 1 above the floor, 1/2 on it, 0 below
-  double s[3], G[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    s[a] = scale * in.inv[a];
-    G[a] = g[a] * s[a];
-  }
-  const double nrm = sqrt(G[0] * G[0] + G[1] * G[1] + G[2] * G[2]);
-  const double den = nrm > 1e-30 ? nrm : 1e-30;
-  const double t = nrm > 1e-30 ? 1.0 : (nrm == 1e-30 ? 0.5 : 0.0);
-  const double r = 1.0 / den;
-  double n[3], nd = 0.0;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    n[a] = G[a] * r;
-    nd += n[a] * wn[a];
-  }
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const double qa = (wn[a] - t * n[a] * nd) * r * s[a];
-#pragma unroll
-    for (int q = 0; q <= DEG; ++q) B[a][q] = qa * B[a][q];
-  }
-  each_term_by_pair<DEG>([&](int m, int ix, int iy, int iz) {
-    const double nxy = N[0][ix] * N[1][iy];
-    const double bxy = B[0][ix] * N[1][iy] + N[0][ix] * B[1][iy];
-    v[m] = (w * nxy + bxy) * N[2][iz] + nxy * B[2][iz];
-  });
+  for (int k = threadIdx.x; k < carry; k += kSortThreads)
+    items[base + k] = sItem[k];
 }
 
 // The tiles: block b forms tile b's T x C sums from its points and stores
@@ -875,267 +780,6 @@ coeff_scatter_nodes_kernel(const double* __restrict__ centre,
   }
 }
 
-// K8g's tile launch. A block takes a tile of T rows at a time: its rows'
-// depth, centre and coefficients read whole into shared memory, its sums
-// zeroed. The tile's records are taken a round of up to kWin at a time:
-// each thread finds its items' runs by a search of the runs' starts, reads
-// their rows (the sort's rows array, 4 bytes where a record is 64) all at
-// once, and counts them by row (an atomic a row a warp); the round is then
-// listed by row in shared memory.
-// The list is cut into one slice a warp, of equal length whatever the
-// rows, and each warp works through its slice on its own, kBatch points
-// at a time, a lane a point: the records of the next kGradBufs - 1
-// batches are copied into shared memory (cp.async) while the lanes form
-// this batch's products (stage_grad: the axis factors and their
-// derivatives, the gradient g of the leaf frame from the staged
-// coefficient row, the unit vector's VJP, the C products). A batch's
-// points of one row (a range of lanes) are then added a lane a term, the
-// sums in registers: into the tile's sums where the warp's slice holds the
-// whole row, into the warp's own partial sums for the first and last rows
-// of its slice, which other warps may share; those are added in once the
-// round is done. No two threads add to one sum. The tile's sums are
-// stored whole, the zero rows too.
-template <int DEG>
-struct GradTile {
-  static constexpr int kC = (DEG + 1) * (DEG + 2) * (DEG + 3) / 6;
-  // the points a warp stages at once (its products in kGradWarpBytes)
-  static constexpr int kFit = kGradWarpBytes / (8 * kC);
-  static constexpr int kBatch = kFit > 32 ? 32 : (kFit < 1 ? 1 : kFit);
-  // the most items a round of a tile takes (the launch takes fewer where
-  // the shared memory asks it)
-  static constexpr int kWin = DEG <= 6 ? 4096 : 1024;
-};
-
-// A staged point: its record (kPt doubles, its first kRec - 1 used).
-constexpr int kPt = kRec;
-
-// Its dynamic shared memory for tiles of T rows, G segments and rounds of
-// win items, in the kernel's order: the T x C sums and coefficients, the
-// rows' centres, the warps' products, staged records and partial sums (two
-// rows); a round's items as read and by row, their ranks, the rows' depths
-// and counts, the warps' partial rows, the runs' starts and places.
-template <int DEG>
-int grad_smem(int T, int G, int win) {
-  using S = GradTile<DEG>;
-  const int W = G < kSegWindow ? G : kSegWindow;
-  return 8 * (2 * T * S::kC + 3 * T +
-              kGradWarps * (S::kBatch * S::kC + kGradBufs * S::kBatch * kPt +
-                            2 * S::kC)) +
-         4 * (5 * win + 2 * T + 1 + 2 * kGradWarps + 2 * W + 1);
-}
-
-// The items a round takes: the most, halved until the shared memory fits a
-// block's opt-in (kSmemOptIn), at least a thread's worth.
-template <int DEG>
-int grad_win(int T, int G) {
-  int win = GradTile<DEG>::kWin;
-  while (win > kGradThreads && grad_smem<DEG>(T, G, win) > kSmemOptIn)
-    win >>= 1;
-  return win;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Waits until at most N of the thread's groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <int DEG>
-__global__ void __launch_bounds__(kGradThreads)
-grad_tile_kernel(const double* __restrict__ centre,
-                 const int32_t* __restrict__ depth, NodeIn in, int G,
-                 int n_tiles, int win, const int* __restrict__ offsets,
-                 double* __restrict__ d_coeffs) {
-  using S = GradTile<DEG>;
-  constexpr int kC = S::kC, kB = S::kBatch;
-  constexpr int kPer = S::kWin / kGradThreads;         // items a thread, most
-  const int T = in.tile_rows;
-  extern __shared__ double sSum[];                     // T x C
-  double* sCoef = sSum + T * kC;                       // T x C
-  double* sCentre = sCoef + T * kC;                    // T x 3
-  double* sV = sCentre + 3 * T;                        // warps x kB x C
-  double* sPt = sV + kGradWarps * kB * kC;             // warps x 2 x kB
-  double* sBnd = sPt + kGradWarps * kGradBufs * kB * kPt;  // warps x 2 x C
-  int2* sItem = reinterpret_cast<int2*>(sBnd + kGradWarps * 2 * kC);
-  int2* sByRow = sItem + win;                          // the round by row
-  int* sRank = reinterpret_cast<int*>(sByRow + win);   // within a row
-  int* sDepth = sRank + win;                           // T
-  int* sRows = sDepth + T;                             // T + 1
-  int* sBndRow = sRows + T + 1;                        // warps x 2
-  const int W = min(G, kSegWindow);
-  int* sStart = sBndRow + 2 * kGradWarps;              // W + 1
-  int* sOff = sStart + W + 1;                          // W
-  __shared__ int sWarp[kGradWarps];
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  double* myV = sV + wid * kB * kC;
-  double* myPt = sPt + wid * kGradBufs * kB * kPt;
-  double* myBnd = sBnd + wid * 2 * kC;
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int r0 = tile * T;
-    const int nr = min(T, in.rows - r0);
-    const int n_el = nr * kC;
-    __syncthreads();                   // the last tile's shared reads done
-    for (int k = tid; k < nr; k += kGradThreads) {
-      sDepth[k] = __ldg(depth + r0 + k);
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-        sCentre[3 * k + a] = __ldg(centre + 3 * (int64_t)(r0 + k) + a);
-    }
-    for (int k = tid; k < n_el; k += kGradThreads) {
-      sCoef[k] = __ldg(in.coeffs + (int64_t)r0 * kC + k);
-      sSum[k] = 0.0;
-    }
-    for (int g0 = 0; g0 < G; g0 += kSegWindow) {
-      const int gw = min(kSegWindow, G - g0);
-      __syncthreads();                 // the last window's shared reads done
-      for (int g = tid; g < gw; g += kGradThreads) {
-        const int* o = offsets + (int64_t)(g0 + g) * (n_tiles + 1) + tile;
-        sOff[g] = __ldg(o);
-        sStart[g] = __ldg(o + 1) - sOff[g];
-      }
-      __syncthreads();
-      block_scan<kGradThreads>(sStart, gw, sWarp);
-      __syncthreads();
-      const int total = sStart[gw];
-      for (int c0 = 0; c0 < total; c0 += win) {
-        const int np = min(win, total - c0);
-        for (int k = tid; k <= T; k += kGradThreads) sRows[k] = 0;
-        __syncthreads();
-        // the round's items: kPer a thread, their places found, then all
-        // loaded, then each counted by row
-        int64_t at[kPer];
-#pragma unroll
-        for (int u = 0; u < kPer; ++u) {
-          const int q = c0 + tid + u * kGradThreads;
-          at[u] = -1;
-          if (q < c0 + np) {
-            int lo = 0, hi = gw;       // sStart[lo] <= q < sStart[hi]
-            while (hi - lo > 1) {
-              const int mid = (lo + hi) >> 1;
-              if (sStart[mid] <= q) lo = mid;
-              else hi = mid;
-            }
-            at[u] = (int64_t)(g0 + lo) * kGradSortPoints + sOff[lo] +
-                    (q - sStart[lo]);
-          }
-        }
-        int row[kPer];
-#pragma unroll
-        for (int u = 0; u < kPer; ++u)
-          if (at[u] >= 0)
-            row[u] = __ldg(in.rec_rows + at[u]);
-        // each row counted once a warp: its lanes' ranks follow the one
-        // atomic their lowest lane makes
-#pragma unroll
-        for (int u = 0; u < kPer; ++u) {
-          const int key = at[u] >= 0 ? row[u] : -1;
-          const unsigned peers = __match_any_sync(hpsdf::kFullWarp, key);
-          const int leader = __ffs(peers) - 1;
-          int first_rank = 0;
-          if (key >= 0 && lane == leader)
-            first_rank = atomicAdd(sRows + key, __popc(peers));
-          first_rank = __shfl_sync(hpsdf::kFullWarp, first_rank, leader);
-          if (key >= 0) {
-            const int q = tid + u * kGradThreads;
-            sItem[q] = make_int2((int)at[u], key);
-            sRank[q] = first_rank + __popc(peers & ((1u << lane) - 1u));
-          }
-        }
-        __syncthreads();
-        block_scan<kGradThreads>(sRows, T, sWarp);
-        __syncthreads();
-        for (int q = tid; q < np; q += kGradThreads) {
-          const int2 e = sItem[q];
-          sByRow[sRows[e.y] + sRank[q]] = e;
-        }
-        __syncthreads();
-        // the warp's slice, its first and last rows' partial sums zeroed
-        const int s0 = wid * np / kGradWarps;
-        const int s1 = (wid + 1) * np / kGradWarps;
-        const int first = s0 < s1 ? sByRow[s0].y : -1;
-        const int last = s0 < s1 ? sByRow[s1 - 1].y : -1;
-        for (int m = lane; m < 2 * kC; m += 32) myBnd[m] = 0.0;
-        if (lane == 0) {
-          sBndRow[2 * wid] = first;
-          sBndRow[2 * wid + 1] = last != first ? last : -1;
-        }
-        // the records of a batch copied into the staging buffer buf
-        auto fetch = [&](int b0, int buf) {
-          if (lane < min(kB, s1 - b0)) {
-            const double* r = in.recs + kRec * (int64_t)sByRow[b0 + lane].x;
-            double* d = myPt + (buf * kB + lane) * kPt;
-#pragma unroll
-            for (int a = 0; a < kPt; a += 2) cp_async16(d + a, r + a);
-          }
-          cp_async_commit();
-        };
-        // kGradBufs - 1 batches in flight ahead of the one worked on
-#pragma unroll
-        for (int k = 0; k + 1 < kGradBufs; ++k) fetch(s0 + k * kB, k);
-        for (int b0 = s0, buf = 0; b0 < s1;
-             b0 += kB, buf = buf + 1 < kGradBufs ? buf + 1 : 0) {
-          const int nb = min(kB, s1 - b0);
-          fetch(b0 + (kGradBufs - 1) * kB,
-                buf > 0 ? buf - 1 : kGradBufs - 1);
-          cp_async_wait<kGradBufs - 1>();
-          int row = -1;
-          if (lane < nb) {
-            row = sByRow[b0 + lane].y;
-            stage_grad<DEG>(in, myPt + (buf * kB + lane) * kPt, row, sDepth,
-                            sCentre, sCoef, myV + lane * kC);
-          }
-          const unsigned same = __match_any_sync(hpsdf::kFullWarp, row);
-          unsigned left = __ballot_sync(hpsdf::kFullWarp, lane < nb);
-          __syncwarp();
-          // a row's lanes are a range (the slice is in row order); its
-          // sum is taken four lanes at a time, in four partial sums
-          while (left) {
-            const int l0 = __ffs(left) - 1;
-            const unsigned grp = __shfl_sync(hpsdf::kFullWarp, same, l0);
-            const int l1 = l0 + __popc(grp);
-            const int r = __shfl_sync(hpsdf::kFullWarp, row, l0);
-            double* dst = r == first ? myBnd
-                                     : (r == last ? myBnd + kC : sSum + r * kC);
-            for (int m = lane; m < kC; m += 32) {
-              double acc[4] = {0.0, 0.0, 0.0, 0.0};
-              int l = l0;
-              for (; l + 4 <= l1; l += 4)
-#pragma unroll
-                for (int k = 0; k < 4; ++k) acc[k] += myV[(l + k) * kC + m];
-              for (; l < l1; ++l) acc[0] += myV[l * kC + m];
-              dst[m] += (acc[0] + acc[1]) + (acc[2] + acc[3]);
-            }
-            left &= ~grp;
-          }
-          __syncwarp();
-        }
-        __syncthreads();
-        // the warps' first and last rows, added a term a thread
-        for (int m = tid; m < kC; m += kGradThreads)
-          for (int k = 0; k < 2 * kGradWarps; ++k)
-            if (sBndRow[k] >= 0) sSum[sBndRow[k] * kC + m] += sBnd[k * kC + m];
-      }
-    }
-    __syncthreads();
-    double* out = d_coeffs + (int64_t)r0 * kC;
-    for (int k = tid; k < n_el >> 1; k += kGradThreads)
-      __stcs(reinterpret_cast<double2*>(out) + k,
-             reinterpret_cast<const double2*>(sSum)[k]);
-    if ((n_el & 1) && tid == 0) __stcs(out + n_el - 1, sSum[n_el - 1]);
-  }
-}
-
 int sm_count() {
   static int sms = 0;
   if (sms == 0) {
@@ -1153,34 +797,15 @@ NodeIn node_in(int lo, int hi, int tile_rows, const double* pts,
                double rc2, double inv0, double inv1, double inv2,
                const double* cot, int outside_zero) {
   return NodeIn{pts, leaf, cot, B, lo, hi - lo, tile_rows, outside_zero,
-                {rc0, rc1, rc2}, {inv0, inv1, inv2},
-                nullptr, nullptr, nullptr, nullptr, 0, nullptr, nullptr};
+                {rc0, rc1, rc2}, {inv0, inv1, inv2}};
 }
 
 int n_tiles_of(int rows, int tile_rows) {
   return (rows + tile_rows - 1) / tile_rows;
 }
 
-template <bool GRAD>
 int sort_blocks(int64_t B) {
-  return (int)((B + seg_points<GRAD>() - 1) / seg_points<GRAD>());
-}
-
-// The sort's launch (none for B = 0).
-template <bool GRAD>
-int launch_sort(const NodeIn& in, int32_t* offsets, int32_t* items,
-                cudaStream_t s) {
-  if (in.B == 0) return (int)cudaSuccess;
-  const int n_tiles = n_tiles_of(in.rows, in.tile_rows);
-  const int smem = 8 * (GRAD ? kRec : 1) * seg_points<GRAD>() +
-                   4 * (min(n_tiles, kSortBins) + 1);
-  cudaError_t e = cudaFuncSetAttribute(
-      node_sort_kernel<GRAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return (int)e;
-  node_sort_kernel<GRAD><<<sort_blocks<GRAD>(in.B), kSortThreads, smem, s>>>(
-      in, n_tiles, offsets, reinterpret_cast<int2*>(items));
-  return (int)cudaGetLastError();
+  return (int)((B + kSortPoints - 1) / kSortPoints);
 }
 
 // The tiles' launch: as many blocks as the card holds at once, up to a
@@ -1192,7 +817,7 @@ int launch_tiles(const double* centre, const int32_t* depth,
   using S = NodeTile<DEG>;
   if (in.tile_rows > S::kRows || (in.tile_rows * S::kC) % 2 != 0)
     return (int)cudaErrorInvalidValue;
-  const int G = sort_blocks<false>(in.B);
+  const int G = sort_blocks(in.B);
   const int smem = S::kSmem + 8 * (min(G, kSegWindow) + 1);
   cudaError_t e = cudaFuncSetAttribute(
       coeff_scatter_nodes_kernel<DEG>,
@@ -1208,52 +833,6 @@ int launch_tiles(const double* centre, const int32_t* depth,
       centre, depth, in, G, n_tiles, offsets,
       reinterpret_cast<const int2*>(items), d_coeffs);
   return (int)cudaGetLastError();
-}
-
-// K8g's tile launch: as many blocks as the card holds at once, up to a
-// tile each.
-template <int DEG>
-int launch_grad(const double* centre, const int32_t* depth,
-                const NodeIn& in, const int32_t* offsets, double* d_coeffs,
-                cudaStream_t s) {
-  if (in.tile_rows > NodeTile<DEG>::kRows ||
-      (in.tile_rows * GradTile<DEG>::kC) % 2 != 0)
-    return (int)cudaErrorInvalidValue;
-  const int G = sort_blocks<true>(in.B);
-  const int win = grad_win<DEG>(in.tile_rows, G);
-  const int smem = grad_smem<DEG>(in.tile_rows, G, win);
-  cudaError_t e = cudaFuncSetAttribute(
-      grad_tile_kernel<DEG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return (int)e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, grad_tile_kernel<DEG>, kGradThreads, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int n_tiles = n_tiles_of(in.rows, in.tile_rows);
-  const int grid = min(n_tiles, max(1, per_sm) * max(1, sm_count()));
-  grad_tile_kernel<DEG><<<grid, kGradThreads, smem, s>>>(
-      centre, depth, in, G, n_tiles, win, offsets, d_coeffs);
-  return (int)cudaGetLastError();
-}
-
-// K8g's inputs: the whole tree's N rows in tiles of tile_rows rows.
-NodeIn grad_in(const int32_t* child_idx, const double* centre,
-               const double* coeffs, int depth_used, int n_rows,
-               int tile_rows, const double* pts, int64_t B, double rc0,
-               double rc1, double rc2, double inv0, double inv1,
-               double inv2, const double* wv, const double* wn,
-               double* recs, int32_t* rows) {
-  NodeIn in = node_in(0, n_rows, tile_rows, pts, nullptr, B, rc0, rc1, rc2,
-                      inv0, inv1, inv2, wv, 0);
-  in.child_idx = child_idx;
-  in.centre = centre;
-  in.coeffs = coeffs;
-  in.wn = wn;
-  in.depth_used = depth_used;
-  in.recs = recs;
-  in.rec_rows = rows;
-  return in;
 }
 
 }  // namespace
@@ -1293,33 +872,42 @@ extern "C" int hpsdf_coeff_scatter(const int32_t* child_idx,
   return (int)cudaGetLastError();
 }
 
-// The sort's points a block: the offsets hold ceil(B / that) rows of
-// n_tiles + 1 ints.
+// K8g: d_coeffs (N, C) f64 += the VJP of query_with_gradient at the points
+// (B, 3) with cotangents wv (B,) for the values and wn (B, 3) for the unit
+// gradients; d_coeffs must be zeroed by the caller. One launch.
+extern "C" int hpsdf_coeff_scatter_grad(const int32_t* child_idx,
+                                        const double* centre,
+                                        const int32_t* depth,
+                                        const double* coeffs, int deg,
+                                        int depth_used, const double* pts,
+                                        int64_t B, double rc0, double rc1,
+                                        double rc2, double inv0, double inv1,
+                                        double inv2, const double* wv,
+                                        const double* wn, double* d_coeffs,
+                                        void* stream) {
+  if (B <= 0) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((B + kGradThreads - 1) / kGradThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+#define HPSDF_LAUNCH(D)                                                      \
+  coeff_scatter_grad_kernel<D><<<blocks, kGradThreads, 0, s>>>(              \
+      child_idx, centre, depth, coeffs, depth_used, pts, B, rc0, rc1, rc2,   \
+      inv0, inv1, inv2, wv, wn, d_coeffs)
+  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
+#undef HPSDF_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// The node-range mode's points a sort block takes: the offsets hold
+// ceil(B / that) rows of n_tiles + 1 ints.
 extern "C" int64_t hpsdf_node_sort_points() { return kSortPoints; }
 
-// The most rows a tile takes at degree deg (the node-range mode's and
-// K8g's alike), or -1 for another degree.
+// The most rows a tile of the node-range mode takes at degree deg, or -1
+// for another degree.
 extern "C" int64_t hpsdf_node_tile_rows(int deg) {
   if (deg < 0 || deg > 12) return -1;
 #define HPSDF_ROWS(D) return NodeTile<D>::kRows
   HPSDF_DISPATCH_DEG(deg, HPSDF_ROWS)
 #undef HPSDF_ROWS
-  return -1;
-}
-
-// The tile launch's dynamic shared memory in bytes at degree deg, for tiles
-// of tile_rows rows and B points, of the node-range mode (grad 0) or of
-// K8g (grad 1); -1 for another degree.
-extern "C" int64_t hpsdf_node_tile_smem(int deg, int grad, int tile_rows,
-                                        int64_t B) {
-  if (deg < 0 || deg > 12) return -1;
-#define HPSDF_SMEM(D)                                                 \
-  return grad ? grad_smem<D>(tile_rows, sort_blocks<true>(B),         \
-                             grad_win<D>(tile_rows, sort_blocks<true>(B))) \
-              : NodeTile<D>::kSmem +                                  \
-                    8 * (min(sort_blocks<false>(B), kSegWindow) + 1)
-  HPSDF_DISPATCH_DEG(deg, HPSDF_SMEM)
-#undef HPSDF_SMEM
   return -1;
 }
 
@@ -1340,10 +928,18 @@ extern "C" int hpsdf_node_buckets(int lo, int hi, int tile_rows,
   if (hi <= lo || tile_rows < 1 || B < 0 || B >= INT32_MAX)
     return (int)cudaErrorInvalidValue;
   if ((uintptr_t)items % 8 != 0) return (int)cudaErrorMisalignedAddress;
-  return launch_sort<false>(
+  if (B == 0) return (int)cudaSuccess;
+  const int n_tiles = n_tiles_of(hi - lo, tile_rows);
+  const int smem = 8 * kSortPoints + 4 * (min(n_tiles, kSortBins) + 1);
+  cudaError_t e = cudaFuncSetAttribute(
+      node_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  node_sort_kernel<<<sort_blocks(B), kSortThreads, smem,
+                     (cudaStream_t)stream>>>(
       node_in(lo, hi, tile_rows, pts, leaf, B, rc0, rc1, rc2, inv0, inv1,
               inv2, cot, outside_zero),
-      offsets, items, (cudaStream_t)stream);
+      n_tiles, offsets, reinterpret_cast<int2*>(items));
+  return (int)cudaGetLastError();
 }
 
 // The node-range mode's sums: d_coeffs (hi - lo, C) f64 of the rows
@@ -1368,70 +964,8 @@ extern "C" int hpsdf_coeff_scatter_nodes(const double* centre,
   const NodeIn in = node_in(lo, hi, tile_rows, pts, nullptr, B, rc0, rc1,
                             rc2, inv0, inv1, inv2, cot, 0);
   cudaStream_t s = (cudaStream_t)stream;
-#define HPSDF_LAUNCH(D)                                                     \
-  return launch_tiles<D>(centre, depth, in, offsets, items, d_coeffs, s)
-  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
-#undef HPSDF_LAUNCH
-  return (int)cudaErrorInvalidValue;
-}
-
-// K8g's sort: the live points (inside the root with wv (B,) not zero, or
-// with wn (B, 3) not zero) of the points (B, 3), their leaves found by the
-// descent of the tree (child_idx, centre (N, 3) f64, depth_used), put by
-// segment of hpsdf_grad_sort_points points and tile of tile_rows rows of
-// the tree's N rows, each as its record: recs (B, 8) f64, 16-byte aligned
-// (the unit-cube point before the clamp, wv inside the root and 0
-// outside, wn, and the point index and the row within the tile as two
-// i32) and its row within the tile in rows (B,) i32, segment g's tile t
-// at places [offsets[g, t], offsets[g, t + 1]) from the segment's start;
-// offsets G x (n_tiles + 1) i32. One launch (none for B = 0).
-extern "C" int hpsdf_grad_buckets(const int32_t* child_idx,
-                                  const double* centre, int depth_used,
-                                  int n_rows, int tile_rows,
-                                  const double* pts, int64_t B, double rc0,
-                                  double rc1, double rc2, double inv0,
-                                  double inv1, double inv2, const double* wv,
-                                  const double* wn, int32_t* offsets,
-                                  double* recs, int32_t* rows,
-                                  void* stream) {
-  if (n_rows < 1 || tile_rows < 1 || B < 0 || B >= INT32_MAX)
-    return (int)cudaErrorInvalidValue;
-  if ((uintptr_t)recs % 16 != 0) return (int)cudaErrorMisalignedAddress;
-  return launch_sort<true>(
-      grad_in(child_idx, centre, nullptr, depth_used, n_rows, tile_rows, pts,
-              B, rc0, rc1, rc2, inv0, inv1, inv2, wv, wn, recs, rows),
-      offsets, nullptr, (cudaStream_t)stream);
-}
-
-// K8g's sort's points a block: its offsets hold ceil(B / that) rows.
-extern "C" int64_t hpsdf_grad_sort_points() { return kGradSortPoints; }
-
-// K8g: d_coeffs (N, C) f64, every element written, the VJP of
-// query_with_gradient with cotangents wv for the values and wn for the
-// unit gradients at B points, from what hpsdf_grad_buckets left in
-// offsets, recs and rows (same tile_rows, B); inv the root's 1 / sizes.
-// tile_rows at most hpsdf_node_tile_rows(deg), tile_rows * C even;
-// d_coeffs 16-byte aligned. One launch.
-extern "C" int hpsdf_coeff_scatter_grad(const double* centre,
-                                        const int32_t* depth,
-                                        const double* coeffs, int deg,
-                                        int n_rows, int tile_rows, int64_t B,
-                                        double inv0, double inv1,
-                                        double inv2, const int32_t* offsets,
-                                        const double* recs,
-                                        const int32_t* rows,
-                                        double* d_coeffs, void* stream) {
-  if (n_rows < 1 || tile_rows < 1 || B < 0 || B >= INT32_MAX)
-    return (int)cudaErrorInvalidValue;
-  if ((uintptr_t)d_coeffs % 16 != 0 || (uintptr_t)recs % 16 != 0)
-    return (int)cudaErrorMisalignedAddress;
-  const NodeIn in = grad_in(nullptr, nullptr, coeffs, 0, n_rows, tile_rows,
-                            nullptr, B, 0.0, 0.0, 0.0, inv0, inv1, inv2,
-                            nullptr, nullptr, const_cast<double*>(recs),
-                            const_cast<int32_t*>(rows));
-  cudaStream_t s = (cudaStream_t)stream;
 #define HPSDF_LAUNCH(D) \
-  return launch_grad<D>(centre, depth, in, offsets, d_coeffs, s)
+  return launch_tiles<D>(centre, depth, in, offsets, items, d_coeffs, s)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
   return (int)cudaErrorInvalidValue;

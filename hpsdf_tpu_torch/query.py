@@ -25,10 +25,7 @@ the points, through backward kernels, in f64:
     re-descend and re-evaluate the leaf to one order higher (K1h: the
     Hessian);
   * ``query_with_gradient`` to the coefficients: K8g
-    (``coeff_scatter_grad_kernel``), with the unit gradient's term: the
-    node-range mode's sort over the whole tree, finding each live point's
-    leaf by K1's descent (``grad_buckets_kernel``), then a block a tile of
-    rows forming its rows' sums in shared memory and writing them once.
+    (``coeff_scatter_grad_kernel``), K8 with the unit gradient's term.
 
 Points are clamped into the root by ``clip_half``, whose derivative is
 ``jnp.clip``'s: 1 inside, 1/2 on a face of the root, 0 outside; the unit
@@ -334,86 +331,31 @@ def coeff_scatter_kernel(tree: Octree, cot: torch.Tensor, *, pts=None,
 coeff_scatter_kernel.launches = 0
 
 
-def _grad_buckets(tree: Octree, pts, wv, wn, T: int):
-    """K8g's sort (``grad_buckets_kernel``) in tiles of ``T`` rows, on the
-    inputs ``coeff_scatter_grad_kernel`` checked."""
-    B = pts.shape[0]
-    n_tiles = -(-tree.coeffs.shape[0] // T)
-    G = -(-B // GRAD_SORT_POINTS)
-    offsets = torch.empty((G, n_tiles + 1), dtype=torch.int32,
-                          device=pts.device)
-    recs = torch.empty((B, GRAD_RECORD), dtype=torch.float64,
-                       device=pts.device)
-    rows = torch.empty(B, dtype=torch.int32, device=pts.device)
-    if B == 0:
-        return offsets, recs, rows
-    lib = _kernels.load()
-    rc = tree.config.root_centre
-    inv = 1.0 / tree.config.root_sizes
-    _kernels.check(lib, lib.hpsdf_grad_buckets(
-        tree.child_idx.data_ptr(), tree.centre.data_ptr(), tree.depth_used,
-        tree.coeffs.shape[0], T, pts.data_ptr(), B, *map(float, rc),
-        *map(float, inv), wv.data_ptr(), wn.data_ptr(), offsets.data_ptr(),
-        recs.data_ptr(), rows.data_ptr(), _kernels.stream_of(pts)),
-        "grad_buckets")
-    grad_buckets_kernel.launches += 1
-    return offsets, recs, rows
-
-
-def _grad_inputs(tree: Octree, pts, wv, wn, who: str):
-    _check_f64(tree, pts, who)
-    pts = pts.detach().contiguous()
-    return (pts, *_cotangents(pts.shape[0], pts.device, wv, wn))
-
-
-def grad_buckets_kernel(tree: Octree, pts: torch.Tensor, wv: torch.Tensor,
-                        wn: torch.Tensor):
-    """Launch K8g's sort on CUDA tensors: its live points
-    (``grad_buckets_plain``'s) of each segment of GRAD_SORT_POINTS points,
-    their leaves found by K1's descent, listed in order of their tile of
-    ``node_tile_rows(deg, N)`` rows of the tree, at the places
-    ``node_buckets_kernel`` would give them, each as its record. Returns
-    (offsets (G, n_tiles + 1) i32, records (B, GRAD_RECORD) f64, rows (B,)
-    i32): a record holds the point's unit-cube coordinates before the
-    clamp, wv inside the root and 0 outside, wn, and (point index, row
-    within the tile) as two i32 (``grad_record_items``); rows holds each
-    record's row again, for the tile launch's count. One launch (none for
-    no points). Raises on anything else."""
-    pts, wv, wn = _grad_inputs(tree, pts, wv, wn, "grad_buckets_kernel")
-    return _grad_buckets(tree, pts, wv, wn, node_tile_rows(
-        tree.deg_used, tree.coeffs.shape[0]))
-
-
-grad_buckets_kernel.launches = 0
-
-
 def coeff_scatter_grad_kernel(tree: Octree, pts: torch.Tensor,
                               wv: torch.Tensor,
                               wn: torch.Tensor) -> torch.Tensor:
     """Launch K8g on CUDA tensors: the gradient (N, C) f64 with respect to
     ``tree.coeffs`` of sum(wv * value) + sum(wn * unit_grad) of
-    ``query_with_gradient`` at ``pts`` (B, 3) f64. A call is two launches
-    and no memset: the sort (``grad_buckets_kernel``), then a block a tile
-    of ``node_tile_rows(deg, N)`` rows stages the tile's coefficient rows,
-    lists its points' records by row, and its warps, each on an equal
-    slice of them, form their products and sums; the tile's rows are
-    written once. The records take GRAD_RECORD f64 a point. Up to
-    2^31 - 1 points. Raises on anything else."""
-    pts, wv, wn = _grad_inputs(tree, pts, wv, wn,
-                               "coeff_scatter_grad_kernel")
-    N = tree.coeffs.shape[0]
-    T = node_tile_rows(tree.deg_used, N)
-    offsets, recs, rows = _grad_buckets(tree, pts, wv, wn, T)
-    out = torch.empty(tree.coeffs.shape, dtype=torch.float64,
+    ``query_with_gradient`` at ``pts`` (B, 3) f64. A call is two
+    operations on the card: the output's memset and the launch. Raises on
+    anything else."""
+    _check_f64(tree, pts, "coeff_scatter_grad_kernel")
+    pts = pts.detach().contiguous()
+    B = pts.shape[0]
+    wv, wn = _cotangents(B, pts.device, wv, wn)
+    out = torch.zeros(tree.coeffs.shape, dtype=torch.float64,
                       device=pts.device)
+    if B == 0:
+        return out
     lib = _kernels.load()
+    rc = tree.config.root_centre
     inv = 1.0 / tree.config.root_sizes
     _kernels.check(lib, lib.hpsdf_coeff_scatter_grad(
-        tree.centre.data_ptr(), tree.depth.data_ptr(),
-        tree.coeffs.detach().data_ptr(), tree.deg_used, N, T, pts.shape[0],
-        *map(float, inv), offsets.data_ptr(), recs.data_ptr(),
-        rows.data_ptr(), out.data_ptr(), _kernels.stream_of(pts)),
-        "coeff_scatter_grad")
+        tree.child_idx.data_ptr(), tree.centre.data_ptr(),
+        tree.depth.data_ptr(), tree.coeffs.detach().data_ptr(),
+        tree.deg_used, tree.depth_used, pts.data_ptr(), B,
+        *map(float, rc), *map(float, inv), wv.data_ptr(), wn.data_ptr(),
+        out.data_ptr(), _kernels.stream_of(pts)), "coeff_scatter_grad")
     coeff_scatter_grad_kernel.launches += 1
     return out
 
@@ -592,10 +534,6 @@ NODE_TILE_ELEMS = 4096
 NODE_TILE_MAX_ROWS = 512
 NODE_MIN_TILES = 264
 NODE_SORT_POINTS = 4096
-# K8g's sort takes segments of GRAD_SORT_POINTS points (kGradSortPoints) and
-# writes a record of GRAD_RECORD f64 a live point (kRec)
-GRAD_SORT_POINTS = 2048
-GRAD_RECORD = 8
 
 
 def node_tile_rows(deg: int, rows: int | None = None) -> int:
@@ -669,38 +607,30 @@ def node_buckets_kernel(block, pts: torch.Tensor, leaf: torch.Tensor,
 node_buckets_kernel.launches = 0
 
 
-def _buckets_plain(n, live, rows: int, B: int, T: int,
-                   P: int = NODE_SORT_POINTS):
-    """The sort's (offsets, items) by plain torch: the points ``live`` (B,)
-    of rows ``n`` (B,) listed by segment of ``P`` points and tile of ``T``
-    of the ``rows`` rows, each run's points in index order, the unused
-    places zero."""
-    dev = n.device
-    n_tiles, G = -(-rows // T), -(-B // P)
-    idx = torch.nonzero(live).flatten()
-    tile, seg = n[idx] // T, idx // P
-    key = seg * n_tiles + tile
-    order = torch.sort(key, stable=True).indices
-    idx, tile, seg, key = idx[order], tile[order], seg[order], key[order]
-    counts = torch.bincount(key, minlength=G * n_tiles)
-    offsets = torch.zeros((G, n_tiles + 1), dtype=torch.long, device=dev)
-    offsets[:, 1:] = torch.cumsum(counts.reshape(G, n_tiles), 1)
-    first = torch.cumsum(counts, 0) - counts       # each run's first in key
-    at = seg * P + offsets[seg, tile] \
-        + torch.arange(idx.numel(), device=dev) - first[key]
-    items = torch.zeros((B, 2), dtype=torch.int32, device=dev)
-    items[at] = torch.stack([idx, n[idx] - tile * T], 1).int()
-    return offsets.int(), items
-
-
 def _node_buckets_plain(block, pts, leaf, w, outside_value_max, T):
     """``node_buckets_plain`` in tiles of ``T`` rows."""
+    B = pts.shape[0]
     rows = max(block.hi - block.lo, 0)
+    n_tiles, G = -(-rows // T), -(-B // NODE_SORT_POINTS)
     n = leaf.long() - block.lo
     live = (n >= 0) & (n < rows) & (w != 0)
     if outside_value_max:
         live &= torch.all(_to_unit(block, pts).abs() <= 0.5, dim=-1)
-    return _buckets_plain(n, live, rows, pts.shape[0], T)
+    idx = torch.nonzero(live).flatten()
+    tile, seg = n[idx] // T, idx // NODE_SORT_POINTS
+    key = seg * n_tiles + tile
+    order = torch.sort(key, stable=True).indices
+    idx, tile, seg, key = idx[order], tile[order], seg[order], key[order]
+    counts = torch.bincount(key, minlength=G * n_tiles)
+    offsets = torch.zeros((G, n_tiles + 1), dtype=torch.long,
+                          device=pts.device)
+    offsets[:, 1:] = torch.cumsum(counts.reshape(G, n_tiles), 1)
+    first = torch.cumsum(counts, 0) - counts       # each run's first in key
+    at = seg * NODE_SORT_POINTS + offsets[seg, tile] \
+        + torch.arange(idx.numel(), device=pts.device) - first[key]
+    items = torch.zeros((B, 2), dtype=torch.int32, device=pts.device)
+    items[at] = torch.stack([idx, n[idx] - tile * T], 1).int()
+    return offsets.int(), items
 
 
 def node_buckets_plain(block, pts: torch.Tensor, leaf: torch.Tensor,
@@ -713,33 +643,6 @@ def node_buckets_plain(block, pts: torch.Tensor, leaf: torch.Tensor,
     rows = max(block.hi - block.lo, 0)
     return _node_buckets_plain(block, pts, leaf, w, outside_value_max,
                                node_tile_rows(block.deg_used, rows))
-
-
-def grad_record_items(recs: torch.Tensor) -> torch.Tensor:
-    """The (point index, row within the tile) i32 pairs (B, 2) of K8g's
-    sort's records, as ``node_buckets_kernel``'s items (the places the sort
-    did not write hold what the memory held)."""
-    return recs[:, GRAD_RECORD - 1].contiguous().view(torch.int32) \
-        .reshape(-1, 2)
-
-
-def grad_buckets_plain(tree: Octree, pts: torch.Tensor, wv: torch.Tensor,
-                       wn: torch.Tensor, T: int | None = None):
-    """K8g's sort by plain torch, in segments of GRAD_SORT_POINTS points,
-    as ``node_buckets_plain`` returns its sort (the items of
-    ``grad_buckets_kernel``'s records: ``grad_record_items``), each run's
-    points in index order and the unused places zero, in tiles
-    of ``T`` rows (``node_tile_rows(deg, N)`` when None). A point is live
-    where it lies inside the root and its value's cotangent ``wv`` is not
-    zero, or its unit gradient's cotangent ``wn`` is not zero; its row is
-    its leaf, by ``descend``."""
-    unit = _to_unit(tree, pts.detach())
-    inside = torch.all(unit.abs() <= 0.5, dim=-1)
-    live = (inside & (wv != 0)) | torch.any(wn != 0, dim=-1)
-    n = descend(tree, clip_half(unit)).long()
-    rows = tree.coeffs.shape[0]
-    T = node_tile_rows(tree.deg_used, rows) if T is None else T
-    return _buckets_plain(n, live, rows, pts.shape[0], T, GRAD_SORT_POINTS)
 
 
 def _coeff_scatter_nodes(block, pts, leaf, cot, outside_value_max, T):

@@ -204,8 +204,8 @@ def test_lod_tables_stay_with_the_packed_tree(trees):
 
 
 def test_reference_kernel_is_on_no_path():
-    """The kernels K3, K4, K7, G's backward, K8, K8's node-range mode, K8g,
-    K11, K6 and K13's terms replaced are built into a library of their own,
+    """The kernels K3, K4, K7, G's backward, K8, K8's node-range mode, K11,
+    K6 and K13's terms replaced are built into a library of their own,
     which no module of the package loads: only chip_smoke.py does, to hold
     the shipped kernels to them."""
     import glob
@@ -218,8 +218,7 @@ def test_reference_kernel_is_on_no_path():
     assert "march.cu" in main and check == {
         "march_reference.cu", "packed_grad_reference.cu",
         "row_scatter_reference.cu", "coeff_scatter_reference.cu",
-        "coeff_scatter_nodes_reference.cu",
-        "coeff_scatter_grad_reference.cu", "cone_reference.cu",
+        "coeff_scatter_nodes_reference.cu", "cone_reference.cu",
         "bvh_walk_reference.cu", "fit_reference.cu",
         "inverse_terms_reference.cu"}
     assert not main & check

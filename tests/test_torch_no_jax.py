@@ -27,7 +27,7 @@ def test_import_leaves_out_jax_and_hpsdf_tpu():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-_SCRIPTS = ("chip_smoke.py", "chip_compare.py", "chip_k8g_phases.py")
+_SCRIPTS = ("chip_smoke.py", "chip_compare.py")
 
 
 def test_scripts_leave_out_jax_and_hpsdf_tpu():

@@ -20,16 +20,6 @@ written once. On the CPU the plain versions run:
     another order within a run and refuses a point replaced, moved to
     another run or given a wrong weight, and a run boundary moved; its
     two wrong gradients are caught.
-
-K8g (the VJP of ``query_with_gradient`` to the coefficients) is the same
-pair over the whole tree: its sort finds each point's leaf by
-``descend`` and keeps the points inside the root with a value cotangent
-or with a unit gradient cotangent (``grad_buckets_plain``); a plain model
-of its tile pass on that sort gives the coefficient half of
-``query_with_gradient_vjp_plain`` within 1e-10 of its largest entry at
-degrees 0, 3, 6 and 12, on points on the root's faces and outside it, with
-a third of each cotangent zero. Its tiles over the slice tree's 4,681 rows
-number at least NODE_MIN_TILES.
 """
 
 import dataclasses
@@ -41,18 +31,13 @@ import pytest
 import torch
 
 import hpsdf_tpu as hp
-import hpsdf_tpu_torch as T_
 from hpsdf_tpu_torch import basis, consts
 from hpsdf_tpu_torch import parallel as P
-from hpsdf_tpu_torch.query import (GRAD_RECORD, GRAD_SORT_POINTS,
-                                   NODE_MIN_TILES, NODE_SORT_POINTS,
+from hpsdf_tpu_torch.query import (NODE_MIN_TILES, NODE_SORT_POINTS,
                                    NODE_TILE_ELEMS, NODE_TILE_MAX_ROWS,
-                                   _node_buckets_plain, _to_unit, clip_half,
-                                   coeff_scatter_nodes_plain, descend,
-                                   grad_buckets_plain, grad_record_items,
-                                   node_buckets_plain, node_tile_rows,
-                                   query_with_gradient_vjp_plain)
-from hpsdf_tpu import tree as JT
+                                   _node_buckets_plain, _to_unit,
+                                   coeff_scatter_nodes_plain,
+                                   node_buckets_plain, node_tile_rows)
 
 import chip_smoke
 from .test_torch_node_axis import CFG, GRAD_ATOL, SPLITS, node_query
@@ -338,200 +323,3 @@ def test_tile_constants_are_the_kernels():
     assert const("kTileMaxRows") == NODE_TILE_MAX_ROWS
     assert "kSortPoints = kSortThreads * kSortPer;" in src
     assert const("kSortThreads") * const("kSortPer") == NODE_SORT_POINTS
-    assert "kGradSortPoints = kSortThreads * kGradSortPer;" in src
-    assert const("kSortThreads") * const("kGradSortPer") == GRAD_SORT_POINTS
-    assert const("kRec") == GRAD_RECORD
-    # a record's last slot holds (point index, row) as (low, high) words
-    assert re.search(r"__hiloint2double\([^;]*, i\)", src)
-
-
-# --------------------------------------------------------------------------
-# K8g: the same pair over the whole tree
-# --------------------------------------------------------------------------
-
-GRAD_DEGREES = (0, 3, 6, 12)
-GRAD_RTOL = 1e-10
-SLICE_ROWS = 4_681            # the slice tree's rows (PERF.md, cells)
-
-
-def _grad_tree(deg):
-    cfg = hp.Config(continuity=False, root_min=chip_smoke.SYNTH_ROOT[0],
-                    root_max=chip_smoke.SYNTH_ROOT[1])
-    jt = JT.pack(*chip_smoke.synthetic_tree(deg, seed=40 + deg), cfg)
-    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
-    kw["nearness_weighting"] = T_.NearnessWeighting(
-        cfg.nearness_weighting.value)
-    return T_.from_numpy({k: np.asarray(getattr(jt, k)) for k in (
-        "child_idx", "centre", "depth", "degree", "coeffs")}, jt.n_nodes,
-        jt.deg_used, jt.depth_used, T_.Config(**kw), device="cpu")
-
-
-def _grad_points(deg):
-    """Points straddling the root, on each of its faces, on an edge and a
-    corner; cotangents with a third of wv zero and a third of wn's rows
-    zero (a ninth both)."""
-    rng = np.random.default_rng(60 + deg)
-    lo, hi = (np.asarray(x, np.float64) for x in chip_smoke.SYNTH_ROOT)
-    pad = 0.1 * (hi - lo)
-    p = [rng.uniform(lo - pad, hi + pad, (400, 3))]
-    for axis in range(3):
-        for end in (lo, hi):
-            q = rng.uniform(lo, hi, (8, 3))
-            q[:, axis] = end[axis]
-            p.append(q)
-    q = rng.uniform(lo, hi, (4, 3))
-    q[:, 0], q[:, 2] = hi[0], lo[2]
-    p += [q, np.asarray([lo, hi])]
-    p = np.concatenate(p)
-    wv = rng.standard_normal(p.shape[0])
-    wv[rng.random(p.shape[0]) < 1 / 3] = 0.0
-    wn = rng.standard_normal((p.shape[0], 3))
-    wn[rng.random(p.shape[0]) < 1 / 3] = 0.0
-    return (torch.as_tensor(x) for x in (p, wv, wn))
-
-
-def grad_live(tree, pts, wv, wn):
-    inside = torch.all(_to_unit(tree, pts).abs() <= 0.5, dim=-1)
-    return (inside & (wv != 0)) | torch.any(wn != 0, dim=-1)
-
-
-def unit_vector_vjp(g, wn, floor):
-    """The VJP of g / max(|g|, floor) (the kernels' hpsdf::unit_vector_vjp:
-    the floor's tie split as jnp.maximum splits it)."""
-    nrm = torch.linalg.norm(g, dim=-1, keepdim=True)
-    den = torch.clamp(nrm, min=floor)
-    t = torch.where(nrm > floor, 1.0, torch.where(nrm == floor, 0.5, 0.0))
-    n = g / den
-    return (wn - t * n * (n * wn).sum(-1, keepdim=True)) / den
-
-
-def grad_tile_model(tree, pts, wv, wn, sort, T):
-    """K8g's tile pass by plain torch on a sort: each tile's T x C sums of
-    w' P_m + sum_a gb_a s_a dP_m/dx_a at the points its runs list (w' = wv
-    inside the root, 0 outside; s_a = 2^(depth+1) / size_a; gb the unit
-    vector's VJP at g s, g the leaf frame's gradient from the row's
-    coefficients), the tiles concatenated."""
-    deg = tree.deg_used
-    C = consts.coeff_count(deg)
-    rows = tree.coeffs.shape[0]
-    n_tiles = -(-rows // T)
-    run, it = chip_smoke.bucket_records(sort, GRAD_SORT_POINTS)
-    tile = run % n_tiles
-    idx_t, norms = basis._tables(deg, pts)
-    unit = _to_unit(tree, pts)
-    w = torch.where(torch.all(unit.abs() <= 0.5, dim=-1), wv, 0.0)
-    inv = torch.as_tensor(1.0 / tree.config.root_sizes)
-    tiles = []
-    for t in range(n_tiles):
-        s = torch.zeros((T, C), dtype=torch.float64)
-        mine = tile == t
-        i, r = it[mine, 0], it[mine, 1]
-        row = t * T + r
-        d = tree.depth[row]
-        scale = torch.exp2((d + 1).double())[:, None]
-        local = (clip_half(unit[i]) - tree.centre[row]) * scale
-        L, dL = basis.legendre_all_with_derivative(local, deg)
-        nrm = norms[d.long()]
-        phi = L[:, 0, idx_t[:, 0]] * L[:, 1, idx_t[:, 1]] \
-            * L[:, 2, idx_t[:, 2]] * nrm
-        dphi = torch.stack([
-            dL[:, 0, idx_t[:, 0]] * L[:, 1, idx_t[:, 1]]
-            * L[:, 2, idx_t[:, 2]],
-            L[:, 0, idx_t[:, 0]] * dL[:, 1, idx_t[:, 1]]
-            * L[:, 2, idx_t[:, 2]],
-            L[:, 0, idx_t[:, 0]] * L[:, 1, idx_t[:, 1]]
-            * dL[:, 2, idx_t[:, 2]]], 1) * nrm[:, None]
-        g = (tree.coeffs[row][:, None, :] * dphi).sum(-1)
-        sa = scale * inv
-        gb = unit_vector_vjp(g * sa, wn[i], 1e-30)
-        s.index_add_(0, r, w[i, None] * phi
-                     + ((gb * sa)[:, :, None] * dphi).sum(1))
-        tiles.append(s)
-    return torch.cat(tiles)[:rows]
-
-
-@pytest.mark.parametrize("deg", GRAD_DEGREES)
-def test_grad_pair_sums_to_the_vjp(deg, few_torch_threads):  # noqa: F811
-    """K8g's sort lists each live point once, at its leaf's row, in the run
-    of its tile and segment, and no dead point; the tile model summed on
-    it gives query_with_gradient_vjp_plain's coefficient half, in the
-    wrapper's tiles and in tiles of 4 rows."""
-    tree = _grad_tree(deg)
-    pts, wv, wn = _grad_points(deg)
-    live = grad_live(tree, pts, wv, wn)
-    assert 0 < int(live.sum()) < pts.shape[0]
-    leaf = descend(tree, clip_half(_to_unit(tree, pts))).long()
-    want = query_with_gradient_vjp_plain(tree, pts, wv, wn)[0]
-    assert float(want.abs().max()) > 0
-    rows = tree.coeffs.shape[0]
-    for T in (node_tile_rows(deg, rows), 4):
-        sort = grad_buckets_plain(tree, pts, wv, wn, T)
-        offsets, items = sort
-        n_tiles = -(-rows // T)
-        assert offsets.shape == (1, n_tiles + 1)
-        run, it = chip_smoke.bucket_records(sort, GRAD_SORT_POINTS)
-        assert torch.equal(torch.sort(it[:, 0]).values,
-                           torch.nonzero(live).flatten())
-        assert torch.equal(run * T + it[:, 1], leaf[it[:, 0]])
-        got = grad_tile_model(tree, pts, wv, wn, sort, T)
-        scale = float(want.abs().max())
-        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
-                                   atol=GRAD_RTOL * scale)
-
-
-def test_grad_sort_segments(few_torch_threads):  # noqa: F811
-    """At more points than a sort block takes, each segment's runs list
-    its own live points, in the wrapper's sort and the plain one alike."""
-    tree = _grad_tree(3)
-    rng = np.random.default_rng(8)
-    n = 2 * GRAD_SORT_POINTS + 77
-    lo, hi = (np.asarray(x, np.float64) for x in chip_smoke.SYNTH_ROOT)
-    pts = torch.as_tensor(rng.uniform(lo - 0.1, hi + 0.1, (n, 3)))
-    wv = torch.as_tensor(rng.standard_normal(n))
-    wn = torch.where(torch.as_tensor(rng.random(n) < 0.5)[:, None], 0.0,
-                     torch.as_tensor(rng.standard_normal((n, 3))))
-    T = node_tile_rows(3, tree.coeffs.shape[0])
-    sort = grad_buckets_plain(tree, pts, wv, wn)
-    assert sort[0].shape[0] == 3
-    run, it = chip_smoke.bucket_records(sort, GRAD_SORT_POINTS)
-    n_tiles = -(-tree.coeffs.shape[0] // T)
-    assert torch.equal(run // n_tiles, it[:, 0] // GRAD_SORT_POINTS)
-    np.testing.assert_allclose(
-        grad_tile_model(tree, pts, wv, wn, sort, T).numpy(),
-        query_with_gradient_vjp_plain(tree, pts, wv, wn)[0].numpy(), rtol=0,
-        atol=GRAD_RTOL * float(query_with_gradient_vjp_plain(
-            tree, pts, wv, wn)[0].abs().max()))
-
-
-def test_grad_record_items():
-    """The items chip_smoke compares with the plain sort are read from the
-    records' last slot: the point index in its low word, the row within
-    the tile in its high one."""
-    idx = torch.tensor([0, 7, 4_000_000, 2**31 - 1], dtype=torch.int32)
-    row = torch.tensor([3, 0, 511, 1], dtype=torch.int32)
-    recs = torch.randn(4, GRAD_RECORD, dtype=torch.float64)
-    recs[:, -1] = torch.stack([idx, row], 1).contiguous().view(
-        torch.float64).flatten()
-    assert torch.equal(grad_record_items(recs), torch.stack([idx, row], 1))
-
-
-@pytest.mark.parametrize("deg", range(13))
-def test_grad_tile_plan_of_the_slice_tree(deg):
-    """K8g's tiles over the slice tree's 4,681 rows: even, within a
-    tile's sums, at least NODE_MIN_TILES of them (16 rows, 293 tiles at
-    degree 3; 8 rows, 586 tiles at degree 12), covering the rows, and no
-    longer than the longest tile any tree takes at this degree; the sort's
-    offsets (a row of n_tiles + 1 a segment of GRAD_SORT_POINTS points) for
-    2^20 points well inside a card's memory. (The tile launch's shared
-    memory at every degree is chip_smoke.py's [grad2] check.)"""
-    C = consts.coeff_count(deg)
-    T = node_tile_rows(deg, SLICE_ROWS)
-    n_tiles = -(-SLICE_ROWS // T)
-    assert T % 2 == 0 and T * C <= NODE_TILE_ELEMS
-    assert T <= node_tile_rows(deg)
-    assert n_tiles >= NODE_MIN_TILES and (n_tiles - 1) * T < SLICE_ROWS
-    if deg == 3:
-        assert (T, n_tiles) == (16, 293)
-    if deg == 12:
-        assert (T, n_tiles) == (8, 586)
-    assert 4 * -(-(1 << 20) // GRAD_SORT_POINTS) * (n_tiles + 1) < 1 << 22

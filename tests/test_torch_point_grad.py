@@ -361,6 +361,84 @@ def test_face_rule(where, few_torch_threads):  # noqa: F811
         pull((jnp.asarray(w), jnp.asarray(u)))[0], RTOL64)
 
 
+def _unit_vector_vjp(g, wn, floor):
+    """The VJP of g / max(|g|, floor), the floor's tie split as
+    jnp.maximum splits it (hpsdf::unit_vector_vjp)."""
+    nrm = torch.linalg.norm(g, dim=-1, keepdim=True)
+    den = torch.clamp(nrm, min=floor)
+    t = torch.where(nrm > floor, 1.0, torch.where(nrm == floor, 0.5, 0.0))
+    n = g / den
+    return (wn - t * n * (n * wn).sum(-1, keepdim=True)) / den
+
+
+def _k8g_formula(tree, pts, wv, wn):
+    """K8g's sum by plain torch, point by point as csrc/coeff_scatter.cu
+    states it: a point is live where it lies inside the root with wv not
+    zero, or wn is not zero; its leaf's row gets w' P_m + sum_a gb_a s_a
+    dP_m/dx_a, w' = wv inside the root and 0 outside, s_a = 2^(depth+1) /
+    size_a, gb the unit vector's VJP at g s, g the leaf frame's gradient
+    from the row's coefficients."""
+    deg = tree.deg_used
+    unit = TQ._to_unit(tree, pts)
+    inside = torch.all(unit.abs() <= 0.5, dim=-1)
+    live = (inside & (wv != 0)) | torch.any(wn != 0, dim=-1)
+    u = TQ.clip_half(unit)
+    row = TQ.descend(tree, u).long()
+    d = tree.depth[row]
+    scale = torch.exp2((d + 1).double())[:, None]
+    L, dL = TB.legendre_all_with_derivative((u - tree.centre[row]) * scale,
+                                            deg)
+    idx, norms = TB._tables(deg, pts)
+    nrm = norms[d.long()]
+    i, j, k = idx[:, 0], idx[:, 1], idx[:, 2]
+    phi = L[:, 0, i] * L[:, 1, j] * L[:, 2, k] * nrm
+    dphi = torch.stack([dL[:, 0, i] * L[:, 1, j] * L[:, 2, k],
+                        L[:, 0, i] * dL[:, 1, j] * L[:, 2, k],
+                        L[:, 0, i] * L[:, 1, j] * dL[:, 2, k]], 1) \
+        * nrm[:, None]
+    g = (tree.coeffs[row][:, None, :] * dphi).sum(-1)
+    sa = scale * torch.as_tensor(1.0 / tree.config.root_sizes)
+    gb = _unit_vector_vjp(g * sa, wn, 1e-30)
+    terms = torch.where(inside, wv, 0.0)[:, None] * phi \
+        + ((gb * sa)[:, :, None] * dphi).sum(1)
+    return torch.zeros_like(tree.coeffs).index_add_(0, row[live],
+                                                    terms[live])
+
+
+@pytest.mark.parametrize("deg", [0, 3, 6, 12])
+def test_k8g_formula(deg, few_torch_threads):  # noqa: F811
+    """The sum K8g forms on the card (its source's formula, point by point)
+    equals query_with_gradient_vjp_plain's coefficient half, the version
+    the kernel is held to, within RTOL64: at points straddling the root,
+    on its faces, edges and corners, with a third of wv and a third of
+    wn's rows zero (a ninth of the points both, so dead); above degree 0
+    both equal jax.vjp of hpsdf_tpu's query_with_gradient."""
+    jt, tt = _synthetic(deg, seed=40 + deg)
+    lo, hi = _lo_hi()
+    rng = np.random.default_rng(60 + deg)
+    pts = np.concatenate([rng.uniform(lo - 0.1 * (hi - lo),
+                                      hi + 0.1 * (hi - lo), (N_PTS, 3)),
+                          _face_points(rng)])
+    wv = rng.standard_normal(pts.shape[0])
+    wv[rng.random(pts.shape[0]) < 1 / 3] = 0.0
+    wn = rng.standard_normal(pts.shape)
+    wn[rng.random(pts.shape[0]) < 1 / 3] = 0.0
+    P, WV, WN = (torch.as_tensor(x) for x in (pts, wv, wn))
+    dead = (WV == 0) & torch.all(WN == 0, dim=-1)
+    assert 0 < int(dead.sum()) < pts.shape[0]
+    want = TQ.query_with_gradient_vjp_plain(tt, P, WV, WN)[0]
+    assert float(want.abs().max()) > 0
+    _close(_k8g_formula(tt, P, WV, WN), want.numpy(), RTOL64)
+    if deg:
+        def f(c):
+            v, n = hp.query_with_gradient(dataclasses.replace(jt, coeffs=c),
+                                          jnp.asarray(pts))
+            return jnp.where(v == jnp.finfo(jnp.float64).max, 0.0, v), n
+
+        _, pull = jax.vjp(f, jt.coeffs)
+        _close(want, pull((jnp.asarray(wv), jnp.asarray(wn)))[0], RTOL64)
+
+
 def test_legendre_second_derivative(few_torch_threads):  # noqa: F811
     """L''_p by its recurrence against numpy's Legendre series and
     against autograd of the three-term recurrence, p = 0..12."""
@@ -518,7 +596,7 @@ def test_path_normal_map(sphere, few_torch_threads):  # noqa: F811
 
 @pytest.mark.parametrize("kernel", ["query_vjp", "query_vjp_hess",
                                     "coeff_scatter_grad", "packed_hvp",
-                                    "packed_grad_form2", "grad_buckets"])
+                                    "packed_grad_form2"])
 def test_kernel_wrappers_refuse_cpu(kernel, few_torch_threads):  # noqa: F811
     """The new backward kernels' wrappers launch on CUDA tensors or raise;
     only the entry points take the plain versions, for CPU tensors."""
@@ -534,8 +612,6 @@ def test_kernel_wrappers_refuse_cpu(kernel, few_torch_threads):  # noqa: F811
             TQ.query_vjp_kernel(tt, p64, w64, p64)
         elif kernel == "coeff_scatter_grad":
             TQ.coeff_scatter_grad_kernel(tt, p64, w64, p64)
-        elif kernel == "grad_buckets":
-            TQ.grad_buckets_kernel(tt, p64, w64, p64)
         elif kernel == "packed_hvp":
             TA.packed_hvp_kernel(tp, p32, TA.VALUES_GRAD_VJP, w32, p32)
         else:

@@ -128,7 +128,7 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                                    "round", "leaf", "K8 nodes", "K14",
                                    "K13", "K6", "K6 points", "K13 vjp",
                                    "K13 ref", "K8 sort", "K1h", "K7 form2",
-                                   "K8g", "K5h", "K8g sort"],
+                                   "K8g", "K5h"],
                          ids=["clean", "spills", "march_spills",
                               "backward_spills", "csr_spills",
                               "fused_spills", "cg_spills", "chunk_spills",
@@ -140,8 +140,7 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                               "inverse_terms_reference_spills",
                               "node_sort_spills", "hess_spills",
                               "normals_backward_spills",
-                              "grad_scatter_spills", "hvp_spills",
-                              "grad_sort_spills"])
+                              "grad_scatter_spills", "hvp_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
@@ -153,11 +152,11 @@ def test_ptxas_check(monkeypatch, spill):
     round, its leaf evaluation (at degree 3 or 5), K8's node-range mode (at
     any degree 0..6) or its sort,
     K14, any launch of K13 (the points, the terms' loss forward or VJP
-    backward), K1h, K7's form 2, K8g's tile launch or K5h (either mode) at
-    degree 3 or 5, K8g's sort, either of K6's launches (at any degree
-    2..11, f64 or f32), or, in the check library's report, K13's terms as
-    they were before their redesign has a stack frame or spills; every
-    instantiation of K6's two kernels must be in the report."""
+    backward), K1h, K7's form 2, K8g or K5h (either mode) at degree 3 or
+    5, either of K6's launches (at any degree 2..11, f64 or f32),
+    or, in the check library's report, K13's terms as they were before
+    their redesign has a stack frame or spills; every instantiation of
+    K6's two kernels must be in the report."""
     from hpsdf_tpu_torch import _kernels
 
     report = "".join(
@@ -187,7 +186,7 @@ def test_ptxas_check(monkeypatch, spill):
                          stack=24 if spill == "K7" and f == 1
                          or spill == "K7 form2" and f == 2 and d == 5 else 0,
                          args=f"Li{d}ELi{f}E") for f in (0, 1, 2))
-        report += _ptxas_entry("grad_tile_kernel", d, None, regs=40,
+        report += _ptxas_entry("coeff_scatter_grad_kernel", d, None,
                                stack=8 if spill == "K8g" and d == 5 else 0)
         report += "".join(
             _ptxas_entry("packed_hvp_kernel", d, None, args=f"Li{d}ELi{m}E",
@@ -231,10 +230,8 @@ def test_ptxas_check(monkeypatch, spill):
         report += _ptxas_entry("coeff_scatter_nodes_kernel", d, None,
                                regs=40, stack=16 if spill == "K8 nodes"
                                and d == 3 else 0)
-    for grad in (0, 1):
-        report += _ptxas_entry(
-            "node_sort_kernel", 0, None, args=f"Lb{grad}E", regs=40,
-            stack=8 if spill == ("K8g sort" if grad else "K8 sort") else 0)
+    report += _ptxas_entry("node_sort_kernel", 0, None, args="", regs=40,
+                           stack=8 if spill == "K8 sort" else 0)
     report += _ptxas_entry("signed_from_best_kernel", 0, None, args="",
                            regs=40, stack=8 if spill == "K14" else 0)
     report += _ptxas_entry("inverse_points_kernel", 0, None, args="",
@@ -281,7 +278,6 @@ def test_ptxas_check(monkeypatch, spill):
                 "K1h": "K1h 5/hess: stack 8",
                 "K7 form2": "K7 5/form2: stack 24",
                 "K8g": "K8g 5: stack 8",
-                "K8g sort": "K8g sort grad: stack 8",
                 "K5h": "K5h 3/values: stack 8"}[spill]):
             chip_smoke.ptxas_check()
         return
@@ -328,7 +324,4 @@ def test_ptxas_check(monkeypatch, spill):
     assert found["leaf_nodes_kernel"] == {k: [48, 0, 0, 0] for k in "35"}
     assert found["coeff_scatter_nodes_kernel"] == {str(d): [40, 0, 0, 0]
                                                    for d in range(7)}
-    assert found["grad_tile_kernel"] == {str(d): [40, 0, 0, 0]
-                                         for d in (3, 5)}
-    assert found["node_sort_kernel"] == {"-": [40, 0, 0, 0],
-                                         "grad": [40, 0, 0, 0]}
+    assert found["node_sort_kernel"] == {"-": [40, 0, 0, 0]}
