@@ -1558,8 +1558,9 @@ def counters():
     (``query_nodes``) counts its descent rounds and leaf evaluations; K8's
     node-range mode its tile launches (``coeff_scatter_nodes``) and, apart,
     its sort's (``node_buckets``); K1's backward modes all their launches
-    (``query_vjp``) and, apart, K1h's (``query_vjp_hess``); K7 its form 2's
-    apart (``packed_grad_form2``)."""
+    (``query_vjp``) and, apart, K1h's (``query_vjp_hess``); K1 all its
+    launches and, apart, those that write the leaf for them
+    (``query_leaf``); K7 its form 2's apart (``packed_grad_form2``)."""
     from hpsdf_tpu_torch.accel import (packed_eval_kernel, packed_grad_kernel,
                                        packed_hvp_kernel, row_gather,
                                        row_scatter)
@@ -1583,6 +1584,7 @@ def counters():
             "hybrid": (hybrid_closest, "launches"),
             "bvh_walk": (closest_bvh, "launches"),
             "query": (query_kernel, "launches"),
+            "query_leaf": (query_kernel, "leaf_launches"),
             "row_gather": (row_gather, "launches"),
             "packed_eval": (packed_eval_kernel, "launches"),
             "packed_eval_normals": (packed_eval_kernel, "grad_launches"),
@@ -3465,15 +3467,16 @@ def k1_frame_ops(deg, depth_used, order):
 
 
 def k1v_ops(deg, depth_used):
-    """f64 operations a point of K1v: K1's descent and frame to order 1,
-    and the three gradient sums, whose pair products are N_x N_y,
-    N'_x N_y and N_x N'_y. The value's sum is no part of the VJP."""
+    """f64 operations a point of K1v: K1's descent (depth_used 0 from K1's
+    leaf, which runs none) and frame to order 1, and the three gradient
+    sums, whose pair products are N_x N_y, N'_x N_y and N_x N'_y. The
+    value's sum is no part of the VJP."""
     return k1_frame_ops(deg, depth_used, 1) + product_sum_ops(deg, 3, 3)
 
 
 def k1h_ops(deg, depth_used):
-    """f64 operations a point of K1h: K1's descent and frame to order 2,
-    the three gradient and six Hessian sums (xx, yy, zz, xy, xz, yz), whose
+    """f64 operations a point of K1h: K1's descent (depth_used 0 from K1's
+    leaf) and frame to order 2, the three gradient and six Hessian sums (xx, yy, zz, xy, xz, yz), whose
     pair products are N_x N_y, N'_x N_y, N_x N'_y, N''_x N_y, N_x N''_y and
     N'_x N'_y. The value's sum is no part of the VJP."""
     return k1_frame_ops(deg, depth_used, 2) + product_sum_ops(deg, 9, 6)
@@ -3527,6 +3530,52 @@ def sparse_cotangents(w, wn, seed):
                     0.0, w)
     zero = torch.rand(wn.shape[0], generator=g, device=w.device) < 1 / 3
     return w, torch.where(zero[:, None], 0.0, wn)
+
+
+def query_vjp_reference(tree, pts, w, wn=None, outside_value_max=True):
+    """K1v (``wn`` None) and K1h as they were before their redesign
+    (csrc/check/query_vjp_reference.cu: one launch that descends from the
+    root again), called as their wrapper called them."""
+    from hpsdf_tpu_torch import _kernels
+
+    pts, w = pts.detach().contiguous(), w.detach().contiguous()
+    hess = wn is not None
+    wn = wn.detach().contiguous() if hess else None
+    out = torch.empty(pts.shape, dtype=torch.float64, device=pts.device)
+    rc = tree.config.root_centre
+    inv = 1.0 / tree.config.root_sizes
+    _kernels.check(_kernels.load(),
+                   _kernels.load_check().hpsdf_query_vjp_reference(
+        tree.child_idx.data_ptr(), tree.centre.data_ptr(),
+        tree.depth.data_ptr(), tree.coeffs.detach().data_ptr(),
+        tree.deg_used, tree.depth_used, pts.data_ptr(), pts.shape[0],
+        *map(float, rc), *map(float, inv), int(outside_value_max or hess),
+        w.data_ptr(), wn.data_ptr() if hess else None, out.data_ptr(),
+        _kernels.stream_of(pts)), "query_vjp_reference")
+    return out
+
+
+def vjp_blocks(deg, hess, reference=False):
+    """Blocks of 128 threads an SM holds of K1v (``hess`` False) or K1h at
+    degree ``deg``: the shipped kernel's, or with ``reference`` the
+    re-descending kernel's it replaced (cudaOccupancyMaxActive-
+    BlocksPerMultiprocessor, with the launch's carveout)."""
+    import ctypes
+    from hpsdf_tpu_torch import _kernels
+
+    lib = _kernels.load_check() if reference else _kernels.load()
+    fn = lib.hpsdf_query_vjp_reference_blocks if reference \
+        else lib.hpsdf_query_vjp_blocks
+    n = ctypes.c_int(0)
+    _kernels.check(_kernels.load(), fn(deg, int(hess), ctypes.byref(n)),
+                   "query_vjp_blocks")
+    return n.value
+
+
+def wrong_leaf(leaf):
+    """A wrong leaf for K1v's and K1h's teeth: each point given the leaf
+    of the point before it, a leaf of the tree but not its own."""
+    return torch.roll(leaf, 1)
 
 
 TRACE_FACE_RAYS = 1 << 14          # rays of the face check, an eighth a kind
@@ -3632,11 +3681,18 @@ def trace_face_check(tree, smi, seed):
 def grad2_checks(tree, pt, p64, seed, with_teeth=False):
     """The five backward kernels against their plain versions on CUDA
     tensors at the points p64 (B, 3) (f32 for the packed ones), seeded
-    cotangents. Returns {kernel: (max|kernel - plain| / max|plain|,
-    max|kernel - plain|, teeth or None)}; raises where one is above its
-    tolerance or, with ``with_teeth``, a wrong result passes."""
+    cotangents; K1v and K1h from K1's leaf, which must be the descent's
+    (``query_leaf_plain``) with and without the gradient, K1's values
+    unchanged by writing it, and K1v and K1h bit for bit the kernels they
+    replaced (``query_vjp_reference``). Returns {kernel: (max|kernel -
+    plain| / max|plain|, max|kernel - plain|, teeth or None)}; raises
+    where one is above its tolerance or, with ``with_teeth``, a wrong
+    result passes: for K1v and K1h also a wrong leaf (``wrong_leaf``),
+    against the plain version and against the replaced kernel, where the
+    VJP is not zero (degree 0's is)."""
     from hpsdf_tpu_torch import accel as A
     from hpsdf_tpu_torch.query import (_to_unit, coeff_scatter_grad_kernel,
+                                       query_kernel, query_leaf_plain,
                                        query_points_vjp_plain,
                                        query_vjp_kernel,
                                        query_with_gradient_vjp_plain)
@@ -3654,19 +3710,41 @@ def grad2_checks(tree, pt, p64, seed, with_teeth=False):
     w, wn = rand(B), rand(B, 3)
     w32, wn32 = w.float(), wn.float()
     n_g = B // 2
-    cd, pd = query_with_gradient_vjp_plain(tree, p64, w, wn)
+    v, leaf = query_kernel(tree, p64, False, with_leaf=True)
+    vg, g, leaf_g = query_kernel(tree, p64, True, with_leaf=True)
+    want_leaf = query_leaf_plain(tree, p64)
+    check(torch.equal(leaf, want_leaf) and torch.equal(leaf_g, want_leaf),
+          f"K1's leaf vs the descent ({B} points, degree {tree.deg_used})")
+    check(torch.equal(v, query_kernel(tree, p64, False))
+          and all(map(torch.equal, (vg, g), query_kernel(tree, p64, True))),
+          "K1's values or gradients move when it writes the leaf")
+    cd, pd = query_with_gradient_vjp_plain(tree, p64, w, wn, leaf=leaf)
     ws, wns = sparse_cotangents(w, wn, seed)
     nr, ng, npt = A.normals_vjp_plain(pt, p32, wn32)
+    k1 = {"query_vjp": (query_vjp_kernel(tree, p64, leaf, w),
+                        query_points_vjp_plain(tree, p64, w, leaf=leaf),
+                        lambda lf: query_vjp_kernel(tree, p64, lf, w),
+                        lambda: query_vjp_reference(tree, p64, w)),
+          "query_vjp_inside_out": (
+              query_vjp_kernel(tree, p64, leaf, w, outside_value_max=False),
+              query_points_vjp_plain(tree, p64, w, False, leaf=leaf),
+              lambda lf: query_vjp_kernel(tree, p64, lf, w,
+                                          outside_value_max=False),
+              lambda: query_vjp_reference(tree, p64, w,
+                                          outside_value_max=False)),
+          "query_vjp_hess": (query_vjp_kernel(tree, p64, leaf, w, wn), pd,
+                             lambda lf: query_vjp_kernel(tree, p64, lf, w,
+                                                         wn),
+                             lambda: query_vjp_reference(tree, p64, w,
+                                                         wn))}
+    bad = wrong_leaf(leaf)
+    for name, (got, want, with_leaf, replaced) in k1.items():
+        check(torch.equal(got, replaced()), f"{name} from K1's leaf vs the "
+              f"kernel it replaced ({B} points, degree {tree.deg_used}): "
+              f"not bit for bit")
     cases = {
-        "query_vjp": (query_vjp_kernel(tree, p64, w),
-                      query_points_vjp_plain(tree, p64, w), GRAD2_RTOL64,
-                      face64),
-        "query_vjp_inside_out": (
-            query_vjp_kernel(tree, p64, w, outside_value_max=False),
-            query_points_vjp_plain(tree, p64, w, False), GRAD2_RTOL64,
-            face64),
-        "query_vjp_hess": (query_vjp_kernel(tree, p64, w, wn), pd,
-                           GRAD2_RTOL64, face64),
+        **{name: (got, want, GRAD2_RTOL64, face64)
+           for name, (got, want, _, _) in k1.items()},
         "coeff_scatter_grad": (coeff_scatter_grad_kernel(tree, p64, w, wn),
                                cd, GRAD2_RTOL64, None),
         "coeff_scatter_grad_sparse": (
@@ -3694,23 +3772,214 @@ def grad2_checks(tree, pt, p64, seed, with_teeth=False):
         teeth = None
         if with_teeth:
             teeth = grad2_teeth(got, want, tol, face)
+            if name in k1 and bool(want.any()):
+                wrong = k1[name][2](bad)
+                teeth += [rel_err(wrong, want) > tol,
+                          not torch.equal(wrong, k1[name][3]())]
             check(all(teeth), f"{name}: a wrong result passes the check "
                   f"{teeth}")
         out[name] = (err, float((got - want).abs().max()), teeth)
     return out
 
 
-def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, seed=12):
+# K1v and K1h from K1's leaf against the kernels they replaced: the
+# smallest of the four shapes they are timed at, and the graph's calls
+N_SMALL = 1 << 16
+PAIR_REPS = 10
+
+
+@contextlib.contextmanager
+def replaced_pair():
+    """``query`` and ``query_with_gradient`` with the pair of kernels the
+    leaf replaced in place of the shipped one: K1 without the leaf, then
+    the re-descending K1v / K1h (``query_vjp_reference``)."""
+    import unittest.mock
+
+    Q = importlib.import_module("hpsdf_tpu_torch.query")
+
+    def forward(ctx, tree, pts, with_grad, outside_value_max=True):
+        ctx.tree = tree
+        ctx.save_for_backward(pts, None)
+        return Q.query_kernel(tree, pts, with_grad, outside_value_max)
+
+    def backward(tree, pts, leaf, w, wn=None, outside_value_max=True):
+        return query_vjp_reference(tree, pts, w, wn, outside_value_max)
+
+    with unittest.mock.patch.object(Q, "_forward", forward), \
+            unittest.mock.patch.object(Q, "query_vjp_kernel", backward):
+        yield
+
+
+def leaf_split(tree, p64):
+    """What K1's descent costs at the points p64 (B, 3): K1's values from
+    given leaves (its node-range leaf launch over every row, lo = 0, hi =
+    N) against K1 with its descent, in turns, both in CUDA graphs; the
+    values from the leaves bit for bit K1's inside the root."""
+    import types
+
+    from hpsdf_tpu_torch.query import (OUTSIDE_VALUE, _to_unit, clip_half,
+                                       query_kernel, query_nodes_kernel)
+
+    v, leaf = query_kernel(tree, p64, False, with_leaf=True)
+    unit = clip_half(_to_unit(tree, p64)).contiguous()
+    block = types.SimpleNamespace(
+        lo=0, hi=tree.child_idx.shape[0], device=tree.device,
+        deg_used=tree.deg_used, **{k: getattr(tree, k) for k in (
+            "child_idx", "centre", "depth", "coeffs")})
+    count = query_nodes_kernel.launches
+    given = query_nodes_kernel(block, unit, leaf, leaf=True)
+    inside = v != OUTSIDE_VALUE
+    check(torch.equal(given[inside], v[inside]), "K1's values from given "
+          "leaves vs K1's")
+    t = turns({"k1_ms": lambda: query_kernel(tree, p64, False),
+               "k1_given_leaf_ms": lambda: query_nodes_kernel(
+                   block, unit, leaf, leaf=True)}, PAIR_REPS)
+    query_nodes_kernel.launches = count
+    return {**t, "descent_ms": t["k1_ms"] - t["k1_given_leaf_ms"]}
+
+
+def leaf_shape(tree, p, seed):
+    """K1v and K1h from K1's leaf against the kernels they replaced at the
+    points p (B, 3) f64 on ``tree``, in turns in CUDA graphs: K1 with and
+    without the leaf (values, and values with gradients); each backward
+    beside the replaced kernel, its plain version (from the leaf) and its
+    bound (the tree's centres, depths and rows, the points, the
+    cotangents and the leaves read once, 24 B a point written; K1v's or
+    K1h's operations without a descent); and each pair, K1 with the leaf
+    then the backward, beside K1 then the replaced kernel."""
+    from hpsdf_tpu_torch.query import (query_kernel, query_points_vjp_plain,
+                                       query_vjp_kernel,
+                                       query_with_gradient_vjp_plain)
+
+    rng = np.random.default_rng(seed)
+    B, dev = p.shape[0], p.device
+    w = torch.as_tensor(rng.standard_normal(B), device=dev)
+    wn = torch.as_tensor(rng.standard_normal((B, 3)), device=dev)
+    _, leaf = query_kernel(tree, p, False, with_leaf=True)
+    row = {"points": B, "degree": tree.deg_used}
+    for key, grad in (("k1", False), ("k1g", True)):
+        row.update(turns({
+            f"{key}_ms": lambda: query_kernel(tree, p, grad),
+            f"{key}_leaf_ms": lambda: query_kernel(tree, p, grad,
+                                                   with_leaf=True)},
+            PAIR_REPS))
+    for key, hess in (("k1v", False), ("k1h", True)):
+        cot = (w, wn) if hess else (w,)
+
+        def plain():
+            if hess:
+                return query_with_gradient_vjp_plain(tree, p, w, wn,
+                                                     leaf=leaf)[1]
+            return query_points_vjp_plain(tree, p, w, leaf=leaf)
+
+        def pair_old():
+            query_kernel(tree, p, hess)
+            return query_vjp_reference(tree, p, *cot)
+
+        def pair_new():
+            lf = query_kernel(tree, p, hess, with_leaf=True)[-1]
+            return query_vjp_kernel(tree, p, lf, *cot)
+
+        t = turns({"replaced_ms": lambda: query_vjp_reference(tree, p, *cot),
+                   "ms": lambda: query_vjp_kernel(tree, p, leaf, *cot),
+                   "replaced_pair_ms": pair_old, "pair_ms": pair_new},
+                  PAIR_REPS)
+        by_bytes = bytes_ms(tree.centre, tree.depth, tree.coeffs, p, *cot,
+                            leaf, extra=24 * B)
+        by_ops = B * (k1h_ops if hess else k1v_ops)(tree.deg_used, 0) \
+            / F64_PEAK * 1e3
+        row[key] = {**t, "plain_ms": time_ms(plain, 1),
+                    "bound_ms": max(by_bytes, by_ops),
+                    "bound_by": "bytes" if by_bytes >= by_ops
+                    else "operations",
+                    "bytes_bound_ms": by_bytes, "ops_bound_ms": by_ops}
+    return row
+
+
+def path_steps(tree_s, tree_i, p_a, pts_b, n_t):
+    """The device time (torch.profiler) of one step of path (a) (a
+    projection step of the points p_a on the slice tree) and of path (b)
+    (the oriented-point fit's loss and backward at the samples pts_b on
+    tree_i), with the shipped pair and with the one it replaced
+    (``replaced_pair``), in turns: {path: (the replaced pair's mean, the
+    shipped pair's mean, the four
+    readings, the step's K1 and K1v / K1h kernels (name, ms, calls))}."""
+    def step_b():
+        C = tree_i.coeffs.detach().clone().requires_grad_(True)
+        shift = torch.zeros(3, dtype=torch.float64, device=pts_b.device,
+                            requires_grad=True)
+        oriented_fit_loss(tree_i, C, shift, pts_b, n_t).backward()
+
+    out = {}
+    for name, step in (("(a)", lambda: projection_step(tree_s, p_a)),
+                       ("(b)", step_b)):
+        r, kept = [], {}
+        for label in ("replaced", "leaf", "leaf", "replaced"):
+            with (replaced_pair() if label == "replaced"
+                  else contextlib.nullcontext()):
+                step()
+                ms, _, k = device_busy_ms(step, keep=("query_kernel",
+                                                      "query_vjp"))
+            check(ms is not None, f"path {name}'s step: no device time in "
+                  "the trace")
+            r.append(ms)
+            kept[label] = k
+        out[name] = ((r[0] + r[3]) / 2, (r[1] + r[2]) / 2, r, kept)
+    return out
+
+
+def hits_times(carved, hits, seed):
+    """K5h (both modes) and K7's form 2 at path (c)'s own points, the
+    render's hits on the carved tree's packed tables, in CUDA graphs,
+    beside their bounds (as at 2^20 points)."""
+    from hpsdf_tpu_torch import accel as A
+
+    pk = A.pack_tree(carved)
+    p32 = hits.to(torch.float32).contiguous()
+    B = p32.shape[0]
+    rng = np.random.default_rng(seed)
+    w32 = torch.as_tensor(rng.standard_normal(B), dtype=torch.float32,
+                          device=p32.device)
+    wn32 = torch.as_tensor(rng.standard_normal((B, 3)), dtype=torch.float32,
+                           device=p32.device)
+    read = packed_read_bytes(pk, p32, True)
+    ops = B * k5h_ops(pk.deg_used) / F32_PEAK * 1e3
+    out = {}
+    for name, fn, by_bytes, by_ops in (
+            ("packed_hvp", lambda: A.packed_hvp_kernel(
+                pk, p32, A.NORMALS_VJP, cot3=wn32),
+             bytes_ms(p32, wn32, extra=12 * B + read), ops),
+            ("packed_hvp_values", lambda: A.packed_hvp_kernel(
+                pk, p32, A.VALUES_GRAD_VJP, w32, wn32),
+             bytes_ms(p32, w32, wn32, extra=12 * B + read), ops),
+            ("packed_grad_form2", lambda: A.packed_grad_kernel(
+                pk, p32, wn32, 2),
+             bytes_ms(p32, wn32, pk.rows, pk.grid, extra=read),
+             B * k7f2_ops(pk.deg_used) / F32_PEAK * 1e3)):
+        ms = graph_ms(fn, 10)
+        out[name] = {"ms": ms, "bound_ms": max(by_bytes, by_ops),
+                     "bound_by": "bytes" if by_bytes >= by_ops
+                     else "operations", "points": B}
+    return out
+
+
+def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
     """The reads' derivatives on the card: K1v and K1h (query.cu's
-    backward modes), K8g (coeff_scatter.cu), K5h (packed_eval.cu, both
-    modes) and K7's form 2 (packed_grad.cu) against their plain versions
-    at 2^20 points on the slice tree (a sixteenth on the root's faces,
-    some outside) and at every degree 0..12 on synthetic_tree, with two
-    wrong results each shown to fail (grad2_teeth); each timed in a CUDA
-    graph beside its plain version and its bound, with the operations a
-    call puts on the card; K8g also with a third of each cotangent zero,
+    backward modes, from K1's leaf), K8g (coeff_scatter.cu), K5h
+    (packed_eval.cu, both modes) and K7's form 2 (packed_grad.cu) against
+    their plain versions at 2^20 points on the slice tree (a sixteenth on
+    the root's faces, some outside) and at every degree 0..12 on
+    synthetic_tree, with two wrong results each shown to fail
+    (grad2_teeth; K1v and K1h also a wrong leaf), K1v and K1h bit for bit
+    the kernels they replaced; each timed in a CUDA graph beside its plain
+    version and its bound, with the operations a call puts on the card
+    (K1 with the leaf too); K8g also with a third of each cotangent zero,
     and K8's trace form on rays that hit the root's faces
-    (trace_face_check). Then the three paths, the launch counts set to
+    (trace_face_check). K1v and K1h against the kernels they replaced:
+    the split (leaf_split), four shapes (leaf_shape), a profiled step of
+    paths (a) and (b) with each pair (path_steps), blocks an SM and
+    registers (vjp_blocks, ``ptxas``); K5h and K7's form 2 at path (c)'s
+    hits (hits_times). Then the three paths, the launch counts set to
     0 just before and read just after: (a) PROJ_STEPS projection steps of
     2^20 points in the root (projection_step), (b) FIT_STEPS Adam steps of
     the oriented-point fit of the inverse setup's initial tree (the r =
@@ -3726,8 +3995,8 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, seed=12):
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch import accel as A
     from hpsdf_tpu_torch.query import (coeff_scatter_grad_kernel,
-                                       query_points_vjp_plain, query_plain,
-                                       query_vjp_kernel,
+                                       query_kernel, query_points_vjp_plain,
+                                       query_plain, query_vjp_kernel,
                                        query_with_gradient_plain,
                                        query_with_gradient_vjp_plain)
 
@@ -3775,8 +4044,9 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, seed=12):
     w = torch.as_tensor(rng.standard_normal(B), device=dev)
     wn = torch.as_tensor(rng.standard_normal((B, 3)), device=dev)
     p32, w32, wn32 = p64.float(), w.float(), wn.float()
-    arrays = [getattr(tree_s, k) for k in ("child_idx", "centre", "depth",
-                                            "degree", "coeffs")]
+    # K1v and K1h read the leaf and no node's children or degree
+    arrays = [tree_s.centre, tree_s.depth, tree_s.coeffs]
+    _, leaf = query_kernel(tree_s, p64, False, with_leaf=True)
     deg, dep = tree_s.deg_used, tree_s.depth_used
     from hpsdf_tpu_torch.query import _to_unit
     unit = _to_unit(tree_s, p64)
@@ -3786,15 +4056,16 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, seed=12):
     packed_bytes = packed_read_bytes(pt_s, p32, True)
     shapes = {
         "query_vjp": (
-            lambda: query_vjp_kernel(tree_s, p64, w),
-            lambda: query_points_vjp_plain(tree_s, p64, w),
-            bytes_ms(*arrays, p64, w, extra=24 * B),
-            B * k1v_ops(deg, dep) / F64_PEAK * 1e3, K1V_OPS),
+            lambda: query_vjp_kernel(tree_s, p64, leaf, w),
+            lambda: query_points_vjp_plain(tree_s, p64, w, leaf=leaf),
+            bytes_ms(*arrays, p64, w, leaf, extra=24 * B),
+            B * k1v_ops(deg, 0) / F64_PEAK * 1e3, K1V_OPS),
         "query_vjp_hess": (
-            lambda: query_vjp_kernel(tree_s, p64, w, wn),
-            lambda: query_with_gradient_vjp_plain(tree_s, p64, w, wn),
-            bytes_ms(*arrays, p64, w, wn, extra=24 * B),
-            B * k1h_ops(deg, dep) / F64_PEAK * 1e3, K1H_OPS),
+            lambda: query_vjp_kernel(tree_s, p64, leaf, w, wn),
+            lambda: query_with_gradient_vjp_plain(tree_s, p64, w, wn,
+                                                  leaf=leaf),
+            bytes_ms(*arrays, p64, w, wn, leaf, extra=24 * B),
+            B * k1h_ops(deg, 0) / F64_PEAK * 1e3, K1H_OPS),
         "coeff_scatter_grad": (
             lambda: coeff_scatter_grad_kernel(tree_s, p64, w, wn),
             lambda: query_with_gradient_vjp_plain(tree_s, p64, w, wn),
@@ -3838,6 +4109,63 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, seed=12):
               f"{by_ops:.5f}; {t['bound_ms'] / t['ms']:.1%} of it) | "
               f"operations on the card a call: {t['launches_a_call']}",
               flush=True)
+    leaf_ops = device_ops(lambda: query_kernel(tree_s, p64, True,
+                                               with_leaf=True))
+    check(leaf_ops == 1, f"K1 with the leaf puts {leaf_ops} operations on "
+          "the card a call (1)")
+
+    # K1v and K1h from K1's leaf against the kernels they replaced
+    pts, n_t = (torch.as_tensor(x, device=dev) for x in
+                oriented_samples(mesh, N_QUERY, seed + 2))
+    p_a = torch.as_tensor(root_points(lo, hi, N_QUERY, seed + 1), device=dev)
+    leafd = {"split": leaf_split(tree_s, p64), "leaf_ops": leaf_ops}
+    sp = leafd["split"]
+    print(f"[grad2] the split at 2^20 points on the slice tree | {smi} | K1 "
+          f"(values) with its descent {sp['k1_ms']:.4f} ms, from given "
+          f"leaves (its node-range leaf launch over every row) "
+          f"{sp['k1_given_leaf_ms']:.4f} ms: the descent "
+          f"{sp['descent_ms']:.4f} ms", flush=True)
+    leafd["shapes"] = {}
+    for k, (name, (tree, p)) in enumerate({
+            "2^20 uniform": (tree_s, p64),
+            "(a) after a step": (tree_s, projection_step(tree_s, p_a)[0]),
+            "(b) samples": (tree_i, pts),
+            "2^16 uniform": (tree_s, torch.as_tensor(root_points(
+                lo, hi, N_SMALL, seed + 3, pad=0.05), device=dev))}.items()):
+        row = leafd["shapes"][name] = leaf_shape(tree, p, seed + 200 + k)
+        print(f"[grad2] K1v / K1h from K1's leaf at {name} ({row['points']} "
+              f"points, degree {row['degree']}) | {smi} | K1 "
+              f"{row['k1_ms']:.4f} / with the leaf {row['k1_leaf_ms']:.4f} "
+              f"ms, with the gradient {row['k1g_ms']:.4f} / "
+              f"{row['k1g_leaf_ms']:.4f} | " + " | ".join(
+                  f"{key} {r['ms']:.4f} ms (replaced {r['replaced_ms']:.4f}), "
+                  f"plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.5f} "
+                  f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%}), pair "
+                  f"{r['pair_ms']:.4f} (replaced {r['replaced_pair_ms']:.4f})"
+                  for key, r in ((k_, row[k_]) for k_ in ("k1v", "k1h"))),
+              flush=True)
+    leafd["steps"] = path_steps(tree_s, tree_i, p_a, pts, n_t)
+    leafd["blocks"] = {f"{d}/{'hess' if h else 'vjp'}": {
+        "blocks": vjp_blocks(d, h), "replaced_blocks": vjp_blocks(d, h, True),
+        "registers": ptxas.get("query_vjp_kernel", {}).get(
+            f"{d}/{'hess' if h else 'vjp'}", [None])[0],
+        "replaced_registers": ptxas.get("query_vjp_reference_kernel", {}).get(
+            f"{d}/{'hess' if h else 'vjp'}", [None])[0]}
+        for d in (3, 5) for h in (False, True)}
+    print(f"[grad2] device time of a profiled step (ms; the replaced pair, the "
+          f"leaf's pair) | {smi} | " + ", ".join(
+              f"{k} {v[0]:.3f} / {v[1]:.3f} (readings {v[2]})"
+              for k, v in leafd["steps"].items())
+          + " | blocks of 128 threads an SM and registers, K1v / K1h from "
+          "the leaf against the replaced kernels': " + ", ".join(
+              f"{k} {v['blocks']} ({v['replaced_blocks']}), {v['registers']} "
+              f"({v['replaced_registers']})" for k, v in leafd["blocks"].items()),
+          flush=True)
+    leafd["hits"] = hits_times(carved, hits, seed + 300)
+    print(f"[grad2] at path (c)'s {hits.shape[0]} hits | {smi} | " + ", ".join(
+        f"{k} {v['ms']:.4f} ms, bound {v['bound_ms']:.5f} ({v['bound_by']}; "
+        f"{v['bound_ms'] / v['ms']:.1%})" for k, v in leafd["hits"].items()),
+        flush=True)
 
     # --- the paths: the counts from here to the end of (c) ------------
     reset_counts()
@@ -3865,9 +4193,7 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, seed=12):
           f", {proj['s']:.3f} s", flush=True)
 
     # (b) oriented-point fit: the initial tree's coefficients and the
-    # samples' shift
-    pts, n_t = (torch.as_tensor(x, device=dev) for x in
-                oriented_samples(mesh, N_QUERY, seed + 2))
+    # samples' shift (pts, n_t above)
     params = [tree_i.coeffs.detach().clone().requires_grad_(True),
               torch.zeros(3, dtype=torch.float64, device=dev,
                           requires_grad=True)]
@@ -3917,6 +4243,9 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, seed=12):
           flush=True)
     for k, count in GRAD2_KERNELS.items():
         check(count(launches) > 0, f"{k} never launched on [grad2]'s paths")
+    check(launches["query_leaf"] == launches["query_vjp"], f"K1 wrote "
+          f"{launches['query_leaf']} leaves for {launches['query_vjp']} "
+          "launches of K1v / K1h on [grad2]'s paths")
     for k, loss, least in (("(b)", fit["loss"], FIT_MIN_DROP),
                            ("(c)", nmap["loss"], NMAP_MIN_DROP)):
         check(all(math.isfinite(x) for x in loss)
@@ -3959,7 +4288,7 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, seed=12):
           flush=True)
     return launches, {"errs": errs, "abs_errs": abs_errs, "times": times,
                       "projection": proj, "oriented_fit": fit,
-                      "normal_map": nmap,
+                      "normal_map": nmap, "leaf": leafd,
                       "teeth": {k: v[2] for k, v in
                                 out["checks"]["2^20 slice"].items()}}
 
@@ -7472,9 +7801,11 @@ PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
                  "inverse_points_kernel", "inverse_loss_kernel",
                  "inverse_vjp_kernel",
                  "fit_points_kernel", "fit_project_kernel",
-                 "coeff_scatter_grad_kernel", "packed_hvp_kernel")
+                 "coeff_scatter_grad_kernel", "packed_hvp_kernel",
+                 "query_vjp_kernel")
 # the check library's kernels the ptxas check reads (csrc/check/)
-CHECK_PTXAS_KERNELS = ("inverse_terms_reference_kernel",)
+CHECK_PTXAS_KERNELS = ("inverse_terms_reference_kernel",
+                       "query_vjp_reference_kernel")
 
 
 def _ptxas_key(kernel, args):
@@ -7492,7 +7823,10 @@ def _ptxas_key(kernel, args):
     if kernel == "coeff_scatter_kernel":
         return f"{args[1]}/{'f32 trace' if args[2] else 'f64 query'}"
     if kernel == "query_kernel":
-        return f"{args[0]}/{('values', 'grad', 'hess')[args[1]]}"
+        return f"{args[0]}/{('values', 'grad')[args[1]]}" \
+            + ("/leaf" if args[2:3] == [1] else "")
+    if kernel in ("query_vjp_kernel", "query_vjp_reference_kernel"):
+        return f"{args[0]}/{'hess' if args[1] == 2 else 'vjp'}"
     if kernel == "packed_hvp_kernel":
         return f"{args[0]}/{('normals', 'values')[args[1]]}"
     if kernel == "packed_eval_kernel":
@@ -7508,19 +7842,22 @@ def _ptxas_key(kernel, args):
 
 def ptxas_check():
     """Registers, stack and spills of every kernel's instantiations, as
-    ptxas reported them when the library was built. K1 (with K1v, its
-    gradient's instantiation), K3, K4, K5's raw gradient (alone and fused
-    with K2), K7 (its three forms), K8, K8g, K1h and K5h (both modes) at
-    degrees 3 and 5 (the main paths'), both forms of G's backward, K9 (on
-    the face operator and in its CSR form), K9u, both forms of the persistent launch, both forms
+    ptxas reported them when the library was built. K1 (values, and with
+    the gradient) with and without the leaf it writes for K1v and K1h, K3,
+    K4, K5's raw gradient (alone and fused with K2), K7 (its three forms),
+    K8, K8g, K1v and K1h (from the leaf) and K5h (both modes) at degrees 3
+    and 5 (the main paths'), both forms of G's backward, K9 (on the face
+    operator and in its CSR form), K9u, both forms of the persistent
+    launch, both forms
     of each of the row-sharded CG's two K9u launches, both of K10 and K11,
     K1's node-range descent round and, at degrees 3 and 5, its leaf
     evaluation, K8's node-range mode at degrees 0..6 and its sort,
     K14, the three launches of K13,
     and both of K6's launches at every degree 2..11 in f64 and f32 must
     have no stack frame and no spills; so must the check library's K13
-    terms as they were before their redesign (CHECK_PTXAS_KERNELS), the
-    reference the redesigned kernels are held and timed against. Returns
+    terms as they were before their redesign, the reference the redesigned
+    kernels are held and timed against; the check library's K1v and K1h
+    as they were are read, for their registers. Returns
     {kernel: {key: [registers, stack, spill stores, spill loads]}}."""
     from hpsdf_tpu_torch import _kernels
 
@@ -7545,14 +7882,17 @@ def ptxas_check():
                    int(m.group(4))]
     for name, kernel, keys in (
             ("K1", "query_kernel", ("3/values", "3/grad", "5/values",
-                                    "5/grad")),
+                                    "5/grad", "3/values/leaf",
+                                    "3/grad/leaf", "5/values/leaf",
+                                    "5/grad/leaf")),
+            ("K1v", "query_vjp_kernel", ("3/vjp", "5/vjp")),
             ("K3", "march_kernel", ("3", "5")),
             ("K4", "cone_kernel", ("3/full", "5/full", "2/lo")),
             ("K5 raw", "packed_eval_kernel", ("3/raw", "5/raw", "3/fused",
                                                "5/fused")),
             ("K7", "packed_grad_kernel", ("3/form0", "3/form1", "5/form0",
                                           "5/form1", "3/form2", "5/form2")),
-            ("K1h", "query_kernel", ("3/hess", "5/hess")),
+            ("K1h", "query_vjp_kernel", ("3/hess", "5/hess")),
             ("K8g", "coeff_scatter_grad_kernel", ("3", "5")),
             ("K5h", "packed_hvp_kernel", ("3/normals", "3/values",
                                           "5/normals", "5/values")),
@@ -7624,8 +7964,8 @@ def main():
             job.result()
     print(f"[build] {len(_kernels.sources())} sources -> "
           f"{os.path.relpath(_kernels.library_path())}, the reference "
-          f"kernels of the K3, K4, K7, G's backward, K8, K11, K6 and K13 "
-          f"checks -> {os.path.relpath(_kernels.library_path('check'))}, in "
+          f"kernels of the K3, K4, K7, G's backward, K8, K11, K6, K13, K1v "
+          f"and K1h checks -> {os.path.relpath(_kernels.library_path('check'))}, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 3)
     ptxas = ptxas_check()
@@ -7728,7 +8068,7 @@ def main():
                            (INV_SIZE, (INV_SMALL, INV_SMALL)))
     tgrad = phase("grad", phase_grad, pt_s, tree, s_inv, smi)
     launches_g2, tg2 = phase("grad2", phase_grad2, tree, s_inv["init"], mesh,
-                             carved, ph, smi)
+                             carved, ph, smi, ptxas)
     tk13 = phase("k13", check_k13, s_inv, smi)
     phase("k14 ops", phase_k14_ops, bvh.tri_rows, table, fit_pts, tk14)
     tk6.update(phase("k6 ops", phase_k6_ops, k6_calls))
@@ -7788,6 +8128,7 @@ def main():
          "grad_bound_by": t["k1g_bound_by"],
          "grad_bytes_bound_ms": t["k1g_bytes_bound"],
          "grad_ops_bound_ms": t["k1g_ops_bound"],
+         "leaf_launches": total["query_leaf"],
          "ptxas": ptxas.get("query_kernel", {})},
         {"name": "row_gather", "route": "cuda",
          "source": "hpsdf_tpu_torch/csrc/row_gather.cu",
@@ -8105,23 +8446,46 @@ def main():
                "points")},
            **({"values_mode": tg2["times"]["packed_hvp_values"]}
               if name == "packed_hvp" else {}),
+           **({"at_path_c_hits": tg2["leaf"]["hits"][name]}
+              if name in ("packed_hvp", "packed_grad_form2") else {}),
+           **({"values_mode_at_path_c_hits":
+               tg2["leaf"]["hits"]["packed_hvp_values"]}
+              if name == "packed_hvp" else {}),
+           **({"from_leaf": True, "bit_for_bit_replaced": True,
+               "leaf_launches": launches_g2["query_leaf"],
+               "reference": {
+                   "source": "hpsdf_tpu_torch/csrc/check/"
+                             "query_vjp_reference.cu",
+                   "entry": "hpsdf_query_vjp_reference"},
+               "shapes": {k: {**row[key], **{
+                   f"forward_{x}": row[f"{fw}_{x}"] for x in (
+                       "ms", "leaf_ms")}} for k, row in
+                   tg2["leaf"]["shapes"].items()},
+               "split": tg2["leaf"]["split"],
+               "blocks": {k: v for k, v in tg2["leaf"]["blocks"].items()
+                          if k.endswith(sub)}}
+              if kernel == "query_vjp_kernel" else {}),
            "teeth": {k: tg2["teeth"][k] for k in keys},
-           "ptxas": ptxas.get(kernel, {})}
-          for name, source, replaces, keys, kernel in (
+           "ptxas": {k: v for k, v in ptxas.get(kernel, {}).items()
+                     if k.endswith(sub)}}
+          for name, source, replaces, keys, kernel, key, fw, sub in (
               ("query_vjp", "query.cu", "hpsdf_tpu/query.py:69-85",
-               ("query_vjp", "query_vjp_inside_out"), "query_kernel"),
+               ("query_vjp", "query_vjp_inside_out"), "query_vjp_kernel",
+               "k1v", "k1", "/vjp"),
               ("query_vjp_hess", "query.cu", "hpsdf_tpu/query.py:88-108",
-               ("query_vjp_hess",), "query_kernel"),
+               ("query_vjp_hess",), "query_vjp_kernel", "k1h", "k1g",
+               "/hess"),
               ("coeff_scatter_grad", "coeff_scatter.cu",
                "hpsdf_tpu/query.py:88-108",
                ("coeff_scatter_grad", "coeff_scatter_grad_sparse"),
-               "coeff_scatter_grad_kernel"),
+               "coeff_scatter_grad_kernel", None, None, ""),
               ("packed_hvp", "packed_eval.cu",
                "hpsdf_tpu/render.py:1092-1110,hpsdf_tpu/inverse.py:234",
-               ("packed_hvp", "packed_hvp_values"), "packed_hvp_kernel"),
+               ("packed_hvp", "packed_hvp_values"), "packed_hvp_kernel",
+               None, None, ""),
               ("packed_grad_form2", "packed_grad.cu",
                "hpsdf_tpu/render.py:1092-1110", ("packed_grad_form2",),
-               "packed_grad_kernel"))),
+               "packed_grad_kernel", None, None, ""))),
     ]
     print(f"[e2e] {smi} | carve {tr['carve_s']:.3f} s, render 512^2 "
           f"{tr['render_s']:.3f} s, hit fraction {frac:.4f} | 1024^2 march: "

@@ -49,8 +49,9 @@ _SIGNATURES = {
     "hpsdf_bvh_walk": (_P, _P, _I64, _I64, _I32, _P, _I64, _I64, _P, _P, _P,
                        _P),
     "hpsdf_query": (_P, _P, _P, _P, _I32, _I32, _P, _I64,
-                    _F64, _F64, _F64, _F64, _F64, _F64, _I32, _P, _P, _P),
-    "hpsdf_query_vjp": (_P, _P, _P, _P, _I32, _I32, _P, _I64,
+                    _F64, _F64, _F64, _F64, _F64, _F64, _I32, _P, _P, _P,
+                    _P),
+    "hpsdf_query_vjp": (_P, _P, _P, _I32, _P, _P, _I64,
                         _F64, _F64, _F64, _F64, _F64, _F64, _I32, _P, _P, _P,
                         _P),
     "hpsdf_descend_nodes": (_P, _P, _I32, _I32, _P, _P, _I64, _P, _P),
@@ -106,6 +107,7 @@ _SIGNATURES = {
     "hpsdf_fit_project": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _F64, _I64,
                           _I32, _P, _P),
     "hpsdf_fit_project_shape": (_I32, _I32, _P),
+    "hpsdf_query_vjp_blocks": (_I32, _I32, _P),
 }
 # entry points that return a size in bytes (int64_t), not an error code
 _SIZE_SIGNATURES = {
@@ -139,6 +141,10 @@ _CHECK_SIGNATURES = {
     "hpsdf_inverse_terms_reference": (_P, _P, _P, _P, _P, _P, _I64, _P, _P,
                                       _F32, _F32, _F32, _P, _P, _P, _P, _P,
                                       _P),
+    "hpsdf_query_vjp_reference": (_P, _P, _P, _P, _I32, _I32, _P, _I64,
+                                  _F64, _F64, _F64, _F64, _F64, _F64, _I32,
+                                  _P, _P, _P, _P),
+    "hpsdf_query_vjp_reference_blocks": (_I32, _I32, _P),
 }
 
 _lock = threading.Lock()

@@ -22,8 +22,10 @@ the points, through backward kernels, in f64:
     sphere tracer's implicit VJP in f32 (``render.trace``);
   * ``query`` to the points: K1v, and ``query_with_gradient`` to the
     points: K1h, the backward modes of K1 (``query_vjp_kernel``), which
-    re-descend and re-evaluate the leaf to one order higher (K1h: the
-    Hessian);
+    evaluate each point's leaf to one order higher (K1h: the Hessian) from
+    the leaf the forward found: a forward whose points need a gradient
+    writes it (``query_kernel(..., with_leaf=True)``, 4 bytes a point) and
+    saves it for the backward, which runs no descent;
   * ``query_with_gradient`` to the coefficients: K8g
     (``coeff_scatter_grad_kernel``), K8 with the unit gradient's term.
 
@@ -121,31 +123,39 @@ def _frame(tree, row: torch.Tensor, clamped: torch.Tensor):
     return (clamped - tree.centre[row]) * scale[..., None], depth, scale
 
 
-def _leaf_frame(tree: Octree, pts: torch.Tensor):
-    """Inside-root mask, then each point's leaf: its coefficient row, the
-    point in the leaf's [-1, 1]^3 frame, the leaf depth and 2**(depth+1).
-    The point is clamped into the root by ``clip_half``."""
+def query_leaf_plain(tree: Octree, pts: torch.Tensor) -> torch.Tensor:
+    """Each point's leaf (B,) i32, as K1 writes it with ``with_leaf``: the
+    descent of the point clamped into the root by ``clip_half``."""
+    return descend(tree, clip_half(_to_unit(tree, pts.detach())))
+
+
+def _leaf_frame(tree: Octree, pts: torch.Tensor, leaf=None):
+    """Inside-root mask, then each point's leaf (``leaf`` (B,), or its
+    descent when None): its coefficient row, the point in the leaf's
+    [-1, 1]^3 frame, the leaf depth and 2**(depth+1). The point is clamped
+    into the root by ``clip_half``."""
     unit = _to_unit(tree, pts)
     inside = torch.all(unit.abs() <= 0.5, dim=-1)
     clamped = clip_half(unit)
-    leaf = descend(tree, clamped.detach()).long()
+    leaf = (descend(tree, clamped.detach()) if leaf is None else leaf).long()
     local, depth, scale = _frame(tree, leaf, clamped)
     return inside, tree.coeffs[leaf], local, depth, scale
 
 
 def query_plain(tree: Octree, pts: torch.Tensor,
-                outside_value_max: bool = True) -> torch.Tensor:
-    """``query`` by the plain torch version of K1, whatever the device."""
-    inside, coeffs, local, depth, _ = _leaf_frame(tree, pts)
+                outside_value_max: bool = True, leaf=None) -> torch.Tensor:
+    """``query`` by the plain torch version of K1, whatever the device;
+    from the leaves ``leaf`` (B,) where given, else by the descent."""
+    inside, coeffs, local, depth, _ = _leaf_frame(tree, pts, leaf)
     val = basis.eval_basis(coeffs, local, depth, tree.deg_used)
     return torch.where(inside, val, OUTSIDE_VALUE) if outside_value_max \
         else val
 
 
-def query_with_gradient_plain(tree: Octree, pts: torch.Tensor):
+def query_with_gradient_plain(tree: Octree, pts: torch.Tensor, leaf=None):
     """``query_with_gradient`` by the plain torch version of K1, whatever
-    the device."""
-    inside, coeffs, local, depth, scale = _leaf_frame(tree, pts)
+    the device; from the leaves ``leaf`` (B,) where given."""
+    inside, coeffs, local, depth, scale = _leaf_frame(tree, pts, leaf)
     val, g_local = basis.eval_basis_grad(coeffs, local, depth, tree.deg_used)
     # chain rule: local = (unit - centre) * 2**(depth+1); unit = (w - c)/sizes
     inv_sizes = torch.as_tensor(1.0 / tree.config.root_sizes,
@@ -192,17 +202,24 @@ def _cotangents(B: int, dev, *cots) -> list:
 
 
 def query_kernel(tree: Octree, pts: torch.Tensor, with_grad: bool,
-                 outside_value_max: bool = True):
-    """Launch K1 on CUDA tensors: values (B,) f64, and with ``with_grad``
-    also unit world gradients (B, 3) f64. Raises on anything else."""
+                 outside_value_max: bool = True, with_leaf: bool = False):
+    """Launch K1 on CUDA tensors: values (B,) f64, with ``with_grad`` also
+    unit world gradients (B, 3) f64, and with ``with_leaf`` last each
+    point's leaf (B,) i32 (``query_leaf_plain``), which the backward modes
+    (``query_vjp_kernel``) start from. Raises on anything else."""
     _check_f64(tree, pts, "query_kernel")
     pts = pts.contiguous()
     B = pts.shape[0]
     val = torch.empty(B, dtype=torch.float64, device=pts.device)
     grad = (torch.empty((B, 3), dtype=torch.float64, device=pts.device)
             if with_grad else None)
+    leaf = (torch.empty(B, dtype=torch.int32, device=pts.device)
+            if with_leaf else None)
+    out = (val,) + ((grad,) if with_grad else ()) \
+        + ((leaf,) if with_leaf else ())
+    out = out if len(out) > 1 else val
     if B == 0:
-        return (val, grad) if with_grad else val
+        return out
     lib = _kernels.load()
     rc = tree.config.root_centre
     inv = 1.0 / tree.config.root_sizes
@@ -214,25 +231,37 @@ def query_kernel(tree: Octree, pts: torch.Tensor, with_grad: bool,
         float(inv[0]), float(inv[1]), float(inv[2]),
         int(outside_value_max), val.data_ptr(),
         grad.data_ptr() if with_grad else None,
+        leaf.data_ptr() if with_leaf else None,
         _kernels.stream_of(pts)), "query")
     query_kernel.launches += 1
-    return (val, grad) if with_grad else val
+    query_kernel.leaf_launches += int(with_leaf)
+    return out
 
 
 query_kernel.launches = 0
+query_kernel.leaf_launches = 0
 
 
-def query_vjp_kernel(tree: Octree, pts: torch.Tensor, w: torch.Tensor,
-                     wn: torch.Tensor | None = None,
+def query_vjp_kernel(tree: Octree, pts: torch.Tensor, leaf: torch.Tensor,
+                     w: torch.Tensor, wn: torch.Tensor | None = None,
                      outside_value_max: bool = True) -> torch.Tensor:
     """Launch K1's backward modes on CUDA tensors: the gradient (B, 3) f64
     with respect to the points of sum(w * query) (K1v, ``wn`` None;
     nothing from points outside the root when ``outside_value_max``), or
     of sum(w * value) + sum(wn * unit_grad) of ``query_with_gradient``
-    (K1h). One launch a call. Raises on anything else."""
+    (K1h), from each point's leaf ``leaf`` (B,) i32 as K1 wrote it for
+    these points (``query_kernel(..., with_leaf=True)``); a leaf from
+    anywhere else gives another function's VJP. One launch a call. Raises
+    on anything else."""
     _check_f64(tree, pts, "query_vjp_kernel")
     pts = pts.detach().contiguous()
     B = pts.shape[0]
+    if leaf.shape != (B,) or leaf.dtype != torch.int32 \
+            or leaf.device != pts.device:
+        raise ValueError(f"leaf must be i32 ({B},) on {pts.device}, got "
+                         f"{leaf.dtype} {tuple(leaf.shape)} on "
+                         f"{leaf.device}")
+    leaf = leaf.contiguous()
     hess = wn is not None
     cots = _cotangents(B, pts.device, w, *((wn,) if hess else ()))
     out = torch.empty((B, 3), dtype=torch.float64, device=pts.device)
@@ -242,10 +271,9 @@ def query_vjp_kernel(tree: Octree, pts: torch.Tensor, w: torch.Tensor,
     rc = tree.config.root_centre
     inv = 1.0 / tree.config.root_sizes
     _kernels.check(lib, lib.hpsdf_query_vjp(
-        tree.child_idx.data_ptr(), tree.centre.data_ptr(),
-        tree.depth.data_ptr(), tree.coeffs.detach().data_ptr(),
-        tree.deg_used, tree.depth_used, pts.data_ptr(), B,
-        *map(float, rc), *map(float, inv),
+        tree.centre.data_ptr(), tree.depth.data_ptr(),
+        tree.coeffs.detach().data_ptr(), tree.deg_used, pts.data_ptr(),
+        leaf.data_ptr(), B, *map(float, rc), *map(float, inv),
         int(outside_value_max or hess), cots[0].data_ptr(),
         cots[1].data_ptr() if hess else None, out.data_ptr(),
         _kernels.stream_of(pts)), "query_vjp")
@@ -390,20 +418,24 @@ def query_vjp_plain(tree: Octree, pts: torch.Tensor, w: torch.Tensor,
 
 
 def query_points_vjp_plain(tree: Octree, pts: torch.Tensor, w: torch.Tensor,
-                           outside_value_max: bool = True) -> torch.Tensor:
+                           outside_value_max: bool = True,
+                           leaf=None) -> torch.Tensor:
     """K1v by autograd of ``query_plain``: the gradient (B, 3) of
-    sum(w * query) with respect to the points."""
-    return _grads(lambda p: query_plain(tree, p, outside_value_max),
+    sum(w * query) with respect to the points, from the leaves ``leaf``
+    (B,) where given (K1v's inputs), else by the descent."""
+    return _grads(lambda p: query_plain(tree, p, outside_value_max, leaf),
                   (pts,), w)[0]
 
 
 def query_with_gradient_vjp_plain(tree: Octree, pts: torch.Tensor,
-                                  wv: torch.Tensor, wn: torch.Tensor):
+                                  wv: torch.Tensor, wn: torch.Tensor,
+                                  leaf=None):
     """K8g and K1h by autograd of ``query_with_gradient_plain``: the
     gradients (N, C) and (B, 3) of sum(wv * value) + sum(wn * unit_grad)
-    with respect to ``tree.coeffs`` and the points."""
+    with respect to ``tree.coeffs`` and the points, from the leaves
+    ``leaf`` (B,) where given (K1h's inputs), else by the descent."""
     return _grads(lambda c, p: query_with_gradient_plain(
-        dataclasses.replace(tree, coeffs=c), p), (tree.coeffs, pts),
+        dataclasses.replace(tree, coeffs=c), p, leaf), (tree.coeffs, pts),
         (wv, wn))
 
 
@@ -725,48 +757,59 @@ def coeff_scatter_nodes(block, pts, leaf, w, outside_value_max=False):
     return coeff_scatter_nodes_kernel(block, pts, leaf, w, outside_value_max)
 
 
+def _forward(ctx, tree, pts, with_grad, outside_value_max=True):
+    """K1 for an autograd function's forward: with each point's leaf, saved
+    beside the points for K1v / K1h, only where the points need a
+    gradient."""
+    ctx.tree = tree
+    if not ctx.needs_input_grad[2]:
+        ctx.save_for_backward(pts)
+        return query_kernel(tree, pts, with_grad, outside_value_max)
+    *out, leaf = query_kernel(tree, pts, with_grad, outside_value_max,
+                              with_leaf=True)
+    ctx.save_for_backward(pts, leaf)
+    return tuple(out) if with_grad else out[0]
+
+
 class _Query(torch.autograd.Function):
     """K1, with K8 (query form) as its VJP with respect to the coefficients
-    and K1v with respect to the points."""
+    and K1v (from K1's leaves) with respect to the points."""
 
     @staticmethod
     def forward(ctx, coeffs, tree, pts, outside_value_max):
-        ctx.save_for_backward(pts)
-        ctx.tree, ctx.outside_value_max = tree, outside_value_max
-        return query_kernel(tree, pts, False, outside_value_max)
+        ctx.outside_value_max = outside_value_max
+        return _forward(ctx, tree, pts, False, outside_value_max)
 
     @staticmethod
     def backward(ctx, w):
-        (pts,) = ctx.saved_tensors
+        pts, *leaf = ctx.saved_tensors
         w = w.contiguous()
         d_coeffs = d_pts = None
         if ctx.needs_input_grad[0]:
             d_coeffs = coeff_scatter_kernel(
                 ctx.tree, w, pts=pts, outside_value_max=ctx.outside_value_max)
         if ctx.needs_input_grad[2]:
-            d_pts = query_vjp_kernel(ctx.tree, pts, w,
+            d_pts = query_vjp_kernel(ctx.tree, pts, *leaf, w,
                                      outside_value_max=ctx.outside_value_max)
         return d_coeffs, None, d_pts, None
 
 
 class _QueryWithGradient(torch.autograd.Function):
     """K1 with the gradient, with K8g as its VJP with respect to the
-    coefficients and K1h with respect to the points."""
+    coefficients and K1h (from K1's leaves) with respect to the points."""
 
     @staticmethod
     def forward(ctx, coeffs, tree, pts):
-        ctx.save_for_backward(pts)
-        ctx.tree = tree
-        return query_kernel(tree, pts, True)
+        return _forward(ctx, tree, pts, True)
 
     @staticmethod
     def backward(ctx, wv, wn):
-        (pts,) = ctx.saved_tensors
+        pts, *leaf = ctx.saved_tensors
         d_coeffs = d_pts = None
         if ctx.needs_input_grad[0]:
             d_coeffs = coeff_scatter_grad_kernel(ctx.tree, pts, wv, wn)
         if ctx.needs_input_grad[2]:
-            d_pts = query_vjp_kernel(ctx.tree, pts, wv, wn)
+            d_pts = query_vjp_kernel(ctx.tree, pts, *leaf, wv, wn)
         return d_coeffs, None, d_pts
 
 

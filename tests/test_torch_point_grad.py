@@ -606,10 +606,11 @@ def test_kernel_wrappers_refuse_cpu(kernel, few_torch_threads):  # noqa: F811
     w64 = torch.zeros(4, dtype=torch.float64)
     p32, w32 = p64.float(), w64.float()
     with pytest.raises(ValueError, match="CUDA"):
+        leaf = torch.zeros(4, dtype=torch.int32)
         if kernel == "query_vjp":
-            TQ.query_vjp_kernel(tt, p64, w64)
+            TQ.query_vjp_kernel(tt, p64, leaf, w64)
         elif kernel == "query_vjp_hess":
-            TQ.query_vjp_kernel(tt, p64, w64, p64)
+            TQ.query_vjp_kernel(tt, p64, leaf, w64, p64)
         elif kernel == "coeff_scatter_grad":
             TQ.coeff_scatter_grad_kernel(tt, p64, w64, p64)
         elif kernel == "packed_hvp":

@@ -128,7 +128,7 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                                    "round", "leaf", "K8 nodes", "K14",
                                    "K13", "K6", "K6 points", "K13 vjp",
                                    "K13 ref", "K8 sort", "K1h", "K7 form2",
-                                   "K8g", "K5h"],
+                                   "K8g", "K5h", "K1v", "K1 leaf"],
                          ids=["clean", "spills", "march_spills",
                               "backward_spills", "csr_spills",
                               "fused_spills", "cg_spills", "chunk_spills",
@@ -140,7 +140,8 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                               "inverse_terms_reference_spills",
                               "node_sort_spills", "hess_spills",
                               "normals_backward_spills",
-                              "grad_scatter_spills", "hvp_spills"])
+                              "grad_scatter_spills", "hvp_spills",
+                              "vjp_spills", "leaf_store_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
@@ -152,21 +153,25 @@ def test_ptxas_check(monkeypatch, spill):
     round, its leaf evaluation (at degree 3 or 5), K8's node-range mode (at
     any degree 0..6) or its sort,
     K14, any launch of K13 (the points, the terms' loss forward or VJP
-    backward), K1h, K7's form 2, K8g or K5h (either mode) at degree 3 or
-    5, either of K6's launches (at any degree 2..11, f64 or f32),
-    or, in the check library's report, K13's terms as they were before
-    their redesign has a stack frame or spills; every instantiation of
-    K6's two kernels must be in the report."""
+    backward), K1v or K1h (from K1's leaf), K1 writing the leaf, K7's form
+    2, K8g or K5h (either mode) at degree 3 or 5, either of K6's launches
+    (at any degree 2..11, f64 or f32), or, in the check library's report,
+    K13's terms as they were before their redesign has a stack frame or
+    spills; every instantiation of K6's two kernels must be in the report.
+    The check library's K1v and K1h as they were are read, spills or not,
+    for their registers."""
     from hpsdf_tpu_torch import _kernels
 
     report = "".join(
-        _ptxas_entry("query_kernel", d, g,
-                     stack=8 if spill == "K1" and d == 5 else 0)
-        for d in (3, 5, 12) for g in (False, True))
+        _ptxas_entry("query_kernel", d, None, args=f"Li{d}ELi{g}ELb{lf}E",
+                     stack=8 if spill == "K1" and d == 5 and not lf
+                     or spill == "K1 leaf" and d == 3 and g and lf else 0)
+        for d in (3, 5, 12) for g in (0, 1) for lf in (0, 1))
     report += "".join(
-        _ptxas_entry("query_kernel", d, None, args=f"Li{d}ELi2E",
-                     stack=8 if spill == "K1h" and d == 5 else 0)
-        for d in (3, 5))
+        _ptxas_entry("query_vjp_kernel", d, None, args=f"Li{d}ELi{o}E",
+                     regs=80, stack=8 if spill == "K1h" and d == 5 and o == 2
+                     or spill == "K1v" and d == 3 and o == 1 else 0)
+        for d in (3, 5) for o in (1, 2))
     report += _ptxas_entry("packed_eval_kernel", 3, False, regs=32)
     report += "".join(
         _ptxas_entry("march_kernel", d, None, regs=80,
@@ -243,6 +248,10 @@ def test_ptxas_check(monkeypatch, spill):
     check_report = _ptxas_entry(
         "inverse_terms_reference_kernel", 0, None, args="", regs=40,
         stack=8 if spill == "K13 ref" else 0)
+    check_report += "".join(
+        _ptxas_entry("query_vjp_reference_kernel", d, None,
+                     args=f"Li{d}ELi{o}E", regs=96, stack=48 * (d == 5))
+        for d in (3, 5) for o in (1, 2))
     for t in "df":
         for d in range(2, 12):
             report += _ptxas_entry(
@@ -276,6 +285,8 @@ def test_ptxas_check(monkeypatch, spill):
                 "K6": "K6 proj 5/f32: stack 16",
                 "K6 points": "K6 points 7/f64: stack 8",
                 "K1h": "K1h 5/hess: stack 8",
+                "K1v": "K1v 3/vjp: stack 8",
+                "K1 leaf": "K1 3/grad/leaf: stack 8",
                 "K7 form2": "K7 5/form2: stack 24",
                 "K8g": "K8g 5: stack 8",
                 "K5h": "K5h 3/values: stack 8"}[spill]):
@@ -283,9 +294,12 @@ def test_ptxas_check(monkeypatch, spill):
         return
     found = chip_smoke.ptxas_check()
     assert found["query_kernel"]["3/grad"] == [56, 0, 0, 0]
-    assert set(found["query_kernel"]) == {f"{d}/{k}" for d in (3, 5, 12)
-                                          for k in ("values", "grad")} \
-        | {"3/hess", "5/hess"}
+    assert set(found["query_kernel"]) == {
+        f"{d}/{k}{lf}" for d in (3, 5, 12) for k in ("values", "grad")
+        for lf in ("", "/leaf")}
+    assert found["query_vjp_kernel"] == {
+        f"{d}/{k}": [80, 0, 0, 0] for d in (3, 5) for k in ("vjp", "hess")}
+    assert found["query_vjp_reference_kernel"]["5/hess"] == [96, 48, 48, 48]
     assert found["packed_eval_kernel"]["3/values"] == [32, 0, 0, 0]
     assert set(found["packed_eval_kernel"]) == {
         "3/values", "3/raw", "5/raw", "3/fused", "5/fused"}
