@@ -1558,7 +1558,8 @@ def counters():
     (``query_nodes``) counts its descent rounds and leaf evaluations; K8's
     node-range mode its tile launches (``coeff_scatter_nodes``) and, apart,
     its sort's (``node_buckets``); K1's backward modes all their launches
-    (``query_vjp``) and, apart, K1h's (``query_vjp_hess``); K1 all its
+    (``query_vjp``) and, apart, K1h's (``query_vjp_hess``) and K1c's
+    (``query_vjp_centre``, either order); K1 all its
     launches and, apart, those that write the leaf for them
     (``query_leaf``); K7 its form 2's apart (``packed_grad_form2``)."""
     from hpsdf_tpu_torch.accel import (packed_eval_kernel, packed_grad_kernel,
@@ -1613,6 +1614,7 @@ def counters():
             "fit_project": (fit_project_kernel, "launches"),
             "query_vjp": (query_vjp_kernel, "launches"),
             "query_vjp_hess": (query_vjp_kernel, "hess_launches"),
+            "query_vjp_centre": (query_vjp_kernel, "centre_launches"),
             "coeff_scatter_grad": (coeff_scatter_grad_kernel, "launches"),
             "packed_hvp": (packed_hvp_kernel, "launches"),
             "packed_grad_form2": (packed_grad_kernel, "form2_launches")}
@@ -3014,11 +3016,13 @@ GRAD2_RTOL64, GRAD2_RTOL32, GRAD2_RTOL_HVP = 1e-10, 1e-5, 1e-4
 NMAP_RTOL = 1e-4
 # the operations on the card a call may take
 K1V_OPS = K1H_OPS = K5H_OPS = K7F2_OPS = 1
-K8G_OPS = 2
-# the five kernels' names in the kernels line, from the launch counts
+K8G_OPS = K1C_OPS = 2
+# the six kernels' names in the kernels line, from the launch counts
 GRAD2_KERNELS = {
-    "query_vjp": lambda n: n["query_vjp"] - n["query_vjp_hess"],
+    "query_vjp": lambda n: n["query_vjp"] - n["query_vjp_hess"]
+    - n["query_vjp_centre"],
     "query_vjp_hess": lambda n: n["query_vjp_hess"],
+    "query_centre_vjp": lambda n: n["query_vjp_centre"],
     "coeff_scatter_grad": lambda n: n["coeff_scatter_grad"],
     "packed_hvp": lambda n: n["packed_hvp"],
     "packed_grad_form2": lambda n: n["packed_grad_form2"]}
@@ -3064,14 +3068,18 @@ def projection_step(tree, p):
     return (p - step).detach(), f
 
 
-def oriented_fit_loss(tree, coeffs, shift, pts, n_t):
-    """Path (b)'s loss on the tree with coefficients ``coeffs``, at the
-    oriented samples moved by ``shift`` (3,): mean query^2 + mean (1 - n .
-    n_t), n query_with_gradient's unit gradient. On CUDA tensors K1 with
-    K8 and K1v, and K1 with the gradient with K8g and K1h."""
+def oriented_fit_loss(tree, coeffs, shift, pts, n_t, centre=None):
+    """Path (b)'s loss on the tree with coefficients ``coeffs`` (and, for
+    path (d), centres ``centre``), at the oriented samples moved by
+    ``shift`` (3,): mean query^2 + mean (1 - n . n_t), n
+    query_with_gradient's unit gradient. On CUDA tensors K1 with K8 and
+    K1v, and K1 with the gradient with K8g and K1h; with the centres K1c in
+    place of K1v and K1h, one launch a read for the points and the
+    centres."""
     import hpsdf_tpu_torch as T
 
-    tr = dataclasses.replace(tree, coeffs=coeffs)
+    tr = dataclasses.replace(tree, coeffs=coeffs, **(
+        {} if centre is None else {"centre": centre}))
     p = pts + shift
     f = T.query(tr, p)
     _, n = T.query_with_gradient(tr, p)
@@ -3506,20 +3514,35 @@ def k7f2_ops(deg):
     return k7_ops(deg, 1) + product_sum_ops(deg, 3, 3)
 
 
-def grad2_teeth(got, want, tol, face=None):
+def grad2_teeth(got, want, tol, face=None, sloped=None):
     """Whether each wrong result fails the check rel_err <= tol: the
     largest entry moved by 10 tol of the largest (of 1 where the result is
     zero), and, for a point VJP with ``face`` (B, 3) the entries on an
     axis at a face of the root, where some of those are not zero, those
     entries doubled (the clamp's derivative taken as 1 there, the fault
-    the face rule repairs)."""
+    the face rule repairs); for K1c, ``sloped``, the centre gradient with
+    the clamp's slope wrongly applied (``centre_sloped``), where it is not
+    the result."""
     flat = got.clone().reshape(-1)
     k = int(want.reshape(-1).abs().argmax())
     flat[k] += 10 * tol * max(float(want.abs().max()), 1.0)
     caught = [rel_err(flat.reshape(got.shape), want) > tol]
     if face is not None and bool((face & (got != 0)).any()):
         caught.append(rel_err(torch.where(face, 2 * got, got), want) > tol)
+    if sloped is not None and not torch.equal(sloped, got):
+        caught.append(rel_err(sloped, want) > tol)
     return caught
+
+
+def centre_sloped(tree, leaf, d_pts):
+    """K1c's wrong result with the clamp's slope applied (a point on a
+    face of the root taking 1/2, one outside 0, as the points' gradient
+    does): minus each leaf's points' gradients ``d_pts`` (K1v's or K1h's)
+    times the root's sizes, summed into the leaf's row."""
+    sizes = torch.as_tensor(tree.config.root_sizes, dtype=torch.float64,
+                            device=d_pts.device)
+    return -torch.zeros_like(tree.centre).index_add_(0, leaf.long(),
+                                                     d_pts * sizes)
 
 
 def sparse_cotangents(w, wn, seed):
@@ -3679,20 +3702,25 @@ def trace_face_check(tree, smi, seed):
 
 
 def grad2_checks(tree, pt, p64, seed, with_teeth=False):
-    """The five backward kernels against their plain versions on CUDA
+    """The six backward kernels against their plain versions on CUDA
     tensors at the points p64 (B, 3) (f32 for the packed ones), seeded
-    cotangents; K1v and K1h from K1's leaf, which must be the descent's
-    (``query_leaf_plain``) with and without the gradient, K1's values
-    unchanged by writing it, and K1v and K1h bit for bit the kernels they
-    replaced (``query_vjp_reference``). Returns {kernel: (max|kernel -
-    plain| / max|plain|, max|kernel - plain|, teeth or None)}; raises
+    cotangents; K1v, K1h and K1c from K1's leaf, which must be the
+    descent's (``query_leaf_plain``) with and without the gradient, K1's
+    values unchanged by writing it, and K1v and K1h bit for bit the
+    kernels they replaced (``query_vjp_reference``). K1c in both orders
+    (``query`` both ways of ``outside_value_max``, and
+    ``query_with_gradient``), and in one launch with the points' gradient,
+    which must be K1v's or K1h's bit for bit. Returns {kernel: (max|kernel
+    - plain| / max|plain|, max|kernel - plain|, teeth or None)}; raises
     where one is above its tolerance or, with ``with_teeth``, a wrong
     result passes: for K1v and K1h also a wrong leaf (``wrong_leaf``),
     against the plain version and against the replaced kernel, where the
-    VJP is not zero (degree 0's is)."""
+    VJP is not zero (degree 0's is); for K1c the clamp's slope wrongly
+    applied (``centre_sloped``)."""
     from hpsdf_tpu_torch import accel as A
     from hpsdf_tpu_torch.query import (_to_unit, coeff_scatter_grad_kernel,
-                                       query_kernel, query_leaf_plain,
+                                       query_centre_vjp_plain, query_kernel,
+                                       query_leaf_plain,
                                        query_points_vjp_plain,
                                        query_vjp_kernel,
                                        query_with_gradient_vjp_plain)
@@ -3742,9 +3770,31 @@ def grad2_checks(tree, pt, p64, seed, with_teeth=False):
         check(torch.equal(got, replaced()), f"{name} from K1's leaf vs the "
               f"kernel it replaced ({B} points, degree {tree.deg_used}): "
               f"not bit for bit")
+    # K1c, each form beside the points' kernel of its order
+    k1c = {}
+    for name, cot, ovm, pts_name in (
+            ("query_centre_vjp", (w,), True, "query_vjp"),
+            ("query_centre_vjp_inside_out", (w,), False,
+             "query_vjp_inside_out"),
+            ("query_centre_vjp_hess", (w, wn), True, "query_vjp_hess")):
+        d_pts, d_c = query_vjp_kernel(tree, p64, leaf, *cot,
+                                      outside_value_max=ovm, centre=True)
+        check(torch.equal(d_pts, k1[pts_name][0]), f"{name}: the points' "
+              f"gradient of K1c's launch vs {pts_name} ({B} points, degree "
+              f"{tree.deg_used}): not bit for bit")
+        k1c[name] = (query_vjp_kernel(tree, p64, leaf, *cot,
+                                      outside_value_max=ovm, points=False,
+                                      centre=True),
+                     query_centre_vjp_plain(tree, p64, *cot,
+                                            outside_value_max=ovm,
+                                            leaf=leaf),
+                     centre_sloped(tree, leaf, d_pts))
+        k1c[name + "_both"] = (d_c, k1c[name][1], k1c[name][2])
     cases = {
         **{name: (got, want, GRAD2_RTOL64, face64)
            for name, (got, want, _, _) in k1.items()},
+        **{name: (got, want, GRAD2_RTOL64, None, sloped)
+           for name, (got, want, sloped) in k1c.items()},
         "coeff_scatter_grad": (coeff_scatter_grad_kernel(tree, p64, w, wn),
                                cd, GRAD2_RTOL64, None),
         "coeff_scatter_grad_sparse": (
@@ -3764,14 +3814,14 @@ def grad2_checks(tree, pt, p64, seed, with_teeth=False):
                               torch.cat((nr, ng)), GRAD2_RTOL32, None),
     }
     out = {}
-    for name, (got, want, tol, face) in cases.items():
+    for name, (got, want, tol, face, *sloped) in cases.items():
         check(bool(torch.isfinite(got).all()), f"{name}: not finite")
         err = rel_err(got, want)
         check(err <= tol, f"{name} vs its plain version ({B} points, "
               f"degree {tree.deg_used}): {err:.3e} > {tol:g}")
         teeth = None
         if with_teeth:
-            teeth = grad2_teeth(got, want, tol, face)
+            teeth = grad2_teeth(got, want, tol, face, *sloped)
             if name in k1 and bool(want.any()):
                 wrong = k1[name][2](bad)
                 teeth += [rel_err(wrong, want) > tol,
@@ -3896,6 +3946,58 @@ def leaf_shape(tree, p, seed):
     return row
 
 
+def centre_bound(tree, p, cots, hess):
+    """K1c's bound at the points p (B, 3) on ``tree``: K1v's or K1h's
+    (the tree's centres, depths and rows, the points, the cotangents and
+    the leaves read once, ``k1v_ops`` / ``k1h_ops`` without a descent),
+    the (N, 3) table written in place of the points' 24 B a point.
+    Returns (bound ms, "bytes" or "operations", bytes ms, operations
+    ms)."""
+    B = p.shape[0]
+    leaf_bytes = 4 * B
+    by_bytes = bytes_ms(tree.centre, tree.depth, tree.coeffs, p, *cots,
+                        extra=leaf_bytes + 24 * tree.centre.shape[0])
+    by_ops = B * (k1h_ops if hess else k1v_ops)(tree.deg_used, 0) \
+        / F64_PEAK * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", by_bytes,
+            by_ops)
+
+
+def centre_shape(tree, p, seed):
+    """K1c at the points p (B, 3) f64 on ``tree``, in turns in CUDA graphs
+    with K1v / K1h of the same order, from one K1 leaf: each order alone
+    (its memset and launch), with the points' gradient in the same launch,
+    beside its plain version (``query_centre_vjp_plain`` from the leaf)
+    and its bound (``centre_bound``); how crowded the leaves are (points a
+    leaf, most and mean over the leaves reached)."""
+    from hpsdf_tpu_torch.query import (query_centre_vjp_plain, query_kernel,
+                                       query_vjp_kernel)
+
+    rng = np.random.default_rng(seed)
+    B, dev = p.shape[0], p.device
+    w = torch.as_tensor(rng.standard_normal(B), device=dev)
+    wn = torch.as_tensor(rng.standard_normal((B, 3)), device=dev)
+    _, leaf = query_kernel(tree, p, False, with_leaf=True)
+    per = torch.bincount(leaf.long())
+    row = {"points": B, "degree": tree.deg_used,
+           "most_points_a_leaf": int(per.max()),
+           "mean_points_a_leaf": float(B / int((per > 0).sum()))}
+    for key, cot in (("k1c", (w,)), ("k1c_hess", (w, wn))):
+        t = turns({
+            "points_ms": lambda: query_vjp_kernel(tree, p, leaf, *cot),
+            "ms": lambda: query_vjp_kernel(tree, p, leaf, *cot,
+                                           points=False, centre=True),
+            "both_ms": lambda: query_vjp_kernel(tree, p, leaf, *cot,
+                                                centre=True)}, PAIR_REPS)
+        bound, by, by_bytes, by_ops = centre_bound(tree, p, cot, len(cot) > 1)
+        row[key] = {**t, "plain_ms": time_ms(
+            lambda: query_centre_vjp_plain(tree, p, *cot, leaf=leaf), 1),
+            "bound_ms": bound, "bound_by": by, "bytes_bound_ms": by_bytes,
+            "ops_bound_ms": by_ops}
+    return row
+
+
 def path_steps(tree_s, tree_i, p_a, pts_b, n_t):
     """The device time (torch.profiler) of one step of path (a) (a
     projection step of the points p_a on the slice tree) and of path (b)
@@ -3995,6 +4097,7 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
     import hpsdf_tpu_torch as T
     from hpsdf_tpu_torch import accel as A
     from hpsdf_tpu_torch.query import (coeff_scatter_grad_kernel,
+                                       query_centre_vjp_plain,
                                        query_kernel, query_points_vjp_plain,
                                        query_plain, query_vjp_kernel,
                                        query_with_gradient_plain,
@@ -4026,14 +4129,16 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
     abs_errs = {k: max(max(c[k][1] for c in out["degrees"].values()),
                        out["checks"]["2^20 slice"][k][1])
                 for k in out["checks"]["2^20 slice"]}
-    print(f"[grad2] the five backward kernels against their plain versions "
+    print(f"[grad2] the six backward kernels against their plain versions "
           f"at 2^20 points on the slice tree (a sixteenth on the root's "
           f"faces, some outside) and at degrees 0-12, max|kernel - plain| / "
           f"max|plain|: " + ", ".join(f"{k} {v:.3e}" for k, v in
                                        errs.items())
-          + " (K8g also with a third of each cotangent zero, _sparse) | two "
-          "wrong results caught at every shape (a moved entry; the face rule "
-          "undone, where the points reach a face)",
+          + " (K8g also with a third of each cotangent zero, _sparse; K1c "
+          "alone and, _both, in one launch with the points' gradient, bit "
+          "for bit K1v's / K1h's) | two wrong results caught at every shape "
+          "(a moved entry; the face rule undone, where the points reach a "
+          "face; for K1c the clamp's slope applied)",
           flush=True)
     out["trace_faces"] = trace_face_check(tree_s, smi, seed + 50)
 
@@ -4066,6 +4171,14 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
                                                   leaf=leaf),
             bytes_ms(*arrays, p64, w, wn, leaf, extra=24 * B),
             B * k1h_ops(deg, 0) / F64_PEAK * 1e3, K1H_OPS),
+        **{name: (
+            lambda cot=cot: query_vjp_kernel(tree_s, p64, leaf, *cot,
+                                             points=False, centre=True),
+            lambda cot=cot: query_centre_vjp_plain(tree_s, p64, *cot,
+                                                   leaf=leaf),
+            *centre_bound(tree_s, p64, cot, len(cot) > 1)[2:], K1C_OPS)
+           for name, cot in (("query_centre_vjp", (w,)),
+                             ("query_centre_vjp_hess", (w, wn)))},
         "coeff_scatter_grad": (
             lambda: coeff_scatter_grad_kernel(tree_s, p64, w, wn),
             lambda: query_with_gradient_vjp_plain(tree_s, p64, w, wn),
@@ -4144,6 +4257,27 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
                   f"{r['pair_ms']:.4f} (replaced {r['replaced_pair_ms']:.4f})"
                   for key, r in ((k_, row[k_]) for k_ in ("k1v", "k1h"))),
               flush=True)
+    centred = {}
+    for k, (name, (tree, p)) in enumerate({
+            "2^20 uniform": (tree_s, p64),
+            "(b) samples": (tree_i, pts),
+            "2^16 uniform": (tree_s, p64[:N_SMALL])}.items()):
+        row = centred[name] = centre_shape(tree, p, seed + 400 + k)
+        print(f"[grad2] K1c at {name} ({row['points']} points, degree "
+              f"{row['degree']}; most points a leaf "
+              f"{row['most_points_a_leaf']}, mean "
+              f"{row['mean_points_a_leaf']:.1f}) | {smi} | " + " | ".join(
+                  f"{key} {r['ms']:.4f} ms (K1v / K1h of its order "
+                  f"{r['points_ms']:.4f}, one launch for both "
+                  f"{r['both_ms']:.4f}), plain {r['plain_ms']:.3f}, bound "
+                  f"{r['bound_ms']:.5f} ({r['bound_by']}; "
+                  f"{r['bound_ms'] / r['ms']:.1%})"
+                  for key, r in ((k_, row[k_]) for k_ in ("k1c",
+                                                          "k1c_hess"))),
+              flush=True)
+    centred["crowding"] = {key: centred["(b) samples"][key]["ms"]
+                           / centred["2^20 uniform"][key]["ms"]
+                           for key in ("k1c", "k1c_hess")}
     leafd["steps"] = path_steps(tree_s, tree_i, p_a, pts, n_t)
     leafd["blocks"] = {f"{d}/{'hess' if h else 'vjp'}": {
         "blocks": vjp_blocks(d, h), "replaced_blocks": vjp_blocks(d, h, True),
@@ -4236,6 +4370,26 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
         opt.step()
     sync()
     nmap["s"] = time.perf_counter() - t0
+
+    # (d) the oriented-point fit of (b) on the centres as well
+    dparams = [tree_i.coeffs.detach().clone().requires_grad_(True),
+               torch.zeros(3, dtype=torch.float64, device=dev,
+                           requires_grad=True),
+               tree_i.centre.detach().clone().requires_grad_(True)]
+    opt = torch.optim.Adam(dparams, lr=FIT_LR)
+    cfit = {"loss": [], "steps": FIT_STEPS, "samples": N_QUERY}
+    t0 = time.perf_counter()
+    for k in range(FIT_STEPS):
+        opt.zero_grad()
+        loss = oriented_fit_loss(tree_i, *dparams[:2], pts, n_t,
+                                 centre=dparams[2])
+        loss.backward()
+        cfit["loss"].append(float(loss.detach()))
+        if k == 0:
+            dgrads = [x.grad.clone() for x in dparams]
+        opt.step()
+    sync()
+    cfit["s"] = time.perf_counter() - t0
     launches = read_counts()
     print(f"[grad2] (c) normal map, {NMAP_STEPS} Adam steps on the carved "
           f"tree's folded coefficients and the shift of the render's "
@@ -4246,15 +4400,20 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
     check(launches["query_leaf"] == launches["query_vjp"], f"K1 wrote "
           f"{launches['query_leaf']} leaves for {launches['query_vjp']} "
           "launches of K1v / K1h on [grad2]'s paths")
+    print(f"[grad2] (d) the oriented-point fit on the centres too, "
+          f"{FIT_STEPS} Adam steps on the r = 0.27 tree's coefficients, "
+          f"centres and the samples' shift: loss {cfit['loss']}, "
+          f"{cfit['s']:.3f} s", flush=True)
     for k, loss, least in (("(b)", fit["loss"], FIT_MIN_DROP),
-                           ("(c)", nmap["loss"], NMAP_MIN_DROP)):
+                           ("(c)", nmap["loss"], NMAP_MIN_DROP),
+                           ("(d)", cfit["loss"], FIT_MIN_DROP)):
         check(all(math.isfinite(x) for x in loss)
               and all(b < a for a, b in zip(loss, loss[1:]))
               and loss[-1] <= (1.0 - least) * loss[0],
               f"{k}'s loss does not fall at every step by {least:g} of the "
               f"first in all: {loss}")
 
-    # (b)'s and (c)'s first gradients against the plain versions
+    # (b)'s, (d)'s and (c)'s first gradients against the plain versions
     with unittest.mock.patch.object(T, "query", query_plain), \
             unittest.mock.patch.object(T, "query_with_gradient",
                                        query_with_gradient_plain):
@@ -4263,9 +4422,18 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
                           requires_grad=True)]
         want = torch.autograd.grad(oriented_fit_loss(tree_i, *ps, pts, n_t),
                                    ps)
+        ps = [x.detach().clone().requires_grad_(True) for x in (
+            tree_i.coeffs, torch.zeros(3, dtype=torch.float64, device=dev),
+            tree_i.centre)]
+        dwant = torch.autograd.grad(oriented_fit_loss(
+            tree_i, *ps[:2], pts, n_t, centre=ps[2]), ps)
     fit["grad_rel_err"] = [rel_err(g, w_) for g, w_ in zip(grads, want)]
     check(max(fit["grad_rel_err"]) <= GRAD2_RTOL64, f"(b)'s gradient vs "
           f"the plain versions: {fit['grad_rel_err']}")
+    cfit["grad_rel_err"] = [rel_err(g, w_) for g, w_ in zip(dgrads, dwant)]
+    check(max(cfit["grad_rel_err"]) <= GRAD2_RTOL64 and bool(
+        dgrads[2].abs().max() > 0), f"(d)'s gradient vs the plain versions "
+          f"(coefficients, shift, centres): {cfit['grad_rel_err']}")
     with unittest.mock.patch.object(A, "normals", A.normals_plain), \
             unittest.mock.patch.object(A, "values_and_gradient_at",
                                        A.values_and_gradient_at_plain), \
@@ -4282,13 +4450,15 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
           f"plain versions: {nmap['grad_rel_err']}")
     print(f"[grad2] the first step's gradients against the plain versions, "
           f"max|kernels - plain| / max|plain| (coefficients, shift): (b) "
-          f"{fit['grad_rel_err']}, (c) {nmap['grad_rel_err']} | launches "
+          f"{fit['grad_rel_err']}, (c) {nmap['grad_rel_err']}, (d) "
+          f"(coefficients, shift, centres) {cfit['grad_rel_err']} | launches "
           f"on the paths: " + ", ".join(f"{k} {count(launches)}" for k, count
                                          in GRAD2_KERNELS.items()),
           flush=True)
     return launches, {"errs": errs, "abs_errs": abs_errs, "times": times,
                       "projection": proj, "oriented_fit": fit,
-                      "normal_map": nmap, "leaf": leafd,
+                      "normal_map": nmap, "centre_fit": cfit,
+                      "leaf": leafd, "centre": centred,
                       "teeth": {k: v[2] for k, v in
                                 out["checks"]["2^20 slice"].items()}}
 
@@ -7330,6 +7500,117 @@ def collectives(axes):
             setattr(P.dist, name, fn)
 
 
+def shard_grads(tree, pts, rays, mesh, nmesh=None, seed=0):
+    """The sharded reads' gradients on CUDA tensors, every rank taking the
+    same loss of the gathered result (seeded weights, the sentinel
+    masked): shard_query's to the coefficients and centres, and to the
+    centres alone, on the batch axis of ``mesh``; with ``nmesh`` the same
+    on its node axis (the whole tree sliced into blocks, and this rank's
+    block, which gets its rows), else K1c on NODE_SPLITS node blocks in
+    one process, concatenated; shard_trace's to the coefficients on the
+    batch axis (``rays`` = (origins, dirs, trace keywords)). Each is held
+    to the one-device gradient (``query`` and ``trace`` on the same
+    inputs) within GRAD2_RTOL64 (the f32 trace GRAD2_RTOL32), not zero,
+    and each backward makes exactly one all-reduce over the batch axis a
+    replicated array and one all-gather over the node axis an array sliced
+    from the whole tree. Returns {case: {"rel_err", "bit_for_bit",
+    "collectives"}}."""
+    import hpsdf_tpu_torch as T
+    from hpsdf_tpu_torch import parallel as P
+    from hpsdf_tpu_torch.query import (OUTSIDE_VALUE, query_kernel,
+                                       query_vjp_kernel)
+
+    rng = np.random.default_rng(seed)
+    w = torch.as_tensor(rng.standard_normal(pts.shape[0]), device=pts.device)
+    o, d, kw = rays
+    wt = torch.as_tensor(rng.standard_normal(o.shape[0]),
+                         dtype=torch.float32, device=o.device)
+
+    def q_loss(v):
+        return (w * torch.where(v == OUTSIDE_VALUE, 0.0, v)).sum()
+
+    def t_loss(res):
+        return (wt * torch.where(res.hit, res.t, 0.0)).sum()
+
+    def grads(fn, tr, keys, axes=None):
+        xs = {k: getattr(tr, k).detach().clone().requires_grad_(True)
+              for k in keys}
+        loss = fn(dataclasses.replace(tr, **xs))
+        with collectives(axes or {}) as seen:
+            g = torch.autograd.grad(loss, list(xs.values()))
+        return dict(zip(keys, g)), seen
+
+    out = {}
+
+    def record(name, got, want, tol, seen=None, calls=None):
+        errs = {k: rel_err(got[k], want[k]) for k in got}
+        check(max(errs.values()) <= tol
+              and all(bool(g.abs().max() > 0) for g in got.values()),
+              f"{name}: the sharded gradients vs one device's {errs}")
+        if calls is not None:
+            check(sorted(seen) == sorted(calls), f"{name}: the backward's "
+                  f"collectives {seen}, not {calls}")
+        out[name] = {"rel_err": errs, "bit_for_bit": all(
+            torch.equal(got[k], want[k]) for k in got), "collectives": seen}
+
+    both = ("coeffs", "centre")
+    one, _ = grads(lambda t: q_loss(T.query(t, pts)), tree, both)
+    sh = P.batch_shard(mesh)
+    for keys in (both, ("centre",)):
+        got, seen = grads(lambda t: q_loss(P.shard_query(t, pts, mesh)),
+                          tree, keys, {"batch": sh.group})
+        record(f"batch {'+'.join(keys)}", got, one, GRAD2_RTOL64, seen,
+               [("batch", getattr(tree, k).numel()) for k in keys])
+    if nmesh is not None:
+        nsh = P.batch_shard(nmesh)
+        nd = P.node_shard(nmesh, tree.child_idx.shape[0])
+        axes = {"batch": nsh.group, "node": nd.group}
+        per = -(-tree.child_idx.shape[0] // nd.size)
+        width = {k: getattr(tree, k).shape[1] for k in both}
+        for keys in (both, ("centre",)):
+            got, seen = grads(lambda t: q_loss(P.shard_query(
+                t, pts, nmesh, shard_nodes=True)), tree, keys, axes)
+            record(f"node {'+'.join(keys)}", got, one, GRAD2_RTOL64, seen,
+                   [("batch", (nd.hi - nd.lo) * width[k]) for k in keys]
+                   + [("node", per * width[k]) for k in keys])
+        block = P._shard_tree(tree, nmesh, True)
+        got, seen = grads(lambda t: q_loss(P.shard_query(
+            t, pts, nmesh, shard_nodes=True)), block, both, axes)
+        record("node block", got, {k: one[k][nd.lo:nd.hi] for k in both},
+               GRAD2_RTOL64, seen,
+               [("batch", (nd.hi - nd.lo) * width[k]) for k in both])
+    else:
+        _, leaf = query_kernel(tree, pts, False, with_leaf=True)
+        whole = query_vjp_kernel(tree, pts, leaf, w, points=False,
+                                 centre=True)
+        for n in NODE_SPLITS[1:]:
+            cat = torch.cat([query_vjp_kernel(
+                P.node_block(tree, n, k), pts, leaf, w, points=False,
+                centre=True) for k in range(n)])
+            record(f"K1c on {n} blocks", {"centre": cat},
+                   {"centre": whole}, GRAD2_RTOL64)
+    one_t, _ = grads(lambda t: t_loss(T.trace(t, o, d, **kw)), tree,
+                     ("coeffs",))
+    for packed in (False, True):
+        extra = {"packed": T.pack_tree(tree)} if packed else {}
+        got, seen = grads(lambda t: t_loss(P.shard_trace(
+            t, o, d, mesh, **kw, **extra)), tree, ("coeffs",),
+            {"batch": sh.group})
+        record("trace" + (" packed" if packed else ""), got, one_t,
+               GRAD2_RTOL32, seen, [("batch", tree.coeffs.numel())])
+    return out
+
+
+def grads_text(g):
+    """shard_grads' result, a case a clause."""
+    return "; ".join(f"{k} " + ", ".join(f"{a} {e:.2e}" for a, e in
+                                          v["rel_err"].items())
+                     + (" (bit for bit)" if v["bit_for_bit"] else "")
+                     + ("" if v["collectives"] is None
+                        else f", collectives {v['collectives']}")
+                     for k, v in g.items())
+
+
 def sharding_rank(rank, size, port, cfg, tree_path, out_path):
     """One of ``size`` gloo ranks on the one card (NCCL refuses two ranks on
     one device), at SHARD_SMALL's sizes: shard_query and shard_trace (K4 +
@@ -7444,6 +7725,9 @@ def sharding_rank(rank, size, port, cfg, tree_path, out_path):
           f"train steps: losses {losses} (the last one device's), "
           f"max|coeffs - one device's| {step_err}")
     launches = read_counts()
+    gpts = torch.as_tensor(root_points(*tree.root_aabb, SHARD_SMALL[
+        "points"], 44, pad=0.05), device=dev)
+    grads = shard_grads(tree, gpts, (o, d, kw), dmesh, nmesh, seed=45)
     for k in ("cg_matvec_rows", "cg_update_rows", "cg_direction",
               "query_nodes", "coeff_scatter_nodes", "node_buckets"):
         check(launches[k] > 0, f"{size} gloo ranks: {k} never launched")
@@ -7461,6 +7745,7 @@ def sharding_rank(rank, size, port, cfg, tree_path, out_path):
                        l_sh.tolist(), "inverse_one_device": l_one.tolist(),
                        "inverse_rel_err": inv_rel, "errs": errs,
                        "abs_errs": abs_errs, "launches": launches,
+                       "grads": grads,
                        "node": {
                            "rows": block.hi - block.lo,
                            "tree_rows": block.n_rows,
@@ -7670,6 +7955,9 @@ def phase_sharding(tree, mesh, bvh, cfg, s_inv, solved, persistent_ms,
     launches = read_counts()
     host_syncs = TC._cg_rows_kernels.host_syncs
 
+    gpts = torch.as_tensor(root_points(*tree.root_aabb, N_QUERY, 46,
+                                       pad=0.05), device=dev)
+    grads = shard_grads(tree, gpts, (o, d, kw), dmesh, seed=47)
     check(torch.equal(q, q_one), "shard_query against query")
     check(torch.equal(tr.t, tr_one.t) and torch.equal(tr.hit, tr_one.hit),
           "shard_trace against trace (K4 + K3)")
@@ -7711,6 +7999,10 @@ def phase_sharding(tree, mesh, bvh, cfg, s_inv, solved, persistent_ms,
           f"{SHARD_INV_STEPS} steps {inv_s:.3f} s, losses "
           f"{[f'{v:.6g}' for v in inv.tolist()]}, max relative "
           f"difference {inv_rel:.3e} | launches {launches}", flush=True)
+    print(f"[sharding] one NCCL rank: {smi} | the sharded reads' gradients "
+          f"at {N_QUERY} slice points and {RAYS_SIDE}^2 rays (K4 + K3) "
+          f"against one device's, max|diff| / max|one device|: "
+          f"{grads_text(grads)}", flush=True)
 
     # K9's partial mode and K9u's two launches at one rank, both sizes
     modes = {label: row_mode_times(sv["fitted"], shard, label, ms, smi)
@@ -7753,6 +8045,7 @@ def phase_sharding(tree, mesh, bvh, cfg, s_inv, solved, persistent_ms,
            "inverse_losses": inv.tolist(),
            "inverse_one_device": inv_one.tolist(), "inverse_rel_err": inv_rel,
            "cg": cg, "host_syncs": host_syncs, "modes": modes,
+           "grads": grads,
            "node_modes": nodes, "two_ranks": two, "two_ranks_s": two_s,
            **overhead}
     print(f"[sharding] {smi} | host ms a call: shard_query "
@@ -7785,6 +8078,11 @@ def phase_sharding(tree, mesh, bvh, cfg, s_inv, solved, persistent_ms,
           f"two node-sharded train steps on the slice tree: losses "
           f"{nd['step_losses'][:2]} (one device {nd['step_losses'][2]}), "
           f"max|coeffs - one device's| {nd['step_max_abs_diff']:.3e}",
+          flush=True)
+    print(f"[sharding] the sharded reads' gradients on two gloo ranks on "
+          f"the card, batch axis (2, 1), node axis (1, 2): {smi} | "
+          f"{SHARD_SMALL['points']} slice points, {SHARD_SMALL['side']}^2 "
+          f"rays, rank 0 against one device: {grads_text(two['grads'])}",
           flush=True)
     return launches, out
 
@@ -7826,7 +8124,8 @@ def _ptxas_key(kernel, args):
         return f"{args[0]}/{('values', 'grad')[args[1]]}" \
             + ("/leaf" if args[2:3] == [1] else "")
     if kernel in ("query_vjp_kernel", "query_vjp_reference_kernel"):
-        return f"{args[0]}/{'hess' if args[1] == 2 else 'vjp'}"
+        return f"{args[0]}/{'hess' if args[1] == 2 else 'vjp'}" \
+            + ("/centre" if args[2:3] == [1] else "")
     if kernel == "packed_hvp_kernel":
         return f"{args[0]}/{('normals', 'values')[args[1]]}"
     if kernel == "packed_eval_kernel":
@@ -7845,7 +8144,8 @@ def ptxas_check():
     ptxas reported them when the library was built. K1 (values, and with
     the gradient) with and without the leaf it writes for K1v and K1h, K3,
     K4, K5's raw gradient (alone and fused with K2), K7 (its three forms),
-    K8, K8g, K1v and K1h (from the leaf) and K5h (both modes) at degrees 3
+    K8, K8g, K1v and K1h (from the leaf), K1c (but its ORDER 2 at degree
+    5, whose spills are read and printed) and K5h (both modes) at degrees 3
     and 5 (the main paths'), both forms of G's backward, K9 (on the face
     operator and in its CSR form), K9u, both forms of the persistent
     launch, both forms
@@ -7886,6 +8186,8 @@ def ptxas_check():
                                     "3/grad/leaf", "5/values/leaf",
                                     "5/grad/leaf")),
             ("K1v", "query_vjp_kernel", ("3/vjp", "5/vjp")),
+            ("K1c", "query_vjp_kernel", ("3/vjp/centre", "3/hess/centre",
+                                         "5/vjp/centre")),
             ("K3", "march_kernel", ("3", "5")),
             ("K4", "cone_kernel", ("3/full", "5/full", "2/lo")),
             ("K5 raw", "packed_eval_kernel", ("3/raw", "5/raw", "3/fused",
@@ -7926,6 +8228,10 @@ def ptxas_check():
             check(key in got, f"ptxas report for {name} {key}")
             check(got[key][1:] == [0, 0, 0], f"{name} {key}: stack "
                   f"{got[key][1]} B, spills {got[key][2:]}")
+    # K1c with the unit gradient at degree 5 spills a little at 255
+    # registers (query.cu's kVjpBlocks): read, printed with the rest
+    check("5/hess/centre" in found.get("query_vjp_kernel", {}),
+          "ptxas report for K1c 5/hess/centre")
     print(f"[ptxas] registers / stack / spill stores / spill loads (bytes): "
           + " | ".join(f"{k} {found.get(k, {})}"
                        for k in PTXAS_KERNELS + CHECK_PTXAS_KERNELS),
@@ -8464,7 +8770,11 @@ def main():
                "split": tg2["leaf"]["split"],
                "blocks": {k: v for k, v in tg2["leaf"]["blocks"].items()
                           if k.endswith(sub)}}
-              if kernel == "query_vjp_kernel" else {}),
+              if key is not None else {}),
+           **({"hess": tg2["times"]["query_centre_vjp_hess"],
+               "shapes": tg2["centre"],
+               "path_d": tg2["centre_fit"]}
+              if name == "query_centre_vjp" else {}),
            "teeth": {k: tg2["teeth"][k] for k in keys},
            "ptxas": {k: v for k, v in ptxas.get(kernel, {}).items()
                      if k.endswith(sub)}}
@@ -8475,6 +8785,12 @@ def main():
               ("query_vjp_hess", "query.cu", "hpsdf_tpu/query.py:88-108",
                ("query_vjp_hess",), "query_vjp_kernel", "k1h", "k1g",
                "/hess"),
+              ("query_centre_vjp", "query.cu", "hpsdf_tpu/query.py:61-66",
+               ("query_centre_vjp", "query_centre_vjp_inside_out",
+                "query_centre_vjp_hess", "query_centre_vjp_both",
+                "query_centre_vjp_inside_out_both",
+                "query_centre_vjp_hess_both"), "query_vjp_kernel", None,
+               None, "/centre"),
               ("coeff_scatter_grad", "coeff_scatter.cu",
                "hpsdf_tpu/query.py:88-108",
                ("coeff_scatter_grad", "coeff_scatter_grad_sparse"),
@@ -8501,7 +8817,8 @@ def main():
     print(json.dumps({"kernels": kernels, "inverse": ti,
                       "grad2": {k: tg2[k] for k in ("projection",
                                                     "oriented_fit",
-                                                    "normal_map")},
+                                                    "normal_map",
+                                                    "centre_fit")},
                       "fit_split": {"slice": split_s, "carve": tr["split"],
                                     "carve_k6": tr["k6_split"],
                                     "mesh_scale_k6":

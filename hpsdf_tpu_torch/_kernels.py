@@ -54,6 +54,9 @@ _SIGNATURES = {
     "hpsdf_query_vjp": (_P, _P, _P, _I32, _P, _P, _I64,
                         _F64, _F64, _F64, _F64, _F64, _F64, _I32, _P, _P, _P,
                         _P),
+    "hpsdf_query_centre_vjp": (_P, _P, _P, _I32, _I32, _I32, _P, _P, _I64,
+                               _F64, _F64, _F64, _F64, _F64, _F64, _I32, _P,
+                               _P, _P, _P, _P),
     "hpsdf_descend_nodes": (_P, _P, _I32, _I32, _P, _P, _I64, _P, _P),
     "hpsdf_leaf_nodes": (_P, _P, _P, _I32, _I32, _I32, _P, _P, _I64, _P, _P),
     "hpsdf_row_gather": (_P, _I64, _I64, _I64, _P, _I64, _P, _P),

@@ -40,10 +40,11 @@
 // lookup rounds differently at the faces.
 //
 // The backward modes K1v and K1h (query_vjp_kernel) are the VJPs of query
-// and query_with_gradient with respect to the points. They start from the
-// leaf the forward wrote (query_kernel with LEAF) and run no descent; they
-// are described above their kernel below. The leaf evaluation is
-// query_leaf.cuh's, shared with the kernel they replaced.
+// and query_with_gradient with respect to the points, and K1c (its CENTRE
+// mode) with respect to the nodes' centres. They start from the leaf the
+// forward wrote (query_kernel with LEAF) and run no descent; they are
+// described above their kernel below. The leaf evaluation is
+// query_leaf.cuh's, shared with the kernel K1v and K1h replaced.
 //
 // The node-range mode (descend_nodes_kernel, leaf_nodes_kernel) serves the
 // node axis of hpsdf_tpu_torch/parallel.py, where a rank holds a contiguous
@@ -59,6 +60,7 @@
 #include <stdint.h>
 
 #include "query_leaf.cuh"
+#include "scatter.cuh"
 
 namespace {
 
@@ -153,28 +155,48 @@ query_kernel(const int32_t* __restrict__ child_idx,
 // kernel held, K1h one fewer at degree 3. Two points a thread, more blocks
 // an SM with spills, and every cotangent loaded early or late were slower
 // or spilled (PERF.md).
+//
+// K1c (CENTRE) is the VJP of both with respect to tree.centre, in place of
+// XLA's autodiff of the leaf frame local = (unit - centre[leaf]) 2^(depth+1)
+// (hpsdf_tpu/query.py:61-66; plain version query_centre_vjp_plain). With
+// dl the leaf frame's cotangent as K1v (ORDER 1) or K1h (ORDER 2) forms it,
+// d_centre[leaf] -= 2^(depth+1) dl, summed over the leaf's points: no clamp
+// slope (the centre enters after the clamp, so a point clamped onto a face
+// still moves its leaf's centre), no root size, nothing through the descent.
+// The lanes of a warp that share a leaf sum their terms by PeerSum
+// (scatter.cuh) and the group's leader adds the three sums with f64 atomics
+// into the zeroed table, so the order of the sums changes from call to
+// call. The same launch writes d_pts where d_pts is given. The arrays may be
+// a node block's rows [lo, hi) (the node axis of parallel.py): leaf n is row
+// n - lo, and a point whose leaf lies outside the block adds nothing. K1v
+// and K1h never read lo and hi.
 
-// Least blocks of kThreads an SM, [ORDER - 1][degree <= 3, <= 5, above]:
-// the most ptxas meets at degrees 3 and 5 without a spill (PERF.md)
-constexpr int kVjpBlocks[2][3] = {{5, 3, 1}, {4, 2, 1}};
+// Least blocks of kThreads an SM, [CENTRE][ORDER - 1][degree <= 3, <= 5,
+// above]: the most ptxas meets at degrees 3 and 5 without a spill
+// (PERF.md). K1c holds its leaf row across the sums: at degree 5 it needs
+// 222 registers (two blocks), and its ORDER 2 spills 16 B at the 255 a
+// thread can have (PERF.md)
+constexpr int kVjpBlocks[2][2][3] = {{{5, 3, 1}, {4, 2, 1}},
+                                     {{5, 2, 1}, {4, 2, 1}}};
 
-template <int DEG, int ORDER>
+template <int DEG, int ORDER, bool CENTRE>
 struct VjpBlocks {
-  static constexpr int kMin = kVjpBlocks[ORDER - 1][DEG <= 3 ? 0
-                                                   : (DEG <= 5 ? 1 : 2)];
+  static constexpr int kMin =
+      kVjpBlocks[CENTRE][ORDER - 1][DEG <= 3 ? 0 : (DEG <= 5 ? 1 : 2)];
 };
 
-template <int DEG, int ORDER>
-__global__ void __launch_bounds__(kThreads, VjpBlocks<DEG, ORDER>::kMin)
+template <int DEG, int ORDER, bool CENTRE>
+__global__ void __launch_bounds__(kThreads,
+                                  VjpBlocks<DEG, ORDER, CENTRE>::kMin)
 query_vjp_kernel(const double* __restrict__ centre,
                  const int32_t* __restrict__ depth,
                  const double* __restrict__ coeffs,
                  const double* __restrict__ pts,
-                 const int32_t* __restrict__ leaf, int64_t B,
+                 const int32_t* __restrict__ leaf, int64_t B, int lo, int hi,
                  double rc0, double rc1, double rc2,
                  double inv0, double inv1, double inv2, int outside_max,
                  const double* __restrict__ w, const double* __restrict__ wn,
-                 double* __restrict__ d_pts) {
+                 double* __restrict__ d_pts, double* __restrict__ d_centre) {
   using S = Shape<DEG>;
   // Above degree 3 the cotangents wait for the sums: held across them
   // they cost the registers that spilled at degree 5.
@@ -183,7 +205,12 @@ query_vjp_kernel(const double* __restrict__ centre,
   __shared__ const double* slot_rows[kWarps][32];
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t ip = i < B ? i : B - 1;     // spare lanes repeat the last point
-  const int n = __ldg(leaf + ip);
+  int n = __ldg(leaf + ip);
+  bool own = true;                          // K1c: the block holds the leaf
+  if constexpr (CENTRE) {
+    own = n >= lo && n < hi;
+    n = own ? n - lo : 0;
+  }
   double p[3], wv, wnv[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -207,12 +234,16 @@ query_vjp_kernel(const double* __restrict__ centre,
   Leaf<DEG, ORDER> lf{};
   const double scale = eval_leaf<DEG, ORDER>(
       tiles[warp], slot_rows[warp], centre, depth, coeffs, n, u, lf);
-  if (i >= B) return;
+  // K1c's spare lanes stay for the warp's sums, with zero cotangents
+  if constexpr (!CENTRE) {
+    if (i >= B) return;
+  }
   if constexpr (!kEarly) {
-    wv = __ldg(w + i);
+    const bool in = !CENTRE || i < B;
+    wv = in ? __ldg(w + i) : 0.0;
 #pragma unroll
     for (int a = 0; a < 3; ++a)
-      if constexpr (ORDER == 2) wnv[a] = __ldg(wn + 3 * i + a);
+      if constexpr (ORDER == 2) wnv[a] = in ? __ldg(wn + 3 * i + a) : 0.0;
   }
 
   // local = (unit - centre) * 2^(depth+1), unit = (world - c) / sizes
@@ -230,6 +261,19 @@ query_vjp_kernel(const double* __restrict__ centre,
     hpsdf::hessian_times(lf.h, q, hq);
 #pragma unroll
     for (int a = 0; a < 3; ++a) dl[a] += hq[a];
+  }
+  if constexpr (CENTRE) {
+    const bool live = own && i < B;
+    const hpsdf::PeerSum peers(live ? (unsigned long long)n : ~0ull);
+    double c[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) c[a] = peers.sum(live ? -scale * dl[a] : 0.0);
+    if (live && peers.leader) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        atomicAdd(d_centre + 3 * (int64_t)n + a, c[a]);
+    }
+    if (d_pts == nullptr || i >= B) return;
   }
 #pragma unroll
   for (int a = 0; a < 3; ++a) d_pts[3 * i + a] = slope[a] * (dl[a] * s[a]);
@@ -359,13 +403,46 @@ extern "C" int hpsdf_query_vjp(const double* centre, const int32_t* depth,
   const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
 #define HPSDF_ARGS                                                          \
-  centre, depth, coeffs, pts, leaf, B, rc0, rc1, rc2, inv0, inv1, inv2,     \
-      outside_max, w, wn, d_pts
+  centre, depth, coeffs, pts, leaf, B, 0, 0, rc0, rc1, rc2, inv0, inv1,     \
+      inv2, outside_max, w, wn, d_pts, nullptr
 #define HPSDF_LAUNCH(D)                                                      \
   if (wn != nullptr)                                                         \
-    launch(query_vjp_kernel<D, 2>, blocks, s, HPSDF_ARGS);                   \
+    launch(query_vjp_kernel<D, 2, false>, blocks, s, HPSDF_ARGS);            \
   else                                                                       \
-    launch(query_vjp_kernel<D, 1>, blocks, s, HPSDF_ARGS)
+    launch(query_vjp_kernel<D, 1, false>, blocks, s, HPSDF_ARGS)
+  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
+#undef HPSDF_LAUNCH
+#undef HPSDF_ARGS
+  return (int)cudaGetLastError();
+}
+
+// K1c: d_centre (hi - lo, 3), zeroed by the caller, gets the VJP of query
+// (wn == nullptr) or query_with_gradient (cotangents as hpsdf_query_vjp's)
+// with respect to the centre rows [lo, hi) that centre, depth and coeffs
+// hold (0 and N for a whole tree), from the global leaves (B,) hpsdf_query
+// wrote; a point whose leaf lies outside [lo, hi) adds nothing. With d_pts
+// (B, 3) the same launch writes the points' VJP (a whole tree only).
+extern "C" int hpsdf_query_centre_vjp(const double* centre,
+                                      const int32_t* depth,
+                                      const double* coeffs, int deg, int lo,
+                                      int hi, const double* pts,
+                                      const int32_t* leaf, int64_t B,
+                                      double rc0, double rc1, double rc2,
+                                      double inv0, double inv1, double inv2,
+                                      int outside_max, const double* w,
+                                      const double* wn, double* d_pts,
+                                      double* d_centre, void* stream) {
+  if (B <= 0 || hi <= lo) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+#define HPSDF_ARGS                                                          \
+  centre, depth, coeffs, pts, leaf, B, lo, hi, rc0, rc1, rc2, inv0, inv1,   \
+      inv2, outside_max, w, wn, d_pts, d_centre
+#define HPSDF_LAUNCH(D)                                                      \
+  if (wn != nullptr)                                                         \
+    launch(query_vjp_kernel<D, 2, true>, blocks, s, HPSDF_ARGS);             \
+  else                                                                       \
+    launch(query_vjp_kernel<D, 1, true>, blocks, s, HPSDF_ARGS)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
 #undef HPSDF_ARGS
@@ -377,8 +454,8 @@ extern "C" int hpsdf_query_vjp(const double* centre, const int32_t* depth,
 extern "C" int hpsdf_query_vjp_blocks(int deg, int hess, int* blocks) {
 #define HPSDF_BLOCKS(D)                                                      \
   {                                                                          \
-    const void* k = hess ? (const void*)query_vjp_kernel<D, 2>               \
-                         : (const void*)query_vjp_kernel<D, 1>;              \
+    const void* k = hess ? (const void*)query_vjp_kernel<D, 2, false>        \
+                         : (const void*)query_vjp_kernel<D, 1, false>;       \
     cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,  \
                          kCarveout);                                         \
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kThreads, 0);   \

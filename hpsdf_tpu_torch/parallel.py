@@ -32,6 +32,20 @@ rank of the mesh (``mesh_shard``), as the reference flattens its mesh;
 ``shard_trace`` and ``fit_to_depth(mesh=)`` split over the batch axis and
 repeat the work over the node axis.
 
+The sharded reads carry gradients to the tree, as the reference's do:
+``shard_query`` to ``tree.coeffs`` and ``tree.centre``, ``shard_trace`` to
+``tree.coeffs``. Every rank passes the same inputs and takes the same loss
+of the gathered result, as every rank receives all of it; a backward is
+then a collective that every rank runs, and each rank's gradient is the
+one-device gradient of the tensor it passed. The gather hands each rank its
+share of the cotangent (``_Gathered``), the rank's kernels take the VJP of
+its share (K8 and K1c, K8's trace form; on the node axis K8's node-range
+mode and K1c on the block), the tree's arrays sum it over the
+batch axis (``_Replicated``), and a whole tree sliced into node blocks
+gathers the blocks' gradients over the node axis (``_NodeSlice``). The
+points and rays take no gradient (``_refuse_gathered_grad``): the
+reference's sharded reads turn them into numpy arrays first.
+
 Collectives run on NCCL for CUDA tensors and on gloo for the CPU, and on
 gloo for several ranks on one card, which NCCL refuses. Gloo takes CUDA
 tensors for every collective used here (``all_reduce`` and
@@ -57,7 +71,8 @@ from . import _device
 from .accel import pack_tree
 from .config import Config
 from .query import (OUTSIDE_VALUE, _to_unit, coeff_scatter_nodes,
-                    descend_round, leaf_eval, query as _query_fn)
+                    descend_round, leaf_eval, query as _query_fn,
+                    query_centre_vjp)
 from .render import TraceResult, trace as _trace
 from .tree import Octree
 
@@ -302,6 +317,8 @@ class ShardedTree:
 
 
 _ARRAYS = ("child_idx", "centre", "depth", "degree", "coeffs")
+# the arrays a sharded read differentiates
+_GRAD_ARRAYS = ("coeffs", "centre")
 
 
 def node_block(tree: Octree, size: int, rank: int) -> ShardedTree:
@@ -330,24 +347,66 @@ def _shard_tree(tree, mesh: DeviceMesh, shard_nodes: bool):
                                  f"this rank's [{nd.lo}, {nd.hi})")
             return tree
         nd = node_shard(mesh, tree.child_idx.shape[0])
-        return node_block(tree, nd.size, nd.rank)
+        return dataclasses.replace(node_block(tree, nd.size, nd.rank), **{
+            k: _NodeSlice.apply(getattr(tree, k), nd) for k in _GRAD_ARRAYS
+            if _device.wants_grad(getattr(tree, k))})
     return gather_tree(tree, mesh)
+
+
+def _gather_rows(x: torch.Tensor, nd: NodeShard, rows: int) -> torch.Tensor:
+    """The whole array of ``rows`` rows whose blocks the ranks of the node
+    axis ``nd`` hold, each padded to ceil(rows / size) rows."""
+    per = -(-rows // nd.size)
+    block = x.new_zeros((per,) + tuple(x.shape[1:]))
+    block[: x.shape[0]] = x
+    return all_gather(block, nd)[:rows]
+
+
+class _NodeGather(torch.autograd.Function):
+    """``_gather_rows`` of a block that requires a gradient. Every rank
+    holds the whole array's gradient (each has summed it over the batch
+    axis), so the backward is the rank's own rows of it."""
+
+    @staticmethod
+    def forward(ctx, x, nd, rows):
+        ctx.nd = nd
+        return _gather_rows(x, nd, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.nd.lo:ctx.nd.hi], None, None
+
+
+class _NodeSlice(torch.autograd.Function):
+    """The rows [lo, hi) of a whole tree's array that this rank holds on
+    the node axis ``nd``, copied. Each rank's gradient covers its own rows,
+    so the backward gathers the blocks over the node axis: the whole
+    array's gradient on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, nd):
+        ctx.nd, ctx.rows = nd, x.shape[0]
+        return x[nd.lo:nd.hi].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_rows(g, ctx.nd, ctx.rows), None
 
 
 def gather_tree(tree, mesh: DeviceMesh) -> Octree:
     """The whole ``Octree`` of a ``ShardedTree``, on every rank: each array
     all-gathered over the node axis, padded to equal blocks (an ``Octree``
-    is returned as it is). For tests and for saving."""
+    is returned as it is); an array that requires a gradient gets its own
+    rows of the whole one's. For tests and for saving."""
     if isinstance(tree, Octree):
         return tree
     nd = node_shard(mesh, tree.n_rows)
-    per = -(-tree.n_rows // nd.size)
     whole = {}
     for k in _ARRAYS:
         x = getattr(tree, k)
-        block = x.new_zeros((per,) + tuple(x.shape[1:]))
-        block[: x.shape[0]] = x
-        whole[k] = all_gather(block, nd)[: tree.n_rows]
+        whole[k] = (_NodeGather.apply(x, nd, tree.n_rows)
+                    if _device.wants_grad(x)
+                    else _gather_rows(x, nd, tree.n_rows))
     return Octree(**whole, n_nodes=tree.n_nodes, deg_used=tree.deg_used,
                   depth_used=tree.depth_used, config=tree.config)
 
@@ -373,30 +432,93 @@ def _query_nodes(st: ShardedTree, pts: torch.Tensor, nd: NodeShard,
 
 
 class _QueryNodes(torch.autograd.Function):
-    """The node-sharded query of clamped values (``_query_nodes``) with the
-    rank's coefficient rows as its input; its VJP scatters into those rows
-    (K8's node-range mode) from the leaves the forward found."""
+    """The node-sharded query (``_query_nodes``) with the rank's
+    coefficient and centre rows as its inputs; its VJP scatters into those
+    rows from the leaves the forward found: K8's node-range mode for the
+    coefficients, K1c on the block for the centres. The descent rounds
+    carry no derivative."""
 
     @staticmethod
-    def forward(ctx, coeffs, st, pts, nd):
-        val, leaf = _query_nodes(st, pts, nd, False)
+    def forward(ctx, coeffs, centre, st, pts, nd, outside_value_max=False):
+        val, leaf = _query_nodes(st, pts, nd, outside_value_max)
         ctx.save_for_backward(pts, leaf)
-        ctx.st = st
+        ctx.st, ctx.outside_value_max = st, outside_value_max
         return val
 
     @staticmethod
     def backward(ctx, w):
         pts, leaf = ctx.saved_tensors
-        return (coeff_scatter_nodes(ctx.st, pts, leaf, w.contiguous()),
-                None, None, None)
+        w = w.contiguous()
+        d_coeffs = d_centre = None
+        if ctx.needs_input_grad[0]:
+            d_coeffs = coeff_scatter_nodes(ctx.st, pts, leaf, w,
+                                           ctx.outside_value_max)
+        if ctx.needs_input_grad[1]:
+            d_centre = query_centre_vjp(
+                ctx.st, pts, leaf, w,
+                outside_value_max=ctx.outside_value_max)
+        return d_coeffs, d_centre, None, None, None, None
+
+
+class _Gathered(torch.autograd.Function):
+    """The batch axis's all-gather of the ranks' shares, cut to the batch's
+    ``b`` rows. Every rank takes the same loss of the gathered result, so
+    each holds the same cotangent: the backward is this rank's share of it,
+    zero on the padded rows (a reduce-scatter would add the axis's equal
+    cotangents)."""
+
+    @staticmethod
+    def forward(ctx, x, sh, b):
+        ctx.sh, ctx.per, ctx.b = sh, x.shape[0], b
+        return all_gather(x, sh)[:b]
+
+    @staticmethod
+    def backward(ctx, g):
+        full = g.new_zeros((ctx.per * ctx.sh.size,) + tuple(g.shape[1:]))
+        full[:ctx.b] = g
+        return share(full, ctx.sh), None, None
+
+
+class _Replicated(torch.autograd.Function):
+    """The identity on an array every rank of the batch axis holds alike
+    (the tree's coefficients or centres); each rank's gradient covers its
+    share of the batch, so the backward sums it over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, sh):
+        ctx.sh = sh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format),
+                          ctx.sh), None
+
+
+def _replicated(tree, sh: BatchShard, keys=_GRAD_ARRAYS):
+    """``tree`` with its arrays named in ``keys`` that require a gradient
+    passed through ``_Replicated`` over the batch axis ``sh``."""
+    return dataclasses.replace(tree, **{
+        k: _Replicated.apply(getattr(tree, k), sh) for k in keys
+        if _device.wants_grad(getattr(tree, k))})
+
+
+def _gathered(x: torch.Tensor, sh: BatchShard, b: int) -> torch.Tensor:
+    """The ranks' shares ``x`` all-gathered over the batch axis ``sh`` and
+    cut to ``b`` rows, differentiable where ``x`` requires a gradient."""
+    if x.requires_grad:
+        return _Gathered.apply(x, sh, b)
+    return all_gather(x, sh)[:b]
 
 
 def _refuse_gathered_grad(what: str, *xs) -> None:
-    """Raise where one of ``xs`` requires a gradient: a sharded read
-    all-gathers its shares, which cuts them off from autograd."""
+    """Raise where one of ``xs``, a sharded read's points or rays, requires
+    a gradient: the reads carry gradients to the tree only, as the
+    reference's, which turns the points into numpy arrays first."""
     if _device.wants_grad(*(x for x in xs if isinstance(x, torch.Tensor))):
-        raise RuntimeError(f"parallel.{what} cannot carry a gradient: its "
-                           "all-gather cuts the shares off from autograd")
+        raise RuntimeError(f"parallel.{what} carries no gradient to the "
+                           "points or rays: its all-gather hands back the "
+                           "tree's gradients only")
 
 
 def shard_query(tree, pts, mesh: DeviceMesh,
@@ -407,20 +529,31 @@ def shard_query(tree, pts, mesh: DeviceMesh,
     tree (an ``Octree``, sliced here, or this rank's ``ShardedTree``) is
     split over the node axis and each share's query runs on the node
     blocks (``_query_nodes``). Every rank passes the same points and
-    returns all the values, equal to ``query(tree, pts)``. Not
-    differentiable: the all-gather carries no gradient, so points or
-    coefficients that require one raise."""
-    _refuse_gathered_grad("shard_query", pts, tree.coeffs)
+    returns all the values, equal to ``query(tree, pts)``.
+
+    Differentiable with respect to ``tree.coeffs`` and ``tree.centre``
+    (those of the ``Octree`` or of this rank's block), where every rank
+    takes the same loss of the values: each rank's kernels take its
+    share's VJP (K8 and K1c; on the node axis K8's node-range mode and K1c
+    on the block), summed over the batch axis and, for an ``Octree``
+    sliced into blocks, gathered over the node axis. Points that require a
+    gradient raise."""
+    _refuse_gathered_grad("shard_query", pts)
     sh = batch_shard(mesh, shard_nodes)
     st = _shard_tree(tree, mesh, shard_nodes)
     pts = torch.as_tensor(pts, dtype=st.centre.dtype, device=st.device)
     padded, b = _pad_batch(pts, sh.size)
     mine = share(padded, sh)
     if isinstance(st, ShardedTree):
-        val = _query_nodes(st, mine, node_shard(mesh, st.n_rows), True)[0]
+        nd = node_shard(mesh, st.n_rows)
+        if _device.wants_grad(st.coeffs, st.centre):
+            rt = _replicated(st, sh)
+            val = _QueryNodes.apply(rt.coeffs, rt.centre, rt, mine, nd, True)
+        else:
+            val = _query_nodes(st, mine, nd, True)[0]
     else:
-        val = _query_fn(st, mine)
-    return all_gather(val, sh)[:b]
+        val = _query_fn(_replicated(st, sh), mine)
+    return _gathered(val, sh, b)
 
 
 def shard_trace(tree, origins, dirs, mesh: DeviceMesh,
@@ -432,13 +565,18 @@ def shard_trace(tree, origins, dirs, mesh: DeviceMesh,
     one-device call; ``steps`` is summed over the batch axis, padded rays
     included. With ``cone_tiles`` = (H, W, T) the rays are an image and the
     shares are whole rows of tiles (the last row of tiles repeated as
-    padding), each traced as an image of its own through K4 and K3. Not
-    differentiable: the all-gather carries no gradient, so rays or
-    coefficients that require one raise."""
-    _refuse_gathered_grad("shard_trace", origins, dirs, tree.coeffs)
+    padding), each traced as an image of its own through K4 and K3.
+
+    ``t`` is differentiable with respect to ``tree.coeffs``, packed tables
+    given or not, as ``render.trace`` (the implicit VJP, K8's trace form,
+    on each rank's share), where every rank takes the same loss of it: the
+    gradient is summed over the batch axis. Rays that require a gradient
+    raise."""
+    _refuse_gathered_grad("shard_trace", origins, dirs)
     sh = batch_shard(mesh)
-    tree = _shard_tree(tree, mesh, False)
-    packed = kw.pop("packed", None) or pack_tree(tree)
+    whole = _shard_tree(tree, mesh, False)
+    tree = _replicated(whole, sh, ("coeffs",))
+    packed = kw.pop("packed", None) or pack_tree(whole)
     dev = packed.device
     o = torch.as_tensor(origins, dtype=torch.float32, device=dev)
     d = torch.as_tensor(dirs, dtype=torch.float32, device=dev)
@@ -458,7 +596,7 @@ def shard_trace(tree, origins, dirs, mesh: DeviceMesh,
                  packed=packed, **kw)
     steps = all_reduce(torch.tensor([res.steps], dtype=torch.int64,
                                     device=dev), sh)
-    return TraceResult(all_gather(res.t, sh)[:b], all_gather(res.hit, sh)[:b],
+    return TraceResult(_gathered(res.t, sh, b), all_gather(res.hit, sh)[:b],
                        int(steps[0]))
 
 
@@ -515,7 +653,7 @@ def make_sharded_train_step(mesh: DeviceMesh, tree, shard_nodes: bool = True):
         coeffs = tr.coeffs.detach().requires_grad_(True)
         with torch.enable_grad():
             if isinstance(tr, ShardedTree):
-                q = _QueryNodes.apply(coeffs, tr, mine[0],
+                q = _QueryNodes.apply(coeffs, tr.centre, tr, mine[0],
                                       node_shard(mesh, tr.n_rows))
             else:
                 q = _query_fn(dataclasses.replace(tr, coeffs=coeffs),

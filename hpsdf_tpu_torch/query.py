@@ -13,8 +13,8 @@ the plain torch version (``descend`` + ``basis.eval_basis``), which is also
 what the kernel is held against.
 
 Gradients. On CPU tensors autograd differentiates the plain version. On
-CUDA tensors both are differentiable with respect to ``tree.coeffs`` and
-the points, through backward kernels, in f64:
+CUDA tensors both are differentiable with respect to ``tree.coeffs``, the
+points and ``tree.centre``, through backward kernels, in f64:
 
   * ``query`` to the coefficients: K8 (``csrc/coeff_scatter.cu``, wrapper
     ``coeff_scatter_kernel``), which scatters each point's weighted basis
@@ -27,12 +27,16 @@ the points, through backward kernels, in f64:
     writes it (``query_kernel(..., with_leaf=True)``, 4 bytes a point) and
     saves it for the backward, which runs no descent;
   * ``query_with_gradient`` to the coefficients: K8g
-    (``coeff_scatter_grad_kernel``), K8 with the unit gradient's term.
+    (``coeff_scatter_grad_kernel``), K8 with the unit gradient's term;
+  * both to ``tree.centre``: K1c, K1v's or K1h's launch in its centre mode
+    (``query_vjp_kernel(..., centre=True)``), from the same leaf: each
+    point's leaf frame cotangent times -2^(depth+1), summed into its leaf's
+    row; one launch writes the points' gradient too where they need one.
 
 Points are clamped into the root by ``clip_half``, whose derivative is
 ``jnp.clip``'s: 1 inside, 1/2 on a face of the root, 0 outside; the unit
 gradient's floor splits a tie as ``jnp.maximum`` does (``unit_vector``).
-With respect to ``tree.centre`` both raise on CUDA tensors.
+The centres enter after the clamp, so their derivative takes no slope.
 
 The node axis of ``parallel.py`` splits the node arrays over ranks; there
 a query is ``descend_round`` depth_used times and ``leaf_eval`` once, each
@@ -40,7 +44,8 @@ summed over the ranks, and its VJP ``coeff_scatter_nodes``: the node-range
 modes of K1 (``query_nodes_kernel``) and K8
 (``coeff_scatter_nodes_kernel``: a sort of the live points by tile of
 rows, ``node_buckets_kernel``, then a block a tile writing its rows once)
-on CUDA tensors, their plain versions on CPU tensors.
+on CUDA tensors, their plain versions on CPU tensors; to the block's
+centre rows K1c on the block (``query_centre_vjp``).
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ import numpy as np
 import torch
 
 from . import _kernels, basis, consts
-from ._device import refuse_grad, wants_grad
+from ._device import wants_grad
 from .tree import Octree
 
 # Value returned for points outside the root AABB
@@ -244,14 +249,23 @@ query_kernel.leaf_launches = 0
 
 def query_vjp_kernel(tree: Octree, pts: torch.Tensor, leaf: torch.Tensor,
                      w: torch.Tensor, wn: torch.Tensor | None = None,
-                     outside_value_max: bool = True) -> torch.Tensor:
+                     outside_value_max: bool = True, *, points: bool = True,
+                     centre: bool = False):
     """Launch K1's backward modes on CUDA tensors: the gradient (B, 3) f64
     with respect to the points of sum(w * query) (K1v, ``wn`` None;
     nothing from points outside the root when ``outside_value_max``), or
     of sum(w * value) + sum(wn * unit_grad) of ``query_with_gradient``
     (K1h), from each point's leaf ``leaf`` (B,) i32 as K1 wrote it for
     these points (``query_kernel(..., with_leaf=True)``); a leaf from
-    anywhere else gives another function's VJP. One launch a call. Raises
+    anywhere else gives another function's VJP. One launch a call.
+
+    With ``centre``, K1c: the same launch also gives the gradient (hi - lo,
+    3) f64 with respect to the centre rows [lo, hi) the tree holds (all N
+    of an ``Octree``; a node block's own, ``parallel.ShardedTree``, from
+    the points whose global leaf it holds), into a table zeroed first: two
+    operations on the card, the memset and the launch. ``points`` False
+    leaves the points' gradient out, as a node block must. Returns the
+    points' gradient, the centres', or both as (d_pts, d_centre). Raises
     on anything else."""
     _check_f64(tree, pts, "query_vjp_kernel")
     pts = pts.detach().contiguous()
@@ -261,29 +275,49 @@ def query_vjp_kernel(tree: Octree, pts: torch.Tensor, leaf: torch.Tensor,
         raise ValueError(f"leaf must be i32 ({B},) on {pts.device}, got "
                          f"{leaf.dtype} {tuple(leaf.shape)} on "
                          f"{leaf.device}")
+    # the node rows the arrays hold: all of an Octree's, a block's own
+    lo, hi = getattr(tree, "lo", 0), getattr(tree, "hi", tree.centre.shape[0])
+    if not (points or centre) or (points and (lo, hi) != (
+            0, tree.centre.shape[0])):
+        raise ValueError("query_vjp_kernel gives the points' gradient on a "
+                         "whole tree, the centres' with centre=True")
     leaf = leaf.contiguous()
     hess = wn is not None
     cots = _cotangents(B, pts.device, w, *((wn,) if hess else ()))
-    out = torch.empty((B, 3), dtype=torch.float64, device=pts.device)
-    if B == 0:
+    d_pts = (torch.empty((B, 3), dtype=torch.float64, device=pts.device)
+             if points else None)
+    d_centre = (torch.zeros((max(hi - lo, 0), 3), dtype=torch.float64,
+                            device=pts.device) if centre else None)
+    out = d_centre if not points else (d_pts, d_centre) if centre else d_pts
+    if B == 0 or hi <= lo:
         return out
     lib = _kernels.load()
     rc = tree.config.root_centre
     inv = 1.0 / tree.config.root_sizes
-    _kernels.check(lib, lib.hpsdf_query_vjp(
-        tree.centre.data_ptr(), tree.depth.data_ptr(),
-        tree.coeffs.detach().data_ptr(), tree.deg_used, pts.data_ptr(),
-        leaf.data_ptr(), B, *map(float, rc), *map(float, inv),
-        int(outside_value_max or hess), cots[0].data_ptr(),
-        cots[1].data_ptr() if hess else None, out.data_ptr(),
-        _kernels.stream_of(pts)), "query_vjp")
+    args = (pts.data_ptr(), leaf.data_ptr(), B, *map(float, rc),
+            *map(float, inv), int(outside_value_max or hess),
+            cots[0].data_ptr(), cots[1].data_ptr() if hess else None,
+            d_pts.data_ptr() if points else None)
+    arrays = (tree.centre.detach().data_ptr(), tree.depth.data_ptr(),
+              tree.coeffs.detach().data_ptr(), tree.deg_used)
+    if centre:
+        _kernels.check(lib, lib.hpsdf_query_centre_vjp(
+            *arrays, lo, hi, *args, d_centre.data_ptr(),
+            _kernels.stream_of(pts)), "query_centre_vjp")
+    else:
+        _kernels.check(lib, lib.hpsdf_query_vjp(
+            *arrays, *args, _kernels.stream_of(pts)), "query_vjp")
     query_vjp_kernel.launches += 1
-    query_vjp_kernel.hess_launches += int(hess)
+    query_vjp_kernel.hess_launches += int(hess and not centre)
+    query_vjp_kernel.centre_launches += int(centre)
     return out
 
 
+# all launches; apart, K1h's and K1c's (either order, with or without the
+# points)
 query_vjp_kernel.launches = 0
 query_vjp_kernel.hess_launches = 0
+query_vjp_kernel.centre_launches = 0
 
 
 def coeff_scatter_kernel(tree: Octree, cot: torch.Tensor, *, pts=None,
@@ -437,6 +471,46 @@ def query_with_gradient_vjp_plain(tree: Octree, pts: torch.Tensor,
     return _grads(lambda c, p: query_with_gradient_plain(
         dataclasses.replace(tree, coeffs=c), p, leaf), (tree.coeffs, pts),
         (wv, wn))
+
+
+def query_centre_vjp_plain(tree, pts: torch.Tensor, w: torch.Tensor,
+                           wn: torch.Tensor | None = None,
+                           outside_value_max: bool = True,
+                           leaf=None) -> torch.Tensor:
+    """K1c by autograd of ``query_plain`` (``wn`` None: sum(w * query),
+    nothing from points outside the root when ``outside_value_max``) or of
+    ``query_with_gradient_plain`` (sum(w * value) + sum(wn * unit_grad)):
+    the gradient (hi - lo, 3) with respect to the centre rows [lo, hi) the
+    tree holds, from the leaves ``leaf`` (B,) where given, else by the
+    descent. A node block (``parallel.ShardedTree``) needs the global
+    leaves; it answers the points whose leaf it holds, as K1c's row range
+    does."""
+    pts = pts.detach()
+    if hasattr(tree, "lo"):
+        if tree.hi <= tree.lo:
+            return torch.zeros((0, 3), dtype=w.dtype, device=w.device)
+        leaf, own = _block_rows(tree, leaf)
+        w = torch.where(own, w, 0.0)
+        wn = None if wn is None else torch.where(own[:, None], wn, 0.0)
+
+    def f(c):
+        t = dataclasses.replace(tree, centre=c)
+        if wn is None:
+            return query_plain(t, pts, outside_value_max, leaf)
+        return query_with_gradient_plain(t, pts, leaf)
+
+    return _grads(f, (tree.centre,), w if wn is None else (w, wn))[0]
+
+
+def query_centre_vjp(tree, pts, leaf, w, wn=None, outside_value_max=True):
+    """K1c's VJP to the centre rows the tree holds (a whole tree or a node
+    block): the plain version on CPU tensors, the kernel on CUDA
+    tensors."""
+    if pts.device.type == "cpu":
+        return query_centre_vjp_plain(tree, pts, w, wn, outside_value_max,
+                                      leaf)
+    return query_vjp_kernel(tree, pts, leaf, w, wn, outside_value_max,
+                            points=False, centre=True)
 
 
 # --------------------------------------------------------------------------
@@ -758,11 +832,12 @@ def coeff_scatter_nodes(block, pts, leaf, w, outside_value_max=False):
 
 
 def _forward(ctx, tree, pts, with_grad, outside_value_max=True):
-    """K1 for an autograd function's forward: with each point's leaf, saved
-    beside the points for K1v / K1h, only where the points need a
-    gradient."""
+    """K1 for an autograd function's forward (inputs: the coefficients,
+    the tree, the points, ..., the centres last): with each point's leaf,
+    saved beside the points for K1v / K1h / K1c, only where the points or
+    the centres need a gradient."""
     ctx.tree = tree
-    if not ctx.needs_input_grad[2]:
+    if not (ctx.needs_input_grad[2] or ctx.needs_input_grad[-1]):
         ctx.save_for_backward(pts)
         return query_kernel(tree, pts, with_grad, outside_value_max)
     *out, leaf = query_kernel(tree, pts, with_grad, outside_value_max,
@@ -771,12 +846,27 @@ def _forward(ctx, tree, pts, with_grad, outside_value_max=True):
     return tuple(out) if with_grad else out[0]
 
 
+def _leaf_vjps(ctx, pts, leaf, *cots, **kw):
+    """The gradients to the points and the centres (the inputs after the
+    tree and last) that ``ctx`` asks for, (d_pts, d_centre) with None for
+    the others: K1v / K1h alone for the points, else one launch of K1c."""
+    points, centre = ctx.needs_input_grad[2], ctx.needs_input_grad[-1]
+    if centre:
+        out = query_vjp_kernel(ctx.tree, pts, *leaf, *cots, **kw,
+                               points=points, centre=True)
+        return out if points else (None, out)
+    if points:
+        return query_vjp_kernel(ctx.tree, pts, *leaf, *cots, **kw), None
+    return None, None
+
+
 class _Query(torch.autograd.Function):
-    """K1, with K8 (query form) as its VJP with respect to the coefficients
-    and K1v (from K1's leaves) with respect to the points."""
+    """K1, with K8 (query form) as its VJP with respect to the
+    coefficients, K1v (from K1's leaves) with respect to the points and K1c
+    with respect to the centres."""
 
     @staticmethod
-    def forward(ctx, coeffs, tree, pts, outside_value_max):
+    def forward(ctx, coeffs, tree, pts, outside_value_max, centre):
         ctx.outside_value_max = outside_value_max
         return _forward(ctx, tree, pts, False, outside_value_max)
 
@@ -784,33 +874,32 @@ class _Query(torch.autograd.Function):
     def backward(ctx, w):
         pts, *leaf = ctx.saved_tensors
         w = w.contiguous()
-        d_coeffs = d_pts = None
+        d_coeffs = None
         if ctx.needs_input_grad[0]:
             d_coeffs = coeff_scatter_kernel(
                 ctx.tree, w, pts=pts, outside_value_max=ctx.outside_value_max)
-        if ctx.needs_input_grad[2]:
-            d_pts = query_vjp_kernel(ctx.tree, pts, *leaf, w,
-                                     outside_value_max=ctx.outside_value_max)
-        return d_coeffs, None, d_pts, None
+        d_pts, d_centre = _leaf_vjps(
+            ctx, pts, leaf, w, outside_value_max=ctx.outside_value_max)
+        return d_coeffs, None, d_pts, None, d_centre
 
 
 class _QueryWithGradient(torch.autograd.Function):
     """K1 with the gradient, with K8g as its VJP with respect to the
-    coefficients and K1h (from K1's leaves) with respect to the points."""
+    coefficients, K1h (from K1's leaves) with respect to the points and
+    K1c with respect to the centres."""
 
     @staticmethod
-    def forward(ctx, coeffs, tree, pts):
+    def forward(ctx, coeffs, tree, pts, centre):
         return _forward(ctx, tree, pts, True)
 
     @staticmethod
     def backward(ctx, wv, wn):
         pts, *leaf = ctx.saved_tensors
-        d_coeffs = d_pts = None
+        d_coeffs = None
         if ctx.needs_input_grad[0]:
             d_coeffs = coeff_scatter_grad_kernel(ctx.tree, pts, wv, wn)
-        if ctx.needs_input_grad[2]:
-            d_pts = query_vjp_kernel(ctx.tree, pts, *leaf, wv, wn)
-        return d_coeffs, None, d_pts
+        d_pts, d_centre = _leaf_vjps(ctx, pts, leaf, wv, wn)
+        return d_coeffs, None, d_pts, d_centre
 
 
 def query(tree: Octree, pts: torch.Tensor, outside_value_max: bool = True):
@@ -819,28 +908,26 @@ def query(tree: Octree, pts: torch.Tensor, outside_value_max: bool = True):
     Negative inside the surface. Points outside the root AABB return the f64
     max sentinel unless ``outside_value_max`` is False, in which case they
     return the clamped-boundary evaluation. Differentiable with respect to
-    ``tree.coeffs`` (kernel K8 on CUDA tensors) and the points (K1v); on
-    CUDA tensors not with respect to the centres.
+    ``tree.coeffs`` (kernel K8 on CUDA tensors), the points (K1v) and
+    ``tree.centre`` (K1c).
     """
     if pts.device.type == "cpu":
         return query_plain(tree, pts, outside_value_max)
-    refuse_grad("query with respect to tree.centre", tree.centre)
-    if wants_grad(tree.coeffs, pts):
-        return _Query.apply(tree.coeffs, tree, pts, outside_value_max)
+    if wants_grad(tree.coeffs, pts, tree.centre):
+        return _Query.apply(tree.coeffs, tree, pts, outside_value_max,
+                            tree.centre)
     return query_kernel(tree, pts, False, outside_value_max)
 
 
 def query_with_gradient(tree: Octree, pts: torch.Tensor):
     """Value and unit world-space gradient at ``pts`` (B, 3).
     Returns (val (B,), unit_grad (B, 3)). Differentiable with respect to
-    ``tree.coeffs`` (K8g on CUDA tensors) and the points (K1h); on CUDA
-    tensors not with respect to the centres."""
+    ``tree.coeffs`` (K8g on CUDA tensors), the points (K1h) and
+    ``tree.centre`` (K1c)."""
     if pts.device.type == "cpu":
         return query_with_gradient_plain(tree, pts)
-    refuse_grad("query_with_gradient with respect to tree.centre",
-                tree.centre)
-    if wants_grad(tree.coeffs, pts):
-        return _QueryWithGradient.apply(tree.coeffs, tree, pts)
+    if wants_grad(tree.coeffs, pts, tree.centre):
+        return _QueryWithGradient.apply(tree.coeffs, tree, pts, tree.centre)
     return query_kernel(tree, pts, True)
 
 

@@ -12,11 +12,13 @@ and writes what it returned to <dir>/rank<rank>.npz.
 At 2 and 3 ranks: every entry point on the batch axis, make_mesh(size)
 (rank 0 also runs the fit without a mesh at the same chunk size), then on
 make_mesh(node_parallel=size) the node-sharded query, with the collectives
-it made counted by axis, and two node-sharded train steps. At GRID_RANKS
-ranks: __graft_entry__.dryrun_multichip's sequence on a (2, 2) mesh
-(``grid``). Imports neither jax nor hpsdf_tpu.
+it made counted by axis, and two node-sharded train steps; then the
+sharded reads' gradients (``gradients``). At GRID_RANKS ranks:
+__graft_entry__.dryrun_multichip's sequence on a (2, 2) mesh (``grid``),
+and the gradients there. Imports neither jax nor hpsdf_tpu.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -31,6 +33,7 @@ import hpsdf_tpu_torch as T                              # noqa: E402
 from hpsdf_tpu_torch import build as TB                  # noqa: E402
 from hpsdf_tpu_torch import continuity as TC             # noqa: E402
 from hpsdf_tpu_torch import parallel                     # noqa: E402
+from hpsdf_tpu_torch.query import OUTSIDE_VALUE          # noqa: E402
 from chip_smoke import collectives                       # noqa: E402
 
 # fit chunks of 64 cells: every fit batch spreads over the ranks
@@ -47,6 +50,76 @@ def tree_of(pre, cfg):
     return T.from_numpy({k: inp[f"{pre}{k}"] for k in ARRAYS},
                         int(inp[f"{pre}n_nodes"]), int(inp[f"{pre}deg_used"]),
                         int(inp[f"{pre}depth_used"]), cfg, device="cpu")
+
+
+def query_grads(tree, pts, w, mesh, nodes, keys=("coeffs", "centre"),
+                axes=None):
+    """The gradients of sum(w * shard_query(...)), the sentinel masked, with
+    respect to the arrays ``keys`` of ``tree`` (an Octree or this rank's
+    ShardedTree), as numpy; with ``axes`` also the collectives the backward
+    made, as (axis, elements) strings."""
+    xs = {k: getattr(tree, k).detach().clone().requires_grad_(True)
+          for k in keys}
+    v = parallel.shard_query(dataclasses.replace(tree, **xs), pts, mesh,
+                             shard_nodes=nodes)
+    v = torch.where(v == OUTSIDE_VALUE, 0.0, v)
+    loss = (torch.as_tensor(w) * v).sum()
+    if axes is None:
+        gs = torch.autograd.grad(loss, list(xs.values()))
+        return {k: g.numpy() for k, g in zip(xs, gs)}
+    with collectives(axes) as seen:
+        gs = torch.autograd.grad(loss, list(xs.values()))
+    return {**{k: g.numpy() for k, g in zip(xs, gs)},
+            "collectives": np.array(seen, dtype=object).astype(str)}
+
+
+def trace_grad(tree, o, d, wt, mesh, **kw):
+    """The gradient of sum(wt * t) over the hit rays of shard_trace with
+    respect to ``tree.coeffs``."""
+    c = tree.coeffs.detach().clone().requires_grad_(True)
+    res = parallel.shard_trace(dataclasses.replace(tree, coeffs=c), o, d,
+                               mesh, t_max=5.0, **kw)
+    loss = (torch.as_tensor(wt, dtype=torch.float32)
+            * torch.where(res.hit, res.t, 0.0)).sum()
+    return torch.autograd.grad(loss, c)[0].numpy()
+
+
+def gradients(tree, mesh, nmesh, pre=""):
+    """The sharded reads' gradients, under the keys ``pre``grad_...: on the
+    batch axis of ``mesh`` and the node axis of ``nmesh`` (shard_nodes),
+    shard_query's to the coefficients and centres of the whole tree, its
+    centres' alone, and on the node axis also of this rank's block, with
+    the node backward's collectives; shard_trace's to the coefficients,
+    the packed tables built and given, and to this rank's block's (the
+    tree gathered over the node axis); a share's cotangent through the
+    batch axis's gather, padded rows included."""
+    pts, w = inp["grad_pts"], inp["grad_w"]
+    for axis, m, nodes in (("batch", mesh, False), ("node", nmesh, True)):
+        axes = None
+        if nodes:
+            axes = {"batch": parallel.batch_shard(m).group,
+                    "node": parallel.node_shard(m, 8).group}
+        got = query_grads(tree, pts, w, m, nodes, axes=axes)
+        for k, g in got.items():
+            out[f"{pre}grad_{axis}_{k}"] = g
+        out[f"{pre}grad_{axis}_centre_only"] = query_grads(
+            tree, pts, w, m, nodes, ("centre",))["centre"]
+    block = parallel._shard_tree(tree, nmesh, True)
+    out[f"{pre}grad_block_rows"] = np.array([block.lo, block.hi])
+    for k, g in query_grads(block, pts, w, nmesh, True).items():
+        out[f"{pre}grad_block_{k}"] = g
+    o, d, wt = inp["o"], inp["d"], inp["grad_wt"]
+    out[f"{pre}grad_trace"] = trace_grad(tree, o, d, wt, mesh)
+    out[f"{pre}grad_trace_packed"] = trace_grad(
+        tree, o, d, wt, mesh, packed=T.pack_tree(tree))
+    out[f"{pre}grad_trace_block"] = trace_grad(block, o, d, wt, nmesh)
+    sh = parallel.batch_shard(mesh)
+    padded, b = parallel._pad_batch(torch.zeros(pts.shape[0]), sh.size)
+    x = parallel.share(padded, sh).requires_grad_(True)
+    y = parallel._gathered(x, sh, b)
+    y.backward(torch.arange(1.0, b + 1.0, dtype=torch.float32))
+    out[f"{pre}grad_pad"] = np.concatenate([[b, sh.rank, sh.size],
+                                            x.grad.numpy()])
 
 
 def grid():
@@ -119,6 +192,8 @@ def grid():
                                                   mesh=mesh).coeffs.numpy()
     TC.row_block = real_block
     out["grid_cg_block"] = np.array(blocks[0])
+
+    gradients(tree, mesh, mesh, "grid_")
 
     o2, d2 = T.camera_rays((0.0, 0.0, -1.8), (0.0, 0.0, 0.0), width=16,
                            height=16, device="cpu")
@@ -223,6 +298,9 @@ t2, l2 = step(t1, inp["train_pts"], inp["train_target"], lr=1e-4)
 out["node_step_type"] = np.array(type(t2).__name__)
 out["node_losses"] = np.array([float(l1), float(l2)])
 out["node_coeffs"] = parallel.gather_tree(t1, nmesh).coeffs.numpy()
+
+# --- the sharded reads' gradients ----------------------------------------
+gradients(tree, mesh, nmesh)
 
 np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
 parallel.dist.destroy_process_group()

@@ -198,8 +198,8 @@ def test_autograd_functions_hand_the_leaf_on(entry, wants, monkeypatch,
         inputs = [x for x in (C, P) if x.requires_grad]
         return torch.autograd.grad(loss, inputs)
 
-    got = run(lambda C, P: TQ._QueryWithGradient.apply(C, tt, P) if hess
-              else TQ._Query.apply(C, tt, P, True))
+    got = run(lambda C, P: TQ._QueryWithGradient.apply(C, tt, P, tt.centre)
+              if hess else TQ._Query.apply(C, tt, P, True, tt.centre))
     want = run(lambda C, P: TQ.query_with_gradient_plain(
         dataclasses.replace(tt, coeffs=C), P) if hess
         else TQ.query_plain(dataclasses.replace(tt, coeffs=C), P))

@@ -26,7 +26,19 @@ hpsdf_tpu.parallel on the same inputs:
     (tests/test_parallel.py:37-43), at most ceil(N / size) rows a rank and
     depth_used + 1 collectives over the node axis, each of the batch
     share's size; the default (node-sharded) train step as the sharded SGD
-    step above (tests/test_parallel.py:62-84), returning the rank's block.
+    step above (tests/test_parallel.py:62-84), returning the rank's block;
+  * the sharded reads' gradients, every rank taking the same loss of the
+    gathered values: shard_query's to the coefficients and centres on the
+    batch axis and on the node axis (a whole tree sliced, and a rank's
+    block), and its centres' alone (a gradient the all-gather used to drop
+    without a word), within rtol 1e-10, atol 1e-12 of the port's
+    one-device gradient and of jax.grad of hpsdf_tpu.parallel.shard_query;
+    shard_trace's to the coefficients, packed tables built or given,
+    within RTOL_TRACE of the largest entry of both; the batch axis's
+    gather handing each rank its share of the cotangent, nothing on the
+    padded rows; the node backward's collectives, one all-reduce a
+    replicated array over the batch axis and one all-gather a sliced one
+    over the node axis.
 
 A world of GRID_RANKS ranks on a (2, 2) mesh runs
 __graft_entry__.dryrun_multichip's sequence at its sizes and tolerances:
@@ -35,13 +47,15 @@ four ranks, as the row-sharded CG (within 1e-10 / 1e-12 of the port's and
 hpsdf_tpu's solves) is; the node-sharded train step's loss within 1e-10 of
 hpsdf_tpu's train_step; shard_query (replicated and node-sharded) and
 shard_trace against the port's one-device calls; fit_to_depth over the
-batch axis against the one-device run at another chunk size.
+batch axis against the one-device run at another chunk size; the sharded
+reads' gradients as at 2 and 3 ranks.
 
 The plain versions of K9's partial mode and K9u's two launches, which the
 CPU ranks run, are held to the one-device operator on row blocks here.
 """
 
 import dataclasses
+import importlib
 import os
 import socket
 import subprocess
@@ -52,6 +66,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import jax
 import hpsdf_tpu as hp
 from hpsdf_tpu import continuity as JC
 from hpsdf_tpu import parallel as JP
@@ -63,6 +78,9 @@ from hpsdf_tpu_torch import continuity as TC
 from .test_torch_accel import carry
 from .test_torch_query import _ARRAYS, few_torch_threads  # noqa: F401
 from .util import sphere_sdf, uniform_pts
+
+# the module, which the package's ``query`` function shadows
+TQ = importlib.import_module("hpsdf_tpu_torch.query")
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _WORKER = os.path.join(_ROOT, "tests", "_torch_parallel_worker.py")
@@ -82,6 +100,9 @@ CG_CFG = dict(target_error=3e-7, continuity=False, continuity_strength=8.0,
 INV_SIDE, INV_CHUNK = 64, 1500      # 4,096 rays: 3 chunks, the last padded
 CG_RTOL, CG_ATOL = 1e-10, 1e-12
 INV_RTOL, INV_ATOL = 1e-4, 1e-7
+GRAD_RTOL, GRAD_ATOL = 1e-10, 1e-12
+RTOL_TRACE = 1e-4                   # of the largest entry, f32 sums reorder
+N_GRAD = 1003
 
 
 def _free_port() -> int:
@@ -147,6 +168,11 @@ def inputs(small_tree, cg_tree, dry_tree, tmp_path_factory):
     inp["dry_pts"] = np.random.default_rng(1).uniform(-0.5, 0.5, (256, 3))
     inp["dry_o"] = np.tile(np.float32([[0.0, 0.0, -2.0]]), (16, 1))
     inp["dry_d"] = np.tile(np.float32([[0.0, 0.0, 1.0]]), (16, 1))
+    # the gradients' points (straddling the root) and cotangents
+    grng = np.random.default_rng(13)
+    inp["grad_pts"] = uniform_pts(N_GRAD, -0.6, 0.6, seed=12)
+    inp["grad_w"] = grng.normal(size=N_GRAD)
+    inp["grad_wt"] = grng.normal(size=n).astype(np.float32)
     np.savez(d / "inputs.npz", **inp)
     return d, inp
 
@@ -216,9 +242,16 @@ def world(request, ranks):
     for other in got[1:]:
         for k in ("query", "trace_t", "trace_hit", "cone_t", "train_losses",
                   "train_coeffs", "fit_coeffs", "cg_coeffs", "inv_losses",
-                  "inv_coeffs", "node_query", "node_losses", "node_coeffs"):
+                  "inv_coeffs", "node_query", "node_losses", "node_coeffs",
+                  *_WHOLE_GRADS):
             np.testing.assert_array_equal(other[k], got[0][k], err_msg=k)
     return request.param, got[0]
+
+
+# the gradients of the whole tree every rank returns alike
+_WHOLE_GRADS = tuple(f"grad_{a}_{k}" for a in ("batch", "node")
+                     for k in ("coeffs", "centre", "centre_only")) \
+    + ("grad_trace", "grad_trace_packed")
 
 
 def test_make_mesh(world):
@@ -406,7 +439,8 @@ def grid(ranks):
     for other in got[1:]:
         for k in ("grid_fit_equal", "grid_loss", "grid_step_coeffs",
                   "grid_query_0", "grid_query_1", "grid_trace_t",
-                  "grid_trace_hit", "grid_cg_coeffs", "grid_inv_losses"):
+                  "grid_trace_hit", "grid_cg_coeffs", "grid_inv_losses",
+                  *(f"grid_{g}" for g in _WHOLE_GRADS)):
             np.testing.assert_array_equal(other[k], got[0][k], err_msg=k)
     return got
 
@@ -583,23 +617,208 @@ def test_refuses_what_is_not_a_mesh(port_tree):
 
 
 @pytest.mark.parametrize("what", ["points", "coeffs"])
-def test_sharded_reads_refuse_a_gradient(what, port_tree):
-    """shard_query and shard_trace all-gather their shares, which carries no
-    gradient: points, rays or coefficients that require one raise before
-    any collective instead of returning values cut off from autograd."""
+def test_sharded_reads_refuse_a_gradient(what, port_tree, inputs):
+    """Points or rays that require a gradient make shard_query and
+    shard_trace raise before any collective: the sharded reads, as the
+    reference's, differentiate the tree only. Coefficients that require
+    one get it: on a one-rank group in this process, bit for bit the
+    one-device gradient (the rank's share is the batch)."""
     from hpsdf_tpu_torch import parallel
 
     pts = torch.zeros(4, 3, dtype=torch.float64)
-    tree = port_tree
     if what == "points":
         pts.requires_grad_(True)
-    else:
-        tree = dataclasses.replace(
-            port_tree, coeffs=port_tree.coeffs.clone().requires_grad_(True))
-    for call in (lambda: parallel.shard_query(tree, pts, object()),
-                 lambda: parallel.shard_trace(tree, pts, pts, object())):
-        with pytest.raises(RuntimeError, match="all-gather"):
-            call()
-    with torch.no_grad():               # no gradient asked for: the mesh
-        with pytest.raises(TypeError, match="DeviceMesh"):
-            parallel.shard_query(tree, pts, object())
+        for call in (lambda: parallel.shard_query(port_tree, pts, object()),
+                     lambda: parallel.shard_trace(port_tree, pts, pts,
+                                                  object())):
+            with pytest.raises(RuntimeError, match="all-gather"):
+                call()
+        with torch.no_grad():           # no gradient asked for: the mesh
+            with pytest.raises(TypeError, match="DeviceMesh"):
+                parallel.shard_query(port_tree, pts, object())
+        return
+    _, inp = inputs
+    pts = torch.as_tensor(inp["grad_pts"][:64])
+    owned = not parallel.dist.is_initialized()
+    mesh = parallel.make_mesh(device="cpu")
+    reads = {"query": (lambda t: parallel.shard_query(t, pts, mesh),
+                       lambda t: T.query(t, pts)),
+             "trace": (lambda t: parallel.shard_trace(
+                 t, inp["o"], inp["d"], mesh, t_max=5.0).t,
+                 lambda t: T.trace(t, inp["o"], inp["d"], t_max=5.0).t)}
+    try:
+        for sharded, one in reads.values():
+            grads = []
+            for fn in (sharded, one):
+                c = port_tree.coeffs.clone().requires_grad_(True)
+                v = fn(dataclasses.replace(port_tree, coeffs=c))
+                v = torch.where(v == TQ.OUTSIDE_VALUE, 0.0, v)
+                (v * torch.arange(v.shape[0], dtype=v.dtype)).sum() \
+                    .backward()
+                grads.append(c.grad)
+            assert grads[0].abs().max() > 0
+            np.testing.assert_array_equal(grads[0].numpy(),
+                                          grads[1].numpy())
+    finally:
+        if owned:
+            parallel.dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# The sharded reads' gradients
+# --------------------------------------------------------------------------
+
+def _jax_masked(v):
+    return jnp.where(v == jnp.finfo(jnp.float64).max, 0.0, v)
+
+
+def _one_device(jt, tt, inp):
+    """The gradients the sharded reads must give: the port's one-device
+    query's and trace's (autograd of the plain versions), and jax.grad of
+    hpsdf_tpu.parallel's shard_query on the batch axis (make_mesh()) and
+    the node axis (make_mesh(node_parallel=2), shard_nodes) and of its
+    shard_trace with the packed tables given."""
+    from hpsdf_tpu import accel as JA
+
+    pts, w, wt = inp["grad_pts"], inp["grad_w"], inp["grad_wt"]
+    o, d = inp["o"], inp["d"]
+    C = tt.coeffs.clone().requires_grad_(True)
+    X = tt.centre.clone().requires_grad_(True)
+    v = T.query(dataclasses.replace(tt, coeffs=C, centre=X),
+                torch.as_tensor(pts))
+    loss = (torch.as_tensor(w) * torch.where(v == TQ.OUTSIDE_VALUE, 0.0,
+                                             v)).sum()
+    out = dict(zip(("coeffs", "centre"), (g.numpy() for g in
+                                          torch.autograd.grad(loss, (C, X)))))
+    C = tt.coeffs.clone().requires_grad_(True)
+    res = T.trace(dataclasses.replace(tt, coeffs=C), o, d, t_max=5.0)
+    out["trace"] = torch.autograd.grad(
+        (torch.as_tensor(wt) * torch.where(res.hit, res.t, 0.0)).sum(),
+        C)[0].numpy()
+    for axis, mesh, nodes in (("batch", JP.make_mesh(), False),
+                              ("node", JP.make_mesh(node_parallel=2), True)):
+        def f(c, x):
+            v = JP.shard_query(dataclasses.replace(jt, coeffs=c, centre=x),
+                               pts, mesh, shard_nodes=nodes)
+            return jnp.sum(jnp.asarray(w) * _jax_masked(v))
+        gc, gx = jax.grad(f, argnums=(0, 1))(jt.coeffs, jt.centre)
+        out[f"jax_{axis}_coeffs"], out[f"jax_{axis}_centre"] = (
+            np.asarray(gc), np.asarray(gx))
+    packed = JA.pack_tree(jt)
+
+    def g(c):
+        res = JP.shard_trace(dataclasses.replace(jt, coeffs=c), o, d,
+                             JP.make_mesh(), t_max=5.0, packed=packed)
+        return jnp.sum(jnp.asarray(wt) * jnp.where(res.hit, res.t, 0.0))
+    out["jax_trace"] = np.asarray(jax.grad(g)(jt.coeffs))
+    return out
+
+
+@pytest.fixture(scope="module")
+def grads_small(small_tree, port_tree, inputs):
+    return _one_device(small_tree[0], port_tree, inputs[1])
+
+
+@pytest.fixture(scope="module")
+def grads_dry(dry_tree, dry_port, inputs):
+    return _one_device(dry_tree, dry_port, inputs[1])
+
+
+def _grad_close(got, want):
+    np.testing.assert_allclose(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def _trace_close(got, want):
+    np.testing.assert_allclose(got, want, rtol=0, atol=RTOL_TRACE * float(
+        np.abs(want).max()))
+
+
+def _check_grads(got, want, pre=""):
+    """A rank's gradients of the whole tree against the one-device ones and
+    jax's; the centres' alone the same as with the coefficients."""
+    for axis in ("batch", "node"):
+        for k in ("coeffs", "centre"):
+            g = got[f"{pre}grad_{axis}_{k}"]
+            assert np.abs(g).max() > 1.0, (axis, k)
+            _grad_close(g, want[k])
+            _grad_close(g, want[f"jax_{axis}_{k}"])
+        _grad_close(got[f"{pre}grad_{axis}_centre_only"], want["centre"])
+    for k in ("grad_trace", "grad_trace_packed"):
+        assert np.abs(got[pre + k]).max() > 0.0
+        _trace_close(got[pre + k], want["trace"])
+        _trace_close(got[pre + k], want["jax_trace"])
+
+
+def _check_blocks(rank_outs, want, pre=""):
+    """Each rank's block gradients: its own rows of the one-device ones
+    (shard_query's on the node axis; shard_trace's, which gathers the
+    block), the node axis's blocks covering the tree's rows in order."""
+    rows = set()
+    for r in rank_outs:
+        lo, hi = (int(x) for x in r[f"{pre}grad_block_rows"])
+        rows.add((lo, hi))
+        for k in ("coeffs", "centre"):
+            _grad_close(r[f"{pre}grad_block_{k}"], want[k][lo:hi])
+        _trace_close(r[f"{pre}grad_trace_block"], want["trace"][lo:hi])
+    rows = sorted(rows)
+    assert rows[0][0] == 0 and rows[-1][1] == want["coeffs"].shape[0]
+    assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+
+
+def _check_padding(rank_outs, pre=""):
+    """The batch axis's gather hands each rank its own share of the
+    cotangent 1..b, and zeros on the padded rows."""
+    for r in rank_outs:
+        b, rank, size, *g = r[f"{pre}grad_pad"]
+        b, rank, size, per = int(b), int(rank), int(size), len(g)
+        assert b <= per * size < b + size
+        full = np.zeros(per * size)
+        full[:b] = np.arange(1, b + 1)
+        np.testing.assert_array_equal(g, full[rank * per:(rank + 1) * per])
+
+
+def _check_node_collectives(rank_outs, tree, pre=""):
+    """The node axis's backward: one all-reduce over the batch axis for each
+    replicated array (the block's coefficients and centres), one all-gather
+    over the node axis for each array sliced from the whole tree (blocks
+    padded to the longest), and nothing else."""
+    C = tree.coeffs.shape[1]
+    blocks = [tuple(int(x) for x in r[f"{pre}grad_block_rows"])
+              for r in rank_outs]
+    per = max(hi - lo for lo, hi in blocks)
+    for r, (lo, hi) in zip(rank_outs, blocks):
+        want = sorted([["batch", str((hi - lo) * C)],
+                       ["batch", str((hi - lo) * 3)],
+                       ["node", str(per * C)], ["node", str(per * 3)]])
+        assert sorted(r[f"{pre}grad_node_collectives"].tolist()) == want
+
+
+def test_shard_query_gradients(world, grads_small):
+    """shard_query's and shard_trace's gradients to the whole tree at 2 and
+    3 ranks, against the port's one-device gradients and jax's; the
+    centres' alone carried too (the all-gather used to drop them)."""
+    _, got = world
+    _check_grads(got, grads_small)
+
+
+def test_shard_query_gradients_of_a_block(world, ranks, grads_small,
+                                          port_tree):
+    """On the node axis, a rank's own block takes its rows of the
+    one-device gradient, and the backward makes the stated collectives."""
+    size, _ = world
+    _check_blocks(ranks[size], grads_small)
+    _check_node_collectives(ranks[size], port_tree)
+
+
+def test_gathered_padding(world, ranks):
+    size, _ = world
+    _check_padding(ranks[size])
+
+
+def test_grid_gradients(grid, grads_dry, dry_port):
+    """The same on the (2, 2) mesh: batch axis and node axis of two ranks
+    each."""
+    _check_grads(grid[0], grads_dry, "grid_")
+    _check_blocks(grid, grads_dry, "grid_")
+    _check_node_collectives(grid, dry_port, "grid_")
+    _check_padding(grid, "grid_")

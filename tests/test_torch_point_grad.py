@@ -554,6 +554,39 @@ def test_path_oriented_fit(sphere, few_torch_threads):  # noqa: F811
         tt, c, s, P, NT), check, chip_smoke.FIT_LR)
 
 
+def test_path_oriented_fit_centres(sphere, few_torch_threads):  # noqa: F811
+    """Path (d): path (b)'s loss with respect to the centres as well (K1c
+    on the card), two Adam steps, each step's loss and gradients against
+    jax's at the same parameters."""
+    jt, tt = sphere
+    v, f = gen.icosphere(0.3, 2)
+    mesh = build_mesh(v, f)
+    pts, n_t = chip_smoke.oriented_samples(mesh, 256, seed=6)
+    P, NT = torch.as_tensor(pts), torch.as_tensor(n_t)
+
+    def jloss(c, shift, x):
+        tr = dataclasses.replace(jt, coeffs=c, centre=x)
+        Q = jnp.asarray(pts) + shift
+        n = hp.query_with_gradient(tr, Q)[1]
+        return jnp.mean(hp.query(tr, Q) ** 2) + jnp.mean(
+            1.0 - jnp.sum(n * jnp.asarray(n_t), -1))
+
+    def check(params, loss, grads):
+        c, s, x = (jnp.asarray(p.numpy()) for p in params)
+        want_loss, want = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+            c, s, x)
+        assert loss == pytest.approx(float(want_loss), rel=1e-12)
+        for g, w in zip(grads, want):
+            _close(g, w, RTOL64)
+        assert float(grads[2].abs().max()) > 0
+
+    params = [tt.coeffs.clone().requires_grad_(True),
+              torch.zeros(3, dtype=torch.float64, requires_grad=True),
+              tt.centre.clone().requires_grad_(True)]
+    _adam(params, 2, lambda c, s, x: chip_smoke.oriented_fit_loss(
+        tt, c, s, P, NT, centre=x), check, chip_smoke.FIT_LR)
+
+
 def test_path_normal_map(sphere, few_torch_threads):  # noqa: F811
     jt, tt = sphere
     o, d = TR.camera_rays((0.5, 0.4, -1.6), (0.0, 0.0, 0.0), width=16,
@@ -595,6 +628,7 @@ def test_path_normal_map(sphere, few_torch_threads):  # noqa: F811
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kernel", ["query_vjp", "query_vjp_hess",
+                                    "query_centre_vjp",
                                     "coeff_scatter_grad", "packed_hvp",
                                     "packed_grad_form2"])
 def test_kernel_wrappers_refuse_cpu(kernel, few_torch_threads):  # noqa: F811
@@ -611,6 +645,9 @@ def test_kernel_wrappers_refuse_cpu(kernel, few_torch_threads):  # noqa: F811
             TQ.query_vjp_kernel(tt, p64, leaf, w64)
         elif kernel == "query_vjp_hess":
             TQ.query_vjp_kernel(tt, p64, leaf, w64, p64)
+        elif kernel == "query_centre_vjp":
+            TQ.query_vjp_kernel(tt, p64, leaf, w64, points=False,
+                                centre=True)
         elif kernel == "coeff_scatter_grad":
             TQ.coeff_scatter_grad_kernel(tt, p64, w64, p64)
         elif kernel == "packed_hvp":
@@ -651,20 +688,35 @@ def test_device_tensors_take_the_autograd_functions(entry, monkeypatch,
     assert out == "taken" and len(taken) == 1 and taken[0][2] is meta
 
 
-def test_centre_and_trace_rays_still_refused(few_torch_threads):  # noqa: F811
-    """What stays refused on CUDA tensors: query and query_with_gradient
-    with respect to tree.centre, and trace with respect to the origins or
-    directions."""
+def test_points_and_rays_still_refused(monkeypatch, few_torch_threads):  # noqa: F811
+    """What stays refused: the sharded reads with respect to the points
+    (``parallel.shard_query``) and the rays (``parallel.shard_trace``),
+    which the reference does not differentiate either, and ``trace`` with
+    respect to the origins or directions; each raises before any
+    collective or launch. ``query`` and ``query_with_gradient`` with
+    respect to tree.centre no longer refuse (K1c)."""
+    from hpsdf_tpu_torch import parallel
+
     _, tt = _synthetic(2, seed=2)
+    pts = torch.zeros((4, 3), dtype=torch.float64, requires_grad=True)
+    rays = torch.zeros((4, 3), requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient to the points"):
+        parallel.shard_query(tt, pts, object())
+    for o, d in ((rays, torch.ones((4, 3))), (torch.zeros((4, 3)), rays)):
+        with pytest.raises(RuntimeError, match="no gradient to the points "
+                                               "or rays"):
+            parallel.shard_trace(tt, o, d, object())
+    with pytest.raises(RuntimeError, match="origins or directions"):
+        T.trace(tt, rays, torch.ones((4, 3)))
     tc = dataclasses.replace(tt, centre=tt.centre.clone().requires_grad_())
     meta = torch.zeros((4, 3), dtype=torch.float64, device="meta")
-    for fn in (T.query, T.query_with_gradient):
-        with pytest.raises(RuntimeError, match="tree.centre has no backward "
-                                               "kernel"):
-            fn(tc, meta)
-    with pytest.raises(RuntimeError, match="origins or directions"):
-        T.trace(tt, torch.zeros((4, 3), requires_grad=True),
-                torch.ones((4, 3)))
+    taken = []
+    for fn, cls in ((T.query, TQ._Query),
+                    (T.query_with_gradient, TQ._QueryWithGradient)):
+        monkeypatch.setattr(cls, "apply",
+                            lambda *args: taken.append(args) or "taken")
+        assert fn(tc, meta) == "taken"
+    assert [a[-1] is tc.centre for a in taken] == [True, True]
 
 
 def test_grad2_helpers():

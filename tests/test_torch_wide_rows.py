@@ -128,7 +128,7 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                                    "round", "leaf", "K8 nodes", "K14",
                                    "K13", "K6", "K6 points", "K13 vjp",
                                    "K13 ref", "K8 sort", "K1h", "K7 form2",
-                                   "K8g", "K5h", "K1v", "K1 leaf"],
+                                   "K8g", "K5h", "K1v", "K1 leaf", "K1c"],
                          ids=["clean", "spills", "march_spills",
                               "backward_spills", "csr_spills",
                               "fused_spills", "cg_spills", "chunk_spills",
@@ -141,7 +141,8 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                               "node_sort_spills", "hess_spills",
                               "normals_backward_spills",
                               "grad_scatter_spills", "hvp_spills",
-                              "vjp_spills", "leaf_store_spills"])
+                              "vjp_spills", "leaf_store_spills",
+                              "centre_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
@@ -153,9 +154,10 @@ def test_ptxas_check(monkeypatch, spill):
     round, its leaf evaluation (at degree 3 or 5), K8's node-range mode (at
     any degree 0..6) or its sort,
     K14, any launch of K13 (the points, the terms' loss forward or VJP
-    backward), K1v or K1h (from K1's leaf), K1 writing the leaf, K7's form
-    2, K8g or K5h (either mode) at degree 3 or 5, either of K6's launches
-    (at any degree 2..11, f64 or f32), or, in the check library's report,
+    backward), K1v, K1h or K1c (from K1's leaf), K1 writing the leaf,
+    K7's form 2, K8g or K5h (either mode) at degree 3 or 5, either of K6's
+    launches (at any degree 2..11, f64 or f32), or, in the check
+    library's report,
     K13's terms as they were before their redesign has a stack frame or
     spills; every instantiation of K6's two kernels must be in the report.
     The check library's K1v and K1h as they were are read, spills or not,
@@ -168,10 +170,13 @@ def test_ptxas_check(monkeypatch, spill):
                      or spill == "K1 leaf" and d == 3 and g and lf else 0)
         for d in (3, 5, 12) for g in (0, 1) for lf in (0, 1))
     report += "".join(
-        _ptxas_entry("query_vjp_kernel", d, None, args=f"Li{d}ELi{o}E",
-                     regs=80, stack=8 if spill == "K1h" and d == 5 and o == 2
-                     or spill == "K1v" and d == 3 and o == 1 else 0)
-        for d in (3, 5) for o in (1, 2))
+        _ptxas_entry("query_vjp_kernel", d, None,
+                     args=f"Li{d}ELi{o}ELb{c}E", regs=80,
+                     stack=8 if spill == "K1h" and d == 5 and o == 2 and not c
+                     or spill == "K1v" and d == 3 and o == 1 and not c
+                     or spill == "K1c" and d == 3 and o == 2 and c
+                     or d == 5 and o == 2 and c else 0)
+        for d in (3, 5) for o in (1, 2) for c in (0, 1))
     report += _ptxas_entry("packed_eval_kernel", 3, False, regs=32)
     report += "".join(
         _ptxas_entry("march_kernel", d, None, regs=80,
@@ -286,6 +291,7 @@ def test_ptxas_check(monkeypatch, spill):
                 "K6 points": "K6 points 7/f64: stack 8",
                 "K1h": "K1h 5/hess: stack 8",
                 "K1v": "K1v 3/vjp: stack 8",
+                "K1c": "K1c 3/hess/centre: stack 8",
                 "K1 leaf": "K1 3/grad/leaf: stack 8",
                 "K7 form2": "K7 5/form2: stack 24",
                 "K8g": "K8g 5: stack 8",
@@ -297,8 +303,10 @@ def test_ptxas_check(monkeypatch, spill):
     assert set(found["query_kernel"]) == {
         f"{d}/{k}{lf}" for d in (3, 5, 12) for k in ("values", "grad")
         for lf in ("", "/leaf")}
+    # K1c's ORDER 2 at degree 5 is read with its spills, not refused
     assert found["query_vjp_kernel"] == {
-        f"{d}/{k}": [80, 0, 0, 0] for d in (3, 5) for k in ("vjp", "hess")}
+        f"{d}/{k}{c}": [80] + [8 * (f"{d}/{k}{c}" == "5/hess/centre")] * 3
+        for d in (3, 5) for k in ("vjp", "hess") for c in ("", "/centre")}
     assert found["query_vjp_reference_kernel"]["5/hess"] == [96, 48, 48, 48]
     assert found["packed_eval_kernel"]["3/values"] == [32, 0, 0, 0]
     assert set(found["packed_eval_kernel"]) == {
