@@ -1561,7 +1561,9 @@ def counters():
     (``query_vjp``) and, apart, K1h's (``query_vjp_hess``) and K1c's
     (``query_vjp_centre``, either order); K1 all its
     launches and, apart, those that write the leaf for them
-    (``query_leaf``); K7 its form 2's apart (``packed_grad_form2``)."""
+    (``query_leaf``); K7 its form 2's apart (``packed_grad_form2``); K5
+    its normals (``packed_eval_normals``, either mode) and, apart, those
+    that save for K7's form 2 (``packed_eval_save``)."""
     from hpsdf_tpu_torch.accel import (packed_eval_kernel, packed_grad_kernel,
                                        packed_hvp_kernel, row_gather,
                                        row_scatter)
@@ -1589,6 +1591,7 @@ def counters():
             "row_gather": (row_gather, "launches"),
             "packed_eval": (packed_eval_kernel, "launches"),
             "packed_eval_normals": (packed_eval_kernel, "grad_launches"),
+            "packed_eval_save": (packed_eval_kernel, "save_launches"),
             "packed_eval_raw": (packed_eval_kernel, "raw_launches"),
             "packed_eval_fused": (packed_eval_kernel, "fused_launches"),
             "march": (march_kernel, "launches"),
@@ -3514,24 +3517,85 @@ def k7f2_ops(deg):
     return k7_ops(deg, 1) + product_sum_ops(deg, 3, 3)
 
 
-def grad2_teeth(got, want, tol, face=None, sloped=None):
+def k7f2_saved_ops(deg):
+    """f32 operations a point of K7's form 2 from K5's saved gradient:
+    form 1's (k7_ops) and the unit vector's VJP (20); the record's
+    gradient sums are K5's forward's."""
+    return k7_ops(deg, 1) + 20
+
+
+def k7f2_bytes(pt, pts, wn, saved):
+    """The bytes K7's form 2 from K5's saved values must move: the points,
+    cotangents and saved values read, a 32-byte sector (the meta lanes) of
+    each row the points read, both tables written."""
+    rows = torch.unique(saved[:, 0].contiguous().view(torch.int32)).numel()
+    return sum(t.numel() * t.element_size() for t in (
+        pts, wn, saved, pt.rows, pt.grid)) + 32 * rows
+
+
+def grad2_teeth(got, want, tol, face=None, sloped=None, masked=None):
     """Whether each wrong result fails the check rel_err <= tol: the
     largest entry moved by 10 tol of the largest (of 1 where the result is
     zero), and, for a point VJP with ``face`` (B, 3) the entries on an
     axis at a face of the root, where some of those are not zero, those
     entries doubled (the clamp's derivative taken as 1 there, the fault
     the face rule repairs); for K1c, ``sloped``, the centre gradient with
-    the clamp's slope wrongly applied (``centre_sloped``), where it is not
-    the result."""
+    the clamp's slope wrongly applied (``centre_sloped``), and for K7's
+    form 2, ``masked``, the tables' gradient with one axis masked
+    (``form2_masked``), each where it is not the result."""
     flat = got.clone().reshape(-1)
     k = int(want.reshape(-1).abs().argmax())
     flat[k] += 10 * tol * max(float(want.abs().max()), 1.0)
     caught = [rel_err(flat.reshape(got.shape), want) > tol]
     if face is not None and bool((face & (got != 0)).any()):
         caught.append(rel_err(torch.where(face, 2 * got, got), want) > tol)
-    if sloped is not None and not torch.equal(sloped, got):
-        caught.append(rel_err(sloped, want) > tol)
+    for wrong in (sloped, masked):
+        if wrong is not None and not torch.equal(wrong, got):
+            caught.append(rel_err(wrong, want) > tol)
     return caught
+
+
+def form2_masked(pt, pts, saved, wn, axis=0):
+    """K7's form 2's wrong result with one axis masked, as form 1 masks an
+    axis on which a point was clamped: ``accel.normals_tables_vjp_plain``
+    with the unit vector's VJP zeroed on ``axis``; (d_rows, d_grid)
+    concatenated."""
+    from hpsdf_tpu_torch import accel as A
+    from hpsdf_tpu_torch.query import unit_vector
+
+    G = saved[:, 1:].detach().requires_grad_(True)
+    with torch.enable_grad():
+        (gb,) = torch.autograd.grad(unit_vector(G, 1e-12), G, wn)
+    gb = gb.clone()
+    gb[:, axis] = 0.0
+    return torch.cat(A._normal_gradient_vjp(pt, pts, gb))
+
+
+def packed_grad_form2_reference(pt, pts, wn):
+    """K7's form 2 as it was before its redesign (csrc/check/
+    packed_grad_form2_reference.cu: one cooperative launch that locates
+    each point's row and evaluates its gradient again), called as its
+    wrapper called it: (d_rows, d_grid)."""
+    from hpsdf_tpu_torch import _kernels
+
+    pts, wn = pts.detach().contiguous(), wn.detach().contiguous()
+    lib = _kernels.load_check()
+    B, n_rows = pts.shape[0], pt.rows.shape[0]
+    size = lib.hpsdf_packed_grad_form2_reference_scratch(B, pt.grid_depth,
+                                                         n_rows)
+    check(size > 0, "packed_grad_form2_reference: no scratch size")
+    scratch = torch.empty(size, dtype=torch.uint8, device=pts.device)
+    d_rows, d_grid = torch.empty_like(pt.rows), torch.empty_like(pt.grid)
+    rc = np.asarray(pt.root_centre, np.float32)
+    inv = (1.0 / np.asarray(pt.root_sizes)).astype(np.float32)
+    sz = np.asarray(pt.root_sizes, np.float32)
+    _kernels.check(_kernels.load(), lib.hpsdf_packed_grad_form2_reference(
+        pt.grid.data_ptr(), pt.rows.data_ptr(), pt.width, pt.deg_used,
+        pt.grid_depth, pt.extra_rounds, n_rows, pts.data_ptr(), B,
+        *map(float, rc), *map(float, inv), *map(float, sz), wn.data_ptr(),
+        scratch.data_ptr(), size, d_grid.data_ptr(), d_rows.data_ptr(),
+        _kernels.stream_of(pts)), "packed_grad_form2_reference")
+    return d_rows, d_grid
 
 
 def centre_sloped(tree, leaf, d_pts):
@@ -3716,8 +3780,15 @@ def grad2_checks(tree, pt, p64, seed, with_teeth=False):
     result passes: for K1v and K1h also a wrong leaf (``wrong_leaf``),
     against the plain version and against the replaced kernel, where the
     VJP is not zero (degree 0's is); for K1c the clamp's slope wrongly
-    applied (``centre_sloped``)."""
+    applied (``centre_sloped``); for K7's form 2 one axis masked
+    (``form2_masked``). K1c is also held, on node blocks of 2 and 3
+    (``parallel.node_block``), concatenated, to the plain version
+    (``_blocks``); K7's form 2 takes K5's saved key and gradient
+    (NORMALS_SAVE: normals bit for bit NORMALS's, keys the plain walk's)
+    and is held to the kernel it replaced (``packed_grad_form2_reference``)
+    too."""
     from hpsdf_tpu_torch import accel as A
+    from hpsdf_tpu_torch import parallel as P
     from hpsdf_tpu_torch.query import (_to_unit, coeff_scatter_grad_kernel,
                                        query_centre_vjp_plain, query_kernel,
                                        query_leaf_plain,
@@ -3770,7 +3841,8 @@ def grad2_checks(tree, pt, p64, seed, with_teeth=False):
         check(torch.equal(got, replaced()), f"{name} from K1's leaf vs the "
               f"kernel it replaced ({B} points, degree {tree.deg_used}): "
               f"not bit for bit")
-    # K1c, each form beside the points' kernel of its order
+    # K1c, each form beside the points' kernel of its order and on node
+    # blocks of 2 and 3
     k1c = {}
     for name, cot, ovm, pts_name in (
             ("query_centre_vjp", (w,), True, "query_vjp"),
@@ -3790,6 +3862,27 @@ def grad2_checks(tree, pt, p64, seed, with_teeth=False):
                                             leaf=leaf),
                      centre_sloped(tree, leaf, d_pts))
         k1c[name + "_both"] = (d_c, k1c[name][1], k1c[name][2])
+        k1c[name + "_blocks"] = (torch.cat([query_vjp_kernel(
+            blk, p64, leaf, *cot, outside_value_max=ovm, points=False,
+            centre=True) for size in (2, 3) for blk in (
+                P.node_block(tree, size, k) for k in range(size))]),
+            torch.cat([k1c[name][1]] * 2), torch.cat([k1c[name][2]] * 2))
+    # K7's form 2 from what K5's normals forward saved: the normals
+    # unchanged by saving, the keys the plain walk's, and the tables'
+    # gradient against the kernel it replaced within f32 summation order
+    n_save, saved = A.packed_eval_kernel(pt, p32, A.NORMALS_SAVE)
+    _, saved_plain = A.normals_save_plain(pt, p32)
+    check(torch.equal(n_save, A.packed_eval_kernel(pt, p32, A.NORMALS)),
+          "K5's normals move when it saves the key and gradient")
+    check(torch.equal(saved[:, 0].contiguous().view(torch.int32),
+                      saved_plain[:, 0].contiguous().view(torch.int32)),
+          f"K5's saved keys vs locate_key_plain ({B} points, degree "
+          f"{tree.deg_used})")
+    form2 = torch.cat(A.packed_grad_kernel(pt, p32, wn32, 2, saved))
+    err = rel_err(form2, torch.cat(packed_grad_form2_reference(pt, p32,
+                                                               wn32)))
+    check(err <= GRAD2_RTOL32, f"K7's form 2 vs the kernel it replaced ({B} "
+          f"points, degree {tree.deg_used}): {err:.3e}")
     cases = {
         **{name: (got, want, GRAD2_RTOL64, face64)
            for name, (got, want, _, _) in k1.items()},
@@ -3809,9 +3902,9 @@ def grad2_checks(tree, pt, p64, seed, with_teeth=False):
                                 wn32[:n_g]),
             A.values_and_gradient_vjp_plain(pt, p32, w32, wn32[:n_g]),
             GRAD2_RTOL_HVP, face32),
-        "packed_grad_form2": (torch.cat(A.packed_grad_kernel(pt, p32, wn32,
-                                                             2)),
-                              torch.cat((nr, ng)), GRAD2_RTOL32, None),
+        "packed_grad_form2": (form2, torch.cat((nr, ng)), GRAD2_RTOL32,
+                              None, None, form2_masked(pt, p32, saved,
+                                                       wn32)),
     }
     out = {}
     for name, (got, want, tol, face, *sloped) in cases.items():
@@ -4046,6 +4139,7 @@ def hits_times(carved, hits, seed):
                            device=p32.device)
     read = packed_read_bytes(pk, p32, True)
     ops = B * k5h_ops(pk.deg_used) / F32_PEAK * 1e3
+    _, saved = A.packed_eval_kernel(pk, p32, A.NORMALS_SAVE)
     out = {}
     for name, fn, by_bytes, by_ops in (
             ("packed_hvp", lambda: A.packed_hvp_kernel(
@@ -4055,13 +4149,112 @@ def hits_times(carved, hits, seed):
                 pk, p32, A.VALUES_GRAD_VJP, w32, wn32),
              bytes_ms(p32, w32, wn32, extra=12 * B + read), ops),
             ("packed_grad_form2", lambda: A.packed_grad_kernel(
-                pk, p32, wn32, 2),
-             bytes_ms(p32, wn32, pk.rows, pk.grid, extra=read),
-             B * k7f2_ops(pk.deg_used) / F32_PEAK * 1e3)):
+                pk, p32, wn32, 2, saved),
+             k7f2_bytes(pk, p32, wn32, saved) / HBM_RATE * 1e3,
+             B * k7f2_saved_ops(pk.deg_used) / F32_PEAK * 1e3)):
         ms = graph_ms(fn, 10)
         out[name] = {"ms": ms, "bound_ms": max(by_bytes, by_ops),
                      "bound_by": "bytes" if by_bytes >= by_ops
                      else "operations", "points": B}
+    return out
+
+
+def form2_shape(pt, p32, seed):
+    """K7's form 2 at the points p32 (B, 3) f32 on the packed tables pt,
+    in turns in CUDA graphs with the kernel it replaced
+    (``packed_grad_form2_reference``): alone (from K5's saved values), and
+    the pair K5's normals forward and form 2 (NORMALS_SAVE, then form 2)
+    against the pair it replaced (NORMALS, then the replaced kernel), with
+    K5's forward alone both ways; beside its bound (``k7f2_bytes``,
+    ``k7f2_saved_ops``) and the replaced kernel's (``k7f2_ops``)."""
+    from hpsdf_tpu_torch import accel as A
+
+    B = p32.shape[0]
+    wn = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (B, 3)), dtype=torch.float32, device=p32.device)
+    _, saved = A.packed_eval_kernel(pt, p32, A.NORMALS_SAVE)
+
+    def pair():
+        sv = A.packed_eval_kernel(pt, p32, A.NORMALS_SAVE)[1]
+        return A.packed_grad_kernel(pt, p32, wn, 2, sv)
+
+    def replaced_pair():
+        A.packed_eval_kernel(pt, p32, A.NORMALS)
+        return packed_grad_form2_reference(pt, p32, wn)
+
+    t = turns({"ms": lambda: A.packed_grad_kernel(pt, p32, wn, 2, saved),
+               "replaced_ms": lambda: packed_grad_form2_reference(pt, p32,
+                                                                  wn),
+               "pair_ms": pair, "replaced_pair_ms": replaced_pair,
+               "k5_save_ms": lambda: A.packed_eval_kernel(pt, p32,
+                                                          A.NORMALS_SAVE),
+               "k5_ms": lambda: A.packed_eval_kernel(pt, p32, A.NORMALS)},
+              PAIR_REPS)
+    by_bytes = k7f2_bytes(pt, p32, wn, saved) / HBM_RATE * 1e3
+    by_ops = B * k7f2_saved_ops(pt.deg_used) / F32_PEAK * 1e3
+    rep_bytes = bytes_ms(p32, wn, pt.rows, pt.grid,
+                         extra=packed_read_bytes(pt, p32, True))
+    rep_ops = B * k7f2_ops(pt.deg_used) / F32_PEAK * 1e3
+    return {**t, "points": B, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes_bound_ms": by_bytes, "ops_bound_ms": by_ops,
+            "replaced_bound_ms": max(rep_bytes, rep_ops),
+            "keys": (1 << 3 * pt.grid_depth) + pt.rows.shape[0],
+            "rows_read": torch.unique(saved[:, 0].contiguous().view(
+                torch.int32)).numel()}
+
+
+@contextlib.contextmanager
+def replaced_normals():
+    """``normals`` with the pair K7's form 2 replaced: K5's normals
+    forward saving nothing, then the replaced form 2
+    (``packed_grad_form2_reference``); K5h as shipped."""
+    import unittest.mock
+
+    from hpsdf_tpu_torch import accel as A
+
+    def forward(ctx, rows, grid, pts, pt):
+        ctx.pt = pt
+        ctx.save_for_backward(pts)
+        return A.packed_eval_kernel(pt, pts, A.NORMALS)
+
+    def backward(ctx, wn):
+        (pts,) = ctx.saved_tensors
+        wn = wn.contiguous()
+        d_rows = d_grid = d_pts = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            d_rows, d_grid = packed_grad_form2_reference(ctx.pt, pts, wn)
+        if ctx.needs_input_grad[2]:
+            d_pts = A.packed_hvp_kernel(ctx.pt, pts, A.NORMALS_VJP, cot3=wn)
+        return d_rows, d_grid, d_pts, None
+
+    with unittest.mock.patch.object(A._Normals, "forward",
+                                    staticmethod(forward)), \
+            unittest.mock.patch.object(A._Normals, "backward",
+                                       staticmethod(backward)):
+        yield
+
+
+def redesign_steps(steps):
+    """The device time (torch.profiler) of one step of each path in
+    ``steps`` ({path: (step, the context that swaps the replaced kernel
+    in, the kernel names kept)}), with the shipped kernel and with the one
+    it replaced, in turns (replaced, shipped, shipped, replaced): {path:
+    (the replaced kernel's mean, the shipped one's, the four readings, the
+    kernels kept (name, ms, calls))}."""
+    out = {}
+    for name, (step, swap, keep) in steps.items():
+        r, kept = [], {}
+        for label in ("replaced", "shipped", "shipped", "replaced"):
+            with (swap() if label == "replaced"
+                  else contextlib.nullcontext()):
+                step()
+                ms, _, k = device_busy_ms(step, keep=keep)
+            check(ms is not None, f"path {name}'s step: no device time in "
+                  "the trace")
+            r.append(ms)
+            kept[label] = k
+        out[name] = ((r[0] + r[3]) / 2, (r[1] + r[2]) / 2, r, kept)
     return out
 
 
@@ -4159,6 +4352,7 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
     k8g_bytes = coeff_scatter_bytes(tree_s, unit.clamp(-0.5, 0.5), live,
                                     56, 0, True)
     packed_bytes = packed_read_bytes(pt_s, p32, True)
+    _, saved_s = A.packed_eval_kernel(pt_s, p32, A.NORMALS_SAVE)
     shapes = {
         "query_vjp": (
             lambda: query_vjp_kernel(tree_s, p64, leaf, w),
@@ -4198,14 +4392,18 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
             bytes_ms(p32, w32, wn32, extra=12 * B + packed_bytes),
             B * k5h_ops(deg) / F32_PEAK * 1e3, K5H_OPS),
         "packed_grad_form2": (
-            lambda: A.packed_grad_kernel(pt_s, p32, wn32, 2),
-            lambda: A.normals_vjp_plain(pt_s, p32, wn32),
-            bytes_ms(p32, wn32, pt_s.rows, pt_s.grid, extra=packed_bytes),
-            B * k7f2_ops(deg) / F32_PEAK * 1e3, K7F2_OPS),
+            lambda: A.packed_grad_kernel(pt_s, p32, wn32, 2, saved_s),
+            lambda: A.normals_tables_vjp_plain(pt_s, p32, saved_s, wn32),
+            k7f2_bytes(pt_s, p32, wn32, saved_s) / HBM_RATE * 1e3,
+            B * k7f2_saved_ops(deg) / F32_PEAK * 1e3, K7F2_OPS,
+            lambda: packed_grad_form2_reference(pt_s, p32, wn32)),
     }
     times = {}
-    for name, (kernel, plain, by_bytes, by_ops, limit) in shapes.items():
-        t = {"ms": graph_ms(kernel, 10), "plain_ms": time_ms(plain, 2),
+    for name, (kernel, plain, by_bytes, by_ops, limit,
+               *replaced) in shapes.items():
+        t = {**turns({"ms": kernel, **({"replaced_kernel_ms": replaced[0]}
+                                       if replaced else {})}, 10),
+             "plain_ms": time_ms(plain, 2),
              "bound_ms": max(by_bytes, by_ops),
              "bound_by": "bytes" if by_bytes >= by_ops else "operations",
              "bytes_bound_ms": by_bytes, "ops_bound_ms": by_ops,
@@ -4216,7 +4414,9 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
               f"most {limit})")
         times[name] = t
         print(f"[grad2] {name} at 2^20 points on the slice tree | {smi} | "
-              f"kernel {t['ms']:.4f} ms in a CUDA graph, plain "
+              f"kernel {t['ms']:.4f} ms in a CUDA graph"
+              + ("" if not replaced else f" (the kernel it replaced, in "
+                 f"turns, {t['replaced_kernel_ms']:.4f})") + f", plain "
               f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms "
               f"({t['bound_by']}; bytes {by_bytes:.5f}, operations "
               f"{by_ops:.5f}; {t['bound_ms'] / t['ms']:.1%} of it) | "
@@ -4278,6 +4478,25 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
     centred["crowding"] = {key: centred["(b) samples"][key]["ms"]
                            / centred["2^20 uniform"][key]["ms"]
                            for key in ("k1c", "k1c_hess")}
+    # K7's form 2 against the kernel it replaced, alone and as the pair
+    # with K5's normals forward
+    formed = {}
+    pk_c = T.pack_tree(carved)
+    for k, (name, (pt_, p_)) in enumerate({
+            "2^20 uniform": (pt_s, p32),
+            "(c) hits": (pk_c, hits.to(torch.float32).contiguous()),
+            "2^16 uniform": (pt_s, p32[:N_SMALL])}.items()):
+        r = formed[name] = form2_shape(pt_, p_, seed + 500 + k)
+        print(f"[grad2] K7's form 2 at {name} ({r['points']} points, "
+              f"{r['keys']} keys, {r['rows_read']} rows read) | {smi} | "
+              f"{r['ms']:.4f} ms (the kernel it replaced, in turns, "
+              f"{r['replaced_ms']:.4f}), bound {r['bound_ms']:.5f} "
+              f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%}; the "
+              f"replaced kernel's {r['replaced_bound_ms']:.5f}) | pair with "
+              f"K5's normals forward {r['pair_ms']:.4f} (replaced pair "
+              f"{r['replaced_pair_ms']:.4f}); K5 saving "
+              f"{r['k5_save_ms']:.4f}, not saving {r['k5_ms']:.4f}",
+              flush=True)
     leafd["steps"] = path_steps(tree_s, tree_i, p_a, pts, n_t)
     leafd["blocks"] = {f"{d}/{'hess' if h else 'vjp'}": {
         "blocks": vjp_blocks(d, h), "replaced_blocks": vjp_blocks(d, h, True),
@@ -4300,6 +4519,24 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
         f"{k} {v['ms']:.4f} ms, bound {v['bound_ms']:.5f} ({v['bound_by']}; "
         f"{v['bound_ms'] / v['ms']:.1%})" for k, v in leafd["hits"].items()),
         flush=True)
+    # a profiled step of path (c) with each K7 form 2
+    pk_s, sup_s = A.pack_tree(carved), A.pack_support(carved)
+    h32 = hits.to(torch.float32).contiguous()
+    nh32 = h32 / torch.linalg.norm(h32, dim=-1, keepdim=True)
+
+    def step_c():
+        F = (carved.coeffs * sup_s.fold).to(torch.float32) \
+            .requires_grad_(True)
+        shift = torch.zeros(3, device=dev, requires_grad=True)
+        normal_map_loss(pk_s, sup_s, F, shift, h32, nh32).backward()
+
+    redesigned = redesign_steps({
+        "(c)": (step_c, replaced_normals, ("normals_grad", "form2_reference",
+                                           "packed_eval"))})
+    print(f"[grad2] device time of a profiled step (ms; with the replaced "
+          f"K7 form 2, with the shipped one) | {smi} | " + ", ".join(
+              f"{k} {v[0]:.3f} / {v[1]:.3f} (readings {v[2]})"
+              for k, v in redesigned.items()), flush=True)
 
     # --- the paths: the counts from here to the end of (c) ------------
     reset_counts()
@@ -4400,6 +4637,10 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
     check(launches["query_leaf"] == launches["query_vjp"], f"K1 wrote "
           f"{launches['query_leaf']} leaves for {launches['query_vjp']} "
           "launches of K1v / K1h on [grad2]'s paths")
+    check(launches["packed_eval_save"] == launches["packed_grad_form2"],
+          f"K5 saved {launches['packed_eval_save']} times for "
+          f"{launches['packed_grad_form2']} launches of K7's form 2 on "
+          "[grad2]'s paths")
     print(f"[grad2] (d) the oriented-point fit on the centres too, "
           f"{FIT_STEPS} Adam steps on the r = 0.27 tree's coefficients, "
           f"centres and the samples' shift: loss {cfit['loss']}, "
@@ -4458,7 +4699,8 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
     return launches, {"errs": errs, "abs_errs": abs_errs, "times": times,
                       "projection": proj, "oriented_fit": fit,
                       "normal_map": nmap, "centre_fit": cfit,
-                      "leaf": leafd, "centre": centred,
+                      "leaf": leafd, "centre": centred, "form2": formed,
+                      "redesign_steps": redesigned,
                       "teeth": {k: v[2] for k, v in
                                 out["checks"]["2^20 slice"].items()}}
 
@@ -8100,10 +8342,11 @@ PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
                  "inverse_vjp_kernel",
                  "fit_points_kernel", "fit_project_kernel",
                  "coeff_scatter_grad_kernel", "packed_hvp_kernel",
-                 "query_vjp_kernel")
+                 "query_vjp_kernel", "normals_grad_kernel")
 # the check library's kernels the ptxas check reads (csrc/check/)
 CHECK_PTXAS_KERNELS = ("inverse_terms_reference_kernel",
-                       "query_vjp_reference_kernel")
+                       "query_vjp_reference_kernel",
+                       "packed_grad_form2_reference_kernel")
 
 
 def _ptxas_key(kernel, args):
@@ -8129,8 +8372,9 @@ def _ptxas_key(kernel, args):
     if kernel == "packed_hvp_kernel":
         return f"{args[0]}/{('normals', 'values')[args[1]]}"
     if kernel == "packed_eval_kernel":
-        return f"{args[0]}/{('values', 'normals', 'raw', 'fused')[args[1]]}"
-    if kernel == "packed_grad_kernel":
+        return f"{args[0]}/" \
+            + ('values', 'normals', 'raw', 'fused', 'save')[args[1]]
+    if kernel in ("packed_grad_kernel", "packed_grad_form2_reference_kernel"):
         return f"{args[0]}/form{args[1]}"
     if kernel == "cone_kernel":
         return f"{args[0]}/{'lo' if args[1] else 'full'}"
@@ -8143,10 +8387,11 @@ def ptxas_check():
     """Registers, stack and spills of every kernel's instantiations, as
     ptxas reported them when the library was built. K1 (values, and with
     the gradient) with and without the leaf it writes for K1v and K1h, K3,
-    K4, K5's raw gradient (alone and fused with K2), K7 (its three forms),
-    K8, K8g, K1v and K1h (from the leaf), K1c (but its ORDER 2 at degree
-    5, whose spills are read and printed) and K5h (both modes) at degrees 3
-    and 5 (the main paths'), both forms of G's backward, K9 (on the face
+    K4, K5's raw gradient (alone and fused with K2) and its normals mode
+    that saves for K7's form 2, K7 (its three forms), K8, K8g, K1v and K1h
+    (from the leaf), K1c (but its ORDER 2 at degree 5, whose spills are
+    read and printed) and K5h (both modes) at degrees 3 and 5 (the main
+    paths'), both forms of G's backward, K9 (on the face
     operator and in its CSR form), K9u, both forms of the persistent
     launch, both forms
     of each of the row-sharded CG's two K9u launches, both of K10 and K11,
@@ -8156,8 +8401,8 @@ def ptxas_check():
     and both of K6's launches at every degree 2..11 in f64 and f32 must
     have no stack frame and no spills; so must the check library's K13
     terms as they were before their redesign, the reference the redesigned
-    kernels are held and timed against; the check library's K1v and K1h
-    as they were are read, for their registers. Returns
+    kernels are held and timed against; the check library's K1v, K1h and
+    K7's form 2 as they were are read, for their registers. Returns
     {kernel: {key: [registers, stack, spill stores, spill loads]}}."""
     from hpsdf_tpu_torch import _kernels
 
@@ -8193,7 +8438,10 @@ def ptxas_check():
             ("K5 raw", "packed_eval_kernel", ("3/raw", "5/raw", "3/fused",
                                                "5/fused")),
             ("K7", "packed_grad_kernel", ("3/form0", "3/form1", "5/form0",
-                                          "5/form1", "3/form2", "5/form2")),
+                                          "5/form1")),
+            ("K7 form 2", "normals_grad_kernel", ("3", "5")),
+            ("K5 normals saving", "packed_eval_kernel", ("3/save",
+                                                          "5/save")),
             ("K1h", "query_vjp_kernel", ("3/hess", "5/hess")),
             ("K8g", "coeff_scatter_grad_kernel", ("3", "5")),
             ("K5h", "packed_hvp_kernel", ("3/normals", "3/values",
@@ -8229,9 +8477,12 @@ def ptxas_check():
             check(got[key][1:] == [0, 0, 0], f"{name} {key}: stack "
                   f"{got[key][1]} B, spills {got[key][2:]}")
     # K1c with the unit gradient at degree 5 spills a little at 255
-    # registers (query.cu's kVjpBlocks): read, printed with the rest
+    # registers (query.cu's kVjpBlocks): read, printed with the rest; so is
+    # the kernel K7's form 2 replaced
     check("5/hess/centre" in found.get("query_vjp_kernel", {}),
           "ptxas report for K1c 5/hess/centre")
+    check(bool(found.get("packed_grad_form2_reference_kernel")),
+          "ptxas report for packed_grad_form2_reference_kernel")
     print(f"[ptxas] registers / stack / spill stores / spill loads (bytes): "
           + " | ".join(f"{k} {found.get(k, {})}"
                        for k in PTXAS_KERNELS + CHECK_PTXAS_KERNELS),
@@ -8270,8 +8521,9 @@ def main():
             job.result()
     print(f"[build] {len(_kernels.sources())} sources -> "
           f"{os.path.relpath(_kernels.library_path())}, the reference "
-          f"kernels of the K3, K4, K7, G's backward, K8, K11, K6, K13, K1v "
-          f"and K1h checks -> {os.path.relpath(_kernels.library_path('check'))}, in "
+          f"kernels of the K3, K4, K7 (forms 0-2), G's backward, K8, K11, "
+          f"K6, K13, K1v and K1h checks -> "
+          f"{os.path.relpath(_kernels.library_path('check'))}, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 3)
     ptxas = ptxas_check()
@@ -8771,10 +9023,19 @@ def main():
                "blocks": {k: v for k, v in tg2["leaf"]["blocks"].items()
                           if k.endswith(sub)}}
               if key is not None else {}),
+           **({"replaced_kernel_ms": tg2["times"][name]["replaced_kernel_ms"]}
+              if name == "packed_grad_form2" else {}),
            **({"hess": tg2["times"]["query_centre_vjp_hess"],
                "shapes": tg2["centre"],
                "path_d": tg2["centre_fit"]}
               if name == "query_centre_vjp" else {}),
+           **({"shapes": tg2["form2"],
+               "path_c_step": tg2["redesign_steps"]["(c)"][:3],
+               "reference": {
+                   "source": "hpsdf_tpu_torch/csrc/check/"
+                             "packed_grad_form2_reference.cu",
+                   "entry": "hpsdf_packed_grad_form2_reference"}}
+              if name == "packed_grad_form2" else {}),
            "teeth": {k: tg2["teeth"][k] for k in keys},
            "ptxas": {k: v for k, v in ptxas.get(kernel, {}).items()
                      if k.endswith(sub)}}
@@ -8786,11 +9047,10 @@ def main():
                ("query_vjp_hess",), "query_vjp_kernel", "k1h", "k1g",
                "/hess"),
               ("query_centre_vjp", "query.cu", "hpsdf_tpu/query.py:61-66",
-               ("query_centre_vjp", "query_centre_vjp_inside_out",
-                "query_centre_vjp_hess", "query_centre_vjp_both",
-                "query_centre_vjp_inside_out_both",
-                "query_centre_vjp_hess_both"), "query_vjp_kernel", None,
-               None, "/centre"),
+               tuple(f"query_centre_vjp{form}{part}" for form in (
+                   "", "_inside_out", "_hess") for part in (
+                       "", "_both", "_blocks")), "query_vjp_kernel",
+               None, None, "/centre"),
               ("coeff_scatter_grad", "coeff_scatter.cu",
                "hpsdf_tpu/query.py:88-108",
                ("coeff_scatter_grad", "coeff_scatter_grad_sparse"),
@@ -8801,7 +9061,7 @@ def main():
                None, None, ""),
               ("packed_grad_form2", "packed_grad.cu",
                "hpsdf_tpu/render.py:1092-1110", ("packed_grad_form2",),
-               "packed_grad_kernel", None, None, ""))),
+               "normals_grad_kernel", None, None, ""))),
     ]
     print(f"[e2e] {smi} | carve {tr['carve_s']:.3f} s, render 512^2 "
           f"{tr['render_s']:.3f} s, hit fraction {frac:.4f} | 1024^2 march: "

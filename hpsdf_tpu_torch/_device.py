@@ -38,4 +38,4 @@ def refuse_grad(what: str, *tensors) -> None:
     gradient."""
     if wants_grad(*tensors):
         raise RuntimeError(f"{what} has no backward kernel: it cannot carry "
-                           "a gradient on CUDA tensors")
+                           "a gradient")

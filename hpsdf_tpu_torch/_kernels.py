@@ -82,6 +82,9 @@ _SIGNATURES = {
     "hpsdf_packed_grad": (_P, _P, _I32, _I32, _I32, _I32, _I32, _P, _I64,
                           _F32, _F32, _F32, _F32, _F32, _F32,
                           _F32, _F32, _F32, _P, _I32, _P, _I64, _P, _P, _P),
+    "hpsdf_normals_grad": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
+                           _F32, _F32, _F32, _F32, _F32, _F32,
+                           _F32, _F32, _F32, _P, _P, _P, _I64, _P, _P, _P),
     "hpsdf_coeff_scatter": (_P, _P, _P, _P, _I32, _I32, _P, _P, _P, _P, _P,
                             _I64, _F64, _F64, _F64, _F64, _F64, _F64,
                             _P, _I32, _I32, _P, _P),
@@ -148,6 +151,12 @@ _CHECK_SIGNATURES = {
                                   _F64, _F64, _F64, _F64, _F64, _F64, _I32,
                                   _P, _P, _P, _P),
     "hpsdf_query_vjp_reference_blocks": (_I32, _I32, _P),
+    "hpsdf_packed_grad_form2_reference": (
+        _P, _P, _I32, _I32, _I32, _I32, _I32, _P, _I64, *(_F32,) * 9, _P,
+        _P, _I64, _P, _P, _P),
+}
+_CHECK_SIZE_SIGNATURES = {
+    "hpsdf_packed_grad_form2_reference_scratch": (_I64, _I32, _I32),
 }
 
 _lock = threading.Lock()
@@ -233,7 +242,8 @@ def _load(sub: str, signatures: dict) -> ctypes.CDLL:
     for name, args in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = list(args)
-        fn.restype = _I64 if name in _SIZE_SIGNATURES else ctypes.c_int
+        fn.restype = _I64 if name in _SIZE_SIGNATURES \
+            or name in _CHECK_SIZE_SIGNATURES else ctypes.c_int
     return lib
 
 
@@ -256,7 +266,8 @@ def load_check() -> ctypes.CDLL:
     global _check_lib
     with _check_lock:
         if _check_lib is None:
-            _check_lib = _load("check", _CHECK_SIGNATURES)
+            _check_lib = _load("check", {**_CHECK_SIGNATURES,
+                                         **_CHECK_SIZE_SIGNATURES})
         return _check_lib
 
 

@@ -24,9 +24,11 @@ Three kernels serve this layout on CUDA tensors:
     eval per point, for ``values_at`` / ``query_packed``. A thread reads its
     row in 16-byte loads, so the tables' rows must be 16-byte aligned (W a
     multiple of 4, as ``_row_width`` makes it).
-  * K5, the same source with the gradient: unit normals for ``normals``,
-    or the raw world-space gradient for the backward of ``values_at`` with
-    respect to the points, and, fused into K2's launch, for
+  * K5, the same source with the gradient: unit normals for ``normals``
+    (with each point's row key and unnormalised gradient saved for K7's
+    form 2 where the tables need a gradient, NORMALS_SAVE), or the raw
+    world-space gradient for the backward of ``values_at`` with respect to
+    the points, and, fused into K2's launch, for
     ``values_and_gradient_at``;
   * K5h ``packed_hvp_kernel``, the same read with the Hessian: the VJPs of
     ``normals`` and ``values_and_gradient_at`` with respect to the points.
@@ -41,10 +43,11 @@ and two backward kernels make the reads differentiable on CUDA tensors:
     else grouped by row inside one cooperative launch;
   * K7 ``packed_grad_kernel`` (``csrc/packed_grad.cu``): the VJP of the
     values (form 0), of the raw gradients (form 1) and of the normals
-    (form 2) with respect to the rows and the grid, into the coefficient
-    lanes of the row each point read, the points grouped by that row
-    inside one cooperative launch. The meta lanes (0-7) are the tree's
-    topology and take no gradient, in the plain versions too.
+    (form 2, from what K5's normals forward saved) with respect to the
+    rows and the grid, into the coefficient lanes of the row each point
+    read, the points grouped by that row inside one cooperative launch.
+    The meta lanes (0-7) are the tree's topology and take no gradient, in
+    the plain versions too.
 
 The backward kernels write or clear every row of their outputs
 themselves, so the wrappers allocate them with ``torch.empty``: one launch
@@ -605,15 +608,80 @@ def point_gradient_vjp_plain(pt: PackedTree, pts: torch.Tensor,
     return _tables_vjp(point_gradient_plain, pt, pts, u)
 
 
+def _normal_gradient(pt: PackedTree, row: torch.Tensor, unit: torch.Tensor):
+    """The unnormalised world gradient (B, 3) the normals normalise: the
+    rows' local gradients at the clamped unit-cube points times scale /
+    sizes."""
+    g = _local_gradient(pt, row, unit)
+    sizes = torch.tensor(pt.root_sizes, dtype=torch.float32,
+                         device=unit.device)
+    return g * row[..., 1:2].detach() / sizes
+
+
 def normals_plain(pt: PackedTree, p: torch.Tensor) -> torch.Tensor:
     """Unit normals: the normalised position gradient of the packed eval
     (hpsdf_tpu render._normals_at), chained through local = (unit -
     centre) * scale and unit = (p - c) / sizes, the points clamped into
     the root (``clip_half``) but no axis masked; the floor 1e-12."""
     unit, row = _clamped(pt, p)
-    g = _local_gradient(pt, row, unit)
-    sizes = torch.tensor(pt.root_sizes, dtype=torch.float32, device=p.device)
-    return unit_vector(g * row[..., 1:2].detach() / sizes, 1e-12)
+    return unit_vector(_normal_gradient(pt, row, unit), 1e-12)
+
+
+def locate_key_plain(pt: PackedTree, unit: torch.Tensor) -> torch.Tensor:
+    """The key (B,) i32 of the row ``locate`` reads at the clamped
+    unit-cube points: the grid cell k < 8^grid_depth, or 8^grid_depth +
+    the node row of its last descent (``csrc/packed_rows.cuh``'s
+    locate_key)."""
+    g = 1 << pt.grid_depth
+    cell = ((unit + 0.5) * g).to(torch.int32).clamp(0, g - 1).long()
+    key = (cell[..., 0] * g + cell[..., 1]) * g + cell[..., 2]
+    row = pt.grid[key]
+    for _ in range(pt.extra_rounds):
+        child = _row_child(row)
+        is_leaf = child < 0
+        cc = row[..., 2:5]
+        oct_ = ((unit[..., 0] >= cc[..., 0]).long()
+                + ((unit[..., 1] >= cc[..., 1]).long() << 1)
+                + ((unit[..., 2] >= cc[..., 2]).long() << 2))
+        nxt = torch.where(is_leaf, 0, child.long() + oct_)
+        row = torch.where(is_leaf[..., None], row, pt.rows[nxt])
+        key = torch.where(is_leaf, key, g ** 3 + nxt)
+    return key.int()
+
+
+def normals_save_plain(pt: PackedTree, p: torch.Tensor):
+    """``normals_plain`` with what K5's normals forward saves for K7's form
+    2 where the tables need a gradient (``packed_eval_kernel``'s
+    NORMALS_SAVE): (normals (B, 3), saved (B, 4) f32), saved[:, 0] each
+    point's row key (``locate_key_plain``) as the bits of an f32, saved[:,
+    1:] the unnormalised gradient the normals normalise."""
+    unit, row = _clamped(pt, p)
+    G = _normal_gradient(pt, row, unit).detach()
+    key = locate_key_plain(pt, unit.detach())
+    return unit_vector(G, 1e-12), torch.cat(
+        [key.view(torch.float32)[:, None], G], 1)
+
+
+def normals_tables_vjp_plain(pt: PackedTree, p: torch.Tensor,
+                             saved: torch.Tensor, wn: torch.Tensor):
+    """K7's form 2 from what K5's normals forward saved (``saved`` (B, 4),
+    ``normals_save_plain``'s): (d_rows, d_grid) for cotangents wn (B, 3),
+    by autograd, the unit vector's VJP taken at the saved gradient, the
+    rows located as ``normals_plain`` locates them (the saved keys name
+    the same rows); on the CPU bit for bit ``normals_vjp_plain``'s."""
+    G = saved[:, 1:].detach().requires_grad_(True)
+    with torch.enable_grad():
+        (gb,) = torch.autograd.grad(unit_vector(G, 1e-12), G, wn)
+    return _normal_gradient_vjp(pt, p, gb)
+
+
+def _normal_gradient_vjp(pt: PackedTree, p: torch.Tensor, gb: torch.Tensor):
+    """(d_rows, d_grid): the VJP with respect to the tables of the
+    unnormalised gradient ``normals_plain`` normalises, for its cotangent
+    gb (B, 3), by autograd."""
+    return _grads(lambda rows, grid: _normal_gradient(
+        pt, *reversed(_clamped(dataclasses.replace(pt, rows=rows, grid=grid),
+                               p.detach()))), (pt.rows, pt.grid), gb)
 
 
 # --------------------------------------------------------------------------
@@ -641,7 +709,7 @@ def _check_packed(pt: PackedTree, pts: torch.Tensor) -> None:
 
 
 # what a K2/K5 launch computes (packed_eval_kernel's ``mode``)
-VALUES, NORMALS, RAW_GRAD, VALUES_AND_GRAD = 0, 1, 2, 3
+VALUES, NORMALS, RAW_GRAD, VALUES_AND_GRAD, NORMALS_SAVE = 0, 1, 2, 3, 4
 
 
 def packed_eval_kernel(pt: PackedTree, pts: torch.Tensor, mode: int,
@@ -652,18 +720,22 @@ def packed_eval_kernel(pt: PackedTree, pts: torch.Tensor, mode: int,
     world-space gradient (B, 3) of the values, as ``point_gradient_plain``;
     VALUES_AND_GRAD, the fused mode: (values (B,), the raw gradients of the
     first ``n_grad`` points (n_grad, 3)), bit-equal to those of VALUES and
-    RAW_GRAD, in one launch. Raises on anything else.
+    RAW_GRAD, in one launch; NORMALS_SAVE: (the unit normals (B, 3), what
+    K7's form 2 starts from (B, 4) f32, ``normals_save_plain``'s), for the
+    normals' backward to the tables. Raises on anything else.
     ``launches`` counts every launch, ``grad_launches`` those of K5's
-    normals, ``raw_launches`` those of its raw-gradient form and
-    ``fused_launches`` those of the fused mode."""
+    normals (either normals mode), ``save_launches`` those that save,
+    ``raw_launches`` those of its raw-gradient form and ``fused_launches``
+    those of the fused mode."""
     _check_packed(pt, pts)
     if pts.device.type != "cuda":
         raise ValueError(f"packed_eval_kernel needs CUDA tensors, got "
                          f"{pts.device}")
     if type(mode) is not int or mode not in (VALUES, NORMALS, RAW_GRAD,
-                                             VALUES_AND_GRAD):
+                                             VALUES_AND_GRAD, NORMALS_SAVE):
         raise ValueError(f"packed_eval_kernel: unknown mode {mode}")
     fused = mode == VALUES_AND_GRAD
+    save = mode == NORMALS_SAVE
     B = pts.shape[0]
     if fused and not 0 <= n_grad <= B:
         raise ValueError(f"packed_eval_kernel: n_grad {n_grad} outside "
@@ -671,10 +743,11 @@ def packed_eval_kernel(pt: PackedTree, pts: torch.Tensor, mode: int,
     pts = pts.detach().contiguous()
     out = torch.empty((B,) if mode in (VALUES, VALUES_AND_GRAD) else (B, 3),
                       dtype=torch.float32, device=pts.device)
-    grad = torch.empty((n_grad, 3), dtype=torch.float32,
-                       device=pts.device) if fused else None
+    grad = torch.empty((n_grad, 3) if fused else (B, 4),
+                       dtype=torch.float32,
+                       device=pts.device) if fused or save else None
     if B == 0:
-        return (out, grad) if fused else out
+        return (out, grad) if fused or save else out
     lib = _kernels.load()
     rc = np.asarray(pt.root_centre, np.float32)
     inv = (1.0 / np.asarray(pt.root_sizes)).astype(np.float32)
@@ -684,17 +757,19 @@ def packed_eval_kernel(pt: PackedTree, pts: torch.Tensor, mode: int,
         pt.grid_depth, pt.extra_rounds, pts.data_ptr(), B,
         *map(float, rc), *map(float, inv), *map(float, sz),
         int(outside_max), mode, out.data_ptr(),
-        grad.data_ptr() if fused else None, n_grad if fused else 0,
+        grad.data_ptr() if fused or save else None, n_grad if fused else 0,
         _kernels.stream_of(pts)), "packed_eval")
     packed_eval_kernel.launches += 1
-    packed_eval_kernel.grad_launches += int(mode == NORMALS)
+    packed_eval_kernel.grad_launches += int(mode in (NORMALS, NORMALS_SAVE))
+    packed_eval_kernel.save_launches += int(save)
     packed_eval_kernel.raw_launches += int(mode == RAW_GRAD)
     packed_eval_kernel.fused_launches += int(fused)
-    return (out, grad) if fused else out
+    return (out, grad) if fused or save else out
 
 
 packed_eval_kernel.launches = 0
 packed_eval_kernel.grad_launches = 0
+packed_eval_kernel.save_launches = 0
 packed_eval_kernel.raw_launches = 0
 packed_eval_kernel.fused_launches = 0
 
@@ -756,14 +831,15 @@ packed_hvp_kernel.launches = 0
 
 
 def packed_grad_kernel(pt: PackedTree, pts: torch.Tensor, cot: torch.Tensor,
-                       form: int):
+                       form: int, saved: torch.Tensor | None = None):
     """Launch K7 on CUDA tensors: (d_rows, d_grid), the VJP with respect to
     the packed tables of ``values_at`` (form 0, weights ``cot`` (B,)), of
     the raw gradients ``point_gradient_plain`` gives (form 1, cotangents
     ``cot`` (B, 3)) or of ``normals`` (form 2, cotangents ``cot`` (B, 3);
-    no axis masked), in their coefficient lanes, zeros in the others. One
-    launch a call. ``form2_launches`` counts form 2's. Raises on anything
-    else."""
+    no axis masked; from ``saved`` (B, 4) f32, what K5's normals forward
+    saved for these points, ``packed_eval_kernel(..., NORMALS_SAVE)``), in
+    their coefficient lanes, zeros in the others. One launch a call.
+    ``form2_launches`` counts form 2's. Raises on anything else."""
     _check_packed(pt, pts)
     if pts.device.type != "cuda":
         raise ValueError(f"packed_grad_kernel needs CUDA tensors, got "
@@ -775,6 +851,11 @@ def packed_grad_kernel(pt: PackedTree, pts: torch.Tensor, cot: torch.Tensor,
         raise ValueError(f"packed_grad_kernel: form {form} takes f32 "
                          f"cotangents {shape}, got {cot.dtype} "
                          f"{tuple(cot.shape)}")
+    if (form == 2) != (saved is not None) or form == 2 and (
+            saved.shape != (B, 4) or saved.dtype != torch.float32
+            or saved.device != pts.device):
+        raise ValueError("packed_grad_kernel: form 2, and only form 2, "
+                         "takes saved (B, 4) f32 from K5's NORMALS_SAVE")
     lib = _kernels.load()
     n_rows = pt.rows.shape[0]
     size = lib.hpsdf_packed_grad_scratch(B, pt.grid_depth, n_rows, form)
@@ -788,12 +869,24 @@ def packed_grad_kernel(pt: PackedTree, pts: torch.Tensor, cot: torch.Tensor,
     rc = np.asarray(pt.root_centre, np.float32)
     inv = (1.0 / np.asarray(pt.root_sizes)).astype(np.float32)
     sz = np.asarray(pt.root_sizes, np.float32)
-    _kernels.check(lib, lib.hpsdf_packed_grad(
-        pt.grid.data_ptr(), pt.rows.data_ptr(), pt.width, pt.deg_used,
-        pt.grid_depth, pt.extra_rounds, n_rows, pts.data_ptr(), B,
-        *map(float, rc), *map(float, inv), *map(float, sz), cot.data_ptr(),
-        int(form), scratch.data_ptr(), size, d_grid.data_ptr(),
-        d_rows.data_ptr(), _kernels.stream_of(pts)), "packed_grad")
+    if form == 2:
+        if B == 0:
+            return d_rows.zero_(), d_grid.zero_()
+        saved = saved.detach().contiguous()
+        _kernels.check(lib, lib.hpsdf_normals_grad(
+            pt.grid.data_ptr(), pt.rows.data_ptr(), pt.width, pt.deg_used,
+            pt.grid_depth, n_rows, pts.data_ptr(), B, *map(float, rc),
+            *map(float, inv), *map(float, sz), saved.data_ptr(),
+            cot.data_ptr(), scratch.data_ptr(), size, d_grid.data_ptr(),
+            d_rows.data_ptr(), _kernels.stream_of(pts)), "normals_grad")
+    else:
+        _kernels.check(lib, lib.hpsdf_packed_grad(
+            pt.grid.data_ptr(), pt.rows.data_ptr(), pt.width, pt.deg_used,
+            pt.grid_depth, pt.extra_rounds, n_rows, pts.data_ptr(), B,
+            *map(float, rc), *map(float, inv), *map(float, sz),
+            cot.data_ptr(), int(form), scratch.data_ptr(), size,
+            d_grid.data_ptr(), d_rows.data_ptr(), _kernels.stream_of(pts)),
+            "packed_grad")
     packed_grad_kernel.launches += 1
     packed_grad_kernel.form2_launches += int(form == 2)
     return d_rows, d_grid
@@ -888,21 +981,28 @@ class _ValuesAndGradient(torch.autograd.Function):
 
 class _Normals(torch.autograd.Function):
     """K5's normals, with K7's form 2 as its VJP with respect to the tables
-    and K5h's normals mode with respect to the points."""
+    and K5h's normals mode with respect to the points. Where the tables
+    need a gradient the forward is K5's NORMALS_SAVE and saves each
+    point's row key and unnormalised gradient (16 B a point) for form 2;
+    elsewhere it saves the points alone."""
 
     @staticmethod
     def forward(ctx, rows, grid, pts, pt):
-        ctx.save_for_backward(pts)
         ctx.pt = pt
-        return packed_eval_kernel(pt, pts, NORMALS)
+        if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1]):
+            ctx.save_for_backward(pts)
+            return packed_eval_kernel(pt, pts, NORMALS)
+        n, saved = packed_eval_kernel(pt, pts, NORMALS_SAVE)
+        ctx.save_for_backward(pts, saved)
+        return n
 
     @staticmethod
     def backward(ctx, wn):
-        (pts,) = ctx.saved_tensors
+        pts, *saved = ctx.saved_tensors
         pt, wn = ctx.pt, wn.contiguous()
         d_rows = d_grid = d_pts = None
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            d_rows, d_grid = packed_grad_kernel(pt, pts, wn, 2)
+            d_rows, d_grid = packed_grad_kernel(pt, pts, wn, 2, *saved)
         if ctx.needs_input_grad[2]:
             d_pts = packed_hvp_kernel(pt, pts, NORMALS_VJP, cot3=wn)
         return d_rows, d_grid, d_pts, None

@@ -29,7 +29,8 @@
 // key's items are taken in an order that can change from launch to launch.
 //
 // The counters' layout is this file's: a caller sizes its scratch with
-// group_ints(K) and passes counter_stride(K) to its kernel as an argument.
+// group_ints(K) and passes counter_stride(K) to its kernel as an argument
+// (or group_ints(K, cs) with cs = counter_stride(K, B)).
 
 #pragma once
 
@@ -47,12 +48,26 @@ __host__ __device__ inline int counter_stride(int64_t K) {
   return K <= kPadKeys ? kCounterStride : 1;
 }
 
-// The ints of scratch group_by_key takes for K keys (the counters, each
-// key's first place, the cursor), or -1 where they do not fit 32-bit
-// indices.
-inline int64_t group_ints(int64_t K) {
-  const int64_t n = (counter_stride(K) + 1) * K + 1;
+// The stride that follows the batch (K7's form 2): a line a counter
+// only where B items crowd K keys, kCrowd or more a key; where they are
+// sparser the counters lie packed, so that the memory zeroed and scanned
+// for them is 4 B a key, not 128.
+constexpr int64_t kCrowd = 4;
+
+__host__ __device__ inline int counter_stride(int64_t K, int64_t B) {
+  return B >= kCrowd * K ? counter_stride(K) : 1;
+}
+
+// The ints of scratch group_by_key takes for K keys with counters cs ints
+// apart (the counters, each key's first place, the cursor), or -1 where
+// they do not fit 32-bit indices.
+inline int64_t group_ints(int64_t K, int cs) {
+  const int64_t n = ((int64_t)cs + 1) * K + 1;
   return K < 1 || n >= INT32_MAX ? -1 : n;
+}
+
+inline int64_t group_ints(int64_t K) {
+  return group_ints(K, counter_stride(K));
 }
 
 // Where the items of each key lie once group_by_key returns.

@@ -29,6 +29,12 @@
 //     to mode 2's. It saves the raw-gradient launch and its second read of
 //     the same rows.
 //
+// Where the normals' backward needs the tables' gradient, the normals mode
+// also saves what K7's form 2 starts from (kNormalsSave): each point's row
+// key (locate_key, the walk locate_row4 takes) and its unnormalised world
+// gradient G, one 16-byte store a point. Without it the normals mode is
+// its own instantiation, unchanged.
+//
 // K5h (packed_hvp_kernel), the same read with the Hessian, gives the point
 // VJPs of normals and values_and_gradient_at; it is described above its
 // kernel below.
@@ -59,7 +65,8 @@ namespace {
 
 constexpr int kThreads = 128;
 // what a launch computes (the wrapper's `mode`)
-constexpr int kValues = 0, kNormals = 1, kRawGrad = 2, kValuesGrad = 3;
+constexpr int kValues = 0, kNormals = 1, kRawGrad = 2, kValuesGrad = 3,
+              kNormalsSave = 4;
 
 template <int DEG, int MODE>
 __global__ void __launch_bounds__(kThreads)
@@ -75,15 +82,23 @@ packed_eval_kernel(const float* __restrict__ grid,
       (MODE == kValues ? 0 : hpsdf::kSumGrad);
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   // whether this thread sums the gradient
-  const bool with_grad = MODE == kNormals || MODE == kRawGrad ||
-                         (MODE == kValuesGrad && i < B_g);
+  const bool with_grad = MODE == kNormals || MODE == kNormalsSave ||
+                         MODE == kRawGrad || (MODE == kValuesGrad && i < B_g);
   if (i >= B) return;
   const float rc[3] = {rc0, rc1, rc2};
   const float inv[3] = {inv0, inv1, inv2};
   float u[3], slope[3];
   hpsdf::unit_point(pts + 3 * i, rc, inv, u, slope);
   const bool inside = slope[0] > 0.0f && slope[1] > 0.0f && slope[2] > 0.0f;
-  const float* row = hpsdf::locate_row4(grid, rows, W, gd, extra, u);
+  int key = 0;
+  const float* row;
+  if constexpr (MODE == kNormalsSave) {
+    key = hpsdf::locate_key(grid, rows, W, gd, extra, u);
+    const int G3 = 1 << (3 * gd);
+    row = key < G3 ? grid + (int64_t)key * W : rows + (int64_t)(key - G3) * W;
+  } else {
+    row = hpsdf::locate_row4(grid, rows, W, gd, extra, u);
+  }
   float v, g[3], h[6];
   const float scale = hpsdf::packed_leaf_sums<DEG, kSums>(row, u, with_grad,
                                                           false, v, g, h);
@@ -98,7 +113,7 @@ packed_eval_kernel(const float* __restrict__ grid,
             slope[a] > 0.0f ? slope[a] * (g[a] * scale * inv[a]) : 0.0f;
     }
     if constexpr (MODE == kValuesGrad) out[i] = v;
-  } else if constexpr (MODE == kNormals) {
+  } else if constexpr (MODE == kNormals || MODE == kNormalsSave) {
     // local = (unit - centre) * scale, unit = (p - c) / sizes
     const float sz[3] = {sz0, sz1, sz2};
 #pragma unroll
@@ -107,6 +122,9 @@ packed_eval_kernel(const float* __restrict__ grid,
     const float den = fmaxf(nrm, 1e-12f);
 #pragma unroll
     for (int a = 0; a < 3; ++a) out[3 * i + a] = g[a] / den;
+    if constexpr (MODE == kNormalsSave)
+      reinterpret_cast<float4*>(out_grad)[i] =
+          make_float4(__int_as_float(key), g[0], g[1], g[2]);
   } else {
     out[i] = (outside_max && !inside) ? FLT_MAX : v;
   }
@@ -191,7 +209,9 @@ packed_hvp_kernel(const float* __restrict__ grid,
 
 // mode 0: values (B,) in out; 1: unit normals (B, 3); 2: raw gradients
 // (B, 3); 3: values (B,) in out and the raw gradients of the first B_g
-// points (B_g, 3) in out_grad, B_g <= B. Rows 16-byte aligned.
+// points (B_g, 3) in out_grad, B_g <= B; 4: unit normals (B, 3) in out and
+// in out_grad (B, 4), 16-byte aligned, each point's row key (its bits) and
+// unnormalised gradient, for K7's form 2. Rows 16-byte aligned.
 extern "C" int hpsdf_packed_eval(const float* grid, const float* rows, int W,
                                  int deg, int gd, int extra, const float* pts,
                                  int64_t B, float rc0, float rc1, float rc2,
@@ -201,9 +221,11 @@ extern "C" int hpsdf_packed_eval(const float* grid, const float* rows, int W,
                                  int64_t B_g, void* stream) {
   const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
-  if (mode < kValues || mode > kValuesGrad ||
+  if (mode < kValues || mode > kNormalsSave ||
       (mode == kValuesGrad && (B_g < 0 || B_g > B)))
     return (int)cudaErrorInvalidValue;
+  if (mode == kNormalsSave && (uintptr_t)out_grad % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
 #define HPSDF_MODE(D, M)                                                     \
   packed_eval_kernel<D, M><<<blocks, kThreads, 0, s>>>(                      \
       grid, rows, W, gd, extra, pts, B, rc0, rc1, rc2, inv0, inv1, inv2, sz0, \
@@ -211,6 +233,8 @@ extern "C" int hpsdf_packed_eval(const float* grid, const float* rows, int W,
 #define HPSDF_LAUNCH(D)                     \
   if (mode == kNormals)                     \
     HPSDF_MODE(D, kNormals);                \
+  else if (mode == kNormalsSave)            \
+    HPSDF_MODE(D, kNormalsSave);            \
   else if (mode == kRawGrad)                \
     HPSDF_MODE(D, kRawGrad);                \
   else if (mode == kValuesGrad)             \

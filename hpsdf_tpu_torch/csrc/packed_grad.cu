@@ -22,8 +22,8 @@
 //     gb = unit_vector_vjp(G, wn, 1e-12),
 //       d[8 + m] += sum_a (gb_a / size_a) * scale * dP_m/dlocal_a,
 //     with no axis left out: the normals chain through the clamped point
-//     but do not mask it. Each point's record takes gb / size, computed
-//     where the point is placed in row order (it has located its row).
+//     but do not mask it. It runs in a launch of its own
+//     (normals_grad_kernel, below), from what K5's normals forward saved.
 // The meta lanes 0-7 get zero: inverse rendering rebuilds them from
 // PackSupport.meta_rows, a constant.
 //
@@ -48,6 +48,22 @@
 // same number of points however they crowd, and the rows are cleared
 // inside the launch. The order within a row follows the sort's atomics, so
 // the last bits of a sum can change between launches.
+//
+// Form 2 (normals_grad_kernel) serves the normal map's backward, whose
+// batches are a render's hits: tens of thousands of points against
+// 8^grid_depth grid rows (32,768 on a packed slice tree) plus the node rows.
+// There the grouping's work that follows the keys, not the points, decided
+// the time of the kernel it replaced (csrc/check/
+// packed_grad_form2_reference.cu): a 128-byte line of counters a key
+// zeroed and scanned (4.8 MB for 48,587 hits), a grid of six blocks on
+// every multiprocessor through four grid-wide barriers, and each point's
+// row located and its gradient g evaluated again for the record. So
+// K5's normals forward, where the tables need a gradient, saves each
+// point's row key and G (16 B a point, packed_eval.cu's kNormalsSave), and
+// form 2 takes both from there: no locate and no row read before the
+// sums; its counters lie a line apart only where the points crowd the keys
+// (group.cuh's counter_stride(K, B)), and its grid is no larger than a
+// warp a chunk, nor smaller than clearing the tables needs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -106,6 +122,7 @@ struct Inputs {
   const float* pts;
   const float* cot;
   float rc[3], inv[3], sz[3];
+  const float4* saved;     // form 2: each point's (key, G), K5's forward
 
   // the point's unit-cube coordinates, clamped into the root, and the
   // clamp's slope on each axis
@@ -119,18 +136,7 @@ struct Inputs {
   __device__ __forceinline__ int key(int64_t b) const {
     float u[3], slope[3];
     unit(b, u, slope);
-    int k = hpsdf::grid_cell(gd, u);
-    const float* row = grid + (int64_t)k * W;
-    for (int r = 0; r < extra; ++r) {
-      const float4 m = __ldg(reinterpret_cast<const float4*>(row));
-      const int child = __float_as_int(m.x) - 1;
-      if (child < 0) break;
-      const int oct = (u[0] >= m.z) | ((u[1] >= m.w) << 1) |
-                      ((u[2] >= __ldg(row + 4)) << 2);
-      k = G3 + child + oct;
-      row = rows + (int64_t)(child + oct) * W;
-    }
-    return k;
+    return hpsdf::locate_key(grid, rows, W, gd, extra, u);
   }
 
   __device__ __forceinline__ const float* row(int64_t k) const {
@@ -152,18 +158,13 @@ struct Inputs {
         for (int a = 0; a < 3; ++a)
           c[a] = slope[a] > 0.0f ? slope[a] * cot[3 * b + a] : 0.0f;
       } else {
-        // the normal's gradient at the point (K5's read of row k, one
-        // 4-byte load a term: the registers of the whole launch bound its
-        // blocks a multiprocessor), then the unit vector's VJP
-        float v, G[3], h[6], wn[3], gb[3];
-        const float scale =
-            hpsdf::packed_leaf_sums<DEG, hpsdf::kSumGrad, true, 0>(
-                row(k), u, true, false, v, G, h);
+        // the normal's unnormalised gradient G as K5's forward saved it
+        // (after the row's key), then the unit vector's VJP
+        const float4 sv = __ldg(saved + b);
+        const float G[3] = {sv.y, sv.z, sv.w};
+        float wn[3], gb[3];
 #pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          G[a] = G[a] * scale / sz[a];
-          wn[a] = cot[3 * b + a];
-        }
+        for (int a = 0; a < 3; ++a) wn[a] = cot[3 * b + a];
         hpsdf::unit_vector_vjp(G, wn, 1e-12f, gb);
 #pragma unroll
         for (int a = 0; a < 3; ++a) c[a] = gb[a] / sz[a];
@@ -270,60 +271,31 @@ struct LaneTerms {
   }
 };
 
+// 4. a warp a chunk of kSeg places of the row order [0, total): each row's
+// sums there, stored where all the row's points lie in the chunk (the keys
+// just before and after it are another row's), else added. recs and
+// sorted: the records and the keys in row order; tab: the warp's tables.
 template <int DEG, int FORM>
-__global__ void __launch_bounds__(kThreads)
-packed_grad_kernel(const float* __restrict__ grid,
-                   const float* __restrict__ rows, int W, int gd, int extra,
-                   int Np, const float* __restrict__ pts, int64_t B,
-                   float rc0, float rc1, float rc2, float inv0, float inv1,
-                   float inv2, float sz0, float sz1, float sz2,
-                   const float* __restrict__ cot, int cs,
-                   void* __restrict__ scratch, float* __restrict__ d_grid,
-                   float* __restrict__ d_rows) {
+__device__ __forceinline__ void sum_chunks(const Inputs& in,
+                                           const float4* recs,
+                                           const int32_t* sorted,
+                                           int64_t total, float* tab,
+                                           float* d_grid, float* d_rows) {
   using T = Terms<DEG, FORM>;
-  __shared__ float s_tab[kWarps][T::BATCH * T::S];
   const int lane = threadIdx.x & 31;
-  const Inputs in{grid, rows, W, gd, extra, 1 << (3 * gd), pts, cot,
-                  {rc0, rc1, rc2}, {inv0, inv1, inv2}, {sz0, sz1, sz2}};
-  const int K = in.G3 + Np;
-  // scratch (scratch_bytes): the records, the keys, the row order, the
-  // grouping's counters
-  float4* recs = static_cast<float4*>(scratch);
-  int32_t* keys = reinterpret_cast<int32_t*>(recs + B * T::REC);
-  int32_t* sorted = keys + B;
-  int32_t* cnt = sorted + B;
-  auto clear = [&](int64_t i, int64_t n) {
-    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    for (int64_t q = i; q < (int64_t)in.G3 * W / 4; q += n)
-      reinterpret_cast<float4*>(d_grid)[q] = z;
-    for (int64_t q = i; q < (int64_t)Np * W / 4; q += n)
-      reinterpret_cast<float4*>(d_rows)[q] = z;
-  };
-  auto place = [&](int64_t b, int pos, int k) {
-    sorted[pos] = k;
-    in.record<DEG, FORM>(b, k, recs + (int64_t)pos * T::REC);
-  };
-  hpsdf::group_by_key<kThreads>(
-      B, K, [&](int64_t b) { return in.key(b); }, keys, cnt, cs,
-      cnt + (int64_t)cs * K, clear, place);
-
-  // 4. a warp a chunk of kSeg places of the row order: each row's sums
-  // there, stored where all the row's points lie in the chunk (the keys
-  // just before and after it are another row's), else added
   const LaneTerms<DEG, FORM> lt;
-  float* tab = s_tab[threadIdx.x >> 5];
   auto dst = [&](int k) {
-    return (k < in.G3 ? d_grid + (int64_t)k * W
-                      : d_rows + (int64_t)(k - in.G3) * W);
+    return (k < in.G3 ? d_grid + (int64_t)k * in.W
+                      : d_rows + (int64_t)(k - in.G3) * in.W);
   };
   const int warp_id = (int)(((int64_t)blockIdx.x * kThreads + threadIdx.x)
                             >> 5);
   const int n_warps = (int)(((int64_t)gridDim.x * kThreads) >> 5);
-  const int n_chunks = (int)((B + kSeg - 1) / kSeg);
+  const int n_chunks = (int)((total + kSeg - 1) / kSeg);
   for (int c = warp_id; c < n_chunks; c += n_warps) {
-    const int j0 = c * kSeg, j1 = (int)min(B, (int64_t)j0 + kSeg);
+    const int j0 = c * kSeg, j1 = (int)min(total, (int64_t)j0 + kSeg);
     const int before = j0 > 0 ? __ldcg(sorted + j0 - 1) : -1;
-    const int after = j1 < B ? __ldcg(sorted + j1) : -1;
+    const int after = j1 < total ? __ldcg(sorted + j1) : -1;
     int cur = -1;
     bool whole = true;                 // cur began in this chunk
     float acc[T::OUT] = {};
@@ -356,6 +328,93 @@ packed_grad_kernel(const float* __restrict__ grid,
   }
 }
 
+// Both tables cleared, by thread i of the launch's n.
+__device__ __forceinline__ void clear_tables(const Inputs& in, int Np,
+                                             float* d_grid, float* d_rows,
+                                             int64_t i, int64_t n) {
+  const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int64_t q = i; q < (int64_t)in.G3 * in.W / 4; q += n)
+    reinterpret_cast<float4*>(d_grid)[q] = z;
+  for (int64_t q = i; q < (int64_t)Np * in.W / 4; q += n)
+    reinterpret_cast<float4*>(d_rows)[q] = z;
+}
+
+// Forms 0 and 1.
+template <int DEG, int FORM>
+__global__ void __launch_bounds__(kThreads)
+packed_grad_kernel(const float* __restrict__ grid,
+                   const float* __restrict__ rows, int W, int gd, int extra,
+                   int Np, const float* __restrict__ pts, int64_t B,
+                   float rc0, float rc1, float rc2, float inv0, float inv1,
+                   float inv2, float sz0, float sz1, float sz2,
+                   const float* __restrict__ cot, int cs,
+                   void* __restrict__ scratch, float* __restrict__ d_grid,
+                   float* __restrict__ d_rows) {
+  using T = Terms<DEG, FORM>;
+  __shared__ float s_tab[kWarps][T::BATCH * T::S];
+  const Inputs in{grid, rows, W, gd, extra, 1 << (3 * gd), pts, cot,
+                  {rc0, rc1, rc2}, {inv0, inv1, inv2}, {sz0, sz1, sz2},
+                  nullptr};
+  const int K = in.G3 + Np;
+  // scratch (scratch_bytes): the records, the keys, the row order, the
+  // grouping's counters
+  float4* recs = static_cast<float4*>(scratch);
+  int32_t* keys = reinterpret_cast<int32_t*>(recs + B * T::REC);
+  int32_t* sorted = keys + B;
+  int32_t* cnt = sorted + B;
+  auto clear = [&](int64_t i, int64_t n) {
+    clear_tables(in, Np, d_grid, d_rows, i, n);
+  };
+  auto place = [&](int64_t b, int pos, int k) {
+    sorted[pos] = k;
+    in.record<DEG, FORM>(b, k, recs + (int64_t)pos * T::REC);
+  };
+  hpsdf::group_by_key<kThreads>(
+      B, K, [&](int64_t b) { return in.key(b); }, keys, cnt, cs,
+      cnt + (int64_t)cs * K, clear, place);
+  sum_chunks<DEG, FORM>(in, recs, sorted, B, s_tab[threadIdx.x >> 5],
+                        d_grid, d_rows);
+}
+
+// Form 2 from K5's saved (key, G) a point (saved, (B, 4) f32, the key's
+// bits first): no locate; the records' gb / size from G.
+template <int DEG>
+__global__ void __launch_bounds__(kThreads)
+normals_grad_kernel(const float* __restrict__ grid,
+                    const float* __restrict__ rows, int W, int gd, int Np,
+                    const float* __restrict__ pts, int64_t B, float rc0,
+                    float rc1, float rc2, float inv0, float inv1, float inv2,
+                    float sz0, float sz1, float sz2,
+                    const float4* __restrict__ saved,
+                    const float* __restrict__ wn, int cs,
+                    void* __restrict__ scratch, float* __restrict__ d_grid,
+                    float* __restrict__ d_rows) {
+  using T = Terms<DEG, 2>;
+  __shared__ float s_tab[kWarps][T::BATCH * T::S];
+  const Inputs in{grid, rows, W, gd, 0, 1 << (3 * gd), pts, wn,
+                  {rc0, rc1, rc2}, {inv0, inv1, inv2}, {sz0, sz1, sz2},
+                  saved};
+  const int K = in.G3 + Np;
+  // scratch (scratch_bytes): the records, the row order, the grouping's
+  // counters
+  float4* recs = static_cast<float4*>(scratch);
+  int32_t* sorted = reinterpret_cast<int32_t*>(recs + B * T::REC);
+  int32_t* cnt = sorted + B;
+  const int* keys = reinterpret_cast<const int*>(saved);
+  auto clear = [&](int64_t i, int64_t n) {
+    clear_tables(in, Np, d_grid, d_rows, i, n);
+  };
+  auto place = [&](int64_t b, int pos, int k) {
+    sorted[pos] = k;
+    in.record<DEG, 2>(b, k, recs + (int64_t)pos * T::REC);
+  };
+  hpsdf::group_by_key<kThreads>(
+      B, K, [&](int64_t b) { return __ldg(keys + 4 * b); }, nullptr, cnt,
+      cs, cnt + (int64_t)cs * K, clear, place);
+  sum_chunks<DEG, 2>(in, recs, sorted, B, s_tab[threadIdx.x >> 5], d_grid,
+                     d_rows);
+}
+
 template <int DEG, int FORM>
 cudaError_t launch(void** args, cudaStream_t s) {
   static int grid_cache = 0;
@@ -366,17 +425,45 @@ cudaError_t launch(void** args, cudaStream_t s) {
                                      dim3(blocks), dim3(kThreads), args, 0, s);
 }
 
+// Form 2's grid: no more blocks than a warp a chunk, nor fewer than clear
+// the tables' float4s kClearPer a thread, nor more than can be resident.
+constexpr int kClearPer = 32;
+
+template <int DEG>
+cudaError_t launch_normals(void** args, int64_t B, int64_t table_f4,
+                           cudaStream_t s) {
+  static int grid_cache = 0;
+  const int most = hpsdf::group_grid(normals_grad_kernel<DEG>, kThreads,
+                                     kGroupPerSM, &grid_cache);
+  if (most <= 0) return cudaErrorInvalidConfiguration;
+  const int64_t by_points = (B + kSeg * kWarps - 1) / (kSeg * kWarps);
+  const int64_t by_clear = (table_f4 + kThreads * kClearPer - 1) /
+                           (kThreads * kClearPer);
+  const int64_t want = by_points > by_clear ? by_points : by_clear;
+  const int blocks = (int)(want < most ? (want > 0 ? want : 1) : most);
+  return cudaLaunchCooperativeKernel((const void*)normals_grad_kernel<DEG>,
+                                     dim3(blocks), dim3(kThreads), args, 0, s);
+}
+
+// The counters' stride of a launch for B points into K keys: form 2's
+// follows the batch.
+inline int stride_of(int64_t B, int64_t K, int form) {
+  return form == 2 ? hpsdf::counter_stride(K, B) : hpsdf::counter_stride(K);
+}
+
 // The bytes of scratch a launch takes for B points into K rows: each
-// point's record (Terms::REC float4s), its key and its place in the row
-// order, then the grouping's counters; -1 where 32-bit indices do not
-// reach.
+// point's record (Terms::REC float4s), its key (forms 0 and 1; form 2's is
+// K5's) and its place in the row order, then the grouping's counters; -1
+// where 32-bit indices do not reach.
 int64_t scratch_bytes(int64_t B, int gd, int64_t Np, int form) {
   if (form < 0 || form > 2 || B < 0 || 2 * B >= INT32_MAX || Np < 0 ||
       gd < 0 || gd > 10)
     return -1;
-  const int64_t counts = hpsdf::group_ints((int64_t{1} << (3 * gd)) + Np);
+  const int64_t K = (int64_t{1} << (3 * gd)) + Np;
+  const int64_t counts = hpsdf::group_ints(K, stride_of(B, K, form));
   return counts < 0 ? -1
-                    : 16 * (form == 0 ? 1 : 2) * B + 4 * (2 * B + counts);
+                    : 16 * (form == 0 ? 1 : 2) * B +
+                          4 * ((form == 2 ? 1 : 2) * B + counts);
 }
 
 }  // namespace
@@ -386,11 +473,11 @@ extern "C" int64_t hpsdf_packed_grad_scratch(int64_t B, int gd, int Np,
   return scratch_bytes(B, gd, Np, form);
 }
 
-// form 0: cot = w (B,); form 1: cot = u (B, 3); form 2: cot = wn (B, 3),
-// the normals' cotangents (sz: the root's sizes). Np: the node rows;
+// form 0: cot = w (B,); form 1: cot = u (B, 3). Np: the node rows;
 // scratch: hpsdf_packed_grad_scratch bytes, 16-byte aligned. Writes every
 // row of d_grid and d_rows (the tables' shapes), zeros outside the
-// coefficient lanes. Rows 16-byte aligned. One cooperative launch.
+// coefficient lanes. Rows 16-byte aligned. One cooperative launch. Form 2
+// is hpsdf_normals_grad.
 extern "C" int hpsdf_packed_grad(const float* grid, const float* rows, int W,
                                  int deg, int gd, int extra, int Np,
                                  const float* pts, int64_t B, float rc0,
@@ -400,7 +487,7 @@ extern "C" int hpsdf_packed_grad(const float* grid, const float* rows, int W,
                                  void* scratch, int64_t scratch_size,
                                  float* d_grid, float* d_rows, void* stream) {
   const int64_t need = scratch_bytes(B, gd, Np, form);
-  if (need < 0 || scratch_size < need || W % 4 != 0)
+  if (form == 2 || need < 0 || scratch_size < need || W % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if ((uintptr_t)scratch % 16 != 0 || (uintptr_t)d_grid % 16 != 0 ||
       (uintptr_t)d_rows % 16 != 0)
@@ -412,9 +499,48 @@ extern "C" int hpsdf_packed_grad(const float* grid, const float* rows, int W,
                   &d_rows};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaSuccess;
-#define HPSDF_LAUNCH(D)                                        \
-  e = form == 0 ? launch<D, 0>(args, s)                        \
-                : (form == 1 ? launch<D, 1>(args, s) : launch<D, 2>(args, s))
+#define HPSDF_LAUNCH(D) \
+  e = form == 0 ? launch<D, 0>(args, s) : launch<D, 1>(args, s)
+  HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
+#undef HPSDF_LAUNCH
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K7's form 2: d_grid and d_rows, the VJP of the unit normals with
+// cotangents wn (B, 3) (sz: the root's sizes), from saved (B, 4) f32, each
+// point's row key (its bits) and unnormalised gradient G as K5's normals
+// forward saved them (hpsdf_packed_eval's mode 4). scratch:
+// hpsdf_packed_grad_scratch(B, gd, Np, 2) bytes, 16-byte aligned. Writes
+// every row of both tables. One cooperative launch.
+extern "C" int hpsdf_normals_grad(const float* grid, const float* rows,
+                                  int W, int deg, int gd, int Np,
+                                  const float* pts, int64_t B, float rc0,
+                                  float rc1, float rc2, float inv0,
+                                  float inv1, float inv2, float sz0,
+                                  float sz1, float sz2, const float* saved,
+                                  const float* wn, void* scratch,
+                                  int64_t scratch_size, float* d_grid,
+                                  float* d_rows, void* stream) {
+  const int64_t need = scratch_bytes(B, gd, Np, 2);
+  if (B < 1 || need < 0 || scratch_size < need || W % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)scratch % 16 != 0 || (uintptr_t)d_grid % 16 != 0 ||
+      (uintptr_t)d_rows % 16 != 0 || (uintptr_t)saved % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const int64_t G3 = int64_t{1} << (3 * gd);
+  int cs = stride_of(B, G3 + Np, 2);
+  void* args[] = {&grid, &rows, &W,    &gd,   &Np,    &pts,   &B,
+                  &rc0,  &rc1,  &rc2,  &inv0, &inv1,  &inv2,  &sz0,
+                  &sz1,  &sz2,  &saved, &wn,  &cs,    &scratch, &d_grid,
+                  &d_rows};
+  const int64_t table_f4 = (G3 + Np) * W / 4;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaSuccess;
+#define HPSDF_LAUNCH(D) e = launch_normals<D>(args, B, table_f4, s)
   HPSDF_DISPATCH_DEG(deg, HPSDF_LAUNCH)
 #undef HPSDF_LAUNCH
   if (e != cudaSuccess) {

@@ -121,6 +121,28 @@ __device__ __forceinline__ const float* locate_row4(
   return row;
 }
 
+// The key of the row locate_row4 reaches from u: its grid cell k < 8^gd,
+// or 8^gd + the node row of its last descent. K7 groups its points by it,
+// and K5's normals forward saves it for K7's form 2.
+__device__ __forceinline__ int locate_key(const float* __restrict__ grid,
+                                          const float* __restrict__ rows,
+                                          int W, int gd, int extra,
+                                          const float u[3]) {
+  const int G3 = 1 << (3 * gd);
+  int k = grid_cell(gd, u);
+  const float* row = grid + (int64_t)k * W;
+  for (int r = 0; r < extra; ++r) {
+    const float4 m = __ldg(reinterpret_cast<const float4*>(row));
+    const int child = __float_as_int(m.x) - 1;
+    if (child < 0) break;
+    const int oct = (u[0] >= m.z) | ((u[1] >= m.w) << 1) |
+                    ((u[2] >= __ldg(row + 4)) << 2);
+    k = G3 + child + oct;
+    row = rows + (int64_t)(child + oct) * W;
+  }
+  return k;
+}
+
 // L_0..L_DEG at x by the three-term recurrence (basis.legendre_all), the
 // factors computed in double and rounded once to T.
 template <int DEG, class T>
@@ -220,8 +242,8 @@ constexpr int kMaxQuads = 16;
 // xz, yz; kSumHess, where `hess`, which needs g's recurrences: `grad` too).
 // Rows of up to MAX_QUADS float4 coefficient lanes are read in 16-byte
 // loads into registers, wider ones one 4-byte load a term. With LOOPED the
-// terms go in loops above kUnrolledDeg (for_each_term_of). K2/K5, K5h and
-// K7's form 2 read a row through it. Returns the row's scale 2^(depth+1).
+// terms go in loops above kUnrolledDeg (for_each_term_of). K2/K5 and K5h
+// read a row through it. Returns the row's scale 2^(depth+1).
 template <int DEG, int SUMS, bool LOOPED = false, int MAX_QUADS = kMaxQuads>
 __device__ __forceinline__ float packed_leaf_sums(const float* row,
                                                   const float (&u)[3],

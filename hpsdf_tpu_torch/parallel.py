@@ -511,14 +511,15 @@ def _gathered(x: torch.Tensor, sh: BatchShard, b: int) -> torch.Tensor:
     return all_gather(x, sh)[:b]
 
 
-def _refuse_gathered_grad(what: str, *xs) -> None:
-    """Raise where one of ``xs``, a sharded read's points or rays, requires
-    a gradient: the reads carry gradients to the tree only, as the
-    reference's, which turns the points into numpy arrays first."""
+def _refuse_gathered_grad(what: str, *xs, to: str = "the points or rays",
+                          why: str = "its all-gather hands back the tree's "
+                                     "gradients only") -> None:
+    """Raise where one of ``xs``, by default a sharded read's points or
+    rays, requires a gradient: the reads carry gradients to the tree only,
+    as the reference's, which turns the points into numpy arrays first."""
     if _device.wants_grad(*(x for x in xs if isinstance(x, torch.Tensor))):
-        raise RuntimeError(f"parallel.{what} carries no gradient to the "
-                           "points or rays: its all-gather hands back the "
-                           "tree's gradients only")
+        raise RuntimeError(f"parallel.{what} carries no gradient to {to}: "
+                           f"{why}")
 
 
 def shard_query(tree, pts, mesh: DeviceMesh,
@@ -570,9 +571,13 @@ def shard_trace(tree, origins, dirs, mesh: DeviceMesh,
     ``t`` is differentiable with respect to ``tree.coeffs``, packed tables
     given or not, as ``render.trace`` (the implicit VJP, K8's trace form,
     on each rank's share), where every rank takes the same loss of it: the
-    gradient is summed over the batch axis. Rays that require a gradient
-    raise."""
+    gradient is summed over the batch axis. Rays or ``tree.centre`` that
+    require a gradient raise, before any collective."""
     _refuse_gathered_grad("shard_trace", origins, dirs)
+    _refuse_gathered_grad("shard_trace", getattr(tree, "centre", None),
+                          to="tree.centre",
+                          why="the trace's implicit VJP reaches the "
+                              "coefficients only")
     sh = batch_shard(mesh)
     whole = _shard_tree(tree, mesh, False)
     tree = _replicated(whole, sh, ("coeffs",))

@@ -627,9 +627,12 @@ def trace(tree: Octree, origins, dirs, t_max: float = 10.0,
 
     ``t`` is differentiable with respect to ``tree.coeffs`` (the implicit
     VJP of the reference, hpsdf_tpu render.py:944-998), not with respect
-    to the origins or directions, which raise when they require a
-    gradient.
+    to the origins, directions or ``tree.centre``, which raise on every
+    device, before any launch (the centres before the packing too), when
+    they require a gradient: the reference returns zeros for them, a
+    placeholder and not the derivative.
     """
+    refuse_grad("trace with respect to tree.centre", tree.centre)
     if packed is None:
         packed = pack_tree(tree)
     dev = packed.device

@@ -616,16 +616,41 @@ def test_refuses_what_is_not_a_mesh(port_tree):
     assert TB.BLOCK_PTS == 1 << 20
 
 
-@pytest.mark.parametrize("what", ["points", "coeffs"])
-def test_sharded_reads_refuse_a_gradient(what, port_tree, inputs):
+@pytest.mark.parametrize("what", ["points", "coeffs", "centre",
+                                  "centre_packed"])
+def test_sharded_reads_refuse_a_gradient(what, port_tree, inputs,
+                                         monkeypatch):
     """Points or rays that require a gradient make shard_query and
     shard_trace raise before any collective: the sharded reads, as the
-    reference's, differentiate the tree only. Coefficients that require
-    one get it: on a one-rank group in this process, bit for bit the
-    one-device gradient (the rank's share is the batch)."""
+    reference's, differentiate the tree only. So does ``tree.centre`` in
+    shard_trace, whose implicit VJP reaches the coefficients only, on a
+    one-rank gloo group, with the packed tables given and without.
+    Coefficients that require one get it: on a one-rank group in this
+    process, bit for bit the one-device gradient (the rank's share is the
+    batch)."""
     from hpsdf_tpu_torch import parallel
 
     pts = torch.zeros(4, 3, dtype=torch.float64)
+    if what.startswith("centre"):
+        _, inp = inputs
+        owned = not parallel.dist.is_initialized()
+        mesh = parallel.make_mesh(device="cpu")
+        kw = {"packed": T.pack_tree(port_tree)} \
+            if what == "centre_packed" else {}
+        tc = dataclasses.replace(
+            port_tree, centre=port_tree.centre.clone().requires_grad_())
+        try:
+            for name in ("all_gather", "all_reduce", "pack_tree"):
+                monkeypatch.setattr(parallel, name, lambda *a, **k:
+                                    pytest.fail(f"{name} before refusing"))
+            with pytest.raises(RuntimeError, match="tree.centre"):
+                parallel.shard_trace(tc, inp["o"], inp["d"], mesh,
+                                     t_max=5.0, **kw)
+        finally:
+            monkeypatch.undo()
+            if owned:
+                parallel.dist.destroy_process_group()
+        return
     if what == "points":
         pts.requires_grad_(True)
         for call in (lambda: parallel.shard_query(port_tree, pts, object()),

@@ -268,6 +268,97 @@ def test_normals_vjp(trees, few_torch_threads):  # noqa: F811
     _close(rows.grad, d_rows.numpy(), 1e-6)
 
 
+def test_normals_tables_vjp_from_saved(trees, few_torch_threads):  # noqa: F811
+    """K7's form 2 from what K5's normals forward saves (the row's key and
+    the unnormalised gradient, ``normals_save_plain``): the normals bit
+    for bit ``normals_plain``'s, each key's row the row ``locate`` reads,
+    and the tables' VJP from the saved values
+    (``normals_tables_vjp_plain``) bit for bit ``normals_vjp_plain``'s,
+    which test_normals_vjp holds to jax.vjp of render._normals_at. Both
+    VJPs run on one intra-op thread: with more, the CPU's accumulation
+    into the tables is not reproducible from one call to the next (at
+    degree 12, either VJP against itself)."""
+    deg, _, _, _, tp, pts, _ = trees
+    rng = np.random.default_rng(900 + deg)
+    p32 = torch.as_tensor(pts.astype(np.float32))
+    wn = torch.as_tensor(rng.standard_normal(p32.shape).astype(np.float32))
+    n, saved = TA.normals_save_plain(tp, p32)
+    assert saved.shape == (p32.shape[0], 4) and saved.dtype == torch.float32
+    assert torch.equal(n, TA.normals_plain(tp, p32))
+    key = saved[:, 0].contiguous().view(torch.int32).long()
+    G3 = 8 ** tp.grid_depth
+    assert int(key.min()) >= 0 and int(key.max()) < G3 + tp.rows.shape[0]
+    keyed = torch.where((key < G3)[:, None], tp.grid[key.clamp(max=G3 - 1)],
+                        tp.rows[(key - G3).clamp(min=0)])
+    unit = TQ.clip_half(TA.to_unit(tp, p32))
+    assert torch.equal(keyed, TA.locate(tp, unit))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = TA.normals_tables_vjp_plain(tp, p32, saved, wn)
+        want = TA.normals_vjp_plain(tp, p32, wn)[:2]
+    finally:
+        torch.set_num_threads(threads)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("wants", ["tables", "points", "both"])
+def test_normals_forward_saves_for_form2(wants, monkeypatch,
+                                         few_torch_threads):  # noqa: F811
+    """With the kernel wrappers replaced by their plain versions, _Normals
+    asks K5 for NORMALS_SAVE and saves (points, saved values) only where
+    the tables need a gradient, and the points alone otherwise; its
+    backward hands the saved values to K7's form 2, and its gradients stay
+    within 1e-5 (tables, coefficient lanes) and 1e-4 (points) of jax.vjp
+    of render._normals_at."""
+    jt, tt = _synthetic(3, seed=3)
+    jp, tp = JA.pack_tree(jt, grid_depth=1), TA.pack_tree(tt, grid_depth=1)
+    rng = np.random.default_rng(910)
+    lo, hi = _lo_hi()
+    p32 = rng.uniform(lo, hi, (200, 3)).astype(np.float32)
+    wn = rng.standard_normal(p32.shape).astype(np.float32)
+    modes, form2 = [], []
+
+    def k5(pt, pts, mode, outside_max=False, n_grad=0):
+        modes.append(mode)
+        return TA.normals_save_plain(pt, pts) if mode == TA.NORMALS_SAVE \
+            else TA.normals_plain(pt, pts)
+
+    def k7(pt, pts, cot, form, saved=None):
+        form2.append(saved)
+        return TA.normals_tables_vjp_plain(pt, pts, saved, cot)
+
+    monkeypatch.setattr(TA, "packed_eval_kernel", k5)
+    monkeypatch.setattr(TA, "packed_grad_kernel", k7)
+    monkeypatch.setattr(TA, "packed_hvp_kernel",
+                        lambda pt, pts, mode, w=None, cot3=None:
+                        TA.normals_vjp_plain(pt, pts, cot3)[2])
+    tables = wants in ("tables", "both")
+    rows = tp.rows.clone().requires_grad_(tables)
+    grid = tp.grid.clone().requires_grad_(tables)
+    P = torch.as_tensor(p32).requires_grad_(wants != "tables")
+    n = TA._Normals.apply(rows, grid, P,
+                          dataclasses.replace(tp, rows=rows, grid=grid))
+    saved = n.grad_fn.saved_tensors
+    assert modes == [TA.NORMALS_SAVE if tables else TA.NORMALS]
+    assert len(saved) == (2 if tables else 1) and saved[0] is P
+    (torch.as_tensor(wn) * n).sum().backward()
+    assert len(form2) == int(tables)
+    if tables:
+        assert form2[0] is saved[1]
+    _, pull = jax.vjp(
+        lambda r, g, Q: JR._normals_at(dataclasses.replace(jp, rows=r,
+                                                           grid=g), Q),
+        jp.rows, jp.grid, jnp.asarray(p32))
+    want = pull(jnp.asarray(wn))
+    if tables:
+        _close(rows.grad[:, C0:], np.asarray(want[0])[:, C0:], RTOL32)
+        _close(grid.grad[:, C0:], np.asarray(want[1])[:, C0:], RTOL32)
+    if wants != "tables":
+        _close(P.grad, want[2], RTOL_HVP)
+
+
 def test_values_and_gradient_points_vjp(trees, few_torch_threads):  # noqa: F811
     """K5h's second mode: the VJP to the points of the values and of the
     raw gradients of the first n points, against jax.vjp of values_at and
@@ -717,6 +808,52 @@ def test_points_and_rays_still_refused(monkeypatch, few_torch_threads):  # noqa:
                             lambda *args: taken.append(args) or "taken")
         assert fn(tc, meta) == "taken"
     assert [a[-1] is tc.centre for a in taken] == [True, True]
+
+
+def _centre_rays():
+    """ROADMAP's reproduction of the trace's dropped centre gradient: the
+    degree-3 synthetic tree, 16 rays along +z from z = -1.25 within 0.3 of
+    the root's centre in x and y."""
+    lo, hi = (np.asarray(x, np.float64) for x in chip_smoke.SYNTH_ROOT)
+    cfg = T.Config(continuity=False, root_min=tuple(lo), root_max=tuple(hi))
+    from hpsdf_tpu_torch import tree as TT
+    tt = TT.pack(*chip_smoke.synthetic_tree(3, seed=3), cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    o = np.zeros((16, 3))
+    o[:, :2] = 0.5 * (lo + hi)[:2] + rng.uniform(-0.3, 0.3, (16, 2))
+    o[:, 2] = -1.25
+    d = np.tile([0.0, 0.0, 1.0], (16, 1))
+    return tt, *(torch.as_tensor(x, dtype=torch.float32) for x in (o, d))
+
+
+@pytest.mark.parametrize("packed", [False, True],
+                         ids=["unpacked", "packed"])
+def test_trace_refuses_a_centre_gradient(packed, monkeypatch,
+                                         few_torch_threads):  # noqa: F811
+    """``trace`` with ``tree.centre`` requiring a gradient raises the
+    port's RuntimeError on the CPU, with the packed tables given and
+    without, before it packs or marches (the reference's zeros there are a
+    placeholder, not the derivative); ``tree.coeffs`` keeps its gradient,
+    the same with and without the tables."""
+    tt, o, d = _centre_rays()
+    kw = {"packed": TA.pack_tree(tt)} if packed else {}
+    tc = dataclasses.replace(tt, centre=tt.centre.clone().requires_grad_())
+    for name in ("pack_tree", "_march"):
+        monkeypatch.setattr(TR, name, lambda *a, **k: pytest.fail(
+            "trace packed or marched before refusing the centres"))
+    with pytest.raises(RuntimeError, match="tree.centre"):
+        T.trace(tc, o, d, t_max=20.0, **kw)
+    monkeypatch.undo()
+    grads = []
+    for args in ({}, kw):
+        C = tt.coeffs.clone().requires_grad_(True)
+        res = T.trace(dataclasses.replace(tt, coeffs=C), o, d, t_max=20.0,
+                      **args)
+        assert res.t.requires_grad and int(res.hit.sum()) > 0
+        (g,) = torch.autograd.grad(torch.where(res.hit, res.t, 0.0).sum(), C)
+        grads.append(g)
+    assert bool(torch.isfinite(grads[0]).all()) and grads[0].abs().max() > 0
+    assert torch.equal(grads[0], grads[1])
 
 
 def test_grad2_helpers():

@@ -253,8 +253,8 @@ def test_ctypes_signatures_match_the_sources():
     launch without an error), and every entry point of the sources is
     bound."""
     c = _c_signatures()
-    bound = {**_kernels._SIGNATURES, **_kernels._SIZE_SIGNATURES,
-             **_kernels._CHECK_SIGNATURES}
+    sizes = {**_kernels._SIZE_SIGNATURES, **_kernels._CHECK_SIZE_SIGNATURES}
+    bound = {**_kernels._SIGNATURES, **_kernels._CHECK_SIGNATURES, **sizes}
     assert set(bound) == set(c)
     assert {"hpsdf_fit_points", "hpsdf_fit_project",
             "hpsdf_fit_project_shape"} <= set(_kernels._SIGNATURES)
@@ -269,8 +269,8 @@ def test_ctypes_signatures_match_the_sources():
     for name, args in bound.items():
         ret, params = c[name]
         assert list(args) == params, name
-        assert ret is (ctypes.c_int64 if name in _kernels._SIZE_SIGNATURES
-                       else ctypes.c_int), name
+        assert ret is (ctypes.c_int64 if name in sizes else ctypes.c_int), \
+            name
 
 
 def test_k8_root_table_is_correctly_rounded():
@@ -410,3 +410,24 @@ def test_packed_read_bytes_counts_the_walk():
     assert chip_smoke.packed_read_bytes(pt, pts) == 32 * len(cells | read)
     assert chip_smoke.packed_read_bytes(pt, pts, True) == \
         32 * len(cells - read) + 4 * pt.width * len(read)
+
+
+def test_form2_reference_is_checks_only():
+    """K7's form 2 as it was before its redesign (each point's row located
+    and its gradient evaluated again where it is placed) lives only under
+    csrc/check/, with entry points bound only for the checks; the shipped
+    form 2 groups by row (group.cuh) from K5's saved key and gradient (no
+    packed_leaf_sums in packed_grad.cu)."""
+    pkg = os.path.dirname(_kernels.__file__)
+    with open(os.path.join(pkg, "csrc", "check",
+                           "packed_grad_form2_reference.cu")) as fh:
+        text = fh.read()
+    entry = "hpsdf_packed_grad_form2_reference"
+    assert f'extern "C" int {entry}(' in text
+    assert entry in _kernels._CHECK_SIGNATURES
+    assert entry not in _kernels._SIGNATURES
+    with open(os.path.join(pkg, "csrc", "packed_grad.cu")) as fh:
+        ship = fh.read()
+    assert '"group.cuh"' in ship and "hpsdf::PeerSum" not in ship
+    assert "packed_leaf_sums" in text and "packed_leaf_sums" not in ship
+    assert "hpsdf_normals_grad" in _kernels._SIGNATURES

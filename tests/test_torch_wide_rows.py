@@ -128,7 +128,8 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                                    "round", "leaf", "K8 nodes", "K14",
                                    "K13", "K6", "K6 points", "K13 vjp",
                                    "K13 ref", "K8 sort", "K1h", "K7 form2",
-                                   "K8g", "K5h", "K1v", "K1 leaf", "K1c"],
+                                   "K8g", "K5h", "K1v", "K1 leaf", "K1c",
+                                   "K5 save"],
                          ids=["clean", "spills", "march_spills",
                               "backward_spills", "csr_spills",
                               "fused_spills", "cg_spills", "chunk_spills",
@@ -142,7 +143,7 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                               "normals_backward_spills",
                               "grad_scatter_spills", "hvp_spills",
                               "vjp_spills", "leaf_store_spills",
-                              "centre_spills"])
+                              "centre_spills", "normals_save_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
@@ -155,13 +156,14 @@ def test_ptxas_check(monkeypatch, spill):
     any degree 0..6) or its sort,
     K14, any launch of K13 (the points, the terms' loss forward or VJP
     backward), K1v, K1h or K1c (from K1's leaf), K1 writing the leaf,
-    K7's form 2, K8g or K5h (either mode) at degree 3 or 5, either of K6's
+    K5's normals saving for K7's form 2, K7's form 2, K8g or K5h (either
+    mode) at degree 3 or 5, either of K6's
     launches (at any degree 2..11, f64 or f32), or, in the check
     library's report,
     K13's terms as they were before their redesign has a stack frame or
     spills; every instantiation of K6's two kernels must be in the report.
-    The check library's K1v and K1h as they were are read, spills or not,
-    for their registers."""
+    The check library's K1v, K1h and K7's form 2 as they were are read,
+    spills or not, for their registers."""
     from hpsdf_tpu_torch import _kernels
 
     report = "".join(
@@ -177,6 +179,7 @@ def test_ptxas_check(monkeypatch, spill):
                      or spill == "K1c" and d == 3 and o == 2 and c
                      or d == 5 and o == 2 and c else 0)
         for d in (3, 5) for o in (1, 2) for c in (0, 1))
+
     report += _ptxas_entry("packed_eval_kernel", 3, False, regs=32)
     report += "".join(
         _ptxas_entry("march_kernel", d, None, regs=80,
@@ -191,11 +194,17 @@ def test_ptxas_check(monkeypatch, spill):
         report += _ptxas_entry("packed_eval_kernel", d, None,
                                args=f"Li{d}ELi3E",
                                stack=16 if spill == "K5F" and d == 3 else 0)
+        report += _ptxas_entry("packed_eval_kernel", d, None,
+                               args=f"Li{d}ELi4E",
+                               stack=8 if spill == "K5 save" and d == 5
+                               else 0)
         report += "".join(
             _ptxas_entry("packed_grad_kernel", d, None,
-                         stack=24 if spill == "K7" and f == 1
-                         or spill == "K7 form2" and f == 2 and d == 5 else 0,
-                         args=f"Li{d}ELi{f}E") for f in (0, 1, 2))
+                         stack=24 if spill == "K7" and f == 1 else 0,
+                         args=f"Li{d}ELi{f}E") for f in (0, 1))
+        report += _ptxas_entry("normals_grad_kernel", d, None,
+                               stack=24 if spill == "K7 form2" and d == 5
+                               else 0)
         report += _ptxas_entry("coeff_scatter_grad_kernel", d, None,
                                stack=8 if spill == "K8g" and d == 5 else 0)
         report += "".join(
@@ -257,6 +266,9 @@ def test_ptxas_check(monkeypatch, spill):
         _ptxas_entry("query_vjp_reference_kernel", d, None,
                      args=f"Li{d}ELi{o}E", regs=96, stack=48 * (d == 5))
         for d in (3, 5) for o in (1, 2))
+    check_report += "".join(
+        _ptxas_entry("packed_grad_form2_reference_kernel", d, None,
+                     args=f"Li{d}ELi2E", regs=64) for d in (3, 5))
     for t in "df":
         for d in range(2, 12):
             report += _ptxas_entry(
@@ -293,7 +305,8 @@ def test_ptxas_check(monkeypatch, spill):
                 "K1v": "K1v 3/vjp: stack 8",
                 "K1c": "K1c 3/hess/centre: stack 8",
                 "K1 leaf": "K1 3/grad/leaf: stack 8",
-                "K7 form2": "K7 5/form2: stack 24",
+                "K7 form2": "K7 form 2 5: stack 24",
+                "K5 save": "K5 normals saving 5/save: stack 8",
                 "K8g": "K8g 5: stack 8",
                 "K5h": "K5h 3/values: stack 8"}[spill]):
             chip_smoke.ptxas_check()
@@ -307,10 +320,16 @@ def test_ptxas_check(monkeypatch, spill):
     assert found["query_vjp_kernel"] == {
         f"{d}/{k}{c}": [80] + [8 * (f"{d}/{k}{c}" == "5/hess/centre")] * 3
         for d in (3, 5) for k in ("vjp", "hess") for c in ("", "/centre")}
+    assert found["normals_grad_kernel"] == {d: [56, 0, 0, 0]
+                                            for d in ("3", "5")}
+    # the check library's kernels as they were are read, spills or not
     assert found["query_vjp_reference_kernel"]["5/hess"] == [96, 48, 48, 48]
+    assert set(found["packed_grad_form2_reference_kernel"]) == {
+        "3/form2", "5/form2"}
     assert found["packed_eval_kernel"]["3/values"] == [32, 0, 0, 0]
     assert set(found["packed_eval_kernel"]) == {
-        "3/values", "3/raw", "5/raw", "3/fused", "5/fused"}
+        "3/values", "3/raw", "5/raw", "3/fused", "5/fused", "3/save",
+        "5/save"}
     assert set(found["coeff_scatter_kernel"]) == {
         f"{d}/{k}" for d in (3, 5) for k in ("f64 query", "f32 trace")}
     assert set(found["row_scatter_kernel"]) == {"-"}
