@@ -1563,7 +1563,9 @@ def counters():
     launches and, apart, those that write the leaf for them
     (``query_leaf``); K7 its form 2's apart (``packed_grad_form2``); K5
     its normals (``packed_eval_normals``, either mode) and, apart, those
-    that save for K7's form 2 (``packed_eval_save``)."""
+    that save for K7's form 2 and K5h (``packed_eval_save``); K2's fused
+    mode (``packed_eval_fused``, either) and, apart, those that save the
+    keys for K5h (``packed_eval_keys``)."""
     from hpsdf_tpu_torch.accel import (packed_eval_kernel, packed_grad_kernel,
                                        packed_hvp_kernel, row_gather,
                                        row_scatter)
@@ -1594,6 +1596,7 @@ def counters():
             "packed_eval_save": (packed_eval_kernel, "save_launches"),
             "packed_eval_raw": (packed_eval_kernel, "raw_launches"),
             "packed_eval_fused": (packed_eval_kernel, "fused_launches"),
+            "packed_eval_keys": (packed_eval_kernel, "key_launches"),
             "march": (march_kernel, "launches"),
             "cone": (cone_kernel, "launches"),
             "row_scatter": (row_scatter, "launches"),
@@ -3510,6 +3513,24 @@ def k5h_ops(deg):
     return 9 + 30 * max(deg - 1, 0) + product_sum_ops(deg, 9, 6) + 40
 
 
+def k5h_saved_ops(deg, values, hess=True):
+    """f32 operations a point of K5h from its forward's saved record: the
+    frame (9), three Legendre recurrences and their first derivatives (20
+    (deg - 1)) and, with the Hessian, their second (10 (deg - 1)); the
+    k-run sums S_0, S_1 and, with the Hessian, S_2 of each (i, j) pair, an
+    FMA (2) a term a sum; each kind of pair product once a pair (N_x N_y,
+    N'_x N_y, N_x N'_y, and N''_x N_y, N_x N''_y, N'_x N'_y with the
+    Hessian) and an FMA a pair for each entry summed (the Hessian's 6, the
+    gradient's 3 in the values mode); the chain with the Hessian product
+    (40) and, in the normals mode, the unit vector's VJP (20)."""
+    C = (deg + 1) * (deg + 2) * (deg + 3) // 6
+    T = (deg + 1) * (deg + 2) // 2
+    sums = (3 if values else 0) + (6 if hess else 0)
+    return (9 + (30 if hess else 20) * max(deg - 1, 0)
+            + 2 * (3 if hess else 2) * C + (6 if hess else 3) * T
+            + 2 * sums * T + 40 + (0 if values else 20))
+
+
 def k7f2_ops(deg):
     """f32 operations a point of K7's form 2: form 1's (k7_ops) and the
     record's three gradient sums, with K1v's three kinds of pair
@@ -3533,23 +3554,25 @@ def k7f2_bytes(pt, pts, wn, saved):
         pts, wn, saved, pt.rows, pt.grid)) + 32 * rows
 
 
-def grad2_teeth(got, want, tol, face=None, sloped=None, masked=None):
+def grad2_teeth(got, want, tol, face=None, sloped=None, masked=None,
+                keyed=None):
     """Whether each wrong result fails the check rel_err <= tol: the
     largest entry moved by 10 tol of the largest (of 1 where the result is
     zero), and, for a point VJP with ``face`` (B, 3) the entries on an
     axis at a face of the root, where some of those are not zero, those
     entries doubled (the clamp's derivative taken as 1 there, the fault
     the face rule repairs); for K1c, ``sloped``, the centre gradient with
-    the clamp's slope wrongly applied (``centre_sloped``), and for K7's
-    form 2, ``masked``, the tables' gradient with one axis masked
-    (``form2_masked``), each where it is not the result."""
+    the clamp's slope wrongly applied (``centre_sloped``), for K7's form
+    2, ``masked``, the tables' gradient with one axis masked
+    (``form2_masked``), and for K5h, ``keyed``, its result from wrong row
+    keys (``wrong_key``), each where it is not the result."""
     flat = got.clone().reshape(-1)
     k = int(want.reshape(-1).abs().argmax())
     flat[k] += 10 * tol * max(float(want.abs().max()), 1.0)
     caught = [rel_err(flat.reshape(got.shape), want) > tol]
     if face is not None and bool((face & (got != 0)).any()):
         caught.append(rel_err(torch.where(face, 2 * got, got), want) > tol)
-    for wrong in (sloped, masked):
+    for wrong in (sloped, masked, keyed):
         if wrong is not None and not torch.equal(wrong, got):
             caught.append(rel_err(wrong, want) > tol)
     return caught
@@ -3596,6 +3619,64 @@ def packed_grad_form2_reference(pt, pts, wn):
         scratch.data_ptr(), size, d_grid.data_ptr(), d_rows.data_ptr(),
         _kernels.stream_of(pts)), "packed_grad_form2_reference")
     return d_rows, d_grid
+
+
+def packed_hvp_reference(pt, pts, mode, w, cot3):
+    """K5h as it was before its redesign (csrc/check/
+    packed_hvp_reference.cu: each point's row located again from the root
+    grid, the gradient and Hessian summed term by term), called as its
+    wrapper called it: mode NORMALS_VJP with cotangents cot3 (B, 3), mode
+    VALUES_GRAD_VJP with w (B,) and cot3 (n_grad, 3)."""
+    from hpsdf_tpu_torch import _kernels
+    from hpsdf_tpu_torch import accel as A
+
+    pts, cot3 = pts.detach().contiguous(), cot3.detach().contiguous()
+    w = None if w is None else w.detach().contiguous()
+    out = torch.empty(pts.shape, dtype=torch.float32, device=pts.device)
+    rc = np.asarray(pt.root_centre, np.float32)
+    inv = (1.0 / np.asarray(pt.root_sizes)).astype(np.float32)
+    sz = np.asarray(pt.root_sizes, np.float32)
+    _kernels.check(_kernels.load(),
+                   _kernels.load_check().hpsdf_packed_hvp_reference(
+        pt.grid.data_ptr(), pt.rows.data_ptr(), pt.width, pt.deg_used,
+        pt.grid_depth, pt.extra_rounds, pts.data_ptr(), pts.shape[0],
+        *map(float, rc), *map(float, inv), *map(float, sz), mode,
+        None if w is None else w.data_ptr(), cot3.data_ptr(),
+        cot3.shape[0] if mode == A.VALUES_GRAD_VJP else pts.shape[0],
+        out.data_ptr(), _kernels.stream_of(pts)), "packed_hvp_reference")
+    return out
+
+
+def k5h_bytes(pt, pts, saved, *cots):
+    """The bytes K5h's function must move: the points and cotangents read,
+    a 4-byte row key a point (the least a locate reads), each row the keys
+    name read whole, the gradient (12 B a point) written. The saved record
+    (the normals' (B, 4) record or the keys (B,)) counts for its keys
+    alone: what this design reads beyond them is ``k5h_saved_extra``."""
+    keys = saved[:, 0].contiguous().view(torch.int32) if saved.dim() == 2 \
+        else saved
+    rows = torch.unique(keys).numel()
+    return sum(t.numel() * t.element_size() for t in (pts, *cots)) \
+        + (4 + 12) * pts.shape[0] + 4 * pt.width * rows
+
+
+def k5h_saved_extra(saved):
+    """The bytes K5h reads from its forward's record beyond the function's
+    4-byte key a point: the normals' saved G (12 B a point), none of the
+    values' keys."""
+    return saved.numel() * saved.element_size() - 4 * saved.shape[0]
+
+
+def hvp_blocks(deg, mode):
+    """Blocks of K5h an SM holds at degree ``deg`` in ``mode``
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    import ctypes
+    from hpsdf_tpu_torch import _kernels
+
+    n = ctypes.c_int(0)
+    _kernels.check(_kernels.load(), _kernels.load().hpsdf_packed_hvp_blocks(
+        deg, mode, ctypes.byref(n)), "packed_hvp_blocks")
+    return n.value
 
 
 def centre_sloped(tree, leaf, d_pts):
@@ -3657,6 +3738,28 @@ def vjp_blocks(deg, hess, reference=False):
     _kernels.check(_kernels.load(), fn(deg, int(hess), ctypes.byref(n)),
                    "query_vjp_blocks")
     return n.value
+
+
+def wrong_key(keys):
+    """A wrong row key for K5h's teeth: each point given the key of the
+    point half the points away, a row of the tables but, where the points
+    come in key or raster order too, seldom its own."""
+    return torch.roll(keys, max(keys.numel() // 2, 1))
+
+
+# K5h's warps: one whose lanes' keys (a lane past the end taking key 0)
+# form more than this many runs stages its rows (csrc/packed_eval.cu
+# kHvpStageMin)
+HVP_STAGE_MIN = 8
+
+
+def hvp_staged_warps(keys):
+    """(the warps of K5h's launch over the row keys ``keys`` (B,) that
+    stage their rows in shared memory, the warps): the kernel's branch,
+    decided by the data."""
+    k = torch.cat([keys, keys.new_zeros(-keys.numel() % 32)]).view(-1, 32)
+    runs = 1 + (k[:, 1:] != k[:, :-1]).sum(1)
+    return int((runs > HVP_STAGE_MIN).sum()), k.shape[0]
 
 
 def wrong_leaf(leaf):
@@ -3781,12 +3884,13 @@ def grad2_checks(tree, pt, p64, seed, with_teeth=False):
     against the plain version and against the replaced kernel, where the
     VJP is not zero (degree 0's is); for K1c the clamp's slope wrongly
     applied (``centre_sloped``); for K7's form 2 one axis masked
-    (``form2_masked``). K1c is also held, on node blocks of 2 and 3
-    (``parallel.node_block``), concatenated, to the plain version
-    (``_blocks``); K7's form 2 takes K5's saved key and gradient
-    (NORMALS_SAVE: normals bit for bit NORMALS's, keys the plain walk's)
-    and is held to the kernel it replaced (``packed_grad_form2_reference``)
-    too."""
+    (``form2_masked``); for K5h wrong row keys (``wrong_key``). K1c is
+    also held, on node blocks of 2 and 3 (``parallel.node_block``),
+    concatenated, to the plain version (``_blocks``); K7's form 2 takes
+    K5's saved key and gradient (NORMALS_SAVE: normals bit for bit
+    NORMALS's, keys the plain walk's) and is held to the kernel it replaced
+    (``packed_grad_form2_reference``) too. K5h is held by
+    ``hvp_checks``."""
     from hpsdf_tpu_torch import accel as A
     from hpsdf_tpu_torch import parallel as P
     from hpsdf_tpu_torch.query import (_to_unit, coeff_scatter_grad_kernel,
@@ -3805,7 +3909,6 @@ def grad2_checks(tree, pt, p64, seed, with_teeth=False):
 
     p32 = p64.to(torch.float32)
     face64 = _to_unit(tree, p64).abs() == 0.5
-    face32 = A.to_unit(pt, p32).abs() == 0.5
     w, wn = rand(B), rand(B, 3)
     w32, wn32 = w.float(), wn.float()
     n_g = B // 2
@@ -3819,7 +3922,7 @@ def grad2_checks(tree, pt, p64, seed, with_teeth=False):
           "K1's values or gradients move when it writes the leaf")
     cd, pd = query_with_gradient_vjp_plain(tree, p64, w, wn, leaf=leaf)
     ws, wns = sparse_cotangents(w, wn, seed)
-    nr, ng, npt = A.normals_vjp_plain(pt, p32, wn32)
+    nr, ng, _ = A.normals_vjp_plain(pt, p32, wn32)
     k1 = {"query_vjp": (query_vjp_kernel(tree, p64, leaf, w),
                         query_points_vjp_plain(tree, p64, w, leaf=leaf),
                         lambda lf: query_vjp_kernel(tree, p64, lf, w),
@@ -3894,14 +3997,6 @@ def grad2_checks(tree, pt, p64, seed, with_teeth=False):
             coeff_scatter_grad_kernel(tree, p64, ws, wns),
             query_with_gradient_vjp_plain(tree, p64, ws, wns)[0],
             GRAD2_RTOL64, None),
-        "packed_hvp": (A.packed_hvp_kernel(pt, p32, A.NORMALS_VJP,
-                                           cot3=wn32), npt, GRAD2_RTOL_HVP,
-                       face32),
-        "packed_hvp_values": (
-            A.packed_hvp_kernel(pt, p32, A.VALUES_GRAD_VJP, w32,
-                                wn32[:n_g]),
-            A.values_and_gradient_vjp_plain(pt, p32, w32, wn32[:n_g]),
-            GRAD2_RTOL_HVP, face32),
         "packed_grad_form2": (form2, torch.cat((nr, ng)), GRAD2_RTOL32,
                               None, None, form2_masked(pt, p32, saved,
                                                        wn32)),
@@ -3922,13 +4017,85 @@ def grad2_checks(tree, pt, p64, seed, with_teeth=False):
             check(all(teeth), f"{name}: a wrong result passes the check "
                   f"{teeth}")
         out[name] = (err, float((got - want).abs().max()), teeth)
-    return out
+    return {**out, **hvp_checks(pt, p32, w32, wn32, n_g,
+                                f"{B} points, degree {tree.deg_used}",
+                                with_teeth)}
+
+
+def hvp_checks(pt, p32, w32, wn32, n_g, where, with_teeth=False):
+    """K5h (both modes) from what its forwards saved, at the points p32
+    (B, 3) f32 on the packed tables pt, with the cotangents w32 (B,) and
+    wn32 (B, 3), the values mode's Hessian for the first n_g points: the
+    fused read bit for bit VALUES_AND_GRAD's, its keys and NORMALS_SAVE's
+    the plain walk's (``locate_key_plain``); both modes held to their plain
+    versions from the plain forwards' records (``normals_points_vjp_plain``,
+    ``values_and_gradient_points_vjp_plain``) and, within the same
+    tolerance, to the kernel they replaced (``packed_hvp_reference``;
+    ``_replaced`` in the result, no teeth). Returns {name: (max|kernel -
+    plain| / max|plain|, max|kernel - plain|, teeth or None)}; raises where
+    one is above GRAD2_RTOL_HVP or, with ``with_teeth``, a wrong result
+    passes (``grad2_teeth``: a moved entry, the face rule undone where the
+    points reach a face, a wrong key, ``wrong_key``). ``where`` names the
+    points in the messages."""
+    from hpsdf_tpu_torch import accel as A
+
+    face32 = A.to_unit(pt, p32).abs() == 0.5
+    _, saved = A.packed_eval_kernel(pt, p32, A.NORMALS_SAVE)
+    _, saved_plain = A.normals_save_plain(pt, p32)
+    keys_plain = saved_plain[:, 0].contiguous().view(torch.int32)
+    check(torch.equal(saved[:, 0].contiguous().view(torch.int32),
+                      keys_plain), f"K5's saved keys vs locate_key_plain "
+          f"({where})")
+    *fused, keys = A.packed_eval_kernel(pt, p32, A.VALUES_AND_GRAD_SAVE,
+                                        n_grad=n_g)
+    check(all(map(torch.equal, fused, A.packed_eval_kernel(
+        pt, p32, A.VALUES_AND_GRAD, n_grad=n_g))), "K2's fused read moves "
+          f"when it saves the keys ({where})")
+    check(torch.equal(keys, keys_plain), f"the fused read's saved keys vs "
+          f"locate_key_plain ({where})")
+    bad_keys = wrong_key(keys)
+    bad_saved = saved.clone()
+    bad_saved[:, 0] = bad_keys.view(torch.float32)
+    hvp = {"packed_hvp": (
+        lambda sv: A.packed_hvp_kernel(pt, p32, A.NORMALS_VJP, cot3=wn32,
+                                       saved=sv), saved, bad_saved,
+        A.normals_points_vjp_plain(pt, p32, saved_plain, wn32),
+        packed_hvp_reference(pt, p32, A.NORMALS_VJP, None, wn32)),
+        "packed_hvp_values": (
+        lambda sv: A.packed_hvp_kernel(pt, p32, A.VALUES_GRAD_VJP, w32,
+                                       wn32[:n_g], sv), keys, bad_keys,
+        A.values_and_gradient_points_vjp_plain(pt, p32, keys_plain, w32,
+                                               wn32[:n_g]),
+        packed_hvp_reference(pt, p32, A.VALUES_GRAD_VJP, w32, wn32[:n_g]))}
+    out, replaced = {}, {}
+    for name, (k5h, sv, bad, want, ref) in hvp.items():
+        got = k5h(sv)
+        check(bool(torch.isfinite(got).all()), f"{name}: not finite")
+        err = rel_err(got, want)
+        check(err <= GRAD2_RTOL_HVP, f"{name} vs its plain version "
+              f"({where}): {err:.3e} > {GRAD2_RTOL_HVP:g}")
+        teeth = None
+        if with_teeth:
+            teeth = grad2_teeth(got, want, GRAD2_RTOL_HVP, face32,
+                                keyed=k5h(bad))
+            check(all(teeth), f"{name}: a wrong result passes the check "
+                  f"{teeth} ({where})")
+        out[name] = (err, float((got - want).abs().max()), teeth)
+        err = rel_err(got, ref)
+        check(err <= GRAD2_RTOL_HVP, f"{name} vs the kernel it replaced "
+              f"({where}): {err:.3e}")
+        replaced[name + "_replaced"] = (err, float((got - ref).abs().max()),
+                                        None)
+    return {**out, **replaced}
 
 
 # K1v and K1h from K1's leaf against the kernels they replaced: the
 # smallest of the four shapes they are timed at, and the graph's calls
 N_SMALL = 1 << 16
 PAIR_REPS = 10
+# rounds of four readings of path (c)'s profiled step with each K5h: the
+# two differ by a few microseconds in some 400, near the readings' spread
+STEP_ROUNDS = 2
 
 
 @contextlib.contextmanager
@@ -4124,34 +4291,24 @@ def path_steps(tree_s, tree_i, p_a, pts_b, n_t):
 
 
 def hits_times(carved, hits, seed):
-    """K5h (both modes) and K7's form 2 at path (c)'s own points, the
-    render's hits on the carved tree's packed tables, in CUDA graphs,
-    beside their bounds (as at 2^20 points)."""
+    """K7's form 2 at path (c)'s own points, the render's hits on the
+    carved tree's packed tables, in a CUDA graph, beside its bound (as at
+    2^20 points); K5h's are ``hvp_shape``'s."""
     from hpsdf_tpu_torch import accel as A
 
     pk = A.pack_tree(carved)
     p32 = hits.to(torch.float32).contiguous()
     B = p32.shape[0]
     rng = np.random.default_rng(seed)
-    w32 = torch.as_tensor(rng.standard_normal(B), dtype=torch.float32,
-                          device=p32.device)
     wn32 = torch.as_tensor(rng.standard_normal((B, 3)), dtype=torch.float32,
                            device=p32.device)
-    read = packed_read_bytes(pk, p32, True)
-    ops = B * k5h_ops(pk.deg_used) / F32_PEAK * 1e3
     _, saved = A.packed_eval_kernel(pk, p32, A.NORMALS_SAVE)
     out = {}
     for name, fn, by_bytes, by_ops in (
-            ("packed_hvp", lambda: A.packed_hvp_kernel(
-                pk, p32, A.NORMALS_VJP, cot3=wn32),
-             bytes_ms(p32, wn32, extra=12 * B + read), ops),
-            ("packed_hvp_values", lambda: A.packed_hvp_kernel(
-                pk, p32, A.VALUES_GRAD_VJP, w32, wn32),
-             bytes_ms(p32, w32, wn32, extra=12 * B + read), ops),
             ("packed_grad_form2", lambda: A.packed_grad_kernel(
                 pk, p32, wn32, 2, saved),
              k7f2_bytes(pk, p32, wn32, saved) / HBM_RATE * 1e3,
-             B * k7f2_saved_ops(pk.deg_used) / F32_PEAK * 1e3)):
+             B * k7f2_saved_ops(pk.deg_used) / F32_PEAK * 1e3),):
         ms = graph_ms(fn, 10)
         out[name] = {"ms": ms, "bound_ms": max(by_bytes, by_ops),
                      "bound_by": "bytes" if by_bytes >= by_ops
@@ -4204,28 +4361,118 @@ def form2_shape(pt, p32, seed):
                 torch.int32)).numel()}
 
 
+def hvp_shape(pt, p32, seed):
+    """K5h (both modes) at the points p32 (B, 3) f32 on the packed tables
+    pt, in turns in CUDA graphs with the kernel it replaced
+    (``packed_hvp_reference``): alone (from what the saving forwards
+    wrote), and each pair, the saving forward and K5h (NORMALS_SAVE or
+    VALUES_AND_GRAD_SAVE, then K5h) against the pair it replaced (NORMALS
+    or VALUES_AND_GRAD, then the replaced kernel), with each forward alone
+    both ways; beside its bound (``k5h_bytes``, ``k5h_saved_ops``), the
+    bound with the saved record's other bytes (``k5h_saved_extra``) and the
+    replaced kernel's (the points, cotangents and rows a locate reads,
+    ``k5h_ops``). Below 2^20 points each graph holds ten times PAIR_REPS
+    calls, so that a reading of these few-microsecond calls spans a few
+    tenths of a millisecond. Returns {"normals": {...}, "values": {...},
+    "points", "degree", "rows_read", "staged_warps": (the warps that stage
+    their rows, the warps; ``hvp_staged_warps``), "reps", "faster": whether
+    K5h beats the replaced kernel in both modes, "pairs_no_slower": whether
+    its pair with the saving forward is no slower than the replaced pair in
+    both}."""
+    from hpsdf_tpu_torch import accel as A
+
+    B, deg = p32.shape[0], pt.deg_used
+    rng = np.random.default_rng(seed)
+    w = torch.as_tensor(rng.standard_normal(B), dtype=torch.float32,
+                        device=p32.device)
+    wn = torch.as_tensor(rng.standard_normal((B, 3)), dtype=torch.float32,
+                         device=p32.device)
+    _, saved = A.packed_eval_kernel(pt, p32, A.NORMALS_SAVE)
+    keys = A.packed_eval_kernel(pt, p32, A.VALUES_AND_GRAD_SAVE,
+                                n_grad=B)[2]
+    modes = {
+        "normals": (
+            lambda sv: A.packed_hvp_kernel(pt, p32, A.NORMALS_VJP, cot3=wn,
+                                           saved=sv),
+            lambda: packed_hvp_reference(pt, p32, A.NORMALS_VJP, None, wn),
+            lambda: A.packed_eval_kernel(pt, p32, A.NORMALS_SAVE)[1],
+            lambda: A.packed_eval_kernel(pt, p32, A.NORMALS), saved,
+            k5h_bytes(pt, p32, saved, wn), bytes_ms(p32, wn),
+            k5h_saved_ops(deg, False)),
+        "values": (
+            lambda sv: A.packed_hvp_kernel(pt, p32, A.VALUES_GRAD_VJP, w, wn,
+                                           sv),
+            lambda: packed_hvp_reference(pt, p32, A.VALUES_GRAD_VJP, w, wn),
+            lambda: A.packed_eval_kernel(pt, p32, A.VALUES_AND_GRAD_SAVE,
+                                         n_grad=B)[2],
+            lambda: A.packed_eval_kernel(pt, p32, A.VALUES_AND_GRAD,
+                                         n_grad=B), keys,
+            k5h_bytes(pt, p32, keys, w, wn), bytes_ms(p32, w, wn),
+            k5h_saved_ops(deg, True))}
+    calls = {}
+    for m, (k5h, ref, fwd_save, fwd, sv, *_) in modes.items():
+        calls.update({
+            f"{m}_ms": lambda k5h=k5h, sv=sv: k5h(sv),
+            f"{m}_replaced_ms": ref,
+            f"{m}_pair_ms": lambda k5h=k5h, fwd_save=fwd_save: k5h(
+                fwd_save()),
+            f"{m}_replaced_pair_ms": lambda ref=ref, fwd=fwd: (fwd(), ref()),
+            f"{m}_forward_save_ms": fwd_save, f"{m}_forward_ms": fwd})
+    reps = PAIR_REPS * (1 if B >= N_QUERY else 10)
+    t = turns(calls, reps)
+    read = packed_read_bytes(pt, p32, True)
+    out = {"points": B, "degree": deg, "reps": reps,
+           "rows_read": torch.unique(keys).numel(),
+           "staged_warps": hvp_staged_warps(keys)}
+    for m, (*_, sv, k5h_b, cot_b, ops) in modes.items():
+        by_bytes, by_ops = k5h_b / HBM_RATE * 1e3, B * ops / F32_PEAK * 1e3
+        rep_bytes = cot_b + (12 * B + read) / HBM_RATE * 1e3
+        rep_ops = B * k5h_ops(deg) / F32_PEAK * 1e3
+        extra = k5h_saved_extra(sv)
+        out[m] = {**{k[len(m) + 1:]: v for k, v in t.items()
+                     if k.startswith(m + "_")},
+                  "bound_ms": max(by_bytes, by_ops),
+                  "bound_by": "bytes" if by_bytes >= by_ops
+                  else "operations",
+                  "bytes_bound_ms": by_bytes, "ops_bound_ms": by_ops,
+                  "saved_extra_bytes": extra,
+                  "with_saved_bound_ms": max(
+                      (k5h_b + extra) / HBM_RATE * 1e3, by_ops),
+                  "replaced_bound_ms": max(rep_bytes, rep_ops)}
+    out["faster"] = all(out[m]["ms"] < out[m]["replaced_ms"] for m in modes)
+    out["pairs_no_slower"] = all(
+        out[m]["pair_ms"] <= out[m]["replaced_pair_ms"] for m in modes)
+    return out
+
+
 @contextlib.contextmanager
 def replaced_normals():
     """``normals`` with the pair K7's form 2 replaced: K5's normals
-    forward saving nothing, then the replaced form 2
-    (``packed_grad_form2_reference``); K5h as shipped."""
+    forward saving only for K5h, where the points need a gradient, then
+    the replaced form 2 (``packed_grad_form2_reference``); K5h as
+    shipped."""
     import unittest.mock
 
     from hpsdf_tpu_torch import accel as A
 
     def forward(ctx, rows, grid, pts, pt):
         ctx.pt = pt
-        ctx.save_for_backward(pts)
-        return A.packed_eval_kernel(pt, pts, A.NORMALS)
+        if not ctx.needs_input_grad[2]:
+            ctx.save_for_backward(pts)
+            return A.packed_eval_kernel(pt, pts, A.NORMALS)
+        n, saved = A.packed_eval_kernel(pt, pts, A.NORMALS_SAVE)
+        ctx.save_for_backward(pts, saved)
+        return n
 
     def backward(ctx, wn):
-        (pts,) = ctx.saved_tensors
+        pts, *saved = ctx.saved_tensors
         wn = wn.contiguous()
         d_rows = d_grid = d_pts = None
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
             d_rows, d_grid = packed_grad_form2_reference(ctx.pt, pts, wn)
         if ctx.needs_input_grad[2]:
-            d_pts = A.packed_hvp_kernel(ctx.pt, pts, A.NORMALS_VJP, cot3=wn)
+            d_pts = A.packed_hvp_kernel(ctx.pt, pts, A.NORMALS_VJP, cot3=wn,
+                                        saved=saved[0])
         return d_rows, d_grid, d_pts, None
 
     with unittest.mock.patch.object(A._Normals, "forward",
@@ -4235,17 +4482,77 @@ def replaced_normals():
         yield
 
 
+@contextlib.contextmanager
+def replaced_hvp():
+    """``normals`` and ``values_and_gradient_at`` with the kernel K5h's
+    redesign replaced: their forwards saving nothing for K5h (K5's normals
+    saving only where the tables need a gradient, for K7's form 2; the
+    fused read no keys), then the K5h it replaced
+    (``packed_hvp_reference``), which locates each row again; K7 as
+    shipped."""
+    import unittest.mock
+
+    from hpsdf_tpu_torch import accel as A
+
+    def n_forward(ctx, rows, grid, pts, pt):
+        ctx.pt = pt
+        if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1]):
+            ctx.save_for_backward(pts)
+            return A.packed_eval_kernel(pt, pts, A.NORMALS)
+        n, saved = A.packed_eval_kernel(pt, pts, A.NORMALS_SAVE)
+        ctx.save_for_backward(pts, saved)
+        return n
+
+    def n_backward(ctx, wn):
+        pts, *saved = ctx.saved_tensors
+        wn = wn.contiguous()
+        d_rows = d_grid = d_pts = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            d_rows, d_grid = A.packed_grad_kernel(ctx.pt, pts, wn, 2, *saved)
+        if ctx.needs_input_grad[2]:
+            d_pts = packed_hvp_reference(ctx.pt, pts, A.NORMALS_VJP, None, wn)
+        return d_rows, d_grid, d_pts, None
+
+    def v_forward(ctx, rows, grid, pts, pt, n_grad):
+        ctx.save_for_backward(pts)
+        ctx.pt, ctx.n_grad = pt, n_grad
+        return A.packed_eval_kernel(pt, pts, A.VALUES_AND_GRAD, n_grad=n_grad)
+
+    def v_backward(ctx, w, u):
+        (pts,) = ctx.saved_tensors
+        pt, w, u = ctx.pt, w.contiguous(), u.contiguous()
+        d_rows = d_grid = d_pts = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            d_rows, d_grid = A.packed_grad_kernel(pt, pts, w, 0)
+            if ctx.n_grad:
+                g_rows, g_grid = A.packed_grad_kernel(pt, pts[:ctx.n_grad],
+                                                      u, 1)
+                d_rows, d_grid = d_rows + g_rows, d_grid + g_grid
+        if ctx.needs_input_grad[2]:
+            d_pts = packed_hvp_reference(pt, pts, A.VALUES_GRAD_VJP, w, u)
+        return d_rows, d_grid, d_pts, None, None
+
+    patch = unittest.mock.patch.object
+    with patch(A._Normals, "forward", staticmethod(n_forward)), \
+            patch(A._Normals, "backward", staticmethod(n_backward)), \
+            patch(A._ValuesAndGradient, "forward", staticmethod(v_forward)), \
+            patch(A._ValuesAndGradient, "backward", staticmethod(v_backward)):
+        yield
+
+
 def redesign_steps(steps):
     """The device time (torch.profiler) of one step of each path in
     ``steps`` ({path: (step, the context that swaps the replaced kernel
-    in, the kernel names kept)}), with the shipped kernel and with the one
-    it replaced, in turns (replaced, shipped, shipped, replaced): {path:
-    (the replaced kernel's mean, the shipped one's, the four readings, the
-    kernels kept (name, ms, calls))}."""
+    in, the kernel names kept[, rounds])}), with the shipped kernel and
+    with the one it replaced, in turns (replaced, shipped, shipped,
+    replaced; ``rounds`` times over, 1 if not given): {path: (the replaced
+    kernel's mean, the shipped one's, the readings, the kernels kept
+    (name, ms, calls) in the last round)}."""
     out = {}
-    for name, (step, swap, keep) in steps.items():
+    for name, (step, swap, keep, *rounds) in steps.items():
         r, kept = [], {}
-        for label in ("replaced", "shipped", "shipped", "replaced"):
+        for label in ("replaced", "shipped", "shipped", "replaced") * (
+                rounds[0] if rounds else 1):
             with (swap() if label == "replaced"
                   else contextlib.nullcontext()):
                 step()
@@ -4254,11 +4561,13 @@ def redesign_steps(steps):
                   "the trace")
             r.append(ms)
             kept[label] = k
-        out[name] = ((r[0] + r[3]) / 2, (r[1] + r[2]) / 2, r, kept)
+        out[name] = (float(np.mean(r[0::4] + r[3::4])),
+                     float(np.mean(r[1::4] + r[2::4])), r, kept)
     return out
 
 
-def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
+def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, pt_r,
+                seed=12):
     """The reads' derivatives on the card: K1v and K1h (query.cu's
     backward modes, from K1's leaf), K8g (coeff_scatter.cu), K5h
     (packed_eval.cu, both modes) and K7's form 2 (packed_grad.cu) against
@@ -4266,15 +4575,23 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
     the root's faces, some outside) and at every degree 0..12 on
     synthetic_tree, with two wrong results each shown to fail
     (grad2_teeth; K1v and K1h also a wrong leaf), K1v and K1h bit for bit
-    the kernels they replaced; each timed in a CUDA graph beside its plain
+    the kernels they replaced; K5h also on its other branch, where a
+    warp reads its rows itself (hvp_checks at path (c)'s hits and at
+    degrees 3 and 5 with the points in key order, each branch's warps
+    counted, hvp_staged_warps); each timed in a CUDA graph beside its plain
     version and its bound, with the operations a call puts on the card
     (K1 with the leaf too); K8g also with a third of each cotangent zero,
     and K8's trace form on rays that hit the root's faces
     (trace_face_check). K1v and K1h against the kernels they replaced:
     the split (leaf_split), four shapes (leaf_shape), a profiled step of
     paths (a) and (b) with each pair (path_steps), blocks an SM and
-    registers (vjp_blocks, ``ptxas``); K5h and K7's form 2 at path (c)'s
-    hits (hits_times). Then the three paths, the launch counts set to
+    registers (vjp_blocks, ``ptxas``); K7's form 2 at path (c)'s hits
+    (hits_times); K5h from its forwards' saved values in turns with the
+    kernel it replaced at 2^20 uniform points, path (c)'s hits, 2^16 and
+    2^20 points in the reference-default tree ``pt_r``'s root (degree 5),
+    alone and as the pair with its forward (hvp_shape), blocks an SM and
+    registers, and a profiled step of path (c) with each K7 form 2 and
+    each K5h (redesign_steps). Then the three paths, the launch counts set to
     0 just before and read just after: (a) PROJ_STEPS projection steps of
     2^20 points in the root (projection_step), (b) FIT_STEPS Adam steps of
     the oriented-point fit of the inverse setup's initial tree (the r =
@@ -4308,20 +4625,64 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
     cfg = T.Config(continuity=False, root_min=SYNTH_ROOT[0],
                    root_max=SYNTH_ROOT[1])
     from hpsdf_tpu_torch import tree as TT
+
+    def saved_keys(pt, p32):
+        return A.packed_eval_kernel(pt, p32, A.NORMALS_SAVE)[1][:, 0] \
+            .contiguous().view(torch.int32)
+
+    direct = {"(c) hits": (T.pack_tree(carved),
+                           hits.to(torch.float32).contiguous())}
     for deg in range(13):
         tree = TT.pack(*synthetic_tree(deg, seed + deg), cfg, device=dev)
         pts = torch.as_tensor(root_points(SYNTH_ROOT[0], SYNTH_ROOT[1],
                                           N_SYNTH, seed + deg, pad=0.1),
                               device=dev)
-        out["degrees"][deg] = grad2_checks(
-            tree, T.pack_tree(tree, grid_depth=1), pts, seed + deg,
-            with_teeth=True)
-    errs = {k: max(max(c[k][0] for c in out["degrees"].values()),
-                   out["checks"]["2^20 slice"][k][0])
+        pk = T.pack_tree(tree, grid_depth=1)
+        out["degrees"][deg] = grad2_checks(tree, pk, pts, seed + deg,
+                                           with_teeth=True)
+        if deg in (3, 5):
+            p32 = pts.to(torch.float32)
+            order = torch.argsort(saved_keys(pk, p32), stable=True)
+            direct[f"degree {deg} in key order"] = (pk, p32[order])
+    # K5h point by point where its warps read their rows themselves (at
+    # most HVP_STAGE_MIN runs of keys a warp): path (c)'s hits, in raster
+    # order, and degrees 3 and 5 with the points in key order; most warps
+    # at the 2^20 points above stage them
+    staged = {"2^20 slice": hvp_staged_warps(saved_keys(
+        pt_s, p64.to(torch.float32)))}
+    check(staged["2^20 slice"][0] > 0, "no warp of K5h stages its rows at "
+          "2^20 slice points: the staged branch unchecked")
+    out["direct"] = {}
+    rng = np.random.default_rng(seed + 70)
+    for name, (pk, p32) in direct.items():
+        B = p32.shape[0]
+        w32, wn32 = (torch.as_tensor(rng.standard_normal(shape),
+                                     dtype=torch.float32, device=dev)
+                     for shape in ((B,), (B, 3)))
+        out["direct"][name] = hvp_checks(pk, p32, w32, wn32, B // 2, name,
+                                         with_teeth=True)
+        staged[name] = hvp_staged_warps(saved_keys(pk, p32))
+        check(staged[name][0] < staged[name][1], f"every warp of K5h stages "
+              f"its rows at {name}: the direct branch unchecked")
+    every = [out["checks"]["2^20 slice"], *out["degrees"].values(),
+             *out["direct"].values()]
+    errs = {k: max(c[k][0] for c in every if k in c)
             for k in out["checks"]["2^20 slice"]}
-    abs_errs = {k: max(max(c[k][1] for c in out["degrees"].values()),
-                       out["checks"]["2^20 slice"][k][1])
+    abs_errs = {k: max(c[k][1] for c in every if k in c)
                 for k in out["checks"]["2^20 slice"]}
+    out["staged_warps"] = staged
+    print(f"[grad2] K5h point by point on each branch, warps staging their "
+          f"rows of the launch's warps: " + ", ".join(
+              f"{k} {v[0]} of {v[1]}" for k, v in staged.items())
+          + " | where its warps read their rows themselves, max|kernel - "
+          "plain| / max|plain| (and against the kernel it replaced): "
+          + ", ".join(f"{k}: normals {c['packed_hvp'][0]:.3e} "
+                      f"({c['packed_hvp_replaced'][0]:.3e}), values "
+                      f"{c['packed_hvp_values'][0]:.3e} "
+                      f"({c['packed_hvp_values_replaced'][0]:.3e})"
+                      for k, c in out["direct"].items())
+          + " | a moved entry, the face rule undone and a wrong key caught "
+          "at each", flush=True)
     print(f"[grad2] the six backward kernels against their plain versions "
           f"at 2^20 points on the slice tree (a sixteenth on the root's "
           f"faces, some outside) and at degrees 0-12, max|kernel - plain| / "
@@ -4351,8 +4712,9 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
     live = torch.ones(B, dtype=torch.bool, device=dev)
     k8g_bytes = coeff_scatter_bytes(tree_s, unit.clamp(-0.5, 0.5), live,
                                     56, 0, True)
-    packed_bytes = packed_read_bytes(pt_s, p32, True)
     _, saved_s = A.packed_eval_kernel(pt_s, p32, A.NORMALS_SAVE)
+    keys_s = A.packed_eval_kernel(pt_s, p32, A.VALUES_AND_GRAD_SAVE,
+                                  n_grad=B)[2]
     shapes = {
         "query_vjp": (
             lambda: query_vjp_kernel(tree_s, p64, leaf, w),
@@ -4381,16 +4743,21 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
             K8G_OPS),
         "packed_hvp": (
             lambda: A.packed_hvp_kernel(pt_s, p32, A.NORMALS_VJP,
-                                        cot3=wn32),
-            lambda: A.normals_vjp_plain(pt_s, p32, wn32),
-            bytes_ms(p32, wn32, extra=12 * B + packed_bytes),
-            B * k5h_ops(deg) / F32_PEAK * 1e3, K5H_OPS),
+                                        cot3=wn32, saved=saved_s),
+            lambda: A.normals_points_vjp_plain(pt_s, p32, saved_s, wn32),
+            k5h_bytes(pt_s, p32, saved_s, wn32) / HBM_RATE * 1e3,
+            B * k5h_saved_ops(deg, False) / F32_PEAK * 1e3, K5H_OPS,
+            lambda: packed_hvp_reference(pt_s, p32, A.NORMALS_VJP, None,
+                                         wn32)),
         "packed_hvp_values": (
             lambda: A.packed_hvp_kernel(pt_s, p32, A.VALUES_GRAD_VJP, w32,
-                                        wn32),
-            lambda: A.values_and_gradient_vjp_plain(pt_s, p32, w32, wn32),
-            bytes_ms(p32, w32, wn32, extra=12 * B + packed_bytes),
-            B * k5h_ops(deg) / F32_PEAK * 1e3, K5H_OPS),
+                                        wn32, keys_s),
+            lambda: A.values_and_gradient_points_vjp_plain(pt_s, p32, keys_s,
+                                                           w32, wn32),
+            k5h_bytes(pt_s, p32, keys_s, w32, wn32) / HBM_RATE * 1e3,
+            B * k5h_saved_ops(deg, True) / F32_PEAK * 1e3, K5H_OPS,
+            lambda: packed_hvp_reference(pt_s, p32, A.VALUES_GRAD_VJP, w32,
+                                         wn32)),
         "packed_grad_form2": (
             lambda: A.packed_grad_kernel(pt_s, p32, wn32, 2, saved_s),
             lambda: A.normals_tables_vjp_plain(pt_s, p32, saved_s, wn32),
@@ -4514,6 +4881,50 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
               f"{k} {v['blocks']} ({v['replaced_blocks']}), {v['registers']} "
               f"({v['replaced_registers']})" for k, v in leafd["blocks"].items()),
           flush=True)
+    # K5h from its forwards' saved values against the kernel it replaced,
+    # alone and as the pair with its forward
+    lo_r = np.asarray(pt_r.root_centre) - 0.5 * np.asarray(pt_r.root_sizes)
+    hi_r = np.asarray(pt_r.root_centre) + 0.5 * np.asarray(pt_r.root_sizes)
+    hvpd = {}
+    for k, (name, (pt_, p_)) in enumerate({
+            "2^20 uniform": (pt_s, p32),
+            "(c) hits": (pk_c, hits.to(torch.float32).contiguous()),
+            "2^16 uniform": (pt_s, p32[:N_SMALL]),
+            "refdefault 2^20": (pt_r, torch.as_tensor(root_points(
+                lo_r, hi_r, N_QUERY, seed + 7, pad=0.05), dtype=torch.float32,
+                device=dev))}.items()):
+        r = hvpd[name] = hvp_shape(pt_, p_, seed + 600 + k)
+        print(f"[grad2] K5h at {name} ({r['points']} points, degree "
+              f"{r['degree']}, {r['rows_read']} rows read, "
+              f"{r['staged_warps'][0]} of {r['staged_warps'][1]} warps "
+              f"staging their rows) | {smi} | "
+              + " | ".join(
+                  f"{m} {x['ms']:.4f} ms (the kernel it replaced, in turns, "
+                  f"{x['replaced_ms']:.4f}), bound {x['bound_ms']:.5f} "
+                  f"({x['bound_by']}; {x['bound_ms'] / x['ms']:.1%}; with "
+                  f"the saved record's other {x['saved_extra_bytes']} B "
+                  f"{x['with_saved_bound_ms']:.5f}; the "
+                  f"replaced kernel's {x['replaced_bound_ms']:.5f}, "
+                  f"{x['replaced_bound_ms'] / x['replaced_ms']:.1%}), pair "
+                  f"with its forward {x['pair_ms']:.4f} (replaced pair "
+                  f"{x['replaced_pair_ms']:.4f}); forward saving "
+                  f"{x['forward_save_ms']:.4f}, not saving "
+                  f"{x['forward_ms']:.4f}"
+                  for m, x in ((m, r[m]) for m in ("normals", "values")))
+              + f" | K5h faster in both modes: {r['faster']}, the pairs no "
+              f"slower: {r['pairs_no_slower']}", flush=True)
+    hvpd["blocks"] = {f"{d}/{m}": {
+        "blocks": hvp_blocks(d, i),
+        "registers": ptxas.get("packed_hvp_kernel", {}).get(
+            f"{d}/{m}", [None])[0],
+        "replaced_registers": ptxas.get(
+            "packed_hvp_reference_kernel", {}).get(f"{d}/{m}", [None])[0]}
+        for d in (3, 5) for i, m in enumerate(("normals", "values"))}
+    print(f"[grad2] K5h blocks of 128 threads an SM and registers (the "
+          f"replaced kernel's registers) | {smi} | " + ", ".join(
+              f"{k} {v['blocks']}, {v['registers']} "
+              f"({v['replaced_registers']})"
+              for k, v in hvpd["blocks"].items()), flush=True)
     leafd["hits"] = hits_times(carved, hits, seed + 300)
     print(f"[grad2] at path (c)'s {hits.shape[0]} hits | {smi} | " + ", ".join(
         f"{k} {v['ms']:.4f} ms, bound {v['bound_ms']:.5f} ({v['bound_by']}; "
@@ -4532,9 +4943,12 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
 
     redesigned = redesign_steps({
         "(c)": (step_c, replaced_normals, ("normals_grad", "form2_reference",
-                                           "packed_eval"))})
+                                           "packed_eval")),
+        "(c) K5h": (step_c, replaced_hvp, ("packed_hvp", "packed_eval"),
+                    STEP_ROUNDS)})
     print(f"[grad2] device time of a profiled step (ms; with the replaced "
-          f"K7 form 2, with the shipped one) | {smi} | " + ", ".join(
+          f"kernel, with the shipped one; (c) K7's form 2, (c) K5h K5h and "
+          f"its forwards' saving) | {smi} | " + ", ".join(
               f"{k} {v[0]:.3f} / {v[1]:.3f} (readings {v[2]})"
               for k, v in redesigned.items()), flush=True)
 
@@ -4641,6 +5055,10 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
           f"K5 saved {launches['packed_eval_save']} times for "
           f"{launches['packed_grad_form2']} launches of K7's form 2 on "
           "[grad2]'s paths")
+    check(launches["packed_eval_save"] + launches["packed_eval_keys"]
+          == launches["packed_hvp"], f"K5 saved {launches['packed_eval_save']}"
+          f" records and the fused read {launches['packed_eval_keys']} keys "
+          f"for {launches['packed_hvp']} launches of K5h on [grad2]'s paths")
     print(f"[grad2] (d) the oriented-point fit on the centres too, "
           f"{FIT_STEPS} Adam steps on the r = 0.27 tree's coefficients, "
           f"centres and the samples' shift: loss {cfit['loss']}, "
@@ -4700,7 +5118,9 @@ def phase_grad2(tree_s, tree_i, mesh, carved, hits, smi, ptxas, seed=12):
                       "projection": proj, "oriented_fit": fit,
                       "normal_map": nmap, "centre_fit": cfit,
                       "leaf": leafd, "centre": centred, "form2": formed,
-                      "redesign_steps": redesigned,
+                      "hvp": hvpd, "redesign_steps": redesigned,
+                      "hvp_branches": {"staged_warps": out["staged_warps"],
+                                       "direct_checks": out["direct"]},
                       "teeth": {k: v[2] for k, v in
                                 out["checks"]["2^20 slice"].items()}}
 
@@ -5050,30 +5470,49 @@ def row_scatter_reference(d_out, idx, n):
     return out
 
 
-def device_ops(fn, tries=4):
+# the traces device_ops discarded, each (the call's name, the host's
+# runtime calls that put work on the card in that trace), printed at the end
+EMPTY_TRACES = []
+RUNTIME_LAUNCHES = ("Launch", "Memset", "Memcpy")
+
+
+def device_ops(fn, tries=4, most=12):
     """The operations (kernels, memsets, copies) one call of fn() puts on
     the card, counted by torch.profiler: the trace's device activities,
     its user-annotation spans (a record_function's range drawn on the
     device's timeline, no operation) left out. The call is traced until two
-    traces that hold an operation agree (a trace can lose a record), up to
-    ``tries`` times, and the check fails if no two agree; 0 if no trace
-    holds one."""
+    traces that hold an operation agree, up to ``tries`` such traces, and
+    the check fails if no two agree. A trace with no record on the device
+    at all (the profiler can lose a trace's records whole, [k6 ops]) is
+    discarded and taken again, up to ``most`` traces in all, and listed in
+    EMPTY_TRACES with the host's runtime calls that put work on the card in
+    it; 0 if no trace holds one."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
     fn()
     sync()
     counts = []
-    for _ in range(tries):
+    for _ in range(most):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             sync()
-        n = sum(1 for e in prof.events() if e.device_type == cuda
-                and not getattr(e, "is_user_annotation", False))
+        events = prof.events()
+        on_card = [e for e in events if e.device_type == cuda]
+        if not on_card:
+            EMPTY_TRACES.append((getattr(fn, "__qualname__", "?"), sum(
+                1 for e in events if e.device_type != cuda
+                and e.name.startswith("cu")
+                and any(x in e.name for x in RUNTIME_LAUNCHES))))
+            continue
+        n = sum(1 for e in on_card
+                if not getattr(e, "is_user_annotation", False))
         if n and n in counts:
             return n
         counts.append(n)
+        if len(counts) == tries:
+            break
     check(not any(counts), f"no two traces of a call agree on its "
           f"operations on the card: {counts}")
     return 0
@@ -8346,7 +8785,8 @@ PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
 # the check library's kernels the ptxas check reads (csrc/check/)
 CHECK_PTXAS_KERNELS = ("inverse_terms_reference_kernel",
                        "query_vjp_reference_kernel",
-                       "packed_grad_form2_reference_kernel")
+                       "packed_grad_form2_reference_kernel",
+                       "packed_hvp_reference_kernel")
 
 
 def _ptxas_key(kernel, args):
@@ -8369,11 +8809,12 @@ def _ptxas_key(kernel, args):
     if kernel in ("query_vjp_kernel", "query_vjp_reference_kernel"):
         return f"{args[0]}/{'hess' if args[1] == 2 else 'vjp'}" \
             + ("/centre" if args[2:3] == [1] else "")
-    if kernel == "packed_hvp_kernel":
+    if kernel in ("packed_hvp_kernel", "packed_hvp_reference_kernel"):
         return f"{args[0]}/{('normals', 'values')[args[1]]}"
     if kernel == "packed_eval_kernel":
         return f"{args[0]}/" \
-            + ('values', 'normals', 'raw', 'fused', 'save')[args[1]]
+            + ('values', 'normals', 'raw', 'fused', 'save',
+               'keys')[args[1]]
     if kernel in ("packed_grad_kernel", "packed_grad_form2_reference_kernel"):
         return f"{args[0]}/form{args[1]}"
     if kernel == "cone_kernel":
@@ -8388,10 +8829,12 @@ def ptxas_check():
     ptxas reported them when the library was built. K1 (values, and with
     the gradient) with and without the leaf it writes for K1v and K1h, K3,
     K4, K5's raw gradient (alone and fused with K2) and its normals mode
-    that saves for K7's form 2, K7 (its three forms), K8, K8g, K1v and K1h
+    that saves for K7's form 2 and K5h, K2's fused mode that saves the
+    keys for K5h, K7 (its three forms), K8, K8g, K1v and K1h
     (from the leaf), K1c (but its ORDER 2 at degree 5, whose spills are
-    read and printed) and K5h (both modes) at degrees 3 and 5 (the main
-    paths'), both forms of G's backward, K9 (on the face
+    read and printed) and K5h (both modes, from the saved values) at
+    degrees 3 and 5 (the main paths'), both forms of G's backward, K9 (on
+    the face
     operator and in its CSR form), K9u, both forms of the persistent
     launch, both forms
     of each of the row-sharded CG's two K9u launches, both of K10 and K11,
@@ -8401,8 +8844,8 @@ def ptxas_check():
     and both of K6's launches at every degree 2..11 in f64 and f32 must
     have no stack frame and no spills; so must the check library's K13
     terms as they were before their redesign, the reference the redesigned
-    kernels are held and timed against; the check library's K1v, K1h and
-    K7's form 2 as they were are read, for their registers. Returns
+    kernels are held and timed against; the check library's K1v, K1h, K7's
+    form 2 and K5h as they were are read, for their registers. Returns
     {kernel: {key: [registers, stack, spill stores, spill loads]}}."""
     from hpsdf_tpu_torch import _kernels
 
@@ -8442,6 +8885,8 @@ def ptxas_check():
             ("K7 form 2", "normals_grad_kernel", ("3", "5")),
             ("K5 normals saving", "packed_eval_kernel", ("3/save",
                                                           "5/save")),
+            ("K2 fused keys saving", "packed_eval_kernel", ("3/keys",
+                                                            "5/keys")),
             ("K1h", "query_vjp_kernel", ("3/hess", "5/hess")),
             ("K8g", "coeff_scatter_grad_kernel", ("3", "5")),
             ("K5h", "packed_hvp_kernel", ("3/normals", "3/values",
@@ -8481,8 +8926,9 @@ def ptxas_check():
     # the kernel K7's form 2 replaced
     check("5/hess/centre" in found.get("query_vjp_kernel", {}),
           "ptxas report for K1c 5/hess/centre")
-    check(bool(found.get("packed_grad_form2_reference_kernel")),
-          "ptxas report for packed_grad_form2_reference_kernel")
+    for kernel in ("packed_grad_form2_reference_kernel",
+                   "packed_hvp_reference_kernel"):
+        check(bool(found.get(kernel)), f"ptxas report for {kernel}")
     print(f"[ptxas] registers / stack / spill stores / spill loads (bytes): "
           + " | ".join(f"{k} {found.get(k, {})}"
                        for k in PTXAS_KERNELS + CHECK_PTXAS_KERNELS),
@@ -8626,7 +9072,7 @@ def main():
                            (INV_SIZE, (INV_SMALL, INV_SMALL)))
     tgrad = phase("grad", phase_grad, pt_s, tree, s_inv, smi)
     launches_g2, tg2 = phase("grad2", phase_grad2, tree, s_inv["init"], mesh,
-                             carved, ph, smi, ptxas)
+                             carved, ph, smi, ptxas, pt_r)
     tk13 = phase("k13", check_k13, s_inv, smi)
     phase("k14 ops", phase_k14_ops, bvh.tri_rows, table, fit_pts, tk14)
     tk6.update(phase("k6 ops", phase_k6_ops, k6_calls))
@@ -9005,9 +9451,19 @@ def main():
            **({"values_mode": tg2["times"]["packed_hvp_values"]}
               if name == "packed_hvp" else {}),
            **({"at_path_c_hits": tg2["leaf"]["hits"][name]}
-              if name in ("packed_hvp", "packed_grad_form2") else {}),
-           **({"values_mode_at_path_c_hits":
-               tg2["leaf"]["hits"]["packed_hvp_values"]}
+              if name == "packed_grad_form2" else {}),
+           **({"at_path_c_hits": tg2["hvp"]["(c) hits"]["normals"],
+               "values_mode_at_path_c_hits":
+               tg2["hvp"]["(c) hits"]["values"],
+               "shapes": tg2["hvp"],
+               "branches": tg2["hvp_branches"],
+               "path_c_step": tg2["redesign_steps"]["(c) K5h"][:3],
+               "from_saved": True,
+               "key_launches": launches_g2["packed_eval_keys"],
+               "reference": {
+                   "source": "hpsdf_tpu_torch/csrc/check/"
+                             "packed_hvp_reference.cu",
+                   "entry": "hpsdf_packed_hvp_reference"}}
               if name == "packed_hvp" else {}),
            **({"from_leaf": True, "bit_for_bit_replaced": True,
                "leaf_launches": launches_g2["query_leaf"],
@@ -9024,7 +9480,7 @@ def main():
                           if k.endswith(sub)}}
               if key is not None else {}),
            **({"replaced_kernel_ms": tg2["times"][name]["replaced_kernel_ms"]}
-              if name == "packed_grad_form2" else {}),
+              if name in ("packed_hvp", "packed_grad_form2") else {}),
            **({"hess": tg2["times"]["query_centre_vjp_hess"],
                "shapes": tg2["centre"],
                "path_d": tg2["centre_fit"]}
@@ -9071,6 +9527,9 @@ def main():
           f"{ti['formula_step_s']:.4f} s), depth RMSE {ti['rmse_before']:.6f} "
           f"-> {ti['rmse_after']:.6f} | launches {total}", flush=True)
     print(f"[seconds] {PHASE_SECONDS}", flush=True)
+    print(f"[profiler] traces with no record on the device, discarded by "
+          f"device_ops (the call, the host's runtime calls that put work on "
+          f"the card in it): {EMPTY_TRACES}", flush=True)
     cont = {label: {k: v for k, v in c.items()
                     if k not in ("errs", "abs_errs")}
             for label, c in (("fit_continuity", tca), ("row_260k", tcb))}

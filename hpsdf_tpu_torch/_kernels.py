@@ -68,10 +68,12 @@ _SIGNATURES = {
                           _F32, _P, _P, _P, _P, _P),
     "hpsdf_packed_eval": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
                           _F32, _F32, _F32, _F32, _F32, _F32,
-                          _F32, _F32, _F32, _I32, _I32, _P, _P, _I64, _P),
-    "hpsdf_packed_hvp": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
+                          _F32, _F32, _F32, _I32, _I32, _P, _P, _I64, _P,
+                          _P),
+    "hpsdf_packed_hvp": (_P, _P, _I32, _I32, _I32, _P, _I64,
                          _F32, _F32, _F32, _F32, _F32, _F32,
-                         _F32, _F32, _F32, _I32, _P, _P, _I64, _P, _P),
+                         _F32, _F32, _F32, _I32, _P, _P, _I64, _P, _P, _P),
+    "hpsdf_packed_hvp_blocks": (_I32, _I32, _P),
     "hpsdf_march": (_P, _P, _I32, _I32, _P, _P, _I32, _I32, _I32, _P, _I64,
                     _P, _I64, _P, _F32, _F32, _I32, _F32, _I32, _F32, _I32,
                     _P, _P, _P, _P, _P, _I32, _P),
@@ -151,6 +153,9 @@ _CHECK_SIGNATURES = {
                                   _F64, _F64, _F64, _F64, _F64, _F64, _I32,
                                   _P, _P, _P, _P),
     "hpsdf_query_vjp_reference_blocks": (_I32, _I32, _P),
+    "hpsdf_packed_hvp_reference": (_P, _P, _I32, _I32, _I32, _I32, _P, _I64,
+                                   *(_F32,) * 9, _I32, _P, _P, _I64, _P,
+                                   _P),
     "hpsdf_packed_grad_form2_reference": (
         _P, _P, _I32, _I32, _I32, _I32, _I32, _P, _I64, *(_F32,) * 9, _P,
         _P, _I64, _P, _P, _P),

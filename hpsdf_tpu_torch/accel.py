@@ -26,12 +26,14 @@ Three kernels serve this layout on CUDA tensors:
     multiple of 4, as ``_row_width`` makes it).
   * K5, the same source with the gradient: unit normals for ``normals``
     (with each point's row key and unnormalised gradient saved for K7's
-    form 2 where the tables need a gradient, NORMALS_SAVE), or the raw
-    world-space gradient for the backward of ``values_at`` with respect to
-    the points, and, fused into K2's launch, for
-    ``values_and_gradient_at``;
-  * K5h ``packed_hvp_kernel``, the same read with the Hessian: the VJPs of
-    ``normals`` and ``values_and_gradient_at`` with respect to the points.
+    form 2 and K5h where the tables or the points need a gradient,
+    NORMALS_SAVE), or the raw world-space gradient for the backward of
+    ``values_at`` with respect to the points, and, fused into K2's launch,
+    for ``values_and_gradient_at`` (with each point's row key saved for
+    K5h where the points need a gradient, VALUES_AND_GRAD_SAVE);
+  * K5h ``packed_hvp_kernel``, the same read with the Hessian, from the
+    row key its forward saved: the VJPs of ``normals`` and
+    ``values_and_gradient_at`` with respect to the points.
 
 and two backward kernels make the reads differentiable on CUDA tensors:
 
@@ -576,16 +578,20 @@ def _local_gradient(pt: PackedTree, row: torch.Tensor, unit: torch.Tensor):
     return torch.stack([torch.sum(coef * d, dim=-1) for d in parts], dim=-1)
 
 
+def _raw_gradient(pt: PackedTree, pts: torch.Tensor, row: torch.Tensor):
+    """``point_gradient_plain`` at world points whose rows are ``row``."""
+    raw = to_unit(pt, pts)
+    g = _local_gradient(pt, row, clip_half(raw))
+    inv = _root_f32(pt, pts)[1]
+    return g * row[..., 1:2].detach() * inv * clip_slope(raw)
+
+
 def point_gradient_plain(pt: PackedTree, pts: torch.Tensor) -> torch.Tensor:
     """The raw world-space gradient (B, 3) of ``values_at_plain`` at world
     points, as autodiff gives it: chained through local = (unit - centre) *
     scale and unit = clip_half((p - c) * (1 / sizes)), times the clamp's
     slope on each axis (1 inside the root, 1/2 on a face, 0 clamped)."""
-    raw = to_unit(pt, pts)
-    unit, row = _clamped(pt, pts)
-    g = _local_gradient(pt, row, unit)
-    inv = _root_f32(pt, pts)[1]
-    return g * row[..., 1:2].detach() * inv * clip_slope(raw)
+    return _raw_gradient(pt, pts, _clamped(pt, pts)[1])
 
 
 def _tables_vjp(fn, pt: PackedTree, pts: torch.Tensor, cot: torch.Tensor):
@@ -649,10 +655,25 @@ def locate_key_plain(pt: PackedTree, unit: torch.Tensor) -> torch.Tensor:
     return key.int()
 
 
+def keyed_rows(pt: PackedTree, key: torch.Tensor) -> torch.Tensor:
+    """The rows (B, W) that the keys (B,) name (``locate_key_plain``'s):
+    grid row k below 8^grid_depth, else node row k - 8^grid_depth."""
+    key = key.long()
+    G3 = 8 ** pt.grid_depth
+    return torch.where((key < G3)[:, None], pt.grid[key.clamp(max=G3 - 1)],
+                       pt.rows[(key - G3).clamp(min=0)])
+
+
+def _saved_key(saved: torch.Tensor) -> torch.Tensor:
+    """The row keys (B,) i32 of the normals' saved record (B, 4)."""
+    return saved[:, 0].contiguous().view(torch.int32)
+
+
 def normals_save_plain(pt: PackedTree, p: torch.Tensor):
     """``normals_plain`` with what K5's normals forward saves for K7's form
-    2 where the tables need a gradient (``packed_eval_kernel``'s
-    NORMALS_SAVE): (normals (B, 3), saved (B, 4) f32), saved[:, 0] each
+    2 and K5h where the tables or the points need a gradient
+    (``packed_eval_kernel``'s NORMALS_SAVE): (normals (B, 3), saved (B, 4)
+    f32), saved[:, 0] each
     point's row key (``locate_key_plain``) as the bits of an f32, saved[:,
     1:] the unnormalised gradient the normals normalise."""
     unit, row = _clamped(pt, p)
@@ -669,10 +690,28 @@ def normals_tables_vjp_plain(pt: PackedTree, p: torch.Tensor,
     by autograd, the unit vector's VJP taken at the saved gradient, the
     rows located as ``normals_plain`` locates them (the saved keys name
     the same rows); on the CPU bit for bit ``normals_vjp_plain``'s."""
+    return _normal_gradient_vjp(pt, p, _unit_vjp(saved, wn))
+
+
+def _unit_vjp(saved: torch.Tensor, wn: torch.Tensor) -> torch.Tensor:
+    """gb (B, 3): the unit vector's VJP for cotangents wn at the gradient
+    the normals' forward saved (``saved`` (B, 4)), by autograd."""
     G = saved[:, 1:].detach().requires_grad_(True)
     with torch.enable_grad():
         (gb,) = torch.autograd.grad(unit_vector(G, 1e-12), G, wn)
-    return _normal_gradient_vjp(pt, p, gb)
+    return gb
+
+
+def normals_points_vjp_plain(pt: PackedTree, p: torch.Tensor,
+                             saved: torch.Tensor, wn: torch.Tensor):
+    """K5h's normals mode from what K5's normals forward saved (``saved``
+    (B, 4), ``normals_save_plain``'s): the gradient (B, 3) of sum(wn *
+    normals) with respect to the points, by autograd, the unit vector's VJP
+    taken at the saved gradient and the unnormalised gradient's at the row
+    each saved key names."""
+    row = keyed_rows(pt, _saved_key(saved))
+    return _grads(lambda q: _normal_gradient(pt, row, clip_half(to_unit(
+        pt, q))), (p,), _unit_vjp(saved, wn))[0]
 
 
 def _normal_gradient_vjp(pt: PackedTree, p: torch.Tensor, gb: torch.Tensor):
@@ -709,7 +748,8 @@ def _check_packed(pt: PackedTree, pts: torch.Tensor) -> None:
 
 
 # what a K2/K5 launch computes (packed_eval_kernel's ``mode``)
-VALUES, NORMALS, RAW_GRAD, VALUES_AND_GRAD, NORMALS_SAVE = 0, 1, 2, 3, 4
+VALUES, NORMALS, RAW_GRAD, VALUES_AND_GRAD, NORMALS_SAVE, \
+    VALUES_AND_GRAD_SAVE = 0, 1, 2, 3, 4, 5
 
 
 def packed_eval_kernel(pt: PackedTree, pts: torch.Tensor, mode: int,
@@ -721,33 +761,44 @@ def packed_eval_kernel(pt: PackedTree, pts: torch.Tensor, mode: int,
     VALUES_AND_GRAD, the fused mode: (values (B,), the raw gradients of the
     first ``n_grad`` points (n_grad, 3)), bit-equal to those of VALUES and
     RAW_GRAD, in one launch; NORMALS_SAVE: (the unit normals (B, 3), what
-    K7's form 2 starts from (B, 4) f32, ``normals_save_plain``'s), for the
-    normals' backward to the tables. Raises on anything else.
+    K7's form 2 and K5h's normals mode start from (B, 4) f32,
+    ``normals_save_plain``'s), for the normals' backward;
+    VALUES_AND_GRAD_SAVE: VALUES_AND_GRAD's pair and each point's row key
+    (B,) i32, what K5h's second mode starts from
+    (``values_and_gradient_save_plain``'s). Raises on anything else.
     ``launches`` counts every launch, ``grad_launches`` those of K5's
-    normals (either normals mode), ``save_launches`` those that save,
-    ``raw_launches`` those of its raw-gradient form and ``fused_launches``
-    those of the fused mode."""
+    normals (either normals mode), ``save_launches`` those that save the
+    normals' record, ``raw_launches`` those of its raw-gradient form,
+    ``fused_launches`` those of the fused mode (either) and
+    ``key_launches`` those of it that save the keys."""
     _check_packed(pt, pts)
     if pts.device.type != "cuda":
         raise ValueError(f"packed_eval_kernel needs CUDA tensors, got "
                          f"{pts.device}")
     if type(mode) is not int or mode not in (VALUES, NORMALS, RAW_GRAD,
-                                             VALUES_AND_GRAD, NORMALS_SAVE):
+                                             VALUES_AND_GRAD, NORMALS_SAVE,
+                                             VALUES_AND_GRAD_SAVE):
         raise ValueError(f"packed_eval_kernel: unknown mode {mode}")
-    fused = mode == VALUES_AND_GRAD
+    fused = mode in (VALUES_AND_GRAD, VALUES_AND_GRAD_SAVE)
     save = mode == NORMALS_SAVE
+    keyed = mode == VALUES_AND_GRAD_SAVE
     B = pts.shape[0]
     if fused and not 0 <= n_grad <= B:
         raise ValueError(f"packed_eval_kernel: n_grad {n_grad} outside "
                          f"[0, {B}]")
     pts = pts.detach().contiguous()
-    out = torch.empty((B,) if mode in (VALUES, VALUES_AND_GRAD) else (B, 3),
+    out = torch.empty((B,) if mode in (VALUES, VALUES_AND_GRAD,
+                                       VALUES_AND_GRAD_SAVE) else (B, 3),
                       dtype=torch.float32, device=pts.device)
     grad = torch.empty((n_grad, 3) if fused else (B, 4),
                        dtype=torch.float32,
                        device=pts.device) if fused or save else None
+    keys = torch.empty(B, dtype=torch.int32,
+                       device=pts.device) if keyed else None
+    result = (out, grad, keys) if keyed else (
+        (out, grad) if fused or save else out)
     if B == 0:
-        return (out, grad) if fused or save else out
+        return result
     lib = _kernels.load()
     rc = np.asarray(pt.root_centre, np.float32)
     inv = (1.0 / np.asarray(pt.root_sizes)).astype(np.float32)
@@ -758,13 +809,15 @@ def packed_eval_kernel(pt: PackedTree, pts: torch.Tensor, mode: int,
         *map(float, rc), *map(float, inv), *map(float, sz),
         int(outside_max), mode, out.data_ptr(),
         grad.data_ptr() if fused or save else None, n_grad if fused else 0,
-        _kernels.stream_of(pts)), "packed_eval")
+        keys.data_ptr() if keyed else None, _kernels.stream_of(pts)),
+        "packed_eval")
     packed_eval_kernel.launches += 1
     packed_eval_kernel.grad_launches += int(mode in (NORMALS, NORMALS_SAVE))
     packed_eval_kernel.save_launches += int(save)
     packed_eval_kernel.raw_launches += int(mode == RAW_GRAD)
     packed_eval_kernel.fused_launches += int(fused)
-    return (out, grad) if fused or save else out
+    packed_eval_kernel.key_launches += int(keyed)
+    return result
 
 
 packed_eval_kernel.launches = 0
@@ -772,6 +825,7 @@ packed_eval_kernel.grad_launches = 0
 packed_eval_kernel.save_launches = 0
 packed_eval_kernel.raw_launches = 0
 packed_eval_kernel.fused_launches = 0
+packed_eval_kernel.key_launches = 0
 
 
 # what a K5h launch computes (packed_hvp_kernel's ``mode``)
@@ -780,35 +834,43 @@ NORMALS_VJP, VALUES_GRAD_VJP = 0, 1
 
 def packed_hvp_kernel(pt: PackedTree, pts: torch.Tensor, mode: int,
                       w: torch.Tensor | None = None,
-                      cot3: torch.Tensor | None = None) -> torch.Tensor:
+                      cot3: torch.Tensor | None = None,
+                      saved: torch.Tensor | None = None) -> torch.Tensor:
     """Launch K5h on CUDA tensors: the gradient (B, 3) f32 with respect to
     the points of, ``mode`` NORMALS_VJP, sum(cot3 * normals) (``cot3``
-    (B, 3)); VALUES_GRAD_VJP, sum(w * values) + sum(cot3 * raw gradients)
-    of ``values_and_gradient_at(pt, pts, n_grad)`` (``w`` (B,), ``cot3``
-    (n_grad, 3)). Hessian-vector products of the packed eval, one launch a
-    call. Raises on anything else."""
+    (B, 3)) from ``saved`` (B, 4) f32, what K5's normals forward saved for
+    these points (``packed_eval_kernel(..., NORMALS_SAVE)``);
+    VALUES_GRAD_VJP, sum(w * values) + sum(cot3 * raw gradients) of
+    ``values_and_gradient_at(pt, pts, n_grad)`` (``w`` (B,), ``cot3``
+    (n_grad, 3)) from ``saved`` (B,) i32, the keys the fused read saved
+    (VALUES_AND_GRAD_SAVE). Hessian-vector products of the packed eval at
+    the rows the saved keys name, one launch a call. Raises on anything
+    else, a missing ``saved`` too: K5h does not locate."""
     _check_packed(pt, pts)
     if pts.device.type != "cuda":
         raise ValueError(f"packed_hvp_kernel needs CUDA tensors, got "
                          f"{pts.device}")
     B = pts.shape[0]
+    f32, i32 = torch.float32, torch.int32
     if mode == NORMALS_VJP:
-        need = (("cot3", cot3, (B, 3)),)
+        need = (("cot3", cot3, (B, 3), f32), ("saved", saved, (B, 4), f32))
     elif mode == VALUES_GRAD_VJP:
         if cot3 is None or cot3.dim() != 2 or not 0 <= cot3.shape[0] <= B:
             raise ValueError("packed_hvp_kernel: cot3 must be (n_grad, 3), "
                              f"n_grad <= {B}")
-        need = (("w", w, (B,)), ("cot3", cot3, (cot3.shape[0], 3)))
+        need = (("w", w, (B,), f32), ("cot3", cot3, (cot3.shape[0], 3), f32),
+                ("saved", saved, (B,), i32))
     else:
         raise ValueError(f"packed_hvp_kernel: unknown mode {mode}")
-    for name, t, shape in need:
-        if t is None or t.shape != shape or t.dtype != torch.float32 \
+    for name, t, shape, dtype in need:
+        if t is None or t.shape != shape or t.dtype != dtype \
                 or t.device != pts.device:
-            raise ValueError(f"packed_hvp_kernel: {name} must be f32 "
+            raise ValueError(f"packed_hvp_kernel: {name} must be {dtype} "
                              f"{shape} on {pts.device}")
     pts = pts.detach().contiguous()
     w = None if w is None else w.detach().contiguous()
     cot3 = cot3.detach().contiguous()
+    saved = saved.detach().contiguous()
     out = torch.empty((B, 3), dtype=torch.float32, device=pts.device)
     if B == 0:
         return out
@@ -818,11 +880,11 @@ def packed_hvp_kernel(pt: PackedTree, pts: torch.Tensor, mode: int,
     sz = np.asarray(pt.root_sizes, np.float32)
     _kernels.check(lib, lib.hpsdf_packed_hvp(
         pt.grid.data_ptr(), pt.rows.data_ptr(), pt.width, pt.deg_used,
-        pt.grid_depth, pt.extra_rounds, pts.data_ptr(), B,
-        *map(float, rc), *map(float, inv), *map(float, sz), mode,
-        None if w is None else w.data_ptr(), cot3.data_ptr(),
-        cot3.shape[0] if mode == VALUES_GRAD_VJP else B, out.data_ptr(),
-        _kernels.stream_of(pts)), "packed_hvp")
+        pt.grid_depth, pts.data_ptr(), B, *map(float, rc), *map(float, inv),
+        *map(float, sz), mode, None if w is None else w.data_ptr(),
+        cot3.data_ptr(), cot3.shape[0] if mode == VALUES_GRAD_VJP else B,
+        saved.data_ptr(), out.data_ptr(), _kernels.stream_of(pts)),
+        "packed_hvp")
     packed_hvp_kernel.launches += 1
     return out
 
@@ -955,17 +1017,24 @@ class _QueryPacked(torch.autograd.Function):
 class _ValuesAndGradient(torch.autograd.Function):
     """K2 and K5's raw gradient in one launch (the fused mode), with K7's
     forms 0 and 1 as its VJP with respect to the tables and K5h's second
-    mode with respect to the points."""
+    mode with respect to the points. Where the points need a gradient the
+    forward is VALUES_AND_GRAD_SAVE and saves each point's row key (4 B a
+    point) for K5h; elsewhere it saves the points alone."""
 
     @staticmethod
     def forward(ctx, rows, grid, pts, pt, n_grad):
-        ctx.save_for_backward(pts)
         ctx.pt, ctx.n_grad = pt, n_grad
-        return packed_eval_kernel(pt, pts, VALUES_AND_GRAD, n_grad=n_grad)
+        if not ctx.needs_input_grad[2]:
+            ctx.save_for_backward(pts)
+            return packed_eval_kernel(pt, pts, VALUES_AND_GRAD, n_grad=n_grad)
+        v, g, keys = packed_eval_kernel(pt, pts, VALUES_AND_GRAD_SAVE,
+                                        n_grad=n_grad)
+        ctx.save_for_backward(pts, keys)
+        return v, g
 
     @staticmethod
     def backward(ctx, w, u):
-        (pts,) = ctx.saved_tensors
+        pts, *keys = ctx.saved_tensors
         pt, w, u = ctx.pt, w.contiguous(), u.contiguous()
         d_rows = d_grid = d_pts = None
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
@@ -975,36 +1044,35 @@ class _ValuesAndGradient(torch.autograd.Function):
                                                     1)
                 d_rows, d_grid = d_rows + g_rows, d_grid + g_grid
         if ctx.needs_input_grad[2]:
-            d_pts = packed_hvp_kernel(pt, pts, VALUES_GRAD_VJP, w, u)
+            d_pts = packed_hvp_kernel(pt, pts, VALUES_GRAD_VJP, w, u,
+                                      keys[0])
         return d_rows, d_grid, d_pts, None, None
 
 
 class _Normals(torch.autograd.Function):
     """K5's normals, with K7's form 2 as its VJP with respect to the tables
-    and K5h's normals mode with respect to the points. Where the tables
-    need a gradient the forward is K5's NORMALS_SAVE and saves each
-    point's row key and unnormalised gradient (16 B a point) for form 2;
-    elsewhere it saves the points alone."""
+    and K5h's normals mode with respect to the points. ``normals`` applies
+    it where the tables or the points need a gradient, and its forward is
+    then K5's NORMALS_SAVE: it saves each point's row key and unnormalised
+    gradient (16 B a point), which both start from."""
 
     @staticmethod
     def forward(ctx, rows, grid, pts, pt):
         ctx.pt = pt
-        if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1]):
-            ctx.save_for_backward(pts)
-            return packed_eval_kernel(pt, pts, NORMALS)
         n, saved = packed_eval_kernel(pt, pts, NORMALS_SAVE)
         ctx.save_for_backward(pts, saved)
         return n
 
     @staticmethod
     def backward(ctx, wn):
-        pts, *saved = ctx.saved_tensors
+        pts, saved = ctx.saved_tensors
         pt, wn = ctx.pt, wn.contiguous()
         d_rows = d_grid = d_pts = None
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            d_rows, d_grid = packed_grad_kernel(pt, pts, wn, 2, *saved)
+            d_rows, d_grid = packed_grad_kernel(pt, pts, wn, 2, saved)
         if ctx.needs_input_grad[2]:
-            d_pts = packed_hvp_kernel(pt, pts, NORMALS_VJP, cot3=wn)
+            d_pts = packed_hvp_kernel(pt, pts, NORMALS_VJP, cot3=wn,
+                                      saved=saved)
         return d_rows, d_grid, d_pts, None
 
 
@@ -1013,6 +1081,30 @@ def values_and_gradient_at_plain(pt: PackedTree, pts: torch.Tensor,
     """``values_and_gradient_at`` by the plain versions, whatever the
     device."""
     return values_at_plain(pt, pts), point_gradient_plain(pt, pts[:n_grad])
+
+
+def values_and_gradient_save_plain(pt: PackedTree, pts: torch.Tensor,
+                                   n_grad: int):
+    """``values_and_gradient_at_plain`` with what the fused read saves for
+    K5h where the points need a gradient (``packed_eval_kernel``'s
+    VALUES_AND_GRAD_SAVE): (values (B,), raw gradients (n_grad, 3), keys
+    (B,) i32, each point's row key, ``locate_key_plain``'s)."""
+    key = locate_key_plain(pt, clip_half(to_unit(pt, pts.detach())))
+    return (*values_and_gradient_at_plain(pt, pts, n_grad), key)
+
+
+def values_and_gradient_points_vjp_plain(pt: PackedTree, pts: torch.Tensor,
+                                         keys: torch.Tensor, w: torch.Tensor,
+                                         u: torch.Tensor):
+    """K5h's second mode from the keys the fused read saved (``keys`` (B,)
+    i32, ``values_and_gradient_save_plain``'s): the gradient (B, 3) with
+    respect to the points of sum(w * values) + sum(u * raw gradients of the
+    first n_grad = len(u) points), by autograd, at the rows the keys
+    name."""
+    row, n = keyed_rows(pt, keys), u.shape[0]
+    return _grads(lambda q: (eval_row(pt, row, clip_half(to_unit(pt, q))),
+                             _raw_gradient(pt, q[:n], row[:n])),
+                  (pts,), (w, u))[0]
 
 
 def values_and_gradient_at(pt: PackedTree, pts: torch.Tensor, n_grad: int):

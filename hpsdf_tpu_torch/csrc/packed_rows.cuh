@@ -1,5 +1,6 @@
 // Device helpers shared by K2/K5 and K5h (packed_eval.cu), K7
-// (packed_grad.cu) and K3 (march.cu): reading the packed row layout of
+// (packed_grad.cu), K3 (march.cu) and the kernels of check/: reading the
+// packed row layout of
 // hpsdf_tpu_torch/accel.py and evaluating the Legendre product sums over a
 // row's folded coefficient lanes, in f32 (packed_leaf_sums). K1
 // (query.cu) takes the recurrences (in f64), the term order and the degree
@@ -242,8 +243,10 @@ constexpr int kMaxQuads = 16;
 // xz, yz; kSumHess, where `hess`, which needs g's recurrences: `grad` too).
 // Rows of up to MAX_QUADS float4 coefficient lanes are read in 16-byte
 // loads into registers, wider ones one 4-byte load a term. With LOOPED the
-// terms go in loops above kUnrolledDeg (for_each_term_of). K2/K5 and K5h
-// read a row through it. Returns the row's scale 2^(depth+1).
+// terms go in loops above kUnrolledDeg (for_each_term_of). K2/K5 read a
+// row through it, and the Hessian serves K5h as it was before its
+// redesign (check/packed_hvp_reference.cu). Returns the row's scale
+// 2^(depth+1).
 template <int DEG, int SUMS, bool LOOPED = false, int MAX_QUADS = kMaxQuads>
 __device__ __forceinline__ float packed_leaf_sums(const float* row,
                                                   const float (&u)[3],

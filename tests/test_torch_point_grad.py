@@ -307,11 +307,11 @@ def test_normals_tables_vjp_from_saved(trees, few_torch_threads):  # noqa: F811
 def test_normals_forward_saves_for_form2(wants, monkeypatch,
                                          few_torch_threads):  # noqa: F811
     """With the kernel wrappers replaced by their plain versions, _Normals
-    asks K5 for NORMALS_SAVE and saves (points, saved values) only where
-    the tables need a gradient, and the points alone otherwise; its
-    backward hands the saved values to K7's form 2, and its gradients stay
-    within 1e-5 (tables, coefficient lanes) and 1e-4 (points) of jax.vjp
-    of render._normals_at."""
+    asks K5 for NORMALS_SAVE and saves (points, saved values) wherever the
+    tables or the points need a gradient (K5h starts from them too); its
+    backward hands the saved values to K7's form 2 where the tables need a
+    gradient, and its gradients stay within 1e-5 (tables, coefficient
+    lanes) and 1e-4 (points) of jax.vjp of render._normals_at."""
     jt, tt = _synthetic(3, seed=3)
     jp, tp = JA.pack_tree(jt, grid_depth=1), TA.pack_tree(tt, grid_depth=1)
     rng = np.random.default_rng(910)
@@ -332,8 +332,8 @@ def test_normals_forward_saves_for_form2(wants, monkeypatch,
     monkeypatch.setattr(TA, "packed_eval_kernel", k5)
     monkeypatch.setattr(TA, "packed_grad_kernel", k7)
     monkeypatch.setattr(TA, "packed_hvp_kernel",
-                        lambda pt, pts, mode, w=None, cot3=None:
-                        TA.normals_vjp_plain(pt, pts, cot3)[2])
+                        lambda pt, pts, mode, w=None, cot3=None, saved=None:
+                        TA.normals_points_vjp_plain(pt, pts, saved, cot3))
     tables = wants in ("tables", "both")
     rows = tp.rows.clone().requires_grad_(tables)
     grid = tp.grid.clone().requires_grad_(tables)
@@ -341,8 +341,8 @@ def test_normals_forward_saves_for_form2(wants, monkeypatch,
     n = TA._Normals.apply(rows, grid, P,
                           dataclasses.replace(tp, rows=rows, grid=grid))
     saved = n.grad_fn.saved_tensors
-    assert modes == [TA.NORMALS_SAVE if tables else TA.NORMALS]
-    assert len(saved) == (2 if tables else 1) and saved[0] is P
+    assert modes == [TA.NORMALS_SAVE]
+    assert len(saved) == 2 and saved[0] is P
     (torch.as_tensor(wn) * n).sum().backward()
     assert len(form2) == int(tables)
     if tables:

@@ -129,7 +129,7 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                                    "K13", "K6", "K6 points", "K13 vjp",
                                    "K13 ref", "K8 sort", "K1h", "K7 form2",
                                    "K8g", "K5h", "K1v", "K1 leaf", "K1c",
-                                   "K5 save"],
+                                   "K5 save", "K2 keys"],
                          ids=["clean", "spills", "march_spills",
                               "backward_spills", "csr_spills",
                               "fused_spills", "cg_spills", "chunk_spills",
@@ -143,7 +143,8 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                               "normals_backward_spills",
                               "grad_scatter_spills", "hvp_spills",
                               "vjp_spills", "leaf_store_spills",
-                              "centre_spills", "normals_save_spills"])
+                              "centre_spills", "normals_save_spills",
+                              "keys_save_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
@@ -156,14 +157,15 @@ def test_ptxas_check(monkeypatch, spill):
     any degree 0..6) or its sort,
     K14, any launch of K13 (the points, the terms' loss forward or VJP
     backward), K1v, K1h or K1c (from K1's leaf), K1 writing the leaf,
-    K5's normals saving for K7's form 2, K7's form 2, K8g or K5h (either
+    K5's normals saving for K7's form 2 and K5h, K2's fused read saving
+    the keys for K5h, K7's form 2, K8g or K5h (either
     mode) at degree 3 or 5, either of K6's
     launches (at any degree 2..11, f64 or f32), or, in the check
     library's report,
     K13's terms as they were before their redesign has a stack frame or
     spills; every instantiation of K6's two kernels must be in the report.
-    The check library's K1v, K1h and K7's form 2 as they were are read,
-    spills or not, for their registers."""
+    The check library's K1v, K1h, K7's form 2 and K5h as they were are
+    read, spills or not, for their registers."""
     from hpsdf_tpu_torch import _kernels
 
     report = "".join(
@@ -197,6 +199,10 @@ def test_ptxas_check(monkeypatch, spill):
         report += _ptxas_entry("packed_eval_kernel", d, None,
                                args=f"Li{d}ELi4E",
                                stack=8 if spill == "K5 save" and d == 5
+                               else 0)
+        report += _ptxas_entry("packed_eval_kernel", d, None,
+                               args=f"Li{d}ELi5E",
+                               stack=8 if spill == "K2 keys" and d == 3
                                else 0)
         report += "".join(
             _ptxas_entry("packed_grad_kernel", d, None,
@@ -269,6 +275,10 @@ def test_ptxas_check(monkeypatch, spill):
     check_report += "".join(
         _ptxas_entry("packed_grad_form2_reference_kernel", d, None,
                      args=f"Li{d}ELi2E", regs=64) for d in (3, 5))
+    check_report += "".join(
+        _ptxas_entry("packed_hvp_reference_kernel", d, None,
+                     args=f"Li{d}ELi{m}E", regs=72, stack=8 * (d == 5))
+        for d in (3, 5) for m in (0, 1))
     for t in "df":
         for d in range(2, 12):
             report += _ptxas_entry(
@@ -307,6 +317,7 @@ def test_ptxas_check(monkeypatch, spill):
                 "K1 leaf": "K1 3/grad/leaf: stack 8",
                 "K7 form2": "K7 form 2 5: stack 24",
                 "K5 save": "K5 normals saving 5/save: stack 8",
+                "K2 keys": "K2 fused keys saving 3/keys: stack 8",
                 "K8g": "K8g 5: stack 8",
                 "K5h": "K5h 3/values: stack 8"}[spill]):
             chip_smoke.ptxas_check()
@@ -329,7 +340,8 @@ def test_ptxas_check(monkeypatch, spill):
     assert found["packed_eval_kernel"]["3/values"] == [32, 0, 0, 0]
     assert set(found["packed_eval_kernel"]) == {
         "3/values", "3/raw", "5/raw", "3/fused", "5/fused", "3/save",
-        "5/save"}
+        "5/save", "3/keys", "5/keys"}
+    assert found["packed_hvp_reference_kernel"]["5/values"] == [72, 8, 8, 8]
     assert set(found["coeff_scatter_kernel"]) == {
         f"{d}/{k}" for d in (3, 5) for k in ("f64 query", "f32 trace")}
     assert set(found["row_scatter_kernel"]) == {"-"}
