@@ -5530,23 +5530,28 @@ def k7_ops(deg, form):
     return 15 + 18 * max(deg - 1, 0) + 15 * C
 
 
-def device_busy_ms(fn, keep=()):
+def device_busy_ms(fn, keep=(), tries=4):
     """fn() under torch.profiler: the device time of its kernels in ms, the
     eight longest by name (ms, launches), and those whose names hold one of
-    ``keep``; None where the trace holds no device time."""
+    ``keep``. A trace with no device time (the profiler can lose a trace's
+    records whole, as ``device_ops`` finds) is listed in EMPTY_TRACES and
+    taken again, up to ``tries`` traces; None where none holds any."""
     from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    ev = [e for e in prof.key_averages() if dev_us(e) > 0]
-    if not ev:
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        ev = [e for e in prof.key_averages() if dev_us(e) > 0]
+        if ev:
+            break
+        EMPTY_TRACES.append((getattr(fn, "__qualname__", "?"), "busy"))
+    else:
         return None, [], []
 
     def entry(e):
@@ -6342,6 +6347,28 @@ def cg_ops(A):
 def update_ops(n):
     """K9u's operation bound: six f64 FMAs a row (x, r, z, r.z, r.r, p)."""
     return 2 * 6 * n / F64_PEAK * 1e3
+
+
+# K9u's two launches in the row-sharded CG over a rank's n rows, each input
+# read once and each output written once: the first reads Ap, 1/diag, x, r
+# and p and writes x, r and z (f64 vectors), five f64 FMAs a row (x, r, z,
+# r.z, r.r); the second reads z and p and writes p, one FMA a row. A dead
+# launch (the flag down) reads its flag and the two scalars it loads with
+# it, and the first writes its copy of the flag.
+ROWS_VECTORS = {"k9u": 8, "direction": 3}
+ROWS_FMAS = {"k9u": 5, "direction": 1}
+ROWS_DEAD_BYTES = {"k9u": 4 + 16 + 4, "direction": 4 + 16}
+
+
+def rows_bytes(kind, n, live=True):
+    """Bytes one of K9u's row launches ("k9u", "direction") moves."""
+    return 8 * ROWS_VECTORS[kind] * n if live else ROWS_DEAD_BYTES[kind]
+
+
+def rows_bound(kind, n, live=True):
+    """(bytes, operations) bounds in ms of one of K9u's row launches."""
+    return (rows_bytes(kind, n, live) / HBM_RATE * 1e3,
+            2 * ROWS_FMAS[kind] * n / F64_PEAK * 1e3 if live else 0.0)
 
 
 def face_bytes(op):
@@ -7665,6 +7692,182 @@ def check_row_modes(blk, s, minv, label, seed=13):
     return errs, abs_errs, p_all
 
 
+def update_rows_reference(init, n, Ap, minv, x, r, p, z, state):
+    """K9u's first launch in the row-sharded CG as it was before its
+    redesign (csrc/check/cg_rows_reference.cu), with
+    ``continuity._update_rows_launch``'s arguments; not counted."""
+    from hpsdf_tpu_torch import _kernels
+    _kernels.check(_kernels.load(), _kernels.load_check()
+                   .hpsdf_cg_update_rows_reference(
+                       int(init), n, Ap.data_ptr(), minv.data_ptr(),
+                       x.data_ptr(), r.data_ptr(), p.data_ptr(), z.data_ptr(),
+                       state.partials.data_ptr(), state.sc.data_ptr(),
+                       state.st.data_ptr(), _kernels.stream_of(minv)),
+                   "cg_update_rows_reference")
+
+
+def direction_reference(init, n, z, p, state):
+    """K9u's second launch as it was before its redesign, with
+    ``continuity._direction_launch``'s arguments; not counted."""
+    from hpsdf_tpu_torch import _kernels
+    _kernels.check(_kernels.load(), _kernels.load_check()
+                   .hpsdf_cg_direction_reference(
+                       int(init), n, z.data_ptr(), p.data_ptr(),
+                       state.sc.data_ptr(), state.st.data_ptr(),
+                       _kernels.stream_of(z)), "cg_direction_reference")
+
+
+def rows_pairs():
+    """K9u's two launches: the replaced pair and the shipped one, by name."""
+    from hpsdf_tpu_torch import continuity as TC
+    return {"replaced": (update_rows_reference, direction_reference),
+            "shipped": (TC._update_rows_launch, TC._direction_launch)}
+
+
+@contextlib.contextmanager
+def replaced_rows():
+    """While the block runs, the row-sharded CG launches the replaced pair."""
+    from unittest import mock
+    from hpsdf_tpu_torch import continuity as TC
+    with mock.patch.object(TC, "_update_rows_launch",
+                           update_rows_reference), \
+            mock.patch.object(TC, "_direction_launch", direction_reference):
+        yield
+
+
+# the state slots the replaced kernels know, and the dots among them,
+# which add in another order and are held to CONT_RTOL
+ROWS_OLD_SC, ROWS_OLD_ST = 8, 4
+ROWS_DOTS = ("rz_part", "rr_part")
+
+
+def rows_snapshot(vec, state):
+    """The vectors and the state, copied."""
+    return {**{k: v.clone() for k, v in vec.items()},
+            "sc": state.sc.clone(), "st": state.st.clone()}
+
+
+def rows_differences(got, want):
+    """What differs between two snapshots from one state (the replaced
+    launch in ``want``): the vectors bit for bit, the dots within CONT_RTOL,
+    every other scalar, k and the flag of the slots the replaced kernels
+    know exactly. Returns the names that differ."""
+    from hpsdf_tpu_torch import continuity as TC
+    bad = [k for k in want if k not in ("sc", "st")
+           and not torch.equal(got[k], want[k])]
+    for name, i in TC._SC.items():
+        if i >= ROWS_OLD_SC:
+            continue
+        a, b = float(got["sc"][i]), float(want["sc"][i])
+        if name in ROWS_DOTS:
+            if not abs(a - b) <= CONT_RTOL * abs(b):
+                bad.append(name)
+        elif a != b and not (a != a and b != b):
+            bad.append(name)
+    bad += [name for name, i in TC._ST.items() if i < ROWS_OLD_ST
+            and int(got["st"][i]) != int(want["st"][i])]
+    return bad
+
+
+def rows_planted(snap):
+    """Faults planted in a snapshot, each with the name a check must
+    report: each vector with two entries moved, and a scalar written to
+    another scalar's slot (alpha into beta's, r.r into r.z's, the flag into
+    k's)."""
+    from hpsdf_tpu_torch import continuity as TC
+    out = []
+    for k, v in snap.items():
+        if k in ("sc", "st"):
+            continue
+        i = int(torch.argmax((v != v[0]).to(torch.int8)))
+        if i == 0:
+            continue
+        w = v.clone()
+        w[0], w[i] = v[i], v[0]
+        out.append((k, {**snap, k: w}))
+    for key, names, src, dst in (("sc", TC._SC, "alpha", "beta"),
+                                 ("sc", TC._SC, "rr_part", "rz_part"),
+                                 ("st", TC._ST, "active", "k")):
+        w = snap[key].clone()
+        if w[names[src]] == w[names[dst]]:
+            continue
+        w[names[dst]] = w[names[src]]
+        out.append((dst, {**snap, key: w}))
+    return out
+
+
+def rows_pair_checks(vec, state, n, label):
+    """K9u's two shipped launches against the replaced ones from the same
+    live state (``vec``: Ap, minv, x, r, p, z): x, r, z and p bit for bit,
+    the dots within CONT_RTOL, the scalars, k and the flag equal after each
+    launch,
+    the shipped first launch's copies of rz and the flag; both forms (INIT
+    and an iteration); a dead launch of each (the flag down) changes no
+    vector and no scalar but the copy of the flag. Every comparison must
+    report the faults ``rows_planted`` plants. Returns the number of
+    comparisons and of faults caught."""
+    from hpsdf_tpu_torch import continuity as TC
+    pairs = rows_pairs()
+    checked = caught = 0
+
+    def compare(got, want, what):
+        nonlocal checked, caught
+        bad = rows_differences(got, want)
+        check(not bad, f"{label}: {what} against the replaced kernel: "
+              f"{bad} differ")
+        checked += 1
+        for name, planted in rows_planted(got):
+            check(name in rows_differences(planted, want),
+                  f"{label}: {what}: a planted fault in {name} not caught")
+            caught += 1
+
+    for init in (True, False):
+        first = {}
+        for key, (update, _) in pairs.items():
+            v = {k: t.clone() for k, t in vec.items()}
+            st = TC._State(state.sc.clone(), state.st.clone(),
+                           torch.empty_like(state.partials))
+            update(init, n, v["Ap"], v["minv"], v["x"], v["r"], v["p"],
+                   v["z"], st)
+            first[key] = rows_snapshot(v, st)
+        sync()
+        form = "INIT" if init else "an iteration"
+        got = first["shipped"]
+        compare(got, first["replaced"], f"K9u's first launch ({form})")
+        check(float(got["sc"][TC._SC["rz_old"]])
+              == float(state.sc[TC._SC["rz"]])
+              and int(got["st"][TC._ST["live"]]) == 1,
+              f"{label}: K9u's first launch ({form}) copies rz and the flag")
+        # the second launches from one state, the shipped first launch's,
+        # so that both divide the same dots
+        two = {}
+        for key, (_, direction) in pairs.items():
+            v = {k: got[k].clone() for k in vec}
+            st = TC._State(got["sc"].clone(), got["st"].clone(),
+                           torch.empty_like(state.partials))
+            direction(init, n, v["z"], v["p"], st)
+            two[key] = rows_snapshot(v, st)
+        sync()
+        compare(two["shipped"], two["replaced"],
+                f"K9u's second launch ({form})")
+    # dead launches: the flag down
+    v = {k: t.clone() for k, t in vec.items()}
+    st = TC._State(state.sc.clone(), state.st.clone(),
+                   torch.empty_like(state.partials))
+    st.st[TC._ST["active"]] = 0
+    before = rows_snapshot(v, st)
+    TC._update_rows_launch(False, n, v["Ap"], v["minv"], v["x"], v["r"],
+                           v["p"], v["z"], st)
+    TC._direction_launch(False, n, v["z"], v["p"], st)
+    sync()
+    after = rows_snapshot(v, st)
+    check(int(after["st"][TC._ST["live"]]) == 0, f"{label}: a dead first "
+          f"launch copies the flag")
+    after["st"][TC._ST["live"]] = before["st"][TC._ST["live"]]
+    compare(after, before, "a dead launch of each")
+    return checked, caught
+
+
 def row_block_of(tree, s, size, rank):
     """A fitted tree's face operator (host), its Jacobi diagonal on the
     card, and rank ``rank``'s block of ``size`` on the card."""
@@ -8445,13 +8648,16 @@ def sharding_rank(rank, size, port, cfg, tree_path, out_path):
 def row_mode_times(fitted, shard, label, persistent_ms, smi):
     """At one rank on a fitted tree's face operator: K9's partial mode and
     K9u's two launches against their plain versions (``check_row_modes``),
-    the partial mode against K9 bit for bit; their times in CUDA graphs
-    beside their bounds and the plain versions'; an iteration of the
-    sharded CG (all-gather, K9, all-reduce, K9u, all-reduce, K9u) in a CUDA
-    graph, NCCL's collectives captured, and by events as the solve enqueues
-    it, beside ``persistent_ms``, [continuity]'s iteration of the
-    persistent launch on the same tree. Prints a line; returns the
-    numbers."""
+    the partial mode against K9 bit for bit, K9u's two launches against
+    the ones they replaced from a live state (``rows_pair_checks``); their
+    times in CUDA graphs beside their bounds and the plain versions'; an
+    iteration of the sharded CG (all-gather, K9, all-reduce, K9u,
+    all-reduce, K9u) in a CUDA graph, NCCL's collectives captured, and by
+    events as the solve enqueues it, beside ``persistent_ms``,
+    [continuity]'s iteration of the persistent launch on the same tree;
+    K9u's launches (live and dead) and the iteration timed with each pair
+    in turns (replaced, shipped, shipped, replaced), and the direction's
+    library call. Prints two lines; returns the numbers."""
     from hpsdf_tpu_torch import continuity as TC
     from hpsdf_tpu_torch import parallel as P
 
@@ -8485,32 +8691,67 @@ def row_mode_times(fitted, shard, label, persistent_ms, smi):
     P.all_reduce(parts, shard)
     TC._direction_launch(True, n, z, p, state)
 
-    def iteration():
-        P.all_gather(p, shard, gathered)
-        TC._matvec_rows_launch(blk, s, gathered, y, state)
-        P.all_reduce(pap, shard)
-        TC._update_rows_launch(False, n, y, minv, x, r, p, z, state)
-        P.all_reduce(parts, shard)
-        TC._direction_launch(False, n, z, p, state)
+    pairs = rows_pairs()
 
-    it_ms = time_ms(iteration, reps)
-    it_graph_ms = graph_ms(iteration, reps)
-    check(int(state.st[TC._ST["active"]]) == 1
-          and bool(torch.isfinite(state.sc).all()),
-          f"{label}: the timed iterations stayed live: {state.st.tolist()}")
-    st_u = TC._State.new(dev, -1.0, 2 ** 31 - 1, rz=1.0)
-    st_u.sc[TC._SC["pap"]] = 1e3
-    st_u.sc[TC._SC["rz_part"]] = 1.0
-    xu, ru, zu, pu = x.clone(), r.clone(), z.clone(), p.clone()
-    k9u_ms = graph_ms(lambda: TC._update_rows_launch(
-        False, n, y, minv, xu, ru, pu, zu, st_u), reps)
+    def iteration(pair):
+        update, direction = pairs[pair]
+
+        def run():
+            P.all_gather(p, shard, gathered)
+            TC._matvec_rows_launch(blk, s, gathered, y, state)
+            P.all_reduce(pap, shard)
+            update(False, n, y, minv, x, r, p, z, state)
+            P.all_reduce(parts, shard)
+            direction(False, n, z, p, state)
+        return run
+
+    # the shipped pair against the replaced one from the live state, after
+    # a matvec
+    P.all_gather(p, shard, gathered)
+    TC._matvec_rows_launch(blk, s, gathered, y, state)
+    P.all_reduce(pap, shard)
+    pair_checks = rows_pair_checks(dict(Ap=y, minv=minv, x=x, r=r, p=p, z=z),
+                                   state, n, label)
     # at the 260k row the second launch's 42 MB would stay in the 50 MB L2
     # from one launch to the next: it turns over four copies, as the
     # solve's other vectors pass through L2 between two of its launches
     copies = [(z.clone(), p.clone()) for _ in range(4)]
-    turn = iter(range(1 << 30))
-    dir_ms = graph_ms(lambda: TC._direction_launch(
-        False, n, *copies[next(turn) % 4], st_u), reps)
+    xu, ru = x.clone(), r.clone()
+    turns = {}
+    for pair in ("replaced", "shipped", "shipped", "replaced"):
+        update, direction = pairs[pair]
+        st_u = TC._State.new(dev, -1.0, 2 ** 31 - 1, rz=1.0)
+        st_u.sc[TC._SC["pap"]] = 1e3
+        st_u.sc[TC._SC["rz_part"]] = 1.0
+        st_d = TC._State.new(dev, -1.0, 2 ** 31 - 1)
+        st_d.st[TC._ST["active"]] = st_d.st[TC._ST["live"]] = 0
+        turn = iter(range(1 << 30))
+        got = {"k9u": graph_ms(lambda: update(
+                   False, n, y, minv, xu, ru, copies[0][1], copies[0][0],
+                   st_u), reps),
+               "direction": graph_ms(lambda: direction(
+                   False, n, *copies[next(turn) % 4], st_u), reps),
+               "k9u_dead": graph_ms(lambda: update(
+                   False, n, y, minv, xu, ru, p, z, st_d), reps),
+               "direction_dead": graph_ms(lambda: direction(
+                   False, n, z, p, st_d), reps),
+               "iteration_graph": graph_ms(iteration(pair), reps),
+               "iteration": time_ms(iteration(pair), reps)}
+        for k, v in got.items():
+            turns.setdefault(pair, {}).setdefault(k, []).append(v)
+    check(int(state.st[TC._ST["active"]]) == 1
+          and bool(torch.isfinite(state.sc).all()),
+          f"{label}: the timed iterations stayed live: {state.st.tolist()}")
+    mean = {pair: {k: sum(v) / len(v) for k, v in t.items()}
+            for pair, t in turns.items()}
+    k9u_ms, dir_ms = mean["shipped"]["k9u"], mean["shipped"]["direction"]
+    it_ms = mean["shipped"]["iteration"]
+    it_graph_ms = mean["shipped"]["iteration_graph"]
+    # the direction's yardstick: one torch call of z + beta p, beta a host
+    # float (no division, count or flag)
+    lib_turn = iter(range(1 << 30))
+    library_ms = graph_ms(lambda: torch.add(*copies[next(lib_turn) % 4],
+                                            alpha=0.5), reps)
     few = 3
     plain = {"k9": time_ms(lambda: TC.face_matvec_rows_plain(blk, s, p_all),
                            few),
@@ -8522,10 +8763,8 @@ def row_mode_times(fitted, shard, label, persistent_ms, smi):
               blk.op.xvals)
     bounds = {"k9": (bytes_ms(*arrays, extra=8 * (blk.op.n + n)),
                      face_ops(blk.op)[0]),
-              "k9u": (8 * 8 * n / HBM_RATE * 1e3,
-                      2 * 5 * n / F64_PEAK * 1e3),
-              "direction": (3 * 8 * n / HBM_RATE * 1e3,
-                            2 * n / F64_PEAK * 1e3)}
+              "k9u": rows_bound("k9u", n),
+              "direction": rows_bound("direction", n)}
     out = {"rows": n, "errs": errs, "abs_errs": abs_errs,
            "k9_ms": k9_ms, "k9u_ms": k9u_ms, "direction_ms": dir_ms,
            "iteration_ms": it_ms, "iteration_graph_ms": it_graph_ms,
@@ -8533,7 +8772,30 @@ def row_mode_times(fitted, shard, label, persistent_ms, smi):
            **{f"{k}_plain_ms": v for k, v in plain.items()},
            **{f"{k}_bound_ms": max(v) for k, v in bounds.items()},
            **{f"{k}_bound_by": "bytes" if v[0] >= v[1] else "operations"
-              for k, v in bounds.items()}}
+              for k, v in bounds.items()},
+           **{f"{k}_replaced_ms": mean["replaced"][k] for k in (
+               "k9u", "direction", "iteration", "iteration_graph")},
+           **{f"{k}_{x}dead_ms": mean[pair][f"{k}_dead"]
+              for k in ("k9u", "direction")
+              for pair, x in (("shipped", ""), ("replaced", "replaced_"))},
+           **{f"{k}_dead_bound_ms": rows_bound(k, n, live=False)[0]
+              for k in ("k9u", "direction")},
+           "direction_library_ms": library_ms, "turns": turns,
+           "pair_checks": pair_checks[0], "pair_faults_caught":
+           pair_checks[1]}
+    print(f"[sharding] {label}, one rank: {smi} | K9u's two launches "
+          f"against the replaced pair (csrc/check/cg_rows_reference.cu) from "
+          f"one live state: {pair_checks[0]} comparisons equal (vectors bit "
+          f"for bit, "
+          f"dots within {CONT_RTOL:g}), {pair_checks[1]} planted faults "
+          f"caught | in turns (replaced, shipped, shipped, replaced), CUDA "
+          f"graphs, ms: " + "; ".join(
+              f"{k} {mean['shipped'][k]:.5f} against "
+              f"{mean['replaced'][k]:.5f}"
+              for k in ("k9u", "direction", "k9u_dead", "direction_dead",
+                        "iteration_graph", "iteration"))
+          + f" (the last as enqueued) | direction's library call "
+          f"torch.add(z, p, alpha=beta) {library_ms:.5f} ms", flush=True)
     print(f"[sharding] {label}, one rank: {smi} | n {n} | against plain "
           f"(relative): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
           + f"; K9's partial mode = K9 bit for bit | in CUDA graphs: K9 "
@@ -8560,8 +8822,11 @@ def phase_sharding(tree, mesh, bvh, cfg, s_inv, solved, persistent_ms,
     a one-device build timed beside it; enforce_continuity(mesh=) on both
     continuity trees (fit + continuity, the 260k-leaf row) within
     SHARD_CG_RTOL / SHARD_CG_ATOL of [continuity]'s solves, counts within
-    one; fit_to_depth(mesh=) for SHARD_INV_STEPS steps at 1080p, losses
-    within SHARD_INV_RTOL. No launch of the unsharded CG's kernels. Then,
+    one, and outside the count each solve again (bit for bit) and with the
+    K9u launches it replaced (``replaced_rows``: the same count, within the
+    same tolerance); fit_to_depth(mesh=) for SHARD_INV_STEPS steps at
+    1080p, losses within SHARD_INV_RTOL. No launch of the unsharded CG's
+    kernels. Then,
     outside the count, on both trees (``row_mode_times``), K9's partial mode
     (bit for bit K9 at one rank) and K9u's two launches against their plain
     versions, their times in CUDA graphs beside their bounds, a sharded CG
@@ -8635,6 +8900,29 @@ def phase_sharding(tree, mesh, bvh, cfg, s_inv, solved, persistent_ms,
     inv_s = time.perf_counter() - t0
     launches = read_counts()
     host_syncs = TC._cg_rows_kernels.host_syncs
+    # outside the count: each solve again, and once with the replaced pair
+    # of K9u launches (csrc/check/cg_rows_reference.cu)
+    for label, sv in (("fit_continuity", solved[0]), ("row_260k", solved[1])):
+        c = cg[label]
+        with record_calls(TC, "cg_solve_rows") as again:
+            twice = TC.enforce_continuity(sv["fitted"], mesh=dmesh)
+            with replaced_rows():
+                replaced = TC.enforce_continuity(sv["fitted"], mesh=dmesh)
+        c["bit_for_bit_twice"] = bool(torch.equal(twice.coeffs,
+                                                  c["out"].coeffs))
+        c["replaced_iterations"] = again[1][1]
+        c["replaced_excess"], c["replaced_max_abs_diff"] = cg_close(
+            replaced.coeffs, sv["tree"].coeffs)
+        c["replaced_max_abs_diff_shipped"] = float(
+            (replaced.coeffs - c["out"].coeffs).abs().max())
+        check(c["bit_for_bit_twice"] and again[0][1] == c["iterations"],
+              f"{label}: two row-sharded solves, bit for bit")
+        check(c["replaced_iterations"] == c["iterations"]
+              and c["replaced_excess"] <= 0, f"{label}: the row-sharded "
+              f"solve with the replaced K9u launches: "
+              f"{c['replaced_iterations']} "
+              f"iterations against {c['iterations']}, max|diff| "
+              f"{c['replaced_max_abs_diff']} from one device's")
 
     gpts = torch.as_tensor(root_points(*tree.root_aabb, N_QUERY, 46,
                                        pad=0.05), device=dev)
@@ -8673,8 +8961,12 @@ def phase_sharding(tree, mesh, bvh, cfg, s_inv, solved, persistent_ms,
           f"the slice bit for bit the slice tree, {fit_s:.3f} s against "
           f"{fit_one_s:.3f} s on one device; row-sharded CG: "
           + "; ".join(f"{k} {v['iterations']} iterations (one device "
-                      f"{v['one_device_iterations']}), max|diff| "
-                      f"{v['max_abs_diff']:.3e}, {v['seconds']:.3f} s"
+                      f"{v['one_device_iterations']}, the replaced K9u pair "
+                      f"{v['replaced_iterations']}), max|diff| "
+                      f"{v['max_abs_diff']:.3e} (the replaced pair's "
+                      f"{v['replaced_max_abs_diff']:.3e}; from the shipped "
+                      f"pair's {v['replaced_max_abs_diff_shipped']:.3e}), "
+                      f"again bit for bit, {v['seconds']:.3f} s"
                       for k, v in cg.items())
           + f", host syncs {host_syncs}; fit_to_depth 1080p "
           f"{SHARD_INV_STEPS} steps {inv_s:.3f} s, losses "
@@ -8786,7 +9078,9 @@ PTXAS_KERNELS = ("query_kernel", "packed_eval_kernel", "march_kernel",
 CHECK_PTXAS_KERNELS = ("inverse_terms_reference_kernel",
                        "query_vjp_reference_kernel",
                        "packed_grad_form2_reference_kernel",
-                       "packed_hvp_reference_kernel")
+                       "packed_hvp_reference_kernel",
+                       "cg_update_rows_reference_kernel",
+                       "cg_direction_reference_kernel")
 
 
 def _ptxas_key(kernel, args):
@@ -8797,7 +9091,8 @@ def _ptxas_key(kernel, args):
     if kernel == "hybrid_kernel":
         return "two levels" if args[0] else "one level"
     if kernel in ("cg_update_kernel", "cg_update_rows_kernel",
-                  "cg_direction_kernel"):
+                  "cg_direction_kernel", "cg_update_rows_reference_kernel",
+                  "cg_direction_reference_kernel"):
         return "init" if args[0] else "iteration"
     if kernel == "cg_chunk_kernel":
         return "shared" if args[0] else "buffer"
@@ -8837,7 +9132,9 @@ def ptxas_check():
     the face
     operator and in its CSR form), K9u, both forms of the persistent
     launch, both forms
-    of each of the row-sharded CG's two K9u launches, both of K10 and K11,
+    of each of the row-sharded CG's two K9u launches (and, in the check
+    library, both forms of each as they were before their redesign), both
+    of K10 and K11,
     K1's node-range descent round and, at degrees 3 and 5, its leaf
     evaluation, K8's node-range mode at degrees 0..6 and its sort,
     K14, the three launches of K13,
@@ -8915,7 +9212,11 @@ def ptxas_check():
             ("K6 points", "fit_points_kernel", K6_PTXAS_KEYS),
             ("K6 proj", "fit_project_kernel", K6_PTXAS_KEYS),
             ("K13 terms reference", "inverse_terms_reference_kernel",
-             ("-",))):
+             ("-",)),
+            ("K9u rows reference", "cg_update_rows_reference_kernel",
+             ("init", "iteration")),
+            ("K9u direction reference", "cg_direction_reference_kernel",
+             ("init", "iteration"))):
         got = found.get(kernel, {})
         for key in keys:
             check(key in got, f"ptxas report for {name} {key}")
@@ -8968,7 +9269,7 @@ def main():
     print(f"[build] {len(_kernels.sources())} sources -> "
           f"{os.path.relpath(_kernels.library_path())}, the reference "
           f"kernels of the K3, K4, K7 (forms 0-2), G's backward, K8, K11, "
-          f"K6, K13, K1v and K1h checks -> "
+          f"K6, K13, K1v, K1h, K5h and K9u row-launch checks -> "
           f"{os.path.relpath(_kernels.library_path('check'))}, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     PHASE_SECONDS["build"] = round(time.perf_counter() - t0, 3)
@@ -9287,8 +9588,29 @@ def main():
            "fit_continuity": {k: tsh["modes"]["fit_continuity"][f"{key}_{k}"]
                               for k in ("ms", "plain_ms", "bound_ms")},
            # K9's yardstick in [continuity]: torch.mv on the 260k row's
-           # merged CSR, the same product at one rank
-           "library_ms": tcb["k9_library_ms"] if key == "k9" else None,
+           # merged CSR, the same product at one rank; the direction's,
+           # torch.add(z, p, alpha=beta) (no division, count or flag)
+           "library_ms": {"k9": tcb["k9_library_ms"],
+                          "direction": tsh["modes"]["row_260k"][
+                              "direction_library_ms"]}.get(key),
+           **({} if key == "k9" else {
+               "fit_continuity_library_ms": tsh["modes"]["fit_continuity"][
+                   "direction_library_ms"] if key == "direction" else None,
+               **{f"{k}{at}": tsh["modes"][label][f"{key}_{k}"]
+                  for k in ("replaced_ms", "dead_ms", "replaced_dead_ms",
+                            "dead_bound_ms")
+                  for label, at in (("row_260k", ""),
+                                    ("fit_continuity", "_fit_continuity"))},
+               "reference": {
+                   "source": "hpsdf_tpu_torch/csrc/check/"
+                             "cg_rows_reference.cu",
+                   "entry": f"hpsdf_{kernel[:-7]}_reference",
+                   "ms": tsh["modes"]["row_260k"][f"{key}_replaced_ms"],
+                   "ptxas": ptxas.get(f"{kernel[:-7]}_reference_kernel",
+                                      {})},
+               "pair_checks": {label: [m["pair_checks"],
+                                       m["pair_faults_caught"]]
+                               for label, m in tsh["modes"].items()}}),
            "two_rank_launches": tsh["two_ranks"]["launches"][name],
            "ptxas": ptxas.get(kernel, {})}
           for name, key, pre, replaces, kernel in (
@@ -9529,7 +9851,8 @@ def main():
     print(f"[seconds] {PHASE_SECONDS}", flush=True)
     print(f"[profiler] traces with no record on the device, discarded by "
           f"device_ops (the call, the host's runtime calls that put work on "
-          f"the card in it): {EMPTY_TRACES}", flush=True)
+          f"the card in it) and device_busy_ms (the call, \"busy\"): "
+          f"{EMPTY_TRACES}", flush=True)
     cont = {label: {k: v for k, v in c.items()
                     if k not in ("errs", "abs_errs")}
             for label, c in (("fit_continuity", tca), ("row_260k", tcb))}

@@ -159,6 +159,8 @@ _CHECK_SIGNATURES = {
     "hpsdf_packed_grad_form2_reference": (
         _P, _P, _I32, _I32, _I32, _I32, _I32, _P, _I64, *(_F32,) * 9, _P,
         _P, _I64, _P, _P, _P),
+    "hpsdf_cg_update_rows_reference": _SIGNATURES["hpsdf_cg_update_rows"],
+    "hpsdf_cg_direction_reference": _SIGNATURES["hpsdf_cg_direction"],
 }
 _CHECK_SIZE_SIGNATURES = {
     "hpsdf_packed_grad_form2_reference_scratch": (_I64, _I32, _I32),

@@ -613,12 +613,14 @@ def cg_update_plain(alpha, rz, p: torch.Tensor, Ap: torch.Tensor,
 
 
 # The f64 scalars of the kernels' state (csrc/continuity.cu kRz ...
-# kRrPart): rz_part and rr_part are a rank's r.z and r.r in the row-sharded
-# CG, before and after their all-reduce
+# kRzOld): rz_part and rr_part are a rank's r.z and r.r in the row-sharded
+# CG, before and after their all-reduce; rz_old is rz as K9u's first launch
+# found it, which its second divides by
 _SC = dict(rz=0, alpha=1, beta=2, rr=3, thresh=4, pap=5, rz_part=6,
-           rr_part=7)
-# and its integers (kK ... kCount): iterations, max_iter, flag, block count
-_ST = dict(k=0, max_iter=1, active=2, count=3)
+           rr_part=7, rz_old=8)
+# and its integers (kK ... kLive): iterations, max_iter, flag, block count,
+# and the flag as K9u's first launch found it, which its second tests
+_ST = dict(k=0, max_iter=1, active=2, count=3, live=4)
 # threads a block of K9 and of the persistent launch (csrc/continuity.cu
 # kThreads)
 _BLOCK_THREADS = 256
@@ -626,17 +628,17 @@ _BLOCK_THREADS = 256
 
 class _State(NamedTuple):
     """The kernels' state on the card and the partial sums of a launch."""
-    sc: torch.Tensor          # f64 [6]
-    st: torch.Tensor          # i32 [4]
+    sc: torch.Tensor          # f64 [len(_SC)]
+    st: torch.Tensor          # i32 [len(_ST)]
     partials: torch.Tensor    # f64
 
     @classmethod
     def new(cls, device, thresh, max_iter: int, alpha=0.0, rz=0.0):
         sc = torch.zeros(len(_SC), dtype=torch.float64, device=device)
         sc[_SC["alpha"]] = alpha
-        sc[_SC["rz"]] = rz
+        sc[_SC["rz"]] = sc[_SC["rz_old"]] = rz
         sc[_SC["thresh"]] = thresh
-        st = torch.tensor([0, max_iter, 1, 0], dtype=torch.int32,
+        st = torch.tensor([0, max_iter, 1, 0, 1], dtype=torch.int32,
                           device=device)
         lib = _kernels.load()
         partials = torch.empty(lib.hpsdf_cg_scratch() // 8,
@@ -1006,11 +1008,25 @@ def _matvec_rows_launch(blk: RowBlock, s: float, p, y, state: _State):
     cg_matvec_rows.launches += 1
 
 
+def _check_aligned(name, *tensors):
+    """Each tensor's data 16-byte aligned (K9u's launches read rows in
+    pairs)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: needs 16-byte aligned tensors")
+
+
+def _aligned(t):
+    """t, or a copy of it where its data is not 16-byte aligned."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _update_rows_launch(init: bool, n: int, Ap, minv, x, r, p, z,
                         state: _State):
     """K9u's first launch once over the first n rows."""
     _check_cuda("cg_update_rows", torch.float64, minv.shape[0], Ap, minv, x,
                 r, p, z)
+    _check_aligned("cg_update_rows", Ap, minv, x, r, p, z)
     if not 0 < n <= minv.shape[0]:
         raise ValueError(f"cg_update_rows: {n} rows of {minv.shape[0]}")
     lib = _kernels.load()
@@ -1025,6 +1041,7 @@ def _update_rows_launch(init: bool, n: int, Ap, minv, x, r, p, z,
 def _direction_launch(init: bool, n: int, z, p, state: _State):
     """K9u's second launch once over the first n rows."""
     _check_cuda("cg_direction", torch.float64, z.shape[0], z, p)
+    _check_aligned("cg_direction", z, p)
     if not 0 < n <= z.shape[0]:
         raise ValueError(f"cg_direction: {n} rows of {z.shape[0]}")
     lib = _kernels.load()
@@ -1048,28 +1065,30 @@ def cg_matvec_rows(blk: RowBlock, s: float, p: torch.Tensor):
 
 def cg_update_rows(init: bool, rz, pap, p, Ap, minv, x, r):
     """K9u's first launch once, as ``cg_update_rows_plain``: (x, r, z, r.z,
-    r.r). Kernel K9u on CUDA tensors (x and r are copied first; the dots as
-    0-d tensors on the card); the plain version on CPU tensors."""
+    r.r). Kernel K9u on CUDA tensors (x and r are copied first, and any
+    input not 16-byte aligned; the dots as 0-d tensors on the card); the
+    plain version on CPU tensors."""
     if minv.device.type == "cpu":
         return cg_update_rows_plain(init, rz, pap, p, Ap, minv, x, r)
     state = _State.new(minv.device, 0.0, 1, rz=0.0 if init else rz)
     state.sc[_SC["pap"]] = 1.0 if init else pap
     x, r, z = x.clone(), r.clone(), torch.empty_like(r)
-    p = torch.zeros_like(r) if p is None else p
-    _update_rows_launch(init, minv.shape[0], r if Ap is None else Ap, minv,
-                        x, r, p, z, state)
+    p = torch.zeros_like(r) if p is None else _aligned(p)
+    _update_rows_launch(init, minv.shape[0], r if Ap is None else _aligned(Ap),
+                        _aligned(minv), x, r, p, z, state)
     return x, r, z, state.sc[_SC["rz_part"]], state.sc[_SC["rr_part"]]
 
 
 def cg_direction(init: bool, rz, rz_new, z, p):
     """K9u's second launch once, as ``cg_direction_plain``. Kernel K9u on
-    CUDA tensors (p is copied first); the plain version on CPU tensors."""
+    CUDA tensors (p is copied first, and z where it is not 16-byte
+    aligned); the plain version on CPU tensors."""
     if z.device.type == "cpu":
         return cg_direction_plain(init, rz, rz_new, z, p)
     state = _State.new(z.device, 0.0, 2 ** 31 - 1, rz=rz)
     state.sc[_SC["rz_part"]] = rz_new
     p = p.clone()
-    _direction_launch(init, z.shape[0], z, p, state)
+    _direction_launch(init, z.shape[0], _aligned(z), p, state)
     return p
 
 

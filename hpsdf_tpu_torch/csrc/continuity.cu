@@ -55,12 +55,16 @@
 //       share of p.y left in sc[kPAp]; alpha is not set.
 //   K9u's first launch, cg_update_rows_kernel: alpha = rz / p.Ap from the
 //       reduced sum, x += alpha p, r -= alpha Ap, z = r / diag kept in z,
-//       and the rank's r.z and r.r into sc[kRzPart] and sc[kRrPart].
+//       and the rank's r.z and r.r into sc[kRzPart] and sc[kRrPart]; it
+//       copies the flag to st[kLive] and rz to sc[kRzOld].
 //   K9u's second launch, cg_direction_kernel: beta = r.z / rz from the
-//       reduced sums, p = z + beta p; its last block sets beta, rz, r.r, k
-//       and the flag, the reference's stopping rule on the global dots.
-// Each adds its blocks' partial sums in block order in its last block (an
-// atomic count of the blocks done), so the scalars never leave the card.
+//       reduced sum and the copied rz, p = z + beta p; its block 0 sets
+//       beta, rz, r.r, k and the flag, the reference's stopping rule on the
+//       global dots. It counts no block and has no fence: no block of a
+//       launch reads a slot that another block of it writes.
+// Both take rows in pairs (16-byte loads) and read their flag and scalars
+// in one round trip; the scalars never leave the card. Their forms before
+// the redesign, a thread a row, are csrc/check/cg_rows_reference.cu.
 //
 // Scalars on the card. Each launch writes one partial sum a block; K9's last
 // block to finish (an atomic count of the blocks done) and each of K9u's and
@@ -93,9 +97,9 @@ constexpr int kRowsPerWarp = 32 / kLanes;
 constexpr int kMaxBlocks = 4096;
 
 // the f64 scalars of the iteration (continuity._SC)
-enum { kRz = 0, kAlpha, kBeta, kRr, kThresh, kPAp, kRzPart, kRrPart };
+enum { kRz = 0, kAlpha, kBeta, kRr, kThresh, kPAp, kRzPart, kRrPart, kRzOld };
 // and the integers (continuity._ST)
-enum { kK = 0, kMaxIter, kActive, kCount };
+enum { kK = 0, kMaxIter, kActive, kCount, kLive };
 
 // Sums v over the block in a fixed order (a tree of shuffles in each warp,
 // then warp 0 over the warps); thread 0 holds the sums.
@@ -661,11 +665,77 @@ cg_update_kernel(int64_t n, const double* __restrict__ Ap,
   }
 }
 
+// --- K9u's two launches in the row-sharded CG -----------------------------
+//
+// A thread takes rows in pairs (16-byte loads and stores; the last row of
+// an odd n alone), a pair a thread where the rows fit one wave, the grid
+// sized to the rows. Each launch reads its flag and the scalars it needs
+// together, before the uniform test, so a launch waits one round trip to L2
+// before its first row and a dead launch reads no row. Bound: bytes (the
+// first reads Ap, 1/diag, x, r and p and writes x, r and z, 64 bytes a row;
+// the second reads z and p and writes p, 24). At the fit + continuity
+// solve's 40,960 rows that is under a microsecond of the card's rate, so a
+// launch's fixed cost decides: hence one round trip for the scalars, no
+// count or fence in the second launch, one warp adding the first's block
+// sums, and programmatic dependent launch, which lets a launch start while
+// the collective before it ends.
+
+// A flag or scalar that no block of the launch writes, through the
+// read-only path: a warp's load is served by its SM's L1 after the first,
+// not by one L2 slice for every warp of the launch. The asm keeps the loads
+// where they stand, ahead of the test on the flag.
+__device__ __forceinline__ int load_flag(const int* a) {
+  int v;
+  asm volatile("ld.global.nc.b32 %0, [%1];" : "=r"(v) : "l"(a));
+  return v;
+}
+
+__device__ __forceinline__ double load_scalar(const double* a) {
+  double v;
+  asm volatile("ld.global.nc.f64 %0, [%1];" : "=d"(v) : "l"(a));
+  return v;
+}
+
+// rows 2q and 2q + 1 of v; row 2q alone (and 0) where 2q + 1 == n
+__device__ __forceinline__ double2 load_pair(const double* v, int64_t q,
+                                             bool pair) {
+  return pair ? reinterpret_cast<const double2*>(v)[q]
+              : make_double2(v[2 * q], 0.0);
+}
+
+__device__ __forceinline__ void store_pair(double* v, int64_t q, bool pair,
+                                           double2 a) {
+  if (pair)
+    reinterpret_cast<double2*>(v)[q] = a;
+  else
+    v[2 * q] = a.x;
+}
+
+// Programmatic dependent launch: the launch may start while the operation
+// before it on the stream ends, and waits here for it, and for its writes,
+// before any read.
+__device__ __forceinline__ void wait_for_previous() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// The warp's v summed in lane order (a tree of shuffles); lane 0 holds it.
+template <int N>
+__device__ __forceinline__ void warp_sum(double (&v)[N]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] += __shfl_down_sync(0xffffffffu, v[j], o);
+}
+
 // K9u's first launch in the row-sharded CG, over the rank's n rows: alpha =
 // rz / p.Ap (p.Ap all-reduced), x += alpha p, r -= alpha Ap, z = r / diag
 // (times the reciprocal) kept in z, and the rank's r.z and r.r into
 // sc[kRzPart] and sc[kRrPart]. The first form (INIT) leaves x and r as they
-// are (x, p and Ap are not read).
+// are (x, p and Ap are not read). Block 0 copies the flag to st[kLive] and
+// rz to sc[kRzOld] for the second launch, which rewrites both originals.
+// The sums: each block's in a fixed order (block_sum); the last block to
+// finish (an atomic count of the blocks) adds them in block order with one
+// warp, so no second block-wide sum follows the count.
 template <bool INIT>
 __global__ void __launch_bounds__(kThreads)
 cg_update_rows_kernel(int64_t n, const double* __restrict__ Ap,
@@ -674,63 +744,118 @@ cg_update_rows_kernel(int64_t n, const double* __restrict__ Ap,
                       const double* __restrict__ p, double* __restrict__ z,
                       double* __restrict__ partials, double* sc, int* st) {
   __shared__ double smem[2 * kWarps];
-  __shared__ bool last;
-  if (!INIT && !st[kActive]) return;          // uniform over the launch
-  const double alpha = INIT ? 0.0 : sc[kRz] / sc[kPAp];
+  wait_for_previous();
+  const int active = INIT ? 1 : load_flag(st + kActive);
+  const double rz = load_scalar(sc + kRz);
+  const double pap = INIT ? 1.0 : load_scalar(sc + kPAp);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    st[kLive] = active;
+    if (active) sc[kRzOld] = rz;
+  }
+  if (!active) return;                        // uniform over the launch
+  const double alpha = INIT ? 0.0 : rz / pap;
+  const int64_t pairs = (n + 1) >> 1;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   double v[2] = {0.0, 0.0};                   // r.z, r.r
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    double ri = r[i];
+#pragma unroll 2
+  for (int64_t q = (int64_t)blockIdx.x * kThreads + threadIdx.x; q < pairs;
+       q += stride) {
+    const bool pair = 2 * q + 1 < n;
+    double2 ri = load_pair(r, q, pair);
+    const double2 mi = pair ? __ldg(reinterpret_cast<const double2*>(minv) + q)
+                            : make_double2(__ldg(minv + 2 * q), 0.0);
     if (!INIT) {
-      x[i] = __fma_rn(alpha, p[i], x[i]);
-      ri = __fma_rn(-alpha, Ap[i], ri);
-      r[i] = ri;
+      const double2 pi = load_pair(p, q, pair), ai = load_pair(Ap, q, pair);
+      double2 xi = load_pair(x, q, pair);
+      xi.x = __fma_rn(alpha, pi.x, xi.x);
+      xi.y = __fma_rn(alpha, pi.y, xi.y);
+      ri.x = __fma_rn(-alpha, ai.x, ri.x);
+      ri.y = __fma_rn(-alpha, ai.y, ri.y);
+      store_pair(x, q, pair, xi);
+      store_pair(r, q, pair, ri);
     }
-    const double zi = __dmul_rn(__ldg(minv + i), ri);
-    z[i] = zi;
-    v[0] = __fma_rn(ri, zi, v[0]);
-    v[1] = __fma_rn(ri, ri, v[1]);
+    const double2 zi = make_double2(__dmul_rn(mi.x, ri.x),
+                                    __dmul_rn(mi.y, ri.y));
+    store_pair(z, q, pair, zi);
+    v[0] = __fma_rn(ri.x, zi.x, v[0]);
+    v[1] = __fma_rn(ri.x, ri.x, v[1]);
+    if (pair) {
+      v[0] = __fma_rn(ri.y, zi.y, v[0]);
+      v[1] = __fma_rn(ri.y, ri.y, v[1]);
+    }
   }
-  if (!last_block_sums(v, partials, st, smem, &last) || threadIdx.x) return;
+  block_sum(v, smem);
+  // warp 0 finishes: thread 0 stores the block's sums and counts the block
+  // done; in the last block to finish, warp 0 adds every block's sums
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  unsigned done = 0;
+  if (lane == 0) {
+    partials[blockIdx.x] = v[0];
+    partials[gridDim.x + blockIdx.x] = v[1];
+    __threadfence();
+    done = atomicAdd(reinterpret_cast<unsigned*>(st + kCount), 1u);
+  }
+  if (__shfl_sync(0xffffffffu, done, 0) != gridDim.x - 1) return;
+  __threadfence();
+  v[0] = v[1] = 0.0;
+  for (int b = lane; b < (int)gridDim.x; b += 32) {
+    v[0] += __ldcg(partials + b);
+    v[1] += __ldcg(partials + gridDim.x + b);
+  }
+  warp_sum(v);
+  if (lane) return;
+  st[kCount] = 0;
   if (!INIT) sc[kAlpha] = alpha;
   sc[kRzPart] = v[0];
   sc[kRrPart] = v[1];
 }
 
 // K9u's second launch in the row-sharded CG, over the rank's n rows: beta =
-// r.z / rz (r.z all-reduced), p = z + beta p (the first form: p = z). Every
-// block reads rz before it counts itself done, and the last block then sets
-// beta, rz, r.r, the count k and the flag: r.r > tol^2 b.b and k < max_iter.
+// r.z / rz (r.z all-reduced, rz as the first launch copied it), p = z +
+// beta p (the first form: p = z). Its test reads the flag as the first
+// launch copied it; block 0 sets beta, rz, r.r, the count k and the flag,
+// r.r > tol^2 b.b and k < max_iter, slots no block of the launch reads.
 template <bool INIT>
 __global__ void __launch_bounds__(kThreads)
 cg_direction_kernel(int64_t n, const double* __restrict__ z,
                     double* __restrict__ p, double* sc, int* st) {
-  __shared__ bool last;
-  if (!INIT && !st[kActive]) return;          // uniform over the launch
-  const double rz_new = sc[kRzPart];
-  const double beta = INIT ? 0.0 : rz_new / sc[kRz];
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride)
-    p[i] = INIT ? z[i] : __fma_rn(beta, p[i], z[i]);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    last = atomicAdd(reinterpret_cast<unsigned*>(st + kCount), 1u) ==
-           gridDim.x - 1;
+  wait_for_previous();
+  const int live = INIT ? 1 : load_flag(st + kLive);
+  const double rz_new = load_scalar(sc + kRzPart);
+  const double rz = INIT ? 1.0 : load_scalar(sc + kRzOld);
+  const bool writer = blockIdx.x == 0 && threadIdx.x == 0;
+  int k = 0, max_iter = 0;
+  double rr = 0.0, thresh = 0.0;
+  if (writer) {
+    k = INIT ? 0 : st[kK] + 1;
+    max_iter = st[kMaxIter];
+    rr = sc[kRrPart];
+    thresh = sc[kThresh];
   }
-  __syncthreads();
-  if (!last || threadIdx.x) return;
-  __threadfence();
-  const int k = INIT ? 0 : st[kK] + 1;
-  const double rr = sc[kRrPart];
-  st[kCount] = 0;
-  sc[kBeta] = beta;
-  sc[kRz] = rz_new;
-  sc[kRr] = rr;
-  st[kK] = k;
-  st[kActive] = rr > sc[kThresh] && k < st[kMaxIter];
+  if (!live) return;                          // uniform over the launch
+  const double beta = INIT ? 0.0 : rz_new / rz;
+  if (writer) {
+    sc[kBeta] = beta;
+    sc[kRz] = rz_new;
+    sc[kRr] = rr;
+    st[kK] = k;
+    st[kActive] = rr > thresh && k < max_iter;
+  }
+  const int64_t pairs = (n + 1) >> 1;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t q = (int64_t)blockIdx.x * kThreads + threadIdx.x; q < pairs;
+       q += stride) {
+    const bool pair = 2 * q + 1 < n;
+    const double2 zi = load_pair(z, q, pair);
+    double2 pi = zi;
+    if (!INIT) {
+      pi = load_pair(p, q, pair);
+      pi.x = __fma_rn(beta, pi.x, zi.x);
+      pi.y = __fma_rn(beta, pi.y, zi.y);
+    }
+    store_pair(p, q, pair, pi);
+  }
 }
 
 // The blocks a launch of `kernel` takes for `work` items of `per_block`:
@@ -778,6 +903,52 @@ cudaError_t launch_update(int64_t n, const double* Ap, const double* minv,
     return e;
   }
   return cudaGetLastError();
+}
+
+template <typename... T>
+bool aligned16(const T*... v) {
+  return ((reinterpret_cast<uintptr_t>(v) % 16 == 0) && ...);
+}
+
+// K9u's launches in the row-sharded CG: a pair of rows a thread, at most the
+// blocks that stay resident; with programmatic dependent launch.
+template <typename... A, typename... B>
+cudaError_t launch_rows(void (*kernel)(int64_t, A...), int64_t n, int* cache,
+                        cudaStream_t stream, B... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid_for(kernel, (n + 1) / 2, kThreads, cache));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, n, args...);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return e;
+  }
+  return cudaGetLastError();
+}
+
+template <bool INIT>
+cudaError_t launch_update_rows(int64_t n, const double* Ap,
+                               const double* minv, double* x, double* r,
+                               const double* p, double* z, double* partials,
+                               double* sc, int* st, void* stream) {
+  static int cache = 0;
+  return launch_rows(cg_update_rows_kernel<INIT>, n, &cache,
+                     (cudaStream_t)stream, Ap, minv, x, r, p, z, partials,
+                     sc, st);
+}
+
+template <bool INIT>
+cudaError_t launch_direction(int64_t n, const double* z, double* p,
+                             double* sc, int* st, void* stream) {
+  static int cache = 0;
+  return launch_rows(cg_direction_kernel<INIT>, n, &cache,
+                     (cudaStream_t)stream, z, p, sc, st);
 }
 
 Faces faces(const int* leaves, const int* slots, const int* xrowptr,
@@ -926,48 +1097,29 @@ extern "C" int hpsdf_face_matvec_rows(const int* leaves, const int* slots,
                                  partials, sc, st, stream);
 }
 
-// K9u's first launch over n rows (init = 1: z = minv r and the dots only).
+// K9u's first launch over n rows (init = 1: z = minv r and the dots only);
+// the vectors 16-byte aligned.
 extern "C" int hpsdf_cg_update_rows(int init, int64_t n, const double* Ap,
                                     const double* minv, double* x, double* r,
                                     const double* p, double* z,
                                     double* partials, double* sc, int* st,
                                     void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  static int cache[2] = {0, 0};
-  cudaStream_t stream_ = (cudaStream_t)stream;
-  if (init) {
-    const int blocks = grid_for(cg_update_rows_kernel<true>, n, kThreads,
-                                cache);
-    cg_update_rows_kernel<true><<<blocks, kThreads, 0, stream_>>>(
-        n, Ap, minv, x, r, p, z, partials, sc, st);
-  } else {
-    const int blocks = grid_for(cg_update_rows_kernel<false>, n, kThreads,
-                                cache + 1);
-    cg_update_rows_kernel<false><<<blocks, kThreads, 0, stream_>>>(
-        n, Ap, minv, x, r, p, z, partials, sc, st);
-  }
-  return (int)cudaGetLastError();
+  if (n <= 0 || !aligned16(Ap, minv, x, r, p, z))
+    return (int)cudaErrorInvalidValue;
+  return (int)(init ? launch_update_rows<true>(n, Ap, minv, x, r, p, z,
+                                               partials, sc, st, stream)
+                    : launch_update_rows<false>(n, Ap, minv, x, r, p, z,
+                                                partials, sc, st, stream));
 }
 
-// K9u's second launch over n rows (init = 1: p = z and iteration 0's state).
+// K9u's second launch over n rows (init = 1: p = z and iteration 0's
+// state); the vectors 16-byte aligned.
 extern "C" int hpsdf_cg_direction(int init, int64_t n, const double* z,
                                   double* p, double* sc, int* st,
                                   void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  static int cache[2] = {0, 0};
-  cudaStream_t stream_ = (cudaStream_t)stream;
-  if (init) {
-    const int blocks = grid_for(cg_direction_kernel<true>, n, kThreads,
-                                cache);
-    cg_direction_kernel<true><<<blocks, kThreads, 0, stream_>>>(n, z, p, sc,
-                                                               st);
-  } else {
-    const int blocks = grid_for(cg_direction_kernel<false>, n, kThreads,
-                                cache + 1);
-    cg_direction_kernel<false><<<blocks, kThreads, 0, stream_>>>(n, z, p,
-                                                                sc, st);
-  }
-  return (int)cudaGetLastError();
+  if (n <= 0 || !aligned16(z, p)) return (int)cudaErrorInvalidValue;
+  return (int)(init ? launch_direction<true>(n, z, p, sc, st, stream)
+                    : launch_direction<false>(n, z, p, sc, st, stream));
 }
 
 // `iters` iterations in one persistent cooperative launch of `blocks`

@@ -205,9 +205,10 @@ def test_lod_tables_stay_with_the_packed_tree(trees):
 
 def test_reference_kernel_is_on_no_path():
     """The kernels K3, K4, K7 (and its form 2), G's backward, K8, K8's
-    node-range mode, K11, K6, K13's terms, K1v and K1h, and K5h replaced
-    are built into a library of their own, which no module of the package
-    loads: only chip_smoke.py does, to hold the shipped kernels to them."""
+    node-range mode, K11, K6, K13's terms, K1v and K1h, K5h and the
+    row-sharded CG's two K9u launches replaced are built into a library of
+    their own, which no module of the package loads: only chip_smoke.py
+    does, to hold the shipped kernels to them."""
     import glob
     import os
 
@@ -221,7 +222,8 @@ def test_reference_kernel_is_on_no_path():
         "coeff_scatter_nodes_reference.cu", "cone_reference.cu",
         "bvh_walk_reference.cu", "fit_reference.cu",
         "inverse_terms_reference.cu", "query_vjp_reference.cu",
-        "packed_grad_form2_reference.cu", "packed_hvp_reference.cu"}
+        "packed_grad_form2_reference.cu", "packed_hvp_reference.cu",
+        "cg_rows_reference.cu"}
     assert not main & check
     assert _kernels.library_path("check") != _kernels.library_path()
     pkg = os.path.dirname(_kernels.__file__)
@@ -243,6 +245,11 @@ def test_reference_kernel_is_on_no_path():
     with open(os.path.join(pkg, "csrc", "check",
                            "packed_hvp_reference.cu")) as fh:
         assert 'extern "C" int hpsdf_packed_hvp_reference(' in fh.read()
+    with open(os.path.join(pkg, "csrc", "check",
+                           "cg_rows_reference.cu")) as fh:
+        text = fh.read()
+    assert 'extern "C" int hpsdf_cg_update_rows_reference(' in text
+    assert 'extern "C" int hpsdf_cg_direction_reference(' in text
     with open(os.path.join(pkg, "csrc", "check", "fit_reference.cu")) as fh:
         text = fh.read()
     assert 'extern "C" int hpsdf_fit_points_reference(' in text

@@ -129,7 +129,7 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                                    "K13", "K6", "K6 points", "K13 vjp",
                                    "K13 ref", "K8 sort", "K1h", "K7 form2",
                                    "K8g", "K5h", "K1v", "K1 leaf", "K1c",
-                                   "K5 save", "K2 keys"],
+                                   "K5 save", "K2 keys", "rows ref"],
                          ids=["clean", "spills", "march_spills",
                               "backward_spills", "csr_spills",
                               "fused_spills", "cg_spills", "chunk_spills",
@@ -144,7 +144,7 @@ def _ptxas_entry(kernel, deg, grad, stack=0, regs=56, args=None,
                               "grad_scatter_spills", "hvp_spills",
                               "vjp_spills", "leaf_store_spills",
                               "centre_spills", "normals_save_spills",
-                              "keys_save_spills"])
+                              "keys_save_spills", "rows_reference_spills"])
 def test_ptxas_check(monkeypatch, spill):
     """chip_smoke.ptxas_check reads the kernels' instantiations from
     ptxas's report (the lines -Xptxas -v prints) and fails when K1, K3, K4,
@@ -162,8 +162,9 @@ def test_ptxas_check(monkeypatch, spill):
     mode) at degree 3 or 5, either of K6's
     launches (at any degree 2..11, f64 or f32), or, in the check
     library's report,
-    K13's terms as they were before their redesign has a stack frame or
-    spills; every instantiation of K6's two kernels must be in the report.
+    K13's terms or the row-sharded CG's two K9u launches as they were
+    before their redesigns has a stack frame or spills; every
+    instantiation of K6's two kernels must be in the report.
     The check library's K1v, K1h, K7's form 2 and K5h as they were are
     read, spills or not, for their registers."""
     from hpsdf_tpu_torch import _kernels
@@ -279,6 +280,13 @@ def test_ptxas_check(monkeypatch, spill):
         _ptxas_entry("packed_hvp_reference_kernel", d, None,
                      args=f"Li{d}ELi{m}E", regs=72, stack=8 * (d == 5))
         for d in (3, 5) for m in (0, 1))
+    for kernel in ("cg_update_rows_reference_kernel",
+                   "cg_direction_reference_kernel"):
+        for init in (0, 1):
+            check_report += _ptxas_entry(
+                kernel, 0, None, regs=32, args=f"Lb{init}E",
+                stack=8 if spill == "rows ref" and init
+                and kernel == "cg_direction_reference_kernel" else 0)
     for t in "df":
         for d in range(2, 12):
             report += _ptxas_entry(
@@ -319,7 +327,8 @@ def test_ptxas_check(monkeypatch, spill):
                 "K5 save": "K5 normals saving 5/save: stack 8",
                 "K2 keys": "K2 fused keys saving 3/keys: stack 8",
                 "K8g": "K8g 5: stack 8",
-                "K5h": "K5h 3/values: stack 8"}[spill]):
+                "K5h": "K5h 3/values: stack 8",
+                "rows ref": "K9u direction reference init: stack 8"}[spill]):
             chip_smoke.ptxas_check()
         return
     found = chip_smoke.ptxas_check()
@@ -362,7 +371,9 @@ def test_ptxas_check(monkeypatch, spill):
     assert found["fit_project_kernel"] == {
         f"{d}/{t}": [46, 0, 0, 0] for d in range(2, 12)
         for t in ("f64", "f32")}
-    for kernel in ("cg_update_rows_kernel", "cg_direction_kernel"):
+    for kernel in ("cg_update_rows_kernel", "cg_direction_kernel",
+                   "cg_update_rows_reference_kernel",
+                   "cg_direction_reference_kernel"):
         assert found[kernel] == {k: [32, 0, 0, 0]
                                  for k in ("init", "iteration")}
     assert found["cg_update_kernel"] == {k: [32, 0, 0, 0]
